@@ -1,0 +1,56 @@
+"""Unified model API: ``build_model(cfg)`` -> :class:`ModelApi`.
+
+The port's façade over the dense family; serving and scoring go through it.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Iterator, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.models.layers import ParamDef, ParamTree, init_from_schema, torch_dtype
+
+
+def _leaves(node) -> Iterator[ParamDef]:
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    else:
+        yield node
+
+
+@dataclass(frozen=True)
+class ModelApi:
+    cfg: ModelConfig
+    schema: Dict[str, Any]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch_dtype(self.cfg)
+
+    # ---- params ----------------------------------------------------------
+    def init(self, generator: torch.Generator, device: torch.device | str = "cuda") -> ParamTree:
+        return init_from_schema(self.schema, self.dtype, generator, device)
+
+    def param_count(self) -> int:
+        return sum(math.prod(p.shape) for p in _leaves(self.schema))
+
+    # ---- serving ---------------------------------------------------------
+    def prefill(self, params, batch, cache_len: Optional[int] = None):
+        return transformer.prefill(params, batch, self.cfg, cache_len)
+
+    def decode_step(self, params, state, token, sliding_window: int = 0):
+        return transformer.decode_step(params, state, token, self.cfg, sliding_window)
+
+    def init_decode_state(self, batch: int, cache_len: int, device: torch.device | str = "cuda"):
+        return transformer.init_decode_state(self.cfg, batch, cache_len, self.dtype, device)
+
+
+def build_model(cfg: ModelConfig) -> ModelApi:
+    """Dense family only; other families raise NotImplementedError."""
+    return ModelApi(cfg=cfg, schema=transformer.model_schema(cfg))

@@ -1,0 +1,225 @@
+"""Decoder-only transformer, dense family, as functions over a ParamTree.
+
+Torch twin of the dense branch of ``repro.models.transformer``.  Depth is
+a Python loop over the layer-stacked ``[L, ...]`` parameters (the JAX
+package scans over them).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (
+    ParamDef,
+    attention_schema,
+    decode_attention,
+    embed_schema,
+    ffn_schema,
+    lm_head_schema,
+    logits_fn,
+    multihead_attention,
+    rms_norm,
+    rope_cos_sin,
+    stacked,
+    swiglu_ffn,
+    torch_dtype,
+)
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP queue A)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# schemas
+# ---------------------------------------------------------------------------
+
+
+def layer_schema(cfg: ModelConfig) -> Dict[str, Any]:
+    """Schema of ONE layer (unstacked)."""
+    _require_dense(cfg)
+    d = cfg.d_model
+    return {
+        "attn": attention_schema(cfg),
+        "norm_attn": ParamDef((d,), init="ones"),
+        "ffn": ffn_schema(cfg),
+        "norm_ffn": ParamDef((d,), init="ones"),
+    }
+
+
+def model_schema(cfg: ModelConfig) -> Dict[str, Any]:
+    def stack(node):
+        if isinstance(node, dict):
+            return {k: stack(v) for k, v in node.items()}
+        return stacked(node, cfg.num_layers)
+
+    s: Dict[str, Any] = {
+        "embed": embed_schema(cfg),
+        "layers": stack(layer_schema(cfg)),
+        "final_norm": ParamDef((cfg.d_model,), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = lm_head_schema(cfg)
+    return s
+
+
+def layer_params(layers) -> List[Dict[str, Any]]:
+    """Every layer of the stacked ``params["layers"]`` as a nested dict of views.
+
+    The views are built once and kept on the tree, so a decode step does
+    not make them anew; they are rebuilt if a parameter's storage moved.
+    """
+    named = list(layers.named_parameters())
+    key = tuple(p.data_ptr() for _, p in named)
+    cached = getattr(layers, "_layer_views", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    views: List[Dict[str, Any]] = [{} for _ in range(named[0][1].shape[0])]
+    for name, p in named:
+        *path, leaf = name.split(".")
+        for view, node in zip(p.unbind(0), views):
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = view
+    layers._layer_views = (key, views)
+    return views
+
+
+# ---------------------------------------------------------------------------
+# layer body and full forward (prefill / scoring trunk)
+# ---------------------------------------------------------------------------
+
+
+def layer_forward(
+    lp,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: ModelConfig,
+    sliding_window: int = 0,
+    cache=None,
+    rope=None,
+) -> torch.Tensor:
+    """One pre-norm layer; ``cache`` (FLAT k, v caches) receives this layer's K/V.
+
+    ``rope`` is ``rope_cos_sin(positions, ...)``, computed once for all layers.
+    """
+    h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
+    x = x + multihead_attention(
+        lp["attn"], h, positions, cfg, sliding_window=sliding_window, cache=cache, rope=rope
+    )
+    return x + swiglu_ffn(lp["ffn"], rms_norm(x, lp["norm_ffn"], cfg.norm_eps))
+
+
+def forward(
+    params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: ModelConfig,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """Trunk over embedded inputs x [B,S,D] -> final-normed hidden [B,S,D]."""
+    _require_dense(cfg)
+    rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    for lp in layer_params(params["layers"]):
+        x = layer_forward(lp, x, positions, cfg, sliding_window, rope=rope)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"][tokens].to(torch_dtype(cfg))
+
+
+def arange_positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+class DecodeState(NamedTuple):
+    k_cache: torch.Tensor  # FLAT [L, B, S_max, KV*hd] (see layers.decode_attention)
+    v_cache: torch.Tensor
+    pos: int  # next position to write (kept on the host: no device sync per step)
+
+
+def init_decode_state(
+    cfg: ModelConfig,
+    batch: int,
+    cache_len: int,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cuda",
+) -> DecodeState:
+    _require_dense(cfg)
+    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads * cfg.resolved_head_dim)
+    return DecodeState(
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+        0,
+    )
+
+
+def decode_step(
+    params,
+    state: DecodeState,
+    token: torch.Tensor,  # [B, 1] int
+    cfg: ModelConfig,
+    sliding_window: int = 0,
+):
+    """One decode step: returns (logits [B, V] f32, new state).
+
+    The caches of ``state`` are updated in place; the new state shares them.
+    """
+    _require_dense(cfg)
+    h = embed_tokens(params, token, cfg)  # [B,1,D]
+    positions = torch.full(token.shape, state.pos, dtype=torch.int32, device=token.device)
+    rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    caches = zip(state.k_cache.unbind(0), state.v_cache.unbind(0))
+    for lp, (k_cache, v_cache) in zip(layer_params(params["layers"]), caches):
+        hn = rms_norm(h, lp["norm_attn"], cfg.norm_eps)
+        h = h + decode_attention(
+            lp["attn"], hn, state.pos, k_cache, v_cache, cfg,
+            sliding_window=sliding_window, rope=rope,
+        )
+        h = h + swiglu_ffn(lp["ffn"], rms_norm(h, lp["norm_ffn"], cfg.norm_eps))
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = logits_fn(params, h, cfg)[:, 0, :]
+    return logits, DecodeState(state.k_cache, state.v_cache, state.pos + 1)
+
+
+def prefill(
+    params,
+    batch: Dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    cache_len: Optional[int] = None,
+):
+    """Full forward over the prompt -> (last-token logits [B, V] f32, decode state).
+
+    The caches are ``cache_len`` long (None: the prompt length S, as in
+    JAX), so decoding continues at position S without overwriting the
+    prompt.
+    """
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    cache_len = S if cache_len is None else cache_len
+    if cache_len < S:
+        raise ValueError(f"cache_len {cache_len} is shorter than the prompt ({S})")
+    state = init_decode_state(cfg, B, cache_len, torch_dtype(cfg), tokens.device)
+    x = embed_tokens(params, tokens, cfg)
+    positions = arange_positions(B, S, tokens.device)
+    rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    for i, lp in enumerate(layer_params(params["layers"])):
+        x = layer_forward(
+            lp, x, positions, cfg, cache=(state.k_cache[i], state.v_cache[i]), rope=rope
+        )
+    h = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
+    logits = logits_fn(params, h, cfg)[:, 0, :]
+    return logits, DecodeState(state.k_cache, state.v_cache, S)

@@ -1,0 +1,100 @@
+"""Card tests of the port: each CUDA kernel against its plain version, and the
+model on the card against the same weights on the CPU.
+
+Marked ``gpu``; each test asks the ``cuda`` fixture, which skips where
+``torch.cuda.is_available()`` is false.  This file imports no JAX, so it
+runs where only PyTorch is installed:
+``python -m pytest -m gpu tests/test_torch_gpu.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import ops, ref
+from repro_torch.models import build_model
+from repro_torch.models.convert import flat_from_params, params_from_flat
+from repro_torch.serving.engine import Engine, GenerationConfig
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def tensor(rng, shape, dtype, device, scale=1.0):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(device, dtype)
+
+
+def close(got, want, tol):
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("T,D", [(1, 960), (7, 960), (512, 960), (1280, 2048), (3, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel(cuda, T, D, dtype):
+    rng = np.random.default_rng(T + D)
+    x, w = tensor(rng, (T, D), dtype, cuda, 3.0), 1 + tensor(rng, (D,), dtype, cuda, 0.1)
+    before = ops.launch_counts()["rmsnorm"]
+    got = ops.rmsnorm_op(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm"] == before + 1
+    close(got, ref.rmsnorm_ref(x, w), 2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_rmsnorm_kernel_strided_rows(cuda):
+    rng = np.random.default_rng(0)
+    x = tensor(rng, (4, 9, 960), torch.bfloat16, cuda)[:, -1:, :]  # [4, 1, 960] with row stride 9*960
+    w = 1 + tensor(rng, (960,), torch.bfloat16, cuda, 0.1)
+    close(ops.rmsnorm_op(x, w), ref.rmsnorm_ref(x, w), 2e-2)
+
+
+@pytest.mark.parametrize("B,H,KV,S,d", [
+    (1, 2, 2, 24, 64), (2, 4, 2, 100, 64), (2, 6, 2, 160, 64), (1, 8, 2, 1000, 128), (1, 4, 1, 33, 128),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel(cuda, B, H, KV, S, d, causal, dtype):
+    rng = np.random.default_rng(B * H * S + d)
+    q = tensor(rng, (B, H, S, d), dtype, cuda)
+    k = tensor(rng, (B, KV, S, d), dtype, cuda)
+    v = tensor(rng, (B, KV, S, d), dtype, cuda)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention_op(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    close(got, ref.flash_attention_ref(q, k, v, causal), 2e-2 if dtype == torch.bfloat16 else 2e-5)
+    # [B,S,H,d] memory as transposed views, read in place: the same numbers
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert torch.equal(ops.flash_attention_op(*views, causal=causal), got)
+
+
+def test_flash_kernel_rejects_head_dim_32(cuda):
+    q = torch.zeros(1, 2, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_mod.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "llama3.2-1b"])
+def test_reduced_model_card_matches_cpu(cuda, arch):
+    """Generation and scoring, f32: the kernels' path against the plain one."""
+    cfg = get_config(arch).reduced()
+    api = build_model(cfg)
+    p_gpu = api.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    p_cpu = params_from_flat(flat_from_params(p_gpu), cfg, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, size=(2, 20)))
+    gen = GenerationConfig(max_new_tokens=5, cache_len=32)
+    a = Engine(api, p_gpu, gen).generate({"tokens": toks.to(cuda)})
+    b = Engine(api, p_cpu, gen).generate({"tokens": toks})
+    close(a.logits, b.logits, 1e-4)
+    assert torch.equal(a.tokens.cpu(), b.tokens)
+    close(Engine(api, p_gpu, gen).score({"tokens": toks.to(cuda)}),
+          Engine(api, p_cpu, gen).score({"tokens": toks}), 1e-3)

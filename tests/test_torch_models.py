@@ -1,0 +1,140 @@
+"""The port's dense transformer vs ``repro.models`` on reduced configs, in f32.
+
+Weights cross from JAX through the checkpoint path keys
+(``convert.params_from_flat``).  Tolerance: ``_torch_parity.MODEL_TOL``
+(1e-4, f32 with a different summation order).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.layers import logits_fn as jax_logits_fn
+from repro.models.transformer import embed_tokens as jax_embed
+from repro.models.transformer import forward as jax_forward
+from repro.training.checkpoint import _flatten
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.models import transformer as tt
+from repro_torch.models.convert import flat_from_params, params_from_flat
+from repro_torch.models.layers import logits_fn
+
+from _torch_parity import MODEL_TOL, models, np32
+
+ARCHS = ["smollm-360m", "llama3.2-1b"]
+
+
+def close(got, want, tol=MODEL_TOL):
+    np.testing.assert_allclose(np32(got), np32(want), rtol=tol, atol=tol)
+
+
+def tokens(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(B, S))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_convert_round_trip_keeps_keys_shapes_dtypes(arch):
+    japi, jparams, tapi, tparams = models(arch)
+    flat = _flatten(jparams)
+    back = flat_from_params(tparams)
+    assert back.keys() == flat.keys()
+    for k, v in flat.items():
+        assert back[k].shape == v.shape and back[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(back[k], v)
+    assert sum(v.size for v in flat.values()) == tapi.param_count() == japi.param_count()
+    assert set(tparams.state_dict()) == {k.replace("/", ".") for k in flat}
+
+
+def test_convert_round_trip_bf16():
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(), dtype="bfloat16")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    again = params_from_flat(flat_from_params(params), cfg, "cpu")
+    for k, v in params.state_dict().items():
+        assert again.state_dict()[k].dtype == torch.bfloat16
+        assert torch.equal(again.state_dict()[k], v), k
+
+
+@pytest.mark.parametrize("mutate", ["missing", "extra", "shape"])
+def test_params_from_flat_rejects_mismatch(mutate):
+    _, jparams, tapi, _ = models("smollm-360m")
+    flat = _flatten(jparams)
+    if mutate == "missing":
+        flat.pop("layers/attn/wq")
+    elif mutate == "extra":
+        flat["layers/attn/bias"] = np.zeros(3, np.float32)
+    else:
+        flat["final_norm"] = np.ones(7, np.float32)
+    with pytest.raises(KeyError if mutate != "shape" else ValueError):
+        params_from_flat(flat, tapi.cfg, "cpu")
+
+
+def test_layer_views_are_kept_and_follow_moved_storage():
+    cfg = get_config("smollm-360m").reduced()
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    views = tt.layer_params(params["layers"])
+    assert len(views) == cfg.num_layers
+    assert tt.layer_params(params["layers"]) is views
+    wq = params["layers"]["attn"]["wq"]
+    assert torch.equal(views[1]["attn"]["wq"], wq[1])
+    wq.data = wq.data * 2  # new storage: the kept views are stale
+    again = tt.layer_params(params["layers"])
+    assert again is not views and torch.equal(again[1]["attn"]["wq"], wq[1])
+
+
+def test_non_dense_family_raises():
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(), family="moe")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_logits_match(arch):
+    japi, jparams, tapi, tparams = models(arch, weight_mult=5.0)
+    B, S = 2, 24
+    toks = tokens(japi.cfg, B, S)
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+    h, _ = jax_forward(jparams, jax_embed(jparams, jnp.asarray(toks), japi.cfg), pos, japi.cfg, None)
+    want = jax_logits_fn(jparams, h, japi.cfg)
+    t = torch.as_tensor(toks)
+    th = tt.forward(tparams, tt.embed_tokens(tparams, t, tapi.cfg), tt.arange_positions(B, S, "cpu"), tapi.cfg)
+    close(logits_fn(tparams, th, tapi.cfg), want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("cache_len", [None, 20])
+def test_prefill_logits_and_caches_match(arch, cache_len):
+    japi, jparams, tapi, tparams = models(arch, weight_mult=5.0)
+    B, S = 2, 12
+    toks = tokens(japi.cfg, B, S, seed=1)
+    want_logits, want_state = japi.prefill(jparams, {"tokens": jnp.asarray(toks)})
+    got_logits, state = tapi.prefill(tparams, {"tokens": torch.as_tensor(toks)}, cache_len=cache_len)
+    close(got_logits, want_logits)
+    assert state.pos == int(want_state.pos) == S
+    assert state.k_cache.shape[2] == (cache_len or S)
+    close(state.k_cache[:, :, :S], want_state.k_cache)
+    close(state.v_cache[:, :, :S], want_state.v_cache)
+    assert not state.k_cache[:, :, S:].any() and not state.v_cache[:, :, S:].any()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("window", [0, 6])
+def test_decode_steps_match_jax_decode(arch, window):
+    """Pure decode from init_decode_state(B, cache_len), token by token."""
+    japi, jparams, tapi, tparams = models(arch, weight_mult=5.0)
+    B, S = 2, 10
+    toks = tokens(japi.cfg, B, S, seed=2)
+    jstate = japi.init_decode_state(B, S)
+    jstep = jax.jit(lambda p, s, t: japi.decode_step(p, s, t, sliding_window=window))
+    state = tapi.init_decode_state(B, S, device="cpu")
+    for t in range(S):
+        want, jstate = jstep(jparams, jstate, jnp.asarray(toks[:, t : t + 1], jnp.int32))
+        got, state = tapi.decode_step(
+            tparams, state, torch.as_tensor(toks[:, t : t + 1]), sliding_window=window
+        )
+        close(got, want)
+    assert state.pos == S
+    close(state.k_cache, jstate.k_cache)
