@@ -1,10 +1,11 @@
 """Model configuration schema + the assigned input-shape registry.
 
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
-package).  Only the families the port serves so far are registered:
-the dense ``llama3.2-1b`` and ``smollm-360m``.  ``reduced()`` gives the
-same smoke variant as the JAX package, so the parity tests load one
-set of weights into both.
+package).  Only the configs the port serves so far are registered: the
+dense ``llama3.2-1b`` and ``smollm-360m``, the MoE
+``granite-moe-3b-a800m`` and the attention-free SSM ``mamba2-130m``.
+``reduced()`` gives the same smoke variant as the JAX package, so the
+parity tests load one set of weights into both.
 """
 
 from __future__ import annotations
@@ -145,4 +146,9 @@ def all_configs() -> Dict[str, ModelConfig]:
 
 def _load_all() -> None:
     # importing the module registers its config
-    from repro_torch.configs import llama3_2_1b, smollm_360m  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        granite_moe_3b_a800m,
+        llama3_2_1b,
+        mamba2_130m,
+        smollm_360m,
+    )

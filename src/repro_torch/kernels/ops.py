@@ -12,8 +12,10 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import moe_matmul as _moe
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def rmsnorm_op(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
@@ -36,10 +38,32 @@ def flash_attention_op(
     return _flash.flash_attention(q, k, v, causal=causal)
 
 
+def moe_matmul_op(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert product buf [E,C,D] x w [E,D,F] -> [E,C,F] in buf.dtype."""
+    if buf.device.type == "cpu":
+        return ref.moe_matmul_ref(buf, w)
+    return _moe.moe_matmul(buf, w)
+
+
+def ssd_intra_chunk_op(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, cum: torch.Tensor):
+    """Intra-chunk SSD: x [BNC,H,Q,hd], b/c [BNC,Q,N], cum [BNC,H,Q] -> (y, state f32)."""
+    if x.device.type == "cpu":
+        return ref.ssd_intra_chunk_ref(x, b, c, cum)
+    return _ssd.ssd_intra_chunk(x, b, c, cum)
+
+
+_MODULES = {
+    "rmsnorm": _rmsnorm,
+    "flash_attention": _flash,
+    "moe_matmul": _moe,
+    "ssd_intra_chunk": _ssd,
+}
+
+
 def launch_counts() -> Dict[str, int]:
-    return {"rmsnorm": _rmsnorm.launches, "flash_attention": _flash.launches}
+    return {name: mod.launches for name, mod in _MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    _rmsnorm.launches = 0
-    _flash.launches = 0
+    for mod in _MODULES.values():
+        mod.launches = 0

@@ -45,3 +45,37 @@ def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> tor
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+def moe_matmul_ref(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert product buf [E, C, D] x w [E, D, F] -> [E, C, F] in ``buf.dtype``.
+
+    f32 accumulation (the products of two bf16 values are exact in f32),
+    one rounding to the working type at the end.
+    """
+    return torch.einsum("ecd,edf->ecf", buf.float(), w.float()).to(buf.dtype)
+
+
+def ssd_intra_chunk_ref(
+    x: torch.Tensor,  # [BNC, H, Q, hd] dt-weighted inputs of every (chunk, head)
+    b: torch.Tensor,  # [BNC, Q, N]
+    c: torch.Tensor,  # [BNC, Q, N]
+    cum: torch.Tensor,  # [BNC, H, Q] inclusive cumsum of dA within the chunk
+):
+    """Intra-chunk SSD of every (chunk, head) -> (y [BNC,H,Q,hd] in x.dtype, state [BNC,H,hd,N] f32).
+
+    Per (chunk, head): y = ((C Bᵀ) ∘ L) x with L[i, j] = exp(cum_i - cum_j)
+    for i >= j and 0 above the diagonal (the exponent there is positive,
+    so it is masked before ``exp``); state = (x ∘ exp(cum_last - cum))ᵀ B.
+    B and C are shared across heads.
+    """
+    Q = x.shape[2]
+    xf, bf, cf, cumf = x.float(), b.float(), c.float(), cum.float()
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    diff = cumf[..., :, None] - cumf[..., None, :]  # [BNC, H, Q, Q]
+    L = torch.where(tri, torch.exp(diff.masked_fill(~tri, 0.0)), 0.0)
+    cb = torch.einsum("iqn,ikn->iqk", cf, bf)  # [BNC, Q, Q]
+    y = ((cb[:, None] * L) @ xf).to(x.dtype)
+    decay_to_end = torch.exp(cumf[..., -1:] - cumf)  # [BNC, H, Q]
+    state = torch.einsum("ihqd,iqn->ihdn", xf * decay_to_end[..., None], bf)
+    return y, state

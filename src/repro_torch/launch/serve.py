@@ -1,7 +1,8 @@
-"""Serving launcher: batched prefill+decode requests against a dense arch.
+"""Serving launcher: batched prefill+decode requests against a dense, MoE or SSM arch.
 
 ``python -m repro_torch.launch.serve --arch smollm-360m --requests 4 --new 16``
-runs on the card; ``--device cpu`` runs the plain versions on the CPU.
+runs on the card (also ``--arch granite-moe-3b-a800m`` or ``mamba2-130m``);
+``--device cpu`` runs the plain versions on the CPU.
 Weights are random, drawn from a seeded ``torch.Generator``.
 """
 

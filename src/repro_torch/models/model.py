@@ -1,6 +1,7 @@
 """Unified model API: ``build_model(cfg)`` -> :class:`ModelApi`.
 
-The port's façade over the dense family; serving and scoring go through it.
+The port's façade over the dense, moe and ssm families; serving and
+scoring go through it.
 """
 
 from __future__ import annotations
@@ -52,5 +53,5 @@ class ModelApi:
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    """Dense family only; other families raise NotImplementedError."""
+    """Dense, moe and ssm families; the others raise NotImplementedError."""
     return ModelApi(cfg=cfg, schema=transformer.model_schema(cfg))

@@ -1,8 +1,9 @@
-"""Decoder-only transformer, dense family, as functions over a ParamTree.
+"""Decoder-only transformer, dense / moe / ssm families, as functions over a ParamTree.
 
-Torch twin of the dense branch of ``repro.models.transformer``.  Depth is
-a Python loop over the layer-stacked ``[L, ...]`` parameters (the JAX
-package scans over them).
+Torch twin of those branches of ``repro.models.transformer``.  Depth is a
+Python loop over the layer-stacked ``[L, ...]`` parameters (the JAX
+package scans over them).  The hybrid, VLM and audio families raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     ParamDef,
     attention_schema,
@@ -29,10 +32,15 @@ from repro_torch.models.layers import (
 )
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "moe", "ssm")
+_ROADMAP_ITEM = {"hybrid": "A2", "vlm": "A8", "audio": "A8"}
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        item = _ROADMAP_ITEM.get(cfg.family, "queue A")
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP queue A)"
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP {item})"
         )
 
 
@@ -43,14 +51,17 @@ def _require_dense(cfg: ModelConfig) -> None:
 
 def layer_schema(cfg: ModelConfig) -> Dict[str, Any]:
     """Schema of ONE layer (unstacked)."""
-    _require_dense(cfg)
-    d = cfg.d_model
-    return {
-        "attn": attention_schema(cfg),
-        "norm_attn": ParamDef((d,), init="ones"),
-        "ffn": ffn_schema(cfg),
-        "norm_ffn": ParamDef((d,), init="ones"),
-    }
+    _require_ported(cfg)
+    norm = ParamDef((cfg.d_model,), init="ones")
+    if cfg.family == "ssm":
+        return {"ssm": ssm_mod.ssm_schema(cfg), "norm_ssm": norm}
+    s: Dict[str, Any] = {"attn": attention_schema(cfg), "norm_attn": norm}
+    if cfg.family == "moe":
+        s["moe"] = moe_mod.moe_schema(cfg)
+    else:
+        s["ffn"] = ffn_schema(cfg)
+    s["norm_ffn"] = norm
+    return s
 
 
 def model_schema(cfg: ModelConfig) -> Dict[str, Any]:
@@ -96,6 +107,14 @@ def layer_params(layers) -> List[Dict[str, Any]]:
 # ---------------------------------------------------------------------------
 
 
+def _ffn(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The FFN half of an attention layer: SwiGLU, or the MoE FFN (its aux losses are dropped)."""
+    h = rms_norm(x, lp["norm_ffn"], cfg.norm_eps)
+    if cfg.family == "moe":
+        return moe_mod.moe_ffn(lp["moe"], h, cfg)[0]
+    return swiglu_ffn(lp["ffn"], h)
+
+
 def layer_forward(
     lp,
     x: torch.Tensor,
@@ -109,11 +128,13 @@ def layer_forward(
 
     ``rope`` is ``rope_cos_sin(positions, ...)``, computed once for all layers.
     """
+    if cfg.family == "ssm":
+        return x + ssm_mod.ssd_scan(lp["ssm"], rms_norm(x, lp["norm_ssm"], cfg.norm_eps), cfg)
     h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
     x = x + multihead_attention(
         lp["attn"], h, positions, cfg, sliding_window=sliding_window, cache=cache, rope=rope
     )
-    return x + swiglu_ffn(lp["ffn"], rms_norm(x, lp["norm_ffn"], cfg.norm_eps))
+    return x + _ffn(lp, x, cfg)
 
 
 def forward(
@@ -124,8 +145,10 @@ def forward(
     sliding_window: int = 0,
 ) -> torch.Tensor:
     """Trunk over embedded inputs x [B,S,D] -> final-normed hidden [B,S,D]."""
-    _require_dense(cfg)
-    rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    _require_ported(cfg)
+    rope = None
+    if not cfg.attention_free:
+        rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
     for lp in layer_params(params["layers"]):
         x = layer_forward(lp, x, positions, cfg, sliding_window, rope=rope)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -145,8 +168,9 @@ def arange_positions(B: int, S: int, device) -> torch.Tensor:
 
 
 class DecodeState(NamedTuple):
-    k_cache: torch.Tensor  # FLAT [L, B, S_max, KV*hd] (see layers.decode_attention)
-    v_cache: torch.Tensor
+    k_cache: Optional[torch.Tensor]  # FLAT [L, B, S_max, KV*hd] (see layers.decode_attention)
+    v_cache: Optional[torch.Tensor]  # None where the family has no attention
+    ssm_state: Optional[torch.Tensor]  # [L, B, H, hd, N] f32; None where it has no SSM
     pos: int  # next position to write (kept on the host: no device sync per step)
 
 
@@ -157,13 +181,18 @@ def init_decode_state(
     dtype: torch.dtype = torch.bfloat16,
     device: torch.device | str = "cuda",
 ) -> DecodeState:
-    _require_dense(cfg)
-    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads * cfg.resolved_head_dim)
-    return DecodeState(
-        torch.zeros(shape, dtype=dtype, device=device),
-        torch.zeros(shape, dtype=dtype, device=device),
-        0,
-    )
+    _require_ported(cfg)
+    L = cfg.num_layers
+    kc = vc = st = None
+    if not cfg.attention_free:
+        shape = (L, batch, cache_len, cfg.num_kv_heads * cfg.resolved_head_dim)
+        kc = torch.zeros(shape, dtype=dtype, device=device)
+        vc = torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.family == "ssm":
+        st = torch.zeros(
+            (L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), device=device
+        )
+    return DecodeState(kc, vc, st, 0)
 
 
 def decode_step(
@@ -175,23 +204,33 @@ def decode_step(
 ):
     """One decode step: returns (logits [B, V] f32, new state).
 
-    The caches of ``state`` are updated in place; the new state shares them.
+    The caches and SSM states of ``state`` are updated in place (JAX
+    returns updated copies); the new state shares them.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     h = embed_tokens(params, token, cfg)  # [B,1,D]
-    positions = torch.full(token.shape, state.pos, dtype=torch.int32, device=token.device)
-    rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    caches = zip(state.k_cache.unbind(0), state.v_cache.unbind(0))
-    for lp, (k_cache, v_cache) in zip(layer_params(params["layers"]), caches):
-        hn = rms_norm(h, lp["norm_attn"], cfg.norm_eps)
-        h = h + decode_attention(
-            lp["attn"], hn, state.pos, k_cache, v_cache, cfg,
-            sliding_window=sliding_window, rope=rope,
-        )
-        h = h + swiglu_ffn(lp["ffn"], rms_norm(h, lp["norm_ffn"], cfg.norm_eps))
+    layers = layer_params(params["layers"])
+    if cfg.family == "ssm":
+        for lp, st in zip(layers, state.ssm_state.unbind(0)):
+            y, new_st = ssm_mod.ssd_decode_step(
+                lp["ssm"], rms_norm(h, lp["norm_ssm"], cfg.norm_eps), st, cfg
+            )
+            st.copy_(new_st)
+            h = h + y
+    else:
+        positions = torch.full(token.shape, state.pos, dtype=torch.int32, device=token.device)
+        rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        caches = zip(state.k_cache.unbind(0), state.v_cache.unbind(0))
+        for lp, (k_cache, v_cache) in zip(layers, caches):
+            hn = rms_norm(h, lp["norm_attn"], cfg.norm_eps)
+            h = h + decode_attention(
+                lp["attn"], hn, state.pos, k_cache, v_cache, cfg,
+                sliding_window=sliding_window, rope=rope,
+            )
+            h = h + _ffn(lp, h, cfg)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(params, h, cfg)[:, 0, :]
-    return logits, DecodeState(state.k_cache, state.v_cache, state.pos + 1)
+    return logits, state._replace(pos=state.pos + 1)
 
 
 def prefill(
@@ -204,16 +243,19 @@ def prefill(
 
     The caches are ``cache_len`` long (None: the prompt length S, as in
     JAX), so decoding continues at position S without overwriting the
-    prompt.
+    prompt.  The ssm family keeps no cache: its state is each layer's
+    final SSD state.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     cache_len = S if cache_len is None else cache_len
     if cache_len < S:
         raise ValueError(f"cache_len {cache_len} is shorter than the prompt ({S})")
-    state = init_decode_state(cfg, B, cache_len, torch_dtype(cfg), tokens.device)
     x = embed_tokens(params, tokens, cfg)
+    if cfg.family == "ssm":
+        return _prefill_with_state(params, x, cfg)
+    state = init_decode_state(cfg, B, cache_len, torch_dtype(cfg), tokens.device)
     positions = arange_positions(B, S, tokens.device)
     rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
     for i, lp in enumerate(layer_params(params["layers"])):
@@ -222,4 +264,16 @@ def prefill(
         )
     h = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
     logits = logits_fn(params, h, cfg)[:, 0, :]
-    return logits, DecodeState(state.k_cache, state.v_cache, S)
+    return logits, state._replace(pos=S)
+
+
+def _prefill_with_state(params, x: torch.Tensor, cfg: ModelConfig):
+    """Prefill for the ssm family: the logits and each layer's final SSD state."""
+    states = []
+    for lp in layer_params(params["layers"]):
+        y, st = ssm_mod.ssd_scan_with_state(lp["ssm"], rms_norm(x, lp["norm_ssm"], cfg.norm_eps), cfg)
+        x = x + y
+        states.append(st)
+    h = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
+    logits = logits_fn(params, h, cfg)[:, 0, :]
+    return logits, DecodeState(None, None, torch.stack(states), x.shape[1])

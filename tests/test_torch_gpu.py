@@ -13,7 +13,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import moe_matmul as moe_mod
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.models import build_model
 from repro_torch.models.convert import flat_from_params, params_from_flat
 from repro_torch.serving.engine import Engine, GenerationConfig
@@ -83,7 +85,62 @@ def test_flash_kernel_rejects_head_dim_32(cuda):
         flash_mod.flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "llama3.2-1b"])
+@pytest.mark.parametrize("E,C,D,F", [
+    (40, 8, 1536, 512), (40, 128, 512, 1536), (4, 24, 256, 128),  # granite decode/prefill, reduced
+    (3, 70, 100, 36), (5, 130, 200, 72), (2, 1, 8, 8), (1, 3, 7, 5),  # ragged edges, odd widths
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_matmul_kernel(cuda, E, C, D, F, dtype):
+    rng = np.random.default_rng(E * C + D * F)
+    buf = tensor(rng, (E, C, D), dtype, cuda)
+    w = tensor(rng, (E, D, F), dtype, cuda, 0.1)
+    before = ops.launch_counts()["moe_matmul"]
+    got = ops.moe_matmul_op(buf, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["moe_matmul"] == before + 1
+    assert got.dtype == dtype and got.shape == (E, C, F)
+    close(got, ref.moe_matmul_ref(buf, w), 2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+def test_moe_matmul_kernel_rejects_a_strided_buffer(cuda):
+    buf = torch.zeros(2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_mod.moe_matmul(buf.transpose(1, 2), torch.zeros(2, 8, 4, device=cuda))
+
+
+@pytest.mark.parametrize("BNC,H,Q,hd,N", [
+    (4, 24, 128, 64, 128), (8, 24, 160, 64, 128), (2, 3, 256, 64, 128),  # mamba2 prefill, score, long
+    (3, 2, 40, 32, 16), (2, 4, 100, 32, 8), (1, 2, 64, 32, 32), (2, 1, 1, 32, 16),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_chunk_kernel(cuda, BNC, H, Q, hd, N, dtype):
+    rng = np.random.default_rng(BNC * Q + hd * N)
+    x = tensor(rng, (BNC, H, Q, hd), dtype, cuda, 0.5)
+    b = tensor(rng, (BNC, Q, N), torch.float32, cuda, 0.5)
+    c = tensor(rng, (BNC, Q, N), torch.float32, cuda, 0.5)
+    cum = -torch.cumsum(torch.from_numpy(rng.random((BNC, H, Q), dtype=np.float32) * 0.1), -1).to(cuda)
+    before = ops.launch_counts()["ssd_intra_chunk"]
+    y, st = ops.ssd_intra_chunk_op(x, b, c, cum)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_intra_chunk"] == before + 1
+    y_ref, st_ref = ref.ssd_intra_chunk_ref(x, b, c, cum)
+    assert y.dtype == dtype and st.dtype == torch.float32 and st.shape == (BNC, H, hd, N)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    close(y, y_ref, tol)
+    close(st, st_ref, 1e-4)  # f32 whatever x's type: x is widened exactly
+
+
+def test_ssd_kernel_decay_above_the_diagonal_stays_finite(cuda):
+    """Steep decays make exp(cum_i - cum_j) overflow for i < j: masked, not inf * 0."""
+    x = torch.ones(1, 1, 64, 32, device=cuda)
+    b = torch.ones(1, 64, 16, device=cuda)
+    cum = -torch.arange(64, dtype=torch.float32, device=cuda)[None, None] * 10.0
+    y, st = ssd_mod.ssd_intra_chunk(x, b, b, cum)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    close(y, ref.ssd_intra_chunk_ref(x, b, b, cum)[0], 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m"])
 def test_reduced_model_card_matches_cpu(cuda, arch):
     """Generation and scoring, f32: the kernels' path against the plain one."""
     cfg = get_config(arch).reduced()

@@ -18,8 +18,10 @@ from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.models import layers as jax_layers
 from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import moe_matmul as moe_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rmsnorm_mod
+from repro_torch.kernels import ssd_scan as ssd_mod
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -112,13 +114,19 @@ def test_flash_attention_ref_takes_strided_views():
 # ---------------------------------------------------------------------------
 
 
+ZERO_COUNTS = {"rmsnorm": 0, "flash_attention": 0, "moe_matmul": 0, "ssd_intra_chunk": 0}
+
+
 def test_cpu_tensors_leave_launch_counters_at_zero():
     ops.reset_launch_counts()
     x = torch.randn(4, 64)
     ops.rmsnorm_op(x, torch.ones(64))
     q = torch.randn(1, 2, 8, 64)
     ops.flash_attention_op(q, q, q)
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    ops.moe_matmul_op(torch.randn(2, 8, 16), torch.randn(2, 16, 4))
+    ops.ssd_intra_chunk_op(torch.randn(1, 2, 8, 16), torch.randn(1, 8, 4), torch.randn(1, 8, 4),
+                           -torch.rand(1, 2, 8).cumsum(-1))
+    assert ops.launch_counts() == ZERO_COUNTS
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -128,7 +136,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.randn(1, 2, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
         flash_mod.flash_attention(q, q, q)
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_mod.moe_matmul(torch.randn(2, 8, 16), torch.randn(2, 16, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_mod.ssd_intra_chunk(torch.randn(1, 2, 8, 32), torch.randn(1, 8, 4), torch.randn(1, 8, 4),
+                                torch.randn(1, 2, 8))
+    assert ops.launch_counts() == ZERO_COUNTS
 
 
 @pytest.mark.parametrize(

@@ -1,4 +1,4 @@
-"""The port's dense transformer vs ``repro.models`` on reduced configs, in f32.
+"""The port's transformer (dense, MoE, SSM) vs ``repro.models`` on reduced configs, in f32.
 
 Weights cross from JAX through the checkpoint path keys
 (``convert.params_from_flat``).  Tolerance: ``_torch_parity.MODEL_TOL``
@@ -25,7 +25,7 @@ from repro_torch.models.layers import logits_fn
 
 from _torch_parity import MODEL_TOL, models, np32
 
-ARCHS = ["smollm-360m", "llama3.2-1b"]
+ARCHS = ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m"]
 
 
 def close(got, want, tol=MODEL_TOL):
@@ -86,8 +86,9 @@ def test_layer_views_are_kept_and_follow_moved_storage():
 
 
 def test_non_dense_family_raises():
-    cfg = dataclasses.replace(get_config("smollm-360m").reduced(), family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The families not ported yet (here the hybrid) name the ROADMAP item that brings them."""
+    cfg = dataclasses.replace(get_config("mamba2-130m").reduced(), family="hybrid")
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         build_model(cfg)
 
 
@@ -114,6 +115,11 @@ def test_prefill_logits_and_caches_match(arch, cache_len):
     got_logits, state = tapi.prefill(tparams, {"tokens": torch.as_tensor(toks)}, cache_len=cache_len)
     close(got_logits, want_logits)
     assert state.pos == int(want_state.pos) == S
+    if japi.cfg.family == "ssm":  # no cache: each layer's final SSD state
+        assert state.k_cache is None and want_state.k_cache is None
+        close(state.ssm_state, want_state.ssm_state)
+        return
+    assert state.ssm_state is None and want_state.ssm_state is None
     assert state.k_cache.shape[2] == (cache_len or S)
     close(state.k_cache[:, :, :S], want_state.k_cache)
     close(state.v_cache[:, :, :S], want_state.v_cache)
@@ -137,4 +143,24 @@ def test_decode_steps_match_jax_decode(arch, window):
         )
         close(got, want)
     assert state.pos == S
-    close(state.k_cache, jstate.k_cache)
+    for field in ("k_cache", "v_cache", "ssm_state"):
+        mine, theirs = getattr(state, field), getattr(jstate, field)
+        assert (mine is None) == (theirs is None), field
+        if mine is not None:
+            close(mine, theirs)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_teacher_forcing(arch):
+    """tests/test_models.py:68-94 across frameworks: the port's decode steps
+    against JAX's full forward over the same tokens, at every position."""
+    japi, jparams, tapi, tparams = models(arch, weight_mult=5.0)
+    B, S = 2, 16
+    toks = tokens(japi.cfg, B, S, seed=3)
+    pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+    h, _ = jax_forward(jparams, jax_embed(jparams, jnp.asarray(toks), japi.cfg), pos, japi.cfg, None)
+    want = jax_logits_fn(jparams, h, japi.cfg)
+    state = tapi.init_decode_state(B, S, device="cpu")
+    for t in range(S):
+        got, state = tapi.decode_step(tparams, state, torch.as_tensor(toks[:, t : t + 1]))
+        close(got, want[:, t])
