@@ -7,13 +7,14 @@ Phases, each of which raises on failure (nothing is caught):
 
 1. environment: the card's name and power limit; TF32 off for f32 matmuls
    and convolutions;
-2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-   nvcc per source started together, for sm_90a, printing what ptxas
-   reports;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serving paths give it and at longer ones, with the
-   kernel's, the plain version's and (where one PyTorch call computes the
-   same function) a library call's times, and the least time the card
+2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+   an empty one-thread kernel (``launch_floor.cu``), one nvcc per source
+   started together, for sm_90a, printing what ptxas reports;
+3. kernels: the launch floor (the empty kernel's time, taken as the
+   kernels' are); each kernel against its plain PyTorch version on the
+   card, at the shapes the serving paths give it and at longer ones, with
+   the kernel's, the plain version's and (where one PyTorch call computes
+   the same function) a library call's times, and the least time the card
    could take;
 4. serving at full width on seeded random bf16 weights.  Each path runs
    with the launch counts set to 0 just before it and checked just after
@@ -38,6 +39,7 @@ CUDA device it exits with code 2 before building anything.
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -58,18 +60,20 @@ FLASH_F32_TOL = 2e-5
 F32_TOL = 1e-4  # moe_matmul and ssd_intra_chunk in f32 (tests/test_kernels.py)
 # Full-width serving, last decode step vs a full forward over the same
 # tokens, absolute, on logits of at most ~3.5.  In bf16 the two paths round
-# differently at every layer: dense, decode_attention (plain torch, softmax
-# weights rounded to bf16) against the flash kernel (P kept f32), 0.043
-# seen on smollm-360m; moe, the same plus routing, 0.059 seen on granite's
+# differently at every layer: dense, decode_attention (plain torch) against
+# the flash kernel, both rounding the softmax weights to bf16, 0.043 seen
+# on smollm-360m; moe, the same plus routing, 0.044-0.059 seen on granite's
 # drop-free copy; for both the argmax must agree exactly.  ssm, the O(1)
-# recurrence against the chunked scan, 1.120 seen on mamba2-130m in two
-# runs on the same seeded weights: the two bf16 paths round differently and
-# drift apart in the JAX reference too (tests/test_torch_ssm.py holds the
-# port's drift to the reference's on the same weights), and 24 layers
-# compound it.  Its limit is 1.5x that reading, its argmax may differ only
-# where the forward's top two lie within twice the error, and the same
-# check runs again on an f32 copy of the weights, where only the summation
-# order differs (4.1e-4 seen).
+# recurrence against the chunked scan, 1.120 seen on mamba2-130m with an
+# ssd_intra_chunk kernel whose f32 arithmetic matched the plain version's
+# bit for bit, 1.534 with the tensor-core kernel (split-bf16 products,
+# ~1e-5 relative), on the same seeded weights: the two bf16 paths round
+# differently and drift apart in the JAX reference too
+# (tests/test_torch_ssm.py holds the port's drift to the reference's on the
+# same weights), and 24 layers compound it.  Its limit is 1.5x the first
+# reading, its argmax may differ only where the forward's top two lie
+# within twice the error, and the same check runs again on an f32 copy of
+# the weights, where only the summation order differs (4.1e-4 seen).
 SERVE_BF16_LOGIT_TOL = {"dense": 0.1, "moe": 0.15, "ssm": 1.7}
 SERVE_F32_LOGIT_TOL = 0.02
 # Reduced configs, f32, card vs CPU: summation order only.
@@ -291,6 +295,13 @@ def main() -> int:
     def row(err, m):
         return dict(max_abs_err=err, **{k: v for k, v in m.items() if k != "wall"})
 
+    # the floor under every launch: a one-thread kernel that does nothing
+    empty = _build.load("launch_floor").launch_floor_empty
+    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    floor_ms = cuda_ms(lambda: _build.check("launch_floor", empty(stream)))
+    print(f"[kernel] launch floor: one-thread empty kernel {floor_ms:.4f} ms [{card}]")
+
     rms_rows = {}
     rms_cases = [  # (T, D, dtype, what)
         (4 * 128, 960, torch.bfloat16, "smollm prefill"),
@@ -311,6 +322,9 @@ def main() -> int:
                     lambda: F.rms_norm(x, (D,), w, 1e-5), rmsnorm_bound(T, D, x.element_size()))
         rms_rows[(T, D, dt)] = row(err, m)
         report(f"rmsnorm T={T} D={D} {str(dt)[6:]} {what}", err, tol, m, "F.rms_norm")
+    decode_ms = rms_rows[(4, 960, torch.bfloat16)]["ms"]
+    print(f"[kernel] rmsnorm smollm decode [4, 960]: {decode_ms:.4f} ms, "
+          f"{1e3 * (decode_ms - floor_ms):.2f} us above the launch floor [{card}]")
 
     flash_rows = {}
     flash_cases = [  # (B, H, KV, S, d, causal, dtype, what)

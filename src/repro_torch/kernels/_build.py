@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("rmsnorm", "flash_attention", "moe_matmul", "ssd_scan")
+KERNELS = ("rmsnorm", "flash_attention", "moe_matmul", "ssd_scan", "launch_floor")
+MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may have
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

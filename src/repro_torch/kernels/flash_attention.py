@@ -5,14 +5,18 @@ takes any strides with a contiguous last dimension, so the model passes
 ``[B, S, H, d]`` tensors as transposed views and no copy is made.  It
 launches the kernel on CUDA tensors and raises on anything the kernel does
 not take; ``ops.flash_attention_op`` also serves CPU tensors through the
-plain version.
+plain version.  ``launch_plan`` decides the template's tiles, grid and
+shared memory in Python, where the CPU tests reach it; the kernel refuses
+a plan that is not its own.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
+from typing import Tuple
 
 import torch
 
@@ -23,12 +27,37 @@ HEAD_DIMS = (64, 128)
 
 launches = 0  # kernel launches since the last ops.reset_launch_counts()
 
+BLOCK_Q = 64  # query rows per block, both templates
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one call is launched; ``csrc/flash_attention.cu`` refuses any other."""
+
+    route: str  # "mma": bf16 tensor cores; "fma": f32 CUDA-core FMAs
+    block_q: int  # query rows per block
+    block_k: int  # keys per shared-memory tile
+    threads: int
+    grid: Tuple[int, int, int]  # bf16 (H, row tiles, B): a KV head's g query heads adjacent
+    smem_bytes: int
+
+
+def launch_plan(B: int, H: int, S: int, d: int, dtype: torch.dtype) -> LaunchPlan:
+    """The launch plan of the template ``dtype`` selects (no CUDA needed)."""
+    row_tiles = -(-S // BLOCK_Q)
+    if dtype == torch.bfloat16:
+        # Q, then K and V double-buffered: five 64-row tiles, rows padded by 16 bytes
+        return LaunchPlan("mma", BLOCK_Q, 64, 128, (H, row_tiles, B), 2 * 5 * BLOCK_Q * (d + 8))
+    # Q (rows d+4), one 32-key K tile (rows d+1) and V tile, P (rows 36), all f32
+    smem = 4 * (BLOCK_Q * (d + 4) + 32 * (d + 1) + 32 * d + BLOCK_Q * 36)
+    return LaunchPlan("fma", BLOCK_Q, 32, 128, (row_tiles, H, B), smem)
+
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("flash_attention").flash_attention_fwd
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = [i, i, p, p, p, p, i, i, i, i] + [i64] * 12 + [ctypes.c_float, i, p]
+    fn.argtypes = [i, i, p, p, p, p, i, i, i, i] + [i64] * 12 + [ctypes.c_float, i, i, i, i, i64, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -66,8 +95,8 @@ def flash_attention(
         raise ValueError(f"flash_attention kernel takes head dim {HEAD_DIMS}, got {d}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes one of {list(DTYPES)}: {q.dtype}/{k.dtype}/{v.dtype}")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"grid limit: B={B}, H={H} must be <= 65535")
+    if B > 65535 or H > 65535 or -(-S // BLOCK_Q) > 65535:
+        raise ValueError(f"grid limit: B={B}, H={H}, ceil(S/{BLOCK_Q}) must be <= 65535")
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention kernel needs CUDA tensors on one device, got {q.device}")
     if q.device.index != torch.cuda.current_device():
@@ -78,9 +107,10 @@ def flash_attention(
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_layout(name, t)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    plan = launch_plan(B, H, S, d, q.dtype)
     err = _entry()(DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   B, H, KV, S, *strides, 1.0 / math.sqrt(d), int(causal),
-                   torch.cuda.current_stream().cuda_stream)
+                   B, H, KV, S, *strides, 1.0 / math.sqrt(d), int(causal), *plan.grid,
+                   plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
     launches += 1
     _build.check("flash_attention", err)
     return out

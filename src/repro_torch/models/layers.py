@@ -175,9 +175,10 @@ def multihead_attention(
         cache[0][:, :S] = k.reshape(B, S, kv * hd)
         cache[1][:, :S] = v.reshape(B, S, kv * hd)
     # One kernel covers both JAX paths, the short einsum one and the
-    # Q_CHUNK scan (repro/models/layers.py:190-209).  Departure: P stays f32
-    # inside the flash kernel, where JAX rounds the softmax weights to
-    # x.dtype before P.V (repro/models/layers.py:208).
+    # Q_CHUNK scan (repro/models/layers.py:190-209).  In bf16 the kernel
+    # rounds the unnormalised softmax weights to bf16 before P.V, as JAX
+    # rounds the weights to x.dtype (repro/models/layers.py:208); in f32,
+    # P stays f32.
     out = ops.flash_attention_op(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal
     )

@@ -84,7 +84,8 @@ def ssd_scan_with_state(params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torc
 
     # ---- intra-chunk output and chunk states, in the kernel's layout:
     # [B,NC,Q,H,hd] -> [B*NC,H,Q,hd], cum [B,NC,Q,H] -> [B*NC,H,Q].
-    # Departure: the kernel keeps the decay-weighted scores in f32, where the
+    # Departure: the kernel keeps the decay-weighted scores at f32 precision
+    # (in f32, or for bf16 x as two bf16 halves on the tensor cores), where the
     # JAX model rounds them to xs.dtype before the product with x
     # (repro/models/ssm.py:103-105); in f32 the two agree to summation order.
     y_intra, state_chunk = ops.ssd_intra_chunk_op(

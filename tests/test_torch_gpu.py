@@ -59,9 +59,13 @@ def test_rmsnorm_kernel_strided_rows(cuda):
     close(ops.rmsnorm_op(x, w), ref.rmsnorm_ref(x, w), 2e-2)
 
 
-@pytest.mark.parametrize("B,H,KV,S,d", [
+# GQA groups g = H / KV of the served models (1, 3, 4, 5), ragged and whole 64-row tiles
+FLASH_SHAPES = [
     (1, 2, 2, 24, 64), (2, 4, 2, 100, 64), (2, 6, 2, 160, 64), (1, 8, 2, 1000, 128), (1, 4, 1, 33, 128),
-])
+] + [(2, 2 * g, 2, S, d) for g in (1, 3, 4, 5) for S in (1, 15, 64, 65, 160, 1000) for d in (64, 128)]
+
+
+@pytest.mark.parametrize("B,H,KV,S,d", FLASH_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel(cuda, B, H, KV, S, d, causal, dtype):
@@ -108,10 +112,16 @@ def test_moe_matmul_kernel_rejects_a_strided_buffer(cuda):
         moe_mod.moe_matmul(buf.transpose(1, 2), torch.zeros(2, 8, 4, device=cuda))
 
 
-@pytest.mark.parametrize("BNC,H,Q,hd,N", [
+# mamba2-130m's H = 24, and H = 7 on 70 chunks, which the launch plans split into
+# head groups of 2 (bf16) and 4 (f32) with a shorter last group; chunk lengths 1,
+# 100, 160 and 256
+SSD_SHAPES = [
     (4, 24, 128, 64, 128), (8, 24, 160, 64, 128), (2, 3, 256, 64, 128),  # mamba2 prefill, score, long
     (3, 2, 40, 32, 16), (2, 4, 100, 32, 8), (1, 2, 64, 32, 32), (2, 1, 1, 32, 16),
-])
+] + [(B, H, Q, 64, 128) for B, H in ((8, 24), (70, 7)) for Q in (1, 100, 160, 256)]
+
+
+@pytest.mark.parametrize("BNC,H,Q,hd,N", SSD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_intra_chunk_kernel(cuda, BNC, H, Q, hd, N, dtype):
     rng = np.random.default_rng(BNC * Q + hd * N)

@@ -17,6 +17,7 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.models import layers as jax_layers
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import moe_matmul as moe_mod
 from repro_torch.kernels import ops, ref
@@ -173,3 +174,74 @@ def test_flash_kernel_rejects_what_it_does_not_take(shapes, dtype, err):
     q, k = torch.zeros(qs, dtype=dtype), torch.zeros(ks, dtype=dtype)
     with pytest.raises(err):
         flash_mod.flash_attention(q, k, k)
+
+
+# ---------------------------------------------------------------------------
+# launch plans: decided in Python, checked again by the kernels on the card
+# ---------------------------------------------------------------------------
+
+# (B, H, KV, S, d): the serving paths (smollm prefill, llama and granite score),
+# chip_smoke.py's longer shapes, and the card tests' GQA groups and lengths
+FLASH_PLAN_SHAPES = sorted(
+    {(4, 15, 5, 128, 64), (8, 32, 8, 160, 64), (8, 24, 8, 160, 64), (2, 8, 2, 1000, 128)}
+    | {(4, H, KV, S, 64) for S in (160, 1024, 2048) for H, KV in ((32, 8), (15, 5))}
+    | {(2, 2 * g, 2, S, d) for g in (1, 3, 4, 5) for S in (1, 15, 64, 65, 160, 1000) for d in (64, 128)}
+)
+
+
+@pytest.mark.parametrize("B,H,KV,S,d", FLASH_PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_launch_plan(B, H, KV, S, d, dtype):
+    plan = flash_mod.launch_plan(B, H, S, d, dtype)
+    assert plan.threads == 128 and plan.block_q == 64
+    if dtype == torch.bfloat16:
+        # tensor cores; heads fastest, so a KV head's query heads are adjacent blocks
+        assert plan.route == "mma" and plan.block_k == 64
+        heads, row_tiles, batch = plan.grid
+        assert plan.smem_bytes == 2 * 5 * 64 * (d + 8)  # Q, K and V twice, rows padded 16 bytes
+    else:
+        assert plan.route == "fma" and plan.block_k == 32
+        row_tiles, heads, batch = plan.grid
+    assert (heads, batch) == (H, B)
+    assert (row_tiles - 1) * plan.block_q < S <= row_tiles * plan.block_q
+    assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
+
+
+# (BNC, H, Q, hd, N): mamba2-130m's prefill, score and 4 x 1024 tokens, chip_smoke.py's
+# other shapes, the card tests' shapes, and a chunk past the C·Bᵀ tiles a block keeps
+SSD_PLAN_SHAPES = sorted(
+    {(4, 24, 128, 64, 128), (8, 24, 160, 64, 128), (8, 24, 128, 64, 128), (6, 24, 160, 64, 128),
+     (16, 24, 256, 64, 128), (2, 3, 256, 64, 128), (3, 2, 40, 32, 16), (2, 4, 100, 32, 8),
+     (1, 2, 64, 32, 32), (2, 1, 1, 32, 16), (1, 2, 1000, 32, 400)}
+    | {(B, H, Q, 64, 128) for B, H in ((8, 24), (70, 7)) for Q in (1, 100, 160, 256)}
+)
+
+
+@pytest.mark.parametrize("BNC,H,Q,hd,N", SSD_PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_launch_plan(BNC, H, Q, hd, N, dtype):
+    plan = ssd_mod.launch_plan(BNC, H, Q, hd, N, dtype)
+    tc = dtype == torch.bfloat16
+    assert (plan.route, plan.threads) == (("mma", 128) if tc else ("fma", 256))
+    g = plan.heads_per_block
+    assert 1 <= g <= (2 if tc else 4) and g <= H
+    row_tiles = -(-Q // 64)
+    assert plan.y_blocks == row_tiles * -(-H // g)
+    assert plan.state_blocks == H * -(-N // (128 if tc else 64))
+    assert plan.grid == (plan.y_blocks + plan.state_blocks, BNC)
+    assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
+    # nothing of size Q x Q or Q x N lives in shared memory
+    assert ssd_mod.launch_plan(BNC, H, 4 * Q, hd, 4 * N, dtype).smem_bytes == plan.smem_bytes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_launch_plan_groups_heads_while_the_card_stays_full(dtype):
+    """More heads per block share C·Bᵀ; the plan stops before the y blocks thin out."""
+    per_sm = 2 if dtype == torch.bfloat16 else 1
+    for BNC, Q in ((4, 128), (8, 160), (16, 256)):  # mamba2 prefill, score, 4 x 1024
+        plan = ssd_mod.launch_plan(BNC, 24, Q, 64, 128, dtype)
+        if plan.heads_per_block > 1:
+            assert BNC * plan.y_blocks >= per_sm * ssd_mod.NUM_SMS
+    assert ssd_mod.launch_plan(8, 24, 160, 64, 128, dtype).heads_per_block > 1  # score
+    # H = 7 on 70 chunks: a group count that does not divide the heads
+    assert 7 % ssd_mod.launch_plan(70, 7, 100, 64, 128, dtype).heads_per_block
