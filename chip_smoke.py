@@ -28,8 +28,22 @@ Phases, each of which raises on failure (nothing is caught):
    and one decode step of each generating model, and ``torch.profiler``
    over one warm generation and one warm score call of each model (device
    busy share, device operations, the top kernels);
-5. agreement on a small input: the four reduced configs in f32 on the card
-   against the same weights on the CPU (plain versions).
+5. backward kernels: flash attention's dq and dk/dv kernels and RMSNorm's
+   dx and dweight kernels against autograd through their plain versions,
+   over a grid of types, head dims, masks, GQA groups and lengths, timed at
+   the training paths' shapes and longer ones beside their bounds, the
+   plain versions and the library's gradient (``sdpa``, ``F.rms_norm``);
+6. training at full width on seeded random bf16 weights, with exact launch
+   counts: GRPO (the paper's loop without the control plane:
+   ``smollm-360m`` generates 4 prompts x group 4, 128 prompt + 32 sampled
+   tokens; ``llama3.2-1b`` scores them; group advantages; three
+   ``make_grpo_step`` steps), checking that the positive-advantage
+   sequences gain log-probability over the negative ones; and LM training
+   through ``repro_torch.launch.train`` (``llama3.2-1b``, 4 x 256, three
+   steps); one warm step of each profiled;
+7. agreement on a small input: the four reduced configs in f32 on the card
+   against the same weights on the CPU (plain versions), serving and, for
+   ``smollm-360m``, one GRPO and one LM step's loss and gradients.
 
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -42,6 +56,7 @@ import copy
 import ctypes
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -58,6 +73,18 @@ BF16_TOL = 2e-2
 RMSNORM_F32_TOL = 1e-5
 FLASH_F32_TOL = 2e-5
 F32_TOL = 1e-4  # moe_matmul and ssd_intra_chunk in f32 (tests/test_kernels.py)
+# Backward kernels against autograd through the plain versions: max error
+# relative to the reference gradient's largest magnitude, as
+# tests/test_torch_gpu.py holds them.  bf16: one rounding step, 2**-8, and
+# the reference rounds P, dS and its einsum outputs at other places.
+# f32: summation order only, over at most 2048 terms (~3e-6 relative).
+GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# A reference gradient that is exactly zero has no magnitude to be relative
+# to: dq and dk at S = 1, where each query sees one key and the softmax
+# passes no gradient.  The kernel's values there are the f32 rounding of
+# dP - D, two sums of d products of unit-normal inputs (~1e-6), and are
+# held to this absolute limit.
+ZERO_GRAD_ABS = 1e-5
 # Full-width serving, last decode step vs a full forward over the same
 # tokens, absolute, on logits of at most ~3.5.  In bf16 the two paths round
 # differently at every layer: dense, decode_attention (plain torch) against
@@ -81,6 +108,8 @@ SMALL_F32_TOL = 1e-3
 
 PROMPT, NEW = 128, 32  # generation: 4 requests x (128 prompt + 32 new tokens)
 SCORE_SHAPE = (8, 160)
+PROMPTS, GROUP, GRPO_STEPS = 4, 4, 3  # GRPO: 4 prompts x group 4, three steps
+LM_ARGS = ["--arch", "llama3.2-1b", "--full", "--steps", "3", "--batch", "4", "--seq", "256"]
 
 
 def sh(cmd):
@@ -159,6 +188,61 @@ def ssd_bound(BNC, H, Q, hd, N, elem):
     return bound(t_bytes, ops / F32_FLOPS)
 
 
+def flash_bwd_bounds(B, H, KV, S, d, causal, elem):
+    """(dq kernel, dkdv kernel, whole backward) bounds.
+
+    Only the function's own inputs and outputs count; the D = rowsum(dO o)
+    that the dq kernel hands to the dkdv kernel is an intermediate and
+    counts in neither.  dq reads q, k, v, o, dO and the lse and writes dQ;
+    its products are Q K^T, dO V^T and dS K (6 d per scored pair).  dkdv
+    reads q, k, v, dO and the lse and writes dK and dV; Q K^T, dO V^T,
+    P^T dO and dS^T Q (8 d).  The whole backward reads q, k, v, o, dO and
+    the lse and writes the three gradients, with 10 d per pair (2.5x the
+    forward's 4 d).
+    """
+    pairs = S * (S + 1) // 2 if causal else S * S
+    peak = BF16_TENSOR_FLOPS if elem == 2 else F32_FLOPS
+    q_bytes, kv_bytes, stat = B * H * S * d * elem, B * KV * S * d * elem, 4 * B * H * S
+    return (
+        bound((4 * q_bytes + 2 * kv_bytes + stat) / HBM_BYTES_PER_S, 6 * d * B * H * pairs / peak),
+        bound((2 * q_bytes + 4 * kv_bytes + stat) / HBM_BYTES_PER_S, 8 * d * B * H * pairs / peak),
+        bound((4 * q_bytes + 4 * kv_bytes + stat) / HBM_BYTES_PER_S, 10 * d * B * H * pairs / peak),
+    )
+
+
+def rmsnorm_bwd_bounds(T, D, elem):
+    """(dx kernel, dweight reduce, whole backward) bounds, from what the
+    gradient needs: read x, dy and w, write dx and dweight, ~10 operations
+    per element.  The f32 per-block partials that the dx kernel hands to the
+    reduce are an intermediate and count nowhere.  The split: the dx kernel
+    does all the reads, all the operations and the dx write; the reduce only
+    the dweight write."""
+    return (bound((3 * T * D + D) * elem / HBM_BYTES_PER_S, 10 * T * D / F32_FLOPS),
+            bound(D * elem / HBM_BYTES_PER_S, 0.0),
+            bound((3 * T * D + 2 * D) * elem / HBM_BYTES_PER_S, 10 * T * D / F32_FLOPS))
+
+
+def grad_err(name, got, want, tol):
+    """(max |got - want|, that over max |want|, or None where want is all zero).
+
+    Raises where the relative error exceeds tol, where a zero reference's
+    error exceeds ZERO_GRAD_ABS, or on a non-finite value.
+    """
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    if scale == 0.0:
+        if err > ZERO_GRAD_ABS:
+            raise AssertionError(f"{name}: {err:.3e} where the reference is 0 (limit {ZERO_GRAD_ABS})")
+        return err, None
+    if err > tol * scale:
+        raise AssertionError(f"{name}: max abs err {err:.3e} beyond {tol} x {scale:.3e}")
+    return err, err / scale
+
+
 def assert_close(name, got, want, tol, rel=True):
     """Max abs error; raises where it exceeds tol (+ tol * |want| if rel)."""
     import torch
@@ -212,14 +296,34 @@ def profiled(label, fn, card, rows=10):
           f"= {100 * busy_ms / ms:.1f}% of wall; {ops} device operations [{card}]")
     for key, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:rows]:
         print(f"[profile] {label}   {us / 1e3:9.3f} ms {n:6d}x  {key[:90]}")
+    ours = {}  # the port's own kernels, by template name
+    for key, (us, n) in kernels.items():
+        head = key.split("<")[0].replace("(anonymous namespace)", "")
+        base = head.split("(")[0].split("::")[-1].strip()
+        if base.startswith(PORT_KERNEL_PREFIXES):
+            acc = ours.setdefault(base, [0.0, 0])
+            acc[0] += us
+            acc[1] += n
+    for base, (us, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile] {label} port kernel {base}: {us / 1e3:.3f} ms over {n} launches, "
+              f"{100 * us / 1e3 / busy_ms:.1f}% of device busy")
 
 
-def path_launches(cfg, prefills, decode_steps):
-    """Kernel launches of ``prefills`` full forwards and ``decode_steps`` decode steps."""
-    L, steps = cfg.num_layers, prefills + decode_steps
+PORT_KERNEL_PREFIXES = ("rmsnorm", "flash_", "moe_matmul", "ssd_")
+
+
+def path_launches(cfg, prefills, decode_steps, train_steps=0):
+    """Kernel launches of ``prefills`` full forwards, ``decode_steps`` decode
+    steps and ``train_steps`` forward-and-backward steps (dense family)."""
+    L, steps = cfg.num_layers, prefills + decode_steps + train_steps
+    norms = 2 * L + 1  # two pre-norms (or pre-norm + SSM out_norm) + final
     return {
-        "rmsnorm": (2 * L + 1) * steps,  # two pre-norms (or pre-norm + SSM out_norm) + final
-        "flash_attention": 0 if cfg.attention_free else L * prefills,
+        "rmsnorm": norms * steps,
+        "rmsnorm_bwd": norms * train_steps,
+        "rmsnorm_bwd_dweight": norms * train_steps,
+        "flash_attention": 0 if cfg.attention_free else L * (prefills + train_steps),
+        "flash_attention_bwd_dq": L * train_steps,
+        "flash_attention_bwd_dkdv": L * train_steps,
         "moe_matmul": 3 * L * steps if cfg.family == "moe" else 0,
         "ssd_intra_chunk": L * prefills if cfg.family == "ssm" else 0,
     }
@@ -240,12 +344,25 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as flash_k
+    from repro_torch.kernels import rmsnorm as rms_k
     from repro_torch.launch.serve import build_server, timed_generate
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.train import next_batch
     from repro_torch.models import build_model
     from repro_torch.models.convert import flat_from_params, params_from_flat
     from repro_torch.models.layers import logits_fn
     from repro_torch.models.transformer import arange_positions, embed_tokens, forward
     from repro_torch.serving.engine import Engine, GenerationConfig
+    from repro_torch.training import (
+        AdamWConfig,
+        group_advantages,
+        grpo_loss,
+        init_train_state,
+        make_grpo_step,
+    )
+    from repro_torch.training.grpo import token_logprobs
+    from repro_torch.training.train_step import grads_of
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -287,8 +404,14 @@ def main() -> int:
                     bound_by=bnd[1])
 
     def report(label, err, tol, m, lib_name):
+        """err: a max abs error, or grad_err's (abs, relative) pairs of the gradients."""
+        if isinstance(err, list):
+            err = (f"{max(e for e, _ in err):.2e} abs, "
+                   f"{max(r for _, r in err if r is not None):.2e} of the reference's largest")
+        else:
+            err = f"{err:.2e}"
         lib = f"{lib_name} {m['library_ms']:.4f} ms" if m["library_ms"] is not None else lib_name
-        print(f"[kernel] {label}: err {err:.2e} (tol {tol}) kernel {m['ms']:.4f} ms (one call "
+        print(f"[kernel] {label}: err {err} (tol {tol}) kernel {m['ms']:.4f} ms (one call "
               f"{m['wall']:.4f} ms wall) plain {m['plain_ms']:.4f} ms {lib} bound "
               f"{m['bound_ms']:.4f} ms ({m['bound_by']}) [{card}]")
 
@@ -459,7 +582,7 @@ def main() -> int:
                 check = engine.generate({"tokens": prompts})
             with torch.inference_mode():
                 seq = torch.cat([prompts, check.tokens[:, :-1]], dim=1)
-                h = forward(check_params, embed_tokens(check_params, seq, check_cfg),
+                h, _ = forward(check_params, embed_tokens(check_params, seq, check_cfg),
                             arange_positions(*seq.shape, dev), check_cfg)
                 full = logits_fn(check_params, h[:, -1:], check_cfg)[:, 0]
             last = check.logits[:, -1]
@@ -547,7 +670,231 @@ def main() -> int:
 
     print(f"[time] phase 4 done at {time.perf_counter() - t_start:.1f}s")
 
-    # ---- 5. agreement with the CPU on a small input (reduced, f32) -------
+    # ---- 5. backward kernels vs autograd through the plain versions --------
+    def grads(fn, inputs, dout):
+        return torch.autograd.grad(fn(*inputs), inputs, dout)
+
+    def leaves(dt, *shapes, scale=1.0):
+        return [(randn(*s, dtype=torch.float32) * scale).to(dt).requires_grad_() for s in shapes]
+
+    checked, worst = 0, {}  # (what, dtype) -> (largest relative error, largest zero-reference error)
+
+    def keep(what, dt, errs):
+        rel, zero = worst.get((what, str(dt)[6:]), (0.0, 0.0))
+        for e, r in errs:
+            rel, zero = (max(rel, r), zero) if r is not None else (rel, max(zero, e))
+        worst[(what, str(dt)[6:])] = (rel, zero)
+
+    for dt in (torch.bfloat16, torch.float32):
+        for g in (1, 3, 4, 5):
+            for S in (1, 63, 65, 160, 1024):
+                for d in (64, 128):
+                    for causal in (True, False):
+                        q, k, v = leaves(dt, (2, 2 * g, S, d), (2, 2, S, d), (2, 2, S, d))
+                        dout = randn(2, 2 * g, S, d, dtype=dt)
+                        got = grads(lambda *t: ops.flash_attention_op(*t, causal=causal), (q, k, v), dout)
+                        want = grads(lambda *t: ref.flash_attention_ref(*t, causal), (q, k, v), dout)
+                        for n, a, b in zip("qkv", got, want):
+                            keep(f"flash d{n}", dt, [grad_err(
+                                f"flash d{n} g={g} S={S} d={d} causal={causal} {dt}", a, b,
+                                GRAD_TOL[str(dt)[6:]])])
+                        checked += 1
+    for dt in (torch.bfloat16, torch.float32):
+        for T, D in ((2560, 960), (1024, 2048), (1, 960), (7, 960), (3, 100), (300, 64)):
+            x, w = leaves(dt, (T, D), scale=3.0)[0], (1 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
+            w.requires_grad_()
+            dy = randn(T, D, dtype=dt)
+            got, want = grads(ops.rmsnorm_op, (x, w), dy), grads(ref.rmsnorm_ref, (x, w), dy)
+            for n, a, b in zip(("dx", "dweight"), got, want):
+                keep(f"rmsnorm {n}", dt, [grad_err(f"rmsnorm {n} {T}x{D} {dt}", a, b,
+                                                   GRAD_TOL[str(dt)[6:]])])
+            checked += 1
+    print(f"[bwd] {checked} backward cases match their plain versions (bf16 {GRAD_TOL['bfloat16']}, "
+          f"f32 {GRAD_TOL['float32']} of the reference's largest magnitude; {ZERO_GRAD_ABS} "
+          f"absolute where the reference is 0)")
+    for (what, dt), (rel, zero) in sorted(worst.items()):
+        print(f"[bwd] {what} {dt}: largest error {rel:.3e} of the reference's largest magnitude"
+              f" (tol {GRAD_TOL[dt]}); largest |got| where the reference is 0: {zero:.3e}")
+
+    bwd_rows = {}
+    flash_bwd_cases = [  # (B, H, KV, S, d, causal, dtype, what)
+        (16, 15, 5, 160, 64, True, torch.bfloat16, "smollm GRPO"),
+        (4, 32, 8, 256, 64, True, torch.bfloat16, "llama LM"),
+        (4, 32, 8, 1024, 64, True, torch.bfloat16, ""),
+        (4, 15, 5, 1024, 64, True, torch.bfloat16, ""),
+        (4, 32, 8, 2048, 64, True, torch.bfloat16, ""),
+        (4, 15, 5, 2048, 64, True, torch.bfloat16, ""),
+        (4, 32, 8, 2048, 64, False, torch.bfloat16, ""),
+        (4, 32, 8, 160, 64, True, torch.float32, ""),
+    ]
+    for B, H, KV, S, d, causal, dt, what in flash_bwd_cases:
+        q, k, v = leaves(dt, (B, H, S, d), (B, KV, S, d), (B, KV, S, d))
+        dout = randn(B, H, S, d, dtype=dt)
+        with torch.no_grad():
+            out, lse = flash_k.flash_attention(q, k, v, causal=causal, lse=True)
+        dq, delta = flash_k.flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=causal)
+        dk, dv = flash_k.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal)
+        ref_out = ref.flash_attention_ref(q, k, v, causal)
+        lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+        tol = GRAD_TOL[str(dt)[6:]]
+        want = torch.autograd.grad(ref_out, (q, k, v), dout, retain_graph=True)
+        errs = [grad_err(f"flash bwd d{n} B={B} H={H} S={S}", a, b, tol)
+                for n, a, b in zip("qkv", (dq, dk, dv), want)]
+        b_dq, b_dkdv, b_all = flash_bwd_bounds(B, H, KV, S, d, causal, q.element_size())
+        m_dq = measure(
+            lambda: flash_k.flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=causal),
+            lambda: torch.autograd.grad(ref_out, (q,), dout, retain_graph=True),
+            lambda: torch.autograd.grad(lib_out, (q,), dout, retain_graph=True), b_dq, plain_iters=5)
+        m_dkdv = measure(
+            lambda: flash_k.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal),
+            lambda: torch.autograd.grad(ref_out, (k, v), dout, retain_graph=True),
+            lambda: torch.autograd.grad(lib_out, (k, v), dout, retain_graph=True), b_dkdv,
+            plain_iters=5)
+        m_all = measure(
+            lambda: flash_k.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal),
+            lambda: torch.autograd.grad(ref_out, (q, k, v), dout, retain_graph=True),
+            lambda: torch.autograd.grad(lib_out, (q, k, v), dout, retain_graph=True), b_all,
+            plain_iters=5)
+        key = (B, H, KV, S, d, causal, dt)
+        bwd_rows[("flash_attention_bwd_dq",) + key] = row(errs[0][0], m_dq)
+        bwd_rows[("flash_attention_bwd_dkdv",) + key] = row(max(errs[1][0], errs[2][0]), m_dkdv)
+        label = f"B={B} H={H} KV={KV} S={S} d={d} causal={causal} {str(dt)[6:]} {what}"
+        report(f"flash bwd dq {label}", errs[:1], tol, m_dq, "sdpa grad q")
+        report(f"flash bwd dkdv {label}", errs[1:], tol, m_dkdv, "sdpa grad k, v")
+        report(f"flash bwd both {label}", errs, tol, m_all, "sdpa grad q, k, v")
+        del q, k, v, dout, out, lse, dq, dk, dv, delta, ref_out, lib_out, want
+    rms_bwd_cases = [  # (T, D, dtype, what)
+        (16 * 160, 960, torch.bfloat16, "smollm GRPO"),
+        (4 * 256, 2048, torch.bfloat16, "llama LM"),
+        (4 * 256, 2048, torch.float32, ""),
+    ]
+    for T, D, dt, what in rms_bwd_cases:
+        x = leaves(dt, (T, D), scale=3.0)[0]
+        w = (1 + 0.1 * randn(D, dtype=torch.float32)).to(dt).requires_grad_()
+        dy = randn(T, D, dtype=dt)
+        dx, part = rms_k.rmsnorm_bwd_dx(x, w, dy)
+        dw = rms_k.rmsnorm_bwd_dweight(part, dt)
+        ref_out, lib_out = ref.rmsnorm_ref(x, w), F.rms_norm(x, (D,), w, 1e-5)
+        tol = GRAD_TOL[str(dt)[6:]]
+        want = torch.autograd.grad(ref_out, (x, w), dy, retain_graph=True)
+        errs = [grad_err(f"rmsnorm bwd {n} {T}x{D}", a, b, tol)
+                for n, a, b in zip(("dx", "dweight"), (dx, dw), want)]
+        b_dx, b_dw, b_all = rmsnorm_bwd_bounds(T, D, x.element_size())
+        m_dx = measure(lambda: rms_k.rmsnorm_bwd_dx(x, w, dy),
+                       lambda: torch.autograd.grad(ref_out, (x, w), dy, retain_graph=True),
+                       lambda: torch.autograd.grad(lib_out, (x, w), dy, retain_graph=True), b_dx)
+        m_dw = measure(lambda: rms_k.rmsnorm_bwd_dweight(part, dt), lambda: part.sum(0).to(dt),
+                       lambda: torch.sum(part, 0), b_dw)
+        m_all = measure(lambda: rms_k.rmsnorm_bwd_dweight(rms_k.rmsnorm_bwd_dx(x, w, dy)[1], dt),
+                        lambda: torch.autograd.grad(ref_out, (x, w), dy, retain_graph=True),
+                        lambda: torch.autograd.grad(lib_out, (x, w), dy, retain_graph=True), b_all)
+        bwd_rows[("rmsnorm_bwd", T, D, dt)] = row(errs[0][0], m_dx)
+        bwd_rows[("rmsnorm_bwd_dweight", T, D, dt)] = row(errs[1][0], m_dw)
+        label = f"T={T} D={D} {str(dt)[6:]} {what}"
+        report(f"rmsnorm bwd dx+partials {label}", errs[:1], tol, m_dx, "F.rms_norm grad x, w")
+        report(f"rmsnorm bwd dweight reduce {label}", errs[1:], tol, m_dw, "torch.sum")
+        report(f"rmsnorm bwd both {label}", errs, tol, m_all, "F.rms_norm grad x, w")
+        del x, w, dy, part, dx, dw, ref_out, lib_out, want
+    torch.cuda.empty_cache()
+
+    print(f"[time] phase 5 done at {time.perf_counter() - t_start:.1f}s")
+
+    # ---- 6. training at full width ------------------------------------------
+    def count_run(label, fn, expect):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        check_counts(label, ops.launch_counts(), expect)
+        return out
+
+    def profiled_step(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, ms = wall_ms(fn)
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[train] {label}: one warm step {ms:.1f} ms wall, max_memory_allocated "
+              f"{mem:.2f} GiB [{name}; {card}]")
+        profiled(label, fn, card, rows=14)
+
+    # GRPO: the policy rolls out, the judge scores, three GRPO steps
+    marks = [time.perf_counter()]
+    pcfg = get_config("smollm-360m")
+    papi = build_model(pcfg)
+    state = init_train_state(papi, torch.Generator(device=dev).manual_seed(7), dev)
+    jcfg = get_config("llama3.2-1b")
+    japi = build_model(jcfg)
+    judge = Engine(japi, japi.init(torch.Generator(device=dev).manual_seed(8), dev),
+                   GenerationConfig())
+    policy = Engine(papi, state.params, GenerationConfig(max_new_tokens=NEW, temperature=1.0,
+                                                         cache_len=PROMPT + NEW))
+    prompts = torch.randint(0, pcfg.vocab_size, (PROMPTS, PROMPT), generator=gen, device=dev)
+    rep_prompts = prompts.repeat_interleave(GROUP, dim=0)  # [16, 128], each prompt GROUP times
+    N = PROMPTS * GROUP
+    rollout = count_run(
+        "grpo rollout", lambda: policy.generate({"tokens": rep_prompts},
+                                                torch.Generator(device=dev).manual_seed(9)),
+        path_launches(pcfg, 1, NEW - 1))
+    seqs = torch.cat([rep_prompts, rollout.tokens], dim=1)  # [16, 160]
+    rewards = count_run("grpo judge score", lambda: judge.score({"tokens": seqs}),
+                        path_launches(jcfg, 1, 0))
+    adv = group_advantages(rewards.view(PROMPTS, GROUP)).view(-1)
+    with torch.no_grad():
+        old_logp = count_run("grpo old_logp", lambda: token_logprobs(state.params, seqs, papi),
+                             path_launches(pcfg, 1, 0))
+    mask = torch.zeros(N, PROMPT + NEW - 1, device=dev)
+    mask[:, PROMPT - 1:] = 1.0  # only generated positions train
+    batch = {"tokens": seqs, "mask": mask, "advantages": adv, "old_logp": old_logp,
+             "ref_logp": old_logp}
+    grpo_step = make_grpo_step(papi, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100))
+    marks.append(time.perf_counter())
+    step_metrics = []
+    for i in range(GRPO_STEPS):
+        state, m = count_run(f"grpo step {i}", lambda: grpo_step(state, batch),
+                             path_launches(pcfg, 0, 0, train_steps=1))
+        step_metrics.append({k: float(v) for k, v in m.items()})
+    marks.append(time.perf_counter())
+    with torch.no_grad():
+        new_logp = token_logprobs(state.params, seqs, papi)
+    gain = ((new_logp - old_logp) * mask).sum(1) / mask.sum(1)  # per sequence
+    pos, neg = gain[adv > 0].mean().item(), gain[adv < 0].mean().item()
+    losses = [m["loss"] for m in step_metrics]
+    if not all(math.isfinite(x) for x in losses) or not pos > neg:
+        raise AssertionError(f"GRPO: losses {losses}, log-prob gain {pos} (adv > 0) vs {neg}")
+    print(f"[train] grpo {pcfg.name} full (L={pcfg.num_layers}) {N}x{PROMPT + NEW} judged by "
+          f"{jcfg.name}: rewards {rewards.min().item():.2f}..{rewards.max().item():.2f}; steps: "
+          + "; ".join(f"loss {m['loss']:.5f} kl {m['kl']:.5f} ratio {m['ratio_mean']:.4f} "
+                      f"grad_norm {m['grad_norm']:.4f} lr {m['lr']:.2e}" for m in step_metrics))
+    print(f"[train] grpo: masked log-prob gain {pos:.4f} (positive advantage) > {neg:.4f} "
+          f"(negative); rollout+score+old_logp {marks[1] - marks[0]:.2f}s, three steps "
+          f"{marks[2] - marks[1]:.2f}s wall [{card}]")
+    profiled_step(f"grpo step {pcfg.name}", lambda: grpo_step(state, batch))
+    del state, judge, policy, rollout, batch, old_logp, new_logp, m
+    torch.cuda.empty_cache()
+    print(f"[time] grpo done at {time.perf_counter() - t_start:.1f}s")
+
+    # LM training through the launcher
+    lm_cfg = get_config("llama3.2-1b")
+    steps = int(LM_ARGS[LM_ARGS.index("--steps") + 1])
+    trainer, lm_metrics = count_run(
+        "lm train", lambda: train_main(LM_ARGS + ["--device", str(dev)]),
+        path_launches(lm_cfg, 0, 0, train_steps=steps))
+    lm_losses = [m["loss"] for m in lm_metrics]
+    if not all(math.isfinite(x) for x in lm_losses):
+        raise AssertionError(f"LM training: losses {lm_losses}")
+    print(f"[train] lm {lm_cfg.name} full (L={lm_cfg.num_layers}) 4x256: losses "
+          + ", ".join(f"{x:.4f}" for x in lm_losses)
+          + f" (ln V = {math.log(lm_cfg.vocab_size):.4f}); grad_norm "
+          + ", ".join(f"{m['grad_norm']:.3f}" for m in lm_metrics))
+    lm_batch = next_batch(trainer)
+    profiled_step(f"lm step {lm_cfg.name}",
+                  lambda: trainer.step(trainer.state, lm_batch))
+    del trainer, lm_batch
+    torch.cuda.empty_cache()
+
+    print(f"[time] phase 6 done at {time.perf_counter() - t_start:.1f}s")
+
+    # ---- 7. agreement with the CPU on a small input (reduced, f32) -------
     for arch in ("smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m"):
         cfg = get_config(arch).reduced()
         api = build_model(cfg)
@@ -567,6 +914,33 @@ def main() -> int:
         print(f"[small] {cfg.name} f32 card vs cpu: generate logits err {e1:.2e}, "
               f"tokens equal, score err {e2:.2e} (tol {SMALL_F32_TOL})")
 
+    # one GRPO and one LM step's loss and gradients, reduced smollm in f32
+    cfg = get_config("smollm-360m").reduced()
+    api = build_model(cfg)
+    p_gpu = api.init(torch.Generator(device=dev).manual_seed(3), dev, trainable=True)
+    p_cpu = params_from_flat(flat_from_params(p_gpu), cfg, "cpu").requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab_size, (4, 24), generator=gen, device=dev)
+    with torch.no_grad():
+        old = token_logprobs(p_cpu, toks.cpu(), api)
+    small = {"tokens": toks.cpu(), "mask": (torch.arange(23) >= 11).float().expand(4, 23),
+             "advantages": torch.tensor([1.0, -1.0, 0.5, -0.5]), "old_logp": old,
+             "ref_logp": old + 0.05}
+    for kind, loss_fn, b in (
+        ("grpo", lambda p, bb: grpo_loss(p, bb, api), small),
+        ("lm", api.loss_fn, {"tokens": toks.cpu()}),
+    ):
+        counts_before = ops.launch_counts()["flash_attention_bwd_dkdv"]
+        lg, lc = (loss_fn(p, {k: v.to(p["embed"].device) for k, v in b.items()})[0]
+                  for p in (p_gpu, p_cpu))
+        gg, gc = grads_of(lg, p_gpu), grads_of(lc, p_cpu)
+        if ops.launch_counts()["flash_attention_bwd_dkdv"] != counts_before + cfg.num_layers:
+            raise AssertionError(f"small {kind} step: the card's backward skipped the kernels")
+        e_loss = assert_close(f"small {kind} loss", lg.detach().cpu(), lc.detach(), SMALL_F32_TOL)
+        e_grad = max(grad_err(f"small {kind} grad {k}", gg[k].cpu(), gc[k], SMALL_F32_TOL)[1] or 0.0
+                     for k in gc)
+        print(f"[small] {cfg.name} f32 {kind} step card vs cpu: loss err {e_loss:.2e}, grads err "
+              f"{e_grad:.2e} of each leaf's largest magnitude (tol {SMALL_F32_TOL})")
+
     # ---- report ---------------------------------------------------------
     kernels = [
         dict(name="rmsnorm", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -584,10 +958,24 @@ def main() -> int:
              replaces="src/repro/kernels/ssd_scan.py:39", launches=launches["ssd_intra_chunk"],
              **ssd_rows[(8, 160, torch.bfloat16)]),
     ]
-    print("[report] per-kernel numbers at the score shapes, bf16: rmsnorm [1280, 2048] and flash "
-          "B=8 H=32 KV=8 S=160 d=64 causal (llama3.2-1b), moe_matmul E=40 C=384 D=1536 F=512 "
-          "(granite-moe-3b-a800m gate/up), ssd_intra_chunk BNC=8 H=24 Q=160 hd=64 N=128 "
-          "(mamba2-130m); launches summed over the six serving runs")
+    grpo_shape = (16, 15, 5, 160, 64, True, torch.bfloat16)
+    for kname, key, src, of in (
+        ("flash_attention_bwd_dq", grpo_shape, "flash_attention", "src/repro/kernels/flash_attention.py:72"),
+        ("flash_attention_bwd_dkdv", grpo_shape, "flash_attention", "src/repro/kernels/flash_attention.py:72"),
+        ("rmsnorm_bwd", (16 * 160, 960, torch.bfloat16), "rmsnorm", "src/repro/kernels/rmsnorm.py:19"),
+        ("rmsnorm_bwd_dweight", (16 * 160, 960, torch.bfloat16), "rmsnorm", "src/repro/kernels/rmsnorm.py:19"),
+    ):
+        # the TPU kernel has no backward: "replaces" names the kernel whose gradient this is
+        kernels.append(dict(name=kname, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}.cu",
+                            replaces=of, launches=launches[kname], **bwd_rows[(kname,) + key]))
+    for k in kernels:
+        k["pass"] = "backward" if "_bwd" in k["name"] else "forward"
+    print("[report] per-kernel numbers, bf16: forward at the score shapes, rmsnorm [1280, 2048] and "
+          "flash B=8 H=32 KV=8 S=160 d=64 causal (llama3.2-1b), moe_matmul E=40 C=384 D=1536 "
+          "F=512 (granite-moe-3b-a800m gate/up), ssd_intra_chunk BNC=8 H=24 Q=160 hd=64 N=128 "
+          "(mamba2-130m); backward at the GRPO shape (smollm-360m, 16 x 160): flash B=16 H=15 "
+          "KV=5 S=160 d=64 causal (plain and library: the gradient of the same inputs), rmsnorm "
+          "[2560, 960]; launches summed over the six serving runs and the training runs")
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card)

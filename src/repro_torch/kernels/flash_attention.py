@@ -8,6 +8,11 @@ not take; ``ops.flash_attention_op`` also serves CPU tensors through the
 plain version.  ``launch_plan`` decides the template's tiles, grid and
 shared memory in Python, where the CPU tests reach it; the kernel refuses
 a plan that is not its own.
+
+The backward (``flash_attention_bwd``, two kernels: dQ, then dK and dV)
+takes the forward's output and its row log-sum-exp (``lse=True``) and
+returns the gradients laid out like q, k and v; ``bwd_plans`` are its
+launch plans.  ``ops.flash_attention_op`` wires both into autograd.
 """
 
 from __future__ import annotations
@@ -25,7 +30,10 @@ from repro_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 
-launches = 0  # kernel launches since the last ops.reset_launch_counts()
+# kernel launches since the last ops.reset_launch_counts()
+launches = 0  # forward
+bwd_dq_launches = 0
+bwd_dkdv_launches = 0
 
 BLOCK_Q = 64  # query rows per block, both templates
 
@@ -53,13 +61,40 @@ def launch_plan(B: int, H: int, S: int, d: int, dtype: torch.dtype) -> LaunchPla
     return LaunchPlan("fma", BLOCK_Q, 32, 128, (row_tiles, H, B), smem)
 
 
+def bwd_plans(B: int, H: int, KV: int, S: int, d: int, dtype: torch.dtype):
+    """(dq plan, dkdv plan) of the backward kernels (no CUDA needed).
+
+    dq: one block per (query head, 64-row tile), grid (H, row tiles, B).
+    dkdv: one block per (KV head, 64-key tile), grid (key tiles, KV, B).
+    """
+    tiles = -(-S // BLOCK_Q)
+    if dtype == torch.bfloat16:
+        # Q, dO and K, V twice (dq) or K, V and Q, dO twice (dkdv): six 64-row
+        # tiles, rows padded by 16 bytes; dkdv adds two stages of lse and D rows
+        tiles_bytes = 2 * 6 * BLOCK_Q * (d + 8)
+        return (LaunchPlan("mma", BLOCK_Q, 64, 128, (H, tiles, B), tiles_bytes),
+                LaunchPlan("mma", BLOCK_Q, 64, 128, (tiles, KV, B), tiles_bytes + 4 * 4 * BLOCK_Q))
+    # f32 FMAs, 32-row streamed tiles.  dq: Q, dO (rows d+4), K, V (rows d+1),
+    # dS (rows 36).  dkdv: K, V (rows d+4), Q, dO (rows d+1), P, dS, lse, D.
+    dq = 4 * (2 * BLOCK_Q * (d + 4) + 2 * 32 * (d + 1) + BLOCK_Q * 36)
+    dkdv = 4 * (2 * BLOCK_Q * (d + 4) + 2 * 32 * (d + 1) + 2 * BLOCK_Q * 36 + 2 * 32)
+    return (LaunchPlan("fma", BLOCK_Q, 32, 128, (H, tiles, B), dq),
+            LaunchPlan("fma", BLOCK_Q, 32, 128, (tiles, KV, B), dkdv))
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = _build.load("flash_attention").flash_attention_fwd
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = [i, i, p, p, p, p, i, i, i, i] + [i64] * 12 + [ctypes.c_float, i, i, i, i, i64, p]
-    fn.restype = ctypes.c_int
-    return fn
+def _entries():
+    lib = _build.load("flash_attention")
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    fwd = lib.flash_attention_fwd
+    fwd.argtypes = [i, i, p, p, p, p, p, i, i, i, i] + [i64] * 12 + [f, i, i, i, i, i64, p]
+    # dq: q k v o dout lse delta dq; dkdv: q k v dout lse delta dk dv
+    bwd = (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkdv)
+    for fn in bwd:
+        fn.argtypes = [i, i] + [p] * 8 + [i, i, i, i, p, f, i, i, i, i, i64, p]
+    for fn in (fwd, *bwd):
+        fn.restype = ctypes.c_int
+    return fwd, *bwd
 
 
 def _check_layout(name: str, t: torch.Tensor) -> None:
@@ -80,9 +115,116 @@ def flash_attention(
     v: torch.Tensor,  # [B, KV, S, d]
     *,
     causal: bool = True,
-) -> torch.Tensor:
-    """GQA attention forward; out [B, H, S, d] in q.dtype, laid out like q."""
+    lse: bool = False,
+):
+    """GQA attention forward; out [B, H, S, d] in q.dtype, laid out like q.
+
+    With ``lse`` it returns (out, lse [B, H, S] f32), the natural-log
+    log-sum-exp of each row's scaled scores, which the backward needs.
+    """
     global launches
+    _check_args(q, k, v)
+    B, H, S, d = q.shape
+    out = torch.empty_like(q)  # keeps q's layout: a [B,S,H,d] view gives a [B,S,H,d] buffer
+    row_lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if lse else None
+    if B * H * S == 0:
+        return (out, row_lse) if lse else out
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        _check_layout(name, t)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    plan = launch_plan(B, H, S, d, q.dtype)
+    err = _entries()[0](DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), row_lse.data_ptr() if lse else None, B, H, k.shape[1], S,
+                        *strides, 1.0 / math.sqrt(d), int(causal), *plan.grid, plan.smem_bytes,
+                        torch.cuda.current_stream().cuda_stream)
+    launches += 1
+    _build.check("flash_attention", err)
+    return (out, row_lse) if lse else out
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # [B, H, S, d]
+    k: torch.Tensor,  # [B, KV, S, d]
+    v: torch.Tensor,  # [B, KV, S, d]
+    out: torch.Tensor,  # [B, H, S, d], the forward's
+    lse: torch.Tensor,  # [B, H, S] f32, the forward's
+    dout: torch.Tensor,  # [B, H, S, d]
+    *,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv), each laid out like q, k and v: the dq kernel, then the dkdv kernel."""
+    try:
+        _check_layout("dout", dout)
+    except ValueError:  # e.g. a broadcast gradient: the kernels read 16-byte rows
+        dout = dout.contiguous()
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=causal)
+    return (dq, *flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal))
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True):
+    """-> (dq laid out like q, delta = rowsum(dout * out) [B, H, S] f32)."""
+    global bwd_dq_launches
+    B, H, S, d = q.shape
+    _check_args(q, k, v)
+    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape):
+        raise ValueError(f"out and dout must be {tuple(q.shape)}: {tuple(out.shape)}, {tuple(dout.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype or out.device != q.device or dout.device != q.device:
+        raise TypeError("out and dout must have q's dtype and device")
+    _check_lse(lse, B, H, S)
+    dq = torch.empty_like(q)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if B * H * S == 0:
+        return dq, delta
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout), ("dq", dq)):
+        _check_layout(name, t)
+    plan = bwd_plans(B, H, k.shape[1], S, d, q.dtype)[0]
+    err = _entries()[1](DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                        dq.data_ptr(), B, H, k.shape[1], S, _strides(q, k, v, out, dout, dq),
+                        1.0 / math.sqrt(d), int(causal), *plan.grid, plan.smem_bytes,
+                        torch.cuda.current_stream().cuda_stream)
+    bwd_dq_launches += 1
+    _build.check("flash_attention", err)
+    return dq, delta
+
+
+def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal: bool = True):
+    """-> (dk, dv) laid out like k and v; ``delta`` from ``flash_attention_bwd_dq``."""
+    global bwd_dkdv_launches
+    B, H, S, d = q.shape
+    _check_args(q, k, v)
+    _check_lse(lse, B, H, S)
+    _check_lse(delta, B, H, S)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if B * H * S == 0:
+        return dk, dv
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout), ("dk", dk), ("dv", dv)):
+        _check_layout(name, t)
+    plan = bwd_plans(B, H, k.shape[1], S, d, q.dtype)[1]
+    err = _entries()[2](DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), B, H, k.shape[1], S,
+                        _strides(q, k, v, dout, dout, dout, dk, dv), 1.0 / math.sqrt(d),
+                        int(causal), *plan.grid, plan.smem_bytes,
+                        torch.cuda.current_stream().cuda_stream)
+    bwd_dkdv_launches += 1
+    _build.check("flash_attention", err)
+    return dk, dv
+
+
+def _strides(q, k, v, out, dout, dq, dk=None, dv=None):
+    """The backward entries' 24 (b, h, s) strides: q, k, v, o, dout, dq, dk, dv."""
+    ts = (q, k, v, out, dout, dq, dk if dk is not None else k, dv if dv is not None else v)
+    return (ctypes.c_int64 * 24)(*[s for t in ts for s in t.stride()[:3]])
+
+
+def _check_lse(t: torch.Tensor, B: int, H: int, S: int) -> None:
+    if tuple(t.shape) != (B, H, S) or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"lse and delta must be contiguous [{B},{H},{S}] float32")
+
+
+def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on anything the kernels do not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q [B,H,S,d] and k, v [B,KV,S,d]")
     B, H, S, d = q.shape
@@ -101,16 +243,3 @@ def flash_attention(
         raise ValueError(f"flash_attention kernel needs CUDA tensors on one device, got {q.device}")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"flash_attention: {q.device} is not the current CUDA device")
-    out = torch.empty_like(q)  # keeps q's layout: a [B,S,H,d] view gives a [B,S,H,d] buffer
-    if B * H * S == 0:
-        return out
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        _check_layout(name, t)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    plan = launch_plan(B, H, S, d, q.dtype)
-    err = _entry()(DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   B, H, KV, S, *strides, 1.0 / math.sqrt(d), int(causal), *plan.grid,
-                   plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
-    launches += 1
-    _build.check("flash_attention", err)
-    return out

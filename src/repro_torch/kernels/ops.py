@@ -1,8 +1,13 @@
 """Public entry points of the port's kernels.
 
-A CPU tensor goes to the plain version in ``ref``; a CUDA tensor goes to
-the hand-written kernel, which runs or raises (there is no fallback).
-Each kernel module counts its launches; ``launch_counts`` reads them.
+A CPU tensor goes to the plain version in ``ref``, which autograd
+differentiates; a CUDA tensor goes to the hand-written kernel, which runs
+or raises (there is no fallback).  On CUDA, rmsnorm and flash attention
+go through ``torch.autograd.Function``s whose backward is their backward
+kernels when a gradient is wanted; moe_matmul and ssd_intra_chunk have no
+backward kernel yet and raise instead of returning tensors without a
+gradient.  Each kernel module counts its launches; ``launch_counts``
+reads them.
 """
 
 from __future__ import annotations
@@ -18,12 +23,47 @@ from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import ssd_scan as _ssd
 
 
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, weight, eps):
+        ctx.save_for_backward(x2, weight)
+        ctx.eps = eps
+        return _rmsnorm.rmsnorm(x2, weight, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, weight = ctx.saved_tensors
+        dx, dw = _rmsnorm.rmsnorm_bwd(x2, weight, dy, eps=ctx.eps,
+                                      dweight=ctx.needs_input_grad[1])
+        return dx, dw, None
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _flash.flash_attention(q, k, v, causal=causal, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash.flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal), None)
+
+
 def rmsnorm_op(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last dim; leading dims are flattened into rows."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if x.device.type == "cpu":
         out = ref.rmsnorm_ref(x2, weight, eps)
+    elif _wants_grad(x, weight):
+        out = _RMSNorm.apply(x2, weight, eps)
     else:
         out = _rmsnorm.rmsnorm(x2, weight, eps=eps)
     return out.reshape(shape)
@@ -35,13 +75,24 @@ def flash_attention_op(
     """q [B,H,S,d], k/v [B,KV,S,d] -> [B,H,S,d]; on CUDA any strides with a contiguous d."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal)
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal)
     return _flash.flash_attention(q, k, v, causal=causal)
+
+
+def _no_backward(name: str, *tensors: torch.Tensor) -> None:
+    if _wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet: training this family on the card comes "
+            "with ROADMAP A3b"
+        )
 
 
 def moe_matmul_op(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Per-expert product buf [E,C,D] x w [E,D,F] -> [E,C,F] in buf.dtype."""
     if buf.device.type == "cpu":
         return ref.moe_matmul_ref(buf, w)
+    _no_backward("moe_matmul", buf, w)
     return _moe.moe_matmul(buf, w)
 
 
@@ -49,21 +100,27 @@ def ssd_intra_chunk_op(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, cum: t
     """Intra-chunk SSD: x [BNC,H,Q,hd], b/c [BNC,Q,N], cum [BNC,H,Q] -> (y, state f32)."""
     if x.device.type == "cpu":
         return ref.ssd_intra_chunk_ref(x, b, c, cum)
+    _no_backward("ssd_intra_chunk", x, b, c, cum)
     return _ssd.ssd_intra_chunk(x, b, c, cum)
 
 
-_MODULES = {
-    "rmsnorm": _rmsnorm,
-    "flash_attention": _flash,
-    "moe_matmul": _moe,
-    "ssd_intra_chunk": _ssd,
+# kernel name -> (module, its launch counter)
+_COUNTERS = {
+    "rmsnorm": (_rmsnorm, "launches"),
+    "rmsnorm_bwd": (_rmsnorm, "bwd_launches"),
+    "rmsnorm_bwd_dweight": (_rmsnorm, "dweight_launches"),
+    "flash_attention": (_flash, "launches"),
+    "flash_attention_bwd_dq": (_flash, "bwd_dq_launches"),
+    "flash_attention_bwd_dkdv": (_flash, "bwd_dkdv_launches"),
+    "moe_matmul": (_moe, "launches"),
+    "ssd_intra_chunk": (_ssd, "launches"),
 }
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)

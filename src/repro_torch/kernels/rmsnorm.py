@@ -2,13 +2,17 @@
 
 ``rmsnorm`` launches the kernel on CUDA tensors and raises on anything it
 does not take; ``ops.rmsnorm_op`` is the entry point that also serves CPU
-tensors through the plain version.
+tensors through the plain version.  ``rmsnorm_bwd`` is its gradient (two
+kernels: dx with per-block f32 column sums of dweight, then a column
+reduce), laid out by ``bwd_plan``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -16,21 +20,112 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0  # kernel launches since the last ops.reset_launch_counts()
+# kernel launches since the last ops.reset_launch_counts()
+launches = 0  # forward
+bwd_launches = 0
+dweight_launches = 0
+
+BWD_TARGET_BLOCKS = 2 * 132  # two blocks per SM of an H100
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How ``rmsnorm_bwd`` is launched; ``csrc/rmsnorm.cu`` refuses any other."""
+
+    rows_per_block: int
+    blocks: int  # also the rows of the f32 dweight partials
+    smem_bytes: int  # the block's f32 column sums (0 without dweight)
+
+
+def bwd_plan(T: int, D: int, dweight: bool = True) -> BwdPlan:
+    rows_per_block = max(1, -(-T // BWD_TARGET_BLOCKS))
+    return BwdPlan(rows_per_block, -(-T // rows_per_block), 4 * D if dweight else 0)
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = _build.load("rmsnorm").rmsnorm_fwd
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [ctypes.c_int, p, p, p, i64, i64, i64, ctypes.c_float, p]
-    fn.restype = ctypes.c_int
-    return fn
+def _entries():
+    lib = _build.load("rmsnorm")
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    fwd, bwd, dweight = lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.rmsnorm_bwd_dweight
+    fwd.argtypes = [i, p, p, p, i64, i64, i64, f, p]
+    bwd.argtypes = [i, p, p, p, p, p, i64, i64, i64, i, i, i64, f, p]
+    dweight.argtypes = [i, p, p, i, i64, p]
+    for fn in (fwd, bwd, dweight):
+        fn.restype = ctypes.c_int
+    return fwd, bwd, dweight
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """x [T, D] (rows may be strided), weight [D], one dtype (f32 or bf16), on one CUDA device."""
     global launches
+    _check_args(x, weight)
+    T, D = x.shape
+    out = torch.empty((T, D), dtype=x.dtype, device=x.device)
+    if T == 0:
+        return out
+    err = _entries()[0](DTYPES[x.dtype], x.data_ptr(), weight.data_ptr(), out.data_ptr(), T, D,
+                        x.stride(0), eps, torch.cuda.current_stream().cuda_stream)
+    launches += 1
+    _build.check("rmsnorm", err)
+    return out
+
+
+def rmsnorm_bwd(
+    x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor, *, eps: float = 1e-5,
+    dweight: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dx [T, D], dweight [D] or None) of ``rmsnorm(x, weight)`` for the gradient dy [T, D]."""
+    dx, part = rmsnorm_bwd_dx(x, weight, dy, eps=eps, dweight=dweight)
+    return dx, rmsnorm_bwd_dweight(part, x.dtype) if dweight else None
+
+
+def rmsnorm_bwd_dx(
+    x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor, *, eps: float = 1e-5,
+    dweight: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The first kernel: (dx, f32 dweight partials [blocks, D] or None)."""
+    global bwd_launches
+    _check_args(x, weight)
+    T, D = x.shape
+    if tuple(dy.shape) != (T, D) or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must be [{T}, {D}] {x.dtype} on {x.device}")
+    dy = dy.contiguous()
+    dx = torch.empty((T, D), dtype=x.dtype, device=x.device)
+    plan = bwd_plan(T, D, dweight)
+    part = torch.empty((plan.blocks, D), dtype=torch.float32, device=x.device) if dweight else None
+    if T == 0:
+        return dx, part
+    err = _entries()[1](DTYPES[x.dtype], x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
+                        dx.data_ptr(), part.data_ptr() if dweight else None, T, D, x.stride(0),
+                        plan.rows_per_block, plan.blocks, plan.smem_bytes, eps,
+                        torch.cuda.current_stream().cuda_stream)
+    bwd_launches += 1
+    _build.check("rmsnorm", err)
+    return dx, part
+
+
+def rmsnorm_bwd_dweight(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The second kernel: dweight [D] in ``dtype``, the column sums of the partials [blocks, D]."""
+    global dweight_launches
+    if part.dim() != 2 or part.dtype != torch.float32 or not part.is_contiguous():
+        raise ValueError("the partials must be a contiguous [blocks, D] float32 tensor")
+    if dtype not in DTYPES:
+        raise TypeError(f"rmsnorm takes float32 or bfloat16, got {dtype}")
+    if part.device.type != "cuda" or part.device.index != torch.cuda.current_device():
+        raise ValueError(f"rmsnorm kernel needs a tensor on the current CUDA device, got {part.device}")
+    nparts, D = part.shape
+    dw = torch.empty(D, dtype=dtype, device=part.device)
+    if nparts == 0 or D == 0:
+        return dw
+    err = _entries()[2](DTYPES[dtype], part.data_ptr(), dw.data_ptr(), nparts, D,
+                        torch.cuda.current_stream().cuda_stream)
+    dweight_launches += 1
+    _build.check("rmsnorm", err)
+    return dw
+
+
+def _check_args(x: torch.Tensor, weight: torch.Tensor) -> None:
+    """Raise on anything the kernels do not take."""
     if x.dim() != 2:
         raise ValueError(f"rmsnorm takes x [T, D], got shape {tuple(x.shape)}")
     T, D = x.shape
@@ -46,11 +141,3 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-5) -> torc
         raise ValueError(f"rmsnorm kernel needs CUDA tensors on one device, got {x.device}")
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"rmsnorm: {x.device} is not the current CUDA device")
-    out = torch.empty((T, D), dtype=x.dtype, device=x.device)
-    if T == 0:
-        return out
-    err = _entry()(DTYPES[x.dtype], x.data_ptr(), weight.data_ptr(), out.data_ptr(), T, D,
-                   x.stride(0), eps, torch.cuda.current_stream().cuda_stream)
-    launches += 1
-    _build.check("rmsnorm", err)
-    return out

@@ -1,0 +1,106 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
+
+Torch twin of ``repro.launch.train``, with the same flags plus
+``--device`` (default ``cuda``): it trains the reduced variant of a dense,
+moe or ssm architecture on the synthetic Markov stream (``--full`` for
+the published widths), on the card's kernels, or on the CPU's plain
+versions with ``--device cpu``.  Weights are random, drawn from a seeded
+``torch.Generator``.  moe and ssm training on the card raises until their
+kernels have a backward (ROADMAP A3b).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs import ModelConfig, get_config
+from repro_torch.models import ModelApi, build_model
+from repro_torch.training import (
+    AdamWConfig,
+    DataConfig,
+    MarkovTextStream,
+    TrainState,
+    init_train_state,
+    make_train_step,
+    save_checkpoint,
+)
+
+
+@dataclass
+class Trainer:
+    cfg: ModelConfig
+    api: ModelApi
+    state: TrainState
+    step: Callable  # (state, batch) -> (state, metrics)
+    stream: MarkovTextStream
+    seq: int
+    device: torch.device
+
+
+def build_trainer(
+    arch: str,
+    *,
+    steps: int = 50,
+    batch: int = 8,
+    seq: int = 128,
+    full: bool = False,
+    device: torch.device | str = "cuda",
+    seed: int = 0,
+) -> Trainer:
+    cfg = get_config(arch)
+    if not full:
+        cfg = cfg.reduced()
+    api = build_model(cfg)
+    device = torch.device(device)
+    state = init_train_state(api, torch.Generator(device=device).manual_seed(seed), device)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps)
+    stream = MarkovTextStream(DataConfig(cfg.vocab_size, seq, batch, seed=seed))
+    return Trainer(cfg, api, state, make_train_step(api, opt), stream, seq, device)
+
+
+def next_batch(trainer: Trainer) -> Dict[str, torch.Tensor]:
+    raw = next(trainer.stream)
+    return {"tokens": torch.as_tensor(raw["tokens"][:, : trainer.seq], device=trainer.device)}
+
+
+def train(trainer: Trainer, steps: int, log: Callable[[str], None] = print) -> List[Dict[str, float]]:
+    """``steps`` steps on the stream; every step's metrics as floats (read after the last step)."""
+    t0 = time.perf_counter()
+    metrics = []
+    for i in range(steps):
+        trainer.state, m = trainer.step(trainer.state, next_batch(trainer))
+        metrics.append(m)
+        if i % 10 == 0 or i == steps - 1:
+            log(f"step {i:4d} loss {float(m['loss']):.3f} ({(time.perf_counter() - t0) / (i + 1):.2f}s/step)")
+    return [{k: float(v) for k, v in m.items()} for m in metrics]
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Tuple[Trainer, List[Dict[str, float]]]:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--full", action="store_true", help="full (non-reduced) config")
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    trainer = build_trainer(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
+                            full=args.full, device=args.device)
+    print(f"{trainer.cfg.name}: {trainer.api.param_count() / 1e6:.1f}M params "
+          f"({trainer.cfg.family}) on {args.device}")
+    metrics = train(trainer, args.steps)
+    if args.ckpt:
+        save_checkpoint(args.ckpt, trainer.state.params, step=args.steps)
+        print(f"saved {args.ckpt}")
+    return trainer, metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -41,6 +41,18 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def tree_from_flat(flat: Mapping[str, torch.Tensor], trainable: bool = False) -> ParamTree:
+    """A ParamTree from ``a/b/c``-keyed tensors, nested along the keys."""
+    tree: Dict[str, Any] = {}
+    for key, t in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return ParamTree(tree, trainable)
+
+
 def params_from_flat(
     flat: Mapping[str, Any], cfg: ModelConfig, device: torch.device | str = "cuda"
 ) -> ParamTree:
@@ -53,17 +65,13 @@ def params_from_flat(
     if missing or extra:
         raise KeyError(f"{cfg.name}: missing keys {missing}, extra keys {extra}")
     dtype = torch_dtype(cfg)
-    tree: Dict[str, Any] = {}
+    tensors = {}
     for key, pdef in want.items():
         arr = np.asarray(flat[key])
         if tuple(arr.shape) != tuple(pdef.shape):
             raise ValueError(f"{key}: shape {arr.shape} != expected {pdef.shape}")
-        *path, leaf = key.split("/")
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = _to_tensor(arr).to(device=device, dtype=dtype)
-    return ParamTree(tree)
+        tensors[key] = _to_tensor(arr).to(device=device, dtype=dtype)
+    return tree_from_flat(tensors)
 
 
 def flat_from_params(params: ParamTree) -> Dict[str, np.ndarray]:

@@ -42,16 +42,17 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 class ParamTree(nn.Module):
     """Nested parameters; ``tree["attn"]["wq"]`` reads like the JAX dict.
 
-    Serving needs no gradients, so parameters are created frozen.
+    Serving needs no gradients, so parameters are created frozen unless
+    ``trainable``.
     """
 
-    def __init__(self, tree: Mapping[str, Any]):
+    def __init__(self, tree: Mapping[str, Any], trainable: bool = False):
         super().__init__()
         for name, value in tree.items():
             if isinstance(value, Mapping):
-                self.add_module(name, ParamTree(value))
+                self.add_module(name, ParamTree(value, trainable))
             else:
-                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(value, requires_grad=trainable))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -62,6 +63,7 @@ def init_from_schema(
     dtype: torch.dtype,
     generator: torch.Generator,
     device: torch.device | str = "cuda",
+    trainable: bool = False,
 ) -> ParamTree:
     """normal(0, 1) * scale (drawn in f32 on the generator's device), zeros or ones."""
 
@@ -75,7 +77,7 @@ def init_from_schema(
         w = torch.randn(node.shape, generator=generator, device=generator.device)
         return (w * node.scale).to(device=device, dtype=dtype)
 
-    return ParamTree(build(schema))
+    return ParamTree(build(schema), trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +270,28 @@ def lm_head_schema(cfg: ModelConfig) -> ParamDef:
     return ParamDef((cfg.d_model, cfg.vocab_size))
 
 
+class _MixedMM(torch.autograd.Function):
+    """x [T, D] @ w [D, V] in the working type -> f32, through cuBLAS's f32 accumulator.
+
+    Autograd has no derivative for ``torch.mm(..., out_dtype=)``, so the
+    backward is written out: two working-type products of the f32
+    gradient rounded to the working type, each accumulated in f32.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = g @ w.T if ctx.needs_input_grad[0] else None
+        dw = x.T @ g if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def logits_fn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """[..., D] -> f32 logits [..., V]: the working-type product, accumulated in f32.
 
@@ -279,8 +303,22 @@ def logits_fn(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype == torch.float32:
         out = x2 @ w
-    elif x2.is_cuda:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
+    elif not x2.is_cuda:
         out = x2.float() @ w.float()
+    elif torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+        out = _MixedMM.apply(x2, w)
+    else:
+        out = torch.mm(x2, w, out_dtype=torch.float32)
     return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Mean next-token CE; logits [B,S,V] (f32), labels [B,S]."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,7 +1,7 @@
 """Unified model API: ``build_model(cfg)`` -> :class:`ModelApi`.
 
-The port's façade over the dense, moe and ssm families; serving and
-scoring go through it.
+The port's façade over the dense, moe and ssm families; serving,
+scoring and training go through it.
 """
 
 from __future__ import annotations
@@ -35,11 +35,26 @@ class ModelApi:
         return torch_dtype(self.cfg)
 
     # ---- params ----------------------------------------------------------
-    def init(self, generator: torch.Generator, device: torch.device | str = "cuda") -> ParamTree:
-        return init_from_schema(self.schema, self.dtype, generator, device)
+    def init(
+        self,
+        generator: torch.Generator,
+        device: torch.device | str = "cuda",
+        trainable: bool = False,
+    ) -> ParamTree:
+        """Random parameters; frozen for serving unless ``trainable``."""
+        return init_from_schema(self.schema, self.dtype, generator, device, trainable)
 
     def param_count(self) -> int:
         return sum(math.prod(p.shape) for p in _leaves(self.schema))
+
+    # ---- training --------------------------------------------------------
+    def loss_fn(self, params, batch: Dict[str, torch.Tensor]):
+        """(loss, metrics) of ``transformer.lm_loss``; the vlm and audio families raise."""
+        if self.cfg.family in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"{self.cfg.name}: {self.cfg.family} training is not ported yet (ROADMAP A8)"
+            )
+        return transformer.lm_loss(params, batch, self.cfg)
 
     # ---- serving ---------------------------------------------------------
     def prefill(self, params, batch, cache_len: Optional[int] = None):

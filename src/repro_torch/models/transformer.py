@@ -4,6 +4,10 @@ Torch twin of those branches of ``repro.models.transformer``.  Depth is a
 Python loop over the layer-stacked ``[L, ...]`` parameters (the JAX
 package scans over them).  The hybrid, VLM and audio families raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
+
+Departure: JAX rematerialises the layer body in training
+(``jax.checkpoint``, repro/models/transformer.py:155-158), which changes
+memory and not values; here autograd keeps every layer's activations.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     ParamDef,
     attention_schema,
+    cross_entropy,
     decode_attention,
     embed_schema,
     ffn_schema,
@@ -31,6 +36,9 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 
+
+AUX_LB_COEF = 0.01
+AUX_Z_COEF = 0.001
 
 PORTED_FAMILIES = ("dense", "moe", "ssm")
 _ROADMAP_ITEM = {"hybrid": "A2", "vlm": "A8", "audio": "A8"}
@@ -83,13 +91,18 @@ def model_schema(cfg: ModelConfig) -> Dict[str, Any]:
 def layer_params(layers) -> List[Dict[str, Any]]:
     """Every layer of the stacked ``params["layers"]`` as a nested dict of views.
 
-    The views are built once and kept on the tree, so a decode step does
-    not make them anew; they are rebuilt if a parameter's storage moved.
+    Without gradients the views are built once and kept on the tree, so a
+    decode step does not make them anew; they are rebuilt if a
+    parameter's storage moved or the inference mode changed (views made
+    under ``inference_mode`` cannot enter an autograd graph).  When a
+    gradient is wanted they are made anew on every call, so each forward
+    records its own path from the views to the stacked parameters.
     """
     named = list(layers.named_parameters())
-    key = tuple(p.data_ptr() for _, p in named)
+    grad = torch.is_grad_enabled() and any(p.requires_grad for _, p in named)
+    key = (torch.is_inference_mode_enabled(), *(p.data_ptr() for _, p in named))
     cached = getattr(layers, "_layer_views", None)
-    if cached is not None and cached[0] == key:
+    if not grad and cached is not None and cached[0] == key:
         return cached[1]
     views: List[Dict[str, Any]] = [{} for _ in range(named[0][1].shape[0])]
     for name, p in named:
@@ -98,7 +111,8 @@ def layer_params(layers) -> List[Dict[str, Any]]:
             for part in path:
                 node = node.setdefault(part, {})
             node[leaf] = view
-    layers._layer_views = (key, views)
+    if not grad:
+        layers._layer_views = (key, views)
     return views
 
 
@@ -107,12 +121,12 @@ def layer_params(layers) -> List[Dict[str, Any]]:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The FFN half of an attention layer: SwiGLU, or the MoE FFN (its aux losses are dropped)."""
+def _ffn(lp, x: torch.Tensor, cfg: ModelConfig):
+    """The FFN half of an attention layer -> (y, aux): SwiGLU and None, or the MoE FFN and its aux losses."""
     h = rms_norm(x, lp["norm_ffn"], cfg.norm_eps)
     if cfg.family == "moe":
-        return moe_mod.moe_ffn(lp["moe"], h, cfg)[0]
-    return swiglu_ffn(lp["ffn"], h)
+        return moe_mod.moe_ffn(lp["moe"], h, cfg)
+    return swiglu_ffn(lp["ffn"], h), None
 
 
 def layer_forward(
@@ -123,18 +137,21 @@ def layer_forward(
     sliding_window: int = 0,
     cache=None,
     rope=None,
-) -> torch.Tensor:
-    """One pre-norm layer; ``cache`` (FLAT k, v caches) receives this layer's K/V.
+):
+    """One pre-norm layer -> (x, aux); ``cache`` (FLAT k, v caches) receives this layer's K/V.
 
     ``rope`` is ``rope_cos_sin(positions, ...)``, computed once for all layers.
+    ``aux`` holds the layer's MoE aux losses (None for the other families).
     """
     if cfg.family == "ssm":
-        return x + ssm_mod.ssd_scan(lp["ssm"], rms_norm(x, lp["norm_ssm"], cfg.norm_eps), cfg)
+        y = ssm_mod.ssd_scan(lp["ssm"], rms_norm(x, lp["norm_ssm"], cfg.norm_eps), cfg)
+        return x + y, None
     h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
     x = x + multihead_attention(
         lp["attn"], h, positions, cfg, sliding_window=sliding_window, cache=cache, rope=rope
     )
-    return x + _ffn(lp, x, cfg)
+    y, aux = _ffn(lp, x, cfg)
+    return x + y, aux
 
 
 def forward(
@@ -143,15 +160,27 @@ def forward(
     positions: torch.Tensor,
     cfg: ModelConfig,
     sliding_window: int = 0,
-) -> torch.Tensor:
-    """Trunk over embedded inputs x [B,S,D] -> final-normed hidden [B,S,D]."""
+):
+    """Trunk over embedded inputs x [B,S,D] -> (final-normed hidden [B,S,D], aux).
+
+    ``aux``: ``load_balance`` and ``router_z`` averaged over the layers, f32
+    scalars (zeros outside the moe family), as the JAX forward returns them.
+    """
     _require_ported(cfg)
     rope = None
     if not cfg.attention_free:
         rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    auxes = []
     for lp in layer_params(params["layers"]):
-        x = layer_forward(lp, x, positions, cfg, sliding_window, rope=rope)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, aux = layer_forward(lp, x, positions, cfg, sliding_window, rope=rope)
+        if aux is not None:
+            auxes.append(aux)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if not auxes:  # no MoE layer: one zero for both, no per-layer device work
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return h, {"load_balance": zero, "router_z": zero}
+    denom = max(cfg.num_layers, 1)
+    return h, {k: sum(a[k] for a in auxes) / denom for k in ("load_balance", "router_z")}
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -160,6 +189,18 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 
 def arange_positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """Next-token LM loss -> (loss + aux terms, {"lm_loss", "load_balance", "router_z"})."""
+    tokens = batch["tokens"]  # [B, S]
+    B, S = tokens.shape
+    x = embed_tokens(params, tokens, cfg)
+    h, aux = forward(params, x, arange_positions(B, S, tokens.device), cfg)
+    logits = logits_fn(params, h[:, :-1, :], cfg)
+    loss = cross_entropy(logits, tokens[:, 1:])
+    total = loss + AUX_LB_COEF * aux["load_balance"] + AUX_Z_COEF * aux["router_z"]
+    return total, {"lm_loss": loss, **aux}
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +268,7 @@ def decode_step(
                 lp["attn"], hn, state.pos, k_cache, v_cache, cfg,
                 sliding_window=sliding_window, rope=rope,
             )
-            h = h + _ffn(lp, h, cfg)
+            h = h + _ffn(lp, h, cfg)[0]
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(params, h, cfg)[:, 0, :]
     return logits, state._replace(pos=state.pos + 1)
@@ -259,7 +300,7 @@ def prefill(
     positions = arange_positions(B, S, tokens.device)
     rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
     for i, lp in enumerate(layer_params(params["layers"])):
-        x = layer_forward(
+        x, _ = layer_forward(
             lp, x, positions, cfg, cache=(state.k_cache[i], state.v_cache[i]), rope=rope
         )
     h = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)

@@ -1,6 +1,16 @@
 """Card tests of the port: each CUDA kernel against its plain version, and the
 model on the card against the same weights on the CPU.
 
+The backward kernels are held against autograd through the plain versions
+(``kernels/ref.py``), relative to the reference gradient's largest
+magnitude: 2e-2 in bf16 (one rounding step of a value near 1 is 2**-8; the
+reference rounds P, dS and its einsum outputs at other places), 1e-4 in
+f32 (the two differ only in summation order over at most 2048 terms, ~3e-6
+relative).  A reference gradient that is exactly 0 (dq and dk at S = 1:
+one key per query, so the softmax passes no gradient) has no magnitude;
+the kernel's values there are the f32 rounding of dP - D, two sums of d
+products of unit-normal inputs (~1e-6), held to ``ZERO_GRAD_ABS``.
+
 Marked ``gpu``; each test asks the ``cuda`` fixture, which skips where
 ``torch.cuda.is_available()`` is false.  This file imports no JAX, so it
 runs where only PyTorch is installed:
@@ -38,6 +48,22 @@ def tensor(rng, shape, dtype, device, scale=1.0):
 
 def close(got, want, tol):
     torch.testing.assert_close(got.float().cpu(), want.float().cpu(), rtol=tol, atol=tol)
+
+
+ZERO_GRAD_ABS = 1e-5
+
+
+def close_to_max(name, got, want, tol):
+    """max |got - want| <= tol * max |want| (ZERO_GRAD_ABS where want is all 0), and got finite."""
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    limit = tol * scale if scale > 0 else ZERO_GRAD_ABS
+    assert bool(torch.isfinite(got).all()) and err <= limit, f"{name}: err {err} vs {limit} ({tol} * {scale})"
+
+
+def grad_tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 1e-4
 
 
 @pytest.mark.parametrize("T,D", [(1, 960), (7, 960), (512, 960), (1280, 2048), (3, 100)])
@@ -81,6 +107,94 @@ def test_flash_kernel(cuda, B, H, KV, S, d, causal, dtype):
     # [B,S,H,d] memory as transposed views, read in place: the same numbers
     views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
     assert torch.equal(ops.flash_attention_op(*views, causal=causal), got)
+
+
+# the chip phase's backward grid: GQA g, S (ragged and whole tiles), d
+FLASH_BWD_SHAPES = [(2, 2 * g, 2, S, d) for g in (1, 3, 4, 5) for S in (1, 63, 65, 160, 1024)
+                    for d in (64, 128)]
+
+
+@pytest.mark.parametrize("B,H,KV,S,d", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels(cuda, B, H, KV, S, d, causal, dtype):
+    """dq, dk, dv through ops (the autograd Function) against autograd through the plain version."""
+    rng = np.random.default_rng(B * H * S + d + 7)
+    q, k, v, dout = (tensor(rng, shape, dtype, cuda).requires_grad_(i < 3)
+                     for i, shape in enumerate([(B, H, S, d), (B, KV, S, d), (B, KV, S, d), (B, H, S, d)]))
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v, causal), (q, k, v), dout)
+    before = ops.launch_counts()
+    got = torch.autograd.grad(ops.flash_attention_op(q, k, v, causal=causal), (q, k, v), dout)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
+        assert after[name] == before[name] + 1, name
+    for name, g, w in zip("qkv", got, want):
+        close_to_max(f"d{name}", g, w, grad_tol(dtype))
+
+
+def test_flash_backward_keeps_the_model_layout(cuda):
+    """[B,S,H,d] memory as transposed views: gradients come back in that layout, same numbers."""
+    rng = np.random.default_rng(3)
+    B, H, KV, S, d = 2, 15, 5, 160, 64
+    q, k, v = (tensor(rng, (B, S, n, d), torch.bfloat16, cuda).requires_grad_() for n in (H, KV, KV))
+    dout = tensor(rng, (B, H, S, d), torch.bfloat16, cuda)
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention_op(*views), views, dout)
+    dense = [t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ops.flash_attention_op(*dense), dense, dout)
+    for g, w, t in zip(got, want, views):
+        assert g.stride() == t.stride()
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("T,D", [(2560, 960), (1024, 2048), (1, 960), (7, 960), (3, 100), (300, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_kernels(cuda, T, D, dtype):
+    rng = np.random.default_rng(T + D + 11)
+    x = tensor(rng, (T, D), dtype, cuda, 3.0).requires_grad_()
+    w = (1 + tensor(rng, (D,), dtype, cuda, 0.1)).requires_grad_()
+    dy = tensor(rng, (T, D), dtype, cuda)
+    want = torch.autograd.grad(ref.rmsnorm_ref(x, w), (x, w), dy)
+    before = ops.launch_counts()
+    got = torch.autograd.grad(ops.rmsnorm_op(x, w), (x, w), dy)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("rmsnorm", "rmsnorm_bwd", "rmsnorm_bwd_dweight"):
+        assert after[name] == before[name] + 1, name
+    close_to_max("dx", got[0], want[0], grad_tol(dtype))
+    close_to_max("dweight", got[1], want[1], grad_tol(dtype))
+
+
+def test_rmsnorm_backward_strided_rows_and_frozen_weight(cuda):
+    rng = np.random.default_rng(5)
+    base = tensor(rng, (4, 9, 960), torch.bfloat16, cuda).requires_grad_()
+    x = base[:, -1:, :]  # rows 9*960 apart
+    w = 1 + tensor(rng, (960,), torch.bfloat16, cuda, 0.1)  # no gradient wanted
+    dy = tensor(rng, (4, 1, 960), torch.bfloat16, cuda)
+    before = ops.launch_counts()["rmsnorm_bwd_dweight"]
+    (got,) = torch.autograd.grad(ops.rmsnorm_op(x, w), (base,), dy)
+    assert ops.launch_counts()["rmsnorm_bwd_dweight"] == before
+    (want,) = torch.autograd.grad(ref.rmsnorm_ref(x, w), (base,), dy)
+    close_to_max("dx", got, want, 2e-2)
+
+
+def test_moe_and_ssd_kernels_refuse_to_drop_gradients(cuda):
+    """No backward kernel yet: under grad mode they raise (ROADMAP A3b), never return grad-less tensors."""
+    buf = torch.randn(2, 8, 16, device=cuda, requires_grad=True)
+    w = torch.randn(2, 16, 8, device=cuda)
+    x = torch.randn(1, 2, 8, 32, device=cuda, requires_grad=True)
+    b = torch.randn(1, 8, 16, device=cuda)
+    cum = -torch.rand(1, 2, 8, device=cuda).cumsum(-1)
+    with pytest.raises(NotImplementedError, match="A3b"):
+        ops.moe_matmul_op(buf, w)
+    with pytest.raises(NotImplementedError, match="A3b"):
+        ops.ssd_intra_chunk_op(x, b, b, cum)
+    with torch.inference_mode():
+        assert ops.moe_matmul_op(buf, w).shape == (2, 8, 8)
+        assert ops.ssd_intra_chunk_op(x, b, b, cum)[0].shape == x.shape
+    with torch.no_grad():
+        ops.moe_matmul_op(buf, w)
 
 
 def test_flash_kernel_rejects_head_dim_32(cuda):

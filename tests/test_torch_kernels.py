@@ -111,11 +111,50 @@ def test_flash_attention_ref_takes_strided_views():
 
 
 # ---------------------------------------------------------------------------
+# gradients of the plain versions (the backward kernels' references)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("g", [1, 3, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ref_grads_match_jax(g, causal):
+    """autograd through ``ref.flash_attention_ref`` against jax.grad of the JAX reference, f32."""
+    B, KV, S, d = 2, 2, 40, 64
+    rng = np.random.default_rng(g * 10 + causal)
+    arrays = [rng.standard_normal(s, dtype=np.float32) for s in
+              [(B, KV * g, S, d), (B, KV, S, d), (B, KV, S, d), (B, KV * g, S, d)]]
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrays[:3])
+    got = torch.autograd.grad(ref.flash_attention_ref(q, k, v, causal), (q, k, v),
+                              torch.from_numpy(arrays[3]))
+    _, vjp = jax.vjp(lambda *t: jax_ref.flash_attention_ref(*t, causal=causal),
+                     *(jnp.asarray(a) for a in arrays[:3]))
+    for mine, theirs in zip(got, vjp(jnp.asarray(arrays[3]))):
+        close(mine, theirs, 1e-5)
+
+
+@pytest.mark.parametrize("T,D", [(7, 960), (33, 64)])
+def test_rmsnorm_ref_grads_match_jax(T, D):
+    rng = np.random.default_rng(T + D)
+    xa = rng.standard_normal((T, D), dtype=np.float32) * 3
+    wa = 1 + 0.1 * rng.standard_normal(D, dtype=np.float32)
+    dy = rng.standard_normal((T, D), dtype=np.float32)
+    x, w = torch.from_numpy(xa).requires_grad_(), torch.from_numpy(wa).requires_grad_()
+    got = torch.autograd.grad(ref.rmsnorm_ref(x, w), (x, w), torch.from_numpy(dy))
+    _, vjp = jax.vjp(jax_ref.rmsnorm_ref, jnp.asarray(xa), jnp.asarray(wa))
+    for mine, theirs in zip(got, vjp(jnp.asarray(dy))):
+        close(mine, theirs, 1e-5)
+
+
+# ---------------------------------------------------------------------------
 # wrappers: no fallback, counters, argument checks
 # ---------------------------------------------------------------------------
 
 
-ZERO_COUNTS = {"rmsnorm": 0, "flash_attention": 0, "moe_matmul": 0, "ssd_intra_chunk": 0}
+ZERO_COUNTS = {
+    "rmsnorm": 0, "rmsnorm_bwd": 0, "rmsnorm_bwd_dweight": 0,
+    "flash_attention": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
+    "moe_matmul": 0, "ssd_intra_chunk": 0,
+}
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
@@ -205,6 +244,53 @@ def test_flash_launch_plan(B, H, KV, S, d, dtype):
     assert (heads, batch) == (H, B)
     assert (row_tiles - 1) * plan.block_q < S <= row_tiles * plan.block_q
     assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
+
+
+# (B, H, KV, S, d): the training paths (smollm GRPO 16 x 160, llama LM 4 x 256), chip_smoke.py's
+# longer shapes and the card tests' grid
+FLASH_BWD_PLAN_SHAPES = sorted(
+    {(16, 15, 5, 160, 64), (4, 32, 8, 256, 64)}
+    | {(4, H, KV, S, 64) for S in (1024, 2048) for H, KV in ((32, 8), (15, 5))}
+    | {(2, 2 * g, 2, S, d) for g in (1, 3, 4, 5) for S in (1, 63, 65, 160, 1024) for d in (64, 128)}
+)
+
+
+@pytest.mark.parametrize("B,H,KV,S,d", FLASH_BWD_PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_launch_plans(B, H, KV, S, d, dtype):
+    dq, dkdv = flash_mod.bwd_plans(B, H, KV, S, d, dtype)
+    tiles = -(-S // 64)
+    assert dq.grid == (H, tiles, B)  # one block per (query head, 64-row tile)
+    assert dkdv.grid == (tiles, KV, B)  # one block per (KV head, 64-key tile)
+    for plan in (dq, dkdv):
+        assert plan.threads == 128 and plan.block_q == 64
+        assert plan.route == ("mma" if dtype == torch.bfloat16 else "fma")
+        assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
+        # nothing of size S lives in shared memory
+        assert plan.smem_bytes == flash_mod.bwd_plans(B, H, KV, 4 * S, d, dtype)[plan is dkdv].smem_bytes
+    if dtype == torch.bfloat16:  # six padded 64-row tiles; dkdv adds two stages of lse and D
+        assert dq.smem_bytes == 2 * 6 * 64 * (d + 8) and dkdv.smem_bytes == dq.smem_bytes + 1024
+
+
+@pytest.mark.parametrize("T,D", [(2560, 960), (1024, 2048), (128, 960), (4, 960), (1, 7), (300, 64)])
+def test_rmsnorm_backward_launch_plan(T, D):
+    """Rows split over at most two blocks per SM; each block keeps D f32 column sums."""
+    plan = rmsnorm_mod.bwd_plan(T, D)
+    assert plan.blocks <= rmsnorm_mod.BWD_TARGET_BLOCKS and plan.blocks <= T
+    assert (plan.blocks - 1) * plan.rows_per_block < T <= plan.blocks * plan.rows_per_block
+    assert plan.smem_bytes == 4 * D <= _build.MAX_SMEM_BYTES
+    assert rmsnorm_mod.bwd_plan(T, D, dweight=False).smem_bytes == 0
+    if T >= rmsnorm_mod.BWD_TARGET_BLOCKS:
+        assert plan.blocks > rmsnorm_mod.BWD_TARGET_BLOCKS // 2  # the card stays full
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    q = torch.randn(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_mod.flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 8), q)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_mod.rmsnorm_bwd(torch.randn(4, 64), torch.ones(64), torch.randn(4, 64))
+    assert ops.launch_counts() == ZERO_COUNTS
 
 
 # (BNC, H, Q, hd, N): mamba2-130m's prefill, score and 4 x 1024 tokens, chip_smoke.py's

@@ -98,11 +98,39 @@ def test_forward_logits_match(arch):
     B, S = 2, 24
     toks = tokens(japi.cfg, B, S)
     pos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
-    h, _ = jax_forward(jparams, jax_embed(jparams, jnp.asarray(toks), japi.cfg), pos, japi.cfg, None)
+    h, jaux = jax_forward(jparams, jax_embed(jparams, jnp.asarray(toks), japi.cfg), pos, japi.cfg, None)
     want = jax_logits_fn(jparams, h, japi.cfg)
     t = torch.as_tensor(toks)
-    th = tt.forward(tparams, tt.embed_tokens(tparams, t, tapi.cfg), tt.arange_positions(B, S, "cpu"), tapi.cfg)
+    th, aux = tt.forward(tparams, tt.embed_tokens(tparams, t, tapi.cfg), tt.arange_positions(B, S, "cpu"), tapi.cfg)
     close(logits_fn(tparams, th, tapi.cfg), want)
+    # the MoE aux losses, averaged over layers (zeros for the other families)
+    assert aux.keys() == jaux.keys() == {"load_balance", "router_z"}
+    for k in aux:
+        assert aux[k].shape == () and aux[k].dtype == torch.float32
+        close(aux[k], jaux[k])
+    assert (float(aux["load_balance"]) > 0) == (japi.cfg.family == "moe")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_loss_matches(arch):
+    """``ModelApi.loss_fn`` (lm_loss: CE plus the weighted MoE aux terms) against JAX's."""
+    japi, jparams, tapi, tparams = models(arch, weight_mult=5.0)
+    toks = tokens(japi.cfg, 2, 32, seed=4)
+    want, jm = japi.loss_fn(jparams, {"tokens": jnp.asarray(toks, jnp.int32)})
+    got, m = tapi.loss_fn(tparams, {"tokens": torch.as_tensor(toks)})
+    assert m.keys() == jm.keys() == {"lm_loss", "load_balance", "router_z"}
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5, atol=1e-5)
+    for k in m:
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, atol=1e-5)
+
+
+def test_loss_fn_of_unported_families_names_a8():
+    cfg = get_config("smollm-360m").reduced()
+    api = build_model(cfg)
+    for family in ("vlm", "audio"):
+        other = dataclasses.replace(api, cfg=dataclasses.replace(cfg, family=family))
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            other.loss_fn(None, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
 
 
 @pytest.mark.parametrize("arch", ARCHS)

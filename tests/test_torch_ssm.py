@@ -169,7 +169,7 @@ def test_bf16_decode_drifts_from_forward_no_more_than_jax(seed):
     for i in range(new):
         logits, tstate = tapi.decode_step(tparams, tstate, t[:, P + i : P + i + 1])
         port_dec.append(np32(logits))
-    h = tt.forward(tparams, tt.embed_tokens(tparams, t, tcfg), tt.arange_positions(B, P + new, "cpu"), tcfg)
+    h, _ = tt.forward(tparams, tt.embed_tokens(tparams, t, tcfg), tt.arange_positions(B, P + new, "cpu"), tcfg)
     port_full = np32(logits_fn(tparams, h, tcfg))
 
     jax_drift = max(np.abs(jax_dec[i] - jax_full[:, P + i]).max() for i in range(new))

@@ -117,7 +117,7 @@ def ssm_check(gen):
         out = server.engine.generate({"tokens": prompts})
         with torch.inference_mode():
             seq = torch.cat([prompts, out.tokens[:, :-1]], dim=1)
-            h = forward(params, embed_tokens(params, seq, cfg), arange_positions(*seq.shape, dev), cfg)
+            h, _ = forward(params, embed_tokens(params, seq, cfg), arange_positions(*seq.shape, dev), cfg)
             full = logits_fn(params, h[:, -1:], cfg)[:, 0]
         return (out.logits[:, -1].float() - full.float()).abs().max().item()
 
