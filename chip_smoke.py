@@ -30,9 +30,10 @@ Phases, each of which raises on failure (nothing is caught):
    busy share, device operations, the top kernels);
 5. backward kernels: flash attention's dq and dk/dv kernels and RMSNorm's
    dx and dweight kernels against autograd through their plain versions,
-   over a grid of types, head dims, masks, GQA groups and lengths, timed at
-   the training paths' shapes and longer ones beside their bounds, the
-   plain versions and the library's gradient (``sdpa``, ``F.rms_norm``);
+   over a grid of types, head dims, masks, GQA groups and lengths (236
+   cases), timed at the training paths' shapes and longer ones beside their
+   bounds, the plain versions and the library's gradient (``sdpa``,
+   ``F.rms_norm``), each timed pair called twice for bit-identical results;
 6. training at full width on seeded random bf16 weights, with exact launch
    counts: GRPO (the paper's loop without the control plane:
    ``smollm-360m`` generates 4 prompts x group 4, 128 prompt + 32 sampled
@@ -685,20 +686,23 @@ def main() -> int:
             rel, zero = (max(rel, r), zero) if r is not None else (rel, max(zero, e))
         worst[(what, str(dt)[6:])] = (rel, zero)
 
+    # GQA g and S (ragged and whole tiles), then S on either side of the 128-row and
+    # 128-key tiles and of S = 256, where the bf16 plans go from one warpgroup to two
+    grid = [(g, S) for g in (1, 3, 4, 5) for S in (1, 63, 65, 160, 1024)]
+    grid += [(g, S) for g in (1, 4) for S in (127, 129, 255, 257)]
     for dt in (torch.bfloat16, torch.float32):
-        for g in (1, 3, 4, 5):
-            for S in (1, 63, 65, 160, 1024):
-                for d in (64, 128):
-                    for causal in (True, False):
-                        q, k, v = leaves(dt, (2, 2 * g, S, d), (2, 2, S, d), (2, 2, S, d))
-                        dout = randn(2, 2 * g, S, d, dtype=dt)
-                        got = grads(lambda *t: ops.flash_attention_op(*t, causal=causal), (q, k, v), dout)
-                        want = grads(lambda *t: ref.flash_attention_ref(*t, causal), (q, k, v), dout)
-                        for n, a, b in zip("qkv", got, want):
-                            keep(f"flash d{n}", dt, [grad_err(
-                                f"flash d{n} g={g} S={S} d={d} causal={causal} {dt}", a, b,
-                                GRAD_TOL[str(dt)[6:]])])
-                        checked += 1
+        for g, S in grid:
+            for d in (64, 128):
+                for causal in (True, False):
+                    q, k, v = leaves(dt, (2, 2 * g, S, d), (2, 2, S, d), (2, 2, S, d))
+                    dout = randn(2, 2 * g, S, d, dtype=dt)
+                    got = grads(lambda *t: ops.flash_attention_op(*t, causal=causal), (q, k, v), dout)
+                    want = grads(lambda *t: ref.flash_attention_ref(*t, causal), (q, k, v), dout)
+                    for n, a, b in zip("qkv", got, want):
+                        keep(f"flash d{n}", dt, [grad_err(
+                            f"flash d{n} g={g} S={S} d={d} causal={causal} {dt}", a, b,
+                            GRAD_TOL[str(dt)[6:]])])
+                    checked += 1
     for dt in (torch.bfloat16, torch.float32):
         for T, D in ((2560, 960), (1024, 2048), (1, 960), (7, 960), (3, 100), (300, 64)):
             x, w = leaves(dt, (T, D), scale=3.0)[0], (1 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
@@ -734,6 +738,9 @@ def main() -> int:
             out, lse = flash_k.flash_attention(q, k, v, causal=causal, lse=True)
         dq, delta = flash_k.flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=causal)
         dk, dv = flash_k.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal)
+        again = flash_k.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):  # no atomics
+            raise AssertionError(f"flash bwd B={B} H={H} S={S}: two calls differ")
         ref_out = ref.flash_attention_ref(q, k, v, causal)
         lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
         tol = GRAD_TOL[str(dt)[6:]]
@@ -762,7 +769,7 @@ def main() -> int:
         report(f"flash bwd dq {label}", errs[:1], tol, m_dq, "sdpa grad q")
         report(f"flash bwd dkdv {label}", errs[1:], tol, m_dkdv, "sdpa grad k, v")
         report(f"flash bwd both {label}", errs, tol, m_all, "sdpa grad q, k, v")
-        del q, k, v, dout, out, lse, dq, dk, dv, delta, ref_out, lib_out, want
+        del q, k, v, dout, out, lse, dq, dk, dv, delta, again, ref_out, lib_out, want
     rms_bwd_cases = [  # (T, D, dtype, what)
         (16 * 160, 960, torch.bfloat16, "smollm GRPO"),
         (4 * 256, 2048, torch.bfloat16, "llama LM"),
@@ -774,6 +781,9 @@ def main() -> int:
         dy = randn(T, D, dtype=dt)
         dx, part = rms_k.rmsnorm_bwd_dx(x, w, dy)
         dw = rms_k.rmsnorm_bwd_dweight(part, dt)
+        again = rms_k.rmsnorm_bwd(x, w, dy)
+        if not (torch.equal(dx, again[0]) and torch.equal(dw, again[1])):  # fixed-order sums
+            raise AssertionError(f"rmsnorm bwd {T}x{D}: two calls differ")
         ref_out, lib_out = ref.rmsnorm_ref(x, w), F.rms_norm(x, (D,), w, 1e-5)
         tol = GRAD_TOL[str(dt)[6:]]
         want = torch.autograd.grad(ref_out, (x, w), dy, retain_graph=True)
@@ -794,7 +804,9 @@ def main() -> int:
         report(f"rmsnorm bwd dx+partials {label}", errs[:1], tol, m_dx, "F.rms_norm grad x, w")
         report(f"rmsnorm bwd dweight reduce {label}", errs[1:], tol, m_dw, "torch.sum")
         report(f"rmsnorm bwd both {label}", errs, tol, m_all, "F.rms_norm grad x, w")
-        del x, w, dy, part, dx, dw, ref_out, lib_out, want
+        del x, w, dy, part, dx, dw, again, ref_out, lib_out, want
+    print(f"[bwd] determinism: every timed backward pair gave bit-identical gradients in two calls "
+          f"({len(flash_bwd_cases)} flash, {len(rms_bwd_cases)} rmsnorm shapes)")
     torch.cuda.empty_cache()
 
     print(f"[time] phase 5 done at {time.perf_counter() - t_start:.1f}s")

@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch_kernels/lib<name>-<hash>.so``
 under the repository root, compiled for Hopper (``sm_90a``) with a plain C
-interface.  The hash is taken over the source, so an edited kernel is
-rebuilt and a stale library is never loaded.  Libraries build on first
-use; ``build_all`` starts one nvcc per source at once.  Nothing here runs
-at import time.
+interface.  The hash is taken over the source and the shared headers
+(``csrc/*.cuh``), so an edited kernel is rebuilt and a stale library is
+never loaded.  Libraries build on first use; ``build_all`` starts one
+nvcc per source at once.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -43,6 +43,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared headers change every library
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

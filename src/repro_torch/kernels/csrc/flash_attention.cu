@@ -63,27 +63,47 @@
 // lse and D = rowsum(dO o): dV = P^T dO, dS = P (dO V^T - D),
 // dQ = scale dS K, dK = scale dS^T Q.  Two kernels, no atomics, so the
 // results do not depend on the order blocks run in:
-//   dq:   one block per (query head, 64-row tile); it first writes D for
-//         its rows (read from o and dO), then walks the key tiles up to
+//   dq:   one block per (query head, row tile); it first writes D for its
+//         rows (16-byte loads of o and dO), then walks the key tiles up to
 //         the diagonal, as the forward does;
-//   dkdv: one block per (KV head, 64-key tile); it walks every query tile
-//         at or after the diagonal of each of the KV head's g query heads,
-//         reading the lse and the D the dq kernel wrote (it runs second on
-//         the same stream).
-// bf16 runs all four products per tile (Q K^T, dO V^T, then dS K or
-// P^T dO and dS^T Q) on mma.sync m16n8k16 with f32 accumulators, in the
-// forward's fragment layouts: score accumulators become bf16 A fragments
-// in registers, the streamed tiles (K/V in dq, Q/dO in dkdv) are
-// double-buffered by cp.async.  P and dS are rounded to bf16 before their
-// products, as the reference's bf16 einsums round their operands.  f32
-// keeps FMAs with one key (dq) or one query (dkdv) per lane, as the f32
-// forward does.  Bound: at the training shapes (S 160-256, d 64) the
-// bytes of q, k, v, o, dO and the three gradients; at long S the
-// ~2.5x forward operations.
+//   dkdv: one block per (KV head, key tile); it walks every 64-row query
+//         tile at or after the diagonal of each of the KV head's g query
+//         heads, reading the D and lse log2(e) rows the dq kernel wrote
+//         (bf16: a programmatic dependent launch, whose producer loads K
+//         and V while the dq grid finishes and waits for it before the
+//         first stats).
+// Each kernel recomputes Q K^T and dO V^T (7 tile products for the pair
+// where one fused kernel does 5): that keeps every output element written
+// by one block, in a fixed order.
+//
+// bf16: warp specialisation on wgmma, fed by TMA (hopper.cuh).  A block is
+// one or two consumer warpgroups of 64 rows (dq) or keys (dkdv) and one
+// producer warp.  The producer loads the block's resident operands once
+// (dq: Q and dO; dkdv: K and V) and keeps a ring of 2-3 stages of streamed
+// tiles in flight (dq: 64-key K and V tiles; dkdv: 64-row Q and dO tiles
+// with their lse and D rows), each completing on an mbarrier and released
+// by the consumer warps' arrivals.  Tiles are 128-byte swizzled boxes of a
+// 4-D tensor map over the model's strided [B,S,H,d] layout, so positions
+// past S arrive as zeros and the masks drop them.  The consumers compute
+// S = Q K^T and dP = dO V^T (dkdv: their transposes, K and V as the
+// A operand) with wgmma from shared memory, turn P and dS into bf16
+// register A operands in place, and accumulate dQ += dS K (or dV += P^T dO
+// and dK += dS^T Q) with the streamed tile as an MN-major B operand.  The
+// lse and D of a query tile are read once per thread's 16 columns.  Two
+// consumer warpgroups (128 rows or keys) halve the streamed bytes per row
+// at long S; below S = 256 one warpgroup keeps the grid large enough to
+// fill the card; at d = 128 dkdv keeps one (its dK and dV accumulators
+// alone are 128 f32 registers a thread).  f32 keeps FMAs with one key (dq)
+// or one query (dkdv) per lane, as the f32 forward does; its dkdv blocks
+// own 32 keys.  Bound: at the training shapes (S 160-256, d 64) the bytes
+// of q, k, v, o, dO and the three gradients; at long S the ~2.5x forward
+// operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -94,6 +114,10 @@ struct Strides {
 constexpr int kThreads = 128;  // both templates: 4 warps
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// The backward's per-row statistics: [2][B][H][stats_row(S)] f32, D =
+// rowsum(dO o) then lse log2(e); rows padded to 16 bytes for TMA.
+__host__ __device__ constexpr int stats_row(int S) { return (S + 3) / 4 * 4; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -348,322 +372,410 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   }
 }
 
-// 4-byte cp.async for the per-row statistics (lse, D); bytes = 0 zero-fills.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes));
-}
+}  // namespace tc
 
-// acc[n] += A B over one 16-row warp slice and a 64-deep k range held as
-// score accumulators s[8][4] (rounded to bf16 A fragments here), with B read
-// from a padded tile by ldmatrix.trans: B[k][n] = tile[k][n] (V, dO, Q or K
-// as the right-hand operand of P V, P^T dO, dS^T Q or dS K).
+// ------------------------------------------------------- bf16 backward --
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
 template <int D>
-__device__ __forceinline__ void acc_scores_times_tile(float (&acc)[D / 8][4],
-                                                      const float (&s)[8][4], const bf16* tile,
-                                                      int ar, int ac) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t vb[4];
-      ldmatrix_x4_trans(vb, tile + (kk * 16 + ar) * Layout<D>::kRow + dn * 16 + ac);
-      mma_bf16(acc[2 * dn], pa, vb[0], vb[1]);
-      mma_bf16(acc[2 * dn + 1], pa, vb[2], vb[3]);
-    }
-  }
+constexpr int stages() { return D == 64 ? 3 : 2; }  // tiles in flight per ring
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// s += A B^T over k-step kk for a warp's 16 rows (A fragment fa) against a
-// tile's 64 rows, whose B fragments come by ldmatrix (K in Q K^T, V in
-// dO V^T, Q in K Q^T, dO in V dO^T).
-template <int D>
-__device__ __forceinline__ void mma_rows_tile(float (&s)[8][4], const uint32_t (&fa)[4],
-                                              const bf16* tile, int kk, int kr, int kc) {
-#pragma unroll
-  for (int nj = 0; nj < 4; ++nj) {
-    uint32_t kb[4];
-    ldmatrix_x4(kb, tile + (nj * 16 + kr) * Layout<D>::kRow + kk * 16 + kc);
-    mma_bf16(s[2 * nj], fa, kb[0], kb[1]);
-    mma_bf16(s[2 * nj + 1], fa, kb[2], kb[3]);
-  }
-}
+// Shared-memory layout (byte offsets past a 1024-byte aligned base; the
+// 1024 bytes of slack in `bytes` pay for the alignment).  dq: Q and dO of
+// the block's BQ rows, then the K and V ring, the barriers (Q/dO, full[ST],
+// empty[ST]) and each consumer warp's 16 D = rowsum(dO o) values.
+template <int D, int NWG>
+struct DqSmem {
+  static constexpr int BQ = 64 * NWG, ST = stages<D>();
+  static constexpr int q = 0, dout = BQ * D * 2, k = 2 * BQ * D * 2, v = k + ST * 64 * D * 2;
+  static constexpr int bars = v + ST * 64 * D * 2, dsum = bars + 8 * (1 + 2 * ST);
+  static constexpr int bytes = 1024 + dsum + 4 * 64 * NWG;
+};
+// dkdv: K and V of the block's BK keys, then the Q and dO ring, the ring's
+// lse and D rows, and the barriers (K/V, full[ST], empty[ST]).
+template <int D, int NWG>
+struct DkdvSmem {
+  static constexpr int BK = 64 * NWG, ST = stages<D>();
+  static constexpr int k = 0, v = BK * D * 2, q = 2 * BK * D * 2, dout = q + ST * 64 * D * 2;
+  static constexpr int lse = dout + ST * 64 * D * 2, delta = lse + ST * 64 * 4;
+  static constexpr int bars = delta + ST * 64 * 4;
+  static constexpr int bytes = 1024 + bars + 8 * (1 + 2 * ST);
+};
 
-__device__ __forceinline__ void zero(float (&s)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-}
-
-// s = A B^T with the warp's A fragments held in registers.
-template <int D>
-__device__ __forceinline__ void scores_reg(float (&s)[8][4], const uint32_t (&af)[D / 16][4],
-                                           const bf16* tile, int kr, int kc) {
-  zero(s);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) mma_rows_tile<D>(s, af[kk], tile, kk, kr, kc);
-}
-
-// s = A B^T with A = the warp's 16 rows of the shared tile a.
-template <int D>
-__device__ __forceinline__ void scores_smem(float (&s)[8][4], const bf16* a, const bf16* tile,
-                                            int ar, int ac, int kr, int kc) {
-  zero(s);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t fa[4];
-    ldmatrix_x4(fa, a + ar * Layout<D>::kRow + kk * 16 + ac);
-    mma_rows_tile<D>(s, fa, tile, kk, kr, kc);
-  }
-}
-
-// Store a warp's 16 accumulator rows (times mul) as bf16 rows row0.. of a
-// [.., D] tensor, staged through the warp's rows of a padded shared tile.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul, bf16* stage,
-                                           bf16* dst, int64_t s_stride, int row0, int S,
-                                           int lane) {
-  using L = Layout<D>;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half)
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(stage + (g + 8 * half) * L::kRow + 8 * n + 2 * t) =
-          pack_bf16(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
-  __syncwarp();
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    if (row0 + r < S)
-      *reinterpret_cast<uint4*>(dst + static_cast<int64_t>(row0 + r) * s_stride + c) =
-          *reinterpret_cast<const uint4*>(stage + r * L::kRow + c);
-  }
-}
-
-// dQ and D.  grid (H, row tiles, B), row tiles last-first as the forward.
-// Shared: Q, dO, then K and V double-buffered (six padded tiles).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ o,
-                  const bf16* __restrict__ dout, const float* __restrict__ lse,
-                  float* __restrict__ delta, bf16* __restrict__ dq, int S, int H, int KV,
-                  Strides qs, Strides ks, Strides vs, Strides os, Strides dos, Strides dqs,
-                  float scale_log2, float scale, int causal) {
-  using L = Layout<D>;
-  constexpr int KD = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + L::kTile;
-  bf16* Ks = dOs + L::kTile;     // [2][64][kRow]
-  bf16* Vs = Ks + 2 * L::kTile;  // [2][64][kRow]
-  __shared__ float Ds[BQ];
+// dQ and D.  grid (H, row tiles of 64 NWG, B), row tiles last-first.
+// Warps 0 .. 4 NWG - 1 are NWG consumer warpgroups of 64 rows each; the
+// last warp is the producer.
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, NWG == 1 ? 2 : 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                   const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ stats, bf16* __restrict__ dq,
+                   int S, int H, int KV, Strides os, Strides dos, Strides dqs, float scale_log2,
+                   float scale, int causal) {
+  using L = DqSmem<D, NWG>;
+  constexpr int BQ = L::BQ, ST = L::ST, CH = D / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(sm + L::q);
+  bf16* dOs = reinterpret_cast<bf16*>(sm + L::dout);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + L::k);  // [ST][64 keys][D], swizzled chunks
+  bf16* Vs = reinterpret_cast<bf16*>(sm + L::v);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + ST;
+  float* Dsum = reinterpret_cast<float*>(sm + L::dsum);
 
   const int h = blockIdx.x, b = blockIdx.z;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
   const int kvh = h / (H / KV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ar = (lane & 7) + ((lane >> 3) & 1) * 8, ac = (lane >> 4) * 8;
-  const int kr = (lane & 7) + (lane >> 4) * 8, kc = ((lane >> 3) & 1) * 8;
+  const int n_tiles = ((causal ? min(S, q0 + BQ) : S) + 63) / 64;
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * NWG);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  const bf16* kh = k + b * ks.b + kvh * ks.h;
-  const bf16* vh = v + b * vs.b + kvh * vs.h;
-  const bf16* doh = dout + b * dos.b + h * dos.h;
-  const int k_end = causal ? min(S, q0 + BQ) : S;
-  const int n_tiles = (k_end + BK - 1) / BK;
-
-  load_tile<D>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
-  load_tile<D>(dOs, doh, dos.s, q0, S);
-  load_tile<D>(Ks, kh, ks.s, 0, S);
-  load_tile<D>(Vs, vh, vs.s, 0, S);
-  cp_async_commit();
-
-  // D = rowsum(dO o) of the warp's 16 rows, straight from device memory
-  const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
-  const bf16* oh = o + b * os.b + h * os.h;
-  for (int r = 0; r < 16; ++r) {
-    const int row = q0 + warp * 16 + r;
-    float sum = 0.f;
-    if (row < S) {
-      for (int c = 2 * lane; c < D; c += 64) {
-        const float2 a = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(oh + static_cast<int64_t>(row) * os.s + c));
-        const float2 d2 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(doh + static_cast<int64_t>(row) * dos.s + c));
-        sum = fmaf(a.x, d2.x, fmaf(a.y, d2.y, sum));
+  if (warp == 4 * NWG) {  // producer: Q and dO once, then K and V tiles through the ring
+    if (lane == 0) {
+      mbar_expect_tx(qfull, 2 * BQ * D * 2);
+      for (int c = 0; c < CH; ++c) {
+        tma_load_4d(Qs + c * BQ * 64, &tq, qfull, 64 * c, q0, h, b);
+        tma_load_4d(dOs + c * BQ * 64, &tdo, qfull, 64 * c, q0, h, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % ST;
+        if (it >= ST) mbar_wait(empty + s, (it / ST - 1) & 1);
+        mbar_expect_tx(full + s, 2 * 64 * D * 2);
+        for (int c = 0; c < CH; ++c) {
+          tma_load_4d(Ks + (s * CH + c) * 4096, &tk, full + s, 64 * c, it * 64, kvh, b);
+          tma_load_4d(Vs + (s * CH + c) * 4096, &tv, full + s, 64 * c, it * 64, kvh, b);
+        }
       }
     }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      Ds[warp * 16 + r] = sum;
-      if (row < S) delta[stat + row] = sum;
-    }
+    launch_dependents();
+    return;
   }
-  __syncwarp();
-  const int row_lo = q0 + warp * 16 + g;
+
+  const int wgi = warp >> 2, w4 = warp & 3, g = lane >> 2, t = lane & 3;
+  const int wq0 = q0 + wgi * 64;            // the warpgroup's first row
+  const int row_lo = wq0 + w4 * 16 + g;     // this thread's rows: row_lo, row_lo + 8
+  const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
+  const int64_t pad = (static_cast<int64_t>(b) * H + h) * stats_row(S);  // this head's stats row
+  const int64_t lse_half = static_cast<int64_t>(gridDim.z) * H * stats_row(S);
+  {  // D = rowsum(dO o) of the warp's 16 rows, 16-byte loads, while Q and dO land
+    constexpr int LPR = D / 8, RP = 32 / LPR;  // lanes per row, rows per pass
+    const bf16* oh = o + b * os.b + h * os.h;
+    const bf16* doh = dout + b * dos.b + h * dos.h;
+#pragma unroll
+    for (int p = 0; p < 16 / RP; ++p) {
+      const int r = p * RP + lane / LPR, row = wq0 + w4 * 16 + r, c = (lane % LPR) * 8;
+      float sum = 0.f;
+      if (row < S) {
+        const uint4 a = *reinterpret_cast<const uint4*>(oh + static_cast<int64_t>(row) * os.s + c);
+        const uint4 e = *reinterpret_cast<const uint4*>(doh + static_cast<int64_t>(row) * dos.s + c);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* e2 = reinterpret_cast<const __nv_bfloat162*>(&e);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(e2[i]);
+          sum = fmaf(x.x, y.x, fmaf(x.y, y.y, sum));
+        }
+      }
+#pragma unroll
+      for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane % LPR == 0) {
+        Dsum[warp * 16 + r] = sum;
+        if (row < S) {  // D and lse log2(e) for the dkdv kernel's TMA loads
+          stats[pad + row] = sum;
+          stats[lse_half + pad + row] = lse[stat + row] * kLog2e;
+        }
+      }
+    }
+    __syncwarp();
+  }
   float lse2[2], dd[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row_lo + 8 * half;
     lse2[half] = row < S ? lse[stat + row] * kLog2e : 0.f;
-    dd[half] = Ds[warp * 16 + g + 8 * half];
+    dd[half] = Dsum[warp * 16 + g + 8 * half];
   }
 
-  uint32_t qf[KD][4], df[KD][4];
-  float acc[2 * KD][4];
+  float acc[CH][32];
 #pragma unroll
-  for (int n = 0; n < 2 * KD; ++n)
+  for (int c = 0; c < CH; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  mbar_wait(qfull, 0);
+  __syncwarp();
+  // The dQ product of a tile is left in flight while the next tile's S and
+  // dP run; its stage is released once a later wait has seen it finish.
+  int held = -1;
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + stage);  // this warp is done with the stage
+  };
   for (int it = 0; it < n_tiles; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_tiles) {
-      load_tile<D>(Ks + (buf ^ 1) * L::kTile, kh, ks.s, (it + 1) * BK, S);
-      load_tile<D>(Vs + (buf ^ 1) * L::kTile, vh, vs.s, (it + 1) * BK, S);
+    const int s = it % ST, k0 = it * 64;
+    mbar_wait(full + s, (it / ST) & 1);
+    __syncwarp();
+    const bf16* Kt = Ks + s * 64 * D;
+    const bf16* Vt = Vs + s * 64 * D;
+    if (causal && k0 > wq0 + 63) {  // every key of the tile is after the warpgroup's rows
+      wgmma_wait<0>();
+      if (held >= 0) release(held);
+      held = -1;
+      release(s);
+      continue;
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (it == 0) {
+    float sc[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        ldmatrix_x4(qf[kk], Qs + (warp * 16 + ar) * L::kRow + kk * 16 + ac);
-        ldmatrix_x4(df[kk], dOs + (warp * 16 + ar) * L::kRow + kk * 16 + ac);
+    for (int kk = 0; kk < D / 16; ++kk)  // S = Q K^T
+      wgmma_ss_n64<0>(sc, desc_k(Qs, BQ, wgi * 64, kk), desc_k(Kt, 64, 0, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // dP = dO V^T
+      wgmma_ss_n64<0>(dp, desc_k(dOs, BQ, wgi * 64, kk), desc_k(Vt, 64, 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait<2>();  // the previous tile's dQ product is done
+    if (held >= 0) release(held);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    // P; element i: row row_lo + 8 (i%4 / 2), key k0 + 8 (i/4) + 2t + i%2.  Only
+    // a diagonal or ragged tile is masked, with one warp-uniform branch.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = exp2_ftz(fmaf(sc[i], scale_log2, -lse2[(i >> 1) & 1]));
+    if (k0 + 64 > S || (causal && k0 + 63 > wq0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const bool drop = key >= S || (causal && key > row_lo + 8 * ((i >> 1) & 1));
+        sc[i] = drop ? 0.f : sc[i];
       }
     }
-    const bf16* Kt = Ks + buf * L::kTile;
-    const bf16* Vt = Vs + buf * L::kTile;
-    const int k0 = it * BK;
-
-    float s[8][4], dp[8][4];
-    scores_reg<D>(s, qf, Kt, kr, kc);   // Q K^T
-    scores_reg<D>(dp, df, Vt, kr, kc);  // dO V^T
-    const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+    wgmma_wait<0>();
+    fence_regs(dp);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dd[(i >> 1) & 1];  // dS
+    uint32_t a[4][4];  // every k-step's fragment first: no product waits on a register
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(s[n][e] * scale_log2 - lse2[e >> 1]);
-        if (masked) {
-          const int key = k0 + 8 * n + 2 * t + (e & 1);
-          if (key >= S || (causal && key > row_lo + 8 * (e >> 1))) p = 0.f;
-        }
-        s[n][e] = p * (dp[n][e] - dd[e >> 1]);  // dS
-      }
-    acc_scores_times_tile<D>(acc, s, Kt, ar, ac);  // dQ += dS K
-    __syncthreads();
+    for (int kk = 0; kk < 4; ++kk) a_frag(a[kk], sc, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // dQ += dS K, K read MN-major
+#pragma unroll
+      for (int c = 0; c < CH; ++c) wgmma_rs_n64<1>(acc[c], a[kk], desc_mn(Kt, 64, c, kk));
+    wgmma_commit();
+    held = s;
   }
-  store_rows<D>(acc, scale, Qs + warp * 16 * L::kRow, dq + b * dqs.b + h * dqs.h, dqs.s,
-                q0 + warp * 16, S, lane);
+  wgmma_wait<0>();
+  if (held >= 0) release(held);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) fence_regs(acc[c]);
+  launch_dependents();  // the dkdv kernel may start; it waits for this grid before reading stats
+  bf16* qh = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_lo + 8 * half;
+    if (row < S)
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(qh + static_cast<int64_t>(row) * dqs.s + 64 * c + 8 * j + 2 * t) =
+              pack_bf16(acc[c][4 * j + 2 * half] * scale, acc[c][4 * j + 2 * half + 1] * scale);
+  }
 }
 
-// dK, dV.  grid (key tiles, KV, B).  Shared: K, V, then Q and dO
-// double-buffered (six padded tiles), and each stage's lse and D rows.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int KV,
-                    Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
-                    float scale_log2, float scale, int causal) {
-  using L = Layout<D>;
-  constexpr int KD = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + L::kTile;
-  bf16* Qs = Vs + L::kTile;       // [2][64][kRow]
-  bf16* dOs = Qs + 2 * L::kTile;  // [2][64][kRow]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * L::kTile);  // [2][64] lse
-  float* Dl = Ls + 2 * BQ;                                    // [2][64] D
+// dK, dV.  grid (key tiles of 64 NWG, KV, B).  The NWG consumer warpgroups
+// own 64 keys each; the producer streams, for each of the KV head's g query
+// heads, the 64-row query tiles at or after the diagonal.  kMinBlocks = 2
+// caps the registers so that two blocks share an SM, and ptxas then
+// serializes the products for lack of registers; with 1 they run
+// unserialized, which wins where the grid fits one block per SM.
+template <int D, int NWG, int kMinBlocks>
+__global__ void __launch_bounds__(NWG * 128 + 32, kMinBlocks)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tstats, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int S, int H, int KV, Strides dks, Strides dvs,
+                     float scale_log2, float scale, int causal) {
+  using L = DkdvSmem<D, NWG>;
+  constexpr int BK = L::BK, ST = L::ST, CH = D / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + L::k);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + L::v);
+  bf16* Qs = reinterpret_cast<bf16*>(sm + L::q);  // [ST][64 rows][D]
+  bf16* dOs = reinterpret_cast<bf16*>(sm + L::dout);
+  float* Ls = reinterpret_cast<float*>(sm + L::lse);  // [ST][64]
+  float* Dl = reinterpret_cast<float*>(sm + L::delta);
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* full = kvfull + 1;
+  uint64_t* empty = full + ST;
 
   const int k0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
   const int g_heads = H / KV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ar = (lane & 7) + ((lane >> 3) & 1) * 8, ac = (lane >> 4) * 8;
-  const int kr = (lane & 7) + (lane >> 4) * 8, kc = ((lane >> 3) & 1) * 8;
-  // causal: query tiles before the key tile see none of its keys
-  const int qt0 = causal ? blockIdx.x : 0;
-  const int per_head = (S + BQ - 1) / BQ - qt0;
+  const int qt0 = causal ? k0 / 64 : 0;  // causal: earlier query tiles see none of the keys
+  const int per_head = (S + 63) / 64 - qt0;
   const int n_it = g_heads * per_head;
-
-  auto load_stage = [&](int it, int buf) {
-    const int h = kvh * g_heads + it / per_head, row0 = (qt0 + it % per_head) * BQ;
-    load_tile<D>(Qs + buf * L::kTile, q + b * qs.b + h * qs.h, qs.s, row0, S);
-    load_tile<D>(dOs + buf * L::kTile, dout + b * dos.b + h * dos.h, dos.s, row0, S);
-    const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
-    if (threadIdx.x < BQ) {
-      const int row = row0 + threadIdx.x;
-      const int64_t at = stat + (row < S ? row : 0);
-      cp_async4(Ls + buf * BQ + threadIdx.x, lse + at, row < S ? 4 : 0);
-      cp_async4(Dl + buf * BQ + threadIdx.x, delta + at, row < S ? 4 : 0);
+  if (threadIdx.x == 0) {
+    mbar_init(kvfull, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * NWG);
     }
-  };
-  load_tile<D>(Ks, k + b * ks.b + kvh * ks.h, ks.s, k0, S);
-  load_tile<D>(Vs, v + b * vs.b + kvh * vs.h, vs.s, k0, S);
-  load_stage(0, 0);
-  cp_async_commit();
-
-  float dka[2 * KD][4], dva[2 * KD][4];
-#pragma unroll
-  for (int n = 0; n < 2 * KD; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-  const int key_lo = k0 + warp * 16 + g;  // this thread's first key
-
-  for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_it) load_stage(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int q0 = (qt0 + it % per_head) * BQ;
-    const bf16* Qt = Qs + buf * L::kTile;
-    const bf16* dOt = dOs + buf * L::kTile;
-    const float* Lt = Ls + buf * BQ;
-    const float* Dt = Dl + buf * BQ;
-
-    // P^T: element e of tile n is key key_lo + 8*(e/2), query q0 + 8n + 2t + e%2
-    float s[8][4];
-    scores_smem<D>(s, Ks + warp * 16 * L::kRow, Qt, ar, ac, kr, kc);  // K Q^T
-    const bool masked = q0 + BQ > S || (causal && q0 < k0 + BK - 1);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = 8 * n + 2 * t + (e & 1);
-        float p = exp2f(s[n][e] * scale_log2 - Lt[ql] * kLog2e);
-        if (masked && (q0 + ql >= S || (causal && q0 + ql < key_lo + 8 * (e >> 1)))) p = 0.f;
-        s[n][e] = p;
-      }
-    acc_scores_times_tile<D>(dva, s, dOt, ar, ac);  // dV += P^T dO
-    float dp[8][4];
-    scores_smem<D>(dp, Vs + warp * 16 * L::kRow, dOt, ar, ac, kr, kc);  // V dO^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - Dt[8 * n + 2 * t + (e & 1)];  // dS^T
-    acc_scores_times_tile<D>(dka, s, Qt, ar, ac);  // dK += dS^T Q
-    __syncthreads();
+    mbar_init_fence();
   }
-  store_rows<D>(dka, scale, Ks + warp * 16 * L::kRow, dk + b * dks.b + kvh * dks.h, dks.s,
-                k0 + warp * 16, S, lane);
-  store_rows<D>(dva, 1.f, Vs + warp * 16 * L::kRow, dv + b * dvs.b + kvh * dvs.h, dvs.s,
-                k0 + warp * 16, S, lane);
+  __syncthreads();
+
+  if (warp == 4 * NWG) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(kvfull, 2 * BK * D * 2);
+      for (int c = 0; c < CH; ++c) {
+        tma_load_4d(Ks + c * BK * 64, &tk, kvfull, 64 * c, k0, kvh, b);
+        tma_load_4d(Vs + c * BK * 64, &tv, kvfull, 64 * c, k0, kvh, b);
+      }
+      grid_dependency_wait();  // the stats come from the dq kernel, launched just before
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % ST;
+        if (it >= ST) mbar_wait(empty + s, (it / ST - 1) & 1);
+        const int h = kvh * g_heads + it / per_head, q0 = (qt0 + it % per_head) * 64;
+        mbar_expect_tx(full + s, 2 * 64 * D * 2 + 2 * 64 * 4);
+        for (int c = 0; c < CH; ++c) {
+          tma_load_4d(Qs + (s * CH + c) * 4096, &tq, full + s, 64 * c, q0, h, b);
+          tma_load_4d(dOs + (s * CH + c) * 4096, &tdo, full + s, 64 * c, q0, h, b);
+        }
+        const int bh = b * H + h;  // stats rows: D of each head, then its lse log2(e)
+        tma_load_2d(Ls + s * 64, &tstats, full + s, q0, gridDim.z * H + bh);
+        tma_load_2d(Dl + s * 64, &tstats, full + s, q0, bh);
+      }
+    }
+    return;
+  }
+
+  const int wgi = warp >> 2, w4 = warp & 3, g = lane >> 2, t = lane & 3;
+  const int wk0 = k0 + wgi * 64;         // the warpgroup's first key
+  const int key_lo = wk0 + w4 * 16 + g;  // this thread's keys: key_lo, key_lo + 8
+  float dka[CH][32], dva[CH][32];
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[c][i] = dva[c][i] = 0.f;
+  mbar_wait(kvfull, 0);
+  __syncwarp();
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + stage);  // this warp is done with the stage
+  };
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % ST, q0 = (qt0 + it % per_head) * 64;
+    mbar_wait(full + s, (it / ST) & 1);
+    __syncwarp();
+    const bf16* Qt = Qs + s * 64 * D;
+    const bf16* dOt = dOs + s * 64 * D;
+    if (causal && q0 + 63 < wk0) {  // no query of the tile sees these keys
+      release(s);
+      continue;
+    }
+    // S^T and dP^T: element i is key key_lo + 8 (i%4 / 2), query q0 + 8 (i/4) + 2t + i%2
+    float st[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // S^T = K Q^T
+      wgmma_ss_n64<0>(st, desc_k(Ks, BK, wgi * 64, kk), desc_k(Qt, 64, 0, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // dP^T = V dO^T
+      wgmma_ss_n64<0>(dpt, desc_k(Vs, BK, wgi * 64, kk), desc_k(dOt, 64, 0, kk), kk);
+    wgmma_commit();
+    float2 lq[8];  // lse log2(e) of the thread's 16 queries, once per tile
+#pragma unroll
+    for (int j = 0; j < 8; ++j) lq[j] = *reinterpret_cast<const float2*>(Ls + s * 64 + 8 * j + 2 * t);
+    wgmma_wait<1>();
+    fence_regs(st);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)  // P^T; only a diagonal or ragged tile is masked
+      st[i] = exp2_ftz(fmaf(st[i], scale_log2, -((i & 1) ? lq[i >> 2].y : lq[i >> 2].x)));
+    if (q0 + 64 > S || (causal && q0 < wk0 + 63)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int query = q0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const bool drop = query >= S || (causal && query < key_lo + 8 * ((i >> 1) & 1));
+        st[i] = drop ? 0.f : st[i];
+      }
+    }
+    uint32_t pa[4][4];  // every k-step's fragment first: no product waits on a register
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_frag(pa[kk], st, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // dV += P^T dO, dO read MN-major
+#pragma unroll
+      for (int c = 0; c < CH; ++c) wgmma_rs_n64<1>(dva[c], pa[kk], desc_mn(dOt, 64, c, kk));
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T is done; dV may still run
+    fence_regs(dpt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // dS^T = P^T (dP^T - D)
+      const float2 dq2 = *reinterpret_cast<const float2*>(Dl + s * 64 + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? dq2.y : dq2.x));
+    }
+    uint32_t sa[4][4];  // dS^T's fragments in registers apart from P^T's, which dV may still read
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_frag(sa[kk], dpt, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // dK += dS^T Q, Q read MN-major
+#pragma unroll
+      for (int c = 0; c < CH; ++c) wgmma_rs_n64<1>(dka[c], sa[kk], desc_mn(Qt, 64, c, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      fence_regs(dva[c]);
+      fence_regs(dka[c]);
+    }
+    release(s);
+  }
+  bf16* kd = dk + b * dks.b + kvh * dks.h;
+  bf16* vd = dv + b * dvs.b + kvh * dvs.h;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_lo + 8 * half;
+    if (key < S)
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * c + 8 * j + 2 * t;
+          const int i = 4 * j + 2 * half;
+          *reinterpret_cast<uint32_t*>(kd + static_cast<int64_t>(key) * dks.s + col) =
+              pack_bf16(dka[c][i] * scale, dka[c][i + 1] * scale);
+          *reinterpret_cast<uint32_t*>(vd + static_cast<int64_t>(key) * dvs.s + col) =
+              pack_bf16(dva[c][i], dva[c][i + 1]);
+        }
+  }
 }
 
-}  // namespace tc
+}  // namespace wg
 
 // ----------------------------------------------------------------- f32 --
 
@@ -871,7 +983,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
         sum = fmaf(dOs[(row_base + r) * L::kQ + c], oh[static_cast<int64_t>(qpos) * os.s + c], sum);
     d_r[r] = warp_sum(sum);
     lse_r[r] = qpos < S ? lse[stat + qpos] : 0.f;
-    if (lane == 0 && qpos < S) delta[stat + qpos] = d_r[r];
+    if (lane == 0 && qpos < S) delta[(static_cast<int64_t>(b) * H + h) * stats_row(S) + qpos] = d_r[r];
 #pragma unroll
     for (int t = 0; t < DL; ++t) acc[r][t] = 0.f;
   }
@@ -940,14 +1052,17 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dK, dV.  grid (64-key tiles, KV, B).  Each warp owns 16 keys; each lane
-// one query of the 32-row tile.  Shared: K and V (rows D+4), Q and dO
-// (rows D+1), P and dS (rows 36), the tile's lse and D.
+// dK, dV.  grid (32-key tiles, KV, B): 32 keys a block, so that the grid
+// fills the card at the training shapes (160 blocks at B4 KV8 S160, where
+// 64-key blocks gave 96).  Each warp owns 8 keys; each lane one query of
+// the 32-row tile.  Shared: K and V (rows D+4), Q and dO (rows D+1), P and
+// dS (rows 36), the tile's lse and D.
+constexpr int kDkdvKeys = 32, kKeyRows = kDkdvKeys / (kThreads / 32);
 template <int D>
 struct BwdDkdv {
   static constexpr int kQ = D + 4, kK = D + 1, kP = BK + 4;
   static constexpr size_t bytes =
-      sizeof(float) * (2 * BQ * kQ + 2 * BK * kK + 2 * BQ * kP + 2 * BK);
+      sizeof(float) * (2 * kDkdvKeys * kQ + 2 * BK * kK + 2 * kDkdvKeys * kP + 2 * BK);
 };
 
 template <int D>
@@ -962,27 +1077,27 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int DL = D / 32;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + BQ * L::kQ;
-  float* Qs = Vs + BQ * L::kQ;
+  float* Vs = Ks + kDkdvKeys * L::kQ;
+  float* Qs = Vs + kDkdvKeys * L::kQ;
   float* dOs = Qs + BK * L::kK;
   float* Ps = dOs + BK * L::kK;
-  float* dSs = Ps + BQ * L::kP;
-  float* Ls = dSs + BQ * L::kP;
+  float* dSs = Ps + kDkdvKeys * L::kP;
+  float* Ls = dSs + kDkdvKeys * L::kP;
   float* Dl = Ls + BK;
 
-  const int k0 = blockIdx.x * BQ, kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * kDkdvKeys, kvh = blockIdx.y, b = blockIdx.z;
   const int g_heads = H / KV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row_base = warp * kRows;
+  const int row_base = warp * kKeyRows;
   const int warp_key0 = k0 + row_base;
   float* Pw = Ps + row_base * L::kP;
   float* dSw = dSs + row_base * L::kP;
 
-  load_tile<D>(k + b * ks.b + kvh * ks.h, ks.s, k0, BQ, S, Ks, L::kQ);
-  load_tile<D>(v + b * vs.b + kvh * vs.h, vs.s, k0, BQ, S, Vs, L::kQ);
-  float dka[kRows][DL], dva[kRows][DL];
+  load_tile<D>(k + b * ks.b + kvh * ks.h, ks.s, k0, kDkdvKeys, S, Ks, L::kQ);
+  load_tile<D>(v + b * vs.b + kvh * vs.h, vs.s, k0, kDkdvKeys, S, Vs, L::kQ);
+  float dka[kKeyRows][DL], dva[kKeyRows][DL];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int r = 0; r < kKeyRows; ++r)
 #pragma unroll
     for (int t = 0; t < DL; ++t) dka[r][t] = dva[r][t] = 0.f;
 
@@ -998,21 +1113,21 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (threadIdx.x < BK) {
       const int row = q0 + threadIdx.x;
       Ls[threadIdx.x] = row < S ? lse[stat + row] : 0.f;
-      Dl[threadIdx.x] = row < S ? delta[stat + row] : 0.f;
+      Dl[threadIdx.x] = row < S ? delta[(static_cast<int64_t>(b) * H + h) * stats_row(S) + row] : 0.f;
     }
     __syncthreads();
     if (causal && q0 + BK - 1 < warp_key0) continue;  // no query of the tile sees these keys
 
-    float s[kRows], dp[kRows];
+    float s[kKeyRows], dp[kKeyRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
+    for (int r = 0; r < kKeyRows; ++r) s[r] = dp[r] = 0.f;
     const float* qr = Qs + lane * L::kK;
     const float* orow = dOs + lane * L::kK;
     for (int c = 0; c < D; c += 4) {
       const float q_0 = qr[c], q_1 = qr[c + 1], q_2 = qr[c + 2], q_3 = qr[c + 3];
       const float o_0 = orow[c], o_1 = orow[c + 1], o_2 = orow[c + 2], o_3 = orow[c + 3];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < kKeyRows; ++r) {
         const float4 kv = *reinterpret_cast<const float4*>(Ks + (row_base + r) * L::kQ + c);
         const float4 vv = *reinterpret_cast<const float4*>(Vs + (row_base + r) * L::kQ + c);
         s[r] = fmaf(kv.x, q_0, fmaf(kv.y, q_1, fmaf(kv.z, q_2, fmaf(kv.w, q_3, s[r]))));
@@ -1021,7 +1136,7 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     const int query = q0 + lane;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int r = 0; r < kKeyRows; ++r) {
       const bool valid = query < S && (!causal || query >= warp_key0 + r);
       const float p = valid ? expf(s[r] * scale - Ls[lane]) : 0.f;
       Pw[r * L::kP + lane] = p;
@@ -1040,7 +1155,7 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
           qq[jj][t] = Qs[(j + jj) * L::kK + lane + 32 * t];
         }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+      for (int r = 0; r < kKeyRows; ++r) {
         const float4 pv = *reinterpret_cast<const float4*>(Pw + r * L::kP + j);
         const float4 sv = *reinterpret_cast<const float4*>(dSw + r * L::kP + j);
 #pragma unroll
@@ -1058,7 +1173,7 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* kd = dk + b * dks.b + kvh * dks.h;
   float* vd = dv + b * dvs.b + kvh * dvs.h;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < kKeyRows; ++r) {
     const int key = warp_key0 + r;
     if (key < S)
 #pragma unroll
@@ -1119,27 +1234,91 @@ Views views_from(const int64_t* st) {
   return Views{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]};
 }
 
+// The bf16 backward's warpgroups per block: 128-row dq tiles and 128-key
+// dkdv tiles (d = 64) past S = 256, where they halve the streamed bytes per
+// row; 64 below, where the smaller tiles keep the card full.  At d = 128 a
+// dkdv block has one consumer warpgroup: its dK and dV accumulators alone
+// are 128 f32 registers a thread.
+int dq_warpgroups(int S) { return S > 256 ? 2 : 1; }
+int dkdv_warpgroups(int D, int S) { return D == 64 && S > 256 ? 2 : 1; }
+constexpr int kSMs = 132;  // an H100 SXM
+
+// Launch a warp-specialised kernel after the same plan check as
+// launch_checked; `threads` is its consumers plus one producer warp.
+// With `dependent`, the kernel may start while the one before it on the
+// stream finishes (hopper::launch_dependent).
+template <typename Kernel, typename... Args>
+cudaError_t launch_wgmma(Kernel kernel, bool dependent, dim3 want, int bytes, int threads,
+                         dim3 grid, int64_t smem, cudaStream_t stream, Args... args) {
+  if (smem != bytes || grid.x != want.x || grid.y != want.y || grid.z != want.z)
+    return cudaErrorInvalidConfiguration;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  if (dependent)
+    err = hopper::launch_dependent(kernel, grid, dim3(threads), bytes, stream, args...);
+  else
+    kernel<<<grid, threads, bytes, stream>>>(args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int D, int NWG>
+cudaError_t dq_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                    const void* lse, void* delta, void* dq, int B, int H, int KV, int S,
+                    const Views& w, float scale, int causal, dim3 grid, int64_t smem,
+                    cudaStream_t st) {
+  using wg::bf16;
+  constexpr int BQ = 64 * NWG;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!hopper::map_bf16_rows(&tq, q, B, H, S, D, w.q.b, w.q.h, w.q.s, BQ) ||
+      !hopper::map_bf16_rows(&tdo, dout, B, H, S, D, w.dout.b, w.dout.h, w.dout.s, BQ) ||
+      !hopper::map_bf16_rows(&tk, k, B, KV, S, D, w.k.b, w.k.h, w.k.s, 64) ||
+      !hopper::map_bf16_rows(&tv, v, B, KV, S, D, w.v.b, w.v.h, w.v.s, 64))
+    return cudaErrorInvalidValue;
+  return launch_wgmma(wg::flash_bwd_dq_wgmma<D, NWG>, false, dim3(H, (S + BQ - 1) / BQ, B),
+                      wg::DqSmem<D, NWG>::bytes, NWG * 128 + 32, grid, smem, st, tq, tdo, tk, tv,
+                      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+                      static_cast<const float*>(lse), static_cast<float*>(delta),
+                      static_cast<bf16*>(dq), S, H, KV, w.o, w.dout, w.dq, scale * kLog2e, scale,
+                      causal);
+}
+
+template <int D, int NWG, int kMinBlocks>
+cudaError_t dkdv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                      const void* stats, void* dk, void* dv, int B, int H, int KV, int S,
+                      const Views& w, float scale, int causal, dim3 grid, int64_t smem,
+                      cudaStream_t st) {
+  using wg::bf16;
+  constexpr int BK = 64 * NWG;
+  CUtensorMap tq, tdo, tk, tv, ts;
+  if (!hopper::map_bf16_rows(&tq, q, B, H, S, D, w.q.b, w.q.h, w.q.s, 64) ||
+      !hopper::map_bf16_rows(&tdo, dout, B, H, S, D, w.dout.b, w.dout.h, w.dout.s, 64) ||
+      !hopper::map_bf16_rows(&tk, k, B, KV, S, D, w.k.b, w.k.h, w.k.s, BK) ||
+      !hopper::map_bf16_rows(&tv, v, B, KV, S, D, w.v.b, w.v.h, w.v.s, BK) ||
+      !hopper::map_f32_rows(&ts, stats, 2 * B * H, S, stats_row(S), 64))
+    return cudaErrorInvalidValue;
+  return launch_wgmma(wg::flash_bwd_dkdv_wgmma<D, NWG, kMinBlocks>, true,
+                      dim3((S + BK - 1) / BK, KV, B),
+                      wg::DkdvSmem<D, NWG>::bytes, NWG * 128 + 32, grid, smem, st, tq, tdo, tk, tv,
+                      ts, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, KV, w.dk, w.dv,
+                      scale * kLog2e, scale, causal);
+}
+
 template <int D>
 cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const void* lse, void* delta, void* dq, int B, int H,
                    int KV, int S, const Views& w, float scale, int causal, dim3 grid,
                    int64_t smem, cudaStream_t st) {
-  using tc::bf16;
-  const dim3 want(H, row_tiles(S), B);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  if (dtype == 1)
-    return launch_checked(tc::flash_bwd_dq_bf16<D>, want, sizeof(bf16) * 6 * tc::Layout<D>::kTile,
-                          grid, smem, st, static_cast<const bf16*>(q),
-                          static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                          static_cast<const bf16*>(o), static_cast<const bf16*>(dout), l, dl,
-                          static_cast<bf16*>(dq), S, H, KV, w.q, w.k, w.v, w.o, w.dout, w.dq,
-                          scale * kLog2e, scale, causal);
-  return launch_checked(cc::flash_bwd_dq_f32<D>, want, cc::BwdDq<D>::bytes, grid, smem, st,
-                        static_cast<const float*>(q), static_cast<const float*>(k),
+  if (dtype == 1) {
+    return (dq_warpgroups(S) == 2 ? dq_bf16<D, 2> : dq_bf16<D, 1>)(
+        q, k, v, o, dout, lse, delta, dq, B, H, KV, S, w, scale, causal, grid, smem, st);
+  }
+  return launch_checked(cc::flash_bwd_dq_f32<D>, dim3(H, row_tiles(S), B), cc::BwdDq<D>::bytes,
+                        grid, smem, st, static_cast<const float*>(q), static_cast<const float*>(k),
                         static_cast<const float*>(v), static_cast<const float*>(o),
-                        static_cast<const float*>(dout), l, dl, static_cast<float*>(dq), S, H, KV,
-                        w.q, w.k, w.v, w.o, w.dout, w.dq, scale, causal);
+                        static_cast<const float*>(dout), static_cast<const float*>(lse),
+                        static_cast<float*>(delta), static_cast<float*>(dq), S, H, KV, w.q, w.k,
+                        w.v, w.o, w.dout, w.dq, scale, causal);
 }
 
 template <int D>
@@ -1147,22 +1326,20 @@ cudaError_t bwd_dkdv(int dtype, const void* q, const void* k, const void* v, con
                      const void* lse, const void* delta, void* dk, void* dv, int B, int H, int KV,
                      int S, const Views& w, float scale, int causal, dim3 grid, int64_t smem,
                      cudaStream_t st) {
-  using tc::bf16;
-  const dim3 want(row_tiles(S), KV, B);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (dtype == 1)
-    return launch_checked(
-        tc::flash_bwd_dkdv_bf16<D>, want,
-        sizeof(bf16) * 6 * tc::Layout<D>::kTile + sizeof(float) * 4 * tc::BQ, grid, smem, st,
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), l, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S,
-        H, KV, w.q, w.k, w.v, w.dout, w.dk, w.dv, scale * kLog2e, scale, causal);
-  return launch_checked(cc::flash_bwd_dkdv_f32<D>, want, cc::BwdDkdv<D>::bytes, grid, smem, st,
-                        static_cast<const float*>(q), static_cast<const float*>(k),
-                        static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-                        static_cast<float*>(dk), static_cast<float*>(dv), S, H, KV, w.q, w.k, w.v,
-                        w.dout, w.dk, w.dv, scale, causal);
+  if (dtype == 1) {
+    const bool two_per_sm = static_cast<int64_t>(grid.x) * grid.y * grid.z > kSMs;
+    return (dkdv_warpgroups(D, S) == 2    ? dkdv_bf16<64, 2, 1>
+            : D == 64 && two_per_sm ? dkdv_bf16<64, 1, 2>
+                                    : dkdv_bf16<D, 1, 1>)(
+        q, k, v, dout, delta, dk, dv, B, H, KV, S, w, scale, causal, grid, smem, st);
+  }
+  return launch_checked(cc::flash_bwd_dkdv_f32<D>, dim3((S + cc::kDkdvKeys - 1) / cc::kDkdvKeys, KV, B),
+                        cc::BwdDkdv<D>::bytes, grid, smem, st, static_cast<const float*>(q),
+                        static_cast<const float*>(k), static_cast<const float*>(v),
+                        static_cast<const float*>(dout), static_cast<const float*>(lse),
+                        static_cast<const float*>(delta), static_cast<float*>(dk),
+                        static_cast<float*>(dv), S, H, KV, w.q, w.k, w.v, w.dout, w.dk, w.dv,
+                        scale, causal);
 }
 
 bool bad_args(int dtype, int D, int B, int H, int KV, int S) {
@@ -1197,7 +1374,8 @@ extern "C" int flash_attention_fwd(int dtype, int D, const void* q, const void* 
                             grid, smem, s));
 }
 
-// Backward, first kernel: dq and delta = rowsum(dout o) ([B,H,S] f32).
+// Backward, first kernel: dq, and into delta ([2,B,H,stats_row(S)] f32)
+// D = rowsum(dout o) and (bf16 only) lse log2(e) for the second kernel.
 // strides: 24 int64, the (b, h, s) strides of q, k, v, o, dout, dq, dk, dv;
 // lse from the forward; dq laid out by its strides; grid and smem from
 // flash_attention.py::bwd_plans.

@@ -1,0 +1,273 @@
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA loads with their tensor maps, and wgmma with shared-memory
+// descriptors.  Header-only; _build.py hashes it with every source.
+//
+// Tiles that wgmma reads are loaded by TMA with 128-byte swizzling: a tile
+// of R rows and D bf16 columns is stored as D/64 chunks of [R][64], each
+// row 128 bytes, XOR-swizzled in groups of 8 rows (1024 bytes) as
+// CU_TENSOR_MAP_SWIZZLE_128B writes it.  Every tile starts 1024-byte
+// aligned.  The descriptors below read such a tile either K-major (the
+// row's 64 columns are the reduction dimension: A operands, and B of
+// A B^T) or MN-major (the rows are the reduction dimension: B of A B).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ----------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// Make the initialised barriers visible to the async proxy (TMA) and to
+// the other threads (a __syncthreads follows).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Arrive and announce the bytes the TMA loads of this phase will deliver.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the barrier has completed the phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+}
+
+// ---- TMA ----------------------------------------------------------------
+
+// A 4-D box (coordinates innermost first) into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ---- programmatic dependent launch ----------------------------------------
+
+// In a kernel that another launch depends on: let that launch start now
+// (its blocks run up to their grid_dependency_wait).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+// In a dependent launch: wait until the kernel before it on the stream has
+// finished and its writes are visible (at once if there is none).
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Launch `kernel` so that it may start while the previous kernel on the
+// stream finishes; it must call grid_dependency_wait before reading that
+// kernel's output.
+template <typename Kernel, typename... Args>
+cudaError_t launch_dependent(Kernel kernel, dim3 grid, dim3 block, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// ---- wgmma --------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+// K-major: rows [row0, row0 + 64) of a swizzled tile of `rows` rows, at
+// reduction step kk (columns 16 kk .. 16 kk + 15).  Within a 128-byte row
+// the step advances the start address by 32 bytes; 8-row groups are 1024
+// bytes apart.
+__device__ __forceinline__ uint64_t desc_k(const __nv_bfloat16* tile, int rows, int row0, int kk) {
+  const uint32_t addr = smem_u32(tile) + (kk >> 2) * rows * 128 + row0 * 128 + (kk & 3) * 32;
+  return desc_sw128(addr, 16, 1024);
+}
+// MN-major: the reduction runs over rows 16 kk .. 16 kk + 15 of the tile and
+// N over the columns of 64-column chunk `chunk`.
+__device__ __forceinline__ uint64_t desc_mn(const __nv_bfloat16* tile, int rows, int chunk, int kk) {
+  const uint32_t addr = smem_u32(tile) + chunk * rows * 128 + kk * 16 * 128;
+  return desc_sw128(addr, rows * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accesses of an accumulator across the
+// asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 2^x on the SFU, flushing results below 2^-126 to zero (softmax weights
+// that small do not reach a bf16 product).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Accumulator layout of m64nN (f32): warp w of the warpgroup holds rows
+// 16 w .. 16 w + 15; lane l = 4 g + t holds, for each 8-column block j,
+// d[4j], d[4j+1] at row g, columns 8j + 2t, +1, and d[4j+2], d[4j+3] at
+// row g + 8.  That is mma.sync's m16n8 layout per block, so a score tile
+// becomes a bf16 A operand (m64k16 step kk: blocks 2kk, 2kk+1) in place.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&s)[32], int kk) {
+  a[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+  a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// d = A B (+ d if accumulate), m64n64k16, A and B by shared-memory descriptors
+// (K-major A; B K-major, or MN-major with kTransB).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB));
+}
+
+// d += A B, m64n64k16, A from registers (the accumulator-shaped bf16
+// fragments of a score tile), B by a shared-memory descriptor.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1, %37;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(kTransB));
+}
+
+// ---- tensor maps (host) ---------------------------------------------------
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The encoder needs a current driver context in the calling thread, which
+// the runtime binds lazily: PyTorch's autograd runs backward kernels on a
+// worker thread that may not have made a runtime call yet.
+inline EncodeTiled encode_tiled() {
+  thread_local bool bound = [] {
+    int dev = 0;
+    return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
+  }();
+  if (!bound) return nullptr;
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A bf16 [B, H, S, d] view given by its (b, h, s) strides in elements, with
+// a box of `rows` positions of one head and 64 columns, 128-byte swizzled.
+// Positions past S are zero-filled.
+inline bool map_bf16_rows(CUtensorMap* map, const void* base, int B, int H, int S, int d,
+                          int64_t sb, int64_t sh, int64_t ss, int rows) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// f32 rows [rows][n] with rows `stride` values apart (a multiple of 4), and
+// a box of `box` consecutive values of one row; values past n are zero.
+inline bool map_f32_rows(CUtensorMap* map, const void* base, int rows, int n, int stride,
+                         int box) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(stride) * 4};
+  const cuuint32_t boxd[2] = {static_cast<cuuint32_t>(box), 1};
+  const cuuint32_t one[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, boxd,
+             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper

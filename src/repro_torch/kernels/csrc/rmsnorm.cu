@@ -24,21 +24,31 @@
 // norm).  With n = dy * w rounded to the working type (the reference's bf16
 // multiply) and r as above, dx = r n - x r^3 sum(n x) / D, and dweight =
 // sum over rows of dy * round(x r).  Bound: memory again (x, dy read, dx
-// written, ~10 operations per element).  rmsnorm_bwd gives each block of
-// 128 threads rows_per_block consecutive rows: one pass for the two row
-// sums (sum x^2 and sum n x, reduced together), one for dx, which also adds
-// dy * round(x r) into the block's f32 column sums in shared memory (each
-// thread owns the same columns in every row, so no two threads touch one
-// sum).  The block writes its column sums as one row of an f32 partials
-// buffer; rmsnorm_bwd_dweight then sums the partials of each column in a
-// fixed order (8 slices of rows per 32 columns, then the 8 slices) and
-// rounds once.  No atomics: the result does not depend on block order.
+// written, ~10 operations per element).  rmsnorm_bwd runs a warp per row
+// with the row in registers (up to 2048 elements: 64 a lane): the two row
+// sums (sum x^2 and sum n x) are warp shuffles, dx comes from the same
+// registers, and no block barrier sits in the row loop.  A persistent grid
+// of at most one block per SM walks the rows, 16 warps (rows in flight) a
+// block where D <= 1024 in bf16 (512 in f32), else 8; on the card 16 rows
+// in flight beat 8 with each warp's next row prefetched into registers.
+// Each lane keeps its columns' dweight sums in f32 registers; at the end
+// the warps store them to shared memory and each column is summed over the
+// warps in warp order into one row of an f32 partials buffer.
+// rmsnorm_bwd_dweight then sums the partials of each column in a fixed
+// order (8 slices of rows per 32 columns, then the 8 slices) and rounds
+// once.  No atomics: the result does not depend on block order.  The
+// column reduce stays a second launch (one block that summed every block's
+// partials at the end of the first launch would read them at one SM's
+// rate), made a programmatic dependent launch: it is resident and waiting
+// when the first kernel's grid ends.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <initializer_list>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -122,33 +132,6 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
   }
 }
 
-struct Sum2 {
-  float a, b;
-};
-
-// Two block sums at once; ends with a barrier so scratch can be reused.
-__device__ __forceinline__ Sum2 block_sum2(float a, float b, float* scratch) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) {
-    scratch[2 * warp] = a;
-    scratch[2 * warp + 1] = b;
-  }
-  __syncthreads();
-  Sum2 total{0.f, 0.f};
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) {
-    total.a += scratch[2 * w];
-    total.b += scratch[2 * w + 1];
-  }
-  __syncthreads();
-  return total;
-}
-
 // One element of the backward: returns dx and adds dy * round(x r) to dw.
 template <typename T>
 __device__ __forceinline__ float bwd_elem(float x, float dy, float w, float r, float k, float& dw) {
@@ -157,78 +140,135 @@ __device__ __forceinline__ float bwd_elem(float x, float dy, float w, float r, f
   return r * n - x * k;
 }
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kBwdMaxPerLane = 64;  // row elements a lane keeps in registers
+constexpr int kMaxBwdDim = 32 * kBwdMaxPerLane;
+
+// Warps (rows in flight) per block: 16 where a lane's share of a row is at
+// most 64 bytes, else 8 (the row's registers would not fit 16 warps).
+constexpr int bwd_warps(int64_t dim, int elem) { return dim * elem <= 2048 ? 16 : 8; }
+
+// VEC elements of T loaded at once: 16 bytes on the vector path, 1 otherwise.
+template <typename T, int VEC>
+struct alignas(VEC * sizeof(T)) Vec {
+  T v[VEC];
+};
+
+// A warp per row, the row in registers: lane l holds the row's VEC-element
+// chunks l, l + 32, ... (CPL of them) of x and dy, sums x^2 and n x with
+// shuffles, and computes dx from the same registers.  Rows are walked by
+// the block's warps in turn (rows_per_block consecutive rows a block), so a
+// block keeps kWarps rows in flight: 16 where a lane's row share is at most
+// 64 bytes (then 128 registers a thread suffice), else 8.  Each lane keeps
+// its columns' dy * round(x r) sums in f32 registers across its rows; at
+// the end each warp stores them to its slice of shared memory, and each
+// column's slices are summed in warp order into the block's row of f32
+// partials.
+template <typename T, int VEC, int CPL, int kWarps = (CPL * VEC * sizeof(T) <= 64 ? 16 : 8)>
+__global__ void __launch_bounds__(kWarps * 32)
 rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ dy,
-                   T* __restrict__ dx, float* __restrict__ dw_part, int64_t rows, int64_t dim,
-                   int64_t x_stride, int rows_per_block, float eps) {
-  extern __shared__ __align__(16) float colsum[];  // [dim] if dw_part, else unused
-  __shared__ float scratch[2 * (kThreads / 32)];
-  constexpr int N = Pack<T>::N;
+                   T* __restrict__ dx, float* __restrict__ dw_part, int64_t rows, int dim,
+                   int64_t x_stride, int64_t rows_per_block, float eps) {
+  constexpr int E = CPL * VEC;
+  using V = Vec<T, VEC>;
+  extern __shared__ __align__(16) float colsum[];  // [kWarps][dim] if dw_part, else unused
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nchunks = dim / VEC;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
   const int64_t row_end = row0 + rows_per_block < rows ? row0 + rows_per_block : rows;
-  const bool want_dw = dw_part != nullptr;
-  if (want_dw)  // each thread zeroes, and later owns, the columns it visits below
-    for (int64_t i = threadIdx.x; i < (kVec ? dim / N : dim); i += kThreads)
-      for (int j = 0; j < (kVec ? N : 1); ++j) colsum[(kVec ? i * N : i) + j] = 0.f;
+  const V* wp = reinterpret_cast<const V*>(w);
 
-  for (int64_t row = row0; row < row_end; ++row) {
-    const T* xr = x + row * x_stride;
-    const T* gr = dy + row * dim;
-    T* dr = dx + row * dim;
-    float ss = 0.f, dot = 0.f;
-    if (kVec) {
-      const Pack<T>* xp = reinterpret_cast<const Pack<T>*>(xr);
-      const Pack<T>* gp = reinterpret_cast<const Pack<T>*>(gr);
-      const Pack<T>* wp = reinterpret_cast<const Pack<T>*>(w);
-      for (int64_t i = threadIdx.x; i < dim / N; i += kThreads) {
-        const Pack<T> a = xp[i], g = gp[i], c = wp[i];
+  auto load = [&](V (&xs)[CPL], V (&gs)[CPL], int64_t row) {
+    const V* xp = reinterpret_cast<const V*>(x + row * x_stride);
+    const V* gp = reinterpret_cast<const V*>(dy + row * dim);
 #pragma unroll
-        for (int j = 0; j < N; ++j) {
-          const float f = to_float(a.v[j]);
-          ss = fmaf(f, f, ss);
-          dot = fmaf(to_float(from_float<T>(to_float(g.v[j]) * to_float(c.v[j]))), f, dot);
-        }
-      }
-    } else {
-      for (int64_t i = threadIdx.x; i < dim; i += kThreads) {
-        const float f = to_float(xr[i]);
-        ss = fmaf(f, f, ss);
-        dot = fmaf(to_float(from_float<T>(to_float(gr[i]) * to_float(w[i]))), f, dot);
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nchunks) {
+        xs[i] = xp[c];
+        gs[i] = gp[c];
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) xs[i].v[j] = gs[i].v[j] = from_float<T>(0.f);
       }
     }
-    const Sum2 tot = block_sum2(ss, dot, scratch);
-    const float r = 1.0f / sqrtf(tot.a / static_cast<float>(dim) + eps);
-    const float k = r * r * r * tot.b / static_cast<float>(dim);
-    float unused = 0.f;
-    if (kVec) {
-      const Pack<T>* xp = reinterpret_cast<const Pack<T>*>(xr);
-      const Pack<T>* gp = reinterpret_cast<const Pack<T>*>(gr);
-      const Pack<T>* wp = reinterpret_cast<const Pack<T>*>(w);
-      Pack<T>* op = reinterpret_cast<Pack<T>*>(dr);
-      for (int64_t i = threadIdx.x; i < dim / N; i += kThreads) {
-        const Pack<T> a = xp[i], g = gp[i], c = wp[i];
-        Pack<T> o;
+  };
+
+  V xa[CPL], ga[CPL];
+  float acc[E];
 #pragma unroll
-        for (int j = 0; j < N; ++j)
-          o.v[j] = from_float<T>(bwd_elem<T>(to_float(a.v[j]), to_float(g.v[j]),
-                                             to_float(c.v[j]), r, k,
-                                             want_dw ? colsum[i * N + j] : unused));
-        op[i] = o;
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  int64_t row = row0 + warp;
+  if (row < row_end) load(xa, ga, row);
+  for (; row < row_end; row += kWarps) {
+    // w is read per chunk from L1 in both passes, not held: its registers
+    // would cost the row-in-flight ones
+    auto weight = [&](int i) {
+      V wv;
+      const int c = lane + 32 * i;
+      if (c < nchunks) wv = wp[c];
+      else
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) wv.v[j] = from_float<T>(0.f);
+      return wv;
+    };
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const V wv = weight(i);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float f = to_float(xa[i].v[j]);
+        ss = fmaf(f, f, ss);
+        dot = fmaf(to_float(from_float<T>(to_float(ga[i].v[j]) * to_float(wv.v[j]))), f, dot);
       }
-    } else {
-      for (int64_t i = threadIdx.x; i < dim; i += kThreads)
-        dr[i] = from_float<T>(bwd_elem<T>(to_float(xr[i]), to_float(gr[i]), to_float(w[i]), r, k,
-                                          want_dw ? colsum[i] : unused));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    }
+    const float r = 1.0f / sqrtf(ss / static_cast<float>(dim) + eps);
+    const float k = r * r * r * dot / static_cast<float>(dim);
+    V* op = reinterpret_cast<V*>(dx + row * dim);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const V wv = weight(i);
+      V o;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        o.v[j] = from_float<T>(bwd_elem<T>(to_float(xa[i].v[j]), to_float(ga[i].v[j]),
+                                           to_float(wv.v[j]), r, k, acc[i * VEC + j]));
+      if (lane + 32 * i < nchunks) op[lane + 32 * i] = o;
+    }
+    if (row + kWarps < row_end) load(xa, ga, row + kWarps);
+  }
+  hopper::launch_dependents();  // the column reduce may start; it waits for this grid
+  if (dw_part == nullptr) return;
+  // the block's column sums: each warp's into its own slice, then every
+  // thread sums its columns over the slices in warp order
+  float* mine = colsum + warp * dim;
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const int c = lane + 32 * i;
+    if (c < nchunks) {
+      if constexpr (VEC % 4 == 0) {  // 16-byte stores: dim is a multiple of VEC here
+#pragma unroll
+        for (int j = 0; j < VEC; j += 4)
+          *reinterpret_cast<float4*>(mine + c * VEC + j) =
+              make_float4(acc[i * VEC + j], acc[i * VEC + j + 1], acc[i * VEC + j + 2],
+                          acc[i * VEC + j + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) mine[c * VEC + j] = acc[i * VEC + j];
+      }
     }
   }
-  if (want_dw) {
-    float* out = dw_part + static_cast<int64_t>(blockIdx.x) * dim;
-    for (int64_t i = threadIdx.x; i < (kVec ? dim / N : dim); i += kThreads)
-      for (int j = 0; j < (kVec ? N : 1); ++j) {
-        const int64_t c = kVec ? i * N + j : i;
-        out[c] = colsum[c];
-      }
+  __syncthreads();
+  for (int col = threadIdx.x; col < dim; col += kWarps * 32) {
+    float v = colsum[col];
+#pragma unroll
+    for (int wi = 1; wi < kWarps; ++wi) v += colsum[wi * dim + col];
+    dw_part[static_cast<int64_t>(blockIdx.x) * dim + col] = v;
   }
 }
 
@@ -240,6 +280,7 @@ __global__ void __launch_bounds__(kReduceCols * kReduceSlices)
 rmsnorm_dweight_kernel(const float* __restrict__ part, T* __restrict__ dw, int nparts,
                        int64_t dim) {
   __shared__ float red[kReduceSlices][kReduceCols + 1];
+  hopper::grid_dependency_wait();  // the partials come from rmsnorm_bwd_kernel, launched just before
   const int lane = threadIdx.x % kReduceCols, slice = threadIdx.x / kReduceCols;
   const int64_t col = static_cast<int64_t>(blockIdx.x) * kReduceCols + lane;
   float s = 0.f;
@@ -262,27 +303,44 @@ bool vec_ok(int64_t dim, int64_t x_stride, std::initializer_list<const void*> pt
   return dim % Pack<T>::N == 0 && x_stride % Pack<T>::N == 0 && bits % 16 == 0;
 }
 
+// The instantiation whose CPL chunks of VEC elements a lane cover the row.
+template <typename T, int VEC, int CPL = 1>
+void* pick_bwd(int per_lane) {
+  if constexpr (CPL * VEC > kBwdMaxPerLane) {
+    return nullptr;
+  } else {
+    if (per_lane <= CPL) return reinterpret_cast<void*>(rmsnorm_bwd_kernel<T, VEC, CPL>);
+    return pick_bwd<T, VEC, 2 * CPL>(per_lane);
+  }
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw_part,
                        int64_t rows, int64_t dim, int64_t x_stride, int rows_per_block,
                        int blocks, int64_t smem, float eps, cudaStream_t stream) {
   const int64_t want_blocks = (rows + rows_per_block - 1) / rows_per_block;
-  const int64_t want_smem = dw_part != nullptr ? dim * static_cast<int64_t>(sizeof(float)) : 0;
+  const int warps = bwd_warps(dim, sizeof(T));
+  const int64_t want_smem = dw_part != nullptr ? warps * dim * static_cast<int64_t>(sizeof(float)) : 0;
   if (rows_per_block <= 0 || blocks != want_blocks || smem != want_smem)
     return cudaErrorInvalidConfiguration;
+  if (dim > kMaxBwdDim) return cudaErrorInvalidValue;
+  constexpr int N = Pack<T>::N;
+  const bool vec = vec_ok<T>(dim, x_stride, {x, w, dy, dx});
+  const int per_lane = static_cast<int>(vec ? (dim / N + 31) / 32 : (dim + 31) / 32);
+  void* fn = vec ? pick_bwd<T, N>(per_lane) : pick_bwd<T, 1>(per_lane);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
+  const T* wq = static_cast<const T*>(w);
   const T* gp = static_cast<const T*>(dy);
   T* dp = static_cast<T*>(dx);
   float* part = static_cast<float*>(dw_part);
-  auto kernel = vec_ok<T>(dim, x_stride, {x, w, dy, dx}) ? rmsnorm_bwd_kernel<T, true>
-                                                         : rmsnorm_bwd_kernel<T, false>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, kThreads, smem, stream>>>(xp, wp, gp, dp, part, rows, dim, x_stride,
-                                             rows_per_block, eps);
-  return cudaGetLastError();
+  int d = static_cast<int>(dim);
+  int64_t rpb = rows_per_block;
+  void* args[] = {&xp, &wq, &gp, &dp, &part, &rows, &d, &x_stride, &rpb, &eps};
+  return cudaLaunchKernel(fn, dim3(blocks), dim3(warps * 32), args, smem, stream);
 }
 
 template <typename T>
@@ -321,8 +379,8 @@ extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* w, void* out, i
 // Backward, first kernel: dx [rows, dim] (contiguous, like dy) and, if
 // dw_part is not null, one row of f32 column sums of dy * round(x r) per
 // block into dw_part [blocks, dim].  rows_per_block, blocks and smem are
-// rmsnorm.py::bwd_plan's (smem = dim * 4 with dw_part, else 0); another
-// plan returns cudaErrorInvalidConfiguration.
+// rmsnorm.py::bwd_plan's (smem: dim f32 per warp with dw_part, else 0);
+// another plan returns cudaErrorInvalidConfiguration.
 extern "C" int rmsnorm_bwd(int dtype, const void* x, const void* w, const void* dy, void* dx,
                            void* dw_part, int64_t rows, int64_t dim, int64_t x_stride,
                            int rows_per_block, int blocks, int64_t smem, float eps,
@@ -351,16 +409,16 @@ extern "C" int rmsnorm_bwd_dweight(int dtype, const void* dw_part, void* dw, int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      rmsnorm_dweight_kernel<float><<<grid, kReduceCols * kReduceSlices, 0, s>>>(
-          part, static_cast<float*>(dw), nparts, dim);
-      break;
+      return static_cast<int>(hopper::launch_dependent(rmsnorm_dweight_kernel<float>, grid,
+                                                       dim3(kReduceCols * kReduceSlices), 0, s,
+                                                       part, static_cast<float*>(dw), nparts,
+                                                       dim));
     case 1:
-      rmsnorm_dweight_kernel<__nv_bfloat16><<<grid, kReduceCols * kReduceSlices, 0, s>>>(
-          part, static_cast<__nv_bfloat16*>(dw), nparts, dim);
-      break;
+      return static_cast<int>(hopper::launch_dependent(
+          rmsnorm_dweight_kernel<__nv_bfloat16>, grid, dim3(kReduceCols * kReduceSlices), 0, s,
+          part, static_cast<__nv_bfloat16*>(dw), nparts, dim));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* rmsnorm_error_string(int err) {

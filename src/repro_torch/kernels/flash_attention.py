@@ -9,10 +9,11 @@ plain version.  ``launch_plan`` decides the template's tiles, grid and
 shared memory in Python, where the CPU tests reach it; the kernel refuses
 a plan that is not its own.
 
-The backward (``flash_attention_bwd``, two kernels: dQ, then dK and dV)
-takes the forward's output and its row log-sum-exp (``lse=True``) and
-returns the gradients laid out like q, k and v; ``bwd_plans`` are its
-launch plans.  ``ops.flash_attention_op`` wires both into autograd.
+The backward (``flash_attention_bwd``, two kernels: dQ, then dK and dV;
+bf16 on wgmma fed by TMA) takes the forward's output and its row
+log-sum-exp (``lse=True``) and returns the gradients laid out like q, k
+and v; ``bwd_plans`` are its launch plans.  ``ops.flash_attention_op``
+wires both into autograd.
 """
 
 from __future__ import annotations
@@ -42,12 +43,13 @@ BLOCK_Q = 64  # query rows per block, both templates
 class LaunchPlan:
     """How one call is launched; ``csrc/flash_attention.cu`` refuses any other."""
 
-    route: str  # "mma": bf16 tensor cores; "fma": f32 CUDA-core FMAs
-    block_q: int  # query rows per block
-    block_k: int  # keys per shared-memory tile
+    route: str  # "mma": bf16 mma.sync; "wgmma": bf16 wgmma fed by TMA; "fma": f32 CUDA-core FMAs
+    block_q: int  # query rows per block (dkdv: per streamed tile)
+    block_k: int  # keys per shared-memory tile (dkdv: per block)
     threads: int
     grid: Tuple[int, int, int]  # bf16 (H, row tiles, B): a KV head's g query heads adjacent
     smem_bytes: int
+    stages: int = 2  # tiles in flight: the cp.async double buffer, or the TMA ring
 
 
 def launch_plan(B: int, H: int, S: int, d: int, dtype: torch.dtype) -> LaunchPlan:
@@ -61,25 +63,45 @@ def launch_plan(B: int, H: int, S: int, d: int, dtype: torch.dtype) -> LaunchPla
     return LaunchPlan("fma", BLOCK_Q, 32, 128, (row_tiles, H, B), smem)
 
 
+def dq_warpgroups(S: int) -> int:
+    """Consumer warpgroups (64 rows each) of a bf16 dq block."""
+    return 2 if S > 256 else 1
+
+
+def dkdv_warpgroups(S: int, d: int) -> int:
+    """Consumer warpgroups (64 keys each) of a bf16 dkdv block; one at d = 128,
+    where the dK and dV accumulators alone are 128 f32 registers a thread."""
+    return 2 if S > 256 and d == 64 else 1
+
+
 def bwd_plans(B: int, H: int, KV: int, S: int, d: int, dtype: torch.dtype):
     """(dq plan, dkdv plan) of the backward kernels (no CUDA needed).
 
-    dq: one block per (query head, 64-row tile), grid (H, row tiles, B).
-    dkdv: one block per (KV head, 64-key tile), grid (key tiles, KV, B).
+    dq: one block per (query head, row tile), grid (H, row tiles, B).
+    dkdv: one block per (KV head, key tile), grid (key tiles, KV, B).
+    bf16 blocks are 64-row consumer warpgroups plus one producer warp:
+    two warpgroups (128-row dq tiles; 128-key dkdv tiles at d = 64) past
+    S = 256, one below, so that the GRPO shape still fills the card.
     """
-    tiles = -(-S // BLOCK_Q)
     if dtype == torch.bfloat16:
-        # Q, dO and K, V twice (dq) or K, V and Q, dO twice (dkdv): six 64-row
-        # tiles, rows padded by 16 bytes; dkdv adds two stages of lse and D rows
-        tiles_bytes = 2 * 6 * BLOCK_Q * (d + 8)
-        return (LaunchPlan("mma", BLOCK_Q, 64, 128, (H, tiles, B), tiles_bytes),
-                LaunchPlan("mma", BLOCK_Q, 64, 128, (tiles, KV, B), tiles_bytes + 4 * 4 * BLOCK_Q))
-    # f32 FMAs, 32-row streamed tiles.  dq: Q, dO (rows d+4), K, V (rows d+1),
-    # dS (rows 36).  dkdv: K, V (rows d+4), Q, dO (rows d+1), P, dS, lse, D.
+        stages = 3 if d == 64 else 2
+        bars = 8 * (1 + 2 * stages)  # mbarriers: resident tiles, full[stages], empty[stages]
+        wq, wk = dq_warpgroups(S), dkdv_warpgroups(S, d)
+        bq, bk = 64 * wq, 64 * wk
+        # 1024 bytes of alignment slack; swizzled bf16 tiles of d columns (2 bytes each).
+        # dq: Q and dO of bq rows, a ring of 64-key K and V tiles, 16 f32 D values per warp.
+        dq = 1024 + 2 * 2 * bq * d + stages * 2 * 2 * 64 * d + bars + 4 * 64 * wq
+        # dkdv: K and V of bk keys, a ring of 64-row Q and dO tiles with their f32 lse and D.
+        dkdv = 1024 + 2 * 2 * bk * d + stages * (2 * 2 * 64 * d + 2 * 4 * 64) + bars
+        return (LaunchPlan("wgmma", bq, 64, 128 * wq + 32, (H, -(-S // bq), B), dq, stages),
+                LaunchPlan("wgmma", 64, bk, 128 * wk + 32, (-(-S // bk), KV, B), dkdv, stages))
+    # f32 FMAs, 32-row streamed tiles.  dq: 64 rows a block; Q, dO (rows d+4), K, V
+    # (rows d+1), dS (rows 36).  dkdv: 32 keys a block; K, V (rows d+4), Q, dO
+    # (rows d+1), P, dS, lse, D.
     dq = 4 * (2 * BLOCK_Q * (d + 4) + 2 * 32 * (d + 1) + BLOCK_Q * 36)
-    dkdv = 4 * (2 * BLOCK_Q * (d + 4) + 2 * 32 * (d + 1) + 2 * BLOCK_Q * 36 + 2 * 32)
-    return (LaunchPlan("fma", BLOCK_Q, 32, 128, (H, tiles, B), dq),
-            LaunchPlan("fma", BLOCK_Q, 32, 128, (tiles, KV, B), dkdv))
+    dkdv = 4 * (2 * 32 * (d + 4) + 2 * 32 * (d + 1) + 2 * 32 * 36 + 2 * 32)
+    return (LaunchPlan("fma", BLOCK_Q, 32, 128, (H, -(-S // BLOCK_Q), B), dq),
+            LaunchPlan("fma", 32, 32, 128, (-(-S // 32), KV, B), dkdv))
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,14 +177,25 @@ def flash_attention_bwd(
     """(dq, dk, dv), each laid out like q, k and v: the dq kernel, then the dkdv kernel."""
     try:
         _check_layout("dout", dout)
-    except ValueError:  # e.g. a broadcast gradient: the kernels read 16-byte rows
+        if 0 in dout.stride():  # a broadcast gradient: no tensor map takes a zero stride
+            dout = dout.contiguous()
+    except ValueError:  # the kernels read 16-byte rows
         dout = dout.contiguous()
     dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=causal)
     return (dq, *flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal))
 
 
+def stats_row(S: int) -> int:
+    """The backward's per-row statistics rows, padded to 16 bytes for TMA."""
+    return -(-S // 4) * 4
+
+
 def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True):
-    """-> (dq laid out like q, delta = rowsum(dout * out) [B, H, S] f32)."""
+    """-> (dq laid out like q, stats [2, B, H, stats_row(S)] f32).
+
+    stats[0, ..., :S] is delta = rowsum(dout * out); stats[1] holds the lse
+    times log2(e) for the bf16 dkdv kernel's TMA loads (f32 leaves it unused).
+    """
     global bwd_dq_launches
     B, H, S, d = q.shape
     _check_args(q, k, v)
@@ -172,7 +205,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True):
         raise TypeError("out and dout must have q's dtype and device")
     _check_lse(lse, B, H, S)
     dq = torch.empty_like(q)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty((2, B, H, stats_row(S)), dtype=torch.float32, device=q.device)
     if B * H * S == 0:
         return dq, delta
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout), ("dq", dq)):
@@ -189,12 +222,14 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True):
 
 
 def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal: bool = True):
-    """-> (dk, dv) laid out like k and v; ``delta`` from ``flash_attention_bwd_dq``."""
+    """-> (dk, dv) laid out like k and v; ``delta``: the stats of ``flash_attention_bwd_dq``."""
     global bwd_dkdv_launches
     B, H, S, d = q.shape
     _check_args(q, k, v)
     _check_lse(lse, B, H, S)
-    _check_lse(delta, B, H, S)
+    if tuple(delta.shape) != (2, B, H, stats_row(S)) or delta.dtype != torch.float32 \
+            or not delta.is_contiguous():
+        raise ValueError(f"delta must be flash_attention_bwd_dq's [2,{B},{H},{stats_row(S)}] float32 stats")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if B * H * S == 0:
         return dk, dv
@@ -220,7 +255,7 @@ def _strides(q, k, v, out, dout, dq, dk=None, dv=None):
 
 def _check_lse(t: torch.Tensor, B: int, H: int, S: int) -> None:
     if tuple(t.shape) != (B, H, S) or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"lse and delta must be contiguous [{B},{H},{S}] float32")
+        raise ValueError(f"lse must be contiguous [{B},{H},{S}] float32")
 
 
 def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -3,8 +3,8 @@
 ``rmsnorm`` launches the kernel on CUDA tensors and raises on anything it
 does not take; ``ops.rmsnorm_op`` is the entry point that also serves CPU
 tensors through the plain version.  ``rmsnorm_bwd`` is its gradient (two
-kernels: dx with per-block f32 column sums of dweight, then a column
-reduce), laid out by ``bwd_plan``.
+kernels: dx, a warp per row, with per-block f32 column sums of dweight,
+then a column reduce), laid out by ``bwd_plan``.
 """
 
 from __future__ import annotations
@@ -25,21 +25,32 @@ launches = 0  # forward
 bwd_launches = 0
 dweight_launches = 0
 
-BWD_TARGET_BLOCKS = 2 * 132  # two blocks per SM of an H100
+NUM_SMS = 132  # an H100 SXM
+BWD_MAX_DIM = 2048  # the row lives in registers, 64 elements a lane
+
+
+def bwd_warps(D: int, dtype: torch.dtype) -> int:
+    """Rows in flight per block, a warp each: 16 where two rows fit a lane's registers."""
+    return 16 if D * torch.finfo(dtype).bits // 8 <= 2048 else 8
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """How ``rmsnorm_bwd`` is launched; ``csrc/rmsnorm.cu`` refuses any other."""
 
-    rows_per_block: int
+    rows_per_block: int  # consecutive rows, walked by the block's warps in turn
     blocks: int  # also the rows of the f32 dweight partials
-    smem_bytes: int  # the block's f32 column sums (0 without dweight)
+    smem_bytes: int  # each warp's f32 column sums (0 without dweight)
+    threads: int
 
 
-def bwd_plan(T: int, D: int, dweight: bool = True) -> BwdPlan:
-    rows_per_block = max(1, -(-T // BWD_TARGET_BLOCKS))
-    return BwdPlan(rows_per_block, -(-T // rows_per_block), 4 * D if dweight else 0)
+def bwd_plan(T: int, D: int, dtype: torch.dtype = torch.bfloat16, dweight: bool = True) -> BwdPlan:
+    """A persistent grid: at most one block per SM, whatever T."""
+    warps = bwd_warps(D, dtype)
+    blocks = max(1, min(NUM_SMS, -(-T // warps)))
+    rows_per_block = max(1, -(-T // blocks))
+    return BwdPlan(rows_per_block, -(-T // rows_per_block), 4 * warps * D if dweight else 0,
+                   32 * warps)
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,13 +96,16 @@ def rmsnorm_bwd_dx(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The first kernel: (dx, f32 dweight partials [blocks, D] or None)."""
     global bwd_launches
+    if x.shape[-1] > BWD_MAX_DIM:
+        raise ValueError(f"rmsnorm backward kernel keeps a row in a warp's registers: "
+                         f"D <= {BWD_MAX_DIM}, got {x.shape[-1]}")
     _check_args(x, weight)
     T, D = x.shape
     if tuple(dy.shape) != (T, D) or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must be [{T}, {D}] {x.dtype} on {x.device}")
     dy = dy.contiguous()
     dx = torch.empty((T, D), dtype=x.dtype, device=x.device)
-    plan = bwd_plan(T, D, dweight)
+    plan = bwd_plan(T, D, x.dtype, dweight)
     part = torch.empty((plan.blocks, D), dtype=torch.float32, device=x.device) if dweight else None
     if T == 0:
         return dx, part

@@ -25,6 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import moe_matmul as moe_mod
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rmsnorm as rmsnorm_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.models import build_model
 from repro_torch.models.convert import flat_from_params, params_from_flat
@@ -109,9 +110,12 @@ def test_flash_kernel(cuda, B, H, KV, S, d, causal, dtype):
     assert torch.equal(ops.flash_attention_op(*views, causal=causal), got)
 
 
-# the chip phase's backward grid: GQA g, S (ragged and whole tiles), d
+# the chip phase's backward grid: GQA g, S (ragged and whole tiles), d; then S on
+# either side of the 128-row and 128-key tiles and of S = 256, where the plans
+# change from one consumer warpgroup to two
 FLASH_BWD_SHAPES = [(2, 2 * g, 2, S, d) for g in (1, 3, 4, 5) for S in (1, 63, 65, 160, 1024)
-                    for d in (64, 128)]
+                    for d in (64, 128)] + [
+    (2, 2 * g, 2, S, d) for g in (1, 4) for S in (127, 129, 255, 257) for d in (64, 128)]
 
 
 @pytest.mark.parametrize("B,H,KV,S,d", FLASH_BWD_SHAPES)
@@ -146,6 +150,30 @@ def test_flash_backward_keeps_the_model_layout(cuda):
     for g, w, t in zip(got, want, views):
         assert g.stride() == t.stride()
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B,H,KV,S,causal", [(16, 15, 5, 160, True), (4, 32, 8, 2048, True)])
+def test_flash_backward_is_deterministic(cuda, B, H, KV, S, causal):
+    """No atomics: two calls on the same inputs give the same bits (GRPO shape, long S)."""
+    rng = np.random.default_rng(S + H)
+    q, k, v, dout = (tensor(rng, shape, torch.bfloat16, cuda) for shape in
+                     [(B, H, S, 64), (B, KV, S, 64), (B, KV, S, 64), (B, H, S, 64)])
+    out, lse = flash_mod.flash_attention(q, k, v, causal=causal, lse=True)
+    first = flash_mod.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    second = flash_mod.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("T,D", [(2560, 960), (1024, 2048)])
+def test_rmsnorm_backward_is_deterministic(cuda, T, D):
+    """The dweight column sums run in a fixed order: two calls give the same bits."""
+    rng = np.random.default_rng(T)
+    x = tensor(rng, (T, D), torch.bfloat16, cuda, 3.0)
+    w = 1 + tensor(rng, (D,), torch.bfloat16, cuda, 0.1)
+    dy = tensor(rng, (T, D), torch.bfloat16, cuda)
+    first, second = (rmsnorm_mod.rmsnorm_bwd(x, w, dy) for _ in range(2))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @pytest.mark.parametrize("T,D", [(2560, 960), (1024, 2048), (1, 960), (7, 960), (3, 100), (300, 64)])

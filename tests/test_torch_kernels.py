@@ -8,6 +8,8 @@ for RMSNorm and 2e-2 for bf16, where one rounding step of a value near 1
 is 2**-8.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -247,11 +249,12 @@ def test_flash_launch_plan(B, H, KV, S, d, dtype):
 
 
 # (B, H, KV, S, d): the training paths (smollm GRPO 16 x 160, llama LM 4 x 256), chip_smoke.py's
-# longer shapes and the card tests' grid
+# longer shapes and the card tests' grid, with S on either side of the 128-row and 128-key tiles
 FLASH_BWD_PLAN_SHAPES = sorted(
     {(16, 15, 5, 160, 64), (4, 32, 8, 256, 64)}
     | {(4, H, KV, S, 64) for S in (1024, 2048) for H, KV in ((32, 8), (15, 5))}
     | {(2, 2 * g, 2, S, d) for g in (1, 3, 4, 5) for S in (1, 63, 65, 160, 1024) for d in (64, 128)}
+    | {(2, 2 * g, 2, S, d) for g in (1, 4) for S in (127, 129, 255, 257) for d in (64, 128)}
 )
 
 
@@ -259,29 +262,74 @@ FLASH_BWD_PLAN_SHAPES = sorted(
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_launch_plans(B, H, KV, S, d, dtype):
     dq, dkdv = flash_mod.bwd_plans(B, H, KV, S, d, dtype)
-    tiles = -(-S // 64)
-    assert dq.grid == (H, tiles, B)  # one block per (query head, 64-row tile)
-    assert dkdv.grid == (tiles, KV, B)  # one block per (KV head, 64-key tile)
+    assert dq.grid == (H, -(-S // dq.block_q), B)  # one block per (query head, row tile)
+    assert dkdv.grid == (-(-S // dkdv.block_k), KV, B)  # one block per (KV head, key tile)
     for plan in (dq, dkdv):
-        assert plan.threads == 128 and plan.block_q == 64
-        assert plan.route == ("mma" if dtype == torch.bfloat16 else "fma")
         assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
-        # nothing of size S lives in shared memory
-        assert plan.smem_bytes == flash_mod.bwd_plans(B, H, KV, 4 * S, d, dtype)[plan is dkdv].smem_bytes
-    if dtype == torch.bfloat16:  # six padded 64-row tiles; dkdv adds two stages of lse and D
-        assert dq.smem_bytes == 2 * 6 * 64 * (d + 8) and dkdv.smem_bytes == dq.smem_bytes + 1024
+        # nothing of size S lives in shared memory once the tiles are fixed
+        longer = flash_mod.bwd_plans(B, H, KV, 4 * S + 512, d, dtype)[plan is dkdv]
+        if (longer.block_q, longer.block_k) == (plan.block_q, plan.block_k):
+            assert longer.smem_bytes == plan.smem_bytes
+    if dtype == torch.float32:  # FMAs: 64-row dq blocks, 32-key dkdv blocks, 32-row tiles
+        assert (dq.route, dq.threads, dq.block_q, dq.block_k) == ("fma", 128, 64, 32)
+        assert (dkdv.route, dkdv.threads, dkdv.block_q, dkdv.block_k) == ("fma", 128, 32, 32)
+        return
+    # wgmma: 64-row consumer warpgroups plus a producer warp; two past S = 256
+    wq = 2 if S > 256 else 1
+    wk = 2 if S > 256 and d == 64 else 1  # d = 128: one, for the registers of dK and dV
+    stages = 3 if d == 64 else 2
+    assert (dq.route, dq.block_q, dq.block_k, dq.threads, dq.stages) == ("wgmma", 64 * wq, 64, 128 * wq + 32, stages)
+    assert (dkdv.route, dkdv.block_q, dkdv.block_k, dkdv.threads, dkdv.stages) == (
+        "wgmma", 64, 64 * wk, 128 * wk + 32, stages)
+    tile = 2 * 64 * d  # one 64-row swizzled bf16 tile
+    bars = 8 * (1 + 2 * stages)
+    assert dq.smem_bytes == 1024 + 2 * wq * tile + stages * 2 * tile + bars + 256 * wq
+    assert dkdv.smem_bytes == 1024 + 2 * wk * tile + stages * (2 * tile + 512) + bars
+    if wq == 1 and not (d == 128 and wk == 1 and S > 256):  # two blocks fit on an SM
+        assert 2 * dq.smem_bytes <= 228 * 1024
+
+
+def test_flash_backward_plans_fill_the_card():
+    """At the GRPO shape the bf16 grids hold at least one block per SM; f32 dkdv at B4 H32 KV8 S160 too."""
+    dq, dkdv = flash_mod.bwd_plans(16, 15, 5, 160, 64, torch.bfloat16)
+    assert math.prod(dq.grid) >= 132 and math.prod(dkdv.grid) >= 132
+    f32_dkdv = flash_mod.bwd_plans(4, 32, 8, 160, 64, torch.float32)[1]
+    assert math.prod(f32_dkdv.grid) >= 132  # 160 blocks of 32 keys (64-key blocks gave 96)
+
+
+def test_flash_backward_stats_rows_are_16_byte_aligned():
+    for S in (1, 2, 3, 4, 5, 63, 160, 1001):
+        assert flash_mod.stats_row(S) % 4 == 0 and S <= flash_mod.stats_row(S) < S + 4
 
 
 @pytest.mark.parametrize("T,D", [(2560, 960), (1024, 2048), (128, 960), (4, 960), (1, 7), (300, 64)])
 def test_rmsnorm_backward_launch_plan(T, D):
-    """Rows split over at most two blocks per SM; each block keeps D f32 column sums."""
-    plan = rmsnorm_mod.bwd_plan(T, D)
-    assert plan.blocks <= rmsnorm_mod.BWD_TARGET_BLOCKS and plan.blocks <= T
-    assert (plan.blocks - 1) * plan.rows_per_block < T <= plan.blocks * plan.rows_per_block
-    assert plan.smem_bytes == 4 * D <= _build.MAX_SMEM_BYTES
-    assert rmsnorm_mod.bwd_plan(T, D, dweight=False).smem_bytes == 0
-    if T >= rmsnorm_mod.BWD_TARGET_BLOCKS:
-        assert plan.blocks > rmsnorm_mod.BWD_TARGET_BLOCKS // 2  # the card stays full
+    """A warp per row; at most one block per SM; each warp keeps D f32 column sums."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = rmsnorm_mod.bwd_plan(T, D, dtype)
+        warps = plan.threads // 32
+        assert warps == (16 if D * (4 if dtype == torch.float32 else 2) <= 2048 else 8)
+        assert plan.blocks <= rmsnorm_mod.NUM_SMS and plan.blocks <= T
+        assert (plan.blocks - 1) * plan.rows_per_block < T <= plan.blocks * plan.rows_per_block
+        assert plan.smem_bytes == 4 * warps * D <= _build.MAX_SMEM_BYTES
+        assert rmsnorm_mod.bwd_plan(T, D, dtype, dweight=False).smem_bytes == 0
+        if T >= rmsnorm_mod.NUM_SMS * warps:
+            assert plan.blocks > rmsnorm_mod.NUM_SMS // 2  # the card stays full
+
+
+@pytest.mark.parametrize("T", [132 * 16, 2560, 10_000, 1_000_000])
+def test_rmsnorm_backward_grid_stops_at_the_sm_count(T):
+    """A persistent grid: past one block per SM, more rows lengthen each block's walk."""
+    plan = rmsnorm_mod.bwd_plan(T, 960)
+    assert rmsnorm_mod.NUM_SMS - plan.rows_per_block <= plan.blocks <= rmsnorm_mod.NUM_SMS
+    assert rmsnorm_mod.bwd_plan(4 * T, 960).blocks <= rmsnorm_mod.NUM_SMS
+    assert rmsnorm_mod.bwd_plan(4 * T, 960).rows_per_block >= 4 * plan.rows_per_block - 3
+
+
+def test_rmsnorm_backward_refuses_rows_past_its_registers():
+    x = torch.randn(4, rmsnorm_mod.BWD_MAX_DIM + 8)
+    with pytest.raises(ValueError, match="registers"):
+        rmsnorm_mod.rmsnorm_bwd_dx(x, torch.ones(x.shape[1]), x)
 
 
 def test_backward_wrappers_refuse_cpu_tensors():

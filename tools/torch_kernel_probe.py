@@ -2,14 +2,27 @@
 """Probes of the port's flash and SSD kernels on one NVIDIA card.
 
     python3 tools/torch_kernel_probe.py time        # flash and ssd_intra_chunk vs plain and library
+    python3 tools/torch_kernel_probe.py bwd [--tree DIR]  # the backward pairs vs the library gradients
+    python3 tools/torch_kernel_probe.py bwd-parts   # the bf16 flash backward with parts taken out
     python3 tools/torch_kernel_probe.py ssd-roles   # ssd_intra_chunk's y and state blocks alone
     python3 tools/torch_kernel_probe.py ssm-check   # mamba2's bf16 decode-vs-forward reading
 
 ``time`` checks each kernel against its plain version and times it as
 ``chip_smoke.py`` does (CUDA events behind a device sleep), at the serving
-shapes and the long ones.  ``ssd-roles`` builds two variants of
-``csrc/ssd_scan.cu`` into ``build/probe``, one whose state blocks return at
-once and one whose y blocks do, and times each beside the whole kernel.
+shapes and the long ones.  ``bwd`` does the same for the backward kernels
+at ``chip_smoke.py`` phase 5's timed shapes: each kernel, each pair, and
+the gradient of ``sdpa`` / ``F.rms_norm`` on the same inputs; with
+``--tree DIR`` it imports ``repro_torch`` from the checkout DIR instead
+(built into DIR's own ``build/``), so that one call can time two trees.
+``bwd-parts`` builds variants of ``csrc/flash_attention.cu`` into
+``build/probe`` whose bf16 backward kernels leave out one part of their
+work (the exp2, the register-A products dQ/dV/dK while keeping the P and
+dS arithmetic that feeds them, or that arithmetic, by feeding the products
+constant fragments) and times each beside the whole kernels; the variants'
+gradients are wrong by design.
+``ssd-roles`` builds two variants of ``csrc/ssd_scan.cu`` into
+``build/probe``, one whose state blocks return at once and one whose y
+blocks do, and times each beside the whole kernel.
 ``ssm-check`` reads ``chip_smoke.py``'s mamba2-130m bf16 check (last decode
 step against a full forward, seeded weights) with the kernel, with the
 plain version, and with the plain version's f32 outputs perturbed by
@@ -19,17 +32,21 @@ with changes far below bf16's precision.  Run from the repository root.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import io
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+TREE = Path(sys.argv[sys.argv.index("--tree") + 1]).resolve() if "--tree" in sys.argv else ROOT
+sys.path[:0] = [str(TREE / "src"), str(ROOT)]
 
 import torch  # noqa: E402
 
-from chip_smoke import cuda_ms, flash_bound, ssd_bound  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    GRAD_TOL, cuda_ms, flash_bound, flash_bwd_bounds, grad_err, rmsnorm_bwd_bounds, ssd_bound)
 from repro_torch.kernels import _build, ops, ref, ssd_scan  # noqa: E402
 
 H, HD, N = 24, 64, 128  # mamba2-130m
@@ -68,6 +85,124 @@ def time_kernels(gen):
               f"{(y.float() - yr.float()).abs().max().item():.3e} state err "
               f"{(st - sr).abs().max().item():.3e} kernel {ms:.4f} ms bound "
               f"{ssd_bound(BNC, H, Q, HD, N, x.element_size())[0]:.4f} ms")
+
+
+def time_backward(gen):
+    """The backward kernels at chip_smoke.py phase 5's timed shapes, beside the library gradients."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rmsnorm as rk
+
+    dev = gen.device
+    print(f"[bwd] repro_torch from {Path(fk.__file__).resolve().parents[2]}")
+
+    def leaves(dt, *shapes, scale=1.0):
+        return [(torch.randn(*s, generator=gen, device=dev) * scale).to(dt).requires_grad_()
+                for s in shapes]
+
+    for B, Hq, KV, S, d, causal, dt in [
+            (16, 15, 5, 160, 64, True, torch.bfloat16), (4, 32, 8, 256, 64, True, torch.bfloat16),
+            (4, 32, 8, 1024, 64, True, torch.bfloat16), (4, 15, 5, 1024, 64, True, torch.bfloat16),
+            (4, 32, 8, 2048, 64, True, torch.bfloat16), (4, 15, 5, 2048, 64, True, torch.bfloat16),
+            (4, 32, 8, 2048, 64, False, torch.bfloat16), (4, 32, 8, 160, 64, True, torch.float32)]:
+        q, k, v = leaves(dt, (B, Hq, S, d), (B, KV, S, d), (B, KV, S, d))
+        dout = torch.randn(B, Hq, S, d, generator=gen, device=dev).to(dt)
+        with torch.no_grad():
+            out, lse = fk.flash_attention(q, k, v, causal=causal, lse=True)
+        dq, delta = fk.flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=causal)
+        dk, dv = fk.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal)
+        want = torch.autograd.grad(ref.flash_attention_ref(q, k, v, causal), (q, k, v), dout)
+        errs = [grad_err(f"d{n}", a, b, GRAD_TOL[str(dt)[6:]]) for n, a, b in zip("qkv", (dq, dk, dv), want)]
+        lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+        ms_dq = cuda_ms(lambda: fk.flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=causal))
+        ms_dkdv = cuda_ms(lambda: fk.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal))
+        ms_pair = cuda_ms(lambda: fk.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal))
+        lib = cuda_ms(lambda: torch.autograd.grad(lib_out, (q, k, v), dout, retain_graph=True))
+        bounds = flash_bwd_bounds(B, Hq, KV, S, d, causal, q.element_size())
+        print(f"[bwd] flash B{B} H{Hq} KV{KV} S{S} d{d} causal={causal} {str(dt)[6:]}: dq {ms_dq:.4f} "
+              f"dkdv {ms_dkdv:.4f} pair {ms_pair:.4f} ms, sdpa grad q,k,v {lib:.4f} ms, bound "
+              f"{bounds[2][0]:.4f} ms ({bounds[2][1]}); rel err "
+              + ", ".join(f"{r:.2e}" if r is not None else f"{e:.1e} abs" for e, r in errs))
+        del q, k, v, dout, out, lse, dq, delta, dk, dv, want, lib_out
+    for T, D, dt in [(2560, 960, torch.bfloat16), (1024, 2048, torch.bfloat16), (1024, 2048, torch.float32)]:
+        x = leaves(dt, (T, D), scale=3.0)[0]
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(dt).requires_grad_()
+        dy = torch.randn(T, D, generator=gen, device=dev).to(dt)
+        dx, part = rk.rmsnorm_bwd_dx(x, w, dy)
+        dw = rk.rmsnorm_bwd_dweight(part, dt)
+        want = torch.autograd.grad(ref.rmsnorm_ref(x, w), (x, w), dy)
+        errs = [grad_err(n, a, b, GRAD_TOL[str(dt)[6:]]) for n, a, b in zip(("dx", "dw"), (dx, dw), want)]
+        lib_out = F.rms_norm(x, (D,), w, 1e-5)
+        ms_dx = cuda_ms(lambda: rk.rmsnorm_bwd_dx(x, w, dy))
+        ms_dw = cuda_ms(lambda: rk.rmsnorm_bwd_dweight(part, dt))
+        ms_pair = cuda_ms(lambda: rk.rmsnorm_bwd(x, w, dy))
+        lib = cuda_ms(lambda: torch.autograd.grad(lib_out, (x, w), dy, retain_graph=True))
+        bound = rmsnorm_bwd_bounds(T, D, x.element_size())[2]
+        print(f"[bwd] rmsnorm [{T}, {D}] {str(dt)[6:]}: dx {ms_dx:.4f} dweight {ms_dw:.4f} pair "
+              f"{ms_pair:.4f} ms, F.rms_norm grad x,w {lib:.4f} ms, bound {bound[0]:.4f} ms; rel err "
+              + ", ".join(f"{r:.2e}" for _, r in errs))
+
+
+def bwd_parts(gen):
+    from repro_torch.kernels import flash_attention as fk
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    hdr = (_build.CSRC / "hopper.cuh").read_text()
+    exp = "exp2_ftz(fmaf("
+    products = ["wgmma_rs_n64<1>(acc[c], a[kk]", "wgmma_rs_n64<1>(dva[c], pa[kk]",
+                "wgmma_rs_n64<1>(dka[c], sa[kk]"]
+    frag = "  a[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);"
+    if src.count(exp) != 2 or any(src.count(p) != 1 for p in products) or hdr.count(frag) != 1:
+        raise RuntimeError("flash_attention.cu no longer has the parts this probe takes out")
+    const = "  a[0] = a[1] = a[2] = a[3] = 0x3f803f80u;  // bf16 1.0 pairs\n  return;\n" + frag
+    variants = {
+        "whole": (src, hdr),
+        "no exp2": (src.replace(exp, "(fmaf("), hdr),
+        "no register-A products (P, dS still computed)": (_guard_all(src, products), hdr),
+        "constant A fragments (no P, dS arithmetic)": (src, hdr.replace(frag, const)),
+    }
+    out_dir = ROOT / "build" / "probe" / "flash_parts"
+    jobs = {}
+    for i, (name, (text, header)) in enumerate(variants.items()):
+        vdir = out_dir / str(i)
+        vdir.mkdir(parents=True, exist_ok=True)
+        (vdir / "flash_attention.cu").write_text(text)
+        (vdir / "hopper.cuh").write_text(header)
+        _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+        jobs[name] = (vdir, _build._start("flash_attention"))
+    for name, (vdir, job) in jobs.items():
+        if job is not None:
+            with contextlib.redirect_stdout(io.StringIO()):  # ptxas -v reports
+                _build._finish("flash_attention", job)
+    cases = [(16, 15, 5, 160, True), (4, 32, 8, 2048, True)]  # GRPO shape, long S
+    data = {}
+    for c in cases:
+        B, Hq, KV, S, causal = c
+        q, k, v, do = (torch.randn(B, h, S, 64, generator=gen, device=gen.device).bfloat16()
+                       for h in (Hq, KV, KV, Hq))
+        data[c] = (q, k, v, do)
+    for name, (vdir, _) in jobs.items():
+        _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+        _build._loaded.pop("flash_attention", None)
+        fk._entries.cache_clear()
+        row = []
+        for c in cases:
+            q, k, v, do = data[c]
+            out, lse = fk.flash_attention(q, k, v, causal=c[4], lse=True)
+            _, delta = fk.flash_attention_bwd_dq(q, k, v, out, lse, do, causal=c[4])
+            ms_dq = cuda_ms(lambda: fk.flash_attention_bwd_dq(q, k, v, out, lse, do, causal=c[4]))
+            ms_kv = cuda_ms(lambda: fk.flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=c[4]))
+            row.append(f"B{c[0]} H{c[1]} KV{c[2]} S{c[3]}: dq {ms_dq:.4f} dkdv {ms_kv:.4f} ms")
+        print(f"[bwd-parts] {name}: " + "; ".join(row))
+
+
+def _guard_all(src, products):
+    """Skip each register-A product at run time (scale is never 12345), so the
+    compiler keeps the P and dS arithmetic that feeds it."""
+    for p in products:
+        src = src.replace(p, "if (scale == 12345.f) " + p)
+    return src
 
 
 def ssd_roles(gen):
@@ -145,7 +280,9 @@ def ssm_check(gen):
 
 
 def main() -> int:
-    if len(sys.argv) != 2 or sys.argv[1] not in ("time", "ssd-roles", "ssm-check"):
+    modes = {"time": time_kernels, "bwd": time_backward, "bwd-parts": bwd_parts, "ssd-roles": ssd_roles,
+             "ssm-check": ssm_check}
+    if len(sys.argv) not in (2, 4) or sys.argv[1] not in modes or (len(sys.argv) == 4 and sys.argv[2] != "--tree"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -156,7 +293,7 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     print(f"[{sys.argv[1]}] {card}, torch {torch.__version__}")
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    {"time": time_kernels, "ssd-roles": ssd_roles, "ssm-check": ssm_check}[sys.argv[1]](gen)
+    modes[sys.argv[1]](gen)
     return 0
 
 
