@@ -15,7 +15,9 @@ Phases, each of which raises on failure (nothing is caught):
    card, at the shapes the serving paths give it and at longer ones, with
    the kernel's, the plain version's and (where one PyTorch call computes
    the same function) a library call's times, and the least time the card
-   could take;
+   could take; each ``moe_matmul`` case also with its launch plan (route,
+   tiles, stages, grid, shared memory) and called twice for bit-identical
+   output;
 4. serving at full width on seeded random bf16 weights.  Each path runs
    with the launch counts set to 0 just before it and checked just after
    against the counts its depth implies: greedy generation (4 requests x
@@ -346,6 +348,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as flash_k
+    from repro_torch.kernels import moe_matmul as moe_k
     from repro_torch.kernels import rmsnorm as rms_k
     from repro_torch.launch.serve import build_server, timed_generate
     from repro_torch.launch.train import main as train_main
@@ -498,19 +501,26 @@ def main() -> int:
         (40, 1024, 1536, 512, torch.bfloat16, "longer"),
         (40, 384, 1536, 512, torch.float32, ""),
         (5, 130, 200, 72, torch.float32, "ragged"),
+        (3, 130, 264, 200, torch.bfloat16, "partial C, D and F tiles"),
         (3, 70, 100, 36, torch.bfloat16, "ragged, unaligned rows"),
     ]
     for E, C, D, Fd, dt, what in moe_cases:
         buf = randn(E, C, D, dtype=dt)
         w = randn(E, D, Fd, dtype=dt) * 0.05
         tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
-        err = assert_close(f"moe_matmul {E},{C},{D},{Fd} {dt}", ops.moe_matmul_op(buf, w),
-                           ref.moe_matmul_ref(buf, w), tol)
+        got = ops.moe_matmul_op(buf, w)
+        plan = moe_k.last_plan  # the plan this call launched
+        err = assert_close(f"moe_matmul {E},{C},{D},{Fd} {dt}", got, ref.moe_matmul_ref(buf, w), tol)
+        if not torch.equal(ops.moe_matmul_op(buf, w), got):  # one summation order, no atomics
+            raise AssertionError(f"moe_matmul {E},{C},{D},{Fd} {dt}: two calls differ")
         m = measure(lambda: ops.moe_matmul_op(buf, w), lambda: ref.moe_matmul_ref(buf, w),
                     lambda: torch.bmm(buf, w), moe_bound(E, C, D, Fd, buf.element_size()))
         moe_rows[(E, C, D, Fd, dt)] = row(err, m)
         report(f"moe_matmul E={E} C={C} D={D} F={Fd} {str(dt)[6:]} {what}", err, tol, m, "bmm")
-    del buf, w
+        print(f"[kernel]   launch plan: route {plan.route}, tile {plan.block_m} x {plan.block_n} x "
+              f"{plan.block_k}, {plan.stages} stages, {plan.threads} threads, grid {plan.grid} for "
+              f"{plan.tiles} tiles, {plan.smem_bytes} bytes of shared memory; two calls bit-identical")
+    del buf, w, got
 
     ssd_rows = {}
     ssd_cases = [  # (B, NC, Q, dtype, what): mamba2-130m's H=24, hd=64, N=128; BNC = B*NC

@@ -23,6 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("rmsnorm", "flash_attention", "moe_matmul", "ssd_scan", "launch_floor")
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may have
+NUM_SMS = 132  # streaming multiprocessors of an H100 SXM, for persistent grids
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -68,9 +69,9 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         os.remove(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
-    # ptxas -v: registers, shared memory and spills of each kernel
+    # ptxas -v: registers, shared memory, stack frame and spills of each kernel
     for line in out.splitlines():
-        if "ptxas" in line:
+        if "ptxas" in line or "spill" in line:
             print(f"[build {name}] {line.strip()}", flush=True)
     os.replace(tmp, target)  # atomic: a concurrent build sees all or nothing
 

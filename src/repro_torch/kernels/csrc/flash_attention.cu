@@ -1241,7 +1241,6 @@ Views views_from(const int64_t* st) {
 // are 128 f32 registers a thread.
 int dq_warpgroups(int S) { return S > 256 ? 2 : 1; }
 int dkdv_warpgroups(int D, int S) { return D == 64 && S > 256 ? 2 : 1; }
-constexpr int kSMs = 132;  // an H100 SXM
 
 // Launch a warp-specialised kernel after the same plan check as
 // launch_checked; `threads` is its consumers plus one producer warp.
@@ -1327,7 +1326,7 @@ cudaError_t bwd_dkdv(int dtype, const void* q, const void* k, const void* v, con
                      int S, const Views& w, float scale, int causal, dim3 grid, int64_t smem,
                      cudaStream_t st) {
   if (dtype == 1) {
-    const bool two_per_sm = static_cast<int64_t>(grid.x) * grid.y * grid.z > kSMs;
+    const bool two_per_sm = static_cast<int64_t>(grid.x) * grid.y * grid.z > hopper::kSMs;
     return (dkdv_warpgroups(D, S) == 2    ? dkdv_bf16<64, 2, 1>
             : D == 64 && two_per_sm ? dkdv_bf16<64, 1, 2>
                                     : dkdv_bf16<D, 1, 1>)(

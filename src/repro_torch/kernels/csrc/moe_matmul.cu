@@ -1,60 +1,94 @@
 // Grouped (per-expert) matrix product for Hopper (sm_90a):
-// out[e] = buf[e] @ w[e], buf [E, C, D], w [E, D, F] -> out [E, C, F].
+// out[e] = buf[e] @ w[e], buf [E, C, D], w [E, D, F] -> out [E, C, F], with
+// f32 accumulation, one rounding to the working dtype, and no expert skipped.
 //
 // Replaces: src/repro/kernels/moe_matmul.py::moe_matmul (Pallas body _moe_kernel).
 //
 // Bound: bytes at every shape the MoE path gives it.  A call reads all E
 // expert matrices (granite: 40 x 1536 x 512 bf16 = 63 MB) whatever C is,
-// and does 2*C operations per weight element it reads, so below C ~ 295
-// (the H100's bf16 operations per byte) the weights' bytes set the least
-// time: decode (C = 8) ~19 us, prefill (C = 128) ~25 us with buf and out.
-// At C = 384 (scoring) the bytes' time (~38 us) is ~1.5x the operations'.
+// and does 2 C operations per weight element, so below C ~ 295 (the H100's
+// bf16 operations per byte) the weights' bytes set the least time: decode
+// (C = 8) 19.2 us, prefill (C = 128) 25.0 us with buf and out.  At C = 384
+// (scoring) the bytes' 37.6 us are 1.5x the operations' 24.4 us: the tensor
+// cores must run at two thirds of their peak while the weights stream at
+// the memory's rate.
 //
-// Design: the TPU kernel's grid (expert, C-block, F-block) with a
-// sequential D-block axis becomes one block per (F-tile, C-tile, expert)
-// that loops over D in 32-deep tiles; the f32 accumulator lives in
-// registers (the TPU kernel keeps it in VMEM scratch).  128 threads = 4
-// warps in a 2 x 2 layout, each owning 32 x 32 of the block's 64 x 64 tile.
-// bf16 runs on the tensor cores with mma.sync m16n8k16 (bf16 products,
-// f32 accumulation, exactly the TPU kernel's contract): fragments come out
-// of shared memory with ldmatrix (.trans for w, which is stored [k][n] as
-// it lies in device memory).  f32 runs the same tiles with f32 FMAs on the
-// CUDA cores, each thread owning the same accumulator elements as an mma
-// fragment, so one epilogue serves both.  Since the weights' bytes set the
-// bound, the loads are what the design is about: where every row is
-// 16-byte aligned (D and F multiples of 8 bf16 or 4 f32 values, as at all
-// the model's shapes) tiles are copied with cp.async into a ring of
-// shared-memory stages (4 for bf16, 2 for f32), so several tiles of
-// weights are in flight while the tensor cores work on an earlier one;
-// edges are zero-filled by the copy itself.  Other shapes (any C, D, F)
-// take a path that stages one tile at a time through registers with
-// masked element loads.  No expert is skipped: like the TPU kernel it
-// multiplies every expert's whole capacity buffer.
+// Routes (kernels/moe_matmul.py launch_plan picks one; the entry point
+// refuses a route, tile, grid or shared-memory size that is not its own):
+//
+// - "wgmma": bf16, D and F multiples of 8, 16-byte aligned bases, C > 32.
+//   128 x BN output tiles on two consumer warpgroups of 64 rows, running
+//   wgmma with both operands in shared memory; a producer warpgroup (one
+//   thread issuing, its registers given to the consumers by setmaxnreg)
+//   feeds a ring of 64-deep stages by TMA with 128-byte swizzle: buf's
+//   [128 rows][64 of D], read K-major, and w's [64 of D][BN], read MN-major
+//   in 64-column chunks, as w is stored.  A consumer frees each stage as
+//   soon as its products finish, so ST - 1 stages stay in flight.  BN = 256
+//   (4 stages) where D > F (gate, up), 128 (6 stages) otherwise (down).  The
+//   tensor maps are 3-D (inner, rows, E), so a partial C tile reads zeros,
+//   never the next expert's rows.  The grid is persistent: one block per SM
+//   walks the tiles in (expert, F tile, C tile) order, C fastest, so the
+//   blocks that need one expert's weight tile run side by side and all but
+//   the first find it in L2.  Epilogue: the accumulators are rounded to bf16
+//   once, written to a swizzled 64 x 64 staging tile per warpgroup (two,
+//   alternating) and stored by TMA, which clips at C and F; the producer
+//   meanwhile fills the ring with the next tile.
+// - "wgmma_t": the same inputs with C <= 32 (decode: C = 8), where the call
+//   is a stream over the weights.  The product is transposed, out^T =
+//   w^T buf^T: a 64-column chunk of the weights is wgmma's M side (read
+//   MN-major) and 8 rows of buf its N.  Up to three 160-thread blocks per SM
+//   (one consumer warpgroup, one producer warp, a ring of seven 9 KB stages)
+//   walk (expert, 64-column F tile, 8-row C tile) units persistently, so an
+//   SM keeps some 160 KB of weights in flight and a producer never drains
+//   its ring between units.  Each out^T tile is transposed on its way through
+//   shared memory and stored by TMA.
+//   Both TMA routes are programmatic dependent launches: a block sets up
+//   while the kernel before it finishes and waits for it before touching
+//   device memory.
+// - "fma": f32 with 16-byte aligned rows.  CUDA-core FMAs on 64 x 64 tiles
+//   over 32-deep tiles in a 2-stage cp.async ring (f32's 1e-4 tolerance rules
+//   out bf16 and TF32 products).
+// - "masked": rows that are not 16-byte aligned, either dtype (TMA needs
+//   16-byte strides).  The same 64 x 64 tiles, staged one at a time through
+//   registers with masked element loads; bf16 on mma.sync m16n8k16.
+//
+// No route uses atomics: every output element is summed in one fixed order,
+// so two calls give bit-identical results.
+//
+// Tried on the card and not kept (PERF.md): clusters of two blocks
+// sharing the buf tile by TMA multicast (2-3x slower), 32-deep stages,
+// asking the next stages into L2 ahead of the ring, 128-column decode units
+// and one 4-D weight box per stage (none faster).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "hopper.cuh"
+
 namespace {
 
+// The CUDA-core routes ("fma" and "masked"): one block per 64 x 64 tile.
 constexpr int BM = 64;  // rows of C per block
 constexpr int BN = 64;  // columns of F per block
 constexpr int BK = 32;  // depth of one shared-memory tile
 constexpr int kThreads = 128;
+constexpr int kFmaStages = 2;  // the fma route's cp.async ring; masked stages one tile at a time
 
-// Shared-memory layout per element type: row strides in elements and the
-// number of pipeline stages.  bf16: rows of 80 (A) and 144 (W) bytes, so
-// the eight 16-byte rows of one ldmatrix phase fall on distinct bank
-// groups; 4 stages = 39 KB.  f32: 16-byte aligned rows of 36 and 68
-// floats (in the FMA loop the eight rows a warp reads from A land on
-// banks 4g + k); 2 stages = 36 KB.  Both stay under the 48 KB of static
-// shared memory a block may have.
+// Shared-memory row strides in elements per element type.  bf16 (the
+// masked route only): rows of 80 (A) and 144 (W) bytes, so the eight
+// 16-byte rows of one ldmatrix phase fall on distinct bank groups.  f32:
+// 16-byte aligned rows of 36 and 68 floats (in the FMA loop the eight rows
+// a warp reads from A land on banks 4g + k); 2 stages = 36 KB on the fma
+// route.  Both stay under the 48 KB of static shared memory a block may have.
 template <typename T> struct Layout;
 template <> struct Layout<__nv_bfloat16> {
-  static constexpr int A = BK + 8, W = BN + 8, kStages = 4;
+  static constexpr int A = BK + 8, W = BN + 8;
 };
 template <> struct Layout<float> {
-  static constexpr int A = BK + 4, W = BN + 4, kStages = 2;
+  static constexpr int A = BK + 4, W = BN + 4;
 };
 
 template <typename T>
@@ -189,7 +223,7 @@ __global__ void __launch_bounds__(kThreads)
 moe_matmul_kernel(const T* __restrict__ buf, const T* __restrict__ w, T* __restrict__ out, int C,
                   int D, int F, bool vec_a, bool vec_w) {
   constexpr int kA = Layout<T>::A, kW = Layout<T>::W;
-  constexpr int kStages = kAsync ? Layout<T>::kStages : 1;
+  constexpr int kStages = kAsync ? kFmaStages : 1;
   constexpr int N = Vec<T>::N;
   constexpr int kVa = BM * BK / N / kThreads;  // 16-byte vectors per thread of the buf tile
   constexpr int kVw = BK * BN / N / kThreads;  // ... and of the w tile
@@ -307,41 +341,427 @@ moe_matmul_kernel(const T* __restrict__ buf, const T* __restrict__ w, T* __restr
       }
 }
 
-template <typename T>
-cudaError_t launch(const void* buf, const void* w, void* out, int E, int C, int D, int F,
-                   cudaStream_t stream) {
+// Static shared memory of moe_matmul_kernel<T, kAsync>, as its plan states it.
+template <typename T, bool kAsync>
+constexpr int static_smem() {
+  return (kAsync ? kFmaStages : 1) * (BM * Layout<T>::A + BK * Layout<T>::W) *
+         static_cast<int>(sizeof(T));
+}
+
+}  // namespace
+
+namespace tc {  // bf16 on wgmma fed by TMA
+
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+constexpr int kDepth = 64;  // D per stage: one 128-byte swizzled row of bf16
+constexpr int kRows = 128;  // wgmma: rows of C per tile, 64 per consumer warpgroup
+constexpr int kThreads = 3 * 128;  // two consumer warpgroups, one producer
+constexpr int kTRows = 8;  // wgmma_t: rows of C per unit (wgmma's N)
+constexpr int kTCols = 64;  // wgmma_t: columns of F per unit (wgmma's M)
+constexpr int kTThreads = 128 + 32;
+constexpr int kTBlocksPerSM = 3;
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// Byte offset of the 16-bit element (r, c) of a [rows][64] tile that
+// starts 1024-byte aligned, laid out as TMA's 128-byte swizzle lays it out.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// Shared-memory layouts (byte offsets past a 1024-byte aligned base; the
+// 1024 bytes of slack in `bytes` pay for the alignment).  wgmma: the ring's
+// buf tiles [128][64], its w tiles (BN / 64 chunks of [64][64] each), in as
+// many stages as 192 KB hold, two 64 x 64 staging tiles per consumer
+// warpgroup, then full[ST] and empty[ST].
+template <int BN>
+struct WgSmem {
+  static constexpr int ST = 192 * 1024 / ((kRows + BN) * kDepth * 2);
+  static constexpr int a_tile = kRows * kDepth * 2, b_tile = kDepth * BN * 2;
+  static constexpr int a = 0, b = ST * a_tile, out = b + ST * b_tile;
+  static constexpr int bars = out + 2 * 2 * 64 * 64 * 2;
+  static constexpr int bytes = 1024 + bars + 8 * 2 * ST;
+};
+// wgmma_t: the ring's w tiles [64 of D][64 of F] and buf tiles [8][64 of D],
+// two [8][64] staging tiles, then full[ST] and empty[ST].
+struct TSmem {
+  static constexpr int ST = 7;
+  static constexpr int w_tile = kDepth * kTCols * 2, x_tile = kTRows * kDepth * 2;
+  static constexpr int w = 0, x = ST * w_tile, out = x + ST * x_tile;
+  static constexpr int bars = out + 2 * kTRows * kTCols * 2;
+  static constexpr int bytes = 1024 + bars + 8 * 2 * ST;
+};
+
+// A block's walk through its output tiles, for the producer: stage `it` is
+// depth step it % nk of the block's (it / nk)-th tile, tile t = blockIdx.x
+// + (it / nk) gridDim.x: expert t / (c_tiles f_tiles), F tile (t / c_tiles)
+// % f_tiles, C tile t % c_tiles.  A stage is one buf box of `rows` rows of C
+// and cols / 64 weight boxes, each 64 deep in D.
+struct Walk {
+  int c_tiles, f_tiles, tiles, nk, rows, cols;
+  __device__ bool at(int it, int& e, int& c0, int& f0, int& k0) const {
+    const int t = blockIdx.x + it / nk * gridDim.x;
+    if (t >= tiles) return false;
+    e = t / (c_tiles * f_tiles);
+    f0 = t / c_tiles % f_tiles * cols;
+    c0 = t % c_tiles * rows;
+    k0 = it % nk * kDepth;
+    return true;
+  }
+};
+
+// The producer thread: fill the ring (buf boxes into a_ring, [ST][rows][64];
+// weight boxes into w_ring, [ST][cols / 64][64][64]) stage by stage as the
+// consumers free it.
+template <int ST>
+__device__ __forceinline__ void produce(const Walk& w, const CUtensorMap* ta, const CUtensorMap* tw,
+                                        bf16* a_ring, bf16* w_ring, uint64_t* full, uint64_t* empty) {
+  const uint32_t bytes = (w.rows + w.cols) * kDepth * 2;
+  int e, c0, f0, k0;
+  for (int it = 0; w.at(it, e, c0, f0, k0); ++it) {
+    const int s = it % ST;
+    if (it >= ST) mbar_wait(empty + s, (it / ST - 1) & 1);
+    mbar_expect_tx(full + s, bytes);
+    tma_load_3d(a_ring + s * w.rows * 64, ta, full + s, k0, c0, e);
+    for (int j = 0; j < w.cols / 64; ++j)
+      tma_load_3d(w_ring + (s * (w.cols / 64) + j) * 64 * 64, tw, full + s, f0 + 64 * j, k0, e);
+  }
+}
+
+// A TMA route is a programmatic dependent launch: its blocks may start
+// while the kernel before it on the stream finishes, and wait for it here,
+// after setting up, before any read or write of device memory.  Each block
+// then lets the next such launch start.
+__device__ __forceinline__ void wait_for_previous_kernel() {
+  grid_dependency_wait();
+  launch_dependents();
+}
+
+// "wgmma" route.  Tile t: expert t / (c_tiles f_tiles), F tile
+// (t / c_tiles) % f_tiles, C tile t % c_tiles; block b takes t = b, b + G,
+// ...  Warps 0-7 are two consumer warpgroups (rows 0-63 and 64-127 of the
+// tile), warps 8-11 the producer warpgroup, of which one thread issues the
+// loads; the producer gives its registers to the consumers' accumulators.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+moe_matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+                 const __grid_constant__ CUtensorMap to, int E, int C, int D, int F) {
+  using L = WgSmem<BN>;
+  constexpr int ST = L::ST, NC = BN / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* As = reinterpret_cast<bf16*>(sm + L::a);  // [ST][128][64]
+  bf16* Bs = reinterpret_cast<bf16*>(sm + L::b);  // [ST][NC][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* empty = full + ST;
+  const int c_tiles = (C + kRows - 1) / kRows, f_tiles = (F + BN - 1) / BN;
+  const int tiles = E * f_tiles * c_tiles, nk = (D + kDepth - 1) / kDepth;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  wait_for_previous_kernel();
+
+  if (warp >= 8) {  // producer warpgroup
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256)
+      produce<ST>(Walk{c_tiles, f_tiles, tiles, nk, kRows, BN}, &ta, &tw, As, Bs, full, empty);
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int wg = warp >> 2, tid = threadIdx.x & 127, g = lane >> 2, tq = lane & 3;
+  const int r0 = (warp & 3) * 16 + g;  // this thread's rows of the warpgroup's 64: r0, r0 + 8
+  unsigned char* staging = sm + L::out + wg * 2 * 8192;
+  auto release = [&](int s) {  // this warp is done with stage s
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  };
+  int it = 0, stores = 0;
+  float acc[BN / 2];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int e = t / (c_tiles * f_tiles), f0 = (t / c_tiles) % f_tiles * BN;
+    const int c0 = t % c_tiles * kRows;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % ST;
+      mbar_wait(full + s, (it / ST) & 1);
+      __syncwarp();
+      const bf16* At = As + s * kRows * 64;
+      const bf16* Bt = Bs + s * NC * 64 * 64;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = desc_k(At, kRows, wg * 64, kk), db = desc_mn(Bt, 64, 0, kk);
+        if constexpr (BN == 256)
+          wgmma_ss_n256<1>(acc, da, db, kt | kk);
+        else
+          wgmma_ss_n128<1>(acc, da, db, kt | kk);
+      }
+      wgmma_commit();
+      // Wait for this stage's products and free the stage at once, so that
+      // ST - 1 stages stay in flight; the other warpgroup's products keep
+      // the tensor cores busy meanwhile.
+      wgmma_wait<0>();
+      release(s);
+    }
+    fence_regs(acc);
+    if (c0 + wg * 64 >= C) continue;  // the warpgroup's rows are all past C
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      if (f0 + 64 * j >= F) break;
+      unsigned char* st = staging + (stores++ & 1) * 8192;
+      if (tid == 0) bulk_wait_read<1>();  // the store that last used st has read it
+      named_sync(1 + wg, 128);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int i = 4 * (8 * j + jj);
+        *reinterpret_cast<uint32_t*>(st + sw128(r0, 8 * jj + 2 * tq)) = pack_bf16(acc[i], acc[i + 1]);
+        *reinterpret_cast<uint32_t*>(st + sw128(r0 + 8, 8 * jj + 2 * tq)) =
+            pack_bf16(acc[i + 2], acc[i + 3]);
+      }
+      fence_async_shared();
+      named_sync(1 + wg, 128);
+      if (tid == 0) {
+        tma_store_3d(&to, st, f0 + 64 * j, c0 + wg * 64, e);
+        bulk_commit();
+      }
+    }
+  }
+  if (tid == 0) bulk_wait<0>();
+}
+
+// "wgmma_t" route.  Unit u: expert u / (c_tiles f_tiles), F tile
+// (u / c_tiles) % f_tiles, C tile u % c_tiles (8 rows); block b takes
+// u = b, b + G, ...  Warps 0-3 are the consumer warpgroup, warp 4 the
+// producer.  Accumulator rows are columns f of F, its columns rows c of C.
+__global__ void __launch_bounds__(kTThreads, kTBlocksPerSM)
+moe_matmul_wgmma_t(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                   const __grid_constant__ CUtensorMap to, int E, int C, int D, int F) {
+  using L = TSmem;
+  constexpr int ST = L::ST;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* Ws = reinterpret_cast<bf16*>(sm + L::w);  // [ST][64 of D][64 of F]
+  bf16* Xs = reinterpret_cast<bf16*>(sm + L::x);  // [ST][8 of C][64 of D]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* empty = full + ST;
+  const int c_tiles = (C + kTRows - 1) / kTRows, f_tiles = (F + kTCols - 1) / kTCols;
+  const int units = E * f_tiles * c_tiles, nk = (D + kDepth - 1) / kDepth;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  wait_for_previous_kernel();
+
+  if (warp == 4) {  // producer
+    if (lane == 0)
+      produce<ST>(Walk{c_tiles, f_tiles, units, nk, kTRows, kTCols}, &tx, &tw, Xs, Ws, full, empty);
+    return;
+  }
+
+  const int tid = threadIdx.x, g = lane >> 2, tq = lane & 3;
+  const int f_lo = warp * 16 + g;  // this thread's columns of F: f_lo, f_lo + 8
+  auto release = [&](int s) {  // this warp is done with stage s
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  };
+  int it = 0, stores = 0;
+  float acc[4];
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int e = u / (c_tiles * f_tiles), f0 = (u / c_tiles) % f_tiles * kTCols;
+    const int c0 = u % c_tiles * kTRows;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % ST;
+      mbar_wait(full + s, (it / ST) & 1);
+      __syncwarp();
+      const bf16* Wt = Ws + s * kDepth * kTCols;
+      const bf16* Xt = Xs + s * kTRows * kDepth;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n8_ta(acc, desc_mn(Wt, 64, 0, kk), desc_k(Xt, kTRows, 0, kk), kt | kk);
+      wgmma_commit();
+      wgmma_wait<0>();  // free the stage at once: ST - 1 stages stay in flight
+      release(s);
+    }
+    fence_regs(acc);
+    unsigned char* st = sm + L::out + (stores++ & 1) * kTRows * kTCols * 2;
+    if (tid == 0) bulk_wait_read<1>();  // the store that last used st has read it
+    named_sync(1, 128);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // element i: column f_lo + 8 (i / 2) of F, row 2 tq + i % 2 of C
+      *reinterpret_cast<bf16*>(st + sw128(2 * tq + (i & 1), f_lo + 8 * (i >> 1))) =
+          __float2bfloat16(acc[i]);
+    fence_async_shared();
+    named_sync(1, 128);
+    if (tid == 0) {
+      tma_store_3d(&to, st, f0, c0, e);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait<0>();
+}
+
+}  // namespace tc
+
+namespace {
+
+enum Route { kWgmma = 0, kWgmmaT = 1, kFma = 2, kMasked = 3 };
+
+// What a launch plan states; the entry point compares it with its own.
+struct Plan {
+  int route, block_n, block_k, stages, threads, grid_x, grid_y, grid_z;
+  int64_t smem;
+  bool operator==(const Plan& o) const {
+    return route == o.route && block_n == o.block_n && block_k == o.block_k && stages == o.stages &&
+           threads == o.threads && grid_x == o.grid_x && grid_y == o.grid_y && grid_z == o.grid_z &&
+           smem == o.smem;
+  }
+};
+
+int persistent(int64_t work, int per_sm) {
+  const int64_t most = static_cast<int64_t>(hopper::kSMs) * per_sm;
+  return static_cast<int>(work < most ? work : most);
+}
+
+template <int BN>
+Plan wgmma_plan(int64_t tiles) {
+  using L = tc::WgSmem<BN>;
+  return {kWgmma, BN, tc::kDepth, L::ST, tc::kThreads, persistent(tiles, 1), 1, 1, L::bytes};
+}
+
+// The plan of a route for these sizes; block_n is the wgmma tile width.
+Plan own_plan(int route, int dtype, int E, int C, int D, int F, int block_n) {
+  const int64_t e = E;
+  switch (route) {
+    case kWgmma: {
+      const int64_t tiles = e * ((F + block_n - 1) / block_n) * ((C + tc::kRows - 1) / tc::kRows);
+      return block_n == 256 ? wgmma_plan<256>(tiles) : wgmma_plan<128>(tiles);
+    }
+    case kWgmmaT: {
+      const int64_t units = e * ((F + tc::kTCols - 1) / tc::kTCols) * ((C + tc::kTRows - 1) / tc::kTRows);
+      return {route, tc::kTCols, tc::kDepth, tc::TSmem::ST, tc::kTThreads,
+              persistent(units, tc::kTBlocksPerSM), 1, 1, tc::TSmem::bytes};
+    }
+    default: {
+      const bool fma = route == kFma;
+      const int64_t smem = dtype == 1 ? static_smem<__nv_bfloat16, false>()
+                           : fma     ? static_smem<float, true>()
+                                     : static_smem<float, false>();
+      return {route, BN, BK, fma ? kFmaStages : 1, kThreads,
+              static_cast<int>((F + BN - 1) / BN), static_cast<int>((C + BM - 1) / BM), E, smem};
+    }
+  }
+}
+
+template <typename T, bool kAsync>
+cudaError_t launch_cuda_cores(const void* buf, const void* w, void* out, int C, int D, int F,
+                              const Plan& p, cudaStream_t stream) {
   constexpr int N = Vec<T>::N;
   const bool vec_a = D % N == 0 && reinterpret_cast<uintptr_t>(buf) % 16 == 0;
   const bool vec_w = F % N == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const dim3 grid((F + BN - 1) / BN, (C + BM - 1) / BM, E);
+  const dim3 grid(p.grid_x, p.grid_y, p.grid_z);
   const T* bp = static_cast<const T*>(buf);
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
-  if (vec_a && vec_w)
-    moe_matmul_kernel<T, true><<<grid, kThreads, 0, stream>>>(bp, wp, op, C, D, F, true, true);
-  else
-    moe_matmul_kernel<T, false><<<grid, kThreads, 0, stream>>>(bp, wp, op, C, D, F, vec_a, vec_w);
+  moe_matmul_kernel<T, kAsync><<<grid, kThreads, 0, stream>>>(bp, wp, op, C, D, F, vec_a, vec_w);
   return cudaGetLastError();
+}
+
+// A TMA route: encode the 3-D tensor maps (buf: boxes of a_rows rows of C
+// by 64 of D; w: 64 of D by 64 of F; out: o_rows of C by 64 of F), then
+// launch it as a dependent launch.  The kernel's shared-memory attributes
+// are set on its first launch on each device (they stay with the
+// function; the plan check has fixed p.smem to the kernel's own size).
+template <auto kKernel>
+cudaError_t launch_tma(int a_rows, int o_rows, const void* buf, const void* w, void* out, int E,
+                       int C, int D, int F, const Plan& p, cudaStream_t stream) {
+  static std::atomic<uint64_t> configured{0};  // one bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(configured.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(p.smem));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kKernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    configured.fetch_or(bit, std::memory_order_release);
+  }
+  CUtensorMap ta, tw, to;
+  if (!hopper::map_bf16_3d(&ta, buf, D, C, E, a_rows) || !hopper::map_bf16_3d(&tw, w, F, D, E, 64) ||
+      !hopper::map_bf16_3d(&to, out, F, C, E, o_rows))
+    return cudaErrorInvalidValue;
+  err = hopper::launch_dependent(kKernel, dim3(p.grid_x), dim3(p.threads), p.smem, stream, ta, tw, to,
+                                 E, C, D, F);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  buf [E, C, D], w [E, D, F] and out
-// [E, C, F] are contiguous, of one dtype.  Returns cudaGetLastError()
+// [E, C, F] are contiguous, of one dtype.  plan holds the launch plan of
+// kernels/moe_matmul.py as nine integers: route (0 wgmma, 1 wgmma_t, 2 fma,
+// 3 masked), block_n, block_k, stages, threads, grid x, y, z and shared
+// memory bytes; a plan whose route is not the one these sizes and
+// alignments call for, or whose other fields are not that route's, is
+// refused with cudaErrorInvalidConfiguration.  Returns cudaGetLastError()
 // after the launch.
-extern "C" int moe_matmul_fwd(int dtype, const void* buf, const void* w, void* out, int64_t E,
-                              int64_t C, int64_t D, int64_t F, void* stream) {
+extern "C" int moe_matmul_fwd(int dtype, const int64_t* plan_in, const void* buf, const void* w,
+                              void* out, int64_t E, int64_t C, int64_t D, int64_t F, void* stream) {
   if (E <= 0 || C <= 0 || F <= 0 || D < 0 || E > 65535 || (C + BM - 1) / BM > 65535 ||
-      C > 0x7fffffff || D > 0x7fffffff || F > 0x7fffffff)
+      C > 0x7fffffff || D > 0x7fffffff || F > 0x7fffffff || (dtype != 0 && dtype != 1) ||
+      E * ((C + 7) / 8) * ((F + 63) / 64) > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int e = static_cast<int>(E), c = static_cast<int>(C), d = static_cast<int>(D),
             f = static_cast<int>(F);
-  switch (dtype) {
-    case 0: return static_cast<int>(launch<float>(buf, w, out, e, c, d, f, s));
-    case 1: return static_cast<int>(launch<__nv_bfloat16>(buf, w, out, e, c, d, f, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = (reinterpret_cast<uintptr_t>(buf) | reinterpret_cast<uintptr_t>(w) |
+                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  int want;
+  if (dtype == 1)
+    want = aligned && d > 0 && d % 8 == 0 && f % 8 == 0 ? (c <= 32 ? kWgmmaT : kWgmma) : kMasked;
+  else
+    want = aligned && d % 4 == 0 && f % 4 == 0 ? kFma : kMasked;
+  const int bn = d > f ? 256 : 128;  // the wgmma tile width: 256 for gate/up (D > F), 128 for down
+  const Plan given{static_cast<int>(plan_in[0]), static_cast<int>(plan_in[1]),
+                   static_cast<int>(plan_in[2]), static_cast<int>(plan_in[3]),
+                   static_cast<int>(plan_in[4]), static_cast<int>(plan_in[5]),
+                   static_cast<int>(plan_in[6]), static_cast<int>(plan_in[7]), plan_in[8]};
+  const Plan plan = own_plan(want, dtype, e, c, d, f, bn);
+  if (!(given == plan)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (want) {
+    case kWgmma:
+      err = bn == 256
+                ? launch_tma<tc::moe_matmul_wgmma<256>>(tc::kRows, 64, buf, w, out, e, c, d, f, plan, s)
+                : launch_tma<tc::moe_matmul_wgmma<128>>(tc::kRows, 64, buf, w, out, e, c, d, f, plan, s);
+      break;
+    case kWgmmaT:
+      err = launch_tma<tc::moe_matmul_wgmma_t>(tc::kTRows, tc::kTRows, buf, w, out, e, c, d, f, plan, s);
+      break;
+    default:
+      err = dtype == 1      ? launch_cuda_cores<__nv_bfloat16, false>(buf, w, out, c, d, f, plan, s)
+            : want == kFma ? launch_cuda_cores<float, true>(buf, w, out, c, d, f, plan, s)
+                           : launch_cuda_cores<float, false>(buf, w, out, c, d, f, plan, s);
   }
+  return static_cast<int>(err);
 }
 
 extern "C" const char* moe_matmul_error_string(int err) {

@@ -2,35 +2,137 @@
 
 ``moe_matmul`` launches the kernel on CUDA tensors and raises on anything
 it does not take; ``ops.moe_matmul_op`` is the entry point that also
-serves CPU tensors through the plain version.
+serves CPU tensors through the plain version.  ``launch_plan`` decides the
+route, tiles, grid and shared memory in Python, where the CPU tests reach
+it; the kernel refuses a plan that is not its own.  Routes:
+
+- ``"wgmma"``: bf16 with 16-byte aligned rows and C > 32 (prefill, score):
+  128 x 256 tiles where D > F (gate, up), else 128 x 128 (down), on wgmma
+  fed by TMA, one persistent block per SM walking the tiles C-tile fastest;
+- ``"wgmma_t"``: the same with C <= 32 (decode): the transposed product on
+  wgmma, 64 columns of F by 8 rows of C per unit, up to three persistent
+  blocks per SM streaming the weights;
+- ``"fma"``: f32 with 16-byte aligned rows, CUDA-core FMAs on 64 x 64 tiles;
+- ``"masked"``: rows that are not 16-byte aligned, either dtype.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("wgmma", "wgmma_t", "fma", "masked")  # index = the C entry point's route id
+SMALL_C = 32  # bf16 capacities up to this take the transposed route
 
 launches = 0  # kernel launches since the last ops.reset_launch_counts()
+last_plan: Optional["LaunchPlan"] = None  # the plan of the last launch, for reports and tests
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one call is launched; ``csrc/moe_matmul.cu`` refuses any other."""
+
+    route: str  # one of ROUTES
+    block_m: int  # rows of C per output tile
+    block_n: int  # columns of F per output tile
+    block_k: int  # depth of D per shared-memory stage
+    stages: int  # stages in the ring (1: one tile at a time through registers)
+    threads: int
+    grid: Tuple[int, int, int]  # TMA routes: (persistent blocks, 1, 1); else (F tiles, C tiles, E)
+    smem_bytes: int  # per block: dynamic for the TMA routes, the static tiles for fma and masked
+    tiles: int  # output tiles (expert, C tile, F tile) of the call
+
+
+def _tma_plan(route: str, E: int, C: int, F: int, block_n: int) -> LaunchPlan:
+    """A TMA route's plan (``csrc/moe_matmul.cu`` ``WgSmem`` / ``TSmem``)."""
+    block_k = 64  # one 128-byte swizzled row of bf16
+    if route == "wgmma":
+        # as many stages of [128][64] buf and [64][block_n] w tiles as 192 KB
+        # hold; two 64 x 64 bf16 staging tiles per consumer warpgroup; barriers
+        bm, threads = 128, 3 * 128
+        stages = 192 * 1024 // (2 * block_k * (bm + block_n))
+        smem = 1024 + stages * 2 * block_k * (bm + block_n) + 2 * 2 * 64 * 64 * 2 + 16 * stages
+        grid = min(E * _cdiv(C, bm) * _cdiv(F, block_n), _build.NUM_SMS)  # a persistent block per SM
+    else:  # wgmma_t: a ring of [64][64] w and [8][64] buf tiles, two [8][64] staging tiles
+        bm, block_n, stages, threads = 8, 64, 7, 128 + 32
+        smem = 1024 + stages * 2 * 64 * (block_n + bm) + 2 * bm * block_n * 2 + 16 * stages
+        grid = min(E * _cdiv(C, bm) * _cdiv(F, block_n), 3 * _build.NUM_SMS)  # three blocks per SM
+    tiles = E * _cdiv(C, bm) * _cdiv(F, block_n)
+    return LaunchPlan(route, bm, block_n, block_k, stages, threads, (grid, 1, 1), smem, tiles)
+
+
+@functools.lru_cache(maxsize=None)  # every call of the model path asks again
+def launch_plan(E: int, C: int, D: int, F: int, dtype: torch.dtype,
+                aligned: bool = True) -> LaunchPlan:
+    """The launch plan for buf [E, C, D] x w [E, D, F] (no CUDA needed);
+    ValueError past the kernel's grid limits.
+
+    ``aligned``: buf, w and out start 16-byte aligned (contiguous tensors
+    from PyTorch's allocator do).  bf16 goes to the TMA routes where every
+    row is 16-byte aligned, since TMA needs 16-byte strides.
+    """
+    if (E > 65535 or _cdiv(C, 64) > 65535 or max(C, D, F) >= 2**31
+            or E * _cdiv(C, 8) * _cdiv(F, 64) >= 2**31):
+        raise ValueError(f"grid limit: E={E}, C={C}, D={D}, F={F}")
+    if dtype == torch.bfloat16 and aligned and D > 0 and D % 8 == 0 and F % 8 == 0:
+        if C <= SMALL_C:
+            return _tma_plan("wgmma_t", E, C, F, 64)
+        # Where buf's rows are longer than w's (D > F: gate and up), 256-column
+        # tiles halve how often each buf tile is read; otherwise (down) the
+        # weights dominate, and 128-column tiles spread more, finer tiles.
+        return _tma_plan("wgmma", E, C, F, 256 if D > F else 128)
+    fma = dtype == torch.float32 and aligned and D % 4 == 0 and F % 4 == 0
+    elem = 4 if dtype == torch.float32 else 2
+    pad = 16 // elem  # [64][32 + pad] buf and [32][64 + pad] w tiles, rows padded by 16 bytes
+    stages = 2 if fma else 1
+    smem = stages * (64 * (32 + pad) + 32 * (64 + pad)) * elem
+    return LaunchPlan("fma" if fma else "masked", 64, 64, 32, stages, 128,
+                      (_cdiv(F, 64), _cdiv(C, 64), E), smem, E * _cdiv(C, 64) * _cdiv(F, 64))
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("moe_matmul").moe_matmul_fwd
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [ctypes.c_int, p, p, p, i64, i64, i64, i64, p]
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(i64), p, p, p, i64, i64, i64, i64, p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _plan_args(plan: LaunchPlan):
+    """``plan`` as the C entry point reads it: route id, block_n, block_k, stages,
+    threads, grid x, y, z, shared-memory bytes; built once per plan."""
+    return (ctypes.c_int64 * 9)(ROUTES.index(plan.route), plan.block_n, plan.block_k, plan.stages,
+                                plan.threads, *plan.grid, plan.smem_bytes)
+
+
+def _launch(entry, plan: LaunchPlan, buf: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> int:
+    """Call a ``moe_matmul_fwd`` entry point with ``plan``; returns its CUDA error code."""
+    E, C, D = buf.shape
+    return entry(DTYPES[buf.dtype], _plan_args(plan), buf.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 E, C, D, w.shape[2], torch._C._cuda_getCurrentRawStream(buf.device.index))
+
+
 def moe_matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """buf [E, C, D] x w [E, D, F] -> [E, C, F] in buf.dtype (f32 or bf16), contiguous, on CUDA."""
-    global launches
+    """buf [E, C, D] x w [E, D, F] -> [E, C, F] in buf.dtype (f32 or bf16), contiguous, on CUDA.
+
+    The host work of a call is kept small, as the decode step makes 96 of
+    them: the plan and its C arguments are built once per shape, and the
+    stream is read raw (``torch.cuda.current_stream()`` builds an object).
+    """
+    global launches, last_plan
     if buf.dim() != 3 or w.dim() != 3:
         raise ValueError(f"moe_matmul takes buf [E,C,D] and w [E,D,F], got "
                          f"{tuple(buf.shape)} and {tuple(w.shape)}")
@@ -40,19 +142,19 @@ def moe_matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"w must be [{E}, {D}, F], got {tuple(w.shape)}")
     if buf.dtype not in DTYPES or w.dtype != buf.dtype:
         raise TypeError(f"moe_matmul takes one of {list(DTYPES)}: {buf.dtype}/{w.dtype}")
-    if E > 65535 or (C + 63) // 64 > 65535 or max(C, D, F) >= 2**31:
-        raise ValueError(f"grid limit: E={E}, C={C}, D={D}, F={F}")
-    if buf.device.type != "cuda" or w.device != buf.device:
+    if not buf.is_cuda or w.device != buf.device:
         raise ValueError(f"moe_matmul kernel needs CUDA tensors on one device, got {buf.device}")
     if buf.device.index != torch.cuda.current_device():
         raise ValueError(f"moe_matmul: {buf.device} is not the current CUDA device")
     if not buf.is_contiguous() or not w.is_contiguous():
         raise ValueError("moe_matmul takes contiguous buf and w")
+    # out comes from PyTorch's allocator, 512-byte aligned; the kernel checks all three
+    plan = launch_plan(E, C, D, F, buf.dtype, (buf.data_ptr() | w.data_ptr()) % 16 == 0)
     out = torch.empty((E, C, F), dtype=buf.dtype, device=buf.device)
     if out.numel() == 0:
         return out
-    err = _entry()(DTYPES[buf.dtype], buf.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F,
-                   torch.cuda.current_stream().cuda_stream)
+    err = _launch(_entry(), plan, buf, w, out)
     launches += 1
+    last_plan = plan
     _build.check("moe_matmul", err)
     return out

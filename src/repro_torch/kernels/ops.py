@@ -89,7 +89,11 @@ def _no_backward(name: str, *tensors: torch.Tensor) -> None:
 
 
 def moe_matmul_op(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Per-expert product buf [E,C,D] x w [E,D,F] -> [E,C,F] in buf.dtype."""
+    """Per-expert product buf [E,C,D] x w [E,D,F] -> [E,C,F] in buf.dtype.
+
+    On CUDA the route is ``moe_matmul.launch_plan``'s: bf16 on wgmma fed by
+    TMA (transposed at decode's small capacities), f32 on CUDA-core FMAs.
+    """
     if buf.device.type == "cpu":
         return ref.moe_matmul_ref(buf, w)
     _no_backward("moe_matmul", buf, w)

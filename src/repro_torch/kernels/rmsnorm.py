@@ -25,7 +25,6 @@ launches = 0  # forward
 bwd_launches = 0
 dweight_launches = 0
 
-NUM_SMS = 132  # an H100 SXM
 BWD_MAX_DIM = 2048  # the row lives in registers, 64 elements a lane
 
 
@@ -47,7 +46,7 @@ class BwdPlan:
 def bwd_plan(T: int, D: int, dtype: torch.dtype = torch.bfloat16, dweight: bool = True) -> BwdPlan:
     """A persistent grid: at most one block per SM, whatever T."""
     warps = bwd_warps(D, dtype)
-    blocks = max(1, min(NUM_SMS, -(-T // warps)))
+    blocks = max(1, min(_build.NUM_SMS, -(-T // warps)))
     rows_per_block = max(1, -(-T // blocks))
     return BwdPlan(rows_per_block, -(-T // rows_per_block), 4 * warps * D if dweight else 0,
                    32 * warps)

@@ -22,7 +22,6 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)  # mamba2-130m's 64 and its reduced config's 32
-NUM_SMS = 132  # H100 SXM
 BLOCK_Q = 64  # rows q per y block and columns j per C·Bᵀ tile
 
 launches = 0  # kernel launches since the last ops.reset_launch_counts()
@@ -66,7 +65,7 @@ def launch_plan(BNC: int, H: int, Q: int, hd: int, N: int, dtype: torch.dtype) -
         smem = max(4 * (2 * 32 * 68 + 64 * 65 + 64 * 68 + 64 * (hd + 4) + 2 * 64),
                    4 * (64 * hd + 64 * 64))
     g = min(max_heads, H)
-    while g > 1 and BNC * row_tiles * -(-H // g) < per_sm * NUM_SMS:
+    while g > 1 and BNC * row_tiles * -(-H // g) < per_sm * _build.NUM_SMS:
         g //= 2
     y_blocks = row_tiles * -(-H // g)
     state_blocks = H * -(-N // block_ns)

@@ -17,11 +17,14 @@ runs where only PyTorch is installed:
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import moe_matmul as moe_mod
 from repro_torch.kernels import ops, ref
@@ -233,7 +236,11 @@ def test_flash_kernel_rejects_head_dim_32(cuda):
 
 @pytest.mark.parametrize("E,C,D,F", [
     (40, 8, 1536, 512), (40, 128, 512, 1536), (4, 24, 256, 128),  # granite decode/prefill, reduced
+    (40, 384, 1536, 512), (40, 384, 512, 1536),  # granite score
     (3, 70, 100, 36), (5, 130, 200, 72), (2, 1, 8, 8), (1, 3, 7, 5),  # ragged edges, odd widths
+    # partial C, F and D tiles of the TMA routes (D, F multiples of 8), and one expert
+    (3, 130, 264, 200), (2, 200, 136, 520), (2, 1000, 72, 96), (1, 384, 512, 256), (1, 8, 64, 8),
+    (3, 40, 1536, 512), (2, 32, 520, 136),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_matmul_kernel(cuda, E, C, D, F, dtype):
@@ -244,7 +251,37 @@ def test_moe_matmul_kernel(cuda, E, C, D, F, dtype):
     got = ops.moe_matmul_op(buf, w)
     torch.cuda.synchronize()
     assert ops.launch_counts()["moe_matmul"] == before + 1
+    assert moe_mod.last_plan == moe_mod.launch_plan(E, C, D, F, dtype)
     assert got.dtype == dtype and got.shape == (E, C, F)
+    close(got, ref.moe_matmul_ref(buf, w), 2e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert torch.equal(ops.moe_matmul_op(buf, w), got)  # one summation order: bit-identical
+
+
+def test_moe_matmul_kernel_refuses_a_plan_not_its_own(cuda):
+    buf = torch.zeros(2, 128, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(2, 64, 256, device=cuda, dtype=torch.bfloat16)
+    out = torch.empty(2, 128, 256, device=cuda, dtype=torch.bfloat16)
+    plan = moe_mod.launch_plan(2, 128, 64, 256, torch.bfloat16)
+    assert moe_mod._launch(moe_mod._entry(), plan, buf, w, out) == 0
+    assert torch.equal(out, buf @ w)
+    for bad in (dataclasses.replace(plan, route="masked"), dataclasses.replace(plan, block_n=64),
+                dataclasses.replace(plan, stages=plan.stages + 1),
+                dataclasses.replace(plan, grid=(plan.grid[0] + 1, 1, 1)),
+                dataclasses.replace(plan, smem_bytes=plan.smem_bytes - 1024),
+                moe_mod._tma_plan("wgmma", 2, 128, 256, 256)):  # the other tile width (D < F: 128)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.check("moe_matmul", moe_mod._launch(moe_mod._entry(), bad, buf, w, out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_matmul_kernel_takes_unaligned_bases(cuda, dtype):
+    """Bases off 16 bytes (TMA cannot read them) take the masked route."""
+    rng = np.random.default_rng(7)
+    buf = tensor(rng, (3 * 40 * 64 + 1,), dtype, cuda)[1:].view(3, 40, 64)
+    w = tensor(rng, (3 * 64 * 72 + 1,), dtype, cuda, 0.1)[1:].view(3, 64, 72)
+    got = ops.moe_matmul_op(buf, w)
+    assert moe_mod.last_plan == moe_mod.launch_plan(3, 40, 64, 72, dtype, aligned=False)
+    assert moe_mod.last_plan.route == "masked"
     close(got, ref.moe_matmul_ref(buf, w), 2e-2 if dtype == torch.bfloat16 else 1e-4)
 
 

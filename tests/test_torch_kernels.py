@@ -8,6 +8,7 @@ for RMSNorm and 2e-2 for bf16, where one rounding step of a value near 1
 is 2**-8.
 """
 
+import collections
 import math
 
 import jax
@@ -309,20 +310,20 @@ def test_rmsnorm_backward_launch_plan(T, D):
         plan = rmsnorm_mod.bwd_plan(T, D, dtype)
         warps = plan.threads // 32
         assert warps == (16 if D * (4 if dtype == torch.float32 else 2) <= 2048 else 8)
-        assert plan.blocks <= rmsnorm_mod.NUM_SMS and plan.blocks <= T
+        assert plan.blocks <= _build.NUM_SMS and plan.blocks <= T
         assert (plan.blocks - 1) * plan.rows_per_block < T <= plan.blocks * plan.rows_per_block
         assert plan.smem_bytes == 4 * warps * D <= _build.MAX_SMEM_BYTES
         assert rmsnorm_mod.bwd_plan(T, D, dtype, dweight=False).smem_bytes == 0
-        if T >= rmsnorm_mod.NUM_SMS * warps:
-            assert plan.blocks > rmsnorm_mod.NUM_SMS // 2  # the card stays full
+        if T >= _build.NUM_SMS * warps:
+            assert plan.blocks > _build.NUM_SMS // 2  # the card stays full
 
 
 @pytest.mark.parametrize("T", [132 * 16, 2560, 10_000, 1_000_000])
 def test_rmsnorm_backward_grid_stops_at_the_sm_count(T):
     """A persistent grid: past one block per SM, more rows lengthen each block's walk."""
     plan = rmsnorm_mod.bwd_plan(T, 960)
-    assert rmsnorm_mod.NUM_SMS - plan.rows_per_block <= plan.blocks <= rmsnorm_mod.NUM_SMS
-    assert rmsnorm_mod.bwd_plan(4 * T, 960).blocks <= rmsnorm_mod.NUM_SMS
+    assert _build.NUM_SMS - plan.rows_per_block <= plan.blocks <= _build.NUM_SMS
+    assert rmsnorm_mod.bwd_plan(4 * T, 960).blocks <= _build.NUM_SMS
     assert rmsnorm_mod.bwd_plan(4 * T, 960).rows_per_block >= 4 * plan.rows_per_block - 3
 
 
@@ -375,7 +376,85 @@ def test_ssd_launch_plan_groups_heads_while_the_card_stays_full(dtype):
     for BNC, Q in ((4, 128), (8, 160), (16, 256)):  # mamba2 prefill, score, 4 x 1024
         plan = ssd_mod.launch_plan(BNC, 24, Q, 64, 128, dtype)
         if plan.heads_per_block > 1:
-            assert BNC * plan.y_blocks >= per_sm * ssd_mod.NUM_SMS
+            assert BNC * plan.y_blocks >= per_sm * _build.NUM_SMS
     assert ssd_mod.launch_plan(8, 24, 160, 64, 128, dtype).heads_per_block > 1  # score
     # H = 7 on 70 chunks: a group count that does not divide the heads
     assert 7 % ssd_mod.launch_plan(70, 7, 100, 64, 128, dtype).heads_per_block
+
+
+# (E, C, D, F, dtype, route): granite-moe-3b-a800m's six bf16 products (decode C = 8, prefill
+# C = 128, score C = 384; gate/up D 1536 -> F 512, down 512 -> 1536), a longer capacity, f32,
+# the card tests' partial tiles, and rows that TMA cannot read (D or F not a multiple of 8)
+MOE_PLAN_CASES = [
+    (40, 8, 1536, 512, torch.bfloat16, "wgmma_t"), (40, 8, 512, 1536, torch.bfloat16, "wgmma_t"),
+    (40, 128, 1536, 512, torch.bfloat16, "wgmma"), (40, 128, 512, 1536, torch.bfloat16, "wgmma"),
+    (40, 384, 1536, 512, torch.bfloat16, "wgmma"), (40, 384, 512, 1536, torch.bfloat16, "wgmma"),
+    (40, 1024, 1536, 512, torch.bfloat16, "wgmma"), (4, 24, 256, 128, torch.bfloat16, "wgmma_t"),
+    (3, 130, 264, 200, torch.bfloat16, "wgmma"), (2, 200, 136, 520, torch.bfloat16, "wgmma"),
+    (2, 1000, 72, 96, torch.bfloat16, "wgmma"), (1, 384, 512, 256, torch.bfloat16, "wgmma"),
+    (2, 32, 520, 136, torch.bfloat16, "wgmma_t"), (3, 40, 1536, 512, torch.bfloat16, "wgmma"),
+    (2, 1, 8, 8, torch.bfloat16, "wgmma_t"), (1, 8, 64, 8, torch.bfloat16, "wgmma_t"),
+    (40, 384, 1536, 512, torch.float32, "fma"), (40, 8, 1536, 512, torch.float32, "fma"),
+    (5, 130, 200, 72, torch.float32, "fma"), (3, 70, 100, 36, torch.float32, "fma"),
+    (3, 70, 100, 36, torch.bfloat16, "masked"), (1, 3, 7, 5, torch.bfloat16, "masked"),
+    (1, 3, 7, 5, torch.float32, "masked"), (2, 16, 0, 64, torch.bfloat16, "masked"),
+]
+
+
+def moe_block_tiles(plan, E, C, F, block):
+    """The (expert, C tile, F tile) tiles one block of ``plan``'s grid computes, in order,
+    as ``csrc/moe_matmul.cu`` walks them: the TMA routes' persistent block b takes tiles
+    b, b + G, ... of the order (expert, F tile, C tile), C tile fastest; the other routes'
+    block (x, y, z) computes F tile x, C tile y of expert z."""
+    c_tiles, f_tiles = -(-C // plan.block_m), -(-F // plan.block_n)
+    if plan.route in ("wgmma", "wgmma_t"):
+        return [(t // (c_tiles * f_tiles), t % c_tiles, t // c_tiles % f_tiles)
+                for t in range(block, plan.tiles, plan.grid[0])]
+    gx, gy, _ = plan.grid
+    return [(block // (gx * gy), block // gx % gy, block % gx)]
+
+
+@pytest.mark.parametrize("E,C,D,F,dtype,route", MOE_PLAN_CASES)
+def test_moe_launch_plan(E, C, D, F, dtype, route):
+    plan = moe_mod.launch_plan(E, C, D, F, dtype)
+    assert plan.route == route
+    assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
+    tiles = E * -(-C // plan.block_m) * -(-F // plan.block_n)
+    assert plan.tiles == tiles
+    # every (expert, C tile, F tile) is computed by exactly one block
+    walk = collections.Counter(t for b in range(math.prod(plan.grid))
+                               for t in moe_block_tiles(plan, E, C, F, b))
+    assert len(walk) == tiles and set(walk.values()) == {1}
+    if route == "wgmma":  # 128 rows of C on two consumer warpgroups, a producer warpgroup
+        assert (plan.block_m, plan.block_k, plan.threads) == (128, 64, 384)
+        assert plan.block_n == (256 if D > F else 128)  # buf re-read half as often for gate/up
+        assert plan.stages == (4 if plan.block_n == 256 else 6)
+        # the ring, two 64 x 64 bf16 staging tiles per consumer warpgroup, barriers, alignment slack
+        assert plan.smem_bytes == (1024 + plan.stages * 2 * 64 * (128 + plan.block_n)
+                                   + 2 * 2 * 64 * 64 * 2 + 16 * plan.stages)
+        assert plan.grid == (min(tiles, _build.NUM_SMS), 1, 1)  # persistent: a block per SM
+    elif route == "wgmma_t":  # 64 columns of F by 8 rows of C; three blocks per SM
+        assert (plan.block_m, plan.block_n, plan.block_k, plan.threads) == (8, 64, 64, 160)
+        assert 3 * (plan.smem_bytes + 1024) <= 228 * 1024  # three fit an SM's shared memory
+        assert plan.grid == (min(tiles, 3 * _build.NUM_SMS), 1, 1)
+    else:  # CUDA cores: one block per 64 x 64 tile, static shared memory
+        assert plan.grid == (-(-F // 64), -(-C // 64), E) and plan.threads == 128
+        assert plan.stages == (2 if route == "fma" else 1)
+
+
+def test_moe_launch_plan_sends_unaligned_bases_to_the_masked_route():
+    for dtype in (torch.bfloat16, torch.float32):
+        assert moe_mod.launch_plan(40, 384, 1536, 512, dtype, aligned=False).route == "masked"
+
+
+def test_moe_decode_plan_spreads_the_weights_over_the_card():
+    """C = 8: a stream over the weights.  Every block is resident at once (no
+    second wave), every SM holds at least two, and no block streams more than
+    one unit more than another; the wide 128-column tiles of the prefill
+    route would give gate/up 160 blocks, 1.2 waves."""
+    for D, F in ((1536, 512), (512, 1536)):  # gate/up, down
+        plan = moe_mod.launch_plan(40, 8, D, F, torch.bfloat16)
+        blocks = plan.grid[0]
+        assert 2 * _build.NUM_SMS <= blocks <= 3 * _build.NUM_SMS
+        units = [len(moe_block_tiles(plan, 40, 8, F, b)) for b in range(blocks)]
+        assert max(units) - min(units) <= 1 and sum(units) == plan.tiles

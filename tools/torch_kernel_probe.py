@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Probes of the port's flash and SSD kernels on one NVIDIA card.
+"""Probes of the port's kernels on one NVIDIA card.
 
     python3 tools/torch_kernel_probe.py time        # flash and ssd_intra_chunk vs plain and library
+    python3 tools/torch_kernel_probe.py moe [--tree DIR]  # moe_matmul at granite's six shapes vs bmm
+    python3 tools/torch_kernel_probe.py moe-parts   # moe_matmul with parts of its work taken out
     python3 tools/torch_kernel_probe.py bwd [--tree DIR]  # the backward pairs vs the library gradients
     python3 tools/torch_kernel_probe.py bwd-parts   # the bf16 flash backward with parts taken out
     python3 tools/torch_kernel_probe.py ssd-roles   # ssd_intra_chunk's y and state blocks alone
@@ -14,6 +16,24 @@ at ``chip_smoke.py`` phase 5's timed shapes: each kernel, each pair, and
 the gradient of ``sdpa`` / ``F.rms_norm`` on the same inputs; with
 ``--tree DIR`` it imports ``repro_torch`` from the checkout DIR instead
 (built into DIR's own ``build/``), so that one call can time two trees.
+``moe`` checks ``moe_matmul`` against its plain version and times it
+beside ``torch.bmm`` and its bound at granite-moe-3b-a800m's six bf16
+shapes (gate/up and down at decode C = 8, prefill C = 128 and score
+C = 384), calls it twice for bit-identical output; each time is the
+median of three taken in turns with the others.  It also times the host:
+microseconds per ``ops.moe_matmul_op`` call (and per ``torch.bmm``) while
+200 calls queue behind a device sleep, so the host never waits for the
+card, and per call of 1,000 back-to-back calls with one synchronisation
+at the end, and where the tree's module has the parts, what a call's
+pieces take alone.  ``--tree`` as for ``bwd`` (a tree whose module reports no
+launch plan prints none).
+``moe-parts`` builds variants of ``csrc/moe_matmul.cu`` into
+``build/probe`` whose TMA routes leave out their products, their epilogue
+(staging and stores), or the dependent launch, or whose ``wgmma`` route
+takes the other tile width (128 columns for gate/up, 256 for down; its
+output must equal the kernel's bit for bit), and times each beside the
+whole kernel at the same six shapes, in turns; the variants' outputs are
+wrong by design except the last two's.
 ``bwd-parts`` builds variants of ``csrc/flash_attention.cu`` into
 ``build/probe`` whose bf16 backward kernels leave out one part of their
 work (the exp2, the register-A products dQ/dV/dK while keeping the P and
@@ -34,9 +54,11 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import io
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,7 +68,8 @@ sys.path[:0] = [str(TREE / "src"), str(ROOT)]
 import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    GRAD_TOL, cuda_ms, flash_bound, flash_bwd_bounds, grad_err, rmsnorm_bwd_bounds, ssd_bound)
+    BF16_TOL, GRAD_TOL, assert_close, cuda_ms, flash_bound, flash_bwd_bounds, grad_err, moe_bound,
+    rmsnorm_bwd_bounds, ssd_bound)
 from repro_torch.kernels import _build, ops, ref, ssd_scan  # noqa: E402
 
 H, HD, N = 24, 64, 128  # mamba2-130m
@@ -142,6 +165,153 @@ def time_backward(gen):
         print(f"[bwd] rmsnorm [{T}, {D}] {str(dt)[6:]}: dx {ms_dx:.4f} dweight {ms_dw:.4f} pair "
               f"{ms_pair:.4f} ms, F.rms_norm grad x,w {lib:.4f} ms, bound {bound[0]:.4f} ms; rel err "
               + ", ".join(f"{r:.2e}" for _, r in errs))
+
+
+MOE_SHAPES = [  # (E, C, D, F, what): granite-moe-3b-a800m's expert products
+    (40, 8, 1536, 512, "decode gate/up"), (40, 8, 512, 1536, "decode down"),
+    (40, 128, 1536, 512, "prefill gate/up"), (40, 128, 512, 1536, "prefill down"),
+    (40, 384, 1536, 512, "score gate/up"), (40, 384, 512, 1536, "score down"),
+]
+
+
+def host_us(fn, n=200, rounds=5):
+    """Median host microseconds per call, the calls queued behind a device sleep."""
+    fn()
+    res = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)  # clock cycles: longer than the n calls take to enqueue
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        res.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return sorted(res)[len(res) // 2]
+
+
+def back_to_back_us(fn, n=1000):
+    """Wall microseconds per call of n calls in a row, one synchronisation at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def time_moe(gen, rounds=3):
+    from repro_torch.kernels import moe_matmul as mk
+
+    dev = gen.device
+    print(f"[moe] repro_torch from {Path(mk.__file__).resolve().parents[2]}")
+    for E, C, D, F, what in MOE_SHAPES:
+        buf = torch.randn(E, C, D, generator=gen, device=dev).bfloat16()
+        w = (torch.randn(E, D, F, generator=gen, device=dev) * 0.05).bfloat16()
+        got = ops.moe_matmul_op(buf, w)
+        err = assert_close(f"moe_matmul {E},{C},{D},{F}", got, ref.moe_matmul_ref(buf, w), BF16_TOL)
+        if not torch.equal(ops.moe_matmul_op(buf, w), got):
+            raise AssertionError(f"moe_matmul {E},{C},{D},{F}: two calls differ")
+        plan = getattr(mk, "last_plan", None)  # the plan the calls above launched
+        calls = {"kernel": lambda: ops.moe_matmul_op(buf, w), "bmm": lambda: torch.bmm(buf, w)}
+        times = {k: [] for k in calls}
+        for _ in range(rounds):  # in turns, so that a slow spell of the card hits all alike
+            for k, fn in calls.items():
+                times[k].append(cuda_ms(fn))
+        ms = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        bnd = moe_bound(E, C, D, F, 2)[0]
+        print(f"[moe] E{E} C{C} D{D} F{F} {what}: kernel {ms['kernel']:.4f} ms bmm {ms['bmm']:.4f} ms "
+              f"bound {bnd:.4f} ms ({100 * bnd / ms['kernel']:.0f}% of bound), err {err:.2e}, "
+              f"bit-identical; medians of {rounds} in turns; {plan}")
+        print(f"[moe]   host us per call, queued behind a device sleep / 1000 back to back: "
+              f"moe_matmul_op {host_us(calls['kernel']):.2f} / {back_to_back_us(calls['kernel']):.2f}, "
+              f"bmm {host_us(calls['bmm']):.2f} / {back_to_back_us(calls['bmm']):.2f}")
+        if hasattr(mk, "_launch"):  # where the host time of one call goes
+            out, entry = torch.empty_like(got), mk._entry()
+            refused = dataclasses.replace(plan, stages=plan.stages + 1)  # returns at the plan check
+            parts = {"torch.empty": lambda: torch.empty((E, C, F), dtype=buf.dtype, device=dev),
+                     "torch.cuda.current_stream()": lambda: torch.cuda.current_stream().cuda_stream,
+                     "raw stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index or 0),
+                     "ctypes call refused at the plan check": lambda: mk._launch(entry, refused, buf, w, out),
+                     "ctypes call that launches": lambda: mk._launch(entry, plan, buf, w, out),
+                     "mk.moe_matmul": lambda: mk.moe_matmul(buf, w)}
+            print("[moe]   host us per call, queued: " + ", ".join(
+                f"{k} {host_us(fn):.2f}" for k, fn in parts.items()))
+        del buf, w, got
+
+
+def moe_parts(gen, rounds=3):
+    from repro_torch.kernels import moe_matmul as mk
+
+    src = (_build.CSRC / "moe_matmul.cu").read_text()
+    products = ["wgmma_ss_n256<1>(acc, da, db, kt | kk);", "wgmma_ss_n128<1>(acc, da, db, kt | kk);",
+                "wgmma_ss_n8_ta(acc, desc_mn(Wt, 64, 0, kk), desc_k(Xt, kTRows, 0, kk), kt | kk);"]
+    epilogues = [("    if (c0 + wg * 64 >= C) continue;", "    if (c0 + wg * 64 >= C || C > 0) continue;"),
+                 ("    unsigned char* st = sm + L::out + (stores++ & 1)",
+                  "    if (C > 0) continue;\n    unsigned char* st = sm + L::out + (stores++ & 1)")]
+    dependent = ("  err = hopper::launch_dependent(kKernel, dim3(p.grid_x), dim3(p.threads), p.smem, stream, ta, tw, to,\n"
+                 "                                 E, C, D, F);")
+    plain = "  kKernel<<<p.grid_x, p.threads, p.smem, stream>>>(ta, tw, to, E, C, D, F);\n  err = cudaSuccess;"
+    width = "  const int bn = d > f ? 256 : 128;"
+    if (any(src.count(x) != 1 for x in products) or any(src.count(a) != 1 for a, _ in epilogues)
+            or src.count(dependent) != 1 or src.count(width) != 1):
+        raise RuntimeError("moe_matmul.cu no longer has the parts this probe takes out")
+    no_products = src
+    for x in products:
+        no_products = no_products.replace(x, "{ if (C < 0) " + x + " }")  # kept, never run
+    no_epilogue = src
+    for a, b in epilogues:
+        no_epilogue = no_epilogue.replace(a, b)
+    variants = {"whole": src, "no products": no_products, "no epilogue": no_epilogue,
+                "no dependent launch": src.replace(dependent, plain),
+                "other tile width": src.replace(width, "  const int bn = d > f ? 128 : 256;")}
+    out_dir = ROOT / "build" / "probe" / "moe_parts"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "hopper.cuh").write_text((_build.CSRC / "hopper.cuh").read_text())
+    procs = {}
+    for i, (name, text) in enumerate(variants.items()):
+        cu, so = out_dir / f"moe_{i}.cu", out_dir / f"moe_{i}.so"
+        cu.write_text(text)
+        procs[name] = (so, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+    entries = {}
+    for name, (so, proc) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for the {name} variant: {proc.stderr.read().decode()}")
+        lib = ctypes.CDLL(str(so))
+        fn, err_fn = lib.moe_matmul_fwd, lib.moe_matmul_error_string
+        fn.argtypes, fn.restype = mk._entry().argtypes, ctypes.c_int
+        err_fn.argtypes, err_fn.restype = [ctypes.c_int], ctypes.c_char_p
+        entries[name] = (fn, err_fn)
+    dev = gen.device
+    for E, C, D, F, what in MOE_SHAPES:
+        buf = torch.randn(E, C, D, generator=gen, device=dev).bfloat16()
+        w = (torch.randn(E, D, F, generator=gen, device=dev) * 0.05).bfloat16()
+        out = torch.empty(E, C, F, dtype=buf.dtype, device=dev)
+        plan = mk.launch_plan(E, C, D, F, torch.bfloat16)
+        plans = dict.fromkeys(entries, plan)
+        if plan.route == "wgmma":
+            plans["other tile width"] = mk._tma_plan("wgmma", E, C, F, 384 - plan.block_n)
+        else:  # the variant differs only on the wgmma route
+            del plans["other tile width"]
+
+        def call(name, out=out):
+            fn, err_fn = entries[name]
+            err = mk._launch(fn, plans[name], buf, w, out)
+            if err:
+                raise RuntimeError(f"moe_matmul {name} variant launch failed: {err_fn(err).decode()}")
+        if plan.route == "wgmma":  # both widths sum each element in one order
+            other = torch.empty_like(out)
+            call("other tile width", other)
+            if not torch.equal(other, ops.moe_matmul_op(buf, w)):
+                raise AssertionError(f"moe_matmul E{E} C{C} D{D} F{F}: the other tile width differs")
+        times = {name: [] for name in plans}
+        for _ in range(rounds):
+            for name in plans:
+                times[name].append(cuda_ms(lambda name=name: call(name)))
+        print(f"[moe-parts] E{E} C{C} D{D} F{F} {what} ({plan.route}): " + ", ".join(
+            f"{name} {sorted(v)[len(v) // 2]:.4f} ms" for name, v in times.items()))
+        del buf, w, out
 
 
 def bwd_parts(gen):
@@ -280,8 +450,8 @@ def ssm_check(gen):
 
 
 def main() -> int:
-    modes = {"time": time_kernels, "bwd": time_backward, "bwd-parts": bwd_parts, "ssd-roles": ssd_roles,
-             "ssm-check": ssm_check}
+    modes = {"time": time_kernels, "moe": time_moe, "moe-parts": moe_parts, "bwd": time_backward,
+             "bwd-parts": bwd_parts, "ssd-roles": ssd_roles, "ssm-check": ssm_check}
     if len(sys.argv) not in (2, 4) or sys.argv[1] not in modes or (len(sys.argv) == 4 and sys.argv[2] != "--tree"):
         print(__doc__, file=sys.stderr)
         return 2
