@@ -44,7 +44,18 @@ Phases, each of which raises on failure (nothing is caught):
    sequences gain log-probability over the negative ones; and LM training
    through ``repro_torch.launch.train`` (``llama3.2-1b``, 4 x 256, three
    steps); one warm step of each profiled;
-7. agreement on a small input: the four reduced configs in f32 on the card
+7. the closed loop at full width, as ``examples/agentic_rl_e2e.py`` runs it:
+   three ``LiveGrpoDriver.run_step`` calls (``smollm-360m`` rolls out 4
+   prompts x group 4, 8 + 16 sampled tokens; each of the 16 sequences is one
+   ``llama3.2-1b`` judge action that Tangram schedules on its GPU pool, its
+   measured wall the action's duration; one GRPO step), each on a fresh
+   Tangram, with exact launch counts, all 16 actions finished and none
+   failed, finite losses, and the measured walls replayed as fixed
+   durations through a fresh Tangram that must decide the same (equal
+   launch traces); per step its loss, mean reward, mean ACT, EOE hits and
+   the rollout, reward and update walls; a fourth step, checked the same
+   way, under ``torch.profiler`` for the device busy share of a step;
+8. agreement on a small input: the four reduced configs in f32 on the card
    against the same weights on the CPU (plain versions), serving and, for
    ``smollm-360m``, one GRPO and one LM step's loss and gradients.
 
@@ -63,7 +74,9 @@ import math
 import subprocess
 import sys
 import time
+from contextlib import ExitStack, nullcontext
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 
@@ -112,6 +125,13 @@ SMALL_F32_TOL = 1e-3
 PROMPT, NEW = 128, 32  # generation: 4 requests x (128 prompt + 32 new tokens)
 SCORE_SHAPE = (8, 160)
 PROMPTS, GROUP, GRPO_STEPS = 4, 4, 3  # GRPO: 4 prompts x group 4, three steps
+# the closed loop, as examples/agentic_rl_e2e.py runs it: 4 prompts x group 4,
+# 8-token prompts, 16 new tokens (LiveGrpoDriver's GenerationConfig), three steps
+LOOP_PROMPTS, LOOP_GROUP, LOOP_PROMPT, LOOP_NEW, LOOP_STEPS = 4, 4, 8, 16, 3
+# its kernel shapes: the rollout's prefill [N, 8] and decode rows [N, 1]; each
+# judge action scores one whole sequence [1, 24]; old_logp and the GRPO step
+# run on the N whole sequences [N, 24]
+LOOP_N, LOOP_SEQ = LOOP_PROMPTS * LOOP_GROUP, LOOP_PROMPT + LOOP_NEW
 LM_ARGS = ["--arch", "llama3.2-1b", "--full", "--steps", "3", "--batch", "4", "--seq", "256"]
 
 
@@ -268,6 +288,19 @@ def wall_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def device_kernels(prof):
+    """{device operation name: [device microseconds, count]} of a finished torch.profiler trace."""
+    import torch
+
+    kernels = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name(), [0.0, 0])
+            k[0] += e.duration_ns() / 1e3
+            k[1] += 1
+    return kernels
+
+
 def profiled(label, fn, card, rows=10):
     """One warm call of fn under torch.profiler: its device busy share and top kernels.
 
@@ -283,12 +316,7 @@ def profiled(label, fn, card, rows=10):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, ms = wall_ms(fn)
     t1 = time.perf_counter()
-    kernels = {}  # name -> [device microseconds, count]
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(e.name(), [0.0, 0])
-            k[0] += e.duration_ns() / 1e3
-            k[1] += 1
+    kernels = device_kernels(prof)
     print(f"[time] profile {label}: {t1 - t0 - ms / 1e3:.1f}s to stop the trace, "
           f"{time.perf_counter() - t1:.1f}s to sum it")
     busy_ms = sum(us for us, _ in kernels.values()) / 1e3
@@ -333,6 +361,7 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -435,6 +464,10 @@ def main() -> int:
         (4, 960, torch.bfloat16, "smollm decode"),
         (8 * 160, 2048, torch.bfloat16, "llama score"),
         (8 * 160, 1536, torch.bfloat16, "granite score, mamba2 out_norm prefill"),
+        (LOOP_N, 960, torch.bfloat16, "closed loop decode"),
+        (LOOP_N * LOOP_PROMPT, 960, torch.bfloat16, "closed loop prefill"),
+        (LOOP_SEQ, 2048, torch.bfloat16, "closed loop judge"),
+        (LOOP_N * LOOP_SEQ, 960, torch.bfloat16, "closed loop old_logp, GRPO"),
         (1000, 2048, torch.bfloat16, ""),
         (1000, 960, torch.bfloat16, ""),
         (1000, 2048, torch.float32, ""),
@@ -458,6 +491,9 @@ def main() -> int:
         (4, 15, 5, 128, 64, True, torch.bfloat16, "smollm prefill"),
         (8, 32, 8, 160, 64, True, torch.bfloat16, "llama score"),
         (8, 24, 8, 160, 64, True, torch.bfloat16, "granite score"),
+        (LOOP_N, 15, 5, LOOP_PROMPT, 64, True, torch.bfloat16, "closed loop prefill"),
+        (1, 32, 8, LOOP_SEQ, 64, True, torch.bfloat16, "closed loop judge"),
+        (LOOP_N, 15, 5, LOOP_SEQ, 64, True, torch.bfloat16, "closed loop old_logp, GRPO"),
     ]
     for S in (160, 1024, 2048):
         for H, KV in ((32, 8), (15, 5)):
@@ -733,6 +769,7 @@ def main() -> int:
     bwd_rows = {}
     flash_bwd_cases = [  # (B, H, KV, S, d, causal, dtype, what)
         (16, 15, 5, 160, 64, True, torch.bfloat16, "smollm GRPO"),
+        (LOOP_N, 15, 5, LOOP_SEQ, 64, True, torch.bfloat16, "closed loop GRPO"),
         (4, 32, 8, 256, 64, True, torch.bfloat16, "llama LM"),
         (4, 32, 8, 1024, 64, True, torch.bfloat16, ""),
         (4, 15, 5, 1024, 64, True, torch.bfloat16, ""),
@@ -782,6 +819,7 @@ def main() -> int:
         del q, k, v, dout, out, lse, dq, dk, dv, delta, again, ref_out, lib_out, want
     rms_bwd_cases = [  # (T, D, dtype, what)
         (16 * 160, 960, torch.bfloat16, "smollm GRPO"),
+        (LOOP_N * LOOP_SEQ, 960, torch.bfloat16, "closed loop GRPO"),
         (4 * 256, 2048, torch.bfloat16, "llama LM"),
         (4 * 256, 2048, torch.float32, ""),
     ]
@@ -916,7 +954,115 @@ def main() -> int:
 
     print(f"[time] phase 6 done at {time.perf_counter() - t_start:.1f}s")
 
-    # ---- 7. agreement with the CPU on a small input (reduced, f32) -------
+    # ---- 7. the closed loop: GRPO with the judge's actions through Tangram --
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.cluster import paper_testbed
+    from repro_torch.core.telemetry import decision_trace
+    from repro_torch.rl.driver import LiveGrpoDriver, build_tangram, judge_action
+
+    def loop_tangram():
+        return build_tangram(paper_testbed(cpu_nodes=1, gpu_nodes=1), services=["judge"],
+                             service_state_gb=1.0)
+
+    pcfg, jcfg = get_config("smollm-360m"), get_config("llama3.2-1b")
+    driver = LiveGrpoDriver(pcfg, jcfg, group_size=LOOP_GROUP, seed=11, device=dev)
+    N, new = LOOP_N, LOOP_NEW
+    if driver.gen_cfg.max_new_tokens != new:
+        raise AssertionError(f"LiveGrpoDriver makes {driver.gen_cfg.max_new_tokens} new tokens; "
+                             f"phases 3 and 5 checked the kernels at the shapes of {new}")
+    parts = (path_launches(pcfg, 1, new - 1), *[path_launches(jcfg, 1, 0)] * N,
+             path_launches(pcfg, 1, 0), path_launches(pcfg, 0, 0, train_steps=1))
+    expect = {k: sum(part[k] for part in parts) for k in parts[0]}  # rollout, judges, old_logp, step
+    loop_rng = np.random.default_rng(0)
+
+    # every shape the loop gives a kernel must be one phases 3 and 5 held against its plain version
+    def flash_key(q, k, v, *_, causal=True, **__):
+        return (*q.shape[:2], k.shape[1], *q.shape[2:], causal, q.dtype)
+
+    def rms_key(x, *_, **__):
+        return (*x.shape, x.dtype)
+
+    checked_shapes = {
+        "flash_attention": {c[:7] for c in flash_cases},
+        "flash_attention_bwd": {c[:7] for c in flash_bwd_cases},
+        "rmsnorm": {c[:3] for c in rms_cases},
+        "rmsnorm_bwd": {c[:3] for c in rms_bwd_cases},
+    }
+    loop_shapes = set()
+
+    def recording(mod, fname, key):
+        fn = getattr(mod, fname)
+
+        def call(*a, **kw):
+            loop_shapes.add((fname, key(*a, **kw)))
+            return fn(*a, **kw)
+
+        return mock.patch.object(mod, fname, call)
+
+    print(f"[time] closed loop set up at {time.perf_counter() - t_start:.1f}s")
+    step_walls = []
+    shape_recorders = ExitStack()
+    for mod, fname, key in ((flash_k, "flash_attention", flash_key),
+                            (flash_k, "flash_attention_bwd", flash_key),
+                            (rms_k, "rmsnorm", rms_key), (rms_k, "rmsnorm_bwd", rms_key)):
+        shape_recorders.enter_context(recording(mod, fname, key))
+    for step in range(LOOP_STEPS + 1):  # the last step again under torch.profiler
+        profiling = step == LOOP_STEPS
+        tangram = loop_tangram()
+        loop_prompts = loop_rng.integers(0, pcfg.vocab_size, size=(LOOP_PROMPTS, LOOP_PROMPT))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) if profiling else nullcontext() as prof:
+            rep, step_ms = wall_ms(lambda: driver.run_step(loop_prompts.astype(np.int32), tangram))
+        check_counts(f"closed loop step {step}", ops.launch_counts(), expect)
+        recs, gpu = tangram.telemetry.records, tangram.managers["gpu"]
+        if (len(recs) != N or any(r.failed for r in recs) or not np.all(rep.judge_s > 0)
+                or gpu.stats["hits"] + gpu.stats["misses"] != N):
+            raise AssertionError(f"closed loop step {step}: {len(recs)} judge records "
+                                 f"({sum(r.failed for r in recs)} failed), EOE {gpu.stats}, "
+                                 f"walls {rep.judge_s}; expected {N} finished")
+        if not all(math.isfinite(x) for x in (rep.grpo_loss, rep.mean_reward, rep.mean_act)):
+            raise AssertionError(f"closed loop step {step}: {rep}")
+        replay = loop_tangram()  # the measured walls as fixed durations
+        for i, d in enumerate(rep.judge_s):
+            replay.submit(judge_action(i, lambda dop, d=float(d): d))
+        replay.run()
+        if decision_trace(replay.telemetry.records) != decision_trace(recs):
+            raise AssertionError(f"closed loop step {step}: the replay with the measured "
+                                 f"durations decided differently from the live run")
+        print(f"[loop] step {step}{' (under torch.profiler)' if profiling else ''}: {pcfg.name} "
+              f"full (L={pcfg.num_layers}) {N}x({LOOP_PROMPT}+{new}) judged by {jcfg.name} full "
+              f"(L={jcfg.num_layers}) in {N} Tangram actions: grpo_loss {rep.grpo_loss:+.6f}, "
+              f"mean reward {rep.mean_reward:.3f}, mean ACT {rep.mean_act * 1e3:.3f} ms (judge "
+              f"walls {rep.judge_s.min() * 1e3:.2f}..{rep.judge_s.max() * 1e3:.2f} ms), EOE hits "
+              f"{gpu.stats['hits']}/{N}; walls: rollout {rep.rollout_wall_s * 1e3:.1f} ms, reward "
+              f"{rep.reward_wall_s * 1e3:.1f} ms (judge calls {rep.judge_s.sum() * 1e3:.1f}, "
+              f"Tangram's own host time {(rep.reward_wall_s - rep.judge_s.sum()) * 1e3:.2f}), "
+              f"update {rep.update_wall_s * 1e3:.1f} ms, step "
+              f"{step_ms:.1f} ms; replay trace equal; launches as expected [{name}; {card}]")
+        if not profiling:
+            step_walls.append(step_ms)
+    shape_recorders.close()
+    unchecked = sorted(str(s) for s in loop_shapes if s[1] not in checked_shapes[s[0]])
+    if unchecked:
+        raise AssertionError(f"closed loop: kernels launched at shapes no phase held against "
+                             f"their plain versions: {unchecked}")
+    print(f"[loop] all {len(loop_shapes)} (kernel, shape) pairs of the loop were held against "
+          f"their plain versions in phases 3 and 5")
+    kernels = device_kernels(prof)
+    busy_ms = sum(us for us, _ in kernels.values()) / 1e3
+    mean_ms = sum(step_walls) / len(step_walls)
+    print(f"[loop] device busy {busy_ms:.2f} ms over {sum(n for _, n in kernels.values())} device "
+          f"operations in the profiled step: {100 * busy_ms / step_ms:.1f}% of its wall "
+          f"({step_ms:.1f} ms under the profiler), {100 * busy_ms / mean_ms:.1f}% of the "
+          f"unprofiled steps' mean wall ({mean_ms:.1f} ms); launches per step {expect} [{card}]")
+    del driver, rep, prof
+    torch.cuda.empty_cache()
+
+    print(f"[time] phase 7 done at {time.perf_counter() - t_start:.1f}s")
+
+    # ---- 8. agreement with the CPU on a small input (reduced, f32) -------
     for arch in ("smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m"):
         cfg = get_config(arch).reduced()
         api = build_model(cfg)
@@ -997,7 +1143,8 @@ def main() -> int:
           "F=512 (granite-moe-3b-a800m gate/up), ssd_intra_chunk BNC=8 H=24 Q=160 hd=64 N=128 "
           "(mamba2-130m); backward at the GRPO shape (smollm-360m, 16 x 160): flash B=16 H=15 "
           "KV=5 S=160 d=64 causal (plain and library: the gradient of the same inputs), rmsnorm "
-          "[2560, 960]; launches summed over the six serving runs and the training runs")
+          "[2560, 960]; launches summed over the six serving runs, the training runs and the "
+          "closed loop's four steps (three plus the profiled one)")
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card)

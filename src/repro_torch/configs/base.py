@@ -147,6 +147,7 @@ def all_configs() -> Dict[str, ModelConfig]:
 def _load_all() -> None:
     # importing the module registers its config
     from repro_torch.configs import (  # noqa: F401
+        glm4_9b,
         granite_moe_3b_a800m,
         llama3_2_1b,
         mamba2_130m,

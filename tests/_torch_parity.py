@@ -20,7 +20,7 @@ from repro.models import build_model as jax_build_model
 from repro.training.checkpoint import _flatten, _path_str
 from repro_torch.configs.base import ModelConfig as TorchModelConfig
 from repro_torch.models import build_model as torch_build_model
-from repro_torch.models.convert import params_from_flat
+from repro_torch.models.convert import flat_from_params, params_from_flat
 
 # f32 parity tolerance of whole-model outputs: the two frameworks sum in
 # different orders, which moves f32 logits of magnitude ~10 by ~1e-5.
@@ -59,3 +59,24 @@ def np32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(x, np.float32)
+
+
+def trainable(arch: str):
+    """(jax api, jax params, torch api, a fresh trainable copy of the same torch params)."""
+    japi, jparams, tapi, tparams = models(arch)
+    params = params_from_flat(flat_from_params(tparams), tapi.cfg, "cpu").requires_grad_(True)
+    return japi, jparams, tapi, params
+
+
+def assert_params_after_one_step(params, jparams, lr):
+    """Parameters after one AdamW step against JAX's: Adam moves a weight by
+    about lr * sign(g) wherever |g| >> eps, so a weight whose true gradient is
+    ~0 may move by up to 2 lr differently in the two frameworks.  Every element
+    is held within ``2 lr + 1e-6`` and 99.9% of each leaf's within 1e-5."""
+    want = _flatten(jparams)
+    got = flat_from_params(params)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        diff = np.abs(got[k] - w)
+        assert diff.max() <= 2 * lr + 1e-6, (k, diff.max())
+        assert np.mean(diff <= 1e-5) >= 0.999, (k, np.mean(diff <= 1e-5))

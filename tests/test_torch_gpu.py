@@ -344,3 +344,40 @@ def test_reduced_model_card_matches_cpu(cuda, arch):
     assert torch.equal(a.tokens.cpu(), b.tokens)
     close(Engine(api, p_gpu, gen).score({"tokens": toks.to(cuda)}),
           Engine(api, p_cpu, gen).score({"tokens": toks}), 1e-3)
+
+
+def test_live_grpo_step_launches(cuda):
+    """One reduced step of the closed loop on the card: rollout, one judge
+    action per sequence through Tangram, GRPO update, each through the kernels."""
+    from repro_torch.core.cluster import paper_testbed
+    from repro_torch.rl.driver import LiveGrpoDriver, build_tangram
+
+    policy, judge = get_config("smollm-360m").reduced(), get_config("llama3.2-1b").reduced()
+    driver = LiveGrpoDriver(policy, judge, group_size=4, device=cuda)
+    prompts = np.random.default_rng(0).integers(0, policy.vocab_size, size=(2, 8)).astype(np.int32)
+    tangram = build_tangram(paper_testbed(cpu_nodes=1, gpu_nodes=1), services=["judge"],
+                            service_state_gb=1.0)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    rep = driver.run_step(prompts, tangram)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    n, new = 8, driver.gen_cfg.max_new_tokens
+    # forwards of the policy: prefill, new - 1 decode steps, old_logp; one judge forward per
+    # sequence; one training step.  Dense: 2L + 1 norms and L attentions per forward.
+    pol_fwd, norms = 1 + (new - 1) + 1, 2 * policy.num_layers + 1
+    assert got == {
+        "rmsnorm": norms * (pol_fwd + 1) + n * (2 * judge.num_layers + 1),
+        "rmsnorm_bwd": norms,
+        "rmsnorm_bwd_dweight": norms,
+        "flash_attention": policy.num_layers * 3 + n * judge.num_layers,
+        "flash_attention_bwd_dq": policy.num_layers,
+        "flash_attention_bwd_dkdv": policy.num_layers,
+        "moe_matmul": 0,
+        "ssd_intra_chunk": 0,
+    }
+    recs = tangram.telemetry.records
+    assert len(recs) == n and not any(r.failed for r in recs)
+    gpu = tangram.managers["gpu"]
+    assert gpu.stats["hits"] + gpu.stats["misses"] == n
+    assert np.isfinite(rep.grpo_loss) and np.all(rep.judge_s > 0)

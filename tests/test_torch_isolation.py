@@ -28,7 +28,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         ".".join(p.relative_to(SRC).with_suffix("").parts).removesuffix(".__init__")
         for p in (SRC / "repro_torch").rglob("*.py")
     )
-    assert "repro_torch.kernels.ops" in modules and "repro_torch.launch.serve" in modules
+    for present in ("repro_torch.kernels.ops", "repro_torch.launch.serve",
+                    "repro_torch.core.orchestrator", "repro_torch.rl.driver",
+                    "repro_torch.serving.reward_service",
+                    "repro_torch.examples.agentic_rl_e2e"):
+        assert present in modules, present
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -41,7 +41,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tt
-from repro_torch.models.convert import flat_from_params, params_from_flat
+from repro_torch.models.convert import flat_from_params
 from repro_torch.serving.engine import Engine, GenerationConfig
 from repro_torch.training import (
     AdamWConfig,
@@ -63,16 +63,9 @@ from repro_torch.training import (
 from repro_torch.training.grpo import token_logprobs
 from repro_torch.training.optimizer import lr_schedule
 
-from _torch_parity import models, np32
+from _torch_parity import assert_params_after_one_step, models, np32, trainable
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-def trainable(arch: str):
-    """(jax api, jax params, torch api, a fresh trainable copy of the same torch params)."""
-    japi, jparams, tapi, tparams = models(arch)
-    params = params_from_flat(flat_from_params(tparams), tapi.cfg, "cpu").requires_grad_(True)
-    return japi, jparams, tapi, params
 
 
 def to_jax_cfg(cfg: AdamWConfig) -> jax_opt.AdamWConfig:
@@ -200,16 +193,6 @@ def test_grpo_loss_grads_match():
     for k in jm:
         assert float(m[k].detach()) == pytest.approx(float(jm[k]), rel=1e-5, abs=1e-5), k
     assert_grads_match(torch_grads(loss, params), jg)
-
-
-def assert_params_after_one_step(params, jparams, lr):
-    want = _flatten(jparams)
-    got = flat_from_params(params)
-    assert got.keys() == want.keys()
-    for k, w in want.items():
-        diff = np.abs(got[k] - w)
-        assert diff.max() <= 2 * lr + 1e-6, (k, diff.max())
-        assert np.mean(diff <= 1e-5) >= 0.999, (k, np.mean(diff <= 1e-5))
 
 
 @pytest.mark.parametrize("kind", ["grpo", "lm"])
