@@ -17,19 +17,25 @@ Phases, each of which raises on failure (nothing is caught):
    the same function) a library call's times, and the least time the card
    could take; each ``moe_matmul`` case also with its launch plan (route,
    tiles, stages, grid, shared memory) and called twice for bit-identical
-   output;
+   output, each ``ssd_intra_chunk`` case with its launch plan; the cases
+   include every shape that phase 4's ``hymba-1.5b`` runs give rmsnorm
+   (d 1600 and the SSM's d_inner 3200), flash attention (H 25 / KV 5) and
+   ``ssd_intra_chunk`` (50 heads, N 16), in bf16 and f32;
 4. serving at full width on seeded random bf16 weights.  Each path runs
    with the launch counts set to 0 just before it and checked just after
    against the counts its depth implies: greedy generation (4 requests x
-   (128 prompt + 32 new)) with ``smollm-360m``, ``granite-moe-3b-a800m``
-   and ``mamba2-130m`` through ``repro_torch.launch.serve``, each with the
-   last decode step's logits held against a full forward over the same
-   tokens (granite on a copy of its config whose capacity drops nothing);
-   scoring (8 x 160) with ``llama3.2-1b``, ``granite-moe-3b-a800m`` and
-   ``mamba2-130m`` through ``Engine.score``; the wall time of one prefill
-   and one decode step of each generating model, and ``torch.profiler``
-   over one warm generation and one warm score call of each model (device
-   busy share, device operations, the top kernels);
+   (128 prompt + 32 new)) with ``smollm-360m``, ``granite-moe-3b-a800m``,
+   ``mamba2-130m`` and the hybrid ``hymba-1.5b`` through
+   ``repro_torch.launch.serve``, each with the last decode step's logits
+   held against a full forward over the same tokens (granite on a copy of
+   its config whose capacity drops nothing; mamba2 and hymba also on an
+   f32 copy of the weights); scoring (8 x 160) with ``llama3.2-1b``,
+   ``granite-moe-3b-a800m``, ``mamba2-130m`` and ``hymba-1.5b`` through
+   ``Engine.score``; the wall time of one prefill and one decode step of
+   each generating model, and ``torch.profiler`` over one warm generation
+   and one warm score call of each model (device busy share, device
+   operations, the top kernels); every (kernel, shape) that the hymba runs
+   launch must be one of phase 3's cases;
 5. backward kernels: flash attention's dq and dk/dv kernels and RMSNorm's
    dx and dweight kernels against autograd through their plain versions,
    over a grid of types, head dims, masks, GQA groups and lengths (236
@@ -55,7 +61,7 @@ Phases, each of which raises on failure (nothing is caught):
    launch traces); per step its loss, mean reward, mean ACT, EOE hits and
    the rollout, reward and update walls; a fourth step, checked the same
    way, under ``torch.profiler`` for the device busy share of a step;
-8. agreement on a small input: the four reduced configs in f32 on the card
+8. agreement on a small input: the five reduced configs in f32 on the card
    against the same weights on the CPU (plain versions), serving and, for
    ``smollm-360m``, one GRPO and one LM step's loss and gradients.
 
@@ -117,12 +123,18 @@ ZERO_GRAD_ABS = 1e-5
 # reading, its argmax may differ only where the forward's top two lie
 # within twice the error, and the same check runs again on an f32 copy of
 # the weights, where only the summation order differs (4.1e-4 seen).
-SERVE_BF16_LOGIT_TOL = {"dense": 0.1, "moe": 0.15, "ssm": 1.7}
+# hybrid, by the ssm rule: half of each layer is the same SSM, each branch
+# normed before the fusion; 0.3525 was the first reading on hymba-1.5b
+# (argmax 4/4; 9.3e-5 on the f32 copy), above the dense 0.1, so its limit
+# is 1.5x that reading.
+SERVE_BF16_LOGIT_TOL = {"dense": 0.1, "moe": 0.15, "ssm": 1.7, "hybrid": 0.53}
 SERVE_F32_LOGIT_TOL = 0.02
+SSM_FAMILIES = ("ssm", "hybrid")  # bf16 decode runs the O(1) recurrence beside the chunked scan
 # Reduced configs, f32, card vs CPU: summation order only.
 SMALL_F32_TOL = 1e-3
 
 PROMPT, NEW = 128, 32  # generation: 4 requests x (128 prompt + 32 new tokens)
+HYBRID = "hymba-1.5b"  # phase 4 records every (kernel, shape) of its runs
 SCORE_SHAPE = (8, 160)
 PROMPTS, GROUP, GRPO_STEPS = 4, 4, 3  # GRPO: 4 prompts x group 4, three steps
 # the closed loop, as examples/agentic_rl_e2e.py runs it: 4 prompts x group 4,
@@ -345,9 +357,16 @@ PORT_KERNEL_PREFIXES = ("rmsnorm", "flash_", "moe_matmul", "ssd_")
 
 def path_launches(cfg, prefills, decode_steps, train_steps=0):
     """Kernel launches of ``prefills`` full forwards, ``decode_steps`` decode
-    steps and ``train_steps`` forward-and-backward steps (dense family)."""
+    steps and ``train_steps`` forward-and-backward steps (dense family).
+
+    Norms per layer: two pre-norms (dense, moe); the pre-norm and the SSM's
+    out_norm (ssm); the hybrid's two pre-norms of its parallel heads, the
+    SSM's out_norm, the two output norms of the fusion and the FFN's
+    pre-norm; then the final norm.  tests/test_torch_hybrid.py holds these
+    counts to the calls the model code makes.
+    """
     L, steps = cfg.num_layers, prefills + decode_steps + train_steps
-    norms = 2 * L + 1  # two pre-norms (or pre-norm + SSM out_norm) + final
+    norms = (6 if cfg.family == "hybrid" else 2) * L + 1
     return {
         "rmsnorm": norms * steps,
         "rmsnorm_bwd": norms * train_steps,
@@ -356,7 +375,7 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0):
         "flash_attention_bwd_dq": L * train_steps,
         "flash_attention_bwd_dkdv": L * train_steps,
         "moe_matmul": 3 * L * steps if cfg.family == "moe" else 0,
-        "ssd_intra_chunk": L * prefills if cfg.family == "ssm" else 0,
+        "ssd_intra_chunk": L * prefills if cfg.family in SSM_FAMILIES else 0,
     }
 
 
@@ -379,6 +398,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as flash_k
     from repro_torch.kernels import moe_matmul as moe_k
     from repro_torch.kernels import rmsnorm as rms_k
+    from repro_torch.kernels import ssd_scan as ssd_k
     from repro_torch.launch.serve import build_server, timed_generate
     from repro_torch.launch.train import main as train_main
     from repro_torch.launch.train import next_batch
@@ -424,6 +444,37 @@ def main() -> int:
 
     # ---- 3. kernels vs plain versions -----------------------------------
     gen = torch.Generator(device=dev).manual_seed(1234)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    # hymba-1.5b's shapes (d 1600 and the SSM's d_inner 3200; H 25 / KV 5, hd 64; SSM 50
+    # heads x 64, N 16): generation's prefill 4 x 128 and decode 4 x 1, scoring 8 x 160, and
+    # the full forward over 4 x 159 tokens that its decode-vs-forward checks run, in bf16 and
+    # on the f32 copy of the weights.  Phase 4 fails on any hybrid launch outside them.
+    hyb = get_config(HYBRID)
+    H_, KV_, hd_, SH, SN = (hyb.num_heads, hyb.num_kv_heads, hyb.resolved_head_dim, hyb.ssm_heads,
+                            hyb.ssm_state)
+    check_S, score_T = PROMPT + NEW - 1, SCORE_SHAPE[0] * SCORE_SHAPE[1]
+    hybrid_rms_cases = [(T, D, dt, f"hymba {what}") for D in (hyb.d_model, hyb.d_inner)
+                        for T, dt, what in ((4 * PROMPT, bf16, "prefill"), (4, bf16, "decode"),
+                                            (score_T, bf16, "score"), (4 * check_S, bf16, "check"),
+                                            (4 * PROMPT, f32, "f32 check prefill"),
+                                            (4, f32, "f32 check decode"),
+                                            (4 * check_S, f32, "f32 check"))]
+    hybrid_flash_cases = [
+        (4, H_, KV_, PROMPT, hd_, True, bf16, "hymba prefill"),
+        (SCORE_SHAPE[0], H_, KV_, SCORE_SHAPE[1], hd_, True, bf16, "hymba score"),
+        (4, H_, KV_, check_S, hd_, True, bf16, "hymba check"),
+        (4, H_, KV_, PROMPT, hd_, True, f32, "hymba f32 check prefill"),
+        (4, H_, KV_, check_S, hd_, True, f32, "hymba f32 check"),
+    ]
+    hybrid_ssd_cases = [  # one chunk each: Q = S <= ssm_chunk (256)
+        (4, 1, PROMPT, SH, SN, bf16, "hymba prefill"),
+        (SCORE_SHAPE[0], 1, SCORE_SHAPE[1], SH, SN, bf16, "hymba score"),
+        (4, 1, check_S, SH, SN, bf16, "hymba check"),
+        (4, 1, PROMPT, SH, SN, f32, "hymba f32 check prefill"),
+        (SCORE_SHAPE[0], 1, SCORE_SHAPE[1], SH, SN, f32, ""),
+        (4, 1, check_S, SH, SN, f32, "hymba f32 check"),
+    ]
 
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -468,6 +519,7 @@ def main() -> int:
         (LOOP_N * LOOP_PROMPT, 960, torch.bfloat16, "closed loop prefill"),
         (LOOP_SEQ, 2048, torch.bfloat16, "closed loop judge"),
         (LOOP_N * LOOP_SEQ, 960, torch.bfloat16, "closed loop old_logp, GRPO"),
+        *hybrid_rms_cases,
         (1000, 2048, torch.bfloat16, ""),
         (1000, 960, torch.bfloat16, ""),
         (1000, 2048, torch.float32, ""),
@@ -494,6 +546,7 @@ def main() -> int:
         (LOOP_N, 15, 5, LOOP_PROMPT, 64, True, torch.bfloat16, "closed loop prefill"),
         (1, 32, 8, LOOP_SEQ, 64, True, torch.bfloat16, "closed loop judge"),
         (LOOP_N, 15, 5, LOOP_SEQ, 64, True, torch.bfloat16, "closed loop old_logp, GRPO"),
+        *hybrid_flash_cases,
     ]
     for S in (160, 1024, 2048):
         for H, KV in ((32, 8), (15, 5)):
@@ -559,18 +612,19 @@ def main() -> int:
     del buf, w, got
 
     ssd_rows = {}
-    ssd_cases = [  # (B, NC, Q, dtype, what): mamba2-130m's H=24, hd=64, N=128; BNC = B*NC
-        (4, 1, 128, torch.bfloat16, "mamba2 prefill"),
-        (8, 1, 160, torch.bfloat16, "mamba2 score"),
-        (2, 4, 128, torch.bfloat16, ""),
-        (2, 3, 160, torch.bfloat16, ""),
-        (4, 4, 256, torch.bfloat16, "4 x 1024 tokens"),
-        (2, 4, 128, torch.float32, ""),
-        (2, 3, 160, torch.float32, ""),
-        (4, 4, 256, torch.float32, "4 x 1024 tokens"),
+    ssd_cases = [  # (B, NC, Q, H, N, dtype, what), hd = 64; BNC = B*NC
+        (4, 1, 128, 24, 128, torch.bfloat16, "mamba2 prefill"),
+        (8, 1, 160, 24, 128, torch.bfloat16, "mamba2 score"),
+        (2, 4, 128, 24, 128, torch.bfloat16, ""),
+        (2, 3, 160, 24, 128, torch.bfloat16, ""),
+        (4, 4, 256, 24, 128, torch.bfloat16, "4 x 1024 tokens"),
+        (2, 4, 128, 24, 128, torch.float32, ""),
+        (2, 3, 160, 24, 128, torch.float32, ""),
+        (4, 4, 256, 24, 128, torch.float32, "4 x 1024 tokens"),
+        *hybrid_ssd_cases,
     ]
-    H, hd, N = 24, 64, 128
-    for B, NC, Q, dt, what in ssd_cases:
+    hd = 64
+    for B, NC, Q, H, N, dt, what in ssd_cases:
         BNC = B * NC
         x = randn(BNC, H, Q, hd, dtype=dt) * 0.5
         b = randn(BNC, Q, N, dtype=torch.float32) * 0.5
@@ -584,13 +638,55 @@ def main() -> int:
         m = measure(lambda: ops.ssd_intra_chunk_op(x, b, c, cum),
                     lambda: ref.ssd_intra_chunk_ref(x, b, c, cum), None,
                     ssd_bound(BNC, H, Q, hd, N, x.element_size()))
-        ssd_rows[(BNC, Q, dt)] = row(err, m)
+        ssd_rows[(BNC, H, Q, N, dt)] = row(err, m)
         report(f"ssd_intra_chunk B={B} NC={NC} Q={Q} H={H} hd={hd} N={N} {str(dt)[6:]} {what}",
                err, f"{tol} y, {F32_TOL} state", m, "no single PyTorch call computes it")
+        plan = ssd_k.launch_plan(BNC, H, Q, hd, N, dt)  # the kernel refuses any other
+        print(f"[kernel]   launch plan: route {plan.route}, {plan.heads_per_block} heads per y "
+              f"block, {plan.y_blocks} y and {plan.state_blocks} state blocks per chunk, grid "
+              f"{plan.grid}, {plan.threads} threads, {plan.smem_bytes} bytes of shared memory")
     del x, b, c, cum, y, st, y_ref, st_ref
     torch.cuda.empty_cache()
 
     print(f"[time] phase 3 done at {time.perf_counter() - t_start:.1f}s")
+
+    # every (kernel, shape) that a guarded run launches must be one that phase 3 (or, for the
+    # backward kernels, phase 5) held against its plain version
+    def flash_key(q, k, v, *_, causal=True, **__):
+        return (*q.shape[:2], k.shape[1], *q.shape[2:], causal, q.dtype)
+
+    def rms_key(x, *_, **__):
+        return (*x.shape, x.dtype)
+
+    def ssd_key(x, b, *_):
+        return (*x.shape, b.shape[2], x.dtype)
+
+    checked_shapes = {
+        "flash_attention": {c[:7] for c in flash_cases},
+        "rmsnorm": {c[:3] for c in rms_cases},
+        "ssd_intra_chunk": {(B * NC, H, Q, 64, N, dt) for B, NC, Q, H, N, dt, _ in ssd_cases},
+    }
+    forward_wrappers = ((flash_k, "flash_attention", flash_key), (rms_k, "rmsnorm", rms_key),
+                        (ssd_k, "ssd_intra_chunk", ssd_key))
+
+    def recording(shapes, wrappers):
+        """Patches that add (wrapper, shape key) to ``shapes`` at every call of the wrappers."""
+        stack = ExitStack()
+        for mod, fname, key in wrappers:
+            def call(*a, _fn=getattr(mod, fname), _name=fname, _key=key, **kw):
+                shapes.add((_name, _key(*a, **kw)))
+                return _fn(*a, **kw)
+
+            stack.enter_context(mock.patch.object(mod, fname, call))
+        return stack
+
+    def assert_checked(label, shapes):
+        unchecked = sorted(str(s) for s in shapes if s[1] not in checked_shapes[s[0]])
+        if unchecked:
+            raise AssertionError(f"{label}: kernels launched at shapes no phase held against "
+                                 f"their plain versions: {unchecked}")
+        print(f"[{label}] all {len(shapes)} (kernel, shape) pairs were held against their plain "
+              f"versions in phase 3" + (" and 5" if any("_bwd" in s[0] for s in shapes) else ""))
 
     # ---- 4. serving at full width -----------------------------------------
     launches = dict.fromkeys(ops.launch_counts(), 0)
@@ -636,9 +732,9 @@ def main() -> int:
             err = assert_close(f"{cfg.name} decode vs forward logits, {label}", last, full, tol,
                                rel=False)
             differ = last.argmax(-1) != full.argmax(-1)
-            if cfg.family != "ssm" and bool(differ.any()):
+            if cfg.family not in SSM_FAMILIES and bool(differ.any()):
                 raise AssertionError(f"{cfg.name}: decode and forward disagree on the argmax")
-            # ssm in bf16: argmax may differ only where the forward's top two lie within 2 err
+            # ssm, hybrid: argmax may differ only where the forward's top two lie within 2 err
             top2 = full.topk(2, dim=-1).values
             if bool((differ & (top2[:, 0] - top2[:, 1] > 2 * err)).any()):
                 raise AssertionError(f"{cfg.name}: decode and forward disagree on a clear argmax")
@@ -651,7 +747,7 @@ def main() -> int:
                                       "bf16, drop-free config copy")]
         else:
             checks = [last_step_error(cfg, params, SERVE_BF16_LOGIT_TOL[cfg.family], "bf16")]
-        if cfg.family == "ssm":
+        if cfg.family in SSM_FAMILIES:
             checks.append(last_step_error(dataclasses.replace(cfg, dtype="float32"),
                                           copy.deepcopy(params).float(), SERVE_F32_LOGIT_TOL,
                                           "f32 copy of the weights"))
@@ -706,14 +802,24 @@ def main() -> int:
               f"second call, max_memory_allocated {mem:.2f} GiB [{name}; {card}]")
         profiled(f"score {cfg.name}", lambda: engine.score({"tokens": toks}), card)
 
-    for arch, seed in (("smollm-360m", 0), ("granite-moe-3b-a800m", 3), ("mamba2-130m", 4)):
-        run_generate(arch, seed)
+    hybrid_shapes = set()  # every (kernel, shape) of the hybrid's runs, checks included
+
+    def shapes_of(arch):
+        return recording(hybrid_shapes, forward_wrappers) if arch == HYBRID else nullcontext()
+
+    for arch, seed in (("smollm-360m", 0), ("granite-moe-3b-a800m", 3), ("mamba2-130m", 4),
+                       (HYBRID, 12)):
+        with shapes_of(arch):
+            run_generate(arch, seed)
         torch.cuda.empty_cache()
         print(f"[time] generate {arch} done at {time.perf_counter() - t_start:.1f}s")
-    for arch, seed in (("llama3.2-1b", 1), ("granite-moe-3b-a800m", 5), ("mamba2-130m", 6)):
-        run_score(arch, seed)
+    for arch, seed in (("llama3.2-1b", 1), ("granite-moe-3b-a800m", 5), ("mamba2-130m", 6),
+                       (HYBRID, 13)):
+        with shapes_of(arch):
+            run_score(arch, seed)
         torch.cuda.empty_cache()
         print(f"[time] score {arch} done at {time.perf_counter() - t_start:.1f}s")
+    assert_checked(HYBRID, hybrid_shapes)
 
     print(f"[time] phase 4 done at {time.perf_counter() - t_start:.1f}s")
 
@@ -977,36 +1083,14 @@ def main() -> int:
     loop_rng = np.random.default_rng(0)
 
     # every shape the loop gives a kernel must be one phases 3 and 5 held against its plain version
-    def flash_key(q, k, v, *_, causal=True, **__):
-        return (*q.shape[:2], k.shape[1], *q.shape[2:], causal, q.dtype)
-
-    def rms_key(x, *_, **__):
-        return (*x.shape, x.dtype)
-
-    checked_shapes = {
-        "flash_attention": {c[:7] for c in flash_cases},
-        "flash_attention_bwd": {c[:7] for c in flash_bwd_cases},
-        "rmsnorm": {c[:3] for c in rms_cases},
-        "rmsnorm_bwd": {c[:3] for c in rms_bwd_cases},
-    }
+    checked_shapes.update(flash_attention_bwd={c[:7] for c in flash_bwd_cases},
+                          rmsnorm_bwd={c[:3] for c in rms_bwd_cases})
     loop_shapes = set()
-
-    def recording(mod, fname, key):
-        fn = getattr(mod, fname)
-
-        def call(*a, **kw):
-            loop_shapes.add((fname, key(*a, **kw)))
-            return fn(*a, **kw)
-
-        return mock.patch.object(mod, fname, call)
-
     print(f"[time] closed loop set up at {time.perf_counter() - t_start:.1f}s")
     step_walls = []
-    shape_recorders = ExitStack()
-    for mod, fname, key in ((flash_k, "flash_attention", flash_key),
-                            (flash_k, "flash_attention_bwd", flash_key),
-                            (rms_k, "rmsnorm", rms_key), (rms_k, "rmsnorm_bwd", rms_key)):
-        shape_recorders.enter_context(recording(mod, fname, key))
+    shape_recorders = recording(loop_shapes, (
+        (flash_k, "flash_attention", flash_key), (flash_k, "flash_attention_bwd", flash_key),
+        (rms_k, "rmsnorm", rms_key), (rms_k, "rmsnorm_bwd", rms_key)))
     for step in range(LOOP_STEPS + 1):  # the last step again under torch.profiler
         profiling = step == LOOP_STEPS
         tangram = loop_tangram()
@@ -1044,12 +1128,7 @@ def main() -> int:
         if not profiling:
             step_walls.append(step_ms)
     shape_recorders.close()
-    unchecked = sorted(str(s) for s in loop_shapes if s[1] not in checked_shapes[s[0]])
-    if unchecked:
-        raise AssertionError(f"closed loop: kernels launched at shapes no phase held against "
-                             f"their plain versions: {unchecked}")
-    print(f"[loop] all {len(loop_shapes)} (kernel, shape) pairs of the loop were held against "
-          f"their plain versions in phases 3 and 5")
+    assert_checked("loop", loop_shapes)
     kernels = device_kernels(prof)
     busy_ms = sum(us for us, _ in kernels.values()) / 1e3
     mean_ms = sum(step_walls) / len(step_walls)
@@ -1063,7 +1142,7 @@ def main() -> int:
     print(f"[time] phase 7 done at {time.perf_counter() - t_start:.1f}s")
 
     # ---- 8. agreement with the CPU on a small input (reduced, f32) -------
-    for arch in ("smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m"):
+    for arch in ("smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", HYBRID):
         cfg = get_config(arch).reduced()
         api = build_model(cfg)
         p_gpu = api.init(torch.Generator(device=dev).manual_seed(2), dev)
@@ -1124,7 +1203,7 @@ def main() -> int:
              **moe_rows[(40, 384, 1536, 512, torch.bfloat16)]),
         dict(name="ssd_intra_chunk", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:39", launches=launches["ssd_intra_chunk"],
-             **ssd_rows[(8, 160, torch.bfloat16)]),
+             **ssd_rows[(8, 24, 160, 128, torch.bfloat16)]),
     ]
     grpo_shape = (16, 15, 5, 160, 64, True, torch.bfloat16)
     for kname, key, src, of in (
@@ -1143,7 +1222,7 @@ def main() -> int:
           "F=512 (granite-moe-3b-a800m gate/up), ssd_intra_chunk BNC=8 H=24 Q=160 hd=64 N=128 "
           "(mamba2-130m); backward at the GRPO shape (smollm-360m, 16 x 160): flash B=16 H=15 "
           "KV=5 S=160 d=64 causal (plain and library: the gradient of the same inputs), rmsnorm "
-          "[2560, 960]; launches summed over the six serving runs, the training runs and the "
+          "[2560, 960]; launches summed over the eight serving runs, the training runs and the "
           "closed loop's four steps (three plus the profiled one)")
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -2,8 +2,9 @@
 
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
 package).  Only the configs the port serves so far are registered: the
-dense ``llama3.2-1b`` and ``smollm-360m``, the MoE
-``granite-moe-3b-a800m`` and the attention-free SSM ``mamba2-130m``.
+dense ``llama3.2-1b``, ``smollm-360m`` and ``glm4-9b``, the MoE
+``granite-moe-3b-a800m``, the attention-free SSM ``mamba2-130m`` and the
+hybrid ``hymba-1.5b`` (parallel attention and Mamba-2 heads).
 ``reduced()`` gives the same smoke variant as the JAX package, so the
 parity tests load one set of weights into both.
 """
@@ -149,6 +150,7 @@ def _load_all() -> None:
     from repro_torch.configs import (  # noqa: F401
         glm4_9b,
         granite_moe_3b_a800m,
+        hymba_1_5b,
         llama3_2_1b,
         mamba2_130m,
         smollm_360m,

@@ -1,8 +1,9 @@
-"""Serving launcher: batched prefill+decode requests against a dense, MoE or SSM arch.
+"""Serving launcher: batched prefill+decode requests against a dense, MoE, SSM or hybrid arch.
 
 ``python -m repro_torch.launch.serve --arch smollm-360m --requests 4 --new 16``
-runs on the card (also ``--arch granite-moe-3b-a800m`` or ``mamba2-130m``);
-``--device cpu`` runs the plain versions on the CPU.
+runs on the card (also ``--arch llama3.2-1b``, ``granite-moe-3b-a800m``,
+``mamba2-130m`` or ``hymba-1.5b``); ``--device cpu`` runs the plain versions
+on the CPU.
 Weights are random, drawn from a seeded ``torch.Generator``.
 """
 

@@ -157,8 +157,10 @@ def multihead_attention(
     if kv_override is not None:
         raise NotImplementedError("cross-attention comes with the Whisper slice (ROADMAP A8)")
     if sliding_window > 0:
+        # No entry point of the reference passes a window to full-sequence
+        # attention: serving windows only decode (decode_attention below).
         raise NotImplementedError(
-            "windowed full-sequence attention comes with the hybrid slice (ROADMAP A2)"
+            "sliding_window applies to decode_attention only; full-sequence attention has no window"
         )
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim

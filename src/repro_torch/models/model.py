@@ -1,6 +1,6 @@
 """Unified model API: ``build_model(cfg)`` -> :class:`ModelApi`.
 
-The port's façade over the dense, moe and ssm families; serving,
+The port's façade over the dense, moe, ssm and hybrid families; serving,
 scoring and training go through it.
 """
 
@@ -68,5 +68,5 @@ class ModelApi:
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    """Dense, moe and ssm families; the others raise NotImplementedError."""
+    """Dense, moe, ssm and hybrid families; vlm and audio raise NotImplementedError."""
     return ModelApi(cfg=cfg, schema=transformer.model_schema(cfg))

@@ -1,8 +1,8 @@
-"""Decoder-only transformer, dense / moe / ssm families, as functions over a ParamTree.
+"""Decoder-only transformer, dense / moe / ssm / hybrid families, as functions over a ParamTree.
 
 Torch twin of those branches of ``repro.models.transformer``.  Depth is a
 Python loop over the layer-stacked ``[L, ...]`` parameters (the JAX
-package scans over them).  The hybrid, VLM and audio families raise
+package scans over them).  The VLM and audio families raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 
 Departure: JAX rematerialises the layer body in training
@@ -40,8 +40,9 @@ from repro_torch.models.layers import (
 AUX_LB_COEF = 0.01
 AUX_Z_COEF = 0.001
 
-PORTED_FAMILIES = ("dense", "moe", "ssm")
-_ROADMAP_ITEM = {"hybrid": "A2", "vlm": "A8", "audio": "A8"}
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_ROADMAP_ITEM = {"vlm": "A8", "audio": "A8"}
+SSM_FAMILIES = ("ssm", "hybrid")  # the families whose layers hold a Mamba-2 mixer
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -64,6 +65,9 @@ def layer_schema(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.family == "ssm":
         return {"ssm": ssm_mod.ssm_schema(cfg), "norm_ssm": norm}
     s: Dict[str, Any] = {"attn": attention_schema(cfg), "norm_attn": norm}
+    if cfg.family == "hybrid":
+        # the SSM heads beside attention, and per-branch output norms (Hymba's fusion)
+        s.update(ssm=ssm_mod.ssm_schema(cfg), norm_ssm=norm, norm_attn_out=norm, norm_ssm_out=norm)
     if cfg.family == "moe":
         s["moe"] = moe_mod.moe_schema(cfg)
     else:
@@ -129,6 +133,14 @@ def _ffn(lp, x: torch.Tensor, cfg: ModelConfig):
     return swiglu_ffn(lp["ffn"], h), None
 
 
+def _fuse(lp, a: torch.Tensor, s: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The hybrid's parallel-head fusion: the mean of the normed attention and SSM outputs."""
+    return 0.5 * (
+        rms_norm(a, lp["norm_attn_out"], cfg.norm_eps)
+        + rms_norm(s, lp["norm_ssm_out"], cfg.norm_eps)
+    )
+
+
 def layer_forward(
     lp,
     x: torch.Tensor,
@@ -138,20 +150,26 @@ def layer_forward(
     cache=None,
     rope=None,
 ):
-    """One pre-norm layer -> (x, aux); ``cache`` (FLAT k, v caches) receives this layer's K/V.
+    """One pre-norm layer -> (x, aux, ssm_state); ``cache`` (FLAT k, v caches) receives this layer's K/V.
 
     ``rope`` is ``rope_cos_sin(positions, ...)``, computed once for all layers.
-    ``aux`` holds the layer's MoE aux losses (None for the other families).
+    ``aux`` holds the layer's MoE aux losses (None for the other families);
+    ``ssm_state`` its final SSD state [B,H,hd,N] f32 (None without an SSM).
+    The hybrid runs attention and the SSM in parallel on the same input and
+    adds their fused outputs, then the FFN.
     """
-    if cfg.family == "ssm":
-        y = ssm_mod.ssd_scan(lp["ssm"], rms_norm(x, lp["norm_ssm"], cfg.norm_eps), cfg)
-        return x + y, None
+    st = None
+    if cfg.family in SSM_FAMILIES:
+        s, st = ssm_mod.ssd_scan_with_state(lp["ssm"], rms_norm(x, lp["norm_ssm"], cfg.norm_eps), cfg)
+        if cfg.family == "ssm":
+            return x + s, None, st
     h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
-    x = x + multihead_attention(
+    a = multihead_attention(
         lp["attn"], h, positions, cfg, sliding_window=sliding_window, cache=cache, rope=rope
     )
+    x = x + (_fuse(lp, a, s, cfg) if cfg.family == "hybrid" else a)
     y, aux = _ffn(lp, x, cfg)
-    return x + y, aux
+    return x + y, aux, st
 
 
 def forward(
@@ -172,7 +190,7 @@ def forward(
         rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
     auxes = []
     for lp in layer_params(params["layers"]):
-        x, aux = layer_forward(lp, x, positions, cfg, sliding_window, rope=rope)
+        x, aux, _ = layer_forward(lp, x, positions, cfg, sliding_window, rope=rope)
         if aux is not None:
             auxes.append(aux)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -229,7 +247,7 @@ def init_decode_state(
         shape = (L, batch, cache_len, cfg.num_kv_heads * cfg.resolved_head_dim)
         kc = torch.zeros(shape, dtype=dtype, device=device)
         vc = torch.zeros(shape, dtype=dtype, device=device)
-    if cfg.family == "ssm":
+    if cfg.family in SSM_FAMILIES:
         st = torch.zeros(
             (L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), device=device
         )
@@ -246,29 +264,37 @@ def decode_step(
     """One decode step: returns (logits [B, V] f32, new state).
 
     The caches and SSM states of ``state`` are updated in place (JAX
-    returns updated copies); the new state shares them.
+    returns updated copies); the new state shares them.  The hybrid runs
+    ``decode_attention`` and ``ssd_decode_step`` on the same input, then
+    the fusion and the FFN, as its full-sequence layer does.
     """
     _require_ported(cfg)
     h = embed_tokens(params, token, cfg)  # [B,1,D]
     layers = layer_params(params["layers"])
-    if cfg.family == "ssm":
-        for lp, st in zip(layers, state.ssm_state.unbind(0)):
-            y, new_st = ssm_mod.ssd_decode_step(
+    none = [None] * len(layers)
+    k_caches = none if state.k_cache is None else state.k_cache.unbind(0)
+    v_caches = none if state.v_cache is None else state.v_cache.unbind(0)
+    ssm_states = none if state.ssm_state is None else state.ssm_state.unbind(0)
+    rope = None
+    if not cfg.attention_free:
+        positions = torch.full(token.shape, state.pos, dtype=torch.int32, device=token.device)
+        rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    for lp, k_cache, v_cache, st in zip(layers, k_caches, v_caches, ssm_states):
+        if st is not None:
+            s, new_st = ssm_mod.ssd_decode_step(
                 lp["ssm"], rms_norm(h, lp["norm_ssm"], cfg.norm_eps), st, cfg
             )
             st.copy_(new_st)
-            h = h + y
-    else:
-        positions = torch.full(token.shape, state.pos, dtype=torch.int32, device=token.device)
-        rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
-        caches = zip(state.k_cache.unbind(0), state.v_cache.unbind(0))
-        for lp, (k_cache, v_cache) in zip(layers, caches):
-            hn = rms_norm(h, lp["norm_attn"], cfg.norm_eps)
-            h = h + decode_attention(
-                lp["attn"], hn, state.pos, k_cache, v_cache, cfg,
-                sliding_window=sliding_window, rope=rope,
-            )
-            h = h + _ffn(lp, h, cfg)[0]
+            if cfg.family == "ssm":
+                h = h + s
+                continue
+        hn = rms_norm(h, lp["norm_attn"], cfg.norm_eps)
+        a = decode_attention(
+            lp["attn"], hn, state.pos, k_cache, v_cache, cfg,
+            sliding_window=sliding_window, rope=rope,
+        )
+        h = h + (_fuse(lp, a, s, cfg) if cfg.family == "hybrid" else a)
+        h = h + _ffn(lp, h, cfg)[0]
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(params, h, cfg)[:, 0, :]
     return logits, state._replace(pos=state.pos + 1)
@@ -284,7 +310,10 @@ def prefill(
 
     The caches are ``cache_len`` long (None: the prompt length S, as in
     JAX), so decoding continues at position S without overwriting the
-    prompt.  The ssm family keeps no cache: its state is each layer's
+    prompt.  Each layer writes its roped K/V into them from inside its
+    attention (JAX projects K and V a second time beside the layer,
+    repro/models/transformer.py:354-360 and :383-392, to the same values).
+    The ssm family keeps no cache; it and the hybrid keep each layer's
     final SSD state.
     """
     _require_ported(cfg)
@@ -294,27 +323,16 @@ def prefill(
     if cache_len < S:
         raise ValueError(f"cache_len {cache_len} is shorter than the prompt ({S})")
     x = embed_tokens(params, tokens, cfg)
-    if cfg.family == "ssm":
-        return _prefill_with_state(params, x, cfg)
     state = init_decode_state(cfg, B, cache_len, torch_dtype(cfg), tokens.device)
     positions = arange_positions(B, S, tokens.device)
-    rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    rope = None
+    if not cfg.attention_free:
+        rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
     for i, lp in enumerate(layer_params(params["layers"])):
-        x, _ = layer_forward(
-            lp, x, positions, cfg, cache=(state.k_cache[i], state.v_cache[i]), rope=rope
-        )
+        cache = None if cfg.attention_free else (state.k_cache[i], state.v_cache[i])
+        x, _, st = layer_forward(lp, x, positions, cfg, cache=cache, rope=rope)
+        if st is not None:
+            state.ssm_state[i].copy_(st)
     h = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
     logits = logits_fn(params, h, cfg)[:, 0, :]
     return logits, state._replace(pos=S)
-
-
-def _prefill_with_state(params, x: torch.Tensor, cfg: ModelConfig):
-    """Prefill for the ssm family: the logits and each layer's final SSD state."""
-    states = []
-    for lp in layer_params(params["layers"]):
-        y, st = ssm_mod.ssd_scan_with_state(lp["ssm"], rms_norm(x, lp["norm_ssm"], cfg.norm_eps), cfg)
-        x = x + y
-        states.append(st)
-    h = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
-    logits = logits_fn(params, h, cfg)[:, 0, :]
-    return logits, DecodeState(None, None, torch.stack(states), x.shape[1])

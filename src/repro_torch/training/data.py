@@ -61,7 +61,7 @@ class MarkovTextStream:
 def batch_for(cfg_model, shape, seed: int = 0) -> Dict[str, np.ndarray]:
     """One concrete (non-abstract) batch matching an assigned InputShape.
 
-    Token families only (dense, moe, ssm): the port has no vlm or audio
+    Token families only (dense, moe, ssm, hybrid): the port has no vlm or audio
     model yet (ROADMAP A8).
     """
     if cfg_model.family in ("vlm", "audio"):

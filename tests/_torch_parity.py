@@ -17,10 +17,15 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
+from repro.models.layers import logits_fn as jax_logits_fn
+from repro.models.transformer import embed_tokens as jax_embed
+from repro.models.transformer import forward as jax_forward
 from repro.training.checkpoint import _flatten, _path_str
 from repro_torch.configs.base import ModelConfig as TorchModelConfig
 from repro_torch.models import build_model as torch_build_model
+from repro_torch.models import transformer as tt
 from repro_torch.models.convert import flat_from_params, params_from_flat
+from repro_torch.models.layers import logits_fn
 
 # f32 parity tolerance of whole-model outputs: the two frameworks sum in
 # different orders, which moves f32 logits of magnitude ~10 by ~1e-5.
@@ -80,3 +85,46 @@ def assert_params_after_one_step(params, jparams, lr):
         diff = np.abs(got[k] - w)
         assert diff.max() <= 2 * lr + 1e-6, (k, diff.max())
         assert np.mean(diff <= 1e-5) >= 0.999, (k, np.mean(diff <= 1e-5))
+
+
+def bf16_decode_drift(arch: str, seed: int, B: int = 2, P: int = 32, new: int = 32):
+    """(port's drift, JAX's drift) of bf16 decode from a full forward, on the same weights.
+
+    ``arch`` reduced in bf16, JAX weights from ``seed``: prefill a P-token
+    prompt, decode ``new`` given tokens, and take the largest |logit|
+    difference, over every decode step, from a full forward over the same
+    tokens.  P and P + new must be multiples of the SSD chunk (32).
+    """
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), dtype="bfloat16")
+    japi = jax_build_model(jcfg)
+    jparams = japi.init(jax.random.PRNGKey(seed))
+    tcfg = torch_cfg(jcfg)
+    tapi = torch_build_model(tcfg)
+    tparams = params_from_flat(_flatten(jparams), tcfg, "cpu")
+    toks = np.random.default_rng(seed).integers(0, jcfg.vocab_size, (B, P + new))
+
+    logits, state = japi.prefill(jparams, {"tokens": jnp.asarray(toks[:, :P])})
+    if state.k_cache is not None:  # JAX's caches are exactly P long: give decode its room
+        pad = ((0, 0), (0, 0), (0, new), (0, 0))
+        state = state._replace(k_cache=jnp.pad(state.k_cache, pad), v_cache=jnp.pad(state.v_cache, pad))
+    step = jax.jit(lambda p, s, t: japi.decode_step(p, s, t))
+    jax_dec = []
+    for i in range(new):
+        logits, state = step(jparams, state, jnp.asarray(toks[:, P + i : P + i + 1], jnp.int32))
+        jax_dec.append(np32(logits))
+    pos = jnp.broadcast_to(jnp.arange(P + new, dtype=jnp.int32), toks.shape)
+    h, _ = jax_forward(jparams, jax_embed(jparams, jnp.asarray(toks), jcfg), pos, jcfg, None)
+    jax_full = np32(jax_logits_fn(jparams, h, jcfg))
+
+    t = torch.as_tensor(toks)
+    logits, tstate = tapi.prefill(tparams, {"tokens": t[:, :P]}, cache_len=P + new)
+    port_dec = []
+    for i in range(new):
+        logits, tstate = tapi.decode_step(tparams, tstate, t[:, P + i : P + i + 1])
+        port_dec.append(np32(logits))
+    h, _ = tt.forward(tparams, tt.embed_tokens(tparams, t, tcfg), tt.arange_positions(B, P + new, "cpu"), tcfg)
+    port_full = np32(logits_fn(tparams, h, tcfg))
+
+    jax_drift = max(np.abs(jax_dec[i] - jax_full[:, P + i]).max() for i in range(new))
+    port_drift = max(np.abs(port_dec[i] - port_full[:, P + i]).max() for i in range(new))
+    return port_drift, jax_drift

@@ -23,7 +23,7 @@ from repro_torch.serving.engine import Engine, GenerationConfig
 
 from _torch_parity import MODEL_TOL, models, np32
 
-ARCHS = ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m"]
+ARCHS = ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b"]
 
 
 def close(got, want, tol=MODEL_TOL):

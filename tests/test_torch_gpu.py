@@ -70,7 +70,9 @@ def grad_tol(dtype):
     return 2e-2 if dtype == torch.bfloat16 else 1e-4
 
 
-@pytest.mark.parametrize("T,D", [(1, 960), (7, 960), (512, 960), (1280, 2048), (3, 100)])
+# hymba-1.5b's rows: d 1600, and the SSM's out_norm over d_inner 3200
+@pytest.mark.parametrize("T,D", [(1, 960), (7, 960), (512, 960), (1280, 2048), (3, 100),
+                                 (512, 1600), (4, 3200), (1280, 3200)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel(cuda, T, D, dtype):
     rng = np.random.default_rng(T + D)
@@ -89,9 +91,11 @@ def test_rmsnorm_kernel_strided_rows(cuda):
     close(ops.rmsnorm_op(x, w), ref.rmsnorm_ref(x, w), 2e-2)
 
 
-# GQA groups g = H / KV of the served models (1, 3, 4, 5), ragged and whole 64-row tiles
+# GQA groups g = H / KV of the served models (1, 3, 4, 5), ragged and whole 64-row tiles;
+# hymba-1.5b's prefill and score (H 25, KV 5: an odd head count)
 FLASH_SHAPES = [
     (1, 2, 2, 24, 64), (2, 4, 2, 100, 64), (2, 6, 2, 160, 64), (1, 8, 2, 1000, 128), (1, 4, 1, 33, 128),
+    (4, 25, 5, 128, 64), (8, 25, 5, 160, 64),
 ] + [(2, 2 * g, 2, S, d) for g in (1, 3, 4, 5) for S in (1, 15, 64, 65, 160, 1000) for d in (64, 128)]
 
 
@@ -293,9 +297,10 @@ def test_moe_matmul_kernel_rejects_a_strided_buffer(cuda):
 
 # mamba2-130m's H = 24, and H = 7 on 70 chunks, which the launch plans split into
 # head groups of 2 (bf16) and 4 (f32) with a shorter last group; chunk lengths 1,
-# 100, 160 and 256
+# 100, 160 and 256; hymba-1.5b's H = 50 with N = 16 at hd 64 (most of each N tile masked)
 SSD_SHAPES = [
     (4, 24, 128, 64, 128), (8, 24, 160, 64, 128), (2, 3, 256, 64, 128),  # mamba2 prefill, score, long
+    (4, 50, 128, 64, 16), (8, 50, 160, 64, 16),  # hymba prefill, score
     (3, 2, 40, 32, 16), (2, 4, 100, 32, 8), (1, 2, 64, 32, 32), (2, 1, 1, 32, 16),
 ] + [(B, H, Q, 64, 128) for B, H in ((8, 24), (70, 7)) for Q in (1, 100, 160, 256)]
 
@@ -329,7 +334,9 @@ def test_ssd_kernel_decay_above_the_diagonal_stays_finite(cuda):
     close(y, ref.ssd_intra_chunk_ref(x, b, b, cum)[0], 1e-4)
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m"])
+@pytest.mark.parametrize(
+    "arch", ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b"]
+)
 def test_reduced_model_card_matches_cpu(cuda, arch):
     """Generation and scoring, f32: the kernels' path against the plain one."""
     cfg = get_config(arch).reduced()
@@ -344,6 +351,37 @@ def test_reduced_model_card_matches_cpu(cuda, arch):
     assert torch.equal(a.tokens.cpu(), b.tokens)
     close(Engine(api, p_gpu, gen).score({"tokens": toks.to(cuda)}),
           Engine(api, p_cpu, gen).score({"tokens": toks}), 1e-3)
+
+
+def test_hybrid_forward_card_matches_cpu(cuda):
+    """One full forward of reduced hymba-1.5b, f32: every kernel of the hybrid layer on the card."""
+    from repro_torch.models.transformer import arange_positions, embed_tokens, forward
+
+    cfg = get_config("hymba-1.5b").reduced()
+    api = build_model(cfg)
+    p_gpu = api.init(torch.Generator(device=cuda).manual_seed(4), cuda)
+    p_cpu = params_from_flat(flat_from_params(p_gpu), cfg, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, size=(2, 64)))
+    before = ops.launch_counts()
+    with torch.inference_mode():
+        outs = [forward(p, embed_tokens(p, toks.to(dev), cfg), arange_positions(2, 64, dev), cfg)[0]
+                for p, dev in ((p_gpu, cuda), (p_cpu, "cpu"))]
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+    L = cfg.num_layers
+    assert got == {"rmsnorm": 6 * L + 1, "flash_attention": L, "ssd_intra_chunk": L}
+    close(outs[0], outs[1], 1e-4)
+
+
+def test_hybrid_training_on_the_card_raises_naming_a3b(cuda):
+    """The SSM heads have no backward kernel yet: a hybrid loss with gradients raises
+    (ROADMAP A3b) instead of taking the plain path."""
+    cfg = get_config("hymba-1.5b").reduced()
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device=cuda).manual_seed(5), cuda, trainable=True)
+    toks = torch.zeros(2, 32, dtype=torch.int64, device=cuda)
+    with pytest.raises(NotImplementedError, match="A3b"):
+        api.loss_fn(params, {"tokens": toks})
 
 
 def test_live_grpo_step_launches(cuda):

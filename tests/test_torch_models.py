@@ -1,4 +1,4 @@
-"""The port's transformer (dense, MoE, SSM) vs ``repro.models`` on reduced configs, in f32.
+"""The port's transformer (dense, MoE, SSM, hybrid) vs ``repro.models`` on reduced configs, in f32.
 
 Weights cross from JAX through the checkpoint path keys
 (``convert.params_from_flat``).  Tolerance: ``_torch_parity.MODEL_TOL``
@@ -25,7 +25,7 @@ from repro_torch.models.layers import logits_fn
 
 from _torch_parity import MODEL_TOL, models, np32
 
-ARCHS = ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m"]
+ARCHS = ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b"]
 
 
 def close(got, want, tol=MODEL_TOL):
@@ -86,9 +86,9 @@ def test_layer_views_are_kept_and_follow_moved_storage():
 
 
 def test_non_dense_family_raises():
-    """The families not ported yet (here the hybrid) name the ROADMAP item that brings them."""
-    cfg = dataclasses.replace(get_config("mamba2-130m").reduced(), family="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+    """The families not ported yet (here the VLM) name the ROADMAP item that brings them."""
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(), family="vlm")
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         build_model(cfg)
 
 
@@ -143,11 +143,13 @@ def test_prefill_logits_and_caches_match(arch, cache_len):
     got_logits, state = tapi.prefill(tparams, {"tokens": torch.as_tensor(toks)}, cache_len=cache_len)
     close(got_logits, want_logits)
     assert state.pos == int(want_state.pos) == S
-    if japi.cfg.family == "ssm":  # no cache: each layer's final SSD state
-        assert state.k_cache is None and want_state.k_cache is None
+    # ssm and hybrid: each layer's final SSD state
+    assert (state.ssm_state is None) == (want_state.ssm_state is None) == (japi.cfg.family not in ("ssm", "hybrid"))
+    if state.ssm_state is not None:
         close(state.ssm_state, want_state.ssm_state)
+    if japi.cfg.family == "ssm":  # no cache
+        assert state.k_cache is None and want_state.k_cache is None
         return
-    assert state.ssm_state is None and want_state.ssm_state is None
     assert state.k_cache.shape[2] == (cache_len or S)
     close(state.k_cache[:, :, :S], want_state.k_cache)
     close(state.v_cache[:, :, :S], want_state.v_cache)
@@ -192,3 +194,26 @@ def test_decode_matches_teacher_forcing(arch):
     for t in range(S):
         got, state = tapi.decode_step(tparams, state, torch.as_tensor(toks[:, t : t + 1]))
         close(got, want[:, t])
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "hymba-1.5b"])
+def test_prefill_then_decode_consistency(arch):
+    """tests/test_models.py:97-113 across frameworks: prefill(prompt) and one
+    decode step on its caches, held against JAX's full forward over the
+    prompt and the greedy token (the port's caches are cache_len long, so
+    the step lands on slot S and not on the prompt's last)."""
+    japi, jparams, tapi, tparams = models(arch, weight_mult=5.0)
+    B, S = 2, 8
+    toks = tokens(japi.cfg, B, S, seed=5)
+    pf_logits, state = tapi.prefill(tparams, {"tokens": torch.as_tensor(toks)}, cache_len=S + 1)
+    assert bool(torch.isfinite(pf_logits).all())
+    tok = torch.argmax(pf_logits, -1)[:, None]
+    logits, state2 = tapi.decode_step(tparams, state, tok)
+    assert bool(torch.isfinite(logits).all())
+    assert state2.pos == state.pos + 1 == S + 1
+    seq = np.concatenate([toks, tok.numpy()], axis=1)
+    pos = jnp.broadcast_to(jnp.arange(S + 1, dtype=jnp.int32), (B, S + 1))
+    h, _ = jax_forward(jparams, jax_embed(jparams, jnp.asarray(seq), japi.cfg), pos, japi.cfg, None)
+    want = jax_logits_fn(jparams, h, japi.cfg)
+    close(pf_logits, want[:, S - 1])
+    close(logits, want[:, S])

@@ -22,23 +22,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as jax_get_config
 from repro.kernels import ops as jax_ops
-from repro.models import build_model as jax_build_model
 from repro.models import ssm as jax_ssm
-from repro.models.layers import logits_fn as jax_logits_fn
-from repro.models.transformer import embed_tokens as jax_embed
-from repro.models.transformer import forward as jax_forward
-from repro.training.checkpoint import _flatten
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd_kernel
-from repro_torch.models import build_model as tt_build_model
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tt
-from repro_torch.models.convert import params_from_flat
-from repro_torch.models.layers import logits_fn
 
-from _torch_parity import models, np32, torch_cfg
+from _torch_parity import bf16_decode_drift, models, np32
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -144,36 +135,7 @@ def test_bf16_decode_drifts_from_forward_no_more_than_jax(seed):
     reference too.  The port's drift, on the same bf16 weights and tokens,
     stays within 1.5x of the reference's own at every decode step taken
     together (measured ratio 0.7-0.95 over seeds 0-2)."""
-    jcfg = dataclasses.replace(jax_get_config("mamba2-130m").reduced(), dtype="bfloat16")
-    japi = jax_build_model(jcfg)
-    jparams = japi.init(jax.random.PRNGKey(seed))
-    tcfg = torch_cfg(jcfg)
-    tapi = tt_build_model(tcfg)
-    tparams = params_from_flat(_flatten(jparams), tcfg, "cpu")
-    B, P, new = 2, 32, 32  # prompt and whole sequence are multiples of the chunk (32)
-    toks = np.random.default_rng(seed).integers(0, jcfg.vocab_size, (B, P + new))
-
-    logits, state = japi.prefill(jparams, {"tokens": jnp.asarray(toks[:, :P])})
-    step = jax.jit(lambda p, s, t: japi.decode_step(p, s, t))
-    jax_dec = []
-    for i in range(new):
-        logits, state = step(jparams, state, jnp.asarray(toks[:, P + i : P + i + 1], jnp.int32))
-        jax_dec.append(np32(logits))
-    pos = jnp.broadcast_to(jnp.arange(P + new, dtype=jnp.int32), toks.shape)
-    h, _ = jax_forward(jparams, jax_embed(jparams, jnp.asarray(toks), jcfg), pos, jcfg, None)
-    jax_full = np32(jax_logits_fn(jparams, h, jcfg))
-
-    t = torch.as_tensor(toks)
-    logits, tstate = tapi.prefill(tparams, {"tokens": t[:, :P]}, cache_len=P + new)
-    port_dec = []
-    for i in range(new):
-        logits, tstate = tapi.decode_step(tparams, tstate, t[:, P + i : P + i + 1])
-        port_dec.append(np32(logits))
-    h, _ = tt.forward(tparams, tt.embed_tokens(tparams, t, tcfg), tt.arange_positions(B, P + new, "cpu"), tcfg)
-    port_full = np32(logits_fn(tparams, h, tcfg))
-
-    jax_drift = max(np.abs(jax_dec[i] - jax_full[:, P + i]).max() for i in range(new))
-    port_drift = max(np.abs(port_dec[i] - port_full[:, P + i]).max() for i in range(new))
+    port_drift, jax_drift = bf16_decode_drift("mamba2-130m", seed)
     assert 0 < jax_drift < 0.1, jax_drift  # bf16 rounding, not a broken path
     assert port_drift <= 1.5 * jax_drift, (port_drift, jax_drift)
 

@@ -138,7 +138,9 @@ def test_adamw_keeps_parameter_storage_and_dtype():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m"])
+@pytest.mark.parametrize(
+    "arch", ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b"]
+)
 def test_lm_loss_grads_match(arch):
     japi, jparams, tapi, params = trainable(arch)
     toks = tokens(japi.cfg, 2, 32, seed=1)
@@ -250,7 +252,7 @@ def test_group_advantages_match(rewards):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b"])
 def test_batch_for_matches_jax(arch):
     shape = InputShape("t", 24, 3, "train")
     got = batch_for(get_config(arch), shape, seed=7)
