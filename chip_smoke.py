@@ -7,9 +7,10 @@ Phases, each of which raises on failure (nothing is caught):
 
 1. environment: the card's name and power limit; TF32 off for f32 matmuls
    and convolutions;
-2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-   an empty one-thread kernel (``launch_floor.cu``), one nvcc per source
-   started together, for sm_90a, printing what ptxas reports;
+2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (each
+   library with its backward entry points) and an empty one-thread kernel
+   (``launch_floor.cu``), one nvcc per source started together, for sm_90a,
+   printing what ptxas reports;
 3. kernels: the launch floor (the empty kernel's time, taken as the
    kernels' are); each kernel against its plain PyTorch version on the
    card, at the shapes the serving paths give it and at longer ones, with
@@ -20,7 +21,9 @@ Phases, each of which raises on failure (nothing is caught):
    output, each ``ssd_intra_chunk`` case with its launch plan; the cases
    include every shape that phase 4's ``hymba-1.5b`` runs give rmsnorm
    (d 1600 and the SSM's d_inner 3200), flash attention (H 25 / KV 5) and
-   ``ssd_intra_chunk`` (50 heads, N 16), in bf16 and f32;
+   ``ssd_intra_chunk`` (50 heads, N 16), in bf16 and f32, and every forward
+   shape of phase 6's LM training (granite 4 x 256: moe_matmul at C 256;
+   mamba2 and hymba 2 x 512: ``ssd_intra_chunk`` at Q 256 on four chunks);
 4. serving at full width on seeded random bf16 weights.  Each path runs
    with the launch counts set to 0 just before it and checked just after
    against the counts its depth implies: greedy generation (4 requests x
@@ -36,20 +39,30 @@ Phases, each of which raises on failure (nothing is caught):
    and one warm score call of each model (device busy share, device
    operations, the top kernels); every (kernel, shape) that the hymba runs
    launch must be one of phase 3's cases;
-5. backward kernels: flash attention's dq and dk/dv kernels and RMSNorm's
-   dx and dweight kernels against autograd through their plain versions,
-   over a grid of types, head dims, masks, GQA groups and lengths (236
-   cases), timed at the training paths' shapes and longer ones beside their
-   bounds, the plain versions and the library's gradient (``sdpa``,
-   ``F.rms_norm``), each timed pair called twice for bit-identical results;
+5. backward kernels: flash attention's dq and dk/dv kernels, RMSNorm's dx
+   (a warp per row, and a block per row past D 2048) and dweight kernels,
+   moe_matmul's dbuf and dw kernels and ``ssd_intra_chunk``'s kernel and
+   reduce against autograd through their plain versions, over grids of
+   types, head dims, masks, GQA groups, lengths, capacities, widths, state
+   sizes, chunk lengths, zero, absent and non-zero chunk-state gradients and
+   a strong decay, timed at the training paths' shapes and longer ones
+   beside their bounds, the plain versions and the library's gradient
+   (``sdpa``, ``F.rms_norm``, ``torch.bmm``; none for the SSD), each timed
+   kernel called twice for bit-identical results;
 6. training at full width on seeded random bf16 weights, with exact launch
    counts: GRPO (the paper's loop without the control plane:
    ``smollm-360m`` generates 4 prompts x group 4, 128 prompt + 32 sampled
    tokens; ``llama3.2-1b`` scores them; group advantages; three
    ``make_grpo_step`` steps), checking that the positive-advantage
    sequences gain log-probability over the negative ones; and LM training
-   through ``repro_torch.launch.train`` (``llama3.2-1b``, 4 x 256, three
-   steps); one warm step of each profiled;
+   through ``repro_torch.launch.train``, three steps each: ``llama3.2-1b``
+   (4 x 256, through ``main``), and through ``trainer_from_config`` and ``train``
+   ``granite-moe-3b-a800m`` (4 x 256; 24 of its 32 layers, as its full
+   depth's training state does not fit the card), ``mamba2-130m`` and
+   ``hymba-1.5b`` (2 x 512: two SSD chunks a sequence, so the chunk-state
+   gradient is live), with finite losses; one warm step of each profiled,
+   with its peak memory; every (kernel, shape) that the three new families'
+   runs launch must be one of phases 3 and 5's cases;
 7. the closed loop at full width, as ``examples/agentic_rl_e2e.py`` runs it:
    three ``LiveGrpoDriver.run_step`` calls (``smollm-360m`` rolls out 4
    prompts x group 4, 8 + 16 sampled tokens; each of the 16 sequences is one
@@ -62,8 +75,10 @@ Phases, each of which raises on failure (nothing is caught):
    the rollout, reward and update walls; a fourth step, checked the same
    way, under ``torch.profiler`` for the device busy share of a step;
 8. agreement on a small input: the five reduced configs in f32 on the card
-   against the same weights on the CPU (plain versions), serving and, for
-   ``smollm-360m``, one GRPO and one LM step's loss and gradients.
+   against the same weights on the CPU (plain versions), serving; for
+   ``smollm-360m``, one GRPO and one LM step's loss and gradients; for the
+   reduced ``granite-moe-3b-a800m``, ``mamba2-130m`` and ``hymba-1.5b``, one
+   LM step's loss and gradients with its exact launch counts.
 
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -145,6 +160,13 @@ LOOP_PROMPTS, LOOP_GROUP, LOOP_PROMPT, LOOP_NEW, LOOP_STEPS = 4, 4, 8, 16, 3
 # run on the N whole sequences [N, 24]
 LOOP_N, LOOP_SEQ = LOOP_PROMPTS * LOOP_GROUP, LOOP_PROMPT + LOOP_NEW
 LM_ARGS = ["--arch", "llama3.2-1b", "--full", "--steps", "3", "--batch", "4", "--seq", "256"]
+# the other families' LM training, (arch, batch, seq, layers or None for full depth): the SSM
+# families at 2 x 512, so that each sequence has two chunks of 256 and the backward's
+# chunk-state gradient is live.  granite-moe-3b-a800m keeps 24 of its 32 layers at full width:
+# at full depth the literal AdamW's f32 moments and temporaries (its stacked expert leaves hold
+# 1.0 B elements each) ran out of the card's 80 GB
+LM_FAMILY_RUNS = (("granite-moe-3b-a800m", 4, 256, 24), ("mamba2-130m", 2, 512, None),
+                  ("hymba-1.5b", 2, 512, None))
 
 
 def sh(cmd):
@@ -257,6 +279,39 @@ def rmsnorm_bwd_bounds(T, D, elem):
             bound((3 * T * D + 2 * D) * elem / HBM_BYTES_PER_S, 10 * T * D / F32_FLOPS))
 
 
+def moe_bwd_bounds(E, C, D, F, elem):
+    """(dbuf kernel, dw kernel, whole backward) bounds.  dbuf = dout w^T reads dout and w
+    and writes dbuf; dw = buf^T dout reads buf and dout and writes dw; 2 C D F operations
+    per expert each.  The whole backward reads buf, w and dout once and writes both."""
+    peak = BF16_TENSOR_FLOPS if elem == 2 else F32_FLOPS
+    ops_one = 2 * E * C * D * F / peak
+    buf, w, out = E * C * D * elem, E * D * F * elem, E * C * F * elem
+    return (bound((out + w + buf) / HBM_BYTES_PER_S, ops_one),
+            bound((buf + out + w) / HBM_BYTES_PER_S, ops_one),
+            bound((2 * buf + 2 * w + out) / HBM_BYTES_PER_S, 2 * ops_one))
+
+
+def ssd_bwd_bounds(BNC, H, Q, hd, N, elem):
+    """(main kernel, reduce, whole backward) bounds.  The gradient reads x, dy (x's
+    type), b, c, cum and dstate (f32) and writes dx (x's type), db, dc and dcum (f32).
+    Operations over the causal pairs q >= k.  Once per chunk, since the heads share B and
+    C: C B^T (2N), then dC = (sum_h dM_h o L_h) B and its transpose's product with C for dB
+    (2N each).  Per (chunk, head): L, M, dM o L and P (4), the add of dM o L into the head
+    sum (1), dM = dy x^T and M^T dy (2 hd each) and the two sums of P (2); per row the
+    chunk-state terms: B dstate^T and (x o w) dstate (2 hd N each), w o (B dstate^T) and
+    x.(B dstate^T) (3 hd).  All f32 operands, so against the f32 peak.  The f32 partials
+    that the main kernel hands to the reduce count nowhere: the main kernel does the reads,
+    the operations and the dx write; the reduce only the writes of db, dc and dcum."""
+    pairs = Q * (Q + 1) // 2
+    x_bytes = BNC * H * Q * hd * elem
+    reads = 2 * x_bytes + 4 * (2 * BNC * Q * N + BNC * H * Q + BNC * H * hd * N)
+    writes_f32 = 4 * (2 * BNC * Q * N + BNC * H * Q)
+    ops = BNC * 6 * N * pairs + BNC * H * ((4 * hd + 7) * pairs + 4 * Q * hd * N + 3 * Q * hd)
+    return (bound((reads + x_bytes) / HBM_BYTES_PER_S, ops / F32_FLOPS),
+            bound(writes_f32 / HBM_BYTES_PER_S, 0.0),
+            bound((reads + x_bytes + writes_f32) / HBM_BYTES_PER_S, ops / F32_FLOPS))
+
+
 def grad_err(name, got, want, tol):
     """(max |got - want|, that over max |want|, or None where want is all zero).
 
@@ -357,25 +412,41 @@ PORT_KERNEL_PREFIXES = ("rmsnorm", "flash_", "moe_matmul", "ssd_")
 
 def path_launches(cfg, prefills, decode_steps, train_steps=0):
     """Kernel launches of ``prefills`` full forwards, ``decode_steps`` decode
-    steps and ``train_steps`` forward-and-backward steps (dense family).
+    steps and ``train_steps`` forward-and-backward steps.
 
     Norms per layer: two pre-norms (dense, moe); the pre-norm and the SSM's
-    out_norm (ssm); the hybrid's two pre-norms of its parallel heads, the
-    SSM's out_norm, the two output norms of the fusion and the FFN's
-    pre-norm; then the final norm.  tests/test_torch_hybrid.py holds these
+    out_norm over d_inner (ssm); the hybrid's two pre-norms of its parallel
+    heads, the SSM's out_norm, the two output norms of the fusion and the
+    FFN's pre-norm; then the final norm.  A training step runs each forward
+    kernel once more and, in its backward: each norm's dx kernel (the warp
+    route up to D 2048, the block route above) and dweight reduce; flash
+    attention's dq and dk/dv kernels; moe_matmul's dbuf and dw kernels for
+    each of its three products; ssd_intra_chunk's kernel and its reduce.
+    tests/test_torch_hybrid.py and tests/test_torch_backward.py hold these
     counts to the calls the model code makes.
     """
+    from repro_torch.kernels.rmsnorm import BWD_WARP_MAX_DIM  # wider rows take the block route
+
     L, steps = cfg.num_layers, prefills + decode_steps + train_steps
+    ssm, moe, attn = cfg.family in SSM_FAMILIES, cfg.family == "moe", not cfg.attention_free
     norms = (6 if cfg.family == "hybrid" else 2) * L + 1
+    inner = L if ssm else 0  # the out_norms over d_inner
+    wide = ((inner if cfg.d_inner > BWD_WARP_MAX_DIM else 0)
+            + (norms - inner if cfg.d_model > BWD_WARP_MAX_DIM else 0))
     return {
         "rmsnorm": norms * steps,
-        "rmsnorm_bwd": norms * train_steps,
+        "rmsnorm_bwd": (norms - wide) * train_steps,
+        "rmsnorm_bwd_wide": wide * train_steps,
         "rmsnorm_bwd_dweight": norms * train_steps,
-        "flash_attention": 0 if cfg.attention_free else L * (prefills + train_steps),
-        "flash_attention_bwd_dq": L * train_steps,
-        "flash_attention_bwd_dkdv": L * train_steps,
-        "moe_matmul": 3 * L * steps if cfg.family == "moe" else 0,
-        "ssd_intra_chunk": L * prefills if cfg.family in SSM_FAMILIES else 0,
+        "flash_attention": L * (prefills + train_steps) if attn else 0,
+        "flash_attention_bwd_dq": L * train_steps if attn else 0,
+        "flash_attention_bwd_dkdv": L * train_steps if attn else 0,
+        "moe_matmul": 3 * L * steps if moe else 0,
+        "moe_matmul_bwd_dbuf": 3 * L * train_steps if moe else 0,
+        "moe_matmul_bwd_dw": 3 * L * train_steps if moe else 0,
+        "ssd_intra_chunk": L * (prefills + train_steps) if ssm else 0,
+        "ssd_intra_chunk_bwd": L * train_steps if ssm else 0,
+        "ssd_intra_chunk_bwd_reduce": L * train_steps if ssm else 0,
     }
 
 
@@ -401,7 +472,7 @@ def main() -> int:
     from repro_torch.kernels import ssd_scan as ssd_k
     from repro_torch.launch.serve import build_server, timed_generate
     from repro_torch.launch.train import main as train_main
-    from repro_torch.launch.train import next_batch
+    from repro_torch.launch.train import next_batch, train, trainer_from_config
     from repro_torch.models import build_model
     from repro_torch.models.convert import flat_from_params, params_from_flat
     from repro_torch.models.layers import logits_fn
@@ -437,8 +508,12 @@ def main() -> int:
     _build.build_all()
     for k in _build.KERNELS:
         _build.load(k)
+    # the entry points of the backward kernels, bound once here
+    rms_k._entries(), flash_k._entries(), moe_k._bwd_entry(), ssd_k._bwd_entries()
     print(f"[build] {', '.join(_build.KERNELS)} built and loaded in "
-          f"{time.perf_counter() - t0:.1f}s into {_build.BUILD_DIR}")
+          f"{time.perf_counter() - t0:.1f}s into {_build.BUILD_DIR}; backward entry points: "
+          f"rmsnorm_bwd, rmsnorm_bwd_dweight, flash dq, dkdv, moe_matmul_bwd, "
+          f"ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_reduce")
 
     print(f"[time] phase 2 done at {time.perf_counter() - t_start:.1f}s")
 
@@ -467,6 +542,16 @@ def main() -> int:
         (4, H_, KV_, PROMPT, hd_, True, f32, "hymba f32 check prefill"),
         (4, H_, KV_, check_S, hd_, True, f32, "hymba f32 check"),
     ]
+    # the forward shapes of phase 6's LM training (4 x 256 granite, 2 x 512 mamba2 and hymba:
+    # 1024 rows each; two chunks of 256 a sequence, so four chunks in all)
+    lm_rms_cases = [(1024, D, bf16, f"{what} LM") for D, what in (
+        (1536, "granite, mamba2 out_norm"), (768, "mamba2"), (1600, "hymba"), (3200, "hymba out_norm"))]
+    lm_flash_cases = [(4, 24, 8, 256, 64, True, bf16, "granite LM"),
+                      (2, H_, KV_, 512, hd_, True, bf16, "hymba LM")]
+    lm_moe_cases = [(40, 256, 1536, 512, bf16, "granite LM gate/up"),
+                    (40, 256, 512, 1536, bf16, "granite LM down")]
+    lm_ssd_cases = [(2, 2, 256, 24, 128, bf16, "mamba2 LM"), (2, 2, 256, 24, 128, f32, ""),
+                    (2, 2, 256, SH, SN, bf16, "hymba LM"), (2, 2, 256, SH, SN, f32, "")]
     hybrid_ssd_cases = [  # one chunk each: Q = S <= ssm_chunk (256)
         (4, 1, PROMPT, SH, SN, bf16, "hymba prefill"),
         (SCORE_SHAPE[0], 1, SCORE_SHAPE[1], SH, SN, bf16, "hymba score"),
@@ -520,6 +605,7 @@ def main() -> int:
         (LOOP_SEQ, 2048, torch.bfloat16, "closed loop judge"),
         (LOOP_N * LOOP_SEQ, 960, torch.bfloat16, "closed loop old_logp, GRPO"),
         *hybrid_rms_cases,
+        *lm_rms_cases,
         (1000, 2048, torch.bfloat16, ""),
         (1000, 960, torch.bfloat16, ""),
         (1000, 2048, torch.float32, ""),
@@ -547,6 +633,7 @@ def main() -> int:
         (1, 32, 8, LOOP_SEQ, 64, True, torch.bfloat16, "closed loop judge"),
         (LOOP_N, 15, 5, LOOP_SEQ, 64, True, torch.bfloat16, "closed loop old_logp, GRPO"),
         *hybrid_flash_cases,
+        *lm_flash_cases,
     ]
     for S in (160, 1024, 2048):
         for H, KV in ((32, 8), (15, 5)):
@@ -587,6 +674,7 @@ def main() -> int:
         (40, 8, 512, 1536, torch.bfloat16, "granite decode down"),
         (40, 384, 1536, 512, torch.bfloat16, "granite score gate/up"),
         (40, 384, 512, 1536, torch.bfloat16, "granite score down"),
+        *lm_moe_cases,
         (40, 1024, 1536, 512, torch.bfloat16, "longer"),
         (40, 384, 1536, 512, torch.float32, ""),
         (5, 130, 200, 72, torch.float32, "ragged"),
@@ -622,6 +710,7 @@ def main() -> int:
         (2, 3, 160, 24, 128, torch.float32, ""),
         (4, 4, 256, 24, 128, torch.float32, "4 x 1024 tokens"),
         *hybrid_ssd_cases,
+        *lm_ssd_cases,
     ]
     hd = 64
     for B, NC, Q, H, N, dt, what in ssd_cases:
@@ -865,6 +954,72 @@ def main() -> int:
                 keep(f"rmsnorm {n}", dt, [grad_err(f"rmsnorm {n} {T}x{D} {dt}", a, b,
                                                    GRAD_TOL[str(dt)[6:]])])
             checked += 1
+    # rows past 2048: the block route (D 2049 ragged, hymba's 3200, A10's 4096, its limit 8192)
+    for dt in (torch.bfloat16, torch.float32):
+        for T, D in ((1, 3200), (7, 3200), (1024, 3200), (1, 4096), (7, 4096), (1024, 4096),
+                     (7, 2049), (300, 2049), (64, 8192)):
+            x, w = leaves(dt, (T, D), scale=3.0)[0], (1 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
+            w.requires_grad_()
+            dy = randn(T, D, dtype=dt)
+            before = ops.launch_counts()["rmsnorm_bwd_wide"]
+            got, want = grads(ops.rmsnorm_op, (x, w), dy), grads(ref.rmsnorm_ref, (x, w), dy)
+            if ops.launch_counts()["rmsnorm_bwd_wide"] != before + 1:
+                raise AssertionError(f"rmsnorm {T}x{D}: the wide backward kernel did not run")
+            for n, a, b in zip(("dx", "dweight"), got, want):
+                keep(f"rmsnorm wide {n}", dt, [grad_err(f"rmsnorm wide {n} {T}x{D} {dt}", a, b,
+                                                        GRAD_TOL[str(dt)[6:]])])
+            checked += 1
+    # moe_matmul: capacities ragged and whole, 8 through 384; granite's widths (gate/up, down),
+    # the reduced config's, partial tiles, and rows TMA cannot read (the fma route in bf16)
+    for dt in (torch.bfloat16, torch.float32):
+        for C in (8, 130, 256, 384):
+            for E, D, Fd in ((40, 1536, 512), (40, 512, 1536), (4, 256, 128), (3, 264, 200), (3, 100, 36)):
+                buf, w = leaves(dt, (E, C, D))[0], leaves(dt, (E, D, Fd), scale=0.05)[0]
+                dout = randn(E, C, Fd, dtype=dt)
+                got = grads(ops.moe_matmul_op, (buf, w), dout)
+                want = grads(ref.moe_matmul_ref, (buf, w), dout)
+                for n, a, b in zip(("dbuf", "dw"), got, want):
+                    keep(f"moe_matmul {n}", dt, [grad_err(f"moe_matmul {n} E={E} C={C} D={D} F={Fd} {dt}",
+                                                          a, b, GRAD_TOL[str(dt)[6:]])])
+                checked += 1
+    # ssd_intra_chunk: mamba2's and hymba's heads and state sizes, the reduced configs' hd 32,
+    # N 64; Q 32 through 256 with ragged tiles; the chunk-state gradient absent (one chunk:
+    # nothing reads the state), zero and non-zero; then a strong decay (~600 over a chunk)
+    ssd_modes = ("absent", "zero", "non-zero")
+    for dt in (torch.bfloat16, torch.float32):
+        for H, shd, N in ((24, 64, 128), (50, 64, 16), (4, 32, 16), (3, 32, 64), (2, 64, 64)):
+            for Q in (32, 100, 256):
+                for mode in ssd_modes:
+                    xs = leaves(dt, (2, H, Q, shd), scale=0.5)[0]
+                    bs, cs = leaves(torch.float32, (2, Q, N), (2, Q, N), scale=0.5)
+                    cum = (-torch.cumsum(0.1 * torch.rand(2, H, Q, generator=gen, device=dev), -1)
+                           ).requires_grad_()
+                    dy = randn(2, H, Q, shd, dtype=dt)
+                    dst = (None if mode == "absent" else torch.zeros(2, H, shd, N, device=dev)
+                           if mode == "zero" else randn(2, H, shd, N, dtype=torch.float32))
+
+                    def ssd_loss(fn):
+                        y, st = fn(xs, bs, cs, cum)
+                        return (y.float() * dy.float()).sum() + ((st * dst).sum() if dst is not None else 0)
+
+                    got = torch.autograd.grad(ssd_loss(ops.ssd_intra_chunk_op), (xs, bs, cs, cum))
+                    want = torch.autograd.grad(ssd_loss(ref.ssd_intra_chunk_ref), (xs, bs, cs, cum))
+                    for n, a, b in zip(("dx", "db", "dc", "dcum"), got, want):
+                        keep(f"ssd_intra_chunk {n}", dt, [grad_err(
+                            f"ssd_intra_chunk {n} H={H} hd={shd} N={N} Q={Q} dstate {mode} {dt}", a, b,
+                            GRAD_TOL[str(dt)[6:]])])
+                    checked += 1
+        for Q in (64, 256):  # strong decay: exp overflows above the diagonal, underflows below
+            x_, b_, c_ = (randn(*s_, dtype=torch.float32) * 0.5 for s_ in ((2, 3, Q, 64), (2, Q, 16), (2, Q, 16)))
+            cum = -torch.cumsum(20.0 * torch.rand(2, 3, Q, generator=gen, device=dev), -1)
+            dy, dst = randn(2, 3, Q, 64, dtype=dt), randn(2, 3, 64, 16, dtype=torch.float32)
+            got = ssd_k.ssd_intra_chunk_bwd(x_.to(dt), b_, c_, cum, dy, dst)
+            want = ref.ssd_intra_chunk_bwd_ref(*(t.double() for t in (x_.to(dt), b_, c_, cum, dy, dst)))
+            for n, a, b in zip(("dx", "db", "dc", "dcum"), got, want):
+                keep(f"ssd_intra_chunk strong decay {n}", dt, [grad_err(
+                    f"ssd_intra_chunk strong decay {n} Q={Q} {dt} (vs the f64 closed form)", a, b,
+                    GRAD_TOL[str(dt)[6:]])])
+            checked += 1
     print(f"[bwd] {checked} backward cases match their plain versions (bf16 {GRAD_TOL['bfloat16']}, "
           f"f32 {GRAD_TOL['float32']} of the reference's largest magnitude; {ZERO_GRAD_ABS} "
           f"absolute where the reference is 0)")
@@ -877,6 +1032,7 @@ def main() -> int:
         (16, 15, 5, 160, 64, True, torch.bfloat16, "smollm GRPO"),
         (LOOP_N, 15, 5, LOOP_SEQ, 64, True, torch.bfloat16, "closed loop GRPO"),
         (4, 32, 8, 256, 64, True, torch.bfloat16, "llama LM"),
+        *lm_flash_cases,
         (4, 32, 8, 1024, 64, True, torch.bfloat16, ""),
         (4, 15, 5, 1024, 64, True, torch.bfloat16, ""),
         (4, 32, 8, 2048, 64, True, torch.bfloat16, ""),
@@ -923,11 +1079,14 @@ def main() -> int:
         report(f"flash bwd dkdv {label}", errs[1:], tol, m_dkdv, "sdpa grad k, v")
         report(f"flash bwd both {label}", errs, tol, m_all, "sdpa grad q, k, v")
         del q, k, v, dout, out, lse, dq, dk, dv, delta, again, ref_out, lib_out, want
-    rms_bwd_cases = [  # (T, D, dtype, what)
+    rms_bwd_cases = [  # (T, D, dtype, what); past D 2048 the wide (block) route
         (16 * 160, 960, torch.bfloat16, "smollm GRPO"),
         (LOOP_N * LOOP_SEQ, 960, torch.bfloat16, "closed loop GRPO"),
         (4 * 256, 2048, torch.bfloat16, "llama LM"),
         (4 * 256, 2048, torch.float32, ""),
+        *lm_rms_cases,
+        (1024, 4096, torch.bfloat16, "d 4096"),
+        (1024, 3200, torch.float32, ""),
     ]
     for T, D, dt, what in rms_bwd_cases:
         x = leaves(dt, (T, D), scale=3.0)[0]
@@ -952,15 +1111,91 @@ def main() -> int:
         m_all = measure(lambda: rms_k.rmsnorm_bwd_dweight(rms_k.rmsnorm_bwd_dx(x, w, dy)[1], dt),
                         lambda: torch.autograd.grad(ref_out, (x, w), dy, retain_graph=True),
                         lambda: torch.autograd.grad(lib_out, (x, w), dy, retain_graph=True), b_all)
-        bwd_rows[("rmsnorm_bwd", T, D, dt)] = row(errs[0][0], m_dx)
+        kname = "rmsnorm_bwd" if rms_k.bwd_plan(T, D, dt).route == "warp" else "rmsnorm_bwd_wide"
+        bwd_rows[(kname, T, D, dt)] = row(errs[0][0], m_dx)
         bwd_rows[("rmsnorm_bwd_dweight", T, D, dt)] = row(errs[1][0], m_dw)
-        label = f"T={T} D={D} {str(dt)[6:]} {what}"
+        label = f"T={T} D={D} {str(dt)[6:]} {what} ({rms_k.bwd_plan(T, D, dt).route} route)"
         report(f"rmsnorm bwd dx+partials {label}", errs[:1], tol, m_dx, "F.rms_norm grad x, w")
         report(f"rmsnorm bwd dweight reduce {label}", errs[1:], tol, m_dw, "torch.sum")
         report(f"rmsnorm bwd both {label}", errs, tol, m_all, "F.rms_norm grad x, w")
         del x, w, dy, part, dx, dw, again, ref_out, lib_out, want
-    print(f"[bwd] determinism: every timed backward pair gave bit-identical gradients in two calls "
-          f"({len(flash_bwd_cases)} flash, {len(rms_bwd_cases)} rmsnorm shapes)")
+    moe_bwd_cases = [*lm_moe_cases, (40, 256, 1536, 512, torch.float32, "")]  # (E, C, D, F, dtype, what)
+    for E, C, D, Fd, dt, what in moe_bwd_cases:
+        buf, w = leaves(dt, (E, C, D))[0], leaves(dt, (E, D, Fd), scale=0.05)[0]
+        dout = randn(E, C, Fd, dtype=dt)
+        dbuf, dw = moe_k.moe_matmul_bwd(buf, w, dout)
+        again = moe_k.moe_matmul_bwd(buf, w, dout)
+        if not (torch.equal(dbuf, again[0]) and torch.equal(dw, again[1])):  # no atomics
+            raise AssertionError(f"moe_matmul bwd E={E} C={C} D={D} F={Fd}: two calls differ")
+        ref_out = ref.moe_matmul_ref(buf, w)
+        tol = GRAD_TOL[str(dt)[6:]]
+        want = torch.autograd.grad(ref_out, (buf, w), dout, retain_graph=True)
+        errs = [grad_err(f"moe_matmul bwd {n} E={E} C={C} D={D} F={Fd}", a, b, tol)
+                for n, a, b in zip(("dbuf", "dw"), (dbuf, dw), want)]
+        b_dbuf, b_dw, b_all = moe_bwd_bounds(E, C, D, Fd, buf.element_size())
+        def plain(*of):
+            return lambda: torch.autograd.grad(ref_out, of, dout, retain_graph=True)
+
+        m_dbuf = measure(lambda: moe_k.moe_matmul_bwd(buf, w, dout, dw=False), plain(buf),
+                         lambda: torch.bmm(dout, w.transpose(1, 2)), b_dbuf)
+        m_dw = measure(lambda: moe_k.moe_matmul_bwd(buf, w, dout, dbuf=False), plain(w),
+                       lambda: torch.bmm(buf.transpose(1, 2), dout), b_dw)
+        m_all = measure(lambda: moe_k.moe_matmul_bwd(buf, w, dout), plain(buf, w),
+                        lambda: (torch.bmm(dout, w.transpose(1, 2)), torch.bmm(buf.transpose(1, 2), dout)),
+                        b_all)
+        key = (E, C, D, Fd, dt)
+        bwd_rows[("moe_matmul_bwd_dbuf",) + key] = row(errs[0][0], m_dbuf)
+        bwd_rows[("moe_matmul_bwd_dw",) + key] = row(errs[1][0], m_dw)
+        plan = moe_k.bwd_plan(E, C, D, Fd, dt)
+        label = f"E={E} C={C} D={D} F={Fd} {str(dt)[6:]} {what} ({plan.route} route)"
+        report(f"moe_matmul bwd dbuf {label}", errs[:1], tol, m_dbuf, "bmm dout w^T")
+        report(f"moe_matmul bwd dw {label}", errs[1:], tol, m_dw, "bmm buf^T dout")
+        report(f"moe_matmul bwd both {label}", errs, tol, m_all, "two bmm")
+        print(f"[bwd]   launch plan: route {plan.route}, tile {plan.block_m} x {plan.block_n} x "
+              f"{plan.block_k}, {plan.stages} stages, {plan.threads} threads, grids dbuf "
+              f"{plan.dbuf_grid} for {plan.dbuf_tiles} tiles and dw {plan.dw_grid} for "
+              f"{plan.dw_tiles}, {plan.smem_bytes} bytes of shared memory")
+        del buf, w, dout, dbuf, dw, again, ref_out, want
+    ssd_bwd_cases = [(B * NC, H, Q, 64, N, dt, what) for B, NC, Q, H, N, dt, what in lm_ssd_cases]
+    for BNC, H, Q, shd, N, dt, what in ssd_bwd_cases:
+        xs = leaves(dt, (BNC, H, Q, shd), scale=0.5)[0]
+        bs, cs = leaves(torch.float32, (BNC, Q, N), (BNC, Q, N), scale=0.5)
+        cum = (-torch.cumsum(0.1 * torch.rand(BNC, H, Q, generator=gen, device=dev), -1)).requires_grad_()
+        dy, dst = randn(BNC, H, Q, shd, dtype=dt), randn(BNC, H, shd, N, dtype=torch.float32)
+        args = (xs, bs, cs, cum, dy, dst)
+        got = ssd_k.ssd_intra_chunk_bwd(*args)
+        again = ssd_k.ssd_intra_chunk_bwd(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):  # fixed-order sums
+            raise AssertionError(f"ssd_intra_chunk bwd BNC={BNC} H={H} Q={Q} N={N}: two calls differ")
+        y_ref, st_ref = ref.ssd_intra_chunk_ref(xs, bs, cs, cum)
+        tol = GRAD_TOL[str(dt)[6:]]
+        want = torch.autograd.grad((y_ref, st_ref), (xs, bs, cs, cum), (dy, dst), retain_graph=True)
+        errs = [grad_err(f"ssd_intra_chunk bwd {n} BNC={BNC} H={H} Q={Q} N={N}", a, b, tol)
+                for n, a, b in zip(("dx", "db", "dc", "dcum"), got, want)]
+        b_main, b_red, b_all = ssd_bwd_bounds(BNC, H, Q, shd, N, xs.element_size())
+        plain = lambda: torch.autograd.grad((y_ref, st_ref), (xs, bs, cs, cum), (dy, dst),
+                                            retain_graph=True)
+        plan = ssd_k.bwd_plan(BNC, H, Q, shd, N, dt)
+        parts = ssd_k.ssd_intra_chunk_bwd_main(*args)[1]
+        m_main = measure(lambda: ssd_k.ssd_intra_chunk_bwd_main(*args), plain, None, b_main,
+                         plain_iters=5)
+        m_red = measure(lambda: ssd_k.ssd_intra_chunk_bwd_reduce(parts), plain, None, b_red,
+                        plain_iters=5)
+        m_all = measure(lambda: ssd_k.ssd_intra_chunk_bwd(*args), plain, None, b_all, plain_iters=5)
+        key = (BNC, H, Q, shd, N, dt)
+        bwd_rows[("ssd_intra_chunk_bwd",) + key] = row(max(e for e, _ in errs), m_main)
+        bwd_rows[("ssd_intra_chunk_bwd_reduce",) + key] = row(max(e for e, _ in errs[1:]), m_red)
+        label = f"BNC={BNC} H={H} Q={Q} hd={shd} N={N} {str(dt)[6:]} {what}"
+        report(f"ssd_intra_chunk bwd main {label}", errs, tol, m_main, "no single PyTorch call")
+        report(f"ssd_intra_chunk bwd reduce {label}", errs[1:], tol, m_red, "no single PyTorch call")
+        report(f"ssd_intra_chunk bwd both {label}", errs, tol, m_all, "no single PyTorch call")
+        print(f"[bwd]   launch plan: route {plan.route}, grid {plan.grid}, {plan.threads} threads, "
+              f"{plan.state_cols} state columns a thread row, {plan.smem_bytes} bytes of shared "
+              f"memory; reduce {plan.reduce_blocks} blocks of 256")
+        del xs, bs, cs, cum, dy, dst, got, again, y_ref, st_ref, want, parts
+    print(f"[bwd] determinism: every timed backward kernel gave bit-identical gradients in two "
+          f"calls ({len(flash_bwd_cases)} flash, {len(rms_bwd_cases)} rmsnorm, "
+          f"{len(moe_bwd_cases)} moe_matmul, {len(ssd_bwd_cases)} ssd_intra_chunk shapes)")
     torch.cuda.empty_cache()
 
     print(f"[time] phase 5 done at {time.perf_counter() - t_start:.1f}s")
@@ -977,7 +1212,7 @@ def main() -> int:
     def profiled_step(label, fn):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _, ms = wall_ms(fn)
+        ms = wall_ms(fn)[1]  # the step's returned state is dropped at once: it holds new moments
         mem = torch.cuda.max_memory_allocated() / 2**30
         print(f"[train] {label}: one warm step {ms:.1f} ms wall, max_memory_allocated "
               f"{mem:.2f} GiB [{name}; {card}]")
@@ -1058,6 +1293,54 @@ def main() -> int:
     del trainer, lm_batch
     torch.cuda.empty_cache()
 
+    # the moe, ssm and hybrid families through the same launcher, every (kernel, shape) recorded
+    def moe_key(buf, w, *_, **__):
+        return (*buf.shape, w.shape[2], buf.dtype)
+
+    checked_shapes.update(
+        moe_matmul={c[:5] for c in moe_cases},
+        flash_attention_bwd={c[:7] for c in flash_bwd_cases},
+        rmsnorm_bwd={c[:3] for c in rms_bwd_cases},
+        moe_matmul_bwd={c[:5] for c in moe_bwd_cases},
+        ssd_intra_chunk_bwd={c[:6] for c in ssd_bwd_cases},
+    )
+    train_wrappers = (*forward_wrappers, (moe_k, "moe_matmul", moe_key),
+                      (flash_k, "flash_attention_bwd", flash_key), (rms_k, "rmsnorm_bwd", rms_key),
+                      (moe_k, "moe_matmul_bwd", moe_key), (ssd_k, "ssd_intra_chunk_bwd", ssd_key))
+    for arch, batch, seq, layers in LM_FAMILY_RUNS:
+        cfg = get_config(arch)
+        if layers is not None:  # a depth cut; the widths stay published
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+
+        def lm_train(cfg=cfg, batch=batch, seq=seq):
+            trainer = trainer_from_config(cfg, steps=3, batch=batch, seq=seq, device=dev)
+            return trainer, train(trainer, 3)
+
+        train_shapes = set()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recording(train_shapes, train_wrappers):
+            trainer, metrics = count_run(f"lm train {arch}", lm_train,
+                                         path_launches(cfg, 0, 0, train_steps=3))
+        wall_s = time.perf_counter() - t0
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        losses = [m["loss"] for m in metrics]
+        if not all(math.isfinite(m[k]) for m in metrics for k in ("loss", "grad_norm")):
+            raise AssertionError(f"LM training {arch}: metrics {metrics}")
+        print(f"[train] lm {arch} full (L={cfg.num_layers}) {batch}x{seq}: losses "
+              + ", ".join(f"{x:.4f}" for x in losses)
+              + f" (ln V = {math.log(cfg.vocab_size):.4f}); grad_norm "
+              + ", ".join(f"{m['grad_norm']:.3f}" for m in metrics)
+              + (f"; load_balance {metrics[-1]['load_balance']:.4f}" if cfg.family == "moe" else "")
+              + f"; launches as expected; set-up and three steps {wall_s:.2f}s wall, "
+              f"max_memory_allocated {mem:.2f} GiB [{name}; {card}]")
+        assert_checked(f"lm {arch}", train_shapes)
+        lm_batch = next_batch(trainer)
+        profiled_step(f"lm step {arch}", lambda: trainer.step(trainer.state, lm_batch))
+        del trainer, lm_batch, metrics
+        torch.cuda.empty_cache()
+        print(f"[time] lm {arch} done at {time.perf_counter() - t_start:.1f}s")
+
     print(f"[time] phase 6 done at {time.perf_counter() - t_start:.1f}s")
 
     # ---- 7. the closed loop: GRPO with the judge's actions through Tangram --
@@ -1082,9 +1365,8 @@ def main() -> int:
     expect = {k: sum(part[k] for part in parts) for k in parts[0]}  # rollout, judges, old_logp, step
     loop_rng = np.random.default_rng(0)
 
-    # every shape the loop gives a kernel must be one phases 3 and 5 held against its plain version
-    checked_shapes.update(flash_attention_bwd={c[:7] for c in flash_bwd_cases},
-                          rmsnorm_bwd={c[:3] for c in rms_bwd_cases})
+    # every shape the loop gives a kernel must be one phases 3 and 5 held against its plain
+    # version (checked_shapes holds the backward cases since phase 6)
     loop_shapes = set()
     print(f"[time] closed loop set up at {time.perf_counter() - t_start:.1f}s")
     step_walls = []
@@ -1188,6 +1470,32 @@ def main() -> int:
         print(f"[small] {cfg.name} f32 {kind} step card vs cpu: loss err {e_loss:.2e}, grads err "
               f"{e_grad:.2e} of each leaf's largest magnitude (tol {SMALL_F32_TOL})")
 
+    # one LM step of the reduced moe, ssm and hybrid configs in f32 (the SSM families on two
+    # chunks a sequence), with the launches of one training step
+    for arch in ("granite-moe-3b-a800m", "mamba2-130m", HYBRID):
+        cfg = get_config(arch).reduced()
+        api = build_model(cfg)
+        p_gpu = api.init(torch.Generator(device=dev).manual_seed(4), dev, trainable=True)
+        p_cpu = params_from_flat(flat_from_params(p_gpu), cfg, "cpu").requires_grad_(True)
+        seq = 2 * cfg.ssm_chunk if cfg.family in SSM_FAMILIES else 24
+        toks = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        lg = api.loss_fn(p_gpu, {"tokens": toks})[0]
+        gg = grads_of(lg, p_gpu)
+        torch.cuda.synchronize()
+        counts, expect = ops.launch_counts(), path_launches(cfg, 0, 0, train_steps=1)
+        if counts != expect:
+            raise AssertionError(f"small lm {cfg.name}: launches {counts}, expected {expect}")
+        lc = api.loss_fn(p_cpu, {"tokens": toks.cpu()})[0]
+        gc = grads_of(lc, p_cpu)
+        e_loss = assert_close(f"small lm {cfg.name} loss", lg.detach().cpu(), lc.detach(), SMALL_F32_TOL)
+        e_grad = max(grad_err(f"small lm {cfg.name} grad {k}", gg[k].cpu(), gc[k], SMALL_F32_TOL)[1] or 0.0
+                     for k in gc)
+        print(f"[small] {cfg.name} f32 lm step 2x{seq} card vs cpu: loss err {e_loss:.2e}, grads err "
+              f"{e_grad:.2e} of each leaf's largest magnitude (tol {SMALL_F32_TOL}); launches as "
+              f"expected")
+
     # ---- report ---------------------------------------------------------
     kernels = [
         dict(name="rmsnorm", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1211,19 +1519,34 @@ def main() -> int:
         ("flash_attention_bwd_dkdv", grpo_shape, "flash_attention", "src/repro/kernels/flash_attention.py:72"),
         ("rmsnorm_bwd", (16 * 160, 960, torch.bfloat16), "rmsnorm", "src/repro/kernels/rmsnorm.py:19"),
         ("rmsnorm_bwd_dweight", (16 * 160, 960, torch.bfloat16), "rmsnorm", "src/repro/kernels/rmsnorm.py:19"),
+        ("rmsnorm_bwd_wide", (1024, 3200, torch.bfloat16), "rmsnorm", "src/repro/kernels/rmsnorm.py:19"),
+        ("moe_matmul_bwd_dbuf", (40, 256, 1536, 512, torch.bfloat16), "moe_matmul",
+         "src/repro/kernels/moe_matmul.py:36"),
+        ("moe_matmul_bwd_dw", (40, 256, 1536, 512, torch.bfloat16), "moe_matmul",
+         "src/repro/kernels/moe_matmul.py:36"),
+        ("ssd_intra_chunk_bwd", (4, 24, 256, 64, 128, torch.bfloat16), "ssd_scan",
+         "src/repro/kernels/ssd_scan.py:39"),
+        ("ssd_intra_chunk_bwd_reduce", (4, 24, 256, 64, 128, torch.bfloat16), "ssd_scan",
+         "src/repro/kernels/ssd_scan.py:39"),
     ):
         # the TPU kernel has no backward: "replaces" names the kernel whose gradient this is
         kernels.append(dict(name=kname, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}.cu",
                             replaces=of, launches=launches[kname], **bwd_rows[(kname,) + key]))
     for k in kernels:
         k["pass"] = "backward" if "_bwd" in k["name"] else "forward"
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels the main path never launched: {idle}")
     print("[report] per-kernel numbers, bf16: forward at the score shapes, rmsnorm [1280, 2048] and "
           "flash B=8 H=32 KV=8 S=160 d=64 causal (llama3.2-1b), moe_matmul E=40 C=384 D=1536 "
           "F=512 (granite-moe-3b-a800m gate/up), ssd_intra_chunk BNC=8 H=24 Q=160 hd=64 N=128 "
           "(mamba2-130m); backward at the GRPO shape (smollm-360m, 16 x 160): flash B=16 H=15 "
           "KV=5 S=160 d=64 causal (plain and library: the gradient of the same inputs), rmsnorm "
-          "[2560, 960]; launches summed over the eight serving runs, the training runs and the "
-          "closed loop's four steps (three plus the profiled one)")
+          "[2560, 960]; at the LM shapes: the wide rmsnorm backward [1024, 3200] (hymba-1.5b's "
+          "out_norm), moe_matmul's dbuf and dw E=40 C=256 D=1536 F=512 (granite gate/up; library "
+          "torch.bmm), ssd_intra_chunk's backward and reduce BNC=4 H=24 Q=256 hd=64 N=128 "
+          "(mamba2-130m 2 x 512); launches summed over the eight serving runs, the training runs "
+          "and the closed loop's four steps (three plus the profiled one)")
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card)

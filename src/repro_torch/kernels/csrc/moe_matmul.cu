@@ -55,6 +55,25 @@
 // No route uses atomics: every output element is summed in one fixed order,
 // so two calls give bit-identical results.
 //
+// Backward (no TPU counterpart: the JAX package differentiates the plain
+// product).  For the gradient dout [E, C, F]: dbuf = dout w^T ([E, C, F] x
+// [E, F, D]) and dw = buf^T dout ([E, D, C] x [E, C, F]), two launches
+// (moe_matmul_bwd, which = 0 and 1), each laid out by moe_matmul.py's
+// bwd_plan and refusing any other.  Bound: bytes at the training shape, as
+// the forward (granite at C = 256: ~105 MB for 16 GFLOP per product pair).
+// - "wgmma": bf16 with the forward's TMA conditions.  The forward's kernel
+//   shape (persistent blocks, a producer warpgroup, 128 x 128 tiles on two
+//   consumer warpgroups, a six-stage ring, TMA-stored epilogue) with the
+//   operands' major-ness changed: dbuf reads dout K-major (as buf) and w
+//   K-major too (boxes of 64 rows of D by 64 of F: w^T's rows are w's
+//   columns), dw reads buf MN-major as A (transposed: each consumer
+//   warpgroup's 64 columns of D, a box of 64 rows of C each) and dout
+//   MN-major as B.  TMA zero-fills past C, so the dw reduction over a
+//   ragged capacity adds zeros.
+// - "fma": f32, or bf16 rows that TMA cannot read.  CUDA-core FMAs in f32 on
+//   64 x 64 tiles over 16-deep slices, each operand read through its
+//   strides (element loads along its contiguous dimension).
+//
 // Tried on the card and not kept (PERF.md): clusters of two blocks
 // sharing the buf tile by TMA multicast (2-3x slower), 32-deep stages,
 // asking the next stages into L2 ahead of the ring, 128-column decode units
@@ -348,6 +367,64 @@ constexpr int static_smem() {
          static_cast<int>(sizeof(T));
 }
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Backward on CUDA cores: out[e] (M x N) = sum over k of A(m, k) B(k, n) in f32,
+// A(m, k) = a[e sae + m sam + k sak], B(k, n) = b[e sbe + k sbk + n sbn].
+// 256 threads, each a 4 x 4 piece of the 64 x 64 tile; operands staged as f32.
+constexpr int kBwdThreads = 256, kBwdK = 16, kBwdLd = 64 + 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+moe_matmul_bwd_fma(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out, int M,
+                   int N, int K, int64_t sae, int64_t sam, int64_t sak, int64_t sbe, int64_t sbk,
+                   int64_t sbn) {
+  __shared__ __align__(16) float As[kBwdK][kBwdLd];  // [k][m]
+  __shared__ __align__(16) float Bs[kBwdK][kBwdLd];  // [k][n]
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int64_t e = blockIdx.z;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const T* ae = a + e * sae;
+  const T* be = b + e * sbe;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += kBwdK) {
+    // neighbouring threads read neighbouring addresses of each operand
+    for (int i = threadIdx.x; i < BM * kBwdK; i += kBwdThreads) {
+      const int m = sak == 1 ? i / kBwdK : i % BM, k = sak == 1 ? i % kBwdK : i / BM;
+      As[k][m] = (m0 + m < M && k0 + k < K) ? to_float(ae[(m0 + m) * sam + (k0 + k) * sak]) : 0.f;
+    }
+    for (int i = threadIdx.x; i < BN * kBwdK; i += kBwdThreads) {
+      const int n = sbn == 1 ? i % BN : i / kBwdK, k = sbn == 1 ? i / BN : i % kBwdK;
+      Bs[k][n] = (n0 + n < N && k0 + k < K) ? to_float(be[(k0 + k) * sbk + (n0 + n) * sbn]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kBwdK; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+      const float a4[4] = {av.x, av.y, av.z, av.w}, b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  T* oe = out + e * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
+      if (m < M && n < N) oe[static_cast<int64_t>(m) * N + n] = from_float<T>(acc[i][j]);
+    }
+}
+
 }  // namespace
 
 namespace tc {  // bf16 on wgmma fed by TMA
@@ -616,6 +693,123 @@ moe_matmul_wgmma_t(const __grid_constant__ CUtensorMap tx, const __grid_constant
   if (tid == 0) bulk_wait<0>();
 }
 
+// Backward on wgmma ("wgmma" route of bwd_plan), 128 x 128 tiles of
+// out[e] (M x N) over K in 64-deep stages; the walk, the ring and the
+// epilogue are moe_matmul_wgmma<128>'s.
+// kDw = false, dbuf: M = C, N = D, K = F; A = dout boxes [128 of C][64 of F]
+//   (K-major), B = w boxes [64 of D][64 of F], two per stage (K-major).
+// kDw = true, dw: M = D, N = F, K = C; A = buf boxes [64 of C][64 of D], one
+//   per consumer warpgroup (MN-major, wgmma's transposed A), B = dout boxes
+//   [64 of C][64 of F], two per stage (MN-major).
+template <bool kDw>
+__device__ __forceinline__ void produce_bwd(const Walk& w, const CUtensorMap* ta,
+                                            const CUtensorMap* tb, bf16* a_ring, bf16* b_ring,
+                                            uint64_t* full, uint64_t* empty) {
+  constexpr int ST = WgSmem<128>::ST;
+  int e, m0, n0, k0;
+  for (int it = 0; w.at(it, e, m0, n0, k0); ++it) {
+    const int s = it % ST;
+    if (it >= ST) mbar_wait(empty + s, (it / ST - 1) & 1);
+    mbar_expect_tx(full + s, (kRows + 128) * kDepth * 2);
+    bf16* a = a_ring + s * kRows * 64;
+    bf16* b = b_ring + s * 2 * 64 * 64;
+    if constexpr (kDw) {
+      for (int h = 0; h < 2; ++h) tma_load_3d(a + h * 64 * 64, ta, full + s, m0 + 64 * h, k0, e);
+      for (int j = 0; j < 2; ++j) tma_load_3d(b + j * 64 * 64, tb, full + s, n0 + 64 * j, k0, e);
+    } else {
+      tma_load_3d(a, ta, full + s, k0, m0, e);
+      for (int j = 0; j < 2; ++j) tma_load_3d(b + j * 64 * 64, tb, full + s, k0, n0 + 64 * j, e);
+    }
+  }
+}
+
+template <bool kDw>
+__global__ void __launch_bounds__(kThreads, 1)
+moe_matmul_bwd_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                     const __grid_constant__ CUtensorMap to, int E, int M, int N, int K) {
+  using L = WgSmem<128>;
+  constexpr int ST = L::ST;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* As = reinterpret_cast<bf16*>(sm + L::a);  // [ST][128 * 64]
+  bf16* Bs = reinterpret_cast<bf16*>(sm + L::b);  // [ST][2][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* empty = full + ST;
+  const int m_tiles = (M + kRows - 1) / kRows, n_tiles = (N + 127) / 128;
+  const int tiles = E * n_tiles * m_tiles, nk = (K + kDepth - 1) / kDepth;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  wait_for_previous_kernel();
+
+  if (warp >= 8) {  // producer warpgroup
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256)
+      produce_bwd<kDw>(Walk{m_tiles, n_tiles, tiles, nk, kRows, 128}, &ta, &tb, As, Bs, full, empty);
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int wg = warp >> 2, tid = threadIdx.x & 127, g = lane >> 2, tq = lane & 3;
+  const int r0 = (warp & 3) * 16 + g;
+  unsigned char* staging = sm + L::out + wg * 2 * 8192;
+  int it = 0, stores = 0;
+  float acc[64];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int e = t / (m_tiles * n_tiles), n0 = (t / m_tiles) % n_tiles * 128;
+    const int m0 = t % m_tiles * kRows;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % ST;
+      mbar_wait(full + s, (it / ST) & 1);
+      __syncwarp();
+      const bf16* At = As + s * kRows * 64;
+      const bf16* Bt = Bs + s * 2 * 64 * 64;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (kDw)
+          wgmma_ss_n128<1, 1>(acc, desc_mn(At + wg * 64 * 64, 64, 0, kk), desc_mn(Bt, 64, 0, kk),
+                              kt | kk);
+        else
+          wgmma_ss_n128<0>(acc, desc_k(At, kRows, wg * 64, kk), desc_k(Bt, 128, 0, kk), kt | kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+    fence_regs(acc);
+    if (m0 + wg * 64 >= M) continue;  // the warpgroup's rows are all past M
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (n0 + 64 * j >= N) break;
+      unsigned char* st = staging + (stores++ & 1) * 8192;
+      if (tid == 0) bulk_wait_read<1>();
+      named_sync(1 + wg, 128);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int i = 4 * (8 * j + jj);
+        *reinterpret_cast<uint32_t*>(st + sw128(r0, 8 * jj + 2 * tq)) = pack_bf16(acc[i], acc[i + 1]);
+        *reinterpret_cast<uint32_t*>(st + sw128(r0 + 8, 8 * jj + 2 * tq)) =
+            pack_bf16(acc[i + 2], acc[i + 3]);
+      }
+      fence_async_shared();
+      named_sync(1 + wg, 128);
+      if (tid == 0) {
+        tma_store_3d(&to, st, n0 + 64 * j, m0 + wg * 64, e);
+        bulk_commit();
+      }
+    }
+  }
+  if (tid == 0) bulk_wait<0>();
+}
+
 }  // namespace tc
 
 namespace {
@@ -688,8 +882,7 @@ cudaError_t launch_cuda_cores(const void* buf, const void* w, void* out, int C, 
 // are set on its first launch on each device (they stay with the
 // function; the plan check has fixed p.smem to the kernel's own size).
 template <auto kKernel>
-cudaError_t launch_tma(int a_rows, int o_rows, const void* buf, const void* w, void* out, int E,
-                       int C, int D, int F, const Plan& p, cudaStream_t stream) {
+cudaError_t configure_once(int64_t smem) {
   static std::atomic<uint64_t> configured{0};  // one bit per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -697,13 +890,21 @@ cudaError_t launch_tma(int a_rows, int o_rows, const void* buf, const void* w, v
   const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
   if (!(configured.load(std::memory_order_acquire) & bit)) {
     err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(p.smem));
+                               static_cast<int>(smem));
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kKernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     configured.fetch_or(bit, std::memory_order_release);
   }
+  return cudaSuccess;
+}
+
+template <auto kKernel>
+cudaError_t launch_tma(int a_rows, int o_rows, const void* buf, const void* w, void* out, int E,
+                       int C, int D, int F, const Plan& p, cudaStream_t stream) {
+  cudaError_t err = configure_once<kKernel>(p.smem);
+  if (err != cudaSuccess) return err;
   CUtensorMap ta, tw, to;
   if (!hopper::map_bf16_3d(&ta, buf, D, C, E, a_rows) || !hopper::map_bf16_3d(&tw, w, F, D, E, 64) ||
       !hopper::map_bf16_3d(&to, out, F, C, E, o_rows))
@@ -762,6 +963,83 @@ extern "C" int moe_matmul_fwd(int dtype, const int64_t* plan_in, const void* buf
                            : launch_cuda_cores<float, false>(buf, w, out, c, d, f, plan, s);
   }
   return static_cast<int>(err);
+}
+
+namespace {
+
+// The backward's own plan for one of its two launches (which: 0 dbuf, 1 dw);
+// the grid of a route walks (M, N) = (C, D) for dbuf and (D, F) for dw.
+Plan bwd_plan(int route, int which, int E, int C, int D, int F) {
+  const int64_t M = which == 0 ? C : D, N = which == 0 ? D : F;
+  if (route == kWgmma) {
+    const int64_t tiles = static_cast<int64_t>(E) * ((M + 127) / 128) * ((N + 127) / 128);
+    return wgmma_plan<128>(tiles);
+  }
+  return {kFma, BN, kBwdK, 1, kBwdThreads, static_cast<int>((N + BN - 1) / BN),
+          static_cast<int>((M + BM - 1) / BM), E,
+          static_cast<int64_t>(2 * kBwdK * kBwdLd * sizeof(float))};
+}
+
+}  // namespace
+
+// Backward of moe_matmul_fwd, one launch per gradient.  which = 0: out =
+// dbuf [E, C, D] = a w^T with a = dout [E, C, F], b = w [E, D, F]; which =
+// 1: out = dw [E, D, F] = a^T b with a = buf [E, C, D], b = dout [E, C, F].
+// All contiguous, of one dtype (0 f32, 1 bf16).  plan: moe_matmul.py's
+// bwd_plan for this launch as nine integers (route 0 wgmma or 2 fma,
+// block_n, block_k, stages, threads, grid x, y, z, shared-memory bytes);
+// any other returns cudaErrorInvalidConfiguration.
+extern "C" int moe_matmul_bwd(int which, int dtype, const int64_t* plan_in, const void* a,
+                              const void* b, void* out, int64_t E, int64_t C, int64_t D, int64_t F,
+                              void* stream) {
+  if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 || C > 0x7fffffff || D > 0x7fffffff ||
+      F > 0x7fffffff || (D + BM - 1) / BM > 65535 || (C + BM - 1) / BM > 65535 ||
+      (which != 0 && which != 1) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int e = static_cast<int>(E), c = static_cast<int>(C), d = static_cast<int>(D),
+            f = static_cast<int>(F);
+  const bool aligned = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  const int route = dtype == 1 && aligned && d % 8 == 0 && f % 8 == 0 ? kWgmma : kFma;
+  const Plan given{static_cast<int>(plan_in[0]), static_cast<int>(plan_in[1]),
+                   static_cast<int>(plan_in[2]), static_cast<int>(plan_in[3]),
+                   static_cast<int>(plan_in[4]), static_cast<int>(plan_in[5]),
+                   static_cast<int>(plan_in[6]), static_cast<int>(plan_in[7]), plan_in[8]};
+  const Plan plan = bwd_plan(route, which, e, c, d, f);
+  if (!(given == plan)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kWgmma) {
+    cudaError_t err = which == 0 ? configure_once<tc::moe_matmul_bwd_wgmma<false>>(plan.smem)
+                                 : configure_once<tc::moe_matmul_bwd_wgmma<true>>(plan.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    CUtensorMap ta, tb, to;
+    const bool ok = which == 0
+        ? hopper::map_bf16_3d(&ta, a, F, C, E, tc::kRows) && hopper::map_bf16_3d(&tb, b, F, D, E, 64) &&
+              hopper::map_bf16_3d(&to, out, D, C, E, 64)
+        : hopper::map_bf16_3d(&ta, a, D, C, E, 64) && hopper::map_bf16_3d(&tb, b, F, C, E, 64) &&
+              hopper::map_bf16_3d(&to, out, F, D, E, 64);
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    err = which == 0
+        ? hopper::launch_dependent(tc::moe_matmul_bwd_wgmma<false>, dim3(plan.grid_x),
+                                   dim3(plan.threads), plan.smem, s, ta, tb, to, e, c, d, f)
+        : hopper::launch_dependent(tc::moe_matmul_bwd_wgmma<true>, dim3(plan.grid_x),
+                                   dim3(plan.threads), plan.smem, s, ta, tb, to, e, d, f, c);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  }
+  // fma: (M, N, K) and the strides of A(m, k) and B(k, n)
+  const dim3 grid(plan.grid_x, plan.grid_y, plan.grid_z);
+  const int M = which == 0 ? c : d, N = which == 0 ? d : f, K = which == 0 ? f : c;
+  const int64_t sae = which == 0 ? C * F : C * D, sam = which == 0 ? F : 1, sak = which == 0 ? 1 : D;
+  const int64_t sbe = which == 0 ? D * F : C * F, sbk = which == 0 ? 1 : F, sbn = which == 0 ? F : 1;
+  if (dtype == 1)
+    moe_matmul_bwd_fma<__nv_bfloat16><<<grid, kBwdThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+        static_cast<__nv_bfloat16*>(out), M, N, K, sae, sam, sak, sbe, sbk, sbn);
+  else
+    moe_matmul_bwd_fma<float><<<grid, kBwdThreads, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), M, N,
+        K, sae, sam, sak, sbe, sbk, sbn);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* moe_matmul_error_string(int err) {

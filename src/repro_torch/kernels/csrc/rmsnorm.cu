@@ -41,6 +41,15 @@
 // partials at the end of the first launch would read them at one SM's
 // rate), made a programmatic dependent launch: it is resident and waiting
 // when the first kernel's grid ends.
+//
+// Rows wider than 2048 (hymba-1.5b's SSM out_norm, 3200; d 4096) do not fit
+// one warp's registers: rmsnorm_bwd_wide_kernel spreads a row over a block
+// of 256 threads (up to 32 elements a thread, so D <= 8192), with the two
+// row sums reduced by warp shuffles and then across the 8 warps in shared
+// memory, in warp order.  The persistent grid walks rows one at a time per
+// block; each thread owns fixed columns, so it keeps their dweight sums in
+// f32 registers across its block's rows and writes the block's row of
+// partials directly, for the same column reduce as the warp route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -272,6 +281,99 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __
   }
 }
 
+// Wide rows: a block of kWideThreads per row, up to kWidePerThread elements a thread.
+constexpr int kWideThreads = 256, kWidePerThread = 32;
+constexpr int kMaxWideDim = kWideThreads * kWidePerThread;
+
+template <typename T, int VEC, int CPT>
+__global__ void __launch_bounds__(kWideThreads)
+rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ dy,
+                        T* __restrict__ dx, float* __restrict__ dw_part, int64_t rows, int dim,
+                        int64_t x_stride, int64_t rows_per_block, float eps) {
+  using V = Vec<T, VEC>;
+  constexpr int kWarps = kWideThreads / 32;
+  __shared__ float red[2][2][kWarps];  // [row parity][sum x^2, sum n x][warp]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nchunks = dim / VEC;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
+  const int64_t row_end = row0 + rows_per_block < rows ? row0 + rows_per_block : rows;
+  const V* wp = reinterpret_cast<const V*>(w);
+  auto chunk = [&](int i) { return static_cast<int>(threadIdx.x) + kWideThreads * i; };
+  auto zero = [](V& v) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v.v[j] = from_float<T>(0.f);
+  };
+
+  float acc[CPT * VEC];
+#pragma unroll
+  for (int e = 0; e < CPT * VEC; ++e) acc[e] = 0.f;
+  for (int64_t row = row0; row < row_end; ++row) {
+    const V* xp = reinterpret_cast<const V*>(x + row * x_stride);
+    const V* gp = reinterpret_cast<const V*>(dy + row * dim);
+    V xa[CPT], ga[CPT], wa[CPT];
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      if (chunk(i) < nchunks) {
+        xa[i] = xp[chunk(i)];
+        ga[i] = gp[chunk(i)];
+        wa[i] = wp[chunk(i)];
+      } else {
+        zero(xa[i]);
+        zero(ga[i]);
+        zero(wa[i]);
+      }
+    }
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float f = to_float(xa[i].v[j]);
+        ss = fmaf(f, f, ss);
+        dot = fmaf(to_float(from_float<T>(to_float(ga[i].v[j]) * to_float(wa[i].v[j]))), f, dot);
+      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    }
+    // parity buffers: a warp reaches row + 2's writes only after every warp
+    // has passed row + 1's barrier, so after row's reads
+    float (&rb)[2][kWarps] = red[row & 1];
+    if (lane == 0) {
+      rb[0][warp] = ss;
+      rb[1][warp] = dot;
+    }
+    __syncthreads();
+    ss = dot = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) {
+      ss += rb[0][wi];
+      dot += rb[1][wi];
+    }
+    const float r = 1.0f / sqrtf(ss / static_cast<float>(dim) + eps);
+    const float k = r * r * r * dot / static_cast<float>(dim);
+    V* op = reinterpret_cast<V*>(dx + row * dim);
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      V o;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        o.v[j] = from_float<T>(bwd_elem<T>(to_float(xa[i].v[j]), to_float(ga[i].v[j]),
+                                           to_float(wa[i].v[j]), r, k, acc[i * VEC + j]));
+      if (chunk(i) < nchunks) op[chunk(i)] = o;
+    }
+  }
+  hopper::launch_dependents();  // the column reduce may start; it waits for this grid
+  if (dw_part == nullptr) return;
+  float* part = dw_part + static_cast<int64_t>(blockIdx.x) * dim;
+#pragma unroll
+  for (int i = 0; i < CPT; ++i)
+    if (chunk(i) < nchunks)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) part[chunk(i) * VEC + j] = acc[i * VEC + j];
+}
+
 constexpr int kReduceCols = 32, kReduceSlices = 8;  // 256 threads per block
 
 // dw[c] = sum over the nparts rows of part[:, c], in a fixed order, rounded once.
@@ -314,20 +416,35 @@ void* pick_bwd(int per_lane) {
   }
 }
 
+// The wide instantiation whose CPT chunks of VEC elements a thread cover the row.
+template <typename T, int VEC, int CPT = 1>
+void* pick_wide(int per_thread) {
+  if constexpr (CPT * VEC > kWidePerThread) {
+    return nullptr;
+  } else {
+    if (per_thread <= CPT) return reinterpret_cast<void*>(rmsnorm_bwd_wide_kernel<T, VEC, CPT>);
+    return pick_wide<T, VEC, 2 * CPT>(per_thread);
+  }
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw_part,
                        int64_t rows, int64_t dim, int64_t x_stride, int rows_per_block,
                        int blocks, int64_t smem, float eps, cudaStream_t stream) {
   const int64_t want_blocks = (rows + rows_per_block - 1) / rows_per_block;
-  const int warps = bwd_warps(dim, sizeof(T));
-  const int64_t want_smem = dw_part != nullptr ? warps * dim * static_cast<int64_t>(sizeof(float)) : 0;
+  const bool wide = dim > kMaxBwdDim;  // a block per row, no shared-memory column sums
+  const int warps = wide ? kWideThreads / 32 : bwd_warps(dim, sizeof(T));
+  const int64_t want_smem =
+      dw_part != nullptr && !wide ? warps * dim * static_cast<int64_t>(sizeof(float)) : 0;
   if (rows_per_block <= 0 || blocks != want_blocks || smem != want_smem)
     return cudaErrorInvalidConfiguration;
-  if (dim > kMaxBwdDim) return cudaErrorInvalidValue;
+  if (dim > kMaxWideDim) return cudaErrorInvalidValue;
   constexpr int N = Pack<T>::N;
   const bool vec = vec_ok<T>(dim, x_stride, {x, w, dy, dx});
-  const int per_lane = static_cast<int>(vec ? (dim / N + 31) / 32 : (dim + 31) / 32);
-  void* fn = vec ? pick_bwd<T, N>(per_lane) : pick_bwd<T, 1>(per_lane);
+  const int lanes = wide ? kWideThreads : 32;
+  const int per_lane = static_cast<int>(vec ? (dim / N + lanes - 1) / lanes : (dim + lanes - 1) / lanes);
+  void* fn = wide ? (vec ? pick_wide<T, N>(per_lane) : pick_wide<T, 1>(per_lane))
+                  : (vec ? pick_bwd<T, N>(per_lane) : pick_bwd<T, 1>(per_lane));
   if (fn == nullptr) return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -379,7 +496,8 @@ extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* w, void* out, i
 // Backward, first kernel: dx [rows, dim] (contiguous, like dy) and, if
 // dw_part is not null, one row of f32 column sums of dy * round(x r) per
 // block into dw_part [blocks, dim].  rows_per_block, blocks and smem are
-// rmsnorm.py::bwd_plan's (smem: dim f32 per warp with dw_part, else 0);
+// rmsnorm.py::bwd_plan's (smem: dim f32 per warp with dw_part on the warp
+// route, dim <= 2048, else 0; rows up to 8192 wide take the block route);
 // another plan returns cudaErrorInvalidConfiguration.
 extern "C" int rmsnorm_bwd(int dtype, const void* x, const void* w, const void* dy, void* dx,
                            void* dw_part, int64_t rows, int64_t dim, int64_t x_stride,

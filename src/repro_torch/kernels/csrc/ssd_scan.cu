@@ -46,6 +46,27 @@
 // in 64-wide slices of N, split as they are stored.  State blocks stage
 // x o exp(cum_last - cum) and B in 32-row slices, split the same way.
 //
+// Backward (namespace bwd; no TPU counterpart: the JAX package
+// differentiates the plain scan).  Per (chunk, head), with G = C B^T,
+// M = G o L, w_k = exp(cum_last - cum_k) and the gradients dy, dstate:
+//   dM = dy x^T (lower triangle), dML = dM o L, P = dM o M;
+//   dx = M^T dy + w o (B dstate^T);            (per head, in x's dtype)
+//   dC = sum_h dML B;  dB = sum_h dML^T C + sum_h (x o w) dstate;
+//   dcum_q = rowsum P - colsum P - w_q x_q.(dstate B_q), and dcum_last
+//   also gets sum_k w_k x_k.(dstate B_k).
+// Bound: operations, as the forward (about twice its products).  Two block
+// roles per (chunk, head), 256 threads each on f32 CUDA-core FMAs for both
+// x dtypes (a simple first kernel: bf16 x is widened as it is staged): a
+// "k" block owns 64 columns k and walks the row tiles q >= k, recomputing
+// the G and dM tiles, for dx, the dML^T C part of dB and the column sums of
+// P, then adds the dstate terms; a "q" block owns 64 rows q and walks the
+// column tiles k <= q for the dML B part of dC and the row sums of P.  L is
+// evaluated only where q >= k (masked before exp, as in the forward).  The
+// heads' dB and dC and the two halves of dcum go to f32 partials that a
+// second launch sums in a fixed order (no atomics: two calls give the same
+// bits).  dstate may be absent (a sequence of one chunk): its terms are
+// skipped.  N <= 128 (a thread's row of dB or dC lives in registers).
+//
 // f32 x: CUDA-core FMAs throughout (namespace cc, 256 threads), so every
 // product stays f32.  y blocks keep up to 4 heads' accumulators in
 // registers and compute each C B^T tile once for them (FMAs over 32-deep
@@ -632,6 +653,364 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ b, const float
 
 }  // namespace cc
 
+
+// ------------------------------------------------------------- backward --
+
+namespace bwd {
+
+constexpr int kThreads = 256;  // 16 x 16: thread (ty, tx) owns rows 4 ty.. and columns 4 tx.. of a tile
+constexpr int kLd = BQ + 4;    // row stride of the [*][64] tiles
+constexpr int kMaxState = 128;
+
+// f32 words of shared memory: x^T and dy^T [HD][kLd], B^T and C^T [N][kLd],
+// two [64][kLd] tiles, four [64] vectors
+__host__ __device__ constexpr size_t smem_floats(int HD, int N) {
+  return static_cast<size_t>(kLd) * (2 * HD + 2 * N + 2 * BQ) + 4 * BQ;
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// rows [r0, r0 + 64) x columns [0, ncols) of a row-major matrix (ld
+// elements) into dst[col][row] as f32; rows at or past R are zero.
+template <typename T>
+__device__ __forceinline__ void stage_t(const T* __restrict__ src, int64_t ld, int r0, int R,
+                                        int ncols, float* dst) {
+  for (int i = threadIdx.x; i < BQ * ncols; i += kThreads) {
+    const int r = i / ncols, col = i - r * ncols;  // neighbouring threads, neighbouring columns
+    dst[col * kLd + r] = r0 + r < R ? to_f(src[static_cast<int64_t>(r0 + r) * ld + col]) : 0.f;
+  }
+}
+
+// Sum over the 16 threads of a half-warp (the tx of one ty).
+__device__ __forceinline__ float sum16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// grid (2 row tiles, H, BNC): x < row tiles are "k" blocks (column tile x),
+// the rest "q" blocks, the longest row tile first.  Partials: db_part,
+// dc_part [BNC, H, Q, N]; dcum_row (q blocks), dcum_col (k blocks) [BNC, H,
+// Q]; last_part [BNC, H, row tiles] (each k block's sum of w x.(dstate B)).
+template <typename T, int HD, int NB>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ b, const float* __restrict__ c,
+               const float* __restrict__ cum, const T* __restrict__ dy,
+               const float* __restrict__ dstate, T* __restrict__ dx, float* __restrict__ db_part,
+               float* __restrict__ dc_part, float* __restrict__ dcum_row,
+               float* __restrict__ dcum_col, float* __restrict__ last_part, int H, int Q, int N) {
+  extern __shared__ __align__(16) float sm[];
+  float* XkT = sm;              // [HD][kLd]  x of the k tile, transposed
+  float* dyT = XkT + HD * kLd;  // [HD][kLd]  dy of the q tile, transposed
+  float* BkT = dyT + HD * kLd;  // [N][kLd]   B of the k tile, transposed
+  float* CqT = BkT + N * kLd;   // [N][kLd]   C of the q tile, transposed
+  float* Ms = CqT + N * kLd;    // [BQ][kLd]  k blocks: M [q][k]; q blocks: dML^T [k][q]
+  float* dMs = Ms + BQ * kLd;   // [BQ][kLd]  k blocks: dML [q][k]
+  float* cq = dMs + BQ * kLd;   // [BQ] cum of the q tile's rows
+  float* ck = cq + BQ;          // [BQ] cum of the k tile's columns
+  float* wk = ck + BQ;          // [BQ] exp(cum_last - cum) of the k tile's columns
+  float* tws = wk + BQ;         // [BQ] w_k x_k.(dstate B_k)
+  constexpr int KD = HD / 16;
+  const int RT = (Q + BQ - 1) / BQ;
+  const int h = blockIdx.y, i = blockIdx.z;
+  const int64_t ih = static_cast<int64_t>(i) * H + h;
+  const T* xh = x + ih * Q * HD;
+  const T* dyh = dy + ih * Q * HD;
+  const float* bi = b + static_cast<int64_t>(i) * Q * N;
+  const float* ci = c + static_cast<int64_t>(i) * Q * N;
+  const float* cumh = cum + ih * Q;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const bool k_role = static_cast<int>(blockIdx.x) < RT;
+  const int tile = k_role ? blockIdx.x : 2 * RT - 1 - blockIdx.x;
+
+  // G and dM of the staged tiles (rows q = 4 ty + a, columns k = 4 tx + b),
+  // then weighed: ml = M (or nothing), dml = dM o L; returns P = dML o G.
+  auto tiles = [&](int q0, int k0, float (&ml)[4][4], float (&dml)[4][4], float (&p)[4][4]) {
+    float g[4][4], dm[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) g[a][e] = dm[a][e] = 0.f;
+    for (int n = 0; n < N; ++n) {
+      const float4 cv = *reinterpret_cast<const float4*>(CqT + n * kLd + ty * 4);
+      const float4 bv = *reinterpret_cast<const float4*>(BkT + n * kLd + tx * 4);
+      const float c4[4] = {cv.x, cv.y, cv.z, cv.w}, b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) g[a][e] = fmaf(c4[a], b4[e], g[a][e]);
+    }
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      const float4 yv = *reinterpret_cast<const float4*>(dyT + d * kLd + ty * 4);
+      const float4 xv = *reinterpret_cast<const float4*>(XkT + d * kLd + tx * 4);
+      const float y4[4] = {yv.x, yv.y, yv.z, yv.w}, x4[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dm[a][e] = fmaf(y4[a], x4[e], dm[a][e]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = q0 + ty * 4 + a, k = k0 + tx * 4 + e;
+        // exp only where q >= k (both inside the chunk)
+        const float L = (q >= k && q < Q) ? expf(cq[ty * 4 + a] - ck[tx * 4 + e]) : 0.f;
+        ml[a][e] = g[a][e] * L;
+        dml[a][e] = dm[a][e] * L;
+        p[a][e] = dml[a][e] * g[a][e];
+      }
+  };
+  auto stage_cum = [&](float* dst, int r0) {
+    if (tid < BQ) dst[tid] = r0 + tid < Q ? cumh[r0 + tid] : 0.f;
+  };
+
+  if (k_role) {
+    const int k0 = tile * BQ;
+    stage_t(xh, HD, k0, Q, HD, XkT);
+    stage_t(bi, N, k0, Q, N, BkT);
+    stage_cum(ck, k0);
+    if (tid < BQ) wk[tid] = k0 + tid < Q ? expf(cumh[Q - 1] - cumh[k0 + tid]) : 0.f;
+    float dxa[4][KD], dba[4][NB], colp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int j = 0; j < KD; ++j) dxa[a][j] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) dba[a][j] = 0.f;
+    }
+    for (int q0 = k0; q0 < Q; q0 += BQ) {
+      __syncthreads();  // the previous row tile's products are consumed
+      stage_t(ci, N, q0, Q, N, CqT);
+      stage_t(dyh, HD, q0, Q, HD, dyT);
+      stage_cum(cq, q0);
+      __syncthreads();
+      float m[4][4], dml[4][4], p[4][4];
+      tiles(q0, k0, m, dml, p);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          colp[e] += p[a][e];
+          Ms[(ty * 4 + a) * kLd + tx * 4 + e] = m[a][e];
+          dMs[(ty * 4 + a) * kLd + tx * 4 + e] = dml[a][e];
+        }
+      __syncthreads();
+      // rows k = 4 ty + a: dx[k][d] += M[q][k] dy[q][d], dB[k][n] += dML[q][k] C[q][n]
+      for (int q = 0; q < BQ; ++q) {
+        const float4 mv = *reinterpret_cast<const float4*>(Ms + q * kLd + ty * 4);
+        const float4 lv = *reinterpret_cast<const float4*>(dMs + q * kLd + ty * 4);
+        const float m4[4] = {mv.x, mv.y, mv.z, mv.w}, l4[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+        for (int j = 0; j < KD; ++j) {
+          const float yv = dyT[(tx + 16 * j) * kLd + q];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) dxa[a][j] = fmaf(m4[a], yv, dxa[a][j]);
+        }
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const int n = tx + 16 * j;
+          const float cv = n < N ? CqT[n * kLd + q] : 0.f;
+#pragma unroll
+          for (int a = 0; a < 4; ++a) dba[a][j] = fmaf(l4[a], cv, dba[a][j]);
+        }
+      }
+    }
+    __syncthreads();  // the last row tile's products are consumed
+    float* red = dyT;  // [16][BQ]: each ty's column sums of P
+#pragma unroll
+    for (int e = 0; e < 4; ++e) red[ty * BQ + tx * 4 + e] = colp[e];
+    float tw[4] = {0.f, 0.f, 0.f, 0.f};
+    if (dstate != nullptr) {
+      const float* ds = dstate + ih * HD * N;
+      float* dS = Ms;    // [HD][N]
+      float* dST = CqT;  // [N][HD]
+      for (int e = tid; e < HD * N; e += kThreads) {
+        const float v = ds[e];
+        const int d = e / N, n = e - d * N;
+        dS[e] = v;
+        dST[n * HD + d] = v;
+      }
+      __syncthreads();
+      // (B dstate^T)[k][d] for k = 4 ty + a, d = tx + 16 j
+      float bds[4][KD];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int j = 0; j < KD; ++j) bds[a][j] = 0.f;
+      for (int n = 0; n < N; ++n) {
+        const float4 bv = *reinterpret_cast<const float4*>(BkT + n * kLd + ty * 4);
+        const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int j = 0; j < KD; ++j) {
+          const float sv = dST[n * HD + tx + 16 * j];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) bds[a][j] = fmaf(b4[a], sv, bds[a][j]);
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float w = wk[ty * 4 + a];
+        float xd = 0.f;
+#pragma unroll
+        for (int j = 0; j < KD; ++j) {
+          xd = fmaf(XkT[(tx + 16 * j) * kLd + ty * 4 + a], bds[a][j], xd);
+          dxa[a][j] = fmaf(w, bds[a][j], dxa[a][j]);
+        }
+        tw[a] = w * sum16(xd);
+      }
+      // dB[k][n] += w_k sum_d x[k][d] dstate[d][n]
+      for (int d = 0; d < HD; ++d) {
+        const float4 xv = *reinterpret_cast<const float4*>(XkT + d * kLd + ty * 4);
+        const float xw[4] = {xv.x * wk[ty * 4], xv.y * wk[ty * 4 + 1], xv.z * wk[ty * 4 + 2],
+                             xv.w * wk[ty * 4 + 3]};
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const int n = tx + 16 * j;
+          const float sv = n < N ? dS[d * N + n] : 0.f;
+#pragma unroll
+          for (int a = 0; a < 4; ++a) dba[a][j] = fmaf(xw[a], sv, dba[a][j]);
+        }
+      }
+    }
+    if (tx == 0)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) tws[ty * 4 + a] = tw[a];
+    __syncthreads();
+    if (tid < BQ && k0 + tid < Q) {
+      float s = 0.f;
+      for (int r = 0; r < 16; ++r) s += red[r * BQ + tid];
+      dcum_col[ih * Q + k0 + tid] = -s - tws[tid];
+    }
+    if (tid == 0) {
+      float s = 0.f;
+      for (int t = 0; t < BQ; ++t) s += tws[t];  // zero past Q (w is zero there)
+      last_part[ih * RT + tile] = s;
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int k = k0 + ty * 4 + a;
+      if (k >= Q) break;
+#pragma unroll
+      for (int j = 0; j < KD; ++j) store(dx + (ih * Q + k) * HD + tx + 16 * j, dxa[a][j]);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        if (tx + 16 * j < N) db_part[(ih * Q + k) * N + tx + 16 * j] = dba[a][j];
+    }
+  } else {
+    const int q0 = tile * BQ;
+    stage_t(ci, N, q0, Q, N, CqT);
+    stage_t(dyh, HD, q0, Q, HD, dyT);
+    stage_cum(cq, q0);
+    float dca[4][NB], rowp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < NB; ++j) dca[a][j] = 0.f;
+    for (int k0 = 0; k0 <= q0; k0 += BQ) {
+      __syncthreads();  // the previous column tile's products are consumed
+      stage_t(xh, HD, k0, Q, HD, XkT);
+      stage_t(bi, N, k0, Q, N, BkT);
+      stage_cum(ck, k0);
+      __syncthreads();
+      float m[4][4], dml[4][4], p[4][4];
+      tiles(q0, k0, m, dml, p);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          rowp[a] += p[a][e];
+          Ms[(tx * 4 + e) * kLd + ty * 4 + a] = dml[a][e];  // dML^T [k][q]
+        }
+      __syncthreads();
+      // rows q = 4 ty + a: dC[q][n] += dML[q][k] B[k][n]
+      for (int k = 0; k < BQ; ++k) {
+        const float4 lv = *reinterpret_cast<const float4*>(Ms + k * kLd + ty * 4);
+        const float l4[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const int n = tx + 16 * j;
+          const float bv = n < N ? BkT[n * kLd + k] : 0.f;
+#pragma unroll
+          for (int a = 0; a < 4; ++a) dca[a][j] = fmaf(l4[a], bv, dca[a][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float rs = sum16(rowp[a]);
+      const int q = q0 + ty * 4 + a;
+      if (q >= Q) continue;
+      if (tx == 0) dcum_row[ih * Q + q] = rs;
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        if (tx + 16 * j < N) dc_part[(ih * Q + q) * N + tx + 16 * j] = dca[a][j];
+    }
+  }
+}
+
+// db, dc [BNC, Q, N] = the heads' partials summed in head order; dcum [BNC,
+// H, Q] = dcum_row + dcum_col, and at q = Q - 1 the k blocks' last_part in
+// tile order.  One thread per output element, the b and c elements first.
+__global__ void __launch_bounds__(256)
+ssd_bwd_reduce(const float* __restrict__ db_part, const float* __restrict__ dc_part,
+               const float* __restrict__ dcum_row, const float* __restrict__ dcum_col,
+               const float* __restrict__ last_part, float* __restrict__ db, float* __restrict__ dc,
+               float* __restrict__ dcum, int BNC, int H, int Q, int N) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
+  const int64_t qn = static_cast<int64_t>(Q) * N, nbc = BNC * qn;
+  if (idx < nbc) {
+    const int64_t i = idx / qn, r = idx - i * qn;
+    float sb = 0.f, sc = 0.f;
+    for (int h = 0; h < H; ++h) {
+      sb += db_part[(i * H + h) * qn + r];
+      sc += dc_part[(i * H + h) * qn + r];
+    }
+    db[idx] = sb;
+    dc[idx] = sc;
+  } else if (idx < nbc + static_cast<int64_t>(BNC) * H * Q) {
+    const int64_t j = idx - nbc, ih = j / Q;
+    float v = dcum_row[j] + dcum_col[j];
+    if (j - ih * Q == Q - 1) {
+      const int RT = (Q + BQ - 1) / BQ;
+      for (int t = 0; t < RT; ++t) v += last_part[ih * RT + t];
+    }
+    dcum[j] = v;
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(int NB, const void* x, const float* b, const float* c, const float* cum,
+                   const void* dy, const float* dstate, void* dx, float* db_part, float* dc_part,
+                   float* dcum_row, float* dcum_col, float* last_part, int BNC, int H, int Q,
+                   int N, size_t smem, cudaStream_t stream) {
+  const int RT = (Q + BQ - 1) / BQ;
+  const dim3 grid(2 * RT, H, BNC);
+  void* fn;
+  switch (NB) {
+    case 1: fn = reinterpret_cast<void*>(ssd_bwd_kernel<T, HD, 1>); break;
+    case 4: fn = reinterpret_cast<void*>(ssd_bwd_kernel<T, HD, 4>); break;
+    case 8: fn = reinterpret_cast<void*>(ssd_bwd_kernel<T, HD, 8>); break;
+    default: return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const T* xp = static_cast<const T*>(x);
+  const T* dyp = static_cast<const T*>(dy);
+  T* dxp = static_cast<T*>(dx);
+  void* args[] = {&xp, &b, &c, &cum, &dyp, &dstate, &dxp, &db_part, &dc_part, &dcum_row,
+                  &dcum_col, &last_part, &H, &Q, &N};
+  err = cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace bwd
+
 // Launch one route after checking that the plan computed in Python (heads
 // per block, grid, shared-memory bytes) is the one it was written for.
 template <typename T, int HD>
@@ -704,6 +1083,60 @@ extern "C" int ssd_intra_chunk_fwd(int dtype, int HD, const void* x, const float
                                                 heads_per_block, grid_x, smem, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Backward, first launch: dx [BNC, H, Q, HD] in x's dtype (0 f32, 1 bf16;
+// dy the same) and the f32 partials (see bwd::ssd_bwd_kernel); dstate
+// [BNC, H, HD, N] f32 or null (zero).  grid_x, state_cols and smem are
+// ssd_scan.py::bwd_plan's (2 row tiles; the N columns a thread's registers
+// cover, 16, 64 or 128; the shared-memory bytes); any other returns
+// cudaErrorInvalidConfiguration.  All contiguous.
+extern "C" int ssd_intra_chunk_bwd(int dtype, int HD, const void* x, const float* b,
+                                   const float* c, const float* cum, const void* dy,
+                                   const float* dstate, void* dx, float* db_part, float* dc_part,
+                                   float* dcum_row, float* dcum_col, float* last_part, int BNC,
+                                   int H, int Q, int N, int grid_x, int state_cols, int64_t smem,
+                                   void* stream) {
+  if (BNC <= 0 || H <= 0 || Q <= 0 || N <= 0 || BNC > 65535 || H > 65535 || N > bwd::kMaxState)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = N <= 16 ? 1 : N <= 64 ? 4 : 8;
+  const size_t bytes = 4 * bwd::smem_floats(HD, N);
+  if (grid_x != 2 * ((Q + BQ - 1) / BQ) || state_cols != 16 * nb || smem != static_cast<int64_t>(bytes))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0 && HD == 32)
+    err = bwd::launch<float, 32>(nb, x, b, c, cum, dy, dstate, dx, db_part, dc_part, dcum_row,
+                                 dcum_col, last_part, BNC, H, Q, N, bytes, s);
+  else if (dtype == 0 && HD == 64)
+    err = bwd::launch<float, 64>(nb, x, b, c, cum, dy, dstate, dx, db_part, dc_part, dcum_row,
+                                 dcum_col, last_part, BNC, H, Q, N, bytes, s);
+  else if (dtype == 1 && HD == 32)
+    err = bwd::launch<bf16, 32>(nb, x, b, c, cum, dy, dstate, dx, db_part, dc_part, dcum_row,
+                                dcum_col, last_part, BNC, H, Q, N, bytes, s);
+  else if (dtype == 1 && HD == 64)
+    err = bwd::launch<bf16, 64>(nb, x, b, c, cum, dy, dstate, dx, db_part, dc_part, dcum_row,
+                                dcum_col, last_part, BNC, H, Q, N, bytes, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// Backward, second launch: db, dc [BNC, Q, N] and dcum [BNC, H, Q], f32,
+// from the first launch's partials; blocks of 256 threads, one thread per
+// output element (blocks: ssd_scan.py::bwd_plan's).
+extern "C" int ssd_intra_chunk_bwd_reduce(const float* db_part, const float* dc_part,
+                                          const float* dcum_row, const float* dcum_col,
+                                          const float* last_part, float* db, float* dc,
+                                          float* dcum, int BNC, int H, int Q, int N, int64_t blocks,
+                                          void* stream) {
+  if (BNC <= 0 || H <= 0 || Q <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t outs = static_cast<int64_t>(BNC) * Q * N + static_cast<int64_t>(BNC) * H * Q;
+  if (blocks != (outs + 255) / 256 || blocks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  bwd::ssd_bwd_reduce<<<static_cast<unsigned>(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      db_part, dc_part, dcum_row, dcum_col, last_part, db, dc, dcum, BNC, H, Q, N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* ssd_scan_error_string(int err) {

@@ -14,6 +14,11 @@ it; the kernel refuses a plan that is not its own.  Routes:
   blocks per SM streaming the weights;
 - ``"fma"``: f32 with 16-byte aligned rows, CUDA-core FMAs on 64 x 64 tiles;
 - ``"masked"``: rows that are not 16-byte aligned, either dtype.
+
+``moe_matmul_bwd`` is the gradient: dbuf = dout · wᵀ and dw = bufᵀ · dout,
+one launch each, laid out by ``bwd_plan`` (``"wgmma"``: bf16 on the
+forward's TMA conditions, 128 x 128 tiles with the operands' major-ness
+changed; ``"fma"``: CUDA-core FMAs, f32 or rows TMA cannot read).
 """
 
 from __future__ import annotations
@@ -31,7 +36,10 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("wgmma", "wgmma_t", "fma", "masked")  # index = the C entry point's route id
 SMALL_C = 32  # bf16 capacities up to this take the transposed route
 
-launches = 0  # kernel launches since the last ops.reset_launch_counts()
+# kernel launches since the last ops.reset_launch_counts()
+launches = 0  # forward
+bwd_dbuf_launches = 0
+bwd_dw_launches = 0
 last_plan: Optional["LaunchPlan"] = None  # the plan of the last launch, for reports and tests
 
 
@@ -101,6 +109,43 @@ def launch_plan(E: int, C: int, D: int, F: int, dtype: torch.dtype,
                       (_cdiv(F, 64), _cdiv(C, 64), E), smem, E * _cdiv(C, 64) * _cdiv(F, 64))
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How ``moe_matmul_bwd`` launches its two kernels; ``csrc/moe_matmul.cu`` refuses any other."""
+
+    route: str  # "wgmma" or "fma"
+    block_m: int  # rows of each output tile (C for dbuf, D for dw)
+    block_n: int  # its columns (D for dbuf, F for dw)
+    block_k: int  # depth of one stage of the reduction (F for dbuf, C for dw)
+    stages: int
+    threads: int
+    dbuf_grid: Tuple[int, int, int]  # wgmma: (persistent blocks, 1, 1); fma: (N tiles, M tiles, E)
+    dw_grid: Tuple[int, int, int]
+    smem_bytes: int  # wgmma: dynamic; fma: the static [16][68] f32 tiles of both operands
+    dbuf_tiles: int
+    dw_tiles: int
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(E: int, C: int, D: int, F: int, dtype: torch.dtype, aligned: bool = True) -> BwdPlan:
+    """The backward's plan for buf [E, C, D], w [E, D, F] (no CUDA needed): ``"wgmma"``
+    where the forward's TMA conditions hold (bf16, 16-byte aligned bases, D and F multiples
+    of 8), else ``"fma"``.  ``aligned`` is one launch's: dbuf's reads dout and w, dw's buf
+    and dout, and each writes its own output, so the two launches of one call may differ."""
+    if E > 65535 or _cdiv(C, 64) > 65535 or _cdiv(D, 64) > 65535 or max(C, D, F) >= 2**31:
+        raise ValueError(f"grid limit: E={E}, C={C}, D={D}, F={F}")
+    mn = ((C, D), (D, F))  # (M, N) of dbuf and of dw
+    if dtype == torch.bfloat16 and aligned and D % 8 == 0 and F % 8 == 0:
+        fwd = _tma_plan("wgmma", E, 128, 128, 128)  # the forward's 128 x 128 ring and epilogue
+        tiles = [E * _cdiv(M, 128) * _cdiv(N, 128) for M, N in mn]
+        grids = [(min(t, _build.NUM_SMS), 1, 1) for t in tiles]
+        return BwdPlan("wgmma", 128, 128, 64, fwd.stages, fwd.threads, *grids, fwd.smem_bytes,
+                       *tiles)
+    tiles = [E * _cdiv(M, 64) * _cdiv(N, 64) for M, N in mn]
+    grids = [(_cdiv(N, 64), _cdiv(M, 64), E) for M, N in mn]
+    return BwdPlan("fma", 64, 64, 16, 1, 256, *grids, 2 * 16 * 68 * 4, *tiles)
+
+
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("moe_matmul").moe_matmul_fwd
@@ -116,6 +161,23 @@ def _plan_args(plan: LaunchPlan):
     threads, grid x, y, z, shared-memory bytes; built once per plan."""
     return (ctypes.c_int64 * 9)(ROUTES.index(plan.route), plan.block_n, plan.block_k, plan.stages,
                                 plan.threads, *plan.grid, plan.smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    fn = _build.load("moe_matmul").moe_matmul_bwd
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(i64), p, p, p, i64, i64, i64, i64, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan_args(plan: BwdPlan, which: int):
+    """One launch of ``plan`` (which: 0 dbuf, 1 dw) as the C entry point reads it."""
+    grid = plan.dw_grid if which else plan.dbuf_grid
+    return (ctypes.c_int64 * 9)(ROUTES.index(plan.route), plan.block_n, plan.block_k, plan.stages,
+                                plan.threads, *grid, plan.smem_bytes)
 
 
 def _launch(entry, plan: LaunchPlan, buf: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> int:
@@ -158,3 +220,51 @@ def moe_matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     last_plan = plan
     _build.check("moe_matmul", err)
     return out
+
+
+def moe_matmul_bwd(
+    buf: torch.Tensor, w: torch.Tensor, dout: torch.Tensor, *, dbuf: bool = True, dw: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(dbuf [E, C, D] or None, dw [E, D, F] or None) of ``moe_matmul(buf, w)`` for the
+    gradient dout [E, C, F]; one kernel launch for each gradient asked for.  All three
+    contiguous, of one dtype, on the current CUDA device."""
+    global bwd_dbuf_launches, bwd_dw_launches
+    if buf.dim() != 3 or w.dim() != 3 or dout.dim() != 3:
+        raise ValueError("moe_matmul_bwd takes buf [E,C,D], w [E,D,F] and dout [E,C,F]")
+    E, C, D = buf.shape
+    F = w.shape[2]
+    if tuple(w.shape[:2]) != (E, D) or tuple(dout.shape) != (E, C, F):
+        raise ValueError(f"w must be [{E}, {D}, F] and dout [{E}, {C}, F], got "
+                         f"{tuple(w.shape)} and {tuple(dout.shape)}")
+    if buf.dtype not in DTYPES or w.dtype != buf.dtype or dout.dtype != buf.dtype:
+        raise TypeError(f"moe_matmul_bwd takes one of {list(DTYPES)}: "
+                        f"{buf.dtype}/{w.dtype}/{dout.dtype}")
+    if not buf.is_cuda or w.device != buf.device or dout.device != buf.device:
+        raise ValueError(f"moe_matmul_bwd kernel needs CUDA tensors on one device, got {buf.device}")
+    if buf.device.index != torch.cuda.current_device():
+        raise ValueError(f"moe_matmul_bwd: {buf.device} is not the current CUDA device")
+    if not (buf.is_contiguous() and w.is_contiguous() and dout.is_contiguous()):
+        raise ValueError("moe_matmul_bwd takes contiguous buf, w and dout")
+    stream = torch._C._cuda_getCurrentRawStream(buf.device.index)
+    outs = []
+    for which, want, (a, b), shape in ((0, dbuf, (dout, w), (E, C, D)),
+                                       (1, dw, (buf, dout), (E, D, F))):
+        if not want:
+            outs.append(None)
+            continue
+        out = torch.empty(shape, dtype=buf.dtype, device=buf.device)
+        # each launch's route follows its own operands and output, as the kernel's check does
+        plan = bwd_plan(E, C, D, F, buf.dtype,
+                        (a.data_ptr() | b.data_ptr() | out.data_ptr()) % 16 == 0)
+        if out.numel() and C and F and D:
+            err = _bwd_entry()(which, DTYPES[buf.dtype], _bwd_plan_args(plan, which), a.data_ptr(),
+                               b.data_ptr(), out.data_ptr(), E, C, D, F, stream)
+            if which:
+                bwd_dw_launches += 1
+            else:
+                bwd_dbuf_launches += 1
+            _build.check("moe_matmul", err)
+        else:
+            out.zero_()  # an empty reduction
+        outs.append(out)
+    return outs[0], outs[1]

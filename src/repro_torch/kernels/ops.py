@@ -2,12 +2,12 @@
 
 A CPU tensor goes to the plain version in ``ref``, which autograd
 differentiates; a CUDA tensor goes to the hand-written kernel, which runs
-or raises (there is no fallback).  On CUDA, rmsnorm and flash attention
-go through ``torch.autograd.Function``s whose backward is their backward
-kernels when a gradient is wanted; moe_matmul and ssd_intra_chunk have no
-backward kernel yet and raise instead of returning tensors without a
-gradient.  Each kernel module counts its launches; ``launch_counts``
-reads them.
+or raises (there is no fallback).  On CUDA, when a gradient is wanted,
+each entry point goes through a ``torch.autograd.Function`` whose backward
+is the kernel's backward kernels (rmsnorm: dx and dweight; flash
+attention: dq and dk/dv; moe_matmul: dbuf and dw; ssd_intra_chunk: dx and
+f32 partials, then their reduce).  Each kernel module counts its launches;
+``launch_counts`` reads them.
 """
 
 from __future__ import annotations
@@ -40,6 +40,35 @@ class _RMSNorm(torch.autograd.Function):
         dx, dw = _rmsnorm.rmsnorm_bwd(x2, weight, dy, eps=ctx.eps,
                                       dweight=ctx.needs_input_grad[1])
         return dx, dw, None
+
+
+class _MoeMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, buf, w):
+        ctx.save_for_backward(buf, w)
+        return _moe.moe_matmul(buf, w)
+
+    @staticmethod
+    def backward(ctx, dout):
+        buf, w = ctx.saved_tensors
+        # the model's gather and views hand the gradient over strided
+        return _moe.moe_matmul_bwd(buf, w, dout.contiguous(), dbuf=ctx.needs_input_grad[0],
+                                   dw=ctx.needs_input_grad[1])
+
+
+class _SsdIntraChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, b, c, cum):
+        ctx.set_materialize_grads(False)  # a state nobody reads (one chunk) gives no gradient
+        ctx.save_for_backward(x, b, c, cum)
+        return _ssd.ssd_intra_chunk(x, b, c, cum)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, b, c, cum = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        return _ssd.ssd_intra_chunk_bwd(x, b, c, cum, dy,
+                                        None if dstate is None else dstate.contiguous())
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -80,14 +109,6 @@ def flash_attention_op(
     return _flash.flash_attention(q, k, v, causal=causal)
 
 
-def _no_backward(name: str, *tensors: torch.Tensor) -> None:
-    if _wants_grad(*tensors):
-        raise NotImplementedError(
-            f"{name} has no backward kernel yet: training this family on the card comes "
-            "with ROADMAP A3b"
-        )
-
-
 def moe_matmul_op(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Per-expert product buf [E,C,D] x w [E,D,F] -> [E,C,F] in buf.dtype.
 
@@ -96,7 +117,8 @@ def moe_matmul_op(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """
     if buf.device.type == "cpu":
         return ref.moe_matmul_ref(buf, w)
-    _no_backward("moe_matmul", buf, w)
+    if _wants_grad(buf, w):
+        return _MoeMatmul.apply(buf, w)
     return _moe.moe_matmul(buf, w)
 
 
@@ -104,7 +126,8 @@ def ssd_intra_chunk_op(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, cum: t
     """Intra-chunk SSD: x [BNC,H,Q,hd], b/c [BNC,Q,N], cum [BNC,H,Q] -> (y, state f32)."""
     if x.device.type == "cpu":
         return ref.ssd_intra_chunk_ref(x, b, c, cum)
-    _no_backward("ssd_intra_chunk", x, b, c, cum)
+    if _wants_grad(x, b, c, cum):
+        return _SsdIntraChunk.apply(x, b, c, cum)
     return _ssd.ssd_intra_chunk(x, b, c, cum)
 
 
@@ -112,12 +135,17 @@ def ssd_intra_chunk_op(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, cum: t
 _COUNTERS = {
     "rmsnorm": (_rmsnorm, "launches"),
     "rmsnorm_bwd": (_rmsnorm, "bwd_launches"),
+    "rmsnorm_bwd_wide": (_rmsnorm, "bwd_wide_launches"),
     "rmsnorm_bwd_dweight": (_rmsnorm, "dweight_launches"),
     "flash_attention": (_flash, "launches"),
     "flash_attention_bwd_dq": (_flash, "bwd_dq_launches"),
     "flash_attention_bwd_dkdv": (_flash, "bwd_dkdv_launches"),
     "moe_matmul": (_moe, "launches"),
+    "moe_matmul_bwd_dbuf": (_moe, "bwd_dbuf_launches"),
+    "moe_matmul_bwd_dw": (_moe, "bwd_dw_launches"),
     "ssd_intra_chunk": (_ssd, "launches"),
+    "ssd_intra_chunk_bwd": (_ssd, "bwd_launches"),
+    "ssd_intra_chunk_bwd_reduce": (_ssd, "bwd_reduce_launches"),
 }
 
 

@@ -79,3 +79,55 @@ def ssd_intra_chunk_ref(
     decay_to_end = torch.exp(cumf[..., -1:] - cumf)  # [BNC, H, Q]
     state = torch.einsum("ihqd,iqn->ihdn", xf * decay_to_end[..., None], bf)
     return y, state
+
+
+# ---- backward closed forms (the gradients the backward kernels compute) ----
+
+
+def moe_matmul_bwd_ref(buf: torch.Tensor, w: torch.Tensor, dout: torch.Tensor):
+    """(dbuf [E,C,D], dw [E,D,F]) of ``moe_matmul_ref(buf, w)`` for the gradient dout [E,C,F].
+
+    dbuf = dout · wᵀ and dw = bufᵀ · dout per expert, f32 accumulation, one
+    rounding to the working type (what autograd gives through the f32 einsum).
+    """
+    df = dout.float()
+    dbuf = torch.einsum("ecf,edf->ecd", df, w.float()).to(buf.dtype)
+    dw = torch.einsum("ecd,ecf->edf", buf.float(), df).to(w.dtype)
+    return dbuf, dw
+
+
+def ssd_intra_chunk_bwd_ref(x, b, c, cum, dy, dstate=None):
+    """(dx, db, dc, dcum) of ``ssd_intra_chunk_ref`` for the gradients dy of y and dstate of
+    the state (None: zero).  dx in x.dtype; db, dc and dcum in f32 (in f64 for f64 inputs,
+    so that a test can hold the f32 result against the same closed form in float64).
+
+    Per (chunk, head), with G = C Bᵀ, L[q, k] = exp(cum_q - cum_k) for q >= k (masked before
+    ``exp``), M = G ∘ L and w_k = exp(cum_last - cum_k):
+    dM = dy xᵀ (lower triangle); dx = Mᵀ dy + w ∘ (B dstateᵀ);
+    dC = Σ_h (dM ∘ L) B; dB = Σ_h (dM ∘ L)ᵀ C + Σ_h (x ∘ w) dstate;
+    dcum_q = Σ_k (dM ∘ M)[q, k] - Σ_k (dM ∘ M)[k, q] - w_q x_q · (dstate B_q),
+    and dcum_last also gets Σ_k w_k x_k · (dstate B_k).
+    """
+    Q = x.shape[2]
+    ft = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, bf, cf, cumf, dyf = (t.to(ft) for t in (x, b, c, cum, dy))
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    diff = cumf[..., :, None] - cumf[..., None, :]  # [BNC, H, Q, Q]
+    L = torch.where(tri, torch.exp(diff.masked_fill(~tri, 0.0)), 0.0)
+    G = torch.einsum("iqn,ikn->iqk", cf, bf)[:, None]  # [BNC, 1, Q, Q], shared by the heads
+    dML = (dyf @ xf.transpose(-1, -2)) * L  # dM ∘ L, zero above the diagonal
+    P = dML * G  # dM ∘ M
+    dx = (G * L).transpose(-1, -2) @ dyf
+    dc = torch.einsum("ihqk,ikn->iqn", dML, bf)
+    db = torch.einsum("ihqk,iqn->ikn", dML, cf)
+    dcum = P.sum(-1) - P.sum(-2)
+    if dstate is not None:
+        ds = dstate.to(ft)
+        w = torch.exp(cumf[..., -1:] - cumf)  # [BNC, H, Q]
+        bds = torch.einsum("ikn,ihdn->ihkd", bf, ds)  # B dstateᵀ per head [BNC, H, Q, hd]
+        dx = dx + w[..., None] * bds
+        db = db + torch.einsum("ihkd,ihdn->ikn", xf * w[..., None], ds)
+        tw = w * (xf * bds).sum(-1)  # w_k x_k · (dstate B_k)
+        dcum = dcum - tw
+        dcum[..., -1] += tw.sum(-1)
+    return dx.to(x.dtype), db, dc, dcum

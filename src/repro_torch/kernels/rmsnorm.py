@@ -3,8 +3,9 @@
 ``rmsnorm`` launches the kernel on CUDA tensors and raises on anything it
 does not take; ``ops.rmsnorm_op`` is the entry point that also serves CPU
 tensors through the plain version.  ``rmsnorm_bwd`` is its gradient (two
-kernels: dx, a warp per row, with per-block f32 column sums of dweight,
-then a column reduce), laid out by ``bwd_plan``.
+kernels: dx, a warp per row up to D 2048 and a block of 256 threads per
+row up to D 8192, with per-block f32 column sums of dweight, then a column
+reduce), laid out by ``bwd_plan``.
 """
 
 from __future__ import annotations
@@ -22,10 +23,13 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last ops.reset_launch_counts()
 launches = 0  # forward
-bwd_launches = 0
+bwd_launches = 0  # dx, warp route
+bwd_wide_launches = 0  # dx, block route
 dweight_launches = 0
 
-BWD_MAX_DIM = 2048  # the row lives in registers, 64 elements a lane
+BWD_WARP_MAX_DIM = 2048  # warp route: the row lives in one warp's registers, 64 elements a lane
+BWD_MAX_DIM = 8192  # block route: the row lives in 256 threads' registers, 32 elements each
+WIDE_THREADS = 256
 
 
 def bwd_warps(D: int, dtype: torch.dtype) -> int:
@@ -37,19 +41,28 @@ def bwd_warps(D: int, dtype: torch.dtype) -> int:
 class BwdPlan:
     """How ``rmsnorm_bwd`` is launched; ``csrc/rmsnorm.cu`` refuses any other."""
 
-    rows_per_block: int  # consecutive rows, walked by the block's warps in turn
+    rows_per_block: int  # consecutive rows, walked by the block's warps in turn (block: one at a time)
     blocks: int  # also the rows of the f32 dweight partials
-    smem_bytes: int  # each warp's f32 column sums (0 without dweight)
+    smem_bytes: int  # warp route: each warp's f32 column sums (0 without dweight); block route: 0
     threads: int
+    route: str  # "warp": a warp per row, D <= BWD_WARP_MAX_DIM; "block": a block per row
 
 
 def bwd_plan(T: int, D: int, dtype: torch.dtype = torch.bfloat16, dweight: bool = True) -> BwdPlan:
-    """A persistent grid: at most one block per SM, whatever T."""
+    """A persistent grid: at most one block per SM, whatever T.  Rows past
+    ``BWD_WARP_MAX_DIM`` take the block route, up to ``BWD_MAX_DIM``; wider raise."""
+    if D > BWD_MAX_DIM:
+        raise ValueError(f"rmsnorm backward kernel keeps a row in one block's registers: "
+                         f"D <= {BWD_MAX_DIM}, got {D}")
+    if D > BWD_WARP_MAX_DIM:
+        blocks = max(1, min(_build.NUM_SMS, T))
+        rows_per_block = max(1, -(-T // blocks))
+        return BwdPlan(rows_per_block, -(-T // rows_per_block), 0, WIDE_THREADS, "block")
     warps = bwd_warps(D, dtype)
     blocks = max(1, min(_build.NUM_SMS, -(-T // warps)))
     rows_per_block = max(1, -(-T // blocks))
     return BwdPlan(rows_per_block, -(-T // rows_per_block), 4 * warps * D if dweight else 0,
-                   32 * warps)
+                   32 * warps, "warp")
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,17 +107,14 @@ def rmsnorm_bwd_dx(
     dweight: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The first kernel: (dx, f32 dweight partials [blocks, D] or None)."""
-    global bwd_launches
-    if x.shape[-1] > BWD_MAX_DIM:
-        raise ValueError(f"rmsnorm backward kernel keeps a row in a warp's registers: "
-                         f"D <= {BWD_MAX_DIM}, got {x.shape[-1]}")
+    global bwd_launches, bwd_wide_launches
+    T, D = x.shape[0], x.shape[-1]
+    plan = bwd_plan(T, D, x.dtype, dweight)  # raises past BWD_MAX_DIM
     _check_args(x, weight)
-    T, D = x.shape
     if tuple(dy.shape) != (T, D) or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must be [{T}, {D}] {x.dtype} on {x.device}")
     dy = dy.contiguous()
     dx = torch.empty((T, D), dtype=x.dtype, device=x.device)
-    plan = bwd_plan(T, D, x.dtype, dweight)
     part = torch.empty((plan.blocks, D), dtype=torch.float32, device=x.device) if dweight else None
     if T == 0:
         return dx, part
@@ -112,7 +122,10 @@ def rmsnorm_bwd_dx(
                         dx.data_ptr(), part.data_ptr() if dweight else None, T, D, x.stride(0),
                         plan.rows_per_block, plan.blocks, plan.smem_bytes, eps,
                         torch.cuda.current_stream().cuda_stream)
-    bwd_launches += 1
+    if plan.route == "warp":
+        bwd_launches += 1
+    else:
+        bwd_wide_launches += 1
     _build.check("rmsnorm", err)
     return dx, part
 

@@ -8,6 +8,11 @@ tensors and raises on anything it does not take; ``ops.ssd_intra_chunk_op``
 also serves CPU tensors through the plain version.  ``launch_plan`` decides
 heads per block, grid and shared memory in Python, where the CPU tests
 reach it; the kernel refuses a plan that is not its own.
+
+``ssd_intra_chunk_bwd`` is the gradient (dx, db, dc, dcum) for dy and dstate
+(two launches: per-(chunk, head) blocks on f32 CUDA-core FMAs that write dx
+and f32 partials, then a fixed-order reduce over the heads), laid out by
+``bwd_plan``.
 """
 
 from __future__ import annotations
@@ -24,7 +29,11 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)  # mamba2-130m's 64 and its reduced config's 32
 BLOCK_Q = 64  # rows q per y block and columns j per C·Bᵀ tile
 
-launches = 0  # kernel launches since the last ops.reset_launch_counts()
+# kernel launches since the last ops.reset_launch_counts()
+launches = 0  # forward
+bwd_launches = 0
+bwd_reduce_launches = 0
+BWD_MAX_STATE = 128  # a thread's row of dB or dC lives in registers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +80,53 @@ def launch_plan(BNC: int, H: int, Q: int, hd: int, N: int, dtype: torch.dtype) -
     state_blocks = H * -(-N // block_ns)
     return LaunchPlan(route, g, y_blocks, state_blocks, (y_blocks + state_blocks, BNC), threads,
                       smem)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How ``ssd_intra_chunk_bwd`` is launched; ``csrc/ssd_scan.cu`` refuses any other."""
+
+    route: str  # "fma": f32 CUDA-core FMAs, for either x dtype
+    row_tiles: int  # 64-row tiles of a chunk
+    grid: tuple  # (2 * row_tiles, H, BNC): a "k" and a "q" block per (tile, head, chunk)
+    threads: int
+    state_cols: int  # the N columns a thread's row of dB or dC spans in registers: 16, 64 or 128
+    smem_bytes: int
+    reduce_blocks: int  # the second launch: 256 threads, one per element of db, dc and dcum
+
+
+def bwd_plan(BNC: int, H: int, Q: int, hd: int, N: int, dtype: torch.dtype) -> BwdPlan:
+    """The backward's plan (no CUDA needed); ValueError past the kernel's limits."""
+    if hd not in HEAD_DIMS or not 0 < N <= BWD_MAX_STATE:
+        raise ValueError(f"ssd_intra_chunk backward takes head dim {HEAD_DIMS} and "
+                         f"0 < N <= {BWD_MAX_STATE}, got {hd}, {N}")
+    if BNC > 65535 or H > 65535:
+        raise ValueError(f"grid limit: BNC={BNC}, H={H} must be <= 65535")
+    if dtype not in DTYPES:
+        raise TypeError(f"ssd_intra_chunk backward takes x in {list(DTYPES)}, got {dtype}")
+    row_tiles = -(-Q // BLOCK_Q)
+    cols = 16 if N <= 16 else 64 if N <= 64 else 128
+    # x^T and dy^T [hd][68], B^T and C^T [N][68], two [64][68] tiles, four [64] vectors, f32
+    smem = 4 * (68 * (2 * hd + 2 * N + 2 * BLOCK_Q) + 4 * BLOCK_Q)
+    return BwdPlan("fma", row_tiles, (2 * row_tiles, H, BNC), 256, cols, smem,
+                   _reduce_blocks(BNC, H, Q, N))
+
+
+def _reduce_blocks(BNC: int, H: int, Q: int, N: int) -> int:
+    """The reduce's blocks of 256 threads, one thread per element of db, dc and dcum."""
+    return -(-(BNC * Q * N + BNC * H * Q) // 256)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entries():
+    lib = _build.load("ssd_scan")
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    main, red = lib.ssd_intra_chunk_bwd, lib.ssd_intra_chunk_bwd_reduce
+    main.argtypes = [i, i] + [p] * 12 + [i, i, i, i, i, i, i64, p]
+    red.argtypes = [p] * 8 + [i, i, i, i, i64, p]
+    for fn in (main, red):
+        fn.restype = ctypes.c_int
+    return main, red
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,3 +176,72 @@ def ssd_intra_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, cum: torc
     launches += 1
     _build.check("ssd_scan", err)
     return y, state
+
+
+def ssd_intra_chunk_bwd(x, b, c, cum, dy, dstate=None):
+    """(dx in x.dtype, db, dc, dcum f32) of ``ssd_intra_chunk`` for the gradients dy
+    [BNC,H,Q,hd] (x's dtype) and dstate [BNC,H,hd,N] f32 or None (zero); all contiguous.
+    Two launches: ``ssd_intra_chunk_bwd_main``, then ``ssd_intra_chunk_bwd_reduce``."""
+    dx, parts = ssd_intra_chunk_bwd_main(x, b, c, cum, dy, dstate)
+    return (dx, *ssd_intra_chunk_bwd_reduce(parts))
+
+
+def ssd_intra_chunk_bwd_main(x, b, c, cum, dy, dstate=None):
+    """The first kernel: (dx, the f32 per-head partials) for ``ssd_intra_chunk_bwd_reduce``:
+    db and dc terms [BNC,H,Q,N] each, d cum's row and column terms [BNC,H,Q] each, and its
+    last-position terms [BNC,H,row tiles]."""
+    global bwd_launches
+    if x.dim() != 4 or b.dim() != 3 or c.dim() != 3 or cum.dim() != 3:
+        raise ValueError("ssd_intra_chunk_bwd takes x [BNC,H,Q,hd], b, c [BNC,Q,N], cum [BNC,H,Q]")
+    BNC, H, Q, hd = x.shape
+    N = b.shape[2]
+    if tuple(b.shape) != (BNC, Q, N) or tuple(c.shape) != (BNC, Q, N) or tuple(cum.shape) != (BNC, H, Q):
+        raise ValueError(f"b, c must be [{BNC}, {Q}, N] and cum [{BNC}, {H}, {Q}]")
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype:
+        raise ValueError(f"dy must be {tuple(x.shape)} {x.dtype}")
+    if dstate is not None and (tuple(dstate.shape) != (BNC, H, hd, N) or dstate.dtype != torch.float32):
+        raise ValueError(f"dstate must be [{BNC}, {H}, {hd}, {N}] float32")
+    if any(t.dtype != torch.float32 for t in (b, c, cum)):
+        raise TypeError("ssd_intra_chunk_bwd takes f32 b, c and cum")
+    plan = bwd_plan(BNC, H, Q, hd, N, x.dtype)
+    tensors = [t for t in (x, b, c, cum, dy, dstate) if t is not None]
+    devices = {t.device for t in tensors}
+    if x.device.type != "cuda" or len(devices) != 1:
+        raise ValueError(f"ssd_intra_chunk_bwd kernel needs CUDA tensors on one device, got {devices}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"ssd_intra_chunk_bwd: {x.device} is not the current CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ssd_intra_chunk_bwd takes contiguous tensors")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    parts = (torch.empty((BNC, H, Q, N), **f32), torch.empty((BNC, H, Q, N), **f32),
+             torch.empty((BNC, H, Q), **f32), torch.empty((BNC, H, Q), **f32),
+             torch.empty((BNC, H, plan.row_tiles), **f32))
+    if x.numel() == 0:
+        return dx, parts
+    err = _bwd_entries()[0](
+        DTYPES[x.dtype], hd, x.data_ptr(), b.data_ptr(), c.data_ptr(), cum.data_ptr(),
+        dy.data_ptr(), dstate.data_ptr() if dstate is not None else None, dx.data_ptr(),
+        *(t.data_ptr() for t in parts), BNC, H, Q, N, plan.grid[0], plan.state_cols,
+        plan.smem_bytes, torch._C._cuda_getCurrentRawStream(x.device.index))
+    bwd_launches += 1
+    _build.check("ssd_scan", err)
+    return dx, parts
+
+
+def ssd_intra_chunk_bwd_reduce(parts):
+    """The second kernel: (db, dc [BNC,Q,N], dcum [BNC,H,Q], f32), the fixed-order head
+    and tile sums of ``ssd_intra_chunk_bwd_main``'s partials."""
+    global bwd_reduce_launches
+    BNC, H, Q, N = parts[0].shape
+    f32 = dict(dtype=torch.float32, device=parts[0].device)
+    db, dc = torch.empty((BNC, Q, N), **f32), torch.empty((BNC, Q, N), **f32)
+    dcum = torch.empty((BNC, H, Q), **f32)
+    if parts[0].numel() == 0:
+        return db.zero_(), dc.zero_(), dcum.zero_()
+    err = _bwd_entries()[1](*(t.data_ptr() for t in parts), db.data_ptr(), dc.data_ptr(),
+                            dcum.data_ptr(), BNC, H, Q, N, _reduce_blocks(BNC, H, Q, N),
+                            torch._C._cuda_getCurrentRawStream(parts[0].device.index))
+    bwd_reduce_launches += 1
+    _build.check("ssd_scan", err)
+    return db, dc, dcum

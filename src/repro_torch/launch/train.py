@@ -2,11 +2,12 @@
 
 Torch twin of ``repro.launch.train``, with the same flags plus
 ``--device`` (default ``cuda``): it trains the reduced variant of a dense,
-moe or ssm architecture on the synthetic Markov stream (``--full`` for
-the published widths), on the card's kernels, or on the CPU's plain
-versions with ``--device cpu``.  Weights are random, drawn from a seeded
-``torch.Generator``.  moe and ssm training on the card raises until their
-kernels have a backward (ROADMAP A3b).
+moe, ssm or hybrid architecture on the synthetic Markov stream
+(``--full`` for the published widths), on the card's kernels and their
+backward kernels, or on the CPU's plain versions with ``--device cpu``.
+Weights are random, drawn from a seeded ``torch.Generator``.
+``trainer_from_config`` builds the same trainer for a ``ModelConfig`` given
+as is.
 """
 
 from __future__ import annotations
@@ -53,8 +54,19 @@ def build_trainer(
     seed: int = 0,
 ) -> Trainer:
     cfg = get_config(arch)
-    if not full:
-        cfg = cfg.reduced()
+    return trainer_from_config(cfg if full else cfg.reduced(), steps=steps, batch=batch, seq=seq,
+                               device=device, seed=seed)
+
+
+def trainer_from_config(
+    cfg: ModelConfig,
+    *,
+    steps: int = 50,
+    batch: int = 8,
+    seq: int = 128,
+    device: torch.device | str = "cuda",
+    seed: int = 0,
+) -> Trainer:
     api = build_model(cfg)
     device = torch.device(device)
     state = init_train_state(api, torch.Generator(device=device).manual_seed(seed), device)

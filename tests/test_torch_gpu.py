@@ -1,12 +1,15 @@
 """Card tests of the port: each CUDA kernel against its plain version, and the
 model on the card against the same weights on the CPU.
 
-The backward kernels are held against autograd through the plain versions
+The backward kernels (flash, rmsnorm on both of its routes, moe_matmul,
+ssd_intra_chunk) are held against autograd through the plain versions
 (``kernels/ref.py``), relative to the reference gradient's largest
 magnitude: 2e-2 in bf16 (one rounding step of a value near 1 is 2**-8; the
 reference rounds P, dS and its einsum outputs at other places), 1e-4 in
-f32 (the two differ only in summation order over at most 2048 terms, ~3e-6
-relative).  A reference gradient that is exactly 0 (dq and dk at S = 1:
+f32 (the two differ only in summation order over at most 8192 terms).
+One reduced LM step of the moe, ssm and hybrid configs in f32 is held
+against the CPU within 1e-3 of each gradient's largest magnitude, as
+``chip_smoke.py`` phase 8 holds it.  A reference gradient that is exactly 0 (dq and dk at S = 1:
 one key per query, so the softmax passes no gradient) has no magnitude;
 the kernel's values there are the f32 rounding of dP - D, two sums of d
 products of unit-normal inputs (~1e-6), held to ``ZERO_GRAD_ABS``.
@@ -215,21 +218,148 @@ def test_rmsnorm_backward_strided_rows_and_frozen_weight(cuda):
 
 
 def test_moe_and_ssd_kernels_refuse_to_drop_gradients(cuda):
-    """No backward kernel yet: under grad mode they raise (ROADMAP A3b), never return grad-less tensors."""
+    """Under grad mode the entry points go through their autograd Functions: the forward
+    kernel, then the backward kernels, never a tensor without a gradient or the plain path."""
     buf = torch.randn(2, 8, 16, device=cuda, requires_grad=True)
     w = torch.randn(2, 16, 8, device=cuda)
     x = torch.randn(1, 2, 8, 32, device=cuda, requires_grad=True)
     b = torch.randn(1, 8, 16, device=cuda)
     cum = -torch.rand(1, 2, 8, device=cuda).cumsum(-1)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        ops.moe_matmul_op(buf, w)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        ops.ssd_intra_chunk_op(x, b, b, cum)
+    before = ops.launch_counts()
+    out = ops.moe_matmul_op(buf, w)
+    y, state = ops.ssd_intra_chunk_op(x, b, b, cum)
+    assert out.requires_grad and y.requires_grad and state.requires_grad
+    (out.sum() + y.sum() + state.sum()).backward()
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in ops.launch_counts().items() if v != before[k]}
+    assert got == {"moe_matmul": 1, "moe_matmul_bwd_dbuf": 1, "ssd_intra_chunk": 1,
+                   "ssd_intra_chunk_bwd": 1, "ssd_intra_chunk_bwd_reduce": 1}  # w is frozen: no dw
+    close_to_max("dbuf", buf.grad, torch.autograd.grad(
+        ref.moe_matmul_ref(buf, w).sum(), buf)[0], 1e-4)
     with torch.inference_mode():
         assert ops.moe_matmul_op(buf, w).shape == (2, 8, 8)
         assert ops.ssd_intra_chunk_op(x, b, b, cum)[0].shape == x.shape
-    with torch.no_grad():
-        ops.moe_matmul_op(buf, w)
+
+
+# (E, C, D, F): granite's LM products at C 256 (gate/up, down), its decode and score capacities,
+# the reduced config, partial tiles, and rows TMA cannot read
+MOE_BWD_SHAPES = [(40, 256, 1536, 512), (40, 256, 512, 1536), (40, 8, 1536, 512), (40, 384, 512, 1536),
+                  (4, 24, 256, 128), (3, 130, 264, 200), (2, 200, 136, 520), (3, 70, 100, 36), (1, 3, 7, 5)]
+
+
+@pytest.mark.parametrize("E,C,D,F", MOE_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_matmul_backward_kernels(cuda, E, C, D, F, dtype):
+    """dbuf and dw through ops (the autograd Function) against autograd through the plain
+    version; two direct calls give the same bits."""
+    rng = np.random.default_rng(E * C + D + F)
+    buf = tensor(rng, (E, C, D), dtype, cuda).requires_grad_()
+    w = tensor(rng, (E, D, F), dtype, cuda, 0.05).requires_grad_()
+    dout = tensor(rng, (E, C, F), dtype, cuda)
+    want = torch.autograd.grad(ref.moe_matmul_ref(buf, w), (buf, w), dout)
+    before = ops.launch_counts()
+    got = torch.autograd.grad(ops.moe_matmul_op(buf, w), (buf, w), dout)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("moe_matmul", "moe_matmul_bwd_dbuf", "moe_matmul_bwd_dw"):
+        assert after[name] == before[name] + 1, name
+    for name, g, ww in zip(("dbuf", "dw"), got, want):
+        close_to_max(name, g, ww, grad_tol(dtype))
+    first, second = (moe_mod.moe_matmul_bwd(buf.detach(), w.detach(), dout) for _ in range(2))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("offset", ["buf", "w", "dout"])
+def test_moe_matmul_backward_takes_an_unaligned_operand(cuda, offset):
+    """One bf16 operand contiguous but 2 bytes off 16: the launch that reads it takes the
+    fma route and the other stays on wgmma, each planned from its own pointers."""
+    rng = np.random.default_rng(11)
+    E, C, D, F = 3, 40, 64, 72
+    shapes = {"buf": (E, C, D), "w": (E, D, F), "dout": (E, C, F)}
+    t = {k: (tensor(rng, (int(np.prod(s)) + 1,), torch.bfloat16, cuda)[1:].view(s) if k == offset
+             else tensor(rng, s, torch.bfloat16, cuda)) for k, s in shapes.items()}
+    assert t[offset].data_ptr() % 16 and t[offset].is_contiguous()
+    dbuf, dw = moe_mod.moe_matmul_bwd(t["buf"], t["w"], t["dout"])
+    buf, w = t["buf"].clone().requires_grad_(), t["w"].clone().requires_grad_()
+    want = torch.autograd.grad(ref.moe_matmul_ref(buf, w), (buf, w), t["dout"])
+    close_to_max("dbuf", dbuf, want[0], 2e-2)
+    close_to_max("dw", dw, want[1], 2e-2)
+
+
+# (BNC, H, Q, hd, N): mamba2 and hymba at 2 x 512 (four chunks of 256), the reduced configs,
+# ragged Q, N 64
+SSD_BWD_SHAPES = [(4, 24, 256, 64, 128), (4, 50, 256, 64, 16), (4, 8, 32, 32, 16), (2, 3, 100, 32, 64),
+                  (2, 2, 1, 64, 128), (3, 7, 160, 64, 128)]
+
+
+@pytest.mark.parametrize("BNC,H,Q,hd,N", SSD_BWD_SHAPES)
+@pytest.mark.parametrize("dstate", ["absent", "zero", "non-zero"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_chunk_backward_kernels(cuda, BNC, H, Q, hd, N, dstate, dtype):
+    """dx, db, dc, dcum through ops against autograd through the plain version; the state's
+    gradient absent (nothing reads it), zero or not; two direct calls give the same bits."""
+    rng = np.random.default_rng(BNC * Q + N + hd)
+    x = tensor(rng, (BNC, H, Q, hd), dtype, cuda, 0.5).requires_grad_()
+    b, c = (tensor(rng, (BNC, Q, N), torch.float32, cuda, 0.5).requires_grad_() for _ in range(2))
+    cum = (-torch.cumsum(torch.from_numpy(rng.random((BNC, H, Q), dtype=np.float32) * 0.1), -1)
+           ).to(cuda).requires_grad_()
+    dy = tensor(rng, (BNC, H, Q, hd), dtype, cuda)
+    ds = None if dstate == "absent" else (torch.zeros(BNC, H, hd, N, device=cuda) if dstate == "zero"
+                                          else tensor(rng, (BNC, H, hd, N), torch.float32, cuda))
+
+    def loss(fn):
+        y, state = fn(x, b, c, cum)
+        return (y.float() * dy.float()).sum() + ((state * ds).sum() if ds is not None else 0)
+
+    want = torch.autograd.grad(loss(ref.ssd_intra_chunk_ref), (x, b, c, cum))
+    before = ops.launch_counts()
+    got = torch.autograd.grad(loss(ops.ssd_intra_chunk_op), (x, b, c, cum))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("ssd_intra_chunk", "ssd_intra_chunk_bwd", "ssd_intra_chunk_bwd_reduce"):
+        assert after[name] == before[name] + 1, name
+    for name, g, w in zip(("dx", "db", "dc", "dcum"), got, want):
+        close_to_max(name, g, w, grad_tol(dtype))
+    args = (x.detach(), b.detach(), c.detach(), cum.detach(), dy, ds)
+    first, second = (ssd_mod.ssd_intra_chunk_bwd(*args) for _ in range(2))
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_strong_decay_stays_finite(cuda, dtype):
+    """A decay span of ~2,500 over the chunk: masked before exp, the gradient stays finite
+    and equal to the closed form in float64."""
+    rng = np.random.default_rng(11)
+    x = tensor(rng, (2, 3, 256, 64), dtype, cuda, 0.5)
+    b, c = (tensor(rng, (2, 256, 16), torch.float32, cuda, 0.5) for _ in range(2))
+    cum = (-torch.cumsum(torch.from_numpy(rng.random((2, 3, 256), dtype=np.float32) * 20.0), -1)).to(cuda)
+    dy, ds = tensor(rng, (2, 3, 256, 64), dtype, cuda), tensor(rng, (2, 3, 64, 16), torch.float32, cuda)
+    got = ssd_mod.ssd_intra_chunk_bwd(x, b, c, cum, dy, ds)
+    want = ref.ssd_intra_chunk_bwd_ref(*(t.double() for t in (x, b, c, cum, dy, ds)))
+    for name, g, w in zip(("dx", "db", "dc", "dcum"), got, want):
+        close_to_max(name, g.double(), w, grad_tol(dtype))
+
+
+# rows past 2048: hymba's out_norm 3200, A10's d 4096, ragged 2049, the limit 8192
+@pytest.mark.parametrize("T,D", [(1, 3200), (7, 3200), (1024, 3200), (1024, 4096), (7, 2049), (64, 8192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_wide_backward_kernels(cuda, T, D, dtype):
+    rng = np.random.default_rng(T + D + 13)
+    x = tensor(rng, (T, D), dtype, cuda, 3.0).requires_grad_()
+    w = (1 + tensor(rng, (D,), dtype, cuda, 0.1)).requires_grad_()
+    dy = tensor(rng, (T, D), dtype, cuda)
+    want = torch.autograd.grad(ref.rmsnorm_ref(x, w), (x, w), dy)
+    before = ops.launch_counts()
+    got = torch.autograd.grad(ops.rmsnorm_op(x, w), (x, w), dy)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("rmsnorm", "rmsnorm_bwd_wide", "rmsnorm_bwd_dweight"):
+        assert after[name] == before[name] + 1, name
+    assert after["rmsnorm_bwd"] == before["rmsnorm_bwd"]
+    close_to_max("dx", got[0], want[0], grad_tol(dtype))
+    close_to_max("dweight", got[1], want[1], grad_tol(dtype))
+    first, second = (rmsnorm_mod.rmsnorm_bwd(x.detach(), w.detach(), dy) for _ in range(2))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 def test_flash_kernel_rejects_head_dim_32(cuda):
@@ -373,15 +503,35 @@ def test_hybrid_forward_card_matches_cpu(cuda):
     close(outs[0], outs[1], 1e-4)
 
 
-def test_hybrid_training_on_the_card_raises_naming_a3b(cuda):
-    """The SSM heads have no backward kernel yet: a hybrid loss with gradients raises
-    (ROADMAP A3b) instead of taking the plain path."""
-    cfg = get_config("hymba-1.5b").reduced()
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b"])
+def test_hybrid_training_on_the_card_raises_naming_a3b(cuda, arch):
+    """(Named when the SSM heads had no backward kernel; ROADMAP A3b is done.) One LM step's
+    loss and gradients of the reduced moe, ssm and hybrid configs, f32, on the card through
+    every backward kernel against the same weights on the CPU; the SSM families on two chunks
+    a sequence, so the chunk-state gradient is live."""
+    from repro_torch.training.train_step import grads_of
+
+    cfg = get_config(arch).reduced()
     api = build_model(cfg)
-    params = api.init(torch.Generator(device=cuda).manual_seed(5), cuda, trainable=True)
-    toks = torch.zeros(2, 32, dtype=torch.int64, device=cuda)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        api.loss_fn(params, {"tokens": toks})
+    p_gpu = api.init(torch.Generator(device=cuda).manual_seed(5), cuda, trainable=True)
+    p_cpu = params_from_flat(flat_from_params(p_gpu), cfg, "cpu").requires_grad_(True)
+    seq = 2 * cfg.ssm_chunk if cfg.family in ("ssm", "hybrid") else 24
+    toks = torch.as_tensor(np.random.default_rng(6).integers(0, cfg.vocab_size, size=(2, seq)))
+    before = ops.launch_counts()
+    lg = api.loss_fn(p_gpu, {"tokens": toks.to(cuda)})[0]
+    gg = grads_of(lg, p_gpu)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    L = cfg.num_layers
+    if cfg.family == "moe":
+        assert got["moe_matmul_bwd_dbuf"] == got["moe_matmul_bwd_dw"] == 3 * L
+    else:
+        assert got["ssd_intra_chunk_bwd"] == got["ssd_intra_chunk_bwd_reduce"] == L
+    lc = api.loss_fn(p_cpu, {"tokens": toks})[0]
+    gc = grads_of(lc, p_cpu)
+    close(lg.detach(), lc.detach(), 1e-4)
+    for k in gc:
+        close_to_max(k, gg[k].cpu(), gc[k], 1e-3)
 
 
 def test_live_grpo_step_launches(cuda):
@@ -411,8 +561,13 @@ def test_live_grpo_step_launches(cuda):
         "flash_attention": policy.num_layers * 3 + n * judge.num_layers,
         "flash_attention_bwd_dq": policy.num_layers,
         "flash_attention_bwd_dkdv": policy.num_layers,
+        "rmsnorm_bwd_wide": 0,
         "moe_matmul": 0,
+        "moe_matmul_bwd_dbuf": 0,
+        "moe_matmul_bwd_dw": 0,
         "ssd_intra_chunk": 0,
+        "ssd_intra_chunk_bwd": 0,
+        "ssd_intra_chunk_bwd_reduce": 0,
     }
     recs = tangram.telemetry.records
     assert len(recs) == n and not any(r.failed for r in recs)

@@ -154,9 +154,10 @@ def test_rmsnorm_ref_grads_match_jax(T, D):
 
 
 ZERO_COUNTS = {
-    "rmsnorm": 0, "rmsnorm_bwd": 0, "rmsnorm_bwd_dweight": 0,
+    "rmsnorm": 0, "rmsnorm_bwd": 0, "rmsnorm_bwd_wide": 0, "rmsnorm_bwd_dweight": 0,
     "flash_attention": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
-    "moe_matmul": 0, "ssd_intra_chunk": 0,
+    "moe_matmul": 0, "moe_matmul_bwd_dbuf": 0, "moe_matmul_bwd_dw": 0,
+    "ssd_intra_chunk": 0, "ssd_intra_chunk_bwd": 0, "ssd_intra_chunk_bwd_reduce": 0,
 }
 
 
@@ -308,6 +309,7 @@ def test_rmsnorm_backward_launch_plan(T, D):
     """A warp per row; at most one block per SM; each warp keeps D f32 column sums."""
     for dtype in (torch.float32, torch.bfloat16):
         plan = rmsnorm_mod.bwd_plan(T, D, dtype)
+        assert plan.route == "warp"
         warps = plan.threads // 32
         assert warps == (16 if D * (4 if dtype == torch.float32 else 2) <= 2048 else 8)
         assert plan.blocks <= _build.NUM_SMS and plan.blocks <= T
@@ -328,6 +330,12 @@ def test_rmsnorm_backward_grid_stops_at_the_sm_count(T):
 
 
 def test_rmsnorm_backward_refuses_rows_past_its_registers():
+    """Rows up to 2048 keep the warp route; up to 8192 a block of 256 threads holds the row
+    (32 elements a thread); wider rows would not fit its registers and raise."""
+    assert (rmsnorm_mod.BWD_WARP_MAX_DIM, rmsnorm_mod.BWD_MAX_DIM) == (2048, 8192)
+    assert rmsnorm_mod.bwd_plan(4, rmsnorm_mod.BWD_WARP_MAX_DIM).route == "warp"
+    assert rmsnorm_mod.bwd_plan(4, rmsnorm_mod.BWD_WARP_MAX_DIM + 8).route == "block"
+    assert rmsnorm_mod.bwd_plan(4, rmsnorm_mod.BWD_MAX_DIM).route == "block"
     x = torch.randn(4, rmsnorm_mod.BWD_MAX_DIM + 8)
     with pytest.raises(ValueError, match="registers"):
         rmsnorm_mod.rmsnorm_bwd_dx(x, torch.ones(x.shape[1]), x)
