@@ -21,31 +21,46 @@ Phases, each of which raises on failure (nothing is caught):
    output, each ``ssd_intra_chunk`` case with its launch plan; the cases
    include every shape that phase 4's ``hymba-1.5b`` runs give rmsnorm
    (d 1600 and the SSM's d_inner 3200), flash attention (H 25 / KV 5) and
-   ``ssd_intra_chunk`` (50 heads, N 16), in bf16 and f32, and every forward
+   ``ssd_intra_chunk`` (50 heads, N 16), in bf16 and f32, every forward
    shape of phase 6's LM training (granite 4 x 256: moe_matmul at C 256;
-   mamba2 and hymba 2 x 512: ``ssd_intra_chunk`` at Q 256 on four chunks);
+   mamba2 and hymba 2 x 512: ``ssd_intra_chunk`` at Q 256 on four chunks),
+   and the score, prefill and LM shapes of ``llama3-8b``, ``glm4-9b``,
+   ``internvl2-1b`` and ``whisper-medium`` (rmsnorm at D 896, 1024 and
+   4096; flash at GQA g 4, 7 and 16, head dim 128, and non-causal over
+   whisper's 1500 frames);
 4. serving at full width on seeded random bf16 weights.  Each path runs
    with the launch counts set to 0 just before it and checked just after
    against the counts its depth implies: greedy generation (4 requests x
    (128 prompt + 32 new)) with ``smollm-360m``, ``granite-moe-3b-a800m``,
-   ``mamba2-130m`` and the hybrid ``hymba-1.5b`` through
+   ``mamba2-130m``, the hybrid ``hymba-1.5b``, the dense ``llama3-8b`` and
+   ``glm4-9b`` (built one at a time, each freed before the next), the vlm
+   ``internvl2-1b`` (256 stub patch embeddings ahead of each prompt) and the
+   encoder-decoder ``whisper-medium`` (over 1500 stub frames) through
    ``repro_torch.launch.serve``, each with the last decode step's logits
    held against a full forward over the same tokens (granite on a copy of
    its config whose capacity drops nothing; mamba2 and hymba also on an
-   f32 copy of the weights); scoring (8 x 160) with ``llama3.2-1b``,
-   ``granite-moe-3b-a800m``, ``mamba2-130m`` and ``hymba-1.5b`` through
-   ``Engine.score``; the wall time of one prefill and one decode step of
-   each generating model, and ``torch.profiler`` over one warm generation
-   and one warm score call of each model (device busy share, device
-   operations, the top kernels); every (kernel, shape) that the hymba runs
-   launch must be one of phase 3's cases;
+   f32 copy of the weights; whisper's forward is ``encode`` and the
+   teacher-forced ``decode_train`` over the same frames); scoring (8 x 160)
+   with ``llama3.2-1b``, ``granite-moe-3b-a800m``, ``mamba2-130m``,
+   ``hymba-1.5b``, ``llama3-8b``, ``glm4-9b`` and ``internvl2-1b`` (text
+   only) through ``Engine.score``; the wall time of one prefill and one
+   decode step of each generating model, and ``torch.profiler`` over one
+   warm generation and one warm score call of each model (device busy
+   share, device operations, the top kernels; for whisper the host's
+   operations too, so that the device time of its cross-attention, plain
+   PyTorch inside the ``cross_attention`` profiler range, is read from the
+   trace); every (kernel, shape) that the hymba runs and the four new
+   models' runs launch is held against its plain version: by one of phase
+   3's cases, or where no case covers it, at once on fresh inputs
+   (``hold_at_shape``);
 5. backward kernels: flash attention's dq and dk/dv kernels, RMSNorm's dx
    (a warp per row, and a block per row past D 2048) and dweight kernels,
    moe_matmul's dbuf and dw kernels and ``ssd_intra_chunk``'s kernel and
    reduce against autograd through their plain versions, over grids of
    types, head dims, masks, GQA groups, lengths, capacities, widths, state
    sizes, chunk lengths, zero, absent and non-zero chunk-state gradients and
-   a strong decay, timed at the training paths' shapes and longer ones
+   a strong decay, GQA g 1-16, timed at the training paths' shapes (the
+   four new models' LM runs too) and longer ones
    beside their bounds, the plain versions and the library's gradient
    (``sdpa``, ``F.rms_norm``, ``torch.bmm``; none for the SSD), each timed
    kernel called twice for bit-identical results;
@@ -60,9 +75,14 @@ Phases, each of which raises on failure (nothing is caught):
    ``granite-moe-3b-a800m`` (4 x 256; 24 of its 32 layers, as its full
    depth's training state does not fit the card), ``mamba2-130m`` and
    ``hymba-1.5b`` (2 x 512: two SSD chunks a sequence, so the chunk-state
-   gradient is live), with finite losses; one warm step of each profiled,
-   with its peak memory; every (kernel, shape) that the three new families'
-   runs launch must be one of phases 3 and 5's cases;
+   gradient is live), ``internvl2-1b`` (4 x (256 patches + 256)),
+   ``whisper-medium`` (2 x (1500 frames + 448), both at full depth) and
+   ``llama3-8b`` and ``glm4-9b`` (4 x 256, 4 layers each), with finite
+   losses (falling over the three steps for the last four); one warm step
+   of each profiled, with its peak memory (whisper's with its
+   cross-attention's device time, forward and backward, from the trace);
+   every (kernel, shape) that these runs launch is held against its plain
+   version, by phases 3 and 5's cases or at once;
 7. the closed loop at full width, as ``examples/agentic_rl_e2e.py`` runs it:
    three ``LiveGrpoDriver.run_step`` calls (``smollm-360m`` rolls out 4
    prompts x group 4, 8 + 16 sampled tokens; each of the 16 sequences is one
@@ -74,10 +94,11 @@ Phases, each of which raises on failure (nothing is caught):
    launch traces); per step its loss, mean reward, mean ACT, EOE hits and
    the rollout, reward and update walls; a fourth step, checked the same
    way, under ``torch.profiler`` for the device busy share of a step;
-8. agreement on a small input: the five reduced configs in f32 on the card
+8. agreement on a small input: nine reduced configs in f32 on the card
    against the same weights on the CPU (plain versions), serving; for
    ``smollm-360m``, one GRPO and one LM step's loss and gradients; for the
-   reduced ``granite-moe-3b-a800m``, ``mamba2-130m`` and ``hymba-1.5b``, one
+   reduced ``granite-moe-3b-a800m``, ``mamba2-130m``, ``hymba-1.5b``,
+   ``internvl2-1b``, ``whisper-medium``, ``llama3-8b`` and ``glm4-9b``, one
    LM step's loss and gradients with its exact launch counts.
 
 It prints one JSON line of per-kernel numbers, the card's name and power
@@ -87,7 +108,6 @@ CUDA device it exits with code 2 before building anything.
 
 from __future__ import annotations
 
-import copy
 import ctypes
 import dataclasses
 import json
@@ -142,7 +162,20 @@ ZERO_GRAD_ABS = 1e-5
 # normed before the fusion; 0.3525 was the first reading on hymba-1.5b
 # (argmax 4/4; 9.3e-5 on the f32 copy), above the dense 0.1, so its limit
 # is 1.5x that reading.
-SERVE_BF16_LOGIT_TOL = {"dense": 0.1, "moe": 0.15, "ssm": 1.7, "hybrid": 0.53}
+# vlm and audio: the dense rule (the vlm is the dense decoder after its patches; the audio
+# decoder's cross-attention is one plain-PyTorch path in both, over the same encoder output).
+SERVE_BF16_LOGIT_TOL = {"dense": 0.1, "vlm": 0.1, "audio": 0.1, "moe": 0.15, "ssm": 1.7,
+                        "hybrid": 0.53}
+# dense at d 4096, by the hybrid's rule: 0.336 (llama3-8b) and 0.376 (glm4-9b) were the first
+# readings, above the dense 0.1, where f32 copies of the weights agreed to 8.3e-5 and 8.5e-5 and
+# the same bf16 forward, batch 4 against each row alone (cuBLAS picks other kernels and summation
+# orders), differed from itself by 0.290 and 0.357 (logits up to ~6.5).  Their limits are 1.5x
+# the first readings; the argmax may differ only where the forward's top two lie within twice
+# the error.
+SERVE_BF16_MODEL_TOL = {"llama3-8b": 0.50, "glm4-9b": 0.56}
+# The slice's models also hold an f32 copy of the weights to SERVE_F32_LOGIT_TOL, and print the
+# bf16 forward's own noise (batch 4 against each row alone), which must stay within the model's
+# bf16 limit.
 SERVE_F32_LOGIT_TOL = 0.02
 SSM_FAMILIES = ("ssm", "hybrid")  # bf16 decode runs the O(1) recurrence beside the chunked scan
 # Reduced configs, f32, card vs CPU: summation order only.
@@ -167,6 +200,22 @@ LM_ARGS = ["--arch", "llama3.2-1b", "--full", "--steps", "3", "--batch", "4", "-
 # 1.0 B elements each) ran out of the card's 80 GB
 LM_FAMILY_RUNS = (("granite-moe-3b-a800m", 4, 256, 24), ("mamba2-130m", 2, 512, None),
                   ("hymba-1.5b", 2, 512, None))
+# The remaining one-card models: the dense llama3-8b (32 H / 8 KV) and glm4-9b (32 H / 2 KV, GQA
+# g 16), head dim 128 and d 4096; the vlm internvl2-1b (14 H / 2 KV, g 7; 256 stub patch
+# embeddings ahead of each prompt); the audio whisper-medium (24 + 24 layers, 16 H, over 1500
+# stub frames, its encoder_seq: one 30 s window).  (arch, seed) of each generate 4 x (128 + 32)
+# and score 8 x 160 at full width; whisper-medium is not scored (the JAX package cannot score an
+# encoder-decoder).  Every (kernel, shape) they launch must be one of phases 3 and 5's cases.
+SLICE_GENERATE = (("llama3-8b", 14), ("glm4-9b", 15), ("internvl2-1b", 16), ("whisper-medium", 17))
+SLICE_SCORE = (("llama3-8b", 18), ("glm4-9b", 19), ("internvl2-1b", 20))
+# their LM training, three steps each, (arch, batch, text tokens, layers or None for full depth):
+# internvl2-1b 4 x (256 patches + 256 tokens); whisper-medium 2 x (1500 frames + 448 tokens, its
+# decoder_seq); llama3-8b and glm4-9b 4 x 256 at 4 of their 32 and 40 layers, widths published:
+# the literal AdamW's ~20 bytes a parameter come to 38-41 GB for the cut models' 1.9 and 2.1 B
+# parameters, where full depth would need 160-190 GB
+SLICE_LM_RUNS = (("internvl2-1b", 4, 256, None), ("whisper-medium", 2, 448, None),
+                 ("llama3-8b", 4, 256, 4), ("glm4-9b", 4, 256, 4))
+SLICE = {arch for arch, _ in SLICE_GENERATE}
 
 
 def sh(cmd):
@@ -361,18 +410,70 @@ def device_kernels(prof):
 
     kernels = {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
+        # a gpu_user_annotation (a profiler range's span on the device) is no device work
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
             k = kernels.setdefault(e.name(), [0.0, 0])
             k[0] += e.duration_ns() / 1e3
             k[1] += 1
     return kernels
 
 
-def profiled(label, fn, card, rows=10):
-    """One warm call of fn under torch.profiler: its device busy share and top kernels.
+def range_device_ms(prof, name):
+    """Device milliseconds of the work that a finished trace (host and CUDA activity) ran
+    inside ``record_function(name)`` ranges, their backward included.  Each device
+    operation is charged to the host operation that launched it (the profiler's linked
+    correlation id, as ``torch.autograd.profiler`` links them), and that operation counts
+    where it ran inside such a range on its thread, or inside the backward node (same
+    sequence number, forward thread the range's) of an autograd operation that did."""
+    import bisect
 
-    Only device activity is traced, and the raw device events are summed by
-    name: ``key_averages`` builds a Python object per event, which took
+    import torch
+
+    device_ns, host = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if not e.is_user_annotation():
+                c = e.linked_correlation_id()
+                device_ns[c] = device_ns.get(c, 0) + e.duration_ns()
+        elif e.linked_correlation_id() == 0:  # a host operation or range, not a runtime call
+            host.append(e)
+
+    def spans(events):
+        """{thread: (starts, ends)} of the events' merged [start, end] intervals."""
+        by_thread = {}
+        for e in events:
+            by_thread.setdefault(e.start_thread_id(), []).append((e.start_ns(), e.end_ns()))
+        out = {}
+        for t, iv in by_thread.items():
+            merged = []
+            for a, b in sorted(iv):
+                if merged and a <= merged[-1][1]:
+                    merged[-1][1] = max(merged[-1][1], b)
+                else:
+                    merged.append([a, b])
+            out[t] = ([a for a, _ in merged], [b for _, b in merged])
+        return out
+
+    def inside(e, sp):
+        starts, ends = sp.get(e.start_thread_id(), ((), ()))
+        i = bisect.bisect_right(starts, e.start_ns()) - 1
+        return i >= 0 and e.end_ns() <= ends[i]
+
+    ranges = spans(e for e in host if e.name() == name)
+    fwd = [e for e in host if inside(e, ranges)]
+    nodes = {(e.sequence_nr(), e.start_thread_id()) for e in fwd if e.sequence_nr() >= 0}
+    bwd = spans(e for e in host if (e.sequence_nr(), e.fwd_thread_id()) in nodes)
+    ops = {e.correlation_id() for e in fwd} | {e.correlation_id() for e in host if inside(e, bwd)}
+    return sum(device_ns.get(c, 0) for c in ops) / 1e6
+
+
+def profiled(label, fn, card, rows=10, ranges=()):
+    """One warm call of fn under torch.profiler: its device busy share and top kernels.
+    Returns {range: device ms} of the named ``record_function`` ranges (whose trace
+    records the host's operations too), each of which must hold some device work.
+
+    Only device activity is traced where no range is named, and the raw device events are
+    summed by name: ``key_averages`` builds a Python object per event, which took
     20-25 s over the 47k-110k device operations of one generation.
     """
     import torch
@@ -380,18 +481,21 @@ def profiled(label, fn, card, rows=10):
 
     fn()  # warm
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
+    with profile(activities=activities) as prof:
         _, ms = wall_ms(fn)
     t1 = time.perf_counter()
     kernels = device_kernels(prof)
+    in_ranges = {r: range_device_ms(prof, r) for r in ranges}
     print(f"[time] profile {label}: {t1 - t0 - ms / 1e3:.1f}s to stop the trace, "
           f"{time.perf_counter() - t1:.1f}s to sum it")
     busy_ms = sum(us for us, _ in kernels.values()) / 1e3
     ops = sum(n for _, n in kernels.values())
     if ops == 0:
         raise AssertionError(f"[profile] {label}: the profiler saw no device operation")
-    print(f"[profile] {label}: wall {ms:.2f} ms under the profiler; device busy {busy_ms:.2f} ms "
-          f"= {100 * busy_ms / ms:.1f}% of wall; {ops} device operations [{card}]")
+    traced = " (host operations traced too)" if ranges else ""
+    print(f"[profile] {label}: wall {ms:.2f} ms under the profiler{traced}; device busy "
+          f"{busy_ms:.2f} ms = {100 * busy_ms / ms:.1f}% of wall; {ops} device operations [{card}]")
     for key, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:rows]:
         print(f"[profile] {label}   {us / 1e3:9.3f} ms {n:6d}x  {key[:90]}")
     ours = {}  # the port's own kernels, by template name
@@ -405,46 +509,134 @@ def profiled(label, fn, card, rows=10):
     for base, (us, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
         print(f"[profile] {label} port kernel {base}: {us / 1e3:.3f} ms over {n} launches, "
               f"{100 * us / 1e3 / busy_ms:.1f}% of device busy")
+    for r, r_ms in in_ranges.items():
+        if not r_ms > 0:
+            raise AssertionError(f"[profile] {label}: no device work found inside range {r}")
+        print(f"[profile] {label} range {r}: {r_ms:.3f} device ms, {100 * r_ms / busy_ms:.1f}% "
+              f"of device busy {busy_ms:.2f} ms [{card}]")
+    return in_ranges
 
 
 PORT_KERNEL_PREFIXES = ("rmsnorm", "flash_", "moe_matmul", "ssd_")
+
+
+FWD_F32_TOL = {"rmsnorm": RMSNORM_F32_TOL, "flash_attention": FLASH_F32_TOL,
+               "moe_matmul": F32_TOL, "ssd_intra_chunk": F32_TOL}
+
+
+def hold_at_shape(kernel, key, dev, gen):
+    """Hold ``kernel`` at the shape ``key`` against its plain version on fresh inputs from
+    ``gen``, as phases 3 and 5 hold their cases.  ``kernel`` is a recorded wrapper's name: a
+    forward kernel, run through ``ops`` against ``ref`` at phase 3's tolerance, or its
+    backward (``..._bwd``), autograd through ``ops`` against autograd through ``ref`` at
+    GRAD_TOL; ``key`` is the recorded shape key, its dtype last.  Returns the max abs error
+    (forward) or the largest error relative to a reference gradient's largest magnitude
+    (backward); raises beyond the limit."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    *dims, dt = key
+    bwd = kernel.endswith("_bwd")
+    name = kernel.removesuffix("_bwd")
+
+    def randn(*shape, dtype=dt, scale=1.0):
+        t = (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+        return t.requires_grad_(bwd)
+
+    if name == "flash_attention":
+        B, H, KV, S, d, causal = dims
+        inputs = (randn(B, H, S, d), randn(B, KV, S, d), randn(B, KV, S, d))
+        fn = lambda *t: ops.flash_attention_op(*t, causal=causal)  # noqa: E731
+        plain = lambda *t: ref.flash_attention_ref(*t, causal)  # noqa: E731
+    elif name == "rmsnorm":
+        T, D = dims
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(dt).requires_grad_(bwd)
+        inputs, fn, plain = (randn(T, D, scale=3.0), w), ops.rmsnorm_op, ref.rmsnorm_ref
+    elif name == "moe_matmul":
+        E, C, D, Fd = dims
+        inputs = (randn(E, C, D), randn(E, D, Fd, scale=0.05))
+        fn, plain = ops.moe_matmul_op, ref.moe_matmul_ref
+    elif name == "ssd_intra_chunk":
+        BNC, H, Q, hd, N = dims
+        cum = -torch.cumsum(0.1 * torch.rand(BNC, H, Q, generator=gen, device=dev), -1)
+        inputs = (randn(BNC, H, Q, hd, scale=0.5), randn(BNC, Q, N, dtype=torch.float32, scale=0.5),
+                  randn(BNC, Q, N, dtype=torch.float32, scale=0.5), cum.requires_grad_(bwd))
+        fn, plain = ops.ssd_intra_chunk_op, ref.ssd_intra_chunk_ref
+    else:
+        raise ValueError(f"no plain version to hold {kernel} against")
+    label = f"{kernel} {key} (held where it was launched)"
+    got, want = fn(*inputs), plain(*inputs)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    if not bwd:  # ssd's second output, the chunk state, is f32 whatever x's type
+        tol = BF16_TOL if dt == torch.bfloat16 else FWD_F32_TOL[name]
+        return max(assert_close(label, a, b, tol if i == 0 else F32_TOL)
+                   for i, (a, b) in enumerate(zip(got, want)))
+    douts = [torch.randn(o.shape, generator=gen, device=dev).to(o.dtype) for o in want]
+    g_got = torch.autograd.grad(got, inputs, douts)
+    g_want = torch.autograd.grad(want, inputs, douts)
+    return max(grad_err(f"{label} input {i}", a, b, GRAD_TOL[str(dt)[6:]])[1] or 0.0
+               for i, (a, b) in enumerate(zip(g_got, g_want)))
+
+
+def hold_unchecked(label, shapes, checked, hold):
+    """Hold every recorded (kernel, shape key) in ``shapes`` that ``checked`` ({kernel: keys
+    held so far}, phases 3 and 5's cases to begin with) lacks with ``hold(kernel, key)``,
+    then add it to ``checked``.  Returns the pairs held here."""
+    held = sorted((s for s in shapes if s[1] not in checked.get(s[0], ())), key=str)
+    for kernel, key in held:
+        err = hold(kernel, key)
+        checked.setdefault(kernel, set()).add(key)
+        print(f"[{label}] held {kernel} {key} against its plain version here: err {err:.2e}")
+    print(f"[{label}] all {len(shapes)} (kernel, shape) pairs held against their plain "
+          f"versions: {len(shapes) - len(held)} by phases 3 and 5's cases, {len(held)} here")
+    return held
 
 
 def path_launches(cfg, prefills, decode_steps, train_steps=0):
     """Kernel launches of ``prefills`` full forwards, ``decode_steps`` decode
     steps and ``train_steps`` forward-and-backward steps.
 
-    Norms per layer: two pre-norms (dense, moe); the pre-norm and the SSM's
-    out_norm over d_inner (ssm); the hybrid's two pre-norms of its parallel
-    heads, the SSM's out_norm, the two output norms of the fusion and the
-    FFN's pre-norm; then the final norm.  A training step runs each forward
-    kernel once more and, in its backward: each norm's dx kernel (the warp
-    route up to D 2048, the block route above) and dweight reduce; flash
-    attention's dq and dk/dv kernels; moe_matmul's dbuf and dw kernels for
-    each of its three products; ssd_intra_chunk's kernel and its reduce.
-    tests/test_torch_hybrid.py and tests/test_torch_backward.py hold these
-    counts to the calls the model code makes.
+    Norms per layer: two pre-norms (dense, vlm, moe); the pre-norm and the
+    SSM's out_norm over d_inner (ssm); the hybrid's two pre-norms of its
+    parallel heads, the SSM's out_norm, the two output norms of the fusion
+    and the FFN's pre-norm; then the final norm.  The audio family's full
+    forward runs the encoder (two pre-norms a layer, its final norm, a
+    non-causal flash attention a layer) and the decoder (three pre-norms a
+    layer, the final norm, a causal flash attention a layer); its decode
+    step the decoder's norms alone, and its cross-attention no kernel.  A
+    training step runs each forward kernel once more and, in its backward:
+    each norm's dx kernel (the warp route up to D 2048, the block route
+    above) and dweight reduce; flash attention's dq and dk/dv kernels;
+    moe_matmul's dbuf and dw kernels for each of its three products;
+    ssd_intra_chunk's kernel and its reduce.  tests/test_torch_hybrid.py and
+    tests/test_torch_backward.py hold these counts to the calls the model
+    code makes.
     """
     from repro_torch.kernels.rmsnorm import BWD_WARP_MAX_DIM  # wider rows take the block route
 
-    L, steps = cfg.num_layers, prefills + decode_steps + train_steps
+    L, steps, full = cfg.num_layers, prefills + decode_steps + train_steps, prefills + train_steps
     ssm, moe, attn = cfg.family in SSM_FAMILIES, cfg.family == "moe", not cfg.attention_free
-    norms = (6 if cfg.family == "hybrid" else 2) * L + 1
+    if cfg.family == "audio":
+        norms, decode_norms, flash = 2 * cfg.encoder_layers + 3 * L + 2, 3 * L + 1, cfg.encoder_layers + L
+    else:
+        norms = decode_norms = (6 if cfg.family == "hybrid" else 2) * L + 1
+        flash = L if attn else 0
     inner = L if ssm else 0  # the out_norms over d_inner
     wide = ((inner if cfg.d_inner > BWD_WARP_MAX_DIM else 0)
             + (norms - inner if cfg.d_model > BWD_WARP_MAX_DIM else 0))
     return {
-        "rmsnorm": norms * steps,
+        "rmsnorm": norms * full + decode_norms * decode_steps,
         "rmsnorm_bwd": (norms - wide) * train_steps,
         "rmsnorm_bwd_wide": wide * train_steps,
         "rmsnorm_bwd_dweight": norms * train_steps,
-        "flash_attention": L * (prefills + train_steps) if attn else 0,
-        "flash_attention_bwd_dq": L * train_steps if attn else 0,
-        "flash_attention_bwd_dkdv": L * train_steps if attn else 0,
+        "flash_attention": flash * full,
+        "flash_attention_bwd_dq": flash * train_steps,
+        "flash_attention_bwd_dkdv": flash * train_steps,
         "moe_matmul": 3 * L * steps if moe else 0,
         "moe_matmul_bwd_dbuf": 3 * L * train_steps if moe else 0,
         "moe_matmul_bwd_dw": 3 * L * train_steps if moe else 0,
-        "ssd_intra_chunk": L * (prefills + train_steps) if ssm else 0,
+        "ssd_intra_chunk": L * full if ssm else 0,
         "ssd_intra_chunk_bwd": L * train_steps if ssm else 0,
         "ssd_intra_chunk_bwd_reduce": L * train_steps if ssm else 0,
     }
@@ -474,9 +666,10 @@ def main() -> int:
     from repro_torch.launch.train import main as train_main
     from repro_torch.launch.train import next_batch, train, trainer_from_config
     from repro_torch.models import build_model
-    from repro_torch.models.convert import flat_from_params, params_from_flat
-    from repro_torch.models.layers import logits_fn
-    from repro_torch.models.transformer import arange_positions, embed_tokens, forward
+    from repro_torch.models import encdec
+    from repro_torch.models.convert import flat_from_params, params_from_flat, tree_from_flat
+    from repro_torch.models.layers import CROSS_ATTENTION_RANGE, logits_fn
+    from repro_torch.models.transformer import arange_positions, embed_tokens, forward, with_patches
     from repro_torch.serving.engine import Engine, GenerationConfig
     from repro_torch.training import (
         AdamWConfig,
@@ -561,6 +754,30 @@ def main() -> int:
         (4, 1, check_S, SH, SN, f32, "hymba f32 check"),
     ]
 
+    # the slice's models (llama3-8b and glm4-9b: d 4096, 32 H / 8 and 2 KV, hd 128; internvl2-1b:
+    # d 896, 14 H / 2 KV, 256 patches; whisper-medium: d 1024, 16 H / 16 KV over 1500 frames) at
+    # their score, prefill and LM shapes, forward here and backward in phase 5.  Every other
+    # shape their runs launch (decode rows, the checks' batches, the f32 copies, whisper's
+    # decoder) is held against its plain version where it is launched (hold_at_shape).
+    ivl_T = 256 + PROMPT  # internvl's prefill: the patches ahead of the prompt
+    slice_rms_cases = [(score_T, 4096, bf16, "llama3-8b, glm4-9b score"),
+                       (4, 4096, bf16, "llama3-8b, glm4-9b decode"),
+                       (4 * 1500, 1024, bf16, "whisper-medium encoder"),
+                       (4 * ivl_T, 896, bf16, "internvl2-1b prefill")]
+    slice_flash_cases = [(SCORE_SHAPE[0], 32, 8, SCORE_SHAPE[1], 128, True, bf16, "llama3-8b score"),
+                         (SCORE_SHAPE[0], 32, 2, SCORE_SHAPE[1], 128, True, bf16, "glm4-9b score"),
+                         (4, 16, 16, 1500, 64, False, bf16, "whisper-medium encoder"),
+                         (4, 14, 2, ivl_T, 64, True, bf16, "internvl2-1b prefill"),
+                         (4, 32, 8, 256, 128, True, bf16, "llama3-8b LM"),
+                         (4, 32, 2, 256, 128, True, bf16, "glm4-9b LM")]
+    slice_flash_bwd_cases = [(2, 16, 16, 1500, 64, False, bf16, "whisper-medium LM encoder"),
+                             (4, 14, 2, 512, 64, True, bf16, "internvl2-1b LM"),
+                             (4, 32, 8, 256, 128, True, bf16, "llama3-8b LM"),
+                             (4, 32, 2, 256, 128, True, bf16, "glm4-9b LM")]
+    slice_rms_bwd_cases = [(4 * 512, 896, bf16, "internvl2-1b LM"),
+                           (2 * 1500, 1024, bf16, "whisper-medium LM encoder"),
+                           (1024, 4096, bf16, "llama3-8b, glm4-9b LM")]
+
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
@@ -606,6 +823,7 @@ def main() -> int:
         (LOOP_N * LOOP_SEQ, 960, torch.bfloat16, "closed loop old_logp, GRPO"),
         *hybrid_rms_cases,
         *lm_rms_cases,
+        *slice_rms_cases,
         (1000, 2048, torch.bfloat16, ""),
         (1000, 960, torch.bfloat16, ""),
         (1000, 2048, torch.float32, ""),
@@ -634,6 +852,7 @@ def main() -> int:
         (LOOP_N, 15, 5, LOOP_SEQ, 64, True, torch.bfloat16, "closed loop old_logp, GRPO"),
         *hybrid_flash_cases,
         *lm_flash_cases,
+        *slice_flash_cases,
     ]
     for S in (160, 1024, 2048):
         for H, KV in ((32, 8), (15, 5)):
@@ -770,12 +989,7 @@ def main() -> int:
         return stack
 
     def assert_checked(label, shapes):
-        unchecked = sorted(str(s) for s in shapes if s[1] not in checked_shapes[s[0]])
-        if unchecked:
-            raise AssertionError(f"{label}: kernels launched at shapes no phase held against "
-                                 f"their plain versions: {unchecked}")
-        print(f"[{label}] all {len(shapes)} (kernel, shape) pairs were held against their plain "
-              f"versions in phase 3" + (" and 5" if any("_bwd" in s[0] for s in shapes) else ""))
+        hold_unchecked(label, shapes, checked_shapes, lambda k, key: hold_at_shape(k, key, dev, gen))
 
     # ---- 4. serving at full width -----------------------------------------
     launches = dict.fromkeys(ops.launch_counts(), 0)
@@ -786,11 +1000,24 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] += v
 
+    def full_logits_last(params, cfg, batch, seq):
+        """The last position's logits of a full forward over the prompt's inputs and seq:
+        ``forward`` after the vlm's patches, or the audio family's ``encode`` and
+        teacher-forced ``decode_train`` over the same frames."""
+        with torch.inference_mode():
+            if cfg.family == "audio":
+                enc = encdec.encode(params, batch["frames"], cfg)
+                h = encdec.decode_train(params, seq, enc, cfg)
+            else:
+                x, _ = with_patches(embed_tokens(params, seq, cfg), batch, cfg)
+                h, _ = forward(params, x, arange_positions(*x.shape[:2], dev), cfg)
+            return logits_fn(params, h[:, -1:], cfg)[:, 0]
+
     def run_generate(arch, seed):
         """4 x (PROMPT + NEW) greedy at full width through the launcher's server."""
         marks = [time.perf_counter()]
         server = build_server(arch, requests=4, prompt_len=PROMPT, new=NEW, full=True,
-                              device=dev, seed=seed)
+                              device=dev, seed=seed, frames=get_config(arch).encoder_seq)
         cfg = server.cfg
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
@@ -804,58 +1031,75 @@ def main() -> int:
             raise AssertionError(f"generate {cfg.name}: wrong shape or non-finite logits")
         _, warm_s = timed_generate(server)
         marks.append(time.perf_counter())
-        params, prompts = server.engine.params, server.prompts
+        params, prompts, batch = server.engine.params, server.prompts, server.batch
 
-        def last_step_error(check_cfg, check_params, tol, label):
+        def last_step_error(check_cfg, check_params, tol, label, exact_argmax=True):
             """Generate with check_cfg, then hold the last decode step against a full forward."""
             check = out
             if check_cfg is not cfg:
                 engine = Engine(build_model(check_cfg), check_params, server.engine.gen)
-                check = engine.generate({"tokens": prompts})
-            with torch.inference_mode():
-                seq = torch.cat([prompts, check.tokens[:, :-1]], dim=1)
-                h, _ = forward(check_params, embed_tokens(check_params, seq, check_cfg),
-                            arange_positions(*seq.shape, dev), check_cfg)
-                full = logits_fn(check_params, h[:, -1:], check_cfg)[:, 0]
+                check = engine.generate(batch)
+            seq = torch.cat([prompts, check.tokens[:, :-1]], dim=1)
+            full = full_logits_last(check_params, check_cfg, batch, seq)
             last = check.logits[:, -1]
             err = assert_close(f"{cfg.name} decode vs forward logits, {label}", last, full, tol,
                                rel=False)
             differ = last.argmax(-1) != full.argmax(-1)
-            if cfg.family not in SSM_FAMILIES and bool(differ.any()):
+            if cfg.family not in SSM_FAMILIES and exact_argmax and bool(differ.any()):
                 raise AssertionError(f"{cfg.name}: decode and forward disagree on the argmax")
-            # ssm, hybrid: argmax may differ only where the forward's top two lie within 2 err
+            # ssm, hybrid and the d-4096 dense models (SERVE_BF16_MODEL_TOL): argmax may differ
+            # only where the forward's top two lie within 2 err
             top2 = full.topk(2, dim=-1).values
             if bool((differ & (top2[:, 0] - top2[:, 1] > 2 * err)).any()):
                 raise AssertionError(f"{cfg.name}: decode and forward disagree on a clear argmax")
-            return (f"{label}: max abs err {err:.3e} (abs tol {tol}, |logits| max "
+            return (f"{label}: max abs err {err:.3e} (abs tol {tol:.4g}, |logits| max "
                     f"{full.abs().max().item():.2f}), argmax agrees on {int((~differ).sum())}/4")
 
+        tol = SERVE_BF16_MODEL_TOL.get(arch, SERVE_BF16_LOGIT_TOL[cfg.family])
         if cfg.family == "moe":  # capacity C >= T: nothing is dropped in prefill, decode or forward
             nodrop = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
-            checks = [last_step_error(nodrop, params, SERVE_BF16_LOGIT_TOL["moe"],
-                                      "bf16, drop-free config copy")]
+            checks = [last_step_error(nodrop, params, tol, "bf16, drop-free config copy")]
         else:
-            checks = [last_step_error(cfg, params, SERVE_BF16_LOGIT_TOL[cfg.family], "bf16")]
-        if cfg.family in SSM_FAMILIES:
-            checks.append(last_step_error(dataclasses.replace(cfg, dtype="float32"),
-                                          copy.deepcopy(params).float(), SERVE_F32_LOGIT_TOL,
-                                          "f32 copy of the weights"))
+            checks = [last_step_error(cfg, params, tol, "bf16",
+                                      exact_argmax=arch not in SERVE_BF16_MODEL_TOL)]
+        if arch in SLICE:  # the bf16 forward's own noise: the same forward, each row alone
+            seq = torch.cat([prompts, out.tokens[:, :-1]], dim=1)
+            rows = torch.cat([full_logits_last(params, cfg, {k: v[i:i + 1] for k, v in batch.items()},
+                                               seq[i:i + 1]) for i in range(seq.shape[0])])
+            noise = (rows - full_logits_last(params, cfg, batch, seq)).abs().max().item()
+            if noise > tol:
+                raise AssertionError(f"{cfg.name}: the bf16 forward, batch 4 against each row "
+                                     f"alone, differs by {noise:.3e}, beyond {tol}")
+            checks.append(f"the bf16 forward's own noise, batch 4 vs each row alone: {noise:.3e} "
+                          f"(limit {tol:.4g})")
+        if cfg.family in SSM_FAMILIES or arch in SLICE:
+            # leaf by leaf: a deep copy of the 9.4 B bf16 weights and its f32 would not fit
+            f32_params = tree_from_flat({k.replace(".", "/"): v.float()
+                                         for k, v in params.state_dict().items()})
+            checks.append(last_step_error(dataclasses.replace(cfg, dtype="float32"), f32_params,
+                                          SERVE_F32_LOGIT_TOL, "f32 copy of the weights"))
+            del f32_params
         marks.append(time.perf_counter())
-        print(f"[serve] generate {cfg.name} full (L={cfg.num_layers}) 4x{PROMPT}+{NEW}: launches "
-              f"{counts}; last-step logits vs forward: {'; '.join(checks)}")
+        inputs = {"vlm": f" after {cfg.num_patches} patches",
+                  "audio": f" over {batch.get('frames', prompts).shape[1]} frames (encoder "
+                           f"L={cfg.encoder_layers})"}.get(cfg.family, "")
+        print(f"[serve] generate {cfg.name} full (L={cfg.num_layers}) 4x{PROMPT}+{NEW}{inputs}: "
+              f"launches {counts}; last-step logits vs forward: {'; '.join(checks)}")
         print(f"[serve] generate {cfg.name} {4 * NEW / cold_s:.1f} tok/s first call ({cold_s:.3f}s), "
               f"{4 * NEW / warm_s:.1f} tok/s second call ({warm_s:.3f}s), "
               f"max_memory_allocated {mem:.2f} GiB [{name}; {card}]")
         # where the time of a warm generation goes
-        api, batch = server.api, {"tokens": prompts}
+        api = server.api
         with torch.inference_mode():
             (logits, state), prefill_ms = wall_ms(
-                lambda: api.prefill(params, batch, cache_len=PROMPT + NEW))
+                lambda: api.prefill(params, batch, cache_len=server.engine.gen.cache_len))
             _, step_ms = wall_ms(lambda: api.decode_step(params, state, logits.argmax(-1)[:, None]))
         print(f"[profile] generate {cfg.name}: prefill {prefill_ms:.2f} ms, one decode step "
               f"{step_ms:.2f} ms wall [{card}]")
         marks.append(time.perf_counter())
-        profiled(f"generate {cfg.name}", lambda: server.engine.generate(batch), card)
+        # whisper's cross-attention (plain PyTorch) read from the trace: its profiler range
+        profiled(f"generate {cfg.name}", lambda: server.engine.generate(batch), card,
+                 ranges=(CROSS_ATTENTION_RANGE,) if cfg.family == "audio" else ())
         marks.append(time.perf_counter())
         steps = [b - a for a, b in zip(marks, marks[1:])]
         print(f"[time] generate {cfg.name}: " + ", ".join(
@@ -892,23 +1136,33 @@ def main() -> int:
         profiled(f"score {cfg.name}", lambda: engine.score({"tokens": toks}), card)
 
     hybrid_shapes = set()  # every (kernel, shape) of the hybrid's runs, checks included
+    slice_serve_shapes = set()  # and of the slice's models (llama3-8b, glm4-9b, internvl, whisper)
 
     def shapes_of(arch):
-        return recording(hybrid_shapes, forward_wrappers) if arch == HYBRID else nullcontext()
+        if arch == HYBRID:
+            return recording(hybrid_shapes, forward_wrappers)
+        return recording(slice_serve_shapes, forward_wrappers) if arch in SLICE else nullcontext()
 
+    # the 8-9 B servers one at a time: each is freed (run_generate's and run_score's locals)
+    # and the cache emptied before the next is built
     for arch, seed in (("smollm-360m", 0), ("granite-moe-3b-a800m", 3), ("mamba2-130m", 4),
-                       (HYBRID, 12)):
+                       (HYBRID, 12), *SLICE_GENERATE):
+        t0 = time.perf_counter()
         with shapes_of(arch):
             run_generate(arch, seed)
         torch.cuda.empty_cache()
-        print(f"[time] generate {arch} done at {time.perf_counter() - t_start:.1f}s")
+        print(f"[time] generate {arch} done at {time.perf_counter() - t_start:.1f}s "
+              f"({time.perf_counter() - t0:.1f}s)")
     for arch, seed in (("llama3.2-1b", 1), ("granite-moe-3b-a800m", 5), ("mamba2-130m", 6),
-                       (HYBRID, 13)):
+                       (HYBRID, 13), *SLICE_SCORE):
+        t0 = time.perf_counter()
         with shapes_of(arch):
             run_score(arch, seed)
         torch.cuda.empty_cache()
-        print(f"[time] score {arch} done at {time.perf_counter() - t_start:.1f}s")
+        print(f"[time] score {arch} done at {time.perf_counter() - t_start:.1f}s "
+              f"({time.perf_counter() - t0:.1f}s)")
     assert_checked(HYBRID, hybrid_shapes)
+    assert_checked("serving " + ", ".join(sorted(SLICE)), slice_serve_shapes)
 
     print(f"[time] phase 4 done at {time.perf_counter() - t_start:.1f}s")
 
@@ -927,9 +1181,10 @@ def main() -> int:
             rel, zero = (max(rel, r), zero) if r is not None else (rel, max(zero, e))
         worst[(what, str(dt)[6:])] = (rel, zero)
 
-    # GQA g and S (ragged and whole tiles), then S on either side of the 128-row and
+    # GQA g (internvl2-1b's 7 and glm4-9b's 16 too) and S (ragged and whole tiles), then S on
+    # either side of the 128-row and
     # 128-key tiles and of S = 256, where the bf16 plans go from one warpgroup to two
-    grid = [(g, S) for g in (1, 3, 4, 5) for S in (1, 63, 65, 160, 1024)]
+    grid = [(g, S) for g in (1, 3, 4, 5, 7, 16) for S in (1, 63, 65, 160, 1024)]
     grid += [(g, S) for g in (1, 4) for S in (127, 129, 255, 257)]
     for dt in (torch.bfloat16, torch.float32):
         for g, S in grid:
@@ -1033,6 +1288,7 @@ def main() -> int:
         (LOOP_N, 15, 5, LOOP_SEQ, 64, True, torch.bfloat16, "closed loop GRPO"),
         (4, 32, 8, 256, 64, True, torch.bfloat16, "llama LM"),
         *lm_flash_cases,
+        *slice_flash_bwd_cases,
         (4, 32, 8, 1024, 64, True, torch.bfloat16, ""),
         (4, 15, 5, 1024, 64, True, torch.bfloat16, ""),
         (4, 32, 8, 2048, 64, True, torch.bfloat16, ""),
@@ -1085,7 +1341,7 @@ def main() -> int:
         (4 * 256, 2048, torch.bfloat16, "llama LM"),
         (4 * 256, 2048, torch.float32, ""),
         *lm_rms_cases,
-        (1024, 4096, torch.bfloat16, "d 4096"),
+        *slice_rms_bwd_cases,
         (1024, 3200, torch.float32, ""),
     ]
     for T, D, dt, what in rms_bwd_cases:
@@ -1209,14 +1465,14 @@ def main() -> int:
         check_counts(label, ops.launch_counts(), expect)
         return out
 
-    def profiled_step(label, fn):
+    def profiled_step(label, fn, ranges=()):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ms = wall_ms(fn)[1]  # the step's returned state is dropped at once: it holds new moments
         mem = torch.cuda.max_memory_allocated() / 2**30
         print(f"[train] {label}: one warm step {ms:.1f} ms wall, max_memory_allocated "
               f"{mem:.2f} GiB [{name}; {card}]")
-        profiled(label, fn, card, rows=14)
+        return profiled(label, fn, card, rows=14, ranges=ranges)
 
     # GRPO: the policy rolls out, the judge scores, three GRPO steps
     marks = [time.perf_counter()]
@@ -1307,14 +1563,27 @@ def main() -> int:
     train_wrappers = (*forward_wrappers, (moe_k, "moe_matmul", moe_key),
                       (flash_k, "flash_attention_bwd", flash_key), (rms_k, "rmsnorm_bwd", rms_key),
                       (moe_k, "moe_matmul_bwd", moe_key), (ssd_k, "ssd_intra_chunk_bwd", ssd_key))
-    for arch, batch, seq, layers in LM_FAMILY_RUNS:
+    for arch, batch, seq, layers in LM_FAMILY_RUNS + SLICE_LM_RUNS:
         cfg = get_config(arch)
         if layers is not None:  # a depth cut; the widths stay published
             cfg = dataclasses.replace(cfg, num_layers=layers)
+        frames = cfg.encoder_seq  # the audio family's stub frames a sequence: one 30 s window
 
-        def lm_train(cfg=cfg, batch=batch, seq=seq):
-            trainer = trainer_from_config(cfg, steps=3, batch=batch, seq=seq, device=dev)
-            return trainer, train(trainer, 3)
+        one_batch = arch in SLICE  # the slice's runs take their three steps on one batch
+
+        def lm_train(cfg=cfg, batch=batch, seq=seq, one_batch=one_batch):
+            trainer = trainer_from_config(cfg, steps=3, batch=batch, seq=seq, device=dev,
+                                          frames=frames)
+            if not one_batch:
+                return trainer, train(trainer, 3)
+            # the stream's batch-to-batch spread (0.05 on whisper-medium) exceeds what three
+            # warm-up steps (lr 1e-4 to 3e-4) move a new batch's loss; on one batch each
+            # step must descend
+            one, metrics = next_batch(trainer), []
+            for _ in range(3):
+                trainer.state, m = trainer.step(trainer.state, one)
+                metrics.append(m)
+            return trainer, [{k: float(v) for k, v in m.items()} for m in metrics]
 
         train_shapes = set()
         torch.cuda.reset_peak_memory_stats()
@@ -1327,7 +1596,13 @@ def main() -> int:
         losses = [m["loss"] for m in metrics]
         if not all(math.isfinite(m[k]) for m in metrics for k in ("loss", "grad_norm")):
             raise AssertionError(f"LM training {arch}: metrics {metrics}")
-        print(f"[train] lm {arch} full (L={cfg.num_layers}) {batch}x{seq}: losses "
+        if one_batch and not losses[-1] < losses[0]:
+            raise AssertionError(f"LM training {arch}: one batch's loss did not fall, {losses}")
+        inputs = {"vlm": f" after {trainer.patches} patches",
+                  "audio": f" over {frames} frames (encoder L={cfg.encoder_layers})"}.get(cfg.family, "")
+        print(f"[train] lm {arch} full (L={cfg.num_layers}) {batch}x{seq}{inputs}: "
+              f"{trainer.api.param_count() / 1e9:.3f} B parameters; "
+              f"{'one batch' if one_batch else 'the stream'}'s losses "
               + ", ".join(f"{x:.4f}" for x in losses)
               + f" (ln V = {math.log(cfg.vocab_size):.4f}); grad_norm "
               + ", ".join(f"{m['grad_norm']:.3f}" for m in metrics)
@@ -1336,10 +1611,12 @@ def main() -> int:
               f"max_memory_allocated {mem:.2f} GiB [{name}; {card}]")
         assert_checked(f"lm {arch}", train_shapes)
         lm_batch = next_batch(trainer)
-        profiled_step(f"lm step {arch}", lambda: trainer.step(trainer.state, lm_batch))
+        profiled_step(f"lm step {arch}", lambda: trainer.step(trainer.state, lm_batch),
+                      ranges=(CROSS_ATTENTION_RANGE,) if cfg.family == "audio" else ())
         del trainer, lm_batch, metrics
         torch.cuda.empty_cache()
-        print(f"[time] lm {arch} done at {time.perf_counter() - t_start:.1f}s")
+        print(f"[time] lm {arch} done at {time.perf_counter() - t_start:.1f}s "
+              f"({time.perf_counter() - t0:.1f}s)")
 
     print(f"[time] phase 6 done at {time.perf_counter() - t_start:.1f}s")
 
@@ -1424,24 +1701,38 @@ def main() -> int:
     print(f"[time] phase 7 done at {time.perf_counter() - t_start:.1f}s")
 
     # ---- 8. agreement with the CPU on a small input (reduced, f32) -------
-    for arch in ("smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", HYBRID):
+    def small_inputs(cfg, B):
+        """The vlm's stub patches or the audio family's stub frames (12, within its reduced
+        encoder_seq of 16) on the card."""
+        n = {"vlm": cfg.num_patches, "audio": 12}.get(cfg.family)
+        if n is None:
+            return {}
+        x = torch.randn(B, n, cfg.d_model, generator=gen, device=dev)
+        return {"patch_embeds" if cfg.family == "vlm" else "frames": x}
+
+    for arch in ("smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", HYBRID,
+                 "internvl2-1b", "whisper-medium", "llama3-8b", "glm4-9b"):
         cfg = get_config(arch).reduced()
         api = build_model(cfg)
         p_gpu = api.init(torch.Generator(device=dev).manual_seed(2), dev)
         p_cpu = params_from_flat(flat_from_params(p_gpu), cfg, "cpu")
         toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen, device=dev)
-        g_cfg = GenerationConfig(max_new_tokens=6, cache_len=40)
-        a = Engine(api, p_gpu, g_cfg).generate({"tokens": toks})
-        b = Engine(api, p_cpu, g_cfg).generate({"tokens": toks.cpu()})
+        extra = small_inputs(cfg, 2)
+        g_cfg = GenerationConfig(max_new_tokens=6, cache_len=40 + cfg.num_patches)
+        a = Engine(api, p_gpu, g_cfg).generate({"tokens": toks, **extra})
+        b = Engine(api, p_cpu, g_cfg).generate({"tokens": toks.cpu(),
+                                                **{k: v.cpu() for k, v in extra.items()}})
         e1 = assert_close(f"{cfg.name} generate logits card vs cpu", a.logits.cpu(), b.logits,
                           SMALL_F32_TOL)
         if not torch.equal(a.tokens.cpu(), b.tokens):
             raise AssertionError(f"{cfg.name}: greedy tokens differ between card and CPU")
-        sa = Engine(api, p_gpu, g_cfg).score({"tokens": toks})
-        sb = Engine(api, p_cpu, g_cfg).score({"tokens": toks.cpu()})
-        e2 = assert_close(f"{cfg.name} score card vs cpu", sa.cpu(), sb, SMALL_F32_TOL)
+        scored = "not scored (an encoder-decoder, as in JAX)"
+        if cfg.family != "audio":
+            sa = Engine(api, p_gpu, g_cfg).score({"tokens": toks})
+            sb = Engine(api, p_cpu, g_cfg).score({"tokens": toks.cpu()})
+            scored = f"score err {assert_close(f'{cfg.name} score card vs cpu', sa.cpu(), sb, SMALL_F32_TOL):.2e}"
         print(f"[small] {cfg.name} f32 card vs cpu: generate logits err {e1:.2e}, "
-              f"tokens equal, score err {e2:.2e} (tol {SMALL_F32_TOL})")
+              f"tokens equal, {scored} (tol {SMALL_F32_TOL})")
 
     # one GRPO and one LM step's loss and gradients, reduced smollm in f32
     cfg = get_config("smollm-360m").reduced()
@@ -1470,24 +1761,26 @@ def main() -> int:
         print(f"[small] {cfg.name} f32 {kind} step card vs cpu: loss err {e_loss:.2e}, grads err "
               f"{e_grad:.2e} of each leaf's largest magnitude (tol {SMALL_F32_TOL})")
 
-    # one LM step of the reduced moe, ssm and hybrid configs in f32 (the SSM families on two
-    # chunks a sequence), with the launches of one training step
-    for arch in ("granite-moe-3b-a800m", "mamba2-130m", HYBRID):
+    # one LM step of the reduced moe, ssm, hybrid, vlm, audio and d-4096 dense configs in f32 (the
+    # SSM families on two chunks a sequence), with the launches of one training step
+    for arch in ("granite-moe-3b-a800m", "mamba2-130m", HYBRID, "internvl2-1b", "whisper-medium",
+                 "llama3-8b", "glm4-9b"):
         cfg = get_config(arch).reduced()
         api = build_model(cfg)
         p_gpu = api.init(torch.Generator(device=dev).manual_seed(4), dev, trainable=True)
         p_cpu = params_from_flat(flat_from_params(p_gpu), cfg, "cpu").requires_grad_(True)
         seq = 2 * cfg.ssm_chunk if cfg.family in SSM_FAMILIES else 24
         toks = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen, device=dev)
+        extra = small_inputs(cfg, 2)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        lg = api.loss_fn(p_gpu, {"tokens": toks})[0]
+        lg = api.loss_fn(p_gpu, {"tokens": toks, **extra})[0]
         gg = grads_of(lg, p_gpu)
         torch.cuda.synchronize()
         counts, expect = ops.launch_counts(), path_launches(cfg, 0, 0, train_steps=1)
         if counts != expect:
             raise AssertionError(f"small lm {cfg.name}: launches {counts}, expected {expect}")
-        lc = api.loss_fn(p_cpu, {"tokens": toks.cpu()})[0]
+        lc = api.loss_fn(p_cpu, {"tokens": toks.cpu(), **{k: v.cpu() for k, v in extra.items()}})[0]
         gc = grads_of(lc, p_cpu)
         e_loss = assert_close(f"small lm {cfg.name} loss", lg.detach().cpu(), lc.detach(), SMALL_F32_TOL)
         e_grad = max(grad_err(f"small lm {cfg.name} grad {k}", gg[k].cpu(), gc[k], SMALL_F32_TOL)[1] or 0.0

@@ -1,10 +1,13 @@
 """Model configuration schema + the assigned input-shape registry.
 
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
-package).  Only the configs the port serves so far are registered: the
-dense ``llama3.2-1b``, ``smollm-360m`` and ``glm4-9b``, the MoE
-``granite-moe-3b-a800m``, the attention-free SSM ``mamba2-130m`` and the
-hybrid ``hymba-1.5b`` (parallel attention and Mamba-2 heads).
+package).  Every config of the JAX package that fits one card is
+registered: the dense ``llama3.2-1b``, ``smollm-360m``, ``llama3-8b`` and
+``glm4-9b``, the MoE ``granite-moe-3b-a800m``, the attention-free SSM
+``mamba2-130m``, the hybrid ``hymba-1.5b`` (parallel attention and Mamba-2
+heads), the VLM ``internvl2-1b`` (a stub patch-embedding prefix) and the
+encoder-decoder ``whisper-medium`` (stub frame embeddings).  Not
+``kimi-k2-1t-a32b``: 1 T parameters and head dim 112.
 ``reduced()`` gives the same smoke variant as the JAX package, so the
 parity tests load one set of weights into both.
 """
@@ -151,7 +154,10 @@ def _load_all() -> None:
         glm4_9b,
         granite_moe_3b_a800m,
         hymba_1_5b,
+        internvl2_1b,
         llama3_2_1b,
+        llama3_8b,
         mamba2_130m,
         smollm_360m,
+        whisper_medium,
     )

@@ -1,9 +1,13 @@
-"""Serving launcher: batched prefill+decode requests against a dense, MoE, SSM or hybrid arch.
+"""Serving launcher: batched prefill+decode requests against any registered arch.
 
 ``python -m repro_torch.launch.serve --arch smollm-360m --requests 4 --new 16``
-runs on the card (also ``--arch llama3.2-1b``, ``granite-moe-3b-a800m``,
-``mamba2-130m`` or ``hymba-1.5b``); ``--device cpu`` runs the plain versions
-on the CPU.
+runs on the card (also ``llama3.2-1b``, ``llama3-8b``, ``glm4-9b``,
+``granite-moe-3b-a800m``, ``mamba2-130m``, ``hymba-1.5b``, ``internvl2-1b``
+or ``whisper-medium``); ``--device cpu`` runs the plain versions on the CPU.
+As in ``repro.launch.serve``, an audio request carries 32 stub frame
+embeddings (``--frames``; the config's ``encoder_seq`` is one 30 s window)
+and a vlm request the config's ``num_patches`` stub patch embeddings
+ahead of its prompt (``--patches``).
 Weights are random, drawn from a seeded ``torch.Generator``.
 """
 
@@ -12,7 +16,7 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +32,11 @@ class Server:
     api: ModelApi
     engine: Engine
     prompts: torch.Tensor  # [requests, prompt_len] int64
+    inputs: Dict[str, torch.Tensor]  # what prefill reads besides the prompt: frames, patch_embeds
+
+    @property
+    def batch(self) -> Dict[str, torch.Tensor]:
+        return {"tokens": self.prompts, **self.inputs}
 
 
 def device_name(device: torch.device | str) -> str:
@@ -45,24 +54,41 @@ def build_server(
     sliding_window: int = 0,
     device: torch.device | str = "cuda",
     seed: int = 0,
+    frames: int = 32,
+    patches: Optional[int] = None,
 ) -> Server:
+    """A server of ``arch`` and its requests (drawn from ``seed`` in the JAX launcher's order).
+
+    ``frames``: stub frame embeddings per audio request; ``patches``: stub
+    patch embeddings per vlm request (None: the config's ``num_patches``).
+    """
     cfg = get_config(arch)
     if not full:
         cfg = cfg.reduced()
     api = build_model(cfg)
     params = api.init(torch.Generator(device=device).manual_seed(seed), device)
+    rng = np.random.default_rng(seed)
+
+    def embeds(n):
+        x = rng.standard_normal((requests, n, cfg.d_model), dtype=np.float32) * 0.02
+        return torch.as_tensor(x, device=device)
+
+    inputs = {"frames": embeds(frames)} if cfg.family == "audio" else {}
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, size=(requests, prompt_len)), device=device
+    )
+    if cfg.family == "vlm":
+        inputs["patch_embeds"] = embeds(cfg.num_patches if patches is None else patches)
+    prefix = inputs["patch_embeds"].shape[1] if "patch_embeds" in inputs else 0
     engine = Engine(
         api,
         params,
         GenerationConfig(
-            max_new_tokens=new, cache_len=prompt_len + new, sliding_window=sliding_window
+            max_new_tokens=new, cache_len=prefix + prompt_len + new,
+            sliding_window=sliding_window,
         ),
     )
-    rng = np.random.default_rng(seed)
-    prompts = torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, size=(requests, prompt_len)), device=device
-    )
-    return Server(cfg, api, engine, prompts)
+    return Server(cfg, api, engine, prompts, inputs)
 
 
 def timed_generate(server: Server) -> Tuple[Generation, float]:
@@ -71,7 +97,7 @@ def timed_generate(server: Server) -> Tuple[Generation, float]:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    out = server.engine.generate({"tokens": server.prompts})
+    out = server.engine.generate(server.batch)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return out, time.perf_counter() - t0
@@ -86,6 +112,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--sliding-window", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--frames", type=int, default=32, help="stub frames per audio request")
+    ap.add_argument("--patches", type=int, default=None,
+                    help="stub patches per vlm request (default: the config's num_patches)")
     args = ap.parse_args(argv)
 
     server = build_server(
@@ -96,6 +125,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         full=args.full,
         sliding_window=args.sliding_window,
         device=args.device,
+        frames=args.frames,
+        patches=args.patches,
     )
     out, dt = timed_generate(server)
     print(

@@ -1,7 +1,8 @@
 """Weights across frameworks: flat ``a/b/c`` path keys <-> ParamTree.
 
-The flat keys are those of the JAX package's checkpoints
-(``embed``, ``final_norm``, ``layers/attn/wq``, ..., stacked over L), so
+The flat keys are those of the JAX package's checkpoints (``embed``,
+``final_norm``, ``layers/attn/wq``, ..., stacked over L; for the audio
+family ``enc_layers/...``, ``enc_norm`` and ``dec_layers/...``), so
 JAX-initialised or JAX-trained weights load into the port unchanged.
 """
 
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDef, ParamTree, torch_dtype
-from repro_torch.models.transformer import model_schema
+from repro_torch.models.model import model_schema
 
 
 def _flat_schema(node, prefix: str = "") -> Dict[str, ParamDef]:

@@ -5,12 +5,15 @@ Parameters are described by :class:`ParamDef` schemas and held in a
 :class:`ParamTree` module whose ``state_dict`` keys are the JAX path keys
 with ``/`` replaced by ``.``.  RMSNorm and full-sequence attention go
 through ``kernels.ops``: the hand-written CUDA kernels on the card, the
-plain versions on the CPU.
+plain versions on the CPU.  Cross-attention (keys of their own length)
+and one-token decode are plain PyTorch, as the JAX package computes them
+in XLA.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -21,6 +24,17 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
+
+# torch.profiler range around the cross-attention's own work (scores, softmax, P.V; not its
+# projections), so that a trace can tell its device time apart
+CROSS_ATTENTION_RANGE = "cross_attention"
+
+
+def profiler_range(name: str):
+    """A ``torch.profiler`` range named ``name`` while the profiler records, else nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return nullcontext()
 
 
 @dataclass(frozen=True)
@@ -143,19 +157,24 @@ def multihead_attention(
     sliding_window: int = 0,
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    use_rope: bool = True,
 ) -> torch.Tensor:
-    """Full (non-incremental) GQA self-attention through the flash kernel.
+    """Full (non-incremental) GQA attention: self-attention through the flash kernel.
 
     ``positions`` feed RoPE (``rope``: their ``rope_cos_sin``, if the
     caller has it); the causal mask follows the sequence index, which is
     what every caller passes as positions.  ``cache`` is an optional pair
     of FLAT [B, S_max, KV*hd] caches (S_max >= S): this call's roped K and
     V are written in place into their rows [0, S).
+
+    ``kv_override`` = (k, v), each [B, Sk, KV, hd], supplies the keys and
+    values (cross-attention; Sk need not be S): q alone is projected, and
+    roped only if ``use_rope``; see ``cross_attention``.
     """
     if mask is not None:
-        raise NotImplementedError("attention masks come with the VLM slice (ROADMAP A8)")
-    if kv_override is not None:
-        raise NotImplementedError("cross-attention comes with the Whisper slice (ROADMAP A8)")
+        # No entry point of the reference passes a mask: every call site in its
+        # models, training, serving and rl leaves it unset.
+        raise NotImplementedError("attention masks: no entry point of the reference passes one")
     if sliding_window > 0:
         # No entry point of the reference passes a window to full-sequence
         # attention: serving windows only decode (decode_attention below).
@@ -165,11 +184,17 @@ def multihead_attention(
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = (x @ params["wq"]).view(B, S, h, hd)
+    if use_rope and rope is None:
+        rope = rope_cos_sin(positions, hd, cfg.rope_theta)
+    if kv_override is not None:
+        if cache is not None:
+            raise ValueError("cross-attention writes no cache: its K/V are the caller's")
+        q = rotate(q, rope) if use_rope else q
+        return cross_attention(q, *kv_override, positions, causal) @ params["wo"]
     k = (x @ params["wk"]).view(B, S, kv, hd)
     v = (x @ params["wv"]).view(B, S, kv, hd)
-    if rope is None:
-        rope = rope_cos_sin(positions, hd, cfg.rope_theta)
-    q, k = rotate(q, rope), rotate(k, rope)
+    if use_rope:
+        q, k = rotate(q, rope), rotate(k, rope)
     if cache is not None:
         # Departure from JAX: its prefill recomputes K/V beside the layer
         # into caches exactly S long (repro/models/transformer.py:354-372),
@@ -189,6 +214,33 @@ def multihead_attention(
     return out.transpose(1, 2).reshape(B, S, h * hd) @ params["wo"]
 
 
+def cross_attention(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k: torch.Tensor,  # [B, Sk, KV, hd]
+    v: torch.Tensor,  # [B, Sk, KV, hd]
+    positions: torch.Tensor,  # [B, S]: the causal mask's query positions
+    causal: bool = False,
+) -> torch.Tensor:
+    """GQA attention over keys of their own length -> [B, S, H*hd], in plain PyTorch.
+
+    As the JAX package computes it (repro/models/layers.py:190-209, in XLA):
+    f32 scores, f32 softmax, weights rounded to q's type before P.V.  No
+    kernel of the repository computes it: the TPU flash kernel reads K and
+    V of q's own length (ROADMAP B queues a flash variant with a key
+    length of its own).
+    """
+    B, S, h, hd = q.shape
+    kv = k.shape[2]
+    with profiler_range(CROSS_ATTENTION_RANGE):
+        qg = q.reshape(B, S, kv, h // kv, hd)
+        scores = torch.einsum("bqngd,bknd->bngqk", qg.float(), k.float()) / math.sqrt(hd)
+        if causal:
+            kpos = torch.arange(k.shape[1], device=q.device)
+            scores = scores.masked_fill((kpos > positions[:, :, None])[:, None, None], NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("bngqk,bknd->bqngd", w, v).reshape(B, S, h * hd)
+
+
 def decode_attention(
     params,
     x: torch.Tensor,
@@ -199,44 +251,53 @@ def decode_attention(
     *,
     sliding_window: int = 0,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    update_cache: bool = True,
+    use_rope: bool = True,
 ) -> torch.Tensor:
     """One-token decode against FLAT [B, S_max, KV*hd] caches -> out [B, 1, D].
 
     ``pos`` is the current position, the same for the whole batch; ``rope``
-    is its ``rope_cos_sin``, if the caller has it.
+    is its ``rope_cos_sin``, if the caller has it.  Cache entries past
+    ``pos`` are masked.  ``update_cache=False`` (cross-attention) writes
+    nothing, reads the caches as given and attends inside the
+    ``CROSS_ATTENTION_RANGE`` profiler range; ``use_rope=False`` leaves q
+    (and the new K row) unrotated.
     Departure from JAX: the new K/V row is written into the caches IN PLACE
     (JAX returns updated copies, repro/models/layers.py:306-311), and a
-    ``pos`` outside the cache raises where JAX clamps the write.
+    write at a ``pos`` outside the cache raises where JAX clamps it.
     """
     B = x.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     g = h // kv
     S_max = k_cache.shape[1]
-    if not 0 <= pos < S_max:
+    if pos < 0 or (update_cache and pos >= S_max):
         raise IndexError(f"decode position {pos} outside a cache of {S_max}")
-    if rope is None:
+    if use_rope and rope is None:
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
         rope = rope_cos_sin(positions, hd, cfg.rope_theta)
-    q = rotate((x @ params["wq"]).view(B, 1, h, hd), rope)
-    k_new = rotate((x @ params["wk"]).view(B, 1, kv, hd), rope)
-    k_cache[:, pos] = k_new.reshape(B, kv * hd)
-    v_cache[:, pos] = (x @ params["wv"]).reshape(B, kv * hd)
+    q = (x @ params["wq"]).view(B, 1, h, hd)
+    q = rotate(q, rope) if use_rope else q
+    if update_cache:
+        k_new = (x @ params["wk"]).view(B, 1, kv, hd)
+        k_cache[:, pos] = (rotate(k_new, rope) if use_rope else k_new).reshape(B, kv * hd)
+        v_cache[:, pos] = (x @ params["wv"]).reshape(B, kv * hd)
 
-    if 0 < sliding_window < S_max:
-        # attend to the last W entries of the cache
-        start = min(max(pos - sliding_window + 1, 0), S_max - sliding_window)
-        k_att = k_cache[:, start : start + sliding_window].view(B, sliding_window, kv, hd)
-        v_att = v_cache[:, start : start + sliding_window].view(B, sliding_window, kv, hd)
-        kpos = start + torch.arange(sliding_window, device=x.device)
-    else:
-        k_att = k_cache.view(B, S_max, kv, hd)
-        v_att = v_cache.view(B, S_max, kv, hd)
-        kpos = torch.arange(S_max, device=x.device)
-    qg = q.reshape(B, 1, kv, g, hd)
-    scores = torch.einsum("bqngd,bknd->bngqk", qg.float(), k_att.float()) / math.sqrt(hd)
-    scores = scores.masked_fill(kpos > pos, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bngqk,bknd->bqngd", w, v_att).reshape(B, 1, h * hd)
+    with nullcontext() if update_cache else profiler_range(CROSS_ATTENTION_RANGE):
+        if 0 < sliding_window < S_max:
+            # attend to the last W entries of the cache
+            start = min(max(pos - sliding_window + 1, 0), S_max - sliding_window)
+            k_att = k_cache[:, start : start + sliding_window].view(B, sliding_window, kv, hd)
+            v_att = v_cache[:, start : start + sliding_window].view(B, sliding_window, kv, hd)
+            kpos = start + torch.arange(sliding_window, device=x.device)
+        else:
+            k_att = k_cache.view(B, S_max, kv, hd)
+            v_att = v_cache.view(B, S_max, kv, hd)
+            kpos = torch.arange(S_max, device=x.device)
+        qg = q.reshape(B, 1, kv, g, hd)
+        scores = torch.einsum("bqngd,bknd->bngqk", qg.float(), k_att.float()) / math.sqrt(hd)
+        scores = scores.masked_fill(kpos > pos, NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bngqk,bknd->bqngd", w, v_att).reshape(B, 1, h * hd)
     return out @ params["wo"]
 
 

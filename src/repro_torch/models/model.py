@@ -1,7 +1,9 @@
 """Unified model API: ``build_model(cfg)`` -> :class:`ModelApi`.
 
-The port's façade over the dense, moe, ssm and hybrid families; serving,
-scoring and training go through it.
+The port's façade over the six families: the decoder-only dense, moe,
+ssm, hybrid and vlm (``models.transformer``) and the audio
+encoder-decoder (``models.encdec``); serving, scoring and training go
+through it.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Any, Dict, Iterator, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import ParamDef, ParamTree, init_from_schema, torch_dtype
 
 
@@ -48,25 +50,31 @@ class ModelApi:
         return sum(math.prod(p.shape) for p in _leaves(self.schema))
 
     # ---- training --------------------------------------------------------
+    @property
+    def _family(self):
+        """The module that holds this family's functions."""
+        return encdec if self.cfg.family == "audio" else transformer
+
     def loss_fn(self, params, batch: Dict[str, torch.Tensor]):
-        """(loss, metrics) of ``transformer.lm_loss``; the vlm and audio families raise."""
-        if self.cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(
-                f"{self.cfg.name}: {self.cfg.family} training is not ported yet (ROADMAP A8)"
-            )
-        return transformer.lm_loss(params, batch, self.cfg)
+        """(loss, metrics): ``transformer.lm_loss`` (vlm: after ``patch_embeds``), or
+        ``encdec.lm_loss`` over ``frames`` and ``tokens`` for audio."""
+        return self._family.lm_loss(params, batch, self.cfg)
 
     # ---- serving ---------------------------------------------------------
     def prefill(self, params, batch, cache_len: Optional[int] = None):
-        return transformer.prefill(params, batch, self.cfg, cache_len)
+        return self._family.prefill(params, batch, self.cfg, cache_len)
 
     def decode_step(self, params, state, token, sliding_window: int = 0):
-        return transformer.decode_step(params, state, token, self.cfg, sliding_window)
+        return self._family.decode_step(params, state, token, self.cfg, sliding_window)
 
     def init_decode_state(self, batch: int, cache_len: int, device: torch.device | str = "cuda"):
-        return transformer.init_decode_state(self.cfg, batch, cache_len, self.dtype, device)
+        return self._family.init_decode_state(self.cfg, batch, cache_len, self.dtype, device)
+
+
+def model_schema(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter schema of any family: the encoder-decoder's for audio."""
+    return (encdec if cfg.family == "audio" else transformer).model_schema(cfg)
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    """Dense, moe, ssm and hybrid families; vlm and audio raise NotImplementedError."""
-    return ModelApi(cfg=cfg, schema=transformer.model_schema(cfg))
+    return ModelApi(cfg=cfg, schema=model_schema(cfg))

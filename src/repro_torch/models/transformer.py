@@ -1,9 +1,10 @@
-"""Decoder-only transformer, dense / moe / ssm / hybrid families, as functions over a ParamTree.
+"""Decoder-only transformer, dense / moe / ssm / hybrid / vlm families, as functions over a ParamTree.
 
-Torch twin of those branches of ``repro.models.transformer``.  Depth is a
-Python loop over the layer-stacked ``[L, ...]`` parameters (the JAX
-package scans over them).  The VLM and audio families raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+Torch twin of ``repro.models.transformer``.  Depth is a Python loop over
+the layer-stacked ``[L, ...]`` parameters (the JAX package scans over
+them).  The vlm family is the dense one with a stub prefix of patch
+embeddings ahead of the text; the audio family (an encoder-decoder) is
+``models.encdec``'s.
 
 Departure: JAX rematerialises the layer body in training
 (``jax.checkpoint``, repro/models/transformer.py:155-158), which changes
@@ -40,16 +41,15 @@ from repro_torch.models.layers import (
 AUX_LB_COEF = 0.01
 AUX_Z_COEF = 0.001
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_ROADMAP_ITEM = {"vlm": "A8", "audio": "A8"}
+DECODER_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 SSM_FAMILIES = ("ssm", "hybrid")  # the families whose layers hold a Mamba-2 mixer
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        item = _ROADMAP_ITEM.get(cfg.family, "queue A")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP {item})"
+def _require_decoder(cfg: ModelConfig) -> None:
+    if cfg.family not in DECODER_FAMILIES:
+        where = "models.encdec" if cfg.family == "audio" else "no model of the repository"
+        raise ValueError(
+            f"{cfg.name}: family {cfg.family!r} is not a decoder-only family ({where})"
         )
 
 
@@ -59,8 +59,8 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 
 def layer_schema(cfg: ModelConfig) -> Dict[str, Any]:
-    """Schema of ONE layer (unstacked)."""
-    _require_ported(cfg)
+    """Schema of ONE layer (unstacked); the vlm family's is the dense one."""
+    _require_decoder(cfg)
     norm = ParamDef((cfg.d_model,), init="ones")
     if cfg.family == "ssm":
         return {"ssm": ssm_mod.ssm_schema(cfg), "norm_ssm": norm}
@@ -184,7 +184,7 @@ def forward(
     ``aux``: ``load_balance`` and ``router_z`` averaged over the layers, f32
     scalars (zeros outside the moe family), as the JAX forward returns them.
     """
-    _require_ported(cfg)
+    _require_decoder(cfg)
     rope = None
     if not cfg.attention_free:
         rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
@@ -209,13 +209,30 @@ def arange_positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+def with_patches(x: torch.Tensor, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """The vlm family's input: the stub patch embeddings [B, P, D] ahead of the text -> (x, P).
+
+    Every other family, or a vlm batch without ``patch_embeds``, keeps x (P = 0).
+    """
+    if cfg.family != "vlm" or "patch_embeds" not in batch:
+        return x, 0
+    patches = batch["patch_embeds"].to(device=x.device, dtype=x.dtype)
+    return torch.cat([patches, x], dim=1), patches.shape[1]
+
+
 def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    """Next-token LM loss -> (loss + aux terms, {"lm_loss", "load_balance", "router_z"})."""
-    tokens = batch["tokens"]  # [B, S]
-    B, S = tokens.shape
-    x = embed_tokens(params, tokens, cfg)
+    """Next-token LM loss -> (loss + aux terms, {"lm_loss", "load_balance", "router_z"}).
+
+    vlm: ``batch["patch_embeds"]`` [B, P, D] comes first (positions 0..P-1)
+    and the loss covers the text positions only, as in JAX.
+    """
+    tokens = batch["tokens"]  # [B, S_text]
+    if cfg.family == "vlm" and "patch_embeds" not in batch:
+        raise KeyError(f"{cfg.name}: a vlm training batch needs 'patch_embeds' [B, P, D]")
+    x, prefix = with_patches(embed_tokens(params, tokens, cfg), batch, cfg)
+    B, S = x.shape[:2]
     h, aux = forward(params, x, arange_positions(B, S, tokens.device), cfg)
-    logits = logits_fn(params, h[:, :-1, :], cfg)
+    logits = logits_fn(params, h[:, prefix:-1, :], cfg)
     loss = cross_entropy(logits, tokens[:, 1:])
     total = loss + AUX_LB_COEF * aux["load_balance"] + AUX_Z_COEF * aux["router_z"]
     return total, {"lm_loss": loss, **aux}
@@ -240,7 +257,7 @@ def init_decode_state(
     dtype: torch.dtype = torch.bfloat16,
     device: torch.device | str = "cuda",
 ) -> DecodeState:
-    _require_ported(cfg)
+    _require_decoder(cfg)
     L = cfg.num_layers
     kc = vc = st = None
     if not cfg.attention_free:
@@ -268,7 +285,7 @@ def decode_step(
     ``decode_attention`` and ``ssd_decode_step`` on the same input, then
     the fusion and the FFN, as its full-sequence layer does.
     """
-    _require_ported(cfg)
+    _require_decoder(cfg)
     h = embed_tokens(params, token, cfg)  # [B,1,D]
     layers = layer_params(params["layers"])
     none = [None] * len(layers)
@@ -314,15 +331,16 @@ def prefill(
     attention (JAX projects K and V a second time beside the layer,
     repro/models/transformer.py:354-360 and :383-392, to the same values).
     The ssm family keeps no cache; it and the hybrid keep each layer's
-    final SSD state.
+    final SSD state.  vlm: ``batch["patch_embeds"]`` (if given) is the
+    prompt's prefix, so S counts the patches and decoding continues at P + S.
     """
-    _require_ported(cfg)
+    _require_decoder(cfg)
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    x, _ = with_patches(embed_tokens(params, tokens, cfg), batch, cfg)
+    B, S = x.shape[:2]
     cache_len = S if cache_len is None else cache_len
     if cache_len < S:
         raise ValueError(f"cache_len {cache_len} is shorter than the prompt ({S})")
-    x = embed_tokens(params, tokens, cfg)
     state = init_decode_state(cfg, B, cache_len, torch_dtype(cfg), tokens.device)
     positions = arange_positions(B, S, tokens.device)
     rope = None

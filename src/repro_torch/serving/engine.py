@@ -1,7 +1,9 @@
 """Serving engine: batched prefill + autoregressive decode, and scoring.
 
 Torch twin of ``repro.serving.engine``.  Generation prefills into caches
-``GenerationConfig.cache_len`` long and decodes from there.
+``GenerationConfig.cache_len`` long and decodes from there; the batch
+carries what the family's prefill reads besides the prompt (``frames``
+for audio, ``patch_embeds`` for vlm).  Scoring is text only, as in JAX.
 """
 
 from __future__ import annotations
@@ -39,9 +41,14 @@ class Engine:
     def generate(
         self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None
     ) -> Generation:
-        """Greedy (argmax, first maximum) or, with temperature > 0, sampled with ``generator``."""
+        """Greedy (argmax, first maximum) or, with temperature > 0, sampled with ``generator``.
+
+        A vlm prompt's patches come ahead of its tokens in the cache.
+        """
         gen = self.gen
-        B, S = batch["tokens"].shape
+        S = batch["tokens"].shape[1]
+        if self.api.cfg.family == "vlm" and "patch_embeds" in batch:
+            S += batch["patch_embeds"].shape[1]
         if S + gen.max_new_tokens > gen.cache_len:
             raise ValueError(
                 f"prompt {S} + {gen.max_new_tokens} new tokens exceed cache_len {gen.cache_len}"
@@ -70,7 +77,11 @@ class Engine:
 
     @torch.inference_mode()
     def score(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Sequence log-likelihood [N] (used by LLM-as-judge reward services)."""
+        """Sequence log-likelihood [N] (used by LLM-as-judge reward services).
+
+        Text only: a vlm's ``patch_embeds`` are not read, as in JAX; the
+        audio family raises (``token_logprobs``).
+        """
         logp = token_logprobs(self.params, batch["tokens"], self.api)
         mask = batch.get("mask")
         if mask is not None:

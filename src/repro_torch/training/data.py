@@ -13,6 +13,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from repro_torch.models.transformer import DECODER_FAMILIES
+
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
@@ -61,13 +63,35 @@ class MarkovTextStream:
 def batch_for(cfg_model, shape, seed: int = 0) -> Dict[str, np.ndarray]:
     """One concrete (non-abstract) batch matching an assigned InputShape.
 
-    Token families only (dense, moe, ssm, hybrid): the port has no vlm or audio
-    model yet (ROADMAP A8).
+    audio: ``shape.seq_len`` stub frames and ``decoder_seq`` tokens; vlm:
+    ``num_patches`` stub patch embeddings and ``seq_len - num_patches``
+    tokens; every other family ``seq_len`` tokens.  Departure from JAX: a
+    family that no model of the port builds is refused, where JAX hands it
+    tokens.
     """
-    if cfg_model.family in ("vlm", "audio"):
-        raise NotImplementedError(f"{cfg_model.family} batches come with ROADMAP A8")
+    if cfg_model.family not in (*DECODER_FAMILIES, "audio"):
+        raise ValueError(f"batch_for: no model of the port has family {cfg_model.family!r}")
     rng = np.random.default_rng(seed)
     B, S = shape.global_batch, shape.seq_len
+    if cfg_model.family == "audio":
+        return {
+            "frames": rng.standard_normal((B, S, cfg_model.d_model)).astype(np.float32)
+            * 0.02,
+            "tokens": rng.integers(
+                0, cfg_model.vocab_size, size=(B, cfg_model.decoder_seq)
+            ).astype(np.int32),
+        }
+    if cfg_model.family == "vlm":
+        P = cfg_model.num_patches
+        return {
+            "tokens": rng.integers(0, cfg_model.vocab_size, size=(B, S - P)).astype(
+                np.int32
+            ),
+            "patch_embeds": rng.standard_normal((B, P, cfg_model.d_model)).astype(
+                np.float32
+            )
+            * 0.02,
+        }
     return {
         "tokens": rng.integers(0, cfg_model.vocab_size, size=(B, S)).astype(np.int32)
     }

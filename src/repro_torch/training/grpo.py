@@ -27,8 +27,19 @@ def group_advantages(rewards: torch.Tensor) -> torch.Tensor:
 
 
 def token_logprobs(params, tokens: torch.Tensor, api: ModelApi) -> torch.Tensor:
-    """Log-prob of each realized next token; [N, S-1] f32."""
+    """Log-prob of each realized next token; [N, S-1] f32.
+
+    Through the decoder-only forward, as in JAX (a vlm scores its text
+    alone).  An encoder-decoder has no such forward, and the JAX function
+    cannot score one either (it reads ``params["layers"]``, which the
+    encoder-decoder schema lacks): the audio family raises.
+    """
     cfg = api.cfg
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: an encoder-decoder (audio) has no decoder-only forward to score "
+            "tokens with; the JAX package cannot score it either"
+        )
     B, S = tokens.shape
     x = embed_tokens(params, tokens, cfg)
     h, _ = forward(params, x, arange_positions(B, S, tokens.device), cfg)

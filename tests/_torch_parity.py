@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +28,8 @@ from repro_torch.models import build_model as torch_build_model
 from repro_torch.models import transformer as tt
 from repro_torch.models.convert import flat_from_params, params_from_flat
 from repro_torch.models.layers import logits_fn
+
+ROOT = Path(__file__).resolve().parents[1]
 
 # f32 parity tolerance of whole-model outputs: the two frameworks sum in
 # different orders, which moves f32 logits of magnitude ~10 by ~1e-5.
@@ -58,6 +62,37 @@ def models(arch: str, weight_mult: float = 1.0, seed: int = 0):
     assert _flatten(jparams).keys() == flat.keys()
     tcfg = torch_cfg(jcfg)
     return japi, jparams, torch_build_model(tcfg), params_from_flat(flat, tcfg, "cpu")
+
+
+def family_inputs(cfg, B: int, seed: int = 0, frames: int = 10):
+    """What a family's prefill and loss read besides the tokens, as CPU tensors:
+    audio stub frames [B, frames, D], vlm stub patches [B, num_patches, D]."""
+    rng = np.random.default_rng(seed)
+    n = {"audio": frames, "vlm": cfg.num_patches}.get(cfg.family)
+    if n is None:
+        return {}
+    x = torch.from_numpy(rng.standard_normal((B, n, cfg.d_model), dtype=np.float32))
+    return {"frames" if cfg.family == "audio" else "patch_embeds": x}
+
+
+def chip_smoke():
+    """``chip_smoke.py`` as a module (its helpers; ``main`` is not run)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def assert_grads_close_to_max(loss, params, jax_grads, tol=1e-4):
+    """d loss / d params against JAX's gradient tree: each leaf within ``tol`` of the
+    reference leaf's largest magnitude."""
+    names, leaves = zip(*params.named_parameters())
+    got = dict(zip((n.replace(".", "/") for n in names), torch.autograd.grad(loss, leaves)))
+    want = _flatten(jax_grads)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        err = np.abs(np32(got[k]) - w).max()
+        assert err <= tol * np.abs(w).max(), (k, err, np.abs(w).max())
 
 
 def np32(x) -> np.ndarray:

@@ -15,14 +15,14 @@
   their gradients must equal autograd through ``ref``.
 - The backward launch plans, which the kernels refuse to deviate from.
 - ``chip_smoke.path_launches`` for one training step of each model,
-  against the kernels that ``loss_fn`` and its backward reach.
+  against the kernels that ``loss_fn`` and its backward reach; and
+  ``chip_smoke.hold_at_shape`` / ``hold_unchecked``, which hold a kernel
+  at a launched shape that no case of the script covered.
 """
 
 import collections
 import dataclasses
-import importlib.util
 import math
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +39,8 @@ from repro_torch.kernels import rmsnorm as rmsnorm_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.models import build_model
 
-ROOT = Path(__file__).resolve().parents[1]
+from _torch_parity import chip_smoke, family_inputs
+
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -315,13 +316,6 @@ def test_rmsnorm_backward_wide_plan(T, D, dtype):
 # ---------------------------------------------------------------------------
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 class _Backward(torch.autograd.Function):
     """Identity on an op's outputs whose backward records the backward kernels the op's
     own ``autograd.Function`` would launch on the card."""
@@ -361,7 +355,8 @@ def wide_hymba():
 
 
 @pytest.mark.parametrize(
-    "arch", ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b", "wide"]
+    "arch", ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b", "wide",
+             "internvl2-1b", "whisper-medium"]
 )
 def test_chip_smoke_training_launch_counts_follow_the_code(arch, monkeypatch):
     """On the card every ``ops`` call under grad launches its kernel once and, in the
@@ -385,14 +380,64 @@ def test_chip_smoke_training_launch_counts_follow_the_code(arch, monkeypatch):
         monkeypatch.setattr(ops, fname, call)
     seq = 64 if cfg.family in ("ssm", "hybrid") else 16  # two SSD chunks of 32
     toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, seq)))
-    loss, _ = api.loss_fn(params, {"tokens": toks})
+    loss, _ = api.loss_fn(params, {"tokens": toks, **family_inputs(cfg, 2)})
     torch.autograd.grad(loss, [p for _, p in params.named_parameters()], allow_unused=True)
-    expect = _chip_smoke().path_launches(cfg, 0, 0, train_steps=1)
+    expect = chip_smoke().path_launches(cfg, 0, 0, train_steps=1)
     assert expect.keys() == ops.launch_counts().keys()
     assert {k: calls[k] for k in expect} == expect
     if arch == "wide":
         assert expect["rmsnorm_bwd_wide"] == cfg.num_layers
     assert math.isfinite(float(loss.detach()))
+
+
+# chip_smoke.py holds a kernel at any launched shape that no case of its phases 3 and 5
+# covered: hold_at_shape turns the recorded shape key back into inputs and holds the
+# kernel (through ``ops``) against its plain version.  On the CPU ``ops`` runs the plain
+# versions, so a correct op holds with no error and a perturbed one must be refused.
+HOLD_CASES = [
+    ("rmsnorm", (5, 48, torch.float32)),
+    ("rmsnorm_bwd", (7, 40, torch.bfloat16)),
+    ("flash_attention", (2, 7, 1, 9, 16, True, torch.float32)),
+    ("flash_attention_bwd", (1, 4, 2, 11, 8, False, torch.float32)),
+    ("moe_matmul", (3, 5, 16, 12, torch.bfloat16)),
+    ("moe_matmul_bwd", (2, 6, 8, 10, torch.float32)),
+    ("ssd_intra_chunk", (2, 3, 8, 4, 5, torch.float32)),
+    ("ssd_intra_chunk_bwd", (2, 2, 6, 4, 3, torch.float32)),
+]
+HOLD_OPS = {"rmsnorm": "rmsnorm_op", "flash_attention": "flash_attention_op",
+            "moe_matmul": "moe_matmul_op", "ssd_intra_chunk": "ssd_intra_chunk_op"}
+
+
+@pytest.mark.parametrize("kernel,key", HOLD_CASES, ids=[k for k, _ in HOLD_CASES])
+def test_chip_smoke_hold_at_shape_refuses_a_wrong_kernel(kernel, key, monkeypatch):
+    cs = chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    assert cs.hold_at_shape(kernel, key, "cpu", gen) == 0.0
+    fname = HOLD_OPS[kernel.removesuffix("_bwd")]
+    right = getattr(ops, fname)
+
+    def wrong(*a, **kw):  # 10% off in the first output, so in its gradient too
+        out = right(*a, **kw)
+        return (out[0] * 1.1, *out[1:]) if isinstance(out, tuple) else out * 1.1
+
+    monkeypatch.setattr(ops, fname, wrong)
+    with pytest.raises(AssertionError, match="held where it was launched"):
+        cs.hold_at_shape(kernel, key, "cpu", gen)
+
+
+def test_chip_smoke_hold_unchecked_holds_only_what_no_case_covered():
+    cs = chip_smoke()
+    f32 = torch.float32
+    shapes = {("rmsnorm", (4, 8, f32)), ("rmsnorm", (3, 8, f32)),
+              ("flash_attention_bwd", (1, 2, 2, 5, 8, True, f32))}
+    checked = {"rmsnorm": {(4, 8, f32)}}
+    held = []
+    got = cs.hold_unchecked("t", shapes, checked, lambda k, key: held.append((k, key)) or 0.0)
+    want = [("flash_attention_bwd", (1, 2, 2, 5, 8, True, f32)), ("rmsnorm", (3, 8, f32))]
+    assert got == held == want
+    assert checked == {"rmsnorm": {(4, 8, f32), (3, 8, f32)},
+                       "flash_attention_bwd": {(1, 2, 2, 5, 8, True, f32)}}
+    assert cs.hold_unchecked("t", shapes, checked, lambda k, key: 1 / 0) == []
 
 
 # ---------------------------------------------------------------------------

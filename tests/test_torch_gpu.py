@@ -73,9 +73,11 @@ def grad_tol(dtype):
     return 2e-2 if dtype == torch.bfloat16 else 1e-4
 
 
-# hymba-1.5b's rows: d 1600, and the SSM's out_norm over d_inner 3200
+# hymba-1.5b's rows: d 1600, and the SSM's out_norm over d_inner 3200; internvl2-1b's 896,
+# whisper-medium's 1024 (6000 rows: its encoder over 4 x 1500 frames), llama3-8b's and glm4-9b's 4096
 @pytest.mark.parametrize("T,D", [(1, 960), (7, 960), (512, 960), (1280, 2048), (3, 100),
-                                 (512, 1600), (4, 3200), (1280, 3200)])
+                                 (512, 1600), (4, 3200), (1280, 3200), (4, 896), (1536, 896),
+                                 (4, 1024), (6000, 1024), (4, 4096), (1280, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel(cuda, T, D, dtype):
     rng = np.random.default_rng(T + D)
@@ -94,12 +96,16 @@ def test_rmsnorm_kernel_strided_rows(cuda):
     close(ops.rmsnorm_op(x, w), ref.rmsnorm_ref(x, w), 2e-2)
 
 
-# GQA groups g = H / KV of the served models (1, 3, 4, 5), ragged and whole 64-row tiles;
-# hymba-1.5b's prefill and score (H 25, KV 5: an odd head count)
+# GQA groups g = H / KV of the served models (1, 3, 4, 5, 7, 16), ragged and whole 64-row tiles;
+# hymba-1.5b's prefill and score (H 25, KV 5: an odd head count); whisper-medium's encoder
+# (H 16 = KV 16 over its 1500 frames), internvl2-1b's prefill (H 14, KV 2, 256 patches + 128)
+# and glm4-9b's score (H 32, KV 2, d 128)
 FLASH_SHAPES = [
     (1, 2, 2, 24, 64), (2, 4, 2, 100, 64), (2, 6, 2, 160, 64), (1, 8, 2, 1000, 128), (1, 4, 1, 33, 128),
-    (4, 25, 5, 128, 64), (8, 25, 5, 160, 64),
-] + [(2, 2 * g, 2, S, d) for g in (1, 3, 4, 5) for S in (1, 15, 64, 65, 160, 1000) for d in (64, 128)]
+    (4, 25, 5, 128, 64), (8, 25, 5, 160, 64), (2, 16, 16, 1500, 64), (4, 14, 2, 384, 64),
+    (8, 32, 2, 160, 128),
+] + [(2, 2 * g, 2, S, d) for g in (1, 3, 4, 5, 7, 16) for S in (1, 15, 64, 65, 160, 1000)
+     for d in (64, 128)]
 
 
 @pytest.mark.parametrize("B,H,KV,S,d", FLASH_SHAPES)
@@ -123,9 +129,10 @@ def test_flash_kernel(cuda, B, H, KV, S, d, causal, dtype):
 # the chip phase's backward grid: GQA g, S (ragged and whole tiles), d; then S on
 # either side of the 128-row and 128-key tiles and of S = 256, where the plans
 # change from one consumer warpgroup to two
-FLASH_BWD_SHAPES = [(2, 2 * g, 2, S, d) for g in (1, 3, 4, 5) for S in (1, 63, 65, 160, 1024)
+FLASH_BWD_SHAPES = [(2, 2 * g, 2, S, d) for g in (1, 3, 4, 5, 7, 16) for S in (1, 63, 65, 160, 1024)
                     for d in (64, 128)] + [
-    (2, 2 * g, 2, S, d) for g in (1, 4) for S in (127, 129, 255, 257) for d in (64, 128)]
+    (2, 2 * g, 2, S, d) for g in (1, 4) for S in (127, 129, 255, 257) for d in (64, 128)] + [
+    (2, 16, 16, 1500, 64), (4, 14, 2, 512, 64), (2, 32, 2, 256, 128)]  # whisper, internvl, glm LM
 
 
 @pytest.mark.parametrize("B,H,KV,S,d", FLASH_BWD_SHAPES)
@@ -186,7 +193,8 @@ def test_rmsnorm_backward_is_deterministic(cuda, T, D):
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
-@pytest.mark.parametrize("T,D", [(2560, 960), (1024, 2048), (1, 960), (7, 960), (3, 100), (300, 64)])
+@pytest.mark.parametrize("T,D", [(2560, 960), (1024, 2048), (1, 960), (7, 960), (3, 100), (300, 64),
+                                 (2048, 896), (3000, 1024), (896, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_backward_kernels(cuda, T, D, dtype):
     rng = np.random.default_rng(T + D + 11)
@@ -530,6 +538,49 @@ def test_hybrid_training_on_the_card_raises_naming_a3b(cuda, arch):
     lc = api.loss_fn(p_cpu, {"tokens": toks})[0]
     gc = grads_of(lc, p_cpu)
     close(lg.detach(), lc.detach(), 1e-4)
+    for k in gc:
+        close_to_max(k, gg[k].cpu(), gc[k], 1e-3)
+
+
+def _family_inputs(cfg, B, device):
+    """The stub patches (vlm) or 12 stub frames (audio, within its reduced encoder_seq), from a seed."""
+    n = {"vlm": cfg.num_patches, "audio": 12}.get(cfg.family)
+    if n is None:
+        return {}
+    x = tensor(np.random.default_rng(7), (B, n, cfg.d_model), torch.float32, device)
+    return {"patch_embeds" if cfg.family == "vlm" else "frames": x}
+
+
+@pytest.mark.parametrize("arch", ["internvl2-1b", "whisper-medium"])
+def test_vlm_and_audio_card_match_cpu(cuda, arch):
+    """Reduced internvl2-1b and whisper-medium, f32: generation (after the patches; over
+    the frames) and one LM step's loss and gradients on the card, through every kernel
+    (whisper's encoder through the non-causal flash), against the same weights on the CPU
+    within 1e-3."""
+    from repro_torch.training.train_step import grads_of
+
+    cfg = get_config(arch).reduced()
+    api = build_model(cfg)
+    p_gpu = api.init(torch.Generator(device=cuda).manual_seed(8), cuda, trainable=True)
+    p_cpu = params_from_flat(flat_from_params(p_gpu), cfg, "cpu").requires_grad_(True)
+    toks = torch.as_tensor(np.random.default_rng(9).integers(0, cfg.vocab_size, size=(2, 20)))
+    extra = _family_inputs(cfg, 2, cuda)
+    on_cpu = {k: v.cpu() for k, v in extra.items()}
+    gen = GenerationConfig(max_new_tokens=5, cache_len=25 + cfg.num_patches)
+    a = Engine(api, p_gpu, gen).generate({"tokens": toks.to(cuda), **extra})
+    b = Engine(api, p_cpu, gen).generate({"tokens": toks, **on_cpu})
+    close(a.logits, b.logits, 1e-3)
+    assert torch.equal(a.tokens.cpu(), b.tokens)
+    before = ops.launch_counts()
+    lg = api.loss_fn(p_gpu, {"tokens": toks.to(cuda), **extra})[0]
+    gg = grads_of(lg, p_gpu)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    attn = cfg.num_layers + cfg.encoder_layers
+    assert got["flash_attention"] == got["flash_attention_bwd_dkdv"] == attn
+    lc = api.loss_fn(p_cpu, {"tokens": toks, **on_cpu})[0]
+    gc = grads_of(lc, p_cpu)
+    close(lg.detach(), lc.detach(), 1e-3)
     for k in gc:
         close_to_max(k, gg[k].cpu(), gc[k], 1e-3)
 

@@ -10,9 +10,7 @@ f32 with a different summation order).
 """
 
 import dataclasses
-import importlib.util
 from collections import Counter
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -28,9 +26,8 @@ from repro_torch.models import build_model
 from repro_torch.models import transformer as tt
 from repro_torch.serving.engine import Engine, GenerationConfig
 
-from _torch_parity import MODEL_TOL, bf16_decode_drift, models, np32
+from _torch_parity import MODEL_TOL, bf16_decode_drift, chip_smoke, family_inputs, models, np32
 
-ROOT = Path(__file__).resolve().parents[1]
 
 
 def close(got, want, tol=MODEL_TOL):
@@ -130,35 +127,33 @@ def test_cpu_serving_launches_no_kernel():
 # ---------------------------------------------------------------------------
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 OPS = {"rmsnorm_op": "rmsnorm", "flash_attention_op": "flash_attention",
        "moe_matmul_op": "moe_matmul", "ssd_intra_chunk_op": "ssd_intra_chunk"}
 
 
 @pytest.mark.parametrize(
-    "arch", ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b"]
+    "arch", ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b",
+             "internvl2-1b", "whisper-medium"]
 )
 def test_chip_smoke_launch_counts_follow_the_code(arch, monkeypatch):
     """On the card every call of an ``ops`` entry point without a gradient
     launches its kernel once; ``chip_smoke.path_launches`` must predict the
-    calls that generation and scoring make, family by family."""
+    calls that generation and scoring make, family by family (the vlm with
+    its patch prefix, the audio family over its frames; it cannot score)."""
     _, _, tapi, tparams = models(arch)
     calls = Counter()
     for fname, kernel in OPS.items():
         fn = getattr(ops, fname)
         monkeypatch.setattr(ops, fname, lambda *a, _fn=fn, _k=kernel, **kw: (calls.update([_k]), _fn(*a, **kw))[1])
-    expect = _chip_smoke().path_launches
+    expect = chip_smoke().path_launches
     zero = {k: 0 for k in ops.launch_counts() if k not in OPS.values()}  # the backward kernels
-    batch = {"tokens": torch.as_tensor(tokens(tapi.cfg, 2, 8))}
+    batch = {"tokens": torch.as_tensor(tokens(tapi.cfg, 2, 8)), **family_inputs(tapi.cfg, 2)}
     new = 4
-    Engine(tapi, tparams, GenerationConfig(max_new_tokens=new, cache_len=8 + new)).generate(batch)
+    cache_len = 8 + new + tapi.cfg.num_patches
+    Engine(tapi, tparams, GenerationConfig(max_new_tokens=new, cache_len=cache_len)).generate(batch)
     assert {**zero, **{k: calls[k] for k in OPS.values()}} == expect(tapi.cfg, 1, new - 1)
+    if tapi.cfg.family == "audio":
+        return
     calls.clear()
     Engine(tapi, tparams, GenerationConfig()).score(batch)
     assert {**zero, **{k: calls[k] for k in OPS.values()}} == expect(tapi.cfg, 1, 0)

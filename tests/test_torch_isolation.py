@@ -31,7 +31,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     for present in ("repro_torch.kernels.ops", "repro_torch.launch.serve",
                     "repro_torch.core.orchestrator", "repro_torch.rl.driver",
                     "repro_torch.serving.reward_service",
-                    "repro_torch.examples.agentic_rl_e2e"):
+                    "repro_torch.examples.agentic_rl_e2e", "repro_torch.models.encdec",
+                    "repro_torch.examples.train_lm", "repro_torch.configs.whisper_medium",
+                    "repro_torch.configs.internvl2_1b", "repro_torch.configs.llama3_8b"):
         assert present in modules, present
     code = (
         "import importlib, sys\n"

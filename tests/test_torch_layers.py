@@ -100,17 +100,83 @@ def test_multihead_attention_fills_a_longer_cache():
 
 
 @pytest.mark.parametrize(
-    "kw", [dict(mask=torch.ones(1)), dict(kv_override=(None, None)), dict(sliding_window=4)]
+    "kw", [dict(mask=torch.ones(1)),
+           dict(kv_override=(torch.zeros(1, 3, 2, 64), torch.zeros(1, 3, 2, 64)),
+                cache=(torch.zeros(1, 4, 128), torch.zeros(1, 4, 128))),
+           dict(sliding_window=4)]
 )
 def test_multihead_attention_options_not_ported_raise(kw):
-    """Masks and cross-attention name the ROADMAP item that brings them; a
-    window is refused outright, since only decode takes one."""
+    """No entry point of the reference passes a mask or a full-sequence window;
+    cross-attention (``kv_override``) writes no cache."""
     _, tcfg = cfg_pair()
     _, tp = attn_params(np.random.default_rng(0), tcfg)
     x = torch.zeros(1, 4, tcfg.d_model)
-    match = "decode_attention only" if "sliding_window" in kw else "ROADMAP A8"
-    with pytest.raises(NotImplementedError, match=match):
+    exc, match = {"mask": (NotImplementedError, "no entry point"),
+                  "kv_override": (ValueError, "writes no cache"),
+                  "sliding_window": (NotImplementedError, "decode_attention only")}[next(iter(kw))]
+    with pytest.raises(exc, match=match):
         tl.multihead_attention(tp, x, torch.zeros(1, 4, dtype=torch.int32), tcfg, **kw)
+
+
+@pytest.mark.parametrize("heads,kv", [(4, 4), (6, 2)])
+@pytest.mark.parametrize("S,Sk", [(8, 20), (24, 5)])
+@pytest.mark.parametrize("use_rope", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_multihead_attention_kv_override(heads, kv, S, Sk, use_rope, causal):
+    """Cross-attention: keys of their own length Sk, q roped only if ``use_rope`` (2e-5)."""
+    jcfg, tcfg = cfg_pair(heads=heads, kv=kv)
+    rng = np.random.default_rng(heads + S + Sk)
+    jp, tp = attn_params(rng, jcfg)
+    hd = jcfg.resolved_head_dim
+    x = rng.standard_normal((2, S, jcfg.d_model), dtype=np.float32)
+    k = rng.standard_normal((2, Sk, kv, hd), dtype=np.float32)
+    v = rng.standard_normal((2, Sk, kv, hd), dtype=np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
+    want = jl.multihead_attention(jp, jnp.asarray(x), jnp.asarray(pos), jcfg,
+                                  kv_override=(jnp.asarray(k), jnp.asarray(v)), causal=causal,
+                                  use_rope=use_rope)
+    got = tl.multihead_attention(tp, torch.from_numpy(x), torch.from_numpy(pos), tcfg,
+                                 kv_override=(torch.from_numpy(k), torch.from_numpy(v)),
+                                 causal=causal, use_rope=use_rope)
+    close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_multihead_attention_without_rope(causal):
+    """Self-attention with ``use_rope=False`` (no entry point uses it; the option is JAX's)."""
+    jcfg, tcfg = cfg_pair()
+    rng = np.random.default_rng(9)
+    jp, tp = attn_params(rng, jcfg)
+    x = rng.standard_normal((2, 12, jcfg.d_model), dtype=np.float32)
+    pos = np.broadcast_to(np.arange(12, dtype=np.int32), (2, 12)).copy()
+    want = jl.multihead_attention(jp, jnp.asarray(x), jnp.asarray(pos), jcfg, causal=causal,
+                                  use_rope=False)
+    got = tl.multihead_attention(tp, torch.from_numpy(x), torch.from_numpy(pos), tcfg,
+                                 causal=causal, use_rope=False)
+    close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("pos", [3, 7, 15, 1499])
+@pytest.mark.parametrize("use_rope", [False, True])
+def test_decode_attention_reads_a_cache_it_does_not_update(pos, use_rope):
+    """``update_cache=False`` (the decoder's cross-attention): nothing written, and a
+    position at or past the cache length (Whisper's encoder_seq - 1) masks nothing (2e-5)."""
+    jcfg, tcfg = cfg_pair()
+    rng = np.random.default_rng(pos)
+    jp, tp = attn_params(rng, jcfg)
+    B, Sk, W = 2, 8, jcfg.num_kv_heads * jcfg.resolved_head_dim
+    x = rng.standard_normal((B, 1, jcfg.d_model), dtype=np.float32)
+    kc = rng.standard_normal((B, Sk, W), dtype=np.float32)
+    vc = rng.standard_normal((B, Sk, W), dtype=np.float32)
+    want, want_k, want_v = jl.decode_attention(
+        jp, jnp.asarray(x), jnp.asarray(pos, jnp.int32), jnp.asarray(kc), jnp.asarray(vc), jcfg,
+        update_cache=False, use_rope=use_rope)
+    tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    got = tl.decode_attention(tp, torch.from_numpy(x), pos, tk, tv, tcfg, update_cache=False,
+                              use_rope=use_rope)
+    close(got, want, 2e-5)
+    assert np.array_equal(tk.numpy(), kc) and np.array_equal(tv.numpy(), vc)
+    np.testing.assert_array_equal(np.asarray(want_k), kc)
 
 
 @pytest.mark.parametrize("window", [0, 5])

@@ -1,5 +1,10 @@
 """The port's transformer (dense, MoE, SSM, hybrid) vs ``repro.models`` on reduced configs, in f32.
 
+The dense ``llama3-8b`` and ``glm4-9b`` (head dim 128 at full width; GQA
+g 4 and 16) join the forward and loss cases reduced; the vlm and audio
+families have test_torch_vlm.py and test_torch_encdec.py, and join the
+weight conversion cases here.
+
 Weights cross from JAX through the checkpoint path keys
 (``convert.params_from_flat``).  Tolerance: ``_torch_parity.MODEL_TOL``
 (1e-4, f32 with a different summation order).
@@ -26,6 +31,7 @@ from repro_torch.models.layers import logits_fn
 from _torch_parity import MODEL_TOL, models, np32
 
 ARCHS = ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b"]
+LARGE_DENSE = ["llama3-8b", "glm4-9b"]
 
 
 def close(got, want, tol=MODEL_TOL):
@@ -36,7 +42,7 @@ def tokens(cfg, B, S, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(B, S))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + LARGE_DENSE + ["internvl2-1b", "whisper-medium"])
 def test_convert_round_trip_keeps_keys_shapes_dtypes(arch):
     japi, jparams, tapi, tparams = models(arch)
     flat = _flatten(jparams)
@@ -86,13 +92,18 @@ def test_layer_views_are_kept_and_follow_moved_storage():
 
 
 def test_non_dense_family_raises():
-    """The families not ported yet (here the VLM) name the ROADMAP item that brings them."""
-    cfg = dataclasses.replace(get_config("smollm-360m").reduced(), family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        build_model(cfg)
+    """Every family of the repository builds; the decoder-only functions refuse the
+    encoder-decoder (it is ``models.encdec``'s) and a family no model has."""
+    for family in ("vlm", "audio"):
+        build_model(dataclasses.replace(get_config("smollm-360m").reduced(), family=family,
+                                        encoder_layers=2))
+    with pytest.raises(ValueError, match="models.encdec"):
+        tt.model_schema(get_config("whisper-medium").reduced())
+    with pytest.raises(ValueError, match="not a decoder-only family"):
+        build_model(dataclasses.replace(get_config("smollm-360m").reduced(), family="conv"))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + LARGE_DENSE)
 def test_forward_logits_match(arch):
     japi, jparams, tapi, tparams = models(arch, weight_mult=5.0)
     B, S = 2, 24
@@ -111,7 +122,7 @@ def test_forward_logits_match(arch):
     assert (float(aux["load_balance"]) > 0) == (japi.cfg.family == "moe")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + LARGE_DENSE)
 def test_lm_loss_matches(arch):
     """``ModelApi.loss_fn`` (lm_loss: CE plus the weighted MoE aux terms) against JAX's."""
     japi, jparams, tapi, tparams = models(arch, weight_mult=5.0)
@@ -125,12 +136,12 @@ def test_lm_loss_matches(arch):
 
 
 def test_loss_fn_of_unported_families_names_a8():
-    cfg = get_config("smollm-360m").reduced()
-    api = build_model(cfg)
-    for family in ("vlm", "audio"):
-        other = dataclasses.replace(api, cfg=dataclasses.replace(cfg, family=family))
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            other.loss_fn(None, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    """The vlm and audio families train since A8: a batch without the input they
+    read first (the patches; the frames) raises a KeyError naming it, as in JAX."""
+    for arch, key in (("internvl2-1b", "patch_embeds"), ("whisper-medium", "frames")):
+        _, _, tapi, tparams = models(arch)
+        with pytest.raises(KeyError, match=key):
+            tapi.loss_fn(tparams, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -40,6 +40,7 @@ from repro.training.checkpoint import _flatten
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.kernels import ops
+from repro_torch.models import build_model
 from repro_torch.models import transformer as tt
 from repro_torch.models.convert import flat_from_params
 from repro_torch.serving.engine import Engine, GenerationConfig
@@ -263,9 +264,39 @@ def test_batch_for_matches_jax(arch):
 
 
 def test_batch_for_refuses_families_the_port_lacks():
-    cfg = dataclasses.replace(get_config("smollm-360m"), family="vlm")
-    with pytest.raises(NotImplementedError, match="A8"):
+    """vlm: ``num_patches`` stub patch embeddings [B, P, D] and S - P tokens; audio:
+    S stub frames and ``decoder_seq`` tokens; a family no model of the port builds
+    is refused."""
+    shape = InputShape("t", 300, 3, "train")
+    vlm = get_config("internvl2-1b")
+    got = batch_for(vlm, shape)
+    P = vlm.num_patches
+    assert got["patch_embeds"].shape == (3, P, vlm.d_model) and got["tokens"].shape == (3, 300 - P)
+    audio = get_config("whisper-medium")
+    got = batch_for(audio, shape)
+    assert got["frames"].shape == (3, 300, audio.d_model)
+    assert got["tokens"].shape == (3, audio.decoder_seq)
+    cfg = dataclasses.replace(get_config("smollm-360m"), family="conv")
+    with pytest.raises(ValueError, match="no model of the port"):
         batch_for(cfg, InputShape("t", 24, 3, "train"))
+
+
+def test_train_lm_example_loss_falls(tmp_path):
+    """The twin of examples/train_lm.py, reduced on the CPU: the loss falls over its
+    steps, and the checkpoint it writes loads back."""
+    from repro_torch.examples import train_lm
+
+    path = tmp_path / "lm.npz"
+    metrics = train_lm.main(["--reduced", "--steps", "12", "--batch", "4", "--seq", "32",
+                             "--device", "cpu", "--ckpt", str(path)])
+    losses = [m["loss"] for m in metrics]
+    assert len(losses) == 12 and all(np.isfinite(losses))
+    assert losses[-1] < losses[0] - 0.05, losses
+    cfg = train_lm.model_config(reduced=True)
+    assert cfg.num_layers == 2 and cfg.dtype == "float32"
+    like = build_model(cfg).init(torch.Generator().manual_seed(1), "cpu")
+    params, step = load_checkpoint(str(path), like)
+    assert step == 12
 
 
 def test_loss_decreases_on_learnable_stream():
