@@ -894,6 +894,7 @@ def main() -> int:
         (40, 384, 1536, 512, torch.bfloat16, "granite score gate/up"),
         (40, 384, 512, 1536, torch.bfloat16, "granite score down"),
         *lm_moe_cases,
+        (40, 256, 1536, 512, torch.float32, "granite LM gate/up in f32 (fma route)"),
         (40, 1024, 1536, 512, torch.bfloat16, "longer"),
         (40, 384, 1536, 512, torch.float32, ""),
         (5, 130, 200, 72, torch.float32, "ragged"),
@@ -1209,11 +1210,20 @@ def main() -> int:
                 keep(f"rmsnorm {n}", dt, [grad_err(f"rmsnorm {n} {T}x{D} {dt}", a, b,
                                                    GRAD_TOL[str(dt)[6:]])])
             checked += 1
-    # rows past 2048: the block route (D 2049 ragged, hymba's 3200, A10's 4096, its limit 8192)
+    # rows past 2048: the ring route (hymba's 3200, the d-4096 models, 2056 just past the warp
+    # route, the limit 8192; one row, fewer rows than SMs, rows strided by a 16-byte multiple)
+    # and the block route (D 2049 ragged, rows starting off 16 bytes)
     for dt in (torch.bfloat16, torch.float32):
-        for T, D in ((1, 3200), (7, 3200), (1024, 3200), (1, 4096), (7, 4096), (1024, 4096),
-                     (7, 2049), (300, 2049), (64, 8192)):
-            x, w = leaves(dt, (T, D), scale=3.0)[0], (1 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
+        for T, D, lay in ((1, 3200, ""), (7, 3200, ""), (1024, 3200, ""), (1, 4096, ""), (7, 4096, ""),
+                          (1024, 4096, ""), (7, 2049, ""), (300, 2049, ""), (64, 8192, ""),
+                          (1, 2056, ""), (131, 2056, ""), (1, 8192, ""), (200, 8192, ""),
+                          (300, 3200, "strided"), (300, 3200, "unaligned")):
+            if lay:  # x a view: every row 8 elements further on, or the rows one element in
+                base = leaves(dt, (T, D + 8), scale=3.0)[0].detach()
+                x = (base[:, :D] if lay == "strided" else base[:, 1:D + 1]).requires_grad_()
+            else:
+                x = leaves(dt, (T, D), scale=3.0)[0]
+            w = (1 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
             w.requires_grad_()
             dy = randn(T, D, dtype=dt)
             before = ops.launch_counts()["rmsnorm_bwd_wide"]
@@ -1221,8 +1231,11 @@ def main() -> int:
             if ops.launch_counts()["rmsnorm_bwd_wide"] != before + 1:
                 raise AssertionError(f"rmsnorm {T}x{D}: the wide backward kernel did not run")
             for n, a, b in zip(("dx", "dweight"), got, want):
-                keep(f"rmsnorm wide {n}", dt, [grad_err(f"rmsnorm wide {n} {T}x{D} {dt}", a, b,
+                keep(f"rmsnorm wide {n}", dt, [grad_err(f"rmsnorm wide {n} {T}x{D} {lay} {dt}", a, b,
                                                         GRAD_TOL[str(dt)[6:]])])
+            first, again = (rms_k.rmsnorm_bwd(x.detach(), w.detach(), dy) for _ in range(2))
+            if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
+                raise AssertionError(f"rmsnorm wide {T}x{D} {lay} {dt}: two calls differ")
             checked += 1
     # moe_matmul: capacities ragged and whole, 8 through 384; granite's widths (gate/up, down),
     # the reduced config's, partial tiles, and rows TMA cannot read (the fma route in bf16)
@@ -1236,7 +1249,28 @@ def main() -> int:
                 for n, a, b in zip(("dbuf", "dw"), got, want):
                     keep(f"moe_matmul {n}", dt, [grad_err(f"moe_matmul {n} E={E} C={C} D={D} F={Fd} {dt}",
                                                           a, b, GRAD_TOL[str(dt)[6:]])])
+                first, again = (moe_k.moe_matmul_bwd(buf.detach(), w.detach(), dout) for _ in range(2))
+                if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
+                    raise AssertionError(f"moe_matmul bwd E={E} C={C} D={D} F={Fd} {dt}: two calls differ")
                 checked += 1
+        # one operand contiguous but one element off 16 bytes: the launch that reads it takes
+        # the fma route's element loads
+        for which in ("buf", "w", "dout"):
+            E, C, D, Fd = 3, 40, 64, 72
+            shapes = {"buf": (E, C, D), "w": (E, D, Fd), "dout": (E, C, Fd)}
+            t = {k: ((randn(int(np.prod(s_)) + 1, dtype=torch.float32) * (0.05 if k == "w" else 1.0)
+                      ).to(dt)[1:].view(s_) if k == which
+                     else (randn(*s_, dtype=torch.float32) * (0.05 if k == "w" else 1.0)).to(dt))
+                 for k, s_ in shapes.items()}
+            if t[which].data_ptr() % 16 == 0 or not t[which].is_contiguous():
+                raise AssertionError(f"moe_matmul unaligned {which}: the operand is aligned")
+            got = moe_k.moe_matmul_bwd(t["buf"], t["w"], t["dout"])
+            buf, w = t["buf"].clone().requires_grad_(), t["w"].clone().requires_grad_()
+            want = torch.autograd.grad(ref.moe_matmul_ref(buf, w), (buf, w), t["dout"])
+            for n, a, b in zip(("dbuf", "dw"), got, want):
+                keep(f"moe_matmul {n}", dt, [grad_err(f"moe_matmul {n} unaligned {which} {dt}", a, b,
+                                                      GRAD_TOL[str(dt)[6:]])])
+            checked += 1
     # ssd_intra_chunk: mamba2's and hymba's heads and state sizes, the reduced configs' hd 32,
     # N 64; Q 32 through 256 with ragged tiles; the chunk-state gradient absent (one chunk:
     # nothing reads the state), zero and non-zero; then a strong decay (~600 over a chunk)
@@ -1343,6 +1377,7 @@ def main() -> int:
         *lm_rms_cases,
         *slice_rms_bwd_cases,
         (1024, 3200, torch.float32, ""),
+        (1024, 4096, torch.float32, ""),
     ]
     for T, D, dt, what in rms_bwd_cases:
         x = leaves(dt, (T, D), scale=3.0)[0]
@@ -1367,15 +1402,23 @@ def main() -> int:
         m_all = measure(lambda: rms_k.rmsnorm_bwd_dweight(rms_k.rmsnorm_bwd_dx(x, w, dy)[1], dt),
                         lambda: torch.autograd.grad(ref_out, (x, w), dy, retain_graph=True),
                         lambda: torch.autograd.grad(lib_out, (x, w), dy, retain_graph=True), b_all)
-        kname = "rmsnorm_bwd" if rms_k.bwd_plan(T, D, dt).route == "warp" else "rmsnorm_bwd_wide"
+        rplan = rms_k.bwd_plan(T, D, dt)
+        kname = "rmsnorm_bwd" if rplan.route == "warp" else "rmsnorm_bwd_wide"
         bwd_rows[(kname, T, D, dt)] = row(errs[0][0], m_dx)
         bwd_rows[("rmsnorm_bwd_dweight", T, D, dt)] = row(errs[1][0], m_dw)
-        label = f"T={T} D={D} {str(dt)[6:]} {what} ({rms_k.bwd_plan(T, D, dt).route} route)"
+        label = f"T={T} D={D} {str(dt)[6:]} {what} ({rplan.route} route)"
         report(f"rmsnorm bwd dx+partials {label}", errs[:1], tol, m_dx, "F.rms_norm grad x, w")
         report(f"rmsnorm bwd dweight reduce {label}", errs[1:], tol, m_dw, "torch.sum")
         report(f"rmsnorm bwd both {label}", errs, tol, m_all, "F.rms_norm grad x, w")
+        if rplan.route != "warp":
+            print(f"[bwd]   launch plan: route {rplan.route}, {rplan.blocks} blocks of {rplan.threads} "
+                  f"threads, {rplan.rows_per_block} rows a block, {rplan.stages} rows in flight "
+                  f"({rplan.teams} teams, {rplan.ring_chunks} 16-byte chunks a thread), "
+                  f"{rplan.smem_bytes} bytes of shared memory")
         del x, w, dy, part, dx, dw, again, ref_out, lib_out, want
-    moe_bwd_cases = [*lm_moe_cases, (40, 256, 1536, 512, torch.float32, "")]  # (E, C, D, F, dtype, what)
+    moe_bwd_cases = [*lm_moe_cases,  # (E, C, D, F, dtype, what)
+                     (40, 256, 1536, 512, torch.float32, "gate/up"),
+                     (40, 256, 512, 1536, torch.float32, "down")]
     for E, C, D, Fd, dt, what in moe_bwd_cases:
         buf, w = leaves(dt, (E, C, D))[0], leaves(dt, (E, D, Fd), scale=0.05)[0]
         dout = randn(E, C, Fd, dtype=dt)
@@ -1407,10 +1450,10 @@ def main() -> int:
         report(f"moe_matmul bwd dbuf {label}", errs[:1], tol, m_dbuf, "bmm dout w^T")
         report(f"moe_matmul bwd dw {label}", errs[1:], tol, m_dw, "bmm buf^T dout")
         report(f"moe_matmul bwd both {label}", errs, tol, m_all, "two bmm")
-        print(f"[bwd]   launch plan: route {plan.route}, tile {plan.block_m} x {plan.block_n} x "
-              f"{plan.block_k}, {plan.stages} stages, {plan.threads} threads, grids dbuf "
-              f"{plan.dbuf_grid} for {plan.dbuf_tiles} tiles and dw {plan.dw_grid} for "
-              f"{plan.dw_tiles}, {plan.smem_bytes} bytes of shared memory")
+        for which, lp in (("dbuf", plan.dbuf), ("dw", plan.dw)):
+            print(f"[bwd]   launch plan {which}: route {lp.route}, tile {lp.block_m} x {lp.block_n} x "
+                  f"{lp.block_k}, {lp.stages} stages, {lp.threads} threads, grid {lp.grid} for "
+                  f"{lp.tiles} tiles, {lp.smem_bytes} bytes of shared memory")
         del buf, w, dout, dbuf, dw, again, ref_out, want
     ssd_bwd_cases = [(B * NC, H, Q, 64, N, dt, what) for B, NC, Q, H, N, dt, what in lm_ssd_cases]
     for BNC, H, Q, shd, N, dt, what in ssd_bwd_cases:

@@ -89,6 +89,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// 16 bytes from global to shared memory (cp.async; both 16-byte aligned).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+// One of bar's expected arrivals, made once every cp.async this thread has
+// issued so far has landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // A 3-D box from shared memory to global memory; elements outside the
 // tensor are not written.  The issuing thread commits it to its bulk group.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1,

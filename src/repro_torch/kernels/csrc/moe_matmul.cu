@@ -62,18 +62,28 @@
 // bwd_plan and refusing any other.  Bound: bytes at the training shape, as
 // the forward (granite at C = 256: ~105 MB for 16 GFLOP per product pair).
 // - "wgmma": bf16 with the forward's TMA conditions.  The forward's kernel
-//   shape (persistent blocks, a producer warpgroup, 128 x 128 tiles on two
-//   consumer warpgroups, a six-stage ring, TMA-stored epilogue) with the
+//   shape (persistent blocks, a producer warpgroup, 128-row tiles on two
+//   consumer warpgroups, a ring as deep as 192 KB hold, TMA-stored epilogue
+//   while the producer already fills the ring for the next tile) with the
 //   operands' major-ness changed: dbuf reads dout K-major (as buf) and w
 //   K-major too (boxes of 64 rows of D by 64 of F: w^T's rows are w's
 //   columns), dw reads buf MN-major as A (transposed: each consumer
 //   warpgroup's 64 columns of D, a box of 64 rows of C each) and dout
 //   MN-major as B.  TMA zero-fills past C, so the dw reduction over a
-//   ragged capacity adds zeros.
-// - "fma": f32, or bf16 rows that TMA cannot read.  CUDA-core FMAs in f32 on
-//   64 x 64 tiles over 16-deep slices, each operand read through its
-//   strides (element loads along its contiguous dimension).
-//
+//   ragged capacity adds zeros.  The tile width is chosen per launch
+//   (bwd_tile_n, from stage times read on the card): 256 columns for
+//   granite's gate/up dbuf (four rounds of 480 tiles for eight of 960),
+//   128 for its down dbuf and both dw.  At these shapes the products stream
+//   their operands from L2 at 4.4-6 TB/s, so narrower tiles, which read
+//   more bytes per product, lose what their finer rounds win (granite's
+//   down dbuf on an H100 SXM at 700 W: 0.0611 ms at 64 columns against
+//   0.0476 at 128, whose 320 tiles take three rounds of the 132 blocks).
+// - "fma": f32, or bf16 rows that TMA cannot read: CUDA-core FMAs on
+//   register-blocked 128 x 128 tiles (64 x 64 where 128 would not fill the
+//   SMs), 8 x 8 outputs a thread, over 16-deep slices double-buffered in
+//   shared memory (moe_matmul_bwd_fma below): 4 LDS.128 for 64 FMAs a k
+//   step, where 64 x 64 tiles of 4 x 4 a thread were bound by shared-memory
+//   issue at ~10 TFLOP/s.
 // Tried on the card and not kept (PERF.md): clusters of two blocks
 // sharing the buf tile by TMA multicast (2-3x slower), 32-deep stages,
 // asking the next stages into L2 ahead of the ring, 128-column decode units
@@ -84,6 +94,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <initializer_list>
 
 #include "hopper.cuh"
 
@@ -370,58 +381,216 @@ constexpr int static_smem() {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Backward on CUDA cores: out[e] (M x N) = sum over k of A(m, k) B(k, n) in f32,
-// A(m, k) = a[e sae + m sam + k sak], B(k, n) = b[e sbe + k sbk + n sbn].
-// 256 threads, each a 4 x 4 piece of the 64 x 64 tile; operands staged as f32.
-constexpr int kBwdThreads = 256, kBwdK = 16, kBwdLd = 64 + 4;
+// Backward on CUDA cores ("fma" route of bwd_plan): out[e] (M x N) = sum over
+// k of A(m, k) B(k, n) in f32, each output's k in one fixed order.  Both
+// operands of a launch are contiguous along the same dimension: along k for
+// dbuf (A(m, k) = dout[e][m][k], B(k, n) = w[e][n][k]: kKC), along m and n
+// for dw (A(m, k) = buf[e][k][m], B(k, n) = dout[e][k][n]).  Operand X(p, k),
+// p = m or n, sits at x[e se + p ld + k] (kKC) or x[e se + k ld + p].
+//
+// A register-blocked tile: BM x BM outputs a block (128, or 64 where 128-wide
+// tiles would not fill the SMs once), 256 threads with (BM / 16)^2 outputs
+// each (8 x 8 at 128: two 4-wide pieces of m and of n, 64 apart), so a k step
+// is 4 LDS.128 (4 distinct A and 8 distinct B addresses a warp: one
+// wavefront each) for 64 FMAs.  Both operands sit in shared memory k-major,
+// [16 k][BM + 4] f32 (rows 16-byte aligned), two stages: the next 16-deep
+// slice is fetched while this one is multiplied, and one barrier a slice
+// frees the stage.  Operands contiguous along m or n (dw in f32) go in by
+// 16-byte cp.async, and the block fits two to an SM (128 registers);
+// operands contiguous along k (dbuf), and bf16 (converted to f32), by
+// 16-byte loads into registers that are stored transposed after the slice's
+// products, each warp on 16 rows by 2 k-groups so that the transposed
+// stores hit 32 distinct banks.  Those registers hold the block to one an
+// SM (169 registers a thread).  On an H100 SXM at 700 W three other dbuf
+// designs ran slower at granite's gate/up: capped at 128 registers for two
+// blocks an SM (1%; 12% at down), 4-byte cp.async landing transposed (12%),
+// and the k-contiguous operands kept as they lie ([BM][16 + 4], 8 + 8
+// LDS.128 along k for four k steps, a thread's outputs 16 apart; 8-11%).
+// kVec: every
+// 4-element group along a contiguous dimension is aligned (bases 16-byte
+// aligned, D and F multiples of 4); otherwise masked element loads.  Each
+// output's k runs in one fixed order.
+constexpr int kFmaThreads = 256, kFmaK = 16;
 
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-moe_matmul_bwd_fma(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out, int M,
-                   int N, int K, int64_t sae, int64_t sam, int64_t sak, int64_t sbe, int64_t sbk,
-                   int64_t sbn) {
-  __shared__ __align__(16) float As[kBwdK][kBwdLd];  // [k][m]
-  __shared__ __align__(16) float Bs[kBwdK][kBwdLd];  // [k][n]
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int64_t e = blockIdx.z;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const T* ae = a + e * sae;
-  const T* be = b + e * sbe;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kBwdK) {
-    // neighbouring threads read neighbouring addresses of each operand
-    for (int i = threadIdx.x; i < BM * kBwdK; i += kBwdThreads) {
-      const int m = sak == 1 ? i / kBwdK : i % BM, k = sak == 1 ? i % kBwdK : i / BM;
-      As[k][m] = (m0 + m < M && k0 + k < K) ? to_float(ae[(m0 + m) * sam + (k0 + k) * sak]) : 0.f;
-    }
-    for (int i = threadIdx.x; i < BN * kBwdK; i += kBwdThreads) {
-      const int n = sbn == 1 ? i % BN : i / kBwdK, k = sbn == 1 ? i / BN : i % kBwdK;
-      Bs[k][n] = (n0 + n < N && k0 + k < K) ? to_float(be[(k0 + k) * sbk + (n0 + n) * sbn]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBwdK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float a4[4] = {av.x, av.y, av.z, av.w}, b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
-    }
-    __syncthreads();
+template <int BM>
+struct FmaTile {
+  static constexpr int LD = BM + 4;  // shared row stride in floats
+  static constexpr int CH = BM / 64;  // 4-wide pieces of m (and of n) a thread, 64 apart
+  static constexpr int stage = kFmaK * LD;  // floats of one operand's stage
+  static constexpr int bytes = 2 * 2 * stage * static_cast<int>(sizeof(float));  // 2 stages, A and B
+};
+
+// The q-th 4-element group (q < BM / 64) this thread moves of a [BM p][16 k]
+// slice: (p, k) of its first element; the group runs along k (kKC) or p.
+template <int BM, bool kKC>
+__device__ __forceinline__ void quad_pos(int q, int& p, int& k) {
+  const int v = threadIdx.x + kFmaThreads * q;
+  if constexpr (kKC) {  // a warp takes 16 rows by 2 k-groups
+    const int lane = v & 31, wv = v >> 5;
+    p = (wv % (BM / 16)) * 16 + (lane >> 1);
+    k = ((wv / (BM / 16)) * 2 + (lane & 1)) * 4;
+  } else {  // a warp takes consecutive groups along p
+    k = v / (BM / 4);
+    p = (v % (BM / 4)) * 4;
   }
-  T* oe = out + e * M * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
+}
+
+// The group at (p, k) of X, P x K (p < P, k < K), into r as f32; zeros outside.
+template <typename T, bool kKC, bool kVec>
+__device__ __forceinline__ void load_quad(float (&r)[4], const T* __restrict__ x, int64_t ld, int p,
+                                          int k, int P, int K) {
+  if constexpr (kVec) {  // the group is all inside or all outside
+    if (p < P && k < K) {
+      const T* src = kKC ? x + static_cast<int64_t>(p) * ld + k : x + static_cast<int64_t>(k) * ld + p;
+      if constexpr (sizeof(T) == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(src);
+        r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(src);
+        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+        r[0] = lo.x, r[1] = lo.y, r[2] = hi.x, r[3] = hi.y;
+      }
+    } else {
+      r[0] = r[1] = r[2] = r[3] = 0.f;
+    }
+  } else {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
-      if (m < M && n < N) oe[static_cast<int64_t>(m) * N + n] = from_float<T>(acc[i][j]);
+      const int pj = kKC ? p : p + j, kj = kKC ? k + j : k;
+      r[j] = pj < P && kj < K ? to_float(x[kKC ? static_cast<int64_t>(pj) * ld + kj
+                                               : static_cast<int64_t>(kj) * ld + pj])
+                              : 0.f;
+    }
+  }
+}
+
+template <int BM, bool kKC>
+__device__ __forceinline__ void store_quad(float* s, const float (&r)[4], int p, int k) {
+  constexpr int LD = FmaTile<BM>::LD;
+  if constexpr (kKC) {  // transposed: 4 k rows
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[(k + j) * LD + p] = r[j];
+  } else {
+    *reinterpret_cast<float4*>(s + k * LD + p) = make_float4(r[0], r[1], r[2], r[3]);
+  }
+}
+
+template <typename T, int BM, bool kKC, bool kVec>
+__global__ void __launch_bounds__(kFmaThreads)
+moe_matmul_bwd_fma(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out, int M,
+                   int N, int K, int64_t sae, int64_t lda, int64_t sbe, int64_t ldb) {
+  using L = FmaTile<BM>;
+  constexpr int CH = L::CH, LD = L::LD;
+  constexpr bool kAsync = sizeof(T) == 4 && kVec && !kKC;  // f32 rows straight into shared memory
+  __shared__ __align__(16) float As[2][L::stage];  // [stage][k][m]
+  __shared__ __align__(16) float Bs[2][L::stage];  // [stage][k][n]
+  const int n0 = blockIdx.x * BM, m0 = blockIdx.y * BM;
+  const int64_t e = blockIdx.z;
+  const T* ae = a + e * sae;
+  const T* be = b + e * sbe;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // a warp covers 4 values of ty by 8 of tx
+  const int tx = (warp & 1) * 8 + (lane & 7), ty = (warp >> 1) * 4 + (lane >> 3);
+  const int nk = (K + kFmaK - 1) / kFmaK;
+
+  float acc[4 * CH][4 * CH];
+#pragma unroll
+  for (int i = 0; i < 4 * CH; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * CH; ++j) acc[i][j] = 0.f;
+  float ra[CH][4], rb[CH][4];  // the register path's next slice
+
+  auto fetch = [&](int st, int k0) {
+#pragma unroll
+    for (int q = 0; q < CH; ++q) {
+      int p, k;
+      quad_pos<BM, kKC>(q, p, k);
+      if constexpr (kAsync) {
+        const bool ina = m0 + p < M && k0 + k < K, inb = n0 + p < N && k0 + k < K;
+        cp_async16(&As[st][k * LD + p], ina ? ae + static_cast<int64_t>(k0 + k) * lda + m0 + p : ae,
+                   ina ? 16 : 0);
+        cp_async16(&Bs[st][k * LD + p], inb ? be + static_cast<int64_t>(k0 + k) * ldb + n0 + p : be,
+                   inb ? 16 : 0);
+      } else {
+        load_quad<T, kKC, kVec>(ra[q], ae, lda, m0 + p, k0 + k, M, K);
+        load_quad<T, kKC, kVec>(rb[q], be, ldb, n0 + p, k0 + k, N, K);
+      }
+    }
+  };
+  auto stash = [&](int st) {
+    if constexpr (!kAsync) {
+#pragma unroll
+      for (int q = 0; q < CH; ++q) {
+        int p, k;
+        quad_pos<BM, kKC>(q, p, k);
+        store_quad<BM, kKC>(As[st], ra[q], p, k);
+        store_quad<BM, kKC>(Bs[st], rb[q], p, k);
+      }
+    }
+  };
+
+  fetch(0, 0);
+  stash(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) fetch(cur ^ 1, (kt + 1) * kFmaK);  // the other stage, freed by the last barrier
+    cp_async_commit();
+    const float* A = As[cur];
+    const float* B = Bs[cur];
+#pragma unroll
+    for (int k = 0; k < kFmaK; ++k) {
+      float av[4 * CH], bv[4 * CH];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const float4 x4 = *reinterpret_cast<const float4*>(A + k * LD + c * 64 + ty * 4);
+        const float4 y4 = *reinterpret_cast<const float4*>(B + k * LD + c * 64 + tx * 4);
+        av[4 * c] = x4.x, av[4 * c + 1] = x4.y, av[4 * c + 2] = x4.z, av[4 * c + 3] = x4.w;
+        bv[4 * c] = y4.x, bv[4 * c + 1] = y4.y, bv[4 * c + 2] = y4.z, bv[4 * c + 3] = y4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4 * CH; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * CH; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (kt + 1 < nk) stash(cur ^ 1);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  T* oe = out + e * M * N;
+#pragma unroll
+  for (int ci = 0; ci < CH; ++ci)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + ci * 64 + ty * 4 + i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int cj = 0; cj < CH; ++cj) {
+        const int n = n0 + cj * 64 + tx * 4;
+        T* o = oe + static_cast<int64_t>(m) * N + n;
+        const float v0 = acc[4 * ci + i][4 * cj], v1 = acc[4 * ci + i][4 * cj + 1];
+        const float v2 = acc[4 * ci + i][4 * cj + 2], v3 = acc[4 * ci + i][4 * cj + 3];
+        if (kVec && n < N) {  // N is a multiple of 4: the group is inside
+          if constexpr (sizeof(T) == 4) {
+            *reinterpret_cast<float4*>(o) = make_float4(v0, v1, v2, v3);
+          } else {
+            const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
+            uint2 pk;
+            pk.x = *reinterpret_cast<const uint32_t*>(&lo);
+            pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+            *reinterpret_cast<uint2*>(o) = pk;
+          }
+        } else if (!kVec) {
+          const float v[4] = {v0, v1, v2, v3};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (n + j < N) o[j] = from_float<T>(v[j]);
+        }
+      }
     }
 }
 
@@ -693,49 +862,69 @@ moe_matmul_wgmma_t(const __grid_constant__ CUtensorMap tx, const __grid_constant
   if (tid == 0) bulk_wait<0>();
 }
 
-// Backward on wgmma ("wgmma" route of bwd_plan), 128 x 128 tiles of
-// out[e] (M x N) over K in 64-deep stages; the walk, the ring and the
-// epilogue are moe_matmul_wgmma<128>'s.
+// d (+)= A B on one m64nBNk16 wgmma, BN = 64, 128 or 256.
+template <int BN, int kTransB, int kTransA = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da, uint64_t db, int accumulate) {
+  if constexpr (BN == 64)
+    wgmma_ss_n64<kTransB, kTransA>(d, da, db, accumulate);
+  else if constexpr (BN == 128)
+    wgmma_ss_n128<kTransB, kTransA>(d, da, db, accumulate);
+  else
+    wgmma_ss_n256<kTransB, kTransA>(d, da, db, accumulate);
+}
+
+// Backward on wgmma ("wgmma" route of bwd_plan), 128 x BN tiles of out[e]
+// (M x N) over K in 64-deep stages; the walk, the ring and the epilogue are
+// moe_matmul_wgmma<BN>'s.  Tried at granite's products on an H100 SXM at
+// 700 W and not kept: keeping one stage's products in flight while a
+// consumer issues the next stage's, freeing each stage a step later (1-5%
+// slower); storing the accumulators straight to device memory instead of
+// through the staging tiles and TMA (dw 1.9x slower: 4-byte stores
+// scattered over eight rows a warp); and clusters of two blocks on the two
+// 128-row tiles of a 256-row pair, sharing the B tile by TMA multicast, so
+// that a quarter fewer bytes cross from L2 (1.4-2x slower, with all 66
+// clusters resident: each stage then waits for both blocks' consumers).  bwd_plan picks BN per launch (64, 128 or 256)
+// for the fewest rounds of tiles over the SMs weighed by a tile's time.
 // kDw = false, dbuf: M = C, N = D, K = F; A = dout boxes [128 of C][64 of F]
-//   (K-major), B = w boxes [64 of D][64 of F], two per stage (K-major).
+//   (K-major), B = w boxes [64 of D][64 of F], BN / 64 per stage (K-major).
 // kDw = true, dw: M = D, N = F, K = C; A = buf boxes [64 of C][64 of D], one
 //   per consumer warpgroup (MN-major, wgmma's transposed A), B = dout boxes
-//   [64 of C][64 of F], two per stage (MN-major).
-template <bool kDw>
+//   [64 of C][64 of F], BN / 64 per stage (MN-major).
+template <bool kDw, int BN>
 __device__ __forceinline__ void produce_bwd(const Walk& w, const CUtensorMap* ta,
                                             const CUtensorMap* tb, bf16* a_ring, bf16* b_ring,
                                             uint64_t* full, uint64_t* empty) {
-  constexpr int ST = WgSmem<128>::ST;
+  constexpr int ST = WgSmem<BN>::ST, NB = BN / 64;
   int e, m0, n0, k0;
   for (int it = 0; w.at(it, e, m0, n0, k0); ++it) {
     const int s = it % ST;
     if (it >= ST) mbar_wait(empty + s, (it / ST - 1) & 1);
-    mbar_expect_tx(full + s, (kRows + 128) * kDepth * 2);
+    mbar_expect_tx(full + s, (kRows + BN) * kDepth * 2);
     bf16* a = a_ring + s * kRows * 64;
-    bf16* b = b_ring + s * 2 * 64 * 64;
+    bf16* b = b_ring + s * NB * 64 * 64;
     if constexpr (kDw) {
       for (int h = 0; h < 2; ++h) tma_load_3d(a + h * 64 * 64, ta, full + s, m0 + 64 * h, k0, e);
-      for (int j = 0; j < 2; ++j) tma_load_3d(b + j * 64 * 64, tb, full + s, n0 + 64 * j, k0, e);
+      for (int j = 0; j < NB; ++j) tma_load_3d(b + j * 64 * 64, tb, full + s, n0 + 64 * j, k0, e);
     } else {
       tma_load_3d(a, ta, full + s, k0, m0, e);
-      for (int j = 0; j < 2; ++j) tma_load_3d(b + j * 64 * 64, tb, full + s, k0, n0 + 64 * j, e);
+      for (int j = 0; j < NB; ++j) tma_load_3d(b + j * 64 * 64, tb, full + s, k0, n0 + 64 * j, e);
     }
   }
 }
 
-template <bool kDw>
+template <bool kDw, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 moe_matmul_bwd_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                      const __grid_constant__ CUtensorMap to, int E, int M, int N, int K) {
-  using L = WgSmem<128>;
-  constexpr int ST = L::ST;
+  using L = WgSmem<BN>;
+  constexpr int ST = L::ST, NB = BN / 64;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   bf16* As = reinterpret_cast<bf16*>(sm + L::a);  // [ST][128 * 64]
-  bf16* Bs = reinterpret_cast<bf16*>(sm + L::b);  // [ST][2][64][64]
+  bf16* Bs = reinterpret_cast<bf16*>(sm + L::b);  // [ST][NB][64][64]
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::bars);
   uint64_t* empty = full + ST;
-  const int m_tiles = (M + kRows - 1) / kRows, n_tiles = (N + 127) / 128;
+  const int m_tiles = (M + kRows - 1) / kRows, n_tiles = (N + BN - 1) / BN;
   const int tiles = E * n_tiles * m_tiles, nk = (K + kDepth - 1) / kDepth;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
@@ -751,7 +940,7 @@ moe_matmul_bwd_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_consta
   if (warp >= 8) {  // producer warpgroup
     setmaxnreg_dec<40>();
     if (threadIdx.x == 256)
-      produce_bwd<kDw>(Walk{m_tiles, n_tiles, tiles, nk, kRows, 128}, &ta, &tb, As, Bs, full, empty);
+      produce_bwd<kDw, BN>(Walk{m_tiles, n_tiles, tiles, nk, kRows, BN}, &ta, &tb, As, Bs, full, empty);
     return;
   }
 
@@ -760,24 +949,23 @@ moe_matmul_bwd_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_consta
   const int r0 = (warp & 3) * 16 + g;
   unsigned char* staging = sm + L::out + wg * 2 * 8192;
   int it = 0, stores = 0;
-  float acc[64];
+  float acc[BN / 2];
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int e = t / (m_tiles * n_tiles), n0 = (t / m_tiles) % n_tiles * 128;
+    const int e = t / (m_tiles * n_tiles), n0 = (t / m_tiles) % n_tiles * BN;
     const int m0 = t % m_tiles * kRows;
     for (int kt = 0; kt < nk; ++kt, ++it) {
       const int s = it % ST;
       mbar_wait(full + s, (it / ST) & 1);
       __syncwarp();
       const bf16* At = As + s * kRows * 64;
-      const bf16* Bt = Bs + s * 2 * 64 * 64;
+      const bf16* Bt = Bs + s * NB * 64 * 64;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         if constexpr (kDw)
-          wgmma_ss_n128<1, 1>(acc, desc_mn(At + wg * 64 * 64, 64, 0, kk), desc_mn(Bt, 64, 0, kk),
-                              kt | kk);
+          wgmma_ss<BN, 1, 1>(acc, desc_mn(At + wg * 64 * 64, 64, 0, kk), desc_mn(Bt, 64, 0, kk), kt | kk);
         else
-          wgmma_ss_n128<0>(acc, desc_k(At, kRows, wg * 64, kk), desc_k(Bt, 128, 0, kk), kt | kk);
+          wgmma_ss<BN, 0>(acc, desc_k(At, kRows, wg * 64, kk), desc_k(Bt, BN, 0, kk), kt | kk);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -787,7 +975,7 @@ moe_matmul_bwd_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_consta
     fence_regs(acc);
     if (m0 + wg * 64 >= M) continue;  // the warpgroup's rows are all past M
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < NB; ++j) {
       if (n0 + 64 * j >= N) break;
       unsigned char* st = staging + (stores++ & 1) * 8192;
       if (tid == 0) bulk_wait_read<1>();
@@ -967,17 +1155,104 @@ extern "C" int moe_matmul_fwd(int dtype, const int64_t* plan_in, const void* buf
 
 namespace {
 
-// The backward's own plan for one of its two launches (which: 0 dbuf, 1 dw);
-// the grid of a route walks (M, N) = (C, D) for dbuf and (D, F) for dw.
-Plan bwd_plan(int route, int which, int E, int C, int D, int F) {
-  const int64_t M = which == 0 ? C : D, N = which == 0 ? D : F;
-  if (route == kWgmma) {
-    const int64_t tiles = static_cast<int64_t>(E) * ((M + 127) / 128) * ((N + 127) / 128);
-    return wgmma_plan<128>(tiles);
+// The backward's tile width on wgmma for one launch (out M x N over K): of
+// 64, 128 and 256 columns, the one whose rounds of tiles over the persistent
+// blocks, each weighed by a tile's time, are least; ties go to the wider.  A
+// tile's time is its K / 64 stages times a stage's time at that width, read
+// on the card at granite's four products (1/100 us: 52, 70 and 135 for 64,
+// 128 and 256 columns).  A stage does not get cheaper in proportion to its
+// width: every width streams its operands from L2 at 4.4-6 TB/s over the
+// SMs, and the 256-wide ring holds only four stages.  moe_matmul.py's
+// _bwd_tile_n is the same arithmetic.
+int bwd_tile_n(int64_t E, int64_t M, int64_t N, int64_t K) {
+  const int64_t nk = (K + tc::kDepth - 1) / tc::kDepth;
+  int best = 0;
+  int64_t best_cost = 0;
+  for (int bn : {256, 128, 64}) {
+    const int64_t tiles = E * ((M + tc::kRows - 1) / tc::kRows) * ((N + bn - 1) / bn);
+    const int64_t rounds = (tiles + hopper::kSMs - 1) / hopper::kSMs;
+    const int64_t cost = rounds * nk * (bn == 256 ? 135 : bn == 128 ? 70 : 52);
+    if (best == 0 || cost < best_cost) best = bn, best_cost = cost;
   }
-  return {kFma, BN, kBwdK, 1, kBwdThreads, static_cast<int>((N + BN - 1) / BN),
-          static_cast<int>((M + BM - 1) / BM), E,
-          static_cast<int64_t>(2 * kBwdK * kBwdLd * sizeof(float))};
+  return best;
+}
+
+// The backward's own plan for one of its two launches (which: 0 dbuf, 1 dw);
+// a launch's product is out M x N over K: (C, D, F) for dbuf, (D, F, C) for dw.
+Plan bwd_plan(int route, int which, int E, int C, int D, int F) {
+  const int64_t M = which == 0 ? C : D, N = which == 0 ? D : F, K = which == 0 ? F : C;
+  if (route == kWgmma) {
+    const int bn = bwd_tile_n(E, M, N, K);
+    const int64_t tiles = static_cast<int64_t>(E) * ((M + 127) / 128) * ((N + bn - 1) / bn);
+    return bn == 64 ? wgmma_plan<64>(tiles) : bn == 128 ? wgmma_plan<128>(tiles) : wgmma_plan<256>(tiles);
+  }
+  const int bm = static_cast<int64_t>(E) * ((M + 127) / 128) * ((N + 127) / 128) >= hopper::kSMs ? 128 : 64;
+  return {kFma, bm, kFmaK, 2, kFmaThreads, static_cast<int>((N + bm - 1) / bm),
+          static_cast<int>((M + bm - 1) / bm), E,
+          bm == 128 ? FmaTile<128>::bytes : FmaTile<64>::bytes};
+}
+
+// The tensor maps of one wgmma launch, then the launch: dbuf reads dout [E][C][F]
+// in boxes of 128 rows and w [E][D][F], writes dbuf [E][C][D]; dw reads buf [E][C][D]
+// and dout, writes dw [E][D][F]; every box 64 values wide.
+template <bool kDw, int BN>
+cudaError_t launch_bwd_wgmma_n(const void* a, const void* b, void* out, int E, int C, int D, int F,
+                             const Plan& p, cudaStream_t s) {
+  constexpr auto kernel = tc::moe_matmul_bwd_wgmma<kDw, BN>;
+  cudaError_t err = configure_once<kernel>(p.smem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap ta, tb, to;
+  const bool ok = kDw
+      ? hopper::map_bf16_3d(&ta, a, D, C, E, 64) && hopper::map_bf16_3d(&tb, b, F, C, E, 64) &&
+            hopper::map_bf16_3d(&to, out, F, D, E, 64)
+      : hopper::map_bf16_3d(&ta, a, F, C, E, tc::kRows) && hopper::map_bf16_3d(&tb, b, F, D, E, 64) &&
+            hopper::map_bf16_3d(&to, out, D, C, E, 64);
+  if (!ok) return cudaErrorInvalidValue;
+  const int M = kDw ? D : C, N = kDw ? F : D, K = kDw ? C : F;
+  err = hopper::launch_dependent(kernel, dim3(p.grid_x), dim3(p.threads), p.smem, s, ta, tb, to, E, M,
+                                 N, K);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <bool kDw>
+cudaError_t launch_bwd_wgmma(const void* a, const void* b, void* out, int E, int C, int D, int F,
+                             const Plan& p, cudaStream_t s) {
+  switch (p.block_n) {
+    case 64: return launch_bwd_wgmma_n<kDw, 64>(a, b, out, E, C, D, F, p, s);
+    case 128: return launch_bwd_wgmma_n<kDw, 128>(a, b, out, E, C, D, F, p, s);
+    default: return launch_bwd_wgmma_n<kDw, 256>(a, b, out, E, C, D, F, p, s);
+  }
+}
+
+// One fma launch: (M, N, K) and each operand's expert stride and leading dimension.
+template <typename T, int BM>
+cudaError_t launch_bwd_fma(int which, bool vec, const void* a, const void* b, void* out, int64_t E,
+                           int64_t C, int64_t D, int64_t F, const Plan& p, cudaStream_t s) {
+  const dim3 grid(p.grid_x, p.grid_y, p.grid_z);
+  const T* ap = static_cast<const T*>(a);
+  const T* bp = static_cast<const T*>(b);
+  T* op = static_cast<T*>(out);
+  if (which == 0) {  // dbuf = dout w^T: A = dout [C][F], B(k, n) = w[n][k], both along k
+    const int M = static_cast<int>(C), N = static_cast<int>(D), K = static_cast<int>(F);
+    if (vec)
+      moe_matmul_bwd_fma<T, BM, true, true><<<grid, kFmaThreads, 0, s>>>(ap, bp, op, M, N, K, C * F, F, D * F, F);
+    else
+      moe_matmul_bwd_fma<T, BM, true, false><<<grid, kFmaThreads, 0, s>>>(ap, bp, op, M, N, K, C * F, F, D * F, F);
+  } else {  // dw = buf^T dout: A(m, k) = buf[k][m], B = dout [C][F], both along m, n
+    const int M = static_cast<int>(D), N = static_cast<int>(F), K = static_cast<int>(C);
+    if (vec)
+      moe_matmul_bwd_fma<T, BM, false, true><<<grid, kFmaThreads, 0, s>>>(ap, bp, op, M, N, K, C * D, D, C * F, F);
+    else
+      moe_matmul_bwd_fma<T, BM, false, false><<<grid, kFmaThreads, 0, s>>>(ap, bp, op, M, N, K, C * D, D, C * F, F);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_fma(int which, bool vec, const void* a, const void* b, void* out, int64_t E,
+                           int64_t C, int64_t D, int64_t F, const Plan& p, cudaStream_t s) {
+  return p.block_n == 128 ? launch_bwd_fma<T, 128>(which, vec, a, b, out, E, C, D, F, p, s)
+                          : launch_bwd_fma<T, 64>(which, vec, a, b, out, E, C, D, F, p, s);
 }
 
 }  // namespace
@@ -1008,38 +1283,12 @@ extern "C" int moe_matmul_bwd(int which, int dtype, const int64_t* plan_in, cons
   const Plan plan = bwd_plan(route, which, e, c, d, f);
   if (!(given == plan)) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == kWgmma) {
-    cudaError_t err = which == 0 ? configure_once<tc::moe_matmul_bwd_wgmma<false>>(plan.smem)
-                                 : configure_once<tc::moe_matmul_bwd_wgmma<true>>(plan.smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    CUtensorMap ta, tb, to;
-    const bool ok = which == 0
-        ? hopper::map_bf16_3d(&ta, a, F, C, E, tc::kRows) && hopper::map_bf16_3d(&tb, b, F, D, E, 64) &&
-              hopper::map_bf16_3d(&to, out, D, C, E, 64)
-        : hopper::map_bf16_3d(&ta, a, D, C, E, 64) && hopper::map_bf16_3d(&tb, b, F, C, E, 64) &&
-              hopper::map_bf16_3d(&to, out, F, D, E, 64);
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-    err = which == 0
-        ? hopper::launch_dependent(tc::moe_matmul_bwd_wgmma<false>, dim3(plan.grid_x),
-                                   dim3(plan.threads), plan.smem, s, ta, tb, to, e, c, d, f)
-        : hopper::launch_dependent(tc::moe_matmul_bwd_wgmma<true>, dim3(plan.grid_x),
-                                   dim3(plan.threads), plan.smem, s, ta, tb, to, e, d, f, c);
-    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
-  }
-  // fma: (M, N, K) and the strides of A(m, k) and B(k, n)
-  const dim3 grid(plan.grid_x, plan.grid_y, plan.grid_z);
-  const int M = which == 0 ? c : d, N = which == 0 ? d : f, K = which == 0 ? f : c;
-  const int64_t sae = which == 0 ? C * F : C * D, sam = which == 0 ? F : 1, sak = which == 0 ? 1 : D;
-  const int64_t sbe = which == 0 ? D * F : C * F, sbk = which == 0 ? 1 : F, sbn = which == 0 ? F : 1;
-  if (dtype == 1)
-    moe_matmul_bwd_fma<__nv_bfloat16><<<grid, kBwdThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-        static_cast<__nv_bfloat16*>(out), M, N, K, sae, sam, sak, sbe, sbk, sbn);
-  else
-    moe_matmul_bwd_fma<float><<<grid, kBwdThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out), M, N,
-        K, sae, sam, sak, sbe, sbk, sbn);
-  return static_cast<int>(cudaGetLastError());
+  if (route == kWgmma)
+    return static_cast<int>(which == 0 ? launch_bwd_wgmma<false>(a, b, out, e, c, d, f, plan, s)
+                                       : launch_bwd_wgmma<true>(a, b, out, e, c, d, f, plan, s));
+  const bool vec = aligned && d % 4 == 0 && f % 4 == 0;  // every 4-element group aligned
+  return static_cast<int>(dtype == 1 ? launch_bwd_fma<__nv_bfloat16>(which, vec, a, b, out, E, C, D, F, plan, s)
+                                     : launch_bwd_fma<float>(which, vec, a, b, out, E, C, D, F, plan, s));
 }
 
 extern "C" const char* moe_matmul_error_string(int err) {

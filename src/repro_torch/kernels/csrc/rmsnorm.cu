@@ -43,11 +43,29 @@
 // when the first kernel's grid ends.
 //
 // Rows wider than 2048 (hymba-1.5b's SSM out_norm, 3200; d 4096) do not fit
-// one warp's registers: rmsnorm_bwd_wide_kernel spreads a row over a block
-// of 256 threads (up to 32 elements a thread, so D <= 8192), with the two
-// row sums reduced by warp shuffles and then across the 8 warps in shared
-// memory, in warp order.  The persistent grid walks rows one at a time per
-// block; each thread owns fixed columns, so it keeps their dweight sums in
+// one warp's registers: a block takes a row, and the persistent grid (one
+// block per SM) walks consecutive rows, one at a time per block.
+// - "ring" (rmsnorm_bwd_ring_kernel), where every row is 16-byte aligned:
+//   a ring of stages in shared memory is filled with the block's next rows
+//   of x and dy by cp.async behind mbarriers (as many rows as 192 KB hold,
+//   at most the block's rows: all 8 rows of 12.8 KB at [1024, 3200] bf16),
+//   so the memory streams while rows reduce.  Two teams of threads take
+//   alternate rows, so two rows reduce at once; within a team a thread
+//   takes one 16-byte chunk of the row (two past 512 chunks, four past
+//   1024, with one team), so D 3200 bf16 runs 2 x 416 threads.  The weight
+//   is read once per block and held as f32, and dy w, rounded, is kept from
+//   the first pass for dx.  The two row sums go through warp shuffles and
+//   then across the team's warps (each warp reads the warps' sums from
+//   shared memory, a lane each, and shuffles them); the team barrier that
+//   publishes them also frees the row's stage, which the team refills at
+//   once with the row `stages` ahead.  At the end team 1 hands its dweight
+//   sums to team 0 through shared memory, which adds them to its own in
+//   that order.  Why so: at [1024, 3200] bf16 on an H100 SXM at 700 W,
+//   every extra row a block cost ~1.3 us whether the rows were bf16 or f32,
+//   so the instructions and the reduction chain of each row, not the bytes,
+//   set the time; one team a block with two chunks a thread ran 0.0137 ms
+//   and one thread issuing bulk copies of each row ran no faster.
+// On both, each thread owns fixed columns, so it keeps their dweight sums in
 // f32 registers across its block's rows and writes the block's row of
 // partials directly, for the same column reduce as the warp route.
 
@@ -374,6 +392,170 @@ rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ w, const 
       for (int j = 0; j < VEC; ++j) part[chunk(i) * VEC + j] = acc[i * VEC + j];
 }
 
+// Wide rows through a ring of shared-memory stages ("ring" route): the block's
+// rows row0 .. row_end - 1, row i's x and dy in stage i % stages.  The block's
+// threads form `teams` teams (two where the block has two rows or more), team
+// t taking rows t, t + teams, ...; stages is a multiple of teams, so a stage
+// always serves one team, in order, and that team fills it: each of its
+// threads copies its 16-byte chunks by cp.async and arrives on the stage's
+// barrier once they have landed.  A team's thread tt takes chunks tt +
+// team_threads j (j < CPT) of the row, 16 bytes each.
+constexpr int kRingMaxThreads = 1024, kRingMaxTeams = 2, kRingMaxWarps = 16;  // warps a team
+
+template <typename T, int CPT>
+__global__ void __launch_bounds__(CPT == 4 ? 512 : kRingMaxThreads)
+rmsnorm_bwd_ring_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ dy,
+                        T* __restrict__ dx, float* __restrict__ dw_part, int64_t rows, int dim,
+                        int64_t x_stride, int64_t rows_per_block, int stages, int teams, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  using V = Vec<T, VEC>;
+  extern __shared__ __align__(16) unsigned char ring[];  // [stages][x row, dy row], full[stages]
+  __shared__ float red[kRingMaxTeams][2][2][kRingMaxWarps];  // [team][row parity][x^2, n x][warp]
+  const int team_threads = blockDim.x / teams;
+  const int team = threadIdx.x / team_threads, tt = threadIdx.x % team_threads;
+  const int warp = tt >> 5, lane = tt & 31, nwarps = team_threads >> 5;
+  const int nchunks = dim / VEC;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
+  const int nrows = static_cast<int>((row0 + rows_per_block < rows ? row0 + rows_per_block : rows) - row0);
+  const uint32_t row_bytes = static_cast<uint32_t>(dim) * sizeof(T);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + static_cast<size_t>(stages) * 2 * row_bytes);
+  auto stage = [&](int s) { return ring + static_cast<size_t>(s) * 2 * row_bytes; };
+  auto fill = [&](int i, int s) {  // this thread's 16-byte chunks of row row0 + i into stage s
+    unsigned char* dst = stage(s);
+    const unsigned char* xs = reinterpret_cast<const unsigned char*>(x + (row0 + i) * x_stride);
+    const unsigned char* gs = reinterpret_cast<const unsigned char*>(dy + (row0 + i) * dim);
+    for (int c = tt; c < nchunks; c += team_threads) {
+      hopper::cp_async16(dst + 16 * c, xs + 16 * c);
+      hopper::cp_async16(dst + row_bytes + 16 * c, gs + 16 * c);
+    }
+    hopper::cp_async_arrive(full + s);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) hopper::mbar_init(full + s, team_threads);  // a team's arrivals
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();  // the barriers are initialised
+  for (int i = team; i < stages && i < nrows; i += teams) fill(i, i);  // each team fills its stages
+  auto chunk = [&](int j) { return tt + team_threads * j; };
+  auto zero = [](V& v) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v.v[j] = from_float<T>(0.f);
+  };
+  float wf[CPT * VEC];  // the weight as f32, once per block
+  const V* wp = reinterpret_cast<const V*>(w);
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    V wv;
+    if (chunk(j) < nchunks) wv = wp[chunk(j)];
+    else zero(wv);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) wf[j * VEC + e] = to_float(wv.v[e]);
+  }
+  float acc[CPT * VEC];
+#pragma unroll
+  for (int e = 0; e < CPT * VEC; ++e) acc[e] = 0.f;
+
+  // row i's stage s = i % stages and its phase, and the row's parity, kept by increments
+  int s = team, phase = 0, parity = 0;
+  for (int i = team; i < nrows; i += teams) {
+    hopper::mbar_wait(full + s, phase);
+    const V* xs = reinterpret_cast<const V*>(stage(s));
+    const V* gs = reinterpret_cast<const V*>(stage(s) + row_bytes);
+    // the row as f32, and n = dy w rounded to the working type, kept for dx
+    float xf[CPT * VEC], gf[CPT * VEC], nf[CPT * VEC];
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      V xv, gv;
+      if (chunk(j) < nchunks) {
+        xv = xs[chunk(j)];
+        gv = gs[chunk(j)];
+      } else {
+        zero(xv);
+        zero(gv);
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int c = j * VEC + e;
+        xf[c] = to_float(xv.v[e]);
+        gf[c] = to_float(gv.v[e]);
+        nf[c] = to_float(from_float<T>(gf[c] * wf[c]));
+        ss = fmaf(xf[c], xf[c], ss);
+        dot = fmaf(nf[c], xf[c], dot);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    }
+    // parity buffers per team, as in rmsnorm_bwd_wide_kernel
+    float (&rb)[2][kRingMaxWarps] = red[team][parity];
+    if (lane == 0) {
+      rb[0][warp] = ss;
+      rb[1][warp] = dot;
+    }
+    hopper::named_sync(1 + team, team_threads);  // the team has its row in registers: the stage is free
+    if (i + stages < nrows) fill(i + stages, s);
+    // the warps' sums, lane l holding warp l's, summed by shuffles in one fixed order
+    ss = lane < nwarps ? rb[0][lane] : 0.f;
+    dot = lane < nwarps ? rb[1][lane] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    }
+    const float r = 1.0f / sqrtf(ss / static_cast<float>(dim) + eps);
+    const float k = r * r * r * dot / static_cast<float>(dim);
+    V* op = reinterpret_cast<V*>(dx + (row0 + i) * dim);
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      V o;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int c = j * VEC + e;
+        acc[c] = fmaf(gf[c], to_float(from_float<T>(xf[c] * r)), acc[c]);
+        o.v[e] = from_float<T>(r * nf[c] - xf[c] * k);
+      }
+      if (chunk(j) < nchunks) op[chunk(j)] = o;
+    }
+    s += teams;
+    if (s >= stages) s -= stages, phase ^= 1;
+    parity ^= 1;
+  }
+  hopper::launch_dependents();  // the column reduce may start; it waits for this grid
+  if (dw_part == nullptr) return;
+  // the block's row of partials: team 0's sums plus team 1's, in that order, through the
+  // ring, which every row has left
+  float* other = reinterpret_cast<float*>(ring);
+  if (teams == 2) {
+    __syncthreads();
+    if (team == 1)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        if (chunk(j) < nchunks)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) other[chunk(j) * VEC + e] = acc[j * VEC + e];
+    __syncthreads();
+    if (team == 1) return;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j)
+      if (chunk(j) < nchunks)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[j * VEC + e] += other[chunk(j) * VEC + e];
+  }
+  float4* part = reinterpret_cast<float4*>(dw_part + static_cast<int64_t>(blockIdx.x) * dim);
+#pragma unroll
+  for (int j = 0; j < CPT; ++j)
+    if (chunk(j) < nchunks)
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4)
+        part[(chunk(j) * VEC + e) / 4] =
+            make_float4(acc[j * VEC + e], acc[j * VEC + e + 1], acc[j * VEC + e + 2], acc[j * VEC + e + 3]);
+}
+
+constexpr int kRingBytes = 192 * 1024;  // rmsnorm.py RING_BYTES
+
 constexpr int kReduceCols = 32, kReduceSlices = 8;  // 256 threads per block
 
 // dw[c] = sum over the nparts rows of part[:, c], in a fixed order, rounded once.
@@ -430,21 +612,43 @@ void* pick_wide(int per_thread) {
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw_part,
                        int64_t rows, int64_t dim, int64_t x_stride, int rows_per_block,
-                       int blocks, int64_t smem, float eps, cudaStream_t stream) {
-  const int64_t want_blocks = (rows + rows_per_block - 1) / rows_per_block;
-  const bool wide = dim > kMaxBwdDim;  // a block per row, no shared-memory column sums
-  const int warps = wide ? kWideThreads / 32 : bwd_warps(dim, sizeof(T));
-  const int64_t want_smem =
-      dw_part != nullptr && !wide ? warps * dim * static_cast<int64_t>(sizeof(float)) : 0;
-  if (rows_per_block <= 0 || blocks != want_blocks || smem != want_smem)
-    return cudaErrorInvalidConfiguration;
-  if (dim > kMaxWideDim) return cudaErrorInvalidValue;
+                       int blocks, int64_t smem, int threads, int stages, int ring_chunks, int teams,
+                       float eps, cudaStream_t stream) {
+  // the plan this call should have (rmsnorm.py::bwd_plan)
+  const int64_t want_blocks = rows_per_block > 0 ? (rows + rows_per_block - 1) / rows_per_block : -1;
   constexpr int N = Pack<T>::N;
   const bool vec = vec_ok<T>(dim, x_stride, {x, w, dy, dx});
+  const bool wide = dim > kMaxBwdDim;
+  const bool ring = wide && vec;
+  int want_threads, want_stages = 1, want_chunks = 1, want_teams = 1;
+  int64_t want_smem = 0;
+  if (ring) {
+    const int64_t chunks = dim / N, pair = 2 * dim * static_cast<int64_t>(sizeof(T));
+    want_chunks = chunks <= 512 ? 1 : chunks <= 1024 ? 2 : 4;
+    want_teams = want_chunks < 4 && rows_per_block >= 2 ? 2 : 1;
+    want_threads = want_teams * static_cast<int>(32 * (((chunks + want_chunks - 1) / want_chunks + 31) / 32));
+    const int64_t fit = kRingBytes / pair;
+    const int64_t most = rows_per_block < fit ? rows_per_block : fit;
+    want_stages = static_cast<int>(most / want_teams * want_teams);
+    if (want_stages < want_teams) want_stages = want_teams;
+    want_smem = want_stages * (pair + 8);
+  } else if (wide) {
+    want_threads = kWideThreads;
+  } else {
+    want_threads = 32 * bwd_warps(dim, sizeof(T));
+    if (dw_part != nullptr) want_smem = want_threads / 32 * dim * static_cast<int64_t>(sizeof(float));
+  }
+  if (rows_per_block <= 0 || blocks != want_blocks || smem != want_smem || threads != want_threads ||
+      stages != want_stages || ring_chunks != want_chunks || teams != want_teams)
+    return cudaErrorInvalidConfiguration;
+  if (dim > kMaxWideDim) return cudaErrorInvalidValue;
   const int lanes = wide ? kWideThreads : 32;
   const int per_lane = static_cast<int>(vec ? (dim / N + lanes - 1) / lanes : (dim + lanes - 1) / lanes);
-  void* fn = wide ? (vec ? pick_wide<T, N>(per_lane) : pick_wide<T, 1>(per_lane))
-                  : (vec ? pick_bwd<T, N>(per_lane) : pick_bwd<T, 1>(per_lane));
+  void* fn = ring ? (ring_chunks == 1   ? reinterpret_cast<void*>(rmsnorm_bwd_ring_kernel<T, 1>)
+                     : ring_chunks == 2 ? reinterpret_cast<void*>(rmsnorm_bwd_ring_kernel<T, 2>)
+                                        : reinterpret_cast<void*>(rmsnorm_bwd_ring_kernel<T, 4>))
+             : wide ? pick_wide<T, 1>(per_lane)  // the block route: rows that are not aligned
+                    : (vec ? pick_bwd<T, N>(per_lane) : pick_bwd<T, 1>(per_lane));
   if (fn == nullptr) return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -456,8 +660,12 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx, v
   float* part = static_cast<float*>(dw_part);
   int d = static_cast<int>(dim);
   int64_t rpb = rows_per_block;
+  if (ring) {
+    void* args[] = {&xp, &wq, &gp, &dp, &part, &rows, &d, &x_stride, &rpb, &stages, &teams, &eps};
+    return cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args, smem, stream);
+  }
   void* args[] = {&xp, &wq, &gp, &dp, &part, &rows, &d, &x_stride, &rpb, &eps};
-  return cudaLaunchKernel(fn, dim3(blocks), dim3(warps * 32), args, smem, stream);
+  return cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args, smem, stream);
 }
 
 template <typename T>
@@ -495,24 +703,27 @@ extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* w, void* out, i
 
 // Backward, first kernel: dx [rows, dim] (contiguous, like dy) and, if
 // dw_part is not null, one row of f32 column sums of dy * round(x r) per
-// block into dw_part [blocks, dim].  rows_per_block, blocks and smem are
-// rmsnorm.py::bwd_plan's (smem: dim f32 per warp with dw_part on the warp
-// route, dim <= 2048, else 0; rows up to 8192 wide take the block route);
-// another plan returns cudaErrorInvalidConfiguration.
+// block into dw_part [blocks, dim].  rows_per_block, blocks, smem, threads,
+// stages, ring_chunks and teams are rmsnorm.py::bwd_plan's (the warp route up to
+// dim 2048, smem dim f32 per warp with dw_part; past it up to 8192 the ring
+// route where every row is 16-byte aligned, else the block route); another
+// plan returns cudaErrorInvalidConfiguration.
 extern "C" int rmsnorm_bwd(int dtype, const void* x, const void* w, const void* dy, void* dx,
                            void* dw_part, int64_t rows, int64_t dim, int64_t x_stride,
-                           int rows_per_block, int blocks, int64_t smem, float eps,
-                           void* stream) {
+                           int rows_per_block, int blocks, int64_t smem, int threads, int stages,
+                           int ring_chunks, int teams, float eps, void* stream) {
   if (rows <= 0 || dim <= 0 || smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return static_cast<int>(launch_bwd<float>(x, w, dy, dx, dw_part, rows, dim, x_stride,
-                                                rows_per_block, blocks, smem, eps, s));
+                                                rows_per_block, blocks, smem, threads, stages,
+                                                ring_chunks, teams, eps, s));
     case 1:
       return static_cast<int>(launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw_part, rows, dim,
                                                         x_stride, rows_per_block, blocks, smem,
-                                                        eps, s));
+                                                        threads, stages, ring_chunks, teams, eps,
+                                                        s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -16,9 +16,11 @@ it; the kernel refuses a plan that is not its own.  Routes:
 - ``"masked"``: rows that are not 16-byte aligned, either dtype.
 
 ``moe_matmul_bwd`` is the gradient: dbuf = dout · wᵀ and dw = bufᵀ · dout,
-one launch each, laid out by ``bwd_plan`` (``"wgmma"``: bf16 on the
-forward's TMA conditions, 128 x 128 tiles with the operands' major-ness
-changed; ``"fma"``: CUDA-core FMAs, f32 or rows TMA cannot read).
+one launch each, each laid out by ``bwd_plan`` (``"wgmma"``: bf16 on the
+forward's TMA conditions, 128-row tiles 64, 128 or 256 columns wide as
+``_bwd_tile_n`` weighs the launch, with the operands' major-ness changed;
+``"fma"``: f32 or rows TMA cannot read, register-blocked CUDA-core FMAs on
+128 x 128 tiles, 64 x 64 where those would not fill the SMs).
 """
 
 from __future__ import annotations
@@ -111,19 +113,50 @@ def launch_plan(E: int, C: int, D: int, F: int, dtype: torch.dtype,
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """How ``moe_matmul_bwd`` launches its two kernels; ``csrc/moe_matmul.cu`` refuses any other."""
+    """How ``moe_matmul_bwd`` launches its two kernels; ``csrc/moe_matmul.cu`` refuses any other.
 
-    route: str  # "wgmma" or "fma"
-    block_m: int  # rows of each output tile (C for dbuf, D for dw)
-    block_n: int  # its columns (D for dbuf, F for dw)
-    block_k: int  # depth of one stage of the reduction (F for dbuf, C for dw)
-    stages: int
-    threads: int
-    dbuf_grid: Tuple[int, int, int]  # wgmma: (persistent blocks, 1, 1); fma: (N tiles, M tiles, E)
-    dw_grid: Tuple[int, int, int]
-    smem_bytes: int  # wgmma: dynamic; fma: the static [16][68] f32 tiles of both operands
-    dbuf_tiles: int
-    dw_tiles: int
+    Each launch is a ``LaunchPlan`` of out M x N over K: dbuf (C, D, F), dw (D, F, C);
+    ``block_m`` / ``block_n`` are its tile's rows and columns, ``block_k`` the depth of a
+    stage; the wgmma route's grid is (persistent blocks, 1, 1), the fma route's
+    (N tiles, M tiles, E) with the static shared memory of its two stages."""
+
+    dbuf: LaunchPlan
+    dw: LaunchPlan
+
+    @property
+    def route(self) -> str:
+        return self.dbuf.route
+
+
+FMA_BWD_K = 16  # the fma route's stage depth
+# a 64-deep stage's time on the wgmma route by tile width, in 1/100 us, read on the card at
+# granite's four LM products (csrc bwd_tile_n)
+BWD_STAGE_COST = {64: 52, 128: 70, 256: 135}
+
+
+def _bwd_tile_n(E: int, M: int, N: int, K: int) -> int:
+    """The wgmma tile width of one backward launch: of 256, 128 and 64 columns, the one
+    whose rounds of tiles over the persistent blocks, each weighed by a tile's time
+    (K / 64 stages at ``BWD_STAGE_COST``), are least; ties to the wider.  ``bwd_tile_n``
+    in the source."""
+    nk = _cdiv(K, 64)
+    best = None
+    for bn in (256, 128, 64):
+        rounds = _cdiv(E * _cdiv(M, 128) * _cdiv(N, bn), _build.NUM_SMS)
+        cost = rounds * nk * BWD_STAGE_COST[bn]
+        if best is None or cost < best[0]:
+            best = (cost, bn)
+    return best[1]
+
+
+def _bwd_launch(route: str, E: int, M: int, N: int, K: int) -> LaunchPlan:
+    """One launch, out M x N over K."""
+    if route == "wgmma":  # the forward's kernel shape, over M x N
+        return _tma_plan("wgmma", E, M, N, _bwd_tile_n(E, M, N, K))
+    bm = 128 if E * _cdiv(M, 128) * _cdiv(N, 128) >= _build.NUM_SMS else 64
+    # two stages of [16 k][bm + 4] f32 for each operand
+    return LaunchPlan("fma", bm, bm, FMA_BWD_K, 2, 256, (_cdiv(N, bm), _cdiv(M, bm), E),
+                      2 * 2 * FMA_BWD_K * (bm + 4) * 4, E * _cdiv(M, bm) * _cdiv(N, bm))
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,16 +167,8 @@ def bwd_plan(E: int, C: int, D: int, F: int, dtype: torch.dtype, aligned: bool =
     and dout, and each writes its own output, so the two launches of one call may differ."""
     if E > 65535 or _cdiv(C, 64) > 65535 or _cdiv(D, 64) > 65535 or max(C, D, F) >= 2**31:
         raise ValueError(f"grid limit: E={E}, C={C}, D={D}, F={F}")
-    mn = ((C, D), (D, F))  # (M, N) of dbuf and of dw
-    if dtype == torch.bfloat16 and aligned and D % 8 == 0 and F % 8 == 0:
-        fwd = _tma_plan("wgmma", E, 128, 128, 128)  # the forward's 128 x 128 ring and epilogue
-        tiles = [E * _cdiv(M, 128) * _cdiv(N, 128) for M, N in mn]
-        grids = [(min(t, _build.NUM_SMS), 1, 1) for t in tiles]
-        return BwdPlan("wgmma", 128, 128, 64, fwd.stages, fwd.threads, *grids, fwd.smem_bytes,
-                       *tiles)
-    tiles = [E * _cdiv(M, 64) * _cdiv(N, 64) for M, N in mn]
-    grids = [(_cdiv(N, 64), _cdiv(M, 64), E) for M, N in mn]
-    return BwdPlan("fma", 64, 64, 16, 1, 256, *grids, 2 * 16 * 68 * 4, *tiles)
+    route = "wgmma" if dtype == torch.bfloat16 and aligned and D % 8 == 0 and F % 8 == 0 else "fma"
+    return BwdPlan(_bwd_launch(route, E, C, D, F), _bwd_launch(route, E, D, F, C))
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,14 +195,6 @@ def _bwd_entry():
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(i64), p, p, p, i64, i64, i64, i64, p]
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_plan_args(plan: BwdPlan, which: int):
-    """One launch of ``plan`` (which: 0 dbuf, 1 dw) as the C entry point reads it."""
-    grid = plan.dw_grid if which else plan.dbuf_grid
-    return (ctypes.c_int64 * 9)(ROUTES.index(plan.route), plan.block_n, plan.block_k, plan.stages,
-                                plan.threads, *grid, plan.smem_bytes)
 
 
 def _launch(entry, plan: LaunchPlan, buf: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> int:
@@ -257,8 +274,8 @@ def moe_matmul_bwd(
         plan = bwd_plan(E, C, D, F, buf.dtype,
                         (a.data_ptr() | b.data_ptr() | out.data_ptr()) % 16 == 0)
         if out.numel() and C and F and D:
-            err = _bwd_entry()(which, DTYPES[buf.dtype], _bwd_plan_args(plan, which), a.data_ptr(),
-                               b.data_ptr(), out.data_ptr(), E, C, D, F, stream)
+            err = _bwd_entry()(which, DTYPES[buf.dtype], _plan_args(plan.dw if which else plan.dbuf),
+                               a.data_ptr(), b.data_ptr(), out.data_ptr(), E, C, D, F, stream)
             if which:
                 bwd_dw_launches += 1
             else:

@@ -191,9 +191,11 @@ def decode_step(params, state: EncDecState, token: torch.Tensor, cfg: ModelConfi
                 sliding_window: int = 0):
     """One decode step: (logits [B, V] f32, new state); the self caches are written in place.
 
-    The cross-attention reads its caches as JAX does, at position
-    ``encoder_seq - 1`` with every cache entry past it masked: the whole
-    cross cache when it is no longer than ``encoder_seq``.
+    The cross-attention attends every entry of its caches (``pos`` = their
+    length - 1), as ``prefill`` and ``decode_train`` attend every frame.
+    Departure from JAX, which decodes at ``encoder_seq - 1`` and so masks
+    the frames past ``encoder_seq``: the two agree wherever the frames are
+    no more than ``encoder_seq``.
     """
     h = embed_tokens(params, token, cfg)
     positions = torch.full(token.shape, state.pos, dtype=torch.int32, device=token.device)
@@ -205,7 +207,7 @@ def decode_step(params, state: EncDecState, token: torch.Tensor, cfg: ModelConfi
         h = h + decode_attention(lp["self_attn"], hn, state.pos, sk, sv, cfg,
                                  sliding_window=sliding_window, rope=rope)
         hn = rms_norm(h, lp["norm_cross"], cfg.norm_eps)
-        h = h + decode_attention(lp["cross_attn"], hn, cfg.encoder_seq - 1, ck, cv, cfg,
+        h = h + decode_attention(lp["cross_attn"], hn, ck.shape[1] - 1, ck, cv, cfg,
                                  update_cache=False, use_rope=False)
         h = h + swiglu_ffn(lp["ffn"], rms_norm(h, lp["norm_ffn"], cfg.norm_eps))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)

@@ -246,24 +246,57 @@ MOE_BWD_CASES = [
 ]
 
 
+def _covers_each_tile_once(blocks, tiles):
+    """The persistent blocks' walk (block b takes tiles b, b + blocks, ...) covers every tile once."""
+    walk = collections.Counter(t for blk in range(blocks) for t in range(blk, tiles, blocks))
+    return len(walk) == tiles and set(walk.values()) == {1}
+
+
 @pytest.mark.parametrize("E,C,D,F,dtype,route", MOE_BWD_CASES)
 def test_moe_backward_launch_plan(E, C, D, F, dtype, route):
+    """Each launch (dbuf: C x D over F; dw: D x F over C) covers its output once, within the
+    shared memory a block may have: wgmma on the tile width whose rounds over the SMs,
+    weighed by a tile's time, are least; fma on 128 x 128 register-blocked tiles where
+    they fill the SMs, else 64 x 64."""
     plan = moe_mod.bwd_plan(E, C, D, F, dtype)
-    assert plan.route == route and plan.smem_bytes <= _build.MAX_SMEM_BYTES
-    for (M, N), grid, tiles in (((C, D), plan.dbuf_grid, plan.dbuf_tiles),
-                                ((D, F), plan.dw_grid, plan.dw_tiles)):
-        assert tiles == E * -(-M // plan.block_m) * -(-N // plan.block_n)
-        if route == "wgmma":  # the forward's persistent 128 x 128 kernel shape
-            assert (plan.block_m, plan.block_n, plan.block_k, plan.threads) == (128, 128, 64, 384)
-            assert plan.stages == 6 and grid == (min(tiles, _build.NUM_SMS), 1, 1)
-            assert plan.smem_bytes == moe_mod.launch_plan(E, 256, 512, 1536, dtype).smem_bytes
-            # the persistent blocks cover every tile once
-            walk = collections.Counter(t for blk in range(grid[0]) for t in range(blk, tiles, grid[0]))
-            assert len(walk) == tiles and set(walk.values()) == {1}
-        else:  # CUDA cores: a block per 64 x 64 tile, 16-deep slices
-            assert (plan.block_m, plan.block_n, plan.block_k, plan.threads) == (64, 64, 16, 256)
-            assert grid == (-(-N // 64), -(-M // 64), E)
+    assert plan.route == route
+    for (M, N, K), lp in (((C, D, F), plan.dbuf), ((D, F, C), plan.dw)):
+        assert lp.smem_bytes <= _build.MAX_SMEM_BYTES
+        assert lp.tiles == E * -(-M // lp.block_m) * -(-N // lp.block_n)
+        if route == "wgmma":
+            assert (lp.block_m, lp.block_k, lp.threads) == (128, 64, 384) and lp.block_n in (64, 128, 256)
+            assert lp.stages == 192 * 1024 // (2 * 64 * (128 + lp.block_n))
+            assert lp.route == "wgmma" and lp.grid == (min(lp.tiles, _build.NUM_SMS), 1, 1)
+            assert _covers_each_tile_once(lp.grid[0], lp.tiles)
+
+            def cost(bn):  # rounds of tiles over the SMs, times a tile's stages, times a stage's time
+                rounds = -(-E * -(-M // 128) * -(-N // bn) // _build.NUM_SMS)
+                return rounds * -(-K // 64) * moe_mod.BWD_STAGE_COST[bn]
+
+            assert cost(lp.block_n) == min(cost(bn) for bn in (64, 128, 256))
+            assert lp.block_n == max(bn for bn in (64, 128, 256) if cost(bn) == cost(lp.block_n))
+        else:
+            assert lp.route == "fma"
+            wide = E * -(-M // 128) * -(-N // 128) >= _build.NUM_SMS  # 128-wide tiles fill the SMs
+            bm = 128 if wide else 64
+            assert (lp.block_m, lp.block_n, lp.block_k, lp.stages, lp.threads) == (bm, bm, 16, 2, 256)
+            assert lp.grid == (-(-N // bm), -(-M // bm), E)  # a block per tile
+            assert lp.grid[0] * lp.grid[1] * lp.grid[2] == lp.tiles
+            assert lp.smem_bytes == 2 * 2 * 16 * (bm + 4) * 4 <= 48 * 1024  # static shared memory
     assert moe_mod.bwd_plan(E, C, D, F, dtype, aligned=False).route == "fma"
+
+
+# granite-moe-3b-a800m's LM products at C 256: the tiles each launch takes
+@pytest.mark.parametrize("D,F,dtype,dbuf_tile,dw_tile", [
+    (512, 1536, torch.bfloat16, (128, 128), (128, 128)),  # down
+    (1536, 512, torch.bfloat16, (128, 256), (128, 128)),  # gate/up: 480 dbuf tiles in 4 rounds
+    (1536, 512, torch.float32, (128, 128), (128, 128)),
+    (512, 1536, torch.float32, (128, 128), (128, 128)),
+])
+def test_moe_backward_tiles_at_granites_shapes(D, F, dtype, dbuf_tile, dw_tile):
+    plan = moe_mod.bwd_plan(40, 256, D, F, dtype)
+    assert (plan.dbuf.block_m, plan.dbuf.block_n) == dbuf_tile
+    assert (plan.dw.block_m, plan.dw.block_n) == dw_tile
 
 
 def test_moe_backward_wrapper_refuses_cpu_tensors():
@@ -301,14 +334,48 @@ def test_ssd_backward_plan_refuses_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("T,D", [(1024, 3200), (1024, 4096), (1, 2049), (7, 3200), (2560, 8192), (300, 2056)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_backward_wide_plan(T, D, dtype):
-    """Past 2048 a row is spread over one block of 256 threads; the grid stays persistent
-    and the dweight partials need no shared memory (each thread owns its columns)."""
+    """Past 2048 a block takes a row and the persistent grid covers every row once; rows
+    that are 16-byte aligned take the ring route: two teams on alternate rows
+    where a block has two, in a team a thread per 16-byte chunk (two past 512 chunks, four
+    past 1024 with one team), and as many rows in flight as 192 KB hold, at most the
+    block's, a multiple of the teams; the rest the block route.  Neither needs shared
+    memory for the dweight partials (each thread owns its columns)."""
     plan = rmsnorm_mod.bwd_plan(T, D, dtype)
-    assert (plan.route, plan.threads, plan.smem_bytes) == ("block", 256, 0)
     assert plan.blocks <= min(T, _build.NUM_SMS)
     assert (plan.blocks - 1) * plan.rows_per_block < T <= plan.blocks * plan.rows_per_block
     assert rmsnorm_mod.bwd_plan(T, D, dtype, dweight=False) == plan
+    assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
+    elem = torch.finfo(dtype).bits // 8
+    row = D * elem
+    if row % 16:
+        assert (plan.route, plan.threads, plan.smem_bytes, plan.stages) == ("block", 256, 0, 1)
+    else:
+        chunks = row // 16
+        assert plan.route == "ring"
+        assert plan.ring_chunks == (1 if chunks <= 512 else 2 if chunks <= 1024 else 4)
+        assert plan.teams == (2 if plan.rows_per_block >= 2 and plan.ring_chunks < 4 else 1)
+        # every chunk of a row has a thread of each team, and no whole warp idles
+        team = plan.threads // plan.teams
+        assert team % 32 == 0 and plan.threads <= 1024 and team <= 512
+        assert (team - 32) * plan.ring_chunks < chunks <= team * plan.ring_chunks
+        fit = min(plan.rows_per_block, rmsnorm_mod.RING_BYTES // (2 * row))
+        assert plan.stages % plan.teams == 0 and fit - plan.teams < plan.stages <= max(fit, plan.teams)
+        assert plan.smem_bytes == plan.stages * (2 * row + 8)
+        assert plan.stages >= min(2, plan.rows_per_block)  # two rows in flight where a block has two
+    unaligned = rmsnorm_mod.bwd_plan(T, D, dtype, aligned=False)
+    assert (unaligned.route, unaligned.threads, unaligned.smem_bytes) == ("block", 256, 0)
+    assert (unaligned.blocks, unaligned.rows_per_block) == (plan.blocks, plan.rows_per_block)
     assert rmsnorm_mod.bwd_plan(T, 2048, dtype).route == "warp"  # B6's rows keep their route
+
+
+# hymba-1.5b's out_norm [1024, 3200] and the d-4096 models' norms [1024, 4096], bf16 and f32
+@pytest.mark.parametrize("D,dtype,threads,chunks,stages", [
+    (3200, torch.bfloat16, 2 * 416, 1, 8), (4096, torch.bfloat16, 2 * 512, 1, 8),
+    (3200, torch.float32, 2 * 416, 2, 6), (4096, torch.float32, 2 * 512, 2, 6)])
+def test_rmsnorm_backward_ring_at_the_models_shapes(D, dtype, threads, chunks, stages):
+    plan = rmsnorm_mod.bwd_plan(1024, D, dtype)
+    assert (plan.route, plan.blocks, plan.rows_per_block, plan.teams) == ("ring", 128, 8, 2)
+    assert (plan.threads, plan.ring_chunks, plan.stages) == (threads, chunks, stages)
 
 
 # ---------------------------------------------------------------------------

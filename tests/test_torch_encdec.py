@@ -11,7 +11,10 @@ long, so its first decode write clamps onto the prompt's last slot
 (ROADMAP C).  The port honours ``cache_len``; its decoding is held
 against a JAX decode loop started from caches padded to ``cache_len``
 and against teacher-forced ``decode_train`` + ``logits_fn``.  The frames
-run shorter than ``encoder_seq`` (16 reduced) as well as at it.
+run shorter than ``encoder_seq`` (16 reduced) as well as at it, and, for
+generation, longer: the port's decode attends every frame, as
+``decode_train`` does, where JAX's decode masks the frames past
+``encoder_seq`` (ROADMAP C).
 """
 
 import jax
@@ -109,7 +112,10 @@ def test_prefill_logits_and_caches_match(Se, cache_len):
 
 @pytest.mark.parametrize("Se", [16, 10])
 def test_decode_steps_match_jax_from_padded_caches(Se):
-    """Prefill, then every decode step against JAX's, its self caches padded to cache_len."""
+    """Prefill, then every decode step against JAX's, its self caches padded to cache_len.
+
+    The frames stay within ``encoder_seq``, where JAX's decode agrees with its own
+    teacher forcing; past it JAX masks the extra frames and the port does not."""
     japi, jparams, tapi, tparams = models(ARCH, weight_mult=5.0)
     S, new = 6, 8
     frames, toks = batch(japi.cfg, 2, Se, S + new, seed=4)
@@ -130,10 +136,11 @@ def test_decode_steps_match_jax_from_padded_caches(Se):
     close(state.self_v, jstate.self_v)
 
 
-@pytest.mark.parametrize("Se", [16, 10])
+@pytest.mark.parametrize("Se", [16, 10, 32])
 def test_generation_matches_teacher_forcing(Se):
     """Greedy generation's step logits against JAX's decode_train + logits_fn over the
-    prompt and the generated tokens, at every generated position."""
+    prompt and the generated tokens, at every generated position; Se = 32 gives more
+    frames than the reduced encoder_seq (16), all of which decode attends."""
     japi, jparams, tapi, tparams = models(ARCH, weight_mult=5.0)
     S, new = 6, 7
     frames, toks = batch(japi.cfg, 2, Se, S, seed=5)

@@ -252,7 +252,8 @@ def test_moe_and_ssd_kernels_refuse_to_drop_gradients(cuda):
 # (E, C, D, F): granite's LM products at C 256 (gate/up, down), its decode and score capacities,
 # the reduced config, partial tiles, and rows TMA cannot read
 MOE_BWD_SHAPES = [(40, 256, 1536, 512), (40, 256, 512, 1536), (40, 8, 1536, 512), (40, 384, 512, 1536),
-                  (4, 24, 256, 128), (3, 130, 264, 200), (2, 200, 136, 520), (3, 70, 100, 36), (1, 3, 7, 5)]
+                  (4, 24, 256, 128), (3, 130, 264, 200), (2, 200, 136, 520), (3, 70, 100, 36), (1, 3, 7, 5),
+                  (40, 130, 1536, 512), (40, 1, 512, 1536)]  # ragged C on the 128-wide tiles, C = 1
 
 
 @pytest.mark.parametrize("E,C,D,F", MOE_BWD_SHAPES)
@@ -278,20 +279,25 @@ def test_moe_matmul_backward_kernels(cuda, E, C, D, F, dtype):
 
 
 @pytest.mark.parametrize("offset", ["buf", "w", "dout"])
-def test_moe_matmul_backward_takes_an_unaligned_operand(cuda, offset):
-    """One bf16 operand contiguous but 2 bytes off 16: the launch that reads it takes the
-    fma route and the other stays on wgmma, each planned from its own pointers."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_matmul_backward_takes_an_unaligned_operand(cuda, offset, dtype):
+    """One operand contiguous but one element off 16 bytes: in bf16 the launch that reads
+    it takes the fma route and the other stays on wgmma, each planned from its own
+    pointers; in f32 (the fma route) that launch loads element by element.  Two calls
+    give the same bits."""
     rng = np.random.default_rng(11)
     E, C, D, F = 3, 40, 64, 72
     shapes = {"buf": (E, C, D), "w": (E, D, F), "dout": (E, C, F)}
-    t = {k: (tensor(rng, (int(np.prod(s)) + 1,), torch.bfloat16, cuda)[1:].view(s) if k == offset
-             else tensor(rng, s, torch.bfloat16, cuda)) for k, s in shapes.items()}
+    t = {k: (tensor(rng, (int(np.prod(s)) + 1,), dtype, cuda)[1:].view(s) if k == offset
+             else tensor(rng, s, dtype, cuda)) for k, s in shapes.items()}
     assert t[offset].data_ptr() % 16 and t[offset].is_contiguous()
     dbuf, dw = moe_mod.moe_matmul_bwd(t["buf"], t["w"], t["dout"])
+    again = moe_mod.moe_matmul_bwd(t["buf"], t["w"], t["dout"])
+    assert torch.equal(dbuf, again[0]) and torch.equal(dw, again[1])
     buf, w = t["buf"].clone().requires_grad_(), t["w"].clone().requires_grad_()
     want = torch.autograd.grad(ref.moe_matmul_ref(buf, w), (buf, w), t["dout"])
-    close_to_max("dbuf", dbuf, want[0], 2e-2)
-    close_to_max("dw", dw, want[1], 2e-2)
+    close_to_max("dbuf", dbuf, want[0], grad_tol(dtype))
+    close_to_max("dw", dw, want[1], grad_tol(dtype))
 
 
 # (BNC, H, Q, hd, N): mamba2 and hymba at 2 x 512 (four chunks of 256), the reduced configs,
@@ -348,8 +354,10 @@ def test_ssd_backward_strong_decay_stays_finite(cuda, dtype):
         close_to_max(name, g.double(), w, grad_tol(dtype))
 
 
-# rows past 2048: hymba's out_norm 3200, A10's d 4096, ragged 2049, the limit 8192
-@pytest.mark.parametrize("T,D", [(1, 3200), (7, 3200), (1024, 3200), (1024, 4096), (7, 2049), (64, 8192)])
+# rows past 2048: hymba's out_norm 3200, A10's d 4096, ragged 2049 (the block route), 2056 just
+# past the warp route, the limit 8192; one row and fewer rows than SMs
+@pytest.mark.parametrize("T,D", [(1, 3200), (7, 3200), (1024, 3200), (1024, 4096), (7, 2049), (64, 8192),
+                                 (1, 2056), (131, 2056), (1, 8192), (200, 8192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_wide_backward_kernels(cuda, T, D, dtype):
     rng = np.random.default_rng(T + D + 13)
@@ -368,6 +376,30 @@ def test_rmsnorm_wide_backward_kernels(cuda, T, D, dtype):
     close_to_max("dweight", got[1], want[1], grad_tol(dtype))
     first, second = (rmsnorm_mod.rmsnorm_bwd(x.detach(), w.detach(), dy) for _ in range(2))
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("layout", ["strided", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_wide_backward_strided_rows(cuda, layout, dtype):
+    """x a view with rows D + 8 apart: the ring route reads each row at its stride; rows
+    that start one element in are not 16-byte aligned and take the block route."""
+    T, D = 300, 3200
+    rng = np.random.default_rng(17)
+    base = tensor(rng, (T, D + 8), dtype, cuda, 3.0)
+    x = base[:, :D] if layout == "strided" else base[:, 1:D + 1]
+    w = 1 + tensor(rng, (D,), dtype, cuda, 0.1)
+    dy = tensor(rng, (T, D), dtype, cuda)
+    aligned = layout == "strided"
+    assert rmsnorm_mod.bwd_plan(T, D, dtype, aligned=aligned).route == ("ring" if aligned else "block")
+    before = ops.launch_counts()["rmsnorm_bwd_wide"]
+    got = rmsnorm_mod.rmsnorm_bwd(x, w, dy)
+    assert ops.launch_counts()["rmsnorm_bwd_wide"] == before + 1
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(ref.rmsnorm_ref(xr, wr), (xr, wr), dy)
+    close_to_max("dx", got[0], want[0], grad_tol(dtype))
+    close_to_max("dweight", got[1], want[1], grad_tol(dtype))
+    again = rmsnorm_mod.rmsnorm_bwd(x, w, dy)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
 def test_flash_kernel_rejects_head_dim_32(cuda):

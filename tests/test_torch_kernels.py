@@ -330,12 +330,15 @@ def test_rmsnorm_backward_grid_stops_at_the_sm_count(T):
 
 
 def test_rmsnorm_backward_refuses_rows_past_its_registers():
-    """Rows up to 2048 keep the warp route; up to 8192 a block of 256 threads holds the row
-    (32 elements a thread); wider rows would not fit its registers and raise."""
+    """Rows up to 2048 keep the warp route; up to 8192 a block holds the row (the ring route
+    where bulk copies can read the rows, else the block route, 32 elements a thread); wider
+    rows would not fit its registers and raise."""
     assert (rmsnorm_mod.BWD_WARP_MAX_DIM, rmsnorm_mod.BWD_MAX_DIM) == (2048, 8192)
     assert rmsnorm_mod.bwd_plan(4, rmsnorm_mod.BWD_WARP_MAX_DIM).route == "warp"
-    assert rmsnorm_mod.bwd_plan(4, rmsnorm_mod.BWD_WARP_MAX_DIM + 8).route == "block"
-    assert rmsnorm_mod.bwd_plan(4, rmsnorm_mod.BWD_MAX_DIM).route == "block"
+    assert rmsnorm_mod.bwd_plan(4, rmsnorm_mod.BWD_WARP_MAX_DIM + 8).route == "ring"
+    assert rmsnorm_mod.bwd_plan(4, rmsnorm_mod.BWD_MAX_DIM).route == "ring"
+    assert rmsnorm_mod.bwd_plan(4, rmsnorm_mod.BWD_WARP_MAX_DIM + 1).route == "block"
+    assert rmsnorm_mod.bwd_plan(4, rmsnorm_mod.BWD_MAX_DIM, aligned=False).route == "block"
     x = torch.randn(4, rmsnorm_mod.BWD_MAX_DIM + 8)
     with pytest.raises(ValueError, match="registers"):
         rmsnorm_mod.rmsnorm_bwd_dx(x, torch.ones(x.shape[1]), x)

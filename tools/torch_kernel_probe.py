@@ -6,6 +6,9 @@
     python3 tools/torch_kernel_probe.py moe-parts   # moe_matmul with parts of its work taken out
     python3 tools/torch_kernel_probe.py bwd [--tree DIR]  # the backward pairs vs the library gradients
     python3 tools/torch_kernel_probe.py bwd-parts   # the bf16 flash backward with parts taken out
+    python3 tools/torch_kernel_probe.py moe-bwd-tiles  # moe_matmul's bf16 backward at each tile width
+    python3 tools/torch_kernel_probe.py moe-bwd-fma    # its f32 dbuf at one and two blocks an SM
+    python3 tools/torch_kernel_probe.py rms-parts      # the wide RMSNorm dx with parts taken out
     python3 tools/torch_kernel_probe.py ssd-roles   # ssd_intra_chunk's y and state blocks alone
     python3 tools/torch_kernel_probe.py ssm-check   # mamba2's bf16 decode-vs-forward reading
 
@@ -13,9 +16,27 @@
 ``chip_smoke.py`` does (CUDA events behind a device sleep), at the serving
 shapes and the long ones.  ``bwd`` does the same for the backward kernels
 at ``chip_smoke.py`` phase 5's timed shapes: each kernel, each pair, and
-the gradient of ``sdpa`` / ``F.rms_norm`` on the same inputs; with
-``--tree DIR`` it imports ``repro_torch`` from the checkout DIR instead
-(built into DIR's own ``build/``), so that one call can time two trees.
+the gradient of ``sdpa`` / ``F.rms_norm`` on the same inputs, then
+``moe_matmul``'s dbuf and dw at granite-moe-3b-a800m's LM products (C 256;
+gate/up and down; bf16 and f32) beside ``torch.bmm`` and the wide-row
+RMSNorm dx at [1024, 3200] and [1024, 4096] (bf16 and f32) beside
+``F.rms_norm``'s gradient, each the median of three taken in turns with
+its library call; with ``--tree DIR`` it imports ``repro_torch`` from the
+checkout DIR instead (built into DIR's own ``build/``), so that one call
+can time two trees.
+``moe-bwd-tiles`` builds variants of ``csrc/moe_matmul.cu`` into
+``build/probe`` whose bf16 backward takes one tile width (64, 128 or 256
+columns) for every launch, and times dbuf and dw at granite's two LM
+products at each width beside the plan's own choice, in turns.
+``moe-bwd-fma`` builds variants of ``csrc/moe_matmul.cu`` whose f32
+backward kernel states one or two blocks an SM as its launch bound (the
+kernel as it is states none) and times them beside the kernel at granite's
+f32 LM products, in turns, outputs compared bit for bit.
+``rms-parts`` builds variants of ``csrc/rmsnorm.cu`` into ``build/probe``
+whose ring-route dx kernel leaves out its dx stores, or its dweight
+partials, or both, and times each beside the whole kernel at [1024, 3200]
+and [1024, 4096], bf16 and f32, in turns; the variants' outputs are wrong
+by design.
 ``moe`` checks ``moe_matmul`` against its plain version and times it
 beside ``torch.bmm`` and its bound at granite-moe-3b-a800m's six bf16
 shapes (gate/up and down at decode C = 8, prefill C = 128 and score
@@ -69,7 +90,7 @@ import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
     BF16_TOL, GRAD_TOL, assert_close, cuda_ms, flash_bound, flash_bwd_bounds, grad_err, moe_bound,
-    rmsnorm_bwd_bounds, ssd_bound)
+    moe_bwd_bounds, rmsnorm_bwd_bounds, ssd_bound)
 from repro_torch.kernels import _build, ops, ref, ssd_scan  # noqa: E402
 
 H, HD, N = 24, 64, 128  # mamba2-130m
@@ -165,15 +186,269 @@ def time_backward(gen):
         print(f"[bwd] rmsnorm [{T}, {D}] {str(dt)[6:]}: dx {ms_dx:.4f} dweight {ms_dw:.4f} pair "
               f"{ms_pair:.4f} ms, F.rms_norm grad x,w {lib:.4f} ms, bound {bound[0]:.4f} ms; rel err "
               + ", ".join(f"{r:.2e}" for _, r in errs))
+    time_b7_b10(gen)
 
 
-MOE_SHAPES = [  # (E, C, D, F, what): granite-moe-3b-a800m's expert products
-    (40, 8, 1536, 512, "decode gate/up"), (40, 8, 512, 1536, "decode down"),
-    (40, 128, 1536, 512, "prefill gate/up"), (40, 128, 512, 1536, "prefill down"),
-    (40, 384, 1536, 512, "score gate/up"), (40, 384, 512, 1536, "score down"),
-]
+def medians(calls, rounds=3):
+    """Median device ms of each call, taken in turns so that a slow spell hits all alike."""
+    times = {k: [] for k in calls}
+    for _ in range(rounds):
+        for k, fn in calls.items():
+            times[k].append(cuda_ms(fn))
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
 
+MOE_LM = [(40, 256, 1536, 512, "gate/up"), (40, 256, 512, 1536, "down")]  # granite's LM products
+
+
+def time_b7_b10(gen):
+    """moe_matmul's backward (B7) and the wide-row RMSNorm dx (B10) at the LM shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe_matmul as mk
+    from repro_torch.kernels import rmsnorm as rk
+
+    dev = gen.device
+    for dt in (torch.bfloat16, torch.float32):
+        for E, C, D, Fd, what in MOE_LM:
+            buf = torch.randn(E, C, D, generator=gen, device=dev).to(dt)
+            w = (torch.randn(E, D, Fd, generator=gen, device=dev) * 0.05).to(dt)
+            dout = torch.randn(E, C, Fd, generator=gen, device=dev).to(dt)
+            dbuf, dw = mk.moe_matmul_bwd(buf, w, dout)
+            again = mk.moe_matmul_bwd(buf, w, dout)
+            if not (torch.equal(dbuf, again[0]) and torch.equal(dw, again[1])):
+                raise AssertionError(f"moe_matmul_bwd {what} {dt}: two calls differ")
+            bl, wl = buf.clone().requires_grad_(), w.clone().requires_grad_()
+            want = torch.autograd.grad(ref.moe_matmul_ref(bl, wl), (bl, wl), dout)
+            errs = [grad_err(n, a, b, GRAD_TOL[str(dt)[6:]])
+                    for n, a, b in zip(("dbuf", "dw"), (dbuf, dw), want)]
+            ms = medians({"dbuf": lambda: mk.moe_matmul_bwd(buf, w, dout, dw=False),
+                          "bmm dout w^T": lambda: torch.bmm(dout, w.transpose(1, 2)),
+                          "dw": lambda: mk.moe_matmul_bwd(buf, w, dout, dbuf=False),
+                          "bmm buf^T dout": lambda: torch.bmm(buf.transpose(1, 2), dout)})
+            b_dbuf, b_dw, _ = moe_bwd_bounds(E, C, D, Fd, buf.element_size())
+            print(f"[bwd] moe_matmul_bwd E{E} C{C} D{D} F{Fd} {what} {str(dt)[6:]}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                  + f" ms; bounds {b_dbuf[0]:.4f} / {b_dw[0]:.4f} ms ({b_dbuf[1]}); rel err "
+                  + ", ".join(f"{r:.2e}" for _, r in errs) + "; bit-identical")
+            del buf, w, dout, dbuf, dw, again, bl, wl, want
+        for T, D in ((1024, 3200), (1024, 4096)):
+            x = (torch.randn(T, D, generator=gen, device=dev) * 3).to(dt)
+            w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(dt)
+            dy = torch.randn(T, D, generator=gen, device=dev).to(dt)
+            got = rk.rmsnorm_bwd(x, w, dy)
+            again = rk.rmsnorm_bwd(x, w, dy)
+            if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                raise AssertionError(f"rmsnorm_bwd [{T}, {D}] {dt}: two calls differ")
+            xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+            want = torch.autograd.grad(ref.rmsnorm_ref(xl, wl), (xl, wl), dy)
+            errs = [grad_err(n, a, b, GRAD_TOL[str(dt)[6:]]) for n, a, b in zip(("dx", "dw"), got, want)]
+            lib_out = F.rms_norm(xl, (D,), wl, 1e-5)
+            ms = medians({"dx": lambda: rk.rmsnorm_bwd_dx(x, w, dy),
+                          "pair": lambda: rk.rmsnorm_bwd(x, w, dy),
+                          "F.rms_norm grad x,w": lambda: torch.autograd.grad(lib_out, (xl, wl), dy,
+                                                                             retain_graph=True)})
+            b_dx = rmsnorm_bwd_bounds(T, D, x.element_size())[0]
+            print(f"[bwd] rmsnorm wide [{T}, {D}] {str(dt)[6:]}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                  + f" ms; dx bound {b_dx[0]:.4f} ms ({100 * b_dx[0] / ms['dx']:.0f}% of it); plan "
+                  f"{rk.bwd_plan(T, D, dt)}; rel err " + ", ".join(f"{r:.2e}" for _, r in errs)
+                  + "; bit-identical")
+            del x, w, dy, got, again, xl, wl, want, lib_out
+
+
+def _moe_variant_dirs(texts, name):
+    """Build variants of moe_matmul.cu ({label: source}) into build/probe/<name>/<i>."""
+    out_dir = ROOT / "build" / "probe" / name
+    jobs = {}
+    for i, (label, text) in enumerate(texts.items()):
+        vdir = out_dir / str(i)
+        vdir.mkdir(parents=True, exist_ok=True)
+        (vdir / "moe_matmul.cu").write_text(text)
+        (vdir / "hopper.cuh").write_text((_build.CSRC / "hopper.cuh").read_text())
+        _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+        jobs[label] = (vdir, _build._start("moe_matmul"))
+    for label, (vdir, job) in jobs.items():
+        if job is not None:
+            with contextlib.redirect_stdout(io.StringIO()):  # ptxas -v reports
+                _build._finish("moe_matmul", job)
+    return {label: vdir for label, (vdir, _) in jobs.items()}
+
+
+def _use_moe_variant(mk, vdir):
+    """Point moe_matmul's backward entry at the variant built into vdir."""
+    _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+    _build._loaded.pop("moe_matmul", None)
+    mk._bwd_entry.cache_clear()
+    mk.bwd_plan.cache_clear()
+    return mk._bwd_entry()
+
+
+def moe_bwd_fma(gen):
+    from repro_torch.kernels import moe_matmul as mk
+
+    src = (_build.CSRC / "moe_matmul.cu").read_text()
+    bounds = "__launch_bounds__(kFmaThreads)\nmoe_matmul_bwd_fma("
+    if src.count(bounds) != 1:
+        raise RuntimeError("moe_matmul.cu no longer has the launch bound this probe changes")
+    stated = "__launch_bounds__(kFmaThreads, {})\nmoe_matmul_bwd_fma("
+    dirs = _moe_variant_dirs({"as is": src, **{f"{n} block(s) an SM": src.replace(bounds, stated.format(n))
+                                               for n in (1, 2)}}, "moe_bwd_fma")
+    dev = gen.device
+    for E, C, D, Fd, what in MOE_LM:
+        buf = torch.randn(E, C, D, generator=gen, device=dev)
+        w = torch.randn(E, D, Fd, generator=gen, device=dev) * 0.05
+        dout = torch.randn(E, C, Fd, generator=gen, device=dev)
+        calls, outs = {}, {}
+        for label, vdir in dirs.items():
+            _use_moe_variant(mk, vdir)
+            for which in ("dbuf", "dw"):
+                # bound to this variant's entry now: each call below launches its own library
+                entry = mk._bwd_entry()
+                lp = getattr(mk.bwd_plan(E, C, D, Fd, torch.float32), which)
+                a, b = (buf, dout) if which == "dw" else (dout, w)
+                out = torch.empty(*(w.shape if which == "dw" else buf.shape), device=dev)
+                args = (int(which == "dw"), 0, mk._plan_args(lp), a.data_ptr(), b.data_ptr(),
+                        out.data_ptr(), E, C, D, Fd, torch._C._cuda_getCurrentRawStream(dev.index or 0))
+
+                def call(entry=entry, args=args):
+                    err = entry(*args)
+                    if err:
+                        raise RuntimeError(f"moe_matmul_bwd f32 variant launch failed: error {err}")
+                call()
+                calls[(which, label)], outs[(which, label)] = call, out
+        for which in ("dbuf", "dw"):
+            ms = medians({label: calls[(which, label)] for label in dirs})
+            same = all(torch.equal(outs[(which, label)], outs[(which, "as is")]) for label in dirs)
+            print(f"[moe-bwd-fma] E{E} C{C} D{D} F{Fd} {what} f32 {which}: "
+                  + ", ".join(f"{label} {v:.4f} ms" for label, v in ms.items())
+                  + f"; bit-identical: {same}")
+        del buf, w, dout, calls, outs
+
+
+def rms_parts(gen):
+    from repro_torch.kernels import rmsnorm as rk
+
+    src = (_build.CSRC / "rmsnorm.cu").read_text()
+    store = "      if (chunk(j) < nchunks) op[chunk(j)] = o;"
+    part = "        part[(chunk(j) * VEC + e) / 4] ="
+    if src.count(store) != 1 or src.count(part) != 1:
+        raise RuntimeError("rmsnorm.cu no longer has the parts this probe takes out")
+    no_store = ("      if (chunk(j) < nchunks && eps < 0.f) op[chunk(j)] = o;  // never: eps > 0")
+    no_part = "        if (eps < 0.f) " + part.strip()
+    variants = {"whole": src, "no dx stores": src.replace(store, no_store),
+                "no partials": src.replace(part, no_part),
+                "neither": src.replace(store, no_store).replace(part, no_part)}
+    out_dir = ROOT / "build" / "probe" / "rms_parts"
+    jobs = {}
+    for i, (label, text) in enumerate(variants.items()):
+        vdir = out_dir / str(i)
+        vdir.mkdir(parents=True, exist_ok=True)
+        (vdir / "rmsnorm.cu").write_text(text)
+        (vdir / "hopper.cuh").write_text((_build.CSRC / "hopper.cuh").read_text())
+        _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+        jobs[label] = (vdir, _build._start("rmsnorm"))
+    for label, (vdir, job) in jobs.items():
+        if job is not None:
+            with contextlib.redirect_stdout(io.StringIO()):  # ptxas -v reports
+                _build._finish("rmsnorm", job)
+    dev = gen.device
+    for dt in (torch.bfloat16, torch.float32):
+        for T, D in ((1024, 3200), (1024, 4096)):
+            x = (torch.randn(T, D, generator=gen, device=dev) * 3).to(dt)
+            w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(dt)
+            dy = torch.randn(T, D, generator=gen, device=dev).to(dt)
+            calls = {}
+            for label, (vdir, _) in jobs.items():
+                _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+                _build._loaded.pop("rmsnorm", None)
+                rk._entries.cache_clear()
+                fn = rk._entries()[1]  # this variant's dx entry, bound now
+                plan = rk.bwd_plan(T, D, dt)
+                dx = torch.empty_like(x)
+                parts = torch.empty(plan.blocks, D, device=dev)
+                args = (rk.DTYPES[dt], x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                        parts.data_ptr(), T, D, x.stride(0), plan.rows_per_block, plan.blocks,
+                        plan.smem_bytes, plan.threads, plan.stages, plan.ring_chunks, plan.teams,
+                        1e-5, torch._C._cuda_getCurrentRawStream(dev.index or 0))
+
+                def call(fn=fn, args=args, label=label):
+                    err = fn(*args)
+                    if err:
+                        raise RuntimeError(f"rmsnorm_bwd {label} variant launch failed: error {err}")
+                call()
+                calls[label] = call
+            ms = medians(calls)
+            bound = rmsnorm_bwd_bounds(T, D, x.element_size())[0][0]
+            print(f"[rms-parts] [{T}, {D}] {str(dt)[6:]} ({plan.route}, {plan.teams} teams, "
+                  f"{plan.threads} threads, {plan.stages} stages): "
+                  + ", ".join(f"{label} {v:.4f} ms" for label, v in ms.items())
+                  + f"; bound {bound:.4f} ms")
+    # the whole kernel by rows: one row a block (T <= 132) up to 16, against the library
+    import torch.nn.functional as F
+
+    _build.CSRC, _build.BUILD_DIR = jobs["whole"][0], jobs["whole"][0] / "lib"
+    _build._loaded.pop("rmsnorm", None)
+    rk._entries.cache_clear()
+    for T in (128, 256, 512, 1024, 2048):
+        x = (torch.randn(T, 3200, generator=gen, device=dev) * 3).bfloat16()
+        w = (1 + 0.1 * torch.randn(3200, generator=gen, device=dev)).bfloat16()
+        dy = torch.randn(T, 3200, generator=gen, device=dev).bfloat16()
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        lib_out = F.rms_norm(xl, (3200,), wl, 1e-5)
+        ms = medians({"dx": lambda: rk.rmsnorm_bwd_dx(x, w, dy),
+                      "F.rms_norm grad": lambda: torch.autograd.grad(lib_out, (xl, wl), dy,
+                                                                     retain_graph=True)})
+        print(f"[rms-parts] by rows: [{T}, 3200] bfloat16 ({rk.bwd_plan(T, 3200).rows_per_block} rows a "
+              f"block): " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f"; dx bound {rmsnorm_bwd_bounds(T, 3200, 2)[0][0]:.4f} ms")
+
+
+def moe_bwd_tiles(gen):
+    from repro_torch.kernels import moe_matmul as mk
+
+    src = (_build.CSRC / "moe_matmul.cu").read_text()
+    head = "int bwd_tile_n(int64_t E, int64_t M, int64_t N, int64_t K) {"
+    if src.count(head) != 1:
+        raise RuntimeError("moe_matmul.cu no longer has the tile choice this probe forces")
+    widths = (64, 128, 256)
+    dirs = _moe_variant_dirs({bn: src.replace(head, head + f"\n  if (E > 0) return {bn};")
+                              for bn in widths}, "moe_bwd_tiles")
+    choose = mk._bwd_tile_n
+    dev = gen.device
+    data = {what: tuple(torch.randn(*s_, generator=gen, device=dev).bfloat16()
+                        for s_ in ((E, C, D), (E, D, Fd), (E, C, Fd)))
+            for E, C, D, Fd, what in MOE_LM}
+    calls, outs = {}, {}
+    for bn, vdir in dirs.items():
+        mk._bwd_tile_n = lambda E, M, N, K, bn=bn: bn
+        entry = _use_moe_variant(mk, vdir)  # bound now, to this variant's library
+        for what, (buf, w, dout) in data.items():
+            for which in ("dbuf", "dw"):
+                lp = getattr(mk.bwd_plan(*buf.shape, w.shape[2], torch.bfloat16), which)
+                a, b = (buf, dout) if which == "dw" else (dout, w)
+                out = torch.empty(*(w.shape if which == "dw" else buf.shape), dtype=torch.bfloat16,
+                                  device=dev)
+                args = (int(which == "dw"), 1, mk._plan_args(lp), a.data_ptr(), b.data_ptr(),
+                        out.data_ptr(), buf.shape[0], buf.shape[1], buf.shape[2], w.shape[2],
+                        torch._C._cuda_getCurrentRawStream(dev.index or 0))
+
+                def call(entry=entry, args=args, bn=bn):
+                    err = entry(*args)
+                    if err:
+                        raise RuntimeError(f"moe_matmul_bwd tile {bn} launch failed: error {err}")
+                call()
+                calls[(what, which, bn)], outs[(what, which, bn)] = call, out
+    mk._bwd_tile_n = choose
+    for what, (buf, w, dout) in data.items():
+        E, C, D = buf.shape
+        Fd = w.shape[2]
+        for which, (M, N, K) in (("dbuf", (C, D, Fd)), ("dw", (D, Fd, C))):
+            ms = medians({bn: calls[(what, which, bn)] for bn in widths})
+            same = all(torch.equal(outs[(what, which, bn)], outs[(what, which, 128)]) for bn in widths)
+            print(f"[moe-bwd-tiles] E{E} C{C} D{D} F{Fd} {what} {which} (M {M} N {N} K {K}): "
+                  + ", ".join(f"BN {bn} {v:.4f} ms" for bn, v in ms.items())
+                  + f"; the plan takes BN {choose(E, M, N, K)}; widths bit-identical: {same}")
 def host_us(fn, n=200, rounds=5):
     """Median host microseconds per call, the calls queued behind a device sleep."""
     fn()
@@ -451,7 +726,8 @@ def ssm_check(gen):
 
 def main() -> int:
     modes = {"time": time_kernels, "moe": time_moe, "moe-parts": moe_parts, "bwd": time_backward,
-             "bwd-parts": bwd_parts, "ssd-roles": ssd_roles, "ssm-check": ssm_check}
+             "bwd-parts": bwd_parts, "ssd-roles": ssd_roles, "ssm-check": ssm_check,
+             "moe-bwd-tiles": moe_bwd_tiles, "moe-bwd-fma": moe_bwd_fma, "rms-parts": rms_parts}
     if len(sys.argv) not in (2, 4) or sys.argv[1] not in modes or (len(sys.argv) == 4 and sys.argv[2] != "--tree"):
         print(__doc__, file=sys.stderr)
         return 2
