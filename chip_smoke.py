@@ -361,6 +361,19 @@ def ssd_bwd_bounds(BNC, H, Q, hd, N, elem):
             bound((reads + x_bytes + writes_f32) / HBM_BYTES_PER_S, ops / F32_FLOPS))
 
 
+def ssd_bwd_split_bound(BNC, H, Q, hd, N):
+    """The bf16 route's own bound for the whole backward: the bytes of ``ssd_bwd_bounds``, and
+    its products on the bf16 tensor cores as it splits them (an f32 operand in two bf16 pieces:
+    three products for f32 x f32, two for f32 x bf16 and one for bf16 x bf16): C B^T, dC and
+    dB's S^T C once per chunk (three each), dM = dy x^T (one) and M^T dy (two) per head, and the
+    chunk-state terms B dstate^T and (x o w) dstate (three each)."""
+    pairs = Q * (Q + 1) // 2
+    x_bytes = BNC * H * Q * hd * 2
+    moved = 3 * x_bytes + 4 * (4 * BNC * Q * N + 2 * BNC * H * Q + BNC * H * hd * N)
+    ops = 3 * BNC * 6 * N * pairs + BNC * H * (3 * 2 * hd * pairs + 3 * 4 * Q * hd * N)
+    return bound(moved / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS)
+
+
 def grad_err(name, got, want, tol):
     """(max |got - want|, that over max |want|, or None where want is all zero).
 
@@ -1475,6 +1488,7 @@ def main() -> int:
         plain = lambda: torch.autograd.grad((y_ref, st_ref), (xs, bs, cs, cum), (dy, dst),
                                             retain_graph=True)
         plan = ssd_k.bwd_plan(BNC, H, Q, shd, N, dt)
+        split_b = ssd_bwd_split_bound(BNC, H, Q, shd, N)
         parts = ssd_k.ssd_intra_chunk_bwd_main(*args)[1]
         m_main = measure(lambda: ssd_k.ssd_intra_chunk_bwd_main(*args), plain, None, b_main,
                          plain_iters=5)
@@ -1488,9 +1502,12 @@ def main() -> int:
         report(f"ssd_intra_chunk bwd main {label}", errs, tol, m_main, "no single PyTorch call")
         report(f"ssd_intra_chunk bwd reduce {label}", errs[1:], tol, m_red, "no single PyTorch call")
         report(f"ssd_intra_chunk bwd both {label}", errs, tol, m_all, "no single PyTorch call")
-        print(f"[bwd]   launch plan: route {plan.route}, grid {plan.grid}, {plan.threads} threads, "
-              f"{plan.state_cols} state columns a thread row, {plan.smem_bytes} bytes of shared "
-              f"memory; reduce {plan.reduce_blocks} blocks of 256")
+        print(f"[bwd]   launch plan: route {plan.route}, head group {plan.heads_per_block} "
+              f"({plan.groups} groups), grid {plan.grid}, {plan.threads} threads, {plan.smem_bytes} "
+              f"bytes of shared memory, {plan.blocks_per_sm} blocks an SM by it; scratch "
+              f"{plan.scratch_bytes} bytes; reduce grid {plan.reduce_grid} of {plan.reduce_threads}"
+              + (f"; the route's split-product bound {split_b[0]:.4f} ms ({split_b[1]})"
+                 if dt == torch.bfloat16 else ""))
         del xs, bs, cs, cum, dy, dst, got, again, y_ref, st_ref, want, parts
     print(f"[bwd] determinism: every timed backward kernel gave bit-identical gradients in two "
           f"calls ({len(flash_bwd_cases)} flash, {len(rms_bwd_cases)} rmsnorm, "

@@ -54,18 +54,35 @@
 //   dC = sum_h dML B;  dB = sum_h dML^T C + sum_h (x o w) dstate;
 //   dcum_q = rowsum P - colsum P - w_q x_q.(dstate B_q), and dcum_last
 //   also gets sum_k w_k x_k.(dstate B_k).
-// Bound: operations, as the forward (about twice its products).  Two block
-// roles per (chunk, head), 256 threads each on f32 CUDA-core FMAs for both
-// x dtypes (a simple first kernel: bf16 x is widened as it is staged): a
-// "k" block owns 64 columns k and walks the row tiles q >= k, recomputing
-// the G and dM tiles, for dx, the dML^T C part of dB and the column sums of
-// P, then adds the dstate terms; a "q" block owns 64 rows q and walks the
-// column tiles k <= q for the dML B part of dC and the row sums of P.  L is
-// evaluated only where q >= k (masked before exp, as in the forward).  The
-// heads' dB and dC and the two halves of dcum go to f32 partials that a
-// second launch sums in a fixed order (no atomics: two calls give the same
-// bits).  dstate may be absent (a sequence of one chunk): its terms are
-// skipped.  N <= 128 (a thread's row of dB or dC lives in registers).
+// Bound: operations, as the forward (about twice its products).  The function
+// needs G, S = sum_h dML, dC = S B and dB's S^T C once per chunk, since B and C
+// are shared by the heads; only dM, dx and the chunk-state terms per head.  So
+// two launches.  The main one has a block per (head group, chunk, 64-column
+// tile k), the longest tiles first.  It first adds the chunk-state terms (dx
+// += (w o B) dstate^T; tw = w x.(dstate B); the group's (x o w) dstate for
+// dB), then walks the row tiles q >= k: each G tile is computed once for the
+// group and kept in shared memory, and per head dM, L (masked before exp, as
+// in the forward), M, dML, P and dx += M^T dy run in registers, in the
+// transposed layout [k][q], where M^T's mma accumulators are the A fragments
+// of M^T dy as they lie.  P's column sums complete in the block; its row
+// sums go out per warp.  The group's dML, summed in head order, goes to an
+// f32 scratch [BNC, groups, Q, Q] (transposed; only the tiles q >= k are
+// written), its (x o w) dstate to a [BNC, groups, Q, N] one.  The second
+// launch has a block per 16 rows of dC or dB, whose two teams of warps take
+// turns at its partner tiles: each copies the groups' tiles of S by cp.async,
+// sums them in group order and multiplies, dC = S B and dB = S^T C plus the
+// groups' chunk-state terms; dcum's parts are summed in a fixed order too (no
+// atomics: two calls give the same bits).  Every product runs on mma.sync
+// m16n8k16, each f32 operand split into bf16 pieces: for bf16 x two, as the
+// forward's y blocks, with x and dy exact in one piece (dy x^T one product,
+// M^T dy two, f32 x f32 three); for f32 x three pieces of every operand,
+// which hold an f32 value exactly, and the six products i + j < 3, so the
+// result keeps f32's precision.  B, C and dstate are staged in 64-wide
+// slices of N, so shared memory does not grow with Q or N, and two main
+// blocks fit an SM.  The big loops stay rolled: fully unrolled, the main
+// kernel ran 6-27% slower at the LM shapes (PERF.md).  dstate may be absent
+// (a sequence of one chunk): its terms are skipped.  N <= 128 (the reduce
+// stages a partner tile's rows of B or C whole).
 //
 // f32 x: CUDA-core FMAs throughout (namespace cc, 256 threads), so every
 // product stays f32.  y blocks keep up to 4 heads' accumulators in
@@ -658,355 +675,807 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ b, const float
 
 namespace bwd {
 
-constexpr int kThreads = 256;  // 16 x 16: thread (ty, tx) owns rows 4 ty.. and columns 4 tx.. of a tile
-constexpr int kLd = BQ + 4;    // row stride of the [*][64] tiles
-constexpr int kMaxState = 128;
+using tc::cp_async16;
+using tc::cp_async4;
+using tc::cp_async_commit;
+using tc::cp_async_wait_all;
+using tc::Lanes;
+using tc::ldmatrix_x4;
+using tc::ldmatrix_x4_trans;
+using tc::mma_bf16;
 
-// f32 words of shared memory: x^T and dy^T [HD][kLd], B^T and C^T [N][kLd],
-// two [64][kLd] tiles, four [64] vectors
-__host__ __device__ constexpr size_t smem_floats(int HD, int N) {
-  return static_cast<size_t>(kLd) * (2 * HD + 2 * N + 2 * BQ) + 4 * BQ;
+constexpr int kThreads = 128;      // main blocks: warp w owns rows 16w.. of the k tile
+constexpr int kRedThreads = 256;   // reduce blocks: two teams of 4 warps, each its own partners
+constexpr int kTeam = 128;         // a team's warp w owns the 16-column groups w, w + 4 of N
+constexpr int kMaxState = 128;
+constexpr int BN = 64;             // slice of N per staging step
+constexpr int RB = 16;             // output rows of a reduce block
+constexpr int kS = BN + 8;         // row stride (bf16) of the 64-wide tiles: 16 bytes of pad
+constexpr int kO = kMaxState + 8;  // row stride (bf16) of the reduce's B or C rows
+constexpr int kTile = BQ * kS;     // bf16 elements of one piece of a [64][kS] tile
+
+// The bf16 pieces an f32 operand is split into (P; of the products of pieces i and j those with
+// i + j < P are kept), those of x and dy (PX), and the heads a main block takes at most.  bf16 x:
+// P = 2 as the forward's tensor-core route, x and dy exact in one piece.  f32 x: three pieces hold
+// an f32 value exactly, and the six products kept leave ~2^-24 relative error, as f32 FMAs do.
+template <typename T> struct Route;
+template <> struct Route<bf16> { static constexpr int P = 2, PX = 1, kMaxHeads = 2; };
+template <> struct Route<float> { static constexpr int P = 3, PX = 3, kMaxHeads = 1; };
+
+// main: B and C slices [P][64][kS]; the group's x and dy tiles [kMaxHeads][PX][64][HD + 8];
+// cum [kMaxHeads][64]
+template <typename T, int HD>
+__host__ __device__ constexpr size_t main_smem_bytes() {
+  return 2 * (2 * Route<T>::P * kTile + 2 * Route<T>::kMaxHeads * Route<T>::PX * BQ * (HD + 8)) +
+         4 * Route<T>::kMaxHeads * BQ;
+}
+// reduce, for each of its two teams: S rows [P][16][kS], the partner tile's B or C rows
+// [P][64][kO], and a batch of the head groups' f32 tiles
+constexpr int kStage = 13 * RB * BQ;  // floats: 13 groups' [16][64] tiles of S (hymba's 25 in two)
+template <int P>
+__host__ __device__ constexpr size_t reduce_team_bytes() {
+  return 2 * P * (RB * kS + BQ * kO) + 4 * kStage;
+}
+template <int P>
+__host__ __device__ constexpr size_t reduce_smem_bytes() {
+  return 2 * reduce_team_bytes<P>();
 }
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16(v); }
+// (v0, v1) as P bf16 pieces each: piece p = bf16(what pieces 0..p-1 left)
+template <int P>
+__device__ __forceinline__ void split(float v0, float v1, uint32_t (&out)[P]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+    out[p] = *reinterpret_cast<const uint32_t*>(&h);
+    const float2 f = __bfloat1622float2(h);
+    v0 -= f.x;
+    v1 -= f.y;
+  }
+}
+__device__ __forceinline__ float2 to_f2(uint32_t r) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
+}
+// d += a b over the pieces (the n8 half of b's x4 registers), the larger products first
+template <int P, int PA, int PB>
+__device__ __forceinline__ void mma_pieces(float (&d)[4], const uint32_t (&a)[PA][4],
+                                           const uint32_t (&b)[PB][4], int half) {
+#pragma unroll
+  for (int i = 0; i < PA; ++i)
+#pragma unroll
+    for (int j = 0; j < PB; ++j)
+      if (i + j < P) mma_bf16(d, a[i], b[j][2 * half], b[j][2 * half + 1]);
+}
 
-// rows [r0, r0 + 64) x columns [0, ncols) of a row-major matrix (ld
-// elements) into dst[col][row] as f32; rows at or past R are zero.
-template <typename T>
-__device__ __forceinline__ void stage_t(const T* __restrict__ src, int64_t ld, int r0, int R,
-                                        int ncols, float* dst) {
-  for (int i = threadIdx.x; i < BQ * ncols; i += kThreads) {
-    const int r = i / ncols, col = i - r * ncols;  // neighbouring threads, neighbouring columns
-    dst[col * kLd + r] = r0 + r < R ? to_f(src[static_cast<int64_t>(r0 + r) * ld + col]) : 0.f;
+// An A fragment (its PA pieces add up to the f32 values) with rows g and g + 8 scaled by w[0]
+// and w[1], in P pieces.
+template <int PA, int P>
+__device__ __forceinline__ void scale_rows(const uint32_t (&a)[PA][4], const float (&w)[2],
+                                           uint32_t (&out)[P][4]) {
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {  // register f: row g + 8 (f % 2)
+    float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int p = 0; p < PA; ++p) {
+      const float2 u = to_f2(a[p][f]);
+      v.x += u.x;
+      v.y += u.y;
+    }
+    uint32_t s[P];
+    split<P>(v.x * w[f & 1], v.y * w[f & 1], s);
+#pragma unroll
+    for (int p = 0; p < P; ++p) out[p][f] = s[p];
   }
 }
 
-// Sum over the 16 threads of a half-warp (the tx of one ty).
-__device__ __forceinline__ float sum16(float v) {
+// Rows [r0, r0 + rows) x columns [c0, c0 + 4 cols4) of a row-major f32 matrix (ld elements; rows
+// < R and columns < Cn valid, zero outside).  vec: 16-byte loads (Cn % 4 == 0, an aligned base).
+struct Tile {
+  const float* src;
+  int64_t ld;
+  int r0, R, c0, Cn, rows, cols4;
+  bool vec;
+};
+
+// The share of a tile of thread `tid` of a team of NT, float4 it of it being number tid + it NT
+// (rows x cols4 <= kItems NT): every load is issued before any is used, so a tile costs one trip
+// to memory.
+template <int NT, int kItems>
+__device__ __forceinline__ void load_f32(const Tile& s, float4 (&v)[kItems], int tid) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+  for (int it = 0; it < kItems; ++it) {
+    const int idx = tid + it * NT, r = idx / s.cols4, c = (idx - r * s.cols4) * 4;
+    v[it] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (idx >= s.rows * s.cols4 || s.r0 + r >= s.R) continue;
+    const float* p = s.src + static_cast<int64_t>(s.r0 + r) * s.ld + s.c0 + c;
+    if (s.vec) {
+      if (s.c0 + c < s.Cn) v[it] = *reinterpret_cast<const float4*>(p);
+    } else {
+      const int n = s.Cn - s.c0 - c;
+      v[it] = make_float4(n > 0 ? p[0] : 0.f, n > 1 ? p[1] : 0.f, n > 2 ? p[2] : 0.f,
+                          n > 3 ? p[3] : 0.f);
+    }
+  }
+}
+// ... then split into P bf16 pieces of row stride ldt, piece p at dst + p * piece
+template <int P, int NT, int kItems>
+__device__ __forceinline__ void store_split(const Tile& s, const float4 (&v)[kItems], bf16* dst,
+                                            int ldt, int piece, int tid) {
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int idx = tid + it * NT, r = idx / s.cols4, c = (idx - r * s.cols4) * 4;
+    if (idx >= s.rows * s.cols4) break;
+    uint32_t lo[P], hi[P];
+    split<P>(v[it].x, v[it].y, lo);
+    split<P>(v[it].z, v[it].w, hi);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      *reinterpret_cast<uint2*>(dst + p * piece + r * ldt + c) = make_uint2(lo[p], hi[p]);
+  }
+}
+template <int P, int NT, int kItems>
+__device__ __forceinline__ void stage_f32(const Tile& s, bf16* dst, int ldt, int piece) {
+  float4 v[kItems];
+  load_f32<NT>(s, v, threadIdx.x);
+  store_split<P, NT>(s, v, dst, ldt, piece, threadIdx.x);
 }
 
-// grid (2 row tiles, H, BNC): x < row tiles are "k" blocks (column tile x),
-// the rest "q" blocks, the longest row tile first.  Partials: db_part,
-// dc_part [BNC, H, Q, N]; dcum_row (q blocks), dcum_col (k blocks) [BNC, H,
-// Q]; last_part [BNC, H, row tiles] (each k block's sum of w x.(dstate B)).
-template <typename T, int HD, int NB>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ b, const float* __restrict__ c,
-               const float* __restrict__ cum, const T* __restrict__ dy,
-               const float* __restrict__ dstate, T* __restrict__ dx, float* __restrict__ db_part,
-               float* __restrict__ dc_part, float* __restrict__ dcum_row,
-               float* __restrict__ dcum_col, float* __restrict__ last_part, int H, int Q, int N) {
-  extern __shared__ __align__(16) float sm[];
-  float* XkT = sm;              // [HD][kLd]  x of the k tile, transposed
-  float* dyT = XkT + HD * kLd;  // [HD][kLd]  dy of the q tile, transposed
-  float* BkT = dyT + HD * kLd;  // [N][kLd]   B of the k tile, transposed
-  float* CqT = BkT + N * kLd;   // [N][kLd]   C of the q tile, transposed
-  float* Ms = CqT + N * kLd;    // [BQ][kLd]  k blocks: M [q][k]; q blocks: dML^T [k][q]
-  float* dMs = Ms + BQ * kLd;   // [BQ][kLd]  k blocks: dML [q][k]
-  float* cq = dMs + BQ * kLd;   // [BQ] cum of the q tile's rows
-  float* ck = cq + BQ;          // [BQ] cum of the k tile's columns
-  float* wk = ck + BQ;          // [BQ] exp(cum_last - cum) of the k tile's columns
-  float* tws = wk + BQ;         // [BQ] w_k x_k.(dstate B_k)
-  constexpr int KD = HD / 16;
-  const int RT = (Q + BQ - 1) / BQ;
-  const int h = blockIdx.y, i = blockIdx.z;
-  const int64_t ih = static_cast<int64_t>(i) * H + h;
-  const T* xh = x + ih * Q * HD;
-  const T* dyh = dy + ih * Q * HD;
+// rows [r0, r0 + 64) of one head's x or dy [Q][HD] into its pieces [64][HD + 8], zero past Q:
+// bf16 by cp.async (the caller commits and waits), f32 split into three pieces.
+template <int HD>
+__device__ __forceinline__ void stage_x(const bf16* __restrict__ src, int r0, int Q, bool vec,
+                                        bf16* dst) {
+  constexpr int kX = HD + 8;
+  for (int idx = threadIdx.x; idx < BQ * HD / 8; idx += kThreads) {
+    const int r = idx / (HD / 8), c = (idx % (HD / 8)) * 8;
+    const bool ok = r0 + r < Q;
+    const bf16* s = src + static_cast<int64_t>(ok ? r0 + r : 0) * HD + c;
+    if (vec) {
+      cp_async16(dst + r * kX + c, s, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[r * kX + c + e] = ok ? s[e] : __float2bfloat16(0.f);
+    }
+  }
+}
+template <int HD>
+__device__ __forceinline__ void stage_x(const float* __restrict__ src, int r0, int Q, bool vec,
+                                        bf16* dst) {
+  stage_f32<3, kThreads, BQ * HD / 4 / kThreads>(Tile{src, HD, r0, Q, 0, HD, BQ, HD / 4, vec}, dst,
+                                                 HD + 8, BQ * (HD + 8));
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+constexpr int kSum = BQ + 8;  // row stride (f32) of the G tile in shared memory
+
+// mma accumulators v[n][e] (row r0 + 8 (e / 2), column 8 n + 2 t + e % 2 of a [64][64] tile)
+// to the f32 tile at dst (row stride ld), columns < ncols.
+__device__ __forceinline__ void put_tile(const float (&v)[8][4], float* dst, int64_t ld, int r0,
+                                         int t, int ncols) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int col = 8 * n + 2 * t;
+      float* d = dst + (r0 + 8 * hr) * ld + col;
+      if (col + 1 < ncols && (ld & 1) == 0) {
+        *reinterpret_cast<float2*>(d) = make_float2(v[n][2 * hr], v[n][2 * hr + 1]);
+      } else {
+        if (col < ncols) d[0] = v[n][2 * hr];
+        if (col + 1 < ncols) d[1] = v[n][2 * hr + 1];
+      }
+    }
+}
+
+// Main launch, grid (groups, BNC, row tiles): the block of (head group, chunk i, k tile kt)
+// walks the q tiles >= kt.  Per q tile it computes G^T = B_k
+// C_q^T once for the group, then per head dM^T = x_k dy_q^T and, in registers, L^T, M^T = G^T o
+// L^T, dML^T = dM^T o L^T and P^T = dML^T o G^T; dx_k += M^T dy_q (M^T's accumulators are the A
+// fragments as they lie); the column sums of P complete in the block, the row sums go out per
+// warp.  It sums the group's dML^T in head order and stores each tile; the chunk-state terms, w o
+// (B dstate^T) into dx, w x.(dstate B) into dcum and the group's (x o w) dstate for dB, come first.
+// Outputs: dx; st [BNC, groups, RQ, RQ] (S^T [k][q], the tiles q >= k) and dbs [BNC, groups, RQ,
+// N]; rowp [BNC, H, 4 RT, Q];
+// dcol = -colsum P - tw [BNC, H, Q] with tw = w x.(dstate B); twp [BNC, H, 4 RT], each warp's
+// sum of tw.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_bwd_main(const T* __restrict__ x, const float* __restrict__ b, const float* __restrict__ c,
+             const float* __restrict__ cum, const T* __restrict__ dy,
+             const float* __restrict__ dstate, T* __restrict__ dx, float* __restrict__ st,
+             float* __restrict__ dbs, float* __restrict__ rowp, float* __restrict__ dcol,
+             float* __restrict__ twp, int H, int Q, int N, int G) {
+  using R = Route<T>;
+  constexpr int P = R::P, PX = R::PX, MH = R::kMaxHeads, kX = HD + 8, XP = BQ * kX, DT = HD / 8;
+  constexpr int kIt = BQ * BN / 4 / kThreads;  // float4 of one [64][64] slice a thread stages
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Bs = reinterpret_cast<bf16*>(smem);  // [P][64][kS] B rows k0.., one slice of N
+  bf16* Cs = Bs + P * kTile;                 // [P][64][kS] C rows q0.. (later dstate rows d)
+  bf16* Xs = Cs + P * kTile;                 // [MH][PX][64][kX] x rows k0.. of the group's heads
+  bf16* Ys = Xs + MH * PX * XP;              // [MH][PX][64][kX] dy rows q0..
+  float* cqs = reinterpret_cast<float*>(Ys + MH * PX * XP);  // [MH][64] cum of rows q0..
+  // C's tiles, once C is consumed: the f32 tile [64][kSum] of G^T
+  float* tile = reinterpret_cast<float*>(Cs);
+  static_assert(P * kTile * 2 >= BQ * kSum * 4, "an f32 tile fits C's tiles");
+
+  const int grp = blockIdx.x, i = blockIdx.y, kt = blockIdx.z;
+  const int groups = gridDim.x, RT = gridDim.z, RQ = RT * BQ;
+  const int k0 = kt * BQ, h0 = grp * G, nh = min(G, H - h0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const Lanes L(lane);
+  const int r0 = warp * 16 + g;  // this thread's rows r0 and r0 + 8 of the k tile
   const float* bi = b + static_cast<int64_t>(i) * Q * N;
   const float* ci = c + static_cast<int64_t>(i) * Q * N;
-  const float* cumh = cum + ih * Q;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const bool k_role = static_cast<int>(blockIdx.x) < RT;
-  const int tile = k_role ? blockIdx.x : 2 * RT - 1 - blockIdx.x;
-
-  // G and dM of the staged tiles (rows q = 4 ty + a, columns k = 4 tx + b),
-  // then weighed: ml = M (or nothing), dml = dM o L; returns P = dML o G.
-  auto tiles = [&](int q0, int k0, float (&ml)[4][4], float (&dml)[4][4], float (&p)[4][4]) {
-    float g[4][4], dm[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) g[a][e] = dm[a][e] = 0.f;
-    for (int n = 0; n < N; ++n) {
-      const float4 cv = *reinterpret_cast<const float4*>(CqT + n * kLd + ty * 4);
-      const float4 bv = *reinterpret_cast<const float4*>(BkT + n * kLd + tx * 4);
-      const float c4[4] = {cv.x, cv.y, cv.z, cv.w}, b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) g[a][e] = fmaf(c4[a], b4[e], g[a][e]);
-    }
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      const float4 yv = *reinterpret_cast<const float4*>(dyT + d * kLd + ty * 4);
-      const float4 xv = *reinterpret_cast<const float4*>(XkT + d * kLd + tx * 4);
-      const float y4[4] = {yv.x, yv.y, yv.z, yv.w}, x4[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dm[a][e] = fmaf(y4[a], x4[e], dm[a][e]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = q0 + ty * 4 + a, k = k0 + tx * 4 + e;
-        // exp only where q >= k (both inside the chunk)
-        const float L = (q >= k && q < Q) ? expf(cq[ty * 4 + a] - ck[tx * 4 + e]) : 0.f;
-        ml[a][e] = g[a][e] * L;
-        dml[a][e] = dm[a][e] * L;
-        p[a][e] = dml[a][e] * g[a][e];
-      }
-  };
-  auto stage_cum = [&](float* dst, int r0) {
-    if (tid < BQ) dst[tid] = r0 + tid < Q ? cumh[r0 + tid] : 0.f;
+  const bool vec_bc = N % 4 == 0 && ((reinterpret_cast<uintptr_t>(b) |
+                                       reinterpret_cast<uintptr_t>(c)) & 15) == 0;
+  const bool vec_x = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) & 15) == 0;
+  const int64_t ih0 = static_cast<int64_t>(i) * H + h0;
+  // the group's sums of dM^T o L^T and of (x o w) dstate, in the scratch
+  float* s_out = st + (static_cast<int64_t>(i) * groups + grp) * RQ * RQ;
+  float* d_out = dbs + (static_cast<int64_t>(i) * groups + grp) * RQ * N;
+  // rows r of b or c, columns [n0, n0 + 64) of N in 16-column steps
+  auto slice = [&](const float* m, int r, int n0) {
+    return Tile{m, N, r, Q, n0, N, BQ, 4 * ((min(BN, N - n0) + 15) / 16), vec_bc};
   };
 
-  if (k_role) {
-    const int k0 = tile * BQ;
-    stage_t(xh, HD, k0, Q, HD, XkT);
-    stage_t(bi, N, k0, Q, N, BkT);
-    stage_cum(ck, k0);
-    if (tid < BQ) wk[tid] = k0 + tid < Q ? expf(cumh[Q - 1] - cumh[k0 + tid]) : 0.f;
-    float dxa[4][KD], dba[4][NB], colp[4] = {0.f, 0.f, 0.f, 0.f};
+  float ck[MH][2], wk[MH][2];  // cum and w = exp(cum_last - cum) of the thread's rows
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+  for (int hh = 0; hh < MH; ++hh) {
+    const float* cumh = cum + (ih0 + min(hh, nh - 1)) * Q;
 #pragma unroll
-      for (int j = 0; j < KD; ++j) dxa[a][j] = 0.f;
-#pragma unroll
-      for (int j = 0; j < NB; ++j) dba[a][j] = 0.f;
+    for (int e = 0; e < 2; ++e) {
+      const int k = k0 + r0 + 8 * e;
+      ck[hh][e] = k < Q ? cumh[k] : 0.f;
+      wk[hh][e] = k < Q ? expf(cumh[Q - 1] - cumh[k]) : 0.f;
     }
-    for (int q0 = k0; q0 < Q; q0 += BQ) {
-      __syncthreads();  // the previous row tile's products are consumed
-      stage_t(ci, N, q0, Q, N, CqT);
-      stage_t(dyh, HD, q0, Q, HD, dyT);
-      stage_cum(cq, q0);
+  }
+  for (int hh = 0; hh < nh; ++hh)
+    stage_x<HD>(x + (ih0 + hh) * Q * HD, k0, Q, vec_x, Xs + hh * PX * XP);
+  cp_async_commit();
+
+  float dxa[MH][DT][4], colp[MH][2], twv[MH][2];  // twv: w x.(dstate B) of the thread's rows
+#pragma unroll
+  for (int hh = 0; hh < MH; ++hh) {
+    colp[hh][0] = colp[hh][1] = twv[hh][0] = twv[hh][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dxa[hh][n][e] = 0.f;
+  }
+
+  // The chunk-state terms first, while x flies: per slice of N, dx += (w o B) dstate^T and the
+  // group's (x o w) dstate, dh per head, whose row dot with B is tw = w x.(dstate B).  Head 0's
+  // dstate slice goes to C's tiles, head 1's to dy's, each [P][HD][kS].
+  if (dstate != nullptr) {
+    static_assert(MH == 1 || MH * PX * XP >= P * HD * kS, "head 1's dstate fits dy's tiles");
+    const bool vec_ds = N % 4 == 0 && (reinterpret_cast<uintptr_t>(dstate) & 15) == 0;
+    for (int n0 = 0; n0 < N; n0 += BN) {
+      const int ncols = min(BN, N - n0), ksteps = (ncols + 15) / 16;
+      float4 vb[kIt], vd[MH][kIt];
+      load_f32<kThreads>(slice(bi, k0, n0), vb, threadIdx.x);
+#pragma unroll
+      for (int hh = 0; hh < MH; ++hh)
+        if (hh < nh)
+          load_f32<kThreads>(Tile{dstate + (ih0 + hh) * HD * N, N, 0, HD, n0, N, HD, 4 * ksteps,
+                                  vec_ds}, vd[hh], threadIdx.x);
+      if (n0 > 0) __syncthreads();  // the previous slice is consumed
+      store_split<P, kThreads>(slice(bi, k0, n0), vb, Bs, kS, kTile, threadIdx.x);
+#pragma unroll
+      for (int hh = 0; hh < MH; ++hh)
+        if (hh < nh)
+          store_split<P, kThreads>(Tile{nullptr, N, 0, HD, n0, N, HD, 4 * ksteps, vec_ds}, vd[hh],
+                                   hh == 0 ? Cs : Ys, kS, HD * kS, threadIdx.x);
+      cp_async_wait_all();
+      __syncthreads();  // B, dstate and x are visible to every warp
+      float da[8][4];   // the group's (x o w) dstate: rows r0 (+ 8), columns n0 + 8 n + 2 t (+ 1)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) da[n][e] = 0.f;
+#pragma unroll
+      for (int hh = 0; hh < MH; ++hh) {
+        if (hh >= nh) break;
+        const bf16* D = hh == 0 ? Cs : Ys;  // dstate [d][n]
+        const bf16* X = Xs + hh * PX * XP;
+#pragma unroll 1
+        for (int kk = 0; kk < ksteps; ++kk) {  // dx += (w o B) dstate^T, over this slice's n
+          uint32_t a[P][4], aw[P][4];
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+            ldmatrix_x4(a[p], Bs + p * kTile + (warp * 16 + L.ar) * kS + kk * 16 + L.ac);
+          scale_rows<P, P>(a, wk[hh], aw);
+#pragma unroll
+          for (int dn = 0; dn < HD / 16; ++dn) {
+            uint32_t sb[P][4];
+#pragma unroll
+            for (int p = 0; p < P; ++p)
+              ldmatrix_x4(sb[p], D + p * HD * kS + (dn * 16 + L.kr) * kS + kk * 16 + L.kc);
+            mma_pieces<P>(dxa[hh][2 * dn], aw, sb, 0);
+            mma_pieces<P>(dxa[hh][2 * dn + 1], aw, sb, 1);
+          }
+        }
+        float dh[8][4];  // this head's (x o w) dstate
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dh[n][e] = 0.f;
+#pragma unroll 1
+        for (int ks = 0; ks < HD / 16; ++ks) {
+          uint32_t xa[PX][4], aw[P][4];
+#pragma unroll
+          for (int p = 0; p < PX; ++p)
+            ldmatrix_x4(xa[p], X + p * XP + (warp * 16 + L.ar) * kX + ks * 16 + L.ac);
+          scale_rows<PX, P>(xa, wk[hh], aw);
+#pragma unroll
+          for (int nj = 0; nj < BN / 16; ++nj) {
+            if (nj >= ksteps) break;
+            uint32_t sb[P][4];
+#pragma unroll
+            for (int p = 0; p < P; ++p)
+              ldmatrix_x4_trans(sb[p], D + p * HD * kS + (ks * 16 + L.ar) * kS + nj * 16 + L.ac);
+            mma_pieces<P>(dh[2 * nj], aw, sb, 0);
+            mma_pieces<P>(dh[2 * nj + 1], aw, sb, 1);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          if (n >= 2 * ksteps) break;  // columns this slice did not stage
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {  // B from its pieces at the thread's two columns
+            float2 bv = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              const float2 u = to_f2(*reinterpret_cast<const uint32_t*>(
+                  Bs + p * kTile + (r0 + 8 * hr) * kS + 8 * n + 2 * t));
+              bv.x += u.x;
+              bv.y += u.y;
+            }
+            twv[hh][hr] = fmaf(bv.y, dh[n][2 * hr + 1], fmaf(bv.x, dh[n][2 * hr], twv[hh][hr]));
+            da[n][2 * hr] += dh[n][2 * hr];
+            da[n][2 * hr + 1] += dh[n][2 * hr + 1];
+          }
+        }
+      }
+      put_tile(da, d_out + static_cast<int64_t>(k0) * N + n0, N, r0, t, ncols);
+    }
+#pragma unroll
+    for (int hh = 0; hh < MH; ++hh)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {  // over the row's columns: the 4 lanes of one g
+        twv[hh][hr] += __shfl_xor_sync(0xffffffffu, twv[hh][hr], 1);
+        twv[hh][hr] += __shfl_xor_sync(0xffffffffu, twv[hh][hr], 2);
+      }
+  }
+
+  for (int q0 = k0; q0 < Q; q0 += BQ) {
+    __syncthreads();  // every warp is done with the previous tile's C, dy and cum
+    for (int hh = 0; hh < nh; ++hh) {
+      stage_x<HD>(dy + (ih0 + hh) * Q * HD, q0, Q, vec_x, Ys + hh * PX * XP);
+      if (threadIdx.x < BQ) {
+        const bool ok = q0 + threadIdx.x < Q;
+        cp_async4(cqs + hh * BQ + threadIdx.x, cum + (ih0 + hh) * Q + (ok ? q0 + threadIdx.x : 0),
+                  ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+
+    // G^T = B_k C_q^T: gt[n][e] is row r0 + 8 (e / 2), column q0 + 8 n + 2 t + e % 2
+    float gt[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gt[n][e] = 0.f;
+    const int slices = (N + BN - 1) / BN;
+    const bool stage_b = N > BN || q0 == k0;  // one slice of B serves every q tile
+    float4 vb[kIt], vc[kIt];
+    if (stage_b) load_f32<kThreads>(slice(bi, k0, 0), vb, threadIdx.x);
+    load_f32<kThreads>(slice(ci, q0, 0), vc, threadIdx.x);
+    for (int sl = 0; sl < slices; ++sl) {
+      const int n0 = sl * BN, ksteps = (min(BN, N - n0) + 15) / 16;
+      if (sl > 0) __syncthreads();  // the previous slice is consumed
+      if (stage_b) store_split<P, kThreads>(slice(bi, k0, n0), vb, Bs, kS, kTile, threadIdx.x);
+      store_split<P, kThreads>(slice(ci, q0, n0), vc, Cs, kS, kTile, threadIdx.x);
       __syncthreads();
-      float m[4][4], dml[4][4], p[4][4];
-      tiles(q0, k0, m, dml, p);
+      if (sl + 1 < slices) {  // the next slice flies while this one is multiplied
+        load_f32<kThreads>(slice(bi, k0, n0 + BN), vb, threadIdx.x);
+        load_f32<kThreads>(slice(ci, q0, n0 + BN), vc, threadIdx.x);
+      }
+#pragma unroll 1
+      for (int kk = 0; kk < ksteps; ++kk) {
+        uint32_t a[P][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int p = 0; p < P; ++p)
+          ldmatrix_x4(a[p], Bs + p * kTile + (warp * 16 + L.ar) * kS + kk * 16 + L.ac);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          colp[e] += p[a][e];
-          Ms[(ty * 4 + a) * kLd + tx * 4 + e] = m[a][e];
-          dMs[(ty * 4 + a) * kLd + tx * 4 + e] = dml[a][e];
-        }
-      __syncthreads();
-      // rows k = 4 ty + a: dx[k][d] += M[q][k] dy[q][d], dB[k][n] += dML[q][k] C[q][n]
-      for (int q = 0; q < BQ; ++q) {
-        const float4 mv = *reinterpret_cast<const float4*>(Ms + q * kLd + ty * 4);
-        const float4 lv = *reinterpret_cast<const float4*>(dMs + q * kLd + ty * 4);
-        const float m4[4] = {mv.x, mv.y, mv.z, mv.w}, l4[4] = {lv.x, lv.y, lv.z, lv.w};
+        for (int nj = 0; nj < 4; ++nj) {
+          uint32_t bq[P][4];
 #pragma unroll
-        for (int j = 0; j < KD; ++j) {
-          const float yv = dyT[(tx + 16 * j) * kLd + q];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dxa[a][j] = fmaf(m4[a], yv, dxa[a][j]);
-        }
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          const int n = tx + 16 * j;
-          const float cv = n < N ? CqT[n * kLd + q] : 0.f;
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dba[a][j] = fmaf(l4[a], cv, dba[a][j]);
+          for (int p = 0; p < P; ++p)
+            ldmatrix_x4(bq[p], Cs + p * kTile + (nj * 16 + L.kr) * kS + kk * 16 + L.kc);
+          mma_pieces<P>(gt[2 * nj], a, bq, 0);
+          mma_pieces<P>(gt[2 * nj + 1], a, bq, 1);
         }
       }
     }
-    __syncthreads();  // the last row tile's products are consumed
-    float* red = dyT;  // [16][BQ]: each ty's column sums of P
+    cp_async_wait_all();
+    __syncthreads();  // dy and cum are visible to every warp; every warp is done with C
+    put_tile(gt, tile, kSum, r0, t, BQ);  // each thread reads back only its own elements
+
+#pragma unroll 1  // rolled, as the other big loops: unrolled, the kernel ran slower
+    for (int kk = 0; kk < BQ / 16; ++kk) {  // columns q0 + 16 kk .. + 15
+      float gc[2][4], sc[2][4];  // G^T and the group's dM^T o L^T there, as accumulators
 #pragma unroll
-    for (int e = 0; e < 4; ++e) red[ty * BQ + tx * 4 + e] = colp[e];
-    float tw[4] = {0.f, 0.f, 0.f, 0.f};
-    if (dstate != nullptr) {
-      const float* ds = dstate + ih * HD * N;
-      float* dS = Ms;    // [HD][N]
-      float* dST = CqT;  // [N][HD]
-      for (int e = tid; e < HD * N; e += kThreads) {
-        const float v = ds[e];
-        const int d = e / N, n = e - d * N;
-        dS[e] = v;
-        dST[n * HD + d] = v;
-      }
-      __syncthreads();
-      // (B dstate^T)[k][d] for k = 4 ty + a, d = tx + 16 j
-      float bds[4][KD];
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int hr = 0; hr < 2; ++hr) {
+          const float2 v = *reinterpret_cast<const float2*>(tile + (r0 + 8 * hr) * kSum +
+                                                            kk * 16 + 8 * j + 2 * t);
+          gc[j][2 * hr] = v.x;
+          gc[j][2 * hr + 1] = v.y;
+          sc[j][2 * hr] = sc[j][2 * hr + 1] = 0.f;
+        }
 #pragma unroll
-        for (int j = 0; j < KD; ++j) bds[a][j] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        const float4 bv = *reinterpret_cast<const float4*>(BkT + n * kLd + ty * 4);
-        const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+      for (int hh = 0; hh < MH; ++hh) {
+        if (hh >= nh) break;
+        const bf16* X = Xs + hh * PX * XP;
+        const bf16* Y = Ys + hh * PX * XP;
+        const float* cq = cqs + hh * BQ;
+        float dm[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-        for (int j = 0; j < KD; ++j) {
-          const float sv = dST[n * HD + tx + 16 * j];
+        for (int ks = 0; ks < HD / 16; ++ks) {
+          uint32_t a[PX][4], yb[PX][4];
 #pragma unroll
-          for (int a = 0; a < 4; ++a) bds[a][j] = fmaf(b4[a], sv, bds[a][j]);
+          for (int p = 0; p < PX; ++p) {
+            ldmatrix_x4(a[p], X + p * XP + (warp * 16 + L.ar) * kX + ks * 16 + L.ac);
+            ldmatrix_x4(yb[p], Y + p * XP + (kk * 16 + L.kr) * kX + ks * 16 + L.kc);
+          }
+          mma_pieces<P>(dm[0], a, yb, 0);
+          mma_pieces<P>(dm[1], a, yb, 1);
+        }
+        uint32_t am[P][4];  // M^T in pieces, as A fragments
+        float cs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // P's column sums over the thread's two rows
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {  // A register f: row r0 + 8 (f % 2), columns + 8 (f / 2)
+          const int j = f >> 1, hr = f & 1, e = 2 * hr;
+          const int col = kk * 16 + 8 * j + 2 * t, q = q0 + col, k = k0 + r0 + 8 * hr;
+          const float2 cqv = *reinterpret_cast<const float2*>(cq + col);
+          // exp only where q >= k (both inside the chunk)
+          const float l0 = (q >= k && q < Q) ? __expf(cqv.x - ck[hh][hr]) : 0.f;
+          const float l1 = (q + 1 >= k && q + 1 < Q) ? __expf(cqv.y - ck[hh][hr]) : 0.f;
+          const float d0 = dm[j][e] * l0, d1 = dm[j][e + 1] * l1;
+          const float p0 = d0 * gc[j][e], p1 = d1 * gc[j][e + 1];
+          sc[j][e] += d0;
+          sc[j][e + 1] += d1;
+          colp[hh][hr] += p0 + p1;
+          cs[j][0] += p0;
+          cs[j][1] += p1;
+          uint32_t sp[P];
+          split<P>(gc[j][e] * l0, gc[j][e + 1] * l1, sp);
+#pragma unroll
+          for (int p = 0; p < P; ++p) am[p][f] = sp[p];
+        }
+        {  // over the warp's 16 rows (the 8 lanes of one t), scattered: lanes g, g ^ 1 end
+           // with column 8 (g / 4) + 2 t + (g / 2) % 2 of the chunk
+          const bool hi = g & 4, mid = g & 2;
+          const float s0 = __shfl_xor_sync(0xffffffffu, hi ? cs[0][0] : cs[1][0], 16);
+          const float s1 = __shfl_xor_sync(0xffffffffu, hi ? cs[0][1] : cs[1][1], 16);
+          const float a0 = (hi ? cs[1][0] : cs[0][0]) + s0, a1 = (hi ? cs[1][1] : cs[0][1]) + s1;
+          float v = (mid ? a1 : a0) + __shfl_xor_sync(0xffffffffu, mid ? a0 : a1, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          const int q = q0 + kk * 16 + (hi ? 8 : 0) + 2 * t + (mid ? 1 : 0);
+          if (!(g & 1) && q < Q) rowp[((ih0 + hh) * 4 * RT + kt * 4 + warp) * Q + q] = v;
+        }
+#pragma unroll
+        for (int dn = 0; dn < HD / 16; ++dn) {
+          uint32_t yb[PX][4];
+#pragma unroll
+          for (int p = 0; p < PX; ++p)
+            ldmatrix_x4_trans(yb[p], Y + p * XP + (kk * 16 + L.ar) * kX + dn * 16 + L.ac);
+          mma_pieces<P>(dxa[hh][2 * dn], am, yb, 0);
+          mma_pieces<P>(dxa[hh][2 * dn + 1], am, yb, 1);
         }
       }
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float w = wk[ty * 4 + a];
-        float xd = 0.f;
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int j = 0; j < KD; ++j) {
-          xd = fmaf(XkT[(tx + 16 * j) * kLd + ty * 4 + a], bds[a][j], xd);
-          dxa[a][j] = fmaf(w, bds[a][j], dxa[a][j]);
-        }
-        tw[a] = w * sum16(xd);
-      }
-      // dB[k][n] += w_k sum_d x[k][d] dstate[d][n]
-      for (int d = 0; d < HD; ++d) {
-        const float4 xv = *reinterpret_cast<const float4*>(XkT + d * kLd + ty * 4);
-        const float xw[4] = {xv.x * wk[ty * 4], xv.y * wk[ty * 4 + 1], xv.z * wk[ty * 4 + 2],
-                             xv.w * wk[ty * 4 + 3]};
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          const int n = tx + 16 * j;
-          const float sv = n < N ? dS[d * N + n] : 0.f;
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dba[a][j] = fmaf(xw[a], sv, dba[a][j]);
-        }
-      }
+        for (int hr = 0; hr < 2; ++hr)
+          *reinterpret_cast<float2*>(s_out + static_cast<int64_t>(k0 + r0 + 8 * hr) * RQ + q0 +
+                                     kk * 16 + 8 * j + 2 * t) =
+              make_float2(sc[j][2 * hr], sc[j][2 * hr + 1]);
     }
-    if (tx == 0)
+  }
 #pragma unroll
-      for (int a = 0; a < 4; ++a) tws[ty * 4 + a] = tw[a];
-    __syncthreads();
-    if (tid < BQ && k0 + tid < Q) {
-      float s = 0.f;
-      for (int r = 0; r < 16; ++r) s += red[r * BQ + tid];
-      dcum_col[ih * Q + k0 + tid] = -s - tws[tid];
+  for (int hh = 0; hh < MH; ++hh)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {  // over the row's columns of every q tile: the 4 lanes of one g
+      colp[hh][e] += __shfl_xor_sync(0xffffffffu, colp[hh][e], 1);
+      colp[hh][e] += __shfl_xor_sync(0xffffffffu, colp[hh][e], 2);
     }
-    if (tid == 0) {
-      float s = 0.f;
-      for (int t = 0; t < BQ; ++t) s += tws[t];  // zero past Q (w is zero there)
-      last_part[ih * RT + tile] = s;
+
+#pragma unroll
+  for (int hh = 0; hh < MH; ++hh) {
+    if (hh >= nh) break;
+    const int64_t ih = ih0 + hh;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int k = k0 + r0 + 8 * hr;
+      if (k >= Q) continue;
+      T* dxr = dx + (ih * Q + k) * HD + 2 * t;
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        store2(dxr + 8 * n, dxa[hh][n][2 * hr], dxa[hh][n][2 * hr + 1]);
+      if (t == 0) dcol[ih * Q + k] = -colp[hh][hr] - twv[hh][hr];
     }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int k = k0 + ty * 4 + a;
-      if (k >= Q) break;
-#pragma unroll
-      for (int j = 0; j < KD; ++j) store(dx + (ih * Q + k) * HD + tx + 16 * j, dxa[a][j]);
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        if (tx + 16 * j < N) db_part[(ih * Q + k) * N + tx + 16 * j] = dba[a][j];
-    }
-  } else {
-    const int q0 = tile * BQ;
-    stage_t(ci, N, q0, Q, N, CqT);
-    stage_t(dyh, HD, q0, Q, HD, dyT);
-    stage_cum(cq, q0);
-    float dca[4][NB], rowp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < NB; ++j) dca[a][j] = 0.f;
-    for (int k0 = 0; k0 <= q0; k0 += BQ) {
-      __syncthreads();  // the previous column tile's products are consumed
-      stage_t(xh, HD, k0, Q, HD, XkT);
-      stage_t(bi, N, k0, Q, N, BkT);
-      stage_cum(ck, k0);
-      __syncthreads();
-      float m[4][4], dml[4][4], p[4][4];
-      tiles(q0, k0, m, dml, p);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          rowp[a] += p[a][e];
-          Ms[(tx * 4 + e) * kLd + ty * 4 + a] = dml[a][e];  // dML^T [k][q]
-        }
-      __syncthreads();
-      // rows q = 4 ty + a: dC[q][n] += dML[q][k] B[k][n]
-      for (int k = 0; k < BQ; ++k) {
-        const float4 lv = *reinterpret_cast<const float4*>(Ms + k * kLd + ty * 4);
-        const float l4[4] = {lv.x, lv.y, lv.z, lv.w};
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          const int n = tx + 16 * j;
-          const float bv = n < N ? BkT[n * kLd + k] : 0.f;
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dca[a][j] = fmaf(l4[a], bv, dca[a][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const float rs = sum16(rowp[a]);
-      const int q = q0 + ty * 4 + a;
-      if (q >= Q) continue;
-      if (tx == 0) dcum_row[ih * Q + q] = rs;
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        if (tx + 16 * j < N) dc_part[(ih * Q + q) * N + tx + 16 * j] = dca[a][j];
-    }
+    float tws = twv[hh][0] + twv[hh][1];  // over the warp's 16 rows (zero past Q)
+    tws += __shfl_xor_sync(0xffffffffu, tws, 4);
+    tws += __shfl_xor_sync(0xffffffffu, tws, 8);
+    tws += __shfl_xor_sync(0xffffffffu, tws, 16);
+    if (lane == 0) twp[ih * 4 * RT + kt * 4 + warp] = tws;
   }
 }
 
-// db, dc [BNC, Q, N] = the heads' partials summed in head order; dcum [BNC,
-// H, Q] = dcum_row + dcum_col, and at q = Q - 1 the k blocks' last_part in
-// tile order.  One thread per output element, the b and c elements first.
-__global__ void __launch_bounds__(256)
-ssd_bwd_reduce(const float* __restrict__ db_part, const float* __restrict__ dc_part,
-               const float* __restrict__ dcum_row, const float* __restrict__ dcum_col,
-               const float* __restrict__ last_part, float* __restrict__ db, float* __restrict__ dc,
-               float* __restrict__ dcum, int BNC, int H, int Q, int N) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
-  const int64_t qn = static_cast<int64_t>(Q) * N, nbc = BNC * qn;
-  if (idx < nbc) {
-    const int64_t i = idx / qn, r = idx - i * qn;
-    float sb = 0.f, sc = 0.f;
-    for (int h = 0; h < H; ++h) {
-      sb += db_part[(i * H + h) * qn + r];
-      sc += dc_part[(i * H + h) * qn + r];
+// Reduce launch, grid (RQ / 16, 2, BNC): a role-0 block owns 16 rows q of dc, a role-1 block 16
+// rows k of db and those rows of dcum for every head.  Its partner tiles (k <= q for dc, q >= k
+// for db) are shared out between two teams of 4 warps, each with its own shared memory and
+// barrier: for each partner a team copies the head groups' tiles of S^T by cp.async, up to 12
+// groups a batch (the partner's rows of B or C fly beside the first batch), sums them in group
+// order, splits S into pieces and multiplies: dc = S B, db = S^T C.  Team 0 then adds team 1's
+// sums (in that order) and, for db, the groups' (x o w) dstate, staged the same way, while
+// team 1 sums dcum.
+template <int P>
+__global__ void __launch_bounds__(kRedThreads)
+ssd_bwd_reduce(const float* __restrict__ st, const float* __restrict__ dbs,
+               const float* __restrict__ b, const float* __restrict__ c,
+               const float* __restrict__ rowp, const float* __restrict__ dcol,
+               const float* __restrict__ twp, float* __restrict__ db, float* __restrict__ dc,
+               float* __restrict__ dcum, int H, int Q, int N, int groups) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int team = threadIdx.x / kTeam, tid = threadIdx.x % kTeam;
+  bf16* As = reinterpret_cast<bf16*>(smem + team * reduce_team_bytes<P>());  // [P][16][kS]
+  bf16* Os = As + P * RB * kS;                             // [P][64][kO] the partner's B or C rows
+  float* Sg = reinterpret_cast<float*>(Os + P * BQ * kO);  // [kStage] a batch of the groups' tiles
+  const int role = blockIdx.y, i = blockIdx.z;
+  const int RT = (Q + BQ - 1) / BQ, RQ = RT * BQ, m0 = blockIdx.x * RB, tile = m0 / BQ;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const Lanes L(lane);
+  const int nj_end = (N + 15) / 16;
+  const float* opnd = (role == 0 ? b : c) + static_cast<int64_t>(i) * Q * N;
+  const bool vec = N % 4 == 0 && ((reinterpret_cast<uintptr_t>(b) |
+                                    reinterpret_cast<uintptr_t>(c)) & 15) == 0;
+  const int64_t gstride = static_cast<int64_t>(RQ) * RQ;
+  const float* sti = st + static_cast<int64_t>(i) * groups * gstride;
+  constexpr int kOIt = BQ * kMaxState / 4 / kTeam, kSIt = RB * BQ / 4 / kTeam;
+  constexpr int kTileF4 = RB * BQ / 4;  // float4 of one group's [16][64] tile
+  constexpr int kBatch = kStage / (RB * BQ);
+  // the scratch holds S^T [k][q]: role 0 reads rows k of the partner, columns q m0..; role 1 rows
+  // k m0.., columns q of the partner.  float4 f of a group's tile: row, first column.
+  auto s_row = [&](int f) { return role == 0 ? f >> 2 : f >> 4; };
+  auto s_col = [&](int f) { return role == 0 ? (f & 3) * 4 : (f & 15) * 4; };
+  auto team_sync = [&]() {  // barrier 1 + team over the team's threads
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + team), "n"(kTeam) : "memory");
+  };
+
+  float acc[2][2][4];  // 16-column groups warp + 4 jj of N, n8 halves
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jj][h][e] = 0.f;
+  const int p_lo = role == 0 ? 0 : tile, p_hi = role == 0 ? tile : RT - 1;
+  for (int pt = p_lo + team; pt <= p_hi; pt += 2) {
+    const float* base = role == 0 ? sti + static_cast<int64_t>(pt * BQ) * RQ + m0
+                                  : sti + static_cast<int64_t>(m0) * RQ + pt * BQ;
+    const Tile to{opnd, N, pt * BQ, Q, 0, N, BQ, 4 * nj_end, vec};
+    float4 vo[kOIt], sv[kSIt];
+#pragma unroll
+    for (int it = 0; it < kSIt; ++it) sv[it] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g0 = 0; g0 < groups; g0 += kBatch) {
+      const int nb = min(kBatch, groups - g0);
+      team_sync();  // the previous batch (and partner tile) is consumed
+      for (int f = tid; f < nb * kTileF4; f += kTeam) {
+        const int gi = f / kTileF4, e = f - gi * kTileF4;
+        cp_async16(Sg + 4 * f, base + (g0 + gi) * gstride + static_cast<int64_t>(s_row(e)) * RQ +
+                                   s_col(e), 16);
+      }
+      cp_async_commit();
+      if (g0 == 0) load_f32<kTeam>(to, vo, tid);  // flies beside the first batch
+      cp_async_wait_all();
+      team_sync();
+      for (int gi = 0; gi < nb; ++gi)
+#pragma unroll
+        for (int it = 0; it < kSIt; ++it) {
+          const float4 u =
+              *reinterpret_cast<const float4*>(Sg + 4 * (gi * kTileF4 + tid + it * kTeam));
+          sv[it].x += u.x; sv[it].y += u.y; sv[it].z += u.z; sv[it].w += u.w;
+        }
     }
-    db[idx] = sb;
-    dc[idx] = sc;
-  } else if (idx < nbc + static_cast<int64_t>(BNC) * H * Q) {
-    const int64_t j = idx - nbc, ih = j / Q;
-    float v = dcum_row[j] + dcum_col[j];
-    if (j - ih * Q == Q - 1) {
-      const int RT = (Q + BQ - 1) / BQ;
-      for (int t = 0; t < RT; ++t) v += last_part[ih * RT + t];
+#pragma unroll
+    for (int it = 0; it < kSIt; ++it) {
+      const int f = tid + it * kTeam, r = s_row(f), col = s_col(f);
+      uint32_t lo[P], hi[P];
+      split<P>(sv[it].x, sv[it].y, lo);
+      split<P>(sv[it].z, sv[it].w, hi);
+      if (role == 0) {  // As[q][k]: four rows q, one column k
+        unsigned short* a = reinterpret_cast<unsigned short*>(As);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          unsigned short* ap = a + p * RB * kS + col * kS + r;
+          ap[0] = static_cast<unsigned short>(lo[p] & 0xffffu);
+          ap[kS] = static_cast<unsigned short>(lo[p] >> 16);
+          ap[2 * kS] = static_cast<unsigned short>(hi[p] & 0xffffu);
+          ap[3 * kS] = static_cast<unsigned short>(hi[p] >> 16);
+        }
+      } else {  // As[k][q]
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          *reinterpret_cast<uint2*>(As + p * RB * kS + r * kS + col) = make_uint2(lo[p], hi[p]);
+      }
     }
-    dcum[j] = v;
+    store_split<P, kTeam>(to, vo, Os, kO, BQ * kO, tid);
+    team_sync();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t a[P][4];
+#pragma unroll
+      for (int p = 0; p < P; ++p) ldmatrix_x4(a[p], As + p * RB * kS + L.ar * kS + kk * 16 + L.ac);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int nj = warp + 4 * jj;
+        if (nj >= nj_end) break;
+        uint32_t ob[P][4];
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          ldmatrix_x4_trans(ob[p], Os + p * BQ * kO + (kk * 16 + L.ar) * kO + nj * 16 + L.ac);
+        mma_pieces<P>(acc[jj][0], a, ob, 0);
+        mma_pieces<P>(acc[jj][1], a, ob, 1);
+      }
+    }
+  }
+  // team 1's sums to team 0, through team 1's staging area
+  float* xfer =
+      reinterpret_cast<float*>(smem + reduce_team_bytes<P>() + 2 * P * (RB * kS + BQ * kO));
+  __syncthreads();  // both teams are done with their partner tiles
+  if (team == 1) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) xfer[e * kTeam + tid] = acc[e >> 3][(e >> 2) & 1][e & 3];
+  }
+  __syncthreads();
+  if (team == 0) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e >> 3][(e >> 2) & 1][e & 3] += xfer[e * kTeam + tid];
+  }
+
+  if (team == 0) {
+    // db: the groups' chunk-state terms [16][N] a group, staged in batches, added in group order
+    if (role == 1 && dbs != nullptr) {
+      const float* dbi = dbs + (static_cast<int64_t>(i) * groups * RQ + m0) * N;
+      const int per = RB * N, batch = kStage / per;  // floats of one group's rows; groups a batch
+      const bool vec_d = N % 4 == 0 && (reinterpret_cast<uintptr_t>(dbs) & 15) == 0;
+      for (int g0 = 0; g0 < groups; g0 += batch) {
+        const int nb = min(batch, groups - g0);
+        team_sync();  // the previous batch (or the last partner tile) is consumed
+        for (int gi = 0; gi < nb; ++gi) {
+          const float* src = dbi + (g0 + gi) * static_cast<int64_t>(RQ) * N;
+          if (vec_d) {
+            for (int e = 4 * tid; e < per; e += 4 * kTeam)
+              cp_async16(Sg + gi * per + e, src + e, 16);
+          } else {
+            for (int e = tid; e < per; e += kTeam) cp_async4(Sg + gi * per + e, src + e, 4);
+          }
+        }
+        cp_async_commit();
+        cp_async_wait_all();
+        team_sync();
+        for (int gi = 0; gi < nb; ++gi)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int col = (warp + 4 * jj) * 16 + 8 * h + 2 * t + (e & 1);
+                if (col < N) acc[jj][h][e] += Sg[gi * per + (g + 8 * (e >> 1)) * N + col];
+              }
+      }
+    }
+    float* out = (role == 0 ? dc : db) + static_cast<int64_t>(i) * Q * N;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int nj = warp + 4 * jj;
+      if (nj >= nj_end) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = m0 + g + 8 * (e >> 1), col = nj * 16 + 8 * h + 2 * t + (e & 1);
+          if (row < Q && col < N) out[static_cast<int64_t>(row) * N + col] = acc[jj][h][e];
+        }
+    }
+  } else if (role == 1) {
+    // dcum rows m0.. of every head: the warps' row sums of P in order, then dcol, and at q = Q - 1
+    // the warps' sums of tw; a thread sums kE elements at once, kP partials of each in flight
+    constexpr int kE = 8, kP = 8;
+    const int np = 4 * (tile + 1);  // the warps of k tiles 0..tile wrote rows q of this tile
+    const float* rp = rowp + static_cast<int64_t>(i) * H * 4 * RT * Q;  // [H, 4 RT, Q] of chunk i
+    for (int e0 = 0; e0 < H * RB; e0 += kE * kTeam) {
+      float v[kE];
+      int hq[kE], q[kE];  // the element's head (-1 where there is none) and row
+#pragma unroll
+      for (int j = 0; j < kE; ++j) {
+        const int idx = e0 + j * kTeam + tid;
+        q[j] = m0 + idx % RB;
+        hq[j] = idx < H * RB && q[j] < Q ? idx / RB : -1;
+        v[j] = 0.f;
+      }
+      for (int p0 = 0; p0 < np; p0 += kP) {
+        float u[kE][kP];
+#pragma unroll
+        for (int j = 0; j < kE; ++j)
+#pragma unroll
+          for (int pp = 0; pp < kP; ++pp)
+            if (hq[j] >= 0 && p0 + pp < np)
+              u[j][pp] = rp[(static_cast<int64_t>(hq[j]) * 4 * RT + p0 + pp) * Q + q[j]];
+#pragma unroll
+        for (int j = 0; j < kE; ++j)
+#pragma unroll
+          for (int pp = 0; pp < kP; ++pp)
+            if (hq[j] >= 0 && p0 + pp < np) v[j] += u[j][pp];
+      }
+#pragma unroll
+      for (int j = 0; j < kE; ++j) {
+        if (hq[j] < 0) continue;
+        const int64_t ih = static_cast<int64_t>(i) * H + hq[j];
+        v[j] += dcol[ih * Q + q[j]];
+        if (q[j] == Q - 1)
+          for (int p = 0; p < 4 * RT; ++p) v[j] += twp[ih * 4 * RT + p];
+        dcum[ih * Q + q[j]] = v[j];
+      }
+    }
   }
 }
 
 template <typename T, int HD>
-cudaError_t launch(int NB, const void* x, const float* b, const float* c, const float* cum,
-                   const void* dy, const float* dstate, void* dx, float* db_part, float* dc_part,
-                   float* dcum_row, float* dcum_col, float* last_part, int BNC, int H, int Q,
-                   int N, size_t smem, cudaStream_t stream) {
-  const int RT = (Q + BQ - 1) / BQ;
-  const dim3 grid(2 * RT, H, BNC);
-  void* fn;
-  switch (NB) {
-    case 1: fn = reinterpret_cast<void*>(ssd_bwd_kernel<T, HD, 1>); break;
-    case 4: fn = reinterpret_cast<void*>(ssd_bwd_kernel<T, HD, 4>); break;
-    case 8: fn = reinterpret_cast<void*>(ssd_bwd_kernel<T, HD, 8>); break;
-    default: return cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+cudaError_t launch_main(const void* x, const float* b, const float* c, const float* cum,
+                        const void* dy, const float* dstate, void* dx, float* st, float* dbs,
+                        float* rowp, float* dcol, float* twp, int BNC, int H, int Q, int N, int G,
+                        int groups, int64_t smem, cudaStream_t stream) {
+  constexpr size_t bytes = main_smem_bytes<T, HD>();
+  if (G < 1 || G > Route<T>::kMaxHeads || groups != (H + G - 1) / G ||
+      smem != static_cast<int64_t>(bytes))
+    return cudaErrorInvalidConfiguration;
+  auto kernel = ssd_bwd_main<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const T* xp = static_cast<const T*>(x);
-  const T* dyp = static_cast<const T*>(dy);
-  T* dxp = static_cast<T*>(dx);
-  void* args[] = {&xp, &b, &c, &cum, &dyp, &dstate, &dxp, &db_part, &dc_part, &dcum_row,
-                  &dcum_col, &last_part, &H, &Q, &N};
-  err = cudaLaunchKernel(fn, grid, dim3(kThreads), args, smem, stream);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  const dim3 grid(groups, BNC, (Q + BQ - 1) / BQ);
+  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(x), b, c, cum,
+                                            static_cast<const T*>(dy), dstate, static_cast<T*>(dx),
+                                            st, dbs, rowp, dcol, twp, H, Q, N, G);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_reduce(const float* st, const float* dbs, const float* b, const float* c,
+                          const float* rowp, const float* dcol, const float* twp, float* db,
+                          float* dc, float* dcum, int BNC, int H, int Q, int N, int groups,
+                          int64_t smem, cudaStream_t stream) {
+  constexpr size_t bytes = reduce_smem_bytes<P>();
+  if (smem != static_cast<int64_t>(bytes)) return cudaErrorInvalidConfiguration;
+  auto kernel = ssd_bwd_reduce<P>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((Q + BQ - 1) / BQ) * (BQ / RB), 2, BNC);
+  kernel<<<grid, kRedThreads, bytes, stream>>>(st, dbs, b, c, rowp, dcol, twp, db, dc, dcum, H, Q,
+                                               N, groups);
+  return cudaGetLastError();
 }
 
 }  // namespace bwd
@@ -1085,58 +1554,52 @@ extern "C" int ssd_intra_chunk_fwd(int dtype, int HD, const void* x, const float
   }
 }
 
-// Backward, first launch: dx [BNC, H, Q, HD] in x's dtype (0 f32, 1 bf16;
-// dy the same) and the f32 partials (see bwd::ssd_bwd_kernel); dstate
-// [BNC, H, HD, N] f32 or null (zero).  grid_x, state_cols and smem are
-// ssd_scan.py::bwd_plan's (2 row tiles; the N columns a thread's registers
-// cover, 16, 64 or 128; the shared-memory bytes); any other returns
-// cudaErrorInvalidConfiguration.  All contiguous.
+// Backward, first launch: dx [BNC, H, Q, HD] in x's dtype (0 f32, 1 bf16; dy the same) and the
+// f32 partials of bwd::ssd_bwd_main (st, dbs, rowp, dcol, twp); dstate [BNC, H, HD, N] f32 or
+// null (zero; dbs is then not written).  heads_per_block, groups and smem are
+// ssd_scan.py::bwd_plan's; any other returns cudaErrorInvalidConfiguration.  All contiguous.
 extern "C" int ssd_intra_chunk_bwd(int dtype, int HD, const void* x, const float* b,
                                    const float* c, const float* cum, const void* dy,
-                                   const float* dstate, void* dx, float* db_part, float* dc_part,
-                                   float* dcum_row, float* dcum_col, float* last_part, int BNC,
-                                   int H, int Q, int N, int grid_x, int state_cols, int64_t smem,
+                                   const float* dstate, void* dx, float* st, float* dbs,
+                                   float* rowp, float* dcol, float* twp, int BNC, int H, int Q,
+                                   int N, int heads_per_block, int groups, int64_t smem,
                                    void* stream) {
-  if (BNC <= 0 || H <= 0 || Q <= 0 || N <= 0 || BNC > 65535 || H > 65535 || N > bwd::kMaxState)
+  if (BNC <= 0 || H <= 0 || Q <= 0 || N <= 0 || BNC > 65535 || Q > 65535 * BQ ||
+      N > bwd::kMaxState)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = N <= 16 ? 1 : N <= 64 ? 4 : 8;
-  const size_t bytes = 4 * bwd::smem_floats(HD, N);
-  if (grid_x != 2 * ((Q + BQ - 1) / BQ) || state_cols != 16 * nb || smem != static_cast<int64_t>(bytes))
-    return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto run = [&](auto launch) {
+    return static_cast<int>(launch(x, b, c, cum, dy, dstate, dx, st, dbs, rowp, dcol, twp, BNC, H,
+                                   Q, N, heads_per_block, groups, smem,
+                                   static_cast<cudaStream_t>(stream)));
+  };
+  if (dtype == 0 && HD == 32) return run(bwd::launch_main<float, 32>);
+  if (dtype == 0 && HD == 64) return run(bwd::launch_main<float, 64>);
+  if (dtype == 1 && HD == 32) return run(bwd::launch_main<bf16, 32>);
+  if (dtype == 1 && HD == 64) return run(bwd::launch_main<bf16, 64>);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Backward, second launch: db, dc [BNC, Q, N] and dcum [BNC, H, Q], f32, from the first
+// launch's partials and b, c (dbs null where dstate was); dtype picks the pieces as the first
+// launch did.  groups (head groups a chunk) and smem are ssd_scan.py::bwd_plan's.
+extern "C" int ssd_intra_chunk_bwd_reduce(int dtype, const float* st, const float* dbs,
+                                          const float* b, const float* c, const float* rowp,
+                                          const float* dcol, const float* twp, float* db,
+                                          float* dc, float* dcum, int BNC, int H, int Q, int N,
+                                          int groups, int64_t smem, void* stream) {
+  if (BNC <= 0 || H <= 0 || Q <= 0 || N <= 0 || BNC > 65535 || N > bwd::kMaxState || groups < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0 && HD == 32)
-    err = bwd::launch<float, 32>(nb, x, b, c, cum, dy, dstate, dx, db_part, dc_part, dcum_row,
-                                 dcum_col, last_part, BNC, H, Q, N, bytes, s);
-  else if (dtype == 0 && HD == 64)
-    err = bwd::launch<float, 64>(nb, x, b, c, cum, dy, dstate, dx, db_part, dc_part, dcum_row,
-                                 dcum_col, last_part, BNC, H, Q, N, bytes, s);
-  else if (dtype == 1 && HD == 32)
-    err = bwd::launch<bf16, 32>(nb, x, b, c, cum, dy, dstate, dx, db_part, dc_part, dcum_row,
-                                dcum_col, last_part, BNC, H, Q, N, bytes, s);
-  else if (dtype == 1 && HD == 64)
-    err = bwd::launch<bf16, 64>(nb, x, b, c, cum, dy, dstate, dx, db_part, dc_part, dcum_row,
-                                dcum_col, last_part, BNC, H, Q, N, bytes, s);
+  if (dtype == 0)
+    err = bwd::launch_reduce<3>(st, dbs, b, c, rowp, dcol, twp, db, dc, dcum, BNC, H, Q, N,
+                                groups, smem, s);
+  else if (dtype == 1)
+    err = bwd::launch_reduce<2>(st, dbs, b, c, rowp, dcol, twp, db, dc, dcum, BNC, H, Q, N,
+                                groups, smem, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
-}
-
-// Backward, second launch: db, dc [BNC, Q, N] and dcum [BNC, H, Q], f32,
-// from the first launch's partials; blocks of 256 threads, one thread per
-// output element (blocks: ssd_scan.py::bwd_plan's).
-extern "C" int ssd_intra_chunk_bwd_reduce(const float* db_part, const float* dc_part,
-                                          const float* dcum_row, const float* dcum_col,
-                                          const float* last_part, float* db, float* dc,
-                                          float* dcum, int BNC, int H, int Q, int N, int64_t blocks,
-                                          void* stream) {
-  if (BNC <= 0 || H <= 0 || Q <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t outs = static_cast<int64_t>(BNC) * Q * N + static_cast<int64_t>(BNC) * H * Q;
-  if (blocks != (outs + 255) / 256 || blocks > 0x7fffffff)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  bwd::ssd_bwd_reduce<<<static_cast<unsigned>(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      db_part, dc_part, dcum_row, dcum_col, last_part, db, dc, dcum, BNC, H, Q, N);
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* ssd_scan_error_string(int err) {

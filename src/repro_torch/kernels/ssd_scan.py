@@ -9,10 +9,13 @@ also serves CPU tensors through the plain version.  ``launch_plan`` decides
 heads per block, grid and shared memory in Python, where the CPU tests
 reach it; the kernel refuses a plan that is not its own.
 
-``ssd_intra_chunk_bwd`` is the gradient (dx, db, dc, dcum) for dy and dstate
-(two launches: per-(chunk, head) blocks on f32 CUDA-core FMAs that write dx
-and f32 partials, then a fixed-order reduce over the heads), laid out by
-``bwd_plan``.
+``ssd_intra_chunk_bwd`` is the gradient (dx, db, dc, dcum) for dy and dstate,
+in two launches laid out by ``bwd_plan``, every product on the tensor cores
+with f32 operands split into bf16 pieces: a main block per (head group,
+chunk, 64-column tile) computes each C·Bᵀ tile once for its group and dx per
+head, and stores the group's Σ dM∘L into an f32 scratch; the reduce sums
+the groups in a fixed order and multiplies by B and C once per chunk for dc
+and db.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ BLOCK_Q = 64  # rows q per y block and columns j per C·Bᵀ tile
 launches = 0  # forward
 bwd_launches = 0
 bwd_reduce_launches = 0
-BWD_MAX_STATE = 128  # a thread's row of dB or dC lives in registers
+BWD_MAX_STATE = 128  # the reduce stages a tile's rows of B or C whole
+SM_SMEM_BYTES = 233_472  # shared memory of one H100 SM (228 KB); each resident block takes 1 KB more
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,35 +90,58 @@ def launch_plan(BNC: int, H: int, Q: int, hd: int, N: int, dtype: torch.dtype) -
 class BwdPlan:
     """How ``ssd_intra_chunk_bwd`` is launched; ``csrc/ssd_scan.cu`` refuses any other."""
 
-    route: str  # "fma": f32 CUDA-core FMAs, for either x dtype
+    route: str  # "mma2": bf16 x, f32 operands in two bf16 pieces; "mma3": f32 x, all in three
     row_tiles: int  # 64-row tiles of a chunk
-    grid: tuple  # (2 * row_tiles, H, BNC): a "k" and a "q" block per (tile, head, chunk)
+    heads_per_block: int  # a main block's head group, which shares its C·Bᵀ tiles
+    groups: int  # head groups per chunk
+    grid: tuple  # (groups, BNC, row_tiles): a main block per (group, chunk, k tile), k slowest
     threads: int
-    state_cols: int  # the N columns a thread's row of dB or dC spans in registers: 16, 64 or 128
     smem_bytes: int
-    reduce_blocks: int  # the second launch: 256 threads, one per element of db, dc and dcum
+    blocks_per_sm: int  # main blocks one SM holds by shared memory (registers allow two)
+    scratch: tuple  # [BNC, groups, 64 row_tiles, 64 row_tiles]: each group's Σ dM∘L, transposed
+    scratch_bytes: int  # every f32 partial the main launch hands to the reduce, dstate given
+    reduce_grid: tuple  # (4 row_tiles, 2, BNC): 16 rows of dc (role 0) or of db and dcum (role 1)
+    reduce_threads: int
+    reduce_smem_bytes: int
 
 
 def bwd_plan(BNC: int, H: int, Q: int, hd: int, N: int, dtype: torch.dtype) -> BwdPlan:
-    """The backward's plan (no CUDA needed); ValueError past the kernel's limits."""
+    """The backward's plan (no CUDA needed); ValueError past the kernel's limits.
+
+    The head group is the route's largest (two heads on bf16 x, whose dx accumulators share a
+    thread's registers; one on f32 x, whose three-piece x and dy tiles fill shared memory) while
+    the main grid still gives every SM a block; below that it shrinks.
+    """
     if hd not in HEAD_DIMS or not 0 < N <= BWD_MAX_STATE:
         raise ValueError(f"ssd_intra_chunk backward takes head dim {HEAD_DIMS} and "
                          f"0 < N <= {BWD_MAX_STATE}, got {hd}, {N}")
-    if BNC > 65535 or H > 65535:
-        raise ValueError(f"grid limit: BNC={BNC}, H={H} must be <= 65535")
+    if BNC > 65535 or H > 65535 or Q > 65535 * BLOCK_Q:
+        raise ValueError(f"grid limit: BNC={BNC}, H={H} and Q / {BLOCK_Q} = {Q / BLOCK_Q} "
+                         "must be <= 65535")
     if dtype not in DTYPES:
         raise TypeError(f"ssd_intra_chunk backward takes x in {list(DTYPES)}, got {dtype}")
     row_tiles = -(-Q // BLOCK_Q)
-    cols = 16 if N <= 16 else 64 if N <= 64 else 128
-    # x^T and dy^T [hd][68], B^T and C^T [N][68], two [64][68] tiles, four [64] vectors, f32
-    smem = 4 * (68 * (2 * hd + 2 * N + 2 * BLOCK_Q) + 4 * BLOCK_Q)
-    return BwdPlan("fma", row_tiles, (2 * row_tiles, H, BNC), 256, cols, smem,
-                   _reduce_blocks(BNC, H, Q, N))
-
-
-def _reduce_blocks(BNC: int, H: int, Q: int, N: int) -> int:
-    """The reduce's blocks of 256 threads, one thread per element of db, dc and dcum."""
-    return -(-(BNC * Q * N + BNC * H * Q) // 256)
+    rq = BLOCK_Q * row_tiles
+    if dtype == torch.bfloat16:
+        route, pieces, x_pieces, max_heads = "mma2", 2, 1, 2
+    else:
+        route, pieces, x_pieces, max_heads = "mma3", 3, 3, 1
+    # B and C slices [pieces][64][72] and the group's x and dy tiles [heads][x_pieces][64][hd+8]
+    # in bf16, the group's cum [heads][64] in f32
+    smem = 2 * (2 * pieces * 64 * 72 + 2 * max_heads * x_pieces * 64 * (hd + 8)) + 4 * max_heads * 64
+    g = max(1, min(max_heads, H))
+    while g > 1 and BNC * row_tiles * -(-H // g) < _build.NUM_SMS:
+        g -= 1
+    groups = -(-H // g)
+    # the groups' sums of dM∘L and of (x∘w)·dstate, the warps' row sums of P, dcol, the warps' tw
+    scratch_bytes = 4 * (BNC * groups * rq * (rq + N)
+                         + BNC * H * (Q * (4 * row_tiles + 1) + 4 * row_tiles))
+    # for each of two teams: S rows [pieces][16][72] and a tile's rows of B or C [pieces][64][136]
+    # in bf16, and a batch of 13 groups' [16][64] f32 tiles
+    reduce_smem = 2 * (2 * pieces * (16 * 72 + 64 * (BWD_MAX_STATE + 8)) + 4 * 13 * 16 * 64)
+    return BwdPlan(route, row_tiles, g, groups, (groups, BNC, row_tiles), 128, smem,
+                   SM_SMEM_BYTES // (smem + 1024), (BNC, groups, rq, rq), scratch_bytes,
+                   (4 * row_tiles, 2, BNC), 256, reduce_smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,8 +149,8 @@ def _bwd_entries():
     lib = _build.load("ssd_scan")
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     main, red = lib.ssd_intra_chunk_bwd, lib.ssd_intra_chunk_bwd_reduce
-    main.argtypes = [i, i] + [p] * 12 + [i, i, i, i, i, i, i64, p]
-    red.argtypes = [p] * 8 + [i, i, i, i, i64, p]
+    main.argtypes = [i, i] + [p] * 12 + [i] * 6 + [i64, p]
+    red.argtypes = [i] + [p] * 10 + [i] * 5 + [i64, p]
     for fn in (main, red):
         fn.restype = ctypes.c_int
     return main, red
@@ -172,7 +199,8 @@ def ssd_intra_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, cum: torc
         raise ValueError(f"grid limit: {plan.grid[0]} blocks per chunk for H={H}, N={N}")
     err = _entry()(DTYPES[x.dtype], hd, x.data_ptr(), b.data_ptr(), c.data_ptr(), cum.data_ptr(),
                    y.data_ptr(), state.data_ptr(), BNC, H, Q, N, plan.heads_per_block,
-                   plan.grid[0], plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
+                   plan.grid[0], plan.smem_bytes,
+                   torch._C._cuda_getCurrentRawStream(x.device.index))
     launches += 1
     _build.check("ssd_scan", err)
     return y, state
@@ -186,10 +214,27 @@ def ssd_intra_chunk_bwd(x, b, c, cum, dy, dstate=None):
     return (dx, *ssd_intra_chunk_bwd_reduce(parts))
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdParts:
+    """What the main launch hands to the reduce: its plan, b and c, and its f32 partials."""
+
+    plan: BwdPlan
+    dtype: torch.dtype  # x's, which picks the pieces
+    b: torch.Tensor
+    c: torch.Tensor
+    st: torch.Tensor  # plan.scratch: each head group's sum of dM∘L, [k][q], the tiles q >= k
+    dbs: torch.Tensor | None  # [BNC, groups, 64 row_tiles, N]: each head group's (x∘w)·dstate
+    rowp: torch.Tensor  # [BNC, H, 4 row_tiles, Q]: P's row sums over each warp's 16 columns k
+    dcol: torch.Tensor  # [BNC, H, Q]: -(P's column sums) - w x·(dstate B)
+    twp: torch.Tensor  # [BNC, H, 4 row_tiles]: w x·(dstate B) summed over each warp's 16 rows
+
+
 def ssd_intra_chunk_bwd_main(x, b, c, cum, dy, dstate=None):
-    """The first kernel: (dx, the f32 per-head partials) for ``ssd_intra_chunk_bwd_reduce``:
-    db and dc terms [BNC,H,Q,N] each, d cum's row and column terms [BNC,H,Q] each, and its
-    last-position terms [BNC,H,row tiles]."""
+    """The first kernel: (dx, the ``BwdParts`` that ``ssd_intra_chunk_bwd_reduce`` takes)."""
     global bwd_launches
     if x.dim() != 4 or b.dim() != 3 or c.dim() != 3 or cum.dim() != 3:
         raise ValueError("ssd_intra_chunk_bwd takes x [BNC,H,Q,hd], b, c [BNC,Q,N], cum [BNC,H,Q]")
@@ -213,35 +258,43 @@ def ssd_intra_chunk_bwd_main(x, b, c, cum, dy, dstate=None):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_intra_chunk_bwd takes contiguous tensors")
     f32 = dict(dtype=torch.float32, device=x.device)
+    rq = BLOCK_Q * plan.row_tiles
     dx = torch.empty_like(x)
-    parts = (torch.empty((BNC, H, Q, N), **f32), torch.empty((BNC, H, Q, N), **f32),
-             torch.empty((BNC, H, Q), **f32), torch.empty((BNC, H, Q), **f32),
-             torch.empty((BNC, H, plan.row_tiles), **f32))
+    rt4 = 4 * plan.row_tiles
+    parts = BwdParts(plan, x.dtype, b, c, torch.empty(plan.scratch, **f32),
+                     None if dstate is None else torch.empty((BNC, plan.groups, rq, N), **f32),
+                     torch.empty((BNC, H, rt4, Q), **f32), torch.empty((BNC, H, Q), **f32),
+                     torch.empty((BNC, H, rt4), **f32))
     if x.numel() == 0:
         return dx, parts
     err = _bwd_entries()[0](
         DTYPES[x.dtype], hd, x.data_ptr(), b.data_ptr(), c.data_ptr(), cum.data_ptr(),
-        dy.data_ptr(), dstate.data_ptr() if dstate is not None else None, dx.data_ptr(),
-        *(t.data_ptr() for t in parts), BNC, H, Q, N, plan.grid[0], plan.state_cols,
-        plan.smem_bytes, torch._C._cuda_getCurrentRawStream(x.device.index))
+        dy.data_ptr(), _ptr(dstate), dx.data_ptr(),
+        *(_ptr(t) for t in (parts.st, parts.dbs, parts.rowp, parts.dcol, parts.twp)),
+        BNC, H, Q, N, plan.heads_per_block, plan.groups, plan.smem_bytes,
+        torch._C._cuda_getCurrentRawStream(x.device.index))
     bwd_launches += 1
     _build.check("ssd_scan", err)
     return dx, parts
 
 
-def ssd_intra_chunk_bwd_reduce(parts):
-    """The second kernel: (db, dc [BNC,Q,N], dcum [BNC,H,Q], f32), the fixed-order head
-    and tile sums of ``ssd_intra_chunk_bwd_main``'s partials."""
+def ssd_intra_chunk_bwd_reduce(parts: BwdParts):
+    """The second kernel: (db, dc [BNC,Q,N], dcum [BNC,H,Q], f32) from ``ssd_intra_chunk_bwd_main``'s
+    parts, every sum in a fixed order."""
     global bwd_reduce_launches
-    BNC, H, Q, N = parts[0].shape
-    f32 = dict(dtype=torch.float32, device=parts[0].device)
+    BNC, Q, N = parts.b.shape
+    H = parts.dcol.shape[1]
+    f32 = dict(dtype=torch.float32, device=parts.b.device)
     db, dc = torch.empty((BNC, Q, N), **f32), torch.empty((BNC, Q, N), **f32)
     dcum = torch.empty((BNC, H, Q), **f32)
-    if parts[0].numel() == 0:
+    if parts.dcol.numel() == 0:
         return db.zero_(), dc.zero_(), dcum.zero_()
-    err = _bwd_entries()[1](*(t.data_ptr() for t in parts), db.data_ptr(), dc.data_ptr(),
-                            dcum.data_ptr(), BNC, H, Q, N, _reduce_blocks(BNC, H, Q, N),
-                            torch._C._cuda_getCurrentRawStream(parts[0].device.index))
+    err = _bwd_entries()[1](
+        DTYPES[parts.dtype], parts.st.data_ptr(), _ptr(parts.dbs),
+        parts.b.data_ptr(), parts.c.data_ptr(), parts.rowp.data_ptr(), parts.dcol.data_ptr(),
+        parts.twp.data_ptr(), db.data_ptr(), dc.data_ptr(), dcum.data_ptr(), BNC, H, Q, N,
+        parts.plan.groups, parts.plan.reduce_smem_bytes,
+        torch._C._cuda_getCurrentRawStream(parts.b.device.index))
     bwd_reduce_launches += 1
     _build.check("ssd_scan", err)
     return db, dc, dcum

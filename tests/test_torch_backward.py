@@ -311,13 +311,36 @@ def test_moe_backward_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_backward_launch_plan(BNC, H, Q, hd, N, dtype):
     plan = ssd_mod.bwd_plan(BNC, H, Q, hd, N, dtype)
-    assert plan.route == "fma" and plan.threads == 256
-    assert plan.row_tiles == -(-Q // 64) and plan.grid == (2 * plan.row_tiles, H, BNC)
-    assert plan.state_cols in (16, 64, 128) and N <= plan.state_cols
-    assert plan.state_cols == 16 or N > plan.state_cols // 2  # the smallest register row that holds N
-    assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
-    assert ssd_mod.bwd_plan(BNC, H, 4 * Q, hd, N, dtype).smem_bytes == plan.smem_bytes  # nothing Q x Q
-    assert plan.reduce_blocks * 256 >= BNC * Q * N + BNC * H * Q > (plan.reduce_blocks - 1) * 256
+    assert plan.route == ("mma2" if dtype == torch.bfloat16 else "mma3") and plan.threads == 128
+    assert plan.row_tiles == -(-Q // 64) and plan.grid == (plan.groups, BNC, plan.row_tiles)
+    # the head groups cover every head once: the last one holds what is left
+    g = plan.heads_per_block
+    assert 1 <= g <= (2 if dtype == torch.bfloat16 else 1) and plan.groups == -(-H // g)
+    assert (plan.groups - 1) * g < H <= plan.groups * g
+    # the largest group whose grid still gives every SM a block (one head where none does)
+    assert g == 1 or BNC * plan.row_tiles * plan.groups >= _build.NUM_SMS
+    assert plan.smem_bytes <= _build.MAX_SMEM_BYTES and plan.reduce_smem_bytes <= _build.MAX_SMEM_BYTES
+    assert plan.blocks_per_sm == ssd_mod.SM_SMEM_BYTES // (plan.smem_bytes + 1024) >= 2
+    longer = ssd_mod.bwd_plan(BNC, H, 4 * Q, hd, N, dtype)  # nothing Q x Q in shared memory
+    assert (longer.smem_bytes, longer.reduce_smem_bytes) == (plan.smem_bytes, plan.reduce_smem_bytes)
+    rq = 64 * plan.row_tiles
+    assert plan.scratch == (BNC, plan.groups, rq, rq)
+    assert plan.scratch_bytes == 4 * (BNC * plan.groups * rq * (rq + N)
+                                      + BNC * H * (Q * (4 * plan.row_tiles + 1) + 4 * plan.row_tiles))
+    assert plan.reduce_grid == (rq // 16, 2, BNC) and plan.reduce_threads == 256
+
+
+def test_ssd_backward_plan_at_the_lm_shapes():
+    """mamba2's and hymba's LM chunks (2 x 512, four of 256): two heads a block on bf16 x, two
+    blocks an SM or more, and the scratch of the groups' dM∘L sums."""
+    mamba2 = ssd_mod.bwd_plan(4, 24, 256, 64, 128, torch.bfloat16)
+    hymba = ssd_mod.bwd_plan(4, 50, 256, 64, 16, torch.bfloat16)
+    assert (mamba2.heads_per_block, mamba2.groups, mamba2.grid) == (2, 12, (12, 4, 4))
+    assert (hymba.heads_per_block, hymba.groups, hymba.grid) == (2, 25, (25, 4, 4))
+    assert mamba2.scratch == (4, 12, 256, 256) and hymba.scratch == (4, 25, 256, 256)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ((4, 24, 256, 64, 128), (4, 50, 256, 64, 16)):
+            assert ssd_mod.bwd_plan(*shape, dtype).blocks_per_sm >= 2
 
 
 def test_ssd_backward_plan_refuses_what_the_kernel_does_not_take():

@@ -301,9 +301,9 @@ def test_moe_matmul_backward_takes_an_unaligned_operand(cuda, offset, dtype):
 
 
 # (BNC, H, Q, hd, N): mamba2 and hymba at 2 x 512 (four chunks of 256), the reduced configs,
-# ragged Q, N 64
+# ragged Q, N 64; two heads a block with an odd H, at a ragged Q and at a Q below 64
 SSD_BWD_SHAPES = [(4, 24, 256, 64, 128), (4, 50, 256, 64, 16), (4, 8, 32, 32, 16), (2, 3, 100, 32, 64),
-                  (2, 2, 1, 64, 128), (3, 7, 160, 64, 128)]
+                  (2, 2, 1, 64, 128), (3, 7, 160, 64, 128), (40, 5, 100, 64, 128), (160, 3, 48, 32, 64)]
 
 
 @pytest.mark.parametrize("BNC,H,Q,hd,N", SSD_BWD_SHAPES)
@@ -312,6 +312,8 @@ SSD_BWD_SHAPES = [(4, 24, 256, 64, 128), (4, 50, 256, 64, 16), (4, 8, 32, 32, 16
 def test_ssd_intra_chunk_backward_kernels(cuda, BNC, H, Q, hd, N, dstate, dtype):
     """dx, db, dc, dcum through ops against autograd through the plain version; the state's
     gradient absent (nothing reads it), zero or not; two direct calls give the same bits."""
+    if (BNC, H, Q) in ((40, 5, 100), (160, 3, 48)) and dtype == torch.bfloat16:
+        assert ssd_mod.bwd_plan(BNC, H, Q, hd, N, dtype).heads_per_block == 2  # the last group has one
     rng = np.random.default_rng(BNC * Q + N + hd)
     x = tensor(rng, (BNC, H, Q, hd), dtype, cuda, 0.5).requires_grad_()
     b, c = (tensor(rng, (BNC, Q, N), torch.float32, cuda, 0.5).requires_grad_() for _ in range(2))

@@ -5,6 +5,9 @@
     python3 tools/torch_kernel_probe.py moe [--tree DIR]  # moe_matmul at granite's six shapes vs bmm
     python3 tools/torch_kernel_probe.py moe-parts   # moe_matmul with parts of its work taken out
     python3 tools/torch_kernel_probe.py bwd [--tree DIR]  # the backward pairs vs the library gradients
+    python3 tools/torch_kernel_probe.py ssd-bwd [--tree DIR]  # ssd_intra_chunk's backward (B8) alone
+    python3 tools/torch_kernel_probe.py ssd-sass    # static SASS counts of B8's two kernels
+    python3 tools/torch_kernel_probe.py ssd-parts   # B8's main launch with parts taken out
     python3 tools/torch_kernel_probe.py bwd-parts   # the bf16 flash backward with parts taken out
     python3 tools/torch_kernel_probe.py moe-bwd-tiles  # moe_matmul's bf16 backward at each tile width
     python3 tools/torch_kernel_probe.py moe-bwd-fma    # its f32 dbuf at one and two blocks an SM
@@ -21,9 +24,25 @@ the gradient of ``sdpa`` / ``F.rms_norm`` on the same inputs, then
 gate/up and down; bf16 and f32) beside ``torch.bmm`` and the wide-row
 RMSNorm dx at [1024, 3200] and [1024, 4096] (bf16 and f32) beside
 ``F.rms_norm``'s gradient, each the median of three taken in turns with
-its library call; with ``--tree DIR`` it imports ``repro_torch`` from the
-checkout DIR instead (built into DIR's own ``build/``), so that one call
-can time two trees.
+its library call, and last what ``ssd-bwd`` reads; with ``--tree DIR`` it
+imports ``repro_torch`` from the checkout DIR instead (built into DIR's own
+``build/``), so that one call can time two trees.
+``ssd-bwd`` checks ``ssd_intra_chunk``'s backward against the plain
+closed form, calls it twice for bit-identical gradients, and times its main
+launch, its reduce and the two together at mamba2-130m's and hymba-1.5b's
+LM shapes (four chunks of 256), bf16 and f32, the median of three taken in
+turns (the main launch also without dstate), beside the plain version and
+the bound; ``--tree`` as for ``bwd``.  ``ssd-sass`` counts the instructions
+of the backward's kernels in the built library by opcode (``cuobjdump
+-sass``): the loops are unrolled, so the counts stand for the work a block
+issues.  ``ssd-parts`` builds variants of ``csrc/ssd_scan.cu`` into
+``build/probe`` whose backward main kernel leaves out one part (the exp of
+the decay, the G, dM or dx products, the row sums of P or the S tile sent
+out) and times each beside the whole at the bf16 LM shapes, in turns; the
+variants' gradients are wrong by design.  Two more variants take one head a
+block (the plan's head group of one), at two and at three blocks an SM, one
+takes three blocks an SM at two heads a block, and four time the reduce alone without its S tiles, its rows of B or C, its dbs
+terms or its dcum.
 ``moe-bwd-tiles`` builds variants of ``csrc/moe_matmul.cu`` into
 ``build/probe`` whose bf16 backward takes one tile width (64, 128 or 256
 columns) for every launch, and times dbuf and dw at granite's two LM
@@ -90,7 +109,7 @@ import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
     BF16_TOL, GRAD_TOL, assert_close, cuda_ms, flash_bound, flash_bwd_bounds, grad_err, moe_bound,
-    moe_bwd_bounds, rmsnorm_bwd_bounds, ssd_bound)
+    moe_bwd_bounds, rmsnorm_bwd_bounds, ssd_bound, ssd_bwd_bounds)
 from repro_torch.kernels import _build, ops, ref, ssd_scan  # noqa: E402
 
 H, HD, N = 24, 64, 128  # mamba2-130m
@@ -255,6 +274,170 @@ def time_b7_b10(gen):
                   f"{rk.bwd_plan(T, D, dt)}; rel err " + ", ".join(f"{r:.2e}" for _, r in errs)
                   + "; bit-identical")
             del x, w, dy, got, again, xl, wl, want, lib_out
+
+
+SSD_LM = [(4, 24, 256, 64, 128, "mamba2 LM"), (4, 50, 256, 64, 16, "hymba LM")]  # BNC, H, Q, hd, N
+
+
+def time_ssd_bwd(gen):
+    """ssd_intra_chunk's backward (B8): main, reduce and both at the LM shapes, bf16 and f32."""
+    dev = gen.device
+    print(f"[ssd-bwd] repro_torch from {Path(ssd_scan.__file__).resolve().parents[2]}")
+    for dt in (torch.bfloat16, torch.float32):
+        for BNC, Hh, Q, hd, Ns, what in SSD_LM:
+            x = (torch.randn(BNC, Hh, Q, hd, generator=gen, device=dev) * 0.5).to(dt)
+            b, c = (torch.randn(BNC, Q, Ns, generator=gen, device=dev) * 0.5 for _ in range(2))
+            cum = -torch.cumsum(0.1 * torch.rand(BNC, Hh, Q, generator=gen, device=dev), -1)
+            dy = torch.randn(BNC, Hh, Q, hd, generator=gen, device=dev).to(dt)
+            ds = torch.randn(BNC, Hh, hd, Ns, generator=gen, device=dev)
+            args = (x, b, c, cum, dy, ds)
+            got = ssd_scan.ssd_intra_chunk_bwd(*args)
+            again = ssd_scan.ssd_intra_chunk_bwd(*args)
+            if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                raise AssertionError(f"ssd_intra_chunk_bwd {what} {dt}: two calls differ")
+            want = ref.ssd_intra_chunk_bwd_ref(*(t.double() for t in args))
+            errs = [grad_err(f"ssd bwd {n} {what} {dt}", a.double(), w, GRAD_TOL[str(dt)[6:]])
+                    for n, a, w in zip(("dx", "db", "dc", "dcum"), got, want)]
+            parts = ssd_scan.ssd_intra_chunk_bwd_main(*args)[1]
+            ms = medians({"main": lambda: ssd_scan.ssd_intra_chunk_bwd_main(*args),
+                          "reduce": lambda: ssd_scan.ssd_intra_chunk_bwd_reduce(parts),
+                          "both": lambda: ssd_scan.ssd_intra_chunk_bwd(*args),
+                          "main without dstate": lambda: ssd_scan.ssd_intra_chunk_bwd_main(*args[:5])})
+            plain = cuda_ms(lambda: ref.ssd_intra_chunk_bwd_ref(*args), iters=5)
+            b_all = ssd_bwd_bounds(BNC, Hh, Q, hd, Ns, x.element_size())[2]
+            print(f"[ssd-bwd] BNC{BNC} H{Hh} Q{Q} hd{hd} N{Ns} {str(dt)[6:]} {what}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                  + f" ms; plain {plain:.4f} ms; bound {b_all[0]:.4f} ms ({b_all[1]}); rel err "
+                  + ", ".join(f"{r:.2e}" for _, r in errs) + "; bit-identical")
+            del x, b, c, cum, dy, ds, args, got, again, want, parts
+
+
+def ssd_parts(gen):
+    """B8's main launch with one part of its work taken out at a time, timed beside the whole."""
+    src = (_build.CSRC / "ssd_scan.cu").read_text()
+    never = "if (N == 12345) "  # a guard the kernel never passes: the inputs stay computed
+    parts = {
+        "no exp": [("__expf(cqv.x - ck[hh][hr])", "(cqv.x - ck[hh][hr])"),
+                   ("__expf(cqv.y - ck[hh][hr])", "(cqv.y - ck[hh][hr])")],
+        "no G product": [("mma_pieces<P>(gt[2 * nj]", never + "mma_pieces<P>(gt[2 * nj]"),
+                         ("mma_pieces<P>(gt[2 * nj + 1]", never + "mma_pieces<P>(gt[2 * nj + 1]")],
+        "no dM product": [("mma_pieces<P>(dm[0], a, yb, 0)", never + "mma_pieces<P>(dm[0], a, yb, 0)"),
+                          ("mma_pieces<P>(dm[1], a, yb, 1)", never + "mma_pieces<P>(dm[1], a, yb, 1)")],
+        "no dx product": [("mma_pieces<P>(dxa[hh][2 * dn], am", never + "mma_pieces<P>(dxa[hh][2 * dn], am"),
+                          ("mma_pieces<P>(dxa[hh][2 * dn + 1], am",
+                           never + "mma_pieces<P>(dxa[hh][2 * dn + 1], am")],
+        "no row sums of P out": [("if (!(g & 1) && q < Q) rowp[", "if (!(g & 1) && q == -1) rowp[")],
+        "no S tile out": [("          *reinterpret_cast<float2*>(s_out + ",
+                           "          if (N == 12345) *reinterpret_cast<float2*>(s_out + ")],
+    }
+    # and two variants with one head a block (bf16), at two and three blocks an SM
+    one_head = [("template <> struct Route<bf16> { static constexpr int P = 2, PX = 1, kMaxHeads = 2; };",
+                 "template <> struct Route<bf16> { static constexpr int P = 2, PX = 1, kMaxHeads = 1; };")]
+    bounds = ("__global__ void __launch_bounds__(kThreads, 2)\nssd_bwd_main(",
+              "__global__ void __launch_bounds__(kThreads, 3)\nssd_bwd_main(")
+    parts.update({"three blocks an SM": [bounds], "one head a block": one_head,
+                  "one head a block, three blocks an SM": one_head + [bounds]})
+    # the reduce, timed alone, without one of its parts
+    reduce_parts = {
+        "reduce: no S tiles in": [("cp_async16(Sg + 4 * f, base",
+                                   "if (N == 12345) cp_async16(Sg + 4 * f, base")],
+        "reduce: no B or C rows in": [("if (g0 == 0) load_f32<kTeam>(to, vo, tid);",
+                                       "if (g0 == 0 && N == 12345) load_f32<kTeam>(to, vo, tid);")],
+        "reduce: no dbs terms": [("    if (role == 1 && dbs != nullptr) {",
+                                  "    if (role == 1 && dbs != nullptr && N == 1) {")],
+        "reduce: no dcum": [("  } else if (role == 1) {", "  } else if (role == 1 && N == 1) {")],
+    }
+    parts.update(reduce_parts)
+    texts = {"whole": src}
+    for label, subs in parts.items():
+        text = src
+        for a, b in subs:
+            if text.count(a) != 1:
+                raise RuntimeError(f"ssd_scan.cu no longer has the part {label!r} takes out: {a!r}")
+            text = text.replace(a, b)
+        texts[label] = text
+    out_dir = ROOT / "build" / "probe" / "ssd_parts"
+    jobs = {}
+    for i, (label, text) in enumerate(texts.items()):
+        vdir = out_dir / str(i)
+        vdir.mkdir(parents=True, exist_ok=True)
+        (vdir / "ssd_scan.cu").write_text(text)
+        (vdir / "hopper.cuh").write_text((_build.CSRC / "hopper.cuh").read_text())
+        _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+        jobs[label] = (vdir, _build._start("ssd_scan"))
+    for label, (vdir, job) in jobs.items():
+        if job is not None:
+            with contextlib.redirect_stdout(io.StringIO()):  # ptxas -v reports
+                _build._finish("ssd_scan", job)
+    dev = gen.device
+    for BNC, Hh, Q, hd, Ns, what in SSD_LM:
+        x = (torch.randn(BNC, Hh, Q, hd, generator=gen, device=dev) * 0.5).bfloat16()
+        b, c = (torch.randn(BNC, Q, Ns, generator=gen, device=dev) * 0.5 for _ in range(2))
+        cum = -torch.cumsum(0.1 * torch.rand(BNC, Hh, Q, generator=gen, device=dev), -1)
+        dy = torch.randn(BNC, Hh, Q, hd, generator=gen, device=dev).bfloat16()
+        ds = torch.randn(BNC, Hh, hd, Ns, generator=gen, device=dev)
+        calls = {}
+        for label, (vdir, _) in jobs.items():
+            _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+            _build._loaded.pop("ssd_scan", None)
+            ssd_scan._bwd_entries.cache_clear()
+            entries = ssd_scan._bwd_entries()
+
+            plan = ssd_scan.bwd_plan(BNC, Hh, Q, hd, Ns, torch.bfloat16)
+            if label.startswith("one head"):
+                plan = dataclasses.replace(
+                    plan, heads_per_block=1, groups=Hh, grid=(Hh, BNC, plan.row_tiles),
+                    smem_bytes=2 * (2 * 2 * 64 * 72 + 2 * 64 * (hd + 8)) + 4 * 64,
+                    scratch=(BNC, Hh) + plan.scratch[2:])
+
+            def call(entries=entries, plan=plan):
+                with _patched(ssd_scan, "_bwd_entries", lambda: entries), \
+                        _patched(ssd_scan, "bwd_plan", lambda *a: plan):
+                    return ssd_scan.ssd_intra_chunk_bwd_main(x, b, c, cum, dy, ds)[1]
+            bwd_parts_ = call()
+            calls[label] = call
+            if label == "whole" or label in reduce_parts:
+                def reduce(entries=entries, bwd_parts_=bwd_parts_):
+                    with _patched(ssd_scan, "_bwd_entries", lambda: entries):
+                        ssd_scan.ssd_intra_chunk_bwd_reduce(bwd_parts_)
+                calls[("reduce", label)] = reduce
+        ms = medians(calls)
+        print(f"[ssd-parts] BNC{BNC} H{Hh} Q{Q} N{Ns} bf16 {what}, main launch: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items() if isinstance(k, str)
+                          and k not in reduce_parts) + " ms")
+        print(f"[ssd-parts] BNC{BNC} H{Hh} Q{Q} N{Ns} bf16 {what}, reduce launch: "
+              + ", ".join(f"{k[1]} {v:.4f}" for k, v in ms.items() if isinstance(k, tuple)) + " ms")
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def ssd_sass(gen):
+    """Static instruction counts of ssd_scan's backward kernels, by opcode, from cuobjdump -sass."""
+    import collections
+    import re
+
+    _build.build_all(["ssd_scan"])
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build._library_path("ssd_scan"))],
+                          capture_output=True, text=True, check=True).stdout
+    for body in sass.split("Function : ")[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if "ssd_bwd" not in name:
+            continue
+        ops = collections.Counter(m.group(1).split(".")[0] for m in
+                                  re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body))
+        keep = ("HMMA", "LDSM", "LDS", "STS", "LDG", "STG", "LDGSTS", "LDL", "STL", "MUFU", "SHFL", "BAR",
+                "FFMA", "FMUL", "FADD", "F2FP", "PRMT", "IMAD", "ISETP", "FSETP", "FSEL", "BRA")
+        print(f"[ssd-sass] {name[:90]}: {sum(ops.values())} instructions; "
+              + ", ".join(f"{k} {ops[k]}" for k in keep if ops[k]))
 
 
 def _moe_variant_dirs(texts, name):
@@ -726,7 +909,7 @@ def ssm_check(gen):
 
 def main() -> int:
     modes = {"time": time_kernels, "moe": time_moe, "moe-parts": moe_parts, "bwd": time_backward,
-             "bwd-parts": bwd_parts, "ssd-roles": ssd_roles, "ssm-check": ssm_check,
+             "ssd-bwd": time_ssd_bwd, "ssd-sass": ssd_sass, "ssd-parts": ssd_parts, "bwd-parts": bwd_parts, "ssd-roles": ssd_roles, "ssm-check": ssm_check,
              "moe-bwd-tiles": moe_bwd_tiles, "moe-bwd-fma": moe_bwd_fma, "rms-parts": rms_parts}
     if len(sys.argv) not in (2, 4) or sys.argv[1] not in modes or (len(sys.argv) == 4 and sys.argv[2] != "--tree"):
         print(__doc__, file=sys.stderr)
