@@ -94,7 +94,20 @@ Phases, each of which raises on failure (nothing is caught):
    launch traces); per step its loss, mean reward, mean ACT, EOE hits and
    the rollout, reward and update walls; a fourth step, checked the same
    way, under ``torch.profiler`` for the device busy share of a step;
-8. agreement on a small input: nine reduced configs in f32 on the card
+8. live mode (``repro_torch.core.live``): the ``live_smoke`` scenario (4
+   pools x 6 actions) on real time, one CUDA stream per pool, each action's
+   payload the RMSNorm kernel (f32 [64, 64]) launched from its pool's thread
+   on its pool's stream until the action's scaled duration has passed;
+   the live run's structural trace must equal the sim's, every launch is
+   counted (per stream, and by the kernel's own counter), and each stream's
+   last output is held against the plain version; the run is made under
+   ``torch.profiler``, and the streams' overlap is printed twice: from the
+   payloads' CUDA events (each action's first launch to its drain) and
+   from the kernels the profiler saw.  Then the ``remote_round`` twin's three modes (serial, loopback, worker
+   processes started by ``spawn``) with equal launch traces and their wire
+   bytes, and the dense DP's ``backend="torch"`` scan on the card,
+   bit-identical to the NumPy path;
+9. agreement on a small input: nine reduced configs in f32 on the card
    against the same weights on the CPU (plain versions), serving; for
    ``smollm-360m``, one GRPO and one LM step's loss and gradients; for the
    reduced ``granite-moe-3b-a800m``, ``mamba2-130m``, ``hymba-1.5b``,
@@ -112,6 +125,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import random
 import subprocess
 import sys
 import time
@@ -192,6 +206,10 @@ LOOP_PROMPTS, LOOP_GROUP, LOOP_PROMPT, LOOP_NEW, LOOP_STEPS = 4, 4, 8, 16, 3
 # judge action scores one whole sequence [1, 24]; old_logp and the GRPO step
 # run on the N whole sequences [N, 24]
 LOOP_N, LOOP_SEQ = LOOP_PROMPTS * LOOP_GROUP, LOOP_PROMPT + LOOP_NEW
+
+# live mode (phase 8): live_smoke_spec's 4 pools x 6 actions (durations 0.6-1.62 s, three waves 2 s
+# apart) compiled at this time scale, so that the run takes about 4 s of the phase
+LIVE_TIME_SCALE = 0.5
 LM_ARGS = ["--arch", "llama3.2-1b", "--full", "--steps", "3", "--batch", "4", "--seq", "256"]
 # the other families' LM training, (arch, batch, seq, layers or None for full depth): the SSM
 # families at 2 x 512, so that each sequence has two chunks of 256 and the backward's
@@ -841,6 +859,8 @@ def main() -> int:
         (1000, 960, torch.bfloat16, ""),
         (1000, 2048, torch.float32, ""),
         (1000, 960, torch.float32, ""),
+        (64, 64, torch.float32, "live payload"),
+        (8, 64, torch.float32, "live warm-up"),
     ]
     for T, D, dt, what in rms_cases:
         x = randn(T, D, dtype=dt) * 3
@@ -1760,7 +1780,120 @@ def main() -> int:
 
     print(f"[time] phase 7 done at {time.perf_counter() - t_start:.1f}s")
 
-    # ---- 8. agreement with the CPU on a small input (reduced, f32) -------
+    # ---- 8. live mode on the card's streams; the remote half; the DP scan --
+    from repro_torch.core.dparrange import (
+        BasicDPOperator,
+        DPTask,
+        GpuChunkDPOperator,
+        dp_arrange_prefixes_dense,
+    )
+    from repro_torch.core.live import ensure_devices, lane_overlap, run_live_scenario
+    from repro_torch.core.orchestrator import Orchestrator
+    from repro_torch.core.scenarios import (
+        build_fair_share,
+        build_managers,
+        compile_scenario,
+        install_scenario,
+        live_smoke_spec,
+        structural_trace,
+    )
+    from repro_torch.core.scheduler import ElasticScheduler
+    from repro_torch.core.simulator import EventLoop
+    from repro_torch.examples import remote_round
+
+    t_phase = time.perf_counter()
+    spec = live_smoke_spec()
+    compiled = compile_scenario(spec, time_scale=LIVE_TIME_SCALE)
+    sim_loop = EventLoop()
+    sim = Orchestrator(build_managers(spec, sim_loop), loop=sim_loop, policy=ElasticScheduler(),
+                       fair_share=build_fair_share(spec), incremental=True)
+    install_scenario(compiled, sim)
+    sim.run()
+    sim.close()
+    streams = ensure_devices(len(spec.pools))  # one CUDA stream per pool
+
+    # one live run under torch.profiler, checked: launches (per stream, and by the kernel's own
+    # counter), the structural trace against the sim's, each stream's last output against the
+    # plain version; then the streams' overlap from the payloads' events and from the kernels
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        live, live_ms = wall_ms(lambda: run_live_scenario(compiled, devices=streams,
+                                                          wall_limit_s=120.0))
+    payload = live.payload
+    per_stream = [payload.launches.get(i, 0) for i in range(len(streams))]
+    expect = dict.fromkeys(ops.launch_counts(), 0)
+    expect["rmsnorm"] = sum(per_stream) + len(streams)  # the payloads' and a warm-up a stream
+    check_counts("live", ops.launch_counts(), expect)
+    recs = live.telemetry.records
+    if min(per_stream) == 0 or len(recs) != len(sim.telemetry.records) or any(r.failed for r in recs):
+        raise AssertionError(f"live: {len(recs)} records ({sum(r.failed for r in recs)} failed) "
+                             f"against the sim's {len(sim.telemetry.records)}, launches a stream "
+                             f"{per_stream}")
+    if structural_trace(recs) != structural_trace(sim.telemetry.records):
+        raise AssertionError("live: the structural trace differs from the sim's")
+    errs = [assert_close(f"live stream {i} rmsnorm {tuple(x.shape)}", out,
+                         ref.rmsnorm_ref(x, w), RMSNORM_F32_TOL)
+            for i, (x, w, out) in sorted(payload.outputs.items())]
+    if len(errs) != len(streams):
+        raise AssertionError(f"live: outputs of {len(errs)} of {len(streams)} streams")
+    ov = lane_overlap(payload.windows)
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()
+                and "rmsnorm" in e.name()):
+            spans.setdefault(e.device_resource_id(), []).append(
+                (e.start_ns() / 1e6, (e.start_ns() + e.duration_ns()) / 1e6))
+    kov = lane_overlap(spans)
+    n_kernels = sum(len(v) for v in spans.values())
+    print(f"[live] {spec.name} at time_scale {LIVE_TIME_SCALE} under torch.profiler: "
+          f"{len(recs)} actions over {len(streams)} CUDA streams, mean ACT "
+          f"{live.telemetry.mean_act() * 1e3:.1f} ms, wall {live_ms:.1f} ms; structural trace "
+          f"equal to the sim's; rmsnorm f32 [64, 64] launches a stream {per_stream} "
+          f"(+{len(streams)} warm-up, {sum(per_stream) + len(streams)} in all, as its counter "
+          f"says); each stream's last output vs plain max abs err {max(errs):.2e} (tol "
+          f"{RMSNORM_F32_TOL}) [{card}]")
+    print(f"[live] streams' device windows (actions' first launch to drained, CUDA events): busy "
+          f"{ov['busy_ms']:.1f} ms summed over streams, {ov['any_ms']:.1f} ms with any stream "
+          f"busy, {ov['two_or_more_ms']:.1f} ms with two or more; mean concurrency "
+          f"{ov['concurrency']:.2f} of {len(streams)}")
+    print(f"[live] kernels (torch.profiler): {n_kernels} rmsnorm kernels on {len(spans)} streams, "
+          f"{kov['busy_ms']:.2f} device-ms in all ({1e3 * kov['busy_ms'] / max(n_kernels, 1):.2f} "
+          f"us each), {kov['any_ms']:.2f} ms with a kernel running, "
+          f"{kov['two_or_more_ms']:.3f} ms with kernels of two or more streams at once")
+    del live, payload, prof
+
+    wire_bytes, remote_ms = wall_ms(lambda: remote_round.main(["--start-method", "spawn"]))
+    print(f"[live] remote_round twin: serial == loopback == process (spawn) launch traces; wire "
+          f"bytes {wire_bytes}; {remote_ms:.0f} ms")
+
+    dp_rng = random.Random(3)  # tests/test_dense_dp.py's draws and _random_tasks
+
+    def dp_tasks(n, pool):
+        out = []
+        for i in range(n):
+            units = tuple(sorted(dp_rng.sample(pool, dp_rng.randint(1, min(4, len(pool))))))
+            out.append(DPTask(f"t{i}", units, tuple(round(dp_rng.uniform(0.1, 60.0), 4)
+                                                    for _ in units)))
+        return out
+
+    dp_cases = []
+    for _ in range(10):
+        capacity = dp_rng.randint(1, 16)
+        dp_cases.append((dp_tasks(dp_rng.randint(1, 4), list(range(1, 9))),
+                         BasicDPOperator(capacity)))
+    dp_cases.append((dp_tasks(3, [1, 2, 4, 8]), GpuChunkDPOperator((8, 4, 2, 1), total_devices=8)))
+    t0 = time.perf_counter()
+    for i, (tasks, op) in enumerate(dp_cases):
+        got = dp_arrange_prefixes_dense(tasks, op, backend="torch", device=str(dev))
+        if got != dp_arrange_prefixes_dense(tasks, op, backend="numpy"):
+            raise AssertionError(f"dense DP case {i}: the torch scan on {dev} differs from NumPy")
+    print(f"[live] dense DP backend='torch' on {dev}: {len(dp_cases)} cases bit-identical to the "
+          f"NumPy path ({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+    print(f"[live] phase took {time.perf_counter() - t_phase:.1f}s")
+    print(f"[time] phase 8 done at {time.perf_counter() - t_start:.1f}s")
+
+    # ---- 9. agreement with the CPU on a small input (reduced, f32) -------
     def small_inputs(cfg, B):
         """The vlm's stub patches or the audio family's stub frames (12, within its reduced
         encoder_seq of 16) on the card."""
@@ -1898,8 +2031,8 @@ def main() -> int:
           "[2560, 960]; at the LM shapes: the wide rmsnorm backward [1024, 3200] (hymba-1.5b's "
           "out_norm), moe_matmul's dbuf and dw E=40 C=256 D=1536 F=512 (granite gate/up; library "
           "torch.bmm), ssd_intra_chunk's backward and reduce BNC=4 H=24 Q=256 hd=64 N=128 "
-          "(mamba2-130m 2 x 512); launches summed over the eight serving runs, the training runs "
-          "and the closed loop's four steps (three plus the profiled one)")
+          "(mamba2-130m 2 x 512); launches summed over the eight serving runs, the training runs, "
+          "the closed loop's four steps (three plus the profiled one) and live mode's payloads")
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card)

@@ -1,9 +1,8 @@
 """ARL-Tangram core: action-level external-resource orchestration.
 
-The port's copy of the in-process part of ``repro.core``: plain Python and
-NumPy, decision for decision the reference's.  The remote half (``wire``,
-``remote``, ``transport``, ``scenarios``, ``live``) is not ported yet
-(ROADMAP A4c, A5); the paths that would reach it raise.
+The port's copy of ``repro.core``: plain Python and NumPy, decision for
+decision the reference's, with live mode's payloads on CUDA streams of one
+card and the dense DP scan in torch.
 
 The paper's contribution, as a composable library:
 
@@ -14,6 +13,13 @@ The paper's contribution, as a composable library:
 * :mod:`repro_torch.core.orchestrator` — event-driven control plane: partitioned
   queues, incremental rounds, policies, action lifecycle
 * :mod:`repro_torch.core.shards`     — sharded plan/commit scheduling rounds
+* :mod:`repro_torch.core.wire`       — versioned wire codecs (plans/snapshots/
+  sub-queues across process boundaries, no pickle)
+* :mod:`repro_torch.core.remote`     — out-of-process shard workers + transports
+* :mod:`repro_torch.core.transport`  — TCP shard workers, chaos transports
+* :mod:`repro_torch.core.scenarios`  — declarative, seeded workload generation
+* :mod:`repro_torch.core.live`       — scenarios on wall time, RMSNorm payloads
+  on one CUDA stream per pool
 * :mod:`repro_torch.core.tangram`    — the system facade (§3)
 * :mod:`repro_torch.core.baselines`  — k8s / SGLang / ServerlessLLM baselines (§6.1)
 * :mod:`repro_torch.core.simulator`  — discrete-event engine
@@ -53,6 +59,12 @@ from repro_torch.core.orchestrator import (
     Orchestrator,
     SchedulingPolicy,
 )
+from repro_torch.core.remote import (
+    LoopbackTransport,
+    ProcessTransport,
+    RemoteShardWorker,
+    ShardTransport,
+)
 from repro_torch.core.scheduler import ElasticScheduler
 from repro_torch.core.shards import PartitionPlan, RoundExecutor
 from repro_torch.core.simulator import EventLoop, SimClock
@@ -80,13 +92,17 @@ __all__ = [
     "GpuChunkDPOperator",
     "GpuManager",
     "LinearElasticity",
+    "LoopbackTransport",
     "Orchestrator",
     "PartitionPlan",
     "PartitionQueue",
+    "ProcessTransport",
+    "RemoteShardWorker",
     "ResourceRequest",
     "RoundExecutor",
     "SchedulingPolicy",
     "ServiceSpec",
+    "ShardTransport",
     "SimClock",
     "StaticDopPolicy",
     "Tangram",

@@ -1,7 +1,5 @@
 """Topology-agnostic DPArrange (paper Appendix B, Algorithms 3 & 4).
 
-Copy of ``repro.core.dparrange``, NumPy path only.
-
 Given a set of *scalable* candidate actions, their supported unit sets
 ``S_i`` and per-allocation durations ``T_i(k)``, DPArrange finds the
 discrete allocation minimizing the total execution time subject to the
@@ -42,9 +40,12 @@ path factors the topology out of the inner loop entirely:
    configuration (callers cache the table on the owning manager's
    ``dp_cache_key``, which captures exactly the state the table reads);
 2. :func:`dp_arrange_prefixes` then runs each task row as one vectorized
-   scatter-min over ``(states x choices)`` in NumPy (the reference's
-   ``backend="jax"`` scan is not ported: ROADMAP A6) — emitting every
-   prefix objective and a dense backtrace in a single pass.
+   scatter-min over ``(states x choices)`` — NumPy by default, with a
+   float64 torch scan of ``scatter_reduce(reduce="amin")`` segment-mins
+   behind ``backend="torch"`` (on :data:`DENSE_DEVICE`, the card;
+   :func:`dp_arrange_prefixes_dense` takes ``device="cpu"``) for large
+   state spaces — emitting every prefix
+   objective and a dense backtrace in a single pass.
 
 The dense rows visit exactly the reachable-state sums the reference DP
 visits (same float64 additions, same min over the same multisets), so
@@ -72,9 +73,14 @@ INF = math.inf
 #: reachable states).  Overridable for tests / huge pools.
 DENSE_STATE_LIMIT = int(os.environ.get("REPRO_DP_DENSE_STATE_LIMIT", 200_000))
 
-#: Default dense backend.  The reference's opt-in "jax" scan is not ported
-#: (ROADMAP A6): asking for it, here or per call, raises.
+#: Default dense backend ("numpy" | "torch").  The torch path is opt-in:
+#: a float64 scan of segment-mins, one step per task row, which only wins
+#: on large state spaces; its objectives stay bit-identical to NumPy's
+#: (the same IEEE float64 adds, and min is exact).
 DENSE_BACKEND = os.environ.get("REPRO_DP_BACKEND", "numpy")
+
+#: Device of the torch backend's scan where a call names none: the card.
+DENSE_DEVICE = "cuda"
 
 _AUTO = object()  # sentinel: "build the transition table yourself"
 
@@ -370,15 +376,38 @@ class DPResult:
 # ---------------------------------------------------------------------------
 
 
-def _numpy_backend(backend: Optional[str]) -> str:
-    """Resolve ``backend`` (or ``REPRO_DP_BACKEND``); only NumPy is ported."""
+def _resolve_backend(backend: Optional[str]) -> str:
+    """``backend`` (or ``REPRO_DP_BACKEND``): "numpy" or "torch"."""
     backend = backend or DENSE_BACKEND
-    if backend == "jax":
-        raise NotImplementedError(
-            "dparrange backend='jax' (the float64 scan of repro.core.dparrange) is not "
-            "ported yet: ROADMAP A6"
+    if backend not in ("numpy", "torch"):
+        raise ValueError(
+            f"dparrange backend {backend!r}: the dense backends are 'numpy' and 'torch' "
+            "(the float64 segment-min scan)"
         )
     return backend
+
+
+def _torch_value_rows(nxt_pad, durs_pad, start_valid, num_states, device):
+    """All DP value rows by a float64 scan of segment-mins, one step per
+    task row: ``cand = prev + durs`` scattered by ``amin`` into
+    ``num_states + 1`` buckets, the last one the dump of invalid moves."""
+    import torch
+
+    S = num_states
+    dev = torch.device(device)
+    nxt = torch.as_tensor(nxt_pad, device=dev)
+    durs = torch.as_tensor(durs_pad, dtype=torch.float64, device=dev)
+    seg = torch.where(nxt >= 0, nxt, S).flatten(1)  # (m, K*S); S = dump bucket
+    prev = torch.full((S,), INF, dtype=torch.float64, device=dev)
+    if start_valid:
+        prev[0] = 0.0
+    rows = torch.empty((len(nxt_pad), S), dtype=torch.float64, device=dev)
+    for i in range(len(nxt_pad)):
+        cand = prev[None, :] + durs[i][:, None]
+        buckets = torch.full((S + 1,), INF, dtype=torch.float64, device=dev)
+        prev = buckets.scatter_reduce_(0, seg[i], cand.flatten(), reduce="amin")[:S]
+        rows[i] = prev
+    return rows.cpu().numpy()
 
 
 def dp_arrange_prefixes_dense(
@@ -387,6 +416,7 @@ def dp_arrange_prefixes_dense(
     table: Optional[TransitionTable] = None,
     backend: Optional[str] = None,
     weights: Optional[Sequence[float]] = None,
+    device: Optional[str] = None,
 ) -> Optional[List[Optional[DPResult]]]:
     """Vectorized :func:`dp_arrange_prefixes_ref`: one scatter-min per
     task row over the operator's dense transition table.
@@ -407,9 +437,10 @@ def dp_arrange_prefixes_dense(
     ``None`` is the unweighted paper objective, bit-identical to the
     pre-fairness code path.
     """
-    _numpy_backend(backend)
+    backend = _resolve_backend(backend)
     if np is None:
         return None
+    m = len(tasks)
     if table is None:
         ks = sorted({k for t in tasks for k in t.units})
         table = operator.transition_table(tuple(ks))
@@ -422,6 +453,24 @@ def dp_arrange_prefixes_dense(
     if table.start_valid:
         value[0] = 0.0
 
+    # Optional torch backend: compute all value rows in one scan, then
+    # share the numpy backtrace below.  Heterogeneous unit-set sizes are
+    # padded with invalid transitions (duration slot unused).
+    torch_rows = None
+    if backend == "torch" and m > 0:
+        kmax = max(len(t.units) for t in tasks)
+        nxt_pad = np.full((m, kmax, S), -1, dtype=np.int64)
+        durs_pad = np.zeros((m, kmax), dtype=np.float64)
+        for i, task in enumerate(tasks):
+            kidx = [table.k_index[k] for k in task.units]
+            nxt_pad[i, : len(kidx)] = table.next[kidx]
+            durs_pad[i, : len(kidx)] = task.durations
+            if weights is not None:
+                durs_pad[i, : len(kidx)] *= float(weights[i])
+        torch_rows = _torch_value_rows(
+            nxt_pad, durs_pad, table.start_valid, S, device or DENSE_DEVICE
+        )
+
     backptrs: List["np.ndarray"] = []  # per row: state -> flat (choice*S+prev)
     for i, task in enumerate(tasks):
         kidx = [table.k_index[k] for k in task.units]
@@ -430,7 +479,9 @@ def dp_arrange_prefixes_dense(
         if weights is not None:
             durs = durs * float(weights[i])  # objective-side only
         cand = value[None, :] + durs[:, None]  # (K, S)
-        if table.shift:
+        if torch_rows is not None:
+            new = torch_rows[i]
+        elif table.shift:
             # fungible units: transition k is a pure shift — use sliced
             # minimums instead of a scatter (same sums, much faster)
             new = np.full(S, INF)
@@ -533,7 +584,7 @@ def dp_arrange_prefixes(
     :func:`dp_arrange_prefixes_ref`.  Both paths return bit-identical
     objectives.
     """
-    backend = _numpy_backend(backend)
+    backend = _resolve_backend(backend)
     if table is not None:
         resolved: Optional[TransitionTable]
         if table is _AUTO:
@@ -541,7 +592,9 @@ def dp_arrange_prefixes(
             resolved = operator.transition_table(tuple(ks))
         else:
             resolved = table  # type: ignore[assignment]
-        if resolved is not None and _dense_worthwhile(tasks, resolved):
+        if resolved is not None and (
+            backend == "torch" or _dense_worthwhile(tasks, resolved)
+        ):
             dense = dp_arrange_prefixes_dense(
                 tasks, operator, resolved, backend, weights=weights
             )

@@ -70,16 +70,16 @@ class ResourceManager:
     :meth:`task_usage` / :meth:`check_occupancy`), and the plan-phase
     snapshot surface (:meth:`snapshot`, plus the wire codecs
     :meth:`snapshot_state` / :meth:`restore_snapshot` used by
-    :mod:`repro.core.wire` when plans leave the process).  See
+    :mod:`repro_torch.core.wire` when plans leave the process).  See
     ``docs/architecture.md`` ("Managers") and ``examples/remote_round.py``
     for a worked end-to-end use.
     """
 
-    #: Wire-codec family tag (see :func:`repro.core.wire.encode_snapshot`).
+    #: Wire-codec family tag (see :func:`repro_torch.core.wire.encode_snapshot`).
     #: Subclasses of a library manager inherit their family's codec; a
     #: new manager family that adds plan-relevant state must define its
     #: own tag + ``snapshot_state``/``restore_snapshot`` pair and
-    #: register it in :mod:`repro.core.wire`.
+    #: register it in :mod:`repro_torch.core.wire`.
     wire_impl = "pool"
 
     #: Does planning over this manager mutate it?  The plan phase only
@@ -287,7 +287,7 @@ class ResourceManager:
         return clone
 
     # ------------------------------------------------------------------
-    # wire snapshots (out-of-process plan phase, repro.core.wire)
+    # wire snapshots (out-of-process plan phase, repro_torch.core.wire)
     # ------------------------------------------------------------------
     def snapshot_state(self) -> Dict[str, object]:
         """Plain-dict (JSON-able) encoding of the plan-phase free state.

@@ -233,10 +233,9 @@ class CpuManager(ResourceManager):
             for idx, patch in patches.items():
                 i = int(idx)
                 if not 0 <= i < len(nodes):
-                    raise NotImplementedError(
-                        f"cpu snapshot delta patches node {i} of {len(nodes)}; the wire "
-                        "codec's WireError is not ported yet: ROADMAP A4c"
-                    )
+                    from repro_torch.core.wire import WireError
+
+                    raise WireError(f"cpu snapshot delta patches node {i} of {len(nodes)}")
                 nodes[i].update(patch)
             state["nodes"] = nodes
         return state

@@ -478,10 +478,9 @@ class GpuManager(ResourceManager):
         allocators = {n: dict(a) for n, a in state.get("allocators", {}).items()}
         for name, ad in patches.items():
             if name not in allocators:
-                raise NotImplementedError(
-                    f"gpu snapshot delta patches unknown allocator {name!r}; the wire "
-                    "codec's WireError is not ported yet: ROADMAP A4c"
-                )
+                from repro_torch.core.wire import WireError
+
+                raise WireError(f"gpu snapshot delta patches unknown allocator {name!r}")
             a = allocators[name]
             if "free" in ad:
                 free = {lvl: list(starts) for lvl, starts in a.get("free", {}).items()}

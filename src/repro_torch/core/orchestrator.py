@@ -170,7 +170,7 @@ class CommitEngine:
     in global sorted partition order on the orchestrator thread.
 
     ``commit_mode="worker"`` swaps in
-    :class:`~repro.core.remote.WorkerCommitEngine`: remote workers hold
+    :class:`~repro_torch.core.remote.WorkerCommitEngine`: remote workers hold
     the *authoritative* manager replicas for the rtypes they own (under
     epoch-stamped ownership leases) and commit becomes a two-phase
     prepare → intent/ack → commit|abort exchange over the wire, with
@@ -295,11 +295,11 @@ class Orchestrator:
         # ``transport`` — "loopback" plans in-process through the full
         # wire codecs, "process" spawns real workers, or a callable
         # ``shard_idx -> ShardTransport`` such as
-        # repro.core.transport.socket_fleet for workers on other
+        # repro_torch.core.transport.socket_fleet for workers on other
         # machines; ``wire_codec`` — "binary" compact frames or "json"
         # v1 text).  Plans are identical in every mode and codec, and a
         # lost worker's partitions fall back to inline planning (see
-        # repro.core.remote).
+        # repro_torch.core.remote).
         self.shards = shards
         self._executor = (
             RoundExecutor(
@@ -321,14 +321,20 @@ class Orchestrator:
         # client-serial walk.
         if commit_mode not in ("client", "worker"):
             raise ValueError(f"unknown commit_mode {commit_mode!r}")
-        if commit_mode == "worker":
-            raise NotImplementedError(
-                "commit_mode='worker' (repro.core.remote's worker-owned commit) is not "
-                "ported yet: ROADMAP A4c"
-            )
         self.commit_mode = commit_mode
         self.commit_max_passes = int(commit_max_passes)
-        self._commit_engine: CommitEngine = CommitEngine(self)
+        if commit_mode == "worker":
+            if self._executor is None or self._executor._remote is None:
+                raise ValueError(
+                    "commit_mode='worker' requires shards=N with plan_mode='remote'"
+                )
+            from repro_torch.core.remote import WorkerCommitEngine
+
+            self._commit_engine: CommitEngine = WorkerCommitEngine(
+                self, self._executor._remote
+            )
+        else:
+            self._commit_engine = CommitEngine(self)
         self.stats: Dict[str, int] = {
             "rounds": 0,
             "partition_runs": 0,
@@ -816,7 +822,7 @@ class Orchestrator:
         shared orchestrator state — safe to run from a plan thread.  The
         plan core itself (:func:`repro_torch.core.shards.plan_partition`) is a
         free function shared verbatim with the out-of-process
-        :class:`~repro.core.remote.RemoteShardWorker`, which is what
+        :class:`~repro_torch.core.remote.RemoteShardWorker`, which is what
         keeps remote plans bit-identical to inline ones."""
         queue = self._queues.get(part)
         if not queue:
@@ -979,7 +985,7 @@ class Orchestrator:
 
         The DES completes by clock: a single timer at the modeled finish
         instant.  This is the live-mode seam — a live orchestrator
-        (:class:`repro.core.live.LiveOrchestrator`) overrides this one
+        (:class:`repro_torch.core.live.LiveOrchestrator`) overrides this one
         method to run the action's real payload on a worker thread and
         complete when the work actually returns, leaving every other
         lifecycle path (withdraw, deadline, retry, telemetry) shared."""

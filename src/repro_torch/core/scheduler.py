@@ -145,8 +145,8 @@ class ElasticScheduler:
         # manager's free state, so they are LRU-cached on dp_cache_key
         # and shared across rounds AND across different task profiles
         # (unlike the prefix-result memo above, which also keys the task
-        # tuple).  ``dense_backend``: None -> numpy; "jax" -> jitted
-        # segment-min scan for large state spaces.
+        # tuple).  ``dense_backend``: None -> numpy; "torch" -> float64
+        # segment-min scan for large state spaces, on the card.
         self.use_dense = True
         self.dense_backend: Optional[str] = None
         self.table_cache_max = 256

@@ -108,7 +108,7 @@ class PartitionPlan:
 # ---------------------------------------------------------------------------
 # The plan core — shared verbatim by the serial loop, the in-process
 # sharded plan phase, AND the out-of-process RemoteShardWorker
-# (repro.core.remote).  Keeping it a free function over explicit inputs
+# (repro_torch.core.remote).  Keeping it a free function over explicit inputs
 # is what guarantees remote plans are bit-identical to inline ones:
 # there is exactly one implementation to diverge from.
 # ---------------------------------------------------------------------------
@@ -202,7 +202,7 @@ def plan_partition(
 # verbatim by the client-serial commit engine (Orchestrator._launch) and
 # the worker-owned commit engine (a RemoteShardWorker committing a
 # round's intents against the authoritative replicas it holds a lease
-# on — repro.core.remote).  Like the plan core above, keeping these free
+# on — repro_torch.core.remote).  Like the plan core above, keeping these free
 # functions over explicit inputs is what makes worker-side commits
 # bit-identical to client-serial ones: one implementation, zero drift.
 # ---------------------------------------------------------------------------
@@ -439,9 +439,13 @@ class RoundExecutor:
     * ``"auto"`` — pick between the two per round from a measured
       per-partition plan-cost EWMA (see :data:`AUTO_THREADS_CUTOVER_S`);
       every decision is logged in ``Telemetry.plan_mode_rounds``;
-    * ``"remote"`` — each shard's plan phase in a
-      :class:`~repro.core.remote.RemoteShardWorker`: not ported yet
-      (ROADMAP A4c), so it raises.
+    * ``"remote"`` — each shard's plan phase runs in a
+      :class:`~repro_torch.core.remote.RemoteShardWorker` behind a
+      :class:`~repro_torch.core.remote.ShardTransport` (snapshots and plans
+      cross a serialization boundary; shard frames are dispatched
+      pipelined — shard *i+1* encodes while shard *i* is in flight —
+      against workers holding resident replicas refreshed in place;
+      see :mod:`repro_torch.core.remote`).
 
     Plans are deterministic — identical in every mode."""
 
@@ -468,14 +472,16 @@ class RoundExecutor:
         # same EWMA kept per partition: a rebalance policy's signal for
         # how expensive each partition's plan phases are where they run
         self.plan_cost_by_part: Dict[str, float] = {}
+        self._remote = None
         if plan_mode == "remote":
-            raise NotImplementedError(
-                "plan_mode='remote' (repro.core.remote's shard workers) is not ported "
-                "yet: ROADMAP A4c"
-            )
+            from repro_torch.core.remote import RemoteRoundClient
+
+            self._remote = RemoteRoundClient(orch, transport, codec=wire_codec)
 
     def close(self) -> None:
-        """Shut down any out-of-process shard workers: in-process, none."""
+        """Shut down any out-of-process shard workers (idempotent)."""
+        if self._remote is not None:
+            self._remote.close()
 
     # ------------------------------------------------------------------
     def assign(self, keys: Sequence[str]) -> List[List[str]]:
@@ -495,6 +501,12 @@ class RoundExecutor:
         the maximum per-shard plan time."""
         groups = self.assign(keys)
         telemetry = self.orch.telemetry
+        if self._remote is not None:
+            plans, critical = self._remote.plan_round(groups)
+            plans.sort(key=lambda p: p.part)
+            self._note_plan_costs(plans)
+            return plans, critical
+
         mode = self.plan_mode
         if mode == "auto":
             mode = self._auto_mode(groups)

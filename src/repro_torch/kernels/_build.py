@@ -5,7 +5,9 @@ under the repository root, compiled for Hopper (``sm_90a``) with a plain C
 interface.  The hash is taken over the source and the shared headers
 (``csrc/*.cuh``), so an edited kernel is rebuilt and a stale library is
 never loaded.  Libraries build on first use; ``build_all`` starts one
-nvcc per source at once.  Nothing here runs at import time.
+nvcc per source at once; ``load`` builds and loads under a lock, so threads
+that first call a kernel together run one nvcc.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -30,6 +33,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # threads that first call a kernel together build it once
 
 
 def _nvcc() -> str:
@@ -97,12 +101,15 @@ def load(name: str) -> ctypes.CDLL:
     """
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_library_path(name)))
-        err_fn = getattr(lib, f"{name}_error_string")
-        err_fn.argtypes = [ctypes.c_int]
-        err_fn.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(str(_library_path(name)))
+                err_fn = getattr(lib, f"{name}_error_string")
+                err_fn.argtypes = [ctypes.c_int]
+                err_fn.restype = ctypes.c_char_p
+                _loaded[name] = lib
     return lib
 
 

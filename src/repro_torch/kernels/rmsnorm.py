@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -30,6 +31,7 @@ launches = 0  # forward
 bwd_launches = 0  # dx, warp route
 bwd_wide_launches = 0  # dx, past D 2048 (ring and block routes)
 dweight_launches = 0
+_count_lock = threading.Lock()  # live mode launches the forward from a thread per pool
 
 BWD_WARP_MAX_DIM = 2048  # warp route: the row lives in one warp's registers, 64 elements a lane
 BWD_MAX_DIM = 8192  # wider routes: up to 4 16-byte chunks of a row a thread (block: 32 elements)
@@ -118,7 +120,8 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-5) -> torc
         return out
     err = _entries()[0](DTYPES[x.dtype], x.data_ptr(), weight.data_ptr(), out.data_ptr(), T, D,
                         x.stride(0), eps, torch._C._cuda_getCurrentRawStream(x.device.index))
-    launches += 1
+    with _count_lock:
+        launches += 1
     _build.check("rmsnorm", err)
     return out
 

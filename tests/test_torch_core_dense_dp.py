@@ -1,7 +1,8 @@
 """The port's copy of the control plane (``repro_torch.core``) under the
 reference suite ``tests/test_dense_dp.py``, imports rewritten, each case kept;
-``test_jax_backend_matches_ref`` becomes ``test_jax_backend_raises_naming_a6``
-(the jax backend is not ported: ROADMAP A6).
+``test_jax_backend_matches_ref`` becomes ``test_torch_backend_matches_ref`` (the
+port's dense scan is ``backend="torch"``), and ``test_jax_backend_raises_naming_a6``
+holds that ``backend="jax"`` is refused.
 
 The reference suite's own description follows.
 
@@ -176,20 +177,44 @@ def test_state_limit_falls_back_to_ref(monkeypatch):
     assert got[1].total_duration == want[1].total_duration
 
 
+def _torch_backend_cases():
+    """``tests/test_dense_dp.py::test_jax_backend_matches_ref``'s cases: ten
+    basic-operator instances, then one on the GPU chunk operator."""
+    rng = random.Random(3)
+    for _ in range(10):
+        capacity = rng.randint(1, 16)
+        tasks = _random_tasks(rng, rng.randint(1, 4), list(range(1, 9)))
+        yield tasks, lambda c=capacity: BasicDPOperator(c), capacity
+    tasks = _random_tasks(rng, 3, [1, 2, 4, 8])
+    yield tasks, lambda: GpuChunkDPOperator((8, 4, 2, 1), total_devices=8), None
+
+
+def test_torch_backend_matches_ref():
+    """The float64 torch scan (on the CPU here) against the sparse reference,
+    as the reference's jax backend is held, and against the NumPy path bit for
+    bit: the same objectives and the same backtraced allocations."""
+    for tasks, op, capacity in _torch_backend_cases():
+        ref = dp_arrange_prefixes_ref(tasks, op())
+        dense = dp_arrange_prefixes_dense(tasks, op(), backend="torch", device="cpu")
+        _assert_prefixes_equivalent(tasks, ref, dense, capacity=capacity)
+        assert dense == dp_arrange_prefixes_dense(tasks, op(), backend="numpy")
+
+
 def test_jax_backend_raises_naming_a6(monkeypatch):
-    """The reference's float64 jax scan is not ported: asking for it, per
-    call, through the scheduler or through REPRO_DP_BACKEND, raises; no
-    call quietly takes the NumPy path instead."""
+    """The reference's ``backend="jax"`` is the port's ``"torch"`` (ROADMAP
+    A6): asking for jax, per call, through the scheduler or through
+    REPRO_DP_BACKEND, raises a ValueError that names ``torch``; no call
+    quietly takes the NumPy path instead."""
     import repro_torch.core.dparrange as dpmod
 
     rng = random.Random(3)
     tasks = _random_tasks(rng, 3, list(range(1, 9)))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="torch"):
         dp_arrange_prefixes_dense(tasks, BasicDPOperator(8), backend="jax")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="torch"):
         dp_arrange_prefixes(tasks, BasicDPOperator(8), backend="jax")
     # a small instance the dispatcher would send to the sparse reference
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="torch"):
         dp_arrange_prefixes(tasks[:1], BasicDPOperator(64), backend="jax")
     sched = ElasticScheduler()
     sched.dense_backend = "jax"
@@ -200,13 +225,46 @@ def test_jax_backend_raises_naming_a6(monkeypatch):
                base_duration=10.0, service="rm")
         for i in range(3)
     ]
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="torch"):
         sched.schedule(acts, [], {"gpu": gpu}, 0.0)
     monkeypatch.setattr(dpmod, "DENSE_BACKEND", "jax")  # as REPRO_DP_BACKEND=jax sets it
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="torch"):
         dp_arrange_prefixes_dense(tasks, BasicDPOperator(8))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="torch"):
         dp_arrange(tasks, BasicDPOperator(8))
+
+
+def test_torch_backend_through_the_scheduler_and_env(monkeypatch):
+    """``dense_backend="torch"`` on the scheduler, and REPRO_DP_BACKEND=torch
+    with the scan's device set to the CPU, decide exactly as the NumPy path does."""
+    import repro_torch.core.dparrange as dpmod
+
+    def decide(backend):
+        sched = ElasticScheduler()
+        sched.dense_backend = backend
+        gpu = GpuManager([GpuNodeSpec("g0")], [ServiceSpec("rm", 40.0)])
+        acts = [
+            Action(name=f"s{i}", cost={"gpu": ResourceRequest("gpu", (1, 2, 4, 8))},
+                   key_resource="gpu", elasticity=AmdahlElasticity(0.1),
+                   base_duration=10.0 + i, service="rm")
+            for i in range(5)
+        ]
+        res = sched.schedule(acts, [], {"gpu": gpu}, 0.0)
+        return [(d.action.name, d.units) for d in res.decisions]
+
+    want = decide(None)
+    tasks = _random_tasks(random.Random(5), 3, [1, 2, 4, 8])
+    want_dp = dp_arrange_prefixes_dense(tasks, BasicDPOperator(8), backend="numpy")
+    monkeypatch.setattr(dpmod, "DENSE_DEVICE", "cpu")
+    scans = []
+    scan = dpmod._torch_value_rows
+    monkeypatch.setattr(dpmod, "_torch_value_rows",
+                        lambda *a: scans.append(a[-1]) or scan(*a))
+    assert decide("torch") == want
+    assert scans and set(scans) == {"cpu"}  # the torch scan ran, on the CPU
+    monkeypatch.setattr(dpmod, "DENSE_BACKEND", "torch")  # as REPRO_DP_BACKEND=torch sets it
+    assert decide(None) == want
+    assert dp_arrange(tasks, BasicDPOperator(8)) == want_dp[-1]
 
 
 # ---------------------------------------------------------------------------

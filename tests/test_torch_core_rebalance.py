@@ -1,7 +1,5 @@
 """The port's copy of the control plane (``repro_torch.core``) under the
-reference suite ``tests/test_rebalance.py``, imports rewritten, each case kept
-but ``test_straggler_worker_flips_rebalance_source``, which needs the socket
-shard workers and scenarios of the remote half (ROADMAP A4c).
+reference suite ``tests/test_rebalance.py``, imports rewritten, each case kept.
 
 The reference suite's own description follows.
 
@@ -21,7 +19,13 @@ from repro_torch.core.fairqueue import FairSharePolicy
 from repro_torch.core.managers.base import ResourceManager
 from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.core.rebalance import RebalancePolicy, RebalanceSignals
+from repro_torch.core.scenarios import (
+    build_managers,
+    install_scenario,
+    straggler_fleet_spec,
+)
 from repro_torch.core.simulator import EventLoop
+from repro_torch.core.transport import WorkerServer, socket_fleet
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +269,88 @@ class TestRebalanceCadence:
         orch.run()
         assert orch.telemetry.rebalance_ticks > 0
         orch.close()
+
+    def test_straggler_worker_flips_rebalance_source(self):
+        """Remote-path straggler injection, end to end: the scenario
+        fault schedule marks one socket worker a plan-phase straggler,
+        the worker's inflated per-partition plan walls feed the
+        client's plan-cost EWMA, and the rebalance source pick follows
+        the EWMA off the straggled worker's pool.
+
+        The non-vacuity gate is the symmetric flip.  Depth and
+        starvation tie across the two loaded pools by construction, and
+        the policy's final name tiebreak is *fixed* (``max`` on the
+        name picks pool1) — so a first move sourced from **pool0** when
+        worker 0 straggles is only reachable through the plan-cost
+        signal, and the mirrored run (worker 1 -> pool1) proves the
+        pick tracks the fault rather than any constant bias."""
+        for straggled in (0, 1):
+            moves, costs, served = self._run_straggled_fleet(straggled)
+            src_pool = f"pool{straggled}"
+            other_pool = f"pool{1 - straggled}"
+            assert moves, "rebalance never moved anything"
+            task, src, dst = moves[0]
+            assert src == src_pool  # load migrates OFF the straggler
+            assert dst == "pool2"  # ... onto the idle sink
+            assert task.startswith(f"t{src_pool}")
+            # the signal that decided it: the straggled worker's pool
+            # shows an EWMA dominated by the injected delay, the healthy
+            # worker's does not (4ms injected vs ~tens of us measured)
+            assert costs[src_pool] > 10 * costs[other_pool]
+            assert costs[src_pool] > 0.002
+            # and the migration really ran: the sink served real work
+            # while the straggled pool served less than the healthy one
+            assert served.get("pool2", 0) > 0
+            assert served[src_pool] < served[other_pool]
+
+    @staticmethod
+    def _run_straggled_fleet(straggler_worker):
+        """One scenario-driven run over a two-worker socket fleet; the
+        spec's fault schedule decides which endpoint straggles."""
+
+        class _RecordingPolicy(RebalancePolicy):
+            def __init__(self):
+                super().__init__()
+                self.moves = []
+                self.first_costs = None
+
+            def decide(self, sig, replicas):
+                out = super().decide(sig, replicas)
+                if out and self.first_costs is None:
+                    self.first_costs = dict(sig.plan_cost_s)
+                self.moves.extend(out)
+                return out
+
+        spec = straggler_fleet_spec(straggler_worker=straggler_worker)
+        (fault,) = spec.stragglers()
+        servers = [
+            WorkerServer(
+                plan_delay_s=fault.plan_delay_s if w == fault.worker else 0.0
+            )
+            for w in range(2)
+        ]
+        try:
+            loop = EventLoop()
+            orch = Orchestrator(
+                build_managers(spec, loop), loop=loop, incremental=True,
+                shards=2, plan_mode="remote",
+                transport=socket_fleet([s.addr for s in servers]),
+            )
+            policy = _RecordingPolicy()
+            orch.enable_rebalance([p.name for p in spec.pools], policy=policy)
+            install_scenario(spec, orch)
+            orch.run()
+            served = {}
+            for r in orch.telemetry.records:
+                for pool in r.units:
+                    served[pool] = served.get(pool, 0) + 1
+            assert orch.queue_depth() == 0
+            assert orch.telemetry.rebalance_moves == len(policy.moves)
+            orch.close()
+            return policy.moves, policy.first_costs or {}, served
+        finally:
+            for s in servers:
+                s.close()
 
     def test_signals_snapshot_live_state(self):
         orch = _fleet(rebalance=True)

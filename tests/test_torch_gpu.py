@@ -659,3 +659,47 @@ def test_live_grpo_step_launches(cuda):
     gpu = tangram.managers["gpu"]
     assert gpu.stats["hits"] + gpu.stats["misses"] == n
     assert np.isfinite(rep.grpo_loss) and np.all(rep.judge_s > 0)
+
+
+def test_live_smoke_on_cuda_streams(cuda):
+    """Live mode on the card: one CUDA stream per pool, the RMSNorm kernel as
+    every payload; the sim's structural trace, every launch counted by the
+    kernel's own counter, and each stream's last output held to 1e-5."""
+    from repro_torch.core.live import ensure_devices, run_live_scenario
+    from repro_torch.core.orchestrator import Orchestrator
+    from repro_torch.core.scenarios import (
+        build_fair_share, build_managers, compile_scenario, install_scenario, live_smoke_spec,
+        structural_trace)
+    from repro_torch.core.scheduler import ElasticScheduler
+    from repro_torch.core.simulator import EventLoop
+
+    compiled = compile_scenario(live_smoke_spec(), time_scale=0.05)
+    loop = EventLoop()
+    sim = Orchestrator(build_managers(compiled.spec, loop), loop=loop, policy=ElasticScheduler(),
+                       fair_share=build_fair_share(compiled.spec), incremental=True)
+    install_scenario(compiled, sim)
+    sim.run()
+    streams = ensure_devices(4, "cuda")
+    assert all(isinstance(s, torch.cuda.Stream) for s in streams)
+    before = ops.launch_counts()["rmsnorm"]
+    live = run_live_scenario(compiled, devices=streams, wall_limit_s=60.0)
+    launched = ops.launch_counts()["rmsnorm"] - before
+    assert structural_trace(live.telemetry.records) == structural_trace(sim.telemetry.records)
+    payload = live.payload
+    assert sorted(payload.launches) == [0, 1, 2, 3] and min(payload.launches.values()) > 0
+    assert launched == sum(payload.launches.values()) + len(streams)  # and one warm-up each
+    for x, w, out in payload.outputs.values():
+        assert out.is_cuda and out.dtype == torch.float32
+        close(out, ref.rmsnorm_ref(x, w), 1e-5)
+
+
+def test_dense_dp_torch_scan_on_the_card(cuda):
+    """The dense DP's float64 scan on the card, bit-identical to the NumPy path
+    on ``tests/test_dense_dp.py::test_jax_backend_matches_ref``'s cases (the
+    CPU test's ``_torch_backend_cases``)."""
+    from repro_torch.core.dparrange import dp_arrange_prefixes_dense
+    from test_torch_core_dense_dp import _torch_backend_cases
+
+    for tasks, op, _ in _torch_backend_cases():
+        got = dp_arrange_prefixes_dense(tasks, op(), backend="torch", device="cuda")
+        assert got == dp_arrange_prefixes_dense(tasks, op(), backend="numpy")

@@ -33,7 +33,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                     "repro_torch.serving.reward_service",
                     "repro_torch.examples.agentic_rl_e2e", "repro_torch.models.encdec",
                     "repro_torch.examples.train_lm", "repro_torch.configs.whisper_medium",
-                    "repro_torch.configs.internvl2_1b", "repro_torch.configs.llama3_8b"):
+                    "repro_torch.configs.internvl2_1b", "repro_torch.configs.llama3_8b",
+                    "repro_torch.core.wire", "repro_torch.core.remote",
+                    "repro_torch.core.transport", "repro_torch.core.scenarios",
+                    "repro_torch.core.live", "repro_torch.examples.quickstart",
+                    "repro_torch.examples.remote_round",
+                    "repro_torch.examples.worker_commit_round",
+                    "repro_torch.examples.multi_host_round"):
         assert present in modules, present
     code = (
         "import importlib, sys\n"
@@ -45,6 +51,27 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     res = run(["-c", code], ROOT, {"PYTHONPATH": str(SRC)})
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "CLEAN", res.stdout
+
+
+def test_shard_worker_entry_point_loads_no_jax_and_nothing_of_repro():
+    """``python -m repro_torch.core.transport`` (the port's shard worker) with
+    ``--help``: it answers, and neither jax nor the JAX package was loaded."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['repro_torch.core.transport', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.core.transport', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print('LEAKED', bad) if bad else print('CLEAN')\n"
+    )
+    res = run(["-c", code], ROOT, {"PYTHONPATH": str(SRC)})
+    assert res.returncode == 0, res.stderr
+    assert "--port" in res.stdout and res.stdout.strip().endswith("CLEAN"), res.stdout
+    res = run(["-m", "repro_torch.core.transport", "--help"], ROOT, {"PYTHONPATH": str(SRC)})
+    assert res.returncode == 0 and "shard" in res.stdout, res.stderr
 
 
 def test_chip_smoke_imports_no_jax():

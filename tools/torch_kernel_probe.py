@@ -14,6 +14,7 @@
     python3 tools/torch_kernel_probe.py rms-parts      # the wide RMSNorm dx with parts taken out
     python3 tools/torch_kernel_probe.py ssd-roles   # ssd_intra_chunk's y and state blocks alone
     python3 tools/torch_kernel_probe.py ssm-check   # mamba2's bf16 decode-vs-forward reading
+    python3 tools/torch_kernel_probe.py live-rate   # live mode's payload loop on 1 and 4 threads
 
 ``time`` checks each kernel against its plain version and times it as
 ``chip_smoke.py`` does (CUDA events behind a device sleep), at the serving
@@ -87,7 +88,11 @@ blocks do, and times each beside the whole kernel.
 step against a full forward, seeded weights) with the kernel, with the
 plain version, and with the plain version's f32 outputs perturbed by
 relative Gaussian noise before rounding, to show how far the reading moves
-with changes far below bf16's precision.  Run from the repository root.
+with changes far below bf16's precision.
+``live-rate`` runs live mode's RMSNorm payload (f32 [64, 64], one CUDA
+stream a pool, a launch and a stream wait an iteration) for 0.25 s on one
+thread, then on four threads at once, each on its own stream, and prints
+the iterations a second of each thread.  Run from the repository root.
 """
 
 from __future__ import annotations
@@ -907,10 +912,34 @@ def ssm_check(gen):
         ops.ssd_intra_chunk_op = kernel
 
 
+def live_rate(gen):
+    """Live mode's payload loop: launch-and-wait iterations a second, one thread against four."""
+    import threading
+
+    from repro_torch.core.live import ensure_devices, kernel_payload_factory, warm_devices
+    from repro_torch.core.scenarios import ActionTemplate
+
+    streams = ensure_devices(4)
+    warm_devices(streams)
+    for n_threads in (1, len(streams)):
+        payloads = kernel_payload_factory(streams, {f"p{k}": k for k in range(len(streams))})
+        fns = [payloads(ActionTemplate(name="probe", rtype=f"p{k}", units=(1,), base_duration=0.25))
+               for k in range(n_threads)]
+        threads = [threading.Thread(target=fn) for fn in fns]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        print(f"[live-rate] {n_threads} thread(s) at once for 0.25 s: "
+              f"{[payloads.launches[k] * 4 for k in range(n_threads)]} launch-and-wait iterations "
+              f"a second a stream")
+
+
 def main() -> int:
     modes = {"time": time_kernels, "moe": time_moe, "moe-parts": moe_parts, "bwd": time_backward,
              "ssd-bwd": time_ssd_bwd, "ssd-sass": ssd_sass, "ssd-parts": ssd_parts, "bwd-parts": bwd_parts, "ssd-roles": ssd_roles, "ssm-check": ssm_check,
-             "moe-bwd-tiles": moe_bwd_tiles, "moe-bwd-fma": moe_bwd_fma, "rms-parts": rms_parts}
+             "moe-bwd-tiles": moe_bwd_tiles, "moe-bwd-fma": moe_bwd_fma, "rms-parts": rms_parts,
+             "live-rate": live_rate}
     if len(sys.argv) not in (2, 4) or sys.argv[1] not in modes or (len(sys.argv) == 4 and sys.argv[2] != "--tree"):
         print(__doc__, file=sys.stderr)
         return 2
