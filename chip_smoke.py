@@ -112,7 +112,20 @@ Phases, each of which raises on failure (nothing is caught):
    ``smollm-360m``, one GRPO and one LM step's loss and gradients; for the
    reduced ``granite-moe-3b-a800m``, ``mamba2-130m``, ``hymba-1.5b``,
    ``internvl2-1b``, ``whisper-medium``, ``llama3-8b`` and ``glm4-9b``, one
-   LM step's loss and gradients with its exact launch counts.
+   LM step's loss and gradients with its exact launch counts;
+10. the multi-device layer (``[mesh]``): six gloo ranks on a (data 2, model 3)
+   ``DeviceMesh``, all on the one card (``launch.mesh.run_ranks``; NCCL
+   refuses two ranks on one device), serve ``granite-moe-3b-a800m`` (its
+   drop-free copy) and ``llama3.2-1b`` at full width in bf16, f32 copies of
+   both (granite at 8 of its layers), and the reduced ``kimi-k2-1t-a32b``
+   through ``Engine`` with the rules, and take one train step each of the
+   reduced granite (10 experts) and llama3.2-1b; each rank's launches must
+   be ``path_launches``'s, the parent holds the logits, losses and
+   gradients against the same weights unsharded on the card and every
+   (kernel, shape) a rank launched against its plain version, and prints
+   each rank's peak memory, walls (gloo through one host: not multi-card
+   speed) and collectives by kind; then the dry-run of granite's train_4k
+   on the 16 x 16 mesh once.
 
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -123,11 +136,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import math
+import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import ExitStack, nullcontext
 from pathlib import Path
@@ -624,6 +640,324 @@ def hold_unchecked(label, shapes, checked, hold):
     return held
 
 
+# the shape key of each recorded wrapper's call, its dtype last
+def flash_key(q, k, v, *_, causal=True, **__):
+    return (*q.shape[:2], k.shape[1], *q.shape[2:], causal, q.dtype)
+
+
+def rms_key(x, *_, **__):
+    return (*x.shape, x.dtype)
+
+
+def ssd_key(x, b, *_):
+    return (*x.shape, b.shape[2], x.dtype)
+
+
+def moe_key(buf, w, *_, **__):
+    return (*buf.shape, w.shape[2], buf.dtype)
+
+
+def kernel_wrappers(train=False):
+    """(module, wrapper, shape key) of the forward wrappers that serving records, or with
+    ``train`` of every wrapper a training step launches (moe_matmul's forward among them)."""
+    from repro_torch.kernels import flash_attention as flash_k
+    from repro_torch.kernels import moe_matmul as moe_k
+    from repro_torch.kernels import rmsnorm as rms_k
+    from repro_torch.kernels import ssd_scan as ssd_k
+
+    fwd = ((flash_k, "flash_attention", flash_key), (rms_k, "rmsnorm", rms_key),
+           (ssd_k, "ssd_intra_chunk", ssd_key))
+    if not train:
+        return fwd
+    return (*fwd, (moe_k, "moe_matmul", moe_key), (flash_k, "flash_attention_bwd", flash_key),
+            (rms_k, "rmsnorm_bwd", rms_key), (moe_k, "moe_matmul_bwd", moe_key),
+            (ssd_k, "ssd_intra_chunk_bwd", ssd_key))
+
+
+def recording(shapes, wrappers):
+    """Patches that add (wrapper, shape key) to ``shapes`` at every call of the wrappers."""
+    stack = ExitStack()
+    for mod, fname, key in wrappers:
+        def call(*a, _fn=getattr(mod, fname), _name=fname, _key=key, **kw):
+            shapes.add((_name, _key(*a, **kw)))
+            return _fn(*a, **kw)
+
+        stack.enter_context(mock.patch.object(mod, fname, call))
+    return stack
+
+
+# phase 10: six ranks share the card on a (data 2, model 3) mesh over gloo (NCCL refuses two
+# ranks on one device).  Serving, generation 4 x (128 prompt + 9 new: one prefill and 8 decode
+# steps) with the caches 138 long (a multiple of the model extent, so that their sequence shards
+# on it): granite at full width in bf16 at 8 of its 32 layers, on a copy of its config whose
+# capacity drops nothing, as phase 4's checks run it (its 40 experts pad to 42, 14 a model rank),
+# and llama3.2-1b at full width and depth in bf16 (32 H / 8 KV pad to 9 KV x g 4, 12 heads a
+# rank); f32 copies of both held to summation order; the reduced f32 kimi.  One train step each
+# of the reduced f32 granite with 10 experts (padded to 12) and the reduced llama3.2-1b on 4 x 64
+# tokens.  The MoE configs drop nothing: where capacity drops assignments, each data shard's own
+# capacity drops others than the global one does, in JAX too (tests/test_torch_sharded_
+# equivalence.py holds the dropping dispatch against JAX's on (2, 3) and (2, 4); PERF.md gives
+# the drops that the capacity factor 4.0 makes in the train step's config).
+# (label, arch, seed, dtype, layers or None for the config's depth)
+MESH_SHAPE, MESH_WORLD = (2, 3), 6
+MESH_NEW, MESH_CACHE = 9, 138
+MESH_SERVE = (("granite-moe-3b-a800m 8L", "granite-moe-3b-a800m", 21, "bfloat16", 8),
+              ("llama3.2-1b", "llama3.2-1b", 22, "bfloat16", None),
+              ("granite-moe-3b-a800m f32 8L", "granite-moe-3b-a800m", 21, "float32", 8),
+              ("llama3.2-1b f32", "llama3.2-1b", 22, "float32", None),
+              ("kimi-k2-1t-a32b reduced", "kimi-k2-1t-a32b", 23, "float32", None))
+MESH_TRAIN = (("granite-moe-3b-a800m reduced E10", "granite-moe-3b-a800m", 24, "float32", None),
+              ("llama3.2-1b reduced", "llama3.2-1b", 25, "float32", None))
+MESH_TRAIN_SHAPE = (4, 64)
+MESH_GRAD_TOL = 2e-4  # sharded vs unsharded train step: loss (abs) and each gradient (rel. to max)
+# bf16 generation, sharded vs unsharded on the same weights, each row until its tokens part:
+# 1.5x the largest reading of `tools/torch_mesh_probe.py bf16` over seeds 21, 22, 31-34 (granite
+# 0.0571-0.0811, llama3.2-1b 0.0945-0.1112; llama's own bf16 forward, batch 4 against each row
+# alone, differs from itself by 0.097-0.104 on the same seeds).
+MESH_BF16_TOL = {"moe": 0.12, "dense": 0.17}
+# ... and the sharded bf16 logits, against an f32 forward of the same weights teacher-forced on
+# their tokens, may lie at most this many times as far from it as the unsharded bf16 logits do
+# (0.796-1.423 over the same twelve readings).
+MESH_ANCHOR_RATIO = 2.0
+
+
+def mesh_config(label, arch, dtype, layers):
+    """The config phase 10 runs under ``label``: full width, or reduced where the label says so
+    (granite's reduced copy with 10 experts); MoE copies drop nothing (capacity factor E / K)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if "reduced" in label:
+        cfg = cfg.reduced()
+        if "E10" in label:
+            cfg = dataclasses.replace(cfg, num_experts=10)
+    cfg = dataclasses.replace(cfg, dtype=dtype, num_layers=layers or cfg.num_layers)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    return cfg
+
+
+def mesh_batch(cfg, seed, shape):
+    """Tokens drawn on the CPU from ``seed`` (equal on every rank and in the parent)."""
+    import torch
+
+    return torch.randint(0, cfg.vocab_size, shape, generator=torch.Generator().manual_seed(seed))
+
+
+def mesh_rank(rank, world, shape, device, serve, train):
+    """One rank of phase 10 (started by ``run_ranks``): the sharded serving runs of ``serve`` and
+    train steps of ``train`` ((label, seed, config) each), each with the launch counts set to 0
+    just before it and read just after, every (kernel, shape) it launches recorded, and the
+    collectives of one prefill, one decode step and one train step counted.  Returns what the
+    parent checks (rank 0 also the logits, the loss and the gradients)."""
+    import logging
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    warnings.filterwarnings("ignore")
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.dryrun import CollectiveCounter
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Engine, GenerationConfig
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.training import AdamWConfig
+    from repro_torch.training.optimizer import adamw_update, init_adamw
+    from repro_torch.training.train_step import grads_of
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        for k in _build.KERNELS:
+            _build.load(k)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rules = make_rules(device_mesh(dev.type, shape, ("data", "model")))
+    out = {"shapes": set(), "launches": {}, "walls": {}, "collectives": {}, "peak_gib": {}}
+
+    def run(label, fn, engine=None):
+        """``fn`` with the launch counts set to 0 just before it and read just after, and its
+        collectives counted (one prefill and one decode step apart, through ``engine``)."""
+        sync()
+        dist.barrier()
+        ops.reset_launch_counts()
+        counter = CollectiveCounter(bytes_accessed=False)
+        if engine is not None:
+            engine.api = FirstCalls(engine.api, counter, out["collectives"], label)
+        t0 = time.perf_counter()
+        with recording(out["shapes"], kernel_wrappers(train=True)), counter.mode:
+            res = fn()
+        sync()
+        out["walls"][label] = time.perf_counter() - t0
+        out["launches"][label] = ops.launch_counts()
+        if engine is None:
+            out["collectives"][label] = collective_counts(counter, {})
+        return res
+
+    def in_turn(fn):
+        """``fn`` on one rank at a time: each draws whole leaves before keeping its blocks."""
+        res = None
+        for r in range(world):
+            if r == rank:
+                res = fn()
+                sync()
+                if cuda:  # the whole leaves' blocks go back to the card for the next rank
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        return res
+
+    for label, seed, cfg in serve:
+        api = build_model(cfg)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        params = in_turn(lambda: api.init(torch.Generator(device=dev).manual_seed(seed), dev,
+                                          rules=rules))
+        batch = {"tokens": mesh_batch(cfg, seed, (4, PROMPT)).to(dev)}
+        engine = Engine(api, params, GenerationConfig(max_new_tokens=MESH_NEW, cache_len=MESH_CACHE),
+                        rules)
+        g = run(f"generate {label}", lambda: engine.generate(batch), engine)
+        if cuda:
+            out["peak_gib"][label] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.empty_cache()
+        if rank == 0:
+            out[label] = (g.tokens.cpu(), g.logits.cpu())
+        del params, engine
+
+    opt = AdamWConfig()
+    for label, seed, cfg in train:
+        api = build_model(cfg)
+        params = api.init(torch.Generator(device=dev).manual_seed(seed), dev, trainable=True,
+                          rules=rules)
+        batch = {"tokens": mesh_batch(cfg, seed, MESH_TRAIN_SHAPE).to(dev)}
+
+        def step():
+            loss, _ = api.loss_fn(params, batch, rules)
+            grads = grads_of(loss, params)
+            adamw_update(opt, params, grads, init_adamw(params))
+            return loss, grads
+
+        loss, grads = run(f"train step {label}", step)
+        if rank == 0:
+            out[f"train {label}"] = (float(loss), {k: rules.full(g).cpu() for k, g in grads.items()})
+        else:
+            for g in grads.values():  # every rank joins the gathers
+                rules.full(g)
+        del params, grads
+    return out
+
+
+def collective_counts(counter, before):
+    """{kind: (count, bytes)} of the collectives ``counter`` saw since ``before`` ({kind:
+    (count, bytes)} then)."""
+    return {k: (counter.counts[k] - before.get(k, (0, 0))[0],
+                counter.collectives[k] - before.get(k, (0, 0))[1])
+            for k in counter.counts if counter.counts[k] > before.get(k, (0, 0))[0]}
+
+
+class FirstCalls:
+    """A model api whose first ``prefill`` and first ``decode_step`` record the collectives
+    that ``counter`` saw during them, under "prefill <label>" and "decode step <label>"."""
+
+    def __init__(self, api, counter, into, label):
+        self.api, self.counter, self.into = api, counter, into
+        self.label = label.removeprefix("generate ")
+
+    def __getattr__(self, name):
+        return getattr(self.api, name)
+
+    def _counted(self, what, fn, *args, **kwargs):
+        before = {k: (self.counter.counts[k], self.counter.collectives[k]) for k in self.counter.counts}
+        res = fn(*args, **kwargs)
+        self.into.setdefault(f"{what} {self.label}", collective_counts(self.counter, before))
+        return res
+
+    def prefill(self, *args, **kwargs):
+        return self._counted("prefill", self.api.prefill, *args, **kwargs)
+
+    def decode_step(self, *args, **kwargs):
+        return self._counted("decode step", self.api.decode_step, *args, **kwargs)
+
+
+def mesh_full_logits(params, cfg, seq, first):
+    """The f32 logits of a full forward over ``seq`` [B, S] at positions ``first``.."""
+    import torch
+
+    from repro_torch.models.layers import logits_fn
+    from repro_torch.models.transformer import arange_positions, embed_tokens, forward
+
+    with torch.inference_mode():
+        x = embed_tokens(params, seq, cfg)
+        h, _ = forward(params, x, arange_positions(*seq.shape, seq.device), cfg)
+        return logits_fn(params, h[:, first:], cfg)
+
+
+def mesh_serve_errors(cfg, params, prompt, got, ref):
+    """What a sharded generation (``got``: its tokens [B, N] and logits [B, N, V] on the CPU)
+    is held to against the unsharded one on the same weights (``ref``, a Generation):
+
+    * ``rows``: each row's max abs logit error, step by step until that row's tokens part
+      (that step included: its logits came from equal inputs), and ``steps``, the steps
+      compared per row; ``parted``: for each row whose tokens part, (row, step, the error
+      there, the reference's gap between its top two logits there);
+    * bf16 only: ``noise``, the unsharded bf16 forward over the reference's sequence, batch 4
+      against each row alone (the same weights through other shapes of the same products),
+      and ``anchor``, the max abs error of the sharded and of the unsharded logits against
+      an f32 forward of the same weights teacher-forced on each one's tokens.
+    """
+    import torch
+
+    from repro_torch.models.convert import tree_from_flat
+
+    toks, logits = got
+    rt, rl = ref.tokens.cpu(), ref.logits.cpu().float()
+    rows, steps, parted = [], [], []
+    for r in range(toks.shape[0]):
+        differ = (toks[r] != rt[r]).nonzero()
+        n = int(differ[0]) + 1 if len(differ) else toks.shape[1]
+        err = (logits[r, :n].float() - rl[r, :n]).abs()
+        rows.append(err.max().item())
+        steps.append(n)
+        if len(differ):
+            top2 = rl[r, n - 1].topk(2).values
+            parted.append((r, n - 1, err[n - 1].max().item(), (top2[0] - top2[1]).item()))
+    res = {"rows": rows, "steps": steps, "parted": parted}
+    if cfg.dtype == "float32":
+        return res
+    P, dev = prompt.shape[1], prompt.device
+    seq = torch.cat([prompt, rt[:, :-1].to(dev)], dim=1)
+    alone = torch.cat([mesh_full_logits(params, cfg, seq[i:i + 1], P - 1) for i in range(len(seq))])
+    res["noise"] = (alone - mesh_full_logits(params, cfg, seq, P - 1)).abs().max().item()
+    # leaf by leaf, as phase 4 makes its f32 copies
+    f32 = tree_from_flat({k.replace(".", "/"): v.float() for k, v in params.state_dict().items()})
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    anchor = []
+    for t, lg in ((toks, logits), (rt, rl)):
+        want = mesh_full_logits(f32, cfg32, torch.cat([prompt, t[:, :-1].to(dev)], dim=1), P - 1)
+        anchor.append((lg.float() - want.cpu()).abs().max().item())
+    res["anchor"] = tuple(anchor)
+    return res
+
+
+def check_mesh_serve(label, cfg, res):
+    """Raises where ``mesh_serve_errors``'s readings break phase 10's limits; returns the tol."""
+    tol = SMALL_F32_TOL if cfg.dtype == "float32" else MESH_BF16_TOL[cfg.family]
+    if max(res["rows"]) > tol:
+        raise AssertionError(f"[mesh] {label}: sharded vs unsharded logits {max(res['rows']):.3e} "
+                             f"beyond {tol}")
+    for r, step, err, gap in res["parted"]:
+        if gap > 2 * err:
+            raise AssertionError(f"[mesh] {label}: row {r}'s tokens part at step {step} on a clear "
+                                 f"argmax (top-two gap {gap:.3e}, error {err:.3e})")
+    if "anchor" in res and res["anchor"][0] > MESH_ANCHOR_RATIO * res["anchor"][1]:
+        raise AssertionError(f"[mesh] {label}: the sharded bf16 logits lie {res['anchor'][0]:.3e} "
+                             f"from the f32 forward, the unsharded {res['anchor'][1]:.3e}")
+    return tol
+
+
 def path_launches(cfg, prefills, decode_steps, train_steps=0):
     """Kernel launches of ``prefills`` full forwards, ``decode_steps`` decode
     steps and ``train_steps`` forward-and-backward steps.
@@ -994,33 +1328,12 @@ def main() -> int:
 
     # every (kernel, shape) that a guarded run launches must be one that phase 3 (or, for the
     # backward kernels, phase 5) held against its plain version
-    def flash_key(q, k, v, *_, causal=True, **__):
-        return (*q.shape[:2], k.shape[1], *q.shape[2:], causal, q.dtype)
-
-    def rms_key(x, *_, **__):
-        return (*x.shape, x.dtype)
-
-    def ssd_key(x, b, *_):
-        return (*x.shape, b.shape[2], x.dtype)
-
     checked_shapes = {
         "flash_attention": {c[:7] for c in flash_cases},
         "rmsnorm": {c[:3] for c in rms_cases},
         "ssd_intra_chunk": {(B * NC, H, Q, 64, N, dt) for B, NC, Q, H, N, dt, _ in ssd_cases},
     }
-    forward_wrappers = ((flash_k, "flash_attention", flash_key), (rms_k, "rmsnorm", rms_key),
-                        (ssd_k, "ssd_intra_chunk", ssd_key))
-
-    def recording(shapes, wrappers):
-        """Patches that add (wrapper, shape key) to ``shapes`` at every call of the wrappers."""
-        stack = ExitStack()
-        for mod, fname, key in wrappers:
-            def call(*a, _fn=getattr(mod, fname), _name=fname, _key=key, **kw):
-                shapes.add((_name, _key(*a, **kw)))
-                return _fn(*a, **kw)
-
-            stack.enter_context(mock.patch.object(mod, fname, call))
-        return stack
+    forward_wrappers = kernel_wrappers()
 
     def assert_checked(label, shapes):
         hold_unchecked(label, shapes, checked_shapes, lambda k, key: hold_at_shape(k, key, dev, gen))
@@ -1630,9 +1943,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the moe, ssm and hybrid families through the same launcher, every (kernel, shape) recorded
-    def moe_key(buf, w, *_, **__):
-        return (*buf.shape, w.shape[2], buf.dtype)
-
     checked_shapes.update(
         moe_matmul={c[:5] for c in moe_cases},
         flash_attention_bwd={c[:7] for c in flash_bwd_cases},
@@ -1640,9 +1950,7 @@ def main() -> int:
         moe_matmul_bwd={c[:5] for c in moe_bwd_cases},
         ssd_intra_chunk_bwd={c[:6] for c in ssd_bwd_cases},
     )
-    train_wrappers = (*forward_wrappers, (moe_k, "moe_matmul", moe_key),
-                      (flash_k, "flash_attention_bwd", flash_key), (rms_k, "rmsnorm_bwd", rms_key),
-                      (moe_k, "moe_matmul_bwd", moe_key), (ssd_k, "ssd_intra_chunk_bwd", ssd_key))
+    train_wrappers = kernel_wrappers(train=True)
     for arch, batch, seq, layers in LM_FAMILY_RUNS + SLICE_LM_RUNS:
         cfg = get_config(arch)
         if layers is not None:  # a depth cut; the widths stay published
@@ -1945,12 +2253,12 @@ def main() -> int:
         counts_before = ops.launch_counts()["flash_attention_bwd_dkdv"]
         lg, lc = (loss_fn(p, {k: v.to(p["embed"].device) for k, v in b.items()})[0]
                   for p in (p_gpu, p_cpu))
-        gg, gc = grads_of(lg, p_gpu), grads_of(lc, p_cpu)
+        gg, g_cpu = grads_of(lg, p_gpu), grads_of(lc, p_cpu)
         if ops.launch_counts()["flash_attention_bwd_dkdv"] != counts_before + cfg.num_layers:
             raise AssertionError(f"small {kind} step: the card's backward skipped the kernels")
         e_loss = assert_close(f"small {kind} loss", lg.detach().cpu(), lc.detach(), SMALL_F32_TOL)
-        e_grad = max(grad_err(f"small {kind} grad {k}", gg[k].cpu(), gc[k], SMALL_F32_TOL)[1] or 0.0
-                     for k in gc)
+        e_grad = max(grad_err(f"small {kind} grad {k}", gg[k].cpu(), g_cpu[k], SMALL_F32_TOL)[1] or 0.0
+                     for k in g_cpu)
         print(f"[small] {cfg.name} f32 {kind} step card vs cpu: loss err {e_loss:.2e}, grads err "
               f"{e_grad:.2e} of each leaf's largest magnitude (tol {SMALL_F32_TOL})")
 
@@ -1974,13 +2282,123 @@ def main() -> int:
         if counts != expect:
             raise AssertionError(f"small lm {cfg.name}: launches {counts}, expected {expect}")
         lc = api.loss_fn(p_cpu, {"tokens": toks.cpu(), **{k: v.cpu() for k, v in extra.items()}})[0]
-        gc = grads_of(lc, p_cpu)
+        g_cpu = grads_of(lc, p_cpu)
         e_loss = assert_close(f"small lm {cfg.name} loss", lg.detach().cpu(), lc.detach(), SMALL_F32_TOL)
-        e_grad = max(grad_err(f"small lm {cfg.name} grad {k}", gg[k].cpu(), gc[k], SMALL_F32_TOL)[1] or 0.0
-                     for k in gc)
+        e_grad = max(grad_err(f"small lm {cfg.name} grad {k}", gg[k].cpu(), g_cpu[k], SMALL_F32_TOL)[1] or 0.0
+                     for k in g_cpu)
         print(f"[small] {cfg.name} f32 lm step 2x{seq} card vs cpu: loss err {e_loss:.2e}, grads err "
               f"{e_grad:.2e} of each leaf's largest magnitude (tol {SMALL_F32_TOL}); launches as "
               f"expected")
+
+    print(f"[time] phase 9 done at {time.perf_counter() - t_start:.1f}s")
+
+    # ---- 10. the multi-device layer: six ranks share the card -------------------------
+    from repro_torch.launch.mesh import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh] the parent holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) as the ranks start")
+    t10 = time.perf_counter()
+    # the dry-run on this machine's torch (the fake process group stands for 256 ranks), on the
+    # CPU beside the ranks
+    dry_dir = tempfile.TemporaryDirectory()
+    dry_err = open(Path(dry_dir.name) / "stderr", "w+")
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "granite-moe-3b-a800m",
+         "--shape", "train_4k", "--mesh", "single", "--out", dry_dir.name],
+        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=dry_err,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    try:
+        cfgs = {label: mesh_config(label, arch, dt, layers)
+                for label, arch, _, dt, layers in MESH_SERVE + MESH_TRAIN}
+        serve = [(label, seed, cfgs[label]) for label, _, seed, _, _ in MESH_SERVE]
+        train_runs = [(label, seed, cfgs[label]) for label, _, seed, _, _ in MESH_TRAIN]
+        ranks = run_ranks(mesh_rank, MESH_WORLD, (MESH_SHAPE, str(dev), serve, train_runs),
+                          device=dev, timeout=900)
+    except BaseException:
+        dry.kill()
+        dry.wait()
+        raise
+    print(f"[mesh] backend gloo (torch.distributed over tcp://localhost), DeviceMesh (data "
+          f"{MESH_SHAPE[0]}, model {MESH_SHAPE[1]}) of {MESH_WORLD} ranks, every rank on cuda:0; "
+          f"{time.perf_counter() - t10:.1f}s for the ranks' runs [{card}]")
+    for r, res in enumerate(ranks):
+        for what, counts in res["launches"].items():
+            kind, label = what.split(" ", 1) if what.startswith("generate") else ("train", what[11:])
+            cfg = cfgs[label]
+            expect = path_launches(cfg, 0, 0, 1) if kind == "train" else path_launches(cfg, 1, MESH_NEW - 1)
+            if counts != expect:
+                raise AssertionError(f"[mesh] rank {r} {what}: launches {counts}, expected {expect}")
+            for k, v in counts.items():
+                launches[k] += v
+        print(f"[mesh] rank {r}: peak memory " + ", ".join(
+            f"{a} {g:.2f} GiB" for a, g in res["peak_gib"].items()) + "; walls (gloo on one card, "
+            "collectives counted; not multi-card speed) " + ", ".join(
+            f"{k} {v:.3f}s" for k, v in res["walls"].items()))
+    print(f"[mesh] every rank's launches as path_launches gives them, per run: "
+          + "; ".join(f"{k} {dict((n, c) for n, c in v.items() if c)}"
+                      for k, v in ranks[0]["launches"].items()))
+    for what, kinds in ranks[0]["collectives"].items():
+        print(f"[mesh] rank 0 collectives of one {what}: " + ", ".join(
+            f"{k} x{n} ({b / 2**20:.2f} MiB)" for k, (n, b) in kinds.items()))
+
+    for label, seed, cfg in serve:
+        api = build_model(cfg)
+        params = api.init(torch.Generator(device=dev).manual_seed(seed), dev)
+        prompt = mesh_batch(cfg, seed, (4, PROMPT)).to(dev)
+        ref = Engine(api, params, GenerationConfig(max_new_tokens=MESH_NEW, cache_len=MESH_CACHE)
+                     ).generate({"tokens": prompt})
+        res = mesh_serve_errors(cfg, params, prompt, ranks[0][label], ref)
+        tol = check_mesh_serve(label, cfg, res)
+        extra = ""
+        if "anchor" in res:
+            extra = (f"; against the f32 forward of the same weights teacher-forced on each one's "
+                     f"tokens: sharded {res['anchor'][0]:.3e}, unsharded {res['anchor'][1]:.3e} "
+                     f"(limit {MESH_ANCHOR_RATIO}x the unsharded); the unsharded bf16 forward's "
+                     f"own noise, batch 4 vs each row alone: {res['noise']:.3e}")
+        print(f"[mesh] generate {label} (L={cfg.num_layers}, d {cfg.d_model}, {cfg.dtype}) "
+              f"4x{PROMPT}+{MESH_NEW} on the mesh vs unsharded on the card: max abs logit err "
+              f"{max(res['rows']):.3e} (abs tol {tol}) over {res['steps']} steps a row, each row "
+              f"until its tokens part{extra}")
+        del params, ref
+        torch.cuda.empty_cache()
+    for label, seed, cfg in train_runs:
+        api = build_model(cfg)
+        params = api.init(torch.Generator(device=dev).manual_seed(seed), dev, trainable=True)
+        loss = api.loss_fn(params, {"tokens": mesh_batch(cfg, seed, MESH_TRAIN_SHAPE).to(dev)})[0]
+        grads = grads_of(loss, params)
+        got_loss, got_grads = ranks[0][f"train {label}"]
+        e_loss = assert_close(f"[mesh] train {label} loss", torch.tensor(got_loss),
+                              loss.detach().cpu(), MESH_GRAD_TOL, rel=False)
+        e_grad = max(grad_err(f"[mesh] train {label} grad {k}", got_grads[k], g.cpu(),
+                              MESH_GRAD_TOL)[1] or 0.0 for k, g in grads.items())
+        print(f"[mesh] train step {label} f32 {MESH_TRAIN_SHAPE[0]}x{MESH_TRAIN_SHAPE[1]} on the "
+              f"mesh vs unsharded on the card: loss err {e_loss:.2e}, grads err {e_grad:.2e} of "
+              f"each leaf's largest magnitude (tol {MESH_GRAD_TOL})")
+        del params, grads
+    assert_checked("mesh", set().union(*(res["shapes"] for res in ranks)))
+
+    try:
+        rc = dry.wait(timeout=600)
+        dry_err.seek(0)
+        if rc != 0:
+            raise AssertionError(f"[mesh] the dry-run failed:\n{dry_err.read()[-3000:]}")
+        rec = json.loads((Path(dry_dir.name) / "granite-moe-3b-a800m_train_4k_single.json").read_text())
+    finally:
+        dry.kill()
+        dry_err.close()
+        dry_dir.cleanup()
+    if not rec.get("ok"):
+        raise AssertionError(f"[mesh] the dry-run's record failed: {rec.get('error')}")
+    col = rec["collectives"]
+    print(f"[mesh] dry-run granite-moe-3b-a800m train_4k 16x16 (fsdp {rec['fsdp']}): state "
+          f"{rec['state_bytes_per_dev'] / 1e9:.3f} GB/device, batch {rec['batch_bytes_per_dev']:.0f} "
+          f"B/device, {rec['cost_analysis']['flops']:.4e} FLOPs/device, {col['count']} collectives ("
+          + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in col.items() if k != "count" and v)
+          + f"), traced in {rec['lower_s']:.1f}s on the CPU")
+    print(f"[time] phase 10 done at {time.perf_counter() - t_start:.1f}s "
+          f"({time.perf_counter() - t10:.1f}s)")
 
     # ---- report ---------------------------------------------------------
     kernels = [

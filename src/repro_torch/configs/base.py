@@ -1,13 +1,13 @@
 """Model configuration schema + the assigned input-shape registry.
 
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
-package).  Every config of the JAX package that fits one card is
-registered: the dense ``llama3.2-1b``, ``smollm-360m``, ``llama3-8b`` and
-``glm4-9b``, the MoE ``granite-moe-3b-a800m``, the attention-free SSM
+package).  Every config of the JAX package is registered: the dense
+``llama3.2-1b``, ``smollm-360m``, ``llama3-8b`` and ``glm4-9b``, the MoE ``granite-moe-3b-a800m``, the attention-free SSM
 ``mamba2-130m``, the hybrid ``hymba-1.5b`` (parallel attention and Mamba-2
 heads), the VLM ``internvl2-1b`` (a stub patch-embedding prefix) and the
-encoder-decoder ``whisper-medium`` (stub frame embeddings).  Not
-``kimi-k2-1t-a32b``: 1 T parameters and head dim 112.
+encoder-decoder ``whisper-medium`` (stub frame embeddings), and the
+trillion-parameter MoE ``kimi-k2-1t-a32b``, which runs at full width only in
+the dry-run (its reduced variant serves on a card).
 ``reduced()`` gives the same smoke variant as the JAX package, so the
 parity tests load one set of weights into both.
 """
@@ -155,6 +155,7 @@ def _load_all() -> None:
         granite_moe_3b_a800m,
         hymba_1_5b,
         internvl2_1b,
+        kimi_k2_1t_a32b,
         llama3_2_1b,
         llama3_8b,
         mamba2_130m,

@@ -24,22 +24,26 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamDef, rms_norm
+from repro_torch.sharding.rules import is_dtensor
+
+PARAM_NAMES = ("w_in_z", "w_in_x", "w_in_b", "w_in_c", "w_in_dt", "a_log", "dt_bias", "d_skip",
+               "out_norm", "w_out")
 
 
 def ssm_schema(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, di, h, n = cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
     return {
         # fused input projection: [z (gate), x, B, C, dt]
-        "w_in_z": ParamDef((d, di)),
-        "w_in_x": ParamDef((d, di)),
-        "w_in_b": ParamDef((d, n)),
-        "w_in_c": ParamDef((d, n)),
-        "w_in_dt": ParamDef((d, h)),
+        "w_in_z": ParamDef((d, di), ("embed", "ssm_inner")),
+        "w_in_x": ParamDef((d, di), ("embed", "ssm_inner")),
+        "w_in_b": ParamDef((d, n), ("embed", None)),
+        "w_in_c": ParamDef((d, n), ("embed", None)),
+        "w_in_dt": ParamDef((d, h), ("embed", None)),
         "a_log": ParamDef((h,), init="zeros"),
         "dt_bias": ParamDef((h,), init="zeros"),
         "d_skip": ParamDef((h,), init="ones"),
         "out_norm": ParamDef((di,), init="ones"),
-        "w_out": ParamDef((di, d)),
+        "w_out": ParamDef((di, d), ("ssm_inner", "embed")),
     }
 
 
@@ -63,13 +67,29 @@ def _gate_norm_out(params, y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor, c
     return rms_norm(y, params["out_norm"], cfg.norm_eps) @ params["w_out"]
 
 
-def ssd_scan(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ssd_scan(params, x: torch.Tensor, cfg: ModelConfig, rules=None) -> torch.Tensor:
     """Full-sequence SSD mixer: x [B,S,D] -> [B,S,D].  S % chunk == 0."""
-    return ssd_scan_with_state(params, x, cfg)[0]
+    return ssd_scan_with_state(params, x, cfg, rules)[0]
 
 
-def ssd_scan_with_state(params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SSD mixer returning (y [B,S,D], final_state [B,H,hd,N] f32) for prefill."""
+def _local_params(params, rules, ds: bool):
+    return {n: rules.param(params[n], split=False, data_sharded=ds) for n in PARAM_NAMES}
+
+
+def ssd_scan_with_state(
+    params, x: torch.Tensor, cfg: ModelConfig, rules=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD mixer returning (y [B,S,D], final_state [B,H,hd,N] f32) for prefill.
+
+    ``rules`` and a DTensor x: the mixer runs whole on each rank's batch block,
+    repeated over the model axis (the state returned is the rank's block's,
+    plain); JAX constrains y's d_inner to the model axis
+    (repro/models/ssm.py:148), which a repeated mixer has no use for.
+    """
+    if rules is not None and is_dtensor(x):
+        ds = rules.batch_sharded(x)
+        y, s = ssd_scan_with_state(_local_params(params, rules, ds), rules.enter(x, ("batch", None, None)), cfg)
+        return rules.leave(y, x), s
     B, S, _ = x.shape
     H, hd, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     Q = min(cfg.ssm_chunk, S)
@@ -127,3 +147,26 @@ def ssd_decode_step(params, x: torch.Tensor, state: torch.Tensor, cfg: ModelConf
     new_state = state * g[:, :, None, None] + outer
     y = torch.einsum("bhdm,bm->bhd", new_state, c[:, 0].float()).to(xs.dtype)
     return _gate_norm_out(params, y[:, None], xs, z, cfg), new_state
+
+
+@torch.no_grad()
+def sharded_ssd_decode_step(params, x: torch.Tensor, state: torch.Tensor, h_lo: int,
+                            head_dims, cfg: ModelConfig, rules) -> torch.Tensor:
+    """``ssd_decode_step`` of a DTensor x [B,1,D] against the rank's block ``state``
+    [B_l, H_l, hd, N] of the heads [h_lo, h_lo + H_l), updated in place; the heads'
+    outputs are gathered over ``head_dims`` (the mesh dims that shard the state's
+    heads) before the output norm.  Returns y as a DTensor laid out as x."""
+    ds = rules.batch_sharded(x)
+    local = _local_params(params, rules, ds)
+    xl = rules.enter(x, ("batch", None, None))
+    hs = slice(h_lo, h_lo + state.shape[1])
+    z, xs, b, c, dt = _project(local, xl, cfg)
+    A = -torch.exp(local["a_log"].float())
+    g = torch.exp(dt[:, 0, hs] * A[hs])  # [B,H_l]
+    xdt = (xs[:, 0, hs] * dt[:, 0, hs, None].to(xs.dtype)).float()  # [B,H_l,hd]
+    outer = xdt[..., None] * b[:, 0].float()[:, None, None, :]
+    state.copy_(state * g[:, :, None, None] + outer)
+    y = torch.einsum("bhdm,bm->bhd", state, c[:, 0].float()).to(xs.dtype)
+    if head_dims:
+        y = rules.gather(y, 1, head_dims)
+    return rules.leave(_gate_norm_out(local, y[:, None], xs, z, cfg), x)

@@ -32,10 +32,19 @@ class Generation(NamedTuple):
 
 
 class Engine:
-    def __init__(self, api: ModelApi, params, gen: GenerationConfig):
+    """Batched generation and scoring.  ``rules``: the parameters are placed on the
+    mesh (``ModelApi.init(..., rules=rules)``) and so are the requests; every rank
+    of the mesh calls the engine with the same whole batch, and every rank gets
+    the whole result (the logits gathered over the mesh at each step)."""
+
+    def __init__(self, api: ModelApi, params, gen: GenerationConfig, rules=None):
         self.api = api
         self.params = params
         self.gen = gen
+        self.rules = rules
+
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.rules is None else self.rules.full(t)
 
     @torch.inference_mode()
     def generate(
@@ -53,7 +62,9 @@ class Engine:
             raise ValueError(
                 f"prompt {S} + {gen.max_new_tokens} new tokens exceed cache_len {gen.cache_len}"
             )
-        logits, state = self.api.prefill(self.params, batch, cache_len=gen.cache_len)
+        logits, state = self.api.prefill(self.params, batch, cache_len=gen.cache_len,
+                                         rules=self.rules)
+        logits = self._whole(logits)
         if gen.temperature > 0 and generator is None:
             generator = torch.Generator(device=logits.device).manual_seed(0)
         toks, logps, step_logits = [], [], []
@@ -69,8 +80,10 @@ class Engine:
             step_logits.append(logits)
             if i + 1 < gen.max_new_tokens:  # the last token needs no decode step
                 logits, state = self.api.decode_step(
-                    self.params, state, tok[:, None], sliding_window=gen.sliding_window
+                    self.params, state, tok[:, None], sliding_window=gen.sliding_window,
+                    rules=self.rules,
                 )
+                logits = self._whole(logits)
         return Generation(
             torch.stack(toks, dim=1), torch.stack(logps, dim=1), torch.stack(step_logits, dim=1)
         )
@@ -82,7 +95,7 @@ class Engine:
         Text only: a vlm's ``patch_embeds`` are not read, as in JAX; the
         audio family raises (``token_logprobs``).
         """
-        logp = token_logprobs(self.params, batch["tokens"], self.api)
+        logp = self._whole(token_logprobs(self.params, batch["tokens"], self.api, self.rules))
         mask = batch.get("mask")
         if mask is not None:
             return torch.sum(logp * mask, dim=-1)

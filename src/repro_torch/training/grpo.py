@@ -15,6 +15,7 @@ import torch
 from repro_torch.models.layers import logits_fn
 from repro_torch.models.model import ModelApi
 from repro_torch.models.transformer import arange_positions, embed_tokens, forward
+from repro_torch.sharding.rules import is_dtensor
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_step import TrainState, apply_gradients
 
@@ -26,13 +27,15 @@ def group_advantages(rewards: torch.Tensor) -> torch.Tensor:
     return (rewards - mean) / (std + 1e-6)
 
 
-def token_logprobs(params, tokens: torch.Tensor, api: ModelApi) -> torch.Tensor:
+def token_logprobs(params, tokens: torch.Tensor, api: ModelApi, rules=None) -> torch.Tensor:
     """Log-prob of each realized next token; [N, S-1] f32.
 
     Through the decoder-only forward, as in JAX (a vlm scores its text
     alone).  An encoder-decoder has no such forward, and the JAX function
     cannot score one either (it reads ``params["layers"]``, which the
-    encoder-decoder schema lacks): the audio family raises.
+    encoder-decoder schema lacks): the audio family raises.  Live ``rules``
+    (scoring: no gradient): the tokens are placed on the mesh and the result
+    is a DTensor laid out as them.
     """
     cfg = api.cfg
     if cfg.family == "audio":
@@ -41,9 +44,15 @@ def token_logprobs(params, tokens: torch.Tensor, api: ModelApi) -> torch.Tensor:
             "tokens with; the JAX package cannot score it either"
         )
     B, S = tokens.shape
-    x = embed_tokens(params, tokens, cfg)
-    h, _ = forward(params, x, arange_positions(B, S, tokens.device), cfg)
-    logits = logits_fn(params, h[:, :-1, :], cfg)  # [N, S-1, V] f32
+    if rules is not None and rules.live:
+        tokens = rules.distribute(tokens, ("batch", None))
+    x = embed_tokens(params, tokens, cfg, rules)
+    h, _ = forward(params, x, arange_positions(B, S, tokens.device), cfg, rules=rules)
+    logits = logits_fn(params, h[:, :-1, :], cfg, rules)  # [N, S-1, V] f32
+    if is_dtensor(logits):
+        logp = torch.log_softmax(logits.to_local(), dim=-1)
+        logp = logp.gather(-1, tokens.to_local()[:, 1:, None].long())[..., 0]
+        return rules.leave(logp, tokens)
     logp = torch.log_softmax(logits, dim=-1)
     return logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
 

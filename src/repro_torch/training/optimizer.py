@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterable, Mapping, NamedTuple, Tuple, Union
+from typing import Any, Dict, Iterable, Mapping, NamedTuple, Tuple, Union
 
 import torch
 from torch import nn
@@ -48,13 +48,39 @@ def named_params(params: Params) -> Dict[str, torch.Tensor]:
 
 
 def init_adamw(params: Params) -> AdamWState:
+    """Zero f32 moments laid out as the parameters (a parameter placed on a mesh gets
+    moments with its placements, as ``adamw_state_specs`` gives them)."""
     named = named_params(params)
     device = next(iter(named.values())).device
 
     def zeros():
-        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in named.items()}
+        return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in named.items()}
 
     return AdamWState(torch.zeros((), dtype=torch.int32, device=device), zeros(), zeros())
+
+
+def flat_named(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """A nested mapping's leaves keyed ``a.b.c``, as ``named_params`` keys a ParamTree."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flat_named(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def abstract_adamw(params: Mapping[str, Any]) -> AdamWState:
+    """``init_adamw``'s tensors on the ``meta`` device, of nested abstract parameters."""
+    zeros = {k: torch.empty(p.shape, dtype=torch.float32, device="meta")
+             for k, p in flat_named(params).items()}
+    return AdamWState(torch.empty((), dtype=torch.int32, device="meta"), zeros, dict(zeros))
+
+
+def adamw_state_specs(param_specs: Mapping[str, Any]) -> AdamWState:
+    """Optimizer-state specs from parameter specs: the moments take the parameters'."""
+    flat = flat_named(param_specs)
+    return AdamWState((), flat, dict(flat))
 
 
 def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

@@ -703,3 +703,47 @@ def test_dense_dp_torch_scan_on_the_card(cuda):
     for tasks, op, _ in _torch_backend_cases():
         got = dp_arrange_prefixes_dense(tasks, op(), backend="torch", device="cuda")
         assert got == dp_arrange_prefixes_dense(tasks, op(), backend="numpy")
+
+
+def _mesh_body(rank, world):
+    """Reduced f32 granite (10 experts) on a (data 2, model 2) mesh of ranks sharing cuda:0:
+    the sharded MoE and attention through the kernels, loss and gradients."""
+    import warnings
+
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.training.train_step import grads_of
+
+    warnings.filterwarnings("ignore")
+    for k in _build.KERNELS:
+        _build.load(k)
+    dev = torch.device("cuda", 0)
+    rules = make_rules(device_mesh("cuda", (2, 2), ("data", "model")))
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m").reduced(), num_experts=10)
+    # drop-free (capacity factor E / K): where a data shard's capacity drops assignments, it
+    # drops others than the global step's does (PERF.md)
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    api = build_model(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=torch.Generator().manual_seed(5))
+    out = {}
+    for name, r in (("sharded", rules), ("whole", None)):
+        params = api.init(torch.Generator(device=dev).manual_seed(6), dev, trainable=True, rules=r)
+        ops.reset_launch_counts()
+        loss, _ = api.loss_fn(params, {"tokens": tokens.to(dev)}, r)
+        grads = grads_of(loss, params)
+        out[name] = (float(loss), {k: (r.full(g) if r else g).cpu() for k, g in grads.items()},
+                     ops.launch_counts()["moe_matmul_bwd_dw"])
+    return out
+
+
+def test_sharded_train_step_on_ranks_sharing_the_card(cuda):
+    """Four gloo ranks on one card: the sharded loss and gradients (B3 and B7 on each rank's
+    expert slice) within 1e-4 of the same step unsharded on the card."""
+    from repro_torch.launch.mesh import run_ranks
+
+    for res in run_ranks(_mesh_body, 4, device=cuda, timeout=600):
+        (ls, gs, n_sh), (lw, gw, n_wh) = res["sharded"], res["whole"]
+        assert abs(ls - lw) <= 1e-4 and n_sh == n_wh > 0
+        for k, g in gw.items():
+            scale = g.abs().max().item() or 1.0
+            assert (gs[k] - g).abs().max().item() <= 1e-4 * scale, k

@@ -39,7 +39,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                     "repro_torch.core.live", "repro_torch.examples.quickstart",
                     "repro_torch.examples.remote_round",
                     "repro_torch.examples.worker_commit_round",
-                    "repro_torch.examples.multi_host_round"):
+                    "repro_torch.examples.multi_host_round",
+                    "repro_torch.sharding.rules", "repro_torch.launch.mesh",
+                    "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                    "repro_torch.configs.kimi_k2_1t_a32b"):
         assert present in modules, present
     code = (
         "import importlib, sys\n"

@@ -172,7 +172,7 @@ def test_decode_attention_reads_a_cache_it_does_not_update(pos, use_rope):
         jp, jnp.asarray(x), jnp.asarray(pos, jnp.int32), jnp.asarray(kc), jnp.asarray(vc), jcfg,
         update_cache=False, use_rope=use_rope)
     tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
-    got = tl.decode_attention(tp, torch.from_numpy(x), pos, tk, tv, tcfg, update_cache=False,
+    got = tl.decode_attention(tp, torch.from_numpy(x), pos, (tk, tv), tcfg, update_cache=False,
                               use_rope=use_rope)
     close(got, want, 2e-5)
     assert np.array_equal(tk.numpy(), kc) and np.array_equal(tv.numpy(), vc)
@@ -193,7 +193,7 @@ def test_decode_attention(window, pos):
         lambda *a: jl.decode_attention(*a, jcfg, sliding_window=window)
     )(jp, jnp.asarray(x), jnp.asarray(pos, jnp.int32), jnp.asarray(kc), jnp.asarray(vc))
     tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
-    got = tl.decode_attention(tp, torch.from_numpy(x), pos, tk, tv, tcfg, sliding_window=window)
+    got = tl.decode_attention(tp, torch.from_numpy(x), pos, (tk, tv), tcfg, sliding_window=window)
     close(got, want)
     close(tk, want_k)  # written in place
     close(tv, want_v)
@@ -206,7 +206,7 @@ def test_decode_attention_refuses_a_position_past_the_cache():
     W = tcfg.num_kv_heads * tcfg.resolved_head_dim
     kc = torch.zeros(1, 4, W)
     with pytest.raises(IndexError):
-        tl.decode_attention(tp, torch.zeros(1, 1, tcfg.d_model), 4, kc, kc.clone(), tcfg)
+        tl.decode_attention(tp, torch.zeros(1, 1, tcfg.d_model), 4, (kc, kc.clone()), tcfg)
 
 
 def test_swiglu_ffn():
