@@ -81,8 +81,15 @@ Phases, each of which raises on failure (nothing is caught):
    losses (falling over the three steps for the last four); one warm step
    of each profiled, with its peak memory (whisper's with its
    cross-attention's device time, forward and backward, from the trace);
-   every (kernel, shape) that these runs launch is held against its plain
-   version, by phases 3 and 5's cases or at once;
+   every step rematerialises its layers (the configs' ``remat``, as in JAX:
+   each layer's forward kernels launch again in the backward, counted), and
+   llama3.2-1b, granite, hymba and whisper also profile one warm step with
+   remat off, printed beside the remat-on step (``[remat]`` lines: wall,
+   device ms, busy share, peak memory); llama3.2-1b and whisper compare one
+   step's gradients both ways (bit-identical or not, and the largest
+   difference relative to each leaf's largest magnitude); every (kernel,
+   shape) that these runs launch, under recompute too, is held against its
+   plain version, by phases 3 and 5's cases or at once;
 7. the closed loop at full width, as ``examples/agentic_rl_e2e.py`` runs it:
    three ``LiveGrpoDriver.run_step`` calls (``smollm-360m`` rolls out 4
    prompts x group 4, 8 + 16 sampled tokens; each of the 16 sequences is one
@@ -118,8 +125,10 @@ Phases, each of which raises on failure (nothing is caught):
    refuses two ranks on one device), serve ``granite-moe-3b-a800m`` (its
    drop-free copy) and ``llama3.2-1b`` at full width in bf16, f32 copies of
    both (granite at 8 of its layers), and the reduced ``kimi-k2-1t-a32b``
-   through ``Engine`` with the rules, and take one train step each of the
-   reduced granite (10 experts) and llama3.2-1b; each rank's launches must
+   through ``Engine`` with the rules, take one train step each of the
+   reduced granite (10 experts) and llama3.2-1b, and one GRPO step
+   (``make_grpo_step`` with the rules) of a reduced f32 llama3.2-1b policy
+   (4 x 64, its rollout log-probs scored unsharded); each rank's launches must
    be ``path_launches``'s, the parent holds the logits, losses and
    gradients against the same weights unsharded on the card and every
    (kernel, shape) a rank launched against its plain version, and prints
@@ -250,6 +259,11 @@ SLICE_SCORE = (("llama3-8b", 18), ("glm4-9b", 19), ("internvl2-1b", 20))
 SLICE_LM_RUNS = (("internvl2-1b", 4, 256, None), ("whisper-medium", 2, 448, None),
                  ("llama3-8b", 4, 256, 4), ("glm4-9b", 4, 256, 4))
 SLICE = {arch for arch, _ in SLICE_GENERATE}
+# phase 6 trains with the layers rematerialised (every config's default, as in JAX); these
+# models' LM steps are also profiled with remat off (llama3.2-1b's through the launcher), and
+# these have one step's gradients compared both ways
+REMAT_BOTH_WAYS = {"granite-moe-3b-a800m", "hymba-1.5b", "whisper-medium"}
+REMAT_GRADS = {"whisper-medium"}
 
 
 def sh(cmd):
@@ -514,10 +528,11 @@ def range_device_ms(prof, name):
     return sum(device_ns.get(c, 0) for c in ops) / 1e6
 
 
-def profiled(label, fn, card, rows=10, ranges=()):
+def profiled(label, fn, card, rows=10, ranges=(), stats=None):
     """One warm call of fn under torch.profiler: its device busy share and top kernels.
     Returns {range: device ms} of the named ``record_function`` ranges (whose trace
-    records the host's operations too), each of which must hold some device work.
+    records the host's operations too), each of which must hold some device work;
+    ``stats`` (a dict) receives the call's wall and device busy milliseconds.
 
     Only device activity is traced where no range is named, and the raw device events are
     summed by name: ``key_averages`` builds a Python object per event, which took
@@ -561,6 +576,8 @@ def profiled(label, fn, card, rows=10, ranges=()):
             raise AssertionError(f"[profile] {label}: no device work found inside range {r}")
         print(f"[profile] {label} range {r}: {r_ms:.3f} device ms, {100 * r_ms / busy_ms:.1f}% "
               f"of device busy {busy_ms:.2f} ms [{card}]")
+    if stats is not None:
+        stats.update(wall_ms=ms, busy_ms=busy_ms)
     return in_ranges
 
 
@@ -709,6 +726,8 @@ MESH_SERVE = (("granite-moe-3b-a800m 8L", "granite-moe-3b-a800m", 21, "bfloat16"
 MESH_TRAIN = (("granite-moe-3b-a800m reduced E10", "granite-moe-3b-a800m", 24, "float32", None),
               ("llama3.2-1b reduced", "llama3.2-1b", 25, "float32", None))
 MESH_TRAIN_SHAPE = (4, 64)
+# one GRPO step of a reduced f32 policy on the mesh, 4 x 64 (label, arch, seed, dtype, layers)
+MESH_GRPO = ("llama3.2-1b reduced policy", "llama3.2-1b", 26, "float32", None)
 MESH_GRAD_TOL = 2e-4  # sharded vs unsharded train step: loss (abs) and each gradient (rel. to max)
 # bf16 generation, sharded vs unsharded on the same weights, each row until its tokens part:
 # 1.5x the largest reading of `tools/torch_mesh_probe.py bf16` over seeds 21, 22, 31-34 (granite
@@ -744,12 +763,13 @@ def mesh_batch(cfg, seed, shape):
     return torch.randint(0, cfg.vocab_size, shape, generator=torch.Generator().manual_seed(seed))
 
 
-def mesh_rank(rank, world, shape, device, serve, train):
-    """One rank of phase 10 (started by ``run_ranks``): the sharded serving runs of ``serve`` and
-    train steps of ``train`` ((label, seed, config) each), each with the launch counts set to 0
-    just before it and read just after, every (kernel, shape) it launches recorded, and the
-    collectives of one prefill, one decode step and one train step counted.  Returns what the
-    parent checks (rank 0 also the logits, the loss and the gradients)."""
+def mesh_rank(rank, world, shape, device, serve, train, grpo):
+    """One rank of phase 10 (started by ``run_ranks``): the sharded serving runs of ``serve``,
+    train steps of ``train`` ((label, seed, config) each) and GRPO steps of ``grpo`` ((label,
+    seed, config, batch on the CPU) each), each with the launch counts set to 0 just before it
+    and read just after, every (kernel, shape) it launches recorded, and the collectives of one
+    prefill, one decode step, one train step and one GRPO step counted.  Returns what the
+    parent checks (rank 0 also the logits, the losses, the gradients and the GRPO metrics)."""
     import logging
     import warnings
 
@@ -764,9 +784,9 @@ def mesh_rank(rank, world, shape, device, serve, train):
     from repro_torch.models import build_model
     from repro_torch.serving.engine import Engine, GenerationConfig
     from repro_torch.sharding.rules import make_rules
-    from repro_torch.training import AdamWConfig
+    from repro_torch.training import AdamWConfig, grpo_loss, make_grpo_step
     from repro_torch.training.optimizer import adamw_update, init_adamw
-    from repro_torch.training.train_step import grads_of
+    from repro_torch.training.train_step import TrainState, grads_of
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -847,7 +867,45 @@ def mesh_rank(rank, world, shape, device, serve, train):
             for g in grads.values():  # every rank joins the gathers
                 rules.full(g)
         del params, grads
+
+    for label, seed, cfg, cpu_batch in grpo:
+        api = build_model(cfg)
+        params = api.init(torch.Generator(device=dev).manual_seed(seed), dev, trainable=True,
+                          rules=rules)
+        batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+        loss, _ = grpo_loss(params, batch, api, rules)  # the gradients the step takes
+        grads = {k: rules.full(g) for k, g in grads_of(loss, params).items()}
+        if rank == 0:
+            out[f"grpo {label}"] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+        del grads
+        state = TrainState(params, init_adamw(params))
+        _, metrics = run(f"grpo step {label}", lambda: make_grpo_step(api, opt, rules)(state, batch))
+        out[f"grpo metrics {label}"] = {k: float(v) for k, v in metrics.items()}
+        del params, state
     return out
+
+
+def mesh_grpo_batch(cfg, seed, dev):
+    """Phase 10's GRPO batch on the CPU: tokens from ``seed``, the rollout log-probs of the
+    unsharded policy (the weights every rank draws from ``seed``) scored on ``dev``, a
+    reference 0.05 away from them, the second half of each row generated, advantages
+    +-1 and +-0.5."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.training.grpo import token_logprobs
+
+    api = build_model(cfg)
+    tokens = mesh_batch(cfg, seed, MESH_TRAIN_SHAPE)
+    with torch.no_grad():
+        params = api.init(torch.Generator(device=dev).manual_seed(seed), dev)
+        old = token_logprobs(params, tokens.to(dev), api).cpu()
+    N, S = tokens.shape
+    mask = torch.zeros(N, S - 1)
+    mask[:, S // 2:] = 1.0
+    noise = torch.randn(old.shape, generator=torch.Generator().manual_seed(seed))
+    return {"tokens": tokens, "mask": mask, "advantages": torch.tensor([1.0, -1.0, 0.5, -0.5]),
+            "old_logp": old, "ref_logp": old + 0.05 * noise}
 
 
 def collective_counts(counter, before):
@@ -970,13 +1028,21 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0):
     non-causal flash attention a layer) and the decoder (three pre-norms a
     layer, the final norm, a causal flash attention a layer); its decode
     step the decoder's norms alone, and its cross-attention no kernel.  A
-    training step runs each forward kernel once more and, in its backward:
+    training step runs each forward kernel once and, in its backward:
     each norm's dx kernel (the warp route up to D 2048, the block route
     above) and dweight reduce; flash attention's dq and dk/dv kernels;
     moe_matmul's dbuf and dw kernels for each of its three products;
-    ssd_intra_chunk's kernel and its reduce.  tests/test_torch_hybrid.py and
-    tests/test_torch_backward.py hold these counts to the calls the model
-    code makes.
+    ssd_intra_chunk's kernel and its reduce.  With ``cfg.remat`` the
+    backward first runs each layer's body again (``layers.remat_layer``):
+    every forward kernel inside a layer launches once more a step — its
+    norms, its flash attention, its three moe_matmul products, its
+    ssd_intra_chunk — and the final norms (the decoder's, and the
+    encoder's) and everything outside the layers do not.  No layer's
+    recompute stops early: the last op of each that saves a tensor for the
+    backward comes after its last kernel (the FFN's products save the
+    FFN pre-norm's output; the MoE combine saves the gathered expert
+    outputs).  tests/test_torch_hybrid.py and tests/test_torch_backward.py
+    hold these counts to the calls the model code makes, with remat on and off.
     """
     from repro_torch.kernels.rmsnorm import BWD_WARP_MAX_DIM  # wider rows take the block route
 
@@ -984,24 +1050,26 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0):
     ssm, moe, attn = cfg.family in SSM_FAMILIES, cfg.family == "moe", not cfg.attention_free
     if cfg.family == "audio":
         norms, decode_norms, flash = 2 * cfg.encoder_layers + 3 * L + 2, 3 * L + 1, cfg.encoder_layers + L
+        finals = 2
     else:
         norms = decode_norms = (6 if cfg.family == "hybrid" else 2) * L + 1
-        flash = L if attn else 0
+        flash, finals = L if attn else 0, 1
+    again = train_steps if cfg.remat else 0  # the layers' forward kernels under recompute
     inner = L if ssm else 0  # the out_norms over d_inner
     wide = ((inner if cfg.d_inner > BWD_WARP_MAX_DIM else 0)
             + (norms - inner if cfg.d_model > BWD_WARP_MAX_DIM else 0))
     return {
-        "rmsnorm": norms * full + decode_norms * decode_steps,
+        "rmsnorm": norms * full + decode_norms * decode_steps + (norms - finals) * again,
         "rmsnorm_bwd": (norms - wide) * train_steps,
         "rmsnorm_bwd_wide": wide * train_steps,
         "rmsnorm_bwd_dweight": norms * train_steps,
-        "flash_attention": flash * full,
+        "flash_attention": flash * (full + again),
         "flash_attention_bwd_dq": flash * train_steps,
         "flash_attention_bwd_dkdv": flash * train_steps,
-        "moe_matmul": 3 * L * steps if moe else 0,
+        "moe_matmul": 3 * L * (steps + again) if moe else 0,
         "moe_matmul_bwd_dbuf": 3 * L * train_steps if moe else 0,
         "moe_matmul_bwd_dw": 3 * L * train_steps if moe else 0,
-        "ssd_intra_chunk": L * full if ssm else 0,
+        "ssd_intra_chunk": L * (full + again) if ssm else 0,
         "ssd_intra_chunk_bwd": L * train_steps if ssm else 0,
         "ssd_intra_chunk_bwd_reduce": L * train_steps if ssm else 0,
     }
@@ -1044,7 +1112,8 @@ def main() -> int:
         make_grpo_step,
     )
     from repro_torch.training.grpo import token_logprobs
-    from repro_torch.training.train_step import grads_of
+    from repro_torch.training.optimizer import init_adamw
+    from repro_torch.training.train_step import TrainState, grads_of, make_train_step
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1858,14 +1927,51 @@ def main() -> int:
         check_counts(label, ops.launch_counts(), expect)
         return out
 
-    def profiled_step(label, fn, ranges=()):
+    def profiled_step(label, fn, ranges=(), stats=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ms = wall_ms(fn)[1]  # the step's returned state is dropped at once: it holds new moments
         mem = torch.cuda.max_memory_allocated() / 2**30
         print(f"[train] {label}: one warm step {ms:.1f} ms wall, max_memory_allocated "
               f"{mem:.2f} GiB [{name}; {card}]")
-        return profiled(label, fn, card, rows=14, ranges=ranges)
+        stats = {} if stats is None else stats
+        stats.update(step_ms=ms, peak_gib=mem)
+        return profiled(label, fn, card, rows=14, ranges=ranges, stats=stats)
+
+    def remat_off(trainer, batch, on):
+        """The trainer's step with its layers keeping every activation (``remat=False``),
+        profiled as ``profiled_step`` profiled it with remat on (``on``: its readings), and
+        both printed on one line."""
+        cfg = trainer.cfg
+        off_api = build_model(dataclasses.replace(cfg, remat=False))
+        step = make_train_step(off_api, AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=3))
+        off = {}
+        profiled_step(f"lm step {cfg.name} remat off", lambda: step(trainer.state, batch), stats=off)
+        print(f"[remat] lm step {cfg.name} (L={cfg.num_layers}) " + "; ".join(
+            f"remat {w}: {r['step_ms']:.1f} ms wall, {r['busy_ms']:.2f} device ms "
+            f"({100 * r['busy_ms'] / r['wall_ms']:.1f}% busy under the profiler), "
+            f"max_memory_allocated {r['peak_gib']:.2f} GiB" for w, r in (("on", on), ("off", off)))
+            + f"; remat saves {off['peak_gib'] - on['peak_gib']:.2f} GiB for "
+            f"{on['busy_ms'] - off['busy_ms']:.2f} device ms [{name}; {card}]")
+
+    def remat_grads(trainer, batch):
+        """One step's gradients on ``batch`` with remat on and off, same weights: whether
+        they are bit-identical, and the largest difference of a leaf relative to its
+        largest magnitude."""
+        cfg, params = trainer.cfg, trainer.state.params
+        grads = {}
+        for remat in (True, False):
+            api = build_model(dataclasses.replace(cfg, remat=remat))
+            grads[remat] = grads_of(api.loss_fn(params, batch)[0], params)
+        same = all(torch.equal(g, grads[False][k]) for k, g in grads[True].items())
+        worst = max(((g.float() - grads[False][k].float()).abs().max()
+                     / grads[False][k].float().abs().max().clamp_min(1e-30)).item()
+                    for k, g in grads[True].items())
+        print(f"[remat] lm {cfg.name}: one step's gradients with remat on vs off, same batch and "
+              f"weights, {len(grads[True])} leaves: bit-identical {same}; largest difference "
+              f"{worst:.3e} of a leaf's largest magnitude [{name}; {card}]")
+        del grads
+        torch.cuda.empty_cache()
 
     # GRPO: the policy rolls out, the judge scores, three GRPO steps
     marks = [time.perf_counter()]
@@ -1937,8 +2043,11 @@ def main() -> int:
           + f" (ln V = {math.log(lm_cfg.vocab_size):.4f}); grad_norm "
           + ", ".join(f"{m['grad_norm']:.3f}" for m in lm_metrics))
     lm_batch = next_batch(trainer)
+    on = {}
     profiled_step(f"lm step {lm_cfg.name}",
-                  lambda: trainer.step(trainer.state, lm_batch))
+                  lambda: trainer.step(trainer.state, lm_batch), stats=on)
+    remat_off(trainer, lm_batch, on)
+    remat_grads(trainer, lm_batch)
     del trainer, lm_batch
     torch.cuda.empty_cache()
 
@@ -1999,8 +2108,13 @@ def main() -> int:
               f"max_memory_allocated {mem:.2f} GiB [{name}; {card}]")
         assert_checked(f"lm {arch}", train_shapes)
         lm_batch = next_batch(trainer)
+        on = {}
         profiled_step(f"lm step {arch}", lambda: trainer.step(trainer.state, lm_batch),
-                      ranges=(CROSS_ATTENTION_RANGE,) if cfg.family == "audio" else ())
+                      ranges=(CROSS_ATTENTION_RANGE,) if cfg.family == "audio" else (), stats=on)
+        if arch in REMAT_BOTH_WAYS:
+            remat_off(trainer, lm_batch, on)
+        if arch in REMAT_GRADS:
+            remat_grads(trainer, lm_batch)
         del trainer, lm_batch, metrics
         torch.cuda.empty_cache()
         print(f"[time] lm {arch} done at {time.perf_counter() - t_start:.1f}s "
@@ -2311,10 +2425,14 @@ def main() -> int:
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     try:
         cfgs = {label: mesh_config(label, arch, dt, layers)
-                for label, arch, _, dt, layers in MESH_SERVE + MESH_TRAIN}
+                for label, arch, _, dt, layers in MESH_SERVE + MESH_TRAIN + (MESH_GRPO,)}
         serve = [(label, seed, cfgs[label]) for label, _, seed, _, _ in MESH_SERVE]
         train_runs = [(label, seed, cfgs[label]) for label, _, seed, _, _ in MESH_TRAIN]
-        ranks = run_ranks(mesh_rank, MESH_WORLD, (MESH_SHAPE, str(dev), serve, train_runs),
+        grpo_label, _, grpo_seed, _, _ = MESH_GRPO
+        grpo_runs = [(grpo_label, grpo_seed, cfgs[grpo_label],
+                      mesh_grpo_batch(cfgs[grpo_label], grpo_seed, dev))]
+        ranks = run_ranks(mesh_rank, MESH_WORLD,
+                          (MESH_SHAPE, str(dev), serve, train_runs, grpo_runs),
                           device=dev, timeout=900)
     except BaseException:
         dry.kill()
@@ -2325,9 +2443,10 @@ def main() -> int:
           f"{time.perf_counter() - t10:.1f}s for the ranks' runs [{card}]")
     for r, res in enumerate(ranks):
         for what, counts in res["launches"].items():
-            kind, label = what.split(" ", 1) if what.startswith("generate") else ("train", what[11:])
+            # "generate <label>", "train step <label>", "grpo step <label>"
+            kind, label = what.split(" ", 1) if what.startswith("generate") else what.split(" step ", 1)
             cfg = cfgs[label]
-            expect = path_launches(cfg, 0, 0, 1) if kind == "train" else path_launches(cfg, 1, MESH_NEW - 1)
+            expect = path_launches(cfg, 1, MESH_NEW - 1) if kind == "generate" else path_launches(cfg, 0, 0, 1)
             if counts != expect:
                 raise AssertionError(f"[mesh] rank {r} {what}: launches {counts}, expected {expect}")
             for k, v in counts.items():
@@ -2377,6 +2496,35 @@ def main() -> int:
               f"mesh vs unsharded on the card: loss err {e_loss:.2e}, grads err {e_grad:.2e} of "
               f"each leaf's largest magnitude (tol {MESH_GRAD_TOL})")
         del params, grads
+    for label, seed, cfg, cpu_batch in grpo_runs:
+        api = build_model(cfg)
+        batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+        params = api.init(torch.Generator(device=dev).manual_seed(seed), dev, trainable=True)
+        loss = grpo_loss(params, batch, api)[0]
+        grads = grads_of(loss, params)
+        got_loss, got_grads = ranks[0][f"grpo {label}"]
+        e_loss = assert_close(f"[mesh] grpo {label} loss", torch.tensor(got_loss),
+                              loss.detach().cpu(), MESH_GRAD_TOL, rel=False)
+        e_grad = max(grad_err(f"[mesh] grpo {label} grad {k}", got_grads[k], g.cpu(),
+                              MESH_GRAD_TOL)[1] or 0.0 for k, g in grads.items())
+        del grads
+        params = api.init(torch.Generator(device=dev).manual_seed(seed), dev, trainable=True)
+        _, want = make_grpo_step(api, AdamWConfig())(TrainState(params, init_adamw(params)), batch)
+        e_metric = 0.0
+        for r, res in enumerate(ranks):
+            got = res[f"grpo metrics {label}"]
+            if got.keys() != want.keys():
+                raise AssertionError(f"[mesh] grpo {label} rank {r}: metrics {sorted(got)}")
+            for k, w in want.items():
+                err = abs(got[k] - float(w)) / max(1.0, abs(float(w)))
+                if not err <= MESH_GRAD_TOL:
+                    raise AssertionError(f"[mesh] grpo {label} rank {r} {k}: {got[k]} vs {float(w)}")
+                e_metric = max(e_metric, err)
+        print(f"[mesh] grpo step {label} f32 {tuple(cpu_batch['tokens'].shape)} (make_grpo_step "
+              f"with the rules) on the mesh vs unsharded on the card: loss err {e_loss:.2e}, grads "
+              f"err {e_grad:.2e} of each leaf's largest magnitude, every rank's step metrics "
+              f"within {e_metric:.2e} (tol {MESH_GRAD_TOL})")
+        del params
     assert_checked("mesh", set().union(*(res["shapes"] for res in ranks)))
 
     try:

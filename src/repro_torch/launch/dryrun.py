@@ -25,7 +25,10 @@ same:
   the counters above see every layer, and nothing needs calibrating;
 * ``memory_analysis``: rank 0's peak of live bytes over the traced step
   from ``torch.distributed._tools.mem_tracker.MemTracker`` (XLA's
-  ``compiled.memory_analysis()`` has no counterpart);
+  ``compiled.memory_analysis()`` has no counterpart); a train step's layers
+  are rematerialised where ``remat`` (the config's, or ``--remat``) holds, as
+  in JAX, and the peak is that of the rematerialised step;
+* ``remat``: whether the layers were rematerialised;
 * ``roofline``: compute, memory and collective times per device against
   the constants below, and the dominant one.
 
@@ -33,13 +36,14 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b \\
           --shape train_4k --mesh single --out results/dryrun_torch
       PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
 
-JAX's flags but two: ``--save-hlo`` (there is no HLO) and ``--remat`` (the
-port keeps every layer's activations: it has no rematerialisation to turn).
+JAX's flags but one: ``--save-hlo`` (there is no HLO).  ``--remat on|off``
+overrides the config's ``remat``, as JAX's does.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -282,8 +286,11 @@ def _trace(cfg, shape, rules, api) -> Dict[str, Any]:
     return extras
 
 
-def run_one(arch: str, shape_name: str, multi_pod: bool, fsdp: Optional[bool] = None) -> Dict[str, Any]:
+def run_one(arch: str, shape_name: str, multi_pod: bool, fsdp: Optional[bool] = None,
+            remat: Optional[bool] = None) -> Dict[str, Any]:
     cfg = get_config(arch)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
     shape = INPUT_SHAPES[shape_name]
     init_fake_world(512 if multi_pod else 256)
     mesh = make_production_mesh(multi_pod=multi_pod)
@@ -307,6 +314,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, fsdp: Optional[bool] = 
         "params": api.param_count(),
         "active_params": api.active_param_count(),
         "kind": shape.kind,
+        "remat": cfg.remat,
     }
     t0 = time.time()
     extras = _trace(cfg, shape, rules, api)
@@ -344,6 +352,7 @@ def main() -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--fsdp", default=None, choices=[None, "on", "off"])
+    ap.add_argument("--remat", default=None, choices=[None, "on", "off"])
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     warnings.filterwarnings("ignore")
@@ -356,6 +365,7 @@ def main() -> None:
     shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) else [args.shape]
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
     fsdp = None if args.fsdp is None else args.fsdp == "on"
+    remat = None if args.remat is None else args.remat == "on"
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
@@ -367,7 +377,7 @@ def main() -> None:
                     continue
                 print(f"=== {arch} x {shape} x {'2x16x16' if mp else '16x16'} ===", flush=True)
                 try:
-                    rec = run_one(arch, shape, mp, fsdp=fsdp)
+                    rec = run_one(arch, shape, mp, fsdp=fsdp, remat=remat)
                 except Exception as e:  # noqa: BLE001 - recorded, and the next combination runs
                     import traceback
 

@@ -10,6 +10,9 @@ takes keys of their own length).  Decoding runs one token against a
 self-attention cache and the fixed cross-attention caches that prefill
 fills.
 
+In training each encoder and decoder layer is rematerialised as JAX's
+``cfg.remat`` does it (``layers.remat_layer``).
+
 Departures, as in ``models.transformer``: depth is a Python loop;
 caches are updated in place; prefill's self-attention caches honour
 ``cache_len`` (JAX's are exactly the prompt long,
@@ -36,6 +39,7 @@ from repro_torch.models.layers import (
     lm_head_schema,
     logits_fn,
     multihead_attention,
+    remat_layer,
     rms_norm,
     rope_cos_sin,
     sharded_lm_head_loss,
@@ -100,6 +104,14 @@ def model_schema(cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def encoder_layer(lp, x: torch.Tensor, positions, cfg: ModelConfig, rope=None, rules=None):
+    """One pre-norm encoder layer: non-causal self-attention, then the FFN."""
+    hn = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
+    x = x + multihead_attention(lp["attn"], hn, positions, cfg, causal=False, rope=rope,
+                                rules=rules)
+    return x + swiglu_ffn(lp["ffn"], rms_norm(x, lp["norm_ffn"], cfg.norm_eps), rules)
+
+
 def encode(params, frames: torch.Tensor, cfg: ModelConfig, rules=None) -> torch.Tensor:
     """frames [B, S_enc, D] (stub embeddings) -> the final-normed encoder output."""
     B, S, _ = frames.shape
@@ -109,10 +121,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, rules=None) -> torch.
     positions = arange_positions(B, S, x.device)
     rope = None if is_dtensor(x) else rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
     for lp in layer_params(params["enc_layers"]):
-        hn = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
-        x = x + multihead_attention(lp["attn"], hn, positions, cfg, causal=False, rope=rope,
-                                    rules=rules)
-        x = x + swiglu_ffn(lp["ffn"], rms_norm(x, lp["norm_ffn"], cfg.norm_eps), rules)
+        x = remat_layer(cfg, encoder_layer, lp, x, positions, cfg, rope, rules)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -147,42 +156,54 @@ def _write_rows(block: CacheBlock, k: torch.Tensor, v: torch.Tensor) -> None:
         block.v[:, : r1 - block.s_lo] = v[:, block.s_lo:r1, cols]
 
 
+def decoder_layer(lp, x: torch.Tensor, enc_out: torch.Tensor, positions, cfg: ModelConfig,
+                  rope=None, rules=None, cache=None, cross_cache=None):
+    """One pre-norm decoder layer: causal self-attention, cross-attention to the encoder
+    output, then the FFN.  ``cache`` (prefill) receives the roped self-attention K/V and
+    ``cross_cache`` the cross K/V: a (k, v) pair of FLAT caches, or with a DTensor x the
+    rank's ``CacheBlock``s."""
+    hn = rms_norm(x, lp["norm_self"], cfg.norm_eps)
+    x = x + multihead_attention(lp["self_attn"], hn, positions, cfg, cache=cache, rope=rope,
+                                rules=rules)
+    ck, cv = cross_kv(lp, enc_out, cfg, rules)
+    if isinstance(cross_cache, CacheBlock):
+        _write_rows(cross_cache, *(rules.enter(t, ("batch", None, None, None)).flatten(2)
+                                   for t in (ck, cv)))
+    elif cross_cache is not None:
+        cross_cache[0].copy_(ck.flatten(2))
+        cross_cache[1].copy_(cv.flatten(2))
+    hn = rms_norm(x, lp["norm_cross"], cfg.norm_eps)
+    x = x + multihead_attention(lp["cross_attn"], hn, positions, cfg, kv_override=(ck, cv),
+                                causal=False, use_rope=False, rules=rules)
+    return x + swiglu_ffn(lp["ffn"], rms_norm(x, lp["norm_ffn"], cfg.norm_eps), rules)
+
+
 def _decoder(params, tokens: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig, state=None,
              rules=None):
     """The decoder layers over the whole text -> hidden [B, S, D], before the final norm.
 
     With ``state`` (prefill), each layer's roped self-attention K/V and its
     cross K/V are written into the state's caches in place (with live
-    ``rules``, the rank's blocks of them).
+    ``rules``, the rank's blocks of them); without it (``decode_train``) each
+    layer is a rematerialised region in training.
     """
     B, S = tokens.shape
     x = embed_tokens(params, tokens, cfg, rules)
     live = is_dtensor(x)
     positions = arange_positions(B, S, tokens.device)
     rope = None if live else rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    blocks = None
-    if state is not None and live:
-        blocks = list(zip(cache_blocks(state.self_k, state.self_v, rules),
+    if state is None:
+        for lp in layer_params(params["dec_layers"]):
+            x = remat_layer(cfg, decoder_layer, lp, x, enc_out, positions, cfg, rope, rules)
+        return x
+    if live:
+        caches = list(zip(cache_blocks(state.self_k, state.self_v, rules),
                           cache_blocks(state.cross_k, state.cross_v, rules)))
-    for i, lp in enumerate(layer_params(params["dec_layers"])):
-        if state is None:
-            cache = None
-        else:
-            cache = blocks[i][0] if live else (state.self_k[i], state.self_v[i])
-        hn = rms_norm(x, lp["norm_self"], cfg.norm_eps)
-        x = x + multihead_attention(lp["self_attn"], hn, positions, cfg, cache=cache, rope=rope,
-                                    rules=rules)
-        ck, cv = cross_kv(lp, enc_out, cfg, rules)
-        if state is not None and live:
-            _write_rows(blocks[i][1], *(rules.enter(t, ("batch", None, None, None)).flatten(2)
-                                       for t in (ck, cv)))
-        elif state is not None:
-            state.cross_k[i].copy_(ck.flatten(2))
-            state.cross_v[i].copy_(cv.flatten(2))
-        hn = rms_norm(x, lp["norm_cross"], cfg.norm_eps)
-        x = x + multihead_attention(lp["cross_attn"], hn, positions, cfg, kv_override=(ck, cv),
-                                    causal=False, use_rope=False, rules=rules)
-        x = x + swiglu_ffn(lp["ffn"], rms_norm(x, lp["norm_ffn"], cfg.norm_eps), rules)
+    else:
+        caches = [((state.self_k[i], state.self_v[i]), (state.cross_k[i], state.cross_v[i]))
+                  for i in range(cfg.num_layers)]
+    for lp, (cache, cross_cache) in zip(layer_params(params["dec_layers"]), caches):
+        x = decoder_layer(lp, x, enc_out, positions, cfg, rope, rules, cache, cross_cache)
     return x
 
 

@@ -20,6 +20,8 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._pytree import tree_leaves
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -150,6 +152,54 @@ def local_rows(fn, x, *weights):
     ws = [w.redistribute(mesh, whole).to_local(grad_placements=grad) if is_dtensor(w) else w
           for w in weights]
     return DTensor.from_local(fn(x.to_local(), *ws), mesh, pl, run_check=False)
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation of a layer body in training
+# ---------------------------------------------------------------------------
+
+
+def remat_policy(ctx, op, *args, **kwargs):
+    """Which outputs a rematerialised layer keeps: JAX's ``dots_with_no_batch_dims_saveable``.
+
+    A product with no batch dimension (``aten.mm`` / ``aten.addmm``: what
+    ``x @ W`` of a [B, S, D] activation dispatches to, the q/k/v/o,
+    gate/up/down, router, SSM in/out and cross K/V projections) is saved;
+    everything else is recomputed in the backward: norms, RoPE, attention,
+    the per-expert products (``bmm`` on the CPU, the kernel on the card),
+    the SSD scan, elementwise work and the collectives.  The kernels of
+    ``kernels.ops`` fill fresh buffers outside autograd's sight, so under
+    recompute their ``autograd.Function`` runs again and relaunches them.
+    """
+    if op.overloadpacket in _NO_BATCH_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_NO_BATCH_PRODUCTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+def _remat_contexts():
+    return create_selective_checkpoint_contexts(remat_policy)
+
+
+def remat_layer(cfg: ModelConfig, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, a layer body, as JAX runs it under ``cfg.remat`` in training.
+
+    JAX wraps the body of each layer scan in ``jax.checkpoint(body,
+    policy=dots_with_no_batch_dims_saveable)`` where ``cfg.remat``
+    (repro/models/transformer.py:155-158, repro/models/encdec.py:99-102 and
+    :138-141).  Here, where ``cfg.remat`` holds and autograd records (a
+    tensor among the arguments wants a gradient), the call is a
+    selectively checkpointed region: between forward and backward it holds
+    its arguments and the outputs that ``remat_policy`` saves, and the
+    backward runs the body again for the rest.  Values do not change.
+    Anywhere else (serving, scoring, ``remat=False``) it is a plain call.
+    """
+    if not (cfg.remat and torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves((args, kwargs)))):
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=_remat_contexts, **kwargs)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -722,7 +772,7 @@ def _sharded_logits(params, x, cfg: ModelConfig, rules) -> torch.Tensor:
     """Serving's logits (no gradient): the vocabulary blocks gathered over the model axis."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("sharded logits are gathered without a gradient: train through "
-                           "sharded_lm_head_loss")
+                           "sharded_lm_head_loss or sharded_token_logprobs")
     ds = rules.batch_sharded(x)
     w, _, split = _vocab_block(params, cfg, rules, ds)
     out = _f32_product(rules.enter(x, ("batch", None, None)), w)
@@ -731,11 +781,11 @@ def _sharded_logits(params, x, cfg: ModelConfig, rules) -> torch.Tensor:
     return rules.leave(out, x)
 
 
-def sharded_lm_head_loss(params, x, labels, cfg: ModelConfig, rules) -> torch.Tensor:
-    """``cross_entropy(logits_fn(x), labels)`` of a DTensor x [B, S, D] without gathering
-    the logits: each model rank holds its vocabulary rows' logits, and the log-sum-exp
-    and the gold logit are summed over the model axis (the mean covers the global
-    batch).  Returns a plain scalar, equal on every rank."""
+def _sharded_gold_logz(params, x, labels, cfg: ModelConfig, rules):
+    """(gold logit, log-sum-exp) of ``logits_fn(x)`` at ``labels`` for a DTensor x [B, S, D],
+    each the rank's local [B_l, S] f32 (and whether its batch is sharded), without gathering
+    the logits: each model rank holds its vocabulary rows' logits, the maximum is reduced
+    over the model axis and the sum of exponentials and the gold logit are summed over it."""
     import torch.distributed._functional_collectives as funcol
 
     ds = rules.batch_sharded(x)
@@ -752,8 +802,23 @@ def sharded_lm_head_loss(params, x, labels, cfg: ModelConfig, rules) -> torch.Te
     gold = torch.where(local, gold, torch.zeros_like(gold))
     if split:
         se, gold = rules.sum_model(se, ds), rules.sum_model(gold, ds)
-    nll_sum = (m[..., 0] + torch.log(se) - gold).sum()
-    return rules.sum_data(nll_sum, ds) / labels.numel()
+    return gold, m[..., 0] + torch.log(se), ds
+
+
+def sharded_lm_head_loss(params, x, labels, cfg: ModelConfig, rules) -> torch.Tensor:
+    """``cross_entropy(logits_fn(x), labels)`` of a DTensor x [B, S, D] without gathering
+    the logits (``_sharded_gold_logz``; the mean covers the global batch).  Returns a
+    plain scalar, equal on every rank."""
+    gold, logz, ds = _sharded_gold_logz(params, x, labels, cfg, rules)
+    return rules.sum_data((logz - gold).sum(), ds) / labels.numel()
+
+
+def sharded_token_logprobs(params, x, labels, cfg: ModelConfig, rules) -> torch.Tensor:
+    """``log_softmax(logits_fn(x))`` at ``labels`` [B, S] for a DTensor x [B, S, D], per
+    token and differentiable, without gathering the logits (``_sharded_gold_logz``): a
+    DTensor [B, S] f32 laid out as ``labels``."""
+    gold, logz, _ = _sharded_gold_logz(params, x, labels, cfg, rules)
+    return rules.leave(gold - logz, labels)
 
 
 def cross_entropy(

@@ -4,11 +4,8 @@ Torch twin of ``repro.models.transformer``.  Depth is a Python loop over
 the layer-stacked ``[L, ...]`` parameters (the JAX package scans over
 them).  The vlm family is the dense one with a stub prefix of patch
 embeddings ahead of the text; the audio family (an encoder-decoder) is
-``models.encdec``'s.
-
-Departure: JAX rematerialises the layer body in training
-(``jax.checkpoint``, repro/models/transformer.py:155-158), which changes
-memory and not values; here autograd keeps every layer's activations.
+``models.encdec``'s.  In training each layer is rematerialised as JAX's
+``cfg.remat`` does it (``layers.remat_layer``).
 """
 
 from __future__ import annotations
@@ -32,6 +29,7 @@ from repro_torch.models.layers import (
     lm_head_schema,
     logits_fn,
     multihead_attention,
+    remat_layer,
     rms_norm,
     rope_cos_sin,
     sharded_lm_head_loss,
@@ -205,6 +203,8 @@ def forward(
 
     ``aux``: ``load_balance`` and ``router_z`` averaged over the layers, f32
     scalars (zeros outside the moe family), as the JAX forward returns them.
+    Each layer is a rematerialised region in training (``remat_layer``); the
+    final norm stays outside, as in JAX.
     """
     _require_decoder(cfg)
     rope = None
@@ -212,7 +212,8 @@ def forward(
         rope = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
     auxes = []
     for lp in layer_params(params["layers"]):
-        x, aux, _ = layer_forward(lp, x, positions, cfg, sliding_window, rope=rope, rules=rules)
+        x, aux, _ = remat_layer(cfg, layer_forward, lp, x, positions, cfg, sliding_window,
+                                rope=rope, rules=rules)
         if aux is not None:
             auxes.append(aux)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -12,7 +12,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.models.layers import logits_fn
+from repro_torch.models.layers import logits_fn, sharded_token_logprobs
 from repro_torch.models.model import ModelApi
 from repro_torch.models.transformer import arange_positions, embed_tokens, forward
 from repro_torch.sharding.rules import is_dtensor
@@ -33,9 +33,11 @@ def token_logprobs(params, tokens: torch.Tensor, api: ModelApi, rules=None) -> t
     Through the decoder-only forward, as in JAX (a vlm scores its text
     alone).  An encoder-decoder has no such forward, and the JAX function
     cannot score one either (it reads ``params["layers"]``, which the
-    encoder-decoder schema lacks): the audio family raises.  Live ``rules``
-    (scoring: no gradient): the tokens are placed on the mesh and the result
-    is a DTensor laid out as them.
+    encoder-decoder schema lacks): the audio family raises.  Live ``rules``:
+    the tokens are placed on the mesh, each model rank keeps its vocabulary
+    rows' logits (``sharded_token_logprobs``: nothing is gathered, and the
+    result carries a gradient) and the result is a DTensor laid out as the
+    tokens.
     """
     cfg = api.cfg
     if cfg.family == "audio":
@@ -48,11 +50,9 @@ def token_logprobs(params, tokens: torch.Tensor, api: ModelApi, rules=None) -> t
         tokens = rules.distribute(tokens, ("batch", None))
     x = embed_tokens(params, tokens, cfg, rules)
     h, _ = forward(params, x, arange_positions(B, S, tokens.device), cfg, rules=rules)
-    logits = logits_fn(params, h[:, :-1, :], cfg, rules)  # [N, S-1, V] f32
-    if is_dtensor(logits):
-        logp = torch.log_softmax(logits.to_local(), dim=-1)
-        logp = logp.gather(-1, tokens.to_local()[:, 1:, None].long())[..., 0]
-        return rules.leave(logp, tokens)
+    if is_dtensor(h):
+        return sharded_token_logprobs(params, h[:, :-1, :], tokens[:, 1:], cfg, rules)
+    logits = logits_fn(params, h[:, :-1, :], cfg)  # [N, S-1, V] f32
     logp = torch.log_softmax(logits, dim=-1)
     return logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
 
@@ -61,15 +61,31 @@ def grpo_loss(
     params,
     batch: Dict[str, torch.Tensor],
     api: ModelApi,
+    rules=None,
     clip_eps: float = 0.2,
     kl_coef: float = 0.02,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens [N,S], mask [N,S-1] (1 on generated positions),
-    advantages [N], old_logp [N,S-1], ref_logp [N,S-1]."""
+    advantages [N], old_logp [N,S-1], ref_logp [N,S-1].
+
+    Live ``rules``: the batch is placed on the mesh as the tokens, each rank
+    works on its block of rows, and the masked sums are summed over the data
+    axes: the loss and the metrics are plain scalars, equal on every rank.
+    """
     tokens = batch["tokens"]
+    logp = token_logprobs(params, tokens, api, rules)
+    ds = False
+    if is_dtensor(logp):
+        ds = rules.batch_sharded(logp)
+        logp = logp.to_local()
+        batch = {k: rules.distribute(v, ("batch",) + (None,) * (v.dim() - 1)).to_local()
+                 for k, v in batch.items()}
+
+    def total(t):
+        return rules.sum_data(torch.sum(t), ds) if ds else torch.sum(t)
+
     mask = batch["mask"].to(torch.float32)
     adv = batch["advantages"][:, None]  # [N,1] broadcast over positions
-    logp = token_logprobs(params, tokens, api)
     ratio = torch.exp(logp - batch["old_logp"])
     unclipped = ratio * adv
     clipped = torch.clamp(ratio, 1 - clip_eps, 1 + clip_eps) * adv
@@ -77,22 +93,25 @@ def grpo_loss(
     # k3 KL estimator (non-negative): exp(d) - d - 1
     d = batch["ref_logp"] - logp
     kl = torch.exp(d) - d - 1.0
-    denom = torch.clamp(torch.sum(mask), min=1.0)
-    pg_loss = torch.sum(pg * mask) / denom
-    kl_loss = torch.sum(kl * mask) / denom
+    denom = torch.clamp(total(mask), min=1.0)
+    pg_loss = total(pg * mask) / denom
+    kl_loss = total(kl * mask) / denom
     loss = pg_loss + kl_coef * kl_loss
     return loss, {
         "pg_loss": pg_loss,
         "kl": kl_loss,
-        "ratio_mean": torch.sum(ratio * mask) / denom,
+        "ratio_mean": total(ratio * mask) / denom,
     }
 
 
-def make_grpo_step(api: ModelApi, opt_cfg: AdamWConfig):
-    """Returns ``step(state, batch) -> (state, metrics)``; the parameters are updated in place."""
+def make_grpo_step(api: ModelApi, opt_cfg: AdamWConfig, rules=None):
+    """Returns ``step(state, batch) -> (state, metrics)``; the parameters are updated in place.
+
+    ``rules``: as ``make_train_step``'s (every rank calls the step with the same whole
+    batch; the metrics are plain scalars equal on every rank)."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        loss, metrics = grpo_loss(state.params, batch, api)
+        loss, metrics = grpo_loss(state.params, batch, api, rules)
         return apply_gradients(state, loss, opt_cfg, {"loss": loss, **metrics})
 
     return step

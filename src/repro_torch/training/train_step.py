@@ -54,13 +54,16 @@ def grads_of(loss: torch.Tensor, params) -> Dict[str, torch.Tensor]:
     return out
 
 
+def plain_metrics(metrics) -> Dict[str, torch.Tensor]:
+    """Detached metrics, each a plain tensor (a DTensor's whole value) equal on every rank."""
+    return {k: (v.full_tensor() if is_dtensor(v) else v).detach() for k, v in metrics.items()}
+
+
 def apply_gradients(state: TrainState, loss: torch.Tensor, opt_cfg: AdamWConfig, metrics):
     """Differentiate ``loss``, take one AdamW step; -> (state, detached metrics)."""
     grads = grads_of(loss, state.params)
     _, opt, opt_metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
-    out = {k: (v.full_tensor() if is_dtensor(v) else v).detach()
-           for k, v in {**metrics, **opt_metrics}.items()}
-    return TrainState(state.params, opt), out
+    return TrainState(state.params, opt), plain_metrics({**metrics, **opt_metrics})
 
 
 def make_train_step(api: ModelApi, opt_cfg: AdamWConfig, rules=None):
@@ -78,20 +81,24 @@ def make_train_step(api: ModelApi, opt_cfg: AdamWConfig, rules=None):
     return train_step
 
 
-def make_grad_accum_train_step(api: ModelApi, opt_cfg: AdamWConfig, accum_steps: int):
-    """Microbatched step: batch leading dim = [accum, micro_batch, ...]."""
+def make_grad_accum_train_step(api: ModelApi, opt_cfg: AdamWConfig, accum_steps: int, rules=None):
+    """Microbatched step: batch leading dim = [accum, micro_batch, ...].
+
+    Each micro-batch's gradients are summed in f32 in the parameters' own layout
+    (a parameter on a mesh: a DTensor of its placements).  ``rules``: as
+    ``make_train_step``'s."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         named = named_params(state.params)
-        gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for k, p in named.items()}
+        gsum = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in named.items()}
         lsum = torch.zeros((), dtype=torch.float32, device=next(iter(named.values())).device)
         for i in range(accum_steps):
-            loss, _ = api.loss_fn(state.params, {k: v[i] for k, v in batch.items()})
+            loss, _ = api.loss_fn(state.params, {k: v[i] for k, v in batch.items()}, rules)
             for k, g in grads_of(loss, state.params).items():
                 gsum[k] += g
             lsum = lsum + loss.detach()
         grads = {k: g / accum_steps for k, g in gsum.items()}
         _, opt, opt_metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
-        return TrainState(state.params, opt), {"loss": lsum / accum_steps, **opt_metrics}
+        return TrainState(state.params, opt), plain_metrics({"loss": lsum / accum_steps, **opt_metrics})
 
     return train_step

@@ -444,15 +444,21 @@ def wide_hymba():
     return dataclasses.replace(cfg, name=cfg.name + "-wide", ssm_expand=9)
 
 
-@pytest.mark.parametrize(
-    "arch", ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b", "wide",
-             "internvl2-1b", "whisper-medium"]
-)
+TRAIN_COUNT_ARCHS = ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m",
+                     "hymba-1.5b", "wide", "internvl2-1b", "whisper-medium"]
+
+
+# each arch as its config gives it (remat on), and with ":remat-off"
+@pytest.mark.parametrize("arch", TRAIN_COUNT_ARCHS + [a + ":remat-off" for a in TRAIN_COUNT_ARCHS])
 def test_chip_smoke_training_launch_counts_follow_the_code(arch, monkeypatch):
     """On the card every ``ops`` call under grad launches its kernel once and, in the
     backward, its backward kernels once each; ``chip_smoke.path_launches`` must predict
-    the launches of one training step (``loss_fn`` and its gradient), family by family."""
+    the launches of one training step (``loss_fn`` and its gradient), family by family,
+    with the layers rematerialised (their forward kernels run again in the backward)
+    and without."""
+    arch, _, off = arch.partition(":")
     cfg = wide_hymba() if arch == "wide" else get_config(arch).reduced()
+    cfg = dataclasses.replace(cfg, remat=not off)
     assert arch != "wide" or cfg.d_inner > rmsnorm_mod.BWD_WARP_MAX_DIM
     api = build_model(cfg)
     params = api.init(torch.Generator().manual_seed(0), "cpu", trainable=True)

@@ -2,7 +2,9 @@
 group stands for 256 or 512 ranks): its records carry the JAX record's keys,
 its analytic bytes equal the JAX package's for the same inputs (computed in
 another subprocess: importing ``repro.launch.dryrun`` sets JAX's device
-count to 512), and it reports the collectives of the sharded MoE.
+count to 512), and it reports the collectives of the sharded MoE.  The
+llama train step runs once more with ``--remat off``: its peak is higher
+than the default's, with the layers rematerialised.
 """
 
 import json
@@ -15,6 +17,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 CASES = [("llama3.2-1b", "train_4k", "single", "off"), ("kimi-k2-1t-a32b", "decode_32k", "multi", "on")]
+REMAT_OFF = "llama3.2-1b:remat-off"  # CASES[0] with --remat off
 
 _JAX_BYTES = """
 import json, sys
@@ -51,16 +54,17 @@ print(json.dumps(out))
 
 @pytest.fixture(scope="module")
 def records(tmp_path_factory):
-    out = tmp_path_factory.mktemp("dryrun")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     recs = {}
-    for arch, shape, mesh, fsdp in CASES:
+    for key, (arch, shape, mesh, fsdp), extra in [(c[0], c, []) for c in CASES] + [
+            (REMAT_OFF, CASES[0], ["--remat", "off"])]:
+        out = tmp_path_factory.mktemp("dryrun")
         res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                              "--shape", shape, "--mesh", mesh, "--fsdp", fsdp, "--out", str(out)],
-                             cwd=ROOT, capture_output=True, text=True, timeout=600, env=env)
+                              "--shape", shape, "--mesh", mesh, "--fsdp", fsdp, "--out", str(out),
+                              *extra], cwd=ROOT, capture_output=True, text=True, timeout=600, env=env)
         assert res.returncode == 0, res.stderr[-3000:]
         assert " ok " in res.stdout, res.stdout[-3000:]
-        recs[arch] = json.loads((out / f"{arch}_{shape}_{mesh}.json").read_text())
+        recs[key] = json.loads((out / f"{arch}_{shape}_{mesh}.json").read_text())
     return recs
 
 
@@ -69,7 +73,7 @@ def test_records_have_the_jax_keys(records):
         assert rec["ok"] is True
         for key in ("arch", "shape", "mesh", "devices", "fsdp", "params", "active_params", "kind",
                     "state_bytes_per_dev", "model_flops", "cost_analysis", "collectives",
-                    "roofline", "layer_body_cost", "memory_analysis"):
+                    "roofline", "layer_body_cost", "memory_analysis", "remat"):
             assert key in rec, key
         assert rec["layer_body_cost"] is None
         assert rec["cost_analysis"]["flops"] > 0 and rec["roofline"]["compute_s"] > 0
@@ -83,7 +87,7 @@ def test_bytes_equal_jax(records):
     assert res.returncode == 0, res.stderr[-3000:]
     want = json.loads(res.stdout.strip().splitlines()[-1])
     for arch, rec in records.items():
-        for key, value in want[arch].items():
+        for key, value in want[arch.partition(":")[0]].items():
             assert rec[key] == value, (arch, key, rec[key], value)
 
 
@@ -93,3 +97,12 @@ def test_sharded_moe_reports_collectives(records):
     col = records["kimi-k2-1t-a32b"]["collectives"]
     assert col["count"] >= 61 and col["all-reduce"] > 0
     assert records["llama3.2-1b"]["collectives"]["count"] > 0
+
+
+def test_remat_lowers_the_train_steps_peak(records):
+    """The configs rematerialise by default, as JAX's: the train step holds each layer's
+    input and no-batch products, so its peak is below the step that keeps every activation."""
+    on, off = records["llama3.2-1b"], records[REMAT_OFF]
+    assert on["remat"] is True and off["remat"] is False
+    assert records["kimi-k2-1t-a32b"]["remat"] is True
+    assert 0 < on["memory_analysis"]["peak_bytes"] < off["memory_analysis"]["peak_bytes"]

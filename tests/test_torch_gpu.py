@@ -611,7 +611,9 @@ def test_vlm_and_audio_card_match_cpu(cuda, arch):
     torch.cuda.synchronize()
     got = {k: v - before[k] for k, v in ops.launch_counts().items()}
     attn = cfg.num_layers + cfg.encoder_layers
-    assert got["flash_attention"] == got["flash_attention_bwd_dkdv"] == attn
+    # with remat (the configs' default) each layer's attention runs again in the backward
+    assert got["flash_attention"] == (2 if cfg.remat else 1) * attn
+    assert got["flash_attention_bwd_dkdv"] == attn
     lc = api.loss_fn(p_cpu, {"tokens": toks, **on_cpu})[0]
     gc = grads_of(lc, p_cpu)
     close(lg.detach(), lc.detach(), 1e-3)
@@ -637,13 +639,15 @@ def test_live_grpo_step_launches(cuda):
     got = {k: v - before[k] for k, v in ops.launch_counts().items()}
     n, new = 8, driver.gen_cfg.max_new_tokens
     # forwards of the policy: prefill, new - 1 decode steps, old_logp; one judge forward per
-    # sequence; one training step.  Dense: 2L + 1 norms and L attentions per forward.
+    # sequence; one training step, whose layers (remat, the configs' default) run their
+    # forward again in the backward.  Dense: 2L + 1 norms and L attentions per forward.
     pol_fwd, norms = 1 + (new - 1) + 1, 2 * policy.num_layers + 1
+    again = 1 if policy.remat else 0
     assert got == {
-        "rmsnorm": norms * (pol_fwd + 1) + n * (2 * judge.num_layers + 1),
+        "rmsnorm": norms * (pol_fwd + 1) + again * (norms - 1) + n * (2 * judge.num_layers + 1),
         "rmsnorm_bwd": norms,
         "rmsnorm_bwd_dweight": norms,
-        "flash_attention": policy.num_layers * 3 + n * judge.num_layers,
+        "flash_attention": policy.num_layers * (3 + again) + n * judge.num_layers,
         "flash_attention_bwd_dq": policy.num_layers,
         "flash_attention_bwd_dkdv": policy.num_layers,
         "rmsnorm_bwd_wide": 0,
@@ -747,3 +751,35 @@ def test_sharded_train_step_on_ranks_sharing_the_card(cuda):
         for k, g in gw.items():
             scale = g.abs().max().item() or 1.0
             assert (gs[k] - g).abs().max().item() <= 1e-4 * scale, k
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-3b-a800m", "hymba-1.5b"])
+def test_remat_relaunches_each_layers_forward_kernels(cuda, arch):
+    """One reduced f32 LM step with the layers rematerialised (the configs' default) and
+    without: under recompute each layer's forward kernels launch once more (the final norm
+    does not), the backward kernels launch as often, and the gradients are bit-identical."""
+    from repro_torch.training.train_step import grads_of
+
+    cfg = get_config(arch).reduced()
+    seq = 2 * cfg.ssm_chunk if cfg.family == "hybrid" else 24
+    toks = torch.as_tensor(np.random.default_rng(10).integers(0, cfg.vocab_size, size=(2, seq)))
+    out = {}
+    for remat in (True, False):
+        api = build_model(dataclasses.replace(cfg, remat=remat))
+        params = api.init(torch.Generator(device=cuda).manual_seed(11), cuda, trainable=True)
+        before = ops.launch_counts()
+        grads = grads_of(api.loss_fn(params, {"tokens": toks.to(cuda)})[0], params)
+        torch.cuda.synchronize()
+        out[remat] = ({k: v - before[k] for k, v in ops.launch_counts().items()}, grads)
+    (on, g_on), (off, g_off) = out[True], out[False]
+    L = cfg.num_layers
+    norms = (6 if cfg.family == "hybrid" else 2) * L  # the layers' norms; the final norm is outside
+    assert on["rmsnorm"] == off["rmsnorm"] + norms
+    assert on["flash_attention"] == off["flash_attention"] + L
+    assert on["moe_matmul"] == off["moe_matmul"] + (3 * L if cfg.family == "moe" else 0)
+    assert on["ssd_intra_chunk"] == off["ssd_intra_chunk"] + (L if cfg.family == "hybrid" else 0)
+    for k in on:
+        if k.endswith(("_bwd", "_bwd_dq", "_bwd_dkdv", "_dweight", "_wide", "_dbuf", "_dw", "_reduce")):
+            assert on[k] == off[k], k
+    for k, g in g_on.items():
+        assert torch.equal(g, g_off[k]), k

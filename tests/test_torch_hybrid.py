@@ -131,16 +131,22 @@ OPS = {"rmsnorm_op": "rmsnorm", "flash_attention_op": "flash_attention",
        "moe_matmul_op": "moe_matmul", "ssd_intra_chunk_op": "ssd_intra_chunk"}
 
 
-@pytest.mark.parametrize(
-    "arch", ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b",
-             "internvl2-1b", "whisper-medium"]
-)
+COUNT_ARCHS = ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b",
+               "internvl2-1b", "whisper-medium"]
+
+
+# each arch as its config gives it (remat on), and with ":remat-off"
+@pytest.mark.parametrize("arch", COUNT_ARCHS + [a + ":remat-off" for a in COUNT_ARCHS])
 def test_chip_smoke_launch_counts_follow_the_code(arch, monkeypatch):
     """On the card every call of an ``ops`` entry point without a gradient
     launches its kernel once; ``chip_smoke.path_launches`` must predict the
     calls that generation and scoring make, family by family (the vlm with
-    its patch prefix, the audio family over its frames; it cannot score)."""
+    its patch prefix, the audio family over its frames; it cannot score).
+    Serving records no gradient, so ``remat`` changes none of them."""
+    arch, _, off = arch.partition(":")
     _, _, tapi, tparams = models(arch)
+    if off:
+        tapi = build_model(dataclasses.replace(tapi.cfg, remat=False))
     calls = Counter()
     for fname, kernel in OPS.items():
         fn = getattr(ops, fname)

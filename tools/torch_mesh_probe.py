@@ -145,7 +145,7 @@ def bf16(device, seeds):
     picked = [row for row in cs.MESH_SERVE if row[3] == "bfloat16"]
     serve = [(f"{label} seed {seed}", seed, cs.mesh_config(label, arch, dt, layers))
              for label, arch, _, dt, layers in picked for seed in seeds]
-    ranks = run_ranks(cs.mesh_rank, cs.MESH_WORLD, (cs.MESH_SHAPE, str(dev), serve, []),
+    ranks = run_ranks(cs.mesh_rank, cs.MESH_WORLD, (cs.MESH_SHAPE, str(dev), serve, [], []),
                       device=dev, timeout=900)
     from repro_torch.serving.engine import Engine, GenerationConfig
 
