@@ -7,10 +7,10 @@ Phases, each of which raises on failure (nothing is caught):
 
 1. environment: the card's name and power limit; TF32 off for f32 matmuls
    and convolutions;
-2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (each
-   library with its backward entry points) and an empty one-thread kernel
-   (``launch_floor.cu``), one nvcc per source started together, for sm_90a,
-   printing what ptxas reports;
+2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc`` (each
+   library with its backward entry points; ``adamw.cu``'s three) and an empty
+   one-thread kernel (``launch_floor.cu``), one nvcc per source started
+   together, for sm_90a, printing what ptxas reports;
 3. kernels: the launch floor (the empty kernel's time, taken as the
    kernels' are); each kernel against its plain PyTorch version on the
    card, at the shapes the serving paths give it and at longer ones, with
@@ -63,7 +63,16 @@ Phases, each of which raises on failure (nothing is caught):
    four new models' LM runs too) and longer ones
    beside their bounds, the plain versions and the library's gradient
    (``sdpa``, ``F.rms_norm``, ``torch.bmm``; none for the SSD), each timed
-   kernel called twice for bit-identical results;
+   kernel called twice for bit-identical results; then AdamW (B9): 41 leaves
+   in two tables (every (param, grad) dtype pair, tails, a leaf 2 bytes off
+   16 bytes) and the whole table of leaves of each of phases 6 and 7's
+   training runs, laid out as they launch it, each held against the plain
+   version in one step (given the same scalars p, m and v bit-identical,
+   gnorm within 1e-6, two calls bit-identical; ``hold_adamw``, which makes
+   each leaf again from its seed rather than keep a copy, so granite's 32
+   layers fit), and each run's whole step timed (norm,
+   finish and update apart) beside its bound, the plain version and
+   ``torch._foreach_norm`` + ``torch._fused_adamw_``;
 6. training at full width on seeded random bf16 weights, with exact launch
    counts: GRPO (the paper's loop without the control plane:
    ``smollm-360m`` generates 4 prompts x group 4, 128 prompt + 32 sampled
@@ -72,15 +81,18 @@ Phases, each of which raises on failure (nothing is caught):
    sequences gain log-probability over the negative ones; and LM training
    through ``repro_torch.launch.train``, three steps each: ``llama3.2-1b``
    (4 x 256, through ``main``), and through ``trainer_from_config`` and ``train``
-   ``granite-moe-3b-a800m`` (4 x 256; 24 of its 32 layers, as its full
-   depth's training state does not fit the card), ``mamba2-130m`` and
+   ``granite-moe-3b-a800m`` (4 x 256 at full depth: AdamW updates its
+   moments in place), ``mamba2-130m`` and
    ``hymba-1.5b`` (2 x 512: two SSD chunks a sequence, so the chunk-state
    gradient is live), ``internvl2-1b`` (4 x (256 patches + 256)),
    ``whisper-medium`` (2 x (1500 frames + 448), both at full depth) and
    ``llama3-8b`` and ``glm4-9b`` (4 x 256, 4 layers each), with finite
-   losses (falling over the three steps for the last four); one warm step
-   of each profiled, with its peak memory (whisper's with its
-   cross-attention's device time, forward and backward, from the trace);
+   losses (falling over the three steps for the last four); every optimizer
+   step through the B9 kernels (the plain AdamW raises on a CUDA tensor
+   through phase 7); one warm step of each profiled, with its peak memory and
+   AdamW's device ms, beside the readings of the same step with the literal
+   AdamW (whisper's with its cross-attention's device time, forward and
+   backward, from the trace);
    every step rematerialises its layers (the configs' ``remat``, as in JAX:
    each layer's forward kernels launch again in the backward, counted), and
    llama3.2-1b, granite, hymba and whisper also profile one warm step with
@@ -133,8 +145,8 @@ Phases, each of which raises on failure (nothing is caught):
    gradients against the same weights unsharded on the card and every
    (kernel, shape) a rank launched against its plain version, and prints
    each rank's peak memory, walls (gloo through one host: not multi-card
-   speed) and collectives by kind; then the dry-run of granite's train_4k
-   on the 16 x 16 mesh once.
+   speed) and collectives by kind (the optimizer's apart: one all-reduce a
+   step); then the dry-run of granite's train_4k on the 16 x 16 mesh once.
 
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -238,10 +250,10 @@ LIVE_TIME_SCALE = 0.5
 LM_ARGS = ["--arch", "llama3.2-1b", "--full", "--steps", "3", "--batch", "4", "--seq", "256"]
 # the other families' LM training, (arch, batch, seq, layers or None for full depth): the SSM
 # families at 2 x 512, so that each sequence has two chunks of 256 and the backward's
-# chunk-state gradient is live.  granite-moe-3b-a800m keeps 24 of its 32 layers at full width:
-# at full depth the literal AdamW's f32 moments and temporaries (its stacked expert leaves hold
-# 1.0 B elements each) ran out of the card's 80 GB
-LM_FAMILY_RUNS = (("granite-moe-3b-a800m", 4, 256, 24), ("mamba2-130m", 2, 512, None),
+# chunk-state gradient is live.  granite-moe-3b-a800m at full depth and width: AdamW updates
+# its moments in place, so its 3.37 B parameters hold ~12 bytes each (bf16 weights and
+# gradients, f32 moments), ~40 GB of the card's 80
+LM_FAMILY_RUNS = (("granite-moe-3b-a800m", 4, 256, None), ("mamba2-130m", 2, 512, None),
                   ("hymba-1.5b", 2, 512, None))
 # The remaining one-card models: the dense llama3-8b (32 H / 8 KV) and glm4-9b (32 H / 2 KV, GQA
 # g 16), head dim 128 and d 4096; the vlm internvl2-1b (14 H / 2 KV, g 7; 256 stub patch
@@ -254,11 +266,24 @@ SLICE_SCORE = (("llama3-8b", 18), ("glm4-9b", 19), ("internvl2-1b", 20))
 # their LM training, three steps each, (arch, batch, text tokens, layers or None for full depth):
 # internvl2-1b 4 x (256 patches + 256 tokens); whisper-medium 2 x (1500 frames + 448 tokens, its
 # decoder_seq); llama3-8b and glm4-9b 4 x 256 at 4 of their 32 and 40 layers, widths published:
-# the literal AdamW's ~20 bytes a parameter come to 38-41 GB for the cut models' 1.9 and 2.1 B
-# parameters, where full depth would need 160-190 GB
+# at ~12 bytes a parameter their full depths' 8.0 and 9.4 B parameters would need 96-113 GB
 SLICE_LM_RUNS = (("internvl2-1b", 4, 256, None), ("whisper-medium", 2, 448, None),
                  ("llama3-8b", 4, 256, 4), ("glm4-9b", 4, 256, 4))
 SLICE = {arch for arch, _ in SLICE_GENERATE}
+# the same one-card steps with the literal AdamW (new f32 moments each step, ~15 f32 passes a
+# leaf): (device busy ms, max_memory_allocated GiB) under torch.profiler on an NVIDIA H100 80GB
+# HBM3 at 700 W, as PERF.md section 5 records them; granite then trained 24 of its 32 layers
+LITERAL_ADAMW_STEPS = {
+    "grpo step smollm-360m": (54.70, 10.69),
+    "lm step llama3.2-1b": (118.04, 28.11), "lm step llama3.2-1b remat off": (116.15, 28.11),
+    "lm step granite-moe-3b-a800m": (296.32, 62.00),
+    "lm step granite-moe-3b-a800m remat off": (283.56, 62.00),
+    "lm step mamba2-130m": (35.69, 3.02),
+    "lm step hymba-1.5b": (191.71, 35.94), "lm step hymba-1.5b remat off": (182.01, 35.93),
+    "lm step internvl2-1b": (77.08, 13.78),
+    "lm step whisper-medium": (161.90, 20.84), "lm step whisper-medium remat off": (144.27, 20.84),
+    "lm step llama3-8b": (160.45, 40.29), "lm step glm4-9b": (171.27, 43.90),
+}
 # phase 6 trains with the layers rematerialised (every config's default, as in JAX); these
 # models' LM steps are also profiled with remat off (llama3.2-1b's through the launcher), and
 # these have one step's gradients compared both ways
@@ -422,6 +447,30 @@ def ssd_bwd_split_bound(BNC, H, Q, hd, N):
     return bound(moved / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS)
 
 
+ADAMW_OPS = 16  # f32 operations an element of the update: 11 products and sums, 3 divisions, a sqrt
+
+
+def adamw_bounds(leaves):
+    """(norm, finish, update, whole step) bounds of AdamW over ``leaves`` ((shape, p dtype, g
+    dtype) each).  The norm reads g (2 operations an element); the finish reads the f64
+    partials and writes gnorm and the scale; the update reads p, g, m and v and writes p,
+    m and v (f32 moments).  The whole step, as a function, reads each input once and writes
+    each output once: the update's bytes (22 a bf16 parameter), ~ADAMW_OPS + 2 operations
+    an element."""
+    import math
+
+    from repro_torch.kernels.adamw import NORM_BLOCKS
+
+    n = [math.prod(sh) for sh, _, _ in leaves]
+    g_bytes = sum(k * g.itemsize for k, (_, _, g) in zip(n, leaves))
+    upd_bytes = sum(k * (2 * p.itemsize + g.itemsize + 16) for k, (_, p, g) in zip(n, leaves))
+    total = sum(n)
+    return (bound(g_bytes / HBM_BYTES_PER_S, 2 * total / F32_FLOPS),
+            bound((8 * NORM_BLOCKS + 8) / HBM_BYTES_PER_S, NORM_BLOCKS / F32_FLOPS),
+            bound(upd_bytes / HBM_BYTES_PER_S, ADAMW_OPS * total / F32_FLOPS),
+            bound(upd_bytes / HBM_BYTES_PER_S, (ADAMW_OPS + 2) * total / F32_FLOPS))
+
+
 def grad_err(name, got, want, tol):
     """(max |got - want|, that over max |want|, or None where want is all zero).
 
@@ -571,21 +620,157 @@ def profiled(label, fn, card, rows=10, ranges=(), stats=None):
     for base, (us, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
         print(f"[profile] {label} port kernel {base}: {us / 1e3:.3f} ms over {n} launches, "
               f"{100 * us / 1e3 / busy_ms:.1f}% of device busy")
+    opt = [v for base, v in ours.items() if base.startswith("adamw_")]
+    if opt:
+        opt_ms = sum(us for us, _ in opt) / 1e3
+        print(f"[profile] {label} AdamW (B9: norm, finish and update kernels): {opt_ms:.3f} device "
+              f"ms over {sum(n for _, n in opt)} launches, {100 * opt_ms / busy_ms:.1f}% of device "
+              f"busy [{card}]")
     for r, r_ms in in_ranges.items():
         if not r_ms > 0:
             raise AssertionError(f"[profile] {label}: no device work found inside range {r}")
         print(f"[profile] {label} range {r}: {r_ms:.3f} device ms, {100 * r_ms / busy_ms:.1f}% "
               f"of device busy {busy_ms:.2f} ms [{card}]")
     if stats is not None:
-        stats.update(wall_ms=ms, busy_ms=busy_ms)
+        stats.update(wall_ms=ms, busy_ms=busy_ms,
+                     adamw_ms=sum(us for b, (us, _) in ours.items() if b.startswith("adamw_")) / 1e3)
     return in_ranges
 
 
-PORT_KERNEL_PREFIXES = ("rmsnorm", "flash_", "moe_matmul", "ssd_")
+PORT_KERNEL_PREFIXES = ("rmsnorm", "flash_", "moe_matmul", "ssd_", "adamw_")
 
 
 FWD_F32_TOL = {"rmsnorm": RMSNORM_F32_TOL, "flash_attention": FLASH_F32_TOL,
                "moe_matmul": F32_TOL, "ssd_intra_chunk": F32_TOL}
+
+
+# AdamW (B9) is held at step 3 of this config's schedule, past the clip (gradients ~N(0, 3)
+# a leaf), on moments of the sizes training gives them; the plain version runs on slices of at
+# most ADAMW_SLICE elements of a leaf (it is elementwise: a slice's update is the leaf's)
+ADAMW_CFG = dict(lr=1e-3, warmup_steps=10, total_steps=100)
+ADAMW_STEP = 3
+ADAMW_SLICE = 1 << 26
+ADAMW_GNORM_TOL = 1e-6  # relative: the norm's sums run in another order than torch's
+
+
+def adamw_scalars(dev):
+    """(config, lr, bc1, bc2) of the held AdamW step, f32 scalars on ``dev`` as the optimizer
+    forms them."""
+    import torch
+
+    from repro_torch.training.optimizer import AdamWConfig, lr_schedule
+
+    cfg = AdamWConfig(**ADAMW_CFG)
+    step = torch.tensor(ADAMW_STEP, dtype=torch.int32, device=dev)
+    return (cfg, lr_schedule(cfg, step), 1 - cfg.beta1 ** step.to(torch.float32),
+            1 - cfg.beta2 ** step.to(torch.float32))
+
+
+def adamw_inputs(leaves, dev, gen):
+    """Fresh (params, grads, m, v) of ``leaves`` ((shape, p dtype, g dtype) each)."""
+    import torch
+
+    def randn(shape, dtype, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    ps = [randn(s, pdt, 1.0) for s, pdt, _ in leaves]
+    gs = [randn(s, gdt, 3.0) for s, _, gdt in leaves]
+    ms = [randn(s, torch.float32, 0.01) for s, _, _ in leaves]
+    vs = [randn(s, torch.float32, 0.01).square_() for s, _, _ in leaves]
+    return ps, gs, ms, vs
+
+
+def adamw_maker(leaves, dev, seed):
+    """make(i): fresh (p, g, m, v) of leaf i of ``leaves``, from a generator of its own
+    seeded from ``seed`` and i, so that every call makes the same tensors."""
+    import torch
+
+    def make(i):
+        gen = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + i)
+        return tuple(t[0] for t in adamw_inputs([leaves[i]], dev, gen))
+
+    return make
+
+
+def adamw_table(make, n):
+    """[params, grads, m, v] of n leaves made by ``make``."""
+    return [list(ts) for ts in zip(*(make(i) for i in range(n)))]
+
+
+def hold_adamw(label, table, make, dev):
+    """Hold ``ops.adamw_update_`` on ``table`` ([params, grads, m, v] of leaves made by
+    ``make``, as laid out there) in two calls, each on the leaves made afresh and updated in
+    place.  After each call, every leaf's p, m and v must be bit-identical to the plain
+    update (``ref.adamw_leaf_ref``, slice by slice, on the leaf made again) given the
+    kernel's scale and the same lr and bias corrections, so the two calls are bit-identical
+    too; gnorm and scale must be equal in both calls and gnorm within ADAMW_GNORM_TOL of the
+    plain f32 norm (``optimizer.global_norm``).  Beyond the table it holds one leaf at a
+    time.  Returns the readings (gnorm's absolute error, its relative error, the largest
+    |kernel - plain| over p, m and v); raises beyond a limit."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.training.optimizer import global_norm
+
+    ps, gs, ms, vs = table
+    cfg, lr, bc1, bc2 = adamw_scalars(dev)
+    kw = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+
+    def slices(t):
+        flat = t.view(-1)
+        return [flat[i:i + ADAMW_SLICE] for i in range(0, flat.numel(), ADAMW_SLICE)]
+
+    calls = []
+    upd_err = torch.zeros((), dtype=torch.float32, device=dev)
+    for call in range(2):
+        if call:  # the leaves as they were
+            for i, (p, m, v) in enumerate(zip(ps, ms, vs)):
+                p0, _, m0, v0 = make(i)
+                for t, t0 in ((p, p0), (m, m0), (v, v0)):
+                    t.copy_(t0)
+                del p0, m0, v0
+        gnorm, scale = ops.adamw_update_(ps, gs, ms, vs, lr, bc1, bc2, grad_clip=cfg.grad_clip, **kw)
+        calls.append((gnorm.clone(), scale.clone()))
+        for i in range(len(ps)):
+            p0, g0, m0, v0 = make(i)
+            if not torch.equal(g0, gs[i]):
+                raise AssertionError(f"{label}: leaf {i}'s gradient changed")
+            both = (p0, g0, m0, v0, ps[i], ms[i], vs[i])
+            for sp, sg, sm, sv, kp, km, kv in zip(*(slices(t) for t in both)):
+                ref.adamw_leaf_ref(sp, sg, sm, sv, scale, lr, bc1, bc2, **kw)
+                for what, a, b in (("p", kp, sp), ("m", km, sm), ("v", kv, sv)):
+                    d = (a.to(torch.float32) - b.to(torch.float32)).abs().max()
+                    upd_err = torch.maximum(upd_err, d)
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"{label}: call {call + 1}, leaf {i} {tuple(ps[i].shape)} {what} "
+                            f"differs from the plain update given the same scalars at "
+                            f"{int((a != b).sum())} elements, by up to {d.item():.3e}")
+            del p0, g0, m0, v0
+    if not all(torch.equal(a, b) for a, b in zip(*calls)):
+        raise AssertionError(f"{label}: two calls differ in gnorm or scale: {calls}")
+    gnorm = calls[0][0].item()
+    want = global_norm(gs).item()
+    g_abs = abs(gnorm - want)
+    if not g_abs <= ADAMW_GNORM_TOL * want:
+        raise AssertionError(f"{label}: gnorm {gnorm} vs the plain {want} "
+                             f"({g_abs / want:.2e} beyond {ADAMW_GNORM_TOL})")
+    return g_abs, g_abs / want, upd_err.item()
+
+
+def plain_adamw_refused():
+    """A patch under which the plain AdamW raises where it is handed a CUDA tensor: the
+    training runs' optimizer steps must take the B9 kernels."""
+    from repro_torch.kernels import ref
+
+    plain = ref.adamw_update_ref
+
+    def refused(params, *args, **kwargs):
+        if params[0].is_cuda:
+            raise AssertionError("a CUDA tensor reached the plain AdamW")
+        return plain(params, *args, **kwargs)
+
+    return mock.patch.object(ref, "adamw_update_ref", refused)
 
 
 def hold_at_shape(kernel, key, dev, gen):
@@ -600,6 +785,11 @@ def hold_at_shape(kernel, key, dev, gen):
 
     from repro_torch.kernels import ops, ref
 
+    if kernel == "adamw_update_":  # key: (leaf shape, p dtype, g dtype); gnorm's relative error
+        seed = int(torch.randint(1 << 30, (1,), generator=gen, device=gen.device))
+        make = adamw_maker([key], dev, seed)
+        return hold_adamw(f"adamw_update_ {key} (held where it was launched)", adamw_table(make, 1),
+                          make, dev)[1]
     *dims, dt = key
     bwd = kernel.endswith("_bwd")
     name = kernel.removesuffix("_bwd")
@@ -674,9 +864,15 @@ def moe_key(buf, w, *_, **__):
     return (*buf.shape, w.shape[2], buf.dtype)
 
 
+def adamw_keys(params, grads, *_, **__):
+    """A key per leaf of an AdamW step: (shape, p dtype, g dtype)."""
+    return [(tuple(p.shape), p.dtype, g.dtype) for p, g in zip(params, grads)]
+
+
 def kernel_wrappers(train=False):
     """(module, wrapper, shape key) of the forward wrappers that serving records, or with
     ``train`` of every wrapper a training step launches (moe_matmul's forward among them)."""
+    from repro_torch.kernels import adamw as adamw_k
     from repro_torch.kernels import flash_attention as flash_k
     from repro_torch.kernels import moe_matmul as moe_k
     from repro_torch.kernels import rmsnorm as rms_k
@@ -688,15 +884,17 @@ def kernel_wrappers(train=False):
         return fwd
     return (*fwd, (moe_k, "moe_matmul", moe_key), (flash_k, "flash_attention_bwd", flash_key),
             (rms_k, "rmsnorm_bwd", rms_key), (moe_k, "moe_matmul_bwd", moe_key),
-            (ssd_k, "ssd_intra_chunk_bwd", ssd_key))
+            (ssd_k, "ssd_intra_chunk_bwd", ssd_key), (adamw_k, "adamw_update_", adamw_keys))
 
 
 def recording(shapes, wrappers):
-    """Patches that add (wrapper, shape key) to ``shapes`` at every call of the wrappers."""
+    """Patches that add (wrapper, shape key) to ``shapes`` at every call of the wrappers (a
+    key function may give a list: a key for each leaf of an AdamW step)."""
     stack = ExitStack()
     for mod, fname, key in wrappers:
         def call(*a, _fn=getattr(mod, fname), _name=fname, _key=key, **kw):
-            shapes.add((_name, _key(*a, **kw)))
+            k = _key(*a, **kw)
+            shapes.update((_name, x) for x in (k if isinstance(k, list) else [k]))
             return _fn(*a, **kw)
 
         stack.enter_context(mock.patch.object(mod, fname, call))
@@ -798,18 +996,33 @@ def mesh_rank(rank, world, shape, device, serve, train, grpo):
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     rules = make_rules(device_mesh(dev.type, shape, ("data", "model")))
     out = {"shapes": set(), "launches": {}, "walls": {}, "collectives": {}, "peak_gib": {}}
+    if cuda:
+        plain_adamw_refused().start()
+    active = {}
+    step_ = ops.adamw_update_
+
+    def optimizer_step(*args, **kwargs):
+        """``ops.adamw_update_`` with its collectives recorded under "optimizer <label>"."""
+        counter = active["counter"]
+        before = {k: (counter.counts[k], counter.collectives[k]) for k in counter.counts}
+        res = step_(*args, **kwargs)
+        out["collectives"][f"optimizer {active['label']}"] = collective_counts(counter, before)
+        return res
 
     def run(label, fn, engine=None):
         """``fn`` with the launch counts set to 0 just before it and read just after, and its
-        collectives counted (one prefill and one decode step apart, through ``engine``)."""
+        collectives counted (one prefill and one decode step apart, through ``engine``; the
+        optimizer's within a step)."""
         sync()
         dist.barrier()
         ops.reset_launch_counts()
         counter = CollectiveCounter(bytes_accessed=False)
+        active.update(counter=counter, label=label)
         if engine is not None:
             engine.api = FirstCalls(engine.api, counter, out["collectives"], label)
         t0 = time.perf_counter()
-        with recording(out["shapes"], kernel_wrappers(train=True)), counter.mode:
+        with (recording(out["shapes"], kernel_wrappers(train=True)), counter.mode,
+              mock.patch.object(ops, "adamw_update_", optimizer_step)):
             res = fn()
         sync()
         out["walls"][label] = time.perf_counter() - t0
@@ -1016,9 +1229,11 @@ def check_mesh_serve(label, cfg, res):
     return tol
 
 
-def path_launches(cfg, prefills, decode_steps, train_steps=0):
+def path_launches(cfg, prefills, decode_steps, train_steps=0, opt_steps=0):
     """Kernel launches of ``prefills`` full forwards, ``decode_steps`` decode
-    steps and ``train_steps`` forward-and-backward steps.
+    steps, ``train_steps`` forward-and-backward steps and ``opt_steps`` AdamW
+    steps (B9: ``adamw.step_launches`` over the config's parameter leaves, one
+    norm and one update launch a table of up to 32 leaves, and the finish).
 
     Norms per layer: two pre-norms (dense, vlm, moe); the pre-norm and the
     SSM's out_norm over d_inner (ssm); the hybrid's two pre-norms of its
@@ -1044,7 +1259,10 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0):
     outputs).  tests/test_torch_hybrid.py and tests/test_torch_backward.py
     hold these counts to the calls the model code makes, with remat on and off.
     """
+    from repro_torch.kernels.adamw import step_launches
     from repro_torch.kernels.rmsnorm import BWD_WARP_MAX_DIM  # wider rows take the block route
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import flat_named
 
     L, steps, full = cfg.num_layers, prefills + decode_steps + train_steps, prefills + train_steps
     ssm, moe, attn = cfg.family in SSM_FAMILIES, cfg.family == "moe", not cfg.attention_free
@@ -1072,6 +1290,8 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0):
         "ssd_intra_chunk": L * (full + again) if ssm else 0,
         "ssd_intra_chunk_bwd": L * train_steps if ssm else 0,
         "ssd_intra_chunk_bwd_reduce": L * train_steps if ssm else 0,
+        **{k: n * opt_steps for k, n in step_launches(
+            len(flat_named(build_model(cfg).abstract_params()))).items()},
     }
 
 
@@ -1091,6 +1311,7 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import adamw as adamw_k
     from repro_torch.kernels import flash_attention as flash_k
     from repro_torch.kernels import moe_matmul as moe_k
     from repro_torch.kernels import rmsnorm as rms_k
@@ -1112,7 +1333,7 @@ def main() -> int:
         make_grpo_step,
     )
     from repro_torch.training.grpo import token_logprobs
-    from repro_torch.training.optimizer import init_adamw
+    from repro_torch.training.optimizer import flat_named, global_norm, init_adamw
     from repro_torch.training.train_step import TrainState, grads_of, make_train_step
 
     t_start = time.perf_counter()
@@ -1137,10 +1358,12 @@ def main() -> int:
         _build.load(k)
     # the entry points of the backward kernels, bound once here
     rms_k._entries(), flash_k._entries(), moe_k._bwd_entry(), ssd_k._bwd_entries()
+    adamw_k._entries()
     print(f"[build] {', '.join(_build.KERNELS)} built and loaded in "
           f"{time.perf_counter() - t0:.1f}s into {_build.BUILD_DIR}; backward entry points: "
           f"rmsnorm_bwd, rmsnorm_bwd_dweight, flash dq, dkdv, moe_matmul_bwd, "
-          f"ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_reduce")
+          f"ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_reduce; AdamW: adamw_norm, "
+          f"adamw_norm_finish, adamw_update")
 
     print(f"[time] phase 2 done at {time.perf_counter() - t_start:.1f}s")
 
@@ -1916,9 +2139,112 @@ def main() -> int:
           f"{len(moe_bwd_cases)} moe_matmul, {len(ssd_bwd_cases)} ssd_intra_chunk shapes)")
     torch.cuda.empty_cache()
 
+    # B9, AdamW: 41 leaves in two tables (every (p, g) dtype pair, tails, a leaf 2 bytes off
+    # 16), then the whole table of each training run of phases 6 and 7 (every (leaf shape, p
+    # dtype, g dtype) they launch, laid out as they launch it), held against the plain version
+    # in one step; and each run's step timed
+    adamw_runs = [("smollm-360m", None), ("llama3.2-1b", None)] + [
+        (arch, layers) for arch, _, _, layers in LM_FAMILY_RUNS + SLICE_LM_RUNS]
+    run_leaves = {}
+    for arch, layers in adamw_runs:
+        cfg = get_config(arch)
+        cfg = cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+        api = build_model(cfg)
+        run_leaves[arch] = [(tuple(t.shape), api.dtype, api.dtype)
+                            for t in flat_named(api.abstract_params()).values()]
+    mixed = [((1 + 37 * i, 3 + i % 5), (f32, bf16)[i % 2], (f32, bf16)[(i // 2) % 2])
+             for i in range(40)] + [((4097,), bf16, bf16)]
+    make = adamw_maker(mixed, dev, 26)
+    table = adamw_table(make, len(mixed))
+    off = torch.empty(4097 + 8, dtype=bf16, device=dev)[1:4098]  # 2 bytes off 16
+    table[0][-1] = off.copy_(table[0][-1])
+    g_abs, g_rel, u_err = hold_adamw("adamw 41 leaves", table, make, dev)
+    print(f"[adamw] 41 leaves in two tables, every (p, g) dtype pair, tails and a leaf 2 bytes "
+          f"off 16: p, m, v bit-identical to the plain update given the same scalars (max |diff| "
+          f"{u_err:.1e}) in two calls, gnorm {g_rel:.2e} from the plain version's (tol "
+          f"{ADAMW_GNORM_TOL})")
+    del table, off
+    adamw_keys_held = sorted({k for leaves in run_leaves.values() for k in leaves}, key=str)
+    adamw_rows = {}
+    acfg, lr, bc1, bc2 = adamw_scalars(dev)
+    akw = dict(beta1=acfg.beta1, beta2=acfg.beta2, eps=acfg.eps, weight_decay=acfg.weight_decay)
+    for run, (arch, layers) in enumerate(adamw_runs):
+        leaves = run_leaves[arch]
+        make = adamw_maker(leaves, dev, 100 + run)
+        ps, gs, ms, vs = table = adamw_table(make, len(leaves))
+        g_abs, g_rel, u_err = hold_adamw(f"adamw {arch} ({len(leaves)} leaves)", table, make, dev)
+        print(f"[adamw] held {arch}'s {len(leaves)} leaves as one step: p, m, v bit-identical to "
+              f"the plain update given the same scalars (max |diff| {u_err:.1e}) in two calls, "
+              f"gnorm {g_rel:.2e} from the plain version's")
+        b_norm, b_fin, b_upd, b_all = adamw_bounds(leaves)
+        step = lambda: ops.adamw_update_(ps, gs, ms, vs, lr, bc1, bc2, grad_clip=acfg.grad_clip, **akw)
+        ms_all, wall_all = cuda_ms(step, iters=10), call_ms(step, iters=10)
+        parts = adamw_k.norm_partials(gs, [True] * len(gs))
+        out = adamw_k.norm_finish(parts, acfg.grad_clip)
+
+        def plain_finish():  # the finish's plain version, on the kernel's partials
+            gnorm = torch.sqrt(parts.sum()).to(f32)
+            return gnorm, torch.clamp(acfg.grad_clip / (gnorm + 1e-9), max=1.0)
+
+        fin_err = max((a - b).abs().item() for a, b in zip(out, plain_finish()))
+        m_norm = cuda_ms(lambda: adamw_k.norm_partials(gs, [True] * len(gs)), iters=10)
+        m_fin = cuda_ms(lambda: adamw_k.norm_finish(parts, acfg.grad_clip), iters=10)
+        m_upd = cuda_ms(lambda: adamw_k.update(ps, gs, ms, vs, out[1:], lr, bc1, bc2, **akw), iters=10)
+        # the library: torch._foreach_norm, then torch._fused_adamw_ with the clip scale as its
+        # grad_scale (which divides, and writes the scaled gradients back), on bf16 moments of
+        # its own: it takes every list in the parameters' dtype
+        em, ev = [torch.zeros_like(p) for p in ps], [torch.zeros_like(p) for p in ps]
+        steps = [torch.full((), float(ADAMW_STEP), dtype=f32, device=dev) for _ in ps]
+
+        def lib_norm():
+            gnl = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)).float())
+            return torch.clamp(acfg.grad_clip / (gnl + 1e-9), max=1.0)
+
+        def lib_update(scale):
+            torch._fused_adamw_(ps, gs, em, ev, [], steps, lr=acfg.lr, beta1=acfg.beta1,
+                                beta2=acfg.beta2, weight_decay=acfg.weight_decay, eps=acfg.eps,
+                                amsgrad=False, maximize=False, grad_scale=1 / scale, found_inf=None)
+
+        lib_scale = lib_norm()
+        l_norm, l_upd = cuda_ms(lib_norm, iters=10), cuda_ms(lambda: lib_update(lib_scale), iters=10)
+        l_all = cuda_ms(lambda: lib_update(lib_norm()), iters=10)
+        del em, ev, steps
+        torch.cuda.empty_cache()
+        plain_step = lambda: ref.adamw_update_ref(ps, gs, ms, vs, lr, bc1, bc2,  # noqa: E731
+                                                  grad_clip=acfg.grad_clip, **akw)
+        p_all = cuda_ms(plain_step, iters=3)
+        p_norm = cuda_ms(lambda: global_norm(gs), iters=3)
+        p_fin = cuda_ms(plain_finish)
+        p_upd = cuda_ms(lambda: [ref.adamw_leaf_ref(*t, out[1], lr, bc1, bc2, **akw)
+                                 for t in zip(ps, gs, ms, vs)], iters=3)
+        n = sum(math.prod(sh) for sh, _, _ in leaves)
+        print(f"[adamw] {arch}{'' if layers is None else f' ({layers} L)'} step over {len(leaves)} "
+              f"leaves, {n / 1e9:.3f} B parameters ({str(leaves[0][1])[6:]} params and grads, f32 "
+              f"moments): kernel {ms_all:.3f} ms (one call {wall_all:.3f} ms wall; norm "
+              f"{m_norm:.3f}, finish {m_fin:.4f}, update {m_upd:.3f}) plain {p_all:.3f} ms "
+              f"(norm {p_norm:.3f}, update {p_upd:.3f}) library _foreach_norm + _fused_adamw_ "
+              f"{l_all:.3f} ms (norm {l_norm:.3f}, update {l_upd:.3f}; bf16 moments) bound "
+              f"{b_all[0]:.3f} ms ({b_all[1]}; the norm's second read of g adds "
+              f"{b_norm[0]:.3f}); launches {adamw_k.step_launches(len(leaves))}; |gnorm - plain| "
+              f"{g_abs:.3e} ({g_rel:.2e}), the finish's {fin_err:.3e} [{card}]")
+        # max_abs_err: the norm's, |gnorm - the plain f32 norm| of the held step; the finish's,
+        # against its plain version on the same partials; the update's, max |kernel - plain|
+        adamw_rows[arch] = {
+            "adamw_norm": dict(ms=m_norm, plain_ms=p_norm, library_ms=l_norm, bound_ms=b_norm[0],
+                               bound_by=b_norm[1], max_abs_err=g_abs),
+            "adamw_norm_finish": dict(ms=m_fin, plain_ms=p_fin, library_ms=None, bound_ms=b_fin[0],
+                                      bound_by=b_fin[1], max_abs_err=fin_err),
+            "adamw_update": dict(ms=m_upd, plain_ms=p_upd, library_ms=l_upd, bound_ms=b_upd[0],
+                                 bound_by=b_upd[1], max_abs_err=u_err)}
+        del ps, gs, ms, vs, table, make, parts, out, step, plain_step
+        torch.cuda.empty_cache()
+
     print(f"[time] phase 5 done at {time.perf_counter() - t_start:.1f}s")
 
     # ---- 6. training at full width ------------------------------------------
+    refused = plain_adamw_refused()  # through phase 7: every optimizer step takes B9
+    refused.start()
+
     def count_run(label, fn, expect):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -1930,13 +2256,20 @@ def main() -> int:
     def profiled_step(label, fn, ranges=(), stats=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ms = wall_ms(fn)[1]  # the step's returned state is dropped at once: it holds new moments
+        ms = wall_ms(fn)[1]  # each call advances the moments in place; its new step is dropped
         mem = torch.cuda.max_memory_allocated() / 2**30
         print(f"[train] {label}: one warm step {ms:.1f} ms wall, max_memory_allocated "
               f"{mem:.2f} GiB [{name}; {card}]")
         stats = {} if stats is None else stats
         stats.update(step_ms=ms, peak_gib=mem)
-        return profiled(label, fn, card, rows=14, ranges=ranges, stats=stats)
+        res = profiled(label, fn, card, rows=14, ranges=ranges, stats=stats)
+        if label in LITERAL_ADAMW_STEPS:
+            was_ms, was_gib = LITERAL_ADAMW_STEPS[label]
+            print(f"[train] {label}: device busy {stats['busy_ms']:.2f} ms (AdamW "
+                  f"{stats['adamw_ms']:.3f}), max_memory_allocated {mem:.2f} GiB; with the literal "
+                  f"AdamW {was_ms:.2f} ms, {was_gib:.2f} GiB{' at 24 layers' if 'granite' in label else ''} "
+                  f"[{name}; {card}]")
+        return res
 
     def remat_off(trainer, batch, on):
         """The trainer's step with its layers keeping every activation (``remat=False``),
@@ -2007,7 +2340,7 @@ def main() -> int:
     step_metrics = []
     for i in range(GRPO_STEPS):
         state, m = count_run(f"grpo step {i}", lambda: grpo_step(state, batch),
-                             path_launches(pcfg, 0, 0, train_steps=1))
+                             path_launches(pcfg, 0, 0, train_steps=1, opt_steps=1))
         step_metrics.append({k: float(v) for k, v in m.items()})
     marks.append(time.perf_counter())
     with torch.no_grad():
@@ -2034,7 +2367,7 @@ def main() -> int:
     steps = int(LM_ARGS[LM_ARGS.index("--steps") + 1])
     trainer, lm_metrics = count_run(
         "lm train", lambda: train_main(LM_ARGS + ["--device", str(dev)]),
-        path_launches(lm_cfg, 0, 0, train_steps=steps))
+        path_launches(lm_cfg, 0, 0, train_steps=steps, opt_steps=steps))
     lm_losses = [m["loss"] for m in lm_metrics]
     if not all(math.isfinite(x) for x in lm_losses):
         raise AssertionError(f"LM training: losses {lm_losses}")
@@ -2058,6 +2391,7 @@ def main() -> int:
         rmsnorm_bwd={c[:3] for c in rms_bwd_cases},
         moe_matmul_bwd={c[:5] for c in moe_bwd_cases},
         ssd_intra_chunk_bwd={c[:6] for c in ssd_bwd_cases},
+        adamw_update_=set(adamw_keys_held),
     )
     train_wrappers = kernel_wrappers(train=True)
     for arch, batch, seq, layers in LM_FAMILY_RUNS + SLICE_LM_RUNS:
@@ -2087,7 +2421,7 @@ def main() -> int:
         t0 = time.perf_counter()
         with recording(train_shapes, train_wrappers):
             trainer, metrics = count_run(f"lm train {arch}", lm_train,
-                                         path_launches(cfg, 0, 0, train_steps=3))
+                                         path_launches(cfg, 0, 0, train_steps=3, opt_steps=3))
         wall_s = time.perf_counter() - t0
         mem = torch.cuda.max_memory_allocated() / 2**30
         losses = [m["loss"] for m in metrics]
@@ -2140,7 +2474,7 @@ def main() -> int:
         raise AssertionError(f"LiveGrpoDriver makes {driver.gen_cfg.max_new_tokens} new tokens; "
                              f"phases 3 and 5 checked the kernels at the shapes of {new}")
     parts = (path_launches(pcfg, 1, new - 1), *[path_launches(jcfg, 1, 0)] * N,
-             path_launches(pcfg, 1, 0), path_launches(pcfg, 0, 0, train_steps=1))
+             path_launches(pcfg, 1, 0), path_launches(pcfg, 0, 0, train_steps=1, opt_steps=1))
     expect = {k: sum(part[k] for part in parts) for k in parts[0]}  # rollout, judges, old_logp, step
     loop_rng = np.random.default_rng(0)
 
@@ -2151,7 +2485,8 @@ def main() -> int:
     step_walls = []
     shape_recorders = recording(loop_shapes, (
         (flash_k, "flash_attention", flash_key), (flash_k, "flash_attention_bwd", flash_key),
-        (rms_k, "rmsnorm", rms_key), (rms_k, "rmsnorm_bwd", rms_key)))
+        (rms_k, "rmsnorm", rms_key), (rms_k, "rmsnorm_bwd", rms_key),
+        (adamw_k, "adamw_update_", adamw_keys)))
     for step in range(LOOP_STEPS + 1):  # the last step again under torch.profiler
         profiling = step == LOOP_STEPS
         tangram = loop_tangram()
@@ -2199,6 +2534,7 @@ def main() -> int:
           f"unprofiled steps' mean wall ({mean_ms:.1f} ms); launches per step {expect} [{card}]")
     del driver, rep, prof
     torch.cuda.empty_cache()
+    refused.stop()
 
     print(f"[time] phase 7 done at {time.perf_counter() - t_start:.1f}s")
 
@@ -2446,7 +2782,8 @@ def main() -> int:
             # "generate <label>", "train step <label>", "grpo step <label>"
             kind, label = what.split(" ", 1) if what.startswith("generate") else what.split(" step ", 1)
             cfg = cfgs[label]
-            expect = path_launches(cfg, 1, MESH_NEW - 1) if kind == "generate" else path_launches(cfg, 0, 0, 1)
+            expect = (path_launches(cfg, 1, MESH_NEW - 1) if kind == "generate"
+                      else path_launches(cfg, 0, 0, 1, opt_steps=1))
             if counts != expect:
                 raise AssertionError(f"[mesh] rank {r} {what}: launches {counts}, expected {expect}")
             for k, v in counts.items():
@@ -2460,7 +2797,14 @@ def main() -> int:
                       for k, v in ranks[0]["launches"].items()))
     for what, kinds in ranks[0]["collectives"].items():
         print(f"[mesh] rank 0 collectives of one {what}: " + ", ".join(
-            f"{k} x{n} ({b / 2**20:.2f} MiB)" for k, (n, b) in kinds.items()))
+            f"{k} x{n} ({b / 2**20:.4f} MiB)" for k, (n, b) in kinds.items()))
+    col = ranks[0]["collectives"]
+    print("[mesh] the optimizer's collectives a step (one all-reduce of the norm's partials), "
+          "within the steps' all-reduces: " + "; ".join(
+              f"{k.removeprefix('optimizer ')}: {col[k].get('all-reduce', (0, 0))[0]} of "
+              f"{col[k.replace('optimizer ', '', 1)].get('all-reduce', (0, 0))[0]}"
+              for k in col if k.startswith("optimizer ")) + " (the literal AdamW's steps took "
+          "58 / 36 / 39 all-reduces: train granite E10, train llama, GRPO llama)")
 
     for label, seed, cfg in serve:
         api = build_model(cfg)
@@ -2584,8 +2928,14 @@ def main() -> int:
         # the TPU kernel has no backward: "replaces" names the kernel whose gradient this is
         kernels.append(dict(name=kname, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}.cu",
                             replaces=of, launches=launches[kname], **bwd_rows[(kname,) + key]))
+    for kname in ("adamw_norm", "adamw_norm_finish", "adamw_update"):
+        # no TPU kernel: "replaces" names the JAX function whose step these launches compute
+        kernels.append(dict(name=kname, route="cuda", source="src/repro_torch/kernels/csrc/adamw.cu",
+                            replaces="src/repro/training/optimizer.py:72", launches=launches[kname],
+                            **adamw_rows["llama3.2-1b"][kname]))
     for k in kernels:
-        k["pass"] = "backward" if "_bwd" in k["name"] else "forward"
+        k["pass"] = ("optimizer" if k["name"].startswith("adamw") else
+                     "backward" if "_bwd" in k["name"] else "forward")
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:
         raise AssertionError(f"kernels the main path never launched: {idle}")
@@ -2597,8 +2947,11 @@ def main() -> int:
           "[2560, 960]; at the LM shapes: the wide rmsnorm backward [1024, 3200] (hymba-1.5b's "
           "out_norm), moe_matmul's dbuf and dw E=40 C=256 D=1536 F=512 (granite gate/up; library "
           "torch.bmm), ssd_intra_chunk's backward and reduce BNC=4 H=24 Q=256 hd=64 N=128 "
-          "(mamba2-130m 2 x 512); launches summed over the eight serving runs, the training runs, "
-          "the closed loop's four steps (three plus the profiled one) and live mode's payloads")
+          "(mamba2-130m 2 x 512); AdamW (B9) over llama3.2-1b's 11 leaves (1.236 B bf16 "
+          "parameters and grads, f32 moments; library torch._foreach_norm and "
+          "torch._fused_adamw_ on bf16 moments); launches summed over the eight serving runs, the "
+          "training runs, the closed loop's four steps (three plus the profiled one), the mesh's "
+          "ranks and live mode's payloads")
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card)

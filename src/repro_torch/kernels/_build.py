@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("rmsnorm", "flash_attention", "moe_matmul", "ssd_scan", "launch_floor")
+KERNELS = ("rmsnorm", "flash_attention", "moe_matmul", "ssd_scan", "adamw", "launch_floor")
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one Hopper block may have
 NUM_SMS = 132  # streaming multiprocessors of an H100 SXM, for persistent grids
 NVCC_FLAGS = (

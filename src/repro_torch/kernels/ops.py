@@ -6,16 +6,18 @@ or raises (there is no fallback).  On CUDA, when a gradient is wanted,
 each entry point goes through a ``torch.autograd.Function`` whose backward
 is the kernel's backward kernels (rmsnorm: dx and dweight; flash
 attention: dq and dk/dv; moe_matmul: dbuf and dw; ssd_intra_chunk: dx and
-f32 partials, then their reduce).  Each kernel module counts its launches;
-``launch_counts`` reads them.
+f32 partials, then their reduce).  ``adamw_update_`` is the optimizer's step
+over every leaf, in place (B9: the norm's partials, their finish, the update).
+Each kernel module counts its launches; ``launch_counts`` reads them.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_matmul as _moe
 from repro_torch.kernels import ref
@@ -131,6 +133,34 @@ def ssd_intra_chunk_op(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, cum: t
     return _ssd.ssd_intra_chunk(x, b, c, cum)
 
 
+def adamw_update_(
+    params: Sequence[torch.Tensor],
+    grads: Sequence[torch.Tensor],
+    ms: Sequence[torch.Tensor],
+    vs: Sequence[torch.Tensor],
+    lr: torch.Tensor,
+    bc1: torch.Tensor,
+    bc2: torch.Tensor,
+    *,
+    beta1: float,
+    beta2: float,
+    eps: float,
+    weight_decay: float,
+    grad_clip: float,
+    counted: Optional[Sequence[bool]] = None,
+    reduce: Optional[Callable[[torch.Tensor], object]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One AdamW step over the leaves: the params and the f32 moments ``ms``, ``vs``
+    are updated in place; -> (gnorm, clip scale), f32 scalars on the params' device.
+
+    ``lr``, ``bc1`` and ``bc2`` are f32 scalars on that device.  ``counted``: the
+    leaves whose squares count in the norm (on a mesh, the blocks this rank holds
+    first); ``reduce``: sums the norm's partial sums over the ranks, in place."""
+    fn = ref.adamw_update_ref if params[0].device.type == "cpu" else _adamw.adamw_update_
+    return fn(params, grads, ms, vs, lr, bc1, bc2, beta1=beta1, beta2=beta2, eps=eps,
+              weight_decay=weight_decay, grad_clip=grad_clip, counted=counted, reduce=reduce)
+
+
 # kernel name -> (module, its launch counter)
 _COUNTERS = {
     "rmsnorm": (_rmsnorm, "launches"),
@@ -146,6 +176,9 @@ _COUNTERS = {
     "ssd_intra_chunk": (_ssd, "launches"),
     "ssd_intra_chunk_bwd": (_ssd, "bwd_launches"),
     "ssd_intra_chunk_bwd_reduce": (_ssd, "bwd_reduce_launches"),
+    "adamw_norm": (_adamw, "norm_launches"),
+    "adamw_norm_finish": (_adamw, "finish_launches"),
+    "adamw_update": (_adamw, "launches"),
 }
 
 

@@ -9,6 +9,7 @@ each kernel against them on the card.
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -131,3 +132,53 @@ def ssd_intra_chunk_bwd_ref(x, b, c, cum, dy, dstate=None):
         dcum = dcum - tw
         dcum[..., -1] += tw.sum(-1)
     return dx.to(x.dtype), db, dc, dcum
+
+
+# ---- AdamW (B9): the update the optimizer makes, leaf by leaf, in place ----
+
+
+def adamw_leaf_ref(p, g, m, v, scale, lr, bc1, bc2, *, beta1, beta2, eps, weight_decay):
+    """One leaf's AdamW update in place (p, and the f32 moments m and v), given the clip
+    ``scale``, ``lr`` and the bias corrections ``bc1``, ``bc2`` as f32 scalars: the torch
+    ops of ``repro.training.optimizer.adamw_update``'s ``upd``, in its order, each
+    rounded to f32 as the kernel rounds it."""
+    g = g.to(torch.float32) * scale
+    m.mul_(beta1).add_((1 - beta1) * g)
+    v.mul_(beta2).add_((1 - beta2) * g.square())
+    delta = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * p.to(torch.float32)
+    p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
+
+
+def adamw_update_ref(
+    params: Sequence[torch.Tensor],
+    grads: Sequence[torch.Tensor],
+    ms: Sequence[torch.Tensor],
+    vs: Sequence[torch.Tensor],
+    lr: torch.Tensor,
+    bc1: torch.Tensor,
+    bc2: torch.Tensor,
+    *,
+    beta1: float,
+    beta2: float,
+    eps: float,
+    weight_decay: float,
+    grad_clip: float,
+    counted: Optional[Sequence[bool]] = None,
+    reduce: Optional[Callable[[torch.Tensor], object]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``adamw.adamw_update_``'s contract: one AdamW step in place over the leaves;
+    -> (gnorm, scale).  The norm is the sum of each counted leaf's f32 sum of squares
+    (``reduce`` sums it over the ranks, in place), then its square root."""
+    counted = [True] * len(params) if counted is None else counted
+    total = torch.zeros((), dtype=torch.float32, device=params[0].device)
+    for g, c in zip(grads, counted):
+        if c:
+            total = total + g.to(torch.float32).square().sum()
+    if reduce is not None:
+        reduce(total)
+    gnorm = torch.sqrt(total)
+    scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+    for p, g, m, v in zip(params, grads, ms, vs):
+        adamw_leaf_ref(p, g, m, v, scale, lr, bc1, bc2, beta1=beta1, beta2=beta2, eps=eps,
+                       weight_decay=weight_decay)
+    return gnorm, scale

@@ -1,12 +1,16 @@
-"""AdamW, ported literally from ``repro.training.optimizer``.
+"""AdamW, the torch twin of ``repro.training.optimizer``.
 
 Not ``torch.optim.AdamW``, which differs in several places: the update
 clips by the global norm of every gradient (f32), takes the learning rate
 at ``step + 1`` from a linear warmup and cosine decay, keeps f32 moments,
 puts the decoupled decay inside ``delta`` and computes the step in f32
-before casting back to each parameter's dtype.  The parameters are
-updated in place (``copy_`` under ``no_grad``), so every holder of the
-tree (cached layer views, a serving engine) sees the new weights.
+before casting back to each parameter's dtype.  The step runs in place
+through ``kernels.ops.adamw_update_`` (on the card the B9 kernels: one pass
+for the norm, one for the update): the parameters, so every holder of the
+tree (cached layer views, a serving engine) sees the new weights, and the
+moments, so the state passed to ``adamw_update`` is consumed, as a buffer
+donated to ``jax.jit(donate_argnums=...)`` is: the returned state holds the
+same ``m`` and ``v`` tensors, and only its ``step`` is new.
 """
 
 from __future__ import annotations
@@ -17,6 +21,9 @@ from typing import Any, Dict, Iterable, Mapping, NamedTuple, Tuple, Union
 
 import torch
 from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.sharding.rules import is_dtensor
 
 Params = Union[nn.Module, Mapping[str, torch.Tensor]]
 
@@ -98,6 +105,31 @@ def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(g.to(torch.float32).square().sum() for g in grads))
 
 
+def _holds_first_copy(p) -> bool:
+    """Whether this rank's block of the DTensor ``p`` is the one the norm counts: the
+    copy at coordinate 0 of every mesh dim on which ``p`` is replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    coord = p.device_mesh.get_coordinate()
+    for d, pl in enumerate(p.placements):
+        if not isinstance(pl, (Replicate, Shard)):
+            raise ValueError(f"adamw_update takes sharded or replicated leaves, got {pl}")
+        if isinstance(pl, Replicate) and coord[d] != 0:
+            return False
+    return True
+
+
+def _sum_over(mesh):
+    """Sum a tensor over every rank in place: one all-reduce over the process group,
+    which the mesh spans."""
+    import torch.distributed as dist
+
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"adamw_update sums the norm over the process group of "
+                         f"{dist.get_world_size()} ranks; the mesh holds {mesh.size()}")
+    return dist.all_reduce
+
+
 @torch.no_grad()
 def adamw_update(
     cfg: AdamWConfig,
@@ -107,25 +139,37 @@ def adamw_update(
 ) -> Tuple[Params, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step with global-norm clipping and decoupled decay.
 
-    ``grads`` is keyed like ``named_params(params)``.  Returns
-    (params, updated in place; the new state; {"grad_norm", "lr"}).
+    ``grads`` is keyed like ``named_params(params)``.  Returns (params, updated
+    in place; the new state; {"grad_norm", "lr"}).  ``state`` is consumed: its
+    moments are updated in place and the new state holds the same tensors.
+    Parameters placed on a mesh are updated block by block on each rank (their
+    gradients and moments in the same placements); the norm counts every element
+    once, with one sum over the ranks.
     """
     named = named_params(params)
     if grads.keys() != named.keys():
         raise KeyError(f"grads and params differ: {sorted(set(grads) ^ set(named))}")
-    gnorm = global_norm(grads.values())
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
-    b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1 - b1 ** step.to(torch.float32)
-    bc2 = 1 - b2 ** step.to(torch.float32)
-    new_m, new_v = {}, {}
+    bc1 = 1 - cfg.beta1 ** step.to(torch.float32)
+    bc2 = 1 - cfg.beta2 ** step.to(torch.float32)
+    leaves = ([], [], [], [])
+    counted, mesh = [], None
     for name, p in named.items():
-        g = grads[name].to(torch.float32) * scale
-        m = b1 * state.m[name] + (1 - b1) * g
-        v = b2 * state.v[name] + (1 - b2) * g.square()
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p.to(torch.float32)
-        p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
-        new_m[name], new_v[name] = m, v
-    return params, AdamWState(step, new_m, new_v), {"grad_norm": gnorm, "lr": lr}
+        g, m, v = grads[name], state.m[name], state.v[name]
+        if is_dtensor(p):
+            mesh = p.device_mesh
+            if not (g.placements == m.placements == v.placements == p.placements):
+                raise ValueError(f"{name}: the gradient and moments must be placed as the "
+                                 f"parameter, {p.placements}")
+            counted.append(_holds_first_copy(p))
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
+        else:
+            counted.append(True)
+        for out, t in zip(leaves, (p, g, m, v)):
+            out.append(t)
+    gnorm, _ = ops.adamw_update_(
+        *leaves, lr, bc1, bc2, beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
+        weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip, counted=counted,
+        reduce=None if mesh is None else _sum_over(mesh))
+    return params, AdamWState(step, state.m, state.v), {"grad_norm": gnorm, "lr": lr}

@@ -657,6 +657,10 @@ def test_live_grpo_step_launches(cuda):
         "ssd_intra_chunk": 0,
         "ssd_intra_chunk_bwd": 0,
         "ssd_intra_chunk_bwd_reduce": 0,
+        # the GRPO update's AdamW step: the norm, its finish, the update (one table of leaves)
+        "adamw_norm": 1,
+        "adamw_norm_finish": 1,
+        "adamw_update": 1,
     }
     recs = tangram.telemetry.records
     assert len(recs) == n and not any(r.failed for r in recs)

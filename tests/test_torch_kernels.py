@@ -21,6 +21,7 @@ from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.models import layers as jax_layers
 from repro_torch.kernels import _build
+from repro_torch.kernels import adamw as adamw_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import moe_matmul as moe_mod
 from repro_torch.kernels import ops, ref
@@ -158,7 +159,9 @@ ZERO_COUNTS = {
     "flash_attention": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
     "moe_matmul": 0, "moe_matmul_bwd_dbuf": 0, "moe_matmul_bwd_dw": 0,
     "ssd_intra_chunk": 0, "ssd_intra_chunk_bwd": 0, "ssd_intra_chunk_bwd_reduce": 0,
+    "adamw_norm": 0, "adamw_norm_finish": 0, "adamw_update": 0,
 }
+ADAMW_KW = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0)
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
@@ -170,6 +173,9 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     ops.moe_matmul_op(torch.randn(2, 8, 16), torch.randn(2, 16, 4))
     ops.ssd_intra_chunk_op(torch.randn(1, 2, 8, 16), torch.randn(1, 8, 4), torch.randn(1, 8, 4),
                            -torch.rand(1, 2, 8).cumsum(-1))
+    one = torch.ones(())
+    ops.adamw_update_([torch.randn(8)], [torch.randn(8)], [torch.zeros(8)], [torch.zeros(8)],
+                      one * 1e-3, one * 0.1, one * 0.05, **ADAMW_KW)
     assert ops.launch_counts() == ZERO_COUNTS
 
 
@@ -185,6 +191,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ssd_mod.ssd_intra_chunk(torch.randn(1, 2, 8, 32), torch.randn(1, 8, 4), torch.randn(1, 8, 4),
                                 torch.randn(1, 2, 8))
+    one = torch.ones(())
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw_mod.adamw_update_([torch.randn(8)], [torch.randn(8)], [torch.zeros(8)],
+                                [torch.zeros(8)], one, one, one, **ADAMW_KW)
     assert ops.launch_counts() == ZERO_COUNTS
 
 
