@@ -8,7 +8,8 @@ Phases, each of which raises on failure (nothing is caught):
 1. environment: the card's name and power limit; TF32 off for f32 matmuls
    and convolutions;
 2. build: the five CUDA kernels from ``src/repro_torch/kernels/csrc`` (each
-   library with its backward entry points; ``adamw.cu``'s three) and an empty
+   library with its backward entry points, ``flash_attention.cu`` with B11's
+   decode; ``adamw.cu``'s three) and an empty
    one-thread kernel (``launch_floor.cu``), one nvcc per source started
    together, for sm_90a, printing what ptxas reports;
 3. kernels: the launch floor (the empty kernel's time, taken as the
@@ -27,7 +28,12 @@ Phases, each of which raises on failure (nothing is caught):
    and the score, prefill and LM shapes of ``llama3-8b``, ``glm4-9b``,
    ``internvl2-1b`` and ``whisper-medium`` (rmsnorm at D 896, 1024 and
    4096; flash at GQA g 4, 7 and 16, head dim 128, and non-causal over
-   whisper's 1500 frames);
+   whisper's 1500 frames); B11, attention over keys of their own length
+   (whisper's decoder over its 1500 frames: prefill 4 x 128, LM 2 x 448, the
+   decode-vs-forward checks, in bf16 and f32; tails S 1 and 65, Sk 1 and 63,
+   GQA g 4 and 7, head dim 128), and its decode form over the FLAT
+   [4, 1500, 1024] caches (bf16, f32, d 128, fewer keys than the cache,
+   called twice for bit-identical output), each with its plan;
 4. serving at full width on seeded random bf16 weights.  Each path runs
    with the launch counts set to 0 just before it and checked just after
    against the counts its depth implies: greedy generation (4 requests x
@@ -47,13 +53,16 @@ Phases, each of which raises on failure (nothing is caught):
    decode step of each generating model, and ``torch.profiler`` over one
    warm generation and one warm score call of each model (device busy
    share, device operations, the top kernels; for whisper the host's
-   operations too, so that the device time of its cross-attention, plain
-   PyTorch inside the ``cross_attention`` profiler range, is read from the
-   trace); every (kernel, shape) that the hymba runs and the four new
+   operations too, so that the device time of its cross-attention, B11's
+   kernels inside the ``cross_attention`` profiler range, is read from the
+   trace and printed beside its reading before B11, when it was plain
+   PyTorch); every (kernel, shape) that the hymba runs and the four new
    models' runs launch is held against its plain version: by one of phase
    3's cases, or where no case covers it, at once on fresh inputs
    (``hold_at_shape``);
-5. backward kernels: flash attention's dq and dk/dv kernels, RMSNorm's dx
+5. backward kernels: flash attention's dq and dk/dv kernels (B11's too, over
+   keys of their own length: GQA g 1, 4, 7, S and Sk ragged, d 64 and 128,
+   and timed at whisper's LM shape), RMSNorm's dx
    (a warp per row, and a block per row past D 2048) and dweight kernels,
    moe_matmul's dbuf and dw kernels and ``ssd_intra_chunk``'s kernel and
    reduce against autograd through their plain versions, over grids of
@@ -92,7 +101,7 @@ Phases, each of which raises on failure (nothing is caught):
    through phase 7); one warm step of each profiled, with its peak memory and
    AdamW's device ms, beside the readings of the same step with the literal
    AdamW (whisper's with its cross-attention's device time, forward and
-   backward, from the trace);
+   backward, from the trace, beside its reading before B11);
    every step rematerialises its layers (the configs' ``remat``, as in JAX:
    each layer's forward kernels launch again in the backward, counted), and
    llama3.2-1b, granite, hymba and whisper also profile one warm step with
@@ -191,7 +200,9 @@ GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # to: dq and dk at S = 1, where each query sees one key and the softmax
 # passes no gradient.  The kernel's values there are the f32 rounding of
 # dP - D, two sums of d products of unit-normal inputs (~1e-6), and are
-# held to this absolute limit.
+# held to this absolute limit.  B11's dk at Sk = 1 (one key) sums that rounding over the
+# S * g queries that read the key: its limit grows as their random walk, ZERO_GRAD_ABS *
+# sqrt(S * g) (1.39e-5 was seen at S 65, g 4, d 128 in f32).
 ZERO_GRAD_ABS = 1e-5
 # Full-width serving, last decode step vs a full forward over the same
 # tokens, absolute, on logits of at most ~3.5.  In bf16 the two paths round
@@ -284,6 +295,11 @@ LITERAL_ADAMW_STEPS = {
     "lm step whisper-medium": (161.90, 20.84), "lm step whisper-medium remat off": (144.27, 20.84),
     "lm step llama3-8b": (160.45, 40.29), "lm step glm4-9b": (171.27, 43.90),
 }
+# whisper-medium's cross-attention before B11 (plain PyTorch): (device ms inside the
+# ``cross_attention`` profiler range, backward included, device busy ms of the call) under
+# torch.profiler on an NVIDIA H100 80GB HBM3 at 700 W, as PERF.md section 5 records them
+CROSS_RANGE_BEFORE = {"generate whisper-medium": (103.27, 224.00),
+                      "lm step whisper-medium": (30.74, 95.00)}
 # phase 6 trains with the layers rematerialised (every config's default, as in JAX); these
 # models' LM steps are also profiled with remat off (llama3.2-1b's through the launcher), and
 # these have one step's gradients compared both ways
@@ -339,12 +355,22 @@ def rmsnorm_bound(T, D, elem):
     return bound((2 * T * D + D) * elem / HBM_BYTES_PER_S, 4 * T * D / F32_FLOPS)
 
 
-def flash_bound(B, H, KV, S, d, causal, elem):
-    """q, k, v read once, out written once; 4*d operations per scored pair."""
-    pairs = S * (S + 1) // 2 if causal else S * S
+def flash_bound(B, H, KV, S, d, causal, elem, Sk=None):
+    """q, k, v read once, out written once; 4*d operations per scored pair (keys of
+    their own length ``Sk``: B11, non-causal)."""
+    Sk = S if Sk is None else Sk
+    pairs = S * (S + 1) // 2 if causal else S * Sk
     peak = BF16_TENSOR_FLOPS if elem == 2 else F32_FLOPS
-    return bound((2 * B * H * S * d + 2 * B * KV * S * d) * elem / HBM_BYTES_PER_S,
+    return bound((2 * B * H * S * d + 2 * B * KV * Sk * d) * elem / HBM_BYTES_PER_S,
                  4 * d * B * H * pairs / peak)
+
+
+def decode_bound(B, H, KV, n, d, elem):
+    """B11's decode: q and n keys of K and V read once, out written once; 4*d operations
+    per scored pair, against the peak of the inputs' type (bf16: the tensor cores)."""
+    peak = BF16_TENSOR_FLOPS if elem == 2 else F32_FLOPS
+    return bound((2 * B * KV * n * d + 2 * B * H * d) * elem / HBM_BYTES_PER_S,
+                 4 * d * B * H * n / peak)
 
 
 def moe_bound(E, C, D, F, elem):
@@ -367,8 +393,8 @@ def ssd_bound(BNC, H, Q, hd, N, elem):
     return bound(t_bytes, ops / F32_FLOPS)
 
 
-def flash_bwd_bounds(B, H, KV, S, d, causal, elem):
-    """(dq kernel, dkdv kernel, whole backward) bounds.
+def flash_bwd_bounds(B, H, KV, S, d, causal, elem, Sk=None):
+    """(dq kernel, dkdv kernel, whole backward) bounds; ``Sk``: the keys' own length.
 
     Only the function's own inputs and outputs count; the D = rowsum(dO o)
     that the dq kernel hands to the dkdv kernel is an intermediate and
@@ -379,9 +405,10 @@ def flash_bwd_bounds(B, H, KV, S, d, causal, elem):
     the lse and writes the three gradients, with 10 d per pair (2.5x the
     forward's 4 d).
     """
-    pairs = S * (S + 1) // 2 if causal else S * S
+    Sk = S if Sk is None else Sk
+    pairs = S * (S + 1) // 2 if causal else S * Sk
     peak = BF16_TENSOR_FLOPS if elem == 2 else F32_FLOPS
-    q_bytes, kv_bytes, stat = B * H * S * d * elem, B * KV * S * d * elem, 4 * B * H * S
+    q_bytes, kv_bytes, stat = B * H * S * d * elem, B * KV * Sk * d * elem, 4 * B * H * S
     return (
         bound((4 * q_bytes + 2 * kv_bytes + stat) / HBM_BYTES_PER_S, 6 * d * B * H * pairs / peak),
         bound((2 * q_bytes + 4 * kv_bytes + stat) / HBM_BYTES_PER_S, 8 * d * B * H * pairs / peak),
@@ -471,11 +498,11 @@ def adamw_bounds(leaves):
             bound(upd_bytes / HBM_BYTES_PER_S, (ADAMW_OPS + 2) * total / F32_FLOPS))
 
 
-def grad_err(name, got, want, tol):
+def grad_err(name, got, want, tol, zero_abs=ZERO_GRAD_ABS):
     """(max |got - want|, that over max |want|, or None where want is all zero).
 
     Raises where the relative error exceeds tol, where a zero reference's
-    error exceeds ZERO_GRAD_ABS, or on a non-finite value.
+    error exceeds ``zero_abs``, or on a non-finite value.
     """
     import torch
 
@@ -484,8 +511,8 @@ def grad_err(name, got, want, tol):
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite values")
     if scale == 0.0:
-        if err > ZERO_GRAD_ABS:
-            raise AssertionError(f"{name}: {err:.3e} where the reference is 0 (limit {ZERO_GRAD_ABS})")
+        if err > zero_abs:
+            raise AssertionError(f"{name}: {err:.3e} where the reference is 0 (limit {zero_abs})")
         return err, None
     if err > tol * scale:
         raise AssertionError(f"{name}: max abs err {err:.3e} beyond {tol} x {scale:.3e}")
@@ -529,23 +556,26 @@ def device_kernels(prof):
 
 
 def range_device_ms(prof, name):
-    """Device milliseconds of the work that a finished trace (host and CUDA activity) ran
-    inside ``record_function(name)`` ranges, their backward included.  Each device
-    operation is charged to the host operation that launched it (the profiler's linked
-    correlation id, as ``torch.autograd.profiler`` links them), and that operation counts
-    where it ran inside such a range on its thread, or inside the backward node (same
+    """(forward, backward) device milliseconds of the work that a finished trace (host and
+    CUDA activity) ran inside ``record_function(name)`` ranges (a recompute's forward
+    among them) and in their backward.  A device operation counts where the host
+    operation it is linked to (the profiler's linked correlation id, as
+    ``torch.autograd.profiler`` links them) or the runtime call that launched it (the
+    same CUDA correlation id: the port's kernels launch through ctypes, outside any
+    operator) ran inside such a range on its thread, or inside the backward node (same
     sequence number, forward thread the range's) of an autograd operation that did."""
     import bisect
 
     import torch
 
-    device_ns, host = {}, []
+    device, host, launch = [], [], {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             if not e.is_user_annotation():
-                c = e.linked_correlation_id()
-                device_ns[c] = device_ns.get(c, 0) + e.duration_ns()
-        elif e.linked_correlation_id() == 0:  # a host operation or range, not a runtime call
+                device.append(e)
+        elif e.name().startswith(("cuda", "cuLaunch")):  # a runtime call
+            launch[e.correlation_id()] = e
+        elif e.linked_correlation_id() == 0:  # a host operation or range
             host.append(e)
 
     def spans(events):
@@ -573,14 +603,27 @@ def range_device_ms(prof, name):
     fwd = [e for e in host if inside(e, ranges)]
     nodes = {(e.sequence_nr(), e.start_thread_id()) for e in fwd if e.sequence_nr() >= 0}
     bwd = spans(e for e in host if (e.sequence_nr(), e.fwd_thread_id()) in nodes)
-    ops = {e.correlation_id() for e in fwd} | {e.correlation_id() for e in host if inside(e, bwd)}
-    return sum(device_ns.get(c, 0) for c in ops) / 1e6
+    fwd_ops = {e.correlation_id() for e in fwd}
+    bwd_ops = {e.correlation_id() for e in host if inside(e, bwd)} - fwd_ops
+    ns = [0, 0]
+    for e in device:
+        call = launch.get(e.correlation_id())
+        if e.linked_correlation_id() in fwd_ops or (call is not None and inside(call, ranges)):
+            ns[0] += e.duration_ns()
+        elif e.linked_correlation_id() in bwd_ops or (call is not None and inside(call, bwd)):
+            ns[1] += e.duration_ns()
+    if not ns[0]:  # what the trace held, to find why a range came out empty
+        print(f"[profile] range {name}: {sum(len(v[0]) for v in ranges.values())} spans, "
+              f"{len(fwd)} host events inside, {len(launch)} runtime calls "
+              f"({sum(inside(c, ranges) for c in launch.values())} inside), {len(device)} device "
+              f"operations ({sum(e.linked_correlation_id() == 0 for e in device)} unlinked)")
+    return ns[0] / 1e6, ns[1] / 1e6
 
 
 def profiled(label, fn, card, rows=10, ranges=(), stats=None):
     """One warm call of fn under torch.profiler: its device busy share and top kernels.
-    Returns {range: device ms} of the named ``record_function`` ranges (whose trace
-    records the host's operations too), each of which must hold some device work;
+    Returns {range: (forward, backward) device ms} of the named ``record_function`` ranges
+    (whose trace records the host's operations too), each of which must hold some device work;
     ``stats`` (a dict) receives the call's wall and device busy milliseconds.
 
     Only device activity is traced where no range is named, and the raw device events are
@@ -626,11 +669,12 @@ def profiled(label, fn, card, rows=10, ranges=(), stats=None):
         print(f"[profile] {label} AdamW (B9: norm, finish and update kernels): {opt_ms:.3f} device "
               f"ms over {sum(n for _, n in opt)} launches, {100 * opt_ms / busy_ms:.1f}% of device "
               f"busy [{card}]")
-    for r, r_ms in in_ranges.items():
-        if not r_ms > 0:
+    for r, (f_ms, b_ms) in in_ranges.items():
+        if not f_ms > 0:
             raise AssertionError(f"[profile] {label}: no device work found inside range {r}")
-        print(f"[profile] {label} range {r}: {r_ms:.3f} device ms, {100 * r_ms / busy_ms:.1f}% "
-              f"of device busy {busy_ms:.2f} ms [{card}]")
+        print(f"[profile] {label} range {r}: {f_ms + b_ms:.3f} device ms ({f_ms:.3f} inside it, "
+              f"{b_ms:.3f} in its backward), {100 * (f_ms + b_ms) / busy_ms:.1f}% of device busy "
+              f"{busy_ms:.2f} ms [{card}]")
     if stats is not None:
         stats.update(wall_ms=ms, busy_ms=busy_ms,
                      adamw_ms=sum(us for b, (us, _) in ours.items() if b.startswith("adamw_")) / 1e3)
@@ -641,6 +685,7 @@ PORT_KERNEL_PREFIXES = ("rmsnorm", "flash_", "moe_matmul", "ssd_", "adamw_")
 
 
 FWD_F32_TOL = {"rmsnorm": RMSNORM_F32_TOL, "flash_attention": FLASH_F32_TOL,
+               "cross_attention": FLASH_F32_TOL, "flash_decode": FLASH_F32_TOL,
                "moe_matmul": F32_TOL, "ssd_intra_chunk": F32_TOL}
 
 
@@ -803,6 +848,15 @@ def hold_at_shape(kernel, key, dev, gen):
         inputs = (randn(B, H, S, d), randn(B, KV, S, d), randn(B, KV, S, d))
         fn = lambda *t: ops.flash_attention_op(*t, causal=causal)  # noqa: E731
         plain = lambda *t: ref.flash_attention_ref(*t, causal)  # noqa: E731
+    elif name == "cross_attention":
+        B, H, KV, S, Sk, d = dims
+        inputs = (randn(B, H, S, d), randn(B, KV, Sk, d), randn(B, KV, Sk, d))
+        fn, plain = ops.cross_attention_op, lambda *t: ref.flash_attention_ref(*t, False)
+    elif name == "flash_decode":
+        B, H, KV, Sk, n, d = dims
+        inputs = (randn(B, H, 1, d), randn(B, Sk, KV * d), randn(B, Sk, KV * d))
+        fn = lambda *t: ops.decode_attention_op(*t, n)  # noqa: E731
+        plain = lambda *t: ref.decode_attention_ref(*t, n)  # noqa: E731
     elif name == "rmsnorm":
         T, D = dims
         w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(dt).requires_grad_(bwd)
@@ -852,6 +906,16 @@ def flash_key(q, k, v, *_, causal=True, **__):
     return (*q.shape[:2], k.shape[1], *q.shape[2:], causal, q.dtype)
 
 
+def cross_key(q, k, *_, **__):
+    """(B, H, KV, S, Sk, d, dtype) of a B11 call over keys of their own length."""
+    return (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3], q.dtype)
+
+
+def decode_key(q, k_cache, v_cache, n):
+    """(B, H, KV, Sk, n, d, dtype) of a B11 decode call over FLAT caches."""
+    return (*q.shape[:2], k_cache.shape[2] // q.shape[3], k_cache.shape[1], n, q.shape[3], q.dtype)
+
+
 def rms_key(x, *_, **__):
     return (*x.shape, x.dtype)
 
@@ -879,10 +943,12 @@ def kernel_wrappers(train=False):
     from repro_torch.kernels import ssd_scan as ssd_k
 
     fwd = ((flash_k, "flash_attention", flash_key), (rms_k, "rmsnorm", rms_key),
-           (ssd_k, "ssd_intra_chunk", ssd_key))
+           (ssd_k, "ssd_intra_chunk", ssd_key), (flash_k, "cross_attention", cross_key),
+           (flash_k, "flash_decode", decode_key))
     if not train:
         return fwd
     return (*fwd, (moe_k, "moe_matmul", moe_key), (flash_k, "flash_attention_bwd", flash_key),
+            (flash_k, "cross_attention_bwd", cross_key),
             (rms_k, "rmsnorm_bwd", rms_key), (moe_k, "moe_matmul_bwd", moe_key),
             (ssd_k, "ssd_intra_chunk_bwd", ssd_key), (adamw_k, "adamw_update_", adamw_keys))
 
@@ -1241,17 +1307,19 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0, opt_steps=0):
     and the FFN's pre-norm; then the final norm.  The audio family's full
     forward runs the encoder (two pre-norms a layer, its final norm, a
     non-causal flash attention a layer) and the decoder (three pre-norms a
-    layer, the final norm, a causal flash attention a layer); its decode
-    step the decoder's norms alone, and its cross-attention no kernel.  A
+    layer, the final norm, a causal flash attention and B11's
+    cross-attention a layer); its decode step the decoder's norms and one
+    B11 decode launch a layer.  A
     training step runs each forward kernel once and, in its backward:
     each norm's dx kernel (the warp route up to D 2048, the block route
-    above) and dweight reduce; flash attention's dq and dk/dv kernels;
+    above) and dweight reduce; flash attention's dq and dk/dv kernels, and
+    B11's (the audio decoder's cross-attention);
     moe_matmul's dbuf and dw kernels for each of its three products;
     ssd_intra_chunk's kernel and its reduce.  With ``cfg.remat`` the
     backward first runs each layer's body again (``layers.remat_layer``):
     every forward kernel inside a layer launches once more a step — its
-    norms, its flash attention, its three moe_matmul products, its
-    ssd_intra_chunk — and the final norms (the decoder's, and the
+    norms, its flash attention and cross-attention, its three moe_matmul
+    products, its ssd_intra_chunk — and the final norms (the decoder's, and the
     encoder's) and everything outside the layers do not.  No layer's
     recompute stops early: the last op of each that saves a tensor for the
     backward comes after its last kernel (the FFN's products save the
@@ -1266,6 +1334,7 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0, opt_steps=0):
 
     L, steps, full = cfg.num_layers, prefills + decode_steps + train_steps, prefills + train_steps
     ssm, moe, attn = cfg.family in SSM_FAMILIES, cfg.family == "moe", not cfg.attention_free
+    cross = L if cfg.family == "audio" else 0  # B11: the decoder's cross-attention
     if cfg.family == "audio":
         norms, decode_norms, flash = 2 * cfg.encoder_layers + 3 * L + 2, 3 * L + 1, cfg.encoder_layers + L
         finals = 2
@@ -1284,6 +1353,10 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0, opt_steps=0):
         "flash_attention": flash * (full + again),
         "flash_attention_bwd_dq": flash * train_steps,
         "flash_attention_bwd_dkdv": flash * train_steps,
+        "cross_attention": cross * (full + again),
+        "cross_attention_bwd_dq": cross * train_steps,
+        "cross_attention_bwd_dkdv": cross * train_steps,
+        "flash_decode": cross * decode_steps,
         "moe_matmul": 3 * L * (steps + again) if moe else 0,
         "moe_matmul_bwd_dbuf": 3 * L * train_steps if moe else 0,
         "moe_matmul_bwd_dw": 3 * L * train_steps if moe else 0,
@@ -1361,7 +1434,8 @@ def main() -> int:
     adamw_k._entries()
     print(f"[build] {', '.join(_build.KERNELS)} built and loaded in "
           f"{time.perf_counter() - t0:.1f}s into {_build.BUILD_DIR}; backward entry points: "
-          f"rmsnorm_bwd, rmsnorm_bwd_dweight, flash dq, dkdv, moe_matmul_bwd, "
+          f"rmsnorm_bwd, rmsnorm_bwd_dweight, flash dq, dkdv (B11's too), flash decode (B11), "
+          f"moe_matmul_bwd, "
           f"ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_reduce; AdamW: adamw_norm, "
           f"adamw_norm_finish, adamw_update")
 
@@ -1544,6 +1618,76 @@ def main() -> int:
                err, tol, m, "sdpa")
     del q, k, v, qs, ks, vs, got, want
 
+    # B11: attention over keys of their own length (whisper's decoder over its encoder's 1500
+    # frames) at the prefill, LM and decode-vs-forward check shapes, bf16 and on the f32 copy,
+    # with tails of S and Sk, GQA g 4 and 7 and head dim 128; then its decode form over FLAT
+    # caches, read in place as the model holds them
+    t_b11 = time.perf_counter()
+    cross_rows, decode_rows = {}, {}
+    cross_cases = [  # (B, H, KV, S, Sk, d, dtype, what)
+        (4, 16, 16, PROMPT, 1500, 64, bf16, "whisper prefill"),
+        (2, 16, 16, 448, 1500, 64, bf16, "whisper LM"),
+        (4, 16, 16, check_S, 1500, 64, bf16, "whisper check"),
+        (1, 16, 16, check_S, 1500, 64, bf16, "whisper check, a row alone"),
+        (4, 16, 16, PROMPT, 1500, 64, f32, "whisper f32 check prefill"),
+        (4, 16, 16, check_S, 1500, 64, f32, "whisper f32 check"),
+        (2, 16, 16, 448, 1500, 64, f32, ""),
+        (2, 4, 4, 1, 1500, 64, bf16, "S 1"),
+        (2, 8, 2, 65, 63, 64, bf16, "S 65, Sk 63, g 4"),
+        (2, 14, 2, 65, 1, 64, bf16, "Sk 1, g 7"),
+        (2, 14, 2, 160, 1500, 64, bf16, "g 7"),
+        (2, 8, 2, 100, 1500, 128, bf16, "d 128, g 4"),
+        (2, 8, 2, 65, 63, 64, f32, "S 65, Sk 63, g 4"),
+        (2, 14, 2, 160, 1500, 128, f32, "g 7, d 128"),
+    ]
+    for B, H, KV, S, Sk, d, dt, what in cross_cases:
+        # the model's layout: [B, S, H, d] and [B, Sk, KV, d] memory as transposed views
+        q, k, v = (randn(B, n, h, d, dtype=dt).transpose(1, 2) for n, h in ((S, H), (Sk, KV), (Sk, KV)))
+        tol = BF16_TOL if dt == bf16 else FLASH_F32_TOL
+        got = ops.cross_attention_op(q, k, v)
+        err = assert_close(f"cross {B},{H},{KV},{S},{Sk},{d} {dt}", got,
+                           ref.flash_attention_ref(q, k, v, False), tol)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        m = measure(lambda: ops.cross_attention_op(q, k, v),
+                    lambda: ref.flash_attention_ref(q, k, v, False),
+                    lambda: F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True),
+                    flash_bound(B, H, KV, S, d, False, q.element_size(), Sk), plain_iters=5)
+        cross_rows[(B, H, KV, S, Sk, d, dt)] = row(err, m)
+        report(f"cross_attention B={B} H={H} KV={KV} S={S} Sk={Sk} d={d} {str(dt)[6:]} {what}",
+               err, tol, m, "sdpa")
+    decode_cases = [  # (B, H, KV, Sk, n, d, dtype, what): n of the cache's Sk keys attended
+        (4, 16, 16, 1500, 1500, 64, bf16, "whisper decode"),
+        (4, 16, 16, 1500, 1500, 64, f32, "whisper f32 check decode"),
+        (4, 16, 4, 1500, 1500, 128, bf16, "d 128, g 4"),
+        (4, 16, 16, 1500, 700, 64, bf16, "700 of 1500 keys"),
+        (2, 14, 2, 777, 777, 64, bf16, "g 7"),
+        (2, 8, 2, 1, 1, 64, f32, "one key"),
+    ]
+    for B, H, KV, Sk, n, d, dt, what in decode_cases:
+        q = randn(B, 1, H, d, dtype=dt).transpose(1, 2)  # the model's q [B, 1, H, d] as a view
+        kc, vc = randn(B, Sk, KV * d, dtype=dt), randn(B, Sk, KV * d, dtype=dt)
+        tol = BF16_TOL if dt == bf16 else FLASH_F32_TOL
+        got = ops.decode_attention_op(q, kc, vc, n)
+        err = assert_close(f"decode {B},{H},{KV},{Sk},{n},{d} {dt}", got,
+                           ref.decode_attention_ref(q, kc, vc, n), tol)
+        if not torch.equal(ops.decode_attention_op(q, kc, vc, n), got):  # a fixed combine order
+            raise AssertionError(f"decode {B},{H},{KV},{Sk},{n},{d} {dt}: two calls differ")
+        kv_view, vv_view = (t[:, :n].view(B, n, KV, d).transpose(1, 2) for t in (kc, vc))
+        m = measure(lambda: ops.decode_attention_op(q, kc, vc, n),
+                    lambda: ref.decode_attention_ref(q, kc, vc, n),
+                    lambda: F.scaled_dot_product_attention(q, kv_view, vv_view, enable_gqa=True),
+                    decode_bound(B, H, KV, n, d, q.element_size()))
+        decode_rows[(B, H, KV, Sk, n, d, dt)] = row(err, m)
+        plan = flash_k.decode_plan(B, H, KV, n, d)
+        report(f"flash_decode B={B} H={H} KV={KV} Sk={Sk} n={n} d={d} {str(dt)[6:]} {what}",
+               err, tol, m, "sdpa")
+        print(f"[kernel]   decode plan: {plan.splits} splits of {plan.chunk} keys (a cluster), "
+              f"{plan.rows} query rows a block, grid {plan.grid}, {plan.threads} threads, "
+              f"{plan.smem_bytes} bytes of shared memory; two calls bit-identical")
+    del q, kc, vc, got, kv_view, vv_view
+    print(f"[time] B11's {len(cross_cases)} forward and {len(decode_cases)} decode cases took "
+          f"{time.perf_counter() - t_b11:.1f}s")
+
     moe_rows = {}
     moe_cases = [  # (E, C, D, F, dtype, what): granite's experts at its three capacities
         (40, 128, 1536, 512, torch.bfloat16, "granite prefill gate/up"),
@@ -1622,6 +1766,8 @@ def main() -> int:
     # backward kernels, phase 5) held against its plain version
     checked_shapes = {
         "flash_attention": {c[:7] for c in flash_cases},
+        "cross_attention": {c[:7] for c in cross_cases},
+        "flash_decode": {c[:7] for c in decode_cases},
         "rmsnorm": {c[:3] for c in rms_cases},
         "ssd_intra_chunk": {(B * NC, H, Q, 64, N, dt) for B, NC, Q, H, N, dt, _ in ssd_cases},
     }
@@ -1736,15 +1882,26 @@ def main() -> int:
         print(f"[profile] generate {cfg.name}: prefill {prefill_ms:.2f} ms, one decode step "
               f"{step_ms:.2f} ms wall [{card}]")
         marks.append(time.perf_counter())
-        # whisper's cross-attention (plain PyTorch) read from the trace: its profiler range
-        profiled(f"generate {cfg.name}", lambda: server.engine.generate(batch), card,
-                 ranges=(CROSS_ATTENTION_RANGE,) if cfg.family == "audio" else ())
+        # whisper's cross-attention (B11's kernels) read from the trace: its profiler range
+        stats = {}
+        res = profiled(f"generate {cfg.name}", lambda: server.engine.generate(batch), card,
+                       ranges=(CROSS_ATTENTION_RANGE,) if cfg.family == "audio" else (), stats=stats)
+        if cfg.family == "audio":
+            cross_range(f"generate {cfg.name}", res[CROSS_ATTENTION_RANGE], stats["busy_ms"])
         marks.append(time.perf_counter())
         steps = [b - a for a, b in zip(marks, marks[1:])]
         print(f"[time] generate {cfg.name}: " + ", ".join(
             f"{what} {t:.1f}s" for what, t in zip(
                 ("set-up", "two timed generations", "decode-vs-forward checks",
                  "prefill and step", "profiled generation"), steps)))
+
+    def cross_range(label, ms, busy):
+        """The ``cross_attention`` range's device ms beside its reading before B11."""
+        was, was_busy = CROSS_RANGE_BEFORE[label]
+        print(f"[b11] {label}: cross_attention range {sum(ms):.3f} device ms ({ms[0]:.3f} inside "
+              f"it, {ms[1]:.3f} in its backward), {100 * sum(ms) / busy:.1f}% of {busy:.2f} busy; "
+              f"before B11 (plain PyTorch) {was:.2f} of {was_busy:.2f} ({100 * was / was_busy:.1f}%) "
+              f"[{name}; {card}]")
 
     def run_score(arch, seed):
         """SCORE_SHAPE sequences scored at full width through Engine.score."""
@@ -1838,6 +1995,24 @@ def main() -> int:
                             f"flash d{n} g={g} S={S} d={d} causal={causal} {dt}", a, b,
                             GRAD_TOL[str(dt)[6:]])])
                     checked += 1
+    # B11: keys of their own length, non-causal: GQA g 1, 4 and 7, (S, Sk) with ragged tiles on
+    # either side (one query, one key, S 448 over whisper's 1500 frames, Sk across 256 where
+    # the bf16 dkdv plan goes to two warpgroups), head dim 64 and 128
+    t_b11 = time.perf_counter()
+    for dt in (torch.bfloat16, torch.float32):
+        for g in (1, 4, 7):
+            for S, Sk in ((1, 1500), (65, 63), (65, 1), (160, 1500), (448, 1500), (129, 257)):
+                for d in (64, 128):
+                    q, k, v = leaves(dt, (2, 2 * g, S, d), (2, 2, Sk, d), (2, 2, Sk, d))
+                    dout = randn(2, 2 * g, S, d, dtype=dt)
+                    got = grads(ops.cross_attention_op, (q, k, v), dout)
+                    want = grads(lambda *t: ref.flash_attention_ref(*t, False), (q, k, v), dout)
+                    for n, a, b in zip("qkv", got, want):
+                        keep(f"cross_attention d{n}", dt, [grad_err(
+                            f"cross_attention d{n} g={g} S={S} Sk={Sk} d={d} {dt}", a, b,
+                            GRAD_TOL[str(dt)[6:]], ZERO_GRAD_ABS * math.sqrt(S * g))])
+                    checked += 1
+    print(f"[time] B11's backward grid took {time.perf_counter() - t_b11:.1f}s")
     for dt in (torch.bfloat16, torch.float32):
         for T, D in ((2560, 960), (1024, 2048), (1, 960), (7, 960), (3, 100), (300, 64)):
             x, w = leaves(dt, (T, D), scale=3.0)[0], (1 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
@@ -1949,7 +2124,7 @@ def main() -> int:
             checked += 1
     print(f"[bwd] {checked} backward cases match their plain versions (bf16 {GRAD_TOL['bfloat16']}, "
           f"f32 {GRAD_TOL['float32']} of the reference's largest magnitude; {ZERO_GRAD_ABS} "
-          f"absolute where the reference is 0)")
+          f"absolute where the reference is 0, times sqrt(S g) for B11's)")
     for (what, dt), (rel, zero) in sorted(worst.items()):
         print(f"[bwd] {what} {dt}: largest error {rel:.3e} of the reference's largest magnitude"
               f" (tol {GRAD_TOL[dt]}); largest |got| where the reference is 0: {zero:.3e}")
@@ -2007,6 +2182,54 @@ def main() -> int:
         report(f"flash bwd dkdv {label}", errs[1:], tol, m_dkdv, "sdpa grad k, v")
         report(f"flash bwd both {label}", errs, tol, m_all, "sdpa grad q, k, v")
         del q, k, v, dout, out, lse, dq, dk, dv, delta, again, ref_out, lib_out, want
+    # B11's backward at whisper's LM shape (2 x 448 tokens over 1500 frames), timed
+    t_b11 = time.perf_counter()
+    cross_bwd_cases = [(2, 16, 16, 448, 1500, 64, torch.bfloat16, "whisper LM"),
+                       (2, 16, 16, 448, 1500, 64, torch.float32, "")]
+    for B, H, KV, S, Sk, d, dt, what in cross_bwd_cases:
+        q, k, v = leaves(dt, (B, H, S, d), (B, KV, Sk, d), (B, KV, Sk, d))
+        dout = randn(B, H, S, d, dtype=dt)
+        with torch.no_grad():
+            out, lse = flash_k.cross_attention(q, k, v, lse=True)
+        dq, delta = flash_k.flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False, cross=True)
+        dk, dv = flash_k.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=False, cross=True)
+        again = flash_k.cross_attention_bwd(q, k, v, out, lse, dout)
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):  # no atomics
+            raise AssertionError(f"cross bwd B={B} H={H} S={S} Sk={Sk} {dt}: two calls differ")
+        ref_out = ref.flash_attention_ref(q, k, v, False)
+        lib_out = F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+        tol = GRAD_TOL[str(dt)[6:]]
+        want = torch.autograd.grad(ref_out, (q, k, v), dout, retain_graph=True)
+        errs = [grad_err(f"cross bwd d{n} B={B} H={H} S={S} Sk={Sk}", a, b, tol)
+                for n, a, b in zip("qkv", (dq, dk, dv), want)]
+        b_dq, b_dkdv, b_all = flash_bwd_bounds(B, H, KV, S, d, False, q.element_size(), Sk)
+        m_dq = measure(
+            lambda: flash_k.flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False, cross=True),
+            lambda: torch.autograd.grad(ref_out, (q,), dout, retain_graph=True),
+            lambda: torch.autograd.grad(lib_out, (q,), dout, retain_graph=True), b_dq, plain_iters=5)
+        m_dkdv = measure(
+            lambda: flash_k.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=False, cross=True),
+            lambda: torch.autograd.grad(ref_out, (k, v), dout, retain_graph=True),
+            lambda: torch.autograd.grad(lib_out, (k, v), dout, retain_graph=True), b_dkdv,
+            plain_iters=5)
+        m_all = measure(
+            lambda: flash_k.cross_attention_bwd(q, k, v, out, lse, dout),
+            lambda: torch.autograd.grad(ref_out, (q, k, v), dout, retain_graph=True),
+            lambda: torch.autograd.grad(lib_out, (q, k, v), dout, retain_graph=True), b_all,
+            plain_iters=5)
+        key = (B, H, KV, S, Sk, d, dt)
+        bwd_rows[("cross_attention_bwd_dq",) + key] = row(errs[0][0], m_dq)
+        bwd_rows[("cross_attention_bwd_dkdv",) + key] = row(max(errs[1][0], errs[2][0]), m_dkdv)
+        dq_plan, dkdv_plan = flash_k.bwd_plans(B, H, KV, S, d, dt, Sk)
+        label = f"B={B} H={H} KV={KV} S={S} Sk={Sk} d={d} {str(dt)[6:]} {what}"
+        report(f"cross_attention bwd dq {label}", errs[:1], tol, m_dq, "sdpa grad q")
+        report(f"cross_attention bwd dkdv {label}", errs[1:], tol, m_dkdv, "sdpa grad k, v")
+        report(f"cross_attention bwd both {label}", errs, tol, m_all, "sdpa grad q, k, v")
+        print(f"[bwd]   launch plans: dq grid {dq_plan.grid} of {dq_plan.threads} threads, dkdv grid "
+              f"{dkdv_plan.grid} of {dkdv_plan.threads} (key tiles of {dkdv_plan.block_k} over Sk); "
+              f"two calls bit-identical")
+        del q, k, v, dout, out, lse, dq, dk, dv, delta, again, ref_out, lib_out, want
+    print(f"[time] B11's timed backward cases took {time.perf_counter() - t_b11:.1f}s")
     rms_bwd_cases = [  # (T, D, dtype, what); past D 2048 the wide (block) route
         (16 * 160, 960, torch.bfloat16, "smollm GRPO"),
         (LOOP_N * LOOP_SEQ, 960, torch.bfloat16, "closed loop GRPO"),
@@ -2135,7 +2358,8 @@ def main() -> int:
                  if dt == torch.bfloat16 else ""))
         del xs, bs, cs, cum, dy, dst, got, again, y_ref, st_ref, want, parts
     print(f"[bwd] determinism: every timed backward kernel gave bit-identical gradients in two "
-          f"calls ({len(flash_bwd_cases)} flash, {len(rms_bwd_cases)} rmsnorm, "
+          f"calls ({len(flash_bwd_cases)} flash, {len(cross_bwd_cases)} cross_attention, "
+          f"{len(rms_bwd_cases)} rmsnorm, "
           f"{len(moe_bwd_cases)} moe_matmul, {len(ssd_bwd_cases)} ssd_intra_chunk shapes)")
     torch.cuda.empty_cache()
 
@@ -2388,6 +2612,7 @@ def main() -> int:
     checked_shapes.update(
         moe_matmul={c[:5] for c in moe_cases},
         flash_attention_bwd={c[:7] for c in flash_bwd_cases},
+        cross_attention_bwd={c[:7] for c in cross_bwd_cases},
         rmsnorm_bwd={c[:3] for c in rms_bwd_cases},
         moe_matmul_bwd={c[:5] for c in moe_bwd_cases},
         ssd_intra_chunk_bwd={c[:6] for c in ssd_bwd_cases},
@@ -2443,8 +2668,10 @@ def main() -> int:
         assert_checked(f"lm {arch}", train_shapes)
         lm_batch = next_batch(trainer)
         on = {}
-        profiled_step(f"lm step {arch}", lambda: trainer.step(trainer.state, lm_batch),
-                      ranges=(CROSS_ATTENTION_RANGE,) if cfg.family == "audio" else (), stats=on)
+        res = profiled_step(f"lm step {arch}", lambda: trainer.step(trainer.state, lm_batch),
+                            ranges=(CROSS_ATTENTION_RANGE,) if cfg.family == "audio" else (), stats=on)
+        if cfg.family == "audio":
+            cross_range(f"lm step {arch}", res[CROSS_ATTENTION_RANGE], on["busy_ms"])
         if arch in REMAT_BOTH_WAYS:
             remat_off(trainer, lm_batch, on)
         if arch in REMAT_GRADS:
@@ -2908,11 +3135,23 @@ def main() -> int:
         dict(name="ssd_intra_chunk", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:39", launches=launches["ssd_intra_chunk"],
              **ssd_rows[(8, 24, 160, 128, torch.bfloat16)]),
+        # B11 has no TPU kernel: "replaces" names the JAX einsums (XLA) it computes
+        dict(name="cross_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/models/layers.py:195", launches=launches["cross_attention"],
+             **cross_rows[(4, 16, 16, PROMPT, 1500, 64, torch.bfloat16)]),
+        dict(name="flash_decode", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/models/layers.py:328", launches=launches["flash_decode"],
+             **decode_rows[(4, 16, 16, 1500, 1500, 64, torch.bfloat16)]),
     ]
     grpo_shape = (16, 15, 5, 160, 64, True, torch.bfloat16)
     for kname, key, src, of in (
         ("flash_attention_bwd_dq", grpo_shape, "flash_attention", "src/repro/kernels/flash_attention.py:72"),
         ("flash_attention_bwd_dkdv", grpo_shape, "flash_attention", "src/repro/kernels/flash_attention.py:72"),
+        ("cross_attention_bwd_dq", (2, 16, 16, 448, 1500, 64, torch.bfloat16), "flash_attention",
+         "src/repro/models/layers.py:195"),
+        ("cross_attention_bwd_dkdv", (2, 16, 16, 448, 1500, 64, torch.bfloat16), "flash_attention",
+         "src/repro/models/layers.py:195"),
         ("rmsnorm_bwd", (16 * 160, 960, torch.bfloat16), "rmsnorm", "src/repro/kernels/rmsnorm.py:19"),
         ("rmsnorm_bwd_dweight", (16 * 160, 960, torch.bfloat16), "rmsnorm", "src/repro/kernels/rmsnorm.py:19"),
         ("rmsnorm_bwd_wide", (1024, 3200, torch.bfloat16), "rmsnorm", "src/repro/kernels/rmsnorm.py:19"),
@@ -2944,7 +3183,10 @@ def main() -> int:
           "F=512 (granite-moe-3b-a800m gate/up), ssd_intra_chunk BNC=8 H=24 Q=160 hd=64 N=128 "
           "(mamba2-130m); backward at the GRPO shape (smollm-360m, 16 x 160): flash B=16 H=15 "
           "KV=5 S=160 d=64 causal (plain and library: the gradient of the same inputs), rmsnorm "
-          "[2560, 960]; at the LM shapes: the wide rmsnorm backward [1024, 3200] (hymba-1.5b's "
+          "[2560, 960]; B11 (whisper-medium's cross-attention over 1500 frames): the forward at "
+          "its prefill B=4 H=16 S=128 Sk=1500 d=64, dq and dkdv at its LM shape B=2 S=448, the "
+          "decode over [4, 1500, 1024] caches (library: sdpa on the same views); at the LM "
+          "shapes: the wide rmsnorm backward [1024, 3200] (hymba-1.5b's "
           "out_norm), moe_matmul's dbuf and dw E=40 C=256 D=1536 F=512 (granite gate/up; library "
           "torch.bmm), ssd_intra_chunk's backward and reduce BNC=4 H=24 Q=256 hd=64 N=128 "
           "(mamba2-130m 2 x 512); AdamW (B9) over llama3.2-1b's 11 leaves (1.236 B bf16 "

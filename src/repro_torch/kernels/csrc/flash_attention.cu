@@ -50,9 +50,13 @@
 // P stays f32, as in the TPU kernel.
 //
 // Both: strides are arguments, so the model's q [B,S,H,d] and k/v
-// [B,S,KV,d] are read in place, with only the last dimension required to
-// be contiguous and rows 16-byte aligned.  Ragged S is masked (keys >= S
-// get no weight, rows >= S are not stored), so S is unrestricted.  With a
+// [B,Sk,KV,d] are read in place, with only the last dimension required to
+// be contiguous and rows 16-byte aligned.  Ragged S and Sk are masked (keys
+// >= Sk get no weight, rows >= S are not stored), so both are unrestricted.
+// Keys of a length of their own (Sk != S; port-only B11, whisper's
+// cross-attention over its encoder's 1500 frames, which the TPU kernel's
+// (S, d) K/V blocks cannot take) run non-causal only: the key loop and
+// its tail mask run over Sk, query tiles stay 64 rows of S.  With a
 // non-null lse pointer the forward also writes each row's log-sum-exp of
 // the scaled scores (natural log, f32, [B,H,S]) for the backward; serving
 // passes null, which selects the instantiation without it (kLse = false),
@@ -72,6 +76,8 @@
 //         (bf16: a programmatic dependent launch, whose producer loads K
 //         and V while the dq grid finishes and waits for it before the
 //         first stats).
+// At Sk != S (B11) dq walks Sk keys per query tile and dkdv's grid is the
+// key tiles of Sk, each walking S queries; K and V's tensor maps take Sk rows.
 // Each kernel recomputes Q K^T and dO V^T (7 tile products for the pair
 // where one fused kernel does 5): that keeps every output element written
 // by one block, in a fixed order.
@@ -99,11 +105,14 @@
 // of q, k, v, o, dO and the three gradients; at long S the ~2.5x forward
 // operations.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -207,12 +216,14 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ sr
   }
 }
 
-// grid (H, row tiles, B); kLse: write the rows' log-sum-exp (training)
+// grid (H, row tiles, B); kLse: write the rows' log-sum-exp (training).  At d = 64
+// four blocks share an SM (their 46 KB of tiles fit four times) when a thread keeps
+// to 128 registers, which the bounds hold it to.
 template <int D, bool kLse>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 1)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-               bf16* __restrict__ o, float* __restrict__ lse, int S, int H, int KV, Strides qs,
-               Strides ks, Strides vs, Strides os, float scale_log2, int causal) {
+               bf16* __restrict__ o, float* __restrict__ lse, int S, int Sk, int H, int KV,
+               Strides qs, Strides ks, Strides vs, Strides os, float scale_log2, int causal) {
   using L = Layout<D>;
   constexpr int KD = D / 16;  // k-steps of Q K^T; n16 column pairs of P V
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -233,12 +244,12 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
 
   const bf16* kh = k + b * ks.b + kvh * ks.h;
   const bf16* vh = v + b * vs.b + kvh * vs.h;
-  const int k_end = causal ? min(S, q0 + BQ) : S;  // causal: later tiles add nothing
+  const int k_end = causal ? min(S, q0 + BQ) : Sk;  // causal (Sk == S): later tiles add nothing
   const int n_tiles = (k_end + BK - 1) / BK;
 
   load_tile<D>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
-  load_tile<D>(Ks, kh, ks.s, 0, S);
-  load_tile<D>(Vs, vh, vs.s, 0, S);
+  load_tile<D>(Ks, kh, ks.s, 0, Sk);
+  load_tile<D>(Vs, vh, vs.s, 0, Sk);
   cp_async_commit();
 
   uint32_t qf[KD][4];
@@ -253,8 +264,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   for (int it = 0; it < n_tiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < n_tiles) {  // the next tile flies while this one is computed
-      load_tile<D>(Ks + (buf ^ 1) * L::kTile, kh, ks.s, (it + 1) * BK, S);
-      load_tile<D>(Vs + (buf ^ 1) * L::kTile, vh, vs.s, (it + 1) * BK, S);
+      load_tile<D>(Ks + (buf ^ 1) * L::kTile, kh, ks.s, (it + 1) * BK, Sk);
+      load_tile<D>(Vs + (buf ^ 1) * L::kTile, vh, vs.s, (it + 1) * BK, Sk);
     }
     cp_async_commit();
     cp_async_wait<1>();  // everything but the newest group has landed
@@ -285,7 +296,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
       }
 
     // element e of tile n: row row_lo + 8*(e/2), key k0 + 8n + 2t + e%2
-    const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+    const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -293,7 +304,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
         float x = s[n][e] * scale_log2;
         if (masked) {
           const int key = k0 + 8 * n + 2 * t + (e & 1);
-          if (key >= S || (causal && key > row_lo + 8 * (e >> 1))) x = -INFINITY;
+          if (key >= Sk || (causal && key > row_lo + 8 * (e >> 1))) x = -INFINITY;
         }
         s[n][e] = x;
       }
@@ -419,8 +430,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
                    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                    const bf16* __restrict__ o, const bf16* __restrict__ dout,
                    const float* __restrict__ lse, float* __restrict__ stats, bf16* __restrict__ dq,
-                   int S, int H, int KV, Strides os, Strides dos, Strides dqs, float scale_log2,
-                   float scale, int causal) {
+                   int S, int Sk, int H, int KV, Strides os, Strides dos, Strides dqs,
+                   float scale_log2, float scale, int causal) {
   using L = DqSmem<D, NWG>;
   constexpr int BQ = L::BQ, ST = L::ST, CH = D / 64;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -438,7 +449,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
   const int kvh = h / (H / KV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_tiles = ((causal ? min(S, q0 + BQ) : S) + 63) / 64;
+  const int n_tiles = ((causal ? min(S, q0 + BQ) : Sk) + 63) / 64;  // causal only at Sk == S
   if (threadIdx.x == 0) {
     mbar_init(qfull, 1);
     for (int s = 0; s < ST; ++s) {
@@ -560,11 +571,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
     // a diagonal or ragged tile is masked, with one warp-uniform branch.
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = exp2_ftz(fmaf(sc[i], scale_log2, -lse2[(i >> 1) & 1]));
-    if (k0 + 64 > S || (causal && k0 + 63 > wq0)) {
+    if (k0 + 64 > Sk || (causal && k0 + 63 > wq0)) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        const bool drop = key >= S || (causal && key > row_lo + 8 * ((i >> 1) & 1));
+        const bool drop = key >= Sk || (causal && key > row_lo + 8 * ((i >> 1) & 1));
         sc[i] = drop ? 0.f : sc[i];
       }
     }
@@ -602,7 +613,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
 }
 
-// dK, dV.  grid (key tiles of 64 NWG, KV, B).  The NWG consumer warpgroups
+// dK, dV.  grid (key tiles of 64 NWG over Sk, KV, B).  The NWG consumer warpgroups
 // own 64 keys each; the producer streams, for each of the KV head's g query
 // heads, the 64-row query tiles at or after the diagonal.  kMinBlocks = 2
 // caps the registers so that two blocks share an SM, and ptxas then
@@ -613,8 +624,8 @@ __global__ void __launch_bounds__(NWG * 128 + 32, kMinBlocks)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                      const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tstats, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int S, int H, int KV, Strides dks, Strides dvs,
-                     float scale_log2, float scale, int causal) {
+                     bf16* __restrict__ dv, int S, int Sk, int H, int KV, Strides dks,
+                     Strides dvs, float scale_log2, float scale, int causal) {
   using L = DkdvSmem<D, NWG>;
   constexpr int BK = L::BK, ST = L::ST, CH = D / 64;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -760,7 +771,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int key = key_lo + 8 * half;
-    if (key < S)
+    if (key < Sk)
 #pragma unroll
       for (int c = 0; c < CH; ++c)
 #pragma unroll
@@ -819,7 +830,7 @@ template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, int S,
-              int H, int KV, Strides qs, Strides ks, Strides vs, Strides os, float scale,
+              int Sk, int H, int KV, Strides qs, Strides ks, Strides vs, Strides os, float scale,
               int causal) {
   using L = Smem<D>;
   constexpr int DL = D / 32;  // output columns per lane
@@ -849,12 +860,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int t = 0; t < DL; ++t) acc[r][t] = 0.f;
   }
 
-  // causal: key tiles wholly after the block's last row contribute nothing
-  const int k_end = causal ? min(S, q0 + BQ) : S;
+  // causal (Sk == S): key tiles wholly after the block's last row contribute nothing
+  const int k_end = causal ? min(S, q0 + BQ) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(kh, ks.s, k0, BK, S, Ks, L::kK);
-    load_tile<D>(vh, vs.s, k0, BK, S, Vs, D);
+    load_tile<D>(kh, ks.s, k0, BK, Sk, Ks, L::kK);
+    load_tile<D>(vh, vs.s, k0, BK, Sk, Vs, D);
     __syncthreads();
     if (causal && k0 > warp_last_q) continue;  // masked for all of this warp's rows
 
@@ -880,7 +891,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int qpos = q0 + row_base + r;
-      const bool valid = key < S && (!causal || key <= qpos);
+      const bool valid = key < Sk && (!causal || key <= qpos);
       const float sc = valid ? s[r] * scale : kNegInf;
       const float m_new = fmaxf(m[r], warp_max(sc));
       const float alpha = expf(m[r] - m_new);
@@ -945,7 +956,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ o,
                  const float* __restrict__ dout, const float* __restrict__ lse,
-                 float* __restrict__ delta, float* __restrict__ dq, int S, int H, int KV,
+                 float* __restrict__ delta, float* __restrict__ dq, int S, int Sk, int H, int KV,
                  Strides qs, Strides ks, Strides vs, Strides os, Strides dos, Strides dqs,
                  float scale, int causal) {
   using L = BwdDq<D>;
@@ -988,11 +999,11 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int t = 0; t < DL; ++t) acc[r][t] = 0.f;
   }
 
-  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int k_end = causal ? min(S, q0 + BQ) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();
-    load_tile<D>(kh, ks.s, k0, BK, S, Ks, L::kK);
-    load_tile<D>(vh, vs.s, k0, BK, S, Vs, L::kK);
+    load_tile<D>(kh, ks.s, k0, BK, Sk, Ks, L::kK);
+    load_tile<D>(vh, vs.s, k0, BK, Sk, Vs, L::kK);
     __syncthreads();
     if (causal && k0 > warp_last_q) continue;
 
@@ -1016,7 +1027,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int qpos = q0 + row_base + r;
-      const bool valid = key < S && (!causal || key <= qpos);
+      const bool valid = key < Sk && (!causal || key <= qpos);
       const float p = valid ? expf(s[r] * scale - lse_r[r]) : 0.f;
       Pw[r * L::kP + lane] = p * (dp[r] - d_r[r]);  // dS
     }
@@ -1052,7 +1063,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dK, dV.  grid (32-key tiles, KV, B): 32 keys a block, so that the grid
+// dK, dV.  grid (32-key tiles over Sk, KV, B): 32 keys a block, so that the grid
 // fills the card at the training shapes (160 blocks at B4 KV8 S160, where
 // 64-key blocks gave 96).  Each warp owns 8 keys; each lane one query of
 // the 32-row tile.  Shared: K and V (rows D+4), Q and dO (rows D+1), P and
@@ -1070,7 +1081,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KV,
+                   float* __restrict__ dk, float* __restrict__ dv, int S, int Sk, int H, int KV,
                    Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
                    float scale, int causal) {
   using L = BwdDkdv<D>;
@@ -1093,8 +1104,8 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Pw = Ps + row_base * L::kP;
   float* dSw = dSs + row_base * L::kP;
 
-  load_tile<D>(k + b * ks.b + kvh * ks.h, ks.s, k0, kDkdvKeys, S, Ks, L::kQ);
-  load_tile<D>(v + b * vs.b + kvh * vs.h, vs.s, k0, kDkdvKeys, S, Vs, L::kQ);
+  load_tile<D>(k + b * ks.b + kvh * ks.h, ks.s, k0, kDkdvKeys, Sk, Ks, L::kQ);
+  load_tile<D>(v + b * vs.b + kvh * vs.h, vs.s, k0, kDkdvKeys, Sk, Vs, L::kQ);
   float dka[kKeyRows][DL], dva[kKeyRows][DL];
 #pragma unroll
   for (int r = 0; r < kKeyRows; ++r)
@@ -1175,7 +1186,7 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < kKeyRows; ++r) {
     const int key = warp_key0 + r;
-    if (key < S)
+    if (key < Sk)
 #pragma unroll
       for (int t = 0; t < DL; ++t) {
         kd[static_cast<int64_t>(key) * dks.s + lane + 32 * t] = dka[r][t] * scale;
@@ -1185,6 +1196,233 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 }  // namespace cc
+
+
+// --------------------------------------------------------------- decode --
+//
+// B11's decode form (no TPU counterpart: the JAX package decodes in XLA,
+// repro/models/layers.py decode_attention).  One query a row against the
+// FLAT caches [B, Sk, KV*D] that decode_attention holds, read in place in
+// their own dtype; the first n keys count.  Bound: the bytes of K and V
+// read once (24.6 MB a whisper layer, 7.3 us).  Whisper's 64 (row, KV head)
+// pairs are fewer than the card's 132 SMs, so the keys of a pair are split
+// over the blocks of one thread-block cluster: each block runs an online
+// softmax (f32 max, sum and P V on CUDA cores) over its chunk of keys, its
+// warps' partials land in its shared memory, and block 0 of the cluster
+// combines every split's partials in a fixed order (split, then warp)
+// through distributed shared memory and writes the output.  No atomics and
+// no scratch in device memory, so two calls give the same bits.
+//
+// A key row is D values of T: LPK lanes read it, 16 bytes (EPL values)
+// each, so a warp holds KPW = 32 / LPK keys at once, and each group of LPK
+// lanes takes kUnroll consecutive keys an iteration, their loads issued
+// together.  A block takes G <= 4 query rows of its KV head's group of g
+// (grid.y = KV x row tiles); rows past g run on zeros and are not stored.
+namespace dec {
+
+constexpr int kWarps = 4;
+constexpr int kUnroll = 4;
+
+__device__ __forceinline__ void to_f32(const uint4& u, float (&f)[8], const __nv_bfloat16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void to_f32(const uint4& u, float (&f)[4], const float*) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// One warp's partial: per row the max (log2 units of the scaled scores), the sum, and P V.
+template <int D, int G>
+struct Part {
+  float m[G], l[G], acc[G][D];
+};
+
+// grid (splits, KV x row tiles, B) in clusters of (splits, 1, 1); split s
+// takes keys [s chunk, min(n, (s + 1) chunk)).
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_decode(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+             T* __restrict__ o, int H, int KV, int n, int chunk, int64_t q_sb, int64_t q_sh,
+             int64_t k_sb, int64_t k_ss, int64_t v_sb, int64_t v_ss, int64_t o_sb,
+             float scale_log2) {
+  constexpr int EPL = 16 / sizeof(T), LPK = D / EPL, KPW = 32 / LPK;
+  __shared__ Part<D, G> part[kWarps];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x, splits = gridDim.x;  // a cluster spans grid.x: rank = blockIdx.x
+  const int g = H / KV, tiles = (g + G - 1) / G, tile = blockIdx.y % tiles;
+  const int kvh = blockIdx.y / tiles, h0 = kvh * g + tile * G, rows = min(G, g - tile * G);
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane / LPK, c0 = (lane % LPK) * EPL;  // the lane's key group and columns
+
+  float qf[G][EPL];  // the rows' columns c0.., times scale log2(e)
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    float f[EPL];
+    const uint4 u = r < rows ? *reinterpret_cast<const uint4*>(q + b * q_sb + (h0 + r) * q_sh + c0)
+                             : make_uint4(0, 0, 0, 0);
+    to_f32(u, f, q);
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) qf[r][e] = f[e] * scale_log2;
+  }
+  float m[G], l[G], acc[G][EPL];
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
+  }
+
+  const int k_lo = split * chunk, k_hi = min(n, k_lo + chunk);
+  const T* kb = kc + b * k_sb + kvh * D + c0;
+  const T* vb = vc + b * v_sb + kvh * D + c0;
+  // warp-uniform trip count: the lanes' shuffles need the whole warp
+  for (int w0 = k_lo + warp * KPW * kUnroll; w0 < k_hi; w0 += kWarps * KPW * kUnroll) {
+    const int key0 = w0 + grp * kUnroll;
+    uint4 kr[kUnroll], vr[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool ok = key0 + u < k_hi;
+      kr[u] = ok ? *reinterpret_cast<const uint4*>(kb + (key0 + u) * k_ss) : make_uint4(0, 0, 0, 0);
+      vr[u] = ok ? *reinterpret_cast<const uint4*>(vb + (key0 + u) * v_ss) : make_uint4(0, 0, 0, 0);
+    }
+    float s[kUnroll][G];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float kf[EPL];
+      to_f32(kr[u], kf, kc);
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) dot = fmaf(qf[r][e], kf[e], dot);
+#pragma unroll
+        for (int off = LPK / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        s[u][r] = key0 + u < k_hi ? dot : -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < G; ++r) {  // online softmax over the group's keys
+      float mx = m[r];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) mx = fmaxf(mx, s[u][r]);
+      const float base = mx == -INFINITY ? 0.f : mx;  // no key yet: p = 0, not NaN
+      const float alpha = exp2f(m[r] - base);
+      l[r] *= alpha;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[r][e] *= alpha;
+      m[r] = mx;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const float p = exp2f(s[u][r] - base);
+        float vf[EPL];
+        to_f32(vr[u], vf, vc);
+        l[r] += p;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
+      }
+    }
+  }
+  // the warp's key groups, combined by a fixed butterfly; group 0 keeps the result
+#pragma unroll
+  for (int off = LPK; off < 32; off <<= 1)
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+      const float mx = fmaxf(m[r], mo), base = mx == -INFINITY ? 0.f : mx;
+      const float a = exp2f(m[r] - base), c = exp2f(mo - base);
+      l[r] = l[r] * a + lo * c;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        acc[r][e] = acc[r][e] * a + __shfl_xor_sync(0xffffffffu, acc[r][e], off) * c;
+      m[r] = mx;
+    }
+  if (grp == 0) {
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) part[warp].acc[r][c0 + e] = acc[r][e];
+      if (lane == 0) {
+        part[warp].m[r] = m[r];
+        part[warp].l[r] = l[r];
+      }
+    }
+  }
+  cluster.sync();  // every block's partials are in its shared memory
+  if (split == 0) {
+    T* ob = o + b * o_sb + static_cast<int64_t>(h0) * D;
+    for (int i = threadIdx.x; i < rows * D; i += kWarps * 32) {
+      const int r = i / D, c = i % D;
+      float mx = -INFINITY;  // finite: split 0's warp 0 holds key 0
+      for (int sp = 0; sp < splits; ++sp) {
+        const Part<D, G>* p = cluster.map_shared_rank(part, sp);
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, p[w].m[r]);
+      }
+      float sum = 0.f, val = 0.f;
+      for (int sp = 0; sp < splits; ++sp) {
+        const Part<D, G>* p = cluster.map_shared_rank(part, sp);
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          const float wgt = exp2f(p[w].m[r] - mx);
+          sum = fmaf(p[w].l[r], wgt, sum);
+          val = fmaf(p[w].acc[r][c], wgt, val);
+        }
+      }
+      store(ob + i, val / sum);
+    }
+  }
+  cluster.sync();  // block 0 has read every block's partials before they go
+}
+
+// Query rows a block takes: the group's g where it is 1 or 2, else tiles of 4.
+constexpr int rows_for(int g) { return g == 1 ? 1 : g == 2 ? 2 : 4; }
+
+template <typename T, int D, int G>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int H, int KV, int n,
+                   int chunk, int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t v_sb,
+                   int64_t v_ss, float scale_log2, dim3 grid, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kWarps * 32);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;  // one cluster of `splits` blocks a (row, KV head, row tile)
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, flash_decode<T, D, G>, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), H, KV, n, chunk, q_sb, q_sh, k_sb, k_ss, v_sb,
+      v_ss, static_cast<int64_t>(H) * D, scale_log2);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_rows(int rows, const void* q, const void* k, const void* v, void* o, int H,
+                        int KV, int n, int chunk, int64_t q_sb, int64_t q_sh, int64_t k_sb,
+                        int64_t k_ss, int64_t v_sb, int64_t v_ss, float scale_log2, dim3 grid,
+                        cudaStream_t stream) {
+  auto f = rows == 1 ? launch<T, D, 1> : rows == 2 ? launch<T, D, 2> : launch<T, D, 4>;
+  return f(q, k, v, o, H, KV, n, chunk, q_sb, q_sh, k_sb, k_ss, v_sb, v_ss, scale_log2, grid,
+           stream);
+}
+
+}  // namespace dec
 
 // Launch a kernel after checking that the plan computed in Python (grid,
 // shared-memory bytes) is the one it was written for.
@@ -1205,8 +1443,8 @@ constexpr int row_tiles(int S) { return (S + 63) / 64; }  // every template: 64-
 
 template <int D>
 cudaError_t fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                int H, int KV, int S, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-                int causal, dim3 grid, int64_t smem, cudaStream_t st) {
+                int H, int KV, int S, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+                float scale, int causal, dim3 grid, int64_t smem, cudaStream_t st) {
   using tc::bf16;
   float* l = static_cast<float*>(lse);
   if (dtype == 1)
@@ -1214,13 +1452,13 @@ cudaError_t fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                           dim3(H, row_tiles(S), B), tc::Layout<D>::bytes,
                           grid, smem, st, static_cast<const bf16*>(q),
                           static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                          static_cast<bf16*>(o), l, S, H, KV, qs, ks, vs, os,
+                          static_cast<bf16*>(o), l, S, Sk, H, KV, qs, ks, vs, os,
                           scale * kLog2e, causal);  // exp(x) = exp2(x log2 e)
   return launch_checked(l ? cc::flash_fwd_f32<D, true> : cc::flash_fwd_f32<D, false>,
                         dim3(row_tiles(S), H, B), cc::Smem<D>::bytes, grid,
                         smem, st, static_cast<const float*>(q), static_cast<const float*>(k),
-                        static_cast<const float*>(v), static_cast<float*>(o), l, S, H, KV, qs, ks,
-                        vs, os, scale, causal);
+                        static_cast<const float*>(v), static_cast<float*>(o), l, S, Sk, H, KV, qs,
+                        ks, vs, os, scale, causal);
 }
 
 // Backward views: q, k, v, o, dout, dq, dk, dv, each given by (b, h, s) strides.
@@ -1234,13 +1472,14 @@ Views views_from(const int64_t* st) {
   return Views{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]};
 }
 
-// The bf16 backward's warpgroups per block: 128-row dq tiles and 128-key
-// dkdv tiles (d = 64) past S = 256, where they halve the streamed bytes per
-// row; 64 below, where the smaller tiles keep the card full.  At d = 128 a
-// dkdv block has one consumer warpgroup: its dK and dV accumulators alone
-// are 128 f32 registers a thread.
+// The bf16 backward's warpgroups per block, each by the length it tiles:
+// 128-row dq tiles past S = 256 queries and 128-key dkdv tiles (d = 64)
+// past Sk = 256 keys, where they halve the streamed bytes per row; 64
+// below, where the smaller tiles keep the card full.  At d = 128 a dkdv
+// block has one consumer warpgroup: its dK and dV accumulators alone are
+// 128 f32 registers a thread.
 int dq_warpgroups(int S) { return S > 256 ? 2 : 1; }
-int dkdv_warpgroups(int D, int S) { return D == 64 && S > 256 ? 2 : 1; }
+int dkdv_warpgroups(int D, int Sk) { return D == 64 && Sk > 256 ? 2 : 1; }
 
 // Launch a warp-specialised kernel after the same plan check as
 // launch_checked; `threads` is its consumers plus one producer warp.
@@ -1263,7 +1502,7 @@ cudaError_t launch_wgmma(Kernel kernel, bool dependent, dim3 want, int bytes, in
 
 template <int D, int NWG>
 cudaError_t dq_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                    const void* lse, void* delta, void* dq, int B, int H, int KV, int S,
+                    const void* lse, void* delta, void* dq, int B, int H, int KV, int S, int Sk,
                     const Views& w, float scale, int causal, dim3 grid, int64_t smem,
                     cudaStream_t st) {
   using wg::bf16;
@@ -1271,20 +1510,20 @@ cudaError_t dq_bf16(const void* q, const void* k, const void* v, const void* o, 
   CUtensorMap tq, tdo, tk, tv;
   if (!hopper::map_bf16_rows(&tq, q, B, H, S, D, w.q.b, w.q.h, w.q.s, BQ) ||
       !hopper::map_bf16_rows(&tdo, dout, B, H, S, D, w.dout.b, w.dout.h, w.dout.s, BQ) ||
-      !hopper::map_bf16_rows(&tk, k, B, KV, S, D, w.k.b, w.k.h, w.k.s, 64) ||
-      !hopper::map_bf16_rows(&tv, v, B, KV, S, D, w.v.b, w.v.h, w.v.s, 64))
+      !hopper::map_bf16_rows(&tk, k, B, KV, Sk, D, w.k.b, w.k.h, w.k.s, 64) ||
+      !hopper::map_bf16_rows(&tv, v, B, KV, Sk, D, w.v.b, w.v.h, w.v.s, 64))
     return cudaErrorInvalidValue;
   return launch_wgmma(wg::flash_bwd_dq_wgmma<D, NWG>, false, dim3(H, (S + BQ - 1) / BQ, B),
                       wg::DqSmem<D, NWG>::bytes, NWG * 128 + 32, grid, smem, st, tq, tdo, tk, tv,
                       static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
                       static_cast<const float*>(lse), static_cast<float*>(delta),
-                      static_cast<bf16*>(dq), S, H, KV, w.o, w.dout, w.dq, scale * kLog2e, scale,
-                      causal);
+                      static_cast<bf16*>(dq), S, Sk, H, KV, w.o, w.dout, w.dq, scale * kLog2e,
+                      scale, causal);
 }
 
 template <int D, int NWG, int kMinBlocks>
 cudaError_t dkdv_bf16(const void* q, const void* k, const void* v, const void* dout,
-                      const void* stats, void* dk, void* dv, int B, int H, int KV, int S,
+                      const void* stats, void* dk, void* dv, int B, int H, int KV, int S, int Sk,
                       const Views& w, float scale, int causal, dim3 grid, int64_t smem,
                       cudaStream_t st) {
   using wg::bf16;
@@ -1292,84 +1531,86 @@ cudaError_t dkdv_bf16(const void* q, const void* k, const void* v, const void* d
   CUtensorMap tq, tdo, tk, tv, ts;
   if (!hopper::map_bf16_rows(&tq, q, B, H, S, D, w.q.b, w.q.h, w.q.s, 64) ||
       !hopper::map_bf16_rows(&tdo, dout, B, H, S, D, w.dout.b, w.dout.h, w.dout.s, 64) ||
-      !hopper::map_bf16_rows(&tk, k, B, KV, S, D, w.k.b, w.k.h, w.k.s, BK) ||
-      !hopper::map_bf16_rows(&tv, v, B, KV, S, D, w.v.b, w.v.h, w.v.s, BK) ||
+      !hopper::map_bf16_rows(&tk, k, B, KV, Sk, D, w.k.b, w.k.h, w.k.s, BK) ||
+      !hopper::map_bf16_rows(&tv, v, B, KV, Sk, D, w.v.b, w.v.h, w.v.s, BK) ||
       !hopper::map_f32_rows(&ts, stats, 2 * B * H, S, stats_row(S), 64))
     return cudaErrorInvalidValue;
   return launch_wgmma(wg::flash_bwd_dkdv_wgmma<D, NWG, kMinBlocks>, true,
-                      dim3((S + BK - 1) / BK, KV, B),
+                      dim3((Sk + BK - 1) / BK, KV, B),
                       wg::DkdvSmem<D, NWG>::bytes, NWG * 128 + 32, grid, smem, st, tq, tdo, tk, tv,
-                      ts, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, KV, w.dk, w.dv,
+                      ts, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Sk, H, KV, w.dk, w.dv,
                       scale * kLog2e, scale, causal);
 }
 
 template <int D>
 cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const void* lse, void* delta, void* dq, int B, int H,
-                   int KV, int S, const Views& w, float scale, int causal, dim3 grid,
+                   int KV, int S, int Sk, const Views& w, float scale, int causal, dim3 grid,
                    int64_t smem, cudaStream_t st) {
   if (dtype == 1) {
     return (dq_warpgroups(S) == 2 ? dq_bf16<D, 2> : dq_bf16<D, 1>)(
-        q, k, v, o, dout, lse, delta, dq, B, H, KV, S, w, scale, causal, grid, smem, st);
+        q, k, v, o, dout, lse, delta, dq, B, H, KV, S, Sk, w, scale, causal, grid, smem, st);
   }
   return launch_checked(cc::flash_bwd_dq_f32<D>, dim3(H, row_tiles(S), B), cc::BwdDq<D>::bytes,
                         grid, smem, st, static_cast<const float*>(q), static_cast<const float*>(k),
                         static_cast<const float*>(v), static_cast<const float*>(o),
                         static_cast<const float*>(dout), static_cast<const float*>(lse),
-                        static_cast<float*>(delta), static_cast<float*>(dq), S, H, KV, w.q, w.k,
-                        w.v, w.o, w.dout, w.dq, scale, causal);
+                        static_cast<float*>(delta), static_cast<float*>(dq), S, Sk, H, KV, w.q,
+                        w.k, w.v, w.o, w.dout, w.dq, scale, causal);
 }
 
 template <int D>
 cudaError_t bwd_dkdv(int dtype, const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dk, void* dv, int B, int H, int KV,
-                     int S, const Views& w, float scale, int causal, dim3 grid, int64_t smem,
-                     cudaStream_t st) {
+                     int S, int Sk, const Views& w, float scale, int causal, dim3 grid,
+                     int64_t smem, cudaStream_t st) {
   if (dtype == 1) {
     const bool two_per_sm = static_cast<int64_t>(grid.x) * grid.y * grid.z > hopper::kSMs;
-    return (dkdv_warpgroups(D, S) == 2    ? dkdv_bf16<64, 2, 1>
+    return (dkdv_warpgroups(D, Sk) == 2   ? dkdv_bf16<64, 2, 1>
             : D == 64 && two_per_sm ? dkdv_bf16<64, 1, 2>
                                     : dkdv_bf16<D, 1, 1>)(
-        q, k, v, dout, delta, dk, dv, B, H, KV, S, w, scale, causal, grid, smem, st);
+        q, k, v, dout, delta, dk, dv, B, H, KV, S, Sk, w, scale, causal, grid, smem, st);
   }
-  return launch_checked(cc::flash_bwd_dkdv_f32<D>, dim3((S + cc::kDkdvKeys - 1) / cc::kDkdvKeys, KV, B),
+  return launch_checked(cc::flash_bwd_dkdv_f32<D>, dim3((Sk + cc::kDkdvKeys - 1) / cc::kDkdvKeys, KV, B),
                         cc::BwdDkdv<D>::bytes, grid, smem, st, static_cast<const float*>(q),
                         static_cast<const float*>(k), static_cast<const float*>(v),
                         static_cast<const float*>(dout), static_cast<const float*>(lse),
                         static_cast<const float*>(delta), static_cast<float*>(dk),
-                        static_cast<float*>(dv), S, H, KV, w.q, w.k, w.v, w.dout, w.dk, w.dv,
+                        static_cast<float*>(dv), S, Sk, H, KV, w.q, w.k, w.v, w.dout, w.dk, w.dv,
                         scale, causal);
 }
 
-bool bad_args(int dtype, int D, int B, int H, int KV, int S) {
+// Causal attention masks by the sequence index, which needs keys of q's own length.
+bool bad_args(int dtype, int D, int B, int H, int KV, int S, int Sk, int causal) {
   return (dtype != 0 && dtype != 1) || (D != 64 && D != 128) || B <= 0 || H <= 0 || KV <= 0 ||
-         S <= 0 || H % KV != 0 || B > 65535 || H > 65535;
+         S <= 0 || Sk <= 0 || (causal && Sk != S) || H % KV != 0 || B > 65535 || H > 65535;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q is [B,H,S,D] and k, v, o are
-// [B,KV,S,D] / [B,H,S,D] views given by their (b, h, s) strides in elements;
-// the last dimension is contiguous and every row starts 16-byte aligned.
-// lse is null, or [B,H,S] f32 contiguous to receive each row's log-sum-exp.
+// dtype: 0 = float32, 1 = bfloat16.  q is [B,H,S,D], k and v [B,KV,Sk,D]
+// and o [B,H,S,D], views given by their (b, h, s) strides in elements; the
+// last dimension is contiguous and every row starts 16-byte aligned.  Sk is
+// the keys' own length (B11: cross-attention); causal needs Sk == S.  lse
+// is null, or [B,H,S] f32 contiguous to receive each row's log-sum-exp.
 // grid and smem are the launch plan of flash_attention.py::launch_plan;
 // a plan that does not match the template returns
 // cudaErrorInvalidConfiguration.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(int dtype, int D, const void* q, const void* k, const void* v,
-                                   void* o, void* lse, int B, int H, int KV, int S,
+                                   void* o, void* lse, int B, int H, int KV, int S, int Sk,
                                    int64_t q_sb, int64_t q_sh, int64_t q_ss,
                                    int64_t k_sb, int64_t k_sh, int64_t k_ss,
                                    int64_t v_sb, int64_t v_sh, int64_t v_ss,
                                    int64_t o_sb, int64_t o_sh, int64_t o_ss,
                                    float scale, int causal, int grid_x, int grid_y, int grid_z,
                                    int64_t smem, void* stream) {
-  if (bad_args(dtype, D, B, H, KV, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(dtype, D, B, H, KV, S, Sk, causal)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = D == 64 ? fwd<64> : fwd<128>;
-  return static_cast<int>(f(dtype, q, k, v, o, lse, B, H, KV, S, qs, ks, vs, os, scale, causal,
+  return static_cast<int>(f(dtype, q, k, v, o, lse, B, H, KV, S, Sk, qs, ks, vs, os, scale, causal,
                             grid, smem, s));
 }
 
@@ -1381,29 +1622,58 @@ extern "C" int flash_attention_fwd(int dtype, int D, const void* q, const void* 
 extern "C" int flash_attention_bwd_dq(int dtype, int D, const void* q, const void* k,
                                       const void* v, const void* o, const void* dout,
                                       const void* lse, void* delta, void* dq, int B, int H,
-                                      int KV, int S, const int64_t* strides, float scale,
+                                      int KV, int S, int Sk, const int64_t* strides, float scale,
                                       int causal, int grid_x, int grid_y, int grid_z,
                                       int64_t smem, void* stream) {
-  if (bad_args(dtype, D, B, H, KV, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(dtype, D, B, H, KV, S, Sk, causal)) return static_cast<int>(cudaErrorInvalidValue);
   auto f = D == 64 ? bwd_dq<64> : bwd_dq<128>;
-  return static_cast<int>(f(dtype, q, k, v, o, dout, lse, delta, dq, B, H, KV, S,
+  return static_cast<int>(f(dtype, q, k, v, o, dout, lse, delta, dq, B, H, KV, S, Sk,
                             views_from(strides), scale, causal, dim3(grid_x, grid_y, grid_z),
                             smem, static_cast<cudaStream_t>(stream)));
 }
 
 // Backward, second kernel (after flash_attention_bwd_dq on the same
-// stream, whose delta it reads): dk and dv.
+// stream, whose delta it reads): dk and dv, a block per key tile of Sk.
 extern "C" int flash_attention_bwd_dkdv(int dtype, int D, const void* q, const void* k,
                                         const void* v, const void* dout, const void* lse,
                                         const void* delta, void* dk, void* dv, int B, int H,
-                                        int KV, int S, const int64_t* strides, float scale,
+                                        int KV, int S, int Sk, const int64_t* strides, float scale,
                                         int causal, int grid_x, int grid_y, int grid_z,
                                         int64_t smem, void* stream) {
-  if (bad_args(dtype, D, B, H, KV, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(dtype, D, B, H, KV, S, Sk, causal)) return static_cast<int>(cudaErrorInvalidValue);
   auto f = D == 64 ? bwd_dkdv<64> : bwd_dkdv<128>;
-  return static_cast<int>(f(dtype, q, k, v, dout, lse, delta, dk, dv, B, H, KV, S,
+  return static_cast<int>(f(dtype, q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk,
                             views_from(strides), scale, causal, dim3(grid_x, grid_y, grid_z),
                             smem, static_cast<cudaStream_t>(stream)));
+}
+
+// B11's decode: q [B,H,1,D] by its (b, h) strides; k and v the FLAT caches
+// [B, Sk, KV*D] by their (b, s) strides, the last dimension contiguous and
+// rows 16-byte aligned; the first n keys count (1 <= n <= Sk).  o is
+// [B, 1, H*D] contiguous.  rows, chunk and grid (splits, KV x row tiles, B)
+// are flash_attention.py::decode_plan's; any other returns
+// cudaErrorInvalidConfiguration.
+extern "C" int flash_attention_decode(int dtype, int D, const void* q, const void* k,
+                                      const void* v, void* o, int B, int H, int KV, int n,
+                                      int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_ss,
+                                      int64_t v_sb, int64_t v_ss, float scale, int rows,
+                                      int chunk, int grid_x, int grid_y, int grid_z,
+                                      void* stream) {
+  if (bad_args(dtype, D, B, H, KV, 1, 1, 0) || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int g = H / KV;
+  if (rows != dec::rows_for(g) || grid_y != KV * ((g + rows - 1) / rows) || grid_z != B ||
+      grid_x < 1 || grid_x > 8 || chunk < 1 || static_cast<int64_t>(chunk) * grid_x < n ||
+      static_cast<int64_t>(chunk) * (grid_x - 1) >= n)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(grid_x, grid_y, grid_z);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float sl = scale * kLog2e;
+  if (dtype == 1)
+    return static_cast<int>((D == 64 ? dec::launch_rows<__nv_bfloat16, 64>
+                                     : dec::launch_rows<__nv_bfloat16, 128>)(
+        rows, q, k, v, o, H, KV, n, chunk, q_sb, q_sh, k_sb, k_ss, v_sb, v_ss, sl, grid, st));
+  return static_cast<int>((D == 64 ? dec::launch_rows<float, 64> : dec::launch_rows<float, 128>)(
+      rows, q, k, v, o, H, KV, n, chunk, q_sb, q_sh, k_sb, k_ss, v_sb, v_ss, sl, grid, st));
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -14,6 +14,13 @@ bf16 on wgmma fed by TMA) takes the forward's output and its row
 log-sum-exp (``lse=True``) and returns the gradients laid out like q, k
 and v; ``bwd_plans`` are its launch plans.  ``ops.flash_attention_op``
 wires both into autograd.
+
+Port-only B11 is the same library at keys of a length of their own:
+``cross_attention`` and ``cross_attention_bwd`` (k, v [B, KV, Sk, d],
+non-causal: whisper's decoder over its encoder's frames) launch the same
+entry points and count apart from B2's; ``flash_decode`` (one query a row
+against the FLAT [B, Sk, KV*d] caches, read in place, the keys split over
+a thread-block cluster) is its decode form, planned by ``decode_plan``.
 """
 
 from __future__ import annotations
@@ -35,6 +42,10 @@ HEAD_DIMS = (64, 128)
 launches = 0  # forward
 bwd_dq_launches = 0
 bwd_dkdv_launches = 0
+cross_launches = 0  # B11: the same kernels at keys of their own length
+cross_bwd_dq_launches = 0
+cross_bwd_dkdv_launches = 0
+decode_launches = 0  # B11's decode
 
 BLOCK_Q = 64  # query rows per block, both templates
 
@@ -68,25 +79,28 @@ def dq_warpgroups(S: int) -> int:
     return 2 if S > 256 else 1
 
 
-def dkdv_warpgroups(S: int, d: int) -> int:
-    """Consumer warpgroups (64 keys each) of a bf16 dkdv block; one at d = 128,
-    where the dK and dV accumulators alone are 128 f32 registers a thread."""
-    return 2 if S > 256 and d == 64 else 1
+def dkdv_warpgroups(Sk: int, d: int) -> int:
+    """Consumer warpgroups (64 keys each) of a bf16 dkdv block, by the key length it
+    tiles; one at d = 128, where the dK and dV accumulators alone are 128 f32
+    registers a thread."""
+    return 2 if Sk > 256 and d == 64 else 1
 
 
-def bwd_plans(B: int, H: int, KV: int, S: int, d: int, dtype: torch.dtype):
-    """(dq plan, dkdv plan) of the backward kernels (no CUDA needed).
+def bwd_plans(B: int, H: int, KV: int, S: int, d: int, dtype: torch.dtype, Sk: int | None = None):
+    """(dq plan, dkdv plan) of the backward kernels (no CUDA needed); ``Sk``: the
+    keys' length (None: S).
 
-    dq: one block per (query head, row tile), grid (H, row tiles, B).
-    dkdv: one block per (KV head, key tile), grid (key tiles, KV, B).
+    dq: one block per (query head, row tile of S), grid (H, row tiles, B).
+    dkdv: one block per (KV head, key tile of Sk), grid (key tiles, KV, B).
     bf16 blocks are 64-row consumer warpgroups plus one producer warp:
-    two warpgroups (128-row dq tiles; 128-key dkdv tiles at d = 64) past
-    S = 256, one below, so that the GRPO shape still fills the card.
+    two warpgroups (128-row dq tiles past S = 256; 128-key dkdv tiles at d
+    = 64 past Sk = 256), one below, so that the GRPO shape still fills the card.
     """
+    Sk = S if Sk is None else Sk
     if dtype == torch.bfloat16:
         stages = 3 if d == 64 else 2
         bars = 8 * (1 + 2 * stages)  # mbarriers: resident tiles, full[stages], empty[stages]
-        wq, wk = dq_warpgroups(S), dkdv_warpgroups(S, d)
+        wq, wk = dq_warpgroups(S), dkdv_warpgroups(Sk, d)
         bq, bk = 64 * wq, 64 * wk
         # 1024 bytes of alignment slack; swizzled bf16 tiles of d columns (2 bytes each).
         # dq: Q and dO of bq rows, a ring of 64-key K and V tiles, 16 f32 D values per warp.
@@ -94,14 +108,46 @@ def bwd_plans(B: int, H: int, KV: int, S: int, d: int, dtype: torch.dtype):
         # dkdv: K and V of bk keys, a ring of 64-row Q and dO tiles with their f32 lse and D.
         dkdv = 1024 + 2 * 2 * bk * d + stages * (2 * 2 * 64 * d + 2 * 4 * 64) + bars
         return (LaunchPlan("wgmma", bq, 64, 128 * wq + 32, (H, -(-S // bq), B), dq, stages),
-                LaunchPlan("wgmma", 64, bk, 128 * wk + 32, (-(-S // bk), KV, B), dkdv, stages))
+                LaunchPlan("wgmma", 64, bk, 128 * wk + 32, (-(-Sk // bk), KV, B), dkdv, stages))
     # f32 FMAs, 32-row streamed tiles.  dq: 64 rows a block; Q, dO (rows d+4), K, V
     # (rows d+1), dS (rows 36).  dkdv: 32 keys a block; K, V (rows d+4), Q, dO
     # (rows d+1), P, dS, lse, D.
     dq = 4 * (2 * BLOCK_Q * (d + 4) + 2 * 32 * (d + 1) + BLOCK_Q * 36)
     dkdv = 4 * (2 * 32 * (d + 4) + 2 * 32 * (d + 1) + 2 * 32 * 36 + 2 * 32)
     return (LaunchPlan("fma", BLOCK_Q, 32, 128, (H, -(-S // BLOCK_Q), B), dq),
-            LaunchPlan("fma", 32, 32, 128, (-(-S // 32), KV, B), dkdv))
+            LaunchPlan("fma", 32, 32, 128, (-(-Sk // 32), KV, B), dkdv))
+
+
+DECODE_WARPS = 4
+DECODE_MAX_SPLITS = 8  # the portable thread-block cluster size
+DECODE_KEYS_PER_SPLIT = 128  # fewest keys worth a block of their own
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How one ``flash_decode`` call is launched; the kernel refuses any other."""
+
+    rows: int  # query rows a block takes: g where it is 1 or 2, else tiles of 4
+    splits: int  # blocks (one cluster) sharing a (row, KV head, row tile)'s keys
+    chunk: int  # keys a split takes
+    threads: int
+    grid: Tuple[int, int, int]  # (splits, KV x row tiles, B)
+    smem_bytes: int  # static: each warp's partial max, sum and P V per row
+
+
+def decode_plan(B: int, H: int, KV: int, n: int, d: int) -> DecodePlan:
+    """The decode kernel's plan over ``n`` keys (no CUDA needed): as many splits as
+    give four blocks an SM, at most a cluster's 8 and no fewer than 128 keys each."""
+    g = H // KV
+    rows = 1 if g == 1 else 2 if g == 2 else 4
+    tiles = -(-g // rows)
+    pairs = B * KV * tiles
+    splits = max(1, min(DECODE_MAX_SPLITS, -(-n // DECODE_KEYS_PER_SPLIT),
+                        -(-DECODE_WARPS * _build.NUM_SMS // pairs)))
+    chunk = -(-n // splits)
+    splits = -(-n // chunk)  # no split without a key
+    return DecodePlan(rows, splits, chunk, 32 * DECODE_WARPS, (splits, KV * tiles, B),
+                      4 * DECODE_WARPS * rows * (2 + d))
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,14 +155,16 @@ def _entries():
     lib = _build.load("flash_attention")
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     fwd = lib.flash_attention_fwd
-    fwd.argtypes = [i, i, p, p, p, p, p, i, i, i, i] + [i64] * 12 + [f, i, i, i, i, i64, p]
+    fwd.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i] + [i64] * 12 + [f, i, i, i, i, i64, p]
     # dq: q k v o dout lse delta dq; dkdv: q k v dout lse delta dk dv
     bwd = (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkdv)
     for fn in bwd:
-        fn.argtypes = [i, i] + [p] * 8 + [i, i, i, i, p, f, i, i, i, i, i64, p]
-    for fn in (fwd, *bwd):
+        fn.argtypes = [i, i] + [p] * 8 + [i, i, i, i, i, p, f, i, i, i, i, i64, p]
+    dec = lib.flash_attention_decode
+    dec.argtypes = [i, i, p, p, p, p, i, i, i, i] + [i64] * 6 + [f, i, i, i, i, i, p]
+    for fn in (fwd, *bwd, dec):
         fn.restype = ctypes.c_int
-    return fwd, *bwd
+    return fwd, *bwd, dec
 
 
 def _check_layout(name: str, t: torch.Tensor) -> None:
@@ -133,56 +181,79 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
 
 def flash_attention(
     q: torch.Tensor,  # [B, H, S, d]
-    k: torch.Tensor,  # [B, KV, S, d]
-    v: torch.Tensor,  # [B, KV, S, d]
+    k: torch.Tensor,  # [B, KV, Sk, d]
+    v: torch.Tensor,  # [B, KV, Sk, d]
     *,
     causal: bool = True,
     lse: bool = False,
 ):
-    """GQA attention forward; out [B, H, S, d] in q.dtype, laid out like q.
+    """GQA attention forward (B2); out [B, H, S, d] in q.dtype, laid out like q.
 
     With ``lse`` it returns (out, lse [B, H, S] f32), the natural-log
     log-sum-exp of each row's scaled scores, which the backward needs.
+    Keys of their own length (Sk != S) are taken non-causal only.
     """
     global launches
-    _check_args(q, k, v)
+    out, row_lse, launched = _forward(q, k, v, causal, lse)
+    launches += launched
+    return (out, row_lse) if lse else out
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, lse: bool = False):
+    """B11: ``flash_attention`` non-causal over k, v [B, KV, Sk, d] of any length,
+    counted apart from B2's launches."""
+    global cross_launches
+    out, row_lse, launched = _forward(q, k, v, False, lse)
+    cross_launches += launched
+    return (out, row_lse) if lse else out
+
+
+def _forward(q, k, v, causal: bool, lse: bool):
+    """-> (out, lse or None, 1 if the kernel launched else 0)."""
+    _check_args(q, k, v, causal)
     B, H, S, d = q.shape
     out = torch.empty_like(q)  # keeps q's layout: a [B,S,H,d] view gives a [B,S,H,d] buffer
     row_lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if lse else None
     if B * H * S == 0:
-        return (out, row_lse) if lse else out
+        return out, row_lse, 0
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_layout(name, t)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     plan = launch_plan(B, H, S, d, q.dtype)
     err = _entries()[0](DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), row_lse.data_ptr() if lse else None, B, H, k.shape[1], S,
-                        *strides, 1.0 / math.sqrt(d), int(causal), *plan.grid, plan.smem_bytes,
-                        torch.cuda.current_stream().cuda_stream)
-    launches += 1
+                        k.shape[2], *strides, 1.0 / math.sqrt(d), int(causal), *plan.grid,
+                        plan.smem_bytes, torch._C._cuda_getCurrentRawStream(q.device.index))
     _build.check("flash_attention", err)
-    return (out, row_lse) if lse else out
+    return out, row_lse, 1
 
 
 def flash_attention_bwd(
     q: torch.Tensor,  # [B, H, S, d]
-    k: torch.Tensor,  # [B, KV, S, d]
-    v: torch.Tensor,  # [B, KV, S, d]
+    k: torch.Tensor,  # [B, KV, Sk, d]
+    v: torch.Tensor,  # [B, KV, Sk, d]
     out: torch.Tensor,  # [B, H, S, d], the forward's
     lse: torch.Tensor,  # [B, H, S] f32, the forward's
     dout: torch.Tensor,  # [B, H, S, d]
     *,
     causal: bool = True,
+    cross: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv), each laid out like q, k and v: the dq kernel, then the dkdv kernel."""
+    """(dq, dk, dv), each laid out like q, k and v: the dq kernel, then the dkdv kernel
+    (``cross``: counted as B11's)."""
     try:
         _check_layout("dout", dout)
         if 0 in dout.stride():  # a broadcast gradient: no tensor map takes a zero stride
             dout = dout.contiguous()
     except ValueError:  # the kernels read 16-byte rows
         dout = dout.contiguous()
-    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=causal)
-    return (dq, *flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal))
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=causal, cross=cross)
+    return (dq, *flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal, cross=cross))
+
+
+def cross_attention_bwd(q, k, v, out, lse, dout):
+    """B11's backward: ``flash_attention_bwd`` of ``cross_attention``."""
+    return flash_attention_bwd(q, k, v, out, lse, dout, causal=False, cross=True)
 
 
 def stats_row(S: int) -> int:
@@ -190,15 +261,15 @@ def stats_row(S: int) -> int:
     return -(-S // 4) * 4
 
 
-def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True):
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True, cross: bool = False):
     """-> (dq laid out like q, stats [2, B, H, stats_row(S)] f32).
 
     stats[0, ..., :S] is delta = rowsum(dout * out); stats[1] holds the lse
     times log2(e) for the bf16 dkdv kernel's TMA loads (f32 leaves it unused).
     """
-    global bwd_dq_launches
+    global bwd_dq_launches, cross_bwd_dq_launches
     B, H, S, d = q.shape
-    _check_args(q, k, v)
+    _check_args(q, k, v, causal)
     if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape):
         raise ValueError(f"out and dout must be {tuple(q.shape)}: {tuple(out.shape)}, {tuple(dout.shape)}")
     if out.dtype != q.dtype or dout.dtype != q.dtype or out.device != q.device or dout.device != q.device:
@@ -210,22 +281,25 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True):
         return dq, delta
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout), ("dq", dq)):
         _check_layout(name, t)
-    plan = bwd_plans(B, H, k.shape[1], S, d, q.dtype)[0]
+    plan = bwd_plans(B, H, k.shape[1], S, d, q.dtype, k.shape[2])[0]
     err = _entries()[1](DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                        dq.data_ptr(), B, H, k.shape[1], S, _strides(q, k, v, out, dout, dq),
-                        1.0 / math.sqrt(d), int(causal), *plan.grid, plan.smem_bytes,
-                        torch.cuda.current_stream().cuda_stream)
-    bwd_dq_launches += 1
+                        dq.data_ptr(), B, H, k.shape[1], S, k.shape[2],
+                        _strides(q, k, v, out, dout, dq), 1.0 / math.sqrt(d), int(causal),
+                        *plan.grid, plan.smem_bytes, torch._C._cuda_getCurrentRawStream(q.device.index))
+    if cross:
+        cross_bwd_dq_launches += 1
+    else:
+        bwd_dq_launches += 1
     _build.check("flash_attention", err)
     return dq, delta
 
 
-def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal: bool = True):
+def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal: bool = True, cross: bool = False):
     """-> (dk, dv) laid out like k and v; ``delta``: the stats of ``flash_attention_bwd_dq``."""
-    global bwd_dkdv_launches
+    global bwd_dkdv_launches, cross_bwd_dkdv_launches
     B, H, S, d = q.shape
-    _check_args(q, k, v)
+    _check_args(q, k, v, causal)
     _check_lse(lse, B, H, S)
     if tuple(delta.shape) != (2, B, H, stats_row(S)) or delta.dtype != torch.float32 \
             or not delta.is_contiguous():
@@ -235,16 +309,46 @@ def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal: bool = True):
         return dk, dv
     for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout), ("dk", dk), ("dv", dv)):
         _check_layout(name, t)
-    plan = bwd_plans(B, H, k.shape[1], S, d, q.dtype)[1]
+    plan = bwd_plans(B, H, k.shape[1], S, d, q.dtype, k.shape[2])[1]
     err = _entries()[2](DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                        dv.data_ptr(), B, H, k.shape[1], S,
+                        dv.data_ptr(), B, H, k.shape[1], S, k.shape[2],
                         _strides(q, k, v, dout, dout, dout, dk, dv), 1.0 / math.sqrt(d),
                         int(causal), *plan.grid, plan.smem_bytes,
-                        torch.cuda.current_stream().cuda_stream)
-    bwd_dkdv_launches += 1
+                        torch._C._cuda_getCurrentRawStream(q.device.index))
+    if cross:
+        cross_bwd_dkdv_launches += 1
+    else:
+        bwd_dkdv_launches += 1
     _build.check("flash_attention", err)
     return dk, dv
+
+
+def flash_decode(
+    q: torch.Tensor,  # [B, H, 1, d], any strides with a contiguous d
+    k_cache: torch.Tensor,  # FLAT [B, Sk, KV*d]
+    v_cache: torch.Tensor,  # FLAT [B, Sk, KV*d]
+    n: int,
+) -> torch.Tensor:
+    """B11's decode: one query a row against the first ``n`` keys of the FLAT caches,
+    read in place in their own dtype -> out [B, 1, H*d] in q.dtype, the layout ``wo``
+    takes."""
+    global decode_launches
+    _check_decode(q, k_cache, v_cache, n)
+    B, H, _, d = q.shape
+    KV = k_cache.shape[2] // d
+    out = torch.empty((B, 1, H * d), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    plan = decode_plan(B, H, KV, n, d)
+    err = _entries()[3](DTYPES[q.dtype], d, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                        out.data_ptr(), B, H, KV, n, q.stride(0), q.stride(1), k_cache.stride(0),
+                        k_cache.stride(1), v_cache.stride(0), v_cache.stride(1), 1.0 / math.sqrt(d),
+                        plan.rows, plan.chunk, *plan.grid,
+                        torch._C._cuda_getCurrentRawStream(q.device.index))
+    decode_launches += 1
+    _build.check("flash_attention", err)
+    return out
 
 
 def _strides(q, k, v, out, dout, dq, dk=None, dv=None):
@@ -258,23 +362,54 @@ def _check_lse(t: torch.Tensor, B: int, H: int, S: int) -> None:
         raise ValueError(f"lse must be contiguous [{B},{H},{S}] float32")
 
 
-def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
     """Raise on anything the kernels do not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention takes q [B,H,S,d] and k, v [B,KV,S,d]")
+        raise ValueError("flash_attention takes q [B,H,S,d] and k, v [B,KV,Sk,d]")
     B, H, S, d = q.shape
-    KV = k.shape[1]
-    if tuple(k.shape) != (B, KV, S, d) or tuple(v.shape) != (B, KV, S, d):
-        raise ValueError(f"k, v must be [{B},KV,{S},{d}], got {tuple(k.shape)}, {tuple(v.shape)}")
+    KV, Sk = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, KV, Sk, d) or tuple(v.shape) != (B, KV, Sk, d):
+        raise ValueError(f"k, v must be [{B},KV,Sk,{d}], got {tuple(k.shape)}, {tuple(v.shape)}")
+    if causal and Sk != S:
+        raise ValueError(f"causal attention masks by the sequence index: keys {Sk} must be q's {S}")
+    if S > 0 and Sk == 0:
+        raise ValueError("flash_attention needs at least one key")
+    _check_heads(H, KV, d, q, k, v)
+    if -(-S // BLOCK_Q) > 65535:
+        raise ValueError(f"grid limit: ceil(S/{BLOCK_Q}) must be <= 65535")
+
+
+def _check_heads(H: int, KV: int, d: int, *ts: torch.Tensor) -> None:
+    """Heads, head dim, dtype and device, as both entry points take them."""
     if KV == 0 or H % KV:
         raise ValueError(f"query heads {H} must be a multiple of kv heads {KV}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dim {HEAD_DIMS}, got {d}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes one of {list(DTYPES)}: {q.dtype}/{k.dtype}/{v.dtype}")
-    if B > 65535 or H > 65535 or -(-S // BLOCK_Q) > 65535:
-        raise ValueError(f"grid limit: B={B}, H={H}, ceil(S/{BLOCK_Q}) must be <= 65535")
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention kernel needs CUDA tensors on one device, got {q.device}")
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"flash_attention: {q.device} is not the current CUDA device")
+    if ts[0].dtype not in DTYPES or any(t.dtype != ts[0].dtype for t in ts):
+        raise TypeError(f"flash_attention takes one of {list(DTYPES)}: {[t.dtype for t in ts]}")
+    if ts[0].shape[0] > 65535 or H > 65535:
+        raise ValueError(f"grid limit: B={ts[0].shape[0]}, H={H} must be <= 65535")
+    dev = ts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError(f"flash_attention kernel needs CUDA tensors on one device, got {dev}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"flash_attention: {dev} is not the current CUDA device")
+
+
+def _check_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n: int) -> None:
+    """Raise on anything the decode kernel does not take."""
+    if q.dim() != 4 or q.shape[2] != 1 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"flash_decode takes q [B,H,1,d] and FLAT caches [B,Sk,KV*d]: "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, _, d = q.shape
+    if k.shape[0] != B or k.shape[2] % d:
+        raise ValueError(f"caches {tuple(k.shape)} must be [{B}, Sk, KV*{d}]")
+    if not 1 <= n <= k.shape[1]:
+        raise ValueError(f"flash_decode attends 1..{k.shape[1]} keys, got {n}")
+    _check_heads(H, k.shape[2] // d, d, q, k, v)
+    per16 = 16 // q.element_size()  # 16-byte loads of each row's head slice
+    for name, t, strides in (("q", q, q.stride()[:2]), ("k_cache", k, k.stride()[:2]),
+                             ("v_cache", v, v.stride()[:2])):
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % per16 for s in strides):
+            raise ValueError(f"flash_decode: {name} rows must be contiguous and start 16-byte "
+                             f"aligned (strides {t.stride()}, {t.dtype})")

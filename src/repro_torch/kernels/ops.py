@@ -8,7 +8,10 @@ is the kernel's backward kernels (rmsnorm: dx and dweight; flash
 attention: dq and dk/dv; moe_matmul: dbuf and dw; ssd_intra_chunk: dx and
 f32 partials, then their reduce).  ``adamw_update_`` is the optimizer's step
 over every leaf, in place (B9: the norm's partials, their finish, the update).
-Each kernel module counts its launches; ``launch_counts`` reads them.
+``cross_attention_op`` and ``decode_attention_op`` are B11: attention over
+keys of their own length (forward and backward) and its one-token decode
+over FLAT caches.  Each kernel module counts its launches; ``launch_counts``
+reads them.
 """
 
 from __future__ import annotations
@@ -87,6 +90,18 @@ class _FlashAttention(torch.autograd.Function):
         return (*_flash.flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal), None)
 
 
+class _CrossAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = _flash.cross_attention(q, k, v, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return _flash.cross_attention_bwd(*ctx.saved_tensors, dout)
+
+
 def rmsnorm_op(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last dim; leading dims are flattened into rows."""
     shape = x.shape
@@ -109,6 +124,27 @@ def flash_attention_op(
     if _wants_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal)
     return _flash.flash_attention(q, k, v, causal=causal)
+
+
+def cross_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal GQA attention over keys of their own length (B11): q [B,H,S,d],
+    k/v [B,KV,Sk,d] -> [B,H,S,d]; on CUDA any strides with a contiguous d."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=False)
+    if _wants_grad(q, k, v):
+        return _CrossAttention.apply(q, k, v)
+    return _flash.cross_attention(q, k, v)
+
+
+def decode_attention_op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                        n: int) -> torch.Tensor:
+    """One query a row, q [B,H,1,d], against the first ``n`` keys of the FLAT caches
+    [B,Sk,KV*d] -> [B,1,H*d] (B11's decode; no gradient on CUDA: serving only)."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k_cache, v_cache, n)
+    if _wants_grad(q, k_cache, v_cache):
+        raise NotImplementedError("the decode kernel has no backward: decode_attention serves only")
+    return _flash.flash_decode(q, k_cache, v_cache, n)
 
 
 def moe_matmul_op(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -170,6 +206,10 @@ _COUNTERS = {
     "flash_attention": (_flash, "launches"),
     "flash_attention_bwd_dq": (_flash, "bwd_dq_launches"),
     "flash_attention_bwd_dkdv": (_flash, "bwd_dkdv_launches"),
+    "cross_attention": (_flash, "cross_launches"),
+    "cross_attention_bwd_dq": (_flash, "cross_bwd_dq_launches"),
+    "cross_attention_bwd_dkdv": (_flash, "cross_bwd_dkdv_launches"),
+    "flash_decode": (_flash, "decode_launches"),
     "moe_matmul": (_moe, "launches"),
     "moe_matmul_bwd_dbuf": (_moe, "bwd_dbuf_launches"),
     "moe_matmul_bwd_dw": (_moe, "bwd_dw_launches"),

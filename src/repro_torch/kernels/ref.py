@@ -18,11 +18,12 @@ NEG_INF = -1e30
 
 def flash_attention_ref(
     q: torch.Tensor,  # [B, H, S, d]
-    k: torch.Tensor,  # [B, KV, S, d]
-    v: torch.Tensor,  # [B, KV, S, d]
+    k: torch.Tensor,  # [B, KV, Sk, d]
+    v: torch.Tensor,  # [B, KV, Sk, d]
     causal: bool = True,
 ) -> torch.Tensor:
-    """GQA attention: query head h reads kv head h // (H // KV).
+    """GQA attention: query head h reads kv head h // (H // KV); the keys may have
+    a length of their own (B11, cross-attention), non-causal.
 
     Scores and softmax are f32 (the products of two bf16 values are exact
     in f32); the weights are cast to ``v.dtype`` before P·V, as the JAX
@@ -31,6 +32,8 @@ def flash_attention_ref(
     B, H, S, d = q.shape
     KV = k.shape[1]
     g = H // KV
+    if causal and k.shape[2] != S:
+        raise ValueError(f"causal attention masks by the sequence index: keys {k.shape[2]} must be q's {S}")
     qg = q.reshape(B, KV, g, S, d).float()
     scores = torch.einsum("bngqd,bnkd->bngqk", qg, k.float()) / math.sqrt(d)
     if causal:
@@ -39,6 +42,25 @@ def flash_attention_ref(
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bngqk,bnkd->bngqd", w.to(v.dtype), v)
     return out.reshape(B, H, S, d).to(q.dtype)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,  # [B, H, 1, d]
+    k_cache: torch.Tensor,  # FLAT [B, Sk, KV*d]
+    v_cache: torch.Tensor,  # FLAT [B, Sk, KV*d]
+    n: int,
+) -> torch.Tensor:
+    """One query a row against the first ``n`` keys of the FLAT caches -> [B, 1, H*d]:
+    what ``layers.decode_attention`` computes over a cache it does not update (f32
+    scores and softmax, the weights rounded to q's type before P·V)."""
+    B, H, _, d = q.shape
+    KV = k_cache.shape[2] // d
+    k = k_cache[:, :n].reshape(B, n, KV, d)
+    v = v_cache[:, :n].reshape(B, n, KV, d)
+    qg = q.reshape(B, KV, H // KV, 1, d)
+    scores = torch.einsum("bngqd,bknd->bngqk", qg.float(), k.float()) / math.sqrt(d)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bngqk,bknd->bqngd", w, v).reshape(B, 1, H * d)
 
 
 def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

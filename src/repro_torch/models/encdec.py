@@ -5,10 +5,10 @@ front end is a stub, as in the JAX package: inputs are precomputed frame
 embeddings ``[B, S_enc, D]``.  The encoder is a non-causal transformer
 (RoPE on its self-attention, through the flash kernel's non-causal mode);
 the decoder adds cross-attention to the encoder output
-(``layers.cross_attention``, plain PyTorch: no kernel of the repository
-takes keys of their own length).  Decoding runs one token against a
-self-attention cache and the fixed cross-attention caches that prefill
-fills.
+(``layers.cross_attention``: B11, the flash kernels with keys of their own
+length).  Decoding runs one token against a self-attention cache and the
+fixed cross-attention caches that prefill fills (B11's decode kernel reads
+those in place).
 
 In training each encoder and decoder layer is rematerialised as JAX's
 ``cfg.remat`` does it (``layers.remat_layer``).

@@ -3,11 +3,12 @@
 Torch twins of ``repro.models.layers`` as plain functions on tensors.
 Parameters are described by :class:`ParamDef` schemas and held in a
 :class:`ParamTree` module whose ``state_dict`` keys are the JAX path keys
-with ``/`` replaced by ``.``.  RMSNorm and full-sequence attention go
-through ``kernels.ops``: the hand-written CUDA kernels on the card, the
-plain versions on the CPU.  Cross-attention (keys of their own length)
-and one-token decode are plain PyTorch, as the JAX package computes them
-in XLA.
+with ``/`` replaced by ``.``.  RMSNorm, full-sequence attention,
+cross-attention (keys of their own length) and one-token decode over a
+cache it does not update go through ``kernels.ops``: the hand-written CUDA
+kernels on the card, the plain versions on the CPU.  Self-attention decode
+and a decode whose cache rows are split over ranks stay plain PyTorch, as
+the JAX package computes them in XLA.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.sharding.rules import block_of, is_dtensor
 
-# torch.profiler range around the cross-attention's own work (scores, softmax, P.V; not its
-# projections), so that a trace can tell its device time apart
+# torch.profiler range around the cross-attention's own work (scores, softmax, P.V: B11's
+# kernels on the card; not its projections), so that a trace can tell its device time apart
 CROSS_ATTENTION_RANGE = "cross_attention"
 
 
@@ -499,22 +500,27 @@ def cross_attention(
     positions: torch.Tensor,  # [B, S]: the causal mask's query positions
     causal: bool = False,
 ) -> torch.Tensor:
-    """GQA attention over keys of their own length -> [B, S, H*hd], in plain PyTorch.
+    """GQA attention over keys of their own length -> [B, S, H*hd].
 
-    As the JAX package computes it (repro/models/layers.py:190-209, in XLA):
-    f32 scores, f32 softmax, weights rounded to q's type before P.V.  No
-    kernel of the repository computes it: the TPU flash kernel reads K and
-    V of q's own length (ROADMAP B queues a flash variant with a key
-    length of its own).
+    What the JAX package computes in XLA (repro/models/layers.py:190-209):
+    f32 scores and softmax, the weights rounded to q's type before P.V.
+    Non-causal, as every entry point calls it, it is B11
+    (``ops.cross_attention_op``: on the card the flash kernels with a key
+    length of their own, forward and backward, which round the unnormalised
+    weights to bf16 as B2 does).  ``causal`` (key j seen from position
+    ``positions[b, i]`` where j <= it), an option of JAX's that no entry
+    point passes, stays plain PyTorch.
     """
     B, S, h, hd = q.shape
     kv = k.shape[2]
     with profiler_range(CROSS_ATTENTION_RANGE):
+        if not causal:
+            out = ops.cross_attention_op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+            return out.transpose(1, 2).reshape(B, S, h * hd)
         qg = q.reshape(B, S, kv, h // kv, hd)
         scores = torch.einsum("bqngd,bknd->bngqk", qg.float(), k.float()) / math.sqrt(hd)
-        if causal:
-            kpos = torch.arange(k.shape[1], device=q.device)
-            scores = scores.masked_fill((kpos > positions[:, :, None])[:, None, None], NEG_INF)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        scores = scores.masked_fill((kpos > positions[:, :, None])[:, None, None], NEG_INF)
         w = torch.softmax(scores, dim=-1).to(q.dtype)
         return torch.einsum("bngqk,bknd->bqngd", w, v).reshape(B, S, h * hd)
 
@@ -539,8 +545,11 @@ def decode_attention(
     the same for the whole batch; ``rope`` is its ``rope_cos_sin``, if the
     caller has it.  Cache entries past ``pos`` are masked.
     ``update_cache=False`` (cross-attention) writes nothing, reads the caches
-    as given and attends inside the ``CROSS_ATTENTION_RANGE`` profiler range;
-    ``use_rope=False`` leaves q (and the new K row) unrotated.
+    as given and attends inside the ``CROSS_ATTENTION_RANGE`` profiler range,
+    where the rows are whole and no window applies through B11's decode
+    kernel (``ops.decode_attention_op``: the caches read in place, in their
+    own dtype; P.V in f32); ``use_rope=False`` leaves q (and the new K row)
+    unrotated.
     Departure from JAX: the new K/V row is written into the caches IN PLACE
     (JAX returns updated copies, repro/models/layers.py:306-311), and a
     write at a ``pos`` outside the cache raises where JAX clamps it.
@@ -598,19 +607,23 @@ def decode_attention(
                     v_att = v_att[:, start : start + sliding_window]
                     r0 = start
             n = k_att.shape[1]
-            kpos = r0 + torch.arange(n, device=xl.device)
-            masked = kpos > pos
-            if window and blk.seq_dims:
-                masked |= (kpos < start) | (kpos >= start + sliding_window)
-            qg = q.reshape(B, 1, kv, g, hd)
-            k_att, v_att = k_att.reshape(B, n, kv, hd), v_att.reshape(B, n, kv, hd)
-            scores = torch.einsum("bqngd,bknd->bngqk", qg.float(), k_att.float()) / math.sqrt(hd)
-            scores = scores.masked_fill(masked, NEG_INF)
-            if blk.seq_dims:
-                out = _combine_rows(scores, v_att, blk.seq_dims, rules, xl.dtype)
+            if not update_cache and not window and not blk.seq_dims:
+                # keys [0, pos] of the whole rows, the FLAT caches read in place
+                out = ops.decode_attention_op(q.transpose(1, 2), k_att, v_att, min(pos + 1, n))
             else:
-                w = torch.softmax(scores, dim=-1).to(xl.dtype)
-                out = torch.einsum("bngqk,bknd->bqngd", w, v_att)
+                kpos = r0 + torch.arange(n, device=xl.device)
+                masked = kpos > pos
+                if window and blk.seq_dims:
+                    masked |= (kpos < start) | (kpos >= start + sliding_window)
+                qg = q.reshape(B, 1, kv, g, hd)
+                k_att, v_att = k_att.reshape(B, n, kv, hd), v_att.reshape(B, n, kv, hd)
+                scores = torch.einsum("bqngd,bknd->bngqk", qg.float(), k_att.float()) / math.sqrt(hd)
+                scores = scores.masked_fill(masked, NEG_INF)
+                if blk.seq_dims:
+                    out = _combine_rows(scores, v_att, blk.seq_dims, rules, xl.dtype)
+                else:
+                    w = torch.softmax(scores, dim=-1).to(xl.dtype)
+                    out = torch.einsum("bngqk,bknd->bqngd", w, v_att)
             out = out.reshape(B, 1, h * hd)
         if not sharded:
             return out @ params["wo"]

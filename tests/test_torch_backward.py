@@ -429,13 +429,16 @@ def _backward_kernels(fname, args):
         return names + (["rmsnorm_bwd_dweight"] if w.requires_grad else [])
     if fname == "flash_attention_op":
         return ["flash_attention_bwd_dq", "flash_attention_bwd_dkdv"]
+    if fname == "cross_attention_op":
+        return ["cross_attention_bwd_dq", "cross_attention_bwd_dkdv"]
     if fname == "moe_matmul_op":
         return [n for n, t in zip(("moe_matmul_bwd_dbuf", "moe_matmul_bwd_dw"), args) if t.requires_grad]
     return ["ssd_intra_chunk_bwd", "ssd_intra_chunk_bwd_reduce"]
 
 
 OPS = {"rmsnorm_op": "rmsnorm", "flash_attention_op": "flash_attention",
-       "moe_matmul_op": "moe_matmul", "ssd_intra_chunk_op": "ssd_intra_chunk"}
+       "moe_matmul_op": "moe_matmul", "ssd_intra_chunk_op": "ssd_intra_chunk",
+       "cross_attention_op": "cross_attention"}
 
 
 def wide_hymba():

@@ -1,0 +1,342 @@
+"""B11 on the CPU: attention over keys of their own length, and its decode form.
+
+The plain versions that ``kernels.ops`` runs for CPU tensors (and that
+``chip_smoke.py`` holds the CUDA kernels against on the card) against the
+JAX package on the same numpy inputs:
+
+- the cross-attention forward through ``layers.multihead_attention(
+  kv_override=..., causal=False, use_rope=False)`` on both sides, over
+  Sk in {1, S, S + 37, 3 S} and GQA g in {1, 2}: 2e-5 in f32, 2e-2 in bf16
+  (the reference's attention tolerances, tests/test_kernels.py);
+- the decode over FLAT caches through ``decode_attention(update_cache=False)``
+  at pos = Sk - 1, as whisper's decode step calls it: the same tolerances;
+- the gradients through the layer against ``jax.vjp``: 1e-4 of the
+  reference gradient's largest magnitude (summation order only, f32);
+- the launch plans computed in Python: the forward's grid over S, the
+  backward's dq grid over S and dkdv grid over Sk with warpgroups chosen by
+  each length, and the decode's split of the keys over a cluster;
+- that ``ops`` sends CPU tensors to the plain versions and launches nothing,
+  and that the kernel wrappers refuse CPU tensors and causal attention over
+  keys of another length.
+
+The card's counterparts are in tests/test_torch_gpu.py (marker ``gpu``).
+"""
+
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import ModelConfig as JaxModelConfig
+from repro.models import layers as jl
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import ops, ref
+from repro_torch.models import layers as tl
+
+from _torch_parity import chip_smoke, np32, torch_cfg
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5), "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+S = 8
+
+
+def cfg_pair(heads, kv, dtype="float32", head_dim=64, d_model=128):
+    jcfg = JaxModelConfig(
+        name="cross", family="dense", num_layers=1, d_model=d_model, num_heads=heads,
+        num_kv_heads=kv, d_ff=96, vocab_size=100, head_dim=head_dim, dtype=dtype,
+        rope_theta=10_000.0,
+    )
+    return jcfg, torch_cfg(jcfg)
+
+
+def params(rng, cfg, dtype):
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    shapes = {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd), "wo": (h * hd, d)}
+    p = {k: rng.standard_normal(s, dtype=np.float32) * 0.1 for k, s in shapes.items()}
+    jd, td, _ = DTYPES[dtype]
+    return ({k: jnp.asarray(v, jd) for k, v in p.items()},
+            {k: torch.from_numpy(v).to(td) for k, v in p.items()})
+
+
+def both(a, dtype):
+    jd, td, _ = DTYPES[dtype]
+    return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
+
+
+def close(got, want, tol):
+    np.testing.assert_allclose(np32(got), np32(want), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions against the JAX package
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("Sk", [1, S, S + 37, 3 * S])
+@pytest.mark.parametrize("heads,kv", [(2, 2), (4, 2)])  # g 1 and 2
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_attention_forward_matches_jax(Sk, heads, kv, dtype):
+    jcfg, tcfg = cfg_pair(heads, kv, dtype)
+    rng = np.random.default_rng(Sk * 10 + heads)
+    jp, tp = params(rng, jcfg, dtype)
+    hd = jcfg.resolved_head_dim
+    xj, xt = both(rng.standard_normal((2, S, jcfg.d_model), dtype=np.float32), dtype)
+    kj, kt = both(rng.standard_normal((2, Sk, kv, hd), dtype=np.float32), dtype)
+    vj, vt = both(rng.standard_normal((2, Sk, kv, hd), dtype=np.float32), dtype)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
+    want = jax.jit(lambda p, x, k, v: jl.multihead_attention(
+        p, x, jnp.asarray(pos), jcfg, kv_override=(k, v), causal=False, use_rope=False))(jp, xj, kj, vj)
+    ops.reset_launch_counts()
+    got = tl.multihead_attention(tp, xt, torch.from_numpy(pos), tcfg, kv_override=(kt, vt),
+                                 causal=False, use_rope=False)
+    assert got.dtype == xt.dtype and got.shape == (2, S, jcfg.d_model)
+    assert not any(ops.launch_counts().values())
+    close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("Sk", [1, S, S + 37])
+@pytest.mark.parametrize("heads,kv", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_decode_matches_jax(Sk, heads, kv, dtype):
+    """One token against FLAT caches it does not update, at pos = Sk - 1 (whisper's decode)."""
+    jcfg, tcfg = cfg_pair(heads, kv, dtype)
+    rng = np.random.default_rng(Sk * 7 + heads)
+    jp, tp = params(rng, jcfg, dtype)
+    W = kv * jcfg.resolved_head_dim
+    xj, xt = both(rng.standard_normal((2, 1, jcfg.d_model), dtype=np.float32), dtype)
+    kj, kt = both(rng.standard_normal((2, Sk, W), dtype=np.float32), dtype)
+    vj, vt = both(rng.standard_normal((2, Sk, W), dtype=np.float32), dtype)
+    want, _, _ = jax.jit(lambda *a: jl.decode_attention(*a, jcfg, update_cache=False, use_rope=False))(
+        jp, xj, jnp.asarray(Sk - 1, jnp.int32), kj, vj)
+    got = tl.decode_attention(tp, xt, Sk - 1, (kt, vt), tcfg, update_cache=False, use_rope=False)
+    assert got.dtype == xt.dtype and got.shape == (2, 1, jcfg.d_model)
+    close(got, want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("Sk", [1, S + 37])
+@pytest.mark.parametrize("heads,kv", [(2, 2), (4, 2)])
+def test_cross_attention_grads_match_jax(Sk, heads, kv):
+    """d(x, k, v, wq, wo) of the cross-attention layer against jax.vjp, f32: 1e-4 of the
+    reference gradient's largest magnitude."""
+    jcfg, tcfg = cfg_pair(heads, kv)
+    rng = np.random.default_rng(Sk + heads)
+    jp, tp = params(rng, jcfg, "float32")
+    hd = jcfg.resolved_head_dim
+    x = rng.standard_normal((2, S, jcfg.d_model), dtype=np.float32)
+    k = rng.standard_normal((2, Sk, kv, hd), dtype=np.float32)
+    v = rng.standard_normal((2, Sk, kv, hd), dtype=np.float32)
+    dout = rng.standard_normal((2, S, jcfg.d_model), dtype=np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S)).copy()
+
+    def jfn(x, k, v, wq, wo):
+        p = {**jp, "wq": wq, "wo": wo}
+        return jl.multihead_attention(p, x, jnp.asarray(pos), jcfg, kv_override=(k, v),
+                                      causal=False, use_rope=False)
+
+    want = jax.jit(lambda *a: jax.vjp(jfn, *a)[1](jnp.asarray(dout)))(
+        *(jnp.asarray(a) for a in (x, k, v)), jp["wq"], jp["wo"])
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, k, v)]
+    wq, wo = (tp[n].clone().requires_grad_() for n in ("wq", "wo"))
+    out = tl.multihead_attention({**tp, "wq": wq, "wo": wo}, leaves[0], torch.from_numpy(pos), tcfg,
+                                 kv_override=(leaves[1], leaves[2]), causal=False, use_rope=False)
+    got = torch.autograd.grad(out, [*leaves, wq, wo], torch.from_numpy(dout))
+    for name, g, w in zip(("x", "k", "v", "wq", "wo"), got, want):
+        w = np.asarray(w)
+        err = np.abs(g.numpy() - w).max()
+        assert err <= 1e-4 * np.abs(w).max(), (name, err, np.abs(w).max())
+
+
+def test_plain_cross_attention_is_the_einsum_it_replaces():
+    """ref.flash_attention_ref at Sk != S is what layers.cross_attention computed before
+    B11: f32 scores and softmax, the weights rounded to q's type before P.V (bf16)."""
+    rng = np.random.default_rng(3)
+    B, H, KV, Sk, d = 2, 6, 2, 45, 64
+    q = torch.from_numpy(rng.standard_normal((B, S, H, d), dtype=np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal((B, Sk, KV, d), dtype=np.float32)).bfloat16()
+            for _ in range(2))
+    qg = q.reshape(B, S, KV, H // KV, d)
+    scores = torch.einsum("bqngd,bknd->bngqk", qg.float(), k.float()) / math.sqrt(d)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    einsum = torch.einsum("bngqk,bknd->bqngd", w, v).reshape(B, S, H * d)
+    got = ops.cross_attention_op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    close(got.transpose(1, 2).reshape(B, S, H * d), einsum, 1e-2)  # one bf16 step at most
+    torch.testing.assert_close(got.float(), ref.flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False).float(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 17, 45])
+def test_plain_decode_reads_the_first_n_keys(n):
+    """decode_attention_ref over the first n keys equals the masked softmax over all of them."""
+    rng = np.random.default_rng(n)
+    B, H, KV, Sk, d = 2, 4, 2, 45, 64
+    q = torch.from_numpy(rng.standard_normal((B, H, 1, d), dtype=np.float32))
+    kc, vc = (torch.from_numpy(rng.standard_normal((B, Sk, KV * d), dtype=np.float32)) for _ in range(2))
+    got = ops.decode_attention_op(q, kc, vc, n)
+    qg = q.reshape(B, KV, H // KV, 1, d)
+    scores = torch.einsum("bngqd,bknd->bngqk", qg, kc.view(B, Sk, KV, d)) / math.sqrt(d)
+    scores = scores.masked_fill(torch.arange(Sk) >= n, ref.NEG_INF)
+    want = torch.einsum("bngqk,bknd->bqngd", torch.softmax(scores, -1), vc.view(B, Sk, KV, d))
+    assert got.shape == (B, 1, H * d)
+    close(got, want.reshape(B, 1, H * d), 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# launch plans, decided in Python and checked again by the kernels on the card
+# ---------------------------------------------------------------------------
+
+# (B, H, KV, S, Sk, d): whisper's prefill and training shapes, the chip phases' tails
+CROSS_PLAN_SHAPES = [(4, 16, 16, 128, 1500, 64), (2, 16, 16, 448, 1500, 64), (2, 4, 4, 1, 1500, 64),
+                     (2, 8, 2, 65, 63, 64), (2, 14, 2, 65, 1, 64), (2, 8, 2, 100, 1500, 128),
+                     (2, 2, 2, 300, 200, 64), (2, 2, 2, 200, 300, 64)]
+
+
+@pytest.mark.parametrize("B,H,KV,S,Sk,d", CROSS_PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_launch_plans(B, H, KV, S, Sk, d, dtype):
+    fwd = flash_mod.launch_plan(B, H, S, d, dtype)  # query tiles of S; the key loop runs over Sk
+    assert math.prod(fwd.grid) == H * B * -(-S // 64)
+    dq, dkdv = flash_mod.bwd_plans(B, H, KV, S, d, dtype, Sk)
+    assert dq.grid == (H, -(-S // dq.block_q), B)  # a block per (query head, row tile of S)
+    assert dkdv.grid == (-(-Sk // dkdv.block_k), KV, B)  # a block per (KV head, key tile of Sk)
+    same_q, same_k = (flash_mod.bwd_plans(B, H, KV, n, d, dtype) for n in (S, Sk))
+    assert dq == same_q[0]  # dq is planned by S alone
+    assert (dkdv.block_k, dkdv.threads, dkdv.smem_bytes) == (
+        same_k[1].block_k, same_k[1].threads, same_k[1].smem_bytes)  # dkdv by Sk alone
+    if dtype == torch.bfloat16:
+        assert dq.block_q == 64 * flash_mod.dq_warpgroups(S)
+        assert dkdv.block_k == 64 * flash_mod.dkdv_warpgroups(Sk, d)
+        assert dkdv.block_k == (128 if Sk > 256 and d == 64 else 64)
+    for plan in (fwd, dq, dkdv):
+        assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("B,H,KV,n,d", [(4, 16, 16, 1500, 64), (1, 16, 16, 1500, 64), (4, 16, 4, 1500, 128),
+                                        (2, 14, 2, 777, 64), (4, 32, 8, 100, 128), (2, 2, 2, 1, 64),
+                                        (2, 6, 2, 129, 64), (64, 16, 16, 1500, 64)])
+def test_decode_plan_splits_the_keys_over_a_cluster(B, H, KV, n, d):
+    plan = flash_mod.decode_plan(B, H, KV, n, d)
+    g = H // KV
+    assert plan.rows == (1 if g == 1 else 2 if g == 2 else 4)
+    tiles = -(-g // plan.rows)
+    assert plan.grid == (plan.splits, KV * tiles, B) and plan.threads == 128
+    assert 1 <= plan.splits <= 8  # a portable cluster
+    assert (plan.splits - 1) * plan.chunk < n <= plan.splits * plan.chunk  # every split has keys
+    assert plan.splits == 1 or plan.chunk >= flash_mod.DECODE_KEYS_PER_SPLIT // 2
+    assert plan.smem_bytes == 4 * 4 * plan.rows * (2 + d) <= 48 * 1024  # static shared memory
+    if (B, H, KV, n) == (4, 16, 16, 1500):  # whisper's decode: 64 pairs, 8 splits of 188 keys
+        assert (plan.splits, plan.chunk) == (8, 188)
+        assert math.prod(plan.grid) >= 2 * _build.NUM_SMS
+
+
+# ---------------------------------------------------------------------------
+# routing, refusals, counts
+# ---------------------------------------------------------------------------
+
+
+def test_ops_send_cpu_tensors_to_the_plain_versions():
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, 4, S, 64), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 45, 64), dtype=np.float32)) for _ in range(2))
+    kc, vc = (torch.from_numpy(rng.standard_normal((2, 45, 128), dtype=np.float32)) for _ in range(2))
+    ops.reset_launch_counts()
+    assert torch.equal(ops.cross_attention_op(q, k, v), ref.flash_attention_ref(q, k, v, causal=False))
+    q1 = q[:, :, :1]
+    assert torch.equal(ops.decode_attention_op(q1, kc, vc, 45), ref.decode_attention_ref(q1, kc, vc, 45))
+    leaf = q.clone().requires_grad_()
+    ops.cross_attention_op(leaf, k, v).sum().backward()  # autograd through the plain version
+    assert leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
+    assert not any(ops.launch_counts().values())
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_and_causal_keys_of_another_length():
+    q = torch.zeros(1, 2, 8, 64)
+    k = torch.zeros(1, 2, 9, 64)
+    with pytest.raises(ValueError, match="causal"):
+        flash_mod.flash_attention(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="causal"):
+        flash_mod.flash_attention_bwd_dq(q, k, k, q, torch.zeros(1, 2, 8), q, causal=True)
+    with pytest.raises(ValueError, match="causal"):
+        ref.flash_attention_ref(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_mod.cross_attention(q, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_mod.flash_attention(q, k, k, causal=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_mod.cross_attention_bwd(q, k, k, q, torch.zeros(1, 2, 8), q)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_mod.flash_decode(q[:, :, :1], torch.zeros(1, 9, 128), torch.zeros(1, 9, 128), 9)
+    assert not any(ops.launch_counts()[n] for n in ops.launch_counts())
+
+
+@pytest.mark.parametrize("args,err,match", [
+    (((1, 2, 1, 64), (1, 9, 128)), ValueError, "1..9 keys"),  # n = 10 past the cache
+    (((1, 2, 2, 64), (1, 9, 128)), ValueError, "q \\[B,H,1,d\\]"),  # two queries a row
+    (((1, 3, 1, 64), (1, 9, 128)), ValueError, "multiple of kv heads"),  # 3 heads on 2
+    (((1, 2, 1, 32), (1, 9, 64)), ValueError, "head dim"),
+    (((2, 2, 1, 64), (1, 9, 128)), ValueError, "caches"),  # batch differs
+])
+def test_decode_kernel_rejects_what_it_does_not_take(args, err, match):
+    qs, cs = args
+    n = 10 if match == "1..9 keys" else 9
+    with pytest.raises(err, match=match):
+        flash_mod.flash_decode(torch.zeros(qs), torch.zeros(cs), torch.zeros(cs), n)
+
+
+def test_whisper_launch_counts_name_b11():
+    """chip_smoke.path_launches: whisper's decoder launches B11 once a layer per forward and
+    decode step, again under recompute, and its two backward kernels once a layer a step."""
+    cfg = get_config("whisper-medium")
+    L = cfg.num_layers
+    cs = chip_smoke()
+    serve = cs.path_launches(cfg, 1, 31)
+    assert (serve["cross_attention"], serve["flash_decode"]) == (L, 31 * L)
+    assert serve["flash_attention"] == cfg.encoder_layers + L
+    train = cs.path_launches(cfg, 0, 0, train_steps=3)
+    assert train["cross_attention"] == 2 * 3 * L  # forward, and again under recompute
+    assert train["cross_attention_bwd_dq"] == train["cross_attention_bwd_dkdv"] == 3 * L
+    off = cs.path_launches(dataclasses.replace(cfg, remat=False), 0, 0, train_steps=3)
+    assert off["cross_attention"] == 3 * L
+    llama = cs.path_launches(get_config("llama3.2-1b"), 1, 31, train_steps=1)
+    assert not any(llama[k] for k in ("cross_attention", "cross_attention_bwd_dq",
+                                      "cross_attention_bwd_dkdv", "flash_decode"))
+
+
+def test_chip_smoke_shape_keys_read_as_hold_at_shape_reads_them():
+    """The keys that chip_smoke.py records at a wrapper's call, in the model's layouts, are
+    the (dims..., dtype) tuples of its phase-3 cases and of hold_at_shape."""
+    cs = chip_smoke()
+    B, H, KV, S, Sk, d = 2, 6, 2, 5, 11, 16
+    q = torch.zeros(B, S, H, d).transpose(1, 2)
+    k = torch.zeros(B, Sk, KV, d).transpose(1, 2)
+    assert cs.cross_key(q, k, k, lse=True) == (B, H, KV, S, Sk, d, torch.float32)
+    kc = torch.zeros(B, Sk, KV * d)
+    assert cs.decode_key(q[:, :, :1], kc, kc, 7) == (B, H, KV, Sk, 7, d, torch.float32)
+    gen = torch.Generator().manual_seed(1)
+    for kernel, key in (("cross_attention", cs.cross_key(q, k, k)),
+                        ("cross_attention_bwd", cs.cross_key(q, k, k)),
+                        ("flash_decode", cs.decode_key(q[:, :, :1], kc, kc, 7))):
+        assert cs.hold_at_shape(kernel, key, "cpu", gen) == 0.0
+
+
+# chip_smoke.py holds a kernel at any launched shape that no case of its phases covered
+HOLD_CASES = [("cross_attention", (2, 4, 2, 9, 21, 16, torch.float32)),
+              ("cross_attention_bwd", (1, 4, 2, 7, 30, 16, torch.float32)),
+              ("flash_decode", (2, 6, 2, 40, 33, 16, torch.float32))]
+HOLD_OPS = {"cross_attention": "cross_attention_op", "flash_decode": "decode_attention_op"}
+
+
+@pytest.mark.parametrize("kernel,key", HOLD_CASES, ids=[k for k, _ in HOLD_CASES])
+def test_chip_smoke_holds_b11_where_it_was_launched(kernel, key, monkeypatch):
+    cs = chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    assert cs.hold_at_shape(kernel, key, "cpu", gen) == 0.0
+    fname = HOLD_OPS[kernel.removesuffix("_bwd")]
+    right = getattr(ops, fname)
+    monkeypatch.setattr(ops, fname, lambda *a, **kw: right(*a, **kw) * 1.1)
+    with pytest.raises(AssertionError, match="held where it was launched"):
+        cs.hold_at_shape(kernel, key, "cpu", gen)

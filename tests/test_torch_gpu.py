@@ -21,6 +21,7 @@ runs where only PyTorch is installed:
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -60,12 +61,12 @@ def close(got, want, tol):
 ZERO_GRAD_ABS = 1e-5
 
 
-def close_to_max(name, got, want, tol):
-    """max |got - want| <= tol * max |want| (ZERO_GRAD_ABS where want is all 0), and got finite."""
+def close_to_max(name, got, want, tol, zero_abs=ZERO_GRAD_ABS):
+    """max |got - want| <= tol * max |want| (zero_abs where want is all 0), and got finite."""
     assert got.shape == want.shape and got.dtype == want.dtype, name
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
-    limit = tol * scale if scale > 0 else ZERO_GRAD_ABS
+    limit = tol * scale if scale > 0 else zero_abs
     assert bool(torch.isfinite(got).all()) and err <= limit, f"{name}: err {err} vs {limit} ({tol} * {scale})"
 
 
@@ -180,6 +181,69 @@ def test_flash_backward_is_deterministic(cuda, B, H, KV, S, causal):
     second = flash_mod.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+# B11, keys of their own length (non-causal): whisper's prefill and training shapes, tails of
+# S and Sk (1, 63, 65), GQA g 1, 4 and 7, head dim 128
+CROSS_SHAPES = [(4, 16, 16, 128, 1500, 64), (2, 16, 16, 448, 1500, 64)] + [
+    (2, 2 * g, 2, S, Sk, d) for g in (1, 4, 7) for S, Sk in ((1, 1500), (65, 63), (65, 1), (160, 1500),
+                                                            (129, 257)) for d in (64, 128)]
+
+
+def cross_zero_abs(S, g):
+    """dk's zero reference at Sk = 1 (one key: the softmax passes it no gradient): the
+    kernel sums the f32 rounding of dP - D (ZERO_GRAD_ABS's ~1e-6 each) over the S * g
+    queries that read the key, so the limit grows as their random walk, sqrt(S * g)."""
+    return ZERO_GRAD_ABS * math.sqrt(S * g)
+
+
+@pytest.mark.parametrize("B,H,KV,S,Sk,d", CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_kernels(cuda, B, H, KV, S, Sk, d, dtype):
+    """B11's forward against the plain version, and its dq, dk, dv through ops against
+    autograd through it, as the model's [B, S, H, d] views; two backward calls bit-identical."""
+    rng = np.random.default_rng(B * H * S + Sk + d)
+    q, k, v = (tensor(rng, (B, n, H_, d), dtype, cuda).requires_grad_().transpose(1, 2)
+               for n, H_ in ((S, H), (Sk, KV), (Sk, KV)))
+    dout = tensor(rng, (B, H, S, d), dtype, cuda)
+    before = ops.launch_counts()
+    out = ops.cross_attention_op(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("cross_attention", "cross_attention_bwd_dq", "cross_attention_bwd_dkdv"):
+        assert after[name] == before[name] + 1, name
+    want_out = ref.flash_attention_ref(q, k, v, causal=False)
+    close(out, want_out, 2e-2 if dtype == torch.bfloat16 else 2e-5)
+    want = torch.autograd.grad(want_out, (q, k, v), dout)
+    for name, g, w in zip("qkv", got, want):
+        close_to_max(f"d{name}", g, w, grad_tol(dtype), cross_zero_abs(S, H // KV))
+    with torch.no_grad():
+        o, lse = flash_mod.cross_attention(q, k, v, lse=True)
+    first, second = (flash_mod.cross_attention_bwd(q, k, v, o, lse, dout) for _ in range(2))
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+# B11's decode: whisper's [4, 16, 1, 64] over [4, 1500, 1024] caches, fewer keys than the
+# cache, GQA g 4 and 7, head dim 128
+DECODE_SHAPES = [(4, 16, 16, 1500, 1500, 64), (4, 16, 16, 1500, 700, 64), (1, 16, 16, 1500, 1500, 64),
+                 (4, 16, 4, 1500, 1500, 128), (2, 14, 2, 777, 777, 64), (2, 8, 2, 1, 1, 64),
+                 (2, 6, 2, 129, 100, 128)]
+
+
+@pytest.mark.parametrize("B,H,KV,Sk,n,d", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel(cuda, B, H, KV, Sk, n, d, dtype):
+    rng = np.random.default_rng(B * H + Sk + n + d)
+    q = tensor(rng, (B, 1, H, d), dtype, cuda).transpose(1, 2)  # the model's q as a view
+    kc, vc = (tensor(rng, (B, Sk, KV * d), dtype, cuda) for _ in range(2))
+    before = ops.launch_counts()["flash_decode"]
+    got = ops.decode_attention_op(q, kc, vc, n)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_decode"] == before + 1
+    close(got, ref.decode_attention_ref(q, kc, vc, n), 2e-2 if dtype == torch.bfloat16 else 2e-5)
+    assert torch.equal(ops.decode_attention_op(q, kc, vc, n), got)  # a fixed combine order
 
 
 @pytest.mark.parametrize("T,D", [(2560, 960), (1024, 2048)])
@@ -650,6 +714,10 @@ def test_live_grpo_step_launches(cuda):
         "flash_attention": policy.num_layers * (3 + again) + n * judge.num_layers,
         "flash_attention_bwd_dq": policy.num_layers,
         "flash_attention_bwd_dkdv": policy.num_layers,
+        "cross_attention": 0,  # B11: only the audio decoder's cross-attention
+        "cross_attention_bwd_dq": 0,
+        "cross_attention_bwd_dkdv": 0,
+        "flash_decode": 0,
         "rmsnorm_bwd_wide": 0,
         "moe_matmul": 0,
         "moe_matmul_bwd_dbuf": 0,

@@ -128,7 +128,8 @@ def test_cpu_serving_launches_no_kernel():
 
 
 OPS = {"rmsnorm_op": "rmsnorm", "flash_attention_op": "flash_attention",
-       "moe_matmul_op": "moe_matmul", "ssd_intra_chunk_op": "ssd_intra_chunk"}
+       "moe_matmul_op": "moe_matmul", "ssd_intra_chunk_op": "ssd_intra_chunk",
+       "cross_attention_op": "cross_attention", "decode_attention_op": "flash_decode"}
 
 
 COUNT_ARCHS = ["smollm-360m", "llama3.2-1b", "granite-moe-3b-a800m", "mamba2-130m", "hymba-1.5b",

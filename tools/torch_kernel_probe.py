@@ -134,7 +134,8 @@ def time_kernels(gen):
 
     for B, Hq, KV, S, d, causal in [(8, 32, 8, 160, 64, True), (8, 24, 8, 160, 64, True),
                                     (4, 15, 5, 128, 64, True), (4, 32, 8, 2048, 64, True),
-                                    (4, 32, 8, 2048, 64, False), (2, 8, 2, 1000, 128, True)]:
+                                    (4, 32, 8, 2048, 64, False), (2, 8, 2, 1000, 128, True),
+                                    (4, 16, 16, 1500, 64, False)]:
         q, k, v = (torch.randn(B, h, S, d, generator=gen, device=gen.device).bfloat16()
                    for h in (Hq, KV, KV))
         err = (ops.flash_attention_op(q, k, v, causal=causal).float()
