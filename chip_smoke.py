@@ -189,6 +189,8 @@ F32_FLOPS = 67e12
 BF16_TOL = 2e-2
 RMSNORM_F32_TOL = 1e-5
 FLASH_F32_TOL = 2e-5
+# B11's row log-sum-exp (f32, what its backward reads) against the plain one, relative
+CROSS_LSE_TOL = 1e-5
 F32_TOL = 1e-4  # moe_matmul and ssd_intra_chunk in f32 (tests/test_kernels.py)
 # Backward kernels against autograd through the plain versions: max error
 # relative to the reference gradient's largest magnitude, as
@@ -363,6 +365,19 @@ def flash_bound(B, H, KV, S, d, causal, elem, Sk=None):
     peak = BF16_TENSOR_FLOPS if elem == 2 else F32_FLOPS
     return bound((2 * B * H * S * d + 2 * B * KV * Sk * d) * elem / HBM_BYTES_PER_S,
                  4 * d * B * H * pairs / peak)
+
+
+def cross_lse_err(q, k, lse):
+    """B11's row log-sum-exp against the plain one (f32 scores of the same q and k):
+    the largest error relative to each row's magnitude (at least 1)."""
+    import torch
+
+    B, H, S, d = q.shape
+    KV = k.shape[1]
+    scores = torch.einsum("bngqd,bnkd->bngqk", q.float().reshape(B, KV, H // KV, S, d),
+                          k.float()) / math.sqrt(d)
+    want = torch.logsumexp(scores, -1).reshape(B, H, S)
+    return ((lse - want).abs() / want.abs().clamp_min(1.0)).max().item()
 
 
 def decode_bound(B, H, KV, n, d, elem):
@@ -1647,6 +1662,8 @@ def main() -> int:
         got = ops.cross_attention_op(q, k, v)
         err = assert_close(f"cross {B},{H},{KV},{S},{Sk},{d} {dt}", got,
                            ref.flash_attention_ref(q, k, v, False), tol)
+        if not torch.equal(ops.cross_attention_op(q, k, v), got):  # a fixed combine order
+            raise AssertionError(f"cross {B},{H},{KV},{S},{Sk},{d} {dt}: two calls differ")
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
         m = measure(lambda: ops.cross_attention_op(q, k, v),
                     lambda: ref.flash_attention_ref(q, k, v, False),
@@ -1655,6 +1672,31 @@ def main() -> int:
         cross_rows[(B, H, KV, S, Sk, d, dt)] = row(err, m)
         report(f"cross_attention B={B} H={H} KV={KV} S={S} Sk={Sk} d={d} {str(dt)[6:]} {what}",
                err, tol, m, "sdpa")
+        plan = flash_k.cross_plan(B, H, KV, S, Sk, d, dt)
+        print(f"[kernel]   cross plan: {plan.route}, {plan.block_q} query rows a block, "
+              f"{plan.splits} splits of {plan.chunk} keys (a cluster), grid {plan.grid}, "
+              f"{plan.threads} threads, {plan.smem_bytes} bytes of shared memory; two calls "
+              f"bit-identical")
+        if (B, S, dt) == (2, 448, bf16):  # the LM shape: the lse the backward reads
+            _, lse = flash_k.cross_attention(q, k, v, lse=True)
+            err = cross_lse_err(q, k, lse)
+            if not err <= CROSS_LSE_TOL:
+                raise AssertionError(f"cross lse {B},{H},{S},{Sk}: {err:.2e} > {CROSS_LSE_TOL}")
+            print(f"[kernel]   cross lse at the LM shape vs the plain log-sum-exp: {err:.2e} of "
+                  f"each row's magnitude (tol {CROSS_LSE_TOL})")
+    # B11's kernel at whisper's encoder shape S = Sk = 1500, where B2 runs (not routed):
+    # beside B2's row of the same shape above and sdpa
+    q, k, v = (randn(4, 1500, 16, 64, dtype=bf16).transpose(1, 2) for _ in range(3))
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    err = assert_close("cross 4,16,16,1500,1500,64 (encoder shape)", flash_k.cross_attention(q, k, v),
+                       ref.flash_attention_ref(q, k, v, False), BF16_TOL)
+    m = measure(lambda: flash_k.cross_attention(q, k, v),
+                lambda: ref.flash_attention_ref(q, k, v, False),
+                lambda: F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True),
+                flash_bound(4, 16, 16, 1500, 64, False, 2), plain_iters=5)
+    report("cross_attention B=4 H=16 KV=16 S=1500 Sk=1500 d=64 bf16 whisper encoder shape "
+           f"(not routed; B2 {flash_rows[(4, 16, 16, 1500, 64, False, bf16)]['ms']:.4f} ms)",
+           err, BF16_TOL, m, "sdpa")
     decode_cases = [  # (B, H, KV, Sk, n, d, dtype, what): n of the cache's Sk keys attended
         (4, 16, 16, 1500, 1500, 64, bf16, "whisper decode"),
         (4, 16, 16, 1500, 1500, 64, f32, "whisper f32 check decode"),
@@ -1685,7 +1727,8 @@ def main() -> int:
               f"{plan.rows} query rows a block, grid {plan.grid}, {plan.threads} threads, "
               f"{plan.smem_bytes} bytes of shared memory; two calls bit-identical")
     del q, kc, vc, got, kv_view, vv_view
-    print(f"[time] B11's {len(cross_cases)} forward and {len(decode_cases)} decode cases took "
+    print(f"[time] B11's {len(cross_cases)} forward cases, the encoder-shape row and "
+          f"{len(decode_cases)} decode cases took "
           f"{time.perf_counter() - t_b11:.1f}s")
 
     moe_rows = {}

@@ -50,17 +50,45 @@
 // P stays f32, as in the TPU kernel.
 //
 // Both: strides are arguments, so the model's q [B,S,H,d] and k/v
-// [B,Sk,KV,d] are read in place, with only the last dimension required to
-// be contiguous and rows 16-byte aligned.  Ragged S and Sk are masked (keys
-// >= Sk get no weight, rows >= S are not stored), so both are unrestricted.
-// Keys of a length of their own (Sk != S; port-only B11, whisper's
-// cross-attention over its encoder's 1500 frames, which the TPU kernel's
-// (S, d) K/V blocks cannot take) run non-causal only: the key loop and
-// its tail mask run over Sk, query tiles stay 64 rows of S.  With a
+// [B,S,KV,d] are read in place, with only the last dimension required to
+// be contiguous and rows 16-byte aligned.  Ragged S is masked (keys >= S
+// get no weight, rows >= S are not stored), so it is unrestricted.  With a
 // non-null lse pointer the forward also writes each row's log-sum-exp of
 // the scaled scores (natural log, f32, [B,H,S]) for the backward; serving
 // passes null, which selects the instantiation without it (kLse = false),
-// so serving runs the code it ran before.
+// so serving runs the code it ran before.  The bf16 template takes keys of
+// q's own length only; the f32 one also serves B11's f32 route below.
+//
+// Port-only B11, attention over keys of a length of their own (Sk != S),
+// has an entry of its own, flash_attention_cross_fwd.  It computes
+// repro/models/layers.py's cross-attention (multihead_attention with
+// kv_override, non-causal): whisper's decoder, a few hundred queries, over
+// its encoder's 1500 frames.  No TPU kernel has a counterpart (the TPU
+// kernel's (S, d) K/V blocks cannot take another length; JAX runs the
+// einsums in XLA).  Its bound on this card: at whisper's prefill (B4 H16
+// S128 Sk1500) the 24.6 MB of K and V read once (7.3 us at 3.35 TB/s); at
+// its LM shape (B2 S448) the 4 d S Sk operations on the bf16 tensor cores
+// (5.5 GFLOP, 5.6 us), and as many exp2 on the SFUs (21.5 M at 16 a clock
+// an SM: 5.6 us more where the two do not overlap).  B2's template fits
+// that shape badly: a block of 4 warps walks all 1500 keys alone with
+// mma.sync.  So bf16 runs xa::flash_cross_fwd_wgmma: a consumer warpgroup
+// of 64 query rows on wgmma, fed by a producer warp's TMA ring of 128-key
+// K and V tiles (64 at d = 128), in FlashAttention-3's order (each tile's
+// scores issued, then the previous tile's P V, whose product runs while the
+// tile's softmax does), with no register a product in flight touches
+// written meanwhile: ptxas otherwise serialises every wgmma of the kernel.
+// Where the (batch, head, row tile) groups would leave SMs without their
+// two blocks, the keys of each group are split over the blocks of a
+// thread-block cluster (up to 8, whole key tiles, none empty; the decode's
+// pattern); block 0 combines every split's (max, sum, P V) in a fixed order
+// through distributed shared memory and writes out and lse: no combine
+// launch, no atomics, no scratch, so two calls give the same bits.  What
+// holds it back (PERF.md, torch_kernel_probe.py cross-parts): a block's
+// fixed cost, launch to stores (6.7 us of the LM shape's 19.3 with one key
+// tile a block), then the products and the SFU's exp2, which overlap only
+// in part (2.6 us less without the P V products, 1.6 without the exp2).
+// The f32 route stays on cc::flash_fwd_f32 with its key loop over Sk (its
+// 2e-5 limit rules out bf16 and TF32 tensor cores).
 //
 // Backward (no TPU counterpart: the JAX package differentiates plain XLA
 // attention).  With P = exp(scale q k^T - lse) recomputed from the saved
@@ -218,12 +246,14 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ sr
 
 // grid (H, row tiles, B); kLse: write the rows' log-sum-exp (training).  At d = 64
 // four blocks share an SM (their 46 KB of tiles fit four times) when a thread keeps
-// to 128 registers, which the bounds hold it to.
+// to 128 registers, which the bounds hold it to.  The bound stays with the key loop
+// over S alone: against no stated bound it ties at d = 64 and is 10% faster at
+// d = 128 (PERF.md, torch_kernel_probe.py fwd-bounds).
 template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 1)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-               bf16* __restrict__ o, float* __restrict__ lse, int S, int Sk, int H, int KV,
-               Strides qs, Strides ks, Strides vs, Strides os, float scale_log2, int causal) {
+               bf16* __restrict__ o, float* __restrict__ lse, int S, int H, int KV, Strides qs,
+               Strides ks, Strides vs, Strides os, float scale_log2, int causal) {
   using L = Layout<D>;
   constexpr int KD = D / 16;  // k-steps of Q K^T; n16 column pairs of P V
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -244,12 +274,12 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
 
   const bf16* kh = k + b * ks.b + kvh * ks.h;
   const bf16* vh = v + b * vs.b + kvh * vs.h;
-  const int k_end = causal ? min(S, q0 + BQ) : Sk;  // causal (Sk == S): later tiles add nothing
+  const int k_end = causal ? min(S, q0 + BQ) : S;  // causal: later tiles add nothing
   const int n_tiles = (k_end + BK - 1) / BK;
 
   load_tile<D>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
-  load_tile<D>(Ks, kh, ks.s, 0, Sk);
-  load_tile<D>(Vs, vh, vs.s, 0, Sk);
+  load_tile<D>(Ks, kh, ks.s, 0, S);
+  load_tile<D>(Vs, vh, vs.s, 0, S);
   cp_async_commit();
 
   uint32_t qf[KD][4];
@@ -264,8 +294,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   for (int it = 0; it < n_tiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < n_tiles) {  // the next tile flies while this one is computed
-      load_tile<D>(Ks + (buf ^ 1) * L::kTile, kh, ks.s, (it + 1) * BK, Sk);
-      load_tile<D>(Vs + (buf ^ 1) * L::kTile, vh, vs.s, (it + 1) * BK, Sk);
+      load_tile<D>(Ks + (buf ^ 1) * L::kTile, kh, ks.s, (it + 1) * BK, S);
+      load_tile<D>(Vs + (buf ^ 1) * L::kTile, vh, vs.s, (it + 1) * BK, S);
     }
     cp_async_commit();
     cp_async_wait<1>();  // everything but the newest group has landed
@@ -296,7 +326,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
       }
 
     // element e of tile n: row row_lo + 8*(e/2), key k0 + 8n + 2t + e%2
-    const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
+    const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > q0);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -304,7 +334,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
         float x = s[n][e] * scale_log2;
         if (masked) {
           const int key = k0 + 8 * n + 2 * t + (e & 1);
-          if (key >= Sk || (causal && key > row_lo + 8 * (e >> 1))) x = -INFINITY;
+          if (key >= S || (causal && key > row_lo + 8 * (e >> 1))) x = -INFINITY;
         }
         s[n][e] = x;
       }
@@ -787,6 +817,292 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_consta
 }
 
 }  // namespace wg
+
+// ------------------------------------------------------- B11 bf16 forward --
+
+namespace xa {
+
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+// Keys a K/V tile holds: 128 at d = 64, which halves the per-tile work of
+// the softmax (barriers, row max, rescale) against the products; 64 at
+// d = 128, where a 128-key ring would not leave two blocks an SM.
+constexpr int key_tile(int D) { return D == 64 ? 128 : 64; }
+template <int D>
+constexpr int stages() { return D == 64 ? 3 : 2; }  // K/V tiles in flight
+
+// A block is one consumer warpgroup of 64 query rows and one producer warp.
+// Two warpgroups a block (128 rows, half the K/V tiles a row) ran slower at
+// every shape measured (PERF.md), one producer feeding both.
+constexpr int BQ = 64, NT = 128, kBlockThreads = NT + 32;
+
+// Shared memory (byte offsets past a 1024-byte aligned base; the 1024 bytes
+// of slack in `bytes` pay for the alignment): Q of the block's 64 rows, the
+// ring of BK-key K and V tiles, then the barriers (Q, full[ST], empty[ST]).
+// Once the key loop is done the ring holds the block's partial for the
+// cluster's combine: each consumer thread's PART floats (its P V
+// accumulators, then its two rows' max and sum), value i of thread t at
+// i * NT + t, so that block 0's threads read neighbouring words.
+template <int D>
+struct Smem {
+  static constexpr int BK = key_tile(D), ST = stages<D>();
+  static constexpr int PART = D / 2 + 4;
+  static constexpr int q = 0, k = BQ * D * 2, v = k + ST * BK * D * 2, part = k;
+  static constexpr int ring_end = v + ST * BK * D * 2, part_end = part + NT * PART * 4;
+  static constexpr int bars = ring_end > part_end ? ring_end : part_end;
+  static constexpr int bytes = 1024 + bars + 8 * (1 + 2 * ST);
+};
+
+// Blocks an SM, as the launch bound keeps room for them in registers and
+// the shared memory admits them; flash_attention.py's cross_plan sizes the
+// grid by them.  A tighter bound makes ptxas serialize the products.
+constexpr int kBlocksPerSM = 2;
+
+// grid (splits, row tiles x H, B) in clusters of (splits, 1, 1): block
+// (s, tile H + h, b) takes query rows [tile BQ, tile BQ + BQ) of head h
+// against keys [s chunk, min(Sk, s chunk + chunk)), chunk a multiple of BK.
+// Warps 0-3 are the consumer warpgroup; warp 4 is the producer.  Every
+// thread of every block reaches both cluster barriers.
+template <int D, bool kLse>
+__global__ void __launch_bounds__(kBlockThreads, kBlocksPerSM)
+flash_cross_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                      float* __restrict__ lse, int S, int Sk, int H, int KV, int chunk, Strides os,
+                      float scale_log2) {
+  using L = Smem<D>;
+  constexpr int BK = L::BK, NB = BK / 64, ST = L::ST, CH = D / 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = wg::align1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(sm + L::q);
+  bf16* Ks = reinterpret_cast<bf16*>(sm + L::k);  // [ST][BK keys][D], swizzled chunks
+  bf16* Vs = reinterpret_cast<bf16*>(sm + L::v);
+  float* part = reinterpret_cast<float*>(sm + L::part);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + ST;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x, splits = gridDim.x;  // a cluster spans grid.x: rank = blockIdx.x
+  const int h = blockIdx.y % H, q0 = blockIdx.y / H * BQ, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int k_lo = split * chunk, n_tiles = (min(Sk, k_lo + chunk) - k_lo + BK - 1) / BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer: Q once, then the split's K and V tiles through the ring
+    if (lane == 0) {
+      mbar_expect_tx(qfull, BQ * D * 2);
+      for (int c = 0; c < CH; ++c) tma_load_4d(Qs + c * BQ * 64, &tq, qfull, 64 * c, q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % ST;
+        if (it >= ST) mbar_wait(empty + s, (it / ST - 1) & 1);
+        mbar_expect_tx(full + s, 2 * BK * D * 2);
+        for (int c = 0; c < CH; ++c) {
+          tma_load_4d(Ks + (s * CH + c) * BK * 64, &tk, full + s, 64 * c, k_lo + it * BK, kvh, b);
+          tma_load_4d(Vs + (s * CH + c) * BK * 64, &tv, full + s, 64 * c, k_lo + it * BK, kvh, b);
+        }
+      }
+    }
+    cluster.sync();  // the splits' partials are in place
+    cluster.sync();  // block 0 has read them
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  float acc[CH][32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+    fence_regs(acc[c]);  // zeroed here, not inside the first product's pipeline stage
+  }
+  mbar_wait(qfull, 0);
+  __syncwarp();
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + stage);  // this warp is done with the stage
+  };
+  // The loop runs FlashAttention-3's order: tile j's scores are issued, the
+  // output is rescaled and tile j-1's P V issued behind them; tile j's
+  // softmax then runs while that P V is on the tensor cores, and P becomes
+  // the next A operand only once no product is in flight.  No register a
+  // product in flight reads or writes is written meanwhile, so ptxas keeps
+  // the products asynchronous.
+  float sc[32 * NB], alpha[2];
+  uint32_t pa[4 * NB][4];  // P of the previous tile, unnormalised, as bf16 A fragments
+  auto issue_scores = [&](int j) {  // S = Q K^T of tile j into sc, left in flight
+    const int s = j % ST;
+    mbar_wait(full + s, (j / ST) & 1);
+    __syncwarp();
+    const bf16* Kt = Ks + s * BK * D;
+    wgmma_fence();
+    if constexpr (NB == 2) {
+      wgmma_ss_n128_first<0>(sc, desc_k(Qs, BQ, 0, 0), desc_k(Kt, BK, 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss_n128<0>(sc, desc_k(Qs, BQ, 0, kk), desc_k(Kt, BK, 0, kk), 1);
+    } else {
+      wgmma_ss_n64_first<0>(sc, desc_k(Qs, BQ, 0, 0), desc_k(Kt, BK, 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        wgmma_ss_n64<0>(sc, desc_k(Qs, BQ, 0, kk), desc_k(Kt, BK, 0, kk), 1);
+    }
+    wgmma_commit();
+  };
+  // Online softmax of tile j's scores, in log2 units of the scaled scores:
+  // m and l move on, alpha = 2^(m_old - m_new) waits for the output, and sc
+  // becomes P in place.  Element i: row g + 8 (i%4 / 2) of the warp's 16, key
+  // k0 + 8 (i/4) + 2t + i%2; keys at or past Sk arrived as zeros and get no
+  // weight (only a split's last tile).
+  auto softmax = [&](int j) {
+    const int k0 = k_lo + j * BK;
+    if (k0 + BK > Sk) {
+#pragma unroll
+      for (int i = 0; i < 32 * NB; ++i)
+        if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= Sk) sc[i] = -INFINITY;
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j8 = 0; j8 < 8 * NB; ++j8) mx = fmaxf(mx, fmaxf(sc[4 * j8 + 2 * half], sc[4 * j8 + 2 * half + 1]));
+      mx = fmaxf(m[half], tc::quad_max(mx) * scale_log2);
+      // a split's first key is valid for every row, so mx is finite from its
+      // first tile on; the guard keeps a fully masked row at p = 0, not NaN
+      const float base = mx == -INFINITY ? 0.f : mx;
+      alpha[half] = exp2_ftz(m[half] - base);
+      float sum = 0.f;
+#pragma unroll
+      for (int j8 = 0; j8 < 8 * NB; ++j8)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j8 + 2 * half + e;
+          const float x = fmaf(sc[i], scale_log2, -base);
+          sc[i] = exp2_ftz(x);
+          sum += sc[i];
+        }
+      l[half] = l[half] * alpha[half] + sum;
+      m[half] = mx;
+    }
+  };
+  // O = O alpha + P V of tile j (its P in pa), left in flight; V read MN-major.
+  auto rescale_and_issue_pv = [&](int j) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
+    const bf16* Vt = Vs + (j % ST) * BK * D;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) fence_regs(acc[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NB; ++kk)
+#pragma unroll
+      for (int c = 0; c < CH; ++c) wgmma_rs_n64<1>(acc[c], pa[kk], desc_mn(Vt, BK, c, kk));
+    wgmma_commit();
+  };
+  issue_scores(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax(0);
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk) a_frag(pa[kk], sc, kk);
+  for (int j = 1; j < n_tiles; ++j) {
+    issue_scores(j);
+    rescale_and_issue_pv(j - 1);
+    wgmma_wait<1>();  // tile j's scores are done
+    fence_regs(sc);
+    softmax(j);
+    wgmma_wait<0>();  // tile j-1's P V is done: its K and V are read, its P is free
+#pragma unroll
+    for (int c = 0; c < CH; ++c) fence_regs(acc[c]);
+    release((j - 1) % ST);
+#pragma unroll
+    for (int kk = 0; kk < 4 * NB; ++kk) a_frag(pa[kk], sc, kk);
+  }
+  rescale_and_issue_pv(n_tiles - 1);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < CH; ++c) fence_regs(acc[c]);
+  release((n_tiles - 1) % ST);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) l[half] = tc::quad_sum(l[half]);
+  if (split != 0) {  // the partial, over the ring once every consumer warp is done with it
+    named_sync(1, NT);
+    const int tid = threadIdx.x;
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[(32 * c + i) * NT + tid] = acc[c][i];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      part[(32 * CH + half) * NT + tid] = m[half];
+      part[(32 * CH + 2 + half) * NT + tid] = l[half];
+    }
+  }
+  cluster.sync();  // every split's partial is in its block's shared memory
+  if (split == 0) {
+    const int tid = threadIdx.x;
+    float mx[2] = {m[0], m[1]};
+    for (int r = 1; r < splits; ++r) {
+      const float* p = cluster.map_shared_rank(part, r);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) mx[half] = fmaxf(mx[half], p[(32 * CH + half) * NT + tid]);
+    }
+    // the splits in rank order, block 0's own first: w = 2^(m_r - max).  The
+    // sums go to registers of their own: nothing but wgmma defines acc.
+    float sum[2], w0[2], out[CH][32];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      w0[half] = exp2_ftz(m[half] - mx[half]);
+      sum[half] = l[half] * w0[half];
+    }
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) out[c][i] = acc[c][i] * w0[(i >> 1) & 1];
+    for (int r = 1; r < splits; ++r) {
+      const float* p = cluster.map_shared_rank(part, r);
+      float w[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        w[half] = exp2_ftz(p[(32 * CH + half) * NT + tid] - mx[half]);
+        sum[half] = fmaf(p[(32 * CH + 2 + half) * NT + tid], w[half], sum[half]);
+      }
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) out[c][i] = fmaf(p[(32 * c + i) * NT + tid], w[(i >> 1) & 1], out[c][i]);
+    }
+    bf16* oh = o + b * os.b + h * os.h;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = q0 + warp * 16 + g + 8 * half;
+      if (row >= S) continue;
+      const float inv = 1.f / fmaxf(sum[half], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(oh + static_cast<int64_t>(row) * os.s + 64 * c + 8 * j + 2 * t) =
+              pack_bf16(out[c][4 * j + 2 * half] * inv, out[c][4 * j + 2 * half + 1] * inv);
+      if (kLse && t == 0)  // mx is in log2 units of the scaled scores
+        lse[(static_cast<int64_t>(b) * H + h) * S + row] = (mx[half] + log2f(sum[half])) * kLn2;
+    }
+  }
+  cluster.sync();  // block 0 has read every split's partial before the blocks go
+}
+
+}  // namespace xa
 
 // ----------------------------------------------------------------- f32 --
 
@@ -1452,13 +1768,50 @@ cudaError_t fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                           dim3(H, row_tiles(S), B), tc::Layout<D>::bytes,
                           grid, smem, st, static_cast<const bf16*>(q),
                           static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                          static_cast<bf16*>(o), l, S, Sk, H, KV, qs, ks, vs, os,
+                          static_cast<bf16*>(o), l, S, H, KV, qs, ks, vs, os,
                           scale * kLog2e, causal);  // exp(x) = exp2(x log2 e)
   return launch_checked(l ? cc::flash_fwd_f32<D, true> : cc::flash_fwd_f32<D, false>,
                         dim3(row_tiles(S), H, B), cc::Smem<D>::bytes, grid,
                         smem, st, static_cast<const float*>(q), static_cast<const float*>(k),
                         static_cast<const float*>(v), static_cast<float*>(o), l, S, Sk, H, KV, qs,
                         ks, vs, os, scale, causal);
+}
+
+// B11's bf16 forward (xa::) after checking the grid and shared memory of
+// flash_attention.py::cross_plan; the caller has checked its splits and chunk.
+template <int D>
+cudaError_t cross_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int H, int KV, int S, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+                       float scale, int chunk, dim3 grid, int64_t smem, cudaStream_t st) {
+  using L = xa::Smem<D>;
+  if (smem != L::bytes || grid.y != static_cast<unsigned>(H * ((S + xa::BQ - 1) / xa::BQ)) ||
+      grid.z != static_cast<unsigned>(B))
+    return cudaErrorInvalidConfiguration;
+  CUtensorMap tq, tk, tv;
+  if (!hopper::map_bf16_rows(&tq, q, B, H, S, D, qs.b, qs.h, qs.s, xa::BQ) ||
+      !hopper::map_bf16_rows(&tk, k, B, KV, Sk, D, ks.b, ks.h, ks.s, L::BK) ||
+      !hopper::map_bf16_rows(&tv, v, B, KV, Sk, D, vs.b, vs.h, vs.s, L::BK))
+    return cudaErrorInvalidValue;
+  auto kernel = lse ? xa::flash_cross_fwd_wgmma<D, true> : xa::flash_cross_fwd_wgmma<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(xa::kBlockThreads);
+  cfg.dynamicSmemBytes = L::bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;  // one cluster of `splits` blocks a (batch, head, row tile)
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  // One split launches without clusters, which measured 4% faster at whisper's LM
+  // shape; its blocks' cluster barriers are then the block's own.
+  cfg.numAttrs = grid.x > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, tq, tk, tv, static_cast<xa::bf16*>(o), lse, S, Sk, H, KV,
+                           chunk, os, scale * kLog2e);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // Backward views: q, k, v, o, dout, dq, dk, dv, each given by (b, h, s) strides.
@@ -1604,7 +1957,9 @@ extern "C" int flash_attention_fwd(int dtype, int D, const void* q, const void* 
                                    int64_t o_sb, int64_t o_sh, int64_t o_ss,
                                    float scale, int causal, int grid_x, int grid_y, int grid_z,
                                    int64_t smem, void* stream) {
-  if (bad_args(dtype, D, B, H, KV, S, Sk, causal)) return static_cast<int>(cudaErrorInvalidValue);
+  // keys of their own length go to flash_attention_cross_fwd (bf16) or its f32 route
+  if (bad_args(dtype, D, B, H, KV, S, Sk, causal) || (dtype == 1 && Sk != S))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
   const dim3 grid(grid_x, grid_y, grid_z);
@@ -1612,6 +1967,45 @@ extern "C" int flash_attention_fwd(int dtype, int D, const void* q, const void* 
   auto f = D == 64 ? fwd<64> : fwd<128>;
   return static_cast<int>(f(dtype, q, k, v, o, lse, B, H, KV, S, Sk, qs, ks, vs, os, scale, causal,
                             grid, smem, s));
+}
+
+// B11's forward: non-causal attention of q [B,H,S,D] over k and v
+// [B,KV,Sk,D] of their own length, views and lse as flash_attention_fwd
+// takes them.  block_q, splits, chunk, grid and smem are the plan of
+// flash_attention.py::cross_plan.  bf16: block_q 64 (one consumer
+// warpgroup), grid (splits, row tiles x H, B) in clusters of
+// splits <= 8 blocks, each taking chunk keys (whole key tiles of
+// xa::key_tile(D), none empty).  f32: the FMA template, block_q 64, one split over all Sk keys,
+// grid (row tiles, H, B).  Any other plan returns
+// cudaErrorInvalidConfiguration.
+extern "C" int flash_attention_cross_fwd(int dtype, int D, const void* q, const void* k,
+                                         const void* v, void* o, void* lse, int B, int H, int KV,
+                                         int S, int Sk, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+                                         int64_t k_sb, int64_t k_sh, int64_t k_ss,
+                                         int64_t v_sb, int64_t v_sh, int64_t v_ss,
+                                         int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale,
+                                         int block_q, int splits, int chunk, int grid_x,
+                                         int grid_y, int grid_z, int64_t smem, void* stream) {
+  if (bad_args(dtype, D, B, H, KV, S, Sk, 0)) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
+      os{o_sb, o_sh, o_ss};
+  const dim3 grid(grid_x, grid_y, grid_z);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (block_q != cc::BQ || splits != 1 || chunk < Sk)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    auto f = D == 64 ? fwd<64> : fwd<128>;
+    return static_cast<int>(f(dtype, q, k, v, o, lse, B, H, KV, S, Sk, qs, ks, vs, os, scale, 0,
+                              grid, smem, st));
+  }
+  const int bk = xa::key_tile(D);
+  if (block_q != xa::BQ || splits < 1 || splits > 8 || grid_x != splits ||
+      chunk < bk || chunk % bk != 0 || static_cast<int64_t>(chunk) * (splits - 1) >= Sk ||
+      static_cast<int64_t>(chunk) * splits < Sk)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto f = D == 64 ? cross_bf16<64> : cross_bf16<128>;
+  return static_cast<int>(f(q, k, v, o, static_cast<float*>(lse), B, H, KV, S, Sk, qs, ks, vs, os,
+                            scale, chunk, grid, smem, st));
 }
 
 // Backward, first kernel: dq, and into delta ([2,B,H,stats_row(S)] f32)

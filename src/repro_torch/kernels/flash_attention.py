@@ -15,12 +15,23 @@ log-sum-exp (``lse=True``) and returns the gradients laid out like q, k
 and v; ``bwd_plans`` are its launch plans.  ``ops.flash_attention_op``
 wires both into autograd.
 
-Port-only B11 is the same library at keys of a length of their own:
-``cross_attention`` and ``cross_attention_bwd`` (k, v [B, KV, Sk, d],
-non-causal: whisper's decoder over its encoder's frames) launch the same
-entry points and count apart from B2's; ``flash_decode`` (one query a row
-against the FLAT [B, Sk, KV*d] caches, read in place, the keys split over
-a thread-block cluster) is its decode form, planned by ``decode_plan``.
+Port-only B11 is attention over keys of a length of their own (k, v
+[B, KV, Sk, d], non-causal): what ``repro/models/layers.py``'s
+cross-attention computes for whisper's decoder over its encoder's 1500
+frames, which no TPU kernel does (JAX runs it in XLA).  ``cross_attention``
+launches an entry of its own, planned by ``cross_plan``: in bf16 a kernel
+on wgmma fed by TMA whose blocks split each (batch, head, row tile)'s keys
+over a thread-block cluster and combine them in block 0 in a fixed order.
+At whisper's prefill the K and V bytes bound it, at its LM shape the
+tensor cores' operations (and as many exp2 on the SFUs); B2's template
+walked all 1500 keys in one block of 4 warps with mma.sync, and this one
+keeps the products asynchronous behind the softmax and splits the keys
+where the grid would leave SMs idle.  Its
+f32 route is B2's FMA template with the key loop over Sk.
+``cross_attention_bwd`` launches B5's entry points at Sk, and
+``flash_decode`` (one query a row against the FLAT [B, Sk, KV*d] caches,
+read in place, the keys split over a cluster) is B11's decode form,
+planned by ``decode_plan``; all count apart from B2's.
 """
 
 from __future__ import annotations
@@ -61,6 +72,8 @@ class LaunchPlan:
     grid: Tuple[int, int, int]  # bf16 (H, row tiles, B): a KV head's g query heads adjacent
     smem_bytes: int
     stages: int = 2  # tiles in flight: the cp.async double buffer, or the TMA ring
+    splits: int = 1  # B11: blocks (one cluster) sharing a (batch, head, row tile)'s keys
+    chunk: int = 0  # B11: keys a split takes (bf16: whole 64-key tiles)
 
 
 def launch_plan(B: int, H: int, S: int, d: int, dtype: torch.dtype) -> LaunchPlan:
@@ -72,6 +85,46 @@ def launch_plan(B: int, H: int, S: int, d: int, dtype: torch.dtype) -> LaunchPla
     # Q (rows d+4), one 32-key K tile (rows d+1) and V tile, P (rows 36), all f32
     smem = 4 * (BLOCK_Q * (d + 4) + 32 * (d + 1) + 32 * d + BLOCK_Q * 36)
     return LaunchPlan("fma", BLOCK_Q, 32, 128, (row_tiles, H, B), smem)
+
+
+CROSS_MAX_SPLITS = 8  # the portable thread-block cluster size
+CROSS_BLOCKS_PER_SM = 2  # B11 blocks an SM (xa::kBlocksPerSM)
+
+
+def cross_key_tile(d: int) -> int:
+    """Keys of a B11 K/V tile (xa::key_tile): 128 at d = 64, 64 at d = 128."""
+    return 128 if d == 64 else 64
+
+
+def cross_smem(d: int) -> int:
+    """Shared memory of a B11 bf16 block (xa::Smem): Q's 64 rows, the ring of K and V
+    tiles (later the partials: d/2 + 4 floats a consumer thread), the mbarriers, and
+    1024 bytes of alignment slack."""
+    stages = 3 if d == 64 else 2
+    ring = max(stages * 2 * 2 * cross_key_tile(d) * d, 128 * (d // 2 + 4) * 4)
+    return 1024 + 2 * BLOCK_Q * d + ring + 8 * (1 + 2 * stages)
+
+
+def cross_plan(B: int, H: int, KV: int, S: int, Sk: int, d: int, dtype: torch.dtype) -> LaunchPlan:
+    """B11's forward plan (no CUDA needed).
+
+    bf16: a block is one consumer warpgroup of 64 query rows and a producer
+    warp; the keys of each (batch, head, row tile) split over a cluster of
+    1-8 blocks, each taking whole key tiles and none empty, as many as fit
+    one wave of two blocks an SM (a second wave cost more than the splits
+    saved, PERF.md); grid (splits, row tiles x H, B), the heads fastest so
+    that a KV head's g query heads meet its tiles in L2.
+    f32: B2's FMA plan, one block's key loop over all Sk keys.
+    """
+    if dtype != torch.bfloat16:
+        return dataclasses.replace(launch_plan(B, H, S, d, dtype), chunk=Sk)
+    bk = cross_key_tile(d)
+    row_tiles, key_tiles = -(-S // BLOCK_Q), -(-Sk // bk)
+    splits = max(1, min(CROSS_MAX_SPLITS, key_tiles, CROSS_BLOCKS_PER_SM * _build.NUM_SMS // (B * H * row_tiles)))
+    tiles = -(-key_tiles // splits)
+    splits = -(-key_tiles // tiles)  # no split without a key
+    return LaunchPlan("wgmma", BLOCK_Q, bk, 160, (splits, row_tiles * H, B), cross_smem(d),
+                      3 if d == 64 else 2, splits, bk * tiles)
 
 
 def dq_warpgroups(S: int) -> int:
@@ -162,9 +215,11 @@ def _entries():
         fn.argtypes = [i, i] + [p] * 8 + [i, i, i, i, i, p, f, i, i, i, i, i64, p]
     dec = lib.flash_attention_decode
     dec.argtypes = [i, i, p, p, p, p, i, i, i, i] + [i64] * 6 + [f, i, i, i, i, i, p]
-    for fn in (fwd, *bwd, dec):
+    cross = lib.flash_attention_cross_fwd
+    cross.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i] + [i64] * 12 + [f] + [i] * 6 + [i64, p]
+    for fn in (fwd, *bwd, dec, cross):
         fn.restype = ctypes.c_int
-    return fwd, *bwd, dec
+    return fwd, *bwd, dec, cross
 
 
 def _check_layout(name: str, t: torch.Tensor) -> None:
@@ -191,39 +246,51 @@ def flash_attention(
 
     With ``lse`` it returns (out, lse [B, H, S] f32), the natural-log
     log-sum-exp of each row's scaled scores, which the backward needs.
-    Keys of their own length (Sk != S) are taken non-causal only.
+    bf16 keys of another length than q's go to ``cross_attention``; f32
+    ones are taken non-causal.
     """
     global launches
-    out, row_lse, launched = _forward(q, k, v, causal, lse)
+    if q.dim() == 4 and k.dim() == 4 and q.dtype == torch.bfloat16 and k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attention: bf16 keys of their own length ({k.shape[2]}, q has "
+                         f"{q.shape[2]}) are cross_attention's")
+    out, row_lse, launched = _forward(q, k, v, causal, lse, cross=False)
     launches += launched
     return (out, row_lse) if lse else out
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, lse: bool = False):
-    """B11: ``flash_attention`` non-causal over k, v [B, KV, Sk, d] of any length,
-    counted apart from B2's launches."""
+    """B11: non-causal attention of q [B, H, S, d] over k, v [B, KV, Sk, d] of any
+    length, through its own entry point and ``cross_plan``, counted apart from B2's
+    launches; returns as ``flash_attention`` does."""
     global cross_launches
-    out, row_lse, launched = _forward(q, k, v, False, lse)
+    out, row_lse, launched = _forward(q, k, v, False, lse, cross=True)
     cross_launches += launched
     return (out, row_lse) if lse else out
 
 
-def _forward(q, k, v, causal: bool, lse: bool):
-    """-> (out, lse or None, 1 if the kernel launched else 0)."""
+def _forward(q, k, v, causal: bool, lse: bool, cross: bool):
+    """-> (out, lse or None, 1 if the kernel launched else 0), by B2's entry or (``cross``)
+    B11's."""
     _check_args(q, k, v, causal)
     B, H, S, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)  # keeps q's layout: a [B,S,H,d] view gives a [B,S,H,d] buffer
     row_lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if lse else None
     if B * H * S == 0:
         return out, row_lse, 0
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_layout(name, t)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    plan = launch_plan(B, H, S, d, q.dtype)
-    err = _entries()[0](DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), row_lse.data_ptr() if lse else None, B, H, k.shape[1], S,
-                        k.shape[2], *strides, 1.0 / math.sqrt(d), int(causal), *plan.grid,
-                        plan.smem_bytes, torch._C._cuda_getCurrentRawStream(q.device.index))
+    args = [DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            row_lse.data_ptr() if lse else None, B, H, KV, S, Sk,
+            *[s for t in (q, k, v, out) for s in t.stride()[:3]], 1.0 / math.sqrt(d)]
+    if cross:
+        plan = cross_plan(B, H, KV, S, Sk, d, q.dtype)
+        args += [plan.block_q, plan.splits, plan.chunk]
+    else:
+        plan = launch_plan(B, H, S, d, q.dtype)
+        args.append(int(causal))
+    err = _entries()[4 if cross else 0](*args, *plan.grid, plan.smem_bytes,
+                                        torch._C._cuda_getCurrentRawStream(q.device.index))
     _build.check("flash_attention", err)
     return out, row_lse, 1
 
@@ -375,8 +442,8 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool)
     if S > 0 and Sk == 0:
         raise ValueError("flash_attention needs at least one key")
     _check_heads(H, KV, d, q, k, v)
-    if -(-S // BLOCK_Q) > 65535:
-        raise ValueError(f"grid limit: ceil(S/{BLOCK_Q}) must be <= 65535")
+    if -(-S // BLOCK_Q) * H > 65535:
+        raise ValueError(f"grid limit: ceil(S/{BLOCK_Q}) * H must be <= 65535")
 
 
 def _check_heads(H: int, KV: int, d: int, *ts: torch.Tensor) -> None:

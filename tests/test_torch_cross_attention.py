@@ -12,12 +12,21 @@ JAX package on the same numpy inputs:
   at pos = Sk - 1, as whisper's decode step calls it: the same tolerances;
 - the gradients through the layer against ``jax.vjp``: 1e-4 of the
   reference gradient's largest magnitude (summation order only, f32);
-- the launch plans computed in Python: the forward's grid over S, the
-  backward's dq grid over S and dkdv grid over Sk with warpgroups chosen by
-  each length, and the decode's split of the keys over a cluster;
+- the launch plans computed in Python: the forward's ``cross_plan`` (the
+  keys of each (batch, head, row tile) split over a cluster of 1-8 blocks,
+  whole key tiles, none empty, as many as one wave of two blocks an SM
+  holds), the backward's dq grid over S and dkdv grid over Sk with
+  warpgroups chosen by each length, and the decode's split of the keys over
+  a cluster;
+- the forward kernel's split-and-combine algorithm, modelled here in f32
+  (per split an online softmax over 64-key tiles, then a fixed-order
+  combine), against ``jl.multihead_attention`` and the row log-sum-exp
+  through JAX at Sk 1500 (1250-2000 for the split counts 1500 keys cannot
+  take) and 1-8 splits: 1e-5;
 - that ``ops`` sends CPU tensors to the plain versions and launches nothing,
-  and that the kernel wrappers refuse CPU tensors and causal attention over
-  keys of another length.
+  that the kernel wrappers refuse CPU tensors and causal attention over keys
+  of another length, and that B2's ``flash_attention`` refuses bf16 keys of
+  another length (they are ``cross_attention``'s).
 
 The card's counterparts are in tests/test_torch_gpu.py (marker ``gpu``).
 """
@@ -198,8 +207,8 @@ CROSS_PLAN_SHAPES = [(4, 16, 16, 128, 1500, 64), (2, 16, 16, 448, 1500, 64), (2,
 @pytest.mark.parametrize("B,H,KV,S,Sk,d", CROSS_PLAN_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cross_attention_launch_plans(B, H, KV, S, Sk, d, dtype):
-    fwd = flash_mod.launch_plan(B, H, S, d, dtype)  # query tiles of S; the key loop runs over Sk
-    assert math.prod(fwd.grid) == H * B * -(-S // 64)
+    fwd = flash_mod.cross_plan(B, H, KV, S, Sk, d, dtype)  # query tiles of S, each split's keys of Sk
+    assert math.prod(fwd.grid) == fwd.splits * H * B * -(-S // fwd.block_q)
     dq, dkdv = flash_mod.bwd_plans(B, H, KV, S, d, dtype, Sk)
     assert dq.grid == (H, -(-S // dq.block_q), B)  # a block per (query head, row tile of S)
     assert dkdv.grid == (-(-Sk // dkdv.block_k), KV, B)  # a block per (KV head, key tile of Sk)
@@ -213,6 +222,111 @@ def test_cross_attention_launch_plans(B, H, KV, S, Sk, d, dtype):
         assert dkdv.block_k == (128 if Sk > 256 and d == 64 else 64)
     for plan in (fwd, dq, dkdv):
         assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
+
+
+WHISPER_CROSS = [(4, 16, 16, 128, 1500, 64), (2, 16, 16, 448, 1500, 64), (4, 16, 16, 159, 1500, 64)]
+CROSS_FWD_PLAN_SHAPES = sorted(set(CROSS_PLAN_SHAPES + WHISPER_CROSS) | {
+    (2, 8, 2, S, Sk, d) for S in (1, 65, 300) for Sk in (1, 63, 64, 65, 1500) for d in (64, 128)})
+
+
+@pytest.mark.parametrize("B,H,KV,S,Sk,d", CROSS_FWD_PLAN_SHAPES)
+def test_cross_forward_plan_splits_whole_tiles_over_a_cluster(B, H, KV, S, Sk, d):
+    plan = flash_mod.cross_plan(B, H, KV, S, Sk, d, torch.bfloat16)
+    bk = flash_mod.cross_key_tile(d)  # 128 keys at d 64, 64 at d 128
+    assert (plan.route, plan.block_q, plan.block_k, plan.threads) == ("wgmma", 64, bk, 160)
+    assert 1 <= plan.splits <= flash_mod.CROSS_MAX_SPLITS  # a portable cluster
+    assert plan.chunk % bk == 0 and plan.chunk % 64 == 0  # whole key tiles
+    assert (plan.splits - 1) * plan.chunk < Sk <= plan.splits * plan.chunk  # every split holds keys
+    # the splits of a (batch, head, row tile) adjacent, then the heads, a KV head's g together
+    groups = B * H * -(-S // 64)
+    assert plan.grid == (plan.splits, -(-S // 64) * H, B)
+    stages = 3 if d == 64 else 2
+    ring = max(stages * 2 * 2 * bk * d, 128 * (d // 2 + 4) * 4)  # K/V tiles, then the partials
+    assert plan.smem_bytes == 1024 + 2 * 64 * d + ring + 8 * (1 + 2 * stages)
+    assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024  # two blocks an SM, 1 KB reserved each
+    assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
+    # one wave of two blocks an SM, as many splits as it holds (a second wave costs more)
+    slots, key_tiles = flash_mod.CROSS_BLOCKS_PER_SM * _build.NUM_SMS, -(-Sk // bk)
+    want = max(1, min(flash_mod.CROSS_MAX_SPLITS, key_tiles, slots // groups))
+    assert plan.splits == -(-key_tiles // -(-key_tiles // want))  # then none left empty
+    assert math.prod(plan.grid) <= max(slots, groups)
+    if (B, H, KV, S, Sk, d) in WHISPER_CROSS:  # whisper: more than half of the slots filled
+        assert math.prod(plan.grid) > slots // 2
+    if (B, S) == (4, 128):  # the prefill: 128 groups of rows, two splits each
+        assert (plan.splits, plan.chunk) == (2, 768)
+    f32 = flash_mod.cross_plan(B, H, KV, S, Sk, d, torch.float32)  # the FMA template, one split
+    assert (f32.route, f32.splits) == ("fma", 1) and f32.chunk >= Sk
+    assert f32.grid == flash_mod.launch_plan(B, H, S, d, torch.float32).grid
+
+
+def split_combine(q, k, v, splits):
+    """The bf16 kernel's algorithm in f32 numpy, without its bf16 roundings: q [B, H, S, d],
+    k, v [B, KV, Sk, d] -> (out [B, H, S, d], lse [B, H, S]).  The keys are cut into
+    ``splits`` chunks of whole key tiles (128 keys at d 64); each chunk runs an online softmax tile by tile
+    (log2 units of the scaled scores), leaving (m, l, unnormalised O); the chunks are then
+    combined in order, chunk 0 first."""
+    B, H, S, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    scale_log2 = np.float32(math.log2(math.e) / math.sqrt(d))
+    bk = flash_mod.cross_key_tile(d)
+    tiles = -(-Sk // bk)
+    chunk = bk * -(-tiles // splits)
+    assert (splits - 1) * chunk < Sk <= splits * chunk
+    kh = np.repeat(k, H // KV, axis=1)  # a KV head's g query heads read its keys
+    vh = np.repeat(v, H // KV, axis=1)
+    parts = []
+    for sp in range(splits):
+        m = np.full((B, H, S), -np.inf, np.float32)
+        l = np.zeros((B, H, S), np.float32)
+        o = np.zeros((B, H, S, d), np.float32)
+        for k0 in range(sp * chunk, min(Sk, sp * chunk + chunk), bk):
+            sc = np.einsum("bhsd,bhkd->bhsk", q, kh[:, :, k0:k0 + bk]).astype(np.float32)
+            mx = np.maximum(m, sc.max(-1) * scale_log2)
+            p = np.exp2(sc * scale_log2 - mx[..., None]).astype(np.float32)
+            alpha = np.exp2(m - mx).astype(np.float32)
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + np.einsum("bhsk,bhkd->bhsd", p, vh[:, :, k0:k0 + bk])
+            m = mx
+        parts.append((m, l, o))
+    mx = parts[0][0]
+    for m, _, _ in parts[1:]:
+        mx = np.maximum(mx, m)
+    l_all = np.zeros_like(mx)
+    o_all = np.zeros_like(parts[0][2])
+    for m, l, o in parts:
+        w = np.exp2(m - mx).astype(np.float32)
+        l_all = l_all + l * w
+        o_all = o_all + o * w[..., None]
+    return o_all / l_all[..., None], (mx + np.log2(l_all)) * np.float32(math.log(2))
+
+
+# 1500 keys are 12 tiles of 128, which no 5, 7 or 8 chunks of whole tiles share without one
+# empty: those splits are held at 10, 14 and 16 tiles
+@pytest.mark.parametrize("splits,Sk", [(n, 1500) for n in (1, 2, 3, 4, 6)] + [(5, 1250), (7, 1750), (8, 2000)])
+def test_split_combine_matches_jax(splits, Sk):
+    """The forward kernel's split-and-combine, modelled in f32, against the JAX layer (out,
+    projected by wo) and the rows' log-sum-exp through JAX, at whisper's 1500 keys (and
+    near it where 1500 cannot be split so): 1e-5."""
+    jcfg, tcfg = cfg_pair(4, 2)
+    rng = np.random.default_rng(100 + splits)
+    jp, _ = params(rng, jcfg, "float32")
+    B, H, KV, hd = 1, 4, 2, jcfg.resolved_head_dim
+    x = rng.standard_normal((B, S, jcfg.d_model), dtype=np.float32)
+    k = rng.standard_normal((B, Sk, KV, hd), dtype=np.float32)
+    v = rng.standard_normal((B, Sk, KV, hd), dtype=np.float32)
+    pos = jnp.asarray(np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)))
+
+    def jfn(p, x, k, v):
+        out = jl.multihead_attention(p, x, pos, jcfg, kv_override=(k, v), causal=False, use_rope=False)
+        qg = (x @ p["wq"]).reshape(B, S, KV, H // KV, hd)
+        scores = jnp.einsum("bqngd,bknd->bngqk", qg, k) / math.sqrt(hd)
+        return out, jax.nn.logsumexp(scores, axis=-1).reshape(B, H, S), x @ p["wq"]
+
+    want, want_lse, q = (np.asarray(a) for a in jax.jit(jfn)(jp, x, k, v))
+    got, lse = split_combine(q.reshape(B, S, H, hd).transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
+                             v.transpose(0, 2, 1, 3), splits)
+    close(got.transpose(0, 2, 1, 3).reshape(B, S, H * hd) @ np.asarray(jp["wo"]), want, 1e-5)
+    close(lse, want_lse, 1e-5)
 
 
 @pytest.mark.parametrize("B,H,KV,n,d", [(4, 16, 16, 1500, 64), (1, 16, 16, 1500, 64), (4, 16, 4, 1500, 128),
@@ -270,6 +384,24 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_causal_keys_of_another_length():
         flash_mod.cross_attention_bwd(q, k, k, q, torch.zeros(1, 2, 8), q)
     with pytest.raises(ValueError, match="CUDA"):
         flash_mod.flash_decode(q[:, :, :1], torch.zeros(1, 9, 128), torch.zeros(1, 9, 128), 9)
+    assert not any(ops.launch_counts()[n] for n in ops.launch_counts())
+
+
+def test_b2_refuses_bf16_keys_of_another_length_and_b11_takes_any():
+    """Keys of their own length in bf16 are cross_attention's: B2's flash_attention refuses
+    them before it looks for a card, and B11 still takes keys of q's own length."""
+    q = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 9, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="cross_attention"):
+        flash_mod.flash_attention(q, k, k, causal=False)
+    with pytest.raises(ValueError, match="CUDA"):  # the same length: only the CPU is refused
+        flash_mod.cross_attention(q, q, q)
+    plan = flash_mod.cross_plan(1, 2, 2, 8, 8, 64, torch.bfloat16)
+    assert (plan.splits, plan.chunk, plan.grid) == (1, 128, (1, 2, 1))
+    rng = np.random.default_rng(5)
+    qf = torch.from_numpy(rng.standard_normal((2, 4, S, 64), dtype=np.float32))
+    kf = torch.from_numpy(rng.standard_normal((2, 2, S, 64), dtype=np.float32))
+    assert torch.equal(ops.cross_attention_op(qf, kf, kf), ref.flash_attention_ref(qf, kf, kf, causal=False))
     assert not any(ops.launch_counts()[n] for n in ops.launch_counts())
 
 

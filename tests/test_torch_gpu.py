@@ -225,6 +225,56 @@ def test_cross_attention_kernels(cuda, B, H, KV, S, Sk, d, dtype):
         assert torch.equal(a, b), name
 
 
+# B11's bf16 forward at each split count its plan can choose (1-8 blocks a cluster), with one
+# row tile and five (S 64, 300; d 64: 128-key tiles) and at d 128 (64-key tiles): a key tile a
+# split, the last one ragged
+CROSS_SPLITS = [(s, S, d) for s in range(1, 9) for S, d in ((64, 64), (300, 64), (100, 128))]
+
+
+@pytest.mark.parametrize("splits,S,d", CROSS_SPLITS)
+def test_cross_forward_at_every_split_count(cuda, splits, S, d):
+    B, H, KV, Sk = 1, 2, 2, flash_mod.cross_key_tile(d) * splits - 5
+    plan = flash_mod.cross_plan(B, H, KV, S, Sk, d, torch.bfloat16)
+    assert plan.splits == splits and plan.chunk == flash_mod.cross_key_tile(d)
+    rng = np.random.default_rng(splits * 1000 + S + d)
+    q, k, v = (tensor(rng, (B, n, H_, d), torch.bfloat16, cuda).transpose(1, 2)
+               for n, H_ in ((S, H), (Sk, KV), (Sk, KV)))
+    before = ops.launch_counts()["cross_attention"]
+    out, lse = flash_mod.cross_attention(q, k, v, lse=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cross_attention"] == before + 1
+    assert out.stride() == q.stride()
+    close(out, ref.flash_attention_ref(q, k, v, causal=False), 2e-2)
+    scores = torch.einsum("bhsd,bhkd->bhsk", q.float(), k.float()) / math.sqrt(d)  # KV == H
+    want = torch.logsumexp(scores, -1)
+    assert ((lse - want).abs() / want.abs().clamp_min(1.0)).max().item() <= 1e-5
+    again, lse2 = flash_mod.cross_attention(q, k, v, lse=True)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)  # a fixed combine order
+
+
+def test_cross_forward_refuses_a_plan_not_its_own(cuda):
+    """The entry checks cross_plan's splits, chunk, grid and shared memory."""
+    q = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(1, 2, 1000, 64, dtype=torch.bfloat16, device=cuda)
+    out = torch.empty_like(q)
+    plan = flash_mod.cross_plan(1, 2, 2, 64, 1000, 64, torch.bfloat16)
+    assert (plan.splits, plan.chunk) == (8, 128)
+    entry = flash_mod._entries()[4]
+    for bad in (dataclasses.replace(plan, chunk=plan.chunk + 128),  # a split left empty
+                dataclasses.replace(plan, chunk=plan.chunk - 64),  # not whole 128-key tiles
+                dataclasses.replace(plan, grid=(7, *plan.grid[1:]), splits=7),  # keys no split takes
+                dataclasses.replace(plan, block_q=128),  # one warpgroup of 64 rows a block
+                dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 16),
+                dataclasses.replace(plan, grid=(plan.splits, 1, 1))):
+        err = entry(1, 64, q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(), None, 1, 2, 2,
+                    64, 1000, *[x for t in (q, k, k, out) for x in t.stride()[:3]], 0.125,
+                    bad.block_q, bad.splits, bad.chunk, *bad.grid, bad.smem_bytes,
+                    torch.cuda.current_stream().cuda_stream)
+        assert err != 0, bad
+    with pytest.raises(ValueError, match="cross_attention"):
+        flash_mod.flash_attention(q, k, k, causal=False)  # B2 takes bf16 keys of q's length only
+
+
 # B11's decode: whisper's [4, 16, 1, 64] over [4, 1500, 1024] caches, fewer keys than the
 # cache, GQA g 4 and 7, head dim 128
 DECODE_SHAPES = [(4, 16, 16, 1500, 1500, 64), (4, 16, 16, 1500, 700, 64), (1, 16, 16, 1500, 1500, 64),

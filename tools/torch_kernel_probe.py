@@ -15,6 +15,9 @@
     python3 tools/torch_kernel_probe.py ssd-roles   # ssd_intra_chunk's y and state blocks alone
     python3 tools/torch_kernel_probe.py ssm-check   # mamba2's bf16 decode-vs-forward reading
     python3 tools/torch_kernel_probe.py live-rate   # live mode's payload loop on 1 and 4 threads
+    python3 tools/torch_kernel_probe.py cross [--tree DIR]  # B11's forward at whisper's shapes
+    python3 tools/torch_kernel_probe.py fwd-bounds  # B2's bf16 forward at two launch bounds
+    python3 tools/torch_kernel_probe.py cross-parts  # B11's forward with parts taken out
 
 ``time`` checks each kernel against its plain version and times it as
 ``chip_smoke.py`` does (CUDA events behind a device sleep), at the serving
@@ -92,7 +95,31 @@ with changes far below bf16's precision.
 ``live-rate`` runs live mode's RMSNorm payload (f32 [64, 64], one CUDA
 stream a pool, a launch and a stream wait an iteration) for 0.25 s on one
 thread, then on four threads at once, each on its own stream, and prints
-the iterations a second of each thread.  Run from the repository root.
+the iterations a second of each thread.
+``cross`` holds B11's forward (``flash_attention.cross_attention``) against
+the plain version at whisper's prefill, LM and check shapes and the chip
+phases' tails (bf16 and f32; out, and lse against the plain log-sum-exp),
+calls it twice for bit-identical output, and times it at the prefill and
+LM shapes and at whisper's encoder shape S = Sk = 1500 (a shape it is not
+routed at) beside ``sdpa``, the plain version and the bound, each the
+median of three in turns, with B11's backward pair and decode (which the
+forward's redesign leaves as they are); where the tree's module has ``cross_plan`` it
+prints each plan and times every split count the kernel
+takes at the prefill and LM shapes through the entry point directly.
+``--tree`` as for ``bwd``: run it on the parent and on this tree in turns.
+``cross-parts`` builds variants of ``csrc/flash_attention.cu`` into
+``build/probe`` whose B11 forward leaves out one part of its work (the K
+and V loads after the ring's first fill, the exp2 of the softmax, the P V
+products, or every key tile but a block's first: what is left is the
+block's fixed cost), and one that launches a cluster at one split too, and
+times each beside the whole kernel at whisper's prefill
+and LM shapes, through the plan of ``cross_plan``, in turns; the variants'
+outputs are wrong by design.
+``fwd-bounds`` builds a variant of ``csrc/flash_attention.cu`` into
+``build/probe`` whose bf16 forward template states no blocks an SM (the
+kernel as it is states four at d = 64) and times B2's rows (llama score,
+the d-128 score rows, S 2048) with each, in turns, outputs compared bit
+for bit.  Run from the repository root.
 """
 
 from __future__ import annotations
@@ -113,8 +140,9 @@ sys.path[:0] = [str(TREE / "src"), str(ROOT)]
 import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    BF16_TOL, GRAD_TOL, assert_close, cuda_ms, flash_bound, flash_bwd_bounds, grad_err, moe_bound,
-    moe_bwd_bounds, rmsnorm_bwd_bounds, ssd_bound, ssd_bwd_bounds)
+    BF16_TOL, FLASH_F32_TOL, GRAD_TOL, assert_close, cross_lse_err, cuda_ms, flash_bound,
+    flash_bwd_bounds, grad_err, moe_bound, moe_bwd_bounds, rmsnorm_bwd_bounds, ssd_bound,
+    ssd_bwd_bounds)
 from repro_torch.kernels import _build, ops, ref, ssd_scan  # noqa: E402
 
 H, HD, N = 24, 64, 128  # mamba2-130m
@@ -133,7 +161,8 @@ def time_kernels(gen):
     import torch.nn.functional as F
 
     for B, Hq, KV, S, d, causal in [(8, 32, 8, 160, 64, True), (8, 24, 8, 160, 64, True),
-                                    (4, 15, 5, 128, 64, True), (4, 32, 8, 2048, 64, True),
+                                    (4, 15, 5, 128, 64, True), (8, 32, 8, 160, 128, True),
+                                    (8, 32, 2, 160, 128, True), (4, 32, 8, 2048, 64, True),
                                     (4, 32, 8, 2048, 64, False), (2, 8, 2, 1000, 128, True),
                                     (4, 16, 16, 1500, 64, False)]:
         q, k, v = (torch.randn(B, h, S, d, generator=gen, device=gen.device).bfloat16()
@@ -936,11 +965,209 @@ def live_rate(gen):
               f"a second a stream")
 
 
+CROSS_CHECKS = [(4, 16, 16, 128, 1500, 64), (2, 16, 16, 448, 1500, 64), (4, 16, 16, 159, 1500, 64),
+                (1, 16, 16, 159, 1500, 64), (2, 4, 4, 1, 1500, 64), (2, 8, 2, 65, 63, 64),
+                (2, 14, 2, 65, 1, 64), (2, 14, 2, 160, 1500, 64), (2, 8, 2, 100, 1500, 128),
+                (2, 14, 2, 160, 1500, 128)]
+CROSS_TIMED = [(4, 16, 16, 128, 1500, 64, "whisper prefill"), (2, 16, 16, 448, 1500, 64, "whisper LM"),
+               (4, 16, 16, 1500, 1500, 64, "whisper encoder shape, not routed")]
+
+
+def _cross_views(gen, B, Hq, KV, S, Sk, d, dt):
+    """q, k, v in the model's layout: [B, S, H, d] and [B, Sk, KV, d] memory as views."""
+    return [torch.randn(B, n, h, d, generator=gen, device=gen.device).to(dt).transpose(1, 2)
+            for n, h in ((S, Hq), (Sk, KV), (Sk, KV))]
+
+
+def _cross_plans(fk, B, Hq, KV, S, Sk, d):
+    """Every bf16 plan the B11 kernel takes at a shape: 1-8 splits, none empty."""
+    import dataclasses as dc
+
+    out, key_tiles = [], -(-Sk // fk.cross_key_tile(d))
+    base = fk.cross_plan(B, Hq, KV, S, Sk, d, torch.bfloat16)
+    for splits in range(1, 9):
+        tiles = -(-key_tiles // splits)
+        if -(-key_tiles // tiles) == splits:
+            out.append(dc.replace(base, grid=(splits, *base.grid[1:]), splits=splits,
+                                  chunk=base.block_k * tiles))
+    return out
+
+
+def _cross_call(entries, q, k, v, out, plan):
+    """One launch of B11's entry (of the library ``entries`` binds) with a given plan, into out."""
+    B, Hq, S, d = q.shape
+    args = [1, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, Hq, k.shape[1],
+            S, k.shape[2], *[s for t in (q, k, v, out) for s in t.stride()[:3]], 1.0 / d ** 0.5,
+            plan.block_q, plan.splits, plan.chunk, *plan.grid, plan.smem_bytes,
+            torch._C._cuda_getCurrentRawStream(q.device.index)]
+    _build.check("flash_attention", entries[4](*args))
+
+
+def time_cross(gen):
+    """B11's forward: checks, in-turn times beside sdpa, and (this tree) every plan it takes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fk
+
+    print(f"[cross] repro_torch from {Path(fk.__file__).resolve().parents[2]}")
+    has_plan = hasattr(fk, "cross_plan")
+    for B, Hq, KV, S, Sk, d in CROSS_CHECKS:
+        for dt in (torch.bfloat16, torch.float32):
+            if dt == torch.float32 and (S, Sk) not in ((448, 1500), (65, 63)):
+                continue
+            q, k, v = _cross_views(gen, B, Hq, KV, S, Sk, d, dt)
+            out, lse = fk.cross_attention(q, k, v, lse=True)
+            again, lse2 = fk.cross_attention(q, k, v, lse=True)
+            if not (torch.equal(out, again) and torch.equal(lse, lse2)):
+                raise AssertionError(f"cross_attention B{B} H{Hq} S{S} Sk{Sk} d{d} {dt}: two calls differ")
+            err = assert_close(f"cross B{B} H{Hq} KV{KV} S{S} Sk{Sk} d{d} {dt}", out,
+                               ref.flash_attention_ref(q, k, v, False),
+                               BF16_TOL if dt == torch.bfloat16 else FLASH_F32_TOL)
+            lse_err = cross_lse_err(q, k, lse)
+            plan = fk.cross_plan(B, Hq, KV, S, Sk, d, dt) if has_plan else None
+            print(f"[cross] B{B} H{Hq} KV{KV} S{S} Sk{Sk} d{d} {str(dt)[6:]}: err {err:.2e}, lse rel err "
+                  f"{lse_err:.2e}, two calls bit-identical"
+                  + (f"; plan {plan.route} {plan.block_q} rows, {plan.splits} splits of {plan.chunk} "
+                     f"keys, grid {plan.grid}, {plan.threads} threads, {plan.smem_bytes} B" if plan else ""))
+    # B11's backward pair at the LM shape and its decode over [4, 1500, 1024] caches, which
+    # this slice leaves as they are: in turns with the other tree's
+    q, k, v = _cross_views(gen, 2, 16, 16, 448, 1500, 64, torch.bfloat16)
+    dout = torch.randn_like(q)
+    o, lse = fk.cross_attention(q, k, v, lse=True)
+    qd = torch.randn(4, 1, 16, 64, generator=gen, device=gen.device).bfloat16().transpose(1, 2)
+    kc, vc = (torch.randn(4, 1500, 1024, generator=gen, device=gen.device).bfloat16() for _ in range(2))
+    ms = medians({"bwd": lambda: fk.cross_attention_bwd(q, k, v, o, lse, dout),
+                  "decode": lambda: fk.flash_decode(qd, kc, vc, 1500)})
+    print(f"[cross] B11 backward dq + dkdv B2 H16 S448 Sk1500: {ms['bwd']:.4f} ms; decode B4 H16 over "
+          f"1500 keys: {ms['decode']:.4f} ms")
+    del q, k, v, dout, o, lse, qd, kc, vc
+    for B, Hq, KV, S, Sk, d, what in CROSS_TIMED:
+        q, k, v = _cross_views(gen, B, Hq, KV, S, Sk, d, torch.bfloat16)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        ms = medians({"kernel": lambda: fk.cross_attention(q, k, v),
+                      "sdpa": lambda: F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True)})
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, False), iters=5)
+        bnd = flash_bound(B, Hq, KV, S, d, False, 2, Sk)
+        print(f"[cross] B{B} H{Hq} KV{KV} S{S} Sk{Sk} d{d} bf16 {what}: kernel {ms['kernel']:.4f} ms, "
+              f"sdpa {ms['sdpa']:.4f} ms, plain {plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if not has_plan:
+            continue
+        want = ref.flash_attention_ref(q, k, v, False)
+        calls = {}
+        for plan in _cross_plans(fk, B, Hq, KV, S, Sk, d):
+            out = torch.empty_like(q)
+            _cross_call(fk._entries(), q, k, v, out, plan)
+            assert_close(f"cross plan of {plan.splits} splits", out, want, BF16_TOL)
+            calls[(plan.block_q, plan.splits)] = lambda out=out, plan=plan: _cross_call(fk._entries(), q, k, v, out, plan)
+        ms = medians(calls)
+        print(f"[cross]   every plan at {what} (splits: ms): "
+              + ", ".join(f"{s} {t:.4f}" for (_, s), t in ms.items()))
+
+
+def cross_parts(gen):
+    from repro_torch.kernels import flash_attention as fk
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    i0, i1 = src.index("namespace xa {"), src.index("}  // namespace xa")
+    xa = src[i0:i1]
+    loads = "        mbar_expect_tx(full + s, 2 * BK * D * 2);\n"
+    exp = "          sc[i] = exp2_ftz(x);\n"
+    pv = "wgmma_rs_n64<1>(acc[c], pa[kk], desc_mn(Vt, BK, c, kk));"
+    tiles = "n_tiles = (min(Sk, k_lo + chunk) - k_lo + BK - 1) / BK;"
+    attrs = "  cfg.numAttrs = grid.x > 1 ? 1 : 0;\n"
+    launch = src[i1:]
+    if any(xa.count(p) != 1 for p in (loads, exp, pv, tiles)) or launch.count(attrs) != 1:
+        raise RuntimeError("flash_attention.cu no longer has the parts this probe takes out")
+    # after the ring's first fill the producer only signals each stage: the tiles stay as they are
+    no_loads = xa.replace(loads, "        if (it >= ST) { mbar_arrive(full + s); continue; }\n" + loads)
+    variants = {"whole": xa, "no K/V loads after the first fill": no_loads,
+                "no exp2": xa.replace(exp, "          sc[i] = x;\n"),
+                "no P V products": xa.replace(pv, "if (scale_log2 == 12345.f) " + pv),
+                "one key tile a block": xa.replace(tiles, "n_tiles = 1;")}
+    out_dir = ROOT / "build" / "probe" / "cross_parts"
+    jobs = {}
+    sources = {name: src[:i0] + text + launch for name, text in variants.items()}
+    sources["a cluster at one split too"] = src[:i1] + launch.replace(attrs, "  cfg.numAttrs = 1;\n")
+    for i, (name, text) in enumerate(sources.items()):
+        vdir = out_dir / str(i)
+        vdir.mkdir(parents=True, exist_ok=True)
+        (vdir / "flash_attention.cu").write_text(text)
+        (vdir / "hopper.cuh").write_text((_build.CSRC / "hopper.cuh").read_text())
+        _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+        jobs[name] = (vdir, _build._start("flash_attention"))
+    for name, (vdir, job) in jobs.items():
+        if job is not None:
+            with contextlib.redirect_stdout(io.StringIO()):  # ptxas -v reports
+                _build._finish("flash_attention", job)
+    for B, Hq, KV, S, Sk, d, what in CROSS_TIMED[:2]:
+        q, k, v = _cross_views(gen, B, Hq, KV, S, Sk, d, torch.bfloat16)
+        plan = fk.cross_plan(B, Hq, KV, S, Sk, d, torch.bfloat16)
+        calls = {}
+        for name, (vdir, _) in jobs.items():
+            _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+            _build._loaded.pop("flash_attention", None)
+            fk._entries.cache_clear()
+            out = torch.empty_like(q)
+            calls[name] = lambda out=out, e=fk._entries(): _cross_call(e, q, k, v, out, plan)
+            calls[name]()
+        ms = medians(calls)
+        print(f"[cross-parts] B{B} H{Hq} KV{KV} S{S} Sk{Sk} d{d} {what}, plan of {plan.splits} "
+              f"splits: " + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items()))
+
+
+def fwd_bounds(gen):
+    from repro_torch.kernels import flash_attention as fk
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    bound = "__launch_bounds__(kThreads, D == 64 ? 4 : 1)\nflash_fwd_bf16("
+    if src.count(bound) != 1:
+        raise RuntimeError("flash_attention.cu no longer has the launch bound this probe changes")
+    variants = {"4 blocks an SM at d 64": src,
+                "no blocks stated": src.replace(bound, "__launch_bounds__(kThreads)\nflash_fwd_bf16(")}
+    out_dir = ROOT / "build" / "probe" / "fwd_bounds"
+    jobs = {}
+    for i, (name, text) in enumerate(variants.items()):
+        vdir = out_dir / str(i)
+        vdir.mkdir(parents=True, exist_ok=True)
+        (vdir / "flash_attention.cu").write_text(text)
+        (vdir / "hopper.cuh").write_text((_build.CSRC / "hopper.cuh").read_text())
+        _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+        jobs[name] = (vdir, _build._start("flash_attention"))
+    for name, (vdir, job) in jobs.items():
+        if job is not None:
+            _build._finish("flash_attention", job)  # ptxas -v: each variant's registers and spills
+    entries = {}
+    for name, (vdir, _) in jobs.items():
+        _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+        _build._loaded.pop("flash_attention", None)
+        fk._entries.cache_clear()
+        entries[name] = fk._entries()
+    for B, Hq, KV, S, d in [(8, 32, 8, 160, 64), (8, 32, 8, 160, 128), (8, 32, 2, 160, 128),
+                            (4, 32, 8, 2048, 64), (4, 16, 16, 1500, 64)]:
+        causal = S != 1500
+        q, k, v = (torch.randn(B, h, S, d, generator=gen, device=gen.device).bfloat16() for h in (Hq, KV, KV))
+        calls, outs = {}, {}
+        for name, ent in entries.items():
+            out = torch.empty_like(q)
+            plan = fk.launch_plan(B, Hq, S, d, torch.bfloat16)
+            args = [1, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, B, Hq, KV, S, S,
+                    *[s for t in (q, k, v, out) for s in t.stride()[:3]], 1.0 / d ** 0.5, int(causal),
+                    *plan.grid, plan.smem_bytes, torch._C._cuda_getCurrentRawStream(q.device.index)]
+            calls[name] = lambda ent=ent, args=args: _build.check("flash_attention", ent[0](*args))
+            calls[name]()
+            outs[name] = out
+        ms = medians(calls)
+        same = all(torch.equal(o, next(iter(outs.values()))) for o in outs.values())
+        print(f"[fwd-bounds] flash B{B} H{Hq} KV{KV} S{S} d{d} causal={causal}: "
+              + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items()) + f"; bit-identical: {same}")
+
+
 def main() -> int:
     modes = {"time": time_kernels, "moe": time_moe, "moe-parts": moe_parts, "bwd": time_backward,
              "ssd-bwd": time_ssd_bwd, "ssd-sass": ssd_sass, "ssd-parts": ssd_parts, "bwd-parts": bwd_parts, "ssd-roles": ssd_roles, "ssm-check": ssm_check,
              "moe-bwd-tiles": moe_bwd_tiles, "moe-bwd-fma": moe_bwd_fma, "rms-parts": rms_parts,
-             "live-rate": live_rate}
+             "live-rate": live_rate, "cross": time_cross, "fwd-bounds": fwd_bounds,
+             "cross-parts": cross_parts}
     if len(sys.argv) not in (2, 4) or sys.argv[1] not in modes or (len(sys.argv) == 4 and sys.argv[2] != "--tree"):
         print(__doc__, file=sys.stderr)
         return 2
