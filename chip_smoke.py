@@ -60,9 +60,11 @@ Phases, each of which raises on failure (nothing is caught):
    models' runs launch is held against its plain version: by one of phase
    3's cases, or where no case covers it, at once on fresh inputs
    (``hold_at_shape``);
-5. backward kernels: flash attention's dq and dk/dv kernels (B11's too, over
-   keys of their own length: GQA g 1, 4, 7, S and Sk ragged, d 64 and 128,
-   and timed at whisper's LM shape), RMSNorm's dx
+5. backward kernels: flash attention's dq and dk/dv kernels, B11's (keys of
+   their own length: in bf16 its statistics pass and one pass, in f32 B5's
+   kernels at Sk; GQA g 1, 4, 7, S and Sk ragged, d 64 and 128, the dQ
+   partials in shared memory and in the global scratch, and timed at
+   whisper's LM shape, twice bit-identical), RMSNorm's dx
    (a warp per row, and a block per row past D 2048) and dweight kernels,
    moe_matmul's dbuf and dw kernels and ``ssd_intra_chunk``'s kernel and
    reduce against autograd through their plain versions, over grids of
@@ -429,6 +431,30 @@ def flash_bwd_bounds(B, H, KV, S, d, causal, elem, Sk=None):
         bound((2 * q_bytes + 4 * kv_bytes + stat) / HBM_BYTES_PER_S, 8 * d * B * H * pairs / peak),
         bound((4 * q_bytes + 4 * kv_bytes + stat) / HBM_BYTES_PER_S, 10 * d * B * H * pairs / peak),
     )
+
+
+def cross_bwd_bounds(B, H, KV, S, Sk, d, elem):
+    """B11's bf16 backward: (statistics pass, one pass, both) bounds.
+
+    The statistics pass reads o, dO and the lse and writes D and the lse
+    times log2(e) (8 bytes a row); its operations are a few a value.  The
+    one pass reads q, k, v, dO and those stats and writes dQ, dK and dV,
+    with the five products (10 d per scored pair) on the bf16 tensor cores.
+    Both: flash_bwd_bounds' whole backward (the stats are an intermediate).
+    """
+    q_bytes, kv_bytes, rows = B * H * S * d * elem, B * KV * Sk * d * elem, B * H * S
+    peak = BF16_TENSOR_FLOPS if elem == 2 else F32_FLOPS
+    return (bound((2 * q_bytes + 4 * rows + 8 * rows) / HBM_BYTES_PER_S, 4 * d * rows / F32_FLOPS),
+            bound((3 * q_bytes + 4 * kv_bytes + 8 * rows) / HBM_BYTES_PER_S, 10 * d * B * H * S * Sk / peak),
+            flash_bwd_bounds(B, H, KV, S, d, False, elem, Sk)[2])
+
+
+def cross_bwd_stats_ref(out, lse, dout):
+    """The statistics pass's plain version: [2, B, H, S] f32, D = rowsum(dout out) and the
+    lse times log2(e)."""
+    import torch
+
+    return torch.stack([(dout.float() * out.float()).sum(-1), lse * math.log2(math.e)])
 
 
 def rmsnorm_bwd_bounds(T, D, elem):
@@ -1328,7 +1354,8 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0, opt_steps=0):
     training step runs each forward kernel once and, in its backward:
     each norm's dx kernel (the warp route up to D 2048, the block route
     above) and dweight reduce; flash attention's dq and dk/dv kernels, and
-    B11's (the audio decoder's cross-attention);
+    B11's (the audio decoder's cross-attention: in bf16 its statistics pass
+    and one pass, in f32 B5's dq and dk/dv kernels at Sk);
     moe_matmul's dbuf and dw kernels for each of its three products;
     ssd_intra_chunk's kernel and its reduce.  With ``cfg.remat`` the
     backward first runs each layer's body again (``layers.remat_layer``):
@@ -1350,6 +1377,8 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0, opt_steps=0):
     L, steps, full = cfg.num_layers, prefills + decode_steps + train_steps, prefills + train_steps
     ssm, moe, attn = cfg.family in SSM_FAMILIES, cfg.family == "moe", not cfg.attention_free
     cross = L if cfg.family == "audio" else 0  # B11: the decoder's cross-attention
+    # B11's backward: in bf16 its own two kernels, in f32 B5's dq and dkdv at Sk
+    cross_own, cross_b5 = (cross, 0) if cfg.dtype == "bfloat16" else (0, cross)
     if cfg.family == "audio":
         norms, decode_norms, flash = 2 * cfg.encoder_layers + 3 * L + 2, 3 * L + 1, cfg.encoder_layers + L
         finals = 2
@@ -1366,11 +1395,11 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0, opt_steps=0):
         "rmsnorm_bwd_wide": wide * train_steps,
         "rmsnorm_bwd_dweight": norms * train_steps,
         "flash_attention": flash * (full + again),
-        "flash_attention_bwd_dq": flash * train_steps,
-        "flash_attention_bwd_dkdv": flash * train_steps,
+        "flash_attention_bwd_dq": (flash + cross_b5) * train_steps,
+        "flash_attention_bwd_dkdv": (flash + cross_b5) * train_steps,
         "cross_attention": cross * (full + again),
-        "cross_attention_bwd_dq": cross * train_steps,
-        "cross_attention_bwd_dkdv": cross * train_steps,
+        "cross_attention_bwd_stats": cross_own * train_steps,
+        "cross_attention_bwd_fused": cross_own * train_steps,
         "flash_decode": cross * decode_steps,
         "moe_matmul": 3 * L * (steps + again) if moe else 0,
         "moe_matmul_bwd_dbuf": 3 * L * train_steps if moe else 0,
@@ -1449,7 +1478,8 @@ def main() -> int:
     adamw_k._entries()
     print(f"[build] {', '.join(_build.KERNELS)} built and loaded in "
           f"{time.perf_counter() - t0:.1f}s into {_build.BUILD_DIR}; backward entry points: "
-          f"rmsnorm_bwd, rmsnorm_bwd_dweight, flash dq, dkdv (B11's too), flash decode (B11), "
+          f"rmsnorm_bwd, rmsnorm_bwd_dweight, flash dq, dkdv, B11's statistics pass and one pass, "
+          f"flash decode (B11), "
           f"moe_matmul_bwd, "
           f"ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_reduce; AdamW: adamw_norm, "
           f"adamw_norm_finish, adamw_update")
@@ -2039,12 +2069,14 @@ def main() -> int:
                             GRAD_TOL[str(dt)[6:]])])
                     checked += 1
     # B11: keys of their own length, non-causal: GQA g 1, 4 and 7, (S, Sk) with ragged tiles on
-    # either side (one query, one key, S 448 over whisper's 1500 frames, Sk across 256 where
-    # the bf16 dkdv plan goes to two warpgroups), head dim 64 and 128
+    # either side (one query, one key, S 448 over whisper's 1500 frames, Sk across 256), head
+    # dim 64 and 128.  bf16 runs B11's one pass: its dQ partials in shared memory (g 1 up to
+    # S 448 at d 64) or in the global scratch (g 4 and 7, d 128, and S 1024 at g 1)
     t_b11 = time.perf_counter()
     for dt in (torch.bfloat16, torch.float32):
         for g in (1, 4, 7):
-            for S, Sk in ((1, 1500), (65, 63), (65, 1), (160, 1500), (448, 1500), (129, 257)):
+            lengths = [(1, 1500), (65, 63), (65, 1), (160, 1500), (448, 1500), (129, 257)]
+            for S, Sk in lengths + ([(1024, 1500)] if g == 1 else []):
                 for d in (64, 128):
                     q, k, v = leaves(dt, (2, 2 * g, S, d), (2, 2, Sk, d), (2, 2, Sk, d))
                     dout = randn(2, 2 * g, S, d, dtype=dt)
@@ -2225,7 +2257,8 @@ def main() -> int:
         report(f"flash bwd dkdv {label}", errs[1:], tol, m_dkdv, "sdpa grad k, v")
         report(f"flash bwd both {label}", errs, tol, m_all, "sdpa grad q, k, v")
         del q, k, v, dout, out, lse, dq, dk, dv, delta, again, ref_out, lib_out, want
-    # B11's backward at whisper's LM shape (2 x 448 tokens over 1500 frames), timed
+    # B11's backward at whisper's LM shape (2 x 448 tokens over 1500 frames), timed: in bf16
+    # its own two kernels (the row statistics, then the one pass), in f32 B5's dq and dkdv
     t_b11 = time.perf_counter()
     cross_bwd_cases = [(2, 16, 16, 448, 1500, 64, torch.bfloat16, "whisper LM"),
                        (2, 16, 16, 448, 1500, 64, torch.float32, "")]
@@ -2234,44 +2267,46 @@ def main() -> int:
         dout = randn(B, H, S, d, dtype=dt)
         with torch.no_grad():
             out, lse = flash_k.cross_attention(q, k, v, lse=True)
-        dq, delta = flash_k.flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False, cross=True)
-        dk, dv = flash_k.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=False, cross=True)
+        got = flash_k.cross_attention_bwd(q, k, v, out, lse, dout)
         again = flash_k.cross_attention_bwd(q, k, v, out, lse, dout)
-        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):  # no atomics
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):  # sums in a fixed order
             raise AssertionError(f"cross bwd B={B} H={H} S={S} Sk={Sk} {dt}: two calls differ")
         ref_out = ref.flash_attention_ref(q, k, v, False)
         lib_out = F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
         tol = GRAD_TOL[str(dt)[6:]]
         want = torch.autograd.grad(ref_out, (q, k, v), dout, retain_graph=True)
         errs = [grad_err(f"cross bwd d{n} B={B} H={H} S={S} Sk={Sk}", a, b, tol)
-                for n, a, b in zip("qkv", (dq, dk, dv), want)]
-        b_dq, b_dkdv, b_all = flash_bwd_bounds(B, H, KV, S, d, False, q.element_size(), Sk)
-        m_dq = measure(
-            lambda: flash_k.flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=False, cross=True),
-            lambda: torch.autograd.grad(ref_out, (q,), dout, retain_graph=True),
-            lambda: torch.autograd.grad(lib_out, (q,), dout, retain_graph=True), b_dq, plain_iters=5)
-        m_dkdv = measure(
-            lambda: flash_k.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=False, cross=True),
-            lambda: torch.autograd.grad(ref_out, (k, v), dout, retain_graph=True),
-            lambda: torch.autograd.grad(lib_out, (k, v), dout, retain_graph=True), b_dkdv,
-            plain_iters=5)
-        m_all = measure(
-            lambda: flash_k.cross_attention_bwd(q, k, v, out, lse, dout),
-            lambda: torch.autograd.grad(ref_out, (q, k, v), dout, retain_graph=True),
-            lambda: torch.autograd.grad(lib_out, (q, k, v), dout, retain_graph=True), b_all,
-            plain_iters=5)
-        key = (B, H, KV, S, Sk, d, dt)
-        bwd_rows[("cross_attention_bwd_dq",) + key] = row(errs[0][0], m_dq)
-        bwd_rows[("cross_attention_bwd_dkdv",) + key] = row(max(errs[1][0], errs[2][0]), m_dkdv)
-        dq_plan, dkdv_plan = flash_k.bwd_plans(B, H, KV, S, d, dt, Sk)
+                for n, a, b in zip("qkv", got, want)]
+        b_stats, b_fused, b_all = cross_bwd_bounds(B, H, KV, S, Sk, d, q.element_size())
+        plain_all = lambda: torch.autograd.grad(ref_out, (q, k, v), dout, retain_graph=True)  # noqa: E731
+        lib_all = lambda: torch.autograd.grad(lib_out, (q, k, v), dout, retain_graph=True)  # noqa: E731
+        m_all = measure(lambda: flash_k.cross_attention_bwd(q, k, v, out, lse, dout), plain_all, lib_all,
+                        b_all, plain_iters=5)
         label = f"B={B} H={H} KV={KV} S={S} Sk={Sk} d={d} {str(dt)[6:]} {what}"
-        report(f"cross_attention bwd dq {label}", errs[:1], tol, m_dq, "sdpa grad q")
-        report(f"cross_attention bwd dkdv {label}", errs[1:], tol, m_dkdv, "sdpa grad k, v")
-        report(f"cross_attention bwd both {label}", errs, tol, m_all, "sdpa grad q, k, v")
-        print(f"[bwd]   launch plans: dq grid {dq_plan.grid} of {dq_plan.threads} threads, dkdv grid "
-              f"{dkdv_plan.grid} of {dkdv_plan.threads} (key tiles of {dkdv_plan.block_k} over Sk); "
-              f"two calls bit-identical")
-        del q, k, v, dout, out, lse, dq, dk, dv, delta, again, ref_out, lib_out, want
+        if dt == torch.bfloat16:
+            stats, counters = flash_k.cross_attention_bwd_stats(q, k, v, out, lse, dout)
+            n = flash_k.stats_row(S)
+            want_stats = cross_bwd_stats_ref(out, lse, dout)
+            stats_err = max(((stats[i, ..., :S] - want_stats[i]).abs() / want_stats[i].abs().clamp_min(1.0))
+                            .max().item() for i in range(2))  # relative past magnitude 1
+            if stats_err > 1e-4 or stats.shape[-1] != n:
+                raise AssertionError(f"cross bwd stats {label}: err {stats_err:.2e}")
+            m_stats = measure(lambda: flash_k.cross_attention_bwd_stats(q, k, v, out, lse, dout),
+                              lambda: cross_bwd_stats_ref(out, lse, dout), None, b_stats)
+            m_fused = measure(lambda: flash_k.cross_attention_bwd_fused(q, k, v, dout, stats, counters),
+                              plain_all, lib_all, b_fused, plain_iters=5)
+            key = (B, H, KV, S, Sk, d, dt)
+            bwd_rows[("cross_attention_bwd_stats",) + key] = row(stats_err, m_stats)
+            bwd_rows[("cross_attention_bwd_fused",) + key] = row(max(e for e, _ in errs), m_fused)
+            report(f"cross_attention bwd stats {label}", stats_err, 1e-4, m_stats, "(no library call)")
+            report(f"cross_attention bwd one pass {label}", errs, tol, m_fused, "sdpa grad q, k, v")
+            plan = flash_k.cross_bwd_plan(B, H, KV, S, Sk, d)
+            print(f"[bwd]   cross bwd plan: {plan.splits} splits of {plan.key_tiles} key tiles of "
+                  f"{plan.block_k}, grid {plan.grid} of {plan.threads} threads, dQ partials in "
+                  f"{plan.region} ({plan.rows} rows), {plan.smem_bytes} B; statistics pass "
+                  f"{plan.stats_blocks} blocks; two calls bit-identical")
+        report(f"cross_attention bwd both launches {label}", errs, tol, m_all, "sdpa grad q, k, v")
+        del q, k, v, dout, out, lse, got, again, ref_out, lib_out, want
     print(f"[time] B11's timed backward cases took {time.perf_counter() - t_b11:.1f}s")
     rms_bwd_cases = [  # (T, D, dtype, what); past D 2048 the wide (block) route
         (16 * 160, 960, torch.bfloat16, "smollm GRPO"),
@@ -3191,9 +3226,9 @@ def main() -> int:
     for kname, key, src, of in (
         ("flash_attention_bwd_dq", grpo_shape, "flash_attention", "src/repro/kernels/flash_attention.py:72"),
         ("flash_attention_bwd_dkdv", grpo_shape, "flash_attention", "src/repro/kernels/flash_attention.py:72"),
-        ("cross_attention_bwd_dq", (2, 16, 16, 448, 1500, 64, torch.bfloat16), "flash_attention",
+        ("cross_attention_bwd_stats", (2, 16, 16, 448, 1500, 64, torch.bfloat16), "flash_attention",
          "src/repro/models/layers.py:195"),
-        ("cross_attention_bwd_dkdv", (2, 16, 16, 448, 1500, 64, torch.bfloat16), "flash_attention",
+        ("cross_attention_bwd_fused", (2, 16, 16, 448, 1500, 64, torch.bfloat16), "flash_attention",
          "src/repro/models/layers.py:195"),
         ("rmsnorm_bwd", (16 * 160, 960, torch.bfloat16), "rmsnorm", "src/repro/kernels/rmsnorm.py:19"),
         ("rmsnorm_bwd_dweight", (16 * 160, 960, torch.bfloat16), "rmsnorm", "src/repro/kernels/rmsnorm.py:19"),
@@ -3227,7 +3262,8 @@ def main() -> int:
           "(mamba2-130m); backward at the GRPO shape (smollm-360m, 16 x 160): flash B=16 H=15 "
           "KV=5 S=160 d=64 causal (plain and library: the gradient of the same inputs), rmsnorm "
           "[2560, 960]; B11 (whisper-medium's cross-attention over 1500 frames): the forward at "
-          "its prefill B=4 H=16 S=128 Sk=1500 d=64, dq and dkdv at its LM shape B=2 S=448, the "
+          "its prefill B=4 H=16 S=128 Sk=1500 d=64, the backward's statistics pass and one pass at "
+          "its LM shape B=2 S=448 (library: sdpa's whole backward), the "
           "decode over [4, 1500, 1024] caches (library: sdpa on the same views); at the LM "
           "shapes: the wide rmsnorm backward [1024, 3200] (hymba-1.5b's "
           "out_norm), moe_matmul's dbuf and dw E=40 C=256 D=1536 F=512 (granite gate/up; library "

@@ -104,11 +104,12 @@
 //         (bf16: a programmatic dependent launch, whose producer loads K
 //         and V while the dq grid finishes and waits for it before the
 //         first stats).
-// At Sk != S (B11) dq walks Sk keys per query tile and dkdv's grid is the
-// key tiles of Sk, each walking S queries; K and V's tensor maps take Sk rows.
-// Each kernel recomputes Q K^T and dO V^T (7 tile products for the pair
-// where one fused kernel does 5): that keeps every output element written
-// by one block, in a fixed order.
+// At Sk != S in f32 (B11's f32 route) dq walks Sk keys per query tile and
+// dkdv's grid is the key tiles of Sk, each walking S queries.  Each kernel
+// recomputes Q K^T and dO V^T (7 tile products for the pair where one fused
+// kernel does 5): that keeps every output element written by one block, in
+// a fixed order.  B11's bf16 backward is a kernel of its own (xa::, after
+// the forward): one pass of the 5 products.
 //
 // bf16: warp specialisation on wgmma, fed by TMA (hopper.cuh).  A block is
 // one or two consumer warpgroups of 64 rows (dq) or keys (dkdv) and one
@@ -1102,6 +1103,495 @@ flash_cross_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_const
   cluster.sync();  // block 0 has read every split's partial before the blocks go
 }
 
+// ------------------------------------------------------ B11 bf16 backward --
+//
+// No TPU counterpart (the JAX package differentiates XLA's einsums).  One
+// pass of five products a scored pair, after a small pass for the row
+// statistics.  Bound at whisper's LM shape (B2 H16 S448 Sk1500 d64): the
+// 13.8 GFLOP of the products on the bf16 tensor cores, 13.9 us.  Blocks
+// hold keys: a block is NWG consumer warpgroups of 64 keys each (a key
+// tile of BK = 64 NWG keys) and a producer (a warp, or at two consumer
+// warpgroups a warpgroup that gives them its registers), and it
+// walks every (query head of the KV head, 64-row query tile) of its batch
+// row, a unit at a time.  Per unit each warpgroup computes S^T = K Q^T and
+// dP^T = V dO^T once, P^T = 2^(scale log2(e) S^T - lse log2(e)) with one
+// exp2 a score, dS^T = P^T (dP^T - D), and accumulates dV += P^T dO and
+// dK += dS^T Q in registers; dS^T also goes to shared memory (bf16,
+// 128-byte swizzled), from where the warpgroup multiplies it by its 64 K
+// rows into its dQ partial of the unit.  At two warpgroups warpgroup 0
+// hands its partial to warpgroup 1 through shared memory (two slots, each
+// guarded by a full and an empty mbarrier), and warpgroup 1 adds it to its
+// own and updates the rows: the two are coupled by no barrier of their
+// own, so that one's exps run under the other's products.  No thread-
+// dependent loop or branch runs while a product may be in flight, and no
+// product is left in flight across a loop's back edge: ptxas serialises
+// every wgmma of a kernel that does either (C7518, C7514).
+// dK and dV of a key tile are whole in one block; dQ is summed across the
+// `splits` <= 8 blocks that share a KV head's keys, block r taking key
+// tiles r, r + splits, ....  Each keeps the f32 dQ partial of every query
+// row of the KV head's g heads (in shared memory where it fits, else in
+// the global scratch), adding its later key tiles in order.  At one split
+// the block writes dQ from it; else each block puts its partial in the
+// global scratch (splits f32 rows a query row, whatever Sk is) and counts
+// itself in, and the block that comes last sums the splits' partials in
+// split order and writes dQ (the rows in `splits` parts, each summed by the
+// block that counts it last).  The count only elects that block: the sum
+// runs in a fixed order, so two calls give the same bits.  (A thread-block
+// cluster summing through distributed shared memory does not fit whisper's
+// grid: the card holds 30 clusters of four of these blocks at once, so the
+// 32 (batch, KV head) pairs would take two waves.)  The exps run under the
+// dP^T product in flight, and each warpgroup's under the other's products.
+// What holds it back (PERF.md, torch_kernel_probe.py cross-bwd-parts): not
+// the products (cut to a quarter they save 2-7% each) but each unit's
+// chain of waits, about 2 us a unit, and ~30 us a launch of fixed cost:
+// the partials' final sum, the K/V loads at each key tile, the launches.
+// Issuing the next unit's S^T and dP^T under this unit's dQ product
+// (FlashAttention-3's order) measured 13% slower and is not done.
+
+// D = rowsum(dO o) and lse log2(e) of every query row into
+// [2][B][H][stats_row(S)] f32, as B5's dq kernel writes them; the pass
+// streams both rows with each query tile.  A warp takes 32 / (D / 8) rows,
+// a row's D / 8 lanes 16 bytes each of o and dO.  Block 0 also zeroes the
+// pass's counters ([B][KV][splits]; none at one split).
+constexpr int kStatsThreads = 256;
+template <int D>
+__global__ void __launch_bounds__(kStatsThreads)
+cross_bwd_stats(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, float* __restrict__ stats, int* __restrict__ counters,
+                int n_counters, int S, int H, int BH, Strides os, Strides dos) {
+  launch_dependents();  // the pass may start; it waits for this grid before the stats and counters
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < n_counters; i += kStatsThreads) counters[i] = 0;
+  constexpr int LPR = D / 8, RP = 32 / LPR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * (kStatsThreads / 32) + warp) * RP + lane / LPR;
+  const bool ok = row < static_cast<int64_t>(BH) * S;
+  const int bh = ok ? static_cast<int>(row / S) : 0, s = ok ? static_cast<int>(row % S) : 0;
+  const int b = bh / H, h = bh % H, c = (lane % LPR) * 8;
+  float sum = 0.f;
+  if (ok) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + b * os.b + h * os.h + s * os.s + c);
+    const uint4 e = *reinterpret_cast<const uint4*>(dout + b * dos.b + h * dos.h + s * dos.s + c);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* e2 = reinterpret_cast<const __nv_bfloat162*>(&e);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(e2[i]);
+      sum = fmaf(x.x, y.x, fmaf(x.y, y.y, sum));
+    }
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (ok && lane % LPR == 0) {
+    const int64_t at = static_cast<int64_t>(bh) * stats_row(S) + s;
+    stats[at] = sum;
+    stats[static_cast<int64_t>(BH) * stats_row(S) + at] = lse[row] * kLog2e;
+  }
+}
+
+// Shared memory of the pass (byte offsets past a 1024-byte aligned base):
+// K and V of the block's key tile, the ring of Q and dO tiles, the dS^T
+// tile ([BK keys][64 queries], each warpgroup its 64 rows), at two
+// warpgroups the two slots of the f32 dQ partial warpgroup 0 hands to
+// warpgroup 1 ([2][64][D], swizzled as the partials are), the ring's lse
+// and D rows, the barriers (K/V full and empty, full[ST], empty[ST], the
+// slots' full[2] and empty[2]) and the last-block flag, then, where it fits,
+// the f32 dQ partials.
+template <int D, int NWG>
+struct BwdSmem {
+  static constexpr int BK = 64 * NWG, ST = 2;
+  static constexpr int k = 0, v = BK * D * 2, q = 2 * BK * D * 2, dout = q + ST * 64 * D * 2;
+  static constexpr int dst = dout + ST * 64 * D * 2, pass = dst + BK * 64 * 2;
+  static constexpr int lse = pass + (NWG == 2 ? 2 * 64 * D * 4 : 0);
+  static constexpr int delta = lse + ST * 64 * 4, bars = delta + ST * 64 * 4;
+  static constexpr int flag = bars + 8 * (6 + 2 * ST), region = flag + 16;
+  static constexpr int fixed = 1024 + region;  // bytes without the dQ partials
+};
+
+// The dQ partials: [rows][D] f32, rows = g S_pad (a head's query rows
+// padded to whole tiles, the KV head's g heads one after another).  Each
+// 8-column group of a row is XOR-ed with the row's last two bits, so that a
+// warp's float2 updates (8 rows, 4 column pairs) hit 32 distinct banks.
+__device__ __forceinline__ int region_col(int row, int col) { return col ^ ((row & 3) << 3); }
+
+// grid (splits, KV, B): block (r, kvh, b) takes key tiles r, r + splits,
+// ... of KV head kvh.  Warps 0 .. 4 NWG - 1 are the consumer warpgroups;
+// the warps after them the producer.  `scratch` is [splits][B][KV][rows][D]
+// f32 (null at one split with the partials in shared memory), `counters`
+// [B][KV][splits] ints the statistics pass zeroed (null at one split); `in_smem`: the
+// partials live in shared memory, else in the block's slice of scratch.
+// Threads of a block: NWG consumer warpgroups and the producer, a whole
+// warpgroup at two consumer warpgroups, so that it can give its registers
+// to them (setmaxnreg: 40 a thread, the consumers 232).
+template <int NWG>
+constexpr int bwd_threads() { return NWG * 128 + (NWG == 2 ? 128 : 32); }
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(bwd_threads<NWG>(), 1)
+flash_cross_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tstats, bf16* __restrict__ dq,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ scratch,
+                      int* __restrict__ counters, int in_smem, int S, int Sk, int H, int KV, int rows,
+                      Strides dqs, Strides dks, Strides dvs, float scale_log2, float scale) {
+  using L = BwdSmem<D, NWG>;
+  constexpr int BK = L::BK, ST = L::ST, CH = D / 64, NT = NWG * 128;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = wg::align1024(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wgi = warp >> 2;
+  bf16* Ks = reinterpret_cast<bf16*>(sm + L::k);
+  bf16* Vs = reinterpret_cast<bf16*>(sm + L::v);
+  bf16* Qs = reinterpret_cast<bf16*>(sm + L::q);  // [ST][64 rows][D]
+  bf16* dOs = reinterpret_cast<bf16*>(sm + L::dout);
+  bf16* dS = reinterpret_cast<bf16*>(sm + L::dst) + wgi * 64 * 64;  // this warpgroup's dS^T rows
+  float* pass = reinterpret_cast<float*>(sm + L::pass);  // [2 slots][64][D]
+  float* Ls = reinterpret_cast<float*>(sm + L::lse);  // [ST][64]
+  float* Dl = reinterpret_cast<float*>(sm + L::delta);
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* kvempty = kvfull + 1;
+  uint64_t* full = kvfull + 2;
+  uint64_t* empty = full + ST;
+  uint64_t* passfull = empty + ST;  // [2]
+  uint64_t* passempty = passfull + 2;
+
+  int* last = reinterpret_cast<int*>(sm + L::flag);
+  uint64_t* sumbar = reinterpret_cast<uint64_t*>(sm + L::flag + 8);  // the final sum's bulk loads
+  const int rank = blockIdx.x, C = gridDim.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int g_heads = H / KV, n_qt = (S + 63) / 64, S_pad = n_qt * 64, n_units = g_heads * n_qt;
+  const int n_kt = (Sk + BK - 1) / BK, nsub = (n_kt - rank + C - 1) / C;
+  const int64_t region_size = static_cast<int64_t>(rows) * D;
+  auto slice = [&](int r) {  // split r's partials in the scratch
+    return scratch + ((static_cast<int64_t>(r) * gridDim.z + b) * KV + kvh) * region_size;
+  };
+  float* region = in_smem ? reinterpret_cast<float*>(sm + L::region) : slice(rank);
+  if (threadIdx.x == 0) {
+    mbar_init(kvfull, 1);
+    mbar_init(kvempty, 4 * NWG);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * NWG);  // one arrival per consumer warp
+    }
+    for (int k = 0; k < 2; ++k) {
+      mbar_init(passfull + k, 128);  // every thread of the warpgroup that writes or reads
+      mbar_init(passempty + k, 128);
+    }
+    mbar_init(sumbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {  // producer: each key tile's K and V, then every unit's tiles through the ring
+    if (NWG == 2) setmaxnreg_dec<40>();
+    if (warp == 4 * NWG && lane == 0) {
+      // The first units of a key tile go out before its K and V, which wait for the last
+      // tile's products: their Q and dO are in flight while the last tile finishes.
+      auto load_kv = [&](int js) {
+        const int k0 = (rank + js * C) * BK;
+        mbar_expect_tx(kvfull, 2 * BK * D * 2);
+        for (int c = 0; c < CH; ++c) {
+          tma_load_4d(Ks + c * BK * 64, &tk, kvfull, 64 * c, k0, kvh, b);
+          tma_load_4d(Vs + c * BK * 64, &tv, kvfull, 64 * c, k0, kvh, b);
+        }
+      };
+      load_kv(0);
+      grid_dependency_wait();  // the stats come from the launch just before
+      for (int js = 0; js < nsub; ++js) {
+        for (int u = 0; u < n_units; ++u) {
+          if (js > 0 && u == min(ST, n_units)) {
+            mbar_wait(kvempty, (js - 1) & 1);
+            load_kv(js);
+          }
+          const int it = js * n_units + u, s = it % ST;
+          if (it >= ST) mbar_wait(empty + s, (it / ST - 1) & 1);
+          const int h = kvh * g_heads + u / n_qt, q0 = (u % n_qt) * 64;
+          mbar_expect_tx(full + s, 2 * 64 * D * 2 + 2 * 64 * 4);
+          for (int c = 0; c < CH; ++c) {
+            tma_load_4d(Qs + (s * CH + c) * 4096, &tq, full + s, 64 * c, q0, h, b);
+            tma_load_4d(dOs + (s * CH + c) * 4096, &tdo, full + s, 64 * c, q0, h, b);
+          }
+          const int bh = b * H + h;  // stats rows: D of each head, then its lse log2(e)
+          tma_load_2d(Ls + s * 64, &tstats, full + s, q0, gridDim.z * H + bh);
+          tma_load_2d(Dl + s * 64, &tstats, full + s, q0, bh);
+        }
+        if (js > 0 && n_units <= ST) {  // a tile of fewer units than the ring holds
+          mbar_wait(kvempty, (js - 1) & 1);
+          load_kv(js);
+        }
+      }
+    }
+    return;
+  }
+
+  if (NWG == 2) setmaxnreg_inc<232>();
+  const int w4 = warp & 3, g = lane >> 2, t = lane & 3;
+  float dka[CH][32], dva[CH][32], st[32], dpt[32], dqp[32];
+  uint32_t pa[4][4], sa[4][4];
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    mbar_arrive_if(bar, lane == 0);  // this warp is done with what the barrier guards
+  };
+  auto issue_sdp = [&](int it) {  // S^T = K Q^T and dP^T = V dO^T of flattened unit it, in flight
+    const int s = it % ST;
+    mbar_wait_in_asm(full + s, (it / ST) & 1);
+    __syncwarp();
+    const bf16* Qt = Qs + s * 64 * D;
+    const bf16* dOt = dOs + s * 64 * D;
+    wgmma_fence();
+    wgmma_ss_n64_first<0>(st, desc_k(Ks, BK, wgi * 64, 0), desc_k(Qt, 64, 0, 0));
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk)
+      wgmma_ss_n64<0>(st, desc_k(Ks, BK, wgi * 64, kk), desc_k(Qt, 64, 0, kk), 1);
+    wgmma_commit();
+    wgmma_ss_n64_first<0>(dpt, desc_k(Vs, BK, wgi * 64, 0), desc_k(dOt, 64, 0, 0));
+#pragma unroll
+    for (int kk = 1; kk < D / 16; ++kk)
+      wgmma_ss_n64<0>(dpt, desc_k(Vs, BK, wgi * 64, kk), desc_k(dOt, 64, 0, kk), 1);
+    wgmma_commit();
+  };
+
+  for (int js = 0; js < nsub; ++js) {
+    const int wk0 = (rank + js * C) * BK + wgi * 64;  // the warpgroup's first key
+    const int key_lo = wk0 + w4 * 16 + g;            // this thread's keys: key_lo, key_lo + 8
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dka[c][i] = dva[c][i] = 0.f;
+      fence_regs(dka[c]);  // zeroed here, not inside a product's pipeline stage
+      fence_regs(dva[c]);
+    }
+    mbar_wait_in_asm(kvfull, js & 1);
+    __syncwarp();
+    for (int u = 0; u < n_units; ++u) {
+      const int it = js * n_units + u, s = it % ST, q0 = (u % n_qt) * 64;
+      issue_sdp(it);
+      const bf16* Qt = Qs + s * 64 * D;
+      const bf16* dOt = dOs + s * 64 * D;
+      // element i of S^T and dP^T: key key_lo + 8 (i%4 / 2), query q0 + 8 (i/4) + 2t + i%2
+      float2 lq[8];  // lse log2(e) of the thread's 16 queries
+#pragma unroll
+      for (int j = 0; j < 8; ++j) lq[j] = *reinterpret_cast<const float2*>(Ls + s * 64 + 8 * j + 2 * t);
+      wgmma_wait<1>();  // S^T is done; dP^T still runs under the exps
+      fence_regs(st);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)  // P^T; only a ragged tile is masked
+        st[i] = exp2_ftz(fmaf(st[i], scale_log2, -((i & 1) ? lq[i >> 2].y : lq[i >> 2].x)));
+      if (q0 + 64 > S || (rank + js * C + 1) * BK > Sk) {  // the block's tile: uniform
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int query = q0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          const bool drop = query >= S || key_lo + 8 * ((i >> 1) & 1) >= Sk;
+          st[i] = drop ? 0.f : st[i];
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) a_frag(pa[kk], st, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // dV += P^T dO, dO read MN-major
+#pragma unroll
+        for (int c = 0; c < CH; ++c) wgmma_rs_n64<1>(dva[c], pa[kk], desc_mn(dOt, 64, c, kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // dP^T is done; dV may still run
+      fence_regs(dpt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // dS^T = P^T (dP^T - D)
+        const float2 dq2 = *reinterpret_cast<const float2*>(Dl + s * 64 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? dq2.y : dq2.x));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) a_frag(sa[kk], dpt, kk);
+      // dS^T into the warpgroup's swizzled rows: fragment kk holds query columns 16 kk ..
+      // 16 kk + 15 (8-column groups 2 kk and 2 kk + 1) of rows r and r + 8
+      {
+        const int r = w4 * 16 + g;  // r & 7 == g
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r + 8 * (e & 1), grp = 2 * kk + (e >> 1);
+            *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(dS) + row * 128 +
+                                         ((grp ^ g) << 4) + 4 * t) = sa[kk][e];
+          }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // dK += dS^T Q, Q read MN-major
+#pragma unroll
+        for (int c = 0; c < CH; ++c) wgmma_rs_n64<1>(dka[c], sa[kk], desc_mn(Qt, 64, c, kk));
+      wgmma_commit();
+      fence_async_shared();         // dS^T is read by the dQ product (the async proxy)
+      named_sync(1 + wgi, 128);     // the warpgroup's dS^T rows are in place
+      // dQ partial of the unit over the warpgroup's 64 keys: dS K, the K rows read MN-major.
+      // At two warpgroups warpgroup 0 hands it over in slot it % 2 and warpgroup 1 adds
+      // it to its own (one add: its order does not matter) and updates the tile's rows.
+      const int row0 = (u / n_qt) * S_pad + q0 + w4 * 16 + g;  // this thread's rows row0, row0 + 8
+      float* slot = pass + (it & 1) * 64 * D;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        wgmma_fence();
+        wgmma_ss_n64_first<1, 1>(dqp, desc_mn(dS, 64, 0, 0), desc_mn(Ks + wgi * 64 * 64, BK, c, 0));
+#pragma unroll
+        for (int kk = 1; kk < 4; ++kk)
+          wgmma_ss_n64<1, 1>(dqp, desc_mn(dS, 64, 0, kk), desc_mn(Ks + wgi * 64 * 64, BK, c, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dqp);
+        if (c == 0) release(empty + s);  // the unit's Q, dO, lse and D are read
+        if (NWG == 2 && wgi == 0) {
+          if (it >= 2) mbar_wait_in_asm(passempty + (it & 1), ((it >> 1) - 1) & 1);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = w4 * 16 + g + 8 * half;  // row & 3 == row0 + 8 half & 3
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              *reinterpret_cast<float2*>(slot + row * D + region_col(row, 8 * j + 2 * t)) =
+                  make_float2(dqp[4 * j + 2 * half], dqp[4 * j + 2 * half + 1]);
+          }
+          mbar_arrive(passfull + (it & 1));
+          continue;
+        }
+        if (NWG == 2) mbar_wait_in_asm(passfull + (it & 1), (it >> 1) & 1);
+        // at the last key tile the rows are final: past one split they go straight to the
+        // block's slice of the scratch, their stores under the tile's other units
+        float* final_rows = C > 1 && js == nsub - 1 ? slice(rank) : region;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = row0 + 8 * half, prow = w4 * 16 + g + 8 * half;
+          float* rp = region + static_cast<int64_t>(row) * D;
+          float* fp = final_rows + static_cast<int64_t>(row) * D;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float2 x = make_float2(dqp[4 * j + 2 * half], dqp[4 * j + 2 * half + 1]);
+            if (NWG == 2) {
+              const float2 y = *reinterpret_cast<const float2*>(slot + prow * D + region_col(prow, 8 * j + 2 * t));
+              x.x += y.x;
+              x.y += y.y;
+            }
+            const int col = region_col(row, 64 * c + 8 * j + 2 * t);
+            if (js > 0) {
+              const float2 y = *reinterpret_cast<const float2*>(rp + col);
+              x.x += y.x;
+              x.y += y.y;
+            }
+            *reinterpret_cast<float2*>(fp + col) = x;
+          }
+        }
+        if (NWG == 2) mbar_arrive(passempty + (it & 1));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      fence_regs(dva[c]);
+      fence_regs(dka[c]);
+    }
+    release(kvempty);  // every product of the key tile is done: K and V may be refilled
+    // dK (scaled) and dV of the warpgroup's 64 keys, 64 columns at a time, through its dS^T
+    // rows (free now; 16-byte groups XOR-ed with the row, as dS^T is) so that each row
+    // goes out in 16-byte stores: 4-byte stores of the accumulators were 8 µs of the pass
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      bf16* out = m == 0 ? dk + b * dks.b + kvh * dks.h : dv + b * dvs.b + kvh * dvs.h;
+      const int64_t row_stride = m == 0 ? dks.s : dvs.s;
+      const float mul = m == 0 ? scale : 1.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const float* acc = m == 0 ? dka[c] : dva[c];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = w4 * 16 + g + 8 * half;  // row & 7 == g
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(dS) + row * 128 + ((j ^ g) << 4) + 4 * t) =
+                pack_bf16(acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
+        }
+        named_sync(1 + wgi, 128);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {  // 64 rows of 8 16-byte groups, a warp 4 whole rows a step
+          const int idx = k * 128 + (threadIdx.x & 127), row = idx >> 3, grp = idx & 7;
+          const int key = wk0 + row;
+          if (key < Sk)
+            *reinterpret_cast<uint4*>(out + static_cast<int64_t>(key) * row_stride + 64 * c + 8 * grp) =
+                *reinterpret_cast<const uint4*>(reinterpret_cast<const unsigned char*>(dS) + row * 128 +
+                                                ((grp ^ (row & 7)) << 4));
+        }
+        named_sync(1 + wgi, 128);  // the rows are read before the next columns overwrite them
+      }
+    }
+  }
+
+  // dQ = scale (the splits' partials summed in split order).  The rows fall into C parts
+  // (whole rows: the column swizzle stays inside a row), already in the block's slice of
+  // the scratch; block r counts itself into their counters in the order r, r + 1, ...
+  // (mod C), and the block that counts a part last sums it.  Blocks finish at nearly the
+  // same time, so the sums spread over them (counting every part at once measured slower:
+  // the last block then sums all of them), each in a fixed order.
+  constexpr int V4 = D / 4;
+  const int64_t total = region_size / 4;
+  named_sync(4, NT);  // the block's partials are final
+  auto write_dq = [&](int row, int col, float4 acc) {
+    const int s = row % S_pad, h = kvh * g_heads + row / S_pad;
+    if (s >= S) return;
+    uint2 out;
+    out.x = pack_bf16(acc.x * scale, acc.y * scale);
+    out.y = pack_bf16(acc.z * scale, acc.w * scale);
+    *reinterpret_cast<uint2*>(dq + b * dqs.b + h * dqs.h + static_cast<int64_t>(s) * dqs.s + col) = out;
+  };
+  if (C == 1) {  // the block's own partials are dQ
+    for (int64_t i = threadIdx.x; i < total; i += NT) {
+      const int row = static_cast<int>(i / V4), col = static_cast<int>(i % V4) * 4;
+      write_dq(row, col, *reinterpret_cast<const float4*>(region + static_cast<int64_t>(row) * D +
+                                                            region_col(row, col)));
+    }
+    return;
+  }
+  // The part's rows of every split come into shared memory by bulk copies (everything
+  // before the lse rows is free now), as many rows at a time as it holds, and are summed
+  // from there: loads of a few float4 a thread from L2 waited on its latency.
+  float* stage = reinterpret_cast<float*>(sm);
+  const int stage_rows = L::lse / (C * D * 4), per_rows = (rows + C - 1) / C;
+  uint32_t phase = 0;
+  for (int j = 0; j < C; ++j) {
+    const int part = (rank + j) % C;
+    __threadfence();  // the part (written to the scratch at the last key tile) is visible
+    named_sync(4, NT);
+    if (threadIdx.x == 0) {
+      if (j == 0) grid_dependency_wait();  // the statistics pass zeroed the counters
+      int* count = counters + (b * KV + kvh) * C + part;
+      *last = atomicAdd(count, 1) == C - 1;
+      if (*last) *count = 0;  // every block has counted: left as it was found
+    }
+    named_sync(4, NT);
+    if (!*last) continue;
+    __threadfence();
+    const int r_hi = min(rows, (part + 1) * per_rows);
+    for (int r0 = part * per_rows; r0 < r_hi; r0 += stage_rows) {
+      const int nr = min(stage_rows, r_hi - r0);
+      fence_async_shared();  // the stage's earlier reads and writes come before the copies
+      named_sync(4, NT);
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(sumbar, C * nr * D * 4);
+        for (int r = 0; r < C; ++r)
+          bulk_load(stage + r * nr * D, slice(r) + static_cast<int64_t>(r0) * D, nr * D * 4, sumbar);
+      }
+      mbar_wait_in_asm(sumbar, phase);
+      phase ^= 1;
+      for (int i = threadIdx.x; i < nr * V4; i += NT) {
+        const int row = r0 + i / V4, col = (i % V4) * 4, at = (i / V4) * D + region_col(row, col);
+        float4 acc = *reinterpret_cast<const float4*>(stage + at);
+        for (int r = 1; r < C; ++r) {  // split order
+          const float4 x = *reinterpret_cast<const float4*>(stage + r * nr * D + at);
+          acc.x += x.x;
+          acc.y += x.y;
+          acc.z += x.z;
+          acc.w += x.w;
+        }
+        write_dq(row, col, acc);
+      }
+    }
+  }
+}
+
 }  // namespace xa
 
 // ----------------------------------------------------------------- f32 --
@@ -1895,6 +2385,59 @@ cudaError_t dkdv_bf16(const void* q, const void* k, const void* v, const void* d
                       scale * kLog2e, scale, causal);
 }
 
+// B11's bf16 backward, first launch: the statistics pass over B H S rows, `blocks`
+// blocks (flash_attention.py::cross_bwd_plan's stats_blocks); it zeroes the
+// pass's n_counters counters.
+template <int D>
+cudaError_t cross_bwd_stats_bf16(const void* o, const void* dout, const void* lse, void* stats,
+                                 void* counters, int n_counters, int B, int H, int S, Strides os,
+                                 Strides dos, int blocks, cudaStream_t st) {
+  constexpr int rows_per_block = xa::kStatsThreads / 32 * (32 / (D / 8));
+  if (static_cast<int64_t>(blocks) != (static_cast<int64_t>(B) * H * S + rows_per_block - 1) / rows_per_block ||
+      n_counters < 0 || (n_counters > 0 && !counters))
+    return cudaErrorInvalidConfiguration;
+  xa::cross_bwd_stats<D><<<blocks, xa::kStatsThreads, 0, st>>>(
+      static_cast<const xa::bf16*>(o), static_cast<const xa::bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(stats), static_cast<int*>(counters),
+      n_counters, S, H, B * H, os, dos);
+  return cudaGetLastError();
+}
+
+// Second launch: the one pass, after checking the plan of
+// flash_attention.py::cross_bwd_plan: grid (splits, KV, B), splits <= 8 and
+// no more than the key tiles, rows = g S_pad, and the shared memory that
+// holds the dQ partials (in_smem) or not; scratch [splits][B][KV][rows][D]
+// f32 wherever they are not all in one block's shared memory, counters
+// [B][KV][splits] (zeroed by the first launch) past one split.
+template <int D, int NWG>
+cudaError_t cross_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
+                           const void* stats, void* dq, void* dk, void* dv, void* scratch,
+                           void* counters, int B, int H, int KV, int S, int Sk, const Views& w,
+                           float scale, int rows, int in_smem, dim3 grid, int64_t smem,
+                           cudaStream_t st) {
+  constexpr int BK = 64 * NWG;
+  const int64_t want_smem = xa::BwdSmem<D, NWG>::fixed + (in_smem ? static_cast<int64_t>(rows) * D * 4 : 0);
+  if (grid.x < 1 || grid.x > 8 || static_cast<int>(grid.x) > (Sk + BK - 1) / BK ||
+      grid.y != static_cast<unsigned>(KV) || grid.z != static_cast<unsigned>(B) ||
+      rows != H / KV * ((S + 63) / 64 * 64) || smem != want_smem || smem > 232448 ||
+      ((grid.x > 1 || !in_smem) && !scratch) || (grid.x > 1 && !counters))
+    return cudaErrorInvalidConfiguration;
+  CUtensorMap tq, tdo, tk, tv, ts;
+  if (!hopper::map_bf16_rows(&tq, q, B, H, S, D, w.q.b, w.q.h, w.q.s, 64) ||
+      !hopper::map_bf16_rows(&tdo, dout, B, H, S, D, w.dout.b, w.dout.h, w.dout.s, 64) ||
+      !hopper::map_bf16_rows(&tk, k, B, KV, Sk, D, w.k.b, w.k.h, w.k.s, BK) ||
+      !hopper::map_bf16_rows(&tv, v, B, KV, Sk, D, w.v.b, w.v.h, w.v.s, BK) ||
+      !hopper::map_f32_rows(&ts, stats, 2 * B * H, S, stats_row(S), 64))
+    return cudaErrorInvalidValue;
+  // may start under the statistics pass: it waits for that grid before the stats
+  return launch_wgmma(xa::flash_cross_bwd_wgmma<D, NWG>, true, grid, static_cast<int>(smem),
+                      xa::bwd_threads<NWG>(), grid, smem, st, tq, tdo, tk, tv, ts,
+                      static_cast<xa::bf16*>(dq), static_cast<xa::bf16*>(dk),
+                      static_cast<xa::bf16*>(dv), static_cast<float*>(scratch),
+                      static_cast<int*>(counters), in_smem, S, Sk, H, KV, rows, w.dq, w.dk, w.dv,
+                      scale * kLog2e, scale);
+}
+
 template <int D>
 cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const void* lse, void* delta, void* dq, int B, int H,
@@ -2010,6 +2553,7 @@ extern "C" int flash_attention_cross_fwd(int dtype, int D, const void* q, const 
 
 // Backward, first kernel: dq, and into delta ([2,B,H,stats_row(S)] f32)
 // D = rowsum(dout o) and (bf16 only) lse log2(e) for the second kernel.
+// Keys of their own length (Sk != S) in bf16 are flash_attention_cross_bwd's.
 // strides: 24 int64, the (b, h, s) strides of q, k, v, o, dout, dq, dk, dv;
 // lse from the forward; dq laid out by its strides; grid and smem from
 // flash_attention.py::bwd_plans.
@@ -2019,7 +2563,8 @@ extern "C" int flash_attention_bwd_dq(int dtype, int D, const void* q, const voi
                                       int KV, int S, int Sk, const int64_t* strides, float scale,
                                       int causal, int grid_x, int grid_y, int grid_z,
                                       int64_t smem, void* stream) {
-  if (bad_args(dtype, D, B, H, KV, S, Sk, causal)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(dtype, D, B, H, KV, S, Sk, causal) || (dtype == 1 && Sk != S))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto f = D == 64 ? bwd_dq<64> : bwd_dq<128>;
   return static_cast<int>(f(dtype, q, k, v, o, dout, lse, delta, dq, B, H, KV, S, Sk,
                             views_from(strides), scale, causal, dim3(grid_x, grid_y, grid_z),
@@ -2034,10 +2579,52 @@ extern "C" int flash_attention_bwd_dkdv(int dtype, int D, const void* q, const v
                                         int KV, int S, int Sk, const int64_t* strides, float scale,
                                         int causal, int grid_x, int grid_y, int grid_z,
                                         int64_t smem, void* stream) {
-  if (bad_args(dtype, D, B, H, KV, S, Sk, causal)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(dtype, D, B, H, KV, S, Sk, causal) || (dtype == 1 && Sk != S))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto f = D == 64 ? bwd_dkdv<64> : bwd_dkdv<128>;
   return static_cast<int>(f(dtype, q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk,
                             views_from(strides), scale, causal, dim3(grid_x, grid_y, grid_z),
+                            smem, static_cast<cudaStream_t>(stream)));
+}
+
+// B11's bf16 backward, first launch: D = rowsum(dout o) and lse log2(e) of
+// each row of o and dout [B,H,S,D] (by their (b, h, s) strides) into stats
+// [2,B,H,stats_row(S)] f32; lse [B,H,S] f32 from the forward.  It also
+// zeroes n_counters ints at counters (the second launch's).  blocks is
+// flash_attention.py::cross_bwd_plan's stats_blocks; any other count
+// returns cudaErrorInvalidConfiguration.
+extern "C" int flash_attention_cross_bwd_stats(int D, const void* o, const void* dout,
+                                               const void* lse, void* stats, void* counters,
+                                               int n_counters, int B, int H, int S,
+                                               int64_t o_sb, int64_t o_sh, int64_t o_ss,
+                                               int64_t d_sb, int64_t d_sh, int64_t d_ss,
+                                               int blocks, void* stream) {
+  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto f = D == 64 ? cross_bwd_stats_bf16<64> : cross_bwd_stats_bf16<128>;
+  return static_cast<int>(f(o, dout, lse, stats, counters, n_counters, B, H, S,
+                            Strides{o_sb, o_sh, o_ss}, Strides{d_sb, d_sh, d_ss}, blocks,
+                            static_cast<cudaStream_t>(stream)));
+}
+
+// Second launch (after the first on the same stream, whose stats and
+// counters it reads): dq, dk and dv of non-causal bf16 attention of q
+// [B,H,S,D] over k, v [B,KV,Sk,D] in one pass.  strides: 24 int64 as
+// flash_attention_bwd_dq takes them (its o slot unused).  scratch: null, or
+// the [splits,B,KV,rows,D] f32 dQ partials; counters: null, or the
+// [B,KV,splits] ints the first launch zeroed.  rows, in_smem, grid and smem are
+// flash_attention.py::cross_bwd_plan's: 128-key blocks at d = 64 (two
+// consumer warpgroups), 64 at d = 128 (one); any other plan returns
+// cudaErrorInvalidConfiguration.
+extern "C" int flash_attention_cross_bwd(int D, const void* q, const void* k, const void* v,
+                                         const void* dout, const void* stats, void* dq, void* dk,
+                                         void* dv, void* scratch, void* counters, int B, int H,
+                                         int KV, int S, int Sk, const int64_t* strides, float scale,
+                                         int rows, int in_smem, int grid_x, int grid_y, int grid_z,
+                                         int64_t smem, void* stream) {
+  if (bad_args(1, D, B, H, KV, S, Sk, 0)) return static_cast<int>(cudaErrorInvalidValue);
+  auto f = D == 64 ? cross_bwd_bf16<64, 2> : cross_bwd_bf16<128, 1>;
+  return static_cast<int>(f(q, k, v, dout, stats, dq, dk, dv, scratch, counters, B, H, KV, S, Sk,
+                            views_from(strides), scale, rows, in_smem, dim3(grid_x, grid_y, grid_z),
                             smem, static_cast<cudaStream_t>(stream)));
 }
 

@@ -28,7 +28,10 @@ walked all 1500 keys in one block of 4 warps with mma.sync, and this one
 keeps the products asynchronous behind the softmax and splits the keys
 where the grid would leave SMs idle.  Its
 f32 route is B2's FMA template with the key loop over Sk.
-``cross_attention_bwd`` launches B5's entry points at Sk, and
+``cross_attention_bwd`` in bf16 launches B11's own two kernels, planned by
+``cross_bwd_plan``: the row statistics, then one pass of the five products
+whose blocks hold key tiles and sum dQ across blocks in a fixed order; in
+f32 it launches B5's entry points at Sk (counted as B5's).
 ``flash_decode`` (one query a row against the FLAT [B, Sk, KV*d] caches,
 read in place, the keys split over a cluster) is B11's decode form,
 planned by ``decode_plan``; all count apart from B2's.
@@ -54,8 +57,8 @@ launches = 0  # forward
 bwd_dq_launches = 0
 bwd_dkdv_launches = 0
 cross_launches = 0  # B11: the same kernels at keys of their own length
-cross_bwd_dq_launches = 0
-cross_bwd_dkdv_launches = 0
+cross_bwd_stats_launches = 0  # B11's bf16 backward: the row statistics, then the one pass
+cross_bwd_fused_launches = 0
 decode_launches = 0  # B11's decode
 
 BLOCK_Q = 64  # query rows per block, both templates
@@ -125,6 +128,71 @@ def cross_plan(B: int, H: int, KV: int, S: int, Sk: int, d: int, dtype: torch.dt
     splits = -(-key_tiles // tiles)  # no split without a key
     return LaunchPlan("wgmma", BLOCK_Q, bk, 160, (splits, row_tiles * H, B), cross_smem(d),
                       3 if d == 64 else 2, splits, bk * tiles)
+
+
+CROSS_BWD_STAGES = 2  # Q and dO tiles in flight (xa::BwdSmem::ST)
+CROSS_BWD_STATS_THREADS = 256  # xa::kStatsThreads
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossBwdPlan:
+    """How B11's bf16 backward is launched; ``csrc/flash_attention.cu`` refuses any other."""
+
+    warpgroups: int  # consumer warpgroups a block, 64 keys each
+    block_k: int  # keys a block holds at a time (one key tile)
+    key_tiles: int
+    splits: int  # blocks sharing a (batch, KV head)'s key tiles, block r taking r, r + splits, ...
+    tiles_per_block: int  # the most key tiles a block walks
+    rows: int  # dQ partial rows a block keeps: g query heads of S padded to 64
+    region: str  # where a block's partials live: "smem", or "global" (its slice of the scratch)
+    threads: int
+    grid: Tuple[int, int, int]  # (splits, KV, B)
+    smem_bytes: int
+    stats_blocks: int  # the statistics pass: 256 threads, 32 / (d / 8) rows a warp
+
+
+def cross_bwd_smem(d: int, rows: int = 0) -> int:
+    """Shared memory of a B11 backward block (xa::BwdSmem) without the dQ partials, plus
+    ``rows`` of them: K and V of the key tile, the ring of Q and dO tiles, the dS^T tile,
+    at two warpgroups two slots of the f32 dQ partial one hands the other, the ring's lse and D rows,
+    the mbarriers and a flag, 1024 bytes of alignment slack."""
+    bk, st = (128 if d == 64 else 64), CROSS_BWD_STAGES
+    passed = 2 * 4 * 64 * d if bk == 128 else 0  # two slots of one warpgroup's f32 dQ partial
+    return (1024 + 2 * 2 * bk * d + st * 2 * 2 * 64 * d + 2 * bk * 64 + passed + st * 2 * 4 * 64
+            + 8 * (6 + 2 * st) + 16 + 4 * d * rows)
+
+
+def cross_bwd_plan(B: int, H: int, KV: int, S: int, Sk: int, d: int) -> CrossBwdPlan:
+    """B11's bf16 backward plan (no CUDA needed).
+
+    Blocks hold keys: 128 at d = 64 (two consumer warpgroups), 64 at d = 128 (one: its dK
+    and dV alone are 128 f32 registers a thread), one block an SM.  A (batch, KV head)'s
+    key tiles are shared by ``splits`` <= 8 blocks, block r taking tiles r, r + splits,
+    ...; splits is the count that least multiplies the waves of the grid (splits KV B
+    blocks over the SMs) by the tiles a block walks, the smallest of equals.  Each block
+    keeps the f32 dQ partials of every query row of the KV head's g heads: in shared
+    memory where they fit beside the tiles, else in its slice of a global scratch of
+    ``splits`` rows a query row (its size does not grow with Sk), where blocks also leave
+    them for the last one to sum past one split.  Every bf16 shape takes this plan.
+    """
+    wgs = 2 if d == 64 else 1
+    bk = 64 * wgs
+    key_tiles = -(-Sk // bk)
+    pairs = B * KV
+
+    def cost(n):
+        return -(-n * pairs // _build.NUM_SMS) * -(-key_tiles // n)
+
+    splits = min(range(1, min(CROSS_MAX_SPLITS, key_tiles) + 1), key=lambda n: (cost(n), n))
+    rows = H // KV * -(-S // BLOCK_Q) * BLOCK_Q
+    smem = cross_bwd_smem(d, rows)
+    region = "smem" if smem <= _build.MAX_SMEM_BYTES else "global"
+    if region == "global":
+        smem = cross_bwd_smem(d)
+    rows_per_block = CROSS_BWD_STATS_THREADS // 32 * (32 // (d // 8))
+    return CrossBwdPlan(wgs, bk, key_tiles, splits, -(-key_tiles // splits), rows, region,
+                        128 * wgs + (128 if wgs == 2 else 32), (splits, KV, B), smem,
+                        -(-(B * H * S) // rows_per_block))
 
 
 def dq_warpgroups(S: int) -> int:
@@ -217,9 +285,13 @@ def _entries():
     dec.argtypes = [i, i, p, p, p, p, i, i, i, i] + [i64] * 6 + [f, i, i, i, i, i, p]
     cross = lib.flash_attention_cross_fwd
     cross.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i] + [i64] * 12 + [f] + [i] * 6 + [i64, p]
-    for fn in (fwd, *bwd, dec, cross):
+    stats = lib.flash_attention_cross_bwd_stats  # o dout lse stats counters
+    stats.argtypes = [i] + [p] * 5 + [i, i, i, i] + [i64] * 6 + [i, p]
+    fused = lib.flash_attention_cross_bwd  # q k v dout stats dq dk dv scratch counters
+    fused.argtypes = [i] + [p] * 10 + [i, i, i, i, i, p, f, i, i, i, i, i, i64, p]
+    for fn in (fwd, *bwd, dec, cross, stats, fused):
         fn.restype = ctypes.c_int
-    return fwd, *bwd, dec, cross
+    return fwd, *bwd, dec, cross, stats, fused
 
 
 def _check_layout(name: str, t: torch.Tensor) -> None:
@@ -304,23 +376,117 @@ def flash_attention_bwd(
     dout: torch.Tensor,  # [B, H, S, d]
     *,
     causal: bool = True,
-    cross: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv), each laid out like q, k and v: the dq kernel, then the dkdv kernel
-    (``cross``: counted as B11's)."""
+    """(dq, dk, dv), each laid out like q, k and v: the dq kernel, then the dkdv kernel."""
+    dout = _kernel_dout(dout)
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=causal)
+    return (dq, *flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal))
+
+
+def _kernel_dout(dout: torch.Tensor) -> torch.Tensor:
+    """dout as the kernels read it: 16-byte rows, no zero stride (no tensor map takes one)."""
     try:
         _check_layout("dout", dout)
-        if 0 in dout.stride():  # a broadcast gradient: no tensor map takes a zero stride
+        if 0 in dout.stride():  # a broadcast gradient
             dout = dout.contiguous()
-    except ValueError:  # the kernels read 16-byte rows
+    except ValueError:
         dout = dout.contiguous()
-    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout, causal=causal, cross=cross)
-    return (dq, *flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal, cross=cross))
+    return dout
 
 
 def cross_attention_bwd(q, k, v, out, lse, dout):
-    """B11's backward: ``flash_attention_bwd`` of ``cross_attention``."""
-    return flash_attention_bwd(q, k, v, out, lse, dout, causal=False, cross=True)
+    """B11's backward -> (dq, dk, dv) laid out like q, k and v.
+
+    bf16: ``cross_attention_bwd_stats`` then ``cross_attention_bwd_fused``, B11's own
+    kernels.  f32: B5's dq and dkdv kernels at Sk (their FMA templates), counted as B5's.
+    """
+    dout = _kernel_dout(dout)
+    if q.dtype != torch.bfloat16:
+        return flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
+    stats, counters = cross_attention_bwd_stats(q, k, v, out, lse, dout)
+    return cross_attention_bwd_fused(q, k, v, dout, stats, counters)
+
+
+def _check_b5_keys(q, k) -> None:
+    """B5's bf16 kernels take keys of q's own length; others are cross_attention_bwd's."""
+    if q.dim() == 4 and k.dim() == 4 and q.dtype == torch.bfloat16 and k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attention_bwd: bf16 keys of their own length ({k.shape[2]}, q has "
+                         f"{q.shape[2]}) are cross_attention_bwd's")
+
+
+def _check_bwd_inputs(q, k, v, out, lse, dout, causal: bool) -> None:
+    _check_args(q, k, v, causal)
+    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape):
+        raise ValueError(f"out and dout must be {tuple(q.shape)}: {tuple(out.shape)}, {tuple(dout.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype or out.device != q.device or dout.device != q.device:
+        raise TypeError("out and dout must have q's dtype and device")
+    _check_lse(lse, *q.shape[:3])
+
+
+def cross_attention_bwd_stats(q, k, v, out, lse, dout):
+    """B11's bf16 backward, first kernel -> (stats [2, B, H, stats_row(S)] f32: D =
+    rowsum(dout * out), then the lse times log2(e), of every query row; the second
+    kernel's counters, [B, KV, splits] int32 zeroed here, or None at one split)."""
+    global cross_bwd_stats_launches
+    _check_bwd_inputs(q, k, v, out, lse, dout, False)
+    if q.dtype != torch.bfloat16:
+        raise TypeError("cross_attention_bwd_stats is the bf16 route's (f32 runs B5's kernels)")
+    B, H, S, d = q.shape
+    KV = k.shape[1]
+    stats = torch.empty((2, B, H, stats_row(S)), dtype=torch.float32, device=q.device)
+    if B * H * S == 0:
+        return stats, None
+    for name, t in (("out", out), ("dout", dout)):
+        _check_layout(name, t)
+    plan = cross_bwd_plan(B, H, KV, S, k.shape[2], d)
+    counters = (torch.empty((B, KV, plan.splits), dtype=torch.int32, device=q.device)
+                if plan.splits > 1 else None)
+    err = _entries()[5](d, out.data_ptr(), dout.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+                        None if counters is None else counters.data_ptr(),
+                        0 if counters is None else counters.numel(), B, H, S,
+                        *out.stride()[:3], *dout.stride()[:3], plan.stats_blocks,
+                        torch._C._cuda_getCurrentRawStream(q.device.index))
+    cross_bwd_stats_launches += 1
+    _build.check("flash_attention", err)
+    return stats, counters
+
+
+def cross_attention_bwd_fused(q, k, v, dout, stats, counters):
+    """B11's bf16 backward, second kernel: dq, dk and dv in one pass over the scored pairs
+    (``cross_bwd_plan``), reading the stats and counters of ``cross_attention_bwd_stats``
+    -> (dq, dk, dv) laid out like q, k and v."""
+    global cross_bwd_fused_launches
+    _check_args(q, k, v, False)
+    if q.dtype != torch.bfloat16:
+        raise TypeError("cross_attention_bwd_fused is the bf16 route's (f32 runs B5's kernels)")
+    B, H, S, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if tuple(dout.shape) != tuple(q.shape) or dout.dtype != q.dtype or dout.device != q.device:
+        raise ValueError(f"dout must be {tuple(q.shape)} {q.dtype} on {q.device}")
+    if tuple(stats.shape) != (2, B, H, stats_row(S)) or stats.dtype != torch.float32 \
+            or not stats.is_contiguous() or stats.device != q.device:
+        raise ValueError(f"stats must be cross_attention_bwd_stats' [2,{B},{H},{stats_row(S)}] float32")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if B * H * S == 0:
+        return dq, dk, dv
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout), ("dq", dq), ("dk", dk), ("dv", dv)):
+        _check_layout(name, t)
+    plan = cross_bwd_plan(B, H, KV, S, Sk, d)
+    if plan.splits > 1 and (counters is None or tuple(counters.shape) != (B, KV, plan.splits)
+                            or counters.dtype != torch.int32 or counters.device != q.device):
+        raise ValueError(f"counters must be cross_attention_bwd_stats' [{B},{KV},{plan.splits}] int32")
+    scratch = (torch.empty((plan.splits, B, KV, plan.rows, d), dtype=torch.float32, device=q.device)
+               if plan.splits > 1 or plan.region == "global" else None)
+    err = _entries()[6](d, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
+                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(),
+                        counters.data_ptr() if plan.splits > 1 else None, B, H, KV, S, Sk,
+                        _strides(q, k, v, dout, dout, dq, dk, dv), 1.0 / math.sqrt(d), plan.rows,
+                        int(plan.region == "smem"), *plan.grid, plan.smem_bytes,
+                        torch._C._cuda_getCurrentRawStream(q.device.index))
+    cross_bwd_fused_launches += 1
+    _build.check("flash_attention", err)
+    return dq, dk, dv
 
 
 def stats_row(S: int) -> int:
@@ -328,20 +494,16 @@ def stats_row(S: int) -> int:
     return -(-S // 4) * 4
 
 
-def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True, cross: bool = False):
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True):
     """-> (dq laid out like q, stats [2, B, H, stats_row(S)] f32).
 
     stats[0, ..., :S] is delta = rowsum(dout * out); stats[1] holds the lse
     times log2(e) for the bf16 dkdv kernel's TMA loads (f32 leaves it unused).
     """
-    global bwd_dq_launches, cross_bwd_dq_launches
+    global bwd_dq_launches
     B, H, S, d = q.shape
-    _check_args(q, k, v, causal)
-    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape):
-        raise ValueError(f"out and dout must be {tuple(q.shape)}: {tuple(out.shape)}, {tuple(dout.shape)}")
-    if out.dtype != q.dtype or dout.dtype != q.dtype or out.device != q.device or dout.device != q.device:
-        raise TypeError("out and dout must have q's dtype and device")
-    _check_lse(lse, B, H, S)
+    _check_b5_keys(q, k)
+    _check_bwd_inputs(q, k, v, out, lse, dout, causal)
     dq = torch.empty_like(q)
     delta = torch.empty((2, B, H, stats_row(S)), dtype=torch.float32, device=q.device)
     if B * H * S == 0:
@@ -354,18 +516,16 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True, cros
                         dq.data_ptr(), B, H, k.shape[1], S, k.shape[2],
                         _strides(q, k, v, out, dout, dq), 1.0 / math.sqrt(d), int(causal),
                         *plan.grid, plan.smem_bytes, torch._C._cuda_getCurrentRawStream(q.device.index))
-    if cross:
-        cross_bwd_dq_launches += 1
-    else:
-        bwd_dq_launches += 1
+    bwd_dq_launches += 1
     _build.check("flash_attention", err)
     return dq, delta
 
 
-def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal: bool = True, cross: bool = False):
+def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal: bool = True):
     """-> (dk, dv) laid out like k and v; ``delta``: the stats of ``flash_attention_bwd_dq``."""
-    global bwd_dkdv_launches, cross_bwd_dkdv_launches
+    global bwd_dkdv_launches
     B, H, S, d = q.shape
+    _check_b5_keys(q, k)
     _check_args(q, k, v, causal)
     _check_lse(lse, B, H, S)
     if tuple(delta.shape) != (2, B, H, stats_row(S)) or delta.dtype != torch.float32 \
@@ -383,10 +543,7 @@ def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal: bool = True, 
                         _strides(q, k, v, dout, dout, dout, dk, dv), 1.0 / math.sqrt(d),
                         int(causal), *plan.grid, plan.smem_bytes,
                         torch._C._cuda_getCurrentRawStream(q.device.index))
-    if cross:
-        cross_bwd_dkdv_launches += 1
-    else:
-        bwd_dkdv_launches += 1
+    bwd_dkdv_launches += 1
     _build.check("flash_attention", err)
     return dk, dv
 

@@ -207,8 +207,8 @@ _COUNTERS = {
     "flash_attention_bwd_dq": (_flash, "bwd_dq_launches"),
     "flash_attention_bwd_dkdv": (_flash, "bwd_dkdv_launches"),
     "cross_attention": (_flash, "cross_launches"),
-    "cross_attention_bwd_dq": (_flash, "cross_bwd_dq_launches"),
-    "cross_attention_bwd_dkdv": (_flash, "cross_bwd_dkdv_launches"),
+    "cross_attention_bwd_stats": (_flash, "cross_bwd_stats_launches"),  # bf16; f32 runs B5's two
+    "cross_attention_bwd_fused": (_flash, "cross_bwd_fused_launches"),
     "flash_decode": (_flash, "decode_launches"),
     "moe_matmul": (_moe, "launches"),
     "moe_matmul_bwd_dbuf": (_moe, "bwd_dbuf_launches"),

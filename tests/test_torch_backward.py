@@ -429,8 +429,9 @@ def _backward_kernels(fname, args):
         return names + (["rmsnorm_bwd_dweight"] if w.requires_grad else [])
     if fname == "flash_attention_op":
         return ["flash_attention_bwd_dq", "flash_attention_bwd_dkdv"]
-    if fname == "cross_attention_op":
-        return ["cross_attention_bwd_dq", "cross_attention_bwd_dkdv"]
+    if fname == "cross_attention_op":  # B11: its own two kernels in bf16, B5's pair in f32
+        return (["cross_attention_bwd_stats", "cross_attention_bwd_fused"] if args[0].dtype == torch.bfloat16
+                else ["flash_attention_bwd_dq", "flash_attention_bwd_dkdv"])
     if fname == "moe_matmul_op":
         return [n for n, t in zip(("moe_matmul_bwd_dbuf", "moe_matmul_bwd_dw"), args) if t.requires_grad]
     return ["ssd_intra_chunk_bwd", "ssd_intra_chunk_bwd_reduce"]

@@ -23,6 +23,14 @@ JAX package on the same numpy inputs:
   combine), against ``jl.multihead_attention`` and the row log-sum-exp
   through JAX at Sk 1500 (1250-2000 for the split counts 1500 keys cannot
   take) and 1-8 splits: 1e-5;
+- the bf16 backward's plan (``cross_bwd_plan``: key tiles over 1-8 splits,
+  each once and none empty, the dQ partial rows and the final sum's parts
+  covering every query row once, shared memory, one block an SM, the split
+  count the cost model picks, the partials' place) and its one pass,
+  modelled in f32 (statistics, 64-key warpgroups, key tiles added in
+  order, the splits' partials summed in split order), against ``jax.vjp``
+  of the layer at 1-8 splits, d 64 and 128: 1e-5 of each gradient's
+  largest magnitude (~1 s the plan cases, ~4 s the model cases);
 - that ``ops`` sends CPU tensors to the plain versions and launches nothing,
   that the kernel wrappers refuse CPU tensors and causal attention over keys
   of another length, and that B2's ``flash_attention`` refuses bf16 keys of
@@ -329,6 +337,142 @@ def test_split_combine_matches_jax(splits, Sk):
     close(lse, want_lse, 1e-5)
 
 
+# (B, H, KV, S, Sk, d): the forward's shapes, whisper's LM shape at its two lengths past the
+# rows shared memory holds (S 1024; g 7 at S 448), and Sk across one, two and eight key tiles
+CROSS_BWD_PLAN_SHAPES = sorted(set(CROSS_FWD_PLAN_SHAPES) | {
+    (2, 16, 16, 1024, 1500, 64), (2, 14, 2, 448, 1500, 64), (2, 14, 2, 160, 1500, 128),
+    (1, 2, 2, 64, 1000, 64), (2, 8, 2, 129, 257, 64), (2, 2, 2, 512, 128, 64), (2, 2, 2, 513, 128, 64)})
+
+
+@pytest.mark.parametrize("B,H,KV,S,Sk,d", CROSS_BWD_PLAN_SHAPES)
+def test_cross_backward_plan_covers_every_key_and_row_once(B, H, KV, S, Sk, d):
+    """cross_bwd_plan: the splits' key tiles cover Sk once, none empty, at most 8 splits; the
+    rows of the dQ partials cover every query row of a KV head's g heads once, and the final
+    sum's parts (whole rows) cover them once; shared memory within a block's; one block an
+    SM, and the split count that least multiplies the grid's waves by a block's tiles."""
+    plan = flash_mod.cross_bwd_plan(B, H, KV, S, Sk, d)
+    g, bk = H // KV, 128 if d == 64 else 64
+    assert (plan.block_k, plan.warpgroups, plan.threads) == ((128, 2, 384) if d == 64 else (64, 1, 160))
+    assert plan.key_tiles == -(-Sk // bk) and plan.grid == (plan.splits, KV, B)
+    assert 1 <= plan.splits <= min(8, plan.key_tiles)
+    tiles = [list(range(r, plan.key_tiles, plan.splits)) for r in range(plan.splits)]
+    assert sorted(t for ts in tiles for t in ts) == list(range(plan.key_tiles))  # each key tile once
+    assert all(tiles) and plan.tiles_per_block == max(map(len, tiles))  # no split without keys
+    assert plan.rows == g * -(-S // 64) * 64 >= g * S  # each query row of the g heads has a row
+    per = -(-plan.rows // plan.splits)  # the final sum's parts, whole rows
+    parts = [range(p * per, min(plan.rows, (p + 1) * per)) for p in range(plan.splits)]
+    assert sorted(r for p in parts for r in p) == list(range(plan.rows))
+    whole = flash_mod.cross_bwd_smem(d, plan.rows)
+    assert plan.region == ("smem" if whole <= _build.MAX_SMEM_BYTES else "global")
+    assert plan.smem_bytes == (whole if plan.region == "smem" else flash_mod.cross_bwd_smem(d))
+    assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
+    # one block an SM: 384 threads at 168 registers (64512 of 65536) or 160 at 255
+    regs = plan.threads * (168 if d == 64 else 255)
+    assert 65536 // 2 < regs <= 65536
+
+    def cost(n):
+        return -(-n * KV * B // _build.NUM_SMS) * -(-plan.key_tiles // n)
+
+    assert cost(plan.splits) == min(cost(n) for n in range(1, min(8, plan.key_tiles) + 1))
+    assert all(cost(n) > cost(plan.splits) for n in range(1, plan.splits))  # the smallest of equals
+    assert plan.stats_blocks == -(-(B * H * S) // (8 * (32 // (d // 8))))
+    if (B, H, KV, S, Sk, d) == (2, 16, 16, 448, 1500, 64):  # whisper's LM step: one wave
+        assert (plan.splits, plan.tiles_per_block, plan.region) == (4, 3, "smem")
+        assert math.prod(plan.grid) == 128 <= _build.NUM_SMS
+    if (S, Sk, d) == (1024, 1500, 64) or g * S > 600:  # past the rows shared memory holds
+        assert plan.region == "global"
+
+
+def one_pass_bwd(q, k, v, o, lse, dout, splits, bk):
+    """B11's bf16 backward as the kernels run it, modelled in f32: the statistics pass (D,
+    lse log2 e), then per (batch, KV head) ``splits`` blocks over 64-row units and key tiles
+    of ``bk`` keys (r, r + splits, ...), 64-key warpgroups whose dQ partials the second adds
+    to the first's, a block's partials added up over its key tiles in order, and dQ the
+    splits' partials summed in split order.  q, o, dout [B, H, S, d]; k, v [B, KV, Sk, d]."""
+    f32 = np.float32
+    B, H, S, d = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    g, n_qt, key_tiles = H // KV, -(-S // 64), -(-Sk // bk)
+    scale = f32(1 / math.sqrt(d))
+    l2e = f32(math.log2(math.e))
+    delta = (dout * o).sum(-1, dtype=f32)
+    lse2 = (lse * l2e).astype(f32)
+    dq = np.zeros(q.shape, f32)
+    dk, dv = np.zeros(k.shape, f32), np.zeros(v.shape, f32)
+    for b in range(B):
+        for kvh in range(KV):
+            parts = []
+            for r in range(splits):
+                region = np.zeros((g, n_qt * 64, d), f32)
+                for js, kt in enumerate(range(r, key_tiles, splits)):
+                    keys = slice(kt * bk, min(Sk, kt * bk + bk))
+                    kk, vv = k[b, kvh, keys], v[b, kvh, keys]
+                    dka, dva = np.zeros(kk.shape, f32), np.zeros(vv.shape, f32)
+                    for hl in range(g):
+                        h = kvh * g + hl
+                        for qt in range(n_qt):
+                            rows = slice(qt * 64, min(S, qt * 64 + 64))
+                            qq, dd = q[b, h, rows], dout[b, h, rows]
+                            pt = np.exp2(kk @ qq.T * (scale * l2e) - lse2[b, h, rows]).astype(f32)
+                            dst = (pt * (vv @ dd.T - delta[b, h, rows])).astype(f32)
+                            dva += pt @ dd
+                            dka += dst @ qq
+                            # each 64-key warpgroup's partial; the second's plus the first's
+                            wgs = [dst[w:w + 64].T @ kk[w:w + 64] for w in range(0, kk.shape[0], 64)]
+                            part = wgs[0] if len(wgs) == 1 else (wgs[1] + wgs[0]).astype(f32)
+                            out = region[hl, rows]
+                            region[hl, rows] = part if js == 0 else part + out
+                    dk[b, kvh, keys], dv[b, kvh, keys] = dka * scale, dva
+                parts.append(region)
+            total = parts[0]
+            for p in parts[1:]:  # split order
+                total = total + p
+            for hl in range(g):
+                dq[b, kvh * g + hl] = total[hl, :S] * scale
+    return dq, dk, dv
+
+
+# whisper's split count (4) and the others its 1500 frames can take, one split, and d 128
+# (64-key tiles, one warpgroup a block) at 1500 and at 700 keys
+@pytest.mark.parametrize("splits,Sk,hd", [(4, 1500, 64), (1, 1500, 64), (2, 1500, 64), (3, 1500, 64),
+                                          (8, 1500, 64), (8, 1500, 128), (5, 700, 128)])
+def test_one_pass_backward_sum_matches_jax(splits, Sk, hd):
+    """The one-pass backward's fixed-order sums across warpgroups, key tiles and splits,
+    modelled in f32, against jax.vjp of the cross-attention layer (d x through wq, d k, d v)
+    at 70 queries (a ragged second query tile), g 2: 1e-5 of each gradient's largest."""
+    S70 = 70
+    jcfg, _ = cfg_pair(4, 2, head_dim=hd)
+    rng = np.random.default_rng(300 + splits + hd)
+    jp, _ = params(rng, jcfg, "float32")
+    B, H, KV = 1, 4, 2
+    x = rng.standard_normal((B, S70, jcfg.d_model), dtype=np.float32)
+    k = rng.standard_normal((B, Sk, KV, hd), dtype=np.float32)
+    v = rng.standard_normal((B, Sk, KV, hd), dtype=np.float32)
+    dy = rng.standard_normal((B, S70, jcfg.d_model), dtype=np.float32)
+    pos = jnp.asarray(np.broadcast_to(np.arange(S70, dtype=np.int32), (B, S70)))
+
+    def jfn(x, k, v):
+        return jl.multihead_attention(jp, x, pos, jcfg, kv_override=(k, v), causal=False, use_rope=False)
+
+    want = jax.jit(lambda *a: jax.vjp(jfn, *a)[1](jnp.asarray(dy)))(x, k, v)
+    wq, wo = np.asarray(jp["wq"]), np.asarray(jp["wo"])
+    q = (x @ wq).reshape(B, S70, H, hd).transpose(0, 2, 1, 3)
+    kt, vt = k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3)
+    qg = q.astype(np.float64).reshape(B, KV, H // KV, S70, hd)
+    scores = np.einsum("bngsd,bnkd->bngsk", qg, kt.astype(np.float64)) / math.sqrt(hd)
+    lse = np.log(np.exp(scores - scores.max(-1, keepdims=True)).sum(-1)) + scores.max(-1)
+    o = np.einsum("bngsk,bnkd->bngsd", np.exp(scores - lse[..., None]), vt.astype(np.float64))
+    dout = (dy @ wo.T).reshape(B, S70, H, hd).transpose(0, 2, 1, 3)
+    dq, dk, dv = one_pass_bwd(q, kt, vt, o.reshape(B, H, S70, hd).astype(np.float32),
+                              lse.reshape(B, H, S70).astype(np.float32), dout, splits, 128 if hd == 64 else 64)
+    dx = dq.transpose(0, 2, 1, 3).reshape(B, S70, H * hd) @ wq.T
+    for name, got, w in (("x", dx, want[0]), ("k", dk.transpose(0, 2, 1, 3), want[1]),
+                         ("v", dv.transpose(0, 2, 1, 3), want[2])):
+        w = np.asarray(w)
+        err = np.abs(got - w).max()
+        assert err <= 1e-5 * np.abs(w).max(), (name, err, np.abs(w).max())
+
+
 @pytest.mark.parametrize("B,H,KV,n,d", [(4, 16, 16, 1500, 64), (1, 16, 16, 1500, 64), (4, 16, 4, 1500, 128),
                                         (2, 14, 2, 777, 64), (4, 32, 8, 100, 128), (2, 2, 2, 1, 64),
                                         (2, 6, 2, 129, 64), (64, 16, 16, 1500, 64)])
@@ -388,12 +532,19 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_causal_keys_of_another_length():
 
 
 def test_b2_refuses_bf16_keys_of_another_length_and_b11_takes_any():
-    """Keys of their own length in bf16 are cross_attention's: B2's flash_attention refuses
-    them before it looks for a card, and B11 still takes keys of q's own length."""
+    """Keys of their own length in bf16 are cross_attention's: B2's flash_attention and B5's
+    backward kernels refuse them before they look for a card, and B11 still takes keys of
+    q's own length."""
     q = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
     k = torch.zeros(1, 2, 9, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="cross_attention"):
         flash_mod.flash_attention(q, k, k, causal=False)
+    lse = torch.zeros(1, 2, 8)
+    for bwd in (lambda: flash_mod.flash_attention_bwd_dq(q, k, k, q, lse, q, causal=False),
+                lambda: flash_mod.flash_attention_bwd_dkdv(q, k, k, q, lse, torch.zeros(2, 1, 2, 8),
+                                                           causal=False)):
+        with pytest.raises(ValueError, match="cross_attention_bwd"):  # so are B5's kernels
+            bwd()
     with pytest.raises(ValueError, match="CUDA"):  # the same length: only the CPU is refused
         flash_mod.cross_attention(q, q, q)
     plan = flash_mod.cross_plan(1, 2, 2, 8, 8, 64, torch.bfloat16)
@@ -430,12 +581,12 @@ def test_whisper_launch_counts_name_b11():
     assert serve["flash_attention"] == cfg.encoder_layers + L
     train = cs.path_launches(cfg, 0, 0, train_steps=3)
     assert train["cross_attention"] == 2 * 3 * L  # forward, and again under recompute
-    assert train["cross_attention_bwd_dq"] == train["cross_attention_bwd_dkdv"] == 3 * L
+    assert train["cross_attention_bwd_stats"] == train["cross_attention_bwd_fused"] == 3 * L
     off = cs.path_launches(dataclasses.replace(cfg, remat=False), 0, 0, train_steps=3)
     assert off["cross_attention"] == 3 * L
     llama = cs.path_launches(get_config("llama3.2-1b"), 1, 31, train_steps=1)
-    assert not any(llama[k] for k in ("cross_attention", "cross_attention_bwd_dq",
-                                      "cross_attention_bwd_dkdv", "flash_decode"))
+    assert not any(llama[k] for k in ("cross_attention", "cross_attention_bwd_stats",
+                                      "cross_attention_bwd_fused", "flash_decode"))
 
 
 def test_chip_smoke_shape_keys_read_as_hold_at_shape_reads_them():

@@ -211,7 +211,9 @@ def test_cross_attention_kernels(cuda, B, H, KV, S, Sk, d, dtype):
     got = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
     after = ops.launch_counts()
-    for name in ("cross_attention", "cross_attention_bwd_dq", "cross_attention_bwd_dkdv"):
+    bwd = (("cross_attention_bwd_stats", "cross_attention_bwd_fused") if dtype == torch.bfloat16
+           else ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv"))  # f32: B5's kernels at Sk
+    for name in ("cross_attention", *bwd):
         assert after[name] == before[name] + 1, name
     want_out = ref.flash_attention_ref(q, k, v, causal=False)
     close(out, want_out, 2e-2 if dtype == torch.bfloat16 else 2e-5)
@@ -273,6 +275,66 @@ def test_cross_forward_refuses_a_plan_not_its_own(cuda):
         assert err != 0, bad
     with pytest.raises(ValueError, match="cross_attention"):
         flash_mod.flash_attention(q, k, k, causal=False)  # B2 takes bf16 keys of q's length only
+
+
+# B11's bf16 backward: whisper's LM shape (dQ partials in shared memory, 4 splits) and GQA
+# g 7 at d 128 (64-key tiles, the partials in the global scratch, 8 splits)
+@pytest.mark.parametrize("B,H,KV,S,Sk,d,region", [(2, 16, 16, 448, 1500, 64, "smem"),
+                                                   (2, 14, 2, 160, 1500, 128, "global")])
+def test_cross_backward_is_bit_identical(cuda, B, H, KV, S, Sk, d, region):
+    """Two calls of B11's bf16 backward give the same bits (its splits' dQ partials are
+    summed in a fixed order), each launching its two kernels once and nothing of B5's."""
+    plan = flash_mod.cross_bwd_plan(B, H, KV, S, Sk, d)
+    assert plan.region == region and plan.splits > 1
+    rng = np.random.default_rng(S + Sk + d)
+    q, k, v = (tensor(rng, (B, n, H_, d), torch.bfloat16, cuda).transpose(1, 2)
+               for n, H_ in ((S, H), (Sk, KV), (Sk, KV)))
+    dout = tensor(rng, (B, H, S, d), torch.bfloat16, cuda)
+    o, lse = flash_mod.cross_attention(q, k, v, lse=True)
+    before = ops.launch_counts()
+    first, second = (flash_mod.cross_attention_bwd(q, k, v, o, lse, dout) for _ in range(2))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {
+        "cross_attention_bwd_stats": 2, "cross_attention_bwd_fused": 2}
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(*leaves, causal=False), leaves, dout)
+    for name, g, w in zip("qkv", first, want):
+        close_to_max(f"d{name}", g, w, grad_tol(torch.bfloat16))
+
+
+def test_cross_backward_refuses_a_plan_not_its_own(cuda):
+    """The one-pass entry checks cross_bwd_plan's grid, rows, shared memory and buffers."""
+    B, H, KV, S, Sk, d = 1, 2, 2, 64, 1000, 64
+    q = torch.zeros(B, H, S, d, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(B, KV, Sk, d, dtype=torch.bfloat16, device=cuda)
+    o, lse = flash_mod.cross_attention(q, k, k, lse=True)
+    stats, counters = flash_mod.cross_attention_bwd_stats(q, k, k, o, lse, q)
+    plan = flash_mod.cross_bwd_plan(B, H, KV, S, Sk, d)
+    assert (plan.splits, plan.key_tiles, plan.region) == (8, 8, "smem")
+    scratch = torch.empty((8, B, KV, plan.rows, d), dtype=torch.float32, device=cuda)
+    entry = flash_mod._entries()[6]
+    for bad in (dataclasses.replace(plan, grid=(9, *plan.grid[1:])),  # more splits than key tiles
+                dataclasses.replace(plan, grid=(plan.splits, 1, B)),  # not a block per KV head
+                dataclasses.replace(plan, rows=plan.rows + 64),
+                dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 16),
+                dataclasses.replace(plan, region="global")):  # shared memory that holds the partials
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(k)
+        err = entry(d, q.data_ptr(), k.data_ptr(), k.data_ptr(), q.data_ptr(), stats.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+                    B, H, KV, S, Sk, flash_mod._strides(q, k, k, q, q, dq, dk, dv), 0.125, bad.rows,
+                    int(bad.region == "smem"), *bad.grid, bad.smem_bytes,
+                    torch.cuda.current_stream().cuda_stream)
+        assert err != 0, bad
+    err = entry(d, q.data_ptr(), k.data_ptr(), k.data_ptr(), q.data_ptr(), stats.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), None, B, H, KV, S, Sk,  # no counters
+                flash_mod._strides(q, k, k, q, q, dq, dk, dv), 0.125, plan.rows, 1, *plan.grid,
+                plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(TypeError, match="bf16"):
+        flash_mod.cross_attention_bwd_stats(q.float(), k.float(), k.float(), o.float(), lse, q.float())
 
 
 # B11's decode: whisper's [4, 16, 1, 64] over [4, 1500, 1024] caches, fewer keys than the
@@ -727,7 +789,9 @@ def test_vlm_and_audio_card_match_cpu(cuda, arch):
     attn = cfg.num_layers + cfg.encoder_layers
     # with remat (the configs' default) each layer's attention runs again in the backward
     assert got["flash_attention"] == (2 if cfg.remat else 1) * attn
-    assert got["flash_attention_bwd_dkdv"] == attn
+    # B11's f32 backward (whisper's cross-attention) runs B5's kernels at Sk, counted as B5's
+    cross = cfg.num_layers if cfg.family == "audio" else 0
+    assert got["flash_attention_bwd_dkdv"] == attn + cross and got["cross_attention_bwd_fused"] == 0
     lc = api.loss_fn(p_cpu, {"tokens": toks, **on_cpu})[0]
     gc = grads_of(lc, p_cpu)
     close(lg.detach(), lc.detach(), 1e-3)
@@ -765,8 +829,8 @@ def test_live_grpo_step_launches(cuda):
         "flash_attention_bwd_dq": policy.num_layers,
         "flash_attention_bwd_dkdv": policy.num_layers,
         "cross_attention": 0,  # B11: only the audio decoder's cross-attention
-        "cross_attention_bwd_dq": 0,
-        "cross_attention_bwd_dkdv": 0,
+        "cross_attention_bwd_stats": 0,
+        "cross_attention_bwd_fused": 0,
         "flash_decode": 0,
         "rmsnorm_bwd_wide": 0,
         "moe_matmul": 0,

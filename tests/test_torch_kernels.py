@@ -157,7 +157,7 @@ def test_rmsnorm_ref_grads_match_jax(T, D):
 ZERO_COUNTS = {
     "rmsnorm": 0, "rmsnorm_bwd": 0, "rmsnorm_bwd_wide": 0, "rmsnorm_bwd_dweight": 0,
     "flash_attention": 0, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
-    "cross_attention": 0, "cross_attention_bwd_dq": 0, "cross_attention_bwd_dkdv": 0,
+    "cross_attention": 0, "cross_attention_bwd_stats": 0, "cross_attention_bwd_fused": 0,
     "flash_decode": 0,
     "moe_matmul": 0, "moe_matmul_bwd_dbuf": 0, "moe_matmul_bwd_dw": 0,
     "ssd_intra_chunk": 0, "ssd_intra_chunk_bwd": 0, "ssd_intra_chunk_bwd_reduce": 0,

@@ -18,6 +18,8 @@
     python3 tools/torch_kernel_probe.py cross [--tree DIR]  # B11's forward at whisper's shapes
     python3 tools/torch_kernel_probe.py fwd-bounds  # B2's bf16 forward at two launch bounds
     python3 tools/torch_kernel_probe.py cross-parts  # B11's forward with parts taken out
+    python3 tools/torch_kernel_probe.py cross-bwd [--tree DIR]  # B11's backward at whisper's LM shape
+    python3 tools/torch_kernel_probe.py cross-bwd-parts  # B11's one-pass backward with parts taken out
 
 ``time`` checks each kernel against its plain version and times it as
 ``chip_smoke.py`` does (CUDA events behind a device sleep), at the serving
@@ -1064,6 +1066,173 @@ def time_cross(gen):
               + ", ".join(f"{s} {t:.4f}" for (_, s), t in ms.items()))
 
 
+CROSS_BWD_TIMED = [(2, 16, 16, 448, 1500, 64, "whisper LM"), (2, 14, 2, 448, 1500, 128, "g 7 d 128")]
+
+
+def _cross_bwd_call(fk, q, k, v, o, lse, dout, plan, lib=None):
+    """B11's backward, both launches, with a given plan (of the library ``lib``, a variant's
+    build, or the tree's) -> (dq, dk, dv)."""
+    lib = lib or _build.load("flash_attention")
+    p, i, f, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
+    st_fn, fn = lib.flash_attention_cross_bwd_stats, lib.flash_attention_cross_bwd
+    st_fn.argtypes = [i] + [p] * 5 + [i, i, i, i] + [i64] * 6 + [i, p]
+    fn.argtypes = [i] + [p] * 10 + [i, i, i, i, i, p, f, i, i, i, i, i, i64, p]
+    st_fn.restype = fn.restype = i
+    B, Hq, S, d = q.shape
+    KV, stream = k.shape[1], torch._C._cuda_getCurrentRawStream(q.device.index)
+    stats = torch.empty((2, B, Hq, fk.stats_row(S)), dtype=torch.float32, device=q.device)
+    counters = torch.empty((B, KV, plan.splits), dtype=torch.int32, device=q.device)
+    scratch = torch.empty((plan.splits, B, KV, plan.rows, d), dtype=torch.float32, device=q.device)
+    _build.check("flash_attention", st_fn(d, o.data_ptr(), dout.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+                                          counters.data_ptr(), counters.numel(), B, Hq, S, *o.stride()[:3],
+                                          *dout.stride()[:3], plan.stats_blocks, stream))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = fn(d, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), counters.data_ptr(), B, Hq, KV, S, k.shape[2],
+             fk._strides(q, k, v, dout, dout, dq, dk, dv), 1.0 / d ** 0.5, plan.rows,
+             int(plan.region == "smem"), *plan.grid, plan.smem_bytes, stream)
+    _build.check("flash_attention", err)
+    return dq, dk, dv
+
+
+def time_cross_bwd(gen):
+    """B11's backward: checks, bits over two calls, in-turn times beside sdpa's whole
+    backward and the five-product bound, and (where the tree has the one pass) its two
+    launches apart and every split count the kernel takes at whisper's LM shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fk
+
+    print(f"[cross-bwd] repro_torch from {Path(fk.__file__).resolve().parents[2]}")
+    one_pass = hasattr(fk, "cross_bwd_plan")
+    for B, Hq, KV, S, Sk, d, what in CROSS_BWD_TIMED:
+        q, k, v = _cross_views(gen, B, Hq, KV, S, Sk, d, torch.bfloat16)
+        dout = torch.randn(B, Hq, S, d, generator=gen, device=gen.device).bfloat16()
+        o, lse = fk.cross_attention(q, k, v, lse=True)
+        got = fk.cross_attention_bwd(q, k, v, o, lse, dout)
+        again = fk.cross_attention_bwd(q, k, v, o, lse, dout)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"cross bwd {what}: two calls differ")
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(ref.flash_attention_ref(*leaves, False), leaves, dout)
+        errs = [grad_err(f"cross bwd d{n} {what}", a, b, GRAD_TOL["bfloat16"])
+                for n, a, b in zip("qkv", got, want)]
+        lib_leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_leaves, enable_gqa=True)
+        calls = {"backward": lambda: fk.cross_attention_bwd(q, k, v, o, lse, dout),
+                 "sdpa": lambda: torch.autograd.grad(lib_out, lib_leaves, dout, retain_graph=True)}
+        if one_pass:
+            stats, counters = fk.cross_attention_bwd_stats(q, k, v, o, lse, dout)
+            calls["stats"] = lambda: fk.cross_attention_bwd_stats(q, k, v, o, lse, dout)
+            calls["pass"] = lambda: fk.cross_attention_bwd_fused(q, k, v, dout, stats, counters)
+        ms = medians(calls)
+        bnd = flash_bwd_bounds(B, Hq, KV, S, d, False, 2, Sk)[2]
+        plan = fk.cross_bwd_plan(B, Hq, KV, S, Sk, d) if one_pass else None
+        print(f"[cross-bwd] B{B} H{Hq} KV{KV} S{S} Sk{Sk} d{d} bf16 {what}: "
+              + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items())
+              + f", bound {bnd[0]:.4f} ms ({bnd[1]}); rel err "
+              + ", ".join(f"{r:.2e}" for _, r in errs) + "; two calls bit-identical"
+              + (f"; plan {plan.splits} splits, {plan.tiles_per_block} key tiles of "
+                 f"{plan.block_k} a block, grid {plan.grid}, {plan.threads} threads, dQ partials "
+                 f"in {plan.region}, {plan.smem_bytes} B" if plan else ""))
+        if one_pass and what == "whisper LM":  # every split count the kernel takes
+            calls = {}
+            for n in range(1, min(8, plan.key_tiles) + 1):
+                alt = dataclasses.replace(plan, splits=n, grid=(n, *plan.grid[1:]),
+                                          tiles_per_block=-(-plan.key_tiles // n))
+                out = _cross_bwd_call(fk, q, k, v, o, lse, dout, alt)
+                for a, b in zip(out, want):
+                    grad_err(f"cross bwd at {n} splits", a, b, GRAD_TOL["bfloat16"])
+                calls[n] = lambda alt=alt: _cross_bwd_call(fk, q, k, v, o, lse, dout, alt)
+            ms = medians(calls)
+            print("[cross-bwd]   both launches at each split count (splits: ms): "
+                  + ", ".join(f"{n} {t:.4f}" for n, t in ms.items()))
+        del q, k, v, dout, o, lse, got, again, want, lib_out, lib_leaves, leaves
+
+
+def cross_bwd_parts(gen):
+    """B11's one-pass backward rebuilt with one part of its work taken out, timed in turns
+    with the whole at whisper's LM shape through its plan (outputs wrong by design)."""
+    from repro_torch.kernels import flash_attention as fk
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    i0 = src.index("// ------------------------------------------------------ B11 bf16 backward --")
+    i1 = src.index("}  // namespace xa", i0)
+    xb = src[i0:i1]
+    never = "if (scale_log2 == 12345.f) "  # a uniform branch the run never takes
+    exp = "st[i] = exp2_ftz(fmaf(st[i], scale_log2, -((i & 1) ? lq[i >> 2].y : lq[i >> 2].x)));"
+    sdp = ("    wgmma_fence();\n    wgmma_ss_n64_first<0>(st, ", "    wgmma_commit();\n  };\n")
+    dv = "for (int c = 0; c < CH; ++c) wgmma_rs_n64<1>(dva[c]"
+    dk = "for (int c = 0; c < CH; ++c) wgmma_rs_n64<1>(dka[c]"
+    dq = ("        wgmma_fence();\n        wgmma_ss_n64_first<1, 1>(dqp", "        wgmma_commit();\n        wgmma_wait<0>();\n        fence_regs(dqp);")
+    rmw = "            *reinterpret_cast<float2*>(fp + col) = x;\n"
+    units = "S_pad = n_qt * 64, n_units = g_heads * n_qt;"
+    loads = "          mbar_expect_tx(full + s, 2 * 64 * D * 2 + 2 * 64 * 4);\n"
+    reduce = "      for (int i = threadIdx.x; i < nr * V4; i += NT) {"
+    kv = "        mbar_expect_tx(kvfull, 2 * BK * D * 2);\n"  # in load_kv
+    parts = (exp, dv, dk, rmw, units, loads, sdp[0], dq[0], reduce, kv)
+    if any(xb.count(p) != 1 for p in parts):
+        raise RuntimeError("flash_attention.cu no longer has the parts this probe takes out")
+
+    def guard(text, span):  # the lines from span[0] up to span[1] under the never-taken branch
+        a = text.index(span[0])
+        b = text.index(span[1], a)
+        return text[:a] + "    " + never + "{\n" + text[a:b] + "    }\n" + text[b:]
+
+    variants = {"whole": xb, "no exp2": xb.replace(exp, exp.replace("exp2_ftz(", "(")),
+                "no S^T, dP^T products": guard(xb, sdp),
+                "no dV product": xb.replace(dv, "for (int c = 0; c < CH; ++c) " + never + "wgmma_rs_n64<1>(dva[c]"),
+                "no dK product": xb.replace(dk, "for (int c = 0; c < CH; ++c) " + never + "wgmma_rs_n64<1>(dka[c]"),
+                "no dQ product": guard(xb, dq),
+                "no partial updates": xb.replace(rmw, "            " + never + rmw.lstrip()),
+                "S^T, dP^T of one k-step": xb.replace(
+                    "      wgmma_ss_n64<0>(st, desc_k(Ks, BK, wgi * 64, kk)", "      if (kk < 1) wgmma_ss_n64<0>(st, desc_k(Ks, BK, wgi * 64, kk)").replace(
+                    "      wgmma_ss_n64<0>(dpt, desc_k(Vs, BK, wgi * 64, kk)", "      if (kk < 1) wgmma_ss_n64<0>(dpt, desc_k(Vs, BK, wgi * 64, kk)"),
+                "dV, dK of one k-step": xb.replace(dv, "if (kk < 1) " + dv).replace(dk, "if (kk < 1) " + dk),
+                "dQ of one k-step": xb.replace(
+                    "          wgmma_ss_n64<1, 1>(dqp, desc_mn(dS, 64, 0, kk)", "          if (kk < 1) wgmma_ss_n64<1, 1>(dqp, desc_mn(dS, 64, 0, kk)"),
+                "one unit a key tile": xb.replace(units, "S_pad = n_qt * 64, n_units = 1;"),
+                "no Q/dO loads after the first fill": xb.replace(
+                    loads, "          if (it >= ST) { mbar_arrive(full + s); continue; }\n" + loads),
+                "no final sum": xb.replace(reduce, reduce.replace("i < nr * V4;", "i < nr * V4 && scale_log2 == 12345.f;")),
+                "K/V loaded once": xb.replace(kv, "        if (js > 0) { mbar_arrive(kvfull); return; }\n" + kv),
+                "no units": xb.replace(units, "S_pad = n_qt * 64, n_units = 0;"),
+                "no units, no final sum": xb.replace(units, "S_pad = n_qt * 64, n_units = 0;").replace(
+                    reduce, reduce.replace("i < nr * V4;", "i < nr * V4 && scale_log2 == 12345.f;")),
+                "no dK, dV stores": xb.replace("          if (key < Sk)\n            *reinterpret_cast<uint4*>(out",
+                                               "          if (key < 0)\n            *reinterpret_cast<uint4*>(out"),
+                "one unit a key tile, no final sum": xb.replace(units, "S_pad = n_qt * 64, n_units = 1;").replace(
+                    reduce, reduce.replace("i < nr * V4;", "i < nr * V4 && scale_log2 == 12345.f;"))}
+    out_dir = ROOT / "build" / "probe" / "cross_bwd_parts"
+    jobs = {}
+    for i, (name, text) in enumerate(variants.items()):
+        vdir = out_dir / str(i)
+        vdir.mkdir(parents=True, exist_ok=True)
+        (vdir / "flash_attention.cu").write_text(src[:i0] + text + src[i1:])
+        (vdir / "hopper.cuh").write_text((_build.CSRC / "hopper.cuh").read_text())
+        _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+        jobs[name] = (vdir, _build._start("flash_attention"))
+    for name, (vdir, job) in jobs.items():
+        if job is not None:
+            with contextlib.redirect_stdout(io.StringIO()):  # ptxas -v reports
+                _build._finish("flash_attention", job)
+    B, Hq, KV, S, Sk, d, what = CROSS_BWD_TIMED[0]
+    q, k, v = _cross_views(gen, B, Hq, KV, S, Sk, d, torch.bfloat16)
+    dout = torch.randn(B, Hq, S, d, generator=gen, device=gen.device).bfloat16()
+    o, lse = fk.cross_attention(q, k, v, lse=True)
+    plan = fk.cross_bwd_plan(B, Hq, KV, S, Sk, d)
+    calls = {}
+    for name, (vdir, _) in jobs.items():
+        _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+        _build._loaded.pop("flash_attention", None)
+        lib = _build.load("flash_attention")
+        calls[name] = lambda lib=lib: _cross_bwd_call(fk, q, k, v, o, lse, dout, plan, lib)
+        calls[name]()
+    ms = medians(calls)
+    print(f"[cross-bwd-parts] B{B} H{Hq} KV{KV} S{S} Sk{Sk} d{d} {what}, {plan.splits} splits, both "
+          f"launches: " + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items()))
+
+
 def cross_parts(gen):
     from repro_torch.kernels import flash_attention as fk
 
@@ -1167,7 +1336,7 @@ def main() -> int:
              "ssd-bwd": time_ssd_bwd, "ssd-sass": ssd_sass, "ssd-parts": ssd_parts, "bwd-parts": bwd_parts, "ssd-roles": ssd_roles, "ssm-check": ssm_check,
              "moe-bwd-tiles": moe_bwd_tiles, "moe-bwd-fma": moe_bwd_fma, "rms-parts": rms_parts,
              "live-rate": live_rate, "cross": time_cross, "fwd-bounds": fwd_bounds,
-             "cross-parts": cross_parts}
+             "cross-parts": cross_parts, "cross-bwd": time_cross_bwd, "cross-bwd-parts": cross_bwd_parts}
     if len(sys.argv) not in (2, 4) or sys.argv[1] not in modes or (len(sys.argv) == 4 and sys.argv[2] != "--tree"):
         print(__doc__, file=sys.stderr)
         return 2
