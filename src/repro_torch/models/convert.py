@@ -55,11 +55,13 @@ def tree_from_flat(flat: Mapping[str, torch.Tensor], trainable: bool = False) ->
 
 
 def params_from_flat(
-    flat: Mapping[str, Any], cfg: ModelConfig, device: torch.device | str = "cuda"
+    flat: Mapping[str, Any], cfg: ModelConfig, device: torch.device | str = "cuda", rules=None
 ) -> ParamTree:
     """Build the model's ParamTree from flat path-keyed arrays, in ``cfg.dtype``.
 
-    Raises KeyError on a missing or extra key and ValueError on a shape mismatch.
+    With live ``rules`` each leaf is placed on the mesh by its schema's dims
+    (every rank is handed the whole arrays and keeps its block).  Raises
+    KeyError on a missing or extra key and ValueError on a shape mismatch.
     """
     want = _flat_schema(model_schema(cfg))
     missing, extra = sorted(set(want) - set(flat)), sorted(set(flat) - set(want))
@@ -71,7 +73,8 @@ def params_from_flat(
         arr = np.asarray(flat[key])
         if tuple(arr.shape) != tuple(pdef.shape):
             raise ValueError(f"{key}: shape {arr.shape} != expected {pdef.shape}")
-        tensors[key] = _to_tensor(arr).to(device=device, dtype=dtype)
+        t = _to_tensor(arr).to(device=device, dtype=dtype)
+        tensors[key] = t if rules is None else rules.distribute(t, pdef.dims)
     return tree_from_flat(tensors)
 
 

@@ -265,16 +265,22 @@ class Rules:
                 if over:
                     t = self.gather(t, dim, over)
             return t
-        target, grad = [], []
+        # training: the local block, then the gathers through ``gather`` (``_Gathered``),
+        # whose backward hands each rank its block of the gradient
+        gathered, grad = {}, []
         for i, p in enumerate(w.placements):
-            if i == self.model_dim and keep_dim is not None and p == Shard(keep_dim):
-                target.append(p)
-                grad.append(p)
-                continue
-            target.append(Replicate())
             summed = data_sharded if i in self.data_dims else split
-            grad.append(Partial() if summed else Replicate())
-        return w.redistribute(self.mesh, target).to_local(grad_placements=grad)
+            if isinstance(p, Shard):
+                if not (i == self.model_dim and p.dim == keep_dim):
+                    gathered.setdefault(p.dim, []).append((i, summed))
+                grad.append(p)
+            else:
+                grad.append(Partial() if summed else Replicate())
+        t = w.to_local(grad_placements=grad)
+        for dim, over in sorted(gathered.items()):
+            t = _Gathered.apply(t, self, dim, tuple(i for i, _ in over),
+                                tuple(i for i, summed in over if summed))
+        return t
 
     def kept_range(self, w: torch.Tensor, dim: int) -> Optional[Tuple[int, int]]:
         """[lo, hi) of ``w``'s dim ``dim`` that this rank holds where ``w`` is sharded
@@ -308,6 +314,31 @@ class Rules:
     @property
     def data_extent(self) -> int:
         return math.prod(self.axis_sizes[a] for a in self.data_axes)
+
+
+class _Gathered(torch.autograd.Function):
+    """``Rules.gather`` of a parameter's block with a gradient: the backward sums the
+    incoming gradient over the mesh dims ``summed`` (where the ranks' gradients are partial
+    sums) and hands each rank its own block.  A DTensor redistribution would all-gather
+    with gloo's functional collective, which fails on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, t, rules, dim, mesh_dims, summed):
+        ctx.rules, ctx.dim, ctx.mesh_dims, ctx.summed = rules, dim, mesh_dims, summed
+        return rules.gather(t, dim, mesh_dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        mesh = ctx.rules.mesh
+        coord = mesh.get_coordinate()
+        for d in sorted(ctx.mesh_dims):  # outer first, as ``gather`` lays the blocks out
+            if d in ctx.summed:
+                g = g.contiguous().clone()
+                dist.all_reduce(g, group=mesh.get_group(d))
+            g = g.unflatten(ctx.dim, (mesh.size(d), -1)).select(ctx.dim, coord[d])
+        return g.contiguous(), None, None, None, None
 
 
 def block_of(shape: Sequence[int], mesh, placements) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:

@@ -11,8 +11,10 @@ workloads; forced commit conflicts must converge over the wire; and
 `TaskShard` migrate-then-merge must preserve WFQ order and virtual-clock
 monotonicity."""
 
+import itertools
 import math
 import random
+import types
 
 import pytest
 
@@ -29,6 +31,7 @@ from repro_torch.core.remote import (
     ProcessTransport,
     RemoteShardWorker,
 )
+from repro_torch.core import shards as shards_mod
 from repro_torch.core import wire
 from repro_torch.core.simulator import EventLoop
 
@@ -632,10 +635,15 @@ class TestAutoPlanMode:
             )
             assert auto.telemetry.plan_cost_ewma_s > 0
 
-    def test_cheap_plans_stay_inline(self):
+    def test_cheap_plans_stay_inline(self, monkeypatch):
+        # the plan timer advances 10 µs a reading, so every partition's plan
+        # measures 10 µs, far under the cutover, however loaded the host is
+        clock = itertools.count(0.0, 1e-5)
+        monkeypatch.setattr(shards_mod, "time", types.SimpleNamespace(perf_counter=lambda: next(clock)))
         auto = _make_system(4, plan_mode="auto")
         _submit_workload(auto, 7)
         auto.run()
+        assert auto._executor.plan_cost_ewma == pytest.approx(1e-5)
         # DES plan costs are far under the cutover: no pool dispatch
         assert auto.telemetry.plan_mode_rounds.get("threads", 0) == 0
 

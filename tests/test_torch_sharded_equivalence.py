@@ -34,6 +34,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models.layers import multihead_attention as jax_mha
 from repro_torch.launch.mesh import device_mesh, run_ranks
+from repro_torch.models.convert import flat_from_params
 
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -242,15 +243,29 @@ def dataclasses_replace(cfg, fields):
     return dataclasses.replace(cfg, **fields)
 
 
-def _train_body(rank, world, archs, steps):
+def train_batch(cfg, seed):
+    """Step ``seed``'s batch: 4 x 16 tokens, and the audio family's 4 x encoder_seq stub frames."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 16), generator=gen)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(4, cfg.encoder_seq, cfg.d_model, generator=gen)
+    return batch
+
+
+def _train_body(rank, world, archs, steps, first):
+    """On (data 2, model 2): ``steps`` sharded train steps of each of ``archs`` (reduced) and
+    the same steps unsharded, from the port's weights of seed 0; and for each (arch, flat
+    weights, batch) of ``first``, the loss and gradients (gathered whole) of one sharded
+    step from those weights."""
     warnings.simplefilter("ignore")
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
+    from repro_torch.models.convert import params_from_flat
     from repro_torch.sharding.rules import make_rules
     from repro_torch.training import AdamWConfig
-    from repro_torch.training.train_step import init_train_state, make_train_step
+    from repro_torch.training.train_step import grads_of, init_train_state, make_train_step
 
     rules = make_rules(device_mesh("cpu", (2, 2), ("data", "model")))
     opt = AdamWConfig(warmup_steps=1)
@@ -265,27 +280,45 @@ def _train_body(rank, world, archs, steps):
             step = make_train_step(api, opt, r)
             losses = []
             for i in range(steps):
-                toks = torch.randint(0, cfg.vocab_size, (4, 16),
-                                     generator=torch.Generator().manual_seed(i))
-                state, m = step(state, {"tokens": toks})
+                state, m = step(state, train_batch(cfg, i))
                 losses.append(float(m["loss"]))
             runs[arch, name] = (losses, {k: (r.full(p) if r else p).detach().numpy()
                                          for k, p in state.params.named_parameters()})
+    for arch, flat, batch in first:
+        api = build_model(get_config(arch).reduced())
+        params = params_from_flat(flat, api.cfg, "cpu", rules).requires_grad_(True)
+        loss, _ = api.loss_fn(params, {k: torch.as_tensor(v) for k, v in batch.items()}, rules)
+        runs[arch, "first"] = (float(loss), {k.replace(".", "/"): rules.full(g).numpy()
+                                             for k, g in grads_of(loss, params).items()})
     return runs
 
 
-TRAIN_ARCHS = ("granite-moe-3b-a800m", "llama3.2-1b")
+TRAIN_ARCHS = ("granite-moe-3b-a800m", "llama3.2-1b", "mamba2-130m", "hymba-1.5b", "whisper-medium")
+
+
+def first_step_case(arch):
+    """(JAX api, JAX params, the same weights flat, a batch as numpy): the JAX package's
+    reduced weights (``_torch_parity.models``), 4 x 16 tokens and whisper's 16 frames."""
+    from _torch_parity import family_inputs, models
+
+    japi, jparams, tapi, tparams = models(arch)
+    toks = np.random.default_rng(7).integers(0, japi.cfg.vocab_size, (4, 16))
+    extra = {k: v.numpy() for k, v in family_inputs(tapi.cfg, 4, seed=7, frames=16).items()}
+    return japi, jparams, flat_from_params(tparams), {"tokens": toks, **extra}
 
 
 @pytest.fixture(scope="module")
 def train_runs():
-    return run_ranks(_train_body, 4, (TRAIN_ARCHS, 2), device="cpu", timeout=300)
+    first = [(arch, *first_step_case(arch)[2:]) for arch in TRAIN_ARCHS]
+    return run_ranks(_train_body, 4, (TRAIN_ARCHS, 2, first), device="cpu", timeout=300)
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_sharded_train_steps_match_unsharded(train_runs, arch):
-    """granite with 10 experts, top-4 (5 experts a model rank), and llama, two steps each:
-    the losses and every rank's parameters after them."""
+    """granite with 10 experts, top-4 (5 experts a model rank), llama, mamba2 (its SSM
+    parameters sharded on the model axis and gathered into the repeated mixer), hymba
+    (attention heads, SSM and FFN sharded) and whisper (over 16 stub frames), two steps
+    each: the losses and every rank's parameters after them."""
     for rank_runs in train_runs:
         (ls, ps), (lw, pw) = rank_runs[arch, "sharded"], rank_runs[arch, "whole"]
         np.testing.assert_allclose(ls, lw, atol=1e-4, rtol=0)
@@ -293,46 +326,98 @@ def test_sharded_train_steps_match_unsharded(train_runs, arch):
             np.testing.assert_allclose(ps[k], pw[k], atol=1e-4, rtol=0, err_msg=k)
 
 
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_sharded_first_step_matches_jax_lm_loss(train_runs, arch):
+    """One sharded step's loss and gradients on (2, 2), from the JAX package's weights
+    carried across by ``params_from_flat``, against ``jax.value_and_grad`` of its
+    ``lm_loss`` on the same weights and batch: the loss within 1e-4, each gradient within
+    1e-4 of the leaf's largest magnitude."""
+    from repro.training.checkpoint import _flatten
+
+    japi, jparams, _, batch = first_step_case(arch)
+    jbatch = {k: jnp.asarray(v, jnp.int32 if k == "tokens" else jnp.float32) for k, v in batch.items()}
+    (want, _), jg = jax.value_and_grad(lambda p: japi.loss_fn(p, jbatch), has_aux=True)(jparams)
+    loss, grads = train_runs[0][arch, "first"]
+    np.testing.assert_allclose(loss, float(want), atol=1e-4, rtol=0)
+    want_grads = _flatten(jg)
+    assert grads.keys() == want_grads.keys()
+    for k, w in want_grads.items():
+        w = np.asarray(w)
+        assert np.abs(grads[k] - w).max() <= 1e-4 * np.abs(w).max(), k
+
+
 SERVE_ARCHS = ("llama3.2-1b", "granite-moe-3b-a800m", "kimi-k2-1t-a32b", "whisper-medium",
-               "hymba-1.5b")
+               "hymba-1.5b", "mamba2-130m", "mamba2-130m:mesh", "whisper-medium:mesh")
+# reduced configs cut so that on (2, 3) they shard as the full ones do in chip_smoke.py's phase
+# 10: mamba2's 12 SSM heads, d_inner 384 and vocabulary 510 split 4 / 128 / 170 a model rank
+# (its decode state's heads too); whisper's cross caches' 18 rows split 6 a model rank, so that
+# decode combines them in plain PyTorch and launches no B11 decode
+MESH_LIKE = {"mamba2-130m:mesh": dict(d_model=192, vocab_size=510),
+             "whisper-medium:mesh": dict(encoder_seq=18)}
 SERVE_CASES = ((4, 0), (1, 0), (4, 6))  # (batch, sliding window): batch 1 shards the cache rows on data
+PROMPT, NEW, CACHE_LEN = 8, 4, 12
+# the ops entry points that launch a forward kernel on the card, by launch counter
+OPS = {"rmsnorm_op": "rmsnorm", "flash_attention_op": "flash_attention",
+       "moe_matmul_op": "moe_matmul", "ssd_intra_chunk_op": "ssd_intra_chunk",
+       "cross_attention_op": "cross_attention", "decode_attention_op": "flash_decode"}
 
 
-def _serve_body(rank, world, archs, prompt, new, cache_len):
-    """Greedy generation of reduced f32 configs on (data 2, model 3), the caches' rows
-    sharded on the model axis (batch 4) or on data (batch 1), against the same engine
-    unsharded on every rank."""
-    warnings.simplefilter("ignore")
+def serve_config(arch):
+    """The reduced config ``arch`` names (``MESH_LIKE``'s cuts after a colon); MoE copies
+    drop nothing, so that the data shards' capacities drop nothing."""
     import dataclasses
 
     from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch.partition(":")[0]).reduced(), **MESH_LIKE.get(arch, {}))
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    return cfg
+
+
+def _serve_body(rank, world, archs):
+    """Greedy generation of reduced f32 configs on (data 2, model 3), the caches' rows
+    sharded on the model axis (batch 4) or on data (batch 1), against the same engine
+    unsharded on every rank; the sharded run's calls of the ``ops`` entry points counted."""
+    warnings.simplefilter("ignore")
+    from collections import Counter
+    from unittest import mock
+
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serving.engine import Engine, GenerationConfig
     from repro_torch.sharding.rules import make_rules
 
     rules = make_rules(device_mesh("cpu", (2, 3), ("data", "model")))
+    calls = Counter()
+    counted = [mock.patch.object(ops, f, lambda *a, _fn=getattr(ops, f), _k=k, **kw:
+                                 (calls.update([_k]), _fn(*a, **kw))[1]) for f, k in OPS.items()]
     out = {}
     for arch in archs:
-        cfg = get_config(arch).reduced()
-        if cfg.family == "moe":  # drop-free, so that the data shards' capacities drop nothing
-            cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+        cfg = serve_config(arch)
         api = build_model(cfg)
         for B, window in SERVE_CASES:
             gen = torch.Generator().manual_seed(B)
-            batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, prompt), generator=gen)}
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen)}
             if cfg.family == "audio":
                 batch["frames"] = torch.randn(B, cfg.encoder_seq, cfg.d_model, generator=gen)
-            gcfg = GenerationConfig(max_new_tokens=new, cache_len=cache_len, sliding_window=window)
+            gcfg = GenerationConfig(max_new_tokens=NEW, cache_len=CACHE_LEN, sliding_window=window)
             for name, r in (("sharded", rules), ("whole", None)):
                 params = api.init(torch.Generator().manual_seed(3), "cpu", rules=r)
-                g = Engine(api, params, gcfg, r).generate(batch)
-                out[arch, B, window, name] = (g.tokens, g.logits)
+                calls.clear()
+                for patch in counted:
+                    patch.start()
+                try:
+                    g = Engine(api, params, gcfg, r).generate(batch)
+                finally:
+                    mock.patch.stopall()
+                out[arch, B, window, name] = (g.tokens, g.logits, dict(calls))
     return out
 
 
 @pytest.fixture(scope="module")
 def serve_runs():
-    return run_ranks(_serve_body, 6, (SERVE_ARCHS, 8, 4, 12), device="cpu", timeout=300)
+    return run_ranks(_serve_body, 6, (SERVE_ARCHS,), device="cpu", timeout=300)
 
 
 @pytest.mark.parametrize("case", SERVE_CASES)
@@ -342,6 +427,27 @@ def test_sharded_generation_matches_unsharded(serve_runs, arch, case):
     decode attends over the rows' shards and combines them: the tokens equal, the logits
     of every step within 1e-4, on every rank."""
     for rank_runs in serve_runs:
-        (ts, ls), (tw, lw) = rank_runs[(arch, *case, "sharded")], rank_runs[(arch, *case, "whole")]
+        (ts, ls, _), (tw, lw, _) = rank_runs[(arch, *case, "sharded")], rank_runs[(arch, *case, "whole")]
         assert torch.equal(ts, tw)
         np.testing.assert_allclose(ls.numpy(), lw.numpy(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("case", SERVE_CASES)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_generation_launches_as_chip_smoke_counts_them(serve_runs, arch, case):
+    """On the card every call of an ``ops`` entry point without a gradient launches its
+    kernel once: ``chip_smoke.path_launches(..., mesh=(2, 3))`` must give each rank's calls
+    in one sharded generation (one prefill, NEW - 1 decode steps); whisper's decode with
+    its cross caches' rows split over the model axis launches no B11 decode."""
+    from _torch_parity import chip_smoke
+
+    from repro_torch.kernels import ops
+
+    cfg = serve_config(arch)
+    expect = chip_smoke().path_launches(cfg, 1, NEW - 1, mesh=(2, 3), rows=case[0])
+    zero = {k: 0 for k in ops.launch_counts() if k not in OPS.values()}  # the backward kernels
+    for rank_runs in serve_runs:
+        got = rank_runs[(arch, *case, "sharded")][2]
+        assert {**zero, **{k: got.get(k, 0) for k in OPS.values()}} == expect
+    if arch == "whisper-medium:mesh":
+        assert expect["flash_decode"] == 0 and expect["cross_attention"] == cfg.num_layers
