@@ -147,23 +147,29 @@ Phases, each of which raises on failure (nothing is caught):
    ``DeviceMesh``, all on the one card (``launch.mesh.run_ranks``; NCCL
    refuses two ranks on one device), serve ``granite-moe-3b-a800m`` (its
    drop-free copy, at 8 of its layers), ``llama3.2-1b``, ``mamba2-130m``,
-   ``hymba-1.5b`` and ``whisper-medium`` (over 1500 stub frames) at full
-   width in bf16 and f32 copies, and the reduced ``kimi-k2-1t-a32b``,
-   through ``Engine`` with the rules; take one f32 train step each of the
-   reduced granite (10 experts) and llama3.2-1b, and at full width of
-   mamba2-130m, hymba-1.5b (8 of its layers) and whisper-medium (4 + 4
-   layers over its frames), and one GRPO step (``make_grpo_step`` with the
-   rules) of a reduced f32 llama3.2-1b policy (4 x 64, its rollout
-   log-probs scored unsharded); each rank's launches must be
-   ``path_launches``'s on the mesh (B4 and B8 on each rank's block of the
-   repeated SSM mixer, B11's forward on its batch block, no B11 decode
+   ``hymba-1.5b``, ``whisper-medium`` (over 1500 stub frames) and
+   ``internvl2-1b`` (after 256 stub patches) at full width in bf16 and f32
+   copies, and the reduced ``kimi-k2-1t-a32b``, through ``Engine`` with the
+   rules; take one f32 train step each of the reduced granite (10 experts)
+   and llama3.2-1b, and at full width of mamba2-130m, hymba-1.5b (8 of its
+   layers), whisper-medium (4 + 4 layers over its frames) and internvl2-1b
+   (4 of its layers), one bf16 train step each of granite (4 layers,
+   drop-free), mamba2-130m and whisper-medium (4 + 4 layers), what each
+   rank holds of each step's model reckoned and printed first, and one GRPO
+   step (``make_grpo_step`` with the rules) of a reduced f32 llama3.2-1b
+   policy (4 x 64, its rollout log-probs scored unsharded); each rank's
+   launches must be ``path_launches``'s on the mesh (B4 and B8 on each
+   rank's heads of mamba2's mixer, split over its heads, and on its batch
+   block of hymba's, repeated, each printed with the heads B4 saw; B11's
+   forward on its batch block, and in bf16 its own backward; no B11 decode
    where whisper's cross caches' rows are split), the parent holds the
-   logits, losses and gradients against the same weights unsharded on the
-   card and every (kernel, shape) a rank launched against its plain
-   version, and prints each rank's peak memory, walls (gloo through one
+   logits against the same weights unsharded on the card, rank 0 the losses
+   and gradients (bf16 steps also against the f32 step on the same
+   weights), every (kernel, shape) a rank launched is held against its plain
+   version, and it prints each rank's peak memory, walls (gloo through one
    host: not multi-card speed) and collectives by kind (the optimizer's
-   apart: one all-reduce a step); then the dry-run of granite's train_4k
-   on the 16 x 16 mesh once.
+   apart: one all-reduce a step; mamba2's beside its repeated mixer's);
+   then the dry-run of granite's train_4k on the 16 x 16 mesh once.
 
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -1016,26 +1022,39 @@ def recording(shapes, wrappers):
 
 # phase 10: six ranks share the card on a (data 2, model 3) mesh over gloo (NCCL refuses two
 # ranks on one device).  Serving, generation 4 x (128 prompt + 9 new: one prefill and 8 decode
-# steps) with the caches 138 long (a multiple of the model extent, so that their sequence shards
-# on it): granite at full width in bf16 at 8 of its 32 layers, on a copy of its config whose
-# capacity drops nothing, as phase 4's checks run it (its 40 experts pad to 42, 14 a model rank),
-# and llama3.2-1b at full width and depth in bf16 (32 H / 8 KV pad to 9 KV x g 4, 12 heads a
-# rank); f32 copies of both held to summation order; the reduced f32 kimi.  mamba2-130m at full
-# width and depth (its 24 SSM heads, d_inner 1536 and vocabulary 50280 shard 8 / 512 / 16760 a
-# model rank; the mixer is repeated on every model rank), hymba-1.5b at full width and depth
-# (3 divides none of its 50 SSM heads, d_inner 3200, d_ff 5504 or vocabulary 32001: they
-# replicate, and its 25 H / 5 KV pad to 5 KV x g 6), whisper-medium at full width and depth over
-# 1500 stub frames (16 MHA heads pad to 18; its vocabulary 51865 replicates; the cross caches'
-# 1500 rows shard on the model axis, so decode combines them plainly), bf16 and f32 copies.  One
-# train step each of the reduced f32 granite with 10 experts (padded to 12), the reduced
-# llama3.2-1b, mamba2-130m at full width and depth, hymba-1.5b at full width and 8 of its layers
-# (an f32 step holds ~16 bytes a parameter, replicated on six ranks: its 32 layers would need
-# ~150 GiB, 8 hold ~7 GiB a rank) and whisper-medium at full width and 4 + 4 layers over its
-# 1500 frames, on 4 x 64 tokens.  The MoE configs drop nothing:
-# where capacity drops assignments, each data shard's own capacity drops others than the global
-# one does, in JAX too (tests/test_torch_sharded_equivalence.py holds the dropping dispatch
-# against JAX's on (2, 3) and (2, 4); PERF.md gives the drops that the capacity factor 4.0 makes
-# in the train step's config).
+# steps) with the caches 138 long past internvl2-1b's 256 stub patches (``mesh_cache``: a
+# multiple of the model extent, so that their sequence shards on it): granite at full width in
+# bf16 at 8 of its 32 layers, on a copy of its config whose capacity drops nothing, as phase 4's
+# checks run it (its 40 experts pad to 42, 14 a model rank), and llama3.2-1b at full width and
+# depth in bf16 (32 H / 8 KV pad to 9 KV x g 4, 12 heads a rank); f32 copies of both held to
+# summation order; the reduced f32 kimi.  mamba2-130m at full width and depth (its 24 SSM heads,
+# d_inner 1536 and vocabulary 50280 shard 8 / 512 / 16760 a model rank: the mixer is split over
+# its heads, ``ssm.splits``), hymba-1.5b at full width and depth (3 divides none of its 50 SSM
+# heads, d_inner 3200, d_ff 5504 or vocabulary 32001: they replicate, its mixer is repeated on
+# every model rank, and its 25 H / 5 KV pad to 5 KV x g 6), whisper-medium at full width and
+# depth over 1500 stub frames (16 MHA heads pad to 18; its vocabulary 51865 replicates; the cross
+# caches' 1500 rows shard on the model axis, so decode combines them plainly), internvl2-1b at
+# full width and depth after 256 stub patches (14 H / 2 KV pad to 2 KV x g 9, 6 heads a rank;
+# its d_ff 4864 and vocabulary 151655 replicate, as in JAX), bf16 and f32 copies.  One f32 train
+# step each of the reduced granite with 10 experts (padded to 12), the reduced llama3.2-1b,
+# mamba2-130m at full width and 4 of its 24 layers, hymba-1.5b at full width and 8 of its
+# layers (an f32 step holds ~16 bytes a parameter, replicated on six ranks: its 32 layers would
+# need ~150 GiB, 8 hold ~7 GiB a rank), whisper-medium at full width and 4 + 4 layers over its 1500 frames and
+# internvl2-1b at full width and 4 of its 24 layers after its 256 patches (every rank holds
+# all its 332 M parameters, 272 M of them the replicated 151655-row embedding and head:
+# ``mesh_rank_params``); and bf16 steps of granite at full width and 4 layers (drop-free: 3
+# does not divide its 40 experts, so every rank holds all of them, ~99 M parameters a layer,
+# and pads them to 42 at run time; at 8 layers the six ranks' ~56 GiB of state did not fit
+# beside the parent's), mamba2-130m at full width and 2 layers and whisper-medium at 4 + 4
+# layers, on 4 x 64 tokens.  mamba2's random stack carries any last-bit difference (the
+# products' shapes: its mixer split over three ranks, 2 rows a data rank against 4) further
+# with each layer: its steps run where six seeds' readings stand apart from a fault (f32: the
+# split under 2e-4 of the per-shard step at 4 layers, 4.6e-4 at 6; bf16: the unsharded bf16
+# step within 0.06-0.10 of the f32 one at 2 layers, 0.18-7.0 at 4; PERF.md).  The MoE
+# configs drop nothing: where capacity drops assignments, each data shard's own capacity drops
+# others than the global one does, in JAX too (tests/test_torch_sharded_equivalence.py holds
+# the dropping dispatch against JAX's on (2, 3) and (2, 4); PERF.md gives the drops that the
+# capacity factor 4.0 makes in the train step's config).
 # (label, arch, seed, dtype, layers or None for the config's depth; whisper's encoder too)
 MESH_SHAPE, MESH_WORLD = (2, 3), 6
 MESH_NEW, MESH_CACHE = 9, 138
@@ -1049,31 +1068,52 @@ MESH_SERVE = (("granite-moe-3b-a800m 8L", "granite-moe-3b-a800m", 21, "bfloat16"
               ("hymba-1.5b", "hymba-1.5b", 32, "bfloat16", None),
               ("hymba-1.5b f32", "hymba-1.5b", 32, "float32", None),
               ("whisper-medium", "whisper-medium", 33, "bfloat16", None),
-              ("whisper-medium f32", "whisper-medium", 33, "float32", None))
+              ("whisper-medium f32", "whisper-medium", 33, "float32", None),
+              ("internvl2-1b", "internvl2-1b", 41, "bfloat16", None),
+              ("internvl2-1b f32", "internvl2-1b", 41, "float32", None))
 MESH_TRAIN = (("granite-moe-3b-a800m reduced E10", "granite-moe-3b-a800m", 24, "float32", None),
               ("llama3.2-1b reduced", "llama3.2-1b", 25, "float32", None),
-              ("mamba2-130m 24L", "mamba2-130m", 34, "float32", None),
+              ("mamba2-130m 4L", "mamba2-130m", 34, "float32", 4),
               ("hymba-1.5b 8L", "hymba-1.5b", 35, "float32", 8),
-              ("whisper-medium 4+4L", "whisper-medium", 36, "float32", 4))
+              ("whisper-medium 4+4L", "whisper-medium", 36, "float32", 4),
+              ("internvl2-1b 4L", "internvl2-1b", 40, "float32", 4),
+              ("granite-moe-3b-a800m 4L bf16", "granite-moe-3b-a800m", 37, "bfloat16", 4),
+              ("mamba2-130m 2L bf16", "mamba2-130m", 38, "bfloat16", 2),
+              ("whisper-medium 4+4L bf16", "whisper-medium", 39, "bfloat16", 4))
 MESH_TRAIN_SHAPE = (4, 64)
 # one GRPO step of a reduced f32 policy on the mesh, 4 x 64 (label, arch, seed, dtype, layers)
 MESH_GRPO = ("llama3.2-1b reduced policy", "llama3.2-1b", 26, "float32", None)
-MESH_GRAD_TOL = 2e-4  # sharded vs unsharded train step: loss (abs) and each gradient (rel. to max)
+# sharded vs unsharded f32 train step: loss (abs) and each gradient (rel. to max)
+MESH_GRAD_TOL = 2e-4
 # bf16 generation, sharded vs unsharded on the same weights, each row until its tokens part:
 # 1.5x the largest reading of `tools/torch_mesh_probe.py bf16` over seeds 21, 22, 31-34 (granite
 # 0.0571-0.0811, llama3.2-1b 0.0945-0.1112; llama's own bf16 forward, batch 4 against each row
-# alone, differs from itself by 0.097-0.104 on the same seeds; mamba2-130m 0.1758-0.7435,
-# hymba-1.5b 0.3265-0.7615, whisper-medium 0.0687-0.0731).  mamba2's and hymba's readings are
-# large where their own bf16 forward, batch 4 against each row alone, moves by 0 and 1.3e-5:
-# their decode steps run the projections at 2 rows a rank against 4 (other bf16 roundings),
-# which their SSM layers carry forward, and f32 copies agree to 5.1e-4 and 1.8e-4; the ratio
-# below holds them.
-MESH_BF16_TOL = {"moe": 0.12, "dense": 0.17, "ssm": 1.12, "hybrid": 1.15, "audio": 0.11}
+# alone, differs from itself by 0.097-0.104 on the same seeds; hymba-1.5b 0.3265-0.7615,
+# whisper-medium 0.0687-0.0731; internvl2-1b 0.0814-0.0962; mamba2-130m 0.5713-1.4220 with its
+# mixer split over its heads, 0.1758-0.7435 when it was repeated).  mamba2's and hymba's
+# readings are large where their own bf16 forward, batch 4 against each row alone, moves by 0
+# and 1.3e-5: a last-bit difference anywhere (mamba2's out-projection summed in f32 over three
+# ranks and rounded once, hymba's decode projections at 2 rows a rank against 4) is carried
+# forward by their SSM layers, and f32 copies agree to ~5e-4 and 1.8e-4; the ratio below holds
+# them.
+MESH_BF16_TOL = {"moe": 0.12, "dense": 0.17, "ssm": 2.14, "hybrid": 1.15, "audio": 0.11,
+                 "vlm": 0.15}
 # ... and the sharded bf16 logits, against an f32 forward of the same weights teacher-forced on
 # their tokens, may lie at most this many times as far from it as the unsharded bf16 logits do
-# (0.796-1.423 over the same twelve readings; mamba2 0.991-1.190, hymba 0.693-1.470, whisper
-# 0.872-1.126 over their six).
+# (0.796-1.423 over the same twelve readings; mamba2 0.967-1.189 split, 0.991-1.190 repeated,
+# hymba 0.693-1.470, whisper 0.872-1.126, internvl2-1b 1.001-1.077 over their six).  The bf16
+# train steps' gradients are held to the same ratio against the f32 step on the same weights
+# (granite at 8 layers 0.919-1.247, at 4 layers 0.704-1.748, mamba2 at 2 layers 0.882-1.061,
+# whisper 4 + 4 L 0.934-1.049 over the six).
 MESH_ANCHOR_RATIO = 2.0
+# bf16 train steps, sharded vs the unsharded bf16 step on the same weights: (the loss's abs
+# error, each gradient's relative to the leaf's largest magnitude), against the whole batch's
+# step and, where the loss is a mean over the rows, each data shard's rows' step: 1.5x the
+# largest of both readings of `tools/torch_mesh_probe.py bf16` over seeds 21, 22, 31-34
+# (granite at 8 and 4 layers: loss 4.8e-6-6.46e-4, grads 0.0347-0.0701; whisper 4 + 4 L: loss
+# 1.05e-5-6.57e-4, grads 0.0164-0.0191; mamba2-130m at 2 layers: loss 4.8e-6-7.06e-5, grads
+# 0.0144-0.0194).
+MESH_BF16_TRAIN_TOL = {"moe": (9.7e-4, 0.11), "ssm": (1.06e-4, 0.029), "audio": (9.9e-4, 0.029)}
 
 
 def mesh_config(label, arch, dtype, layers):
@@ -1097,30 +1137,64 @@ def mesh_config(label, arch, dtype, layers):
 
 def mesh_batch(cfg, seed, shape):
     """A run's inputs drawn on the CPU from ``seed`` (equal on every rank and in the parent):
-    tokens of ``shape`` and, for the audio family, ``cfg.encoder_seq`` stub frames a row."""
+    tokens of ``shape`` and, for the audio family, ``cfg.encoder_seq`` stub frames a row, for
+    the vlm ``cfg.num_patches`` stub patch embeddings ahead of them."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=gen)}
     if cfg.family == "audio":
         batch["frames"] = torch.randn(shape[0], cfg.encoder_seq, cfg.d_model, generator=gen)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(shape[0], cfg.num_patches, cfg.d_model, generator=gen)
     return batch
+
+
+def mesh_cache(cfg):
+    """A generation's cache length: MESH_CACHE past the vlm's patches, rounded up to a multiple
+    of the model extent (so that the caches' sequence shards on it)."""
+    M = MESH_SHAPE[1]
+    n = MESH_CACHE + (cfg.num_patches if cfg.family == "vlm" else 0)
+    return -(-n // M) * M
+
+
+def mesh_rank_params(cfg, mesh=MESH_SHAPE):
+    """The parameters one rank of a (data, model) mesh of extents ``mesh`` holds of ``cfg``'s
+    model: each leaf's block under its spec (the largest where a dim does not divide evenly)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import map_schema
+    from repro_torch.sharding.rules import AbstractMesh, make_rules
+
+    rules = make_rules(AbstractMesh(tuple(mesh), ("data", "model")))
+    total = 0
+
+    def count(pdef):
+        nonlocal total
+        n, spec = 1, rules.spec(pdef.shape, pdef.dims)  # trailing replicated dims dropped
+        for size, entry in zip(pdef.shape, spec + (None,) * (len(pdef.shape) - len(spec))):
+            axes = entry if isinstance(entry, tuple) else (entry,) if entry else ()
+            n *= -(-size // math.prod(rules.axis_sizes[a] for a in axes))
+        total += n
+
+    map_schema(count, build_model(cfg).schema)
+    return total
 
 
 def on(batch, dev):
     return {k: v.to(dev) for k, v in batch.items()}
 
 
-def mesh_rank(rank, world, shape, device, serve, train, grpo, hold=True):
+def mesh_rank(rank, world, shape, device, serve, train, grpo, raw=False):
     """One rank of phase 10 (started by ``run_ranks``): the sharded serving runs of ``serve``,
     train steps of ``train`` ((label, seed, config) each) and GRPO steps of ``grpo`` ((label,
     seed, config, batch on the CPU) each), each with the launch counts set to 0 just before it
     and read just after, every (kernel, shape) it launches recorded, and the collectives of one
     prefill, one decode step, one train step and one GRPO step counted.  Returns what the
     parent checks (rank 0 also the logits, the GRPO losses, gradients and metrics).  Rank 0
-    holds each train step against the unsharded step on the card (``hold_mesh_train``; the
-    gradients stay in the rank) and returns its line; without ``hold``, the loss and the
-    gathered gradients."""
+    reads each train step against the unsharded step on its own device
+    (``mesh_train_errors``; the gradients stay in the rank) and returns the readings, which
+    the parent holds (``mesh_train_line``); with ``raw``, the loss and the gathered
+    gradients on the CPU instead."""
     import logging
     import warnings
 
@@ -1155,7 +1229,7 @@ def mesh_rank(rank, world, shape, device, serve, train, grpo, hold=True):
     # "spans": (what, start, its parameters drawn, end) on the host's clock: each run from its
     # init to its results
     out = {"shapes": set(), "launches": {}, "walls": {}, "collectives": {}, "peak_gib": {},
-           "spans": [("start", t_rank, t_rank, time.time())]}
+           "ssd_heads": {}, "spans": [("start", t_rank, t_rank, time.time())]}
     if cuda:
         plain_adamw_refused().start()
     active = {}
@@ -1181,12 +1255,16 @@ def mesh_rank(rank, world, shape, device, serve, train, grpo, hold=True):
         if engine is not None:
             engine.api = FirstCalls(engine.api, counter, out["collectives"], label)
         t0 = time.perf_counter()
-        with (recording(out["shapes"], kernel_wrappers(train=True)), counter.mode,
+        shapes = set()
+        with (recording(shapes, kernel_wrappers(train=True)), counter.mode,
               mock.patch.object(ops, "adamw_update_", optimizer_step)):
             res = fn()
         sync()
         out["walls"][label] = time.perf_counter() - t0
         out["launches"][label] = ops.launch_counts()
+        out["shapes"] |= shapes
+        # the heads of each B4 launch: the rank's block of the split mixer, or all of them
+        out["ssd_heads"][label] = sorted({k[1] for n, k in shapes if n == "ssd_intra_chunk"})
         if engine is None:
             out["collectives"][label] = collective_counts(counter, {})
         return res
@@ -1212,8 +1290,8 @@ def mesh_rank(rank, world, shape, device, serve, train, grpo, hold=True):
                                           rules=rules))
         t_init = time.time()
         batch = on(mesh_batch(cfg, seed, (4, PROMPT)), dev)
-        engine = Engine(api, params, GenerationConfig(max_new_tokens=MESH_NEW, cache_len=MESH_CACHE),
-                        rules)
+        engine = Engine(api, params, GenerationConfig(max_new_tokens=MESH_NEW,
+                                                      cache_len=mesh_cache(cfg)), rules)
         g = run(f"generate {label}", lambda: engine.generate(batch), engine)
         if cuda:
             out["peak_gib"][label] = torch.cuda.max_memory_allocated() / 2**30
@@ -1244,13 +1322,13 @@ def mesh_rank(rank, world, shape, device, serve, train, grpo, hold=True):
         if cuda:
             out["peak_gib"][f"train {label}"] = torch.cuda.max_memory_allocated() / 2**30
         # every rank joins the gathers; rank 0 holds the gradients on the card
-        got = (float(loss), {k: rules.full(g) if hold else rules.full(g).cpu()
+        got = (float(loss), {k: rules.full(g).cpu() if raw else rules.full(g)
                              for k, g in grads.items()})
         del params, grads
         if cuda:
             torch.cuda.empty_cache()
         if rank == 0:
-            out[f"train {label}"] = hold_mesh_train(label, seed, cfg, got, dev) if hold else got
+            out[f"train {label}"] = got if raw else mesh_train_errors(label, seed, cfg, got, dev)
         del got
         out["spans"].append((f"train step {label}", t_run, t_init, time.time()))
 
@@ -1329,28 +1407,32 @@ class FirstCalls:
         return self._counted("decode step", self.api.decode_step, *args, **kwargs)
 
 
-def mesh_full_logits(params, cfg, seq, first, frames=None):
-    """The f32 logits of a full forward over ``seq`` [B, S] at positions ``first``..; the audio
-    family's is ``encode`` of ``frames`` and the teacher-forced ``decode_train`` over seq."""
+def mesh_full_logits(params, cfg, seq, first, extra):
+    """The f32 logits of a full forward over ``seq`` [B, S] at its positions ``first``..;
+    ``extra`` holds the batch's other inputs: the audio family's is ``encode`` of its
+    ``frames`` and the teacher-forced ``decode_train`` over seq, the vlm's ``patch_embeds``
+    come ahead of seq."""
     import torch
 
     from repro_torch.models import encdec
     from repro_torch.models.layers import logits_fn
-    from repro_torch.models.transformer import arange_positions, embed_tokens, forward
+    from repro_torch.models.transformer import arange_positions, embed_tokens, forward, with_patches
 
     with torch.inference_mode():
         if cfg.family == "audio":
-            h = encdec.decode_train(params, seq, encdec.encode(params, frames, cfg), cfg)
+            h = encdec.decode_train(params, seq, encdec.encode(params, extra["frames"], cfg), cfg)
         else:
-            x = embed_tokens(params, seq, cfg)
-            h, _ = forward(params, x, arange_positions(*seq.shape, seq.device), cfg)
+            x, P = with_patches(embed_tokens(params, seq, cfg), extra, cfg)
+            h, _ = forward(params, x, arange_positions(*x.shape[:2], seq.device), cfg)
+            first += P
         return logits_fn(params, h[:, first:], cfg)
 
 
 def mesh_serve_errors(cfg, params, batch, got, ref):
     """What a sharded generation (``got``: its tokens [B, N] and logits [B, N, V] on the CPU)
     is held to against the unsharded one on the same weights (``ref``, a Generation), both
-    from ``batch`` (the prompt's tokens and, for the audio family, its frames, on the card):
+    from ``batch`` (the prompt's tokens and the audio family's frames or the vlm's
+    patches, on the card):
 
     * ``rows``: each row's max abs logit error, step by step until that row's tokens part
       (that step included: its logits came from equal inputs), and ``steps``, the steps
@@ -1380,23 +1462,21 @@ def mesh_serve_errors(cfg, params, batch, got, ref):
     res = {"rows": rows, "steps": steps, "parted": parted}
     if cfg.dtype == "float32":
         return res
-    prompt, frames = batch["tokens"], batch.get("frames")
+    prompt = batch["tokens"]
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
     P, dev = prompt.shape[1], prompt.device
     seq = torch.cat([prompt, rt[:, :-1].to(dev)], dim=1)
-
-    def row(i):
-        return None if frames is None else frames[i:i + 1]
-
-    alone = torch.cat([mesh_full_logits(params, cfg, seq[i:i + 1], P - 1, row(i))
+    alone = torch.cat([mesh_full_logits(params, cfg, seq[i:i + 1], P - 1,
+                                        {k: v[i:i + 1] for k, v in extra.items()})
                        for i in range(len(seq))])
-    res["noise"] = (alone - mesh_full_logits(params, cfg, seq, P - 1, frames)).abs().max().item()
+    res["noise"] = (alone - mesh_full_logits(params, cfg, seq, P - 1, extra)).abs().max().item()
     # leaf by leaf, as phase 4 makes its f32 copies
     f32 = tree_from_flat({k.replace(".", "/"): v.float() for k, v in params.state_dict().items()})
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     anchor = []
     for t, lg in ((toks, logits), (rt, rl)):
         want = mesh_full_logits(f32, cfg32, torch.cat([prompt, t[:, :-1].to(dev)], dim=1), P - 1,
-                                frames)
+                                extra)
         anchor.append((lg.float() - want.cpu()).abs().max().item())
     res["anchor"] = tuple(anchor)
     return res
@@ -1459,7 +1539,7 @@ def mesh_reference(seed, cfg, got, dev):
     api = build_model(cfg)
     params = api.init(torch.Generator(device=dev).manual_seed(seed), dev)
     batch = on(mesh_batch(cfg, seed, (4, PROMPT)), dev)
-    ref = Engine(api, params, GenerationConfig(max_new_tokens=MESH_NEW, cache_len=MESH_CACHE)
+    ref = Engine(api, params, GenerationConfig(max_new_tokens=MESH_NEW, cache_len=mesh_cache(cfg))
                  ).generate(batch)
     return mesh_serve_errors(cfg, params, batch, got, ref)
 
@@ -1476,23 +1556,30 @@ def hold_mesh_generate(label, seed, cfg, got, dev):
                  f"(limit {MESH_ANCHOR_RATIO}x the unsharded); the unsharded bf16 forward's "
                  f"own noise, batch 4 vs each row alone: {res['noise']:.3e}")
     depth = f"L={cfg.num_layers}" + (f"+{cfg.encoder_layers} encoder" if cfg.family == "audio" else "")
-    return (f"[mesh] generate {label} ({depth}, d {cfg.d_model}, {cfg.dtype}) 4x{PROMPT}+{MESH_NEW}"
+    prompt = f"({cfg.num_patches} patches+{PROMPT})" if cfg.family == "vlm" else PROMPT
+    return (f"[mesh] generate {label} ({depth}, d {cfg.d_model}, {cfg.dtype}) 4x{prompt}+{MESH_NEW}"
             f" on the mesh vs unsharded on the card: max abs logit err {max(res['rows']):.3e} (abs "
             f"tol {tol}) over {res['steps']} steps a row, each row until its tokens part{extra}")
 
 
-def mesh_train_reference(cfg, seed, dev, shards=1):
+def mesh_train_reference(cfg, seed, dev, shards=1, f32=False):
     """(loss, {leaf: gradient}) of the unsharded step on phase 10's train batch for
     ``cfg`` and ``seed``, the same weights as the ranks'; with ``shards`` > 1 taken on each
     data shard's rows apart (the shapes a data rank computes), the losses and gradients
-    averaged: the same step where the loss is a mean over the rows."""
+    averaged: the same step where the loss is a mean over the rows; with ``f32``, the f32
+    step on an f32 copy of those weights."""
     import torch
 
     from repro_torch.models import build_model
+    from repro_torch.models.convert import tree_from_flat
     from repro_torch.training.train_step import grads_of
 
     api = build_model(cfg)
     params = api.init(torch.Generator(device=dev).manual_seed(seed), dev, trainable=True)
+    if f32:  # leaf by leaf, as phase 4 makes its f32 copies
+        params = tree_from_flat({k.replace(".", "/"): v.detach().float()
+                                 for k, v in params.state_dict().items()}, trainable=True)
+        api = build_model(dataclasses.replace(cfg, dtype="float32"))
     batch = on(mesh_batch(cfg, seed, MESH_TRAIN_SHAPE), dev)
     n = MESH_TRAIN_SHAPE[0] // shards
     loss, grads = 0.0, {}
@@ -1504,46 +1591,106 @@ def mesh_train_reference(cfg, seed, dev, shards=1):
     return loss, grads
 
 
-def hold_mesh_train(label, seed, cfg, got, dev):
-    """Raises where phase 10's sharded train step (``got``: rank 0's loss and gathered
-    gradients) is off the unsharded step on the same weights; returns its line.
+def train_step_errors(a, b):
+    """(loss abs err, the largest gradient err relative to its leaf's largest magnitude in
+    ``b``, that leaf) of the step ``a`` against the step ``b`` ((loss, {leaf: gradient}) each);
+    raises on a non-finite gradient of ``a`` or an error where ``b``'s leaf is all zero."""
+    worst = (0.0, None)
+    for k, g in b[1].items():
+        e = grad_err(f"[mesh] grad {k}", a[1][k], g, math.inf)[1] or 0.0
+        worst = max(worst, (e, k), key=lambda t: t[0])
+    return (abs(a[0] - b[0]), *worst)
 
-    Where the loss is a mean over the batch's rows (every family but moe, whose aux losses
-    are global to the batch), the step is first held within MESH_GRAD_TOL against the
-    unsharded step taken on each data shard's rows apart (``mesh_train_reference``: the
-    products in the shapes a data rank computes them).  Every step is held against the
-    unsharded step on the whole batch within MESH_GRAD_TOL, or within MESH_ANCHOR_RATIO
-    times the distance of the per-shard steps from it where the card's own f32 arithmetic
-    moves a gradient further than that through the batch's shapes alone: mamba2-130m's 24
-    SSM layers carry a rounding difference of its projections at 2 rows against 4 to
-    5.9e-3 of a gradient's largest magnitude (1.3e-3 at 12 layers, 6.8e-5 at 6), where the
-    sharded step lies within 3.6e-6 of the per-shard one
-    (``tools/torch_mesh_probe.py grads``).  Each error is relative to the leaf's largest
-    magnitude; the losses' are absolute."""
-    import torch
 
-    got_loss, got_grads = got
+def mesh_train_errors(label, seed, cfg, got, dev):
+    """The readings of phase 10's sharded train step ``got`` (rank 0's loss and gathered
+    gradients) against the unsharded step on the same weights (``train_step_errors`` each):
 
-    def errs(a, b, tol, what):
-        e_loss = assert_close(f"[mesh] train {label} loss {what}", torch.tensor(a[0]),
-                              torch.tensor(b[0]), tol, rel=False)
-        return e_loss, max(grad_err(f"[mesh] train {label} grad {k} {what}", a[1][k], g, tol)[1]
-                           or 0.0 for k, g in b[1].items())
-
+    * ``whole``: against the unsharded step on the whole batch, in the step's own type;
+    * ``shards``: where the loss is a mean over the batch's rows (every family but moe,
+      whose aux losses are global to the batch), against the unsharded step taken on each
+      data shard's rows apart (``mesh_train_reference``: the products in the shapes a data
+      rank computes them); ``noise``: that reference against the whole batch's;
+    * bf16 only: ``anchor``, the largest gradient error of the sharded and of the unsharded
+      bf16 step against the f32 step on an f32 copy of the same weights."""
     whole = mesh_train_reference(cfg, seed, dev)
-    line = f"[mesh] train step {label} f32 {MESH_TRAIN_SHAPE[0]}x{MESH_TRAIN_SHAPE[1]} on the mesh"
-    tol = MESH_GRAD_TOL
+    res = {"whole": train_step_errors(got, whole)}
     if cfg.family != "moe":
         shards = mesh_train_reference(cfg, seed, dev, MESH_SHAPE[0])
-        noise = errs(shards, whole, math.inf, "noise")
-        tol = max(MESH_GRAD_TOL, MESH_ANCHOR_RATIO * max(noise))
-        e = errs((got_loss, got_grads), shards, MESH_GRAD_TOL, "vs the data shards' steps")
-        line += (f" vs the unsharded step on each data shard's rows: loss err {e[0]:.2e}, grads "
-                 f"err {e[1]:.2e} (tol {MESH_GRAD_TOL}); those against the whole batch's (the "
-                 f"card's own f32 noise): loss {noise[0]:.2e}, grads {noise[1]:.2e};")
-    e = errs((got_loss, got_grads), whole, tol, "vs the whole batch's step")
-    return (f"{line} vs the unsharded step on the whole batch: loss err {e[0]:.2e}, grads err "
-            f"{e[1]:.2e} of each leaf's largest magnitude (tol {tol:.3g})")
+        res["shards"] = train_step_errors(got, shards)
+        res["noise"] = train_step_errors(shards, whole)
+        del shards
+    if cfg.dtype == "bfloat16":
+        f32 = mesh_train_reference(cfg, seed, dev, f32=True)
+        res["anchor"] = (train_step_errors(got, f32)[1], train_step_errors(whole, f32)[1])
+    return res
+
+
+def check_mesh_train(label, cfg, res):
+    """Raises where ``mesh_train_errors``'s readings break phase 10's limits; returns the
+    limits ((loss, grads) against the data shards' steps, against the whole batch's).
+
+    f32: the step lies within MESH_GRAD_TOL of the per-shard step (the products in the
+    shapes a data rank computes them), and within max(MESH_GRAD_TOL, MESH_ANCHOR_RATIO
+    times the noise) of the whole batch's, the noise being the per-shard step's own
+    distance from the whole batch's: how far the card's own f32 arithmetic moves the step
+    through other shapes of the same products.  bf16: the loss and the gradients within
+    MESH_BF16_TRAIN_TOL of both, and the gradients no more than MESH_ANCHOR_RATIO times as
+    far from the f32 step as the unsharded bf16 step's."""
+    if cfg.dtype == "bfloat16":
+        tol_shards = tol_whole = MESH_BF16_TRAIN_TOL[cfg.family]
+    else:
+        tol_shards = (MESH_GRAD_TOL, MESH_GRAD_TOL)
+        whole = max(MESH_GRAD_TOL, MESH_ANCHOR_RATIO * max(res["noise"][:2])) if "noise" in res \
+            else MESH_GRAD_TOL
+        tol_whole = (whole, whole)
+    for what, (tol_loss, tol_grad) in (("shards", tol_shards), ("whole", tol_whole)):
+        if what not in res:
+            continue
+        e_loss, e_grad, leaf = res[what]
+        if not (e_loss <= tol_loss and e_grad <= tol_grad):
+            raise AssertionError(f"[mesh] train {label} vs the unsharded step ({what}): loss err "
+                                 f"{e_loss:.3e} (tol {tol_loss:.3g}), grad {leaf} err "
+                                 f"{e_grad:.3e} (tol {tol_grad:.3g})")
+    if "anchor" in res and not res["anchor"][0] <= MESH_ANCHOR_RATIO * res["anchor"][1]:
+        raise AssertionError(f"[mesh] train {label}: the sharded bf16 gradients lie "
+                             f"{res['anchor'][0]:.3e} from the f32 step, the unsharded "
+                             f"{res['anchor'][1]:.3e}")
+    return tol_shards, tol_whole
+
+
+def mesh_train_line(label, cfg, res):
+    """Raises where phase 10's sharded train step breaks its limits (``check_mesh_train`` on
+    rank 0's readings, ``mesh_train_errors``); returns its line."""
+    tol_shards, tol_whole = check_mesh_train(label, cfg, res)
+
+    def tol(t):
+        return f"tol {t[0]:.3g}" if t[0] == t[1] else f"tol loss {t[0]:.3g}, grads {t[1]:.3g}"
+
+    line = (f"[mesh] train step {label} {cfg.dtype} {MESH_TRAIN_SHAPE[0]}x{MESH_TRAIN_SHAPE[1]}"
+            f" on the mesh")
+    if "shards" in res:
+        line += (f" vs the unsharded step on each data shard's rows: loss err "
+                 f"{res['shards'][0]:.2e}, grads err {res['shards'][1]:.2e} ({tol(tol_shards)}); "
+                 f"those against the whole batch's (the card's own noise): loss "
+                 f"{res['noise'][0]:.2e}, grads {res['noise'][1]:.2e};")
+    line += (f" vs the unsharded step on the whole batch: loss err {res['whole'][0]:.2e}, grads "
+             f"err {res['whole'][1]:.2e} ({res['whole'][2]}) of each leaf's largest magnitude "
+             f"({tol(tol_whole)})")
+    if "anchor" in res:
+        line += (f"; against the f32 step on the same weights: sharded {res['anchor'][0]:.3e}, "
+                 f"unsharded {res['anchor'][1]:.3e} (limit {MESH_ANCHOR_RATIO}x the unsharded)")
+    return line
+
+
+def mesh_ssm_heads(cfg, mesh=MESH_SHAPE):
+    """The SSM heads each rank's B4 and B8 launches run on a (data, model) mesh of extents
+    ``mesh`` (``ssm.heads_a_rank``: a block of them where the mixer splits over its heads,
+    else all of them)."""
+    from repro_torch.models.ssm import heads_a_rank
+    from repro_torch.sharding.rules import AbstractMesh, make_rules
+
+    return heads_a_rank(make_rules(AbstractMesh(tuple(mesh), ("data", "model"))), cfg)
 
 
 def path_launches(cfg, prefills, decode_steps, train_steps=0, opt_steps=0, mesh=None, rows=4):
@@ -1581,10 +1728,11 @@ def path_launches(cfg, prefills, decode_steps, train_steps=0, opt_steps=0, mesh=
 
     ``mesh`` (the (data, model) extents of a mesh): each rank's launches there,
     decoding ``rows`` requests.  A rank runs every kernel of the unsharded path
-    once on its own block, as many times: the SSM mixer is repeated on every
-    model rank (``ssm.ssd_scan_with_state``), so each rank launches
-    ssd_intra_chunk (and in training its backward and reduce) L times a
-    forward; the audio decoder's cross-attention is repeated too (B11's
+    once on its own block, as many times: the SSM mixer, split over its heads
+    or repeated on every model rank (``ssm.splits``; ``mesh_ssm_heads``),
+    launches ssd_intra_chunk (and in training its backward and reduce) L times
+    a forward on each rank, and its out_norm runs on whole rows gathered over
+    the model axis; the audio decoder's cross-attention is repeated (B11's
     forward L times a forward).  One thing changes: where the audio family's
     cross caches' rows are split over the model axis
     (``encdec.decode_state_specs``: the rows fill the data axes and the
@@ -1752,6 +1900,13 @@ def main() -> int:
                     (40, 256, 512, 1536, bf16, "granite LM down")]
     lm_ssd_cases = [(2, 2, 256, 24, 128, bf16, "mamba2 LM"), (2, 2, 256, 24, 128, f32, ""),
                     (2, 2, 256, SH, SN, bf16, "hymba LM"), (2, 2, 256, SH, SN, f32, "")]
+    # mamba2's block on each rank of phase 10's mesh, its mixer split over its heads (8 of 24):
+    # 2 rows of the batch, one chunk of the prefill's 128 tokens and of the train step's 64
+    MH = mesh_ssm_heads(get_config("mamba2-130m"))
+    mesh_ssd_cases = [(2, 1, PROMPT, MH, 128, bf16, "mamba2 mesh rank prefill"),
+                      (2, 1, PROMPT, MH, 128, f32, "mamba2 mesh rank prefill"),
+                      (2, 1, MESH_TRAIN_SHAPE[1], MH, 128, bf16, "mamba2 mesh rank train"),
+                      (2, 1, MESH_TRAIN_SHAPE[1], MH, 128, f32, "mamba2 mesh rank train")]
     hybrid_ssd_cases = [  # one chunk each: Q = S <= ssm_chunk (256)
         (4, 1, PROMPT, SH, SN, bf16, "hymba prefill"),
         (SCORE_SHAPE[0], 1, SCORE_SHAPE[1], SH, SN, bf16, "hymba score"),
@@ -2038,6 +2193,7 @@ def main() -> int:
         (4, 4, 256, 24, 128, torch.float32, "4 x 1024 tokens"),
         *hybrid_ssd_cases,
         *lm_ssd_cases,
+        *mesh_ssd_cases,
     ]
     hd = 64
     for B, NC, Q, H, N, dt, what in ssd_cases:
@@ -2625,7 +2781,8 @@ def main() -> int:
                   f"{lp.block_k}, {lp.stages} stages, {lp.threads} threads, grid {lp.grid} for "
                   f"{lp.tiles} tiles, {lp.smem_bytes} bytes of shared memory")
         del buf, w, dout, dbuf, dw, again, ref_out, want
-    ssd_bwd_cases = [(B * NC, H, Q, 64, N, dt, what) for B, NC, Q, H, N, dt, what in lm_ssd_cases]
+    ssd_bwd_cases = [(B * NC, H, Q, 64, N, dt, what)
+                     for B, NC, Q, H, N, dt, what in lm_ssd_cases + mesh_ssd_cases[2:]]
     for BNC, H, Q, shd, N, dt, what in ssd_bwd_cases:
         xs = leaves(dt, (BNC, H, Q, shd), scale=0.5)[0]
         bs, cs = leaves(torch.float32, (BNC, Q, N), (BNC, Q, N), scale=0.5)
@@ -3305,6 +3462,15 @@ def main() -> int:
         grpo_label, _, grpo_seed, _, _ = MESH_GRPO
         grpo_runs = [(grpo_label, grpo_seed, cfgs[grpo_label],
                       mesh_grpo_batch(cfgs[grpo_label], grpo_seed, dev))]
+        # what a rank holds of each train step's model, reckoned before the runs: ~12 bytes a
+        # parameter in bf16 (bf16 weights and gradients, f32 moments), ~16 in f32
+        for label, _, cfg in train_runs:
+            n = mesh_rank_params(cfg)
+            per = 12 if cfg.dtype == "bfloat16" else 16
+            print(f"[mesh] train step {label}: a rank holds {n / 1e6:.1f} M of its "
+                  f"{build_model(cfg).param_count() / 1e6:.1f} M parameters, ~{per * n / 2**30:.2f}"
+                  f" GiB at ~{per} bytes a parameter before activations; six ranks "
+                  f"~{6 * per * n / 2**30:.2f} GiB")
         ranks = run_ranks(mesh_rank, MESH_WORLD,
                           (MESH_SHAPE, str(dev), serve, train_runs, grpo_runs),
                           device=dev, timeout=900)
@@ -3325,6 +3491,18 @@ def main() -> int:
             f"{k} {v:.3f}s" for k, v in res["walls"].items()))
     print("[mesh] rank 0's runs on the host's clock from the parent's start of the ranks: "
           + mesh_timeline(ranks[0]["spans"], ranks[0]["walls"], t10_host, t_back))
+    for label, cfg in cfgs.items():  # the SSM mixer's route, from the heads its B4 launches saw
+        if cfg.family not in SSM_FAMILIES:
+            continue
+        want = mesh_ssm_heads(cfg)
+        for r, res in enumerate(ranks):
+            for what, heads in res["ssd_heads"].items():
+                if what in (f"generate {label}", f"train step {label}") and heads != [want]:
+                    raise AssertionError(f"[mesh] rank {r} {what}: B4 ran on {heads} heads, "
+                                         f"expected {want}")
+        route = "split over its heads" if want < cfg.ssm_heads else "repeated on every model rank"
+        print(f"[mesh] {label}: the SSM mixer {route}, B4 and B8 on {want} of {cfg.ssm_heads} "
+              f"heads a rank (every rank, every run)")
     print(f"[mesh] every rank's launches as path_launches gives them, per run: "
           + "; ".join(f"{k} {dict((n, c) for n, c in v.items() if c)}"
                       for k, v in ranks[0]["launches"].items()))
@@ -3342,8 +3520,8 @@ def main() -> int:
     for label, seed, cfg in serve:
         print(hold_mesh_generate(label, seed, cfg, ranks[0][label], dev))
         torch.cuda.empty_cache()
-    for label, _, _ in train_runs:  # held on rank 0 (``mesh_rank``)
-        print(ranks[0][f"train {label}"])
+    for label, _, cfg in train_runs:  # read on rank 0 (``mesh_rank``)
+        print(mesh_train_line(label, cfg, ranks[0][f"train {label}"]))
     for label, seed, cfg, cpu_batch in grpo_runs:
         api = build_model(cfg)
         batch = {k: v.to(dev) for k, v in cpu_batch.items()}

@@ -496,9 +496,8 @@ def prefill(
         x, _, st = layer_forward(lp, x, positions, cfg, cache=caches[i], rope=rope, rules=rules)
         if st is None:
             continue
-        if live:  # the rank's heads of its batch block's states
-            block, h_lo, _ = ssms[i]
-            block.copy_(st[:, h_lo:h_lo + block.shape[1]])
+        if live:  # the rank's block of the states: its batch block's, of its own heads where split
+            ssms[i][0].copy_(st)
         else:
             state.ssm_state[i].copy_(st)
     h = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)

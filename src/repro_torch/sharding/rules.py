@@ -232,6 +232,24 @@ class Rules:
             t = out.view(n, *t.shape).movedim(0, dim).flatten(dim, dim + 1)
         return t
 
+    def gather_model(self, t: torch.Tensor) -> torch.Tensor:
+        """The model ranks' column blocks of the activation ``t`` joined (``gather`` of its
+        last dim over the model axis), for work repeated alike on every model rank that ends
+        in ``model_columns``.  Its backward, through ``_Gathered`` with nothing summed, hands
+        each rank its own block of the whole's gradient, which that work gives every rank
+        alike."""
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _Gathered.apply(t, self, t.dim() - 1, (self.model_dim,), ())
+        return self.gather(t, t.dim() - 1, (self.model_dim,))
+
+    def model_columns(self, t: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """The rank's columns [lo, hi) of ``t``, which every model rank holds alike (after
+        ``gather_model``); the backward joins the ranks' gradients of their columns over the
+        model axis, so that each rank's backward of ``t`` sees the whole gradient."""
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _Columns.apply(t, self, lo, hi)
+        return t[..., lo:hi]
+
     def full(self, x: torch.Tensor) -> torch.Tensor:
         """A DTensor gathered whole on every rank (``gather`` over each sharded dim; partial
         sums reduced first); a plain tensor as it is."""
@@ -317,10 +335,11 @@ class Rules:
 
 
 class _Gathered(torch.autograd.Function):
-    """``Rules.gather`` of a parameter's block with a gradient: the backward sums the
-    incoming gradient over the mesh dims ``summed`` (where the ranks' gradients are partial
-    sums) and hands each rank its own block.  A DTensor redistribution would all-gather
-    with gloo's functional collective, which fails on CUDA tensors."""
+    """``Rules.gather`` of a parameter's or an activation's block with a gradient: the
+    backward sums the incoming gradient over the mesh dims ``summed`` (where the ranks'
+    gradients are partial sums; in f32 where it is narrower) and hands each rank its own
+    block.  A DTensor redistribution would all-gather with gloo's functional collective,
+    which fails on CUDA tensors."""
 
     @staticmethod
     def forward(ctx, t, rules, dim, mesh_dims, summed):
@@ -333,12 +352,28 @@ class _Gathered(torch.autograd.Function):
 
         mesh = ctx.rules.mesh
         coord = mesh.get_coordinate()
+        dtype = g.dtype
         for d in sorted(ctx.mesh_dims):  # outer first, as ``gather`` lays the blocks out
             if d in ctx.summed:
-                g = g.contiguous().clone()
+                g = g.to(torch.promote_types(dtype, torch.float32), copy=True).contiguous()
                 dist.all_reduce(g, group=mesh.get_group(d))
             g = g.unflatten(ctx.dim, (mesh.size(d), -1)).select(ctx.dim, coord[d])
-        return g.contiguous(), None, None, None, None
+        return g.to(dtype).contiguous(), None, None, None, None
+
+
+class _Columns(torch.autograd.Function):
+    """``Rules.model_columns``: the forward slices the rank's columns of a tensor the model
+    ranks hold alike; the backward gathers the ranks' column gradients whole (c10d)."""
+
+    @staticmethod
+    def forward(ctx, t, rules, lo, hi):
+        ctx.rules = rules
+        return t[..., lo:hi]
+
+    @staticmethod
+    def backward(ctx, g):
+        rules = ctx.rules
+        return rules.gather(g.contiguous(), g.dim() - 1, (rules.model_dim,)), None, None, None
 
 
 def block_of(shape: Sequence[int], mesh, placements) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:

@@ -14,9 +14,9 @@ the JAX package's and against the port unsharded.
 * Two sharded train steps of reduced granite-moe-3b-a800m and llama3.2-1b
   on (2, 2) against the port unsharded: losses and parameters within 1e-4.
 * Greedy generation of reduced llama3.2-1b, granite-moe-3b-a800m (drop-free),
-  kimi-k2-1t-a32b, whisper-medium and hymba-1.5b on (2, 3), batch 4 and 1
-  and with a sliding window, against the same engine unsharded: tokens
-  equal, logits within 1e-4.
+  kimi-k2-1t-a32b, whisper-medium, hymba-1.5b, mamba2-130m and internvl2-1b
+  (after 8 stub patches) on (2, 3), batch 4 and 1 and with a sliding window,
+  against the same engine unsharded: tokens equal, logits within 1e-4.
 """
 
 import os
@@ -244,11 +244,14 @@ def dataclasses_replace(cfg, fields):
 
 
 def train_batch(cfg, seed):
-    """Step ``seed``'s batch: 4 x 16 tokens, and the audio family's 4 x encoder_seq stub frames."""
+    """Step ``seed``'s batch: 4 x 16 tokens, and the audio family's 4 x encoder_seq stub frames
+    or the vlm's 4 x num_patches stub patches."""
     gen = torch.Generator().manual_seed(seed)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 16), generator=gen)}
     if cfg.family == "audio":
         batch["frames"] = torch.randn(4, cfg.encoder_seq, cfg.d_model, generator=gen)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(4, cfg.num_patches, cfg.d_model, generator=gen)
     return batch
 
 
@@ -293,12 +296,14 @@ def _train_body(rank, world, archs, steps, first):
     return runs
 
 
-TRAIN_ARCHS = ("granite-moe-3b-a800m", "llama3.2-1b", "mamba2-130m", "hymba-1.5b", "whisper-medium")
+TRAIN_ARCHS = ("granite-moe-3b-a800m", "llama3.2-1b", "mamba2-130m", "hymba-1.5b", "whisper-medium",
+               "internvl2-1b")
 
 
 def first_step_case(arch):
     """(JAX api, JAX params, the same weights flat, a batch as numpy): the JAX package's
-    reduced weights (``_torch_parity.models``), 4 x 16 tokens and whisper's 16 frames."""
+    reduced weights (``_torch_parity.models``), 4 x 16 tokens and whisper's 16 frames or
+    internvl's 8 patches."""
     from _torch_parity import family_inputs, models
 
     japi, jparams, tapi, tparams = models(arch)
@@ -316,9 +321,10 @@ def train_runs():
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_sharded_train_steps_match_unsharded(train_runs, arch):
     """granite with 10 experts, top-4 (5 experts a model rank), llama, mamba2 (its SSM
-    parameters sharded on the model axis and gathered into the repeated mixer), hymba
-    (attention heads, SSM and FFN sharded) and whisper (over 16 stub frames), two steps
-    each: the losses and every rank's parameters after them."""
+    mixer split over its heads on the model axis: d_inner 512, 8 heads a rank), hymba
+    (attention heads, SSM mixer and FFN split), whisper (over 16 stub frames) and internvl
+    (after 8 stub patches), two steps each: the losses and every rank's parameters after
+    them."""
     for rank_runs in train_runs:
         (ls, ps), (lw, pw) = rank_runs[arch, "sharded"], rank_runs[arch, "whole"]
         np.testing.assert_allclose(ls, lw, atol=1e-4, rtol=0)
@@ -347,11 +353,13 @@ def test_sharded_first_step_matches_jax_lm_loss(train_runs, arch):
 
 
 SERVE_ARCHS = ("llama3.2-1b", "granite-moe-3b-a800m", "kimi-k2-1t-a32b", "whisper-medium",
-               "hymba-1.5b", "mamba2-130m", "mamba2-130m:mesh", "whisper-medium:mesh")
+               "hymba-1.5b", "mamba2-130m", "mamba2-130m:mesh", "whisper-medium:mesh",
+               "internvl2-1b")
 # reduced configs cut so that on (2, 3) they shard as the full ones do in chip_smoke.py's phase
 # 10: mamba2's 12 SSM heads, d_inner 384 and vocabulary 510 split 4 / 128 / 170 a model rank
-# (its decode state's heads too); whisper's cross caches' 18 rows split 6 a model rank, so that
-# decode combines them in plain PyTorch and launches no B11 decode
+# (its decode state's heads too: the mixer is split over its heads; reduced mamba2's d_inner
+# 512 replicates on 3 and its mixer is repeated); whisper's cross caches' 18 rows split 6 a
+# model rank, so that decode combines them in plain PyTorch and launches no B11 decode
 MESH_LIKE = {"mamba2-130m:mesh": dict(d_model=192, vocab_size=510),
              "whisper-medium:mesh": dict(encoder_seq=18)}
 SERVE_CASES = ((4, 0), (1, 0), (4, 6))  # (batch, sliding window): batch 1 shards the cache rows on data
@@ -401,7 +409,11 @@ def _serve_body(rank, world, archs):
             batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen)}
             if cfg.family == "audio":
                 batch["frames"] = torch.randn(B, cfg.encoder_seq, cfg.d_model, generator=gen)
-            gcfg = GenerationConfig(max_new_tokens=NEW, cache_len=CACHE_LEN, sliding_window=window)
+            cache = CACHE_LEN
+            if cfg.family == "vlm":  # the patches come first; the caches stay a multiple of 3
+                batch["patch_embeds"] = torch.randn(B, cfg.num_patches, cfg.d_model, generator=gen)
+                cache += 3 * -(-cfg.num_patches // 3)
+            gcfg = GenerationConfig(max_new_tokens=NEW, cache_len=cache, sliding_window=window)
             for name, r in (("sharded", rules), ("whole", None)):
                 params = api.init(torch.Generator().manual_seed(3), "cpu", rules=r)
                 calls.clear()
