@@ -17,7 +17,12 @@ Phases, each of which raises on failure (nothing is caught):
    card, at the shapes the serving paths give it and at longer ones, with
    the kernel's, the plain version's and (where one PyTorch call computes
    the same function) a library call's times, and the least time the card
-   could take; each ``moe_matmul`` case also with its launch plan (route,
+   could take; each rmsnorm case twice for bit-identical output, with its
+   launch plan (route, grid, warps a block, rows a warp, load width), its
+   share of the bound and its time above the launch floor, then the warp
+   route's element-at-a-time form and its walks past one wave held untimed
+   (rows one element off 16 bytes, strided rows, D 100 / 1001 / 2047, T 1
+   to 6341); each ``moe_matmul`` case also with its launch plan (route,
    tiles, stages, grid, shared memory) and called twice for bit-identical
    output, each ``ssd_intra_chunk`` case with its launch plan; the cases
    include every shape that phase 4's ``hymba-1.5b`` runs give rmsnorm
@@ -1997,14 +2002,40 @@ def main() -> int:
         x = randn(T, D, dtype=dt) * 3
         w = (1 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
         tol = BF16_TOL if dt == torch.bfloat16 else RMSNORM_F32_TOL
-        err = assert_close(f"rmsnorm {T}x{D} {dt}", ops.rmsnorm_op(x, w), ref.rmsnorm_ref(x, w), tol)
+        got = ops.rmsnorm_op(x, w)
+        if not torch.equal(got, ops.rmsnorm_op(x, w)):
+            raise AssertionError(f"rmsnorm {T}x{D} {dt}: two calls differ")
+        err = assert_close(f"rmsnorm {T}x{D} {dt}", got, ref.rmsnorm_ref(x, w), tol)
         m = measure(lambda: ops.rmsnorm_op(x, w), lambda: ref.rmsnorm_ref(x, w),
                     lambda: F.rms_norm(x, (D,), w, 1e-5), rmsnorm_bound(T, D, x.element_size()))
         rms_rows[(T, D, dt)] = row(err, m)
         report(f"rmsnorm T={T} D={D} {str(dt)[6:]} {what}", err, tol, m, "F.rms_norm")
+        plan = rms_k.fwd_plan(T, D, dt)
+        print(f"[kernel]   rmsnorm plan: route {plan.route}, {plan.blocks} blocks of {plan.warps} "
+              f"warps, {plan.rows_per_warp} row(s) a warp, {plan.vec} elements a load; "
+              f"{100 * m['bound_ms'] / m['ms']:.1f}% of its bound, {m['ms'] - floor_ms:+.4f} ms against "
+              f"the launch floor {floor_ms:.4f} ms (a dependent launch may start under the one "
+              f"before it); two calls bit-identical")
     decode_ms = rms_rows[(4, 960, torch.bfloat16)]["ms"]
     print(f"[kernel] rmsnorm smollm decode [4, 960]: {decode_ms:.4f} ms, "
-          f"{1e3 * (decode_ms - floor_ms):.2f} us above the launch floor [{card}]")
+          f"{1e3 * (decode_ms - floor_ms):+.2f} us against the launch floor [{card}]")
+    # the warp route's element-at-a-time form (D off the vector, rows off 16 bytes) and its
+    # walks of several rows a warp, which the models' shapes do not reach: held, not timed
+    for T, D, lay in ((1, 2048, "offset"), (3, 100, "dense"), (257, 1001, "strided"),
+                      (5000, 2047, "dense"), (6341, 960, "offset"), (6341, 960, "strided")):
+        for dt in (torch.bfloat16, torch.float32):
+            base = randn(T * (D + 3) + 1, dtype=dt) * 3
+            x = (base[1:T * D + 1].view(T, D) if lay == "offset" else
+                 base[:T * (D + 3)].view(T, D + 3)[:, :D] if lay == "strided" else base[:T * D].view(T, D))
+            w = (1 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
+            got = rms_k.rmsnorm(x, w)
+            if not torch.equal(got, rms_k.rmsnorm(x, w)):
+                raise AssertionError(f"rmsnorm {T}x{D} {lay} {dt}: two calls differ")
+            assert_close(f"rmsnorm {T}x{D} {lay} {dt}", got, ref.rmsnorm_ref(x, w),
+                         BF16_TOL if dt == torch.bfloat16 else RMSNORM_F32_TOL)
+    print(f"[kernel] rmsnorm warp route held in its element-at-a-time form and past one wave "
+          f"(6 shapes x bf16, f32: offset and strided rows, D 100 / 1001 / 2047; T 1 to 6341), "
+          f"each twice bit-identical [{card}]")
 
     flash_rows = {}
     flash_cases = [  # (B, H, KV, S, d, causal, dtype, what)

@@ -6,14 +6,41 @@
 // writes T*D elements, with ~4 operations per element: far below the card's
 // ~295 operations per byte, so its least time is bytes / 3.35 TB/s.
 //
-// Design: one block of 128 threads per row (rows may be strided).  Each thread takes 16-byte
-// vectors (8 bf16 or 4 f32) where D is a multiple of the vector width and
-// the pointers are 16-byte aligned, and single elements otherwise (so
-// D = 960 takes the vector path, any D works).  The sum of squares is f32,
-// reduced with warp shuffles and then across the 4 warps in shared memory.
-// The second pass re-reads the row, which the first pass left in L1, so x
-// crosses device memory once.  Any T: the grid has one block per row (no
-// T % block_rows restriction as on the TPU).
+// Design: a warp per row for rows up to 2048 elements ("warp" route,
+// rmsnorm_warp_kernel), the layout of the backward's warp route below.  The
+// row lives in the warp's registers: lane l holds the row's 16-byte chunks l,
+// l + 32, ... (at most 8 a lane in bf16, 16 in f32), and the weight's same
+// chunks, loaded once per warp and kept for every row the warp takes.  The
+// loads of x and w are issued together, before either is used; the sum of
+// squares is an f32 xor-shuffle in a fixed lane order, with no shared memory
+// and no block barrier, and the output is rounded and stored from the same
+// registers, so x crosses memory once and is read once.  The lane keeps four
+// partial sums in the block route's order (sum k: the chunks that route's
+// thread l + 32 k takes), so both routes give the same bits at every D.
+// bf16 pairs are normalised in packed form (two products rounded to a bf16x2
+// at once, then one bf16x2 multiply by w): the row's instructions, not its
+// bytes, are a warp's share of the chain, and the weight kept as loaded, not
+// as f32, leaves every bf16 row at <= 128 registers, so 16 warps an SM.  D
+// that is not a multiple of the vector width, unaligned pointers and row
+// strides take the same route an element at a time (lane l: elements l,
+// l + 32, ...).
+// The launch plan is rmsnorm.py::fwd_plan, which the entry recomputes and
+// holds the call to: a grid of at most one block per SM, as many warps a
+// block as spread the rows over every SM (T = 1024: 128 blocks of 8 warps),
+// at most 16 (8 where the row takes more than 32 registers a lane); past 16
+// rows an SM a warp walks several consecutive rows of its block, and issues
+// the next row's loads before this row's stores.  The route is a
+// programmatic dependent launch: its grid starts while the kernel before it
+// on the stream ends, and waits for it before the first read, so the output
+// is the same bit for bit and the launch's latency overlaps its predecessor.
+// Why so: the block-per-row kernel it replaces at these widths
+// waited on a block barrier between two passes over the row and re-read w
+// from L2 for every row, so at T <= ~1500, where every row is resident at
+// once, its time was the launch plus that chain of dependent waits.
+// Rows wider than 2048 keep that kernel ("block" route, rmsnorm_kernel):
+// one block of 128 threads per row, 16-byte vectors where D and the
+// pointers allow, the sum of squares reduced over the block's 4 warps in
+// shared memory, and a second pass that re-reads the row from L1.
 //
 // Rounding is the reference's order: out = bf16(float(bf16(x * r)) * float(w))
 // with r = 1/sqrt(mean(x^2) + eps) in f32, i.e. the normalized row is rounded
@@ -74,6 +101,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -94,6 +122,12 @@ template <typename T>
 struct alignas(16) Pack {
   static constexpr int N = 16 / sizeof(T);
   T v[N];
+};
+
+// VEC elements of T loaded at once: 16 bytes on the vector path, 1 otherwise.
+template <typename T, int VEC>
+struct alignas(VEC * sizeof(T)) Vec {
+  T v[VEC];
 };
 
 __device__ __forceinline__ float block_sum(float s, float* scratch) {
@@ -159,6 +193,126 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
   }
 }
 
+// Rows up to 2048 elements ("warp" route): a warp per row, the row in
+// registers.  Lane l holds the row's VEC-element chunks l, l + 32, ... (CPL of
+// them) and the weight's same chunks, as loaded.  A block of `warps` warps
+// takes warps * rows_per_warp consecutive rows, walked by its warps in turn
+// (warp i: rows i, i + warps, ...).  kMaxWarps (launch bound): 16 where the
+// row takes at most 32 registers a lane (16-byte chunks: 8; an element a
+// register on the element-at-a-time form: 32), else 8; so every bf16 row up
+// to 2048 keeps 16 warps an SM at <= 128 registers a thread.
+constexpr int kFwdMaxPerLane = 64;  // row elements a lane keeps in registers
+constexpr int kWarpMaxDim = 32 * kFwdMaxPerLane;  // rmsnorm.py FWD_WARP_MAX_DIM
+
+template <typename T, int VEC>
+constexpr int row_regs(int chunks) {  // 32-bit registers a lane's `chunks` chunks take
+  return chunks * (VEC * sizeof(T) < 4 ? 1 : static_cast<int>(VEC * sizeof(T)) / 4);
+}
+
+// The sum of squares of a chunk, added in element order.
+template <typename T, int VEC>
+__device__ __forceinline__ float add_squares(const Vec<T, VEC>& x, float ss) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float f = to_float(x.v[j]);
+    ss = fmaf(f, f, ss);
+  }
+  return ss;
+}
+
+// round(round(x r) w) of a chunk, the reference's order.  bf16 pairs take
+// the packed forms: two f32 products rounded to a bf16x2 at once, and the
+// bf16x2 multiply by w, whose exact product is rounded once to nearest even,
+// as bf16(float(y) * float(w)) is.
+template <typename T, int VEC>
+__device__ __forceinline__ Vec<T, VEC> normed(const Vec<T, VEC>& x, const Vec<T, VEC>& w, float r) {
+  Vec<T, VEC> o;
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && VEC % 2 == 0) {
+    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(x.v);
+    const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(w.v);
+    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(o.v);
+#pragma unroll
+    for (int k = 0; k < VEC / 2; ++k) {
+      const float2 f = __bfloat1622float2(x2[k]);
+      o2[k] = __hmul2_rn(__floats2bfloat162_rn(f.x * r, f.y * r), w2[k]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      o.v[j] = from_float<T>(to_float(from_float<T>(to_float(x.v[j]) * r)) * to_float(w.v[j]));
+  }
+  return o;
+}
+
+// A dependent launch (launch_dependent_fn): the grid may start while the
+// kernel before it on the stream ends, and waits for it before reading.
+template <typename T, int VEC, int CPL, int kMaxWarps = (row_regs<T, VEC>(CPL) <= 32 ? 16 : 8)>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+rmsnorm_warp_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+                    int64_t rows, int dim, int64_t x_stride, int64_t rows_per_warp, float eps) {
+  hopper::grid_dependency_wait();  // x and w may be the previous kernel's outputs
+  hopper::launch_dependents();  // the next dependent grid may start, up to its own wait
+  using V = Vec<T, VEC>;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nchunks = dim / VEC;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * warps * rows_per_warp;
+  const int64_t row_end = row0 + warps * rows_per_warp < rows ? row0 + warps * rows_per_warp : rows;
+  int64_t row = row0 + warp;
+  if (row >= row_end) return;
+  auto zero = [](V& v) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v.v[j] = from_float<T>(0.f);
+  };
+  V xa[CPL];
+  auto load = [&](int64_t r) {
+    const V* xp = reinterpret_cast<const V*>(x + r * x_stride);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      if (lane + 32 * i < nchunks) xa[i] = xp[lane + 32 * i];
+      else zero(xa[i]);
+    }
+  };
+  // the first row and the weight: both loads in flight before either is used
+  load(row);
+  V wa[CPL];
+  const V* wp = reinterpret_cast<const V*>(w);
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    if (lane + 32 * i < nchunks) wa[i] = wp[lane + 32 * i];
+    else zero(wa[i]);
+  }
+  constexpr int K = CPL < kThreads / 32 ? CPL : kThreads / 32;
+  for (;;) {
+    // the block route's order of sums, so that both routes give the same bits: its thread
+    // l + 32 k takes this lane's chunks k, k + 4, ... (sum k), its warp k sums them by
+    // shuffles, and the 4 warps' sums are added in warp order
+    float part[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) part[k] = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) part[i % K] = add_squares(xa[i], part[i % K]);
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) part[k] += __shfl_xor_sync(0xffffffffu, part[k], off);
+      ss += part[k];
+    }
+    const float r = 1.0f / sqrtf(ss / static_cast<float>(dim) + eps);
+    V o[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) o[i] = normed(xa[i], wa[i], r);
+    V* op = reinterpret_cast<V*>(out + row * dim);
+    const int64_t next = row + warps;
+    if (next < row_end) load(next);  // the next row's loads go out before this row's stores
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+      if (lane + 32 * i < nchunks) op[lane + 32 * i] = o[i];
+    if (next >= row_end) break;
+    row = next;
+  }
+}
+
 // One element of the backward: returns dx and adds dy * round(x r) to dw.
 template <typename T>
 __device__ __forceinline__ float bwd_elem(float x, float dy, float w, float r, float k, float& dw) {
@@ -173,12 +327,6 @@ constexpr int kMaxBwdDim = 32 * kBwdMaxPerLane;
 // Warps (rows in flight) per block: 16 where a lane's share of a row is at
 // most 64 bytes, else 8 (the row's registers would not fit 16 warps).
 constexpr int bwd_warps(int64_t dim, int elem) { return dim * elem <= 2048 ? 16 : 8; }
-
-// VEC elements of T loaded at once: 16 bytes on the vector path, 1 otherwise.
-template <typename T, int VEC>
-struct alignas(VEC * sizeof(T)) Vec {
-  T v[VEC];
-};
 
 // A warp per row, the row in registers: lane l holds the row's VEC-element
 // chunks l, l + 32, ... (CPL of them) of x and dy, sums x^2 and n x with
@@ -668,35 +816,103 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx, v
   return cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args, smem, stream);
 }
 
+constexpr int kNumSms = 132;  // _build.NUM_SMS
+
+// Warps a block may have on the warp route (rmsnorm_warp_kernel's kMaxWarps):
+// 16 where the row takes at most 32 registers a lane, i.e. dim * elem <= 4096
+// bytes on 16-byte loads and dim <= 1024 an element at a time, else 8.
+constexpr int fwd_max_warps(int64_t dim, int elem, bool vector) {
+  return (vector ? dim * elem : 4 * dim) <= 4096 ? 16 : 8;
+}
+
+// The warp-route instantiation whose CPL chunks of VEC elements a lane cover
+// the row: every count up to 64 elements a lane on the vector form, powers of
+// two on the element form.
+template <typename T, int VEC, int CPL = 1>
+void* pick_fwd(int per_lane) {
+  if constexpr (CPL * VEC > kFwdMaxPerLane) {
+    return nullptr;
+  } else {
+    if (per_lane <= CPL) return reinterpret_cast<void*>(rmsnorm_warp_kernel<T, VEC, CPL>);
+    return pick_fwd<T, VEC, VEC == 1 ? 2 * CPL : CPL + 1>(per_lane);
+  }
+}
+
+// Launch fn with `args` as a dependent launch: programmatic stream
+// serialization, so that its grid may start while the kernel before it on
+// the stream ends; the kernel waits for that kernel before it reads.
+cudaError_t launch_dependent_fn(const void* fn, dim3 grid, dim3 block, void** args,
+                                cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelExC(&cfg, fn, args);
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* w, void* out, int64_t rows, int64_t dim,
-                   int64_t x_stride, float eps, cudaStream_t stream) {
-  const bool vec = dim % Pack<T>::N == 0 && x_stride % Pack<T>::N == 0 &&
-                   (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
-                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  const dim3 grid(static_cast<unsigned>(rows));
+                   int64_t x_stride, int warps, int64_t rows_per_warp, int64_t blocks, int vec,
+                   float eps, cudaStream_t stream) {
+  // the plan this call should have (rmsnorm.py::fwd_plan)
+  constexpr int N = Pack<T>::N;
+  const bool vector = vec_ok<T>(dim, x_stride, {x, w, out});
+  int64_t want_warps = kThreads / 32, want_rpw = 1, want_blocks = rows;
+  if (dim <= kWarpMaxDim) {
+    const int64_t per_sm = (rows + kNumSms - 1) / kNumSms;
+    const int most = fwd_max_warps(dim, sizeof(T), vector);
+    want_rpw = (per_sm + most - 1) / most;
+    want_warps = (per_sm + want_rpw - 1) / want_rpw;
+    want_blocks = (rows + want_warps * want_rpw - 1) / (want_warps * want_rpw);
+  }
+  if (warps != want_warps || rows_per_warp != want_rpw || blocks != want_blocks ||
+      vec != (vector ? N : 1))
+    return cudaErrorInvalidConfiguration;
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
-  if (vec)
-    rmsnorm_kernel<T, true><<<grid, kThreads, 0, stream>>>(xp, wp, op, dim, x_stride, eps);
-  else
-    rmsnorm_kernel<T, false><<<grid, kThreads, 0, stream>>>(xp, wp, op, dim, x_stride, eps);
-  return cudaGetLastError();
+  if (dim > kWarpMaxDim) {  // the block route: a block of kThreads per row
+    const dim3 grid(static_cast<unsigned>(rows));
+    if (vector)
+      rmsnorm_kernel<T, true><<<grid, kThreads, 0, stream>>>(xp, wp, op, dim, x_stride, eps);
+    else
+      rmsnorm_kernel<T, false><<<grid, kThreads, 0, stream>>>(xp, wp, op, dim, x_stride, eps);
+    return cudaGetLastError();
+  }
+  const int per_lane = static_cast<int>((dim / vec + 31) / 32);
+  void* fn = vector ? pick_fwd<T, N>(per_lane) : pick_fwd<T, 1>(per_lane);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  int d = static_cast<int>(dim);
+  void* args[] = {&xp, &wp, &op, &rows, &d, &x_stride, &rows_per_warp, &eps};
+  return launch_dependent_fn(fn, dim3(static_cast<unsigned>(blocks)), dim3(32 * warps), args, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  x is [rows, dim] with rows x_stride
 // elements apart and contiguous within a row; out is contiguous [rows, dim];
-// w is [dim]; all of one dtype.  Returns cudaGetLastError() after the launch.
+// w is [dim]; all of one dtype.  warps, rows_per_warp, blocks and vec (the
+// elements a load: 16 bytes where dim, x_stride and the pointers allow, else
+// 1) are rmsnorm.py::fwd_plan's (the warp route up to dim 2048, past it the
+// block route: 4 warps, a row a block); another plan returns
+// cudaErrorInvalidConfiguration.  Returns cudaGetLastError() after the launch.
 extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* w, void* out, int64_t rows,
-                           int64_t dim, int64_t x_stride, float eps, void* stream) {
+                           int64_t dim, int64_t x_stride, int warps, int64_t rows_per_warp,
+                           int64_t blocks, int vec, float eps, void* stream) {
   if (rows <= 0 || rows > 0x7fffffff || dim <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch<float>(x, w, out, rows, dim, x_stride, eps, s));
-    case 1: return static_cast<int>(launch<__nv_bfloat16>(x, w, out, rows, dim, x_stride, eps, s));
+    case 0:
+      return static_cast<int>(launch<float>(x, w, out, rows, dim, x_stride, warps, rows_per_warp,
+                                            blocks, vec, eps, s));
+    case 1:
+      return static_cast<int>(launch<__nv_bfloat16>(x, w, out, rows, dim, x_stride, warps,
+                                                    rows_per_warp, blocks, vec, eps, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,13 +2,19 @@
 
 ``rmsnorm`` launches the kernel on CUDA tensors and raises on anything it
 does not take; ``ops.rmsnorm_op`` is the entry point that also serves CPU
-tensors through the plain version.  ``rmsnorm_bwd`` is its gradient (two
-kernels: dx, with per-block f32 column sums of dweight, then a column
-reduce), laid out by ``bwd_plan``.  Routes of the dx kernel: ``"warp"``, a
-warp per row up to D 2048; past it up to D 8192, ``"ring"``, a block per
-row fed by a ring of rows in shared memory, where every row is 16-byte
-aligned, else ``"block"``, a block of 256 threads per row through
-registers.  The wrappers read the stream raw:
+tensors through the plain version.  Routes of the forward, laid out by
+``fwd_plan``: ``"warp"``, a warp per row with the row and the weight's
+columns in registers, up to D 2048 (16-byte loads where D, the row stride
+and the pointers allow, else an element at a time), on a grid of at most one
+block per SM, launched as a programmatic dependent launch (it starts while
+the kernel before it ends, and waits for it before it reads); past it
+``"block"``, a block of 128 threads per row.
+``rmsnorm_bwd`` is its gradient (two kernels: dx, with per-block f32 column
+sums of dweight, then a column reduce), laid out by ``bwd_plan``.  Routes of
+the dx kernel: ``"warp"``, a warp per row up to D 2048; past it up to D
+8192, ``"ring"``, a block per row fed by a ring of rows in shared memory,
+where every row is 16-byte aligned, else ``"block"``, a block of 256
+threads per row through registers.  The wrappers read the stream raw:
 ``torch.cuda.current_stream()`` builds an object on every call.
 """
 
@@ -33,6 +39,8 @@ bwd_wide_launches = 0  # dx, past D 2048 (ring and block routes)
 dweight_launches = 0
 _count_lock = threading.Lock()  # live mode launches the forward from a thread per pool
 
+FWD_WARP_MAX_DIM = 2048  # forward's warp route: a lane keeps up to 64 elements of the row
+FWD_BLOCK_THREADS = 128  # forward's block route: a block of 128 threads per row
 BWD_WARP_MAX_DIM = 2048  # warp route: the row lives in one warp's registers, 64 elements a lane
 BWD_MAX_DIM = 8192  # wider routes: up to 4 16-byte chunks of a row a thread (block: 32 elements)
 WIDE_THREADS = 256  # block route
@@ -42,6 +50,43 @@ RING_BYTES = 192 * 1024  # ring route: shared memory for the stages (x and dy ro
 def bwd_warps(D: int, dtype: torch.dtype) -> int:
     """Rows in flight per block, a warp each: 16 where two rows fit a lane's registers."""
     return 16 if D * torch.finfo(dtype).bits // 8 <= 2048 else 8
+
+
+def fwd_warps(D: int, dtype: torch.dtype, vec: int) -> int:
+    """Most warps a block on the forward's warp route: 16 where the row takes at most 32
+    registers a lane (16-byte loads: D x the element's bytes <= 4096, every bf16 row; an
+    element a register at a time: D <= 1024), else 8."""
+    return 16 if (D * torch.finfo(dtype).bits // 8 if vec > 1 else 4 * D) <= 4096 else 8
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """How ``rmsnorm`` is launched; ``csrc/rmsnorm.cu`` recomputes it and refuses any other."""
+
+    route: str  # "warp" (D <= FWD_WARP_MAX_DIM) or "block": a block of 128 threads a row
+    warps: int  # a block's
+    rows_per_warp: int  # warp: a block takes warps x rows_per_warp consecutive rows (block: 1)
+    blocks: int
+    vec: int  # elements a load: 16 bytes where D, the row stride and the pointers allow, else 1
+
+
+@functools.lru_cache(maxsize=None)  # every forward call asks again
+def fwd_plan(T: int, D: int, dtype: torch.dtype = torch.bfloat16, aligned: bool = True) -> FwdPlan:
+    """The launch of ``rmsnorm`` over x [T, D] (``aligned``: x, the weight and the output start
+    16-byte aligned and x's row stride is a multiple of 16 bytes).  The warp route spreads the
+    rows over every SM, at most one block an SM: as many warps a block as rows an SM, a row a
+    warp, up to ``fwd_warps``; past it each warp takes several consecutive rows of its block.
+    T = 1024 runs 128 blocks of 8 warps; T = 1280 128 of 10."""
+    if T < 1 or D < 1:
+        raise ValueError(f"rmsnorm takes T >= 1 rows of D >= 1, got [{T}, {D}]")
+    elem = torch.finfo(dtype).bits // 8
+    vec = 16 // elem if aligned and D * elem % 16 == 0 else 1
+    if D > FWD_WARP_MAX_DIM:
+        return FwdPlan("block", FWD_BLOCK_THREADS // 32, 1, T, vec)
+    per_sm = _cdiv(T, _build.NUM_SMS)
+    rows_per_warp = _cdiv(per_sm, fwd_warps(D, dtype, vec))
+    warps = _cdiv(per_sm, rows_per_warp)
+    return FwdPlan("warp", warps, rows_per_warp, _cdiv(T, warps * rows_per_warp), vec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +147,7 @@ def _entries():
     lib = _build.load("rmsnorm")
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     fwd, bwd, dweight = lib.rmsnorm_fwd, lib.rmsnorm_bwd, lib.rmsnorm_bwd_dweight
-    fwd.argtypes = [i, p, p, p, i64, i64, i64, f, p]
+    fwd.argtypes = [i, p, p, p, i64, i64, i64, i, i64, i64, i, f, p]
     bwd.argtypes = [i, p, p, p, p, p, i64, i64, i64, i, i, i64, i, i, i, i, f, p]
     dweight.argtypes = [i, p, p, i, i64, p]
     for fn in (fwd, bwd, dweight):
@@ -118,8 +163,13 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-5) -> torc
     out = torch.empty((T, D), dtype=x.dtype, device=x.device)
     if T == 0:
         return out
+    # the route follows the operands, as the kernel's own check does
+    aligned = ((x.data_ptr() | weight.data_ptr() | out.data_ptr()) % 16 == 0
+               and x.stride(0) * x.element_size() % 16 == 0)
+    plan = fwd_plan(T, D, x.dtype, aligned)
     err = _entries()[0](DTYPES[x.dtype], x.data_ptr(), weight.data_ptr(), out.data_ptr(), T, D,
-                        x.stride(0), eps, torch._C._cuda_getCurrentRawStream(x.device.index))
+                        x.stride(0), plan.warps, plan.rows_per_warp, plan.blocks, plan.vec, eps,
+                        torch._C._cuda_getCurrentRawStream(x.device.index))
     with _count_lock:
         launches += 1
     _build.check("rmsnorm", err)

@@ -97,6 +97,54 @@ def test_rmsnorm_kernel_strided_rows(cuda):
     close(ops.rmsnorm_op(x, w), ref.rmsnorm_ref(x, w), 2e-2)
 
 
+# the forward's warp route in each of its forms: 16-byte loads, and an element at a time where D
+# is not a multiple of the vector (100, 1001, 2047) or the rows are not 16-byte aligned; T = 1, a
+# row a warp, and past one wave of the grid (132 x 16 rows: several rows a warp)
+@pytest.mark.parametrize("T,D", [(1, 960), (1, 2048), (3, 100), (257, 1001), (1024, 768),
+                                 (1280, 2048), (5000, 2047), (132 * 16 * 3 + 5, 960)])
+@pytest.mark.parametrize("layout", ["contiguous", "offset", "strided"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_warp_route(cuda, T, D, layout, dtype):
+    rng = np.random.default_rng(T * D)
+    if layout == "offset":  # one element past 16 bytes: every row starts unaligned
+        x = tensor(rng, (T * D + 1,), dtype, cuda, 3.0)[1:].view(T, D)
+    elif layout == "strided":  # rows D + 3 apart: unaligned from the second row on
+        x = tensor(rng, (T, D + 3), dtype, cuda, 3.0)[:, :D]
+    else:
+        x = tensor(rng, (T, D), dtype, cuda, 3.0)
+    w = 1 + tensor(rng, (D,), dtype, cuda, 0.1)
+    aligned = x.data_ptr() % 16 == 0 and x.stride(0) * x.element_size() % 16 == 0
+    plan = rmsnorm_mod.fwd_plan(T, D, dtype, aligned)
+    assert plan.route == "warp" and plan.vec == (16 // x.element_size() if layout == "contiguous"
+                                                  and D * x.element_size() % 16 == 0 else 1)
+    before = ops.launch_counts()["rmsnorm"]
+    got, again = rmsnorm_mod.rmsnorm(x, w), rmsnorm_mod.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm"] == before + 2
+    assert torch.equal(got, again)  # deterministic: a fixed order of sums, no atomics
+    close(got, ref.rmsnorm_ref(x, w), 2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_rmsnorm_forward_refuses_a_plan_not_its_own(cuda):
+    """The entry recomputes fwd_plan and refuses another grid, warps a block, rows a warp or load
+    width, and launches nothing."""
+    x = torch.randn(1024, 768, device=cuda).bfloat16()
+    w = torch.ones(768, device=cuda).bfloat16()
+    out = torch.empty_like(x)
+    plan = rmsnorm_mod.fwd_plan(1024, 768)
+    stream = torch._C._cuda_getCurrentRawStream(cuda.index or 0)
+    fwd = rmsnorm_mod._entries()[0]
+    for warps, rpw, blocks, vec in ((16, 1, 64, 8), (8, 2, 64, 8), (8, 1, 128, 1), (4, 1, 256, 8)):
+        err = fwd(1, x.data_ptr(), w.data_ptr(), out.data_ptr(), 1024, 768, 768, warps, rpw,
+                  blocks, vec, 1e-5, stream)
+        assert err != 0
+    err = fwd(1, x.data_ptr(), w.data_ptr(), out.data_ptr(), 1024, 768, 768, plan.warps,
+              plan.rows_per_warp, plan.blocks, plan.vec, 1e-5, stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    close(out, ref.rmsnorm_ref(x, w), 2e-2)
+
+
 # GQA groups g = H / KV of the served models (1, 3, 4, 5, 7, 16), ragged and whole 64-row tiles;
 # hymba-1.5b's prefill and score (H 25, KV 5: an odd head count); whisper-medium's encoder
 # (H 16 = KV 16 over its 1500 frames), internvl2-1b's prefill (H 14, KV 2, 256 patches + 128)

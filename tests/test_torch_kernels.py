@@ -316,6 +316,95 @@ def test_flash_backward_stats_rows_are_16_byte_aligned():
         assert flash_mod.stats_row(S) % 4 == 0 and S <= flash_mod.stats_row(S) < S + 4
 
 
+# chip_smoke.py phase 3's forward shapes: smollm, llama, granite, the closed loop, hymba (d 1600
+# and its SSM's 3200: prefill, decode, score, check), the LM rows, llama3-8b / glm4-9b, whisper's
+# encoder, internvl's prefill, the plain checks and live mode's payloads
+B1_PHASE3_SHAPES = [
+    (512, 960), (4, 960), (1280, 2048), (1280, 1536), (16, 960), (128, 960), (24, 2048), (384, 960),
+    *[(T, D) for D in (1600, 3200) for T in (512, 4, 1280, 636)],
+    (1024, 1536), (1024, 768), (1024, 1600), (1024, 3200),
+    (1280, 4096), (4, 4096), (6000, 1024), (1536, 896), (1000, 2048), (1000, 960), (64, 64), (8, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_forward_plan_spreads_the_rows_over_every_sm(dtype):
+    """The warp route: at most one block an SM, as many warps a block as rows an SM (a row a
+    warp up to the most a block takes, then more rows a warp), every row once, and no SM with
+    more rows than the most loaded one needs."""
+    for T, D in B1_PHASE3_SHAPES:
+        plan = rmsnorm_mod.fwd_plan(T, D, dtype)
+        if D > rmsnorm_mod.FWD_WARP_MAX_DIM:
+            assert plan == rmsnorm_mod.FwdPlan("block", 4, 1, T, plan.vec)
+            continue
+        most = rmsnorm_mod.fwd_warps(D, dtype, plan.vec)
+        per_block = plan.warps * plan.rows_per_warp
+        per_sm = -(-T // _build.NUM_SMS)
+        assert plan.route == "warp" and 1 <= plan.warps <= most
+        assert plan.rows_per_warp == -(-per_sm // most)
+        assert (plan.blocks - 1) * per_block < T <= plan.blocks * per_block
+        assert plan.blocks <= _build.NUM_SMS
+        assert per_sm <= per_block < per_sm + plan.rows_per_warp  # the busiest SM, near the even share
+        if T >= _build.NUM_SMS:
+            assert plan.blocks > _build.NUM_SMS * 9 // 10, (T, D, plan)  # the card stays full
+
+
+def test_rmsnorm_forward_plan_at_the_models_shapes():
+    """The plans the main path's rows take, pinned: T = 1024 runs 128 blocks of 8 warps (not 64 of
+    16), T = 1280 128 of 10, every bf16 row a row a warp up to 16 warps a block; f32 rows past
+    1024 take at most 8 warps a block, then two rows a warp; whisper's encoder, past 16 rows an
+    SM, three rows a warp; decode a warp a block."""
+    plan = rmsnorm_mod.fwd_plan
+    bf16 = torch.bfloat16
+    assert plan(1024, 768) == rmsnorm_mod.FwdPlan("warp", 8, 1, 128, 8)
+    assert plan(1024, 1536) == rmsnorm_mod.FwdPlan("warp", 8, 1, 128, 8)
+    assert plan(1536, 896, bf16) == rmsnorm_mod.FwdPlan("warp", 12, 1, 128, 8)
+    assert plan(1280, 2048) == rmsnorm_mod.FwdPlan("warp", 10, 1, 128, 8)
+    assert plan(1280, 2048, torch.float32) == rmsnorm_mod.FwdPlan("warp", 5, 2, 128, 4)
+    assert plan(1280, 1024) == rmsnorm_mod.FwdPlan("warp", 10, 1, 128, 8)
+    assert plan(6000, 1024) == rmsnorm_mod.FwdPlan("warp", 16, 3, 125, 8)
+    assert plan(4, 960) == rmsnorm_mod.FwdPlan("warp", 1, 1, 4, 8)
+    assert plan(64, 64, torch.float32) == rmsnorm_mod.FwdPlan("warp", 1, 1, 64, 4)
+    assert plan(1000, 2048, torch.float32) == rmsnorm_mod.FwdPlan("warp", 8, 1, 125, 4)
+    assert plan(1280, 4096) == rmsnorm_mod.FwdPlan("block", 4, 1, 1280, 8)
+    assert plan(10**6, 960) == rmsnorm_mod.FwdPlan("warp", 16, 474, 132, 8)
+
+
+@pytest.mark.parametrize("dtype,vec", [(torch.bfloat16, 8), (torch.float32, 4)])
+def test_rmsnorm_forward_route_by_width_dtype_and_alignment(dtype, vec):
+    """Up to D 2048 the warp route, past it the block route; 16-byte loads where D is a
+    multiple of the vector and the operands are aligned, else an element at a time."""
+    plan = rmsnorm_mod.fwd_plan
+    assert rmsnorm_mod.FWD_WARP_MAX_DIM == 2048
+    assert plan(4, 2048, dtype).route == "warp" and plan(4, 2049, dtype).route == "block"
+    assert plan(4, 2048, dtype).vec == vec and plan(4, 4096, dtype).vec == vec
+    assert plan(4, 2048, dtype, aligned=False).vec == 1
+    assert plan(4, 4096, dtype, aligned=False) == rmsnorm_mod.FwdPlan("block", 4, 1, 4, 1)
+    assert plan(4, 2048 - vec // 2, dtype).vec == 1 and plan(4, 100, dtype).vec == (4 if vec == 4 else 1)
+    # most warps a block: 16 where the row takes at most 32 registers a lane, else 8: every bf16
+    # row and f32 rows up to 1024 on 16-byte loads, rows up to 1024 an element at a time
+    fwd_warps = rmsnorm_mod.fwd_warps
+    assert fwd_warps(4096 * vec // 16, dtype, vec) == 16 and fwd_warps(1024, dtype, 1) == 16
+    assert fwd_warps(1025, dtype, 1) == 8 and fwd_warps(1025, torch.float32, 4) == 8
+    assert plan(132 * 16, 2048, dtype).warps == (16 if vec == 8 else 8)
+    assert plan(132 * 16, 1024, dtype, aligned=False).warps == 16
+    assert plan(132 * 16, 1032, dtype, aligned=False).warps == 8
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_forward_plan_refuses_no_shape(dtype):
+    """Every T >= 1 and D >= 1 has a plan that covers each row once; T < 1 or D < 1 raise."""
+    for T in (1, 2, 3, 131, 132, 133, 1000, 2111, 2112, 2113, 4225, 99_991, 2**31 - 1):
+        for D in (1, 2, 3, 7, 8, 31, 33, 100, 513, 1025, 2047, 2048, 2049, 3200, 8191, 100_000):
+            plan = rmsnorm_mod.fwd_plan(T, D, dtype, aligned=D % 3 != 0)
+            per_block = plan.warps * plan.rows_per_warp if plan.route == "warp" else 1
+            assert plan.blocks * per_block >= T > (plan.blocks - 1) * per_block
+            assert plan.route == ("warp" if D <= 2048 else "block")
+    for T, D in ((0, 64), (4, 0), (-1, 64)):
+        with pytest.raises(ValueError, match="rows"):
+            rmsnorm_mod.fwd_plan(T, D, dtype)
+
+
 @pytest.mark.parametrize("T,D", [(2560, 960), (1024, 2048), (128, 960), (4, 960), (1, 7), (300, 64)])
 def test_rmsnorm_backward_launch_plan(T, D):
     """A warp per row; at most one block per SM; each warp keeps D f32 column sums."""

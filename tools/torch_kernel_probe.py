@@ -12,6 +12,7 @@
     python3 tools/torch_kernel_probe.py moe-bwd-tiles  # moe_matmul's bf16 backward at each tile width
     python3 tools/torch_kernel_probe.py moe-bwd-fma    # its f32 dbuf at one and two blocks an SM
     python3 tools/torch_kernel_probe.py rms-parts      # the wide RMSNorm dx with parts taken out
+    python3 tools/torch_kernel_probe.py rms-fwd [--parent DIR]  # B1's forward vs the parent's, by plan
     python3 tools/torch_kernel_probe.py ssd-roles   # ssd_intra_chunk's y and state blocks alone
     python3 tools/torch_kernel_probe.py ssm-check   # mamba2's bf16 decode-vs-forward reading
     python3 tools/torch_kernel_probe.py live-rate   # live mode's payload loop on 1 and 4 threads
@@ -62,6 +63,20 @@ whose ring-route dx kernel leaves out its dx stores, or its dweight
 partials, or both, and times each beside the whole kernel at [1024, 3200]
 and [1024, 4096], bf16 and f32, in turns; the variants' outputs are wrong
 by design.
+``rms-fwd`` times B1's forward (``rmsnorm``) at every shape of ``chip_smoke.py``
+phase 3, the median of three rounds taken in turns: the kernel through its
+plan, the parent's kernel (``--parent DIR``: a checkout of the parent commit,
+whose ``csrc/rmsnorm.cu`` is built into ``build/probe/rms_fwd`` and called
+through its own entry, a block of 128 threads per row), the warp route at the
+plan's alternatives for warps a block and rows a warp (a variant built with
+the entry's plan check off: 4, 8 and 16 warps a block, each on a grid of at
+most one block an SM and with a row a warp), the warp route without its
+programmatic dependent launch (a variant launched plainly, whose kernel does
+not wait on the grid before it), ``F.rms_norm``, the plain version (timed
+apart), the bound and the launch floor.  The kernel must hold against the plain version, and every
+variant's output and the parent's must equal the kernel's bit for bit.  Then, at the decode rows, each
+launch behind its predecessor in a decode layer (the residual add), with and
+without the dependent launch.
 ``moe`` checks ``moe_matmul`` against its plain version and times it
 beside ``torch.bmm`` and its bound at granite-moe-3b-a800m's six bf16
 shapes (gate/up and down at decode C = 8, prefill C = 128 and score
@@ -622,6 +637,166 @@ def rms_parts(gen):
         print(f"[rms-parts] by rows: [{T}, 3200] bfloat16 ({rk.bwd_plan(T, 3200).rows_per_block} rows a "
               f"block): " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
               + f"; dx bound {rmsnorm_bwd_bounds(T, 3200, 2)[0][0]:.4f} ms")
+
+
+# chip_smoke.py phase 3's B1 shapes (T, D, dtype): smollm prefill / decode, llama and granite score,
+# the closed loop (decode, prefill, judge, GRPO), hymba's d 1600 and 3200 (prefill, decode, score,
+# check; f32 checks), the LM rows, llama3-8b / glm4-9b score and decode, whisper's encoder,
+# internvl's prefill, the plain checks and live mode's payload and warm-up
+_bf, _f = torch.bfloat16, torch.float32
+RMS_FWD_SHAPES = [
+    (512, 960, _bf), (4, 960, _bf), (1280, 2048, _bf), (1280, 1536, _bf), (16, 960, _bf),
+    (128, 960, _bf), (24, 2048, _bf), (384, 960, _bf),
+    *[(T, D, dt) for D in (1600, 3200) for T, dt in ((512, _bf), (4, _bf), (1280, _bf), (636, _bf),
+                                                    (512, _f), (4, _f), (636, _f))],
+    (1024, 1536, _bf), (1024, 768, _bf), (1024, 1600, _bf), (1024, 3200, _bf),
+    (1280, 4096, _bf), (4, 4096, _bf), (6000, 1024, _bf), (1536, 896, _bf),
+    (1000, 2048, _bf), (1000, 960, _bf), (1000, 2048, _f), (1000, 960, _f), (64, 64, _f), (8, 64, _f),
+]
+
+
+def _rms_fwd_variants(parent):
+    """Build the forward's probe variants of csrc/rmsnorm.cu (and the parent's source) into
+    build/probe/rms_fwd/<i>; returns {label: loaded library}."""
+    src = (_build.CSRC / "rmsnorm.cu").read_text()
+    check = "  if (warps != want_warps || rows_per_warp != want_rpw || blocks != want_blocks ||\n"
+    waits = ("  hopper::grid_dependency_wait();  // x and w may be the previous kernel's outputs\n"
+             "  hopper::launch_dependents();  // the next dependent grid may start, up to its own wait\n")
+    launch = ("  return launch_dependent_fn(fn, dim3(static_cast<unsigned>(blocks)), dim3(32 * warps), "
+              "args, stream);\n")
+    if src.count(check) != 1 or src.count(waits) != 1 or src.count(launch) != 1:
+        raise RuntimeError("rmsnorm.cu no longer has the parts this probe changes")
+    free = src.replace(check, "  if (eps < 0.f && (warps != want_warps || rows_per_warp != want_rpw || "
+                              "blocks != want_blocks) ||\n")
+    plain = free.replace(waits, "").replace(launch, launch.replace(
+        "launch_dependent_fn(fn, ", "cudaLaunchKernel(fn, ").replace("args, stream", "args, 0, stream"))
+    texts = {"free plan": (free, _build.CSRC), "plain launch": (plain, _build.CSRC)}
+    if parent is not None:
+        pcsrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
+        texts["parent"] = ((pcsrc / "rmsnorm.cu").read_text(), pcsrc)
+    out_dir = ROOT / "build" / "probe" / "rms_fwd"
+    home = (_build.CSRC, _build.BUILD_DIR)
+    jobs = {}
+    for i, (label, (text, csrc)) in enumerate(texts.items()):
+        vdir = out_dir / str(i)
+        vdir.mkdir(parents=True, exist_ok=True)
+        (vdir / "rmsnorm.cu").write_text(text)
+        (vdir / "hopper.cuh").write_text((csrc / "hopper.cuh").read_text())
+        _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+        jobs[label] = (vdir, _build._start("rmsnorm"))
+    libs = {}
+    for label, (vdir, job) in jobs.items():
+        _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+        if job is not None:
+            with contextlib.redirect_stdout(io.StringIO()):  # ptxas -v reports
+                _build._finish("rmsnorm", job)
+        libs[label] = ctypes.CDLL(str(_build._library_path("rmsnorm")))
+    _build.CSRC, _build.BUILD_DIR = home  # the tree's own kernels build where they always do
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    for label, lib in libs.items():
+        lib.rmsnorm_fwd.restype = ctypes.c_int
+        lib.rmsnorm_fwd.argtypes = ([i, p, p, p, i64, i64, i64, f, p] if label == "parent"
+                                    else [i, p, p, p, i64, i64, i64, i, i64, i64, i, f, p])
+    return libs
+
+
+def _rms_alternatives(rk, T, D, dt):
+    """(warps, rows a warp) of the warp route other than the plan's: 4, 8 and 16 warps a block
+    (no more than the route takes), on a grid of at most one block an SM and a row a warp."""
+    plan = rk.fwd_plan(T, D, dt)
+    most = rk.fwd_warps(D, dt, plan.vec)
+    alts = []
+    for w in (4, 8, 16):
+        if w > most:
+            continue
+        for rpw in (-(-T // (w * _build.NUM_SMS)), 1):
+            if (w, rpw) != (plan.warps, plan.rows_per_warp) and (w, rpw) not in alts:
+                alts.append((w, rpw))
+    return alts
+
+
+def rms_fwd(gen):
+    import torch.nn.functional as F
+
+    from chip_smoke import RMSNORM_F32_TOL, rmsnorm_bound
+    from repro_torch.kernels import rmsnorm as rk
+
+    parent = Path(sys.argv[sys.argv.index("--parent") + 1]).resolve() if "--parent" in sys.argv else None
+    libs = _rms_fwd_variants(parent)
+    empty = _build.load("launch_floor").launch_floor_empty
+    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+    dev = gen.device
+    stream = torch._C._cuda_getCurrentRawStream(dev.index or 0)
+    floor_ms = cuda_ms(lambda: _build.check("launch_floor", empty(stream)))
+    print(f"[rms-fwd] launch floor: one-thread empty kernel {floor_ms:.4f} ms")
+
+    def call(lib, label, x, w, out, *plan_args):
+        T, D = x.shape
+        args = (rk.DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(), T, D, x.stride(0),
+                *plan_args, 1e-5, stream)
+
+        def fn():
+            err = lib.rmsnorm_fwd(*args)
+            if err:
+                raise RuntimeError(f"rmsnorm_fwd {label} launch failed: error {err}")
+        return fn
+
+    for T, D, dt in RMS_FWD_SHAPES:
+        x = (torch.randn(T, D, generator=gen, device=dev) * 3).to(dt)
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(dt)
+        plan = rk.fwd_plan(T, D, dt)
+        want = rk.rmsnorm(x, w)
+        calls, outs = {"kernel": lambda: rk.rmsnorm(x, w)}, {}
+        if "parent" in libs:
+            outs["parent"] = torch.empty_like(x)
+            calls["parent"] = call(libs["parent"], "parent", x, w, outs["parent"])
+        if plan.route == "warp":
+            for W, rpw in _rms_alternatives(rk, T, D, dt):
+                label = f"{W} warps x {rpw} row(s)"
+                outs[label] = torch.empty_like(x)
+                calls[label] = call(libs["free plan"], label, x, w, outs[label], W, rpw,
+                                    -(-T // (W * rpw)), plan.vec)
+            outs["plain launch"] = torch.empty_like(x)
+            calls["plain launch"] = call(libs["plain launch"], "plain launch", x, w, outs["plain launch"],
+                                         plan.warps, plan.rows_per_warp, plan.blocks, plan.vec)
+        calls["F.rms_norm"] = lambda: F.rms_norm(x, (D,), w, 1e-5)
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+        assert_close(f"rmsnorm [{T}, {D}] {dt}", want, ref.rmsnorm_ref(x, w),
+                     BF16_TOL if dt == torch.bfloat16 else RMSNORM_F32_TOL)
+        for label, out in outs.items():
+            if not torch.equal(out, want):
+                raise AssertionError(f"rms-fwd [{T}, {D}] {dt}: {label}'s output differs from the kernel's")
+        ms = medians(calls)
+        ms["plain"] = cuda_ms(lambda: ref.rmsnorm_ref(x, w), iters=5)
+        bnd = rmsnorm_bound(T, D, x.element_size())[0]
+        print(f"[rms-fwd] [{T}, {D}] {str(dt)[6:]} plan {plan.route} {plan.blocks} x {plan.warps} warps x "
+              f"{plan.rows_per_warp} row(s), vec {plan.vec}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+              + f" ms; bound {bnd:.4f} ms ({100 * bnd / ms['kernel']:.1f}% of it), floor {floor_ms:.4f} ms"
+              + (f"; parent / kernel {ms['parent'] / ms['kernel']:.3f}" if "parent" in ms else "")
+              + "; every variant and the parent bit-identical to the kernel")
+        del x, w, want, outs, calls
+    # the decode rows behind their predecessor in a decode layer, the residual add: each pair timed
+    for T, D in ((4, 960), (4, 4096)):
+        h, a = (torch.randn(T, D, generator=gen, device=dev).bfloat16() for _ in range(2))
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).bfloat16()
+        plan = rk.fwd_plan(T, D, torch.bfloat16)
+        out = torch.empty_like(h)
+        s = torch.empty_like(h)
+        pairs = {"add alone": lambda: torch.add(h, a, out=s),
+                 "add + kernel": lambda: (torch.add(h, a, out=s), rk.rmsnorm(s, w))}
+        if plan.route == "warp":
+            nodep = call(libs["plain launch"], "plain launch", s, w, out, plan.warps,
+                         plan.rows_per_warp, plan.blocks, plan.vec)
+            pairs["add + plain launch"] = lambda: (torch.add(h, a, out=s), nodep())
+        if "parent" in libs:
+            par = call(libs["parent"], "parent", s, w, out)
+            pairs["add + parent"] = lambda: (torch.add(h, a, out=s), par())
+        ms = medians(pairs)
+        print(f"[rms-fwd] decode layer [{T}, {D}] bf16, residual add then B1: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + " ms a pair")
 
 
 def moe_bwd_tiles(gen):
@@ -1336,8 +1511,10 @@ def main() -> int:
              "ssd-bwd": time_ssd_bwd, "ssd-sass": ssd_sass, "ssd-parts": ssd_parts, "bwd-parts": bwd_parts, "ssd-roles": ssd_roles, "ssm-check": ssm_check,
              "moe-bwd-tiles": moe_bwd_tiles, "moe-bwd-fma": moe_bwd_fma, "rms-parts": rms_parts,
              "live-rate": live_rate, "cross": time_cross, "fwd-bounds": fwd_bounds,
-             "cross-parts": cross_parts, "cross-bwd": time_cross_bwd, "cross-bwd-parts": cross_bwd_parts}
-    if len(sys.argv) not in (2, 4) or sys.argv[1] not in modes or (len(sys.argv) == 4 and sys.argv[2] != "--tree"):
+             "cross-parts": cross_parts, "cross-bwd": time_cross_bwd, "cross-bwd-parts": cross_bwd_parts,
+             "rms-fwd": rms_fwd}
+    flag = "--parent" if sys.argv[1:2] == ["rms-fwd"] else "--tree"
+    if len(sys.argv) not in (2, 4) or sys.argv[1] not in modes or (len(sys.argv) == 4 and sys.argv[2] != flag):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
