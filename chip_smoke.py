@@ -38,7 +38,11 @@ Phases, each of which raises on failure (nothing is caught):
    decode-vs-forward checks, in bf16 and f32; tails S 1 and 65, Sk 1 and 63,
    GQA g 4 and 7, head dim 128), and its decode form over the FLAT
    [4, 1500, 1024] caches (bf16, f32, d 128, fewer keys than the cache,
-   called twice for bit-identical output), each with its plan;
+   called twice for bit-identical output), each with its plan; the f32
+   attention cases (flash at B4 H32 S160 causal, B4 H15 S1024, B2 H8 S1000
+   d 128 and whisper's f32 encoder B4 H16 S1500, non-causal) run the
+   split-TF32 route (``"tf32x3"``), each with its plan, and phase 5 holds
+   their backward (the route's dq and dkdv) too;
 4. serving at full width on seeded random bf16 weights.  Each path runs
    with the launch counts set to 0 just before it and checked just after
    against the counts its depth implies: greedy generation (4 requests x
@@ -203,7 +207,8 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): the bounds below use them.
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
-F32_FLOPS = 67e12
+TF32_TENSOR_FLOPS = 494.7e12
+F32_FLOPS = 67e12  # CUDA-core FMAs
 
 BF16_TOL = 2e-2
 RMSNORM_F32_TOL = 1e-5
@@ -376,14 +381,19 @@ def rmsnorm_bound(T, D, elem):
     return bound((2 * T * D + D) * elem / HBM_BYTES_PER_S, 4 * T * D / F32_FLOPS)
 
 
+def attention_ops_s(ops, elem):
+    """Least seconds for attention's products: bf16 on the bf16 tensor cores; f32 as the
+    split-TF32 route runs them, three TF32 products a product (hi hi + hi lo + lo hi)."""
+    return ops / BF16_TENSOR_FLOPS if elem == 2 else 3 * ops / TF32_TENSOR_FLOPS
+
+
 def flash_bound(B, H, KV, S, d, causal, elem, Sk=None):
     """q, k, v read once, out written once; 4*d operations per scored pair (keys of
-    their own length ``Sk``: B11, non-causal)."""
+    their own length ``Sk``: B11, non-causal), f32 at the split-TF32 rate."""
     Sk = S if Sk is None else Sk
     pairs = S * (S + 1) // 2 if causal else S * Sk
-    peak = BF16_TENSOR_FLOPS if elem == 2 else F32_FLOPS
     return bound((2 * B * H * S * d + 2 * B * KV * Sk * d) * elem / HBM_BYTES_PER_S,
-                 4 * d * B * H * pairs / peak)
+                 attention_ops_s(4 * d * B * H * pairs, elem))
 
 
 def cross_lse_err(q, k, lse):
@@ -437,16 +447,18 @@ def flash_bwd_bounds(B, H, KV, S, d, causal, elem, Sk=None):
     reads q, k, v, dO and the lse and writes dK and dV; Q K^T, dO V^T,
     P^T dO and dS^T Q (8 d).  The whole backward reads q, k, v, o, dO and
     the lse and writes the three gradients, with 10 d per pair (2.5x the
-    forward's 4 d).
+    forward's 4 d).  f32 products at the split-TF32 rate (``attention_ops_s``).
     """
     Sk = S if Sk is None else Sk
     pairs = S * (S + 1) // 2 if causal else S * Sk
-    peak = BF16_TENSOR_FLOPS if elem == 2 else F32_FLOPS
     q_bytes, kv_bytes, stat = B * H * S * d * elem, B * KV * Sk * d * elem, 4 * B * H * S
     return (
-        bound((4 * q_bytes + 2 * kv_bytes + stat) / HBM_BYTES_PER_S, 6 * d * B * H * pairs / peak),
-        bound((2 * q_bytes + 4 * kv_bytes + stat) / HBM_BYTES_PER_S, 8 * d * B * H * pairs / peak),
-        bound((4 * q_bytes + 4 * kv_bytes + stat) / HBM_BYTES_PER_S, 10 * d * B * H * pairs / peak),
+        bound((4 * q_bytes + 2 * kv_bytes + stat) / HBM_BYTES_PER_S,
+              attention_ops_s(6 * d * B * H * pairs, elem)),
+        bound((2 * q_bytes + 4 * kv_bytes + stat) / HBM_BYTES_PER_S,
+              attention_ops_s(8 * d * B * H * pairs, elem)),
+        bound((4 * q_bytes + 4 * kv_bytes + stat) / HBM_BYTES_PER_S,
+              attention_ops_s(10 * d * B * H * pairs, elem)),
     )
 
 
@@ -1233,8 +1245,8 @@ def mesh_rank(rank, world, shape, device, serve, train, grpo, raw=False):
     rules.distribute(torch.zeros(world, device=dev), ("batch",))
     # "spans": (what, start, its parameters drawn, end) on the host's clock: each run from its
     # init to its results
-    out = {"shapes": set(), "launches": {}, "walls": {}, "collectives": {}, "peak_gib": {},
-           "ssd_heads": {}, "spans": [("start", t_rank, t_rank, time.time())]}
+    out = {"shapes": set(), "launches": {}, "routes": {}, "walls": {}, "collectives": {},
+           "peak_gib": {}, "ssd_heads": {}, "spans": [("start", t_rank, t_rank, time.time())]}
     if cuda:
         plain_adamw_refused().start()
     active = {}
@@ -1267,6 +1279,7 @@ def mesh_rank(rank, world, shape, device, serve, train, grpo, raw=False):
         sync()
         out["walls"][label] = time.perf_counter() - t0
         out["launches"][label] = ops.launch_counts()
+        out["routes"][label] = ops.route_launch_counts()
         out["shapes"] |= shapes
         # the heads of each B4 launch: the rank's block of the split mixer, or all of them
         out["ssd_heads"][label] = sorted({k[1] for n, k in shapes if n == "ssd_intra_chunk"})
@@ -2053,11 +2066,12 @@ def main() -> int:
         for H, KV in ((32, 8), (15, 5)):
             for causal in (True, False):
                 flash_cases.append((4, H, KV, S, 64, causal, torch.bfloat16, ""))
-    flash_cases += [
+    flash_cases += [  # f32: the split-TF32 route ("tf32x3")
         (4, 32, 8, 160, 64, True, torch.float32, ""),
         (4, 15, 5, 1024, 64, False, torch.float32, ""),
         (2, 8, 2, 1000, 128, True, torch.bfloat16, "ragged S, d=128"),
         (2, 8, 2, 1000, 128, False, torch.float32, "ragged S, d=128"),
+        (4, 16, 16, 1500, 64, False, torch.float32, "whisper f32 encoder"),
     ]
     for B, H, KV, S, d, causal, dt, what in flash_cases:
         q = randn(B, H, S, d, dtype=dt)
@@ -2078,6 +2092,11 @@ def main() -> int:
         flash_rows[(B, H, KV, S, d, causal, dt)] = row(err, m)
         report(f"flash B={B} H={H} KV={KV} S={S} d={d} causal={causal} {str(dt)[6:]} {what}",
                err, tol, m, "sdpa")
+        if dt == torch.float32:
+            plan = flash_k.launch_plan(B, H, S, d, dt)
+            print(f"[kernel]   f32 plan: {plan.route}, {plan.block_q} query rows a block, K/V tiles "
+                  f"of {plan.block_k} keys, grid {plan.grid}, {plan.threads} threads, "
+                  f"{plan.smem_bytes} bytes of shared memory")
     del q, k, v, qs, ks, vs, got, want
 
     # B11: attention over keys of their own length (whisper's decoder over its encoder's 1500
@@ -2269,12 +2288,15 @@ def main() -> int:
 
     # ---- 4. serving at full width -----------------------------------------
     launches = dict.fromkeys(ops.launch_counts(), 0)
+    route_launches = dict.fromkeys(ops.route_launch_counts(), 0)  # the f32 attention route's
 
     def check_counts(label, counts, expect):
         if counts != expect:
             raise AssertionError(f"{label} launches {counts}, expected {expect}")
         for k, v in counts.items():
             launches[k] += v
+        for k, v in ops.route_launch_counts().items():  # read with counts, before any reset
+            route_launches[k] += v
 
     def full_logits_last(params, cfg, batch, seq):
         """The last position's logits of a full forward over the prompt's inputs and seq:
@@ -2634,7 +2656,11 @@ def main() -> int:
         (4, 32, 8, 2048, 64, True, torch.bfloat16, ""),
         (4, 15, 5, 2048, 64, True, torch.bfloat16, ""),
         (4, 32, 8, 2048, 64, False, torch.bfloat16, ""),
+        # f32 (the split-TF32 route): phase 3's f32 forward cases
         (4, 32, 8, 160, 64, True, torch.float32, ""),
+        (4, 15, 5, 1024, 64, False, torch.float32, ""),
+        (2, 8, 2, 1000, 128, False, torch.float32, "ragged S, d=128"),
+        (4, 16, 16, 1500, 64, False, torch.float32, "whisper f32 encoder"),
     ]
     for B, H, KV, S, d, causal, dt, what in flash_bwd_cases:
         q, k, v = leaves(dt, (B, H, S, d), (B, KV, S, d), (B, KV, S, d))
@@ -3515,6 +3541,10 @@ def main() -> int:
           f"{time.perf_counter() - t10:.1f}s for the ranks' runs [{card}]")
     for what, n in mesh_launches(ranks, cfgs).items():
         launches[what] += n
+    for res in ranks:  # the f32 attention route's launches, within those
+        for counts in res["routes"].values():
+            for what, n in counts.items():
+                route_launches[what] += n
     for r, res in enumerate(ranks):
         print(f"[mesh] rank {r}: peak memory " + ", ".join(
             f"{a} {g:.2f} GiB" for a, g in res["peak_gib"].items()) + "; walls (gloo on one card, "
@@ -3653,6 +3683,17 @@ def main() -> int:
         # the TPU kernel has no backward: "replaces" names the kernel whose gradient this is
         kernels.append(dict(name=kname, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}.cu",
                             replaces=of, launches=launches[kname], **bwd_rows[(kname,) + key]))
+    # the f32 route's kernels (split TF32 on the tensor cores), counted apart within B2's, B11's
+    # and B5's launches, at whisper's f32 encoder shape
+    f32_enc = (4, 16, 16, 1500, 64, False, torch.float32)
+    for kname, rows_ in (("flash_attention_tf32x3", flash_rows[f32_enc]),
+                         ("flash_attention_bwd_dq_tf32x3", bwd_rows[("flash_attention_bwd_dq",) + f32_enc]),
+                         ("flash_attention_bwd_dkdv_tf32x3",
+                          bwd_rows[("flash_attention_bwd_dkdv",) + f32_enc])):
+        kernels.append(dict(name=kname, route="cuda",
+                            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                            replaces="src/repro/kernels/flash_attention.py:72",
+                            launches=route_launches[kname], **rows_))
     for kname in ("adamw_norm", "adamw_norm_finish", "adamw_update"):
         # no TPU kernel: "replaces" names the JAX function whose step these launches compute
         kernels.append(dict(name=kname, route="cuda", source="src/repro_torch/kernels/csrc/adamw.cu",
@@ -3678,7 +3719,9 @@ def main() -> int:
           "torch.bmm), ssd_intra_chunk's backward and reduce BNC=4 H=24 Q=256 hd=64 N=128 "
           "(mamba2-130m 2 x 512); AdamW (B9) over llama3.2-1b's 11 leaves (1.236 B bf16 "
           "parameters and grads, f32 moments; library torch._foreach_norm and "
-          "torch._fused_adamw_ on bf16 moments); launches summed over the eight serving runs, the "
+          "torch._fused_adamw_ on bf16 moments); the f32 attention route's forward, dq and dkdv "
+          "(split TF32, counted apart within B2's, B11's and B5's launches) at whisper's f32 "
+          "encoder shape B=4 H=16 S=1500 d=64 non-causal; launches summed over the eight serving runs, the "
           "training runs, the closed loop's four steps (three plus the profiled one), the mesh's "
           "ranks and live mode's payloads")
     print(json.dumps({"kernels": kernels}))

@@ -37,17 +37,12 @@
 // to g (3, 4 and 5 on the served models).  Row tiles run last-first, so
 // the longest causal rows start first.
 //
-// f32: CUDA-core FMAs.  Its limit of 2e-5 cannot be met with bf16 or TF32
-// tensor cores.  Grid (row tiles, H, B); 128 threads =
-// 4 warps; each warp owns 16 query rows of the block's 64.  The block
-// stages Q once and then one 32-key tile of K and V at a time in shared
-// memory.  In Q K^T each lane owns one key of the tile and all 16 rows of
-// its warp (Q rows are broadcast reads); in P V each lane owns D/32
-// output columns and reads P from the warp's slice of shared memory.  The
-// online softmax keeps (m, l, acc) in f32 registers, step for step as the
-// TPU kernel: m' = max(m, rowmax), alpha = exp(m - m'), p = exp(s - m'),
-// l' = l*alpha + sum(p), acc' = acc*alpha + p V, out = acc / max(l, 1e-30).
-// P stays f32, as in the TPU kernel.
+// f32: the tensor cores in split TF32 (namespace tf, below): its limit of
+// 2e-5 cannot be met with bf16 or a single TF32 product, but it is with
+// three (hi hi + hi lo + lo hi).  The same block of 4 warps and 64 query
+// rows, grid (H, row tiles, B), the same online softmax in exp2; K/V tiles
+// of 64 keys (32 at d = 128) double-buffered by cp.async.  P stays f32, as
+// in the TPU kernel, and enters P V split as every operand does.
 //
 // Both: strides are arguments, so the model's q [B,S,H,d] and k/v
 // [B,S,KV,d] are read in place, with only the last dimension required to
@@ -87,8 +82,8 @@
 // fixed cost, launch to stores (6.7 us of the LM shape's 19.3 with one key
 // tile a block), then the products and the SFU's exp2, which overlap only
 // in part (2.6 us less without the P V products, 1.6 without the exp2).
-// The f32 route stays on cc::flash_fwd_f32 with its key loop over Sk (its
-// 2e-5 limit rules out bf16 and TF32 tensor cores).
+// The f32 route is B2's split-TF32 kernel (tf::flash_fwd_tf32) with its key
+// loop over Sk.
 //
 // Backward (no TPU counterpart: the JAX package differentiates plain XLA
 // attention).  With P = exp(scale q k^T - lse) recomputed from the saved
@@ -128,9 +123,10 @@
 // consumer warpgroups (128 rows or keys) halve the streamed bytes per row
 // at long S; below S = 256 one warpgroup keeps the grid large enough to
 // fill the card; at d = 128 dkdv keeps one (its dK and dV accumulators
-// alone are 128 f32 registers a thread).  f32 keeps FMAs with one key (dq)
-// or one query (dkdv) per lane, as the f32 forward does; its dkdv blocks
-// own 32 keys.  Bound: at the training shapes (S 160-256, d 64) the bytes
+// alone are 128 f32 registers a thread).  f32 runs two kernels of its own
+// in split TF32 on mma.sync (namespace tf): a dq block of 64 query rows
+// streaming K/V tiles, a dkdv block of 64 keys streaming query tiles, each
+// warp 16 rows of its side.  Bound: at the training shapes (S 160-256, d 64) the bytes
 // of q, k, v, o, dO and the three gradients; at long S the ~2.5x forward
 // operations.
 
@@ -1595,413 +1591,630 @@ flash_cross_bwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_const
 }  // namespace xa
 
 // ----------------------------------------------------------------- f32 --
+//
+// The f32 route: B2's forward (and B11's f32 forward, at keys of their own
+// length) and B5's dq and dkdv (and B11's f32 backward), all on the tensor
+// cores in split TF32 ("tf32x3").  Each f32 operand x goes in as two TF32
+// values, hi = tf32(x), rounded to nearest with ties away (cvt.rna's
+// rounding), and lo = tf32(x - hi), which the tensor cores take by dropping
+// its low 13 bits, and each product as three mma.sync m16n8k8 TF32
+// products, lo hi + hi lo first, then hi hi (CUTLASS's OpMultiplyAddFastF32
+// order, what f32 sdpa runs on sm_80+): the two halves carry ~21 bits of
+// each operand and the dropped lo lo term is ~2^-22 of the product.  The tensor cores round
+// their sums more coarsely than an f32 add (measured: 4e-6 on whisper's
+// 1500 keys when P V ran into one accumulator), so each product over one
+// tile starts from zero and is added to the running f32 sum with an f32
+// add, and the backward's dP, whose error reaches dS = P (dP - D) whole
+// where the two cancel, sums each k-step's products so.  That holds the f32
+// limits (2e-5 forward, 1e-4 of the largest gradient, 1e-5 where it is 0).  Bound: 3x the 4 d (forward) or 10 d (backward) operations a
+// scored pair on the 494.7 TFLOP/s TF32 tensor cores; the splits (3
+// instructions an operand element), the fragment loads and the softmax
+// take issue slots beside the products (PERF.md).
+//
+// Layout.  A warp owns 16 rows of the m16 side (query rows; dkdv: keys).
+// Tiles live in shared memory as padded f32 rows, filled by 16-byte cp.async
+// with zeros past the sequence.  The contraction order of every product is
+// permuted, which a sum allows: in a k-step over 8 columns, lane (g, t)'s
+// k = t and k = t + 4 are columns 2t and 2t + 1.  Then
+//  - an operand whose rows are the product's rows (Q, dO, K, V as A) or its
+//    columns (K^T, V^T, Q^T, dO^T as B) is read 8 bytes a lane from rows of
+//    D + 8 floats: a half warp's 16 lanes fall on 32 distinct banks;
+//  - an operand whose rows are the contraction (V in P V, K in dS K, dO in
+//    P^T dO, Q in dS^T Q) is read 4 bytes a lane from rows 2t and 2t + 1:
+//    conflict-free in V's rows of D + 4 floats, two-way where the same tile
+//    is also read by rows (D + 8);
+//  - a score accumulator's (2t, 2t + 1) columns are the next product's
+//    k = t and t + 4, so P and dS become A fragments in registers with no
+//    shuffle and no trip through shared memory.
+// Every address is a lane's base plus a constant, so the unrolled loops
+// spend no instruction on it.  The online softmax (forward) keeps (m, l) in
+// f32 on the accumulator rows, reduced over the quad of lanes that share a
+// row, with exp2 of scores prescaled by scale log2(e), as the bf16 route
+// does.  No atomics: every output element is summed by one warp (dkdv at 32
+// keys a block: two, added in a fixed order), so two calls give the same bits.
 
-namespace cc {
+namespace tf {
 
-constexpr int BQ = 64;             // query rows per block
-constexpr int BK = 32;             // keys per tile: one per lane
-constexpr int kRows = BQ / (kThreads / 32);  // query rows per warp
-constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
+constexpr int BQ = 64;  // query rows a forward / dq block, keys a dkdv block: 16 a warp
+
+// K/V tile keys (forward, dq) and streamed query rows (dkdv): 64 at d = 64, 32 at d = 128,
+// where two forward blocks still share an SM
+template <int D>
+__host__ __device__ constexpr int tile_rows() { return D == 64 ? 64 : 32; }
+// row strides in floats: tiles read by rows (8 bytes a lane), and V, read by columns only
+template <int D>
+__host__ __device__ constexpr int row_t() { return D + 8; }
+template <int D>
+__host__ __device__ constexpr int row_n() { return D + 4; }
 
 template <int D>
-struct Smem {
-  static constexpr int kQ = D + 4;   // Q row stride: rows 16-byte aligned for float4 broadcasts
-  static constexpr int kK = D + 1;   // K row stride: lane j, column c -> bank (j + c) % 32
-  static constexpr int kP = BK + 4;  // P row stride: rows 16-byte aligned
-  static constexpr size_t bytes = sizeof(float) * (BQ * kQ + BK * kK + BK * D + BQ * kP);
+struct FwdSmem {  // Q, then K and V twice each
+  static constexpr size_t bytes =
+      sizeof(float) * (BQ * row_t<D>() + 2 * tile_rows<D>() * (row_t<D>() + row_n<D>()));
+};
+template <int D>
+struct DqSmem {  // Q and dO, then K and V twice each
+  static constexpr size_t bytes = sizeof(float) * row_t<D>() * (2 * BQ + 4 * tile_rows<D>());
+};
+template <int D, int KB>
+struct DkdvSmem {  // K and V of KB keys, then Q, dO and their lse log2(e) and D rows twice each
+  static constexpr size_t bytes =
+      sizeof(float) * (2 * KB * row_t<D>() + 4 * tile_rows<D>() * (row_t<D>() + 1));
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// Keys a dkdv block owns: 64, or 32 where 64-key blocks would leave SMs without one.
+inline int dkdv_keys(int Sk, int KV, int B) {
+  return static_cast<int64_t>((Sk + 63) / 64) * KV * B >= hopper::kSMs ? 64 : 32;
 }
-// Rows [row0, row0 + nrows) of one head into shared memory, 16 bytes per
-// thread and load; rows at or past S are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(const float* base, int64_t s_stride, int row0,
-                                          int nrows, int S, float* dst, int dst_stride) {
-  constexpr int kPerRow = D / 4;
-  for (int i = threadIdx.x; i < nrows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 4;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) f = *reinterpret_cast<const float4*>(base + (row0 + r) * s_stride + c);
-    float* d = dst + r * dst_stride + c;
-    d[0] = f.x; d[1] = f.y; d[2] = f.z; d[3] = f.w;
+
+// Rows [row0, row0 + N) of one head into a tile of row stride R; rows at or past `limit` are
+// zero.
+template <int D, int N, int R>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
+                                          int64_t s_stride, int row0, int limit) {
+  constexpr int kChunks = D / 4;
+#pragma unroll
+  for (int i = threadIdx.x; i < N * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = 4 * (i % kChunks);
+    const bool ok = row0 + r < limit;
+    const float* g = src + (ok ? static_cast<int64_t>(row0 + r) * s_stride : 0) + c;
+    tc::cp_async16(dst + r * R + c, g, ok ? 16 : 0);
   }
 }
 
-// grid (row tiles, H, B); kLse: write the rows' log-sum-exp (training)
+// n values of a row from `row0` (zero at or past `limit`), 4 bytes each.
+__device__ __forceinline__ void load_vals(float* dst, const float* __restrict__ src, int row0,
+                                          int limit, int n, int tid) {
+  if (tid >= 0 && tid < n) {
+    const bool ok = row0 + tid < limit;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(tc::smem_addr(dst + tid)),
+                 "l"(src + (ok ? row0 + tid : 0)), "r"(ok ? 4 : 0));
+  }
+}
+
+// Whether lo is rounded to nearest too.  Left to the tensor cores, which read a TF32 operand's
+// top 19 bits, it is truncated: at most 2^-21 of x where rounding gives 2^-22, below the
+// tensor cores' own rounding of the sums; the errors read the same either way and the kernels
+// run 4-9% (forward) and 8-17% (backward) faster without the add (torch_kernel_probe.py
+// f32-lo, PERF.md).
+constexpr bool kRoundLo = false;
+
+// x as hi + lo: hi rounded to nearest TF32, ties away (cvt.rna's rounding: half an ulp
+// added, the low 13 bits cleared), lo = x - hi exactly in f32, read as TF32 by the tensor
+// cores: 3 instructions.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + (kRoundLo ? 0x1000u : 0u);
+}
+
+// d += a b for one m16n8k8 tile: TF32 inputs, f32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+}
+
+// Split operand fragments: hi and lo.
+struct AFrag {
+  uint32_t hi[4], lo[4];
+};
+struct BFrag {
+  uint32_t hi[2], lo[2];
+};
+
+// d += a b in f32 by three TF32 products, the small terms first.
+__device__ __forceinline__ void mma3(float (&d)[4], const AFrag& a, const BFrag& b) {
+  mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+}
+
+// The A fragment of k-step kk (columns 8 kk + 2t and + 1 as k = t and t + 4) of rows g and
+// g + 8 of a tile read by rows; p = tile + (r0 + g) row_t + 2t.
+template <int D>
+__device__ __forceinline__ AFrag load_a(const float* p, int kk) {
+  const float2 x0 = *reinterpret_cast<const float2*>(p + 8 * kk);
+  const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * row_t<D>() + 8 * kk);
+  AFrag a;
+  split(x0.x, a.hi[0], a.lo[0]);
+  split(x1.x, a.hi[1], a.lo[1]);
+  split(x0.y, a.hi[2], a.lo[2]);
+  split(x1.y, a.hi[3], a.lo[3]);
+  return a;
+}
+
+// The B fragment of k-step kk, n-tile n where the tile's rows are the product's columns
+// (B = Y^T): row 8n + g, the columns of load_a; p = tile + g row_t + 2t.
+template <int D>
+__device__ __forceinline__ BFrag load_bt(const float* p, int n, int kk) {
+  const float2 y = *reinterpret_cast<const float2*>(p + 8 * n * row_t<D>() + 8 * kk);
+  BFrag b;
+  split(y.x, b.hi[0], b.lo[0]);
+  split(y.y, b.hi[1], b.lo[1]);
+  return b;
+}
+
+// The B fragment of k-step j, n-tile n where the tile's rows are the contraction (B = Y):
+// rows 8j + 2t and + 1 (k = t and t + 4), column 8n + g; p = tile + 2t R + g.
+template <int R>
+__device__ __forceinline__ BFrag load_b(const float* p, int j, int n) {
+  BFrag b;
+  split(p[8 * j * R + 8 * n], b.hi[0], b.lo[0]);
+  split(p[(8 * j + 1) * R + 8 * n], b.hi[1], b.lo[1]);
+  return b;
+}
+
+// An accumulator tile (rows g, g + 8; columns 2t, 2t + 1) as the A fragment of the k-step
+// over its 8 columns.
+__device__ __forceinline__ AFrag acc_a(const float (&s)[4]) {
+  AFrag a;
+  split(s[0], a.hi[0], a.lo[0]);
+  split(s[2], a.hi[1], a.lo[1]);
+  split(s[1], a.hi[2], a.lo[2]);
+  split(s[3], a.hi[3], a.lo[3]);
+  return a;
+}
+
+// k-steps whose products the backward's dP sums on the tensor cores before an f32 add joins
+// them to the rest: dS = P (dP - D) keeps dP's error whole where the two cancel (one key a
+// row, where the reference gradient is 0), and the tensor cores round a long sum coarsely.
+// At 4 that error is 3.6e-6 at d 128 against 1.2e-5 for one sum over all 16 k-steps, for 1-2%
+// of the pair's time; at 1, 2.1e-6 for 10% (torch_kernel_probe.py f32-dp, PERF.md).
+constexpr int kDpGroup = 4;
+
+// acc[n] = X Y^T over D columns for the warp's 16 rows of X and the N rows of Y, both read
+// by rows: pa = X + (r0 + g) row_t + 2t, pb = Y + g row_t + 2t.  G > 0: each G k-steps'
+// products start from zero and join acc by an f32 add.
+template <int D, int N, int G = 0>
+__device__ __forceinline__ void product_t(float (&acc)[N / 8][4], const float* pa, const float* pb) {
+  zero(acc);
+  if (G == 0) {
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const AFrag a = load_a<D>(pa, kk);
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n) mma3(acc[n], a, load_bt<D>(pb, n, kk));
+    }
+    return;
+  }
+  constexpr int kG = G > 0 ? G : 1;
+#pragma unroll
+  for (int k0 = 0; k0 < D / 8; k0 += kG) {
+    AFrag a[kG];
+#pragma unroll
+    for (int i = 0; i < kG; ++i) a[i] = load_a<D>(pa, k0 + i);
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kG; ++i) mma3(part, a[i], load_bt<D>(pb, n, k0 + i));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+    }
+  }
+}
+
+// part = P Y over the column tiles [c, c + N) of Y, for the warp's accumulator tiles p (16 rows
+// x K columns) and the K rows of Y (row stride R): pb = Y + 2t R + g.  It starts from zero,
+// so the tensor cores' coarser rounding of a sum runs over one tile's K / 8 k-steps; the
+// caller adds it to its running sum in f32.
+template <int R, int K, int N>
+__device__ __forceinline__ void product_n(float (&part)[N][4], const float (&p)[K / 8][4],
+                                          const float* pb, int c) {
+  zero(part);
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const AFrag a = acc_a(p[j]);
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma3(part[n], a, load_b<R>(pb, j, c + n));
+  }
+}
+
+// acc = acc w + P Y over all D columns, in parts of at most 8 column tiles (32 registers);
+// w[half] scales rows g + 8 half (1 where there is nothing to rescale).
+template <int D, int R, int K>
+__device__ __forceinline__ void add_product_n(float (&acc)[D / 8][4], const float (&p)[K / 8][4],
+                                              const float* pb, const float (&w)[2]) {
+  constexpr int N = D / 8 < 8 ? D / 8 : 8;
+#pragma unroll
+  for (int c = 0; c < D / 8; c += N) {
+    float part[N][4];
+    product_n<R, K, N>(part, p, pb, c);
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c + n][e] = fmaf(acc[c + n][e], w[e >> 1], part[n][e]);
+  }
+}
+
+// Forward.  grid (H, row tiles, B), row tiles last-first; kLse: write the rows' log-sum-exp
+// (training).  A block of 4 warps owns 64 query rows, each warp 16, and streams K/V tiles of
+// tile_rows<D>() keys through a double-buffered cp.async ring.
 template <int D, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, int S,
-              int Sk, int H, int KV, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-              int causal) {
-  using L = Smem<D>;
-  constexpr int DL = D / 32;  // output columns per lane
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, int S,
+               int Sk, int H, int KV, Strides qs, Strides ks, Strides vs, Strides os,
+               float scale_log2, int causal) {
+  constexpr int BK = tile_rows<D>(), NT = BK / 8, DT = D / 8, RT = row_t<D>(), RN = row_n<D>();
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Ks = Qs + BQ * L::kQ;
-  float* Vs = Ks + BK * L::kK;
-  float* Ps = Vs + BK * D;
+  float* Ks = Qs + BQ * RT;       // [2][BK][RT]
+  float* Vs = Ks + 2 * BK * RT;   // [2][BK][RN]
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest causal rows first
   const int kvh = h / (H / KV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row_base = warp * kRows;  // this warp's first row within the tile
-  const int warp_last_q = q0 + row_base + kRows - 1;
-  float* Pw = Ps + row_base * L::kP;
-
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
   const float* kh = k + b * ks.b + kvh * ks.h;
   const float* vh = v + b * vs.b + kvh * vs.h;
-  load_tile<D>(q + b * qs.b + h * qs.h, qs.s, q0, BQ, S, Qs, L::kQ);
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;  // causal (Sk == S): later tiles add nothing
+  const int n_tiles = (k_end + BK - 1) / BK;
 
-  float m[kRows], l[kRows], acc[kRows][DL];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int t = 0; t < DL; ++t) acc[r][t] = 0.f;
-  }
+  load_rows<D, BQ, RT>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
+  load_rows<D, BK, RT>(Ks, kh, ks.s, 0, Sk);
+  load_rows<D, BK, RN>(Vs, vh, vs.s, 0, Sk);
+  tc::cp_async_commit();
 
-  // causal (Sk == S): key tiles wholly after the block's last row contribute nothing
-  const int k_end = causal ? min(S, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(kh, ks.s, k0, BK, Sk, Ks, L::kK);
-    load_tile<D>(vh, vs.s, k0, BK, Sk, Vs, D);
+  float acc[DT][4];
+  zero(acc);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8; l per thread
+  const int row_lo = q0 + r0 + g;
+  const float* pq = Qs + (r0 + g) * RT + 2 * t;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {  // the next tile flies while this one is computed
+      load_rows<D, BK, RT>(Ks + (buf ^ 1) * BK * RT, kh, ks.s, (it + 1) * BK, Sk);
+      load_rows<D, BK, RN>(Vs + (buf ^ 1) * BK * RN, vh, vs.s, (it + 1) * BK, Sk);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // everything but the newest group has landed
     __syncthreads();
-    if (causal && k0 > warp_last_q) continue;  // masked for all of this warp's rows
+    const int k0 = it * BK;
+    float s[NT][4];
+    product_t<D, BK>(s, pq, Ks + buf * BK * RT + g * RT + 2 * t);
 
-    // scores of this lane's key against the warp's rows
-    float s[kRows];
+    // element e of tile n: row row_lo + 8 (e / 2), key k0 + 8n + 2t + e % 2
+    const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0 + r0);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float* kr = Ks + lane * L::kK;
-    for (int c = 0; c < D; c += 4) {
-      const float k_0 = kr[c], k_1 = kr[c + 1], k_2 = kr[c + 2], k_3 = kr[c + 3];
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(Qs + (row_base + r) * L::kQ + c);
-        s[r] = fmaf(qv.x, k_0, s[r]);
-        s[r] = fmaf(qv.y, k_1, s[r]);
-        s[r] = fmaf(qv.z, k_2, s[r]);
-        s[r] = fmaf(qv.w, k_3, s[r]);
-      }
-    }
-
-    // online softmax, one row at a time across the warp
-    const int key = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = q0 + row_base + r;
-      const bool valid = key < Sk && (!causal || key <= qpos);
-      const float sc = valid ? s[r] * scale : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(sc));
-      const float alpha = expf(m[r] - m_new);
-      const float p = expf(sc - m_new);
-      l[r] = l[r] * alpha + warp_sum(p);
-      m[r] = m_new;
-#pragma unroll
-      for (int t = 0; t < DL; ++t) acc[r][t] *= alpha;
-      Pw[r * L::kP + lane] = p;
-    }
-    __syncwarp();
-
-    // acc += P V, this lane's columns lane + 32 t
-    for (int j = 0; j < BK; j += 4) {
-      float vv[4][DL];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int t = 0; t < DL; ++t) vv[jj][t] = Vs[(j + jj) * D + lane + 32 * t];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 pv = *reinterpret_cast<const float4*>(Pw + r * L::kP + j);
-#pragma unroll
-        for (int t = 0; t < DL; ++t) {
-          acc[r][t] = fmaf(pv.x, vv[0][t], acc[r][t]);
-          acc[r][t] = fmaf(pv.y, vv[1][t], acc[r][t]);
-          acc[r][t] = fmaf(pv.z, vv[2][t], acc[r][t]);
-          acc[r][t] = fmaf(pv.w, vv[3][t], acc[r][t]);
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (masked) {
+          const int key = k0 + 8 * n + 2 * t + (e & 1);
+          if (key >= Sk || (causal && key > row_lo + 8 * (e >> 1))) x = -INFINITY;
         }
+        s[n][e] = x;
       }
+
+    // online softmax over the thread's two rows, reduced across the quad
+    float alpha[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = m[half];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * half], s[n][2 * half + 1]));
+      mx = tc::quad_max(mx);
+      // a row with no key yet (a causal tile past it) keeps p = 0 instead of NaN
+      const float base = mx == -INFINITY ? 0.f : mx;
+      alpha[half] = exp2f(m[half] - base);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 2 * half; e < 2 * half + 2; ++e) {
+          s[n][e] = exp2f(s[n][e] - base);
+          sum += s[n][e];
+        }
+      l[half] = l[half] * alpha[half] + sum;
+      m[half] = mx;
     }
-    __syncwarp();  // P is rewritten by the next tile
+
+    // acc = acc alpha + P V
+    add_product_n<D, RN, BK>(acc, s, Vs + buf * BK * RN + 2 * t * RN + g, alpha);
+    __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 
   float* oh = o + b * os.b + h * os.h;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + row_base + r;
-    if (qpos < S) {
-      const float denom = fmaxf(l[r], 1e-30f);
+  for (int half = 0; half < 2; ++half) {
+    const float sum = tc::quad_sum(l[half]);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int row = row_lo + 8 * half;
+    if (row < S) {
 #pragma unroll
-      for (int t = 0; t < DL; ++t) oh[qpos * os.s + lane + 32 * t] = acc[r][t] / denom;
-      if (kLse && lane == 0)
-        lse[(static_cast<int64_t>(b) * H + h) * S + qpos] = m[r] + logf(l[r]);
+      for (int n = 0; n < DT; ++n)
+        *reinterpret_cast<float2*>(oh + static_cast<int64_t>(row) * os.s + 8 * n + 2 * t) =
+            make_float2(acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
+      if (kLse && t == 0)  // m is in log2 units of the scaled scores
+        lse[(static_cast<int64_t>(b) * H + h) * S + row] = (m[half] + log2f(sum)) * kLn2;
     }
   }
 }
 
-
-// dQ and D.  grid (H, row tiles, B), row tiles last-first.  Each warp owns
-// 16 query rows; each lane one key of the 32-key tile.  Shared: Q and dO
-// (rows D+4: float4 broadcasts), K and V (rows D+1: lane j, column c on
-// bank (j + c) % 32), dS (rows 36).
+// dQ, and the hand-off to dkdv: stats[0] = D = rowsum(dO o), stats[1] = lse log2(e), rows
+// of stats_row(S).  grid (H, row tiles, B), row tiles last-first.  A block of 4 warps owns 64
+// query rows (Q and dO resident) and streams K/V tiles as the forward does; per tile
+// S = Q K^T, dP = dO V^T, dS = P (dP - D), dQ += dS K.
 template <int D>
-struct BwdDq {
-  static constexpr int kQ = D + 4, kK = D + 1, kP = BK + 4;
-  static constexpr size_t bytes = sizeof(float) * (2 * BQ * kQ + 2 * BK * kK + BQ * kP);
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ o,
-                 const float* __restrict__ dout, const float* __restrict__ lse,
-                 float* __restrict__ delta, float* __restrict__ dq, int S, int Sk, int H, int KV,
-                 Strides qs, Strides ks, Strides vs, Strides os, Strides dos, Strides dqs,
-                 float scale, int causal) {
-  using L = BwdDq<D>;
-  constexpr int DL = D / 32;
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ o,
+                  const float* __restrict__ dout, const float* __restrict__ lse,
+                  float* __restrict__ stats, float* __restrict__ dq, int S, int Sk, int H, int KV,
+                  Strides qs, Strides ks, Strides vs, Strides os, Strides dos, Strides dqs,
+                  float scale_log2, float scale, int causal) {
+  constexpr int BK = tile_rows<D>(), NT = BK / 8, DT = D / 8, RT = row_t<D>();
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* dOs = Qs + BQ * L::kQ;
-  float* Ks = dOs + BQ * L::kQ;
-  float* Vs = Ks + BK * L::kK;
-  float* Ps = Vs + BK * L::kK;
+  float* dOs = Qs + BQ * RT;
+  float* Ks = dOs + BQ * RT;     // [2][BK][RT]
+  float* Vs = Ks + 2 * BK * RT;  // [2][BK][RT]
 
   const int h = blockIdx.x, b = blockIdx.z;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int kvh = h / (H / KV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row_base = warp * kRows;
-  const int warp_last_q = q0 + row_base + kRows - 1;
-  float* Pw = Ps + row_base * L::kP;
-
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
   const float* kh = k + b * ks.b + kvh * ks.h;
   const float* vh = v + b * vs.b + kvh * vs.h;
-  load_tile<D>(q + b * qs.b + h * qs.h, qs.s, q0, BQ, S, Qs, L::kQ);
-  load_tile<D>(dout + b * dos.b + h * dos.h, dos.s, q0, BQ, S, dOs, L::kQ);
-  __syncthreads();
+  const float* doh = dout + b * dos.b + h * dos.h;
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int n_tiles = (k_end + BK - 1) / BK;
 
-  const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
+  load_rows<D, BQ, RT>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
+  load_rows<D, BQ, RT>(dOs, doh, dos.s, q0, S);
+  load_rows<D, BK, RT>(Ks, kh, ks.s, 0, Sk);
+  load_rows<D, BK, RT>(Vs, vh, vs.s, 0, Sk);
+  tc::cp_async_commit();
+
+  // D and lse log2(e) of rows g and g + 8: each lane of a quad sums a quarter of the row
   const float* oh = o + b * os.b + h * os.h;
-  float lse_r[kRows], d_r[kRows], acc[kRows][DL];
+  const int64_t stat = (static_cast<int64_t>(b) * H + h) * stats_row(S);
+  float drow[2], lrow[2];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + row_base + r;
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + r0 + g + 8 * half;
     float sum = 0.f;
-    if (qpos < S)
-      for (int c = lane; c < D; c += 32)
-        sum = fmaf(dOs[(row_base + r) * L::kQ + c], oh[static_cast<int64_t>(qpos) * os.s + c], sum);
-    d_r[r] = warp_sum(sum);
-    lse_r[r] = qpos < S ? lse[stat + qpos] : 0.f;
-    if (lane == 0 && qpos < S) delta[(static_cast<int64_t>(b) * H + h) * stats_row(S) + qpos] = d_r[r];
+    if (row < S) {
 #pragma unroll
-    for (int t = 0; t < DL; ++t) acc[r][t] = 0.f;
+      for (int c = t * (D / 4); c < (t + 1) * (D / 4); c += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(oh + static_cast<int64_t>(row) * os.s + c);
+        const float4 y = *reinterpret_cast<const float4*>(doh + static_cast<int64_t>(row) * dos.s + c);
+        sum = fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, fmaf(x.w, y.w, sum))));
+      }
+    }
+    drow[half] = tc::quad_sum(sum);
+    lrow[half] = row < S ? lse[(static_cast<int64_t>(b) * H + h) * S + row] * kLog2e : 0.f;
+    if (t == 0 && row < S) {
+      stats[stat + row] = drow[half];
+      stats[static_cast<int64_t>(gridDim.z) * H * stats_row(S) + stat + row] = lrow[half];
+    }
   }
 
-  const int k_end = causal ? min(S, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  float dqa[DT][4];
+  zero(dqa);
+  const float one[2] = {1.f, 1.f};
+  const float* pq = Qs + (r0 + g) * RT + 2 * t;
+  const float* pdo = dOs + (r0 + g) * RT + 2 * t;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) {
+      load_rows<D, BK, RT>(Ks + (buf ^ 1) * BK * RT, kh, ks.s, (it + 1) * BK, Sk);
+      load_rows<D, BK, RT>(Vs + (buf ^ 1) * BK * RT, vh, vs.s, (it + 1) * BK, Sk);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
     __syncthreads();
-    load_tile<D>(kh, ks.s, k0, BK, Sk, Ks, L::kK);
-    load_tile<D>(vh, vs.s, k0, BK, Sk, Vs, L::kK);
+    const int k0 = it * BK;
+    const float* Kt = Ks + buf * BK * RT;
+    if (!(causal && k0 > q0 + r0 + 15)) {  // else no key of the tile is seen by the warp's rows
+      float s[NT][4], dp[NT][4];
+      product_t<D, BK>(s, pq, Kt + g * RT + 2 * t);
+      product_t<D, BK, kDpGroup>(dp, pdo, Vs + buf * BK * RT + g * RT + 2 * t);
+      const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0 + r0);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int half = e >> 1;
+          float p = exp2f(fmaf(s[n][e], scale_log2, -lrow[half]));
+          if (masked) {
+            const int key = k0 + 8 * n + 2 * t + (e & 1);
+            if (key >= Sk || (causal && key > q0 + r0 + g + 8 * half)) p = 0.f;
+          }
+          s[n][e] = p * (dp[n][e] - drow[half]);  // dS
+        }
+      add_product_n<D, RT, BK>(dqa, s, Kt + 2 * t * RT + g, one);  // dQ += dS K
+    }
     __syncthreads();
-    if (causal && k0 > warp_last_q) continue;
-
-    float s[kRows], dp[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
-    const float* kr = Ks + lane * L::kK;
-    const float* vr = Vs + lane * L::kK;
-    for (int c = 0; c < D; c += 4) {
-      const float k_0 = kr[c], k_1 = kr[c + 1], k_2 = kr[c + 2], k_3 = kr[c + 3];
-      const float v_0 = vr[c], v_1 = vr[c + 1], v_2 = vr[c + 2], v_3 = vr[c + 3];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(Qs + (row_base + r) * L::kQ + c);
-        const float4 ov = *reinterpret_cast<const float4*>(dOs + (row_base + r) * L::kQ + c);
-        s[r] = fmaf(qv.x, k_0, fmaf(qv.y, k_1, fmaf(qv.z, k_2, fmaf(qv.w, k_3, s[r]))));
-        dp[r] = fmaf(ov.x, v_0, fmaf(ov.y, v_1, fmaf(ov.z, v_2, fmaf(ov.w, v_3, dp[r]))));
-      }
-    }
-    const int key = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = q0 + row_base + r;
-      const bool valid = key < Sk && (!causal || key <= qpos);
-      const float p = valid ? expf(s[r] * scale - lse_r[r]) : 0.f;
-      Pw[r * L::kP + lane] = p * (dp[r] - d_r[r]);  // dS
-    }
-    __syncwarp();
-
-    // acc += dS K, this lane's columns lane + 32 t
-    for (int j = 0; j < BK; j += 4) {
-      float kk[4][DL];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int t = 0; t < DL; ++t) kk[jj][t] = Ks[(j + jj) * L::kK + lane + 32 * t];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 pv = *reinterpret_cast<const float4*>(Pw + r * L::kP + j);
-#pragma unroll
-        for (int t = 0; t < DL; ++t)
-          acc[r][t] = fmaf(pv.x, kk[0][t], fmaf(pv.y, kk[1][t],
-                      fmaf(pv.z, kk[2][t], fmaf(pv.w, kk[3][t], acc[r][t]))));
-      }
-    }
-    __syncwarp();
   }
 
   float* qh = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + row_base + r;
-    if (qpos < S)
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + r0 + g + 8 * half;
+    if (row < S)
 #pragma unroll
-      for (int t = 0; t < DL; ++t)
-        qh[static_cast<int64_t>(qpos) * dqs.s + lane + 32 * t] = acc[r][t] * scale;
+      for (int n = 0; n < DT; ++n)
+        *reinterpret_cast<float2*>(qh + static_cast<int64_t>(row) * dqs.s + 8 * n + 2 * t) =
+            make_float2(dqa[n][2 * half] * scale, dqa[n][2 * half + 1] * scale);
   }
 }
 
-// dK, dV.  grid (32-key tiles over Sk, KV, B): 32 keys a block, so that the grid
-// fills the card at the training shapes (160 blocks at B4 KV8 S160, where
-// 64-key blocks gave 96).  Each warp owns 8 keys; each lane one query of
-// the 32-row tile.  Shared: K and V (rows D+4), Q and dO (rows D+1), P and
-// dS (rows 36), the tile's lse and D.
-constexpr int kDkdvKeys = 32, kKeyRows = kDkdvKeys / (kThreads / 32);
-template <int D>
-struct BwdDkdv {
-  static constexpr int kQ = D + 4, kK = D + 1, kP = BK + 4;
-  static constexpr size_t bytes =
-      sizeof(float) * (2 * kDkdvKeys * kQ + 2 * BK * kK + 2 * kDkdvKeys * kP + 2 * BK);
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dk, float* __restrict__ dv, int S, int Sk, int H, int KV,
-                   Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
-                   float scale, int causal) {
-  using L = BwdDkdv<D>;
-  constexpr int DL = D / 32;
+// dK, dV.  grid (KB-key tiles of Sk, KV, B).  A block of 4 warps owns KB keys (K and V
+// resident) and walks the query tiles (tile_rows<D>() rows) at or after the diagonal of each
+// of the KV head's g query heads, streamed with their lse log2(e) and D rows through a
+// double-buffered cp.async ring; per tile S^T = K Q^T, dP^T = V dO^T, dV += P^T dO,
+// dK += dS^T Q.  KB 64: each warp 16 keys against the whole tile.  KB 32, where 64-key blocks
+// would leave SMs idle: warps w and w + 2 share 16 keys, each taking half of every tile's
+// queries, and the second's dK and dV are added to the first's at the end, in that order.
+template <int D, int KB>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ stats, float* __restrict__ dk,
+                    float* __restrict__ dv, int S, int Sk, int H, int KV, Strides qs, Strides ks,
+                    Strides vs, Strides dos, Strides dks, Strides dvs, float scale_log2,
+                    float scale, int causal) {
+  constexpr int BT = tile_rows<D>(), DT = D / 8, RT = row_t<D>();
+  constexpr int QS = 64 / KB, NQ = BT / QS, NT = NQ / 8;  // query splits; a warp's queries a tile
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + kDkdvKeys * L::kQ;
-  float* Qs = Vs + kDkdvKeys * L::kQ;
-  float* dOs = Qs + BK * L::kK;
-  float* Ps = dOs + BK * L::kK;
-  float* dSs = Ps + kDkdvKeys * L::kP;
-  float* Ls = dSs + kDkdvKeys * L::kP;
-  float* Dl = Ls + BK;
+  float* Vs = Ks + KB * RT;
+  float* Qs = Vs + KB * RT;        // [2][BT][RT]
+  float* dOs = Qs + 2 * BT * RT;   // [2][BT][RT]
+  float* Ls = dOs + 2 * BT * RT;   // [2][BT] lse log2(e)
+  float* Ds = Ls + 2 * BT;         // [2][BT] D
 
-  const int k0 = blockIdx.x * kDkdvKeys, kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * KB, kvh = blockIdx.y, b = blockIdx.z;
   const int g_heads = H / KV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row_base = warp * kKeyRows;
-  const int warp_key0 = k0 + row_base;
-  float* Pw = Ps + row_base * L::kP;
-  float* dSw = dSs + row_base * L::kP;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp % (KB / 16)) * 16, qc0 = (warp / (KB / 16)) * NQ;  // keys; queries
+  const int key_lo = k0 + r0 + g;  // this thread's first key
+  const int64_t plane = static_cast<int64_t>(gridDim.z) * H * stats_row(S);
 
-  load_tile<D>(k + b * ks.b + kvh * ks.h, ks.s, k0, kDkdvKeys, Sk, Ks, L::kQ);
-  load_tile<D>(v + b * vs.b + kvh * vs.h, vs.s, k0, kDkdvKeys, Sk, Vs, L::kQ);
-  float dka[kKeyRows][DL], dva[kKeyRows][DL];
-#pragma unroll
-  for (int r = 0; r < kKeyRows; ++r)
-#pragma unroll
-    for (int t = 0; t < DL; ++t) dka[r][t] = dva[r][t] = 0.f;
+  load_rows<D, KB, RT>(Ks, k + b * ks.b + kvh * ks.h, ks.s, k0, Sk);
+  load_rows<D, KB, RT>(Vs, v + b * vs.b + kvh * vs.h, vs.s, k0, Sk);
+  // causal (Sk == S): query tiles wholly before the key tile see none of it
+  const int qt0 = causal ? k0 / BT : 0;
+  const int per_head = (S + BT - 1) / BT - qt0;
+  const int n_tiles = g_heads * per_head;
+  auto load_tile = [&](int it, int buf) {
+    const int hh = kvh * g_heads + it / per_head, qq = (qt0 + it % per_head) * BT;
+    load_rows<D, BT, RT>(Qs + buf * BT * RT, q + b * qs.b + hh * qs.h, qs.s, qq, S);
+    load_rows<D, BT, RT>(dOs + buf * BT * RT, dout + b * dos.b + hh * dos.h, dos.s, qq, S);
+    const float* st = stats + (static_cast<int64_t>(b) * H + hh) * stats_row(S);
+    load_vals(Ls + buf * BT, st + plane, qq, S, BT, static_cast<int>(threadIdx.x));
+    load_vals(Ds + buf * BT, st, qq, S, BT, static_cast<int>(threadIdx.x) - BT);
+  };
+  load_tile(0, 0);
+  tc::cp_async_commit();
 
-  // causal: 32-row query tiles wholly before the key tile see none of it
-  const int qt0 = causal ? k0 / BK : 0;
-  const int per_head = (S + BK - 1) / BK - qt0;
-  for (int it = 0; it < g_heads * per_head; ++it) {
-    const int h = kvh * g_heads + it / per_head, q0 = (qt0 + it % per_head) * BK;
-    const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(q + b * qs.b + h * qs.h, qs.s, q0, BK, S, Qs, L::kK);
-    load_tile<D>(dout + b * dos.b + h * dos.h, dos.s, q0, BK, S, dOs, L::kK);
-    if (threadIdx.x < BK) {
-      const int row = q0 + threadIdx.x;
-      Ls[threadIdx.x] = row < S ? lse[stat + row] : 0.f;
-      Dl[threadIdx.x] = row < S ? delta[(static_cast<int64_t>(b) * H + h) * stats_row(S) + row] : 0.f;
+  float dka[DT][4], dva[DT][4];
+  zero(dka);
+  zero(dva);
+  const float one[2] = {1.f, 1.f};
+  const float* pk = Ks + (r0 + g) * RT + 2 * t;
+  const float* pv = Vs + (r0 + g) * RT + 2 * t;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) load_tile(it + 1, buf ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = (qt0 + it % per_head) * BT + qc0;  // the warp's first query
+    if (!(causal && q0 + NQ - 1 < k0 + r0)) {  // else none of the warp's queries sees its keys
+      const float* Qt = Qs + (buf * BT + qc0) * RT;  // the warp's NQ rows of the tile
+      const float* dOt = dOs + (buf * BT + qc0) * RT;
+      const float* Lt = Ls + buf * BT + qc0;
+      const float* Dt = Ds + buf * BT + qc0;
+      float st[NT][4], dpt[NT][4];
+      product_t<D, NQ>(st, pk, Qt + g * RT + 2 * t);
+      product_t<D, NQ, kDpGroup>(dpt, pv, dOt + g * RT + 2 * t);
+      // element e of tile n: key key_lo + 8 (e / 2), query q0 + 8n + 2t + e % 2
+      const bool masked = q0 + NQ > S || (causal && q0 < k0 + r0 + 15);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 lq = *reinterpret_cast<const float2*>(Lt + 8 * n + 2 * t);
+        const float2 dq2 = *reinterpret_cast<const float2*>(Dt + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(st[n][e], scale_log2, -((e & 1) ? lq.y : lq.x)));
+          if (masked) {
+            const int query = q0 + 8 * n + 2 * t + (e & 1);
+            if (query >= S || (causal && query < key_lo + 8 * (e >> 1))) p = 0.f;
+          }
+          st[n][e] = p;                                             // P^T
+          dpt[n][e] = p * (dpt[n][e] - ((e & 1) ? dq2.y : dq2.x));  // dS^T
+        }
+      }
+      add_product_n<D, RT, NQ>(dva, st, dOt + 2 * t * RT + g, one);  // dV += P^T dO
+      add_product_n<D, RT, NQ>(dka, dpt, Qt + 2 * t * RT + g, one);  // dK += dS^T Q
     }
     __syncthreads();
-    if (causal && q0 + BK - 1 < warp_key0) continue;  // no query of the tile sees these keys
+  }
 
-    float s[kKeyRows], dp[kKeyRows];
+  if (QS > 1) {  // the second query half's sums join the first's, through the idle ring
+    float* part = Qs + (warp % (KB / 16)) * 2 * 16 * D;  // [2][16][D]: dK, dV of a key group
+    const int lane_off = g * D + 2 * t;
+    if (warp >= KB / 16) {
 #pragma unroll
-    for (int r = 0; r < kKeyRows; ++r) s[r] = dp[r] = 0.f;
-    const float* qr = Qs + lane * L::kK;
-    const float* orow = dOs + lane * L::kK;
-    for (int c = 0; c < D; c += 4) {
-      const float q_0 = qr[c], q_1 = qr[c + 1], q_2 = qr[c + 2], q_3 = qr[c + 3];
-      const float o_0 = orow[c], o_1 = orow[c + 1], o_2 = orow[c + 2], o_3 = orow[c + 3];
+      for (int half = 0; half < 2; ++half)
 #pragma unroll
-      for (int r = 0; r < kKeyRows; ++r) {
-        const float4 kv = *reinterpret_cast<const float4*>(Ks + (row_base + r) * L::kQ + c);
-        const float4 vv = *reinterpret_cast<const float4*>(Vs + (row_base + r) * L::kQ + c);
-        s[r] = fmaf(kv.x, q_0, fmaf(kv.y, q_1, fmaf(kv.z, q_2, fmaf(kv.w, q_3, s[r]))));
-        dp[r] = fmaf(vv.x, o_0, fmaf(vv.y, o_1, fmaf(vv.z, o_2, fmaf(vv.w, o_3, dp[r]))));
-      }
-    }
-    const int query = q0 + lane;
-#pragma unroll
-    for (int r = 0; r < kKeyRows; ++r) {
-      const bool valid = query < S && (!causal || query >= warp_key0 + r);
-      const float p = valid ? expf(s[r] * scale - Ls[lane]) : 0.f;
-      Pw[r * L::kP + lane] = p;
-      dSw[r * L::kP + lane] = p * (dp[r] - Dl[lane]);
-    }
-    __syncwarp();
-
-    // dV += P^T dO and dK += dS^T Q, this lane's columns lane + 32 t
-    for (int j = 0; j < BK; j += 4) {
-      float oo[4][DL], qq[4][DL];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int t = 0; t < DL; ++t) {
-          oo[jj][t] = dOs[(j + jj) * L::kK + lane + 32 * t];
-          qq[jj][t] = Qs[(j + jj) * L::kK + lane + 32 * t];
+        for (int n = 0; n < DT; ++n) {
+          const int o = lane_off + 8 * half * D + 8 * n;
+          *reinterpret_cast<float2*>(part + o) = make_float2(dka[n][2 * half], dka[n][2 * half + 1]);
+          *reinterpret_cast<float2*>(part + 16 * D + o) = make_float2(dva[n][2 * half], dva[n][2 * half + 1]);
         }
-#pragma unroll
-      for (int r = 0; r < kKeyRows; ++r) {
-        const float4 pv = *reinterpret_cast<const float4*>(Pw + r * L::kP + j);
-        const float4 sv = *reinterpret_cast<const float4*>(dSw + r * L::kP + j);
-#pragma unroll
-        for (int t = 0; t < DL; ++t) {
-          dva[r][t] = fmaf(pv.x, oo[0][t], fmaf(pv.y, oo[1][t],
-                      fmaf(pv.z, oo[2][t], fmaf(pv.w, oo[3][t], dva[r][t]))));
-          dka[r][t] = fmaf(sv.x, qq[0][t], fmaf(sv.y, qq[1][t],
-                      fmaf(sv.z, qq[2][t], fmaf(sv.w, qq[3][t], dka[r][t]))));
-        }
-      }
     }
-    __syncwarp();
+    __syncthreads();
+    if (warp >= KB / 16) return;
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        const int o = lane_off + 8 * half * D + 8 * n;
+        const float2 pk2 = *reinterpret_cast<const float2*>(part + o);
+        const float2 pv2 = *reinterpret_cast<const float2*>(part + 16 * D + o);
+        dka[n][2 * half] += pk2.x;
+        dka[n][2 * half + 1] += pk2.y;
+        dva[n][2 * half] += pv2.x;
+        dva[n][2 * half + 1] += pv2.y;
+      }
   }
 
   float* kd = dk + b * dks.b + kvh * dks.h;
   float* vd = dv + b * dvs.b + kvh * dvs.h;
 #pragma unroll
-  for (int r = 0; r < kKeyRows; ++r) {
-    const int key = warp_key0 + r;
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_lo + 8 * half;
     if (key < Sk)
 #pragma unroll
-      for (int t = 0; t < DL; ++t) {
-        kd[static_cast<int64_t>(key) * dks.s + lane + 32 * t] = dka[r][t] * scale;
-        vd[static_cast<int64_t>(key) * dvs.s + lane + 32 * t] = dva[r][t];
+      for (int n = 0; n < DT; ++n) {
+        *reinterpret_cast<float2*>(kd + static_cast<int64_t>(key) * dks.s + 8 * n + 2 * t) =
+            make_float2(dka[n][2 * half] * scale, dka[n][2 * half + 1] * scale);
+        *reinterpret_cast<float2*>(vd + static_cast<int64_t>(key) * dvs.s + 8 * n + 2 * t) =
+            make_float2(dva[n][2 * half], dva[n][2 * half + 1]);
       }
   }
 }
 
-}  // namespace cc
+}  // namespace tf
 
 
 // --------------------------------------------------------------- decode --
@@ -2260,11 +2473,11 @@ cudaError_t fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                           static_cast<const bf16*>(k), static_cast<const bf16*>(v),
                           static_cast<bf16*>(o), l, S, H, KV, qs, ks, vs, os,
                           scale * kLog2e, causal);  // exp(x) = exp2(x log2 e)
-  return launch_checked(l ? cc::flash_fwd_f32<D, true> : cc::flash_fwd_f32<D, false>,
-                        dim3(row_tiles(S), H, B), cc::Smem<D>::bytes, grid,
+  return launch_checked(l ? tf::flash_fwd_tf32<D, true> : tf::flash_fwd_tf32<D, false>,
+                        dim3(H, row_tiles(S), B), tf::FwdSmem<D>::bytes, grid,
                         smem, st, static_cast<const float*>(q), static_cast<const float*>(k),
                         static_cast<const float*>(v), static_cast<float*>(o), l, S, Sk, H, KV, qs,
-                        ks, vs, os, scale, causal);
+                        ks, vs, os, scale * kLog2e, causal);
 }
 
 // B11's bf16 forward (xa::) after checking the grid and shared memory of
@@ -2447,12 +2660,12 @@ cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v, const
     return (dq_warpgroups(S) == 2 ? dq_bf16<D, 2> : dq_bf16<D, 1>)(
         q, k, v, o, dout, lse, delta, dq, B, H, KV, S, Sk, w, scale, causal, grid, smem, st);
   }
-  return launch_checked(cc::flash_bwd_dq_f32<D>, dim3(H, row_tiles(S), B), cc::BwdDq<D>::bytes,
+  return launch_checked(tf::flash_bwd_dq_tf32<D>, dim3(H, row_tiles(S), B), tf::DqSmem<D>::bytes,
                         grid, smem, st, static_cast<const float*>(q), static_cast<const float*>(k),
                         static_cast<const float*>(v), static_cast<const float*>(o),
                         static_cast<const float*>(dout), static_cast<const float*>(lse),
                         static_cast<float*>(delta), static_cast<float*>(dq), S, Sk, H, KV, w.q,
-                        w.k, w.v, w.o, w.dout, w.dq, scale, causal);
+                        w.k, w.v, w.o, w.dout, w.dq, scale * kLog2e, scale, causal);
 }
 
 template <int D>
@@ -2467,13 +2680,15 @@ cudaError_t bwd_dkdv(int dtype, const void* q, const void* k, const void* v, con
                                     : dkdv_bf16<D, 1, 1>)(
         q, k, v, dout, delta, dk, dv, B, H, KV, S, Sk, w, scale, causal, grid, smem, st);
   }
-  return launch_checked(cc::flash_bwd_dkdv_f32<D>, dim3((Sk + cc::kDkdvKeys - 1) / cc::kDkdvKeys, KV, B),
-                        cc::BwdDkdv<D>::bytes, grid, smem, st, static_cast<const float*>(q),
+  const int kb = tf::dkdv_keys(Sk, KV, B);
+  return launch_checked(kb == 64 ? tf::flash_bwd_dkdv_tf32<D, 64> : tf::flash_bwd_dkdv_tf32<D, 32>,
+                        dim3((Sk + kb - 1) / kb, KV, B),
+                        kb == 64 ? tf::DkdvSmem<D, 64>::bytes : tf::DkdvSmem<D, 32>::bytes, grid,
+                        smem, st, static_cast<const float*>(q),
                         static_cast<const float*>(k), static_cast<const float*>(v),
-                        static_cast<const float*>(dout), static_cast<const float*>(lse),
-                        static_cast<const float*>(delta), static_cast<float*>(dk),
-                        static_cast<float*>(dv), S, Sk, H, KV, w.q, w.k, w.v, w.dout, w.dk, w.dv,
-                        scale, causal);
+                        static_cast<const float*>(dout), static_cast<const float*>(delta),
+                        static_cast<float*>(dk), static_cast<float*>(dv), S, Sk, H, KV, w.q, w.k,
+                        w.v, w.dout, w.dk, w.dv, scale * kLog2e, scale, causal);
 }
 
 // Causal attention masks by the sequence index, which needs keys of q's own length.
@@ -2535,7 +2750,7 @@ extern "C" int flash_attention_cross_fwd(int dtype, int D, const void* q, const 
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (block_q != cc::BQ || splits != 1 || chunk < Sk)
+    if (block_q != tf::BQ || splits != 1 || chunk < Sk)
       return static_cast<int>(cudaErrorInvalidConfiguration);
     auto f = D == 64 ? fwd<64> : fwd<128>;
     return static_cast<int>(f(dtype, q, k, v, o, lse, B, H, KV, S, Sk, qs, ks, vs, os, scale, 0,

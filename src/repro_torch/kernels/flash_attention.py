@@ -27,11 +27,17 @@ tensor cores' operations (and as many exp2 on the SFUs); B2's template
 walked all 1500 keys in one block of 4 warps with mma.sync, and this one
 keeps the products asynchronous behind the softmax and splits the keys
 where the grid would leave SMs idle.  Its
-f32 route is B2's FMA template with the key loop over Sk.
+f32 route is B2's f32 kernel with the key loop over Sk.
 ``cross_attention_bwd`` in bf16 launches B11's own two kernels, planned by
 ``cross_bwd_plan``: the row statistics, then one pass of the five products
 whose blocks hold key tiles and sum dQ across blocks in a fixed order; in
 f32 it launches B5's entry points at Sk (counted as B5's).
+
+Every f32 call of B2, B5 and B11 (but the decode) runs the route ``"tf32x3"``:
+kernels of their own on the tensor cores, each f32 product as three TF32
+``mma.sync`` products of the operands' hi and lo halves (hi hi + hi lo + lo
+hi), which meets the f32 limits that one TF32 product cannot.  Its launches
+are also counted apart (``tf32x3_*``), within the counts above.
 ``flash_decode`` (one query a row against the FLAT [B, Sk, KV*d] caches,
 read in place, the keys split over a cluster) is B11's decode form,
 planned by ``decode_plan``; all count apart from B2's.
@@ -57,22 +63,33 @@ launches = 0  # forward
 bwd_dq_launches = 0
 bwd_dkdv_launches = 0
 cross_launches = 0  # B11: the same kernels at keys of their own length
+# the f32 route's kernels ("tf32x3"), within the counts above: forward (B2's and B11's
+# entries), dq and dkdv (B5's, B11's f32 backward among them)
+tf32x3_launches = 0
+tf32x3_bwd_dq_launches = 0
+tf32x3_bwd_dkdv_launches = 0
 cross_bwd_stats_launches = 0  # B11's bf16 backward: the row statistics, then the one pass
 cross_bwd_fused_launches = 0
 decode_launches = 0  # B11's decode
 
-BLOCK_Q = 64  # query rows per block, both templates
+BLOCK_Q = 64  # query rows per block, every template
+
+
+def f32_tile(d: int) -> int:
+    """The tf32x3 route's K/V tile keys (forward, dq) and streamed query rows (dkdv):
+    64 at d = 64, 32 at d = 128, where two forward blocks still share an SM."""
+    return 64 if d == 64 else 32
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """How one call is launched; ``csrc/flash_attention.cu`` refuses any other."""
 
-    route: str  # "mma": bf16 mma.sync; "wgmma": bf16 wgmma fed by TMA; "fma": f32 CUDA-core FMAs
+    route: str  # "mma": bf16 mma.sync; "wgmma": bf16 wgmma fed by TMA; "tf32x3": f32 split-TF32 mma.sync
     block_q: int  # query rows per block (dkdv: per streamed tile)
     block_k: int  # keys per shared-memory tile (dkdv: per block)
     threads: int
-    grid: Tuple[int, int, int]  # bf16 (H, row tiles, B): a KV head's g query heads adjacent
+    grid: Tuple[int, int, int]  # (H, row tiles, B): a KV head's g query heads adjacent
     smem_bytes: int
     stages: int = 2  # tiles in flight: the cp.async double buffer, or the TMA ring
     splits: int = 1  # B11: blocks (one cluster) sharing a (batch, head, row tile)'s keys
@@ -80,14 +97,20 @@ class LaunchPlan:
 
 
 def launch_plan(B: int, H: int, S: int, d: int, dtype: torch.dtype) -> LaunchPlan:
-    """The launch plan of the template ``dtype`` selects (no CUDA needed)."""
+    """The launch plan of the template ``dtype`` selects (no CUDA needed).
+
+    bf16: mma.sync; f32: split-TF32 mma.sync (``"tf32x3"``) at every shape, Q and the K/V
+    tiles of ``f32_tile(d)`` keys double-buffered, f32 rows padded so that the fragment loads
+    meet no bank conflict.  Both: 4 warps of 16 query rows, grid (H, row tiles, B).
+    """
     row_tiles = -(-S // BLOCK_Q)
     if dtype == torch.bfloat16:
         # Q, then K and V double-buffered: five 64-row tiles, rows padded by 16 bytes
         return LaunchPlan("mma", BLOCK_Q, 64, 128, (H, row_tiles, B), 2 * 5 * BLOCK_Q * (d + 8))
-    # Q (rows d+4), one 32-key K tile (rows d+1) and V tile, P (rows 36), all f32
-    smem = 4 * (BLOCK_Q * (d + 4) + 32 * (d + 1) + 32 * d + BLOCK_Q * 36)
-    return LaunchPlan("fma", BLOCK_Q, 32, 128, (row_tiles, H, B), smem)
+    bk = f32_tile(d)
+    # f32 rows padded: d + 8 floats where read by rows (Q, K), d + 4 where read by columns (V)
+    smem = 4 * (BLOCK_Q * (d + 8) + 2 * bk * (2 * d + 12))
+    return LaunchPlan("tf32x3", BLOCK_Q, bk, 128, (H, row_tiles, B), smem)
 
 
 CROSS_MAX_SPLITS = 8  # the portable thread-block cluster size
@@ -117,7 +140,7 @@ def cross_plan(B: int, H: int, KV: int, S: int, Sk: int, d: int, dtype: torch.dt
     one wave of two blocks an SM (a second wave cost more than the splits
     saved, PERF.md); grid (splits, row tiles x H, B), the heads fastest so
     that a KV head's g query heads meet its tiles in L2.
-    f32: B2's FMA plan, one block's key loop over all Sk keys.
+    f32: B2's tf32x3 plan, one block's key loop over all Sk keys.
     """
     if dtype != torch.bfloat16:
         return dataclasses.replace(launch_plan(B, H, S, d, dtype), chunk=Sk)
@@ -216,6 +239,10 @@ def bwd_plans(B: int, H: int, KV: int, S: int, d: int, dtype: torch.dtype, Sk: i
     bf16 blocks are 64-row consumer warpgroups plus one producer warp:
     two warpgroups (128-row dq tiles past S = 256; 128-key dkdv tiles at d
     = 64 past Sk = 256), one below, so that the GRPO shape still fills the card.
+    f32 (``"tf32x3"``, every shape): 4 warps; dq holds 64 query rows (Q, dO), 16 a warp,
+    and streams K/V tiles of ``f32_tile(d)`` keys; dkdv holds 64 keys (K, V), 16 a warp, or
+    32 where 64-key blocks would leave SMs idle (``f32_dkdv_keys``), and streams query
+    tiles of ``f32_tile(d)`` rows with their lse log2(e) and D rows; both double-buffered.
     """
     Sk = S if Sk is None else Sk
     if dtype == torch.bfloat16:
@@ -230,13 +257,17 @@ def bwd_plans(B: int, H: int, KV: int, S: int, d: int, dtype: torch.dtype, Sk: i
         dkdv = 1024 + 2 * 2 * bk * d + stages * (2 * 2 * 64 * d + 2 * 4 * 64) + bars
         return (LaunchPlan("wgmma", bq, 64, 128 * wq + 32, (H, -(-S // bq), B), dq, stages),
                 LaunchPlan("wgmma", 64, bk, 128 * wk + 32, (-(-Sk // bk), KV, B), dkdv, stages))
-    # f32 FMAs, 32-row streamed tiles.  dq: 64 rows a block; Q, dO (rows d+4), K, V
-    # (rows d+1), dS (rows 36).  dkdv: 32 keys a block; K, V (rows d+4), Q, dO
-    # (rows d+1), P, dS, lse, D.
-    dq = 4 * (2 * BLOCK_Q * (d + 4) + 2 * 32 * (d + 1) + BLOCK_Q * 36)
-    dkdv = 4 * (2 * 32 * (d + 4) + 2 * 32 * (d + 1) + 2 * 32 * 36 + 2 * 32)
-    return (LaunchPlan("fma", BLOCK_Q, 32, 128, (H, -(-S // BLOCK_Q), B), dq),
-            LaunchPlan("fma", 32, 32, 128, (-(-Sk // 32), KV, B), dkdv))
+    bt, kb = f32_tile(d), f32_dkdv_keys(Sk, KV, B)
+    dq = 4 * (d + 8) * (2 * BLOCK_Q + 4 * bt)  # rows of d + 8 floats
+    dkdv = 4 * (2 * kb * (d + 8) + 4 * bt * (d + 9))
+    return (LaunchPlan("tf32x3", BLOCK_Q, bt, 128, (H, -(-S // BLOCK_Q), B), dq),
+            LaunchPlan("tf32x3", bt, kb, 128, (-(-Sk // kb), KV, B), dkdv))
+
+
+def f32_dkdv_keys(Sk: int, KV: int, B: int) -> int:
+    """Keys a tf32x3 dkdv block owns: 64, or 32 where 64-key blocks would leave SMs without
+    one (two warps then share 16 keys, each taking half of every query tile)."""
+    return 64 if -(-Sk // 64) * KV * B >= _build.NUM_SMS else 32
 
 
 DECODE_WARPS = 4
@@ -343,6 +374,7 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, lse: b
 def _forward(q, k, v, causal: bool, lse: bool, cross: bool):
     """-> (out, lse or None, 1 if the kernel launched else 0), by B2's entry or (``cross``)
     B11's."""
+    global tf32x3_launches
     _check_args(q, k, v, causal)
     B, H, S, d = q.shape
     KV, Sk = k.shape[1], k.shape[2]
@@ -363,6 +395,7 @@ def _forward(q, k, v, causal: bool, lse: bool, cross: bool):
         args.append(int(causal))
     err = _entries()[4 if cross else 0](*args, *plan.grid, plan.smem_bytes,
                                         torch._C._cuda_getCurrentRawStream(q.device.index))
+    tf32x3_launches += plan.route == "tf32x3"
     _build.check("flash_attention", err)
     return out, row_lse, 1
 
@@ -398,7 +431,7 @@ def cross_attention_bwd(q, k, v, out, lse, dout):
     """B11's backward -> (dq, dk, dv) laid out like q, k and v.
 
     bf16: ``cross_attention_bwd_stats`` then ``cross_attention_bwd_fused``, B11's own
-    kernels.  f32: B5's dq and dkdv kernels at Sk (their FMA templates), counted as B5's.
+    kernels.  f32: B5's dq and dkdv kernels at Sk (the tf32x3 route), counted as B5's.
     """
     dout = _kernel_dout(dout)
     if q.dtype != torch.bfloat16:
@@ -498,9 +531,9 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True):
     """-> (dq laid out like q, stats [2, B, H, stats_row(S)] f32).
 
     stats[0, ..., :S] is delta = rowsum(dout * out); stats[1] holds the lse
-    times log2(e) for the bf16 dkdv kernel's TMA loads (f32 leaves it unused).
+    times log2(e), which the dkdv kernel reads.
     """
-    global bwd_dq_launches
+    global bwd_dq_launches, tf32x3_bwd_dq_launches
     B, H, S, d = q.shape
     _check_b5_keys(q, k)
     _check_bwd_inputs(q, k, v, out, lse, dout, causal)
@@ -517,13 +550,14 @@ def flash_attention_bwd_dq(q, k, v, out, lse, dout, *, causal: bool = True):
                         _strides(q, k, v, out, dout, dq), 1.0 / math.sqrt(d), int(causal),
                         *plan.grid, plan.smem_bytes, torch._C._cuda_getCurrentRawStream(q.device.index))
     bwd_dq_launches += 1
+    tf32x3_bwd_dq_launches += plan.route == "tf32x3"
     _build.check("flash_attention", err)
     return dq, delta
 
 
 def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal: bool = True):
     """-> (dk, dv) laid out like k and v; ``delta``: the stats of ``flash_attention_bwd_dq``."""
-    global bwd_dkdv_launches
+    global bwd_dkdv_launches, tf32x3_bwd_dkdv_launches
     B, H, S, d = q.shape
     _check_b5_keys(q, k)
     _check_args(q, k, v, causal)
@@ -544,6 +578,7 @@ def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal: bool = True):
                         int(causal), *plan.grid, plan.smem_bytes,
                         torch._C._cuda_getCurrentRawStream(q.device.index))
     bwd_dkdv_launches += 1
+    tf32x3_bwd_dkdv_launches += plan.route == "tf32x3"
     _build.check("flash_attention", err)
     return dk, dv
 

@@ -262,8 +262,8 @@ def test_cross_forward_plan_splits_whole_tiles_over_a_cluster(B, H, KV, S, Sk, d
         assert math.prod(plan.grid) > slots // 2
     if (B, S) == (4, 128):  # the prefill: 128 groups of rows, two splits each
         assert (plan.splits, plan.chunk) == (2, 768)
-    f32 = flash_mod.cross_plan(B, H, KV, S, Sk, d, torch.float32)  # the FMA template, one split
-    assert (f32.route, f32.splits) == ("fma", 1) and f32.chunk >= Sk
+    f32 = flash_mod.cross_plan(B, H, KV, S, Sk, d, torch.float32)  # B2's split-TF32 plan, one split
+    assert (f32.route, f32.splits) == ("tf32x3", 1) and f32.chunk >= Sk
     assert f32.grid == flash_mod.launch_plan(B, H, S, d, torch.float32).grid
 
 

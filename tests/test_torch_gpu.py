@@ -231,6 +231,44 @@ def test_flash_backward_is_deterministic(cuda, B, H, KV, S, causal):
         assert torch.equal(a, b), name
 
 
+# the f32 route ("tf32x3": split-TF32 products on the tensor cores) at chip_smoke.py phase 3's
+# f32 shapes, whisper's f32 encoder and its LM cross-attention (B11's f32 route, Sk 1500)
+F32_ROUTE_SHAPES = [(4, 32, 8, 160, 160, 64, True), (4, 15, 5, 1024, 1024, 64, False),
+                    (2, 8, 2, 1000, 1000, 128, False), (4, 16, 16, 1500, 1500, 64, False),
+                    (2, 16, 16, 448, 1500, 64, False)]
+
+
+@pytest.mark.parametrize("B,H,KV,S,Sk,d,causal", F32_ROUTE_SHAPES)
+def test_f32_route_at_the_phase_3_shapes(cuda, B, H, KV, S, Sk, d, causal):
+    """The f32 forward within 2e-5 of the plain version, the pair's gradients within 1e-4
+    of the reference's largest magnitude, two backward calls bit-identical, each launch
+    counted on the route."""
+    rng = np.random.default_rng(B * H * S + Sk + d)
+    q, k, v, dout = (tensor(rng, shape, torch.float32, cuda) for shape in
+                     [(B, H, S, d), (B, KV, Sk, d), (B, KV, Sk, d), (B, H, S, d)])
+    assert flash_mod.launch_plan(B, H, S, d, torch.float32).route == "tf32x3"
+    assert all(p.route == "tf32x3" for p in flash_mod.bwd_plans(B, H, KV, S, d, torch.float32, Sk))
+    before = ops.route_launch_counts()
+    if Sk == S:
+        out, lse = flash_mod.flash_attention(q, k, v, causal=causal, lse=True)
+        first, second = (flash_mod.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+                         for _ in range(2))
+    else:
+        out, lse = flash_mod.cross_attention(q, k, v, lse=True)
+        first, second = (flash_mod.cross_attention_bwd(q, k, v, out, lse, dout) for _ in range(2))
+    torch.cuda.synchronize()
+    after = ops.route_launch_counts()
+    assert [after[n] - before[n] for n in ("flash_attention_tf32x3", "flash_attention_bwd_dq_tf32x3",
+                                           "flash_attention_bwd_dkdv_tf32x3")] == [1, 2, 2]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    want_out = ref.flash_attention_ref(*leaves, causal)
+    close(out, want_out, 2e-5)
+    want = torch.autograd.grad(want_out, leaves, dout)
+    for name, a, b, w in zip(("dq", "dk", "dv"), first, second, want):
+        assert torch.equal(a, b), name
+        close_to_max(name, a, w, grad_tol(torch.float32))
+
+
 # B11, keys of their own length (non-causal): whisper's prefill and training shapes, tails of
 # S and Sk (1, 63, 65), GQA g 1, 4 and 7, head dim 128
 CROSS_SHAPES = [(4, 16, 16, 128, 1500, 64), (2, 16, 16, 448, 1500, 64)] + [

@@ -255,8 +255,13 @@ def test_flash_launch_plan(B, H, KV, S, d, dtype):
         heads, row_tiles, batch = plan.grid
         assert plan.smem_bytes == 2 * 5 * 64 * (d + 8)  # Q, K and V twice, rows padded 16 bytes
     else:
-        assert plan.route == "fma" and plan.block_k == 32
-        row_tiles, heads, batch = plan.grid
+        # split-TF32 tensor cores at every f32 shape, the grid as bf16's; K/V tiles of 64 keys
+        # (32 at d = 128), padded f32 rows, two blocks an SM
+        assert plan.route == "tf32x3" and plan.block_k == (64 if d == 64 else 32)
+        heads, row_tiles, batch = plan.grid
+        # Q, K and V twice each, rows of d + 8 floats (d + 4 for V)
+        assert plan.smem_bytes == 4 * (64 * (d + 8) + 2 * plan.block_k * (2 * d + 12))
+        assert 2 * plan.smem_bytes <= 228 * 1024
     assert (heads, batch) == (H, B)
     assert (row_tiles - 1) * plan.block_q < S <= row_tiles * plan.block_q
     assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
@@ -284,9 +289,15 @@ def test_flash_backward_launch_plans(B, H, KV, S, d, dtype):
         longer = flash_mod.bwd_plans(B, H, KV, 4 * S + 512, d, dtype)[plan is dkdv]
         if (longer.block_q, longer.block_k) == (plan.block_q, plan.block_k):
             assert longer.smem_bytes == plan.smem_bytes
-    if dtype == torch.float32:  # FMAs: 64-row dq blocks, 32-key dkdv blocks, 32-row tiles
-        assert (dq.route, dq.threads, dq.block_q, dq.block_k) == ("fma", 128, 64, 32)
-        assert (dkdv.route, dkdv.threads, dkdv.block_q, dkdv.block_k) == ("fma", 128, 32, 32)
+    if dtype == torch.float32:  # split TF32: 64-row dq blocks, 64-key dkdv blocks (32 where 64
+        # would leave SMs idle), 64-row tiles (d 128: 32)
+        bt = 64 if d == 64 else 32
+        kb = 64 if -(-S // 64) * KV * B >= 132 else 32
+        assert (dq.route, dq.threads, dq.block_q, dq.block_k) == ("tf32x3", 128, 64, bt)
+        assert (dkdv.route, dkdv.threads, dkdv.block_q, dkdv.block_k) == ("tf32x3", 128, bt, kb)
+        assert dq.smem_bytes == 4 * (d + 8) * (2 * 64 + 4 * bt)  # Q and dO, K and V twice each
+        assert dkdv.smem_bytes == 4 * (2 * kb * (d + 8) + 4 * bt * (d + 9))  # K, V; Q, dO, lse, D twice
+        assert 2 * dkdv.smem_bytes <= 228 * 1024 or d == 128
         return
     # wgmma: 64-row consumer warpgroups plus a producer warp; two past S = 256
     wq = 2 if S > 256 else 1

@@ -21,6 +21,10 @@
     python3 tools/torch_kernel_probe.py cross-parts  # B11's forward with parts taken out
     python3 tools/torch_kernel_probe.py cross-bwd [--tree DIR]  # B11's backward at whisper's LM shape
     python3 tools/torch_kernel_probe.py cross-bwd-parts  # B11's one-pass backward with parts taken out
+    python3 tools/torch_kernel_probe.py f32-attn [--parent DIR]  # the f32 attention kernels vs the parent's
+    python3 tools/torch_kernel_probe.py f32-sass    # static SASS counts of the f32 attention kernels
+    python3 tools/torch_kernel_probe.py f32-dp      # the f32 backward's dP sum at 0, 1, 2, 4 k-steps
+    python3 tools/torch_kernel_probe.py f32-lo      # the f32 split's lo truncated or rounded
 
 ``time`` checks each kernel against its plain version and times it as
 ``chip_smoke.py`` does (CUDA events behind a device sleep), at the serving
@@ -136,7 +140,31 @@ outputs are wrong by design.
 ``build/probe`` whose bf16 forward template states no blocks an SM (the
 kernel as it is states four at d = 64) and times B2's rows (llama score,
 the d-128 score rows, S 2048) with each, in turns, outputs compared bit
-for bit.  Run from the repository root.
+for bit.
+``f32-attn`` holds the f32 attention route (B2's forward, B5's dq and dkdv, and
+B11's f32 forward and backward, which run them at keys of their own length)
+at ``chip_smoke.py`` phase 3's f32 shapes, whisper's f32 encoder shape (B4 H16
+S1500, non-causal) and its LM cross shape (B2 H16 S448 Sk1500): the forward
+against the plain version (2e-5), the pair's gradients against autograd
+through it (1e-4 of the largest) and bit-identical over two calls, and
+``sdpa``'s f32 output and gradients against the same references; then it
+times, the median of three rounds in turns, the forward, the pair and its dq
+and dkdv launches apart, the parent's (``--parent DIR``: a checkout of the parent commit, whose
+``csrc/flash_attention.cu`` is built into ``build/probe/f32_attn`` and run
+through the parent's own module and plans), ``sdpa`` and autograd through it,
+beside the plain versions and the bounds (the split-TF32 bound of
+``chip_smoke.py`` and the CUDA-core FMA one), and names the CUDA kernels that
+one f32 ``sdpa`` forward and backward launch under ``torch.profiler``.
+``f32-sass`` counts the instructions of those kernels in the built library by
+opcode, as ``ssd-sass`` does for B8.  ``f32-dp`` builds variants of the
+f32 backward whose dP sums 0 (all), 1, 2 or 4 k-steps of products on the
+tensor cores before each f32 add (``kDpGroup``), reads each where the
+reference gradient is 0 (one key a row) and at S 2, and times each pair at
+whisper's f32 encoder and LM cross shapes, in turns.  ``f32-lo`` builds a
+variant whose split rounds lo to nearest (``kRoundLo``; the kernel leaves it
+to the tensor cores' truncation) and holds and times it beside the kernel at
+``f32-attn``'s shapes and at one key (the reference gradient 0), in turns.
+Run from the repository root.
 """
 
 from __future__ import annotations
@@ -1506,14 +1534,261 @@ def fwd_bounds(gen):
               + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items()) + f"; bit-identical: {same}")
 
 
+F32_ATTN = [  # (B, H, KV, S, Sk, d, causal, what)
+    (4, 32, 8, 160, 160, 64, True, "phase 3, llama's heads"),
+    (4, 15, 5, 1024, 1024, 64, False, "phase 3, smollm's heads"),
+    (2, 8, 2, 1000, 1000, 128, False, "phase 3, ragged S, d 128"),
+    (4, 16, 16, 1500, 1500, 64, False, "whisper f32 encoder"),
+    (2, 16, 16, 448, 1500, 64, False, "whisper LM cross-attention"),
+]
+
+
+def _flash_module(name, cu_text, hopper_text, py_path):
+    """A flash_attention module (the file ``py_path``) whose kernels are ``cu_text``, built into
+    build/probe/<name>."""
+    import importlib.util
+    import types
+
+    vdir = ROOT / "build" / "probe" / name
+    vdir.mkdir(parents=True, exist_ok=True)
+    (vdir / "flash_attention.cu").write_text(cu_text)
+    (vdir / "hopper.cuh").write_text(hopper_text)
+    home = (_build.CSRC, _build.BUILD_DIR)
+    _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+    try:
+        job = _build._start("flash_attention")
+        if job is not None:
+            with contextlib.redirect_stdout(io.StringIO()):  # ptxas -v reports
+                _build._finish("flash_attention", job)
+        lib = ctypes.CDLL(str(_build._library_path("flash_attention")))
+    finally:
+        _build.CSRC, _build.BUILD_DIR = home
+
+    def check(what, err):
+        if err:
+            raise RuntimeError(f"{name}'s {what} launch failed: CUDA error {err}")
+
+    spec = importlib.util.spec_from_file_location(f"probe_{name.replace('/', '_')}", py_path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    mod._build = types.SimpleNamespace(load=lambda _: lib, check=check, NUM_SMS=_build.NUM_SMS,
+                                       MAX_SMEM_BYTES=_build.MAX_SMEM_BYTES)
+    return mod
+
+
+def _parent_flash(parent):
+    """The parent checkout's flash_attention module, run on its own csrc/flash_attention.cu
+    built into build/probe/f32_attn."""
+    pk = parent / "src" / "repro_torch" / "kernels"
+    return _flash_module("f32_attn", (pk / "csrc" / "flash_attention.cu").read_text(),
+                         (pk / "csrc" / "hopper.cuh").read_text(), pk / "flash_attention.py")
+
+
+def _f32_attn_calls(fk, q, k, v, dout, causal, cross):
+    """(forward, backward pair) of a flash_attention module at f32, as the model calls them."""
+    if cross:
+        o, lse = fk.cross_attention(q, k, v, lse=True)
+        return (lambda: fk.cross_attention(q, k, v, lse=True),
+                lambda: fk.cross_attention_bwd(q, k, v, o, lse, dout))
+    o, lse = fk.flash_attention(q, k, v, causal=causal, lse=True)
+    return (lambda: fk.flash_attention(q, k, v, causal=causal, lse=True),
+            lambda: fk.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal))
+
+
+def f32_attn(gen):
+    """The f32 attention route against the plain version, sdpa and the parent's kernels."""
+    import torch.nn.functional as F
+
+    from chip_smoke import F32_FLOPS
+    from repro_torch.kernels import flash_attention as fk
+
+    parent = Path(sys.argv[sys.argv.index("--parent") + 1]).resolve() if "--parent" in sys.argv else None
+    fk._entries()  # this tree's kernels first
+    pk = _parent_flash(parent) if parent is not None else None
+    plan = fk.launch_plan(1, 1, 64, 64, torch.float32)
+    print(f"[f32-attn] repro_torch from {Path(fk.__file__).resolve().parents[2]}; f32 route {plan.route!r}"
+          + (f"; the parent's from {parent}" if parent else ""))
+    dev = gen.device
+    f32 = torch.float32
+    for B, Hq, KV, S, Sk, d, causal, what in F32_ATTN:
+        cross = Sk != S
+        q, k, v = _cross_views(gen, B, Hq, KV, S, Sk, d, f32)  # the model's [B, S, H, d] layout
+        dout = torch.randn(B, Hq, S, d, generator=gen, device=dev)
+        fwd, bwd = _f32_attn_calls(fk, q, k, v, dout, causal, cross)
+        out, lse = fwd()
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref_out = ref.flash_attention_ref(*leaves, causal)
+        err = assert_close(f"f32 attention {what}", out, ref_out, FLASH_F32_TOL)
+        got, again = bwd(), bwd()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"f32 attention backward {what}: two calls differ")
+        want = torch.autograd.grad(ref_out, leaves, dout, retain_graph=True)
+        errs = [grad_err(f"f32 attention d{n} {what}", a, b, GRAD_TOL["float32"])[1]
+                for n, a, b in zip("qkv", got, want)]
+        lib_leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_leaves, is_causal=causal, enable_gqa=True)
+        lib_err = (lib_out.detach() - ref_out.detach()).abs().max().item()
+        lib_ok = bool(((lib_out.detach() - ref_out.detach()).abs()
+                       <= FLASH_F32_TOL * (1 + ref_out.detach().abs())).all())
+        lib_grads = torch.autograd.grad(lib_out, lib_leaves, dout, retain_graph=True)
+        lib_gerr = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(lib_grads, want)]
+        out_k, lse_k = fwd()
+        dq_k, delta = fk.flash_attention_bwd_dq(q, k, v, out_k, lse_k, dout, causal=causal)
+        calls = {"fwd": fwd, "pair": bwd,
+                 "dq": lambda: fk.flash_attention_bwd_dq(q, k, v, out_k, lse_k, dout, causal=causal),
+                 "dkdv": lambda: fk.flash_attention_bwd_dkdv(q, k, v, dout, lse_k, delta, causal=causal)}
+        if pk is not None:
+            p_fwd, p_bwd = _f32_attn_calls(pk, q, k, v, dout, causal, cross)
+            p_out = p_fwd()[0]
+            assert_close(f"the parent's f32 attention {what}", p_out, ref_out, FLASH_F32_TOL)
+            calls.update({"parent fwd": p_fwd, "parent pair": p_bwd})
+        calls.update({"sdpa": lambda: F.scaled_dot_product_attention(*lib_leaves, is_causal=causal,
+                                                                      enable_gqa=True),
+                      "sdpa grad": lambda: torch.autograd.grad(lib_out, lib_leaves, dout,
+                                                               retain_graph=True)})
+        ms = medians(calls)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal), iters=5)
+        plain_grad = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves, dout, retain_graph=True), iters=5)
+        pairs = S * (S + 1) // 2 if causal else S * Sk
+        b_fwd = flash_bound(B, Hq, KV, S, d, causal, 4, Sk)
+        b_bwd = flash_bwd_bounds(B, Hq, KV, S, d, causal, 4, Sk)[2]
+        fma = (1e3 * 4 * d * B * Hq * pairs / F32_FLOPS, 1e3 * 10 * d * B * Hq * pairs / F32_FLOPS)
+        print(f"[f32-attn] B{B} H{Hq} KV{KV} S{S} Sk{Sk} d{d} causal={causal} {what}: "
+              + ", ".join(f"{n} {t:.4f}" for n, t in ms.items())
+              + f" ms; plain {plain:.4f} / grad {plain_grad:.4f} ms; bound fwd {b_fwd[0]:.4f} ({b_fwd[1]}) / "
+              f"pair {b_bwd[0]:.4f} ({b_bwd[1]}) ms split-TF32, {fma[0]:.4f} / {fma[1]:.4f} ms FMA; "
+              f"fwd {100 * b_fwd[0] / ms['fwd']:.1f}% / pair {100 * b_bwd[0] / ms['pair']:.1f}% of the "
+              f"bound; sdpa / kernel fwd {ms['sdpa'] / ms['fwd']:.3f}, grad {ms['sdpa grad'] / ms['pair']:.3f}")
+        print(f"[f32-attn]   err fwd {err:.2e} (tol {FLASH_F32_TOL}), grads "
+              + ", ".join(f"{r:.2e}" for r in errs) + f" of the largest (tol {GRAD_TOL['float32']}); "
+              f"pair bit-identical over two calls; sdpa fwd err {lib_err:.2e} "
+              f"({'within' if lib_ok else 'BEYOND'} {FLASH_F32_TOL}), sdpa grads "
+              + ", ".join(f"{r:.2e}" for r in lib_gerr))
+        del q, k, v, dout, out, lse, got, again, want, leaves, ref_out, lib_leaves, lib_out, lib_grads, calls
+        del out_k, lse_k, dq_k, delta
+    # which kernels f32 sdpa runs, forward and backward
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = (torch.randn(2, 16, 448, 64, generator=gen, device=dev).requires_grad_() for _ in range(3))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o = F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+        o.backward(torch.ones_like(o))
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events() if e.device_type.name == "CUDA"})
+    print("[f32-attn] f32 sdpa's CUDA kernels, forward and backward: " + " | ".join(n[:160] for n in names))
+
+
+def f32_sass(gen):
+    """Static instruction counts of the f32 attention route's kernels (namespace tf), by
+    opcode, from cuobjdump -sass: the loops are unrolled, so the counts stand for a block's
+    work on one tile."""
+    import collections
+    import re
+
+    _build.build_all(["flash_attention"])
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build._library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    for body in sass.split("Function : ")[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if "2tf" not in name:
+            continue
+        ops = collections.Counter(m.group(1).split(".")[0] for m in
+                                  re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body))
+        kernel = re.search(r"2tf\d+(\w+?)I(L[^E]*E(?:L[^E]*E)?)", name)
+        label = f"{kernel.group(1)}<{kernel.group(2)}>" if kernel else name[:90]
+        print(f"[f32-sass] {label}: {sum(ops.values())} instructions; "
+              + ", ".join(f"{k} {n}" for k, n in ops.most_common(24)))
+
+
+def f32_lo(gen):
+    """The split's lo truncated by the tensor cores (the kernel) or rounded to nearest: a
+    variant of csrc/flash_attention.cu's kRoundLo built into build/probe/f32_lo, its errors
+    against the plain versions and its times beside the kernel's, in turns."""
+    from repro_torch.kernels import flash_attention as fk
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    line = "constexpr bool kRoundLo = false;"
+    if src.count(line) != 1:
+        raise RuntimeError("flash_attention.cu no longer has the constant this probe changes")
+    hopper = (_build.CSRC / "hopper.cuh").read_text()
+    mods = {"truncated": fk, "rounded": _flash_module("f32_lo", src.replace(line, "constexpr bool kRoundLo = true;"),
+                                                       hopper, Path(fk.__file__))}
+    dev = gen.device
+    for B, Hq, KV, S, Sk, d, causal, what in [*F32_ATTN, (2, 32, 2, 1, 1, 128, True, "one key")]:
+        q, k, v = _cross_views(gen, B, Hq, KV, S, Sk, d, torch.float32)
+        dout = torch.randn(B, Hq, S, d, generator=gen, device=dev)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref_out = ref.flash_attention_ref(*leaves, causal)
+        want = torch.autograd.grad(ref_out, leaves, dout, retain_graph=True)
+        calls, errs = {}, []
+        for name, fm in mods.items():
+            o, lse = fm.flash_attention(q, k, v, causal=causal, lse=True)
+            got = fm.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal)
+            # each gradient's error over its largest magnitude, or absolute where that is 0
+            errs.append(f"{name} fwd {(o - ref_out).abs().max().item():.2e}, grads " + "/".join(
+                f"{((a - b).abs().max() / max(b.abs().max().item(), 1.0 if not b.abs().max() else 0.0)).item():.2e}"
+                for a, b in zip(got, want)))
+            calls[f"{name} fwd"] = lambda fm=fm: fm.flash_attention(q, k, v, causal=causal, lse=True)
+            calls[f"{name} pair"] = lambda fm=fm, o=o, lse=lse: fm.flash_attention_bwd(q, k, v, o, lse, dout,
+                                                                                       causal=causal)
+        ms = medians(calls)
+        print(f"[f32-lo] B{B} H{Hq} KV{KV} S{S} Sk{Sk} d{d} {what}: " + "; ".join(errs) + "; "
+              + ", ".join(f"{n} {t:.4f}" for n, t in ms.items()) + " ms")
+        del q, k, v, dout, leaves, ref_out, want, calls
+
+
+def f32_dp(gen):
+    """The f32 backward's dP summed over 1, 2 or 4 k-steps (or all, 0) before its f32 add:
+    variants of csrc/flash_attention.cu's kDpGroup built into build/probe/f32_dp/<G>, each
+    read where the reference gradient is 0 (one key) and timed at whisper's shapes, in turns."""
+    from repro_torch.kernels import flash_attention as fk
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    line = "constexpr int kDpGroup = 4;"
+    if src.count(line) != 1:
+        raise RuntimeError("flash_attention.cu no longer has the constant this probe changes")
+    hopper = (_build.CSRC / "hopper.cuh").read_text()
+    mods = {G: _flash_module(f"f32_dp/{G}", src.replace(line, f"constexpr int kDpGroup = {G};"), hopper,
+                             Path(fk.__file__)) for G in (0, 1, 2, 4)}
+    dev = gen.device
+    for B, Hq, KV, S, d, causal in ((2, 32, 2, 1, 128, True), (2, 32, 2, 1, 64, False),
+                                    (2, 8, 2, 2, 128, True)):
+        q, k, v, dout = (torch.randn(*shape, generator=gen, device=dev) for shape in
+                         ((B, Hq, S, d), (B, KV, S, d), (B, KV, S, d), (B, Hq, S, d)))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(ref.flash_attention_ref(*leaves, causal), leaves, dout)
+        row = []
+        for G, fm in mods.items():
+            o, lse = fm.flash_attention(q, k, v, causal=causal, lse=True)
+            got = fm.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal)
+            row.append(f"G {G}: " + " / ".join(f"{(a - b).abs().max().item():.2e}" for a, b in zip(got, want)))
+        print(f"[f32-dp] B{B} H{Hq} KV{KV} S{S} d{d} causal={causal}: largest |dq - ref| / |dk - ref| / "
+              f"|dv - ref| (ref max {max(w.abs().max().item() for w in want):.2e}): " + "; ".join(row))
+    for B, Hq, KV, S, Sk, d, causal, what in F32_ATTN[3:]:
+        q, k, v = _cross_views(gen, B, Hq, KV, S, Sk, d, torch.float32)
+        dout = torch.randn(B, Hq, S, d, generator=gen, device=dev)
+        calls = {}
+        for G, fm in mods.items():
+            o, lse = fm.flash_attention(q, k, v, causal=causal, lse=True)
+            calls[f"G {G}"] = lambda fm=fm, o=o, lse=lse: fm.flash_attention_bwd(q, k, v, o, lse, dout,
+                                                                                   causal=causal)
+        ms = medians(calls)
+        print(f"[f32-dp] B{B} H{Hq} S{S} Sk{Sk} d{d} {what}: pair " + ", ".join(f"{n} {t:.4f}" for n, t in ms.items())
+              + " ms")
+
+
 def main() -> int:
     modes = {"time": time_kernels, "moe": time_moe, "moe-parts": moe_parts, "bwd": time_backward,
              "ssd-bwd": time_ssd_bwd, "ssd-sass": ssd_sass, "ssd-parts": ssd_parts, "bwd-parts": bwd_parts, "ssd-roles": ssd_roles, "ssm-check": ssm_check,
              "moe-bwd-tiles": moe_bwd_tiles, "moe-bwd-fma": moe_bwd_fma, "rms-parts": rms_parts,
              "live-rate": live_rate, "cross": time_cross, "fwd-bounds": fwd_bounds,
              "cross-parts": cross_parts, "cross-bwd": time_cross_bwd, "cross-bwd-parts": cross_bwd_parts,
-             "rms-fwd": rms_fwd}
-    flag = "--parent" if sys.argv[1:2] == ["rms-fwd"] else "--tree"
+             "rms-fwd": rms_fwd, "f32-attn": f32_attn, "f32-sass": f32_sass,
+             "f32-dp": f32_dp, "f32-lo": f32_lo}
+    flag = "--parent" if sys.argv[1:2] in (["rms-fwd"], ["f32-attn"]) else "--tree"
     if len(sys.argv) not in (2, 4) or sys.argv[1] not in modes or (len(sys.argv) == 4 and sys.argv[2] != flag):
         print(__doc__, file=sys.stderr)
         return 2
