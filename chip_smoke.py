@@ -42,7 +42,12 @@ Phases, each of which raises on failure (nothing is caught):
    attention cases (flash at B4 H32 S160 causal, B4 H15 S1024, B2 H8 S1000
    d 128 and whisper's f32 encoder B4 H16 S1500, non-causal) run the
    split-TF32 route (``"tf32x3"``), each with its plan, and phase 5 holds
-   their backward (the route's dq and dkdv) too;
+   their backward (the route's dq and dkdv) too; the f32 ``moe_matmul``
+   cases (granite's LM gate/up and down, score, decode, a mesh rank's
+   experts, ragged) run its split-TF32 route on ``wgmma`` (``"tf32x3"``)
+   and the f32 ``ssd_intra_chunk`` cases its three-piece bf16 route
+   (``"mma3"``); both routes' launches are counted apart in every run, every
+   launch of an f32 run on them and none of a bf16 one;
 4. serving at full width on seeded random bf16 weights.  Each path runs
    with the launch counts set to 0 just before it and checked just after
    against the counts its depth implies: greedy generation (4 requests x
@@ -382,8 +387,9 @@ def rmsnorm_bound(T, D, elem):
 
 
 def attention_ops_s(ops, elem):
-    """Least seconds for attention's products: bf16 on the bf16 tensor cores; f32 as the
-    split-TF32 route runs them, three TF32 products a product (hi hi + hi lo + lo hi)."""
+    """Least seconds for the products of attention and moe_matmul: bf16 on the bf16 tensor
+    cores; f32 as their split-TF32 routes run them, three TF32 products a product (hi hi +
+    hi lo + lo hi)."""
     return ops / BF16_TENSOR_FLOPS if elem == 2 else 3 * ops / TF32_TENSOR_FLOPS
 
 
@@ -418,10 +424,10 @@ def decode_bound(B, H, KV, n, d, elem):
 
 
 def moe_bound(E, C, D, F, elem):
-    """buf and w read once, out written once; 2*D operations per output element."""
-    peak = BF16_TENSOR_FLOPS if elem == 2 else F32_FLOPS
+    """buf and w read once, out written once; 2*D operations per output element, f32 at the
+    split-TF32 rate (the ``"tf32x3"`` route)."""
     return bound((E * C * D + E * D * F + E * C * F) * elem / HBM_BYTES_PER_S,
-                 2 * E * C * D * F / peak)
+                 attention_ops_s(2 * E * C * D * F, elem))
 
 
 def ssd_bound(BNC, H, Q, hd, N, elem):
@@ -429,11 +435,24 @@ def ssd_bound(BNC, H, Q, hd, N, elem):
     over the causal pairs q >= j: C.B (2N each) once per chunk, since the
     heads share B and C; per (chunk, head) the decay (1) and S.x (2 hd
     each), then the state (2 hd N per row plus the decay weights); all on
-    f32 operands, so against the f32 peak."""
+    f32 operands: bf16 x against the f32 peak; f32 x as its route (``"mma3"``) runs them,
+    six bf16 tensor-core products of three-piece operands a product (``ssd_fma_bound`` keeps
+    the f32 peak for comparison with the earlier rows)."""
+    t_bytes, ops = ssd_bytes_ops(BNC, H, Q, hd, N, elem)
+    return bound(t_bytes, ops / F32_FLOPS if elem == 2 else 6 * ops / BF16_TENSOR_FLOPS)
+
+
+def ssd_bytes_ops(BNC, H, Q, hd, N, elem):
+    """(least seconds for ``ssd_intra_chunk``'s bytes, its operations) as ``ssd_bound`` counts them."""
     pairs = Q * (Q + 1) // 2
     t_bytes = (2 * BNC * H * Q * hd * elem
                + 4 * (2 * BNC * Q * N + BNC * H * Q + BNC * H * hd * N)) / HBM_BYTES_PER_S
-    ops = BNC * 2 * N * pairs + BNC * H * ((1 + 2 * hd) * pairs + 2 * Q * hd * N + Q * hd)
+    return t_bytes, BNC * 2 * N * pairs + BNC * H * ((1 + 2 * hd) * pairs + 2 * Q * hd * N + Q * hd)
+
+
+def ssd_fma_bound(BNC, H, Q, hd, N, elem):
+    """``ssd_bound`` with every operation on the f32 FMAs' peak."""
+    t_bytes, ops = ssd_bytes_ops(BNC, H, Q, hd, N, elem)
     return bound(t_bytes, ops / F32_FLOPS)
 
 
@@ -1516,10 +1535,26 @@ def check_mesh_serve(label, cfg, res):
     return tol
 
 
+# B3's and B4's f32 routes and the kernels they run, counted apart within the kernels' launches
+F32_ROUTES = {"moe_matmul_tf32x3": "moe_matmul", "ssd_intra_chunk_mma3": "ssd_intra_chunk"}
+
+
+def check_f32_routes(label, counts, routes, f32=None):
+    """Raises unless each route of ``F32_ROUTES`` counted all of its kernel's launches in
+    ``counts`` (an f32 run: ``f32`` True) or none (bf16: False); ``f32`` None takes either."""
+    for route, kernel in F32_ROUTES.items():
+        want = {True: (counts[kernel],), False: (0,), None: (0, counts[kernel])}[f32]
+        if routes[route] not in want:
+            raise AssertionError(f"{label}: {routes[route]} of {counts[kernel]} {kernel} launches "
+                                 f"on its f32 route {route}, expected {' or '.join(map(str, want))}")
+
+
 def mesh_launches(ranks, cfgs):
     """Raises unless every rank's launches in each of phase 10's runs ("generate <label>",
     "train step <label>", "grpo step <label>") equal ``path_launches`` on the mesh for the
-    run's config (``cfgs[label]``); returns the launches summed over the ranks and runs."""
+    run's config (``cfgs[label]``), each of B3's and B4's f32 routes counting all of its
+    kernel's launches in an f32 run and none in a bf16 one; returns the launches summed over
+    the ranks and runs."""
     total = {}
     for r, res in enumerate(ranks):
         for what, counts in res["launches"].items():
@@ -1529,6 +1564,8 @@ def mesh_launches(ranks, cfgs):
                       else path_launches(cfg, 0, 0, 1, opt_steps=1, mesh=MESH_SHAPE))
             if counts != expect:
                 raise AssertionError(f"[mesh] rank {r} {what}: launches {counts}, expected {expect}")
+            check_f32_routes(f"[mesh] rank {r} {what}", counts, res["routes"][what],
+                             cfg.dtype == "float32")
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
     return total
@@ -2206,9 +2243,14 @@ def main() -> int:
         (40, 384, 1536, 512, torch.bfloat16, "granite score gate/up"),
         (40, 384, 512, 1536, torch.bfloat16, "granite score down"),
         *lm_moe_cases,
-        (40, 256, 1536, 512, torch.float32, "granite LM gate/up in f32 (fma route)"),
+        # f32 (the "tf32x3" route): granite's LM gate/up and down, score, decode and a mesh rank's
+        # experts (42 padded experts over 3 model ranks, 2 rows x 128 tokens drop-free)
+        (40, 256, 1536, 512, torch.float32, "granite LM gate/up in f32"),
+        (40, 256, 512, 1536, torch.float32, "granite LM down in f32"),
         (40, 1024, 1536, 512, torch.bfloat16, "longer"),
         (40, 384, 1536, 512, torch.float32, ""),
+        (40, 8, 1536, 512, torch.float32, "granite decode gate/up in f32"),
+        (14, 256, 1536, 512, torch.float32, "granite f32 mesh rank gate/up"),
         (5, 130, 200, 72, torch.float32, "ragged"),
         (3, 130, 264, 200, torch.bfloat16, "partial C, D and F tiles"),
         (3, 70, 100, 36, torch.bfloat16, "ragged, unaligned rows"),
@@ -2264,9 +2306,11 @@ def main() -> int:
         report(f"ssd_intra_chunk B={B} NC={NC} Q={Q} H={H} hd={hd} N={N} {str(dt)[6:]} {what}",
                err, f"{tol} y, {F32_TOL} state", m, "no single PyTorch call computes it")
         plan = ssd_k.launch_plan(BNC, H, Q, hd, N, dt)  # the kernel refuses any other
+        fma_ms = ssd_fma_bound(BNC, H, Q, hd, N, x.element_size())[0]
         print(f"[kernel]   launch plan: route {plan.route}, {plan.heads_per_block} heads per y "
               f"block, {plan.y_blocks} y and {plan.state_blocks} state blocks per chunk, grid "
-              f"{plan.grid}, {plan.threads} threads, {plan.smem_bytes} bytes of shared memory")
+              f"{plan.grid}, {plan.threads} threads, {plan.smem_bytes} bytes of shared memory"
+              + ("" if dt == torch.bfloat16 else f"; the FMA-rate bound {fma_ms:.4f} ms"))
     del x, b, c, cum, y, st, y_ref, st_ref
     torch.cuda.empty_cache()
 
@@ -2288,14 +2332,16 @@ def main() -> int:
 
     # ---- 4. serving at full width -----------------------------------------
     launches = dict.fromkeys(ops.launch_counts(), 0)
-    route_launches = dict.fromkeys(ops.route_launch_counts(), 0)  # the f32 attention route's
+    route_launches = dict.fromkeys(ops.route_launch_counts(), 0)  # the f32 routes' kernels
 
     def check_counts(label, counts, expect):
         if counts != expect:
             raise AssertionError(f"{label} launches {counts}, expected {expect}")
         for k, v in counts.items():
             launches[k] += v
-        for k, v in ops.route_launch_counts().items():  # read with counts, before any reset
+        routes = ops.route_launch_counts()  # read with counts, before any reset
+        check_f32_routes(label, counts, routes)
+        for k, v in routes.items():
             route_launches[k] += v
 
     def full_logits_last(params, cfg, batch, seq):
@@ -3481,6 +3527,7 @@ def main() -> int:
         counts, expect = ops.launch_counts(), path_launches(cfg, 0, 0, train_steps=1)
         if counts != expect:
             raise AssertionError(f"small lm {cfg.name}: launches {counts}, expected {expect}")
+        check_f32_routes(f"small lm {cfg.name}", counts, ops.route_launch_counts(), True)
         lc = api.loss_fn(p_cpu, {"tokens": toks.cpu(), **{k: v.cpu() for k, v in extra.items()}})[0]
         g_cpu = grads_of(lc, p_cpu)
         e_loss = assert_close(f"small lm {cfg.name} loss", lg.detach().cpu(), lc.detach(), SMALL_F32_TOL)
@@ -3541,7 +3588,7 @@ def main() -> int:
           f"{time.perf_counter() - t10:.1f}s for the ranks' runs [{card}]")
     for what, n in mesh_launches(ranks, cfgs).items():
         launches[what] += n
-    for res in ranks:  # the f32 attention route's launches, within those
+    for res in ranks:  # the f32 routes' launches, within those
         for counts in res["routes"].values():
             for what, n in counts.items():
                 route_launches[what] += n
@@ -3694,6 +3741,16 @@ def main() -> int:
                             source="src/repro_torch/kernels/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:72",
                             launches=route_launches[kname], **rows_))
+    # B3's and B4's f32 routes, counted apart within moe_matmul's and ssd_intra_chunk's launches:
+    # granite's f32 LM gate/up (split TF32 on wgmma) and mamba2's f32 LM chunks (three bf16 pieces)
+    for kname, src, of, rows_ in (
+        ("moe_matmul_tf32x3", "moe_matmul", "src/repro/kernels/moe_matmul.py:36",
+         moe_rows[(40, 256, 1536, 512, torch.float32)]),
+        ("ssd_intra_chunk_mma3", "ssd_scan", "src/repro/kernels/ssd_scan.py:39",
+         ssd_rows[(4, 24, 256, 128, torch.float32)]),
+    ):
+        kernels.append(dict(name=kname, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}.cu",
+                            replaces=of, launches=route_launches[kname], **rows_))
     for kname in ("adamw_norm", "adamw_norm_finish", "adamw_update"):
         # no TPU kernel: "replaces" names the JAX function whose step these launches compute
         kernels.append(dict(name=kname, route="cuda", source="src/repro_torch/kernels/csrc/adamw.cu",
@@ -3721,7 +3778,10 @@ def main() -> int:
           "parameters and grads, f32 moments; library torch._foreach_norm and "
           "torch._fused_adamw_ on bf16 moments); the f32 attention route's forward, dq and dkdv "
           "(split TF32, counted apart within B2's, B11's and B5's launches) at whisper's f32 "
-          "encoder shape B=4 H=16 S=1500 d=64 non-causal; launches summed over the eight serving runs, the "
+          "encoder shape B=4 H=16 S=1500 d=64 non-causal; moe_matmul's and ssd_intra_chunk's f32 routes "
+          "(split TF32 on wgmma; three bf16 pieces a value), counted apart within their kernels' "
+          "launches, at granite's f32 LM gate/up E=40 C=256 D=1536 F=512 (library torch.bmm) and "
+          "mamba2's f32 LM chunks BNC=4 H=24 Q=256 hd=64 N=128; launches summed over the eight serving runs, the "
           "training runs, the closed loop's four steps (three plus the profiled one), the mesh's "
           "ranks and live mode's payloads")
     print(json.dumps({"kernels": kernels}))

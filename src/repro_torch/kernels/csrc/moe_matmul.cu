@@ -45,12 +45,29 @@
 //   Both TMA routes are programmatic dependent launches: a block sets up
 //   while the kernel before it finishes and waits for it before touching
 //   device memory.
-// - "fma": f32 with 16-byte aligned rows.  CUDA-core FMAs on 64 x 64 tiles
-//   over 32-deep tiles in a 2-stage cp.async ring (f32's 1e-4 tolerance rules
-//   out bf16 and TF32 products).
+// - "tf32x3": f32 with 16-byte aligned rows, D and F multiples of 4 (namespace
+//   tf).  The tensor cores in split TF32: each f32 operand goes in as hi =
+//   tf32(v) and lo = v - hi, each product as three TF32 products, lo hi + hi
+//   lo first, then hi hi, summed in the f32 accumulator (~21 bits of each
+//   operand; the dropped lo lo term is ~2^-22 of the product), which holds
+//   f32's 1e-4 as flash_attention.cu's f32 route holds 2e-5.  The products
+//   run on wgmma m64nNk8 TF32, a consumer warpgroup per 64 rows: 128 x 128
+//   tiles, 64 x 64 for C <= 64 (decode).  Each thread loads its share of a
+//   32-deep stage into registers two stages ahead, and the block splits each
+//   stage once into hi and lo planes laid out as wgmma reads TF32 (K-major,
+//   128-byte swizzle; w's transposed as it is split), into one set while the
+//   warpgroups' wgmma read the other: no warp splits what another has split,
+//   and no fragment passes through registers.  (A 3-stage cp.async ring in
+//   shared memory ran no faster than the registers.)  mma.sync m16n8k8 TF32
+//   was tried first: it peaks at 65% of the TF32 rate on an H100, and with
+//   its fragment loads the kernel ran no faster than bmm (PERF.md).
+//   Bound: 3 x 2 C D F operations a call on the 494.7 TFLOP/s TF32 tensor
+//   cores, beside which the block issues the split (3 instructions an
+//   element of a stage) and the planes' stores.
 // - "masked": rows that are not 16-byte aligned, either dtype (TMA needs
-//   16-byte strides).  The same 64 x 64 tiles, staged one at a time through
-//   registers with masked element loads; bf16 on mma.sync m16n8k16.
+//   16-byte strides).  64 x 64 tiles staged one at a time through registers
+//   with masked element loads; bf16 on mma.sync m16n8k16, f32 on CUDA-core
+//   FMAs.
 //
 // No route uses atomics: every output element is summed in one fixed order,
 // so two calls give bit-identical results.
@@ -100,19 +117,18 @@
 
 namespace {
 
-// The CUDA-core routes ("fma" and "masked"): one block per 64 x 64 tile.
+// The masked route: one block per 64 x 64 tile.
 constexpr int BM = 64;  // rows of C per block
 constexpr int BN = 64;  // columns of F per block
 constexpr int BK = 32;  // depth of one shared-memory tile
 constexpr int kThreads = 128;
-constexpr int kFmaStages = 2;  // the fma route's cp.async ring; masked stages one tile at a time
 
-// Shared-memory row strides in elements per element type.  bf16 (the
-// masked route only): rows of 80 (A) and 144 (W) bytes, so the eight
-// 16-byte rows of one ldmatrix phase fall on distinct bank groups.  f32:
-// 16-byte aligned rows of 36 and 68 floats (in the FMA loop the eight rows
-// a warp reads from A land on banks 4g + k); 2 stages = 36 KB on the fma
-// route.  Both stay under the 48 KB of static shared memory a block may have.
+// Shared-memory row strides in elements per element type.  bf16: rows of 80
+// (A) and 144 (W) bytes, so the eight 16-byte rows of one ldmatrix phase
+// fall on distinct bank groups.  f32: 16-byte aligned rows of 36 and 68
+// floats (in the FMA loop the eight rows a warp reads from A land on banks
+// 4g + k).  Both stay under the 48 KB of static shared memory a block may
+// have.
 template <typename T> struct Layout;
 template <> struct Layout<__nv_bfloat16> {
   static constexpr int A = BK + 8, W = BN + 8;
@@ -244,21 +260,18 @@ __device__ __forceinline__ void mma_tile(Acc& acc, const float* As, const float*
   }
 }
 
-// kAsync: every row of buf and w starts 16-byte aligned and D, F are
-// multiples of the 16-byte vector, so tiles go through the cp.async ring.
-// Otherwise one tile at a time is staged through registers with masked
-// element loads (vec_a / vec_w still allow 16-byte loads where they hold).
-template <typename T, bool kAsync>
+// One tile at a time is staged through registers with masked element loads
+// (vec_a / vec_w still allow 16-byte loads where they hold).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 moe_matmul_kernel(const T* __restrict__ buf, const T* __restrict__ w, T* __restrict__ out, int C,
                   int D, int F, bool vec_a, bool vec_w) {
   constexpr int kA = Layout<T>::A, kW = Layout<T>::W;
-  constexpr int kStages = kAsync ? kFmaStages : 1;
   constexpr int N = Vec<T>::N;
   constexpr int kVa = BM * BK / N / kThreads;  // 16-byte vectors per thread of the buf tile
   constexpr int kVw = BK * BN / N / kThreads;  // ... and of the w tile
-  __shared__ __align__(16) T As[kStages][BM * kA];
-  __shared__ __align__(16) T Ws[kStages][BK * kW];
+  __shared__ __align__(16) T As[BM * kA];
+  __shared__ __align__(16) T Ws[BK * kW];
 
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, e = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -287,74 +300,39 @@ moe_matmul_kernel(const T* __restrict__ buf, const T* __restrict__ w, T* __restr
     c = (v % (BN / N)) * N;
   };
 
-  if constexpr (kAsync) {
-    auto issue = [&](int stage, int kt) {
-      const int k0 = kt * BK;
+  Vec<T> ra[kVa], rw[kVw];
+  auto fetch = [&](int k0) {
 #pragma unroll
-      for (int i = 0; i < kVa; ++i) {
-        int r, c;
-        a_pos(i, r, c);
-        const bool in = m0 + r < C && k0 + c < D;
-        cp_async16(&As[stage][r * kA + c], in ? a + static_cast<int64_t>(m0 + r) * D + k0 + c : a,
-                   in ? 16 : 0);
-      }
-#pragma unroll
-      for (int i = 0; i < kVw; ++i) {
-        int r, c;
-        w_pos(i, r, c);
-        const bool in = k0 + r < D && n0 + c < F;
-        cp_async16(&Ws[stage][r * kW + c], in ? b + static_cast<int64_t>(k0 + r) * F + n0 + c : b,
-                   in ? 16 : 0);
-      }
-    };
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < nk) issue(s, s);
-      cp_async_commit();  // empty groups keep the count uniform
+    for (int i = 0; i < kVa; ++i) {
+      int r, c;
+      a_pos(i, r, c);
+      ra[i] = load_vec(a, D, m0 + r, k0 + c, C, D, vec_a);
     }
-    for (int kt = 0; kt < nk; ++kt) {
-      cp_async_wait<kStages - 2>();  // tile kt has landed (this thread's copies) ...
-      __syncthreads();  // ... everyone's, and every warp is done with tile kt - 1
-      const int next = kt + kStages - 1;
-      if (next < nk) issue(next % kStages, next);  // into the stage tile kt - 1 used
-      cp_async_commit();
-      mma_tile(acc, As[kt % kStages], Ws[kt % kStages], wm, wn, lane);
+#pragma unroll
+    for (int i = 0; i < kVw; ++i) {
+      int r, c;
+      w_pos(i, r, c);
+      rw[i] = load_vec(b, F, k0 + r, n0 + c, D, F, vec_w);
     }
-  } else {
-    Vec<T> ra[kVa], rw[kVw];
-    auto fetch = [&](int k0) {
+  };
+  if (nk > 0) fetch(0);
+  for (int kt = 0; kt < nk; ++kt) {
 #pragma unroll
-      for (int i = 0; i < kVa; ++i) {
-        int r, c;
-        a_pos(i, r, c);
-        ra[i] = load_vec(a, D, m0 + r, k0 + c, C, D, vec_a);
-      }
-#pragma unroll
-      for (int i = 0; i < kVw; ++i) {
-        int r, c;
-        w_pos(i, r, c);
-        rw[i] = load_vec(b, F, k0 + r, n0 + c, D, F, vec_w);
-      }
-    };
-    if (nk > 0) fetch(0);
-    for (int kt = 0; kt < nk; ++kt) {
-#pragma unroll
-      for (int i = 0; i < kVa; ++i) {
-        int r, c;
-        a_pos(i, r, c);
-        *reinterpret_cast<Vec<T>*>(&As[0][r * kA + c]) = ra[i];
-      }
-#pragma unroll
-      for (int i = 0; i < kVw; ++i) {
-        int r, c;
-        w_pos(i, r, c);
-        *reinterpret_cast<Vec<T>*>(&Ws[0][r * kW + c]) = rw[i];
-      }
-      __syncthreads();
-      if (kt + 1 < nk) fetch((kt + 1) * BK);  // in flight while this tile is multiplied
-      mma_tile(acc, As[0], Ws[0], wm, wn, lane);
-      __syncthreads();  // every warp is done with the tile before it is overwritten
+    for (int i = 0; i < kVa; ++i) {
+      int r, c;
+      a_pos(i, r, c);
+      *reinterpret_cast<Vec<T>*>(&As[r * kA + c]) = ra[i];
     }
+#pragma unroll
+    for (int i = 0; i < kVw; ++i) {
+      int r, c;
+      w_pos(i, r, c);
+      *reinterpret_cast<Vec<T>*>(&Ws[r * kW + c]) = rw[i];
+    }
+    __syncthreads();
+    if (kt + 1 < nk) fetch((kt + 1) * BK);  // in flight while this tile is multiplied
+    mma_tile(acc, As, Ws, wm, wn, lane);
+    __syncthreads();  // every warp is done with the tile before it is overwritten
   }
 
   T* o = out + static_cast<int64_t>(e) * C * F;
@@ -371,11 +349,10 @@ moe_matmul_kernel(const T* __restrict__ buf, const T* __restrict__ w, T* __restr
       }
 }
 
-// Static shared memory of moe_matmul_kernel<T, kAsync>, as its plan states it.
-template <typename T, bool kAsync>
+// Static shared memory of moe_matmul_kernel<T>, as its plan states it.
+template <typename T>
 constexpr int static_smem() {
-  return (kAsync ? kFmaStages : 1) * (BM * Layout<T>::A + BK * Layout<T>::W) *
-         static_cast<int>(sizeof(T));
+  return (BM * Layout<T>::A + BK * Layout<T>::W) * static_cast<int>(sizeof(T));
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -595,6 +572,242 @@ moe_matmul_bwd_fma(const T* __restrict__ a, const T* __restrict__ b, T* __restri
 }
 
 }  // namespace
+
+namespace tf {  // f32 on the tensor cores in split TF32 ("tf32x3")
+
+constexpr int BK = 32;  // depth of a stage: one 128-byte row of f32, 8 16-byte chunks
+
+// A tile shape: BM x BN outputs a block, a consumer warpgroup per 64 rows, each running wgmma
+// m64nBNk8.  Shared memory (from a 1024-byte aligned base): two sets of split planes, each buf
+// hi, buf lo, w hi, w lo of BM x BK and BN x BK words.
+template <int BM_, int BN_>
+struct Shape {
+  static constexpr int BM = BM_, BN = BN_, kThreads = 2 * BM;  // BM / 64 warpgroups
+  static constexpr int plane_a = BM * BK, plane_b = BK * BN;
+  static constexpr int planes = 2 * (plane_a + plane_b);  // words of one set
+  static constexpr int bytes = 1024 + 4 * 2 * planes;
+};
+// C > 64.  128 x 64 tiles ran slower at granite's f32 products on an H100
+// (torch_kernel_probe.py f32-gemm, PERF.md).
+using Wide = Shape<128, 128>;
+using Small = Shape<64, 64>;  // C <= 64 (decode)
+
+// x as hi + lo: hi rounded to nearest TF32, ties away (cvt.rna's rounding: half an ulp added,
+// the low 13 bits cleared), lo = x - hi exactly in f32, which the tensor cores read as TF32 by
+// dropping its low 13 bits (flash_attention.cu's split, kRoundLo false).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void split4(const float4& v, uint4& hi, uint4& lo) {
+  split(v.x, hi.x, lo.x);
+  split(v.y, hi.y, lo.y);
+  split(v.z, hi.z, lo.z);
+  split(v.w, hi.w, lo.w);
+}
+
+// d = a b + (add ? d : 0) for a warpgroup's m64 x N x k8: a and b K-major TF32 in shared memory
+// (the only form wgmma takes TF32 in), f32 accumulators in the m64nNk8 layout.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da, uint64_t db, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(add));
+}
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da, uint64_t db, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(add));
+}
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da, uint64_t db, int add) {
+  if constexpr (N == 128) wgmma_tf32_n128(d, da, db, add);
+  else wgmma_tf32_n64(d, da, db, add);
+}
+
+// The planes lie as wgmma reads K-major operands with 128-byte swizzle: row r (a row of buf's
+// tile, or a column of w's, transposed as it is split) is 128 bytes, its 16-byte chunk c (k =
+// 4c .. 4c + 3 of the stage) at chunk c ^ (r % 8), 8-row groups 1024 bytes apart; k-step kk
+// starts 32 kk bytes into the rows.  A quarter warp's eight 16-byte stores of the split land on
+// distinct banks.
+__device__ __forceinline__ uint64_t desc(const uint32_t* plane, int row0, int kk) {
+  return hopper::desc_sw128(hopper::smem_u32(plane) + row0 * 128 + kk * 32, 16, 1024);
+}
+
+// out[e] = buf[e] w[e] for the BM x BN tile (blockIdx.x: F tile, y: C tile, z: expert).  D, F
+// multiples of 4 and every row 16-byte aligned (the plan's condition): each 16-byte chunk is
+// wholly inside or outside the matrix, and those outside read as zeros.  Per 32-deep stage kt:
+// each warpgroup issues stage kt - 1's twelve wgmma (four k-steps, lo hi + hi lo first, then
+// hi hi, summed from zero and then added to the running f32 sum) on one set of planes;
+// meanwhile the block splits stage kt, which its threads loaded into registers two stages
+// ahead, into the other set, loads stage kt + 2 into the registers it frees, and waits for the
+// wgmma before the barrier that opens the next stage.  The f32 tiles go from device memory to
+// registers to the planes: shared memory carries only the planes' stores and wgmma's reads.
+// Each output element sums its products in one fixed order (no atomics): two calls give the
+// same bits.
+template <class S>
+__global__ void __launch_bounds__(S::kThreads)
+moe_matmul_tf32x3(const float* __restrict__ buf, const float* __restrict__ w,
+                  float* __restrict__ out, int C, int D, int F) {
+  constexpr int BM = S::BM, BN = S::BN, NTH = S::kThreads;
+  constexpr int IA = BM * BK / 4 / NTH;  // 16-byte chunks of buf a thread loads and splits a stage
+  constexpr int WB = BK * BN / 16;       // 4 x 4 pieces of w a stage splits, one a thread
+  static_assert(IA * NTH * 4 == BM * BK && WB <= NTH, "tile shape");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // an offset from smem_raw, not a pointer rebuilt from an integer: accesses stay shared ones
+  uint32_t* planes = reinterpret_cast<uint32_t*>(
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023));  // [2][S::planes]
+
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int64_t e = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int nk = (D + BK - 1) / BK;
+
+  // buf: chunk (row r0 + it NTH / 8, column 4 ca); a quarter warp reads one row's 128 bytes and
+  // stores them to 8 distinct chunks of its plane row
+  const int r0 = tid >> 3, ca = tid & 7;
+  const float* src_a[IA];
+  bool in_a[IA];
+#pragma unroll
+  for (int it = 0; it < IA; ++it) {
+    const int r = r0 + it * (NTH / 8);
+    in_a[it] = m0 + r < C;
+    src_a[it] = buf + (e * C + (in_a[it] ? m0 + r : 0)) * D + 4 * ca;
+  }
+  const int sa = r0 * 8 + (ca ^ (r0 & 7));  // plane chunk of the first; + it (NTH / 8) 8
+  // w: the 4 x 4 piece at k chunk kq = 4 kh + t4 (rows 4 kq ..) and n chunk nq = 2 nh + p (a
+  // quarter warp takes t4 and p), stored transposed to the chunks sb[ii] of columns 4 nq + ii
+  const bool has_b = WB == NTH || tid < WB;
+  const int t4 = tid & 3, p = (tid >> 2) & 1, kh = (tid >> 3) & 1, nh = (tid >> 4) % (BN / 8);
+  const int kq = 4 * kh + t4, nq = 2 * nh + p;
+  const bool in_bc = has_b && n0 + 4 * nq < F;
+  const float* src_b = w + e * D * F + (in_bc ? n0 + 4 * nq : 0);
+  int sb[4];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) sb[ii] = (4 * nq + ii) * 8 + (kq ^ ((4 * p + ii) & 7));
+
+  float4 va[2][IA], vb[2][4];  // stages kt and kt + 1's chunks, in buffers kt % 2 and (kt + 1) % 2
+  auto load = [&](int kt, float4 (&la)[IA], float4 (&lb)[4]) {
+    const int k0 = kt * BK;
+    const bool kin = k0 + 4 * ca < D;
+#pragma unroll
+    for (int it = 0; it < IA; ++it)
+      la[it] = in_a[it] && kin ? *reinterpret_cast<const float4*>(src_a[it] + k0)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      const int k = k0 + 4 * kq + rr;
+      lb[rr] = in_bc && k < D ? *reinterpret_cast<const float4*>(src_b + static_cast<int64_t>(k) * F)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  // stage kt's chunks (la, lb) into plane set kt % 2
+  auto split_stage = [&](int set, const float4 (&la)[IA], const float4 (&lb)[4]) {
+    uint4* pa = reinterpret_cast<uint4*>(planes + set * S::planes);
+    uint4* pb = pa + S::plane_a / 2;  // after buf's hi and lo planes
+#pragma unroll
+    for (int it = 0; it < IA; ++it) {
+      uint4 hi, lo;
+      split4(la[it], hi, lo);
+      const int c = sa + it * (NTH / 8) * 8;
+      pa[c] = hi;
+      pa[S::plane_a / 4 + c] = lo;
+    }
+    if (has_b) {
+      const float col[4][4] = {{lb[0].x, lb[1].x, lb[2].x, lb[3].x}, {lb[0].y, lb[1].y, lb[2].y, lb[3].y},
+                               {lb[0].z, lb[1].z, lb[2].z, lb[3].z}, {lb[0].w, lb[1].w, lb[2].w, lb[3].w}};
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        uint4 hi, lo;
+        split4(make_float4(col[ii][0], col[ii][1], col[ii][2], col[ii][3]), hi, lo);
+        pb[sb[ii]] = hi;
+        pb[S::plane_b / 4 + sb[ii]] = lo;
+      }
+    }
+    hopper::fence_async_shared();  // the planes' stores, before wgmma (the async proxy) reads them
+  };
+
+  // The tensor cores add a product into an f32 accumulator with truncation, so over granite's
+  // 1536-deep products one accumulator strays ~1e-4 from f32's sum (an H100, PERF.md): each
+  // stage's twelve products start from zero in `part`, which joins the running sum by an f32 add.
+  float acc[BN / 2], part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  auto products = [&](int set) {  // one stage's wgmma from plane set `set`, issued and committed
+    const uint32_t* ah = planes + set * S::planes;
+    const uint32_t* al = ah + S::plane_a;
+    const uint32_t* bh = al + S::plane_a;
+    const uint32_t* bl = bh + S::plane_b;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      wgmma_tf32<BN>(part, desc(al, 64 * wg, kk), desc(bh, 0, kk), kk);  // the small terms first
+      wgmma_tf32<BN>(part, desc(ah, 64 * wg, kk), desc(bl, 0, kk), 1);
+      wgmma_tf32<BN>(part, desc(ah, 64 * wg, kk), desc(bh, 0, kk), 1);
+    }
+    hopper::wgmma_commit();
+  };
+
+  if (nk > 0) load(0, va[0], vb[0]);
+  if (nk > 1) load(1, va[1], vb[1]);
+  for (int k2 = 0; k2 <= nk; k2 += 2) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {  // unrolled: each stage's buffer is a fixed register set
+      const int kt = k2 + u;
+      if (kt > nk) break;
+      // stage kt - 1 is split, and stage kt - 2's wgmma, which read the set stage kt takes, are done
+      __syncthreads();
+      if (kt > 0) products(u ^ 1);
+      if (kt < nk) split_stage(u, va[u], vb[u]);
+      if (kt + 2 < nk) load(kt + 2, va[u], vb[u]);  // two stages ahead
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(part);
+      if (kt > 0) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+      }
+    }
+  }
+
+  // acc[4 j + i]: row 16 (warp % 4) + g + 8 (i / 2) of the warpgroup's 64, column 8 j + 2 t + i % 2
+  float* o = out + e * C * F;
+  const int row = m0 + 64 * wg + 16 * ((tid >> 5) & 3) + g;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (row + 8 * half >= C) continue;
+    float* orow = o + static_cast<int64_t>(row + 8 * half) * F;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;  // even; F a multiple of 4
+      if (col < F)
+        *reinterpret_cast<float2*>(orow + col) = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+}  // namespace tf
 
 namespace tc {  // bf16 on wgmma fed by TMA
 
@@ -1002,7 +1215,8 @@ moe_matmul_bwd_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_consta
 
 namespace {
 
-enum Route { kWgmma = 0, kWgmmaT = 1, kFma = 2, kMasked = 3 };
+// Route ids; kFma is the backward's f32 route only.
+enum Route { kWgmma = 0, kWgmmaT = 1, kFma = 2, kMasked = 3, kTf32x3 = 4 };
 
 // What a launch plan states; the entry point compares it with its own.
 struct Plan {
@@ -1026,6 +1240,12 @@ Plan wgmma_plan(int64_t tiles) {
   return {kWgmma, BN, tc::kDepth, L::ST, tc::kThreads, persistent(tiles, 1), 1, 1, L::bytes};
 }
 
+template <class S>
+Plan tf_plan(int E, int C, int F) {
+  return {kTf32x3, S::BN, tf::BK, 2, S::kThreads, (F + S::BN - 1) / S::BN,
+          (C + S::BM - 1) / S::BM, E, S::bytes};
+}
+
 // The plan of a route for these sizes; block_n is the wgmma tile width.
 Plan own_plan(int route, int dtype, int E, int C, int D, int F, int block_n) {
   const int64_t e = E;
@@ -1039,18 +1259,17 @@ Plan own_plan(int route, int dtype, int E, int C, int D, int F, int block_n) {
       return {route, tc::kTCols, tc::kDepth, tc::TSmem::ST, tc::kTThreads,
               persistent(units, tc::kTBlocksPerSM), 1, 1, tc::TSmem::bytes};
     }
+    case kTf32x3:
+      return C <= tf::Small::BM ? tf_plan<tf::Small>(E, C, F) : tf_plan<tf::Wide>(E, C, F);
     default: {
-      const bool fma = route == kFma;
-      const int64_t smem = dtype == 1 ? static_smem<__nv_bfloat16, false>()
-                           : fma     ? static_smem<float, true>()
-                                     : static_smem<float, false>();
-      return {route, BN, BK, fma ? kFmaStages : 1, kThreads,
-              static_cast<int>((F + BN - 1) / BN), static_cast<int>((C + BM - 1) / BM), E, smem};
+      const int64_t smem = dtype == 1 ? static_smem<__nv_bfloat16>() : static_smem<float>();
+      return {route, BN, BK, 1, kThreads, static_cast<int>((F + BN - 1) / BN),
+              static_cast<int>((C + BM - 1) / BM), E, smem};
     }
   }
 }
 
-template <typename T, bool kAsync>
+template <typename T>
 cudaError_t launch_cuda_cores(const void* buf, const void* w, void* out, int C, int D, int F,
                               const Plan& p, cudaStream_t stream) {
   constexpr int N = Vec<T>::N;
@@ -1060,7 +1279,7 @@ cudaError_t launch_cuda_cores(const void* buf, const void* w, void* out, int C, 
   const T* bp = static_cast<const T*>(buf);
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
-  moe_matmul_kernel<T, kAsync><<<grid, kThreads, 0, stream>>>(bp, wp, op, C, D, F, vec_a, vec_w);
+  moe_matmul_kernel<T><<<grid, kThreads, 0, stream>>>(bp, wp, op, C, D, F, vec_a, vec_w);
   return cudaGetLastError();
 }
 
@@ -1088,6 +1307,17 @@ cudaError_t configure_once(int64_t smem) {
   return cudaSuccess;
 }
 
+template <class S>
+cudaError_t launch_tf32x3(const void* buf, const void* w, void* out, int C, int D, int F,
+                          const Plan& p, cudaStream_t stream) {
+  constexpr auto kernel = tf::moe_matmul_tf32x3<S>;
+  cudaError_t err = configure_once<kernel>(p.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(p.grid_x, p.grid_y, p.grid_z), S::kThreads, p.smem, stream>>>(
+      static_cast<const float*>(buf), static_cast<const float*>(w), static_cast<float*>(out), C, D, F);
+  return cudaGetLastError();
+}
+
 template <auto kKernel>
 cudaError_t launch_tma(int a_rows, int o_rows, const void* buf, const void* w, void* out, int E,
                        int C, int D, int F, const Plan& p, cudaStream_t stream) {
@@ -1106,8 +1336,8 @@ cudaError_t launch_tma(int a_rows, int o_rows, const void* buf, const void* w, v
 
 // dtype: 0 = float32, 1 = bfloat16.  buf [E, C, D], w [E, D, F] and out
 // [E, C, F] are contiguous, of one dtype.  plan holds the launch plan of
-// kernels/moe_matmul.py as nine integers: route (0 wgmma, 1 wgmma_t, 2 fma,
-// 3 masked), block_n, block_k, stages, threads, grid x, y, z and shared
+// kernels/moe_matmul.py as nine integers: route (0 wgmma, 1 wgmma_t, 3
+// masked, 4 tf32x3), block_n, block_k, stages, threads, grid x, y, z and shared
 // memory bytes; a plan whose route is not the one these sizes and
 // alignments call for, or whose other fields are not that route's, is
 // refused with cudaErrorInvalidConfiguration.  Returns cudaGetLastError()
@@ -1126,7 +1356,7 @@ extern "C" int moe_matmul_fwd(int dtype, const int64_t* plan_in, const void* buf
   if (dtype == 1)
     want = aligned && d > 0 && d % 8 == 0 && f % 8 == 0 ? (c <= 32 ? kWgmmaT : kWgmma) : kMasked;
   else
-    want = aligned && d % 4 == 0 && f % 4 == 0 ? kFma : kMasked;
+    want = aligned && d % 4 == 0 && f % 4 == 0 ? kTf32x3 : kMasked;
   const int bn = d > f ? 256 : 128;  // the wgmma tile width: 256 for gate/up (D > F), 128 for down
   const Plan given{static_cast<int>(plan_in[0]), static_cast<int>(plan_in[1]),
                    static_cast<int>(plan_in[2]), static_cast<int>(plan_in[3]),
@@ -1145,10 +1375,13 @@ extern "C" int moe_matmul_fwd(int dtype, const int64_t* plan_in, const void* buf
     case kWgmmaT:
       err = launch_tma<tc::moe_matmul_wgmma_t>(tc::kTRows, tc::kTRows, buf, w, out, e, c, d, f, plan, s);
       break;
+    case kTf32x3:
+      err = c <= tf::Small::BM ? launch_tf32x3<tf::Small>(buf, w, out, c, d, f, plan, s)
+                               : launch_tf32x3<tf::Wide>(buf, w, out, c, d, f, plan, s);
+      break;
     default:
-      err = dtype == 1      ? launch_cuda_cores<__nv_bfloat16, false>(buf, w, out, c, d, f, plan, s)
-            : want == kFma ? launch_cuda_cores<float, true>(buf, w, out, c, d, f, plan, s)
-                           : launch_cuda_cores<float, false>(buf, w, out, c, d, f, plan, s);
+      err = dtype == 1 ? launch_cuda_cores<__nv_bfloat16>(buf, w, out, c, d, f, plan, s)
+                       : launch_cuda_cores<float>(buf, w, out, c, d, f, plan, s);
   }
   return static_cast<int>(err);
 }

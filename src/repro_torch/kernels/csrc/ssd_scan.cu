@@ -13,8 +13,9 @@
 // (2 HD N per row), against ~4 Q (N + HD) bytes of x, y and the state plus
 // B and C once per chunk.  At mamba2-130m's serving shapes (Q = 128..256,
 // N = 128, HD = 64) that is ~90 operations per byte, so the arithmetic
-// sets the card's least time: on f32 operands, the CUDA cores' 67 TFLOP/s
-// of FMAs, far below the tensor cores' 989 TFLOP/s of bf16.
+// sets the card's least time.  Both routes run it on the bf16 tensor cores
+// (989 TFLOP/s) with the f32 operands split into bf16 pieces, so each
+// product costs 3 (bf16 x) or 6 (f32 x) tensor-core products.
 //
 // Nothing of size Q x Q exists per head: the TPU kernel's [Q, Q] f32 mask
 // per (chunk, head) is 256 KB at Q = 256, more than a Hopper block's
@@ -30,21 +31,29 @@
 // (ssd_scan.py::launch_plan) and checked here.  Shared memory does not
 // grow with Q or N.
 //
-// bf16 x: tensor cores (namespace tc, 128 threads).  Every product runs on
-// mma.sync m16n8k16 (bf16 inputs, f32 accumulator), with each f32 operand
-// split into two bf16 halves (hi = bf16(v), lo = bf16(v - hi), ~16 bits of
-// mantissa together) and the products summed as hi*hi + hi*lo + lo*hi;
-// x, which bf16 holds exactly, needs no split.  That keeps ~1e-5 relative
-// error: the chunk state stays within its 1e-4 (chip_smoke.py and
-// tests/test_torch_gpu.py hold it), and the decayed scores are far more
-// precise than the bf16 rounding the JAX model gives them
-// (repro/models/ssm.py:103-105).  A y block computes the C B^T tile of its
-// rows into mma accumulators, which hold it in exactly the layout of the
-// A fragments of (C B^T o L) x, so each head of the group applies its decay
-// and splits the scores in registers; the heads' x tiles and cum values
-// arrive by cp.async while C B^T is being computed.  B and C are staged
-// in 64-wide slices of N, split as they are stored.  State blocks stage
-// x o exp(cum_last - cum) and B in 32-row slices, split the same way.
+// The forward (namespace tc, 128 threads) runs every product on mma.sync
+// m16n8k16 (bf16 inputs, f32 accumulator) with each f32 operand split into
+// P bf16 pieces, piece p = bf16(what pieces 0..p-1 left), keeping the
+// products of pieces i and j with i + j < P (tc::Pieces).  bf16 x ("mma"):
+// P = 2 (hi = bf16(v), lo = bf16(v - hi), ~16 bits of mantissa together;
+// products hi*hi + hi*lo + lo*hi) and x, which bf16 holds exactly, in one
+// piece.  That keeps ~1e-5 relative error: the chunk state stays within its
+// 1e-4 (chip_smoke.py and tests/test_torch_gpu.py hold it), and the decayed
+// scores are far more precise than the bf16 rounding the JAX model gives
+// them (repro/models/ssm.py:103-105).  f32 x ("mma3"): P = 3 for every
+// operand, x included: three pieces hold an f32 value exactly, and the six
+// products kept leave ~2^-24 relative error, as B8's f32 route; each
+// k-step's six products are summed from zero, the smallest first, and added
+// to the running sum in f32 (mma_route).  A y block
+// computes the C B^T tile of its rows into mma accumulators, which hold it
+// in exactly the layout of the A fragments of (C B^T o L) x, so each head
+// of the group applies its decay and splits the scores in registers; the
+// heads' x tiles and cum values arrive by cp.async while C B^T is being
+// computed (f32 x as f32 rows, split into its pieces over the C and B
+// slices once C B^T is done, so the f32 route's y blocks fit two an SM).  B
+// and C are staged in 64-wide slices of N, split as they are stored.  State
+// blocks stage x o exp(cum_last - cum) and B in 32-row slices, split the
+// same way.
 //
 // Backward (namespace bwd; no TPU counterpart: the JAX package
 // differentiates the plain scan).  Per (chunk, head), with G = C B^T,
@@ -84,13 +93,6 @@
 // (a sequence of one chunk): its terms are skipped.  N <= 128 (the reduce
 // stages a partner tile's rows of B or C whole).
 //
-// f32 x: CUDA-core FMAs throughout (namespace cc, 256 threads), so every
-// product stays f32.  y blocks keep up to 4 heads' accumulators in
-// registers and compute each C B^T tile once for them (FMAs over 32-deep
-// slices of N staged transposed, each thread a 4 x 4 piece fed by two
-// float4 loads per step); the decayed scores go through shared memory.
-// State blocks own 64 columns n, each thread a (HD/16) x 4 piece.
-
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,7 +102,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr int BQ = 64;  // rows q per y block; columns j per tile (both routes)
 
-// ------------------------------------------------------------------ bf16 --
+// --------------------------------------------------------------- forward --
 
 namespace tc {
 
@@ -111,18 +113,35 @@ constexpr int BJ = 32;         // rows j per state slice
 constexpr int BNS = 128;       // columns n per state block, 32 per warp
 constexpr int kS = BNK + 8;    // row stride (bf16) of the C and B slices: 16 bytes of pad
 constexpr int kBS = BNS + 8;   // row stride (bf16) of the state's B slice
+constexpr int kPiece = BQ * kS;  // bf16 elements of one piece of a C or B slice
 
+// The bf16 pieces an f32 operand (B, C, the decayed scores, x o w) is split into (P; of the
+// products of pieces i and j those with i + j < P are kept) and those of x (PX).  bf16 x
+// ("mma"): P = 2, x exact in one piece.  f32 x ("mma3"): three pieces hold an f32 value
+// exactly and the six products kept leave ~2^-24 relative error, as f32 FMAs do.
+template <typename T> struct Pieces;
+template <> struct Pieces<bf16> { static constexpr int P = 2, PX = 1; };
+template <> struct Pieces<float> { static constexpr int P = 3, PX = 3; };
+
+// y role: the C and B slices [P][64][kS] each; the group's x, bf16 as its tiles [heads][64][HD + 8]
+// (by cp.async), f32 as rows [heads][64][HD] (by cp.async) split after C B^T into three pieces
+// [heads][3][64][HD + 8] laid over the C and B slices, which C B^T no longer needs; cum
+// [heads][64].  State role: x o exp(cum_last - cum) and B slices [P][32][HD + 8] and [P][32][kBS].
+template <typename T>
 __host__ __device__ constexpr size_t smem_bytes(int HD) {
-  const size_t y_role = 2 * (4 * BQ * kS + kMaxHeads * BQ * (HD + 8)) + 4 * kMaxHeads * BQ;
-  const size_t state_role = 2 * (2 * BJ * (HD + 8) + 2 * BJ * kBS);
+  constexpr int P = Pieces<T>::P;
+  const size_t x_tiles = sizeof(T) == 2 ? 2 * kMaxHeads * BQ * (HD + 8) : 4 * kMaxHeads * BQ * HD;
+  const size_t y_role = 2 * 2 * P * kPiece + x_tiles + 4 * kMaxHeads * BQ;
+  const size_t state_role = 2 * P * BJ * (HD + 8 + kBS);
   return y_role > state_role ? y_role : state_role;
 }
+static_assert(kMaxHeads * 3 * BQ * (64 + 8) <= 2 * 3 * kPiece, "f32 x pieces fit over the slices");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-// 16 (or 4) bytes from global to shared memory, asynchronously; bytes = 0
-// writes zeros and reads nothing (src must still be a valid address).
+// 16 (or 4) bytes from global to shared memory, asynchronously; bytes = 0 writes
+// zeros and reads nothing (src must still be a valid address).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(bytes));
@@ -153,13 +172,56 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-// (v0, v1) as two bf16 halves each: hi = bf16(v), lo = bf16(v - hi)
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+// (v0, v1) as P bf16 pieces each: piece p = bf16(what pieces 0..p-1 left)
+template <int P>
+__device__ __forceinline__ void split(float v0, float v1, uint32_t (&out)[P]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+    out[p] = *reinterpret_cast<const uint32_t*>(&h);
+    const float2 f = __bfloat1622float2(h);
+    v0 -= f.x;
+    v1 -= f.y;
+  }
+}
+// d += a b over the pieces (the n8 half of b's x4 registers), the larger products first
+template <int P, int PA, int PB>
+__device__ __forceinline__ void mma_pieces(float (&d)[4], const uint32_t (&a)[PA][4],
+                                           const uint32_t (&b)[PB][4], int half) {
+#pragma unroll
+  for (int i = 0; i < PA; ++i)
+#pragma unroll
+    for (int j = 0; j < PB; ++j)
+      if (i + j < P) mma_bf16(d, a[i], b[j][2 * half], b[j][2 * half + 1]);
+}
+// d += a b over the pieces as each route sums them.  bf16 x: mma_pieces into d.  f32 x: the
+// tensor cores add a product into an f32 accumulator with truncation, which over a chunk's
+// hundreds of products strayed ~4e-5 from f32's sum of y (an H100, PERF.md); so each k-step's
+// six products start from zero, the smallest first (i + j = 2, then 1, then the hi hi
+// product), and join d by an f32 add.
+template <bool kF32, int P, int PA, int PB>
+__device__ __forceinline__ void mma_route(float (&d)[4], const uint32_t (&a)[PA][4],
+                                          const uint32_t (&b)[PB][4], int half) {
+  if constexpr (!kF32) {
+    mma_pieces<P, PA, PB>(d, a, b, half);
+  } else {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int sum = P - 1; sum >= 0; --sum)
+#pragma unroll
+      for (int i = 0; i <= sum; ++i)
+        if (i < PA && sum - i < PB) mma_bf16(s, a[i], b[sum - i][2 * half], b[sum - i][2 * half + 1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += s[e];
+  }
+}
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // ldmatrix x4 lane addresses.  "ar/ac": A operands stored [m][k] and B
@@ -175,12 +237,12 @@ struct Lanes {
 };
 
 // rows [r0, r0 + nrows) x columns [c0, c0 + 4 * n4) of a row-major f32
-// matrix (ld elements, rows < R and columns < Cn valid) split into two
-// bf16 tiles with row stride ldt; zero outside.
-template <int nrows, int n4>
+// matrix (ld elements, rows < R and columns < Cn valid) split into P bf16
+// pieces with row stride ldt, piece p at dst + p * piece; zero outside.
+template <int P, int nrows, int n4>
 __device__ __forceinline__ void stage_split(const float* __restrict__ src, int64_t ld, int r0,
-                                            int R, int c0, int Cn, bool vec, bf16* hi, bf16* lo,
-                                            int ldt) {
+                                            int R, int c0, int Cn, bool vec, bf16* dst, int ldt,
+                                            int piece) {
   for (int i = threadIdx.x; i < nrows * n4; i += kThreads) {
     const int r = i / n4, c = (i % n4) * 4;
     float v[4] = {0.f, 0.f, 0.f, 0.f};
@@ -196,29 +258,32 @@ __device__ __forceinline__ void stage_split(const float* __restrict__ src, int64
         for (int e = 0; e < 4; ++e) v[e] = c0 + c + e < Cn ? p[e] : 0.f;
       }
     }
-    uint2 h, l;
-    split2(v[0], v[1], h.x, l.x);
-    split2(v[2], v[3], h.y, l.y);
-    *reinterpret_cast<uint2*>(hi + r * ldt + c) = h;
-    *reinterpret_cast<uint2*>(lo + r * ldt + c) = l;
+    uint32_t lo[P], hi[P];
+    split<P>(v[0], v[1], lo);
+    split<P>(v[2], v[3], hi);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      *reinterpret_cast<uint2*>(dst + p * piece + r * ldt + c) = make_uint2(lo[p], hi[p]);
   }
 }
 
 // y rows [q0, q0 + 64) of heads [h0, h0 + nh) of one chunk.  Warp w owns
 // rows q0 + 16w .. q0 + 16w + 15.
-template <int HD>
-__device__ __forceinline__ void y_block(const bf16* __restrict__ xi, const float* __restrict__ bi,
+template <typename T, int HD>
+__device__ __forceinline__ void y_block(const T* __restrict__ xi, const float* __restrict__ bi,
                                         const float* __restrict__ ci,
-                                        const float* __restrict__ cumi, bf16* __restrict__ yi,
+                                        const float* __restrict__ cumi, T* __restrict__ yi,
                                         int Q, int N, int q0, int h0, int nh, bool vec_bc,
                                         bool vec_x, unsigned char* smem) {
-  constexpr int kX = HD + 8;
-  bf16* Chi = reinterpret_cast<bf16*>(smem);  // [BQ][kS] C rows q0.., one slice of N
-  bf16* Clo = Chi + BQ * kS;
-  bf16* Bhi = Clo + BQ * kS;                  // [BQ][kS] B rows j0.., the same slice
-  bf16* Blo = Bhi + BQ * kS;
-  bf16* Xs = Blo + BQ * kS;                   // [kMaxHeads][BQ][kX] x rows j0..
-  float* cjs = reinterpret_cast<float*>(Xs + kMaxHeads * BQ * kX);  // [kMaxHeads][BQ]
+  constexpr int P = Pieces<T>::P, PX = Pieces<T>::PX, kX = HD + 8;
+  constexpr bool kF32 = sizeof(T) == 4;
+  bf16* Cs = reinterpret_cast<bf16*>(smem);  // [P][BQ][kS] C rows q0.., one slice of N
+  bf16* Bs = Cs + P * kPiece;                 // [P][BQ][kS] B rows j0.., the same slice
+  // [kMaxHeads][PX][BQ][kX] x rows j0..: bf16 after the slices, f32 split over them
+  bf16* Xs = kF32 ? Cs : Bs + P * kPiece;
+  float* Xraw = reinterpret_cast<float*>(Bs + P * kPiece);  // f32: [kMaxHeads][BQ][HD] as loaded
+  float* cjs = kF32 ? Xraw + kMaxHeads * BQ * HD
+                    : reinterpret_cast<float*>(Xs + kMaxHeads * BQ * kX);  // [kMaxHeads][BQ]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const Lanes L(lane);
   const int r0 = warp * 16 + g;  // this thread's rows r0 and r0 + 8 of the tile
@@ -241,17 +306,19 @@ __device__ __forceinline__ void y_block(const bf16* __restrict__ xi, const float
     __syncthreads();  // every warp is done with the previous tile's x
     // the heads' x tiles and cum values fly while C B^T is computed
     for (int hh = 0; hh < nh; ++hh) {
-      const bf16* xh = xi + static_cast<int64_t>(h0 + hh) * Q * HD;
-      bf16* X = Xs + hh * BQ * kX;
-      for (int i = threadIdx.x; i < BQ * HD / 8; i += kThreads) {
-        const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+      const T* xh = xi + static_cast<int64_t>(h0 + hh) * Q * HD;
+      constexpr int kV = 16 / sizeof(T);  // elements of a 16-byte copy
+      T* X = kF32 ? reinterpret_cast<T*>(Xraw + hh * BQ * HD) : reinterpret_cast<T*>(Xs + hh * BQ * kX);
+      constexpr int kLd = kF32 ? HD : kX;
+      for (int i = threadIdx.x; i < BQ * HD / kV; i += kThreads) {
+        const int r = i / (HD / kV), c = (i % (HD / kV)) * kV;
         const bool ok = j0 + r < Q;
-        const bf16* src = xh + static_cast<int64_t>(ok ? j0 + r : 0) * HD + c;
+        const T* src = xh + static_cast<int64_t>(ok ? j0 + r : 0) * HD + c;
         if (vec_x) {
-          cp_async16(X + r * kX + c, src, ok ? 16 : 0);
+          cp_async16(X + r * kLd + c, src, ok ? 16 : 0);
         } else {
 #pragma unroll
-          for (int e = 0; e < 8; ++e) X[r * kX + c + e] = ok ? src[e] : __float2bfloat16(0.f);
+          for (int e = 0; e < kV; ++e) X[r * kLd + c + e] = ok ? src[e] : T(0.f);
         }
       }
       if (threadIdx.x < BQ) {
@@ -272,40 +339,53 @@ __device__ __forceinline__ void y_block(const bf16* __restrict__ xi, const float
       for (int e = 0; e < 4; ++e) cb[n][e] = 0.f;
     for (int n0 = 0; n0 < N; n0 += BNK) {
       if (n0 > 0) __syncthreads();  // the previous slice is consumed
-      stage_split<BQ, BNK / 4>(ci, N, q0, Q, n0, N, vec_bc, Chi, Clo, kS);
-      stage_split<BQ, BNK / 4>(bi, N, j0, Q, n0, N, vec_bc, Bhi, Blo, kS);
+      stage_split<P, BQ, BNK / 4>(ci, N, q0, Q, n0, N, vec_bc, Cs, kS, kPiece);
+      stage_split<P, BQ, BNK / 4>(bi, N, j0, Q, n0, N, vec_bc, Bs, kS, kPiece);
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < BNK / 16; ++kk) {
-        uint32_t chi[4], clo[4];
-        ldmatrix_x4(chi, Chi + (warp * 16 + L.ar) * kS + kk * 16 + L.ac);
-        ldmatrix_x4(clo, Clo + (warp * 16 + L.ar) * kS + kk * 16 + L.ac);
+        uint32_t cf[P][4];
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          ldmatrix_x4(cf[p], Cs + p * kPiece + (warp * 16 + L.ar) * kS + kk * 16 + L.ac);
 #pragma unroll
         for (int nj = 0; nj < 4; ++nj) {
-          uint32_t bh[4], bl[4];
-          ldmatrix_x4(bh, Bhi + (nj * 16 + L.kr) * kS + kk * 16 + L.kc);
-          ldmatrix_x4(bl, Blo + (nj * 16 + L.kr) * kS + kk * 16 + L.kc);
-          mma_bf16(cb[2 * nj], chi, bh[0], bh[1]);
-          mma_bf16(cb[2 * nj + 1], chi, bh[2], bh[3]);
-          mma_bf16(cb[2 * nj], chi, bl[0], bl[1]);
-          mma_bf16(cb[2 * nj + 1], chi, bl[2], bl[3]);
-          mma_bf16(cb[2 * nj], clo, bh[0], bh[1]);
-          mma_bf16(cb[2 * nj + 1], clo, bh[2], bh[3]);
+          uint32_t bf[P][4];
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+            ldmatrix_x4(bf[p], Bs + p * kPiece + (nj * 16 + L.kr) * kS + kk * 16 + L.kc);
+          mma_route<kF32, P>(cb[2 * nj], cf, bf, 0);
+          mma_route<kF32, P>(cb[2 * nj + 1], cf, bf, 1);
         }
       }
     }
     cp_async_wait_all();
     __syncthreads();  // x tiles and cum values are visible to every warp
+    if constexpr (kF32) {  // f32 x into its three pieces, over the slices C B^T has consumed
+      for (int hh = 0; hh < nh; ++hh)
+        for (int i = threadIdx.x; i < BQ * HD / 4; i += kThreads) {
+          const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+          const float4 v = *reinterpret_cast<const float4*>(Xraw + hh * BQ * HD + r * HD + c);
+          uint32_t lo[P], hi[P];
+          split<P>(v.x, v.y, lo);
+          split<P>(v.z, v.w, hi);
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+            *reinterpret_cast<uint2*>(Xs + (hh * PX + p) * BQ * kX + r * kX + c) =
+                make_uint2(lo[p], hi[p]);
+        }
+      __syncthreads();
+    }
 
-    // each head: S = C B^T o L in two bf16 halves, y += S x
+    // each head: S = C B^T o L in P bf16 pieces, y += S x
 #pragma unroll
     for (int hh = 0; hh < kMaxHeads; ++hh) {
       if (hh >= nh) break;
       const float* cj = cjs + hh * BQ;
-      const bf16* X = Xs + hh * BQ * kX;
+      const bf16* X = Xs + hh * PX * BQ * kX;
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t ahi[4], alo[4];
+        uint32_t a[P][4];
 #pragma unroll
         for (int f = 0; f < 4; ++f) {  // A register f: row r0 + 8 (f % 2), columns + 8 (f / 2)
           const float* s = cb[2 * kk + (f >> 1)] + 2 * (f & 1);
@@ -316,16 +396,19 @@ __device__ __forceinline__ void y_block(const bf16* __restrict__ xi, const float
           // exp only where q >= j (both inside the chunk)
           const float s0 = (q >= j && q < Q) ? s[0] * expf(cqv - cjv.x) : 0.f;
           const float s1 = (q >= j + 1 && q < Q) ? s[1] * expf(cqv - cjv.y) : 0.f;
-          split2(s0, s1, ahi[f], alo[f]);
+          uint32_t sp[P];
+          split<P>(s0, s1, sp);
+#pragma unroll
+          for (int p = 0; p < P; ++p) a[p][f] = sp[p];
         }
 #pragma unroll
         for (int dn = 0; dn < HD / 16; ++dn) {
-          uint32_t xb[4];
-          ldmatrix_x4_trans(xb, X + (kk * 16 + L.ar) * kX + dn * 16 + L.ac);
-          mma_bf16(acc[hh][2 * dn], ahi, xb[0], xb[1]);
-          mma_bf16(acc[hh][2 * dn + 1], ahi, xb[2], xb[3]);
-          mma_bf16(acc[hh][2 * dn], alo, xb[0], xb[1]);
-          mma_bf16(acc[hh][2 * dn + 1], alo, xb[2], xb[3]);
+          uint32_t xb[PX][4];
+#pragma unroll
+          for (int p = 0; p < PX; ++p)
+            ldmatrix_x4_trans(xb[p], X + p * BQ * kX + (kk * 16 + L.ar) * kX + dn * 16 + L.ac);
+          mma_route<kF32, P>(acc[hh][2 * dn], a, xb, 0);
+          mma_route<kF32, P>(acc[hh][2 * dn + 1], a, xb, 1);
         }
       }
     }
@@ -334,15 +417,15 @@ __device__ __forceinline__ void y_block(const bf16* __restrict__ xi, const float
 #pragma unroll
   for (int hh = 0; hh < kMaxHeads; ++hh) {
     if (hh >= nh) break;
-    bf16* yh = yi + static_cast<int64_t>(h0 + hh) * Q * HD;
+    T* yh = yi + static_cast<int64_t>(h0 + hh) * Q * HD;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int q = q0 + r0 + 8 * half;
       if (q < Q) {
 #pragma unroll
         for (int n = 0; n < HD / 8; ++n)
-          *reinterpret_cast<__nv_bfloat162*>(yh + static_cast<int64_t>(q) * HD + 8 * n + 2 * t) =
-              __floats2bfloat162_rn(acc[hh][n][2 * half], acc[hh][n][2 * half + 1]);
+          store2(yh + static_cast<int64_t>(q) * HD + 8 * n + 2 * t, acc[hh][n][2 * half],
+                 acc[hh][n][2 * half + 1]);
       }
     }
   }
@@ -350,17 +433,16 @@ __device__ __forceinline__ void y_block(const bf16* __restrict__ xi, const float
 
 // state columns [n0, n0 + BNS) of one (chunk, head): sum over all rows j.
 // Warp w owns columns n0 + 32w .. n0 + 32w + 31 and all HD rows d.
-template <int HD>
-__device__ __forceinline__ void state_block(const bf16* __restrict__ xh,
+template <typename T, int HD>
+__device__ __forceinline__ void state_block(const T* __restrict__ xh,
                                             const float* __restrict__ bi,
                                             const float* __restrict__ cumh,
                                             float* __restrict__ sth, int Q, int N, int n0,
                                             bool vec_bc, unsigned char* smem) {
-  constexpr int kXW = HD + 8, MT = HD / 16;
-  bf16* XWhi = reinterpret_cast<bf16*>(smem);  // [BJ][kXW] x o exp(cum_last - cum), rows j0..
-  bf16* XWlo = XWhi + BJ * kXW;
-  bf16* Bhi = XWlo + BJ * kXW;                 // [BJ][kBS] B rows j0.., columns n0..
-  bf16* Blo = Bhi + BJ * kBS;
+  constexpr int P = Pieces<T>::P, kXW = HD + 8, MT = HD / 16;
+  constexpr bool kF32 = sizeof(T) == 4;
+  bf16* XW = reinterpret_cast<bf16*>(smem);  // [P][BJ][kXW] x o exp(cum_last - cum), rows j0..
+  bf16* Bs = XW + P * BJ * kXW;               // [P][BJ][kBS] B rows j0.., columns n0..
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const Lanes L(lane);
   const float c_last = cumh[Q - 1];
@@ -380,38 +462,35 @@ __device__ __forceinline__ void state_block(const bf16* __restrict__ xh,
       float v0 = 0.f, v1 = 0.f;
       if (j < Q) {
         const float w = expf(c_last - cumh[j]);
-        const bf16* xr = xh + static_cast<int64_t>(j) * HD + d;
-        v0 = __bfloat162float(xr[0]) * w;
-        v1 = __bfloat162float(xr[1]) * w;
+        const T* xr = xh + static_cast<int64_t>(j) * HD + d;
+        v0 = to_float(xr[0]) * w;
+        v1 = to_float(xr[1]) * w;
       }
-      uint32_t h, l;
-      split2(v0, v1, h, l);
-      *reinterpret_cast<uint32_t*>(XWhi + r * kXW + d) = h;
-      *reinterpret_cast<uint32_t*>(XWlo + r * kXW + d) = l;
+      uint32_t s[P];
+      split<P>(v0, v1, s);
+#pragma unroll
+      for (int p = 0; p < P; ++p) *reinterpret_cast<uint32_t*>(XW + p * BJ * kXW + r * kXW + d) = s[p];
     }
-    stage_split<BJ, BNS / 4>(bi, N, j0, Q, n0, N, vec_bc, Bhi, Blo, kBS);
+    stage_split<P, BJ, BNS / 4>(bi, N, j0, Q, n0, N, vec_bc, Bs, kBS, BJ * kBS);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BJ / 16; ++kk) {
-      uint32_t ah[MT][4], al[MT][4];  // A[d][j] from XW[j][d] through .trans
+      uint32_t ah[MT][P][4];  // A[d][j] from XW[j][d] through .trans
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        ldmatrix_x4_trans(ah[m], XWhi + (kk * 16 + L.kr) * kXW + m * 16 + L.kc);
-        ldmatrix_x4_trans(al[m], XWlo + (kk * 16 + L.kr) * kXW + m * 16 + L.kc);
-      }
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          ldmatrix_x4_trans(ah[m][p], XW + p * BJ * kXW + (kk * 16 + L.kr) * kXW + m * 16 + L.kc);
 #pragma unroll
       for (int nj = 0; nj < 2; ++nj) {
-        uint32_t bh[4], bl[4];
-        ldmatrix_x4_trans(bh, Bhi + (kk * 16 + L.ar) * kBS + warp * 32 + nj * 16 + L.ac);
-        ldmatrix_x4_trans(bl, Blo + (kk * 16 + L.ar) * kBS + warp * 32 + nj * 16 + L.ac);
+        uint32_t bh[P][4];
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          ldmatrix_x4_trans(bh[p], Bs + p * BJ * kBS + (kk * 16 + L.ar) * kBS + warp * 32 + nj * 16 + L.ac);
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
-          mma_bf16(acc[m][2 * nj], ah[m], bh[0], bh[1]);
-          mma_bf16(acc[m][2 * nj + 1], ah[m], bh[2], bh[3]);
-          mma_bf16(acc[m][2 * nj], ah[m], bl[0], bl[1]);
-          mma_bf16(acc[m][2 * nj + 1], ah[m], bl[2], bl[3]);
-          mma_bf16(acc[m][2 * nj], al[m], bh[0], bh[1]);
-          mma_bf16(acc[m][2 * nj + 1], al[m], bh[2], bh[3]);
+          mma_route<kF32, P>(acc[m][2 * nj], ah[m], bh, 0);
+          mma_route<kF32, P>(acc[m][2 * nj + 1], ah[m], bh, 1);
         }
       }
     }
@@ -431,10 +510,10 @@ __device__ __forceinline__ void state_block(const bf16* __restrict__ xh,
 // grid (y blocks + state blocks, BNC).  y blocks: row tiles last-first (the
 // longest causal rows start first), head groups fastest; then state blocks,
 // (head, column tile).
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
-ssd_kernel(const bf16* __restrict__ x, const float* __restrict__ b, const float* __restrict__ c,
-           const float* __restrict__ cum, bf16* __restrict__ y, float* __restrict__ state, int H,
+ssd_kernel(const T* __restrict__ x, const float* __restrict__ b, const float* __restrict__ c,
+           const float* __restrict__ cum, T* __restrict__ y, float* __restrict__ state, int H,
            int Q, int N, int heads_per_block) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int64_t i = blockIdx.y;
@@ -450,225 +529,18 @@ ssd_kernel(const bf16* __restrict__ x, const float* __restrict__ b, const float*
     const int q0 = (row_tiles - 1 - bx / groups) * BQ;
     const int h0 = (bx % groups) * heads_per_block;
     const bool vec_x = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-    y_block<HD>(x + i * H * Q * HD, bi, ci, cum + i * H * Q, y + i * H * Q * HD, Q, N, q0, h0,
-                min(heads_per_block, H - h0), vec_bc, vec_x, smem);
+    y_block<T, HD>(x + i * H * Q * HD, bi, ci, cum + i * H * Q, y + i * H * Q * HD, Q, N, q0, h0,
+                   min(heads_per_block, H - h0), vec_bc, vec_x, smem);
   } else {
     const int n_tiles = (N + BNS - 1) / BNS;
     const int s = bx - y_blocks, h = s / n_tiles;
     const int64_t ih = i * H + h;
-    state_block<HD>(x + ih * Q * HD, bi, cum + ih * Q, state + ih * HD * N, Q, N,
-                    (s % n_tiles) * BNS, vec_bc, smem);
+    state_block<T, HD>(x + ih * Q * HD, bi, cum + ih * Q, state + ih * HD * N, Q, N,
+                       (s % n_tiles) * BNS, vec_bc, smem);
   }
 }
 
 }  // namespace tc
-
-// ------------------------------------------------------------------- f32 --
-
-namespace cc {
-
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kMaxHeads = 4;   // heads per y block
-constexpr int BN = 32;         // depth of one C B^T slice of N
-constexpr int BJ = 64;         // rows j per state slice
-constexpr int BNS = 64;        // columns n per state block
-constexpr int kT = BQ + 4;     // row stride of the transposed C and B slices and of S^T
-constexpr int kCB = BQ + 1;    // row stride of the C B^T tile
-
-__host__ __device__ constexpr size_t smem_bytes(int HD) {
-  const size_t y_role = 4 * (2 * BN * kT + BQ * kCB + BQ * kT + BQ * (HD + 4) + 2 * BQ);
-  const size_t state_role = 4 * (BJ * HD + BJ * BNS);
-  return y_role > state_role ? y_role : state_role;
-}
-
-// y rows [q0, q0 + 64) of heads [h0, h0 + nh) of one chunk.
-template <int HD>
-__device__ __forceinline__ void y_block(const float* __restrict__ xi, const float* __restrict__ bi,
-                                        const float* __restrict__ ci,
-                                        const float* __restrict__ cumi, float* __restrict__ yi,
-                                        int Q, int N, int q0, int h0, int nh, float* smem) {
-  constexpr int KD = HD / 16, kX = HD + 4;
-  float* Ct = smem;           // [BN][kT]  C rows q0.., one slice of N, transposed
-  float* Bt = Ct + BN * kT;   // [BN][kT]  B rows j0.., the same slice
-  float* CB = Bt + BN * kT;   // [BQ][kCB] C B^T tile
-  float* St = CB + BQ * kCB;  // [BQ][kT]  S^T [j][q] of one head
-  float* Xs = St + BQ * kT;   // [BQ][kX]  x rows j0.. of one head
-  float* cj = Xs + BQ * kX;   // [BQ]      cum of columns j0.. of one head
-  float* cq = cj + BQ;        // [BQ]      cum of rows q0.. of one head
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-
-  float acc[kMaxHeads][KD][4];  // rows ty*4 + a, columns tx*KD + k
-#pragma unroll
-  for (int hh = 0; hh < kMaxHeads; ++hh)
-#pragma unroll
-    for (int k = 0; k < KD; ++k)
-#pragma unroll
-      for (int a = 0; a < 4; ++a) acc[hh][k][a] = 0.f;
-
-  const int j_end = min(Q, q0 + BQ);  // causal: columns past the block's last row add nothing
-  for (int j0 = 0; j0 < j_end; j0 += BQ) {
-    // C B^T tile: rows ty*4 + a, columns tx*4 + b
-    float cb[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) cb[a][b] = 0.f;
-    for (int n0 = 0; n0 < N; n0 += BN) {
-      __syncthreads();  // the previous slice (or head loop) is consumed
-      for (int i = tid; i < BQ * BN; i += kThreads) {
-        const int r = i / BN, n = n0 + i % BN;  // a warp reads 32 n of one row
-        Ct[(i % BN) * kT + r] = (q0 + r < Q && n < N) ? ci[static_cast<int64_t>(q0 + r) * N + n] : 0.f;
-        Bt[(i % BN) * kT + r] = (j0 + r < Q && n < N) ? bi[static_cast<int64_t>(j0 + r) * N + n] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int n = 0; n < BN; ++n) {
-        const float4 cv = *reinterpret_cast<const float4*>(Ct + n * kT + ty * 4);
-        const float4 bv = *reinterpret_cast<const float4*>(Bt + n * kT + tx * 4);
-        const float c4[4] = {cv.x, cv.y, cv.z, cv.w}, b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) cb[a][b] = fmaf(c4[a], b4[b], cb[a][b]);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) CB[(ty * 4 + a) * kCB + tx * 4 + b] = cb[a][b];
-
-#pragma unroll
-    for (int hh = 0; hh < kMaxHeads; ++hh) {  // unrolled: acc[hh] stays in registers
-      if (hh >= nh) break;
-      const float* xh = xi + static_cast<int64_t>(h0 + hh) * Q * HD;
-      const float* cumh = cumi + static_cast<int64_t>(h0 + hh) * Q;
-      __syncthreads();  // CB is written; the previous head's S and x are consumed
-      for (int i = tid; i < BQ * HD; i += kThreads) {
-        const int r = i / HD, d = i % HD;
-        Xs[r * kX + d] = j0 + r < Q ? xh[static_cast<int64_t>(j0 + r) * HD + d] : 0.f;
-      }
-      if (tid < BQ) cj[tid] = j0 + tid < Q ? cumh[j0 + tid] : 0.f;
-      else if (tid < 2 * BQ) cq[tid - BQ] = q0 + tid - BQ < Q ? cumh[q0 + tid - BQ] : 0.f;
-      __syncthreads();
-      for (int i = tid; i < BQ * BQ; i += kThreads) {
-        const int r = i % BQ, c = i / BQ, q = q0 + r, j = j0 + c;
-        // exp only where q >= j (both inside the chunk)
-        St[c * kT + r] = (q >= j && q < Q) ? CB[r * kCB + c] * expf(cq[r] - cj[c]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < BQ; ++c) {
-        const float4 sv = *reinterpret_cast<const float4*>(St + c * kT + ty * 4);
-        const float s4[4] = {sv.x, sv.y, sv.z, sv.w};
-        float xv[KD];
-#pragma unroll
-        for (int k = 0; k < KD; ++k) xv[k] = Xs[c * kX + tx * KD + k];
-#pragma unroll
-        for (int k = 0; k < KD; ++k)
-#pragma unroll
-          for (int a = 0; a < 4; ++a) acc[hh][k][a] = fmaf(s4[a], xv[k], acc[hh][k][a]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < kMaxHeads; ++hh) {
-    if (hh >= nh) break;
-    float* yh = yi + static_cast<int64_t>(h0 + hh) * Q * HD;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int q = q0 + ty * 4 + a;
-      if (q < Q) {
-#pragma unroll
-        for (int k = 0; k < KD; ++k) yh[static_cast<int64_t>(q) * HD + tx * KD + k] = acc[hh][k][a];
-      }
-    }
-  }
-}
-
-// state columns [n0, n0 + BNS) of one (chunk, head): sum over all rows j.
-template <int HD>
-__device__ __forceinline__ void state_block(const float* __restrict__ xh,
-                                            const float* __restrict__ bi,
-                                            const float* __restrict__ cumh,
-                                            float* __restrict__ sth, int Q, int N, int n0,
-                                            float* smem) {
-  constexpr int KD = HD / 16;
-  float* Xs = smem;           // [BJ][HD]  x rows j0.. times exp(cum_last - cum_j)
-  float* Bs = Xs + BJ * HD;   // [BJ][BNS] B rows j0.., columns n0..
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float c_last = cumh[Q - 1];
-
-  float acc[KD][4];
-#pragma unroll
-  for (int k = 0; k < KD; ++k)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[k][b] = 0.f;
-
-  for (int j0 = 0; j0 < Q; j0 += BJ) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < BJ * HD; idx += kThreads) {
-      const int r = idx / HD, d = idx - r * HD;
-      const int j = j0 + r;
-      Xs[idx] = j < Q ? xh[static_cast<int64_t>(j) * HD + d] * expf(c_last - cumh[j]) : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < BJ * BNS; idx += kThreads) {
-      const int r = idx / BNS, n = n0 + idx - r * BNS;
-      Bs[idx] = (j0 + r < Q && n < N) ? bi[static_cast<int64_t>(j0 + r) * N + n] : 0.f;
-    }
-    __syncthreads();
-    // state[d][n] += sum_j xw[j][d] B[j][n] for d = ty + 16 k, n = tx + 16 b
-#pragma unroll 4
-    for (int r = 0; r < BJ; ++r) {
-      float xv[KD], bv[4];
-#pragma unroll
-      for (int k = 0; k < KD; ++k) xv[k] = Xs[r * HD + ty + 16 * k];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = Bs[r * BNS + tx + 16 * b];
-#pragma unroll
-      for (int k = 0; k < KD; ++k)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[k][b] = fmaf(xv[k], bv[b], acc[k][b]);
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < KD; ++k)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int n = n0 + tx + 16 * b;
-      if (n < N) sth[static_cast<int64_t>(ty + 16 * k) * N + n] = acc[k][b];
-    }
-}
-
-// grid as tc::ssd_kernel's
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-ssd_kernel(const float* __restrict__ x, const float* __restrict__ b, const float* __restrict__ c,
-           const float* __restrict__ cum, float* __restrict__ y, float* __restrict__ state, int H,
-           int Q, int N, int heads_per_block) {
-  extern __shared__ __align__(16) float smem_f[];
-  const int64_t i = blockIdx.y;
-  const int row_tiles = (Q + BQ - 1) / BQ;
-  const int groups = (H + heads_per_block - 1) / heads_per_block;
-  const int y_blocks = row_tiles * groups;
-  const int bx = blockIdx.x;
-  const float* bi = b + i * Q * N;
-  if (bx < y_blocks) {
-    const int q0 = (row_tiles - 1 - bx / groups) * BQ;
-    const int h0 = (bx % groups) * heads_per_block;
-    y_block<HD>(x + i * H * Q * HD, bi, c + i * Q * N, cum + i * H * Q, y + i * H * Q * HD, Q, N,
-                q0, h0, min(heads_per_block, H - h0), smem_f);
-  } else {
-    const int n_tiles = (N + BNS - 1) / BNS;
-    const int s = bx - y_blocks, h = s / n_tiles;
-    const int64_t ih = i * H + h;
-    state_block<HD>(x + ih * Q * HD, bi, cum + ih * Q, state + ih * HD * N, Q, N,
-                    (s % n_tiles) * BNS, smem_f);
-  }
-}
-
-}  // namespace cc
 
 
 // ------------------------------------------------------------- backward --
@@ -683,6 +555,9 @@ using tc::Lanes;
 using tc::ldmatrix_x4;
 using tc::ldmatrix_x4_trans;
 using tc::mma_bf16;
+using tc::mma_pieces;
+using tc::split;
+using tc::store2;
 
 constexpr int kThreads = 128;      // main blocks: warp w owns rows 16w.. of the k tile
 constexpr int kRedThreads = 256;   // reduce blocks: two teams of 4 warps, each its own partners
@@ -694,13 +569,12 @@ constexpr int kS = BN + 8;         // row stride (bf16) of the 64-wide tiles: 16
 constexpr int kO = kMaxState + 8;  // row stride (bf16) of the reduce's B or C rows
 constexpr int kTile = BQ * kS;     // bf16 elements of one piece of a [64][kS] tile
 
-// The bf16 pieces an f32 operand is split into (P; of the products of pieces i and j those with
-// i + j < P are kept), those of x and dy (PX), and the heads a main block takes at most.  bf16 x:
-// P = 2 as the forward's tensor-core route, x and dy exact in one piece.  f32 x: three pieces hold
-// an f32 value exactly, and the six products kept leave ~2^-24 relative error, as f32 FMAs do.
+// The forward's pieces (tc::Pieces: P of every f32 operand, PX of x and dy) and the heads a main
+// block takes at most: two on bf16 x, one on f32 x, whose three-piece x and dy tiles fill shared
+// memory.
 template <typename T> struct Route;
-template <> struct Route<bf16> { static constexpr int P = 2, PX = 1, kMaxHeads = 2; };
-template <> struct Route<float> { static constexpr int P = 3, PX = 3, kMaxHeads = 1; };
+template <> struct Route<bf16> : tc::Pieces<bf16> { static constexpr int kMaxHeads = 2; };
+template <> struct Route<float> : tc::Pieces<float> { static constexpr int kMaxHeads = 1; };
 
 // main: B and C slices [P][64][kS]; the group's x and dy tiles [kMaxHeads][PX][64][HD + 8];
 // cum [kMaxHeads][64]
@@ -721,30 +595,8 @@ __host__ __device__ constexpr size_t reduce_smem_bytes() {
   return 2 * reduce_team_bytes<P>();
 }
 
-// (v0, v1) as P bf16 pieces each: piece p = bf16(what pieces 0..p-1 left)
-template <int P>
-__device__ __forceinline__ void split(float v0, float v1, uint32_t (&out)[P]) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-    out[p] = *reinterpret_cast<const uint32_t*>(&h);
-    const float2 f = __bfloat1622float2(h);
-    v0 -= f.x;
-    v1 -= f.y;
-  }
-}
 __device__ __forceinline__ float2 to_f2(uint32_t r) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
-}
-// d += a b over the pieces (the n8 half of b's x4 registers), the larger products first
-template <int P, int PA, int PB>
-__device__ __forceinline__ void mma_pieces(float (&d)[4], const uint32_t (&a)[PA][4],
-                                           const uint32_t (&b)[PB][4], int half) {
-#pragma unroll
-  for (int i = 0; i < PA; ++i)
-#pragma unroll
-    for (int j = 0; j < PB; ++j)
-      if (i + j < P) mma_bf16(d, a[i], b[j][2 * half], b[j][2 * half + 1]);
 }
 
 // An A fragment (its PA pieces add up to the f32 values) with rows g and g + 8 scaled by w[0]
@@ -843,13 +695,6 @@ __device__ __forceinline__ void stage_x(const float* __restrict__ src, int r0, i
                                         bf16* dst) {
   stage_f32<3, kThreads, BQ * HD / 4 / kThreads>(Tile{src, HD, r0, Q, 0, HD, BQ, HD / 4, vec}, dst,
                                                  HD + 8, BQ * (HD + 8));
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 constexpr int kSum = BQ + 8;  // row stride (f32) of the G tile in shared memory
@@ -1486,35 +1331,19 @@ template <typename T, int HD>
 cudaError_t launch(const void* x, const float* b, const float* c, const float* cum, void* y,
                    float* state, int BNC, int H, int Q, int N, int heads_per_block, int grid_x,
                    int64_t smem, cudaStream_t stream) {
-  constexpr bool kTc = sizeof(T) == 2;
-  const int max_heads = kTc ? tc::kMaxHeads : cc::kMaxHeads;
-  const int bns = kTc ? tc::BNS : cc::BNS;
-  const size_t bytes = kTc ? tc::smem_bytes(HD) : cc::smem_bytes(HD);
+  constexpr size_t bytes = tc::smem_bytes<T>(HD);
   const int64_t want_x =
       static_cast<int64_t>((Q + BQ - 1) / BQ) * ((H + heads_per_block - 1) / heads_per_block) +
-      static_cast<int64_t>(H) * ((N + bns - 1) / bns);
-  if (heads_per_block < 1 || heads_per_block > max_heads || grid_x != want_x ||
+      static_cast<int64_t>(H) * ((N + tc::BNS - 1) / tc::BNS);
+  if (heads_per_block < 1 || heads_per_block > tc::kMaxHeads || grid_x != want_x ||
       smem != static_cast<int64_t>(bytes))
     return cudaErrorInvalidConfiguration;
-  const dim3 grid(grid_x, BNC);
-  cudaError_t err;
-  if constexpr (kTc) {
-    auto kernel = tc::ssd_kernel<HD>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, tc::kThreads, bytes, stream>>>(static_cast<const bf16*>(x), b, c, cum,
-                                                  static_cast<bf16*>(y), state, H, Q, N,
-                                                  heads_per_block);
-  } else {
-    auto kernel = cc::ssd_kernel<HD>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, cc::kThreads, bytes, stream>>>(static_cast<const float*>(x), b, c, cum,
-                                                  static_cast<float*>(y), state, H, Q, N,
-                                                  heads_per_block);
-  }
+  auto kernel = tc::ssd_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(grid_x, BNC), tc::kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), b, c, cum, static_cast<T*>(y), state, H, Q, N, heads_per_block);
   return cudaGetLastError();
 }
 

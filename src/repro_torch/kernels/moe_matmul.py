@@ -12,8 +12,13 @@ it; the kernel refuses a plan that is not its own.  Routes:
 - ``"wgmma_t"``: the same with C <= 32 (decode): the transposed product on
   wgmma, 64 columns of F by 8 rows of C per unit, up to three persistent
   blocks per SM streaming the weights;
-- ``"fma"``: f32 with 16-byte aligned rows, CUDA-core FMAs on 64 x 64 tiles;
-- ``"masked"``: rows that are not 16-byte aligned, either dtype.
+- ``"tf32x3"``: f32 with 16-byte aligned rows (D and F multiples of 4): the
+  tensor cores in split TF32, three TF32 products of each product's hi / lo
+  halves on ``wgmma``, each staged f32 tile split once by its block; 128 x
+  128 tiles, 64 x 64 for C <= 64; its launches are also counted apart
+  (``tf32x3_launches``);
+- ``"masked"``: rows that are not 16-byte aligned, either dtype (f32 on
+  CUDA-core FMAs).
 
 ``moe_matmul_bwd`` is the gradient: dbuf = dout · wᵀ and dw = bufᵀ · dout,
 one launch each, each laid out by ``bwd_plan`` (``"wgmma"``: bf16 on the
@@ -35,11 +40,13 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("wgmma", "wgmma_t", "fma", "masked")  # index = the C entry point's route id
+# index = the C entry points' route id; "fma" is the backward's f32 route only
+ROUTES = ("wgmma", "wgmma_t", "fma", "masked", "tf32x3")
 SMALL_C = 32  # bf16 capacities up to this take the transposed route
 
 # kernel launches since the last ops.reset_launch_counts()
 launches = 0  # forward
+tf32x3_launches = 0  # the f32 route's forward, within launches
 bwd_dbuf_launches = 0
 bwd_dw_launches = 0
 last_plan: Optional["LaunchPlan"] = None  # the plan of the last launch, for reports and tests
@@ -60,7 +67,7 @@ class LaunchPlan:
     stages: int  # stages in the ring (1: one tile at a time through registers)
     threads: int
     grid: Tuple[int, int, int]  # TMA routes: (persistent blocks, 1, 1); else (F tiles, C tiles, E)
-    smem_bytes: int  # per block: dynamic for the TMA routes, the static tiles for fma and masked
+    smem_bytes: int  # per block: dynamic for the TMA routes and tf32x3, the static tiles otherwise
     tiles: int  # output tiles (expert, C tile, F tile) of the call
 
 
@@ -82,6 +89,21 @@ def _tma_plan(route: str, E: int, C: int, F: int, block_n: int) -> LaunchPlan:
     return LaunchPlan(route, bm, block_n, block_k, stages, threads, (grid, 1, 1), smem, tiles)
 
 
+TF_WIDE_N = 128  # the tf32x3 tiles' columns for C > 64 (128 x 64 ran slower)
+TF_SMALL_C = 64  # f32 capacities up to this take one warpgroup's 64-row tiles
+
+
+def _tf_plan(E: int, C: int, F: int) -> LaunchPlan:
+    """The tf32x3 route's plan (``csrc/moe_matmul.cu`` ``tf::Shape``): 128 x 128 tiles on two
+    warpgroups, 64 x 64 (C <= 64) on one, 32-deep stages loaded two stages ahead into
+    registers (``stages`` 2); shared memory holds two sets of hi / lo planes, 4 4 32 (bm + bn)
+    bytes, and 1024 to align them."""
+    bm, bn = (64, 64) if C <= TF_SMALL_C else (128, TF_WIDE_N)
+    smem = 1024 + 4 * 4 * 32 * (bm + bn)
+    return LaunchPlan("tf32x3", bm, bn, 32, 2, 2 * bm, (_cdiv(F, bn), _cdiv(C, bm), E),
+                      smem, E * _cdiv(C, bm) * _cdiv(F, bn))
+
+
 @functools.lru_cache(maxsize=None)  # every call of the model path asks again
 def launch_plan(E: int, C: int, D: int, F: int, dtype: torch.dtype,
                 aligned: bool = True) -> LaunchPlan:
@@ -90,7 +112,8 @@ def launch_plan(E: int, C: int, D: int, F: int, dtype: torch.dtype,
 
     ``aligned``: buf, w and out start 16-byte aligned (contiguous tensors
     from PyTorch's allocator do).  bf16 goes to the TMA routes where every
-    row is 16-byte aligned, since TMA needs 16-byte strides.
+    row is 16-byte aligned, since TMA needs 16-byte strides; f32 to ``"tf32x3"`` where
+    every row is 16-byte aligned.
     """
     if (E > 65535 or _cdiv(C, 64) > 65535 or max(C, D, F) >= 2**31
             or E * _cdiv(C, 8) * _cdiv(F, 64) >= 2**31):
@@ -102,13 +125,13 @@ def launch_plan(E: int, C: int, D: int, F: int, dtype: torch.dtype,
         # tiles halve how often each buf tile is read; otherwise (down) the
         # weights dominate, and 128-column tiles spread more, finer tiles.
         return _tma_plan("wgmma", E, C, F, 256 if D > F else 128)
-    fma = dtype == torch.float32 and aligned and D % 4 == 0 and F % 4 == 0
+    if dtype == torch.float32 and aligned and D % 4 == 0 and F % 4 == 0:
+        return _tf_plan(E, C, F)
     elem = 4 if dtype == torch.float32 else 2
     pad = 16 // elem  # [64][32 + pad] buf and [32][64 + pad] w tiles, rows padded by 16 bytes
-    stages = 2 if fma else 1
-    smem = stages * (64 * (32 + pad) + 32 * (64 + pad)) * elem
-    return LaunchPlan("fma" if fma else "masked", 64, 64, 32, stages, 128,
-                      (_cdiv(F, 64), _cdiv(C, 64), E), smem, E * _cdiv(C, 64) * _cdiv(F, 64))
+    smem = (64 * (32 + pad) + 32 * (64 + pad)) * elem
+    return LaunchPlan("masked", 64, 64, 32, 1, 128, (_cdiv(F, 64), _cdiv(C, 64), E), smem,
+                      E * _cdiv(C, 64) * _cdiv(F, 64))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,7 +234,7 @@ def moe_matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     them: the plan and its C arguments are built once per shape, and the
     stream is read raw (``torch.cuda.current_stream()`` builds an object).
     """
-    global launches, last_plan
+    global launches, tf32x3_launches, last_plan
     if buf.dim() != 3 or w.dim() != 3:
         raise ValueError(f"moe_matmul takes buf [E,C,D] and w [E,D,F], got "
                          f"{tuple(buf.shape)} and {tuple(w.shape)}")
@@ -234,6 +257,7 @@ def moe_matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     err = _launch(_entry(), plan, buf, w, out)
     launches += 1
+    tf32x3_launches += plan.route == "tf32x3"
     last_plan = plan
     _build.check("moe_matmul", err)
     return out

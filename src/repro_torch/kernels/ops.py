@@ -11,7 +11,7 @@ over every leaf, in place (B9: the norm's partials, their finish, the update).
 ``cross_attention_op`` and ``decode_attention_op`` are B11: attention over
 keys of their own length (forward and backward) and its one-token decode
 over FLAT caches.  Each kernel module counts its launches; ``launch_counts``
-reads them, and ``route_launch_counts`` those of the f32 attention route.
+reads them, and ``route_launch_counts`` those of the f32 routes counted apart.
 """
 
 from __future__ import annotations
@@ -222,11 +222,13 @@ _COUNTERS = {
 }
 
 
-# the f32 attention route's kernels, counted again apart from the counts above
+# the f32 routes' kernels on the tensor cores, counted again apart from the counts above
 _ROUTE_COUNTERS = {
     "flash_attention_tf32x3": (_flash, "tf32x3_launches"),
     "flash_attention_bwd_dq_tf32x3": (_flash, "tf32x3_bwd_dq_launches"),
     "flash_attention_bwd_dkdv_tf32x3": (_flash, "tf32x3_bwd_dkdv_launches"),
+    "moe_matmul_tf32x3": (_moe, "tf32x3_launches"),
+    "ssd_intra_chunk_mma3": (_ssd, "mma3_launches"),
 }
 
 
@@ -235,7 +237,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def route_launch_counts() -> Dict[str, int]:
-    """Launches of the f32 attention route's kernels (within ``launch_counts``'s)."""
+    """Launches of the f32 routes' kernels: attention's, moe_matmul's and ssd_intra_chunk's
+    forward (within ``launch_counts``'s)."""
     return {name: getattr(mod, attr) for name, (mod, attr) in _ROUTE_COUNTERS.items()}
 
 

@@ -7,7 +7,10 @@ in x.dtype, state [BNC, H, hd, N] f32).  It launches the kernel on CUDA
 tensors and raises on anything it does not take; ``ops.ssd_intra_chunk_op``
 also serves CPU tensors through the plain version.  ``launch_plan`` decides
 heads per block, grid and shared memory in Python, where the CPU tests
-reach it; the kernel refuses a plan that is not its own.
+reach it; the kernel refuses a plan that is not its own.  Every product runs
+on the tensor cores with f32 operands split into bf16 pieces: two on bf16 x
+(``"mma"``), three of every operand on f32 x (``"mma3"``), whose launches are
+also counted apart (``mma3_launches``).
 
 ``ssd_intra_chunk_bwd`` is the gradient (dx, db, dc, dcum) for dy and dstate,
 in two launches laid out by ``bwd_plan``, every product on the tensor cores
@@ -34,6 +37,7 @@ BLOCK_Q = 64  # rows q per y block and columns j per C·Bᵀ tile
 
 # kernel launches since the last ops.reset_launch_counts()
 launches = 0  # forward
+mma3_launches = 0  # the f32 route's forward, within launches
 bwd_launches = 0
 bwd_reduce_launches = 0
 BWD_MAX_STATE = 128  # the reduce stages a tile's rows of B or C whole
@@ -44,7 +48,7 @@ SM_SMEM_BYTES = 233_472  # shared memory of one H100 SM (228 KB); each resident 
 class LaunchPlan:
     """How one call is launched; ``csrc/ssd_scan.cu`` refuses any other."""
 
-    route: str  # "mma": bf16 x, tensor cores; "fma": f32 x, CUDA-core FMAs
+    route: str  # "mma": bf16 x, f32 operands in two bf16 pieces; "mma3": f32 x, all in three
     heads_per_block: int  # heads of one y block, which share its C·Bᵀ tiles
     y_blocks: int  # per chunk: row tiles x head groups
     state_blocks: int  # per chunk: heads x column tiles of N
@@ -56,34 +60,35 @@ class LaunchPlan:
 def launch_plan(BNC: int, H: int, Q: int, hd: int, N: int, dtype: torch.dtype) -> LaunchPlan:
     """The launch plan of the route ``dtype`` selects (no CUDA needed).
 
-    A y block computes each C·Bᵀ tile of its 64 rows once for its group of
-    heads.  The group is as large as the route allows (2 heads on the
-    tensor cores, 4 on the CUDA cores, whose accumulators sit in
-    registers) while the y blocks still fill the card (two per SM on the
-    tensor-core route, one on the FMA route); below that it halves,
-    trading C·Bᵀ reuse for blocks.
+    Both routes run every product on the tensor cores with f32 operands split
+    into bf16 pieces: ``"mma"`` (bf16 x) two pieces, x exact in one;
+    ``"mma3"`` (f32 x) three pieces of every operand, x included.  A y block
+    computes each C·Bᵀ tile of its 64 rows once for its group of heads: two
+    heads while the y blocks still fill the card, two to an SM on ``"mma"``
+    and one on ``"mma3"`` (whose six products a pair make C·Bᵀ's reuse worth
+    more: mamba2's LM chunks ran 0.0796 ms at two heads against 0.1042 at one
+    on an H100, ``torch_kernel_probe.py f32-gemm``), else one (a mesh rank's
+    8 heads: 0.0278 against 0.0358 at two).
     """
     row_tiles = -(-Q // BLOCK_Q)
     if dtype == torch.bfloat16:
-        route, threads, max_heads, per_sm, block_ns = "mma", 128, 2, 2, 128
-        # y: C and B slices in bf16 halves [4][64][72], the group's x tiles
-        # [2][64][hd+8] and cum [2][64]; state: x·decay and B slices in bf16
-        # halves [2][32][hd+8] and [2][32][136]
-        smem = max(2 * (4 * 64 * 72 + 2 * 64 * (hd + 8)) + 4 * 2 * 64,
-                   2 * (2 * 32 * (hd + 8) + 2 * 32 * 136))
+        route, pieces, per_sm = "mma", 2, 2
+        x_bytes = 2 * 2 * 64 * (hd + 8)  # the group's x tiles [2][64][hd+8] in bf16
     else:
-        route, threads, max_heads, per_sm, block_ns = "fma", 256, 4, 1, 64
-        # y: C and B slices transposed [2][32][68], C·Bᵀ [64][65], Sᵀ [64][68],
-        # x [64][hd+4], cum [2][64]; state: x·decay [64][hd] and B [64][64], all f32
-        smem = max(4 * (2 * 32 * 68 + 64 * 65 + 64 * 68 + 64 * (hd + 4) + 2 * 64),
-                   4 * (64 * hd + 64 * 64))
-    g = min(max_heads, H)
-    while g > 1 and BNC * row_tiles * -(-H // g) < per_sm * _build.NUM_SMS:
-        g //= 2
+        route, pieces, per_sm = "mma3", 3, 1
+        # the group's x rows [2][64][hd] in f32, split after C·Bᵀ into [2][3][64][hd+8] bf16
+        # pieces laid over the C and B slices
+        x_bytes = 4 * 2 * 64 * hd
+    # y: C and B slices [pieces][64][72] each in bf16, x, cum [2][64]; state: x·decay and B
+    # slices [pieces][32][hd+8] and [pieces][32][136] in bf16
+    smem = max(2 * 2 * pieces * 64 * 72 + x_bytes + 4 * 2 * 64,
+               2 * pieces * 32 * (hd + 8 + 136))
+    g = min(2, H)
+    if g > 1 and BNC * row_tiles * -(-H // g) < per_sm * _build.NUM_SMS:
+        g = 1
     y_blocks = row_tiles * -(-H // g)
-    state_blocks = H * -(-N // block_ns)
-    return LaunchPlan(route, g, y_blocks, state_blocks, (y_blocks + state_blocks, BNC), threads,
-                      smem)
+    state_blocks = H * -(-N // 128)
+    return LaunchPlan(route, g, y_blocks, state_blocks, (y_blocks + state_blocks, BNC), 128, smem)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +172,7 @@ def _entry():
 
 def ssd_intra_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, cum: torch.Tensor):
     """Intra-chunk SSD of every (chunk, head); b, c and cum f32, x f32 or bf16, all contiguous."""
-    global launches
+    global launches, mma3_launches
     if x.dim() != 4 or b.dim() != 3 or c.dim() != 3 or cum.dim() != 3:
         raise ValueError("ssd_intra_chunk takes x [BNC,H,Q,hd], b, c [BNC,Q,N], cum [BNC,H,Q]")
     BNC, H, Q, hd = x.shape
@@ -202,6 +207,7 @@ def ssd_intra_chunk(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, cum: torc
                    plan.grid[0], plan.smem_bytes,
                    torch._C._cuda_getCurrentRawStream(x.device.index))
     launches += 1
+    mma3_launches += plan.route == "mma3"
     _build.check("ssd_scan", err)
     return y, state
 

@@ -695,6 +695,44 @@ def test_moe_matmul_kernel(cuda, E, C, D, F, dtype):
     assert torch.equal(ops.moe_matmul_op(buf, w), got)  # one summation order: bit-identical
 
 
+# f32 at granite's LM gate/up (128 x 64 tiles) and down (128 x 128), decode (64 x 64), a mesh
+# rank's experts, and ragged C, D and F (zero-filled copies)
+MOE_F32_ROUTE_SHAPES = [(40, 256, 1536, 512), (40, 256, 512, 1536), (40, 8, 1536, 512),
+                        (14, 256, 1536, 512), (5, 130, 200, 72), (3, 70, 100, 36), (2, 1, 8, 8)]
+
+
+@pytest.mark.parametrize("E,C,D,F", MOE_F32_ROUTE_SHAPES)
+def test_moe_matmul_f32_route(cuda, E, C, D, F):
+    """The split-TF32 route within 1e-4 of the plain version, two calls bit-identical, each
+    launch counted on the route."""
+    rng = np.random.default_rng(E + C + D + F)
+    buf = tensor(rng, (E, C, D), torch.float32, cuda)
+    w = tensor(rng, (E, D, F), torch.float32, cuda, 0.05)
+    before = ops.route_launch_counts()["moe_matmul_tf32x3"]
+    got, again = moe_mod.moe_matmul(buf, w), moe_mod.moe_matmul(buf, w)
+    torch.cuda.synchronize()
+    assert moe_mod.last_plan.route == "tf32x3"
+    assert ops.route_launch_counts()["moe_matmul_tf32x3"] == before + 2
+    want = ref.moe_matmul_ref(buf, w)
+    assert bool(((got - want).abs() <= 1e-4 * (1 + want.abs())).all())
+    assert torch.equal(got, again)
+
+
+def test_moe_matmul_f32_route_refuses_a_plan_not_its_own(cuda):
+    buf = torch.zeros(2, 256, 512, device=cuda)
+    w = torch.zeros(2, 512, 1536, device=cuda)
+    out = torch.empty(2, 256, 1536, device=cuda)
+    plan = moe_mod.launch_plan(2, 256, 512, 1536, torch.float32)
+    assert plan.route == "tf32x3"
+    for bad in (dataclasses.replace(plan, route="masked"), dataclasses.replace(plan, route="fma"),
+                dataclasses.replace(plan, block_n=192 - plan.block_n),  # the other width
+                dataclasses.replace(plan, threads=128), dataclasses.replace(plan, stages=3),
+                dataclasses.replace(plan, smem_bytes=plan.smem_bytes - 1024),
+                moe_mod.launch_plan(2, 8, 512, 1536, torch.float32)):  # the decode shape's
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.check("moe_matmul", moe_mod._launch(moe_mod._entry(), bad, buf, w, out))
+
+
 def test_moe_matmul_kernel_refuses_a_plan_not_its_own(cuda):
     buf = torch.zeros(2, 128, 64, device=cuda, dtype=torch.bfloat16)
     w = torch.zeros(2, 64, 256, device=cuda, dtype=torch.bfloat16)
@@ -730,7 +768,7 @@ def test_moe_matmul_kernel_rejects_a_strided_buffer(cuda):
 
 
 # mamba2-130m's H = 24, and H = 7 on 70 chunks, which the launch plans split into
-# head groups of 2 (bf16) and 4 (f32) with a shorter last group; chunk lengths 1,
+# head groups of 2 with a shorter last group; chunk lengths 1,
 # 100, 160 and 256; hymba-1.5b's H = 50 with N = 16 at hd 64 (most of each N tile masked)
 SSD_SHAPES = [
     (4, 24, 128, 64, 128), (8, 24, 160, 64, 128), (2, 3, 256, 64, 128),  # mamba2 prefill, score, long
@@ -756,6 +794,47 @@ def test_ssd_intra_chunk_kernel(cuda, BNC, H, Q, hd, N, dtype):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     close(y, y_ref, tol)
     close(st, st_ref, 1e-4)  # f32 whatever x's type: x is widened exactly
+
+
+@pytest.mark.parametrize("BNC,H,Q,N", [(4, 24, 256, 128), (4, 50, 256, 16), (2, 8, 128, 128),
+                                        (3, 7, 100, 128)])
+def test_ssd_intra_chunk_f32_route(cuda, BNC, H, Q, N):
+    """The three-piece route within 1e-4 of the plain version (y and state), two calls
+    bit-identical, each launch counted on the route."""
+    rng = np.random.default_rng(BNC * H + Q + N)
+    x = tensor(rng, (BNC, H, Q, 64), torch.float32, cuda, 0.5)
+    b, c = (tensor(rng, (BNC, Q, N), torch.float32, cuda, 0.5) for _ in range(2))
+    cum = -torch.cumsum(torch.from_numpy(rng.random((BNC, H, Q), dtype=np.float32) * 0.1), -1).to(cuda)
+    assert ssd_mod.launch_plan(BNC, H, Q, 64, N, torch.float32).route == "mma3"
+    before = ops.route_launch_counts()["ssd_intra_chunk_mma3"]
+    (y, st), (y2, st2) = (ssd_mod.ssd_intra_chunk(x, b, c, cum) for _ in range(2))
+    torch.cuda.synchronize()
+    assert ops.route_launch_counts()["ssd_intra_chunk_mma3"] == before + 2
+    y_ref, st_ref = ref.ssd_intra_chunk_ref(x, b, c, cum)
+    for got, want in ((y, y_ref), (st, st_ref)):
+        assert bool(((got - want).abs() <= 1e-4 * (1 + want.abs())).all())
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+def test_ssd_intra_chunk_refuses_a_plan_not_its_own(cuda):
+    x = torch.zeros(2, 6, 128, 64, device=cuda)
+    b = torch.zeros(2, 128, 128, device=cuda)
+    cum = torch.zeros(2, 6, 128, device=cuda)
+    y, st = torch.empty_like(x), torch.empty(2, 6, 64, 128, device=cuda)
+    plan = ssd_mod.launch_plan(2, 6, 128, 64, 128, torch.float32)
+    bf16 = ssd_mod.launch_plan(2, 6, 128, 64, 128, torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(hpb, grid_x, smem):
+        return ssd_mod._entry()(0, 64, x.data_ptr(), b.data_ptr(), b.data_ptr(), cum.data_ptr(),
+                                y.data_ptr(), st.data_ptr(), 2, 6, 128, 128, hpb, grid_x, smem, stream)
+
+    assert launch(plan.heads_per_block, plan.grid[0], plan.smem_bytes) == 0
+    for hpb, grid_x, smem in ((plan.heads_per_block, plan.grid[0], bf16.smem_bytes),  # the bf16 route's
+                              (3, 2 * 2 + 6, plan.smem_bytes),  # three heads a y block
+                              (plan.heads_per_block, plan.grid[0] + 1, plan.smem_bytes)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.check("ssd_scan", launch(hpb, grid_x, smem))
 
 
 def test_ssd_kernel_decay_above_the_diagonal_stays_finite(cuda):

@@ -480,14 +480,21 @@ SSD_PLAN_SHAPES = sorted(
 def test_ssd_launch_plan(BNC, H, Q, hd, N, dtype):
     plan = ssd_mod.launch_plan(BNC, H, Q, hd, N, dtype)
     tc = dtype == torch.bfloat16
-    assert (plan.route, plan.threads) == (("mma", 128) if tc else ("fma", 256))
+    # both routes on the tensor cores, f32 operands in bf16 pieces: two (bf16 x), three (f32 x)
+    assert (plan.route, plan.threads) == ("mma" if tc else "mma3", 128)
     g = plan.heads_per_block
-    assert 1 <= g <= (2 if tc else 4) and g <= H
+    assert 1 <= g <= 2 and g <= H
     row_tiles = -(-Q // 64)
     assert plan.y_blocks == row_tiles * -(-H // g)
-    assert plan.state_blocks == H * -(-N // (128 if tc else 64))
+    assert plan.state_blocks == H * -(-N // 128)
     assert plan.grid == (plan.y_blocks + plan.state_blocks, BNC)
     assert plan.smem_bytes <= _build.MAX_SMEM_BYTES
+    # y: C and B slices [pieces][64][72] in bf16, then x (bf16 tiles [2][64][hd+8], or f32 rows
+    # [2][64][hd], split over the slices), cum [2][64]; state: [pieces][32][hd+8] and [pieces][32][136]
+    pieces, x_bytes = (2, 2 * 2 * 64 * (hd + 8)) if tc else (3, 4 * 2 * 64 * hd)
+    assert plan.smem_bytes == max(2 * 2 * pieces * 64 * 72 + x_bytes + 512,
+                                  2 * pieces * 32 * (hd + 8 + 136))
+    assert 2 * (plan.smem_bytes + 1024) <= ssd_mod.SM_SMEM_BYTES  # two y blocks an SM
     # nothing of size Q x Q or Q x N lives in shared memory
     assert ssd_mod.launch_plan(BNC, H, 4 * Q, hd, 4 * N, dtype).smem_bytes == plan.smem_bytes
 
@@ -517,8 +524,15 @@ MOE_PLAN_CASES = [
     (2, 1000, 72, 96, torch.bfloat16, "wgmma"), (1, 384, 512, 256, torch.bfloat16, "wgmma"),
     (2, 32, 520, 136, torch.bfloat16, "wgmma_t"), (3, 40, 1536, 512, torch.bfloat16, "wgmma"),
     (2, 1, 8, 8, torch.bfloat16, "wgmma_t"), (1, 8, 64, 8, torch.bfloat16, "wgmma_t"),
-    (40, 384, 1536, 512, torch.float32, "fma"), (40, 8, 1536, 512, torch.float32, "fma"),
-    (5, 130, 200, 72, torch.float32, "fma"), (3, 70, 100, 36, torch.float32, "fma"),
+    (40, 384, 1536, 512, torch.float32, "tf32x3"), (40, 8, 1536, 512, torch.float32, "tf32x3"),
+    (5, 130, 200, 72, torch.float32, "tf32x3"), (3, 70, 100, 36, torch.float32, "tf32x3"),
+    # f32 at granite's LM gate/up and down, decode down, a mesh rank's experts (42 over 3 model
+    # ranks) at prefill and decode, and either side of the 64-row tiles' capacity
+    (40, 256, 1536, 512, torch.float32, "tf32x3"), (40, 256, 512, 1536, torch.float32, "tf32x3"),
+    (40, 8, 512, 1536, torch.float32, "tf32x3"), (14, 256, 1536, 512, torch.float32, "tf32x3"),
+    (14, 8, 512, 1536, torch.float32, "tf32x3"), (40, 64, 1536, 512, torch.float32, "tf32x3"),
+    (40, 65, 1536, 512, torch.float32, "tf32x3"), (2, 16, 0, 64, torch.float32, "tf32x3"),
+    (14, 384, 1536, 512, torch.float32, "tf32x3"),
     (3, 70, 100, 36, torch.bfloat16, "masked"), (1, 3, 7, 5, torch.bfloat16, "masked"),
     (1, 3, 7, 5, torch.float32, "masked"), (2, 16, 0, 64, torch.bfloat16, "masked"),
 ]
@@ -560,9 +574,16 @@ def test_moe_launch_plan(E, C, D, F, dtype, route):
         assert (plan.block_m, plan.block_n, plan.block_k, plan.threads) == (8, 64, 64, 160)
         assert 3 * (plan.smem_bytes + 1024) <= 228 * 1024  # three fit an SM's shared memory
         assert plan.grid == (min(tiles, 3 * _build.NUM_SMS), 1, 1)
-    else:  # CUDA cores: one block per 64 x 64 tile, static shared memory
+    elif route == "tf32x3":  # split TF32 on wgmma: a warpgroup per 64 rows
+        assert plan.block_m == plan.block_n == (64 if C <= 64 else 128)
+        assert plan.threads == 2 * plan.block_m
+        assert (plan.block_k, plan.stages) == (32, 2)  # 32-deep stages, two ahead in registers
+        # two sets of hi / lo planes of both operands, 1024 bytes to align them
+        assert plan.smem_bytes == 1024 + 4 * 4 * 32 * (plan.block_m + plan.block_n)
+        assert plan.grid == (-(-F // plan.block_n), -(-C // plan.block_m), E)
+    else:  # masked: CUDA cores, one block per 64 x 64 tile, static shared memory
         assert plan.grid == (-(-F // 64), -(-C // 64), E) and plan.threads == 128
-        assert plan.stages == (2 if route == "fma" else 1)
+        assert plan.stages == 1
 
 
 def test_moe_launch_plan_sends_unaligned_bases_to_the_masked_route():

@@ -25,6 +25,7 @@
     python3 tools/torch_kernel_probe.py f32-sass    # static SASS counts of the f32 attention kernels
     python3 tools/torch_kernel_probe.py f32-dp      # the f32 backward's dP sum at 0, 1, 2, 4 k-steps
     python3 tools/torch_kernel_probe.py f32-lo      # the f32 split's lo truncated or rounded
+    python3 tools/torch_kernel_probe.py f32-gemm [--parent DIR]  # B3's and B4's f32 routes vs the parent's
 
 ``time`` checks each kernel against its plain version and times it as
 ``chip_smoke.py`` does (CUDA events behind a device sleep), at the serving
@@ -164,6 +165,19 @@ whisper's f32 encoder and LM cross shapes, in turns.  ``f32-lo`` builds a
 variant whose split rounds lo to nearest (``kRoundLo``; the kernel leaves it
 to the tensor cores' truncation) and holds and times it beside the kernel at
 ``f32-attn``'s shapes and at one key (the reference gradient 0), in turns.
+``f32-gemm`` holds B3's and B4's f32 routes (``"tf32x3"``, ``"mma3"``) against
+their plain versions at 1e-4, two calls bit-identical, at granite's f32 expert
+products (LM gate/up and down, score, decode, a mesh rank's) and mamba2's and
+hymba's chunk shapes (LM, score, a mesh rank's prefill), and times them, the
+median of three rounds in turns, beside the parent's kernels (``--parent
+DIR``, built into ``build/probe/f32_gemm`` and run through the parent's own
+modules and plans), ``torch.bmm`` (B3), the bf16 route on the same values
+and the f32 route at the other head count a y block (B4), with the
+split-product and FMA-rate bounds; then ``moe_matmul``'s f32 route at 128 x 64
+tiles and with parts of its stage loop taken out (variants built into
+``build/probe``); then it counts each f32 kernel's SASS
+instructions a tensor-core instruction (``cuobjdump -sass``) and times
+``mma.sync``'s TF32 and bf16 rates in dense loops at 2-16 warps an SM.
 Run from the repository root.
 """
 
@@ -1543,24 +1557,24 @@ F32_ATTN = [  # (B, H, KV, S, Sk, d, causal, what)
 ]
 
 
-def _flash_module(name, cu_text, hopper_text, py_path):
-    """A flash_attention module (the file ``py_path``) whose kernels are ``cu_text``, built into
+def _kernel_module(name, kernel, cu_text, hopper_text, py_path):
+    """A kernel module (the file ``py_path``) whose ``csrc/<kernel>.cu`` is ``cu_text``, built into
     build/probe/<name>."""
     import importlib.util
     import types
 
     vdir = ROOT / "build" / "probe" / name
     vdir.mkdir(parents=True, exist_ok=True)
-    (vdir / "flash_attention.cu").write_text(cu_text)
+    (vdir / f"{kernel}.cu").write_text(cu_text)
     (vdir / "hopper.cuh").write_text(hopper_text)
     home = (_build.CSRC, _build.BUILD_DIR)
     _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
     try:
-        job = _build._start("flash_attention")
+        job = _build._start(kernel)
         if job is not None:
             with contextlib.redirect_stdout(io.StringIO()):  # ptxas -v reports
-                _build._finish("flash_attention", job)
-        lib = ctypes.CDLL(str(_build._library_path("flash_attention")))
+                _build._finish(kernel, job)
+        lib = ctypes.CDLL(str(_build._library_path(kernel)))
     finally:
         _build.CSRC, _build.BUILD_DIR = home
 
@@ -1575,6 +1589,10 @@ def _flash_module(name, cu_text, hopper_text, py_path):
     mod._build = types.SimpleNamespace(load=lambda _: lib, check=check, NUM_SMS=_build.NUM_SMS,
                                        MAX_SMEM_BYTES=_build.MAX_SMEM_BYTES)
     return mod
+
+
+def _flash_module(name, cu_text, hopper_text, py_path):
+    return _kernel_module(name, "flash_attention", cu_text, hopper_text, py_path)
 
 
 def _parent_flash(parent):
@@ -1780,6 +1798,283 @@ def f32_dp(gen):
               + " ms")
 
 
+F32_GEMM_MOE = [  # (E, C, D, F, what): granite-moe-3b-a800m's experts in f32
+    (40, 256, 1536, 512, "LM gate/up"), (40, 256, 512, 1536, "LM down"),
+    (40, 384, 1536, 512, "score gate/up"), (40, 8, 1536, 512, "decode gate/up"),
+    (14, 256, 1536, 512, "mesh rank gate/up"),
+]
+F32_GEMM_SSD = [  # (BNC, H, Q, hd, N, what)
+    (4, 24, 256, 64, 128, "LM mamba2"), (4, 50, 256, 64, 16, "LM hymba"),
+    (8, 24, 160, 64, 128, "mamba2 score"), (2, 8, 128, 64, 128, "mesh rank prefill"),
+]
+
+# dense loops of independent mma.sync into registers: the instruction's own rate on this card
+MMA_RATE_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+template <int kTf32>
+__global__ void mma_loop(float* out, int iters) {
+  float d[8][4];
+  for (int j = 0; j < 8; ++j) for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+  const uint32_t v = __float_as_uint(1.0f + threadIdx.x * 1e-3f) & 0xffffe000u;
+  const uint32_t a0 = v, a1 = v ^ 0x2000u, a2 = v ^ 0x4000u, a3 = v ^ 0x6000u, b0 = v ^ 0x8000u,
+                 b1 = v ^ 0xa000u;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (kTf32)
+        asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+                     "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                     : "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+                     : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      else
+        asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+                     "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                     : "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+                     : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    }
+  }
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j) for (int e = 0; e < 4; ++e) s += d[j][e];
+  if (s == 1.2345f) out[0] = s;
+}
+extern "C" int mma_rate(int tf32, int blocks, int threads, int iters, float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tf32) mma_loop<1><<<blocks, threads, 0, st>>>(out, iters);
+  else mma_loop<0><<<blocks, threads, 0, st>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _mma_rates():
+    """TFLOP/s of mma.sync m16n8k8 TF32 and m16n8k16 bf16 at 1-16 warps an SM (dense loops of 8
+    independent products a warp, no memory), against the data sheet's dense peaks."""
+    from chip_smoke import BF16_TENSOR_FLOPS, TF32_TENSOR_FLOPS
+
+    vdir = ROOT / "build" / "probe" / "mma_rate"
+    vdir.mkdir(parents=True, exist_ok=True)
+    (vdir / "mma_rate.cu").write_text(MMA_RATE_CU)
+    lib_path = vdir / "libmma_rate.so"
+    subprocess.run([_build._nvcc(), *[f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")],
+                    "-o", str(lib_path), str(vdir / "mma_rate.cu")], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.mma_rate.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    out = torch.zeros(1, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    iters = 2048
+    for tf32, flops, peak, what in ((1, 2 * 16 * 8 * 8, TF32_TENSOR_FLOPS, "m16n8k8 TF32"),
+                                    (0, 2 * 16 * 8 * 16, BF16_TENSOR_FLOPS, "m16n8k16 bf16")):
+        row = []
+        for warps in (2, 4, 8, 16):  # a block of that many warps on each SM
+            blocks, threads = _build.NUM_SMS, 32 * warps
+            ms = cuda_ms(lambda: lib.mma_rate(tf32, blocks, threads, iters, ctypes.c_void_p(out.data_ptr()),
+                                              ctypes.c_void_p(stream)), iters=5)
+            rate = blocks * warps * iters * 8 * flops / (ms * 1e-3)
+            row.append(f"{warps} warps/SM {rate / 1e12:.1f} TFLOP/s ({100 * rate / peak:.1f}% of peak)")
+        print(f"[f32-gemm] mma.sync {what}: " + ", ".join(row))
+
+
+def _sass_per_mma(lib_path, match):
+    """(name, instructions, tensor-core instructions) of each kernel in lib_path whose mangled
+    name holds ``match``, from cuobjdump -sass (static counts: the unrolled loop bodies)."""
+    import collections
+    import re
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    rows = []
+    for body in sass.split("Function : ")[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if match not in name:
+            continue
+        ops = collections.Counter(m.group(1).split(".")[0] for m in
+                                  re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body))
+        rows.append((name, ops))
+    return rows
+
+
+def f32_gemm(gen):
+    """B3's and B4's f32 routes (``"tf32x3"``, ``"mma3"``) against the plain versions, two calls
+    bit-identical, and timed, the median of three rounds in turns, beside the parent's kernels
+    (``--parent DIR``: a checkout of the parent commit whose ``csrc/moe_matmul.cu`` and
+    ``csrc/ssd_scan.cu`` are built into build/probe/f32_gemm and run through its own modules and
+    plans), ``torch.bmm`` (B3) and the bf16 route on the same values (B4); B4 also at the head
+    count a y block the plan does not take (one or two).  Then B3 at 128 x 64 tiles and with
+    parts of its loop taken out, the SASS instructions per tensor-core instruction of the f32
+    kernels, and mma.sync's own rates."""
+    from chip_smoke import F32_FLOPS, F32_TOL, ssd_fma_bound
+    from repro_torch.kernels import moe_matmul as mk
+
+    parent = Path(sys.argv[sys.argv.index("--parent") + 1]).resolve() if "--parent" in sys.argv else None
+    mk._entry(), ssd_scan._entry()  # this tree's kernels first
+    pm = ps = None
+    if parent is not None:
+        pk = parent / "src" / "repro_torch" / "kernels"
+        hop = (pk / "csrc" / "hopper.cuh").read_text()
+        pm = _kernel_module("f32_gemm/moe", "moe_matmul", (pk / "csrc" / "moe_matmul.cu").read_text(), hop,
+                            pk / "moe_matmul.py")
+        ps = _kernel_module("f32_gemm/ssd", "ssd_scan", (pk / "csrc" / "ssd_scan.cu").read_text(), hop,
+                            pk / "ssd_scan.py")
+    print(f"[f32-gemm] repro_torch from {Path(mk.__file__).resolve().parents[2]}"
+          + (f"; the parent's from {parent}" if parent else ""))
+    dev = gen.device
+    f32 = torch.float32
+    for E, C, D, F, what in F32_GEMM_MOE:
+        buf = torch.randn(E, C, D, generator=gen, device=dev)
+        w = torch.randn(E, D, F, generator=gen, device=dev) * 0.05
+        got = mk.moe_matmul(buf, w)
+        plan = mk.last_plan
+        err = assert_close(f"moe_matmul f32 {what}", got, ref.moe_matmul_ref(buf, w), F32_TOL)
+        if not torch.equal(mk.moe_matmul(buf, w), got):
+            raise AssertionError(f"moe_matmul f32 {what}: two calls differ")
+        calls = {"kernel": lambda: mk.moe_matmul(buf, w), "bmm": lambda: torch.bmm(buf, w)}
+        if pm is not None:
+            assert_close(f"the parent's moe_matmul f32 {what}", pm.moe_matmul(buf, w), ref.moe_matmul_ref(buf, w),
+                         F32_TOL)
+            calls["parent"] = lambda: pm.moe_matmul(buf, w)
+        ms = medians(calls)
+        b = moe_bound(E, C, D, F, 4)
+        fma = 1e3 * 2 * E * C * D * F / F32_FLOPS
+        print(f"[f32-gemm] moe_matmul E{E} C{C} D{D} F{F} {what}: route {plan.route} {plan.block_m} x "
+              f"{plan.block_n}, grid {plan.grid}; " + ", ".join(f"{n} {t:.4f}" for n, t in ms.items())
+              + f" ms; bound {b[0]:.4f} ({b[1]}, split TF32), FMA {fma:.4f}; {100 * b[0] / ms['kernel']:.1f}% "
+              f"of the bound; bmm / kernel {ms['bmm'] / ms['kernel']:.3f}; err {err:.2e} (tol {F32_TOL}); "
+              "two calls bit-identical")
+        del buf, w, got
+    for BNC, H, Q, hd, N, what in F32_GEMM_SSD:
+        x = torch.randn(BNC, H, Q, hd, generator=gen, device=dev) * 0.5
+        b, c = (torch.randn(BNC, Q, N, generator=gen, device=dev) * 0.5 for _ in range(2))
+        cum = -torch.cumsum(0.1 * torch.rand(BNC, H, Q, generator=gen, device=dev), -1)
+        xb = x.bfloat16()
+        y, st = ssd_scan.ssd_intra_chunk(x, b, c, cum)
+        y_ref, st_ref = ref.ssd_intra_chunk_ref(x, b, c, cum)
+        err = max(assert_close(f"ssd f32 y {what}", y, y_ref, F32_TOL),
+                  assert_close(f"ssd f32 state {what}", st, st_ref, F32_TOL))
+        again = ssd_scan.ssd_intra_chunk(x, b, c, cum)
+        if not (torch.equal(again[0], y) and torch.equal(again[1], st)):
+            raise AssertionError(f"ssd_intra_chunk f32 {what}: two calls differ")
+        plan = ssd_scan.launch_plan(BNC, H, Q, hd, N, f32)
+        calls = {"kernel": lambda: ssd_scan.ssd_intra_chunk(x, b, c, cum),
+                 "bf16 route": lambda: ssd_scan.ssd_intra_chunk(xb, b, c, cum)}
+        other = 3 - plan.heads_per_block  # the kernel takes one or two heads a y block
+        if H > 1:
+            g2 = _ssd_heads_call(x, b, c, cum, other)
+            g2_out = g2()
+            err2 = max(assert_close(f"ssd f32 y {what} {other} heads", g2_out[0], y_ref, F32_TOL),
+                       assert_close(f"ssd f32 state {what} {other} heads", g2_out[1], st_ref, F32_TOL))
+            calls[f"{other} heads"] = g2
+        if ps is not None:
+            p_out = ps.ssd_intra_chunk(x, b, c, cum)
+            assert_close(f"the parent's ssd f32 y {what}", p_out[0], y_ref, F32_TOL)
+            calls["parent"] = lambda: ps.ssd_intra_chunk(x, b, c, cum)
+        ms = medians(calls)
+        bf = ssd_bound(BNC, H, Q, hd, N, 4)
+        print(f"[f32-gemm] ssd_intra_chunk BNC{BNC} H{H} Q{Q} hd{hd} N{N} {what}: route {plan.route}, "
+              f"{plan.heads_per_block} heads a y block, grid {plan.grid}, {plan.smem_bytes} B; "
+              + ", ".join(f"{n} {t:.4f}" for n, t in ms.items())
+              + f" ms; bound {bf[0]:.4f} ({bf[1]}, split products), FMA {ssd_fma_bound(BNC, H, Q, hd, N, 4)[0]:.4f}; "
+              f"{100 * bf[0] / ms['kernel']:.1f}% of the bound; err {err:.2e}"
+              + (f", {other} heads {err2:.2e}" if H > 1 else "") + f" (tol {F32_TOL}); "
+              "two calls bit-identical")
+        del x, xb, b, c, cum, y, st, y_ref, st_ref, again
+    _tf_widths(gen)
+    _tf_parts(gen)
+    for lib, match in ((_build._library_path("moe_matmul"), "tf32x3"),
+                       (_build._library_path("ssd_scan"), "ssd_kernelIf")):
+        for name, ops in _sass_per_mma(lib, match):
+            mma = ops["HMMA"] + ops["HGMMA"]  # mma.sync, wgmma
+            print(f"[f32-gemm] sass {name[:100]}: {sum(ops.values())} instructions, {mma} tensor-core "
+                  f"(HMMA, HGMMA), {sum(ops.values()) / max(mma, 1):.2f} a tensor-core instruction; "
+                  + ", ".join(f"{k} {n}" for k, n in ops.most_common(16)))
+    _mma_rates()
+
+
+def _tf_widths(gen):
+    """moe_matmul's f32 route with its C > 64 tiles 128 x 64 (two blocks an SM) instead of 128 x
+    128: a variant of csrc/moe_matmul.cu (``tf::Wide``) and moe_matmul.py (``TF_WIDE_N``) built
+    into build/probe/tf_width, timed beside the kernel at F32_GEMM_MOE's shapes, in turns, each
+    held against the plain version."""
+    from chip_smoke import F32_TOL
+    from repro_torch.kernels import moe_matmul as mk
+
+    cu = (_build.CSRC / "moe_matmul.cu").read_text()
+    py = Path(mk.__file__).read_text()
+    cu_line, py_line = "using Wide = Shape<128, 128>;", "TF_WIDE_N = 128"
+    if cu.count(cu_line) != 1 or py.count(py_line) != 1:
+        raise RuntimeError("moe_matmul no longer has the tile width this probe changes")
+    vdir = ROOT / "build" / "probe" / "tf_width"
+    vdir.mkdir(parents=True, exist_ok=True)
+    (vdir / "moe_matmul.py").write_text(py.replace(py_line, "TF_WIDE_N = 64"))
+    narrow = _kernel_module("tf_width", "moe_matmul", cu.replace(cu_line, "using Wide = Shape<128, 64>;"),
+                            (_build.CSRC / "hopper.cuh").read_text(), vdir / "moe_matmul.py")
+    dev = gen.device
+    for E, C, D, F, what in F32_GEMM_MOE:
+        if C <= 64:
+            continue
+        buf = torch.randn(E, C, D, generator=gen, device=dev)
+        w = torch.randn(E, D, F, generator=gen, device=dev) * 0.05
+        assert_close(f"128 x 64 tiles {what}", narrow.moe_matmul(buf, w), ref.moe_matmul_ref(buf, w), F32_TOL)
+        ms = medians({"128 x 128": lambda: mk.moe_matmul(buf, w),
+                      "128 x 64": lambda: narrow.moe_matmul(buf, w)})
+        print(f"[f32-gemm] tf32x3 tiles E{E} C{C} D{D} F{F} {what}: "
+              + ", ".join(f"{n} {t:.4f}" for n, t in ms.items()) + " ms")
+        del buf, w
+
+
+def _tf_parts(gen):
+    """moe_matmul's f32 route with a part of its stage loop taken out: variants of
+    csrc/moe_matmul.cu built into build/probe/tf_parts/<part> without the wgmma (the loads and
+    the split alone), or without the loads and the split (the wgmma alone, on whatever the planes
+    hold), timed beside the kernel at F32_GEMM_MOE's shapes, in turns; their outputs are wrong
+    by design."""
+    from repro_torch.kernels import moe_matmul as mk
+
+    cu = (_build.CSRC / "moe_matmul.cu").read_text()
+    lines = {"products": "      if (kt > 0) products(u ^ 1);\n",
+             "split": "      if (kt < nk) split_stage(u, va[u], vb[u]);\n",
+             "loads": "      if (kt + 2 < nk) load(kt + 2, va[u], vb[u]);  // two stages ahead\n"}
+    if any(cu.count(line) != 1 for line in lines.values()):
+        raise RuntimeError("moe_matmul.cu no longer has the lines this probe takes out")
+    hop = (_build.CSRC / "hopper.cuh").read_text()
+    variants = {
+        "no wgmma": _kernel_module("tf_parts/no_wgmma", "moe_matmul", cu.replace(lines["products"], ""), hop,
+                                   Path(mk.__file__)),
+        "wgmma alone": _kernel_module("tf_parts/wgmma_alone", "moe_matmul",
+                                      cu.replace(lines["split"], "").replace(lines["loads"], ""), hop,
+                                      Path(mk.__file__)),
+    }
+    dev = gen.device
+    for E, C, D, F, what in F32_GEMM_MOE:
+        buf = torch.randn(E, C, D, generator=gen, device=dev)
+        w = torch.randn(E, D, F, generator=gen, device=dev) * 0.05
+        ms = medians({"kernel": lambda: mk.moe_matmul(buf, w),
+                      **{n: (lambda m=m: m.moe_matmul(buf, w)) for n, m in variants.items()}})
+        print(f"[f32-gemm] tf32x3 parts E{E} C{C} D{D} F{F} {what}: "
+              + ", ".join(f"{n} {t:.4f}" for n, t in ms.items()) + " ms")
+        del buf, w
+
+
+def _ssd_heads_call(x, b, c, cum, g):
+    """ssd_intra_chunk's f32 route at g heads a y block (the entry takes 1 or 2 with the grid
+    they make), as a call returning (y, state)."""
+    BNC, H, Q, hd = x.shape
+    N = b.shape[2]
+    plan = ssd_scan.launch_plan(BNC, H, Q, hd, N, x.dtype)
+    grid_x = -(-Q // 64) * -(-H // g) + H * -(-N // 128)
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+
+    def call():
+        y, st = torch.empty_like(x), torch.empty(BNC, H, hd, N, device=x.device)
+        err = ssd_scan._entry()(ssd_scan.DTYPES[x.dtype], hd, x.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                cum.data_ptr(), y.data_ptr(), st.data_ptr(), BNC, H, Q, N, g, grid_x,
+                                plan.smem_bytes, stream)
+        _build.check("ssd_scan", err)
+        return y, st
+    return call
+
+
 def main() -> int:
     modes = {"time": time_kernels, "moe": time_moe, "moe-parts": moe_parts, "bwd": time_backward,
              "ssd-bwd": time_ssd_bwd, "ssd-sass": ssd_sass, "ssd-parts": ssd_parts, "bwd-parts": bwd_parts, "ssd-roles": ssd_roles, "ssm-check": ssm_check,
@@ -1787,8 +2082,8 @@ def main() -> int:
              "live-rate": live_rate, "cross": time_cross, "fwd-bounds": fwd_bounds,
              "cross-parts": cross_parts, "cross-bwd": time_cross_bwd, "cross-bwd-parts": cross_bwd_parts,
              "rms-fwd": rms_fwd, "f32-attn": f32_attn, "f32-sass": f32_sass,
-             "f32-dp": f32_dp, "f32-lo": f32_lo}
-    flag = "--parent" if sys.argv[1:2] in (["rms-fwd"], ["f32-attn"]) else "--tree"
+             "f32-dp": f32_dp, "f32-lo": f32_lo, "f32-gemm": f32_gemm}
+    flag = "--parent" if sys.argv[1:2] in (["rms-fwd"], ["f32-attn"], ["f32-gemm"]) else "--tree"
     if len(sys.argv) not in (2, 4) or sys.argv[1] not in modes or (len(sys.argv) == 4 and sys.argv[2] != flag):
         print(__doc__, file=sys.stderr)
         return 2
