@@ -80,7 +80,10 @@ Phases, each of which raises on failure (nothing is caught):
    partials in shared memory and in the global scratch, and timed at
    whisper's LM shape, twice bit-identical), RMSNorm's dx
    (a warp per row, and a block per row past D 2048) and dweight kernels,
-   moe_matmul's dbuf and dw kernels and ``ssd_intra_chunk``'s kernel and
+   moe_matmul's dbuf and dw kernels (bf16 on ``wgmma`` fed by TMA, f32 on
+   their split-TF32 route ``"tf32x3"``, rows that are not 16-byte aligned on
+   CUDA-core FMAs; the f32 route's launches counted apart) and
+   ``ssd_intra_chunk``'s kernel and
    reduce against autograd through their plain versions, over grids of
    types, head dims, masks, GQA groups, lengths, capacities, widths, state
    sizes, chunk lengths, zero, absent and non-zero chunk-state gradients and
@@ -520,13 +523,20 @@ def rmsnorm_bwd_bounds(T, D, elem):
 def moe_bwd_bounds(E, C, D, F, elem):
     """(dbuf kernel, dw kernel, whole backward) bounds.  dbuf = dout w^T reads dout and w
     and writes dbuf; dw = buf^T dout reads buf and dout and writes dw; 2 C D F operations
-    per expert each.  The whole backward reads buf, w and dout once and writes both."""
-    peak = BF16_TENSOR_FLOPS if elem == 2 else F32_FLOPS
-    ops_one = 2 * E * C * D * F / peak
+    per expert each, f32 at the split-TF32 rate (the ``"tf32x3"`` route; ``moe_fma_ms``
+    keeps the FMA rate beside it).  The whole backward reads buf, w and dout once and writes
+    both."""
+    ops_one = attention_ops_s(2 * E * C * D * F, elem)
     buf, w, out = E * C * D * elem, E * D * F * elem, E * C * F * elem
     return (bound((out + w + buf) / HBM_BYTES_PER_S, ops_one),
             bound((buf + out + w) / HBM_BYTES_PER_S, ops_one),
             bound((2 * buf + 2 * w + out) / HBM_BYTES_PER_S, 2 * ops_one))
+
+
+def moe_fma_ms(E, C, D, F):
+    """The least ms of one f32 moe_matmul product (2 C D F operations per expert) at the
+    CUDA cores' FMA rate, the f32 routes' bound before they ran on the tensor cores."""
+    return 1e3 * 2 * E * C * D * F / F32_FLOPS
 
 
 def ssd_bwd_bounds(BNC, H, Q, hd, N, elem):
@@ -1535,8 +1545,10 @@ def check_mesh_serve(label, cfg, res):
     return tol
 
 
-# B3's and B4's f32 routes and the kernels they run, counted apart within the kernels' launches
-F32_ROUTES = {"moe_matmul_tf32x3": "moe_matmul", "ssd_intra_chunk_mma3": "ssd_intra_chunk"}
+# B3's, B7's and B4's f32 routes and the kernels they run, counted apart within the kernels'
+# launches
+F32_ROUTES = {"moe_matmul_tf32x3": "moe_matmul", "moe_matmul_bwd_dbuf_tf32x3": "moe_matmul_bwd_dbuf",
+              "moe_matmul_bwd_dw_tf32x3": "moe_matmul_bwd_dw", "ssd_intra_chunk_mma3": "ssd_intra_chunk"}
 
 
 def check_f32_routes(label, counts, routes, f32=None):
@@ -1552,7 +1564,7 @@ def check_f32_routes(label, counts, routes, f32=None):
 def mesh_launches(ranks, cfgs):
     """Raises unless every rank's launches in each of phase 10's runs ("generate <label>",
     "train step <label>", "grpo step <label>") equal ``path_launches`` on the mesh for the
-    run's config (``cfgs[label]``), each of B3's and B4's f32 routes counting all of its
+    run's config (``cfgs[label]``), each of B3's, B7's and B4's f32 routes counting all of its
     kernel's launches in an f32 run and none in a bf16 one; returns the launches summed over
     the ranks and runs."""
     total = {}
@@ -2845,9 +2857,15 @@ def main() -> int:
                   f"({rplan.teams} teams, {rplan.ring_chunks} 16-byte chunks a thread), "
                   f"{rplan.smem_bytes} bytes of shared memory")
         del x, w, dy, part, dx, dw, again, ref_out, lib_out, want
-    moe_bwd_cases = [*lm_moe_cases,  # (E, C, D, F, dtype, what)
+    # (E, C, D, F, dtype, what): f32 (the "tf32x3" route) at granite's LM products, a phase 10
+    # rank's f32 granite step (reduced, 10 experts padded to 12 over 3 model ranks; 2 rows x 64
+    # tokens drop-free) and the reduced widths at a ragged C
+    moe_bwd_cases = [*lm_moe_cases,
                      (40, 256, 1536, 512, torch.float32, "gate/up"),
-                     (40, 256, 512, 1536, torch.float32, "down")]
+                     (40, 256, 512, 1536, torch.float32, "down"),
+                     (4, 128, 256, 128, torch.float32, "mesh rank gate/up"),
+                     (4, 128, 128, 256, torch.float32, "mesh rank down"),
+                     (4, 130, 256, 128, torch.float32, "reduced, ragged C")]
     for E, C, D, Fd, dt, what in moe_bwd_cases:
         buf, w = leaves(dt, (E, C, D))[0], leaves(dt, (E, D, Fd), scale=0.05)[0]
         dout = randn(E, C, Fd, dtype=dt)
@@ -2882,7 +2900,9 @@ def main() -> int:
         for which, lp in (("dbuf", plan.dbuf), ("dw", plan.dw)):
             print(f"[bwd]   launch plan {which}: route {lp.route}, tile {lp.block_m} x {lp.block_n} x "
                   f"{lp.block_k}, {lp.stages} stages, {lp.threads} threads, grid {lp.grid} for "
-                  f"{lp.tiles} tiles, {lp.smem_bytes} bytes of shared memory")
+                  f"{lp.tiles} tiles, {lp.smem_bytes} bytes of shared memory"
+                  + (f"; the FMA-rate bound {moe_fma_ms(E, C, D, Fd):.4f} ms"
+                     if dt == torch.float32 else ""))
         del buf, w, dout, dbuf, dw, again, ref_out, want
     ssd_bwd_cases = [(B * NC, H, Q, 64, N, dt, what)
                      for B, NC, Q, H, N, dt, what in lm_ssd_cases + mesh_ssd_cases[2:]]
@@ -3741,11 +3761,16 @@ def main() -> int:
                             source="src/repro_torch/kernels/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:72",
                             launches=route_launches[kname], **rows_))
-    # B3's and B4's f32 routes, counted apart within moe_matmul's and ssd_intra_chunk's launches:
-    # granite's f32 LM gate/up (split TF32 on wgmma) and mamba2's f32 LM chunks (three bf16 pieces)
+    # B3's, B7's and B4's f32 routes, counted apart within moe_matmul's, its backward's and
+    # ssd_intra_chunk's launches: granite's f32 LM gate/up (split TF32 on wgmma; B7 "replaces"
+    # the kernel whose gradient it is) and mamba2's f32 LM chunks (three bf16 pieces)
+    f32_lm = (40, 256, 1536, 512, torch.float32)
     for kname, src, of, rows_ in (
-        ("moe_matmul_tf32x3", "moe_matmul", "src/repro/kernels/moe_matmul.py:36",
-         moe_rows[(40, 256, 1536, 512, torch.float32)]),
+        ("moe_matmul_tf32x3", "moe_matmul", "src/repro/kernels/moe_matmul.py:36", moe_rows[f32_lm]),
+        ("moe_matmul_bwd_dbuf_tf32x3", "moe_matmul", "src/repro/kernels/moe_matmul.py:36",
+         bwd_rows[("moe_matmul_bwd_dbuf",) + f32_lm]),
+        ("moe_matmul_bwd_dw_tf32x3", "moe_matmul", "src/repro/kernels/moe_matmul.py:36",
+         bwd_rows[("moe_matmul_bwd_dw",) + f32_lm]),
         ("ssd_intra_chunk_mma3", "ssd_scan", "src/repro/kernels/ssd_scan.py:39",
          ssd_rows[(4, 24, 256, 128, torch.float32)]),
     ):
@@ -3778,10 +3803,11 @@ def main() -> int:
           "parameters and grads, f32 moments; library torch._foreach_norm and "
           "torch._fused_adamw_ on bf16 moments); the f32 attention route's forward, dq and dkdv "
           "(split TF32, counted apart within B2's, B11's and B5's launches) at whisper's f32 "
-          "encoder shape B=4 H=16 S=1500 d=64 non-causal; moe_matmul's and ssd_intra_chunk's f32 routes "
-          "(split TF32 on wgmma; three bf16 pieces a value), counted apart within their kernels' "
-          "launches, at granite's f32 LM gate/up E=40 C=256 D=1536 F=512 (library torch.bmm) and "
-          "mamba2's f32 LM chunks BNC=4 H=24 Q=256 hd=64 N=128; launches summed over the eight serving runs, the "
+          "encoder shape B=4 H=16 S=1500 d=64 non-causal; moe_matmul's forward and backward (dbuf, "
+          "dw) and ssd_intra_chunk's f32 routes (split TF32 on wgmma; three bf16 pieces a value), "
+          "counted apart within their kernels' launches, at granite's f32 LM gate/up E=40 C=256 "
+          "D=1536 F=512 (library torch.bmm) and mamba2's f32 LM chunks BNC=4 H=24 Q=256 hd=64 "
+          "N=128; launches summed over the eight serving runs, the "
           "training runs, the closed loop's four steps (three plus the profiled one), the mesh's "
           "ranks and live mode's payloads")
     print(json.dumps({"kernels": kernels}))

@@ -478,6 +478,23 @@ inline bool map_bf16_3d(CUtensorMap* map, const void* base, int64_t n0, int64_t 
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A contiguous f32 [n2][n1][n0] tensor (n0 innermost, a multiple of 4), with
+// a box of 32 values of n0 (128 bytes) by `rows` of n1 in one n2, 128-byte
+// swizzled.  Stores skip what lies outside the tensor.
+inline bool map_f32_3d(CUtensorMap* map, const void* base, int64_t n0, int64_t n1, int64_t n2,
+                       int rows) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0), static_cast<cuuint64_t>(n1),
+                              static_cast<cuuint64_t>(n2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(n0) * 4, static_cast<cuuint64_t>(n0 * n1) * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides, box,
+             one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // f32 rows [rows][n] with rows `stride` values apart (a multiple of 4), and
 // a box of `box` consecutive values of one row; values past n are zero.
 inline bool map_f32_rows(CUtensorMap* map, const void* base, int rows, int n, int stride,

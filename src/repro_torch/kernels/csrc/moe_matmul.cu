@@ -95,12 +95,28 @@
 //   more bytes per product, lose what their finer rounds win (granite's
 //   down dbuf on an H100 SXM at 700 W: 0.0611 ms at 64 columns against
 //   0.0476 at 128, whose 320 tiles take three rounds of the 132 blocks).
-// - "fma": f32, or bf16 rows that TMA cannot read: CUDA-core FMAs on
-//   register-blocked 128 x 128 tiles (64 x 64 where 128 would not fill the
-//   SMs), 8 x 8 outputs a thread, over 16-deep slices double-buffered in
-//   shared memory (moe_matmul_bwd_fma below): 4 LDS.128 for 64 FMAs a k
-//   step, where 64 x 64 tiles of 4 x 4 a thread were bound by shared-memory
-//   issue at ~10 TFLOP/s.
+// - "tf32x3": f32 with the forward's tf32x3 conditions (16-byte aligned bases, D
+//   and F multiples of 4), both launches: the forward's split-TF32 arithmetic
+//   (namespace tf: each 32-deep stage split once by the block into swizzled
+//   K-major hi / lo planes, lo hi + hi lo + hi hi on wgmma m64nNk8 TF32, each
+//   stage's products summed from zero, then added to the running f32 sum) in
+//   one kernel templated on the launch, tf::moe_matmul_bwd_tf32x3<S, kDw>.
+//   dbuf reads dout and w K-major as stored (the forward's buf path); dw reads
+//   buf and dout MN-major (the forward's w path, each 4 x 4 piece transposed as
+//   it is split), and its K = C is short (8 stages a tile at granite's LM step,
+//   1920 tiles), so the grid is persistent: a block's stage loop runs on from
+//   one tile into the next, loading and splitting the next tile's first stages
+//   while TMA stores the last one's accumulators from a staging tile (a block a
+//   tile ran 8-10% slower at dw, 1-8% at dbuf).  128 x 128 tiles, 64 x 64 where
+//   the launch's M <= 64 or 128 x 128 tiles would not fill the SMs once (the
+//   reduced configs: 1.7x faster there than 128 x 128).  Bound: 3 x 2 C D F
+//   operations a launch on the 494.7 TFLOP/s TF32 tensor cores (0.0977 ms a
+//   launch at granite's LM products, where the kernel reaches 40-48% of it).
+// - "fma": rows that are not 16-byte aligned, either dtype: CUDA-core FMAs on
+//   register-blocked 128 x 128
+//   tiles (64 x 64 where 128 would not fill the SMs), 8 x 8 outputs a thread,
+//   over 16-deep slices double-buffered in shared memory (moe_matmul_bwd_fma
+//   below): 4 LDS.128 for 64 FMAs a k step.
 // Tried on the card and not kept (PERF.md): clusters of two blocks
 // sharing the buf tile by TMA multicast (2-3x slower), 32-deep stages,
 // asking the next stages into L2 ahead of the ring, 128-column decode units
@@ -112,6 +128,7 @@
 
 #include <atomic>
 #include <initializer_list>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -169,18 +186,6 @@ __device__ __forceinline__ Vec<T> load_vec(const T* __restrict__ base, int64_t l
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; bytes = 0 writes
-// 16 zero bytes and reads nothing (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -358,7 +363,8 @@ constexpr int static_smem() {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Backward on CUDA cores ("fma" route of bwd_plan): out[e] (M x N) = sum over
+// Backward on CUDA cores ("fma" route of bwd_plan: rows that are not 16-byte
+// aligned, f32, or bf16 where TMA cannot read them): out[e] (M x N) = sum over
 // k of A(m, k) B(k, n) in f32, each output's k in one fixed order.  Both
 // operands of a launch are contiguous along the same dimension: along k for
 // dbuf (A(m, k) = dout[e][m][k], B(k, n) = w[e][n][k]: kKC), along m and n
@@ -371,22 +377,13 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 // is 4 LDS.128 (4 distinct A and 8 distinct B addresses a warp: one
 // wavefront each) for 64 FMAs.  Both operands sit in shared memory k-major,
 // [16 k][BM + 4] f32 (rows 16-byte aligned), two stages: the next 16-deep
-// slice is fetched while this one is multiplied, and one barrier a slice
-// frees the stage.  Operands contiguous along m or n (dw in f32) go in by
-// 16-byte cp.async, and the block fits two to an SM (128 registers);
-// operands contiguous along k (dbuf), and bf16 (converted to f32), by
-// 16-byte loads into registers that are stored transposed after the slice's
-// products, each warp on 16 rows by 2 k-groups so that the transposed
-// stores hit 32 distinct banks.  Those registers hold the block to one an
-// SM (169 registers a thread).  On an H100 SXM at 700 W three other dbuf
-// designs ran slower at granite's gate/up: capped at 128 registers for two
-// blocks an SM (1%; 12% at down), 4-byte cp.async landing transposed (12%),
-// and the k-contiguous operands kept as they lie ([BM][16 + 4], 8 + 8
-// LDS.128 along k for four k steps, a thread's outputs 16 apart; 8-11%).
-// kVec: every
-// 4-element group along a contiguous dimension is aligned (bases 16-byte
-// aligned, D and F multiples of 4); otherwise masked element loads.  Each
-// output's k runs in one fixed order.
+// slice is fetched into registers while this one is multiplied and stored
+// (converted to f32; transposed where it runs along k) after the slice's
+// products, each warp on 16 rows by 2 k-groups so that the transposed stores
+// hit 32 distinct banks, and one barrier a slice frees the stage.  kVec (bf16
+// only: aligned f32 rows take tf32x3): every 4-element group along a
+// contiguous dimension is aligned (bases 16-byte aligned, D and F multiples
+// of 4), loaded 8 bytes at once; otherwise masked element loads.
 constexpr int kFmaThreads = 256, kFmaK = 16;
 
 template <int BM>
@@ -416,18 +413,14 @@ __device__ __forceinline__ void quad_pos(int q, int& p, int& k) {
 template <typename T, bool kKC, bool kVec>
 __device__ __forceinline__ void load_quad(float (&r)[4], const T* __restrict__ x, int64_t ld, int p,
                                           int k, int P, int K) {
+  static_assert(!kVec || sizeof(T) == 2, "aligned f32 rows take tf32x3");
   if constexpr (kVec) {  // the group is all inside or all outside
     if (p < P && k < K) {
       const T* src = kKC ? x + static_cast<int64_t>(p) * ld + k : x + static_cast<int64_t>(k) * ld + p;
-      if constexpr (sizeof(T) == 4) {
-        const float4 v = *reinterpret_cast<const float4*>(src);
-        r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
-      } else {
-        const uint2 v = *reinterpret_cast<const uint2*>(src);
-        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-        r[0] = lo.x, r[1] = lo.y, r[2] = hi.x, r[3] = hi.y;
-      }
+      const uint2 v = *reinterpret_cast<const uint2*>(src);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+      r[0] = lo.x, r[1] = lo.y, r[2] = hi.x, r[3] = hi.y;
     } else {
       r[0] = r[1] = r[2] = r[3] = 0.f;
     }
@@ -459,7 +452,6 @@ moe_matmul_bwd_fma(const T* __restrict__ a, const T* __restrict__ b, T* __restri
                    int N, int K, int64_t sae, int64_t lda, int64_t sbe, int64_t ldb) {
   using L = FmaTile<BM>;
   constexpr int CH = L::CH, LD = L::LD;
-  constexpr bool kAsync = sizeof(T) == 4 && kVec && !kKC;  // f32 rows straight into shared memory
   __shared__ __align__(16) float As[2][L::stage];  // [stage][k][m]
   __shared__ __align__(16) float Bs[2][L::stage];  // [stage][k][n]
   const int n0 = blockIdx.x * BM, m0 = blockIdx.y * BM;
@@ -476,46 +468,33 @@ moe_matmul_bwd_fma(const T* __restrict__ a, const T* __restrict__ b, T* __restri
   for (int i = 0; i < 4 * CH; ++i)
 #pragma unroll
     for (int j = 0; j < 4 * CH; ++j) acc[i][j] = 0.f;
-  float ra[CH][4], rb[CH][4];  // the register path's next slice
+  float ra[CH][4], rb[CH][4];  // the next slice
 
-  auto fetch = [&](int st, int k0) {
+  auto fetch = [&](int k0) {
 #pragma unroll
     for (int q = 0; q < CH; ++q) {
       int p, k;
       quad_pos<BM, kKC>(q, p, k);
-      if constexpr (kAsync) {
-        const bool ina = m0 + p < M && k0 + k < K, inb = n0 + p < N && k0 + k < K;
-        cp_async16(&As[st][k * LD + p], ina ? ae + static_cast<int64_t>(k0 + k) * lda + m0 + p : ae,
-                   ina ? 16 : 0);
-        cp_async16(&Bs[st][k * LD + p], inb ? be + static_cast<int64_t>(k0 + k) * ldb + n0 + p : be,
-                   inb ? 16 : 0);
-      } else {
-        load_quad<T, kKC, kVec>(ra[q], ae, lda, m0 + p, k0 + k, M, K);
-        load_quad<T, kKC, kVec>(rb[q], be, ldb, n0 + p, k0 + k, N, K);
-      }
+      load_quad<T, kKC, kVec>(ra[q], ae, lda, m0 + p, k0 + k, M, K);
+      load_quad<T, kKC, kVec>(rb[q], be, ldb, n0 + p, k0 + k, N, K);
     }
   };
   auto stash = [&](int st) {
-    if constexpr (!kAsync) {
 #pragma unroll
-      for (int q = 0; q < CH; ++q) {
-        int p, k;
-        quad_pos<BM, kKC>(q, p, k);
-        store_quad<BM, kKC>(As[st], ra[q], p, k);
-        store_quad<BM, kKC>(Bs[st], rb[q], p, k);
-      }
+    for (int q = 0; q < CH; ++q) {
+      int p, k;
+      quad_pos<BM, kKC>(q, p, k);
+      store_quad<BM, kKC>(As[st], ra[q], p, k);
+      store_quad<BM, kKC>(Bs[st], rb[q], p, k);
     }
   };
 
-  fetch(0, 0);
+  fetch(0);
   stash(0);
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
-    if (kt + 1 < nk) fetch(cur ^ 1, (kt + 1) * kFmaK);  // the other stage, freed by the last barrier
-    cp_async_commit();
+    if (kt + 1 < nk) fetch((kt + 1) * kFmaK);  // for the other stage, freed by the last barrier
     const float* A = As[cur];
     const float* B = Bs[cur];
 #pragma unroll
@@ -534,7 +513,6 @@ moe_matmul_bwd_fma(const T* __restrict__ a, const T* __restrict__ b, T* __restri
         for (int j = 0; j < 4 * CH; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
     if (kt + 1 < nk) stash(cur ^ 1);
-    cp_async_wait<0>();
     __syncthreads();
   }
 
@@ -552,15 +530,11 @@ moe_matmul_bwd_fma(const T* __restrict__ a, const T* __restrict__ b, T* __restri
         const float v0 = acc[4 * ci + i][4 * cj], v1 = acc[4 * ci + i][4 * cj + 1];
         const float v2 = acc[4 * ci + i][4 * cj + 2], v3 = acc[4 * ci + i][4 * cj + 3];
         if (kVec && n < N) {  // N is a multiple of 4: the group is inside
-          if constexpr (sizeof(T) == 4) {
-            *reinterpret_cast<float4*>(o) = make_float4(v0, v1, v2, v3);
-          } else {
-            const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
-            uint2 pk;
-            pk.x = *reinterpret_cast<const uint32_t*>(&lo);
-            pk.y = *reinterpret_cast<const uint32_t*>(&hi);
-            *reinterpret_cast<uint2*>(o) = pk;
-          }
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
+          uint2 pk;
+          pk.x = *reinterpret_cast<const uint32_t*>(&lo);
+          pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+          *reinterpret_cast<uint2*>(o) = pk;
         } else if (!kVec) {
           const float v[4] = {v0, v1, v2, v3};
 #pragma unroll
@@ -586,11 +560,15 @@ struct Shape {
   static constexpr int plane_a = BM * BK, plane_b = BK * BN;
   static constexpr int planes = 2 * (plane_a + plane_b);  // words of one set
   static constexpr int bytes = 1024 + 4 * 2 * planes;
+  static constexpr int bwd_bytes = bytes + 4 * BM * BN;  // and the backward's staging tile
 };
-// C > 64.  128 x 64 tiles ran slower at granite's f32 products on an H100
-// (torch_kernel_probe.py f32-gemm, PERF.md).
+// C > 64 (the backward: M > 64).  128 x 64 tiles ran slower at granite's f32 products on an
+// H100 (torch_kernel_probe.py f32-gemm, PERF.md).
 using Wide = Shape<128, 128>;
-using Small = Shape<64, 64>;  // C <= 64 (decode)
+using Small = Shape<64, 64>;  // C <= 64 (decode; the backward: tf_bwd_small)
+// The backward's persistent grid: blocks an SM of each shape (Wide: its 193 KB of planes and
+// staging and 256 threads' registers hold one; Small two).  moe_matmul.py's TF_BWD_BLOCKS.
+constexpr int kBwdWideBlocks = 1, kBwdSmallBlocks = 2;
 
 // x as hi + lo: hi rounded to nearest TF32, ties away (cvt.rna's rounding: half an ulp added,
 // the low 13 bits cleared), lo = x - hi exactly in f32, which the tensor cores read as TF32 by
@@ -655,123 +633,214 @@ __device__ __forceinline__ uint64_t desc(const uint32_t* plane, int row0, int kk
   return hopper::desc_sw128(hopper::smem_u32(plane) + row0 * 128 + kk * 32, 16, 1024);
 }
 
-// out[e] = buf[e] w[e] for the BM x BN tile (blockIdx.x: F tile, y: C tile, z: expert).  D, F
-// multiples of 4 and every row 16-byte aligned (the plan's condition): each 16-byte chunk is
-// wholly inside or outside the matrix, and those outside read as zeros.  Per 32-deep stage kt:
-// each warpgroup issues stage kt - 1's twelve wgmma (four k-steps, lo hi + hi lo first, then
-// hi hi, summed from zero and then added to the running f32 sum) on one set of planes;
-// meanwhile the block splits stage kt, which its threads loaded into registers two stages
-// ahead, into the other set, loads stage kt + 2 into the registers it frees, and waits for the
-// wgmma before the barrier that opens the next stage.  The f32 tiles go from device memory to
-// registers to the planes: shared memory carries only the planes' stores and wgmma's reads.
-// Each output element sums its products in one fixed order (no atomics): two calls give the
-// same bits.
+// One operand's share of a stage: P rows of a plane (rows of the product's M or N side) by the
+// stage's BK of K, loaded into registers by the tile's NTH threads and split into its hi and lo
+// planes (hi at `plane`, lo P BK words further on).  Each 16-byte chunk is wholly inside or
+// outside the matrix (rows 16-byte aligned, the sides multiples of 4), and those outside read as
+// zeros, so a ragged edge adds zeros.  Two layouts:
+// - KMajor, X(p, k) at x[p ld + k] (buf in the forward; dout and w in dbuf): chunk (row r0 + it
+//   NTH / 8, k 4 ca); a quarter warp reads one row's 128 bytes and stores them to 8 distinct
+//   chunks of its plane row.
+// - MNMajor, X(p, k) at x[k ld + p] (w in the forward; buf and dout in dw): one 4 x 4 piece a
+//   thread, at k chunk kq = 4 kh + t4 (rows 4 kq ..) and p chunk pq = 2 ph + q (a quarter warp
+//   takes t4 and q), transposed as it is split, to the chunks sb[ii] of plane rows 4 pq + ii.
+template <int P, int NTH>
+struct KMajor {
+  static constexpr int kRegs = P * BK / 4 / NTH;  // float4 a thread a stage
+  static_assert(kRegs * NTH * 4 == P * BK, "tile shape");
+  const float* src[kRegs];
+  bool in[kRegs];
+  int k4, chunk;  // this thread's k offset in a stage; its first plane chunk (+ it (NTH / 8) 8)
+  // the tile's rows p0 .. p0 + P - 1 of x, `rows` rows ld floats apart
+  __device__ __forceinline__ void at(const float* x, int64_t ld, int p0, int rows) {
+    const int r0 = threadIdx.x >> 3, ca = threadIdx.x & 7;
+    k4 = 4 * ca;
+    chunk = r0 * 8 + (ca ^ (r0 & 7));  // rows r0 + it (NTH / 8) keep r0's swizzle
+#pragma unroll
+    for (int it = 0; it < kRegs; ++it) {
+      const int r = r0 + it * (NTH / 8);
+      in[it] = p0 + r < rows;
+      src[it] = x + (in[it] ? p0 + r : 0) * ld + k4;
+    }
+  }
+  __device__ __forceinline__ void load(int k0, int K, float4 (&v)[kRegs]) const {
+    const bool kin = k0 + k4 < K;
+#pragma unroll
+    for (int it = 0; it < kRegs; ++it)
+      v[it] = in[it] && kin ? *reinterpret_cast<const float4*>(src[it] + k0)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ __forceinline__ void split(uint32_t* plane, const float4 (&v)[kRegs]) const {
+    uint4* ph = reinterpret_cast<uint4*>(plane);
+#pragma unroll
+    for (int it = 0; it < kRegs; ++it) {
+      uint4 hi, lo;
+      split4(v[it], hi, lo);
+      const int c = chunk + it * (NTH / 8) * 8;
+      ph[c] = hi;
+      ph[P * BK / 4 + c] = lo;
+    }
+  }
+};
+
+template <int P, int NTH>
+struct MNMajor {
+  static constexpr int kRegs = 4;
+  static_assert(BK * P / 16 == NTH, "one 4 x 4 piece a thread");
+  const float* src;
+  int ld, k4;  // rows ld floats apart; this thread's first row of a stage, 4 kq
+  bool in;
+  int chunk[4];  // the plane chunks of its piece's columns
+  // the tile's columns p0 .. p0 + P - 1 of x, `cols` columns, rows ld floats apart
+  __device__ __forceinline__ void at(const float* x, int ld_, int p0, int cols) {
+    const int t4 = threadIdx.x & 3, q = (threadIdx.x >> 2) & 1, kq = 4 * ((threadIdx.x >> 3) & 1) + t4;
+    const int pq = 2 * ((threadIdx.x >> 4) % (P / 8)) + q;
+    in = p0 + 4 * pq < cols;
+    src = x + (in ? p0 + 4 * pq : 0);
+    ld = ld_;
+    k4 = 4 * kq;
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) chunk[ii] = (4 * pq + ii) * 8 + (kq ^ ((4 * q + ii) & 7));
+  }
+  __device__ __forceinline__ void load(int k0, int K, float4 (&v)[kRegs]) const {
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      const int k = k0 + k4 + rr;
+      v[rr] = in && k < K ? *reinterpret_cast<const float4*>(src + static_cast<int64_t>(k) * ld)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __device__ __forceinline__ void split(uint32_t* plane, const float4 (&v)[kRegs]) const {
+    uint4* ph = reinterpret_cast<uint4*>(plane);
+    const float col[4][4] = {{v[0].x, v[1].x, v[2].x, v[3].x}, {v[0].y, v[1].y, v[2].y, v[3].y},
+                             {v[0].z, v[1].z, v[2].z, v[3].z}, {v[0].w, v[1].w, v[2].w, v[3].w}};
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      uint4 hi, lo;
+      split4(make_float4(col[ii][0], col[ii][1], col[ii][2], col[ii][3]), hi, lo);
+      ph[chunk[ii]] = hi;
+      ph[P * BK / 4 + chunk[ii]] = lo;
+    }
+  }
+};
+
+// One stage's twelve wgmma from a plane set (buf or A hi, lo; w or B hi, lo), issued and
+// committed: four k-steps, lo hi + hi lo first, then hi hi, summed from zero in part.  The
+// tensor cores add a product into an f32 accumulator with truncation, so over granite's
+// 1536-deep products one accumulator strays ~1e-4 from f32's sum (an H100, PERF.md): each
+// stage's products start from zero in `part`, which joins the running sum by an f32 add.
+template <class S>
+__device__ __forceinline__ void stage_products(float (&part)[S::BN / 2], const uint32_t* set, int wg) {
+  const uint32_t* ah = set;
+  const uint32_t* al = ah + S::plane_a;
+  const uint32_t* bh = al + S::plane_a;
+  const uint32_t* bl = bh + S::plane_b;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    wgmma_tf32<S::BN>(part, desc(al, 64 * wg, kk), desc(bh, 0, kk), kk);  // the small terms first
+    wgmma_tf32<S::BN>(part, desc(ah, 64 * wg, kk), desc(bl, 0, kk), 1);
+    wgmma_tf32<S::BN>(part, desc(ah, 64 * wg, kk), desc(bh, 0, kk), 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// The accumulators of rows m0 .. and columns n0 .. of out (M x N, rows N floats apart, N a
+// multiple of 4): acc[4 j + i] is row 16 (warp % 4) + g + 8 (i / 2) of the warpgroup's 64, column
+// 8 j + 2 t + i % 2.
+template <int BN>
+__device__ __forceinline__ void store_tile(float* out, const float (&acc)[BN / 2], int m0, int n0, int M,
+                                           int N) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row = m0 + 64 * (threadIdx.x >> 7) + 16 * ((threadIdx.x >> 5) & 3) + g;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (row + 8 * half >= M) continue;
+    float* orow = out + static_cast<int64_t>(row + 8 * half) * N;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;  // even; N a multiple of 4
+      if (col < N)
+        *reinterpret_cast<float2*>(orow + col) = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// The backward's epilogue: the accumulators of rows m0 .. (this warpgroup's 64) and columns n0 ..
+// of out[e] (M x N), written into the warpgroup's staging tile (BN / 32 boxes of 64 rows by 32
+// columns, 128-byte swizzled as TMA reads them: 2 wavefronts a warp's store) and stored by TMA,
+// which skips rows past M and columns past N, while the threads go on to the next tile; one
+// thread a warpgroup issues the stores and, before its staging tile is written again, waits
+// until they have read it.  (The accumulators stored straight as 8-byte pairs, 8 rows a warp's
+// store, ran dw 3.5-5% slower at granite's LM products on an H100 SXM at 700 W, dbuf the
+// same; PERF.md.)
+template <int BN>
+__device__ __forceinline__ void store_tile_tma(const CUtensorMap* map, unsigned char* staging,
+                                               const float (&acc)[BN / 2], int m0, int n0, int e, int M,
+                                               int N) {
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool issuer = (threadIdx.x & 127) == 0;
+  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + g;  // rows r0, r0 + 8 of the warpgroup's 64
+  unsigned char* st = staging + wg * 64 * BN * 4;
+  if (issuer) hopper::bulk_wait_read<0>();
+  hopper::named_sync(1 + wg, 128);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {  // acc[4 j + i]: column 8 j + 2 t + i % 2, in box j / 4
+    const int c = 2 * (j & 3) + (t >> 1);  // its 16-byte chunk of the box's 128-byte row
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      *reinterpret_cast<float2*>(st + (j >> 2) * 8192 + r * 128 + ((c ^ (r & 7)) << 4) + (t & 1) * 8) =
+          make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+  hopper::fence_async_shared();  // the staging stores, before TMA (the async proxy) reads them
+  hopper::named_sync(1 + wg, 128);
+  if (issuer && m0 + 64 * wg < M) {
+#pragma unroll
+    for (int b = 0; b < BN / 32; ++b)
+      if (n0 + 32 * b < N) hopper::tma_store_3d(map, st + b * 8192, n0 + 32 * b, m0 + 64 * wg, e);
+    hopper::bulk_commit();
+  }
+}
+
+// The planes: [2][S::planes] words past the first 1024-byte boundary of dynamic shared memory.
+// An offset from smem_raw, not a pointer rebuilt from an integer: accesses stay shared ones.
+__device__ __forceinline__ uint32_t* plane_sets(unsigned char* smem_raw) {
+  return reinterpret_cast<uint32_t*>(smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023));
+}
+
+// out[e] = buf[e] w[e] for the BM x BN tile (blockIdx.x: F tile, y: C tile, z: expert); buf
+// K-major, w MN-major.  Per 32-deep stage kt: each warpgroup issues stage kt - 1's twelve wgmma
+// on one set of planes; meanwhile the block splits stage kt, which its threads loaded into
+// registers two stages ahead, into the other set, loads stage kt + 2 into the registers it frees,
+// and waits for the wgmma before the barrier that opens the next stage.  The f32 tiles go from
+// device memory to registers to the planes: shared memory carries only the planes' stores and
+// wgmma's reads.  Each output element sums its products in one fixed order (no atomics): two
+// calls give the same bits.
 template <class S>
 __global__ void __launch_bounds__(S::kThreads)
 moe_matmul_tf32x3(const float* __restrict__ buf, const float* __restrict__ w,
                   float* __restrict__ out, int C, int D, int F) {
-  constexpr int BM = S::BM, BN = S::BN, NTH = S::kThreads;
-  constexpr int IA = BM * BK / 4 / NTH;  // 16-byte chunks of buf a thread loads and splits a stage
-  constexpr int WB = BK * BN / 16;       // 4 x 4 pieces of w a stage splits, one a thread
-  static_assert(IA * NTH * 4 == BM * BK && WB <= NTH, "tile shape");
+  constexpr int BN = S::BN, NTH = S::kThreads;
+  using OpA = KMajor<S::BM, NTH>;
+  using OpB = MNMajor<BN, NTH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // an offset from smem_raw, not a pointer rebuilt from an integer: accesses stay shared ones
-  uint32_t* planes = reinterpret_cast<uint32_t*>(
-      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023));  // [2][S::planes]
-
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  uint32_t* planes = plane_sets(smem_raw);
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * S::BM;
   const int64_t e = blockIdx.z;
-  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int nk = (D + BK - 1) / BK;
+  const int wg = threadIdx.x >> 7, nk = (D + BK - 1) / BK;
+  OpA A;
+  OpB B;
+  A.at(buf + e * C * D, D, m0, C);
+  B.at(w + e * D * F, F, n0, F);
 
-  // buf: chunk (row r0 + it NTH / 8, column 4 ca); a quarter warp reads one row's 128 bytes and
-  // stores them to 8 distinct chunks of its plane row
-  const int r0 = tid >> 3, ca = tid & 7;
-  const float* src_a[IA];
-  bool in_a[IA];
-#pragma unroll
-  for (int it = 0; it < IA; ++it) {
-    const int r = r0 + it * (NTH / 8);
-    in_a[it] = m0 + r < C;
-    src_a[it] = buf + (e * C + (in_a[it] ? m0 + r : 0)) * D + 4 * ca;
-  }
-  const int sa = r0 * 8 + (ca ^ (r0 & 7));  // plane chunk of the first; + it (NTH / 8) 8
-  // w: the 4 x 4 piece at k chunk kq = 4 kh + t4 (rows 4 kq ..) and n chunk nq = 2 nh + p (a
-  // quarter warp takes t4 and p), stored transposed to the chunks sb[ii] of columns 4 nq + ii
-  const bool has_b = WB == NTH || tid < WB;
-  const int t4 = tid & 3, p = (tid >> 2) & 1, kh = (tid >> 3) & 1, nh = (tid >> 4) % (BN / 8);
-  const int kq = 4 * kh + t4, nq = 2 * nh + p;
-  const bool in_bc = has_b && n0 + 4 * nq < F;
-  const float* src_b = w + e * D * F + (in_bc ? n0 + 4 * nq : 0);
-  int sb[4];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) sb[ii] = (4 * nq + ii) * 8 + (kq ^ ((4 * p + ii) & 7));
-
-  float4 va[2][IA], vb[2][4];  // stages kt and kt + 1's chunks, in buffers kt % 2 and (kt + 1) % 2
-  auto load = [&](int kt, float4 (&la)[IA], float4 (&lb)[4]) {
-    const int k0 = kt * BK;
-    const bool kin = k0 + 4 * ca < D;
-#pragma unroll
-    for (int it = 0; it < IA; ++it)
-      la[it] = in_a[it] && kin ? *reinterpret_cast<const float4*>(src_a[it] + k0)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      const int k = k0 + 4 * kq + rr;
-      lb[rr] = in_bc && k < D ? *reinterpret_cast<const float4*>(src_b + static_cast<int64_t>(k) * F)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  // stage kt's chunks (la, lb) into plane set kt % 2
-  auto split_stage = [&](int set, const float4 (&la)[IA], const float4 (&lb)[4]) {
-    uint4* pa = reinterpret_cast<uint4*>(planes + set * S::planes);
-    uint4* pb = pa + S::plane_a / 2;  // after buf's hi and lo planes
-#pragma unroll
-    for (int it = 0; it < IA; ++it) {
-      uint4 hi, lo;
-      split4(la[it], hi, lo);
-      const int c = sa + it * (NTH / 8) * 8;
-      pa[c] = hi;
-      pa[S::plane_a / 4 + c] = lo;
-    }
-    if (has_b) {
-      const float col[4][4] = {{lb[0].x, lb[1].x, lb[2].x, lb[3].x}, {lb[0].y, lb[1].y, lb[2].y, lb[3].y},
-                               {lb[0].z, lb[1].z, lb[2].z, lb[3].z}, {lb[0].w, lb[1].w, lb[2].w, lb[3].w}};
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        uint4 hi, lo;
-        split4(make_float4(col[ii][0], col[ii][1], col[ii][2], col[ii][3]), hi, lo);
-        pb[sb[ii]] = hi;
-        pb[S::plane_b / 4 + sb[ii]] = lo;
-      }
-    }
-    hopper::fence_async_shared();  // the planes' stores, before wgmma (the async proxy) reads them
-  };
-
-  // The tensor cores add a product into an f32 accumulator with truncation, so over granite's
-  // 1536-deep products one accumulator strays ~1e-4 from f32's sum (an H100, PERF.md): each
-  // stage's twelve products start from zero in `part`, which joins the running sum by an f32 add.
   float acc[BN / 2], part[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-
-  auto products = [&](int set) {  // one stage's wgmma from plane set `set`, issued and committed
-    const uint32_t* ah = planes + set * S::planes;
-    const uint32_t* al = ah + S::plane_a;
-    const uint32_t* bh = al + S::plane_a;
-    const uint32_t* bl = bh + S::plane_b;
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk) {
-      wgmma_tf32<BN>(part, desc(al, 64 * wg, kk), desc(bh, 0, kk), kk);  // the small terms first
-      wgmma_tf32<BN>(part, desc(ah, 64 * wg, kk), desc(bl, 0, kk), 1);
-      wgmma_tf32<BN>(part, desc(ah, 64 * wg, kk), desc(bh, 0, kk), 1);
-    }
-    hopper::wgmma_commit();
-  };
-
-  if (nk > 0) load(0, va[0], vb[0]);
-  if (nk > 1) load(1, va[1], vb[1]);
+  float4 va[2][OpA::kRegs], vb[2][OpB::kRegs];  // stages kt and kt + 1, in buffers kt % 2, (kt + 1) % 2
+  if (nk > 0) A.load(0, D, va[0]), B.load(0, D, vb[0]);
+  if (nk > 1) A.load(BK, D, va[1]), B.load(BK, D, vb[1]);
   for (int k2 = 0; k2 <= nk; k2 += 2) {
 #pragma unroll
     for (int u = 0; u < 2; ++u) {  // unrolled: each stage's buffer is a fixed register set
@@ -779,9 +848,13 @@ moe_matmul_tf32x3(const float* __restrict__ buf, const float* __restrict__ w,
       if (kt > nk) break;
       // stage kt - 1 is split, and stage kt - 2's wgmma, which read the set stage kt takes, are done
       __syncthreads();
-      if (kt > 0) products(u ^ 1);
-      if (kt < nk) split_stage(u, va[u], vb[u]);
-      if (kt + 2 < nk) load(kt + 2, va[u], vb[u]);  // two stages ahead
+      if (kt > 0) stage_products<S>(part, planes + (u ^ 1) * S::planes, wg);
+      if (kt < nk) {
+        A.split(planes + u * S::planes, va[u]);
+        B.split(planes + u * S::planes + 2 * S::plane_a, vb[u]);
+        hopper::fence_async_shared();  // the planes' stores, before wgmma (the async proxy) reads them
+      }
+      if (kt + 2 < nk) A.load((kt + 2) * BK, D, va[u]), B.load((kt + 2) * BK, D, vb[u]);  // two stages ahead
       hopper::wgmma_wait<0>();
       hopper::fence_regs(part);
       if (kt > 0) {
@@ -790,21 +863,100 @@ moe_matmul_tf32x3(const float* __restrict__ buf, const float* __restrict__ w,
       }
     }
   }
+  store_tile<BN>(out + e * C * F, acc, m0, n0, C, F);
+}
 
-  // acc[4 j + i]: row 16 (warp % 4) + g + 8 (i / 2) of the warpgroup's 64, column 8 j + 2 t + i % 2
-  float* o = out + e * C * F;
-  const int row = m0 + 64 * wg + 16 * ((tid >> 5) & 3) + g;
+// The backward's two launches on the same arithmetic, out[e] (M x N) = sum over k < K of
+// A(m, k) B(k, n), BM x BN tiles over 32-deep stages:
+// - kDw false, dbuf = dout w^T: M = C, N = D, K = F; A = dout [C][F] and B(k, n) = w[n][k],
+//   both K-major as stored (the forward's buf path);
+// - kDw true, dw = buf^T dout: M = D, N = F, K = C; A(m, k) = buf[k][m] and B = dout [C][F],
+//   both MN-major (the forward's w path, each 4 x 4 piece transposed as it is split); stages past
+//   a ragged C read zeros.
+// The grid is persistent: block b walks tiles t = b, b + G, ... in (expert, N tile, M tile)
+// order, M fastest, and its stage loop runs on across them, so the loads of a tile's first two
+// stages and the split of its first are made while the tile before finishes its products and
+// hands its accumulators to TMA (store_tile_tma; out is the tensor map ``to``).  dw's K = C is
+// 256 at granite's LM step: 8 stages a tile.  Each output element sums its products in one
+// fixed order (no atomics): two calls give the same bits.
+template <class S, bool kDw>
+__global__ void __launch_bounds__(S::kThreads)
+moe_matmul_bwd_tf32x3(const float* __restrict__ a, const float* __restrict__ b,
+                      const __grid_constant__ CUtensorMap to, int E, int M, int N, int K) {
+  constexpr int BM = S::BM, BN = S::BN, NTH = S::kThreads;
+  using OpA = typename std::conditional<kDw, MNMajor<BM, NTH>, KMajor<BM, NTH>>::type;
+  using OpB = typename std::conditional<kDw, MNMajor<BN, NTH>, KMajor<BN, NTH>>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint32_t* planes = plane_sets(smem_raw);
+  unsigned char* staging = reinterpret_cast<unsigned char*>(planes + 2 * S::planes);  // [BM][BN] f32
+  const int m_tiles = (M + BM - 1) / BM, n_tiles = (N + BN - 1) / BN, tiles = E * m_tiles * n_tiles;
+  const int nk = (K + BK - 1) / BK, wg = threadIdx.x >> 7;
+  const int mine = blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = mine * nk;  // this block's stages, over all its tiles
+
+  OpA A;
+  OpB B;
+  int lt = blockIdx.x, lk = 0;  // the tile and stage the loads have reached
+  auto seek = [&](int t) {  // point the loads at tile t
+    const int64_t e = t / (m_tiles * n_tiles);
+    const int m0 = t % m_tiles * BM, n0 = t / m_tiles % n_tiles * BN;
+    if constexpr (kDw) {
+      A.at(a + e * K * M, M, m0, M);
+      B.at(b + e * K * N, N, n0, N);
+    } else {
+      A.at(a + e * M * K, K, m0, M);
+      B.at(b + e * N * K, K, n0, N);
+    }
+  };
+  float4 va[2][OpA::kRegs], vb[2][OpB::kRegs];  // stages s and s + 1, in buffers s % 2 and (s + 1) % 2
+  auto load_next = [&](float4 (&la)[OpA::kRegs], float4 (&lb)[OpB::kRegs]) {
+    A.load(lk * BK, K, la);
+    B.load(lk * BK, K, lb);
+    if (++lk == nk) {
+      lk = 0;
+      lt += gridDim.x;
+      if (lt < tiles) seek(lt);
+    }
+  };
+
+  float acc[BN / 2], part[BN / 2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if (row + 8 * half >= C) continue;
-    float* orow = o + static_cast<int64_t>(row + 8 * half) * F;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  if (total > 0) seek(lt);
+  if (total > 0) load_next(va[0], vb[0]);
+  if (total > 1) load_next(va[1], vb[1]);
+  int ot = blockIdx.x, ok = 0;  // the tile and stage the products have reached
+  for (int s2 = 0; s2 <= total; s2 += 2) {
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = n0 + 8 * j + 2 * t;  // even; F a multiple of 4
-      if (col < F)
-        *reinterpret_cast<float2*>(orow + col) = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    for (int u = 0; u < 2; ++u) {  // unrolled: each stage's buffer is a fixed register set
+      const int st = s2 + u;
+      if (st > total) break;
+      // stage st - 1 is split, and stage st - 2's wgmma, which read the set stage st takes, are done
+      __syncthreads();
+      if (st > 0) stage_products<S>(part, planes + (u ^ 1) * S::planes, wg);
+      if (st < total) {
+        A.split(planes + u * S::planes, va[u]);
+        B.split(planes + u * S::planes + 2 * S::plane_a, vb[u]);
+        hopper::fence_async_shared();  // the planes' stores, before wgmma (the async proxy) reads them
+      }
+      if (st + 2 < total) load_next(va[u], vb[u]);  // two stages ahead, into the next tile at its end
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(part);
+      if (st > 0) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+        if (++ok == nk) {  // stage st - 1 was tile ot's last: store it while the next one loads
+          store_tile_tma<BN>(&to, staging, acc, ot % m_tiles * BM, ot / m_tiles % n_tiles * BN,
+                             ot / (m_tiles * n_tiles), M, N);
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+          ok = 0;
+          ot += gridDim.x;
+        }
+      }
     }
   }
+  if ((threadIdx.x & 127) == 0) hopper::bulk_wait<0>();  // the stores have read the staging
 }
 
 }  // namespace tf
@@ -1215,7 +1367,7 @@ moe_matmul_bwd_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_consta
 
 namespace {
 
-// Route ids; kFma is the backward's f32 route only.
+// Route ids; kFma is the backward's only.
 enum Route { kWgmma = 0, kWgmmaT = 1, kFma = 2, kMasked = 3, kTf32x3 = 4 };
 
 // What a launch plan states; the entry point compares it with its own.
@@ -1410,10 +1562,30 @@ int bwd_tile_n(int64_t E, int64_t M, int64_t N, int64_t K) {
   return best;
 }
 
+template <class S>
+int64_t tf_tiles(int64_t E, int64_t M, int64_t N) {
+  return E * ((M + S::BM - 1) / S::BM) * ((N + S::BN - 1) / S::BN);
+}
+
+template <class S>
+Plan tf_bwd_plan(int64_t E, int64_t M, int64_t N, int per_sm) {
+  return {kTf32x3, S::BN, tf::BK, 2, S::kThreads, persistent(tf_tiles<S>(E, M, N), per_sm), 1, 1,
+          S::bwd_bytes};
+}
+
+// The backward's tf32x3 tiles: 64 x 64 where M <= 64 or 128 x 128 tiles would not fill the SMs
+// once (the reduced configs), else 128 x 128.  moe_matmul.py's _tf_bwd_small.
+bool tf_bwd_small(int64_t E, int64_t M, int64_t N) {
+  return M <= tf::Small::BM || tf_tiles<tf::Wide>(E, M, N) < hopper::kSMs;
+}
+
 // The backward's own plan for one of its two launches (which: 0 dbuf, 1 dw);
 // a launch's product is out M x N over K: (C, D, F) for dbuf, (D, F, C) for dw.
 Plan bwd_plan(int route, int which, int E, int C, int D, int F) {
   const int64_t M = which == 0 ? C : D, N = which == 0 ? D : F, K = which == 0 ? F : C;
+  if (route == kTf32x3)
+    return tf_bwd_small(E, M, N) ? tf_bwd_plan<tf::Small>(E, M, N, tf::kBwdSmallBlocks)
+                                 : tf_bwd_plan<tf::Wide>(E, M, N, tf::kBwdWideBlocks);
   if (route == kWgmma) {
     const int bn = bwd_tile_n(E, M, N, K);
     const int64_t tiles = static_cast<int64_t>(E) * ((M + 127) / 128) * ((N + bn - 1) / bn);
@@ -1457,35 +1629,56 @@ cudaError_t launch_bwd_wgmma(const void* a, const void* b, void* out, int E, int
   }
 }
 
+// One tf32x3 launch: a and b as moe_matmul_bwd takes them, out M x N over K.
+template <class S, bool kDw>
+cudaError_t launch_bwd_tf32x3_s(const void* a, const void* b, void* out, int E, int M, int N, int K,
+                                const Plan& p, cudaStream_t s) {
+  constexpr auto kernel = tf::moe_matmul_bwd_tf32x3<S, kDw>;
+  cudaError_t err = configure_once<kernel>(p.smem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap to;  // out [E][M][N] in boxes of 64 rows by 32 columns
+  if (!hopper::map_f32_3d(&to, out, N, M, E, 64)) return cudaErrorInvalidValue;
+  kernel<<<p.grid_x, S::kThreads, p.smem, s>>>(static_cast<const float*>(a), static_cast<const float*>(b), to,
+                                                E, M, N, K);
+  return cudaGetLastError();
+}
+
+template <bool kDw>
+cudaError_t launch_bwd_tf32x3(const void* a, const void* b, void* out, int E, int C, int D, int F,
+                              const Plan& p, cudaStream_t s) {
+  const int M = kDw ? D : C, N = kDw ? F : D, K = kDw ? C : F;
+  return tf_bwd_small(E, M, N) ? launch_bwd_tf32x3_s<tf::Small, kDw>(a, b, out, E, M, N, K, p, s)
+                               : launch_bwd_tf32x3_s<tf::Wide, kDw>(a, b, out, E, M, N, K, p, s);
+}
+
 // One fma launch: (M, N, K) and each operand's expert stride and leading dimension.
-template <typename T, int BM>
-cudaError_t launch_bwd_fma(int which, bool vec, const void* a, const void* b, void* out, int64_t E,
-                           int64_t C, int64_t D, int64_t F, const Plan& p, cudaStream_t s) {
+template <typename T, int BM, bool kVec>
+cudaError_t launch_bwd_fma(int which, const void* a, const void* b, void* out, int64_t E, int64_t C,
+                           int64_t D, int64_t F, const Plan& p, cudaStream_t s) {
   const dim3 grid(p.grid_x, p.grid_y, p.grid_z);
   const T* ap = static_cast<const T*>(a);
   const T* bp = static_cast<const T*>(b);
   T* op = static_cast<T*>(out);
-  if (which == 0) {  // dbuf = dout w^T: A = dout [C][F], B(k, n) = w[n][k], both along k
-    const int M = static_cast<int>(C), N = static_cast<int>(D), K = static_cast<int>(F);
-    if (vec)
-      moe_matmul_bwd_fma<T, BM, true, true><<<grid, kFmaThreads, 0, s>>>(ap, bp, op, M, N, K, C * F, F, D * F, F);
-    else
-      moe_matmul_bwd_fma<T, BM, true, false><<<grid, kFmaThreads, 0, s>>>(ap, bp, op, M, N, K, C * F, F, D * F, F);
-  } else {  // dw = buf^T dout: A(m, k) = buf[k][m], B = dout [C][F], both along m, n
-    const int M = static_cast<int>(D), N = static_cast<int>(F), K = static_cast<int>(C);
-    if (vec)
-      moe_matmul_bwd_fma<T, BM, false, true><<<grid, kFmaThreads, 0, s>>>(ap, bp, op, M, N, K, C * D, D, C * F, F);
-    else
-      moe_matmul_bwd_fma<T, BM, false, false><<<grid, kFmaThreads, 0, s>>>(ap, bp, op, M, N, K, C * D, D, C * F, F);
-  }
+  if (which == 0)  // dbuf = dout w^T: A = dout [C][F], B(k, n) = w[n][k], both along k
+    moe_matmul_bwd_fma<T, BM, true, kVec><<<grid, kFmaThreads, 0, s>>>(
+        ap, bp, op, static_cast<int>(C), static_cast<int>(D), static_cast<int>(F), C * F, F, D * F, F);
+  else  // dw = buf^T dout: A(m, k) = buf[k][m], B = dout [C][F], both along m, n
+    moe_matmul_bwd_fma<T, BM, false, kVec><<<grid, kFmaThreads, 0, s>>>(
+        ap, bp, op, static_cast<int>(D), static_cast<int>(F), static_cast<int>(C), C * D, D, C * F, F);
   return cudaGetLastError();
 }
 
+// vec: every 4-element group aligned, which only bf16 brings here (aligned f32 takes tf32x3)
 template <typename T>
 cudaError_t launch_bwd_fma(int which, bool vec, const void* a, const void* b, void* out, int64_t E,
                            int64_t C, int64_t D, int64_t F, const Plan& p, cudaStream_t s) {
-  return p.block_n == 128 ? launch_bwd_fma<T, 128>(which, vec, a, b, out, E, C, D, F, p, s)
-                          : launch_bwd_fma<T, 64>(which, vec, a, b, out, E, C, D, F, p, s);
+  if constexpr (sizeof(T) == 2) {
+    if (vec)
+      return p.block_n == 128 ? launch_bwd_fma<T, 128, true>(which, a, b, out, E, C, D, F, p, s)
+                              : launch_bwd_fma<T, 64, true>(which, a, b, out, E, C, D, F, p, s);
+  }
+  return p.block_n == 128 ? launch_bwd_fma<T, 128, false>(which, a, b, out, E, C, D, F, p, s)
+                          : launch_bwd_fma<T, 64, false>(which, a, b, out, E, C, D, F, p, s);
 }
 
 }  // namespace
@@ -1494,9 +1687,9 @@ cudaError_t launch_bwd_fma(int which, bool vec, const void* a, const void* b, vo
 // dbuf [E, C, D] = a w^T with a = dout [E, C, F], b = w [E, D, F]; which =
 // 1: out = dw [E, D, F] = a^T b with a = buf [E, C, D], b = dout [E, C, F].
 // All contiguous, of one dtype (0 f32, 1 bf16).  plan: moe_matmul.py's
-// bwd_plan for this launch as nine integers (route 0 wgmma or 2 fma,
-// block_n, block_k, stages, threads, grid x, y, z, shared-memory bytes);
-// any other returns cudaErrorInvalidConfiguration.
+// bwd_plan for this launch as nine integers (route 0 wgmma, 2 fma or 4
+// tf32x3, block_n, block_k, stages, threads, grid x, y, z, shared-memory
+// bytes); any other returns cudaErrorInvalidConfiguration.
 extern "C" int moe_matmul_bwd(int which, int dtype, const int64_t* plan_in, const void* a,
                               const void* b, void* out, int64_t E, int64_t C, int64_t D, int64_t F,
                               void* stream) {
@@ -1508,7 +1701,10 @@ extern "C" int moe_matmul_bwd(int which, int dtype, const int64_t* plan_in, cons
             f = static_cast<int>(F);
   const bool aligned = (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
                         reinterpret_cast<uintptr_t>(out)) % 16 == 0;
-  const int route = dtype == 1 && aligned && d % 8 == 0 && f % 8 == 0 ? kWgmma : kFma;
+  // rows TMA or the split's 16-byte loads cannot read go to fma, in either dtype
+  const int route = !aligned ? kFma
+                    : dtype == 1 ? (d % 8 == 0 && f % 8 == 0 ? kWgmma : kFma)
+                                 : (d % 4 == 0 && f % 4 == 0 ? kTf32x3 : kFma);
   const Plan given{static_cast<int>(plan_in[0]), static_cast<int>(plan_in[1]),
                    static_cast<int>(plan_in[2]), static_cast<int>(plan_in[3]),
                    static_cast<int>(plan_in[4]), static_cast<int>(plan_in[5]),
@@ -1519,7 +1715,10 @@ extern "C" int moe_matmul_bwd(int which, int dtype, const int64_t* plan_in, cons
   if (route == kWgmma)
     return static_cast<int>(which == 0 ? launch_bwd_wgmma<false>(a, b, out, e, c, d, f, plan, s)
                                        : launch_bwd_wgmma<true>(a, b, out, e, c, d, f, plan, s));
-  const bool vec = aligned && d % 4 == 0 && f % 4 == 0;  // every 4-element group aligned
+  if (route == kTf32x3)
+    return static_cast<int>(which == 0 ? launch_bwd_tf32x3<false>(a, b, out, e, c, d, f, plan, s)
+                                       : launch_bwd_tf32x3<true>(a, b, out, e, c, d, f, plan, s));
+  const bool vec = aligned && d % 4 == 0 && f % 4 == 0;  // every 4-element group aligned: bf16 only
   return static_cast<int>(dtype == 1 ? launch_bwd_fma<__nv_bfloat16>(which, vec, a, b, out, E, C, D, F, plan, s)
                                      : launch_bwd_fma<float>(which, vec, a, b, out, E, C, D, F, plan, s));
 }

@@ -24,8 +24,12 @@ it; the kernel refuses a plan that is not its own.  Routes:
 one launch each, each laid out by ``bwd_plan`` (``"wgmma"``: bf16 on the
 forward's TMA conditions, 128-row tiles 64, 128 or 256 columns wide as
 ``_bwd_tile_n`` weighs the launch, with the operands' major-ness changed;
-``"fma"``: f32 or rows TMA cannot read, register-blocked CUDA-core FMAs on
-128 x 128 tiles, 64 x 64 where those would not fill the SMs).
+``"tf32x3"``: f32 on the forward's tf32x3 conditions, its split-TF32
+arithmetic on 128 x 128 tiles (64 x 64 where the launch's M <= 64 or 128 x 128
+tiles would not fill the SMs) walked by persistent blocks, counted apart
+(``tf32x3_dbuf_launches``, ``tf32x3_dw_launches``); ``"fma"``: rows that are
+not 16-byte aligned, either dtype, register-blocked CUDA-core FMAs on 128 x 128
+tiles, 64 x 64 where those would not fill the SMs).
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# index = the C entry points' route id; "fma" is the backward's f32 route only
+# index = the C entry points' route id; "fma" is the backward's only
 ROUTES = ("wgmma", "wgmma_t", "fma", "masked", "tf32x3")
 SMALL_C = 32  # bf16 capacities up to this take the transposed route
 
@@ -49,6 +53,8 @@ launches = 0  # forward
 tf32x3_launches = 0  # the f32 route's forward, within launches
 bwd_dbuf_launches = 0
 bwd_dw_launches = 0
+tf32x3_dbuf_launches = 0  # the f32 route's backward, within bwd_dbuf_launches
+tf32x3_dw_launches = 0  # ... and within bwd_dw_launches
 last_plan: Optional["LaunchPlan"] = None  # the plan of the last launch, for reports and tests
 
 
@@ -140,7 +146,7 @@ class BwdPlan:
 
     Each launch is a ``LaunchPlan`` of out M x N over K: dbuf (C, D, F), dw (D, F, C);
     ``block_m`` / ``block_n`` are its tile's rows and columns, ``block_k`` the depth of a
-    stage; the wgmma route's grid is (persistent blocks, 1, 1), the fma route's
+    stage; the wgmma and tf32x3 routes' grid is (persistent blocks, 1, 1), the fma route's
     (N tiles, M tiles, E) with the static shared memory of its two stages."""
 
     dbuf: LaunchPlan
@@ -152,6 +158,10 @@ class BwdPlan:
 
 
 FMA_BWD_K = 16  # the fma route's stage depth
+# blocks an SM that the tf32x3 backward's persistent grid counts on, by tile rows (csrc
+# kBwdWideBlocks, kBwdSmallBlocks): 128 x 128 tiles' planes, staging and registers hold one,
+# 64 x 64 two
+TF_BWD_BLOCKS = {128: 1, 64: 2}
 # a 64-deep stage's time on the wgmma route by tile width, in 1/100 us, read on the card at
 # granite's four LM products (csrc bwd_tile_n)
 BWD_STAGE_COST = {64: 52, 128: 70, 256: 135}
@@ -172,10 +182,23 @@ def _bwd_tile_n(E: int, M: int, N: int, K: int) -> int:
     return best[1]
 
 
+def _tf_bwd_small(E: int, M: int, N: int) -> bool:
+    """The tf32x3 backward's 64 x 64 tiles: where M <= 64 or 128 x 128 tiles would not fill the
+    SMs once (the reduced configs).  ``tf_bwd_small`` in the source."""
+    return M <= TF_SMALL_C or E * _cdiv(M, 128) * _cdiv(N, TF_WIDE_N) < _build.NUM_SMS
+
+
 def _bwd_launch(route: str, E: int, M: int, N: int, K: int) -> LaunchPlan:
     """One launch, out M x N over K."""
     if route == "wgmma":  # the forward's kernel shape, over M x N
         return _tma_plan("wgmma", E, M, N, _bwd_tile_n(E, M, N, K))
+    if route == "tf32x3":  # the forward's tiles and planes (``_tf_plan``) walked by persistent
+        # blocks, and an f32 staging tile for the TMA-stored epilogue
+        bm, bn = (64, 64) if _tf_bwd_small(E, M, N) else (128, TF_WIDE_N)
+        tiles = E * _cdiv(M, bm) * _cdiv(N, bn)
+        return LaunchPlan("tf32x3", bm, bn, 32, 2, 2 * bm,
+                          (min(tiles, TF_BWD_BLOCKS[bm] * _build.NUM_SMS), 1, 1),
+                          1024 + 4 * 4 * 32 * (bm + bn) + 4 * bm * bn, tiles)
     bm = 128 if E * _cdiv(M, 128) * _cdiv(N, 128) >= _build.NUM_SMS else 64
     # two stages of [16 k][bm + 4] f32 for each operand
     return LaunchPlan("fma", bm, bm, FMA_BWD_K, 2, 256, (_cdiv(N, bm), _cdiv(M, bm), E),
@@ -186,11 +209,16 @@ def _bwd_launch(route: str, E: int, M: int, N: int, K: int) -> LaunchPlan:
 def bwd_plan(E: int, C: int, D: int, F: int, dtype: torch.dtype, aligned: bool = True) -> BwdPlan:
     """The backward's plan for buf [E, C, D], w [E, D, F] (no CUDA needed): ``"wgmma"``
     where the forward's TMA conditions hold (bf16, 16-byte aligned bases, D and F multiples
-    of 8), else ``"fma"``.  ``aligned`` is one launch's: dbuf's reads dout and w, dw's buf
+    of 8), ``"tf32x3"`` where its f32 route's hold (16-byte aligned bases, D and F multiples
+    of 4), else ``"fma"``.  ``aligned`` is one launch's: dbuf's reads dout and w, dw's buf
     and dout, and each writes its own output, so the two launches of one call may differ."""
     if E > 65535 or _cdiv(C, 64) > 65535 or _cdiv(D, 64) > 65535 or max(C, D, F) >= 2**31:
         raise ValueError(f"grid limit: E={E}, C={C}, D={D}, F={F}")
-    route = "wgmma" if dtype == torch.bfloat16 and aligned and D % 8 == 0 and F % 8 == 0 else "fma"
+    route = "fma"
+    if aligned and dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0:
+        route = "wgmma"
+    elif aligned and dtype == torch.float32 and D % 4 == 0 and F % 4 == 0:
+        route = "tf32x3"
     return BwdPlan(_bwd_launch(route, E, C, D, F), _bwd_launch(route, E, D, F, C))
 
 
@@ -269,7 +297,7 @@ def moe_matmul_bwd(
     """(dbuf [E, C, D] or None, dw [E, D, F] or None) of ``moe_matmul(buf, w)`` for the
     gradient dout [E, C, F]; one kernel launch for each gradient asked for.  All three
     contiguous, of one dtype, on the current CUDA device."""
-    global bwd_dbuf_launches, bwd_dw_launches
+    global bwd_dbuf_launches, bwd_dw_launches, tf32x3_dbuf_launches, tf32x3_dw_launches
     if buf.dim() != 3 or w.dim() != 3 or dout.dim() != 3:
         raise ValueError("moe_matmul_bwd takes buf [E,C,D], w [E,D,F] and dout [E,C,F]")
     E, C, D = buf.shape
@@ -298,12 +326,15 @@ def moe_matmul_bwd(
         plan = bwd_plan(E, C, D, F, buf.dtype,
                         (a.data_ptr() | b.data_ptr() | out.data_ptr()) % 16 == 0)
         if out.numel() and C and F and D:
-            err = _bwd_entry()(which, DTYPES[buf.dtype], _plan_args(plan.dw if which else plan.dbuf),
-                               a.data_ptr(), b.data_ptr(), out.data_ptr(), E, C, D, F, stream)
+            lp = plan.dw if which else plan.dbuf
+            err = _bwd_entry()(which, DTYPES[buf.dtype], _plan_args(lp), a.data_ptr(), b.data_ptr(),
+                               out.data_ptr(), E, C, D, F, stream)
             if which:
                 bwd_dw_launches += 1
+                tf32x3_dw_launches += lp.route == "tf32x3"
             else:
                 bwd_dbuf_launches += 1
+                tf32x3_dbuf_launches += lp.route == "tf32x3"
             _build.check("moe_matmul", err)
         else:
             out.zero_()  # an empty reduction

@@ -228,6 +228,8 @@ _ROUTE_COUNTERS = {
     "flash_attention_bwd_dq_tf32x3": (_flash, "tf32x3_bwd_dq_launches"),
     "flash_attention_bwd_dkdv_tf32x3": (_flash, "tf32x3_bwd_dkdv_launches"),
     "moe_matmul_tf32x3": (_moe, "tf32x3_launches"),
+    "moe_matmul_bwd_dbuf_tf32x3": (_moe, "tf32x3_dbuf_launches"),
+    "moe_matmul_bwd_dw_tf32x3": (_moe, "tf32x3_dw_launches"),
     "ssd_intra_chunk_mma3": (_ssd, "mma3_launches"),
 }
 
@@ -237,8 +239,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def route_launch_counts() -> Dict[str, int]:
-    """Launches of the f32 routes' kernels: attention's, moe_matmul's and ssd_intra_chunk's
-    forward (within ``launch_counts``'s)."""
+    """Launches of the f32 routes' kernels: attention's, moe_matmul's forward and backward and
+    ssd_intra_chunk's forward (within ``launch_counts``'s)."""
     return {name: getattr(mod, attr) for name, (mod, attr) in _ROUTE_COUNTERS.items()}
 
 

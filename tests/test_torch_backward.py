@@ -236,13 +236,15 @@ def test_ssd_autograd_function_matches_autograd_through_ref(plain_kernels, uses)
 
 
 # (E, C, D, F, dtype, route): granite's two training products at C 256 (gate/up, down), the
-# reduced config, ragged capacities 8 to 384, f32, and rows TMA cannot read
+# reduced config, ragged capacities 8 to 384, f32 (split TF32), and rows TMA or the f32 route's
+# 16-byte loads cannot read
 MOE_BWD_CASES = [
     (40, 256, 1536, 512, torch.bfloat16, "wgmma"), (40, 256, 512, 1536, torch.bfloat16, "wgmma"),
     (4, 24, 256, 128, torch.bfloat16, "wgmma"), (3, 130, 264, 200, torch.bfloat16, "wgmma"),
     (40, 8, 1536, 512, torch.bfloat16, "wgmma"), (40, 384, 512, 1536, torch.bfloat16, "wgmma"),
-    (4, 24, 256, 128, torch.float32, "fma"), (40, 256, 1536, 512, torch.float32, "fma"),
-    (3, 70, 100, 36, torch.bfloat16, "fma"), (5, 130, 200, 72, torch.float32, "fma"),
+    (4, 24, 256, 128, torch.float32, "tf32x3"), (40, 256, 1536, 512, torch.float32, "tf32x3"),
+    (3, 70, 100, 36, torch.bfloat16, "fma"), (5, 130, 200, 72, torch.float32, "tf32x3"),
+    (3, 70, 102, 36, torch.float32, "fma"),
 ]
 
 
@@ -256,8 +258,9 @@ def _covers_each_tile_once(blocks, tiles):
 def test_moe_backward_launch_plan(E, C, D, F, dtype, route):
     """Each launch (dbuf: C x D over F; dw: D x F over C) covers its output once, within the
     shared memory a block may have: wgmma on the tile width whose rounds over the SMs,
-    weighed by a tile's time, are least; fma on 128 x 128 register-blocked tiles where
-    they fill the SMs, else 64 x 64."""
+    weighed by a tile's time, are least; tf32x3 on the forward's 128 x 128 tiles (64 x 64
+    where M <= 64 or those would not fill the SMs) walked by persistent blocks; fma on 128 x 128 register-blocked tiles
+    where they fill the SMs, else 64 x 64."""
     plan = moe_mod.bwd_plan(E, C, D, F, dtype)
     assert plan.route == route
     for (M, N, K), lp in (((C, D, F), plan.dbuf), ((D, F, C), plan.dw)):
@@ -275,6 +278,16 @@ def test_moe_backward_launch_plan(E, C, D, F, dtype, route):
 
             assert cost(lp.block_n) == min(cost(bn) for bn in (64, 128, 256))
             assert lp.block_n == max(bn for bn in (64, 128, 256) if cost(bn) == cost(lp.block_n))
+        elif route == "tf32x3":  # split TF32 on wgmma: a warpgroup per 64 rows, 32-deep stages
+            wide = E * -(-M // 128) * -(-N // 128) >= _build.NUM_SMS  # 128-wide tiles fill the SMs
+            bm = 128 if M > 64 and wide else 64
+            assert (lp.route, lp.block_m, lp.block_n, lp.block_k, lp.stages, lp.threads) == (
+                "tf32x3", bm, bm, 32, 2, 2 * bm)
+            # two sets of hi / lo planes, and an f32 staging tile for the TMA-stored epilogue
+            assert lp.smem_bytes == 1024 + 2 * 2 * 2 * bm * 32 * 4 + 4 * bm * bm
+            blocks = moe_mod.TF_BWD_BLOCKS[bm] * _build.NUM_SMS
+            assert lp.grid == (min(lp.tiles, blocks), 1, 1) and _covers_each_tile_once(lp.grid[0], lp.tiles)
+            assert lp.smem_bytes * moe_mod.TF_BWD_BLOCKS[bm] <= _build.MAX_SMEM_BYTES
         else:
             assert lp.route == "fma"
             wide = E * -(-M // 128) * -(-N // 128) >= _build.NUM_SMS  # 128-wide tiles fill the SMs
@@ -286,17 +299,30 @@ def test_moe_backward_launch_plan(E, C, D, F, dtype, route):
     assert moe_mod.bwd_plan(E, C, D, F, dtype, aligned=False).route == "fma"
 
 
-# granite-moe-3b-a800m's LM products at C 256: the tiles each launch takes
+# granite-moe-3b-a800m's LM products at C 256: the route and tiles each launch takes
 @pytest.mark.parametrize("D,F,dtype,dbuf_tile,dw_tile", [
     (512, 1536, torch.bfloat16, (128, 128), (128, 128)),  # down
     (1536, 512, torch.bfloat16, (128, 256), (128, 128)),  # gate/up: 480 dbuf tiles in 4 rounds
-    (1536, 512, torch.float32, (128, 128), (128, 128)),
-    (512, 1536, torch.float32, (128, 128), (128, 128)),
+    (1536, 512, torch.float32, (128, 128), (128, 128)),  # 960 dbuf, 1920 dw tiles over 132 blocks
+    (512, 1536, torch.float32, (128, 128), (128, 128)),  # 320 dbuf, 1920 dw tiles
 ])
 def test_moe_backward_tiles_at_granites_shapes(D, F, dtype, dbuf_tile, dw_tile):
     plan = moe_mod.bwd_plan(40, 256, D, F, dtype)
+    assert plan.dbuf.route == plan.dw.route == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
     assert (plan.dbuf.block_m, plan.dbuf.block_n) == dbuf_tile
     assert (plan.dw.block_m, plan.dw.block_n) == dw_tile
+    if dtype == torch.float32:
+        assert plan.dbuf.grid == plan.dw.grid == (_build.NUM_SMS, 1, 1)
+
+
+# a phase 10 rank's reduced granite step (4 experts, C 128, gate/up and down) and the reduced
+# widths at a ragged C: 128 x 128 tiles would leave most SMs idle, so both launches take 64 x 64
+@pytest.mark.parametrize("E,C,D,F", [(4, 128, 256, 128), (4, 128, 128, 256), (4, 130, 256, 128)])
+def test_moe_backward_f32_tiles_at_the_reduced_shapes(E, C, D, F):
+    plan = moe_mod.bwd_plan(E, C, D, F, torch.float32)
+    for lp in (plan.dbuf, plan.dw):
+        assert (lp.route, lp.block_m, lp.block_n, lp.threads) == ("tf32x3", 64, 64, 128)
+        assert lp.grid == (lp.tiles, 1, 1) and lp.tiles <= moe_mod.TF_BWD_BLOCKS[64] * _build.NUM_SMS
 
 
 def test_moe_backward_wrapper_refuses_cpu_tensors():

@@ -1,5 +1,5 @@
-"""The f32 routes of ``moe_matmul`` ("tf32x3") and ``ssd_intra_chunk`` ("mma3")
-against the JAX package, on the CPU.
+"""The f32 routes of ``moe_matmul`` ("tf32x3", forward and backward) and
+``ssd_intra_chunk`` ("mma3") against the JAX package, on the CPU.
 
 ``csrc/moe_matmul.cu`` runs every f32 product on the tensor cores as three TF32
 products of the operands' halves, hi = tf32(x) (``cvt.rna``: round to nearest,
@@ -18,7 +18,11 @@ model against
 in interpret mode and against ``repro.kernels.ref``'s plain versions, on the
 same numpy-seeded inputs, at the limit the card holds the kernels to: 1e-4 of
 1 + |reference|.  One TF32 product a product (hi hi) misses it at granite's
-depth; three meet it.
+depth; three meet it.  ``moe_matmul_bwd``'s f32 route runs the same arithmetic
+on its two launches, dbuf = dout wᵀ over F and dw = bufᵀ dout over C; its
+model is held against ``jax.vjp`` of ``repro.kernels.ref.moe_matmul_ref`` (the
+JAX package differentiates its plain product) at 1e-4 of each gradient's
+largest magnitude, the limit the card holds the backward kernels to.
 """
 
 from __future__ import annotations
@@ -110,6 +114,69 @@ def test_moe_one_tf32_product_misses_the_limit():
     three = within(moe_split(torch.from_numpy(buf), torch.from_numpy(w)), want)
     with pytest.raises(AssertionError, match="beyond"):
         within(moe_split(torch.from_numpy(buf), torch.from_numpy(w), products=1), want)
+    assert three < TOL / 4
+
+
+# ---- B7: the backward's two launches in split TF32 -------------------------------
+
+
+def within_max(got: torch.Tensor, want, tol: float = TOL) -> float:
+    """The largest |got - want| over the largest |want|; asserts it is within ``tol``."""
+    want_t = torch.from_numpy(np.array(want, dtype=np.float32))
+    ratio = ((got - want_t).abs().max() / want_t.abs().max()).item()
+    assert ratio <= tol, f"{ratio:.3e} beyond {tol}"
+    return ratio
+
+
+def moe_bwd_split(buf, w, dout, products: int = 3):
+    """(dbuf, dw) as the tf32x3 backward sums them: dbuf = dout @ w^T (K = F) and dw = buf^T @
+    dout (K = C), each ``moe_split``'s stages over its own K."""
+    return (moe_split(dout, w.transpose(1, 2), products),
+            moe_split(buf.transpose(1, 2), dout, products))
+
+
+def moe_vjp(buf, w, dout):
+    """(dbuf, dw) from ``jax.vjp`` of the JAX package's plain product."""
+    _, pullback = jax.vjp(jref.moe_matmul_ref, jnp.asarray(buf), jnp.asarray(w))
+    return pullback(jnp.asarray(dout))
+
+
+def moe_bwd_inputs(E, C, D, F):
+    rng = np.random.default_rng(7 * E + C + 3 * D + F)
+    return (rng.standard_normal((E, C, D), dtype=np.float32),
+            (0.05 * rng.standard_normal((E, D, F))).astype(np.float32),
+            rng.standard_normal((E, C, F), dtype=np.float32))
+
+
+# (E, C, D, F): granite's LM widths (gate/up, down) at a few experts, a ragged C (130), a small C
+# (8), and D and F ragged multiples of 4
+MOE_BWD_SHAPES = [(2, 40, 1536, 512), (2, 40, 512, 1536), (3, 130, 200, 72), (4, 8, 512, 48),
+                  (1, 70, 100, 36), (2, 130, 36, 1540)]
+
+
+@pytest.mark.parametrize("E,C,D,F", MOE_BWD_SHAPES)
+def test_moe_backward_tf32x3_model_matches_jax(E, C, D, F):
+    buf, w, dout = moe_bwd_inputs(E, C, D, F)
+    plan = moe_mod.bwd_plan(E, C, D, F, torch.float32)
+    assert plan.dbuf.route == plan.dw.route == "tf32x3"
+    got = moe_bwd_split(*(torch.from_numpy(t) for t in (buf, w, dout)))
+    for g, want in zip(got, moe_vjp(buf, w, dout)):
+        within_max(g, want)
+
+
+@pytest.mark.parametrize("which", ["dbuf", "dw"])
+def test_moe_backward_one_tf32_product_misses_the_limit(which):
+    """hi hi alone over a 1536-deep reduction (dbuf's F at granite's down product, dw's C
+    here) strays past 1e-4 of the gradient's largest magnitude; the three products stay well
+    inside it."""
+    shape = (2, 40, 512, 1536) if which == "dbuf" else (1, 1536, 128, 64)
+    buf, w, dout = moe_bwd_inputs(*shape)
+    idx = 0 if which == "dbuf" else 1
+    want = moe_vjp(buf, w, dout)[idx]
+    args = [torch.from_numpy(t) for t in (buf, w, dout)]
+    three = within_max(moe_bwd_split(*args)[idx], want)
+    with pytest.raises(AssertionError, match="beyond"):
+        within_max(moe_bwd_split(*args, products=1)[idx], want)
     assert three < TOL / 4
 
 

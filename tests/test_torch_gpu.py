@@ -543,10 +543,9 @@ def test_moe_matmul_backward_kernels(cuda, E, C, D, F, dtype):
 @pytest.mark.parametrize("offset", ["buf", "w", "dout"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_matmul_backward_takes_an_unaligned_operand(cuda, offset, dtype):
-    """One operand contiguous but one element off 16 bytes: in bf16 the launch that reads
-    it takes the fma route and the other stays on wgmma, each planned from its own
-    pointers; in f32 (the fma route) that launch loads element by element.  Two calls
-    give the same bits."""
+    """One operand contiguous but one element off 16 bytes: the launch that reads it takes
+    the fma route's element loads and the other stays on wgmma (bf16) or tf32x3 (f32), each
+    planned from its own pointers.  Two calls give the same bits."""
     rng = np.random.default_rng(11)
     E, C, D, F = 3, 40, 64, 72
     shapes = {"buf": (E, C, D), "w": (E, D, F), "dout": (E, C, F)}
@@ -560,6 +559,60 @@ def test_moe_matmul_backward_takes_an_unaligned_operand(cuda, offset, dtype):
     want = torch.autograd.grad(ref.moe_matmul_ref(buf, w), (buf, w), t["dout"])
     close_to_max("dbuf", dbuf, want[0], grad_tol(dtype))
     close_to_max("dw", dw, want[1], grad_tol(dtype))
+
+
+# f32 at granite's LM gate/up and down (C 256), a phase 10 rank's reduced granite step (4
+# experts, C 128), the reduced widths at a ragged C and at C 8 (64 x 64 dbuf tiles), ragged D and F
+MOE_BWD_F32_SHAPES = [(40, 256, 1536, 512), (40, 256, 512, 1536), (4, 128, 256, 128), (4, 130, 256, 128),
+                      (4, 8, 256, 128), (3, 70, 100, 36), (2, 1, 8, 8)]
+
+
+@pytest.mark.parametrize("E,C,D,F", MOE_BWD_F32_SHAPES)
+def test_moe_matmul_backward_f32_route(cuda, E, C, D, F):
+    """Both launches on the split-TF32 route within 1e-4 of each reference gradient's largest
+    magnitude (``ref.moe_matmul_bwd_ref``), two calls bit-identical, each launch counted on
+    the route."""
+    rng = np.random.default_rng(E + C + D + F)
+    buf = tensor(rng, (E, C, D), torch.float32, cuda)
+    w = tensor(rng, (E, D, F), torch.float32, cuda, 0.05)
+    dout = tensor(rng, (E, C, F), torch.float32, cuda)
+    plan = moe_mod.bwd_plan(E, C, D, F, torch.float32)
+    assert plan.dbuf.route == plan.dw.route == "tf32x3"
+    names = ("moe_matmul_bwd_dbuf", "moe_matmul_bwd_dw")
+    before, routes = ops.launch_counts(), ops.route_launch_counts()
+    got = moe_mod.moe_matmul_bwd(buf, w, dout)
+    again = moe_mod.moe_matmul_bwd(buf, w, dout)
+    torch.cuda.synchronize()
+    after, routes_after = ops.launch_counts(), ops.route_launch_counts()
+    for name in names:
+        assert after[name] == before[name] + 2
+        assert routes_after[name + "_tf32x3"] == routes[name + "_tf32x3"] + 2
+    for name, g, want, second in zip(names, got, ref.moe_matmul_bwd_ref(buf, w, dout), again):
+        close_to_max(name, g, want, 1e-4)
+        assert torch.equal(g, second), name
+
+
+@pytest.mark.parametrize("E", [2, 40])  # 64 x 64 tiles (128 x 128 would leave SMs idle), 128 x 128
+def test_moe_matmul_backward_f32_route_refuses_a_plan_not_its_own(cuda, E):
+    C, D, F = 256, 512, 1536
+    buf, w = torch.zeros(E, C, D, device=cuda), torch.zeros(E, D, F, device=cuda)
+    dout = torch.zeros(E, C, F, device=cuda)
+    plan = moe_mod.bwd_plan(E, C, D, F, torch.float32)
+    other = moe_mod.bwd_plan(42 - E, C, D, F, torch.float32)  # the other case's tiles
+    stream = torch._C._cuda_getCurrentRawStream(cuda.index or 0)
+    for which, lp, (a, b), out in ((0, plan.dbuf, (dout, w), torch.empty(E, C, D, device=cuda)),
+                                   (1, plan.dw, (buf, dout), torch.empty(E, D, F, device=cuda))):
+        assert lp.route == "tf32x3" and lp.block_m == (64 if E == 2 else 128)
+        for bad in (dataclasses.replace(lp, route="fma"), dataclasses.replace(lp, route="wgmma"),
+                    dataclasses.replace(lp, block_n=192 - lp.block_n),  # the other tile
+                    dataclasses.replace(lp, threads=384 - lp.threads),
+                    dataclasses.replace(lp, grid=(lp.grid[0] + 1, 1, 1)),
+                    dataclasses.replace(lp, smem_bytes=lp.smem_bytes - 1024),
+                    getattr(other, ("dbuf", "dw")[which])):
+            err = moe_mod._bwd_entry()(which, 0, moe_mod._plan_args(bad), a.data_ptr(), b.data_ptr(),
+                                       out.data_ptr(), E, C, D, F, stream)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                _build.check("moe_matmul", err)
 
 
 # (BNC, H, Q, hd, N): mamba2 and hymba at 2 x 512 (four chunks of 256), the reduced configs,

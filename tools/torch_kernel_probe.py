@@ -10,7 +10,6 @@
     python3 tools/torch_kernel_probe.py ssd-parts   # B8's main launch with parts taken out
     python3 tools/torch_kernel_probe.py bwd-parts   # the bf16 flash backward with parts taken out
     python3 tools/torch_kernel_probe.py moe-bwd-tiles  # moe_matmul's bf16 backward at each tile width
-    python3 tools/torch_kernel_probe.py moe-bwd-fma    # its f32 dbuf at one and two blocks an SM
     python3 tools/torch_kernel_probe.py rms-parts      # the wide RMSNorm dx with parts taken out
     python3 tools/torch_kernel_probe.py rms-fwd [--parent DIR]  # B1's forward vs the parent's, by plan
     python3 tools/torch_kernel_probe.py ssd-roles   # ssd_intra_chunk's y and state blocks alone
@@ -26,6 +25,7 @@
     python3 tools/torch_kernel_probe.py f32-dp      # the f32 backward's dP sum at 0, 1, 2, 4 k-steps
     python3 tools/torch_kernel_probe.py f32-lo      # the f32 split's lo truncated or rounded
     python3 tools/torch_kernel_probe.py f32-gemm [--parent DIR]  # B3's and B4's f32 routes vs the parent's
+    python3 tools/torch_kernel_probe.py f32-bwd [--parent DIR]  # B7's f32 route (dbuf, dw) vs the parent's
 
 ``time`` checks each kernel against its plain version and times it as
 ``chip_smoke.py`` does (CUDA events behind a device sleep), at the serving
@@ -59,10 +59,6 @@ terms or its dcum.
 ``build/probe`` whose bf16 backward takes one tile width (64, 128 or 256
 columns) for every launch, and times dbuf and dw at granite's two LM
 products at each width beside the plan's own choice, in turns.
-``moe-bwd-fma`` builds variants of ``csrc/moe_matmul.cu`` whose f32
-backward kernel states one or two blocks an SM as its launch bound (the
-kernel as it is states none) and times them beside the kernel at granite's
-f32 LM products, in turns, outputs compared bit for bit.
 ``rms-parts`` builds variants of ``csrc/rmsnorm.cu`` into ``build/probe``
 whose ring-route dx kernel leaves out its dx stores, or its dweight
 partials, or both, and times each beside the whole kernel at [1024, 3200]
@@ -178,6 +174,17 @@ tiles and with parts of its stage loop taken out (variants built into
 ``build/probe``); then it counts each f32 kernel's SASS
 instructions a tensor-core instruction (``cuobjdump -sass``) and times
 ``mma.sync``'s TF32 and bf16 rates in dense loops at 2-16 warps an SM.
+``f32-bwd`` holds B7's f32 route (``"tf32x3"``: dbuf and dw on split TF32)
+against the plain gradients at 1e-4 of each one's largest magnitude, two
+calls bit-identical, at granite's LM gate/up and down (C 256), a phase 10
+rank's reduced step and a ragged C, and times dbuf, dw and both, the median of
+three rounds in turns, beside the parent's kernels (``--parent DIR``, built
+into ``build/probe/f32_bwd/<DIR's name>``: its FMA tiles), ``torch.bmm`` and the
+split-TF32 and FMA-rate bounds; the forward's f32 route too, beside the
+parent's (bit for bit: the backward shares its loaders).  Then, in turns,
+the backward with a grid of one block a tile instead of persistent blocks,
+and without its wgmma (the loads and splits alone), its loads and splits
+(the wgmma alone) or its stores: variants built into ``build/probe``.
 Run from the repository root.
 """
 
@@ -559,48 +566,6 @@ def _use_moe_variant(mk, vdir):
     mk._bwd_entry.cache_clear()
     mk.bwd_plan.cache_clear()
     return mk._bwd_entry()
-
-
-def moe_bwd_fma(gen):
-    from repro_torch.kernels import moe_matmul as mk
-
-    src = (_build.CSRC / "moe_matmul.cu").read_text()
-    bounds = "__launch_bounds__(kFmaThreads)\nmoe_matmul_bwd_fma("
-    if src.count(bounds) != 1:
-        raise RuntimeError("moe_matmul.cu no longer has the launch bound this probe changes")
-    stated = "__launch_bounds__(kFmaThreads, {})\nmoe_matmul_bwd_fma("
-    dirs = _moe_variant_dirs({"as is": src, **{f"{n} block(s) an SM": src.replace(bounds, stated.format(n))
-                                               for n in (1, 2)}}, "moe_bwd_fma")
-    dev = gen.device
-    for E, C, D, Fd, what in MOE_LM:
-        buf = torch.randn(E, C, D, generator=gen, device=dev)
-        w = torch.randn(E, D, Fd, generator=gen, device=dev) * 0.05
-        dout = torch.randn(E, C, Fd, generator=gen, device=dev)
-        calls, outs = {}, {}
-        for label, vdir in dirs.items():
-            _use_moe_variant(mk, vdir)
-            for which in ("dbuf", "dw"):
-                # bound to this variant's entry now: each call below launches its own library
-                entry = mk._bwd_entry()
-                lp = getattr(mk.bwd_plan(E, C, D, Fd, torch.float32), which)
-                a, b = (buf, dout) if which == "dw" else (dout, w)
-                out = torch.empty(*(w.shape if which == "dw" else buf.shape), device=dev)
-                args = (int(which == "dw"), 0, mk._plan_args(lp), a.data_ptr(), b.data_ptr(),
-                        out.data_ptr(), E, C, D, Fd, torch._C._cuda_getCurrentRawStream(dev.index or 0))
-
-                def call(entry=entry, args=args):
-                    err = entry(*args)
-                    if err:
-                        raise RuntimeError(f"moe_matmul_bwd f32 variant launch failed: error {err}")
-                call()
-                calls[(which, label)], outs[(which, label)] = call, out
-        for which in ("dbuf", "dw"):
-            ms = medians({label: calls[(which, label)] for label in dirs})
-            same = all(torch.equal(outs[(which, label)], outs[(which, "as is")]) for label in dirs)
-            print(f"[moe-bwd-fma] E{E} C{C} D{D} F{Fd} {what} f32 {which}: "
-                  + ", ".join(f"{label} {v:.4f} ms" for label, v in ms.items())
-                  + f"; bit-identical: {same}")
-        del buf, w, dout, calls, outs
 
 
 def rms_parts(gen):
@@ -1560,35 +1525,47 @@ F32_ATTN = [  # (B, H, KV, S, Sk, d, causal, what)
 def _kernel_module(name, kernel, cu_text, hopper_text, py_path):
     """A kernel module (the file ``py_path``) whose ``csrc/<kernel>.cu`` is ``cu_text``, built into
     build/probe/<name>."""
+    return _kernel_modules({name: (kernel, cu_text, hopper_text, py_path)})[name]
+
+
+def _kernel_modules(specs):
+    """``_kernel_module`` for each {name: (kernel, cu_text, hopper_text, py_path)}, the nvcc
+    builds run side by side."""
     import importlib.util
     import types
 
-    vdir = ROOT / "build" / "probe" / name
-    vdir.mkdir(parents=True, exist_ok=True)
-    (vdir / f"{kernel}.cu").write_text(cu_text)
-    (vdir / "hopper.cuh").write_text(hopper_text)
+    jobs = {}
     home = (_build.CSRC, _build.BUILD_DIR)
-    _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
     try:
-        job = _build._start(kernel)
+        for name, (kernel, cu_text, hopper_text, _) in specs.items():
+            vdir = ROOT / "build" / "probe" / name
+            vdir.mkdir(parents=True, exist_ok=True)
+            (vdir / f"{kernel}.cu").write_text(cu_text)
+            (vdir / "hopper.cuh").write_text(hopper_text)
+            _build.CSRC, _build.BUILD_DIR = vdir, vdir / "lib"
+            jobs[name] = (_build._start(kernel), _build._library_path(kernel))
+    finally:
+        _build.CSRC, _build.BUILD_DIR = home
+    mods = {}
+    for name, (job, lib_path) in jobs.items():
+        kernel, py_path = specs[name][0], specs[name][3]
         if job is not None:
             with contextlib.redirect_stdout(io.StringIO()):  # ptxas -v reports
                 _build._finish(kernel, job)
-        lib = ctypes.CDLL(str(_build._library_path(kernel)))
-    finally:
-        _build.CSRC, _build.BUILD_DIR = home
+        lib = ctypes.CDLL(str(lib_path))
 
-    def check(what, err):
-        if err:
-            raise RuntimeError(f"{name}'s {what} launch failed: CUDA error {err}")
+        def check(what, err, name=name):
+            if err:
+                raise RuntimeError(f"{name}'s {what} launch failed: CUDA error {err}")
 
-    spec = importlib.util.spec_from_file_location(f"probe_{name.replace('/', '_')}", py_path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod  # its dataclasses look their module up there
-    spec.loader.exec_module(mod)
-    mod._build = types.SimpleNamespace(load=lambda _: lib, check=check, NUM_SMS=_build.NUM_SMS,
-                                       MAX_SMEM_BYTES=_build.MAX_SMEM_BYTES)
-    return mod
+        spec = importlib.util.spec_from_file_location(f"probe_{name.replace('/', '_')}", py_path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod  # its dataclasses look their module up there
+        spec.loader.exec_module(mod)
+        mod._build = types.SimpleNamespace(load=lambda _, lib=lib: lib, check=check, NUM_SMS=_build.NUM_SMS,
+                                           MAX_SMEM_BYTES=_build.MAX_SMEM_BYTES)
+        mods[name] = mod
+    return mods
 
 
 def _flash_module(name, cu_text, hopper_text, py_path):
@@ -2056,6 +2033,162 @@ def _tf_parts(gen):
         del buf, w
 
 
+F32_BWD_MOE = [  # (E, C, D, F, what): B7's f32 launches
+    (40, 256, 1536, 512, "LM gate/up"), (40, 256, 512, 1536, "LM down"),
+    (4, 128, 256, 128, "mesh rank reduced gate/up"), (4, 130, 256, 128, "reduced, ragged C"),
+]
+
+
+def f32_bwd(gen):
+    """B7's f32 route (``"tf32x3"``) held against the plain gradients, two calls bit-identical,
+    and timed, the median of three rounds in turns: dbuf, dw and both beside the parent's
+    kernels (``--parent DIR``: a checkout of the parent commit whose ``csrc/moe_matmul.cu`` is
+    built into build/probe/f32_bwd/<DIR's name> and run through its own module and plans) and
+    ``torch.bmm``; the forward's f32 route beside the parent's, bit for bit.  Then the
+    backward's variants (``_tf_bwd_variants``) in turns."""
+    from chip_smoke import F32_TOL, moe_fma_ms
+    from repro_torch.kernels import moe_matmul as mk
+
+    parent = Path(sys.argv[sys.argv.index("--parent") + 1]).resolve() if "--parent" in sys.argv else None
+    mk._entry(), mk._bwd_entry()  # this tree's kernels first
+    specs = _tf_bwd_variant_specs()
+    if parent is not None:
+        pk = parent / "src" / "repro_torch" / "kernels"
+        specs[f"f32_bwd/{parent.name}"] = ("moe_matmul", (pk / "csrc" / "moe_matmul.cu").read_text(),
+                                           (pk / "csrc" / "hopper.cuh").read_text(), pk / "moe_matmul.py")
+    mods = _kernel_modules(specs)
+    pm = mods.pop(f"f32_bwd/{parent.name}", None) if parent is not None else None
+    print(f"[f32-bwd] repro_torch from {Path(mk.__file__).resolve().parents[2]}"
+          + (f"; the parent's from {parent}" if parent else ""))
+    dev, tol = gen.device, GRAD_TOL["float32"]
+    for E, C, D, F, what in F32_BWD_MOE:
+        buf = torch.randn(E, C, D, generator=gen, device=dev)
+        w = torch.randn(E, D, F, generator=gen, device=dev) * 0.05
+        dout = torch.randn(E, C, F, generator=gen, device=dev)
+        plan = mk.bwd_plan(E, C, D, F, torch.float32)
+        got, again = mk.moe_matmul_bwd(buf, w, dout), mk.moe_matmul_bwd(buf, w, dout)
+        want = ref.moe_matmul_bwd_ref(buf, w, dout)
+        errs = [grad_err(f"f32 {n} {what}", a, b, tol)[1] for n, a, b in zip(("dbuf", "dw"), got, want)]
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"moe_matmul_bwd f32 {what}: two calls differ")
+        calls = {"dbuf": lambda: mk.moe_matmul_bwd(buf, w, dout, dw=False),
+                 "dw": lambda: mk.moe_matmul_bwd(buf, w, dout, dbuf=False),
+                 "both": lambda: mk.moe_matmul_bwd(buf, w, dout),
+                 "bmm dout w^T": lambda: torch.bmm(dout, w.transpose(1, 2)),
+                 "bmm buf^T dout": lambda: torch.bmm(buf.transpose(1, 2), dout)}
+        if pm is not None:
+            for n, a, b in zip(("dbuf", "dw"), pm.moe_matmul_bwd(buf, w, dout), want):
+                grad_err(f"the parent's f32 {n} {what}", a, b, tol)
+            calls.update({"parent dbuf": lambda: pm.moe_matmul_bwd(buf, w, dout, dw=False),
+                          "parent dw": lambda: pm.moe_matmul_bwd(buf, w, dout, dbuf=False),
+                          "parent both": lambda: pm.moe_matmul_bwd(buf, w, dout)})
+        ms = medians(calls)
+        b_dbuf, b_dw, _ = moe_bwd_bounds(E, C, D, F, 4)
+        print(f"[f32-bwd] moe_matmul_bwd E{E} C{C} D{D} F{F} {what}: dbuf {plan.dbuf.block_m} x "
+              f"{plan.dbuf.block_n} grid {plan.dbuf.grid[0]} for {plan.dbuf.tiles} tiles, dw "
+              f"{plan.dw.block_m} x {plan.dw.block_n} grid {plan.dw.grid[0]} for {plan.dw.tiles} tiles; "
+              + ", ".join(f"{n} {t:.4f}" for n, t in ms.items())
+              + f" ms; bound {b_dbuf[0]:.4f} / {b_dw[0]:.4f} ({b_dbuf[1]} / {b_dw[1]}, split TF32), FMA "
+              f"{moe_fma_ms(E, C, D, F):.4f}; {100 * b_dbuf[0] / ms['dbuf']:.1f}% / "
+              f"{100 * b_dw[0] / ms['dw']:.1f}% of the bound; bmm / kernel "
+              f"{ms['bmm dout w^T'] / ms['dbuf']:.3f} / {ms['bmm buf^T dout'] / ms['dw']:.3f}; err "
+              f"{errs[0]:.2e} / {errs[1]:.2e} of the largest (tol {tol}); two calls bit-identical")
+        if pm is not None and C > 64:  # the forward, whose loaders the backward shares
+            fwd = mk.moe_matmul(buf, w)
+            if not torch.equal(fwd, pm.moe_matmul(buf, w)):
+                raise AssertionError(f"moe_matmul f32 {what}: not the parent's bits")
+            assert_close(f"moe_matmul f32 {what}", fwd, ref.moe_matmul_ref(buf, w), F32_TOL)
+            fms = medians({"forward": lambda: mk.moe_matmul(buf, w),
+                           "parent forward": lambda: pm.moe_matmul(buf, w)})
+            print(f"[f32-bwd] moe_matmul E{E} C{C} D{D} F{F} {what}: "
+                  + ", ".join(f"{n} {t:.4f}" for n, t in fms.items()) + " ms; the parent's bits")
+        del buf, w, dout, got, again, want
+    _tf_bwd_variants(gen, mods)
+
+
+TF_BWD_VARIANTS = {"tf_bwd/tiles": "a block a tile", "tf_bwd/no_wgmma": "no wgmma",
+                   "tf_bwd/wgmma_alone": "wgmma alone", "tf_bwd/no_stores": "no stores"}
+
+
+def _tf_bwd_variant_specs():
+    """B7's f32 route as variants of csrc/moe_matmul.cu (and moe_matmul.py), for
+    ``_kernel_modules`` to build into build/probe/tf_bwd/<name>: one block a tile (a grid of
+    every tile, no persistent walk), and without the stage loop's wgmma (the loads and splits
+    alone), its loads and splits (the wgmma alone, on whatever the planes hold) or its
+    accumulators' stores."""
+    from repro_torch.kernels import moe_matmul as mk
+
+    cu = (_build.CSRC / "moe_matmul.cu").read_text()
+    py_path = Path(mk.__file__)
+    py = py_path.read_text()
+    blocks_cu, blocks_py = "constexpr int kBwdWideBlocks = 1, kBwdSmallBlocks = 2;", "TF_BWD_BLOCKS = {128: 1, 64: 2}"
+    head, marker, tail = cu.partition("moe_matmul_bwd_tf32x3(const float* __restrict__ a")
+    lines = {"products": "      if (st > 0) stage_products<S>(part, planes + (u ^ 1) * S::planes, wg);\n",
+             "split": "        A.split(planes + u * S::planes, va[u]);\n"
+                      "        B.split(planes + u * S::planes + 2 * S::plane_a, vb[u]);\n",
+             "loads": "      if (st + 2 < total) load_next(va[u], vb[u]);  // two stages ahead, into the next tile at its end\n",
+             "stores": "          store_tile_tma<BN>(&to, staging, acc, ot % m_tiles * BM, ot / m_tiles % n_tiles * BN,\n"
+                       "                             ot / (m_tiles * n_tiles), M, N);\n"}
+    if (cu.count(blocks_cu) != 1 or py.count(blocks_py) != 1 or not marker
+            or any(tail.count(line) != 1 for line in lines.values())):
+        raise RuntimeError("moe_matmul no longer has the lines this probe changes")
+    hop = (_build.CSRC / "hopper.cuh").read_text()
+
+    def without(*parts):
+        t = tail
+        for part in parts:
+            t = t.replace(lines[part], "")
+        return head + marker + t
+
+    vdir = ROOT / "build" / "probe" / "tf_bwd"
+    vdir.mkdir(parents=True, exist_ok=True)
+    (vdir / "moe_matmul.py").write_text(py.replace(blocks_py, "TF_BWD_BLOCKS = {128: 1 << 20, 64: 1 << 20}"))
+    return {
+        "tf_bwd/tiles": ("moe_matmul", cu.replace(
+            blocks_cu, "constexpr int kBwdWideBlocks = 1 << 20, kBwdSmallBlocks = 1 << 20;"), hop,
+            vdir / "moe_matmul.py"),
+        "tf_bwd/no_wgmma": ("moe_matmul", without("products"), hop, py_path),
+        "tf_bwd/wgmma_alone": ("moe_matmul", without("split", "loads"), hop, py_path),
+        # the sums kept by a shared-memory store that never runs: ptxas drops a wgmma whose
+        # result nothing reads
+        "tf_bwd/no_stores": ("moe_matmul", head + marker + tail.replace(lines["stores"], (
+            "          float sum = 0.f;\n"
+            "          for (int i = 0; i < BN / 2; ++i) sum += acc[i];\n"
+            "          if (sum == 1e30f) staging[threadIdx.x] = 1;\n")), hop, py_path),
+    }
+
+
+def _tf_bwd_variants(gen, mods):
+    """The variants of ``_tf_bwd_variant_specs`` (built: ``mods``), each timed beside the kernel
+    at F32_BWD_MOE's shapes, dbuf and dw apart, in turns; one block a tile checked bit-identical
+    to the kernel, the others' outputs wrong by design."""
+    from repro_torch.kernels import moe_matmul as mk
+
+    variants = {label: mods[name] for name, label in TF_BWD_VARIANTS.items()}
+    for name, label in TF_BWD_VARIANTS.items():  # what each variant's kernels still run
+        lib = next((ROOT / "build" / "probe" / name / "lib").glob("libmoe_matmul-*.so"))
+        for kname, ops_ in _sass_per_mma(lib, "moe_matmul_bwd_tf32x3"):
+            print(f"[f32-bwd] sass {label}: {kname[:70]}: {ops_['HGMMA']} HGMMA, {ops_['LDG']} LDG, "
+                  f"{ops_['UTMASTG'] + ops_['STG']} global stores, {sum(ops_.values())} instructions")
+    dev = gen.device
+    for E, C, D, F, what in F32_BWD_MOE:
+        buf = torch.randn(E, C, D, generator=gen, device=dev)
+        w = torch.randn(E, D, F, generator=gen, device=dev) * 0.05
+        dout = torch.randn(E, C, F, generator=gen, device=dev)
+        tiles = variants["a block a tile"]
+        grid = {n: getattr(tiles.bwd_plan(E, C, D, F, torch.float32), n).grid[0] for n in ("dbuf", "dw")}
+        if not all(torch.equal(a, b) for a, b in zip(tiles.moe_matmul_bwd(buf, w, dout),
+                                                      mk.moe_matmul_bwd(buf, w, dout))):
+            raise AssertionError(f"moe_matmul_bwd f32 {what}: a block a tile gives other bits")
+        for which, kw in (("dbuf", {"dw": False}), ("dw", {"dbuf": False})):
+            ms = medians({"kernel": lambda kw=kw: mk.moe_matmul_bwd(buf, w, dout, **kw),
+                          **{n: (lambda m=m, kw=kw: m.moe_matmul_bwd(buf, w, dout, **kw))
+                             for n, m in variants.items()}})
+            print(f"[f32-bwd] tf32x3 {which} variants E{E} C{C} D{D} F{F} {what} (a block a tile: grid "
+                  f"{grid[which]}): " + ", ".join(f"{n} {t:.4f}" for n, t in ms.items()) + " ms")
+        del buf, w, dout
+
+
 def _ssd_heads_call(x, b, c, cum, g):
     """ssd_intra_chunk's f32 route at g heads a y block (the entry takes 1 or 2 with the grid
     they make), as a call returning (y, state)."""
@@ -2078,12 +2211,12 @@ def _ssd_heads_call(x, b, c, cum, g):
 def main() -> int:
     modes = {"time": time_kernels, "moe": time_moe, "moe-parts": moe_parts, "bwd": time_backward,
              "ssd-bwd": time_ssd_bwd, "ssd-sass": ssd_sass, "ssd-parts": ssd_parts, "bwd-parts": bwd_parts, "ssd-roles": ssd_roles, "ssm-check": ssm_check,
-             "moe-bwd-tiles": moe_bwd_tiles, "moe-bwd-fma": moe_bwd_fma, "rms-parts": rms_parts,
+             "moe-bwd-tiles": moe_bwd_tiles, "rms-parts": rms_parts,
              "live-rate": live_rate, "cross": time_cross, "fwd-bounds": fwd_bounds,
              "cross-parts": cross_parts, "cross-bwd": time_cross_bwd, "cross-bwd-parts": cross_bwd_parts,
              "rms-fwd": rms_fwd, "f32-attn": f32_attn, "f32-sass": f32_sass,
-             "f32-dp": f32_dp, "f32-lo": f32_lo, "f32-gemm": f32_gemm}
-    flag = "--parent" if sys.argv[1:2] in (["rms-fwd"], ["f32-attn"], ["f32-gemm"]) else "--tree"
+             "f32-dp": f32_dp, "f32-lo": f32_lo, "f32-gemm": f32_gemm, "f32-bwd": f32_bwd}
+    flag = "--parent" if sys.argv[1] in ("rms-fwd", "f32-attn", "f32-gemm", "f32-bwd") else "--tree"
     if len(sys.argv) not in (2, 4) or sys.argv[1] not in modes or (len(sys.argv) == 4 and sys.argv[2] != flag):
         print(__doc__, file=sys.stderr)
         return 2
